@@ -1,0 +1,215 @@
+// Shared device helpers for the MP-HSIR Hopper kernels.
+//
+// Every kernel runs 512 threads per block over one 8x8 pixel tile (or one
+// 8x8 attention window) and keeps its working set in shared memory as float32.
+// Products go through gemm<T>: warp-level mma.sync on the tensor cores for
+// bf16, block-level loops over 4x4 register tiles (SIMT FMA) for float32
+// (conv3 runs 256 threads: its SIMT loop measured slower at 512).
+// wgmma and TMA are later work; see PERF.md for the gap to each bound.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace mp {
+
+constexpr int kThreads = 512;  // 16 warps: enough in flight to hide load latency
+constexpr int kTile = 8;              // tile side in pixels
+constexpr int kPix = kTile * kTile;   // pixels per tile
+constexpr int kHalo = kTile + 2;      // tile side with the 3x3 halo
+constexpr int kHaloPix = kHalo * kHalo;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+// round a float to T's precision (the points where the JAX kernels cast to
+// the compute dtype)
+template <typename T> __device__ __forceinline__ float rnd(float v) { return to_f(from_f<T>(v)); }
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float gelu_erf(float x) {
+  return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
+}
+
+// Block-wide product: for every i < M, j < N calls epi(i, j, sum_k la(i, k) *
+// lb(k, j)), each (i, j) from exactly one thread. Thread t owns 4x4 output
+// tiles t, t + blockDim.x, ...; neighbouring threads take neighbouring column tiles
+// so that lb reads of a row-major [K][N] operand coalesce.
+template <typename LA, typename LB, typename Epi>
+__device__ __forceinline__ void block_gemm(int M, int N, int K, LA la, LB lb, Epi epi) {
+  const int tiles_n = (N + 3) >> 2;
+  const int tiles = ((M + 3) >> 2) * tiles_n;
+  for (int t = threadIdx.x; t < tiles; t += blockDim.x) {
+    const int i0 = (t / tiles_n) << 2;
+    const int j0 = (t % tiles_n) << 2;
+    float acc[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+    const int mr = min(4, M - i0);
+    const int nc = min(4, N - j0);
+    for (int k = 0; k < K; ++k) {
+      float a[4], b[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) a[r] = r < mr ? la(i0 + r, k) : 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) b[c] = c < nc ? lb(k, j0 + c) : 0.f;
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (r < mr && c < nc) epi(i0 + r, j0 + c, acc[r][c]);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// D = A (16x16, row) * B (16x8, col) + D on the tensor cores, bf16 in, f32 sum.
+__device__ __forceinline__ void mma_16x8x16(float* d, uint32_t a0, uint32_t a1, uint32_t a2,
+                                            uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Same contract as block_gemm, on the tensor cores: each warp owns 16x32
+// output tiles (four m16n8k16 products per 16-deep step). Operands are
+// packed to bf16 as they are read, so every value la / lb return must
+// already be bf16-exact (the kernels round there anyway); the sums are
+// float32. Rows, columns and depth past M, N, K read as zeros.
+template <typename LA, typename LB, typename Epi>
+__device__ __forceinline__ void block_gemm_mma(int M, int N, int K, LA la, LB lb, Epi epi) {
+  constexpr int NB = 4;  // n8 sub-tiles per warp tile
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int tiles_n = (N + 8 * NB - 1) / (8 * NB);
+  const int tiles = ((M + 15) >> 4) * tiles_n;
+  for (int tile = threadIdx.x >> 5; tile < tiles; tile += blockDim.x >> 5) {
+    const int i0 = (tile / tiles_n) << 4, j0 = (tile % tiles_n) * 8 * NB;
+    const int r0 = i0 + g, r1 = r0 + 8;
+    float c[NB][4];
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) c[nb][q] = 0.f;
+    auto A = [&](int r, int k) { return (r < M && k < K) ? la(r, k) : 0.f; };
+    for (int k0 = 0; k0 < K; k0 += 16) {
+      const int ka = k0 + 2 * t, kb = ka + 8;
+      const uint32_t a0 = pack_bf16x2(A(r0, ka), A(r0, ka + 1));
+      const uint32_t a1 = pack_bf16x2(A(r1, ka), A(r1, ka + 1));
+      const uint32_t a2 = pack_bf16x2(A(r0, kb), A(r0, kb + 1));
+      const uint32_t a3 = pack_bf16x2(A(r1, kb), A(r1, kb + 1));
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        if (j0 + nb * 8 >= N) break;  // warp-uniform
+        const int col = j0 + nb * 8 + g;
+        auto B = [&](int k) { return (col < N && k < K) ? lb(k, col) : 0.f; };
+        mma_16x8x16(c[nb], a0, a1, a2, a3, pack_bf16x2(B(ka), B(ka + 1)),
+                    pack_bf16x2(B(kb), B(kb + 1)));
+      }
+    }
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      const int col = j0 + nb * 8 + 2 * t;
+      if (r0 < M && col < N) epi(r0, col, c[nb][0]);
+      if (r0 < M && col + 1 < N) epi(r0, col + 1, c[nb][1]);
+      if (r1 < M && col < N) epi(r1, col, c[nb][2]);
+      if (r1 < M && col + 1 < N) epi(r1, col + 1, c[nb][3]);
+    }
+  }
+}
+
+// The kernels' product: tensor cores for bf16, SIMT FMA for float32 (whose
+// results the float32 checks hold to 1e-4 of the plain version).
+template <typename T, typename LA, typename LB, typename Epi>
+__device__ __forceinline__ void gemm(int M, int N, int K, LA la, LB lb, Epi epi) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    block_gemm_mma(M, N, K, la, lb, epi);
+  } else {
+    block_gemm(M, N, K, la, lb, epi);
+  }
+}
+
+// LayerNorm of `rows` rows of width C held in shared memory (row stride ld),
+// in place, one warp per row; `valid(i)` false rows are set to zero (the
+// out-of-image halo is zero in normalised space). Result rounded to T.
+template <typename T, typename Valid>
+__device__ __forceinline__ void ln_rows_inplace(float* s, int ld, int rows, int C,
+                                                const float* __restrict__ w,
+                                                const float* __restrict__ b, float eps,
+                                                Valid valid) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  for (int i = warp; i < rows; i += nwarps) {
+    float* row = s + i * ld;
+    if (!valid(i)) {
+      for (int k = lane; k < C; k += 32) row[k] = 0.f;
+      continue;
+    }
+    float sum = 0.f;
+    for (int k = lane; k < C; k += 32) sum += row[k];
+    const float mu = warp_sum(sum) / C;
+    float var = 0.f;
+    for (int k = lane; k < C; k += 32) {
+      const float d = row[k] - mu;
+      var += d * d;
+    }
+    const float rs = rsqrtf(warp_sum(var) / C + eps);
+    for (int k = lane; k < C; k += 32) row[k] = rnd<T>((row[k] - mu) * rs * w[k] + b[k]);
+  }
+}
+
+// One 8x8 tile of a 3x3 depthwise conv with zero padding: src holds the
+// 10x10 halo ([kHaloPix][lds]) of `nc` channels, dst gets [kPix][ldd];
+// tap weight of channel j at tap t is wtap(t, j). epi(p, j, acc) stores.
+template <typename WT, typename Epi>
+__device__ __forceinline__ void dwconv3_tile(const float* src, int lds, int nc, WT wtap, Epi epi) {
+  for (int idx = threadIdx.x; idx < kPix * nc; idx += blockDim.x) {
+    const int p = idx / nc, j = idx - p * nc;
+    const int pr = p >> 3, pc = p & 7;
+    float acc = 0.f;
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx)
+        acc = fmaf(src[((pr + dy) * kHalo + pc + dx) * lds + j], wtap(dy * 3 + dx, j), acc);
+    epi(p, j, acc);
+  }
+}
+
+inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+template <typename K>
+inline cudaError_t set_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+}  // namespace mp

@@ -1,0 +1,148 @@
+// LayerNorm + gated depthwise-conv feed-forward network (Restormer GDFN) over
+// an NHWC map: LN -> 1x1 (C -> 2*hidden) -> 3x3 depthwise -> gelu(x1) * x2 ->
+// 1x1 (hidden -> C) [+ x] [-> trailing 1x1 (C -> Co), PromptFusion's exit conv].
+//
+// Replaces _gdfn_kernel (mp_hsir_tpu/ops/pallas_attention.py:1274, K5). As
+// there, the halo rows are zeroed after the LayerNorm (LN(0) = bias != 0), the
+// 1x1 output and the depthwise taps stay float32, and the gated product is
+// rounded to the compute type before project_out. GELU is the exact erf form
+// (the TPU kernel's polynomial is a Mosaic workaround, 1.5e-6 from it).
+//
+// One block = one 8x8 tile; the hidden width is walked in chunks of 32 units
+// of each half, so the 2*hidden-wide intermediate never leaves shared memory.
+// Bound on this card: 6*C*hidden + 2*C*Co flops per pixel (plus the halo
+// recompute) against (C + Co) elements of traffic: tensor-core rate bounds
+// it. bf16 products run as mma.sync, float32 ones as SIMT FMA (common.cuh
+// gemm; PERF.md).
+#include "common.cuh"
+
+namespace mp {
+
+constexpr int kGC = 32;  // hidden chunk
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+gdfn_kernel(const T* __restrict__ x, const float* __restrict__ lnw, const float* __restrict__ lnb,
+            const T* __restrict__ win, const T* __restrict__ wdw, const T* __restrict__ wout,
+            const T* __restrict__ wproj, int Co, int residual, T* __restrict__ out, int H, int W,
+            int C, int hid, float eps) {
+  extern __shared__ float sm[];
+  const int ldx = C + 1, ldt = 2 * kGC + 1, ldg = kGC + 1;
+  float* xs = sm;                    // [100][ldx] LN(x) halo
+  float* ts = xs + kHaloPix * ldx;   // [100][ldt] project_in chunk: x1 | x2
+  float* gs = ts + kHaloPix * ldt;   // [64][ldg] gelu(x1) * x2
+  float* acc = gs + kPix * ldg;      // [64][ldx] project_out accumulator
+  const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
+  const int H2 = 2 * hid;
+
+  auto inside = [&](int p) {
+    const int r = ty * kTile + p / kHalo - 1, c = tx * kTile + p % kHalo - 1;
+    return r >= 0 && r < H && c >= 0 && c < W;
+  };
+  for (int idx = threadIdx.x; idx < kHaloPix * C; idx += blockDim.x) {
+    const int p = idx / C, k = idx - p * C;
+    const int r = ty * kTile + p / kHalo - 1, c = tx * kTile + p % kHalo - 1;
+    xs[p * ldx + k] = inside(p) ? to_f(x[(((size_t)b * H + r) * W + c) * C + k]) : 0.f;
+  }
+  for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
+    const int p = idx / C, k = idx - p * C;
+    acc[p * ldx + k] = 0.f;
+  }
+  __syncthreads();
+  ln_rows_inplace<T>(xs, ldx, kHaloPix, C, lnw, lnb, eps, inside);
+  __syncthreads();
+
+  for (int j0 = 0; j0 < hid; j0 += kGC) {
+    const int hc = min(kGC, hid - j0);
+    // column j < hc: x1 unit j0 + j; j >= hc: x2 unit hid + j0 + j - hc
+    gemm<T>(kHaloPix, 2 * hc, C,
+        [&](int i, int k) { return xs[i * ldx + k]; },
+        [&](int k, int j) {
+          const int col = j < hc ? j0 + j : hid + j0 + (j - hc);
+          return to_f(win[(size_t)k * H2 + col]);
+        },
+        [&](int i, int j, float a) { ts[i * ldt + (j < hc ? j : kGC + j - hc)] = a; });
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < kPix * hc; idx += blockDim.x) {
+      const int p = idx / hc, j = idx - p * hc;
+      const int pr = p >> 3, pc = p & 7;
+      float a1 = 0.f, a2 = 0.f;
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          const float* t = ts + ((pr + dy) * kHalo + pc + dx) * ldt;
+          const int tap = dy * 3 + dx;
+          a1 = fmaf(t[j], to_f(wdw[tap * H2 + j0 + j]), a1);
+          a2 = fmaf(t[kGC + j], to_f(wdw[tap * H2 + hid + j0 + j]), a2);
+        }
+      gs[p * ldg + j] = rnd<T>(gelu_erf(a1) * a2);
+    }
+    __syncthreads();
+    gemm<T>(kPix, C, hc,
+        [&](int i, int k) { return gs[i * ldg + k]; },
+        [&](int k, int j) { return to_f(wout[(size_t)(j0 + k) * C + j]); },
+        [&](int i, int j, float a) { acc[i * ldx + j] += a; });
+    __syncthreads();
+  }
+
+  for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
+    const int p = idx / C, k = idx - p * C;
+    float v = acc[p * ldx + k];
+    if (residual) {
+      const int r = ty * kTile + (p >> 3), c = tx * kTile + (p & 7);
+      v += to_f(x[(((size_t)b * H + r) * W + c) * C + k]);
+    }
+    acc[p * ldx + k] = rnd<T>(v);
+  }
+  __syncthreads();
+  if (wproj != nullptr) {
+    gemm<T>(kPix, Co, C,
+        [&](int i, int k) { return acc[i * ldx + k]; },
+        [&](int k, int j) { return to_f(wproj[(size_t)k * Co + j]); },
+        [&](int i, int j, float a) {
+          const int r = ty * kTile + (i >> 3), c = tx * kTile + (i & 7);
+          out[(((size_t)b * H + r) * W + c) * Co + j] = from_f<T>(a);
+        });
+  } else {
+    for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
+      const int p = idx / C, k = idx - p * C;
+      const int r = ty * kTile + (p >> 3), c = tx * kTile + (p & 7);
+      out[(((size_t)b * H + r) * W + c) * C + k] = from_f<T>(acc[p * ldx + k]);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_gdfn(const void* x, const float* lnw, const float* lnb, const void* win,
+                        const void* wdw, const void* wout, const void* wproj, int Co,
+                        int residual, void* out, int B, int H, int W, int C, int hid, float eps,
+                        cudaStream_t stream) {
+  const size_t smem = sizeof(float) * ((size_t)kHaloPix * (C + 1) + (size_t)kHaloPix * (2 * kGC + 1) +
+                                       (size_t)kPix * (kGC + 1) + (size_t)kPix * (C + 1));
+  cudaError_t err = set_smem(gdfn_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  gdfn_kernel<T><<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
+      (const T*)x, lnw, lnb, (const T*)win, (const T*)wdw, (const T*)wout, (const T*)wproj, Co,
+      residual, (T*)out, H, W, C, hid, eps);
+  return cudaGetLastError();
+}
+
+}  // namespace mp
+
+// x (B, H, W, C); LN float32; win [C][2*hid], wdw [9][2*hid], wout [hid][C],
+// wproj [C][Co] or NULL, all in the compute type. Output (B, H, W, Co), with
+// Co = C when wproj is NULL.
+extern "C" int mp_gdfn(const void* x, const void* lnw, const void* lnb, const void* win,
+                       const void* wdw, const void* wout, const void* wproj, void* out,
+                       int dtype, int B, int H, int W, int C, int hid, int Co, int residual,
+                       float eps, void* stream) {
+  if (H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
+  auto st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return (int)mp::launch_gdfn<float>(x, (const float*)lnw, (const float*)lnb, win, wdw, wout,
+                                       wproj, Co, residual, out, B, H, W, C, hid, eps, st);
+  return (int)mp::launch_gdfn<__nv_bfloat16>(x, (const float*)lnw, (const float*)lnb, win, wdw,
+                                             wout, wproj, Co, residual, out, B, H, W, C, hid,
+                                             eps, st);
+}

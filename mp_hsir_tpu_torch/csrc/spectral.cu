@@ -1,0 +1,359 @@
+// Spectral (C x C transposed, MDTA) attention over an NHWC map, in two
+// launches around a small fold done in PyTorch:
+//
+//   mp_spectral_stats  q, k = dw3x3(1x1([LN] x)); per-head Gram q^T k and the
+//                      squared norms of q and k, summed over all pixels.
+//   (fold, PyTorch)    comb = softmax(Gram / (|q| |k|) * temp) folded with the
+//                      output projection into one C x C matrix.
+//   mp_spectral_apply  v = dw3x3(1x1([LN] x)); out = v @ comb plus the
+//                      epilogue: [x * gate] [+ x] [+ shortcut], then optionally
+//                      the PGSSTB tail out + fc2(a * gelu(g)), [a|g] = fc1(LN2(out)).
+//
+// Replaces _spectral_kernel (mp_hsir_tpu/ops/pallas_attention.py:1429, K2: the
+// stats launch is its phase 0, the apply launch its phase 1) and the spectral
+// half of _nhwc_sp0_kernel (:362, K3). The TPU grid carries the Gram sums from
+// step to step in scratch; Hopper blocks run in no order, so each block writes
+// its partial sums over a fixed range of tiles and a second small kernel adds
+// the partials in a fixed order: the result is deterministic, with no float
+// atomics. `shift` > 0: the input is the rolled-frame window-attention output
+// of a shifted block; both launches read it through the (+shift, +shift)
+// roll-back (the unrolled frame, where the dwconv zero padding lives) and the
+// apply launch indexes the per-window gate through the roll.
+//
+// Bound on this card: 4C^2 + 6C*hidden flops per pixel in the apply launch and
+// 4C^2 + 2C*dh in the stats launch against ~4C bytes per pixel: tensor-core
+// rate bounds both at these widths. bf16 products run as mma.sync on the
+// tensor cores, float32 ones as SIMT FMA (common.cuh gemm; PERF.md).
+#include "common.cuh"
+
+namespace mp {
+
+// Loads the 10x10 halo of tile (ty, tx) of the logical input cat(x1, x2) in the
+// unrolled frame into s ([kHaloPix][ld]), zero outside the image, then applies
+// the optional LayerNorm (zero rows stay zero, as in the JAX kernels, which
+// mask after normalising).
+template <typename T>
+__device__ __forceinline__ void load_halo(float* s, int ld, const T* __restrict__ x1,
+                                          const T* __restrict__ x2, int C1, int C2, int b,
+                                          int ty, int tx, int H, int W, int shift,
+                                          const float* lnw, const float* lnb, float eps) {
+  const int C = C1 + C2;
+  for (int idx = threadIdx.x; idx < kHaloPix * C; idx += blockDim.x) {
+    const int p = idx / C, k = idx - p * C;
+    const int ur = ty * kTile + p / kHalo - 1, uc = tx * kTile + p % kHalo - 1;
+    float v = 0.f;
+    if (ur >= 0 && ur < H && uc >= 0 && uc < W) {
+      const int sr = (ur - shift + H) % H, sc = (uc - shift + W) % W;
+      const size_t pix = ((size_t)b * H + sr) * W + sc;
+      v = k < C1 ? to_f(x1[pix * C1 + k]) : to_f(x2[pix * C2 + (k - C1)]);
+    }
+    s[p * ld + k] = v;
+  }
+  if (lnw != nullptr) {
+    __syncthreads();
+    ln_rows_inplace<T>(s, ld, kHaloPix, C, lnw, lnb, eps, [&](int p) {
+      const int ur = ty * kTile + p / kHalo - 1, uc = tx * kTile + p % kHalo - 1;
+      return ur >= 0 && ur < H && uc >= 0 && uc < W;
+    });
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+spectral_stats_kernel(const T* __restrict__ x1, const T* __restrict__ x2, int C1, int C2,
+                      const float* __restrict__ lnw, const float* __restrict__ lnb,
+                      const T* __restrict__ wqkv, const T* __restrict__ wdw, int H, int W,
+                      int nH, int shift, float eps, int tiles_per_part, float* __restrict__ pg,
+                      float* __restrict__ pnq, float* __restrict__ pnk) {
+  extern __shared__ float sm[];
+  const int C = C1 + C2, C3 = 3 * C, dh = C / nH;
+  const int ldx = C + 1, ldt = 2 * dh + 1;
+  float* xs = sm;                     // [100][ldx] halo input
+  float* ts = xs + kHaloPix * ldx;    // [100][ldt] 1x1 output, q|k of one head
+  float* qk = ts + kHaloPix * ldt;    // [64][ldt] q|k after the dwconv
+  float* gacc = qk + kPix * ldt;      // [C*dh] Gram partial, [h][d][e]
+  float* nacc = gacc + C * dh;        // [2C] |q|^2, |k|^2 partials
+  const int part = blockIdx.x, b = blockIdx.y, n_parts = gridDim.x;
+  const int tiles_w = W / kTile, n_tiles = (H / kTile) * tiles_w;
+
+  for (int i = threadIdx.x; i < C * dh; i += blockDim.x) gacc[i] = 0.f;
+  for (int i = threadIdx.x; i < 2 * C; i += blockDim.x) nacc[i] = 0.f;
+
+  const int t_end = min(n_tiles, (part + 1) * tiles_per_part);
+  for (int t = part * tiles_per_part; t < t_end; ++t) {
+    __syncthreads();
+    load_halo<T>(xs, ldx, x1, x2, C1, C2, b, t / tiles_w, t % tiles_w, H, W, shift, lnw, lnb, eps);
+    __syncthreads();
+    for (int h = 0; h < nH; ++h) {
+      // column j < dh: q channel h*dh + j; j >= dh: k channel C + h*dh + j - dh
+      gemm<T>(kHaloPix, 2 * dh, C,
+          [&](int i, int k) { return xs[i * ldx + k]; },
+          [&](int k, int j) {
+            const int col = j < dh ? h * dh + j : C + h * dh + (j - dh);
+            return to_f(wqkv[(size_t)k * C3 + col]);
+          },
+          [&](int i, int j, float acc) { ts[i * ldt + j] = rnd<T>(acc); });
+      __syncthreads();
+      dwconv3_tile(ts, ldt, 2 * dh,
+          [&](int tap, int j) {
+            const int col = j < dh ? h * dh + j : C + h * dh + (j - dh);
+            return to_f(wdw[tap * C3 + col]);
+          },
+          [&](int p, int j, float acc) { qk[p * ldt + j] = rnd<T>(acc); });
+      __syncthreads();
+      // this tile's Gram: G[d][e] += sum_p q[p][d] k[p][e]; the owner of each
+      // entry is the same thread on every tile, so the sum order is fixed
+      gemm<T>(dh, dh, kPix,
+          [&](int d, int p) { return qk[p * ldt + d]; },
+          [&](int p, int e) { return qk[p * ldt + dh + e]; },
+          [&](int d, int e, float acc) { gacc[(h * dh + d) * dh + e] += acc; });
+      for (int j = threadIdx.x; j < 2 * dh; j += blockDim.x) {
+        float n = 0.f;
+        for (int p = 0; p < kPix; ++p) n = fmaf(qk[p * ldt + j], qk[p * ldt + j], n);
+        nacc[(j < dh ? 0 : C) + h * dh + (j < dh ? j : j - dh)] += n;
+      }
+      __syncthreads();
+    }
+  }
+  __syncthreads();
+  const size_t slot = (size_t)b * n_parts + part;
+  for (int i = threadIdx.x; i < C * dh; i += blockDim.x) pg[slot * C * dh + i] = gacc[i];
+  for (int i = threadIdx.x; i < C; i += blockDim.x) {
+    pnq[slot * C + i] = nacc[i];
+    pnk[slot * C + i] = nacc[C + i];
+  }
+}
+
+// out[b][i] = sum over parts (in order) of part[b][part][i]
+__global__ void sum_parts_kernel(const float* __restrict__ part, float* __restrict__ out,
+                                 int n_parts, int n) {
+  const int b = blockIdx.y;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int p = 0; p < n_parts; ++p) s += part[((size_t)b * n_parts + p) * n + i];
+    out[(size_t)b * n + i] = s;
+  }
+}
+
+// The PGSSTB tail on one 8x8 tile: y[p][o] += fc2(a * gelu(g)) + b2 with
+// [a | g] = fc1(LN2(y)) + b1. y ([kPix][ldy], float32 values already rounded
+// to T) is updated in place; yn ([kPix][ldy]) and hb ([kPix][2*kHC+1]) are
+// scratch. Shared with the standalone MLP kernel of the training slice (K6).
+constexpr int kHC = 64;  // hidden chunk (apply smem at C = 256: 210 KB of 227)
+
+template <typename T>
+__device__ __forceinline__ void mlp_tail_tile(float* y, float* yn, int ldy, float* hb, int C,
+                                              int hid, const float* __restrict__ ln2w,
+                                              const float* __restrict__ ln2b,
+                                              const T* __restrict__ w1,
+                                              const float* __restrict__ b1,
+                                              const T* __restrict__ w2,
+                                              const float* __restrict__ b2, float eps) {
+  const int ldh = 2 * kHC + 1;
+  for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
+    const int p = idx / C, k = idx - p * C;
+    yn[p * ldy + k] = y[p * ldy + k];
+  }
+  __syncthreads();
+  ln_rows_inplace<T>(yn, ldy, kPix, C, ln2w, ln2b, eps, [](int) { return true; });
+  for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
+    const int p = idx / C, k = idx - p * C;
+    y[p * ldy + k] += b2[k];
+  }
+  __syncthreads();
+  for (int j0 = 0; j0 < hid; j0 += kHC) {
+    const int hc = min(kHC, hid - j0);
+    // column j < hc: a-half hidden unit j0 + j; j >= hc: g-half
+    gemm<T>(kPix, 2 * hc, C,
+        [&](int i, int k) { return yn[i * ldy + k]; },
+        [&](int k, int j) {
+          const int col = j < hc ? j0 + j : hid + j0 + (j - hc);
+          return to_f(w1[(size_t)k * 2 * hid + col]);
+        },
+        [&](int i, int j, float acc) {
+          const int col = j < hc ? j0 + j : hid + j0 + (j - hc);
+          hb[i * ldh + (j < hc ? j : kHC + j - hc)] = acc + b1[col];
+        });
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < kPix * hc; idx += blockDim.x) {
+      const int p = idx / hc, j = idx - p * hc;
+      hb[p * ldh + j] = rnd<T>(hb[p * ldh + j] * gelu_erf(hb[p * ldh + kHC + j]));
+    }
+    __syncthreads();
+    gemm<T>(kPix, C, hc,
+        [&](int i, int k) { return hb[i * ldh + k]; },
+        [&](int k, int j) { return to_f(w2[(size_t)(j0 + k) * C + j]); },
+        [&](int i, int j, float acc) { y[i * ldy + j] += acc; });
+    __syncthreads();
+  }
+}
+
+constexpr int kVC = 32;  // v channel chunk
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+spectral_apply_kernel(const T* __restrict__ x1, const T* __restrict__ x2, int C1, int C2,
+                      const float* __restrict__ lnw, const float* __restrict__ lnb,
+                      const T* __restrict__ wqkv, const T* __restrict__ wdw,
+                      const float* __restrict__ comb, const T* __restrict__ gate,
+                      const T* __restrict__ shortcut, int residual,
+                      const float* __restrict__ ln2w, const float* __restrict__ ln2b,
+                      const T* __restrict__ w1, const float* __restrict__ b1,
+                      const T* __restrict__ w2, const float* __restrict__ b2, int hid,
+                      T* __restrict__ out, int H, int W, int shift, float eps) {
+  extern __shared__ float sm[];
+  const int C = C1 + C2, C3 = 3 * C;
+  const int ldx = C + 1, ldv = kVC + 1;
+  float* xs = sm;                     // [100][ldx] halo input; later y [64][ldx]
+  float* vt = xs + kHaloPix * ldx;    // [100][ldv] 1x1 output chunk
+  float* vs = vt + kHaloPix * ldv;    // [64][ldx] v; later LN2(y)
+  float* hb = vs + kPix * ldx;        // [64][2*kHC+1] MLP hidden chunk
+  const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
+
+  load_halo<T>(xs, ldx, x1, x2, C1, C2, b, ty, tx, H, W, shift, lnw, lnb, eps);
+  __syncthreads();
+  for (int c0 = 0; c0 < C; c0 += kVC) {
+    const int nc = min(kVC, C - c0);
+    gemm<T>(kHaloPix, nc, C,
+        [&](int i, int k) { return xs[i * ldx + k]; },
+        [&](int k, int j) { return to_f(wqkv[(size_t)k * C3 + 2 * C + c0 + j]); },
+        [&](int i, int j, float acc) { vt[i * ldv + j] = rnd<T>(acc); });
+    __syncthreads();
+    dwconv3_tile(vt, ldv, nc,
+        [&](int tap, int j) { return to_f(wdw[tap * C3 + 2 * C + c0 + j]); },
+        [&](int p, int j, float acc) { vs[p * ldx + c0 + j] = rnd<T>(acc); });
+    __syncthreads();
+  }
+
+  const float* cb = comb + (size_t)b * C * C;
+  float* y = xs;
+  gemm<T>(kPix, C, C,
+      [&](int i, int k) { return vs[i * ldx + k]; },
+      [&](int k, int j) { return rnd<T>(cb[(size_t)k * C + j]); },
+      [&](int i, int j, float acc) {
+        const int r = ty * kTile + (i >> 3), c = tx * kTile + (i & 7);
+        float v = rnd<T>(acc);
+        if (gate != nullptr || residual) {
+          // the input pixel in the unrolled frame (raw, before any LN)
+          const int sr = (r - shift + H) % H, sc = (c - shift + W) % W;
+          const size_t pix = ((size_t)b * H + sr) * W + sc;
+          const float u = j < C1 ? to_f(x1[pix * C1 + j]) : to_f(x2[pix * C2 + (j - C1)]);
+          if (gate != nullptr) {
+            const float g = to_f(gate[(((size_t)b * (H / kTile) + sr / kTile) * (W / kTile) + sc / kTile) * C + j]);
+            v = rnd<T>(rnd<T>(u * g) + v);
+          }
+          if (residual) v = rnd<T>(u + v);
+        }
+        if (shortcut != nullptr) v = rnd<T>(to_f(shortcut[(((size_t)b * H + r) * W + c) * C + j]) + v);
+        y[i * ldx + j] = v;
+      });
+  __syncthreads();
+  if (w1 != nullptr) mlp_tail_tile<T>(y, vs, ldx, hb, C, hid, ln2w, ln2b, w1, b1, w2, b2, eps);
+
+  for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
+    const int i = idx / C, k = idx - i * C;
+    const int r = ty * kTile + (i >> 3), c = tx * kTile + (i & 7);
+    out[(((size_t)b * H + r) * W + c) * C + k] = from_f<T>(y[i * ldx + k]);
+  }
+}
+
+inline size_t stats_smem(int C, int nH) {
+  const int dh = C / nH;
+  return sizeof(float) * ((size_t)kHaloPix * (C + 1) + (size_t)kHaloPix * (2 * dh + 1) +
+                          (size_t)kPix * (2 * dh + 1) + (size_t)C * dh + 2 * C);
+}
+
+inline size_t apply_smem(int C) {
+  return sizeof(float) * ((size_t)kHaloPix * (C + 1) + (size_t)kHaloPix * (kVC + 1) +
+                          (size_t)kPix * (C + 1) + (size_t)kPix * (2 * kHC + 1));
+}
+
+template <typename T>
+cudaError_t launch_stats(const void* x1, const void* x2, int C1, int C2, const float* lnw,
+                         const float* lnb, const void* wqkv, const void* wdw, float* pg,
+                         float* pnq, float* pnk, float* gram, float* nq, float* nk, int B,
+                         int H, int W, int nH, int shift, float eps, int n_parts,
+                         cudaStream_t stream) {
+  const int C = C1 + C2, dh = C / nH;
+  const int n_tiles = (H / kTile) * (W / kTile);
+  const int tpp = ceil_div(n_tiles, n_parts);
+  const size_t smem = stats_smem(C, nH);
+  cudaError_t err = set_smem(spectral_stats_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  spectral_stats_kernel<T><<<dim3(n_parts, B), kThreads, smem, stream>>>(
+      (const T*)x1, (const T*)x2, C1, C2, lnw, lnb, (const T*)wqkv, (const T*)wdw, H, W, nH,
+      shift, eps, tpp, pg, pnq, pnk);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  sum_parts_kernel<<<dim3(ceil_div(C * dh, kThreads), B), kThreads, 0, stream>>>(pg, gram, n_parts, C * dh);
+  sum_parts_kernel<<<dim3(ceil_div(C, kThreads), B), kThreads, 0, stream>>>(pnq, nq, n_parts, C);
+  sum_parts_kernel<<<dim3(ceil_div(C, kThreads), B), kThreads, 0, stream>>>(pnk, nk, n_parts, C);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_apply(const void* x1, const void* x2, int C1, int C2, const float* lnw,
+                         const float* lnb, const void* wqkv, const void* wdw, const float* comb,
+                         const void* gate, const void* shortcut, int residual,
+                         const float* ln2w, const float* ln2b, const void* w1, const float* b1,
+                         const void* w2, const float* b2, int hid, void* out, int B, int H,
+                         int W, int shift, float eps, cudaStream_t stream) {
+  const size_t smem = apply_smem(C1 + C2);
+  cudaError_t err = set_smem(spectral_apply_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  spectral_apply_kernel<T><<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
+      (const T*)x1, (const T*)x2, C1, C2, lnw, lnb, (const T*)wqkv, (const T*)wdw, comb,
+      (const T*)gate, (const T*)shortcut, residual, ln2w, ln2b, (const T*)w1, b1, (const T*)w2,
+      b2, hid, (T*)out, H, W, shift, eps);
+  return cudaGetLastError();
+}
+
+}  // namespace mp
+
+// Inputs: x1 (B, H, W, C1) and optional x2 (B, H, W, C2), logical input
+// cat(x1, x2); optional LN (float32, over C1 + C2); wqkv [C][3C] and wdw
+// [9][3C] in the compute type. Partial buffers: pg [B][n_parts][C*dh], pnq and
+// pnk [B][n_parts][C]. Outputs (float32): gram [B][C][dh] (row h*dh + d, col
+// e), nq and nk [B][nH][dh].
+extern "C" int mp_spectral_stats(const void* x1, const void* x2, const void* lnw,
+                                 const void* lnb, const void* wqkv, const void* wdw, void* pg,
+                                 void* pnq, void* pnk, void* gram, void* nq, void* nk,
+                                 int dtype, int B, int H, int W, int C1, int C2, int nH,
+                                 int shift, float eps, int n_parts, void* stream) {
+  if ((C1 + C2) % nH != 0 || H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
+  auto st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return (int)mp::launch_stats<float>(x1, x2, C1, C2, (const float*)lnw, (const float*)lnb,
+                                        wqkv, wdw, (float*)pg, (float*)pnq, (float*)pnk,
+                                        (float*)gram, (float*)nq, (float*)nk, B, H, W, nH,
+                                        shift, eps, n_parts, st);
+  return (int)mp::launch_stats<__nv_bfloat16>(x1, x2, C1, C2, (const float*)lnw,
+                                              (const float*)lnb, wqkv, wdw, (float*)pg,
+                                              (float*)pnq, (float*)pnk, (float*)gram,
+                                              (float*)nq, (float*)nk, B, H, W, nH, shift, eps,
+                                              n_parts, st);
+}
+
+// comb [B][C][C] float32 (row: v channel h*dh + e, col: output channel).
+// gate (B, H/8, W/8, C) per-window gates of the rolled frame, shortcut
+// (B, H, W, C), residual adds the raw input; w1 [C][2*hid] / w2 [hid][C] (the
+// PGSSTB tail; NULL = none). Output (B, H, W, C) in the unrolled frame.
+extern "C" int mp_spectral_apply(const void* x1, const void* x2, const void* lnw,
+                                 const void* lnb, const void* wqkv, const void* wdw,
+                                 const void* comb, const void* gate, const void* shortcut,
+                                 const void* ln2w, const void* ln2b, const void* w1,
+                                 const void* b1, const void* w2, const void* b2, void* out,
+                                 int dtype, int B, int H, int W, int C1, int C2, int residual,
+                                 int hid, int shift, float eps, void* stream) {
+  if (H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
+  auto st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return (int)mp::launch_apply<float>(x1, x2, C1, C2, (const float*)lnw, (const float*)lnb,
+                                        wqkv, wdw, (const float*)comb, gate, shortcut, residual,
+                                        (const float*)ln2w, (const float*)ln2b, w1,
+                                        (const float*)b1, w2, (const float*)b2, hid, out, B, H,
+                                        W, shift, eps, st);
+  return (int)mp::launch_apply<__nv_bfloat16>(
+      x1, x2, C1, C2, (const float*)lnw, (const float*)lnb, wqkv, wdw, (const float*)comb,
+      gate, shortcut, residual, (const float*)ln2w, (const float*)ln2b, w1, (const float*)b1, w2,
+      (const float*)b2, hid, out, B, H, W, shift, eps, st);
+}

@@ -1,0 +1,165 @@
+// LayerNorm + 8x8 (shifted-)window multi-head self-attention + output
+// projection + per-window means, over an NHWC map.
+//
+// Replaces the TPU kernels _nhwc_kernel (mp_hsir_tpu/ops/pallas_attention.py:198,
+// K1) and the window half of _nhwc_sp0_kernel (:362, K3). The TPU kernel fuses
+// the spectral phase-0 statistics into this pass by running one slab behind;
+// Hopper blocks run in no order and cannot read a neighbour's fresh output, so
+// the statistics are a second launch here (spectral.cu, mp_spectral_stats).
+//
+// One block = one 8x8 window of one image. The (-shift, -shift) cyclic roll of
+// shifted blocks is index arithmetic on the load; the output stays in the
+// rolled frame, like the TPU kernel's shift_in path. Scores use an ordinary
+// max-subtracted float32 softmax (the TPU kernel's unsubtracted, clipped exp2
+// is a Mosaic workaround and is not copied); the shift-region mask adds -100
+// as the reference does. LN, softmax and every accumulation are float32; values
+// are rounded to the compute type where the JAX kernel casts.
+//
+// Bound on this card: at the flagship widths (C = 64..256) the qkv/proj
+// products dominate (8C^2 + 256C flops per pixel against 4C bytes in and out),
+// so tensor-core rate bounds it. bf16 products run as mma.sync on the tensor
+// cores, float32 ones as SIMT FMA (common.cuh gemm); PERF.md records the gap.
+#include "common.cuh"
+
+namespace mp {
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+window_attention_kernel(const T* __restrict__ x, const float* __restrict__ lnw,
+                        const float* __restrict__ lnb, const T* __restrict__ wqkv,
+                        const float* __restrict__ bqkv, const float* __restrict__ bias,
+                        const int* __restrict__ labels, const T* __restrict__ wp,
+                        const float* __restrict__ bp, T* __restrict__ out,
+                        T* __restrict__ pooled, int H, int W, int C, int nH, int shift,
+                        float eps) {
+  extern __shared__ float sm[];
+  __shared__ int lab[kPix];
+  const int dh = C / nH;
+  const int ldx = C + 1;
+  const int ldq = 3 * dh + 1;
+  const int lds = kPix + 1;
+  float* xs = sm;               // [64][ldx] LN(x), later the projected output
+  float* os = xs + kPix * ldx;  // [64][ldx] attention output, heads packed
+  float* qkv = os + kPix * ldx; // [64][ldq] q | k | v of one head
+  float* s = qkv + kPix * ldq;  // [64][lds] scores / probabilities
+
+  const int wx = blockIdx.x, wy = blockIdx.y, b = blockIdx.z;
+  const int C3 = 3 * C;
+
+  // load the window (rolled frame: token (r, c) reads x[(r+shift)%H, (c+shift)%W])
+  for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
+    const int i = idx / C, k = idx - i * C;
+    const int sr = (wy * kTile + (i >> 3) + shift) % H;
+    const int sc = (wx * kTile + (i & 7) + shift) % W;
+    xs[i * ldx + k] = to_f(x[(((size_t)b * H + sr) * W + sc) * C + k]);
+  }
+  if (threadIdx.x < kPix) {
+    const int i = threadIdx.x;
+    lab[i] = labels ? labels[(wy * kTile + (i >> 3)) * W + wx * kTile + (i & 7)] : 0;
+  }
+  __syncthreads();
+  ln_rows_inplace<T>(xs, ldx, kPix, C, lnw, lnb, eps, [](int) { return true; });
+  __syncthreads();
+
+  const float scale = rsqrtf((float)dh);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int h = 0; h < nH; ++h) {
+    // q, k, v of head h: column j of section j / dh
+    gemm<T>(kPix, 3 * dh, C,
+        [&](int i, int k) { return xs[i * ldx + k]; },
+        [&](int k, int j) {
+          const int sec = j / dh;
+          return to_f(wqkv[(size_t)k * C3 + sec * C + h * dh + (j - sec * dh)]);
+        },
+        [&](int i, int j, float acc) {
+          const int sec = j / dh;
+          qkv[i * ldq + j] = rnd<T>(acc + bqkv[sec * C + h * dh + (j - sec * dh)]);
+        });
+    __syncthreads();
+    gemm<T>(kPix, kPix, dh,
+        [&](int i, int k) { return qkv[i * ldq + k]; },
+        [&](int k, int j) { return qkv[j * ldq + dh + k]; },
+        [&](int i, int j, float acc) {
+          float v = acc * scale + bias[((size_t)h * kPix + i) * kPix + j];
+          if (labels != nullptr && lab[i] != lab[j]) v -= 100.f;
+          s[i * lds + j] = v;
+        });
+    __syncthreads();
+    for (int i = warp; i < kPix; i += kThreads / 32) {
+      float* row = s + i * lds;
+      const float m = warp_max(fmaxf(row[lane], row[lane + 32]));
+      const float e0 = expf(row[lane] - m), e1 = expf(row[lane + 32] - m);
+      const float inv = 1.f / warp_sum(e0 + e1);
+      row[lane] = rnd<T>(e0 * inv);
+      row[lane + 32] = rnd<T>(e1 * inv);
+    }
+    __syncthreads();
+    gemm<T>(kPix, dh, kPix,
+        [&](int i, int k) { return s[i * lds + k]; },
+        [&](int k, int j) { return qkv[k * ldq + 2 * dh + j]; },
+        [&](int i, int j, float acc) { os[i * ldx + h * dh + j] = rnd<T>(acc); });
+    __syncthreads();
+  }
+
+  // output projection into xs (the normalised input is no longer needed)
+  gemm<T>(kPix, C, C,
+      [&](int i, int k) { return os[i * ldx + k]; },
+      [&](int k, int j) { return to_f(wp[(size_t)k * C + j]); },
+      [&](int i, int j, float acc) { xs[i * ldx + j] = rnd<T>(acc + bp[j]); });
+  __syncthreads();
+
+  for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
+    const int i = idx / C, k = idx - i * C;
+    const int r = wy * kTile + (i >> 3), c = wx * kTile + (i & 7);
+    out[(((size_t)b * H + r) * W + c) * C + k] = from_f<T>(xs[i * ldx + k]);
+  }
+  for (int k = threadIdx.x; k < C; k += blockDim.x) {
+    float sum = 0.f;
+    for (int i = 0; i < kPix; ++i) sum += xs[i * ldx + k];
+    pooled[(((size_t)b * (H / kTile) + wy) * (W / kTile) + wx) * C + k] = from_f<T>(sum * (1.f / kPix));
+  }
+}
+
+inline size_t window_smem(int C, int nH) {
+  const int dh = C / nH;
+  return sizeof(float) * (size_t)(2 * kPix * (C + 1) + kPix * (3 * dh + 1) + kPix * (kPix + 1));
+}
+
+template <typename T>
+cudaError_t launch_window(const void* x, const float* lnw, const float* lnb, const void* wqkv,
+                          const float* bqkv, const float* bias, const int* labels,
+                          const void* wp, const float* bp, void* out, void* pooled, int B,
+                          int H, int W, int C, int nH, int shift, float eps,
+                          cudaStream_t stream) {
+  const size_t smem = window_smem(C, nH);
+  cudaError_t err = set_smem(window_attention_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(W / kTile, H / kTile, B);
+  window_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
+      (const T*)x, lnw, lnb, (const T*)wqkv, bqkv, bias, labels, (const T*)wp, bp, (T*)out,
+      (T*)pooled, H, W, C, nH, shift, eps);
+  return cudaGetLastError();
+}
+
+}  // namespace mp
+
+// dtype: 0 = float32, 1 = bfloat16. Weights are [in][out] in the compute
+// type; LN, biases and the (nH, 64, 64) relative-position bias are float32;
+// labels is the (H, W) int32 shift-region map or NULL.
+extern "C" int mp_window_attention(const void* x, const void* lnw, const void* lnb,
+                                   const void* wqkv, const void* bqkv, const void* bias,
+                                   const void* labels, const void* wp, const void* bp,
+                                   void* out, void* pooled, int dtype, int B, int H, int W,
+                                   int C, int nH, int shift, float eps, void* stream) {
+  if (C % nH != 0 || H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
+  auto st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return (int)mp::launch_window<float>(x, (const float*)lnw, (const float*)lnb, wqkv,
+                                         (const float*)bqkv, (const float*)bias,
+                                         (const int*)labels, wp, (const float*)bp, out, pooled,
+                                         B, H, W, C, nH, shift, eps, st);
+  return (int)mp::launch_window<__nv_bfloat16>(x, (const float*)lnw, (const float*)lnb, wqkv,
+                                               (const float*)bqkv, (const float*)bias,
+                                               (const int*)labels, wp, (const float*)bp, out,
+                                               pooled, B, H, W, C, nH, shift, eps, st);
+}

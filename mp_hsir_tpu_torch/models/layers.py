@@ -1,0 +1,417 @@
+"""Building blocks of MP-HSIR as ``nn.Module``s over NHWC tensors
+(counterparts of ``mp_hsir_tpu/models/layers.py``, eval route).
+
+Attribute names mirror the flax module names, so a state_dict key is the
+flax parameter path with '.' for '/'. Layouts are PyTorch's: Linear weights
+(out, in), conv weights OIHW; ``checkpoint.params_from_jax`` converts.
+
+Every PGSSTB, TransformerBlock and 3x3 conv goes through the kernel wrappers
+of ``ops/kernels``; they run the CUDA kernels on the card and their plain
+versions on the CPU, so both devices take the same route through this code.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from mp_hsir_tpu_torch.ops.basic import gelu_exact, layer_norm
+from mp_hsir_tpu_torch.ops.conv import conv2d, depthwise_conv2d
+from mp_hsir_tpu_torch.ops.kernels.conv3 import conv3
+from mp_hsir_tpu_torch.ops.kernels.gdfn import gdfn
+from mp_hsir_tpu_torch.ops.kernels.spectral import spectral_apply, spectral_fold, spectral_stats
+from mp_hsir_tpu_torch.ops.kernels.window_attention import (
+    relative_position_index, window_attention,
+)
+from mp_hsir_tpu_torch.ops.resize import resize_bilinear, resize_nearest
+
+# Route counters (counterpart of FUSED_PATH_STATS): how many blocks of each
+# kind took the kernel route in the forwards since the last reset.
+PATH_STATS: dict = {}
+
+
+def reset_path_stats() -> None:
+    PATH_STATS.clear()
+
+
+def _count_path(name: str) -> None:
+    PATH_STATS[name] = PATH_STATS.get(name, 0) + 1
+
+
+def _uniform_(t: torch.Tensor, fan_in: int) -> torch.Tensor:
+    bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
+    return nn.init.uniform_(t, -bound, bound)
+
+
+class Linear(nn.Module):
+    """torch nn.Linear layout (weight (out, in)); computes in x's dtype."""
+
+    def __init__(self, cin: int, cout: int, bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(_uniform_(torch.empty(cout, cin), cin))
+        self.bias = nn.Parameter(_uniform_(torch.empty(cout), cin)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x @ self.weight.to(x.dtype).t()
+        return y if self.bias is None else y + self.bias.to(y.dtype)
+
+
+class Conv2d(nn.Module):
+    """Conv weight holder, OIHW; ``forward`` is the plain NHWC conv."""
+
+    def __init__(self, cin: int, cout: int, kernel: int = 1, groups: int = 1, bias: bool = False):
+        super().__init__()
+        fan_in = (cin // groups) * kernel * kernel
+        self.padding = kernel // 2
+        self.groups = groups
+        self.weight = nn.Parameter(_uniform_(torch.empty(cout, cin // groups, kernel, kernel), fan_in))
+        self.bias = nn.Parameter(_uniform_(torch.empty(cout), fan_in)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d(x, self.weight, self.bias, padding=self.padding, groups=self.groups)
+
+
+class LayerNorm(nn.Module):
+    """Channels-last LayerNorm (torch nn.LayerNorm and the Restormer
+    WithBias_LayerNorm semantics)."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.weight, self.bias, self.eps)
+
+
+class GatedMlp(nn.Module):
+    """Token MLP with a gated exact GELU, ``fc2(a * gelu(g))`` with
+    ``[a|g] = fc1(x)`` (reference net/MP_HSIR.py:66-82). On the eval route
+    its weights ride the spectral apply kernel's tail."""
+
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.fc1 = Linear(dim, hidden * 2)
+        self.fc2 = Linear(hidden, dim)
+
+
+class GDFN(nn.Module):
+    """Gated-dconv FFN (reference net/MP_HSIR.py:374-391), bias-free."""
+
+    def __init__(self, dim: int, expansion: float):
+        super().__init__()
+        hidden = int(dim * expansion)
+        self.project_in = Conv2d(dim, hidden * 2, 1)
+        self.dwconv = Conv2d(hidden * 2, hidden * 2, 3, groups=hidden * 2)
+        self.project_out = Conv2d(hidden, dim, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.dwconv(self.project_in(x))
+        x1, x2 = x.chunk(2, dim=-1)
+        return self.project_out(gelu_exact(x1) * x2)
+
+
+class SpectralAttention(nn.Module):
+    """Transposed C x C attention (MDTA, reference net/MP_HSIR.py:85-114).
+    The eval route runs it as stats kernel -> fold -> apply kernel."""
+
+    def __init__(self, dim: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.qkv = Conv2d(dim, dim * 3, 1)
+        self.qkv_dwconv = Conv2d(dim * 3, dim * 3, 3, groups=dim * 3)
+        self.temperature = nn.Parameter(torch.ones(num_heads, 1, 1))
+        self.project_out = Conv2d(dim, dim, 1)
+
+    def comb(self, x, shift=0, x2=None, ln=None):
+        """Statistics + fold: the (B, C, C) matrix the apply kernel uses."""
+        lnw, lnb = (None, None) if ln is None else (ln.weight, ln.bias)
+        gram, nq, nk = spectral_stats(x, self.qkv.weight, self.qkv_dwconv.weight,
+                                      self.num_heads, shift=shift, x2=x2, ln_w=lnw, ln_b=lnb)
+        return spectral_fold(gram, nq, nk, self.temperature, self.project_out.weight)
+
+
+class PGSpectralAttention(nn.Module):
+    """Prompt-guided local spectral attention on per-window means (reference
+    net/MP_HSIR.py:116-155); returns the per-window gates."""
+
+    def __init__(self, dim: int, compress_ratio: int, prompt_len: int):
+        super().__init__()
+        cr = dim // compress_ratio
+        self.cr = cr
+        self.linear_prompt = Linear(dim, prompt_len, bias=False)
+        self.linear_down = Linear(dim, cr, bias=False)
+        self.prompt_param = nn.Parameter(torch.rand(1, 1, prompt_len, cr))
+        self.q = Linear(cr, cr, bias=False)
+        self.kv = Linear(cr, 2 * cr, bias=False)
+        self.proj = Linear(cr, cr, bias=True)
+        self.linear_up = Linear(cr, dim, bias=False)
+
+    def forward(self, pooled: torch.Tensor) -> torch.Tensor:
+        bt = pooled.shape
+        p = pooled.reshape(bt[0] * bt[1], 1, bt[2])
+        dt = p.dtype
+        pw = torch.softmax(self.linear_prompt(p).float(), dim=-1).to(dt)
+        down = self.linear_down(p)
+        prompt = torch.einsum("bol,olr->bor", pw, self.prompt_param[0].to(dt))
+        q = self.q(prompt)
+        k, v = self.kv(down).chunk(2, dim=-1)
+        attn = torch.einsum("boi,boj->bij", q.float(), k.float()) * self.cr ** -0.5
+        attn = torch.softmax(attn, dim=-1).to(dt)
+        out = torch.einsum("bij,boj->boi", attn, v)
+        return self.linear_up(self.proj(out)).reshape(bt)
+
+
+class SpatialAttention(nn.Module):
+    """Window MSA parameters (reference net/MP_HSIR.py:158-218): qkv, the
+    relative-position table (225, nH) and proj; the window kernel runs it."""
+
+    def __init__(self, dim: int, window_size: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.ws = window_size
+        self.qkv = Linear(dim, dim * 3)
+        table = torch.empty((2 * window_size - 1) ** 2, num_heads)
+        self.relative_position_bias_table = nn.Parameter(
+            nn.init.trunc_normal_(table, std=0.02, a=-0.04, b=0.04))
+        self.register_buffer("relative_position_index",
+                             torch.as_tensor(relative_position_index(window_size).reshape(-1)),
+                             persistent=False)
+        self.proj = Linear(dim, dim)
+
+    def rel_bias(self) -> torch.Tensor:
+        n = self.ws * self.ws
+        b = self.relative_position_bias_table[self.relative_position_index]
+        return b.reshape(n, n, self.num_heads).permute(2, 0, 1).float().contiguous()
+
+
+class CrossAttention(nn.Module):
+    """Channel cross attention, q from the text map, k/v from the visual
+    prompt (reference net/MP_HSIR.py:220-249); plain, as in JAX."""
+
+    def __init__(self, dim: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.q = Conv2d(dim, dim, 1)
+        self.q_dwconv = Conv2d(dim, dim, 3, groups=dim)
+        self.kv = Conv2d(dim, dim * 2, 1)
+        self.kv_dwconv = Conv2d(dim * 2, dim * 2, 3, groups=dim * 2)
+        self.temperature = nn.Parameter(torch.ones(num_heads, 1, 1))
+        self.project_out = Conv2d(dim, dim, 1)
+
+    def forward(self, x_q: torch.Tensor, x_kv: torch.Tensor) -> torch.Tensor:
+        b, h, w, c = x_q.shape
+        nh = self.num_heads
+        dh = c // nh
+        q = depthwise_conv2d(conv2d(x_q, self.q.weight), self.q_dwconv.weight)
+        kv = depthwise_conv2d(conv2d(x_kv, self.kv.weight), self.kv_dwconv.weight)
+        k, v = kv.chunk(2, dim=-1)
+        q, k, v = (t.reshape(b, h * w, nh, dh) for t in (q, k, v))
+        gram = torch.einsum("bphd,bphe->bhde", q.float(), k.float())
+        nq = q.float().square().sum(dim=1).sqrt().clamp_min(1e-12)
+        nk = k.float().square().sum(dim=1).sqrt().clamp_min(1e-12)
+        attn = gram / (nq[..., :, None] * nk[..., None, :])
+        attn = torch.softmax(attn * self.temperature.float().reshape(1, nh, 1, 1), dim=-1).to(v.dtype)
+        out = torch.einsum("bhde,bphe->bphd", attn, v).reshape(b, h, w, c)
+        return self.project_out(out)
+
+
+class CrossTransformer(nn.Module):
+    """Cross attention + GDFN with pre-norms (reference net/MP_HSIR.py:267-287)."""
+
+    def __init__(self, dim: int, num_heads: int, expansion: float = 2.66):
+        super().__init__()
+        self.attn = CrossAttention(dim, num_heads)
+        self.norm11 = LayerNorm(dim)
+        self.norm12 = LayerNorm(dim)
+        self.norm2 = LayerNorm(dim)
+        self.ffn = GDFN(dim, expansion)
+
+    def forward(self, x_q: torch.Tensor, x_kv: torch.Tensor) -> torch.Tensor:
+        x = x_q + self.attn(self.norm11(x_q), self.norm12(x_kv))
+        return x + self.ffn(self.norm2(x))
+
+
+class TransformerBlock(nn.Module):
+    """MDTA + GDFN (reference net/MP_HSIR.py:466-479): norm1 + attention +
+    residual through the spectral kernels, norm2 + GDFN + residual (and the
+    optional exit 1x1 ``proj_w``) through the GDFN kernel. ``x2`` makes the
+    input ``cat([x, x2], -1)`` without materialising it."""
+
+    def __init__(self, dim: int, num_heads: int, expansion: float = 2.66):
+        super().__init__()
+        self.norm1 = LayerNorm(dim)
+        self.attn = SpectralAttention(dim, num_heads)
+        self.norm2 = LayerNorm(dim)
+        self.ffn = GDFN(dim, expansion)
+
+    def forward(self, x, x2=None, proj_w=None):
+        sa = self.attn
+        comb = sa.comb(x, x2=x2, ln=self.norm1)
+        y = spectral_apply(x, comb, sa.qkv.weight, sa.qkv_dwconv.weight, x2=x2,
+                           ln_w=self.norm1.weight, ln_b=self.norm1.bias, residual=True)
+        f = self.ffn
+        return gdfn(y, self.norm2.weight, self.norm2.bias, f.project_in.weight, f.dwconv.weight,
+                    f.project_out.weight, residual=True, proj_w=proj_w)
+
+
+class Conv3x3(nn.Module):
+    """Bias-free 3x3 conv weight (OIHW) run by the conv3 kernel."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.weight = nn.Parameter(_uniform_(torch.empty(cout, cin, 3, 3), cin * 9))
+
+    def forward(self, x, mode: str = "plain", res=None):
+        return conv3(x, self.weight, mode, res)
+
+
+class Downsample(nn.Module):
+    """3x3 conv C -> C/2 + PixelUnshuffle(2) (reference net/MP_HSIR.py:432-440)."""
+
+    def __init__(self, n_feat: int):
+        super().__init__()
+        self.conv = Conv3x3(n_feat, n_feat // 2)
+
+    def forward(self, x):
+        return self.conv(x, "down")
+
+
+class Upsample(nn.Module):
+    """3x3 conv C -> 2C + PixelShuffle(2) (reference net/MP_HSIR.py:442-450)."""
+
+    def __init__(self, n_feat: int):
+        super().__init__()
+        self.conv = Conv3x3(n_feat, n_feat * 2)
+
+    def forward(self, x):
+        return self.conv(x, "up")
+
+
+class OverlapPatchEmbed(nn.Module):
+    def __init__(self, cin: int, embed_dim: int):
+        super().__init__()
+        self.proj = Conv3x3(cin, embed_dim)
+
+    def forward(self, x):
+        return self.proj(x)
+
+
+class TVSP(nn.Module):
+    """Text-visual synergistic prompt (reference net/MP_HSIR.py:538-583).
+    The text x CLIP product is per sample, as in the JAX package
+    (PARITY.md section 2.1): identical to the reference at batch 1."""
+
+    def __init__(self, task_classes: int, prompt_size: int, prompt_dim: int, out_dim: int,
+                 clip_table: np.ndarray):
+        super().__init__()
+        self.task_classes = task_classes
+        self.prompt_size = prompt_size
+        d = prompt_dim
+        with torch.no_grad():
+            lin = Linear(clip_table.shape[1], d)
+            text = lin(torch.as_tensor(clip_table, dtype=torch.float32))
+        self.text_prompt_learnable = nn.Parameter(text.detach().clone())
+        self.visual_prompt = nn.Parameter(torch.randn(prompt_size, prompt_size, d))
+        self.cross_transformer = CrossTransformer(d, num_heads=2, expansion=2.66)
+        self.conv_last = Conv3x3(d, out_dim)
+
+    def forward(self, x, clip_prompt, prompt_weights):
+        b, h, w, _ = x.shape
+        t = (prompt_weights.float() @ self.text_prompt_learnable.float()) / self.task_classes
+        tp = t[:, None, None, :] * clip_prompt.float()[:, None, :, None]
+        tp = resize_nearest(tp, self.prompt_size, self.prompt_size).to(x.dtype)
+        vis = self.visual_prompt[None].expand(b, -1, -1, -1).to(x.dtype)
+        prompts = self.cross_transformer(tp, vis)
+        return self.conv_last(resize_bilinear(prompts, h, w, align_corners=False))
+
+
+class PromptFusion(nn.Module):
+    """concat -> TransformerBlock at 2*dim -> 1x1 conv back (reference
+    net/MP_HSIR.py:587-599); the concat is read in-kernel and the exit conv
+    rides the GDFN kernel's writeback."""
+
+    def __init__(self, dim: int, out_dim: int, num_heads: int, expansion: float = 2.66):
+        super().__init__()
+        self.transformer = TransformerBlock(dim, num_heads, expansion)
+        self.conv = Conv2d(dim, out_dim, 1)
+
+    def forward(self, x, prompt):
+        _count_path("prompt_fusion_kernels")
+        return self.transformer(x, x2=prompt, proj_w=self.conv.weight)
+
+
+class PGSSTB(nn.Module):
+    """Prompt-guided spatial-spectral transformer block (reference
+    net/MP_HSIR.py:601-723), eval route:
+
+    1. window kernel: LN + (shifted) window MSA + proj -> sa (rolled frame)
+       and the per-window means;
+    2. PG gate on the means (plain, as in JAX);
+    3. spectral stats kernel on sa read in the unrolled frame, fold;
+    4. spectral apply kernel: shortcut + sa * gate + attn(sa), then the tail
+       out + GatedMlp(LN2(out)), written in the unrolled frame.
+    """
+
+    def __init__(self, dim: int, num_heads: int, window_size: int, shift_size: int,
+                 mlp_ratio: float, compress_ratio: int, prompt_len: int,
+                 input_resolution: Tuple[int, int] = (64, 64)):
+        super().__init__()
+        ws, shift = window_size, shift_size
+        # the reference freezes the window/shift decision at construction
+        # from input_resolution (net/MP_HSIR.py:613-616)
+        if min(input_resolution) <= ws:
+            shift, ws = 0, min(input_resolution)
+        self.ws, self.shift, self.num_heads = ws, shift, num_heads
+        self.norm1 = LayerNorm(dim)
+        self.attn = SpatialAttention(dim, ws, num_heads)
+        self.local_spectral_attn = PGSpectralAttention(dim, compress_ratio, prompt_len)
+        self.gobal_spectral_attn = SpectralAttention(dim, num_heads)
+        self.norm2 = LayerNorm(dim)
+        self.mlp = GatedMlp(dim, int(dim * mlp_ratio))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, h, w, c = x.shape
+        if min(self.ws, h, w) != 8 or h % 8 or w % 8:
+            raise ValueError(f"the window kernel takes 8x8 windows on H, W % 8 == 0; got "
+                             f"ws={self.ws} map {(h, w)}")
+        _count_path("pgsstb_kernels")
+        shift = self.shift
+        at = self.attn
+        sa, pooled = window_attention(x, self.norm1.weight, self.norm1.bias, at.qkv.weight,
+                                      at.qkv.bias, at.rel_bias(), at.proj.weight, at.proj.bias,
+                                      self.num_heads, shift=shift)
+        gate = self.local_spectral_attn(pooled.reshape(b, -1, c)).reshape(b, h // 8, w // 8, c)
+        sp = self.gobal_spectral_attn
+        comb = sp.comb(sa, shift=shift)
+        m = self.mlp
+        return spectral_apply(sa, comb, sp.qkv.weight, sp.qkv_dwconv.weight, shift=shift,
+                              gate=gate, shortcut=x,
+                              mlp=(self.norm2.weight, self.norm2.bias, m.fc1.weight,
+                                   m.fc1.bias, m.fc2.weight, m.fc2.bias))
+
+
+class BaseBlock(nn.Module):
+    """``depth`` PGSSTBs with alternating shift and an outer residual
+    (reference net/MP_HSIR.py:727-761)."""
+
+    def __init__(self, dim: int, depth: int, num_heads: int, window_size: int, mlp_ratio: float,
+                 compress_ratio: int, prompt_len: int,
+                 input_resolution: Tuple[int, int] = (64, 64)):
+        super().__init__()
+        self.depth = depth
+        for i in range(depth):
+            self.add_module(f"blocks_{i}", PGSSTB(
+                dim, num_heads, window_size, 0 if i % 2 == 0 else window_size // 2,
+                mlp_ratio, compress_ratio, prompt_len, input_resolution))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x
+        for i in range(self.depth):
+            y = getattr(self, f"blocks_{i}")(y)
+        return y + x

@@ -1,0 +1,76 @@
+"""Bias-free 3x3 convolution (stride 1, zero padding 1) over NHWC maps with
+four writebacks: ``plain``, ``res`` (+ float32 residual, float32 output),
+``down`` (+ PixelUnshuffle(2)) and ``up`` (+ PixelShuffle(2)).
+
+Kernel: ``csrc/conv3.cu`` (replaces ``_conv3_kernel``,
+``_conv3_down_kernel`` and ``_conv3_up_kernel``,
+``mp_hsir_tpu/ops/pallas_attention.py:1084``, ``:1218``, ``:1243``).
+Plain version: :func:`conv3_plain`. Weight layout: OIHW (Cout, Cin, 3, 3).
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import torch
+
+from mp_hsir_tpu_torch.ops.basic import pixel_shuffle, pixel_unshuffle
+from mp_hsir_tpu_torch.ops.conv import conv2d
+from mp_hsir_tpu_torch.ops.kernels import _build
+from mp_hsir_tpu_torch.ops.kernels._route import ROUTE, counter, dtype_code, stream_ptr
+
+MODES = {"plain": 0, "res": 1, "down": 2, "up": 3}
+COUNTER = counter("conv3")
+
+
+def conv3_plain(x: torch.Tensor, w: torch.Tensor, mode: str = "plain",
+                res: torch.Tensor | None = None) -> torch.Tensor:
+    y = conv2d(x.float(), w.to(x.dtype).float(), padding=1)
+    if mode == "res":
+        return y + res.float()
+    y = y.to(x.dtype)
+    if mode == "down":
+        return pixel_unshuffle(y, 2)
+    if mode == "up":
+        return pixel_shuffle(y, 2)
+    return y
+
+
+@lru_cache(maxsize=1)
+def _entry():
+    import ctypes
+
+    return _build.entry("mp_conv3", 4, [ctypes.c_int] * 7)
+
+
+def conv3(x: torch.Tensor, w: torch.Tensor, mode: str = "plain",
+          res: torch.Tensor | None = None) -> torch.Tensor:
+    """Same contract as :func:`conv3_plain`; launches the CUDA kernel on a
+    CUDA tensor."""
+    if mode not in MODES or (mode == "res") != (res is not None):
+        raise ValueError(f"bad conv3 mode {mode!r} / residual")
+    if not ROUTE.use_kernel(x):
+        return conv3_plain(x, w, mode, res)
+    b, h, wd, cin = x.shape
+    cout = w.shape[0]
+    if h % 8 or wd % 8 or w.shape[1:] != (cin, 3, 3):
+        raise ValueError(f"conv3 needs H, W % 8 == 0 and an OIHW 3x3 weight, got {x.shape}, {w.shape}")
+    dt, code = x.dtype, dtype_code(x)
+    x = x.contiguous()
+    wk = w.permute(2, 3, 1, 0).to(dt).contiguous()  # [3][3][Cin][Cout]
+    if mode == "res":
+        res = res.float().contiguous()
+        out = torch.empty((b, h, wd, cout), dtype=torch.float32, device=x.device)
+    elif mode == "down":
+        out = torch.empty((b, h // 2, wd // 2, 4 * cout), dtype=dt, device=x.device)
+    elif mode == "up":
+        if cout % 4:
+            raise ValueError(f"conv3 up needs Cout % 4 == 0, got {cout}")
+        out = torch.empty((b, 2 * h, 2 * wd, cout // 4), dtype=dt, device=x.device)
+    else:
+        out = torch.empty((b, h, wd, cout), dtype=dt, device=x.device)
+    err = _entry()(x.data_ptr(), wk.data_ptr(), _build.ptr(res), out.data_ptr(), code, b, h,
+                   wd, cin, cout, MODES[mode], stream_ptr())
+    _build.check("mp_conv3", err)
+    COUNTER.record(("conv3", b, h, wd, cin, cout, mode, str(dt)))
+    return out

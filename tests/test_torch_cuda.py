@@ -1,0 +1,177 @@
+"""Each CUDA kernel of the PyTorch port against its plain version, on the
+card (skipped without one). Run there with
+``python -m pytest --noconftest tests/test_torch_cuda.py`` (the repository's
+conftest configures JAX, which the card's machine does not need).
+
+Tolerance: float32 on both sides, same rounding points, sums in other
+orders: 1e-4 absolute and relative (1e-3 for the Gram sums over all pixels).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mp_hsir_tpu_torch.ops.kernels import _route
+from mp_hsir_tpu_torch.ops.kernels.conv3 import conv3
+from mp_hsir_tpu_torch.ops.kernels.gdfn import gdfn
+from mp_hsir_tpu_torch.ops.kernels.spectral import (
+    spectral_apply, spectral_fold, spectral_stats, spectral_stats_plain,
+)
+from mp_hsir_tpu_torch.ops.kernels.window_attention import window_attention
+from torch_port_inputs import (
+    normal as _n, oihw as _oihw, rng as _rng, spectral_weights as _spectral_weights,
+    tensor as _t, uniform as _u, window_inputs as _window_inputs,
+)
+
+
+@pytest.fixture(autouse=True)
+def _full_float32():
+    """The plain reference in full float32: cuDNN convolutions default to
+    TF32 on the card, which keeps about three decimal digits."""
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _pair(fn, *args, **kw):
+    """(kernel result, plain-version result) of one wrapper on the same inputs."""
+    out = fn(*args, **kw)
+    with _route.plain_reference():
+        ref = fn(*args, **kw)
+    return out, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [0, 4])
+def test_cuda_window_and_stats_match_plain(shift):
+    dev = _cuda()
+    c, heads = 64, 2
+    d = _window_inputs(5, c, heads, 32, 32)
+    args = [_t(d[k]).to(dev) for k in ("x", "ln_w", "ln_b")]
+    args += [_t(d["wqkv"]).t().to(dev), _t(d["bqkv"]).to(dev), _t(d["rel_bias"]).to(dev),
+             _t(d["wp"]).t().to(dev), _t(d["bp"]).to(dev)]
+    got, ref = _pair(window_attention, *args, heads, shift=shift)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-4)
+    wqkv = _t(d["wqkv_sp"]).t().reshape(3 * c, c, 1, 1).to(dev)
+    wdw = _t(d["wdw_sp"]).t().reshape(3 * c, 1, 3, 3).to(dev)
+    got, ref = _pair(spectral_stats, got[0], wqkv, wdw, heads, shift=shift)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["plain", "res", "down", "up"])
+def test_cuda_conv3_matches_plain(mode):
+    dev = _cuda()
+    rng = _rng(6)
+    x = _t(_n(rng, (1, 32, 32, 16))).to(dev)
+    w = _t(_u(rng, (32, 16, 3, 3), 144)).to(dev)
+    res = _t(_n(rng, (1, 32, 32, 32))).to(dev) if mode == "res" else None
+    got, ref = _pair(conv3, x, w, mode, res)
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_apply_and_gdfn_match_plain():
+    dev = _cuda()
+    c, heads, hid = 64, 2, 170
+    rng = _rng(7)
+    sw = _spectral_weights(rng, c, heads)
+    x, short = _t(_n(rng, (1, 32, 32, c))).to(dev), _t(_n(rng, (1, 32, 32, c))).to(dev)
+    gate = _t(_n(rng, (1, 4, 4, c), 0.5)).to(dev)
+    wqkv, wdw = _oihw(sw["wqkv"]).to(dev), _oihw(sw["wdw"]).to(dev)
+    comb = spectral_fold(*spectral_stats_plain(x, wqkv, wdw, heads, shift=4),
+                         _t(sw["temp"]).to(dev), _oihw(sw["wout"]).to(dev))
+    mlp = (torch.ones(c, device=dev), torch.zeros(c, device=dev),
+           _t(_u(rng, (2 * hid, c), c)).to(dev), _t(_u(rng, (2 * hid,), c)).to(dev),
+           _t(_u(rng, (c, hid), hid)).to(dev), _t(_u(rng, (c,), hid)).to(dev))
+    got, ref = _pair(spectral_apply, x, comb, wqkv, wdw, shift=4, gate=gate,
+                     shortcut=short, mlp=mlp)
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+    w_in = _t(_u(rng, (2 * hid, c, 1, 1), c)).to(dev)
+    w_dw = _t(_u(rng, (2 * hid, 1, 3, 3), 9)).to(dev)
+    w_out = _t(_u(rng, (c, hid, 1, 1), hid)).to(dev)
+    proj = _t(_u(rng, (32, c, 1, 1), c)).to(dev)
+    got, ref = _pair(gdfn, x, mlp[0], mlp[1], w_in, w_dw, w_out, residual=True, proj_w=proj)
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [0, 4])
+def test_cuda_window_stats_batch2_nonsquare(shift):
+    """Batch 2 and a 16x48 map (odd window-column count): per-image grid and
+    per-image partial sums of the stats launch."""
+    dev = _cuda()
+    c, heads = 32, 2
+    d = _window_inputs(8, c, heads, 16, 48)
+    x = _t(np.concatenate([d["x"], -d["x"][:, ::-1]], axis=0)).to(dev)
+    args = [x, _t(d["ln_w"]).to(dev), _t(d["ln_b"]).to(dev), _t(d["wqkv"]).t().to(dev),
+            _t(d["bqkv"]).to(dev), _t(d["rel_bias"]).to(dev), _t(d["wp"]).t().to(dev),
+            _t(d["bp"]).to(dev)]
+    got, ref = _pair(window_attention, *args, heads, shift=shift)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-4)
+    wqkv = _t(d["wqkv_sp"]).t().reshape(3 * c, c, 1, 1).to(dev)
+    wdw = _t(d["wdw_sp"]).t().reshape(3 * c, 1, 3, 3).to(dev)
+    got, ref = _pair(spectral_stats, got[0], wqkv, wdw, heads, shift=shift)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_tiny_model_matches_cpu_plain():
+    """The whole tiny model (dim 16, 32x32, batch 2: its deepest maps are one
+    8x8 shifted window) through the kernels on the card, float32, against
+    the same weights through the plain versions on the CPU."""
+    from mp_hsir_tpu_torch.config import ModelConfig
+    from mp_hsir_tpu_torch.models.mp_hsir import build_model
+
+    dev = _cuda()
+    cfg = ModelConfig(in_channels=5, out_channels=5, dim=16, num_blocks=(1, 1, 1),
+                      num_refinement_blocks=1, heads=(2, 2, 2))
+    torch.manual_seed(0)
+    cpu = build_model(cfg, device="cpu")
+    card = build_model(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(_rng(9).random((2, 5, 32, 32)).astype(np.float32))
+    tid = torch.tensor([0, 4])
+    _route.reset_counters()
+    with torch.no_grad():
+        want = cpu(x, tid)
+        got = card(x.to(dev), tid.to(dev)).cpu()
+    assert _route.COUNTERS["window_attention"].launches == 6
+    assert _route.ROUTE.plain_cuda_calls == 0
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_tiny_model_bf16_matches_plain_on_card():
+    """The tiny model in bf16 (tensor-core products; dh 8, hidden 42 and
+    16-wide maps leave every product ragged) against the plain versions on
+    the card in bf16: both round at the same points, so they agree to a few
+    bf16 ulps of the output's scale (3e-2 of its max, as chip_smoke.py)."""
+    from mp_hsir_tpu_torch.config import ModelConfig
+    from mp_hsir_tpu_torch.models.mp_hsir import build_model
+
+    dev = _cuda()
+    cfg = ModelConfig(in_channels=5, out_channels=5, dim=16, num_blocks=(1, 1, 1),
+                      num_refinement_blocks=1, heads=(2, 2, 2), compute_dtype="bfloat16")
+    torch.manual_seed(1)
+    model = build_model(cfg, device=dev)
+    x = torch.from_numpy(_rng(10).random((2, 5, 32, 32)).astype(np.float32)).to(dev)
+    tid = torch.tensor([1, 2], device=dev)
+    with torch.no_grad():
+        got = model(x, tid)
+        with _route.plain_reference():
+            ref = model(x, tid)
+    err = (got - ref).abs().max().item()
+    assert torch.isfinite(got).all()
+    assert err <= 3e-2 * ref.abs().max().item(), err

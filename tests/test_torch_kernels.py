@@ -1,0 +1,167 @@
+"""Each kernel module of the PyTorch port against the JAX Pallas function it
+replaces, run in interpret mode on the CPU (as tests/test_pallas_attention.py
+runs them), on the same numpy-seeded inputs. The CUDA kernels themselves are
+held against these plain versions on the card by tests/test_torch_cuda.py and
+chip_smoke.py.
+
+Tolerances (float32 on both sides): the Pallas kernels fold scales into
+weights, use exp2 without the max-subtract, a -1e9 mask instead of -100 and a
+polynomial GELU (1.5e-6 from erf), and sum in other orders, so results agree
+to a few float32 ulps of the activations' scale: atol 1e-4, rtol 1e-4.
+"""
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from mp_hsir_tpu.ops import pallas_attention as PA
+from mp_hsir_tpu_torch.ops.kernels import _route
+from mp_hsir_tpu_torch.ops.kernels.conv3 import conv3, conv3_plain
+from mp_hsir_tpu_torch.ops.kernels.gdfn import gdfn_plain
+from mp_hsir_tpu_torch.ops.kernels.spectral import (
+    spectral_apply_plain, spectral_fold, spectral_stats_plain,
+)
+from mp_hsir_tpu_torch.ops.kernels.window_attention import window_attention_plain
+from mp_hsir_tpu_torch.ops.window import shifted_region_map
+from torch_port_inputs import (
+    normal as _n, oihw as _oihw, rng as _rng, spectral_weights as _spectral_weights,
+    tensor as _t, uniform as _u, window_inputs as _window_inputs,
+)
+
+ATOL = RTOL = 1e-4
+
+
+def _close(got, want):
+    np.testing.assert_allclose(np.asarray(got, np.float32), np.asarray(want, np.float32),
+                               atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("merged", [False, True])
+@pytest.mark.parametrize("shifted", [False, True])
+def test_window_attention_matches_pallas(shifted, merged):
+    """fused_ln_window_attention_nhwc (K1; with sp_qk the merged K3, whose
+    Gram/norm outputs the port's stats launch must reproduce). H = 24 gives
+    the merged kernel three slabs, so its interior halo branches run."""
+    c, heads, h, w = 16, 2, 24, 32
+    d = _window_inputs(0, c, heads, h, w)
+    shift = 4 if shifted else 0
+    region = jnp.asarray(shifted_region_map(h, w, 8, 4)) if shifted else None
+    sp_qk = (jnp.asarray(d["wqkv_sp"]), jnp.asarray(d["wdw_sp"]), heads) if merged else None
+    outs = PA.fused_ln_window_attention_nhwc(
+        jnp.asarray(d["x"]), jnp.asarray(d["ln_w"]), jnp.asarray(d["ln_b"]),
+        jnp.asarray(d["wqkv"]), jnp.asarray(d["bqkv"]), jnp.asarray(d["rel_bias"]),
+        jnp.asarray(d["wp"]), jnp.asarray(d["bp"]), region, heads,
+        shift_in=shifted, sp_qk=sp_qk, interpret=True)
+    out, pooled = window_attention_plain(
+        _t(d["x"]), _t(d["ln_w"]), _t(d["ln_b"]), _t(d["wqkv"]).t(), _t(d["bqkv"]),
+        _t(d["rel_bias"]), _t(d["wp"]).t(), _t(d["bp"]), heads, shift=shift)
+    _close(out, outs[0])
+    _close(pooled, outs[1])
+    if merged:
+        wqkv = _t(d["wqkv_sp"]).t().reshape(3 * c, c, 1, 1)
+        wdw = _t(d["wdw_sp"]).t().reshape(3 * c, 1, 3, 3)
+        gram, nq, nk = spectral_stats_plain(out, wqkv, wdw, heads, shift=shift)
+        for got, want in zip((gram, nq, nk), outs[2:]):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("shifted", [False, True])
+def test_spectral_pgsstb_epilogue_matches_pallas(shifted):
+    """fused_spectral_attention_nhwc with precomputed stats + gate + shortcut
+    (+ shifted roll-back) + the PGSSTB tail MLP (K2 phase 1 as PGSSTB runs it)."""
+    c, heads, h, w, hid = 16, 2, 24, 32, 42
+    rng = _rng(1)
+    sw = _spectral_weights(rng, c, heads)
+    x, short = _n(rng, (1, h, w, c)), _n(rng, (1, h, w, c))
+    gate = _n(rng, (1, h // 8, w // 8, c), 0.5)
+    mlp = (1 + _n(rng, (c,), 0.1), _n(rng, (c,), 0.1), _u(rng, (c, 2 * hid), c),
+           _u(rng, (2 * hid,), c), _u(rng, (hid, c), hid), _u(rng, (c,), hid))
+    shift = 4 if shifted else 0
+    wqkv, wdw, wout = _oihw(sw["wqkv"]), _oihw(sw["wdw"]), _oihw(sw["wout"])
+    gram, nq, nk = spectral_stats_plain(_t(x), wqkv, wdw, heads, shift=shift)
+    want = PA.fused_spectral_attention_nhwc(
+        jnp.asarray(x), jnp.asarray(sw["wqkv"]), jnp.asarray(sw["wdw"]),
+        jnp.asarray(sw["temp"]), jnp.asarray(sw["wout"]), heads, gate=jnp.asarray(gate),
+        shortcut=jnp.asarray(short), shifted=shifted,
+        mlp=tuple(jnp.asarray(m) for m in mlp),
+        precomputed=(jnp.asarray(gram.numpy()), jnp.asarray(nq.numpy()),
+                     jnp.asarray(nk.numpy())), interpret=True)
+    comb = spectral_fold(gram, nq, nk, _t(sw["temp"]), wout)
+    got = spectral_apply_plain(
+        _t(x), comb, wqkv, wdw, shift=shift, gate=_t(gate), shortcut=_t(short),
+        mlp=(_t(mlp[0]), _t(mlp[1]), _t(mlp[2]).t(), _t(mlp[3]), _t(mlp[4]).t(), _t(mlp[5])))
+    _close(got, want)
+
+
+def test_spectral_prompt_fusion_entry_matches_pallas():
+    """fused_spectral_attention_nhwc with x2 + LN + residual (PromptFusion's
+    entry: two-phase, so stats + fold + apply together)."""
+    c1, heads, h, w = 16, 4, 24, 16
+    c = 2 * c1
+    rng = _rng(2)
+    sw = _spectral_weights(rng, c, heads)
+    x, x2 = _n(rng, (1, h, w, c1)), _n(rng, (1, h, w, c1))
+    ln_w, ln_b = 1 + _n(rng, (c,), 0.1), _n(rng, (c,), 0.1)
+    want = PA.fused_spectral_attention_nhwc(
+        jnp.asarray(x), jnp.asarray(sw["wqkv"]), jnp.asarray(sw["wdw"]), jnp.asarray(sw["temp"]),
+        jnp.asarray(sw["wout"]), heads, ln_w=jnp.asarray(ln_w), ln_b=jnp.asarray(ln_b),
+        residual=True, x2=jnp.asarray(x2), interpret=True)
+    wqkv, wdw = _oihw(sw["wqkv"]), _oihw(sw["wdw"])
+    stats = spectral_stats_plain(_t(x), wqkv, wdw, heads, x2=_t(x2), ln_w=_t(ln_w), ln_b=_t(ln_b))
+    comb = spectral_fold(*stats, _t(sw["temp"]), _oihw(sw["wout"]))
+    got = spectral_apply_plain(_t(x), comb, wqkv, wdw, x2=_t(x2), ln_w=_t(ln_w), ln_b=_t(ln_b),
+                               residual=True)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("mode,cin,cout", [("plain", 5, 7), ("res", 6, 4), ("down", 6, 3),
+                                           ("up", 6, 8)])
+def test_conv3_matches_pallas(mode, cin, cout):
+    """fused_conv3x3_{,res_,down_,up_}nhwc (K4): channel order of the
+    (un)shuffle writebacks included."""
+    rng = _rng(3)
+    x = _n(rng, (2, 24, 16, cin))
+    w = _n(rng, (3, 3, cin, cout))
+    res = _n(rng, (2, 24, 16, cout))
+    fn = {"plain": PA.fused_conv3x3_nhwc, "down": PA.fused_conv3x3_down_nhwc,
+          "up": PA.fused_conv3x3_up_nhwc}
+    if mode == "res":
+        want = PA.fused_conv3x3_res_nhwc(jnp.asarray(x), jnp.asarray(w), jnp.asarray(res),
+                                         interpret=True)
+    else:
+        want = fn[mode](jnp.asarray(x), jnp.asarray(w), interpret=True)
+    got = conv3_plain(_t(x), _oihw(w), mode, _t(res) if mode == "res" else None)
+    assert tuple(got.shape) == want.shape
+    _close(got, want)
+
+
+def test_gdfn_with_exit_projection_matches_pallas():
+    """fused_ln_gdfn_nhwc with residual + proj_w (K5, PromptFusion's exit),
+    with a nonzero LN bias so the post-LN halo zeroing is exercised."""
+    c, hid, co = 16, 42, 8
+    rng = _rng(4)
+    x = _n(rng, (1, 24, 16, c))
+    ln_w, ln_b = 1 + _n(rng, (c,), 0.1), _n(rng, (c,), 0.5)
+    w_in, w_dw = _u(rng, (1, 1, c, 2 * hid), c), _u(rng, (3, 3, 1, 2 * hid), 9)
+    w_out, proj = _u(rng, (1, 1, hid, c), hid), _u(rng, (1, 1, c, co), c)
+    want = PA.fused_ln_gdfn_nhwc(
+        jnp.asarray(x), jnp.asarray(ln_w), jnp.asarray(ln_b), jnp.asarray(w_in),
+        jnp.asarray(w_dw), jnp.asarray(w_out), residual=True, proj_w=jnp.asarray(proj),
+        interpret=True)
+    got = gdfn_plain(_t(x), _t(ln_w), _t(ln_b), _oihw(w_in), _oihw(w_dw), _oihw(w_out),
+                     residual=True, proj_w=_oihw(proj))
+    _close(got, want)
+
+
+def test_wrappers_take_plain_version_on_cpu_and_refuse_other_devices():
+    """A CPU tensor runs the plain version and launches nothing; a tensor on
+    a device without a kernel raises instead of falling back."""
+    _route.reset_counters()
+    x = torch.zeros(1, 8, 8, 4)
+    w = torch.zeros(4, 4, 3, 3)
+    assert torch.equal(conv3(x, w), conv3_plain(x, w))
+    assert _route.COUNTERS["conv3"].launches == 0
+    with pytest.raises(RuntimeError, match="no kernel"):
+        conv3(x.to("meta"), w.to("meta"))
