@@ -25,7 +25,22 @@ Phases (any failure exits non-zero; no phase's error is caught):
    PSNR gap, and the float32 kernel path is held to it. Two faults planted
    in one block of the plain path must each break the max-abs bound.
 4. CLI: the port's mode-0 CLI on two 512x512 .mat cubes; its stdout lines.
-5. The kernel summary line, then the result line.
+5. Training kernels: every kernel call signature of the flagship train
+   step (the new MLP and backward kernels, the apply kernel's drop-path
+   option, the eval kernels at the step's shapes), float32 and bf16, against
+   the plain forward or the explicit plain backward on the same inputs
+   (same tolerances as phase 2); times and bounds per call.
+6. Training main path: the flagship preset in training mode (batch 32 of
+   64x64 patches cut from the quality cube, Gaussian noise, task 0) from the
+   committed weights. The float32 step's parameter gradients on the kernel
+   path against the plain float32 step on the card, both backpropagating the
+   plain step's L1 cotangent (per tensor, |g_kernel - g_plain| / |g_plain| <=
+   1e-3, beside the plain step's own change for a 1e-6 input change); then 20 bf16 AdamW steps with the counters zeroed before and
+   read after: every kernel launches its expected count per step, the
+   recorded call signatures equal the enumerated ones, no plain version
+   runs; the loss of the last step is below the first; ms per step (median
+   after 3 warm-up steps) and peak memory.
+7. The kernel summary line, then the result line.
 """
 
 from __future__ import annotations
@@ -53,6 +68,8 @@ BF16_TOL, F32_TOL = 3e-2, 1e-4
 MODEL_F32_TOL, MODEL_PSNR_TOL = 1e-4, 0.1
 REQUESTS = 4
 SIZE = 512
+TRAIN_BATCH, TRAIN_SIZE, TRAIN_STEPS, TRAIN_WARMUP = 32, 64, 20, 3
+GRAD_TOL = 1e-3  # float32 train-step gradients, kernels vs plain, norm-wise per tensor
 
 KERNELS = {
     "window_attention": dict(source="mp_hsir_tpu_torch/csrc/window_attention.cu", tpu=["K1", "K3"],
@@ -65,6 +82,21 @@ KERNELS = {
                   replaces="mp_hsir_tpu/ops/pallas_attention.py:1084"),
     "gdfn": dict(source="mp_hsir_tpu_torch/csrc/gdfn.cu", tpu=["K5"],
                  replaces="mp_hsir_tpu/ops/pallas_attention.py:1274"),
+}
+# the training route's new kernels (timed at the train step's shapes)
+TRAIN_KERNELS = {
+    "mlp": dict(source="mp_hsir_tpu_torch/csrc/mlp.cu", tpu=["K6"],
+                replaces="mp_hsir_tpu/ops/pallas_attention.py:1024"),
+    "mlp_bwd": dict(source="mp_hsir_tpu_torch/csrc/mlp.cu", tpu=["K9"],
+                    replaces="mp_hsir_tpu/ops/pallas_vjp.py:260"),
+    "window_attention_bwd": dict(source="mp_hsir_tpu_torch/csrc/window_attention.cu", tpu=["K8"],
+                                 replaces="mp_hsir_tpu/ops/pallas_vjp.py:853"),
+    "spectral_stats_bwd": dict(source="mp_hsir_tpu_torch/csrc/spectral.cu", tpu=["K10a", "K12"],
+                               replaces="mp_hsir_tpu/ops/pallas_vjp.py:1671"),
+    "spectral_apply_bwd": dict(source="mp_hsir_tpu_torch/csrc/spectral.cu", tpu=["K10b", "K12"],
+                               replaces="mp_hsir_tpu/ops/pallas_vjp.py:1758"),
+    "gdfn_bwd": dict(source="mp_hsir_tpu_torch/csrc/gdfn.cu", tpu=["K11"],
+                     replaces="mp_hsir_tpu/ops/pallas_vjp.py:471"),
 }
 
 
@@ -166,9 +198,12 @@ def make_call(spec, dev, dt):
         flops = p * (4 * c * c + 36 * c + 2 * c * (c // nh) + 4 * c)
         return spectral.spectral_stats, args, kw, None, byts, flops
     if name == "spectral_apply":
-        _, b, h, w, c1, c2, shift, ln, residual, gate, short, hid, _ = spec
+        dp = spec[-2] == "dp"
+        _, b, h, w, c1, c2, shift, ln, residual, gate, short, hid = spec[:12]
         c = c1 + c2
         kw = dict(shift=shift, residual=residual)
+        if dp:
+            kw["dp_scale"] = torch.tensor([1.25, 0.0] * (b // 2) + [1.25] * (b % 2), device=dev)
         p = b * h * w
         byts = 2 * p * c * e + b * c * c * 4 + (c * c + 9 * c) * e
         flops = p * (4 * c * c + 18 * c)
@@ -463,6 +498,351 @@ def run_cli() -> dict:
     return dict(stdout=lines, seconds=secs, psnr=psnr)
 
 
+# ---------------------------------------------------------------------------
+# phases 5-6: the training route
+# ---------------------------------------------------------------------------
+
+def train_path_specs(cfg, b: int, size: int, dt: str) -> Counter:
+    """Per-step multiset of the kernel calls of the flagship train step
+    (forward and backward), in the wrappers' spec format. conv3 counts the
+    forward and the backward's dx launches; the patch embed's input needs no
+    gradient, so it has no dx launch."""
+    specs: Counter = Counter()
+    d, nb = cfg.dim, cfg.num_blocks
+    dpr = np.linspace(0.0, cfg.drop_path_max, sum(nb))
+    rates = (dpr[:nb[0]], dpr[nb[0]:nb[0] + nb[1]], dpr[nb[0] + nb[1]:])
+    ref_rates = [rates[1][i % nb[1]] for i in range(cfg.num_refinement_blocks)]
+    levels = [(size, d, cfg.heads[0], rates[0], 0), (size // 2, 2 * d, cfg.heads[1], rates[1], 1),
+              (size // 4, 4 * d, cfg.heads[2], rates[2], 2),
+              (size // 2, 2 * d, cfg.heads[1], rates[1], 1), (size, 2 * d, cfg.heads[0], rates[0], 0),
+              (size, 2 * d, cfg.heads[0], ref_rates, 0)]
+    for res, c, nh, rr, level in levels:
+        frozen = min(cfg.train_resolution) >> level
+        hid = int(c * cfg.ffn_expansion_factor)
+        for i, rate in enumerate(rr):
+            shift = 0 if (i % 2 == 0 or frozen <= 8) else 4
+            dp = bool(rate > 0)
+            for spec in (("window_attention", b, res, res, c, nh, shift),
+                         ("window_attention_bwd", b, res, res, c, nh, shift),
+                         ("spectral_stats", b, res, res, c, 0, nh, shift, False),
+                         ("spectral_stats_bwd", b, res, res, c, nh, shift, False),
+                         ("spectral_apply", b, res, res, c, 0, shift, False, False, True, True, 0)
+                         + (("dp",) if dp else ()),
+                         ("spectral_apply_bwd", b, res, res, c, shift, False, False, True, dp),
+                         ("mlp", b, res, res, c, hid, True, dp),
+                         ("mlp_bwd", b, res, res, c, hid, True, dp)):
+                specs[spec + (dt,)] += 1
+    for res, c, nh in ((size // 2, 4 * d, 8), (size, 2 * d, 4)):  # fusion2, fusion1 (concat)
+        hid = int(c * cfg.ffn_expansion_factor)
+        for spec in (("spectral_stats", b, res, res, c, 0, nh, 0, True),
+                     ("spectral_stats_bwd", b, res, res, c, nh, 0, True),
+                     ("spectral_apply", b, res, res, c, 0, 0, True, True, False, False, 0),
+                     ("spectral_apply_bwd", b, res, res, c, 0, True, True, False, False),
+                     ("gdfn", b, res, res, c, hid, c, True), ("gdfn_bwd", b, res, res, c, hid, True)):
+            specs[spec + (dt,)] += 1
+    s2, s4 = size // 2, size // 4
+    convs = ((size, size, cfg.in_channels, d, "plain"), (size, size, d, d // 2, "down"),
+             (s2, s2, 2 * d, d, "down"), (s4, s4, 4 * d, 8 * d, "up"), (s2, s2, 2 * d, 4 * d, "up"),
+             (s2, s2, 2 * d, 2 * d, "plain"), (size, size, d, d, "plain"),
+             (size, size, 2 * d, cfg.out_channels, "res"))
+    for i, (h, w, cin, cout, mode) in enumerate(convs):
+        specs[("conv3", b, h, w, cin, cout, mode, dt)] += 1
+        if i:
+            specs[("conv3", b, h, w, cout, cin, "plain", dt)] += 1
+    return specs
+
+
+def make_bwd_call(spec, dev, dt):
+    """(backward kernel fn, its plain version, bytes, flops) for one backward
+    spec: both take the same forward inputs and output cotangent. Bound:
+    twice the forward's products (the input and the weight cotangents),
+    each input and output read or written once."""
+    from mp_hsir_tpu_torch.ops.kernels import gdfn, mlp, spectral, window_attention as wa
+
+    name = spec[0]
+    g = Inputs(zlib.crc32(repr(spec[:-1]).encode()), dev, dt)
+    e = torch.tensor([], dtype=dt).element_size()
+    f32 = lambda shape, s=1.0: g.n(shape, s, torch.float32)  # noqa: E731
+    eps = 1e-5
+    b, h, w, c = spec[1:5]
+    p = b * h * w
+    dpv = torch.tensor([1.25, 0.0] * (b // 2) + [1.25] * (b % 2), device=dev)
+    if name == "mlp_bwd":
+        hid, residual, dp = spec[5:8]
+        args = (g.n((b, h, w, c)), 1 + f32((c,), 0.1), f32((c,), 0.1), g.u((2 * hid, c), c),
+                g.u((2 * hid,), c), g.u((c, hid), hid), g.u((c,), hid), dpv if dp else None,
+                residual, eps, g.n((b, h, w, c)))
+        return (lambda: mlp._bwd_launch(*args), lambda: mlp.mlp_bwd_plain(*args),
+                3 * p * c * e + 3 * c * hid * (e + 4), 12 * p * c * hid)
+    if name == "window_attention_bwd":
+        nh, shift = spec[5:7]
+        args = (g.n((b, h, w, c)), 1 + f32((c,), 0.1), f32((c,), 0.1), g.u((3 * c, c), c),
+                g.u((3 * c,), c), f32((nh, 64, 64), 0.02), g.u((c, c), c), g.u((c,), c), nh, shift,
+                eps, g.n((b, h, w, c)), g.n((b, h // 8, w // 8, c)))
+        return (lambda: wa._bwd_launch(*args), lambda: wa.window_attention_bwd_plain(*args),
+                3 * p * c * e + p // 64 * c * e + 4 * c * c * (e + 4) + nh * 4096 * 8,
+                4 * p * (4 * c * c + 128 * c))
+    if name == "spectral_stats_bwd":
+        nh, shift, ln = spec[5:8]
+        dh = c // nh
+        args = (g.n((b, h, w, c)), g.u((3 * c, c, 1, 1), c), g.u((3 * c, 1, 3, 3), 9), nh, shift,
+                1 + f32((c,), 0.1) if ln else None, f32((c,), 0.1) if ln else None, eps,
+                f32((b, c, dh), 1e-3), f32((b, nh, dh), 1e-3), f32((b, nh, dh), 1e-3))
+        return (lambda: spectral._stats_bwd_launch(*args),
+                lambda: spectral.spectral_stats_bwd_plain(*args),
+                2 * p * c * e + (2 * c * c + 18 * c) * (e + 4) + 3 * b * c * dh * 4,
+                2 * p * (4 * c * c + 36 * c + 2 * c * dh + 4 * c))
+    if name == "spectral_apply_bwd":
+        shift, ln, residual, gate, dp = spec[5:10]
+        args = (g.n((b, h, w, c)), f32((b, c, c), c ** -0.5), g.u((3 * c, c, 1, 1), c),
+                g.u((3 * c, 1, 3, 3), 9), shift, 1 + f32((c,), 0.1) if ln else None,
+                f32((c,), 0.1) if ln else None, residual,
+                g.n((b, h // 8, w // 8, c), 0.5) if gate else None, dpv if dp else None, eps,
+                g.n((b, h, w, c)))
+        return (lambda: spectral._apply_bwd_launch(*args),
+                lambda: spectral.spectral_apply_bwd_plain(*args),
+                3 * p * c * e + 2 * b * c * c * 4 + (c * c + 9 * c) * (e + 4)
+                + (2 * p // 64 * c * e if gate else 0), 2 * p * (4 * c * c + 18 * c))
+    if name == "gdfn_bwd":
+        hid, residual = spec[5:7]
+        args = (g.n((b, h, w, c)), 1 + f32((c,), 0.1), f32((c,), 0.1), g.u((2 * hid, c, 1, 1), c),
+                g.u((2 * hid, 1, 3, 3), 9), g.u((c, hid, 1, 1), hid), residual, eps,
+                g.n((b, h, w, c)))
+        return (lambda: gdfn._bwd_launch(*args), lambda: gdfn.gdfn_bwd_plain(*args),
+                3 * p * c * e + (3 * c * hid + 18 * hid) * (e + 4), 2 * p * (6 * c * hid + 36 * hid))
+    raise KeyError(name)
+
+
+def make_train_fwd_call(spec, dev, dt):
+    """make_call for the training route's new forward kernel (mlp) and the
+    apply kernel's drop-path option."""
+    from mp_hsir_tpu_torch.ops.kernels import mlp
+
+    if spec[0] != "mlp":
+        return make_call(spec, dev, dt)
+    _, b, h, w, c, hid, residual, dp, _ = spec
+    g = Inputs(zlib.crc32(repr(spec[:-1]).encode()), dev, dt)
+    e = torch.tensor([], dtype=dt).element_size()
+    f32 = lambda shape, s=1.0: g.n(shape, s, torch.float32)  # noqa: E731
+    args = (g.n((b, h, w, c)), 1 + f32((c,), 0.1), f32((c,), 0.1), g.u((2 * hid, c), c),
+            g.u((2 * hid,), c), g.u((c, hid), hid), g.u((c,), hid))
+    kw = dict(residual=residual)
+    if dp:
+        kw["dp_scale"] = torch.tensor([1.25, 0.0] * (b // 2) + [1.25] * (b % 2), device=dev)
+    p = b * h * w
+    return mlp.mlp, args, kw, None, 2 * p * c * e + 3 * c * hid * e, 6 * p * c * hid
+
+
+def compare_pair(kernel, plain, tol):
+    """Max-abs error of a backward kernel against its plain version (each
+    output against its own scale; None outputs must agree)."""
+    from mp_hsir_tpu_torch.ops.kernels._route import plain_reference
+
+    got = kernel()
+    with plain_reference():
+        ref = plain()
+    torch.cuda.synchronize()
+    worst, worst_rel = 0.0, 0.0
+    for i, (a, r) in enumerate(zip(got, ref)):
+        if (a is None) != (r is None):
+            raise AssertionError(f"output {i}: None on one side only")
+        if a is None:
+            continue
+        if a.shape != r.shape:
+            raise AssertionError(f"output {i}: shape {tuple(a.shape)} vs {tuple(r.shape)}")
+        if not torch.isfinite(a.float()).all():
+            raise AssertionError(f"output {i} not finite")
+        err = (a.float() - r.float()).abs().max().item()
+        scale = max(r.float().abs().max().item(), 1e-6)
+        worst, worst_rel = max(worst, err), max(worst_rel, err / scale)
+        if err > tol * scale:
+            raise AssertionError(f"output {i}: max abs err {err:.3e} > {tol} * {scale:.3e}")
+    return worst, worst_rel
+
+
+def train_kernel_checks(specs: Counter, dev) -> list:
+    """Every kernel of the training route (the new ones, the apply kernel's
+    drop-path option and the eval kernels at the step's shapes; conv3's
+    backward dx calls are conv3 calls) at every call signature of the train
+    step, bf16 and float32, timed in bf16."""
+    from mp_hsir_tpu_torch.ops.kernels._route import plain_reference
+
+    rows = []
+    for spec in sorted(specs, key=str):
+        mult, name = specs[spec], spec[0]
+        f32spec = spec[:-1] + ("torch.float32",)
+        library = None
+        if name.endswith("_bwd"):
+            kern, plain, byts, flops = make_bwd_call(spec, dev, torch.bfloat16)
+            err, rel = compare_pair(kern, plain, BF16_TOL)
+            k32, p32, *_ = make_bwd_call(f32spec, dev, torch.float32)
+            err32, rel32 = compare_pair(k32, p32, F32_TOL)
+            del k32, p32
+        else:
+            fn, args, kw, library, byts, flops = make_train_fwd_call(spec, dev, torch.bfloat16)
+            err, rel = compare(fn, args, kw, BF16_TOL)
+            f_fn, f_args, f_kw, *_ = make_train_fwd_call(f32spec, dev, torch.float32)
+            err32, rel32 = compare(f_fn, f_args, f_kw, F32_TOL)
+            del f_args, f_kw
+            kern = lambda fn=fn, args=args, kw=kw: fn(*args, **kw)  # noqa: E731
+            plain = kern
+        ms = time_ms(kern, 10)
+
+        def run_plain():
+            with plain_reference():
+                return plain()
+
+        plain_ms = time_ms(run_plain, 3)
+        lib_ms = time_ms(library, 10) if library is not None else None
+        bound_ms = max(byts / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+        rows.append(dict(spec=list(spec), per_step=mult, max_abs_err=err, rel_err=rel,
+                         max_abs_err_f32=err32, rel_err_f32=rel32, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=bound_ms, bytes=byts, flops=flops,
+                         bound_by="bytes" if byts / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations"))
+        log(f"  {name:20s} {str(spec[1:-1]):50s} x{mult:<2d} err {err:.2e} (rel {rel:.1e}, "
+            f"f32 rel {rel32:.1e})  {ms:8.3f} ms  plain {plain_ms:8.3f}  bound {bound_ms:.4f}")
+        torch.cuda.empty_cache()
+    return rows
+
+
+def train_batch(dev, b: int, size: int, seed: int = 2024) -> dict:
+    """Clean size x size patches, one quality cube per sample, sigma = 70
+    Gaussian noise from a torch.Generator on the card, task 0."""
+    clean = torch.from_numpy(np.stack([quality_cube(3000 + i, size)[0] for i in range(b)])).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    noise = torch.randn(clean.shape, generator=gen, device=dev)
+    return dict(degraded=(clean + noise * (70 / 255.0)).clamp(0, 1), clean=clean,
+                task_id=torch.zeros(b, dtype=torch.long, device=dev))
+
+
+def train_path(dev, expected: Counter) -> dict:
+    import dataclasses
+
+    from mp_hsir_tpu_torch.checkpoint import load_params_npz
+    from mp_hsir_tpu_torch.config import TrainConfig, natural_scene_config
+    from mp_hsir_tpu_torch.models.mp_hsir import build_model
+    from mp_hsir_tpu_torch.ops.kernels import _route
+    from mp_hsir_tpu_torch.training.losses import l1_clamped
+    from mp_hsir_tpu_torch.training.trainer import create_train_state, train_step
+
+    cfg = natural_scene_config(compute_dtype="bfloat16")
+    model = build_model(cfg, dev, train=True)
+    load_params_npz(ART, model)
+    batch = train_batch(dev, TRAIN_BATCH, TRAIN_SIZE)
+
+    # float32 step gradients: kernels against the plain versions on the card.
+    # The L1 loss's cotangent sign(pred - clean) / N flips for pixels within
+    # float32 noise of their target, so both paths take the plain step's
+    # loss cotangent: the comparison then sees the backward kernels only.
+    def grads(cot=None, degraded=None):
+        model.zero_grad(set_to_none=True)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        pred = model(batch["degraded"] if degraded is None else degraded, batch["task_id"], gen)
+        p = pred.detach().requires_grad_(True)
+        loss = l1_clamped(p, batch["clean"])
+        if cot is None:
+            loss.backward()
+            cot = p.grad
+        pred.backward(cot)
+        return loss.item(), {k: q.grad.detach().clone() for k, q in model.named_parameters()}, cot
+
+    model.cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    with _route.plain_reference():
+        loss_p, g_p, cot = grads()
+        # noise floor: the plain step's own gradients when the input moves
+        # by 1e-6 of its value
+        noisy = batch["degraded"] * (1 + 1e-6 * torch.randn(
+            batch["degraded"].shape, generator=torch.Generator(device=dev).manual_seed(9), device=dev))
+        _, g_n, _ = grads(cot, noisy)
+    loss_k, g_k, _ = grads(cot)
+
+    def rel(a, b):  # norm-wise relative difference of one tensor
+        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+    rows_g = sorted(((rel(g_k[k], g), rel(g_n[k], g),
+                      (g_k[k] - g).abs().max().item() / max(g.abs().max().item(), 1e-30), k)
+                     for k, g in g_p.items()), reverse=True)
+    worst = rows_g[0]
+    log(f"  float32 step: loss kernels {loss_k:.6f} plain {loss_p:.6f}; per-tensor "
+        f"|g_kernel - g_plain| / |g_plain| (bound {GRAD_TOL}), the plain step's own change "
+        f"for a 1e-6 input change, and max-abs error / max-abs, worst five:")
+    for r in rows_g[:5]:
+        log(f"    {r[3]:60s} {r[0]:.2e}  noise {r[1]:.2e}  max-abs {r[2]:.2e}")
+    if worst[0] > GRAD_TOL:
+        fail(f"float32 gradient of {worst[3]} differs from the plain step by {worst[0]:.2e}")
+    del g_k, g_p, g_n
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    # bf16 AdamW steps from the committed weights; counters over all steps
+    model.cfg = cfg
+    tc = TrainConfig(warmup_frac=0.0)
+    state = create_train_state(cfg, tc, device=dev, model=model)
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _route.reset_counters()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = train_step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+    counts = {name: cnt.launches for name, cnt in _route.COUNTERS.items()}
+    recorded = Counter()
+    for cnt in _route.COUNTERS.values():
+        recorded.update(cnt.specs)
+    plain_calls = _route.ROUTE.plain_cuda_calls
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    steady = times[TRAIN_WARMUP:]
+    log("  losses: " + " ".join(f"{v:.5f}" for v in losses))
+    log(f"  ms per train step (bf16, batch {TRAIN_BATCH} x 31 x {TRAIN_SIZE}^2, median of "
+        f"{len(steady)} after {TRAIN_WARMUP} warm-up): {statistics.median(steady):.2f} "
+        f"(min {min(steady):.2f}, max {max(steady):.2f}); peak memory {peak_gib:.2f} GiB")
+    per_step = {k: v // TRAIN_STEPS for k, v in counts.items()}
+    log(f"  launches per step: {json.dumps(per_step)}; conv3 = 8 forward + 7 dx (the patch "
+        f"embed's input needs no gradient); plain versions on CUDA tensors: {plain_calls}")
+    if plain_calls:
+        fail(f"{plain_calls} plain-version calls on CUDA tensors in the train steps")
+    want = Counter({k: v * TRAIN_STEPS for k, v in expected.items()})
+    if recorded != want:
+        fail(f"train kernel calls differ from the enumerated step: extra {dict(recorded - want)}, "
+             f"missing {dict(want - recorded)}")
+    exp_per = Counter()
+    for spec, n in expected.items():
+        exp_per[spec[0]] += n
+    for name, n in exp_per.items():
+        if counts.get(name, 0) != n * TRAIN_STEPS:
+            fail(f"{name}: {counts.get(name, 0)} launches in {TRAIN_STEPS} steps, expected "
+                 f"{n * TRAIN_STEPS}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"train loss did not fall over {TRAIN_STEPS} steps: {losses[0]} -> {losses[-1]}")
+    return dict(losses=losses, ms_per_step=times, median_ms=statistics.median(steady),
+                peak_gib=peak_gib, launches=counts, launches_per_step=per_step,
+                f32_grad_worst=rows_g[:10], loss_f32_kernels=loss_k, loss_f32_plain=loss_p)
+
+
+def summarize(rows, launches, kernels, per) -> list:
+    summary = []
+    for name, meta in kernels.items():
+        mine = [r for r in rows if r["spec"][0] == name]
+        tot = lambda k: sum(r[k] * r[per] for r in mine)  # noqa: E731
+        lib = None if any(r["library_ms"] is None for r in mine) else tot("library_ms")
+        byts, flops = tot("bytes"), tot("flops")
+        summary.append(dict(
+            name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
+            tpu=meta["tpu"], launches=launches[name],
+            **{f"launches_{per}": sum(r[per] for r in mine)},
+            max_abs_err=max(r["max_abs_err"] for r in mine),
+            rel_err=max(r["rel_err"] for r in mine), ms=tot("ms"), plain_ms=tot("plain_ms"),
+            bound_ms=tot("bound_ms"),
+            bound_by="bytes" if byts / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
+            library_ms=lib))
+    return summary
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="", help="write the detailed results here (JSON)")
@@ -508,27 +888,34 @@ def main() -> None:
     log("== phase 4: mode-0 CLI")
     cli_res = run_cli()
 
-    summary = []
-    for name, meta in KERNELS.items():
-        mine = [r for r in rows if r["spec"][0] == name]
-        tot = lambda k: sum(r[k] * r["per_forward"] for r in mine)  # noqa: E731
-        lib = None if any(r["library_ms"] is None for r in mine) else tot("library_ms")
-        byts, flops = tot("bytes"), tot("flops")
-        summary.append(dict(
-            name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
-            tpu=meta["tpu"], launches=main_res["launches"][name],
-            launches_per_forward=sum(r["per_forward"] for r in mine),
-            max_abs_err=max(r["max_abs_err"] for r in mine),
-            rel_err=max(r["rel_err"] for r in mine), ms=tot("ms"), plain_ms=tot("plain_ms"),
-            bound_ms=tot("bound_ms"),
-            bound_by="bytes" if byts / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
-            library_ms=lib))
+    tspecs = train_path_specs(cfg, TRAIN_BATCH, TRAIN_SIZE, "torch.bfloat16")
+    log("== phase 5: training kernels against their plain versions (bf16 and f32, step shapes)")
+    train_rows = train_kernel_checks(tspecs, dev)
+
+    log("== phase 6: training main path, flagship bf16 train steps from the trained weights")
+    train_res = train_path(dev, tspecs)
+    # where the step's time goes, by kernel: each call's isolated time from
+    # phase 5 times its calls per step
+    step = summarize(train_rows, train_res["launches"], {n: KERNELS.get(n) or TRAIN_KERNELS[n]
+                     for n in sorted({r["spec"][0] for r in train_rows})}, "per_step")
+    train_res["kernel_ms_per_step"] = step
+    log("  kernel ms per train step (phase 5 calls x calls per step): ms, plain ms, bound ms, "
+        "library ms")
+    for k in sorted(step, key=lambda k: -k["ms"]):
+        lib = "-" if k["library_ms"] is None else f"{k['library_ms']:.2f}"
+        log(f"    {k['name']:22s} {k['ms']:8.2f}  plain {k['plain_ms']:8.2f}  bound "
+            f"{k['bound_ms']:.4f} ({k['bound_by']})  library {lib}  calls {k['launches_per_step']}")
+    log(f"    sum {sum(k['ms'] for k in step):.2f} of the step's {train_res['median_ms']:.2f} ms")
+
+    summary = summarize(rows, main_res["launches"], KERNELS, "per_forward")
+    summary += summarize([r for r in train_rows if r["spec"][0] in TRAIN_KERNELS],
+                         train_res["launches"], TRAIN_KERNELS, "per_step")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
             json.dump(dict(card=card, build=_build.BUILD_INFO.get("seconds"), rows=rows,
-                           main=main_res, cli=cli_res, kernels=summary,
-                           seconds=time.perf_counter() - t_start), fh, indent=1)
+                           main=main_res, cli=cli_res, train_rows=train_rows, train=train_res,
+                           kernels=summary, seconds=time.perf_counter() - t_start), fh, indent=1)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": summary}))

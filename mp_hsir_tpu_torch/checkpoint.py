@@ -1,5 +1,5 @@
-"""Parameter bridge from the JAX package's flat params to this package's
-state_dict.
+"""Parameter bridge between the JAX package's flat params and this
+package's state_dict, both ways.
 
 The JAX params are a flax tree; flattened with '/'-joined paths (as
 ``mp_hsir_tpu/training/checkpoint.py:save_params_npz`` writes
@@ -60,3 +60,26 @@ def load_params_npz(path: str, model: Optional[torch.nn.Module] = None) -> dict:
     if model is not None:
         model.load_state_dict(sd, strict=True)
     return sd
+
+
+def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """state_dict -> flat '/'-keyed numpy params in the JAX layouts: the
+    inverse of :func:`params_from_jax`."""
+    flat = {}
+    for k, v in state_dict.items():
+        a = v.detach().float().cpu().numpy()
+        if k.rsplit(".", 1)[-1] == "weight":
+            if a.ndim == 2:
+                a = a.T
+            elif a.ndim == 4:
+                a = a.transpose(2, 3, 1, 0)
+        flat[k.replace(".", "/")] = np.ascontiguousarray(a)
+    return flat
+
+
+def save_params_npz(path: str, model: torch.nn.Module, dtype=np.float16) -> None:
+    """Write a model's parameters as the flat npz artifact the JAX package
+    writes and reads (``mp_hsir_tpu/training/checkpoint.py:save_params_npz``,
+    float16 by default), so port-trained weights load into either package."""
+    flat = params_to_jax(model.state_dict())
+    np.savez_compressed(path, **{k: v.astype(dtype) for k, v in flat.items()})

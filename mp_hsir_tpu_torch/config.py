@@ -1,6 +1,6 @@
 """Typed configuration (mirrors ``mp_hsir_tpu/config.py``: ModelConfig, the two
-published presets, and the mode-0 fields of EvalConfig). Mesh and training
-fields are absent: this package runs one card."""
+published presets, the mode-0 fields of EvalConfig and the single-device
+fields of TrainConfig). Mesh fields are absent: this package runs one card."""
 
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ class ModelConfig:
     compress_ratios: Tuple[int, int, int] = (8, 16, 32)
     prompt_len: int = 128
     prompt_sizes: Tuple[int, int] = (64, 32)
+    drop_path_max: float = 0.1
     # resolution the shifted-window decision is frozen at (reference
     # MP_HSIR.py:791 input_resolution=[64, 64])
     train_resolution: Tuple[int, int] = (64, 64)
@@ -46,6 +47,21 @@ def natural_scene_config(**kw) -> ModelConfig:
 def remote_sensing_config(**kw) -> ModelConfig:
     """100-band remote-sensing preset (reference train.py:45)."""
     return ModelConfig(in_channels=100, out_channels=100, dim=96, task_classes=7, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Single-device training knobs (the fields of JAX ``TrainConfig``,
+    reference train.py:68-120, that the train step reads)."""
+
+    seed: int = 2024
+    epochs: int = 100
+    steps_per_epoch: int = 1000
+    lr: float = 2e-4
+    eta_min: float = 1e-6
+    warmup_frac: float = 0.1
+    weight_decay: float = 0.01  # torch AdamW default
+    grad_accum: int = 1
 
 
 @dataclasses.dataclass(frozen=True)

@@ -49,6 +49,26 @@ __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
 }
 
+// d/dx [x Phi(x)] = Phi(x) + x phi(x), the exact-erf GELU's derivative
+__device__ __forceinline__ float dgelu_erf(float x) {
+  return 0.5f * (1.0f + erff(x * 0.70710678118654752f)) +
+         x * 0.39894228040143268f * expf(-0.5f * x * x);
+}
+
+// Sum of one float per thread over the block, in a fixed order (warp
+// shuffles, then the warps' sums in warp order); every thread gets it.
+// `red` is kThreads / 32 floats of shared memory.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  v = warp_sum(v);
+  __syncthreads();
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float s = 0.f;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += red[w];
+  return s;
+}
+
 // Block-wide product: for every i < M, j < N calls epi(i, j, sum_k la(i, k) *
 // lb(k, j)), each (i, j) from exactly one thread. Thread t owns 4x4 output
 // tiles t, t + blockDim.x, ...; neighbouring threads take neighbouring column tiles
@@ -205,11 +225,77 @@ __device__ __forceinline__ void dwconv3_tile(const float* src, int lds, int nc, 
   }
 }
 
+// The gated MLP on one 8x8 tile: y[p][o] += fc2(a * gelu(g)) + b2 with
+// [a | g] = fc1(LN2(y)) + b1 (the PGSSTB tail of the spectral apply kernel),
+// or, with branch_only, y[p][o] = fc2(a * gelu(g)) + b2 (the standalone MLP
+// kernel, which adds its residual and drop-path scale itself). y ([kPix][ldy],
+// float32 values already rounded to T) is updated in place; yn ([kPix][ldy])
+// and hb ([kPix][2*kHC+1]) are scratch.
+constexpr int kHC = 64;  // hidden chunk (apply smem at C = 256: 210 KB of 227)
+
+template <typename T>
+__device__ __forceinline__ void mlp_tail_tile(float* y, float* yn, int ldy, float* hb, int C,
+                                              int hid, const float* __restrict__ ln2w,
+                                              const float* __restrict__ ln2b,
+                                              const T* __restrict__ w1,
+                                              const float* __restrict__ b1,
+                                              const T* __restrict__ w2,
+                                              const float* __restrict__ b2, float eps,
+                                              bool branch_only = false) {
+  const int ldh = 2 * kHC + 1;
+  for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
+    const int p = idx / C, k = idx - p * C;
+    yn[p * ldy + k] = y[p * ldy + k];
+  }
+  __syncthreads();
+  ln_rows_inplace<T>(yn, ldy, kPix, C, ln2w, ln2b, eps, [](int) { return true; });
+  for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
+    const int p = idx / C, k = idx - p * C;
+    y[p * ldy + k] = branch_only ? b2[k] : y[p * ldy + k] + b2[k];
+  }
+  __syncthreads();
+  for (int j0 = 0; j0 < hid; j0 += kHC) {
+    const int hc = min(kHC, hid - j0);
+    // column j < hc: a-half hidden unit j0 + j; j >= hc: g-half
+    gemm<T>(kPix, 2 * hc, C,
+        [&](int i, int k) { return yn[i * ldy + k]; },
+        [&](int k, int j) {
+          const int col = j < hc ? j0 + j : hid + j0 + (j - hc);
+          return to_f(w1[(size_t)k * 2 * hid + col]);
+        },
+        [&](int i, int j, float acc) {
+          const int col = j < hc ? j0 + j : hid + j0 + (j - hc);
+          hb[i * ldh + (j < hc ? j : kHC + j - hc)] = acc + b1[col];
+        });
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < kPix * hc; idx += blockDim.x) {
+      const int p = idx / hc, j = idx - p * hc;
+      hb[p * ldh + j] = rnd<T>(hb[p * ldh + j] * gelu_erf(hb[p * ldh + kHC + j]));
+    }
+    __syncthreads();
+    gemm<T>(kPix, C, hc,
+        [&](int i, int k) { return hb[i * ldh + k]; },
+        [&](int k, int j) { return to_f(w2[(size_t)(j0 + k) * C + j]); },
+        [&](int i, int j, float acc) { y[i * ldy + j] += acc; });
+    __syncthreads();
+  }
+}
+
 inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 template <typename K>
 inline cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// out[b][i] = sum over p (in order) of part[b][p][i], i < n: the second pass
+// of every deterministic cross-block reduction (defined in spectral.cu).
+cudaError_t launch_sum_parts(const float* part, float* out, int nb, int n_parts, int n,
+                             cudaStream_t stream);
+
+// Global index of pixel i (0..63) of 8x8 tile (ty, tx) of image b.
+__device__ __forceinline__ size_t tile_pix(int b, int ty, int tx, int i, int H, int W) {
+  return ((size_t)b * H + ty * kTile + (i >> 3)) * W + tx * kTile + (i & 7);
 }
 
 }  // namespace mp

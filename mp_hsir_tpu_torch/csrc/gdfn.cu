@@ -128,6 +128,109 @@ cudaError_t launch_gdfn(const void* x, const float* lnw, const float* lnb, const
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// Backward (K11, replaces _gdfn_bwd_kernel, mp_hsir_tpu/ops/pallas_vjp.py:342):
+// per 8x8 tile and hidden chunk, recompute LN(x) on the halo, t = LN(x) W_in
+// (float32, as the forward keeps it) and the depthwise output [a1 | a2];
+// dgated = dy W_out^T; da1 = dgated a2 gelu'(a1), da2 = dgated gelu(a1). It
+// writes LN(x), t and d[a1 | a2] (float32) and the gated product for grad.cu
+// (depthwise backward, 1x1 + LN backward with the residual, weight products).
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+gdfn_bwd_kernel(const T* __restrict__ x, const float* __restrict__ lnw,
+                const float* __restrict__ lnb, const T* __restrict__ win,
+                const T* __restrict__ wdw, const T* __restrict__ wout, const T* __restrict__ dy,
+                T* __restrict__ xn_out, float* __restrict__ t_out, float* __restrict__ dc_out,
+                T* __restrict__ gated_out, int H, int W, int C, int hid, float eps) {
+  extern __shared__ float sm[];
+  const int ldx = C + 1, ldt = 2 * kGC + 1;
+  float* xs = sm;                    // [100][ldx] LN(x) halo
+  float* ts = xs + kHaloPix * ldx;   // [100][ldt] project_in chunk: x1 | x2
+  float* cs = ts + kHaloPix * ldt;   // [64][ldt] depthwise output a1 | a2
+  float* dys = cs + kPix * ldt;      // [64][ldx] dy
+  const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
+  const int H2 = 2 * hid;
+  auto inside = [&](int p) {
+    const int r = ty * kTile + p / kHalo - 1, c = tx * kTile + p % kHalo - 1;
+    return r >= 0 && r < H && c >= 0 && c < W;
+  };
+  auto hp = [](int i) { return ((i >> 3) + 1) * kHalo + (i & 7) + 1; };
+  auto pix = [&](int i) { return tile_pix(b, ty, tx, i, H, W); };
+  for (int idx = threadIdx.x; idx < kHaloPix * C; idx += blockDim.x) {
+    const int p = idx / C, k = idx - p * C;
+    const int r = ty * kTile + p / kHalo - 1, c = tx * kTile + p % kHalo - 1;
+    xs[p * ldx + k] = inside(p) ? to_f(x[(((size_t)b * H + r) * W + c) * C + k]) : 0.f;
+  }
+  for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
+    const int i = idx / C, k = idx - i * C;
+    dys[i * ldx + k] = to_f(dy[pix(i) * C + k]);
+  }
+  __syncthreads();
+  ln_rows_inplace<T>(xs, ldx, kHaloPix, C, lnw, lnb, eps, inside);
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
+    const int i = idx / C, k = idx - i * C;
+    xn_out[pix(i) * C + k] = from_f<T>(xs[hp(i) * ldx + k]);
+  }
+  for (int j0 = 0; j0 < hid; j0 += kGC) {
+    const int hc = min(kGC, hid - j0);
+    auto col = [&](int j) { return j < hc ? j0 + j : hid + j0 + (j - hc); };
+    gemm<T>(kHaloPix, 2 * hc, C,
+        [&](int i, int k) { return xs[i * ldx + k]; },
+        [&](int k, int j) { return to_f(win[(size_t)k * H2 + col(j)]); },
+        [&](int i, int j, float a) { ts[i * ldt + (j < hc ? j : kGC + j - hc)] = a; });
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < kPix * 2 * hc; idx += blockDim.x) {
+      const int i = idx / (2 * hc), j = idx - i * 2 * hc;
+      t_out[pix(i) * H2 + col(j)] = ts[hp(i) * ldt + (j < hc ? j : kGC + j - hc)];
+    }
+    for (int idx = threadIdx.x; idx < kPix * hc; idx += blockDim.x) {
+      const int p = idx / hc, j = idx - p * hc;
+      const int pr = p >> 3, pc = p & 7;
+      float a1 = 0.f, a2 = 0.f;
+#pragma unroll
+      for (int dy3 = 0; dy3 < 3; ++dy3)
+#pragma unroll
+        for (int dx3 = 0; dx3 < 3; ++dx3) {
+          const float* t = ts + ((pr + dy3) * kHalo + pc + dx3) * ldt;
+          const int tap = dy3 * 3 + dx3;
+          a1 = fmaf(t[j], to_f(wdw[tap * H2 + j0 + j]), a1);
+          a2 = fmaf(t[kGC + j], to_f(wdw[tap * H2 + hid + j0 + j]), a2);
+        }
+      cs[p * ldt + j] = a1;
+      cs[p * ldt + kGC + j] = a2;
+      gated_out[pix(p) * hid + j0 + j] = from_f<T>(rnd<T>(gelu_erf(a1) * a2));
+    }
+    __syncthreads();
+    gemm<T>(kPix, hc, C,  // dgated = dy W_out^T
+        [&](int i, int k) { return dys[i * ldx + k]; },
+        [&](int k, int j) { return to_f(wout[(size_t)(j0 + j) * C + k]); },
+        [&](int i, int j, float g) {
+          const float a1 = cs[i * ldt + j], a2 = cs[i * ldt + kGC + j];
+          dc_out[pix(i) * H2 + j0 + j] = g * a2 * dgelu_erf(a1);
+          dc_out[pix(i) * H2 + hid + j0 + j] = g * gelu_erf(a1);
+        });
+    __syncthreads();
+  }
+}
+
+template <typename T>
+cudaError_t launch_gdfn_bwd(const void* x, const float* lnw, const float* lnb, const void* win,
+                            const void* wdw, const void* wout, const void* dy, void* xn, float* t,
+                            float* dc, void* gated, int B, int H, int W, int C, int hid,
+                            float eps, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * ((size_t)kHaloPix * (C + 1) + (size_t)kHaloPix * (2 * kGC + 1) +
+                                       (size_t)kPix * (2 * kGC + 1) + (size_t)kPix * (C + 1));
+  cudaError_t err = set_smem(gdfn_bwd_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  gdfn_bwd_kernel<T><<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
+      (const T*)x, lnw, lnb, (const T*)win, (const T*)wdw, (const T*)wout, (const T*)dy, (T*)xn,
+      t, dc, (T*)gated, H, W, C, hid, eps);
+  return cudaGetLastError();
+}
+
 }  // namespace mp
 
 // x (B, H, W, C); LN float32; win [C][2*hid], wdw [9][2*hid], wout [hid][C],
@@ -145,4 +248,23 @@ extern "C" int mp_gdfn(const void* x, const void* lnw, const void* lnb, const vo
   return (int)mp::launch_gdfn<__nv_bfloat16>(x, (const float*)lnw, (const float*)lnb, win, wdw,
                                              wout, wproj, Co, residual, out, B, H, W, C, hid,
                                              eps, st);
+}
+
+// The per-tile half of the GDFN backward (no exit projection). dy (B, H, W,
+// C). Outputs: xn (B, H, W, C) LN(x) and gated (B, H, W, hid) in the compute
+// type; t and dc (B, H, W, 2*hid) float32: project_in output and the
+// cotangent at the depthwise output.
+extern "C" int mp_gdfn_bwd(const void* x, const void* lnw, const void* lnb, const void* win,
+                           const void* wdw, const void* wout, const void* dy, void* xn, void* t,
+                           void* dc, void* gated, int dtype, int B, int H, int W, int C, int hid,
+                           float eps, void* stream) {
+  if (H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
+  auto st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return (int)mp::launch_gdfn_bwd<float>(x, (const float*)lnw, (const float*)lnb, win, wdw, wout,
+                                           dy, xn, (float*)t, (float*)dc, gated, B, H, W, C, hid,
+                                           eps, st);
+  return (int)mp::launch_gdfn_bwd<__nv_bfloat16>(x, (const float*)lnw, (const float*)lnb, win, wdw,
+                                                 wout, dy, xn, (float*)t, (float*)dc, gated, B, H,
+                                                 W, C, hid, eps, st);
 }

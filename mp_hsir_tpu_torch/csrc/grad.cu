@@ -1,0 +1,328 @@
+// Shared stages of the backward kernels (training slice). Each module's
+// backward tile kernel (mlp.cu, window_attention.cu, spectral.cu, gdfn.cu)
+// recomputes its forward per 8x8 tile and writes per-pixel operands; these
+// launches finish the backward from them:
+//
+//   mp_wgrad          weight cotangents, out[b][m][n] = sum_p A[b][p][m] B[b][p][n]:
+//                     each block sums a fixed pixel range of a 64x64 output
+//                     tile into its own partial, then the partials are added
+//                     in a fixed order (deterministic, no float atomics).
+//   mp_dwconv_bwd     3x3 depthwise conv backward: dt = the transposed stencil
+//                     of dout (zero padding), per-tile tap-weight partials.
+//   mp_ln_linear_bwd  dxn = d W^T through a 1x1 (Linear) layer, then the
+//                     LayerNorm backward, plus optional extra cotangents;
+//                     per-tile LN and bias partials. Reads the input and
+//                     writes dx through a cyclic roll of `shift` pixels, so
+//                     a kernel frame that is the rolled (window) or unrolled
+//                     (spectral) one maps back to the input's own frame.
+//   mp_sum_parts      the in-order sum of per-block partials.
+//
+// These replace the in-kernel f32 accumulators of the TPU backward kernels
+// (mp_hsir_tpu/ops/pallas_vjp.py _mlp_bwd_kernel :124, _gdfn_bwd_kernel :342,
+// _win_bwd_kernel :539, _sp0_bwd_kernel :1443, _sp1_bwd_kernel :1501), which
+// carry weight sums across a sequential grid; Hopper blocks run in no order.
+// Bound: the weight products are 2*P*M*N flops over P*(M+N) elements read;
+// tensor-core rate at these widths. bf16 runs on mma.sync (common.cuh gemm).
+#include "common.cuh"
+
+namespace mp {
+
+constexpr int kWM = 64, kWN = 64, kWK = 32, kWThreads = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(kWThreads)
+wgrad_kernel(const T* __restrict__ A, const T* __restrict__ Bm, int P, int M, int N,
+             int n_parts, int chunk, float* __restrict__ out) {
+  __shared__ float as[kWK][kWM + 1];
+  __shared__ float bs[kWK][kWN + 1];
+  __shared__ float acc[kWM][kWN + 1];
+  const int n0 = blockIdx.x * kWN, m0 = blockIdx.y * kWM;
+  const int b = blockIdx.z / n_parts, part = blockIdx.z - b * n_parts;
+  const T* a = A + (size_t)b * P * M;
+  const T* bb = Bm + (size_t)b * P * N;
+  const int p_end = min(P, (part + 1) * chunk);
+  for (int idx = threadIdx.x; idx < kWM * kWN; idx += blockDim.x) acc[idx / kWN][idx % kWN] = 0.f;
+  for (int p0 = part * chunk; p0 < p_end; p0 += kWK) {
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < kWK * kWM; idx += blockDim.x) {
+      const int k = idx / kWM, i = idx - k * kWM;
+      as[k][i] = (p0 + k < p_end && m0 + i < M) ? to_f(a[(size_t)(p0 + k) * M + m0 + i]) : 0.f;
+    }
+    for (int idx = threadIdx.x; idx < kWK * kWN; idx += blockDim.x) {
+      const int k = idx / kWN, j = idx - k * kWN;
+      bs[k][j] = (p0 + k < p_end && n0 + j < N) ? to_f(bb[(size_t)(p0 + k) * N + n0 + j]) : 0.f;
+    }
+    __syncthreads();
+    // every (i, j) belongs to the same thread on every step: fixed sum order
+    gemm<T>(kWM, kWN, kWK,
+        [&](int i, int k) { return as[k][i]; },
+        [&](int k, int j) { return bs[k][j]; },
+        [&](int i, int j, float v) { acc[i][j] += v; });
+  }
+  __syncthreads();
+  float* o = out + ((size_t)b * n_parts + part) * M * N;
+  for (int idx = threadIdx.x; idx < kWM * kWN; idx += blockDim.x) {
+    const int i = idx / kWN, j = idx - i * kWN;
+    if (m0 + i < M && n0 + j < N) o[(size_t)(m0 + i) * N + n0 + j] = acc[i][j];
+  }
+}
+
+constexpr int kDC = 32;  // channel chunk of the depthwise backward
+
+// One 8x8 tile: dt[p][c] = sum_tap w[tap][c] dout[p - off(tap)][c] and
+// part[tile][tap][c] = sum_p t[p + off(tap)][c] dout[p][c], with zeros
+// outside the image on both maps (the forward's zero padding of t).
+template <typename T>
+__global__ void __launch_bounds__(256)
+dwconv_bwd_kernel(const float* __restrict__ dout, const float* __restrict__ t,
+                  const T* __restrict__ w, int ldw, T* __restrict__ dt, float* __restrict__ part,
+                  int H, int W, int Cn) {
+  __shared__ float ds[kHaloPix][kDC + 1];
+  __shared__ float ts[kHaloPix][kDC + 1];
+  const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
+  const int tile = (b * (H / kTile) + ty) * (W / kTile) + tx;
+  for (int c0 = 0; c0 < Cn; c0 += kDC) {
+    const int nc = min(kDC, Cn - c0);
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < kHaloPix * kDC; idx += blockDim.x) {
+      const int p = idx / kDC, j = idx - p * kDC;
+      const int r = ty * kTile + p / kHalo - 1, c = tx * kTile + p % kHalo - 1;
+      float dv = 0.f, tv = 0.f;
+      if (j < nc && r >= 0 && r < H && c >= 0 && c < W) {
+        const size_t o = (((size_t)b * H + r) * W + c) * Cn + c0 + j;
+        dv = dout[o];
+        tv = t[o];
+      }
+      ds[p][j] = dv;
+      ts[p][j] = tv;
+    }
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < kPix * nc; idx += blockDim.x) {
+      const int p = idx / nc, j = idx - p * nc;
+      const int pr = p >> 3, pc = p & 7;
+      float acc = 0.f;
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx)
+          acc = fmaf(ds[(pr + 2 - dy) * kHalo + pc + 2 - dx][j],
+                     to_f(w[(dy * 3 + dx) * ldw + c0 + j]), acc);
+      dt[tile_pix(b, ty, tx, p, H, W) * Cn + c0 + j] = from_f<T>(acc);
+    }
+    for (int idx = threadIdx.x; idx < 9 * nc; idx += blockDim.x) {
+      const int tap = idx / nc, j = idx - tap * nc;
+      const int dy = tap / 3, dx = tap - dy * 3;
+      float acc = 0.f;
+      for (int p = 0; p < kPix; ++p)
+        acc = fmaf(ts[((p >> 3) + dy) * kHalo + (p & 7) + dx][j],
+                   ds[((p >> 3) + 1) * kHalo + (p & 7) + 1][j], acc);
+      part[((size_t)tile * 9 + tap) * Cn + c0 + j] = acc;
+    }
+  }
+}
+
+constexpr int kLC = 64;  // depth chunk of the 1x1 backward product
+
+// One 8x8 tile of the kernel frame: dxn = d_tile @ W^T (W [C][ldw], the
+// forward's [in][out] operand), LayerNorm backward against the input read at
+// the rolled position, + extras, dx written there. Per-tile partials:
+// lnpart[tile][0:C] = sum dxn * xhat, [C:2C] = sum dxn; bpart[tile][k] =
+// sum_p d[p][k] (the Linear bias cotangent).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ln_linear_bwd_kernel(const T* __restrict__ d, int K, const T* __restrict__ w, int ldw,
+                     const T* __restrict__ x, const float* __restrict__ lnw,
+                     const T* __restrict__ extra_t, const float* __restrict__ extra_f,
+                     T* __restrict__ dx, float* __restrict__ lnpart, float* __restrict__ bpart,
+                     int H, int W, int C, int shift, float eps) {
+  extern __shared__ float sm[];
+  const int ldx = C + 1, ldc = kLC + 1;
+  float* dxn = sm;                   // [64][ldx]
+  float* xh = dxn + kPix * ldx;      // [64][ldx] xhat
+  float* dc = xh + kPix * ldx;       // [64][ldc] chunk of d
+  float* rs = dc + kPix * ldc;       // [64] rstd
+  const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
+  const int tile = (b * (H / kTile) + ty) * (W / kTile) + tx;
+  auto src = [&](int i) {
+    const int r = ty * kTile + (i >> 3), c = tx * kTile + (i & 7);
+    return ((size_t)b * H + ((r + shift) % H + H) % H) * W + ((c + shift) % W + W) % W;
+  };
+  for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) dxn[(idx / C) * ldx + idx % C] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += kLC) {
+    const int kc = min(kLC, K - k0);
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < kPix * kc; idx += blockDim.x) {
+      const int i = idx / kc, k = idx - i * kc;
+      dc[i * ldc + k] = to_f(d[tile_pix(b, ty, tx, i, H, W) * K + k0 + k]);
+    }
+    __syncthreads();
+    if (bpart != nullptr) {
+      for (int k = threadIdx.x; k < kc; k += blockDim.x) {
+        float s = 0.f;
+        for (int i = 0; i < kPix; ++i) s += dc[i * ldc + k];
+        bpart[(size_t)tile * K + k0 + k] = s;
+      }
+    }
+    gemm<T>(kPix, C, kc,
+        [&](int i, int k) { return dc[i * ldc + k]; },
+        [&](int k, int j) { return to_f(w[(size_t)j * ldw + k0 + k]); },
+        [&](int i, int j, float v) { dxn[i * ldx + j] += v; });
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+  if (lnw != nullptr) {
+    for (int i = warp; i < kPix; i += nwarps) {
+      const T* xr = x + src(i) * C;
+      float s = 0.f;
+      for (int k = lane; k < C; k += 32) s += to_f(xr[k]);
+      const float mu = warp_sum(s) / C;
+      float v = 0.f;
+      for (int k = lane; k < C; k += 32) {
+        const float t = to_f(xr[k]) - mu;
+        v += t * t;
+      }
+      const float rstd = rsqrtf(warp_sum(v) / C + eps);
+      for (int k = lane; k < C; k += 32) xh[i * ldx + k] = (to_f(xr[k]) - mu) * rstd;
+      if (lane == 0) rs[i] = rstd;
+    }
+    __syncthreads();
+    for (int k = threadIdx.x; k < C; k += blockDim.x) {
+      float sw = 0.f, sb = 0.f;
+      for (int i = 0; i < kPix; ++i) {
+        sw = fmaf(dxn[i * ldx + k], xh[i * ldx + k], sw);
+        sb += dxn[i * ldx + k];
+      }
+      lnpart[(size_t)tile * 2 * C + k] = sw;
+      lnpart[(size_t)tile * 2 * C + C + k] = sb;
+    }
+    __syncthreads();
+    for (int i = warp; i < kPix; i += nwarps) {
+      float m1 = 0.f, m2 = 0.f;
+      for (int k = lane; k < C; k += 32) {
+        const float g = dxn[i * ldx + k] * lnw[k];
+        m1 += g;
+        m2 = fmaf(g, xh[i * ldx + k], m2);
+      }
+      m1 = warp_sum(m1) / C;
+      m2 = warp_sum(m2) / C;
+      for (int k = lane; k < C; k += 32) {
+        const float g = dxn[i * ldx + k] * lnw[k];
+        xh[i * ldx + k] = (g - m1 - xh[i * ldx + k] * m2) * rs[i];  // xh now holds dx
+      }
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x)
+      xh[(idx / C) * ldx + idx % C] = dxn[(idx / C) * ldx + idx % C];
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
+    const int i = idx / C, k = idx - i * C;
+    const size_t fp = tile_pix(b, ty, tx, i, H, W) * C + k;
+    float v = xh[i * ldx + k];
+    if (extra_t != nullptr) v += to_f(extra_t[fp]);
+    if (extra_f != nullptr) v += extra_f[fp];
+    dx[src(i) * C + k] = from_f<T>(v);
+  }
+}
+
+template <typename T>
+cudaError_t launch_wgrad(const void* A, const void* Bm, float* part, float* out, int nb, int P,
+                         int M, int N, int n_parts, cudaStream_t stream) {
+  const int chunk = ceil_div(ceil_div(P, n_parts), kWK) * kWK;
+  float* dst = n_parts > 1 ? part : out;
+  wgrad_kernel<T><<<dim3(ceil_div(N, kWN), ceil_div(M, kWM), nb * n_parts), kWThreads, 0, stream>>>(
+      (const T*)A, (const T*)Bm, P, M, N, n_parts, chunk, dst);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_parts == 1) return err;
+  return launch_sum_parts(part, out, nb, n_parts, M * N, stream);
+}
+
+template <typename T>
+cudaError_t launch_dwconv_bwd(const float* dout, const float* t, const void* w, int ldw, void* dt,
+                              float* part, float* dw, int B, int H, int W, int Cn,
+                              cudaStream_t stream) {
+  dwconv_bwd_kernel<T><<<dim3(W / kTile, H / kTile, B), 256, 0, stream>>>(
+      dout, t, (const T*)w, ldw, (T*)dt, part, H, W, Cn);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_sum_parts(part, dw, 1, B * (H / kTile) * (W / kTile), 9 * Cn, stream);
+}
+
+template <typename T>
+cudaError_t launch_ln_linear_bwd(const void* d, const void* w, const void* x, const float* lnw,
+                                 const void* extra_t, const float* extra_f, void* dx,
+                                 float* lnpart, float* dln, float* bpart, float* dbias, int B,
+                                 int H, int W, int C, int K, int ldw, int shift, float eps,
+                                 cudaStream_t stream) {
+  const size_t smem = sizeof(float) * ((size_t)2 * kPix * (C + 1) + kPix * (kLC + 1) + kPix);
+  cudaError_t err = set_smem(ln_linear_bwd_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  ln_linear_bwd_kernel<T><<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
+      (const T*)d, K, (const T*)w, ldw, (const T*)x, lnw, (const T*)extra_t, extra_f, (T*)dx,
+      lnpart, bpart, H, W, C, shift, eps);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int n_tiles = B * (H / kTile) * (W / kTile);
+  if (lnw != nullptr && (err = launch_sum_parts(lnpart, dln, 1, n_tiles, 2 * C, stream)) != cudaSuccess)
+    return err;
+  if (bpart != nullptr) return launch_sum_parts(bpart, dbias, 1, n_tiles, K, stream);
+  return cudaSuccess;
+}
+
+}  // namespace mp
+
+// out (nb, M, N) float32 = A (nb, P, M)^T B (nb, P, N), A and B in the compute
+// type; part holds nb * n_parts * M * N floats (unused when n_parts == 1).
+extern "C" int mp_wgrad(const void* A, const void* B, void* part, void* out, int dtype, int nb,
+                        int P, int M, int N, int n_parts, void* stream) {
+  auto st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return (int)mp::launch_wgrad<float>(A, B, (float*)part, (float*)out, nb, P, M, N, n_parts, st);
+  return (int)mp::launch_wgrad<__nv_bfloat16>(A, B, (float*)part, (float*)out, nb, P, M, N,
+                                              n_parts, st);
+}
+
+// dout, t (B, H, W, Cn) float32; w the forward's [9][ldw] taps (pointer at the
+// first column), compute type. Outputs: dt (B, H, W, Cn) compute type, part
+// (tiles, 9, Cn) scratch, dw (9, Cn) float32.
+extern "C" int mp_dwconv_bwd(const void* dout, const void* t, const void* w, void* dt,
+                             void* part, void* dw, int dtype, int B, int H, int W, int Cn,
+                             int ldw, void* stream) {
+  if (H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
+  auto st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return (int)mp::launch_dwconv_bwd<float>((const float*)dout, (const float*)t, w, ldw, dt,
+                                             (float*)part, (float*)dw, B, H, W, Cn, st);
+  return (int)mp::launch_dwconv_bwd<__nv_bfloat16>((const float*)dout, (const float*)t, w, ldw,
+                                                   dt, (float*)part, (float*)dw, B, H, W, Cn, st);
+}
+
+// d (B, H, W, K) in the kernel frame; w [C][ldw] (pointer at the first of K
+// columns); x (B, H, W, C) the layer input in its own frame (pixel (r, c) of
+// the kernel frame is x's (r + shift, c + shift), cyclic); lnw NULL = no LN;
+// extra_t / extra_f (B, H, W, C) kernel-frame cotangents added after the LN
+// backward (NULL = none); bpart NULL = no bias cotangent. Outputs: dx (x's
+// frame), dln (2, C) = (d weight, d bias) of the LN, dbias (K,).
+extern "C" int mp_ln_linear_bwd(const void* d, const void* w, const void* x, const void* lnw,
+                                const void* extra_t, const void* extra_f, void* dx,
+                                void* lnpart, void* dln, void* bpart, void* dbias, int dtype,
+                                int B, int H, int W, int C, int K, int ldw, int shift, float eps,
+                                void* stream) {
+  if (H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
+  auto st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return (int)mp::launch_ln_linear_bwd<float>(d, w, x, (const float*)lnw, extra_t,
+                                                (const float*)extra_f, dx, (float*)lnpart,
+                                                (float*)dln, (float*)bpart, (float*)dbias, B, H,
+                                                W, C, K, ldw, shift, eps, st);
+  return (int)mp::launch_ln_linear_bwd<__nv_bfloat16>(d, w, x, (const float*)lnw, extra_t,
+                                                      (const float*)extra_f, dx, (float*)lnpart,
+                                                      (float*)dln, (float*)bpart, (float*)dbias,
+                                                      B, H, W, C, K, ldw, shift, eps, st);
+}
+
+// out (nb, n) = in-order sum over n_parts of part (nb, n_parts, n), float32.
+extern "C" int mp_sum_parts(const void* part, void* out, int nb, int n_parts, int n,
+                            void* stream) {
+  return (int)mp::launch_sum_parts((const float*)part, (float*)out, nb, n_parts, n,
+                                   (cudaStream_t)stream);
+}

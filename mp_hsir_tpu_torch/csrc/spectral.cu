@@ -135,57 +135,11 @@ __global__ void sum_parts_kernel(const float* __restrict__ part, float* __restri
   }
 }
 
-// The PGSSTB tail on one 8x8 tile: y[p][o] += fc2(a * gelu(g)) + b2 with
-// [a | g] = fc1(LN2(y)) + b1. y ([kPix][ldy], float32 values already rounded
-// to T) is updated in place; yn ([kPix][ldy]) and hb ([kPix][2*kHC+1]) are
-// scratch. Shared with the standalone MLP kernel of the training slice (K6).
-constexpr int kHC = 64;  // hidden chunk (apply smem at C = 256: 210 KB of 227)
-
-template <typename T>
-__device__ __forceinline__ void mlp_tail_tile(float* y, float* yn, int ldy, float* hb, int C,
-                                              int hid, const float* __restrict__ ln2w,
-                                              const float* __restrict__ ln2b,
-                                              const T* __restrict__ w1,
-                                              const float* __restrict__ b1,
-                                              const T* __restrict__ w2,
-                                              const float* __restrict__ b2, float eps) {
-  const int ldh = 2 * kHC + 1;
-  for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
-    const int p = idx / C, k = idx - p * C;
-    yn[p * ldy + k] = y[p * ldy + k];
-  }
-  __syncthreads();
-  ln_rows_inplace<T>(yn, ldy, kPix, C, ln2w, ln2b, eps, [](int) { return true; });
-  for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
-    const int p = idx / C, k = idx - p * C;
-    y[p * ldy + k] += b2[k];
-  }
-  __syncthreads();
-  for (int j0 = 0; j0 < hid; j0 += kHC) {
-    const int hc = min(kHC, hid - j0);
-    // column j < hc: a-half hidden unit j0 + j; j >= hc: g-half
-    gemm<T>(kPix, 2 * hc, C,
-        [&](int i, int k) { return yn[i * ldy + k]; },
-        [&](int k, int j) {
-          const int col = j < hc ? j0 + j : hid + j0 + (j - hc);
-          return to_f(w1[(size_t)k * 2 * hid + col]);
-        },
-        [&](int i, int j, float acc) {
-          const int col = j < hc ? j0 + j : hid + j0 + (j - hc);
-          hb[i * ldh + (j < hc ? j : kHC + j - hc)] = acc + b1[col];
-        });
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kPix * hc; idx += blockDim.x) {
-      const int p = idx / hc, j = idx - p * hc;
-      hb[p * ldh + j] = rnd<T>(hb[p * ldh + j] * gelu_erf(hb[p * ldh + kHC + j]));
-    }
-    __syncthreads();
-    gemm<T>(kPix, C, hc,
-        [&](int i, int k) { return hb[i * ldh + k]; },
-        [&](int k, int j) { return to_f(w2[(size_t)(j0 + k) * C + j]); },
-        [&](int i, int j, float acc) { y[i * ldy + j] += acc; });
-    __syncthreads();
-  }
+cudaError_t launch_sum_parts(const float* part, float* out, int nb, int n_parts, int n,
+                             cudaStream_t stream) {
+  const int blocks = min(ceil_div(n, kThreads), 1024);
+  sum_parts_kernel<<<dim3(blocks, nb), kThreads, 0, stream>>>(part, out, n_parts, n);
+  return cudaGetLastError();
 }
 
 constexpr int kVC = 32;  // v channel chunk
@@ -200,7 +154,8 @@ spectral_apply_kernel(const T* __restrict__ x1, const T* __restrict__ x2, int C1
                       const float* __restrict__ ln2w, const float* __restrict__ ln2b,
                       const T* __restrict__ w1, const float* __restrict__ b1,
                       const T* __restrict__ w2, const float* __restrict__ b2, int hid,
-                      T* __restrict__ out, int H, int W, int shift, float eps) {
+                      const float* __restrict__ dp, T* __restrict__ out, int H, int W,
+                      int shift, float eps) {
   extern __shared__ float sm[];
   const int C = C1 + C2, C3 = 3 * C;
   const int ldx = C + 1, ldv = kVC + 1;
@@ -233,13 +188,18 @@ spectral_apply_kernel(const T* __restrict__ x1, const T* __restrict__ x2, int C1
       [&](int i, int j, float acc) {
         const int r = ty * kTile + (i >> 3), c = tx * kTile + (i & 7);
         float v = rnd<T>(acc);
-        if (gate != nullptr || residual) {
+        if (gate != nullptr || residual || dp != nullptr) {
           // the input pixel in the unrolled frame (raw, before any LN)
           const int sr = (r - shift + H) % H, sc = (c - shift + W) % W;
           const size_t pix = ((size_t)b * H + sr) * W + sc;
           const float u = j < C1 ? to_f(x1[pix * C1 + j]) : to_f(x2[pix * C2 + (j - C1)]);
-          if (gate != nullptr) {
-            const float g = to_f(gate[(((size_t)b * (H / kTile) + sr / kTile) * (W / kTile) + sc / kTile) * C + j]);
+          const float g = gate == nullptr ? 0.f
+              : to_f(gate[(((size_t)b * (H / kTile) + sr / kTile) * (W / kTile) + sc / kTile) * C + j]);
+          if (dp != nullptr) {
+            // drop-path scale on the float32 branch sum, rounded once (as
+            // _sp1_kernel with has_dp; the backward scales dy the same way)
+            v = rnd<T>((acc + u * g) * dp[b]);
+          } else if (gate != nullptr) {
             v = rnd<T>(rnd<T>(u * g) + v);
           }
           if (residual) v = rnd<T>(u + v);
@@ -295,15 +255,241 @@ cudaError_t launch_apply(const void* x1, const void* x2, int C1, int C2, const f
                          const float* lnb, const void* wqkv, const void* wdw, const float* comb,
                          const void* gate, const void* shortcut, int residual,
                          const float* ln2w, const float* ln2b, const void* w1, const float* b1,
-                         const void* w2, const float* b2, int hid, void* out, int B, int H,
-                         int W, int shift, float eps, cudaStream_t stream) {
+                         const void* w2, const float* b2, int hid, const float* dp, void* out,
+                         int B, int H, int W, int shift, float eps, cudaStream_t stream) {
   const size_t smem = apply_smem(C1 + C2);
   cudaError_t err = set_smem(spectral_apply_kernel<T>, smem);
   if (err != cudaSuccess) return err;
   spectral_apply_kernel<T><<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
       (const T*)x1, (const T*)x2, C1, C2, lnw, lnb, (const T*)wqkv, (const T*)wdw, comb,
       (const T*)gate, (const T*)shortcut, residual, ln2w, ln2b, (const T*)w1, b1, (const T*)w2,
-      b2, hid, (T*)out, H, W, shift, eps);
+      b2, hid, dp, (T*)out, H, W, shift, eps);
+  return cudaGetLastError();
+}
+
+
+// ---------------------------------------------------------------------------
+// Backward (training). Each launch below is one 8x8 tile of the unrolled
+// frame; it recomputes the forward's q/k (or v) from the input with its halo
+// and writes the per-pixel operands of the rest of the backward: the conv
+// input t (float32), the cotangent at the depthwise output (float32), the
+// (LN'd) input, and for the apply launch v and the scaled dy. grad.cu then
+// runs the depthwise-conv backward, the 1x1 + LayerNorm backward (which rolls
+// dx back into the input's frame) and the weight products.
+// ---------------------------------------------------------------------------
+
+// VJP of the stats launch (K10a): dq = k dG^T + 2 q dnq, dk = q dG + 2 k dnk
+// per head, dG rounded to T as _sp0_bwd_kernel does.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+spectral_stats_bwd_kernel(const T* __restrict__ x, const float* __restrict__ lnw,
+                          const float* __restrict__ lnb, const T* __restrict__ wqkv,
+                          const T* __restrict__ wdw, const float* __restrict__ dgram,
+                          const float* __restrict__ dnq, const float* __restrict__ dnk,
+                          T* __restrict__ un_out, float* __restrict__ t_out,
+                          float* __restrict__ dqk_out, int H, int W, int C, int nH, int shift,
+                          float eps) {
+  extern __shared__ float sm[];
+  const int C3 = 3 * C, dh = C / nH;
+  const int ldx = C + 1, ldt = 2 * dh + 1;
+  float* xs = sm;                   // [100][ldx] (LN'd) halo input
+  float* ts = xs + kHaloPix * ldx;  // [100][ldt] 1x1 output, q|k of one head
+  float* qk = ts + kHaloPix * ldt;  // [64][ldt] q|k after the dwconv
+  const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
+  auto hp = [](int i) { return ((i >> 3) + 1) * kHalo + (i & 7) + 1; };  // halo index of pixel i
+
+  load_halo<T>(xs, ldx, x, (const T*)nullptr, C, 0, b, ty, tx, H, W, shift, lnw, lnb, eps);
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
+    const int i = idx / C, k = idx - i * C;
+    un_out[tile_pix(b, ty, tx, i, H, W) * C + k] = from_f<T>(xs[hp(i) * ldx + k]);
+  }
+  const float* dg = dgram + (size_t)b * C * dh;
+  for (int h = 0; h < nH; ++h) {
+    auto col = [&](int j) { return j < dh ? h * dh + j : C + h * dh + (j - dh); };
+    gemm<T>(kHaloPix, 2 * dh, C,
+        [&](int i, int k) { return xs[i * ldx + k]; },
+        [&](int k, int j) { return to_f(wqkv[(size_t)k * C3 + col(j)]); },
+        [&](int i, int j, float acc) { ts[i * ldt + j] = rnd<T>(acc); });
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < kPix * 2 * dh; idx += blockDim.x) {
+      const int i = idx / (2 * dh), j = idx - i * 2 * dh;
+      t_out[tile_pix(b, ty, tx, i, H, W) * 2 * C + col(j)] = ts[hp(i) * ldt + j];
+    }
+    dwconv3_tile(ts, ldt, 2 * dh,
+        [&](int tap, int j) { return to_f(wdw[tap * C3 + col(j)]); },
+        [&](int p, int j, float acc) { qk[p * ldt + j] = rnd<T>(acc); });
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < kPix * 2 * dh; idx += blockDim.x) {
+      const int p = idx / (2 * dh), j = idx - p * 2 * dh;
+      const float* row = qk + p * ldt;
+      float acc;
+      if (j < dh) {  // dq[d = j] = sum_e k[e] dG[d][e] + 2 q[d] dnq[d]
+        acc = 2.f * row[j] * dnq[(size_t)b * C + h * dh + j];
+        for (int e = 0; e < dh; ++e) acc = fmaf(row[dh + e], rnd<T>(dg[(h * dh + j) * dh + e]), acc);
+      } else {       // dk[e = j - dh] = sum_d q[d] dG[d][e] + 2 k[e] dnk[e]
+        const int e = j - dh;
+        acc = 2.f * row[j] * dnk[(size_t)b * C + h * dh + e];
+        for (int d = 0; d < dh; ++d) acc = fmaf(row[d], rnd<T>(dg[(h * dh + d) * dh + e]), acc);
+      }
+      dqk_out[tile_pix(b, ty, tx, p, H, W) * 2 * C + col(j)] = acc;
+    }
+    __syncthreads();
+  }
+}
+
+// VJP of the apply launch without the MLP tail (K10b): v recomputed; dys =
+// dy * dp (rounded) feeds dv = dys comb^T and the dcomb product; the gate and
+// residual epilogues give the extra input cotangent dys * g + dy; with dp the
+// per-tile partial of d dp = sum dy * (v comb + u g).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+spectral_apply_bwd_kernel(const T* __restrict__ x, const float* __restrict__ lnw,
+                          const float* __restrict__ lnb, const T* __restrict__ wqkv,
+                          const T* __restrict__ wdw, const float* __restrict__ comb,
+                          const T* __restrict__ gate, const float* __restrict__ dp,
+                          int residual, const T* __restrict__ dy, T* __restrict__ un_out,
+                          float* __restrict__ t_out, T* __restrict__ v_out,
+                          T* __restrict__ dys_out, float* __restrict__ dv_out,
+                          float* __restrict__ extra_out, float* __restrict__ pdp, int H, int W,
+                          int C, int shift, float eps) {
+  extern __shared__ float sm[];
+  __shared__ float red[kThreads / 32];
+  const int C3 = 3 * C;
+  const int ldx = C + 1, ldv = kVC + 1;
+  float* xs = sm;                     // [100][ldx] halo input; later dys [64][ldx]
+  float* vt = xs + kHaloPix * ldx;    // [100][ldv] 1x1 output chunk
+  float* vs = vt + kHaloPix * ldv;    // [64][ldx] v
+  const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
+  const int tile = (b * (H / kTile) + ty) * (W / kTile) + tx;
+  auto hp = [](int i) { return ((i >> 3) + 1) * kHalo + (i & 7) + 1; };
+  // raw input pixel behind unrolled-frame pixel i (the roll-back)
+  auto src = [&](int i) {
+    const int r = ty * kTile + (i >> 3), c = tx * kTile + (i & 7);
+    return ((size_t)b * H + (r - shift + H) % H) * W + (c - shift + W) % W;
+  };
+  auto gate_at = [&](int i, int j) {
+    const int r = (ty * kTile + (i >> 3) - shift + H) % H, c = (tx * kTile + (i & 7) - shift + W) % W;
+    return to_f(gate[(((size_t)b * (H / kTile) + r / kTile) * (W / kTile) + c / kTile) * C + j]);
+  };
+
+  load_halo<T>(xs, ldx, x, (const T*)nullptr, C, 0, b, ty, tx, H, W, shift, lnw, lnb, eps);
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
+    const int i = idx / C, k = idx - i * C;
+    un_out[tile_pix(b, ty, tx, i, H, W) * C + k] = from_f<T>(xs[hp(i) * ldx + k]);
+  }
+  for (int c0 = 0; c0 < C; c0 += kVC) {
+    const int nc = min(kVC, C - c0);
+    gemm<T>(kHaloPix, nc, C,
+        [&](int i, int k) { return xs[i * ldx + k]; },
+        [&](int k, int j) { return to_f(wqkv[(size_t)k * C3 + 2 * C + c0 + j]); },
+        [&](int i, int j, float acc) { vt[i * ldv + j] = rnd<T>(acc); });
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < kPix * nc; idx += blockDim.x) {
+      const int i = idx / nc, j = idx - i * nc;
+      t_out[tile_pix(b, ty, tx, i, H, W) * C + c0 + j] = vt[hp(i) * ldv + j];
+    }
+    dwconv3_tile(vt, ldv, nc,
+        [&](int tap, int j) { return to_f(wdw[tap * C3 + 2 * C + c0 + j]); },
+        [&](int p, int j, float acc) { vs[p * ldx + c0 + j] = rnd<T>(acc); });
+    __syncthreads();
+  }
+  const float dpb = dp == nullptr ? 1.f : dp[b];
+  float* ds = xs;
+  for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
+    const int i = idx / C, k = idx - i * C;
+    const size_t o = tile_pix(b, ty, tx, i, H, W) * C + k;
+    v_out[o] = from_f<T>(vs[i * ldx + k]);
+    const float d0 = to_f(dy[o]);
+    const float d = dp == nullptr ? d0 : rnd<T>(d0 * dpb);
+    ds[i * ldx + k] = d;
+    dys_out[o] = from_f<T>(d);
+    if (extra_out != nullptr)
+      extra_out[o] = (gate != nullptr ? d * gate_at(i, k) : 0.f) + (residual ? d0 : 0.f);
+  }
+  __syncthreads();
+  const float* cb = comb + (size_t)b * C * C;
+  // dv[p][k] = sum_o dys[p][o] comb[k][o]
+  gemm<T>(kPix, C, C,
+      [&](int i, int o) { return ds[i * ldx + o]; },
+      [&](int o, int k) { return rnd<T>(cb[(size_t)k * C + o]); },
+      [&](int i, int k, float acc) { dv_out[tile_pix(b, ty, tx, i, H, W) * C + k] = acc; });
+  if (dp != nullptr) {
+    float part = 0.f;
+    gemm<T>(kPix, C, C,
+        [&](int i, int k) { return vs[i * ldx + k]; },
+        [&](int k, int j) { return rnd<T>(cb[(size_t)k * C + j]); },
+        [&](int i, int j, float acc) {
+          const float u = gate != nullptr ? to_f(x[src(i) * C + j]) * gate_at(i, j) : 0.f;
+          part = fmaf(to_f(dy[tile_pix(b, ty, tx, i, H, W) * C + j]), acc + u, part);
+        });
+    part = block_sum(part, red);
+    if (threadIdx.x == 0) pdp[tile] = part;
+  }
+}
+
+// d gate[b][window][k] = sum over the window's pixels (rolled frame) of
+// dys * x: the per-window gate multiplies the raw input (K10b's dgate).
+template <typename T>
+__global__ void spectral_gate_grad_kernel(const T* __restrict__ dys, const T* __restrict__ x,
+                                          float* __restrict__ dgate, int H, int W, int C,
+                                          int shift) {
+  const int wx = blockIdx.x, wy = blockIdx.y, b = blockIdx.z;
+  for (int k = threadIdx.x; k < C; k += blockDim.x) {
+    float s = 0.f;
+    for (int i = 0; i < kPix; ++i) {
+      const int r = wy * kTile + (i >> 3), c = wx * kTile + (i & 7);
+      const size_t u = ((size_t)b * H + (r + shift) % H) * W + (c + shift) % W;
+      s = fmaf(to_f(dys[u * C + k]), to_f(x[(((size_t)b * H + r) * W + c) * C + k]), s);
+    }
+    dgate[(((size_t)b * (H / kTile) + wy) * (W / kTile) + wx) * C + k] = s;
+  }
+}
+
+inline size_t stats_bwd_smem(int C, int nH) {
+  const int dh = C / nH;
+  return sizeof(float) * ((size_t)kHaloPix * (C + 1) + (size_t)kHaloPix * (2 * dh + 1) +
+                          (size_t)kPix * (2 * dh + 1));
+}
+
+inline size_t apply_bwd_smem(int C) {
+  return sizeof(float) * ((size_t)kHaloPix * (C + 1) + (size_t)kHaloPix * (kVC + 1) +
+                          (size_t)kPix * (C + 1));
+}
+
+template <typename T>
+cudaError_t launch_stats_bwd(const void* x, const float* lnw, const float* lnb, const void* wqkv,
+                             const void* wdw, const float* dgram, const float* dnq,
+                             const float* dnk, void* un, float* t, float* dqk, int B, int H,
+                             int W, int C, int nH, int shift, float eps, cudaStream_t stream) {
+  const size_t smem = stats_bwd_smem(C, nH);
+  cudaError_t err = set_smem(spectral_stats_bwd_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  spectral_stats_bwd_kernel<T><<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
+      (const T*)x, lnw, lnb, (const T*)wqkv, (const T*)wdw, dgram, dnq, dnk, (T*)un, t, dqk, H,
+      W, C, nH, shift, eps);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_apply_bwd(const void* x, const float* lnw, const float* lnb, const void* wqkv,
+                             const void* wdw, const float* comb, const void* gate,
+                             const float* dp, int residual, const void* dy, void* un, float* t,
+                             void* v, void* dys, float* dv, float* extra, float* pdp,
+                             float* dgate, int B, int H, int W, int C, int shift, float eps,
+                             cudaStream_t stream) {
+  const size_t smem = apply_bwd_smem(C);
+  cudaError_t err = set_smem(spectral_apply_bwd_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(W / kTile, H / kTile, B);
+  spectral_apply_bwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+      (const T*)x, lnw, lnb, (const T*)wqkv, (const T*)wdw, comb, (const T*)gate, dp, residual,
+      (const T*)dy, (T*)un, t, (T*)v, (T*)dys, dv, extra, pdp, H, W, C, shift, eps);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (gate != nullptr)
+    spectral_gate_grad_kernel<T><<<grid, 256, 0, stream>>>((const T*)dys, (const T*)x, dgate, H,
+                                                           W, C, shift);
   return cudaGetLastError();
 }
 
@@ -336,24 +522,72 @@ extern "C" int mp_spectral_stats(const void* x1, const void* x2, const void* lnw
 // comb [B][C][C] float32 (row: v channel h*dh + e, col: output channel).
 // gate (B, H/8, W/8, C) per-window gates of the rolled frame, shortcut
 // (B, H, W, C), residual adds the raw input; w1 [C][2*hid] / w2 [hid][C] (the
-// PGSSTB tail; NULL = none). Output (B, H, W, C) in the unrolled frame.
+// PGSSTB tail; NULL = none); dp (B,) float32 per-sample drop-path scales of
+// the branch (NULL = none). Output (B, H, W, C) in the unrolled frame.
 extern "C" int mp_spectral_apply(const void* x1, const void* x2, const void* lnw,
                                  const void* lnb, const void* wqkv, const void* wdw,
                                  const void* comb, const void* gate, const void* shortcut,
                                  const void* ln2w, const void* ln2b, const void* w1,
-                                 const void* b1, const void* w2, const void* b2, void* out,
-                                 int dtype, int B, int H, int W, int C1, int C2, int residual,
-                                 int hid, int shift, float eps, void* stream) {
+                                 const void* b1, const void* w2, const void* b2, const void* dp,
+                                 void* out, int dtype, int B, int H, int W, int C1, int C2,
+                                 int residual, int hid, int shift, float eps, void* stream) {
   if (H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   if (dtype == 0)
     return (int)mp::launch_apply<float>(x1, x2, C1, C2, (const float*)lnw, (const float*)lnb,
                                         wqkv, wdw, (const float*)comb, gate, shortcut, residual,
                                         (const float*)ln2w, (const float*)ln2b, w1,
-                                        (const float*)b1, w2, (const float*)b2, hid, out, B, H,
-                                        W, shift, eps, st);
+                                        (const float*)b1, w2, (const float*)b2, hid,
+                                        (const float*)dp, out, B, H, W, shift, eps, st);
   return (int)mp::launch_apply<__nv_bfloat16>(
       x1, x2, C1, C2, (const float*)lnw, (const float*)lnb, wqkv, wdw, (const float*)comb,
       gate, shortcut, residual, (const float*)ln2w, (const float*)ln2b, w1, (const float*)b1, w2,
-      (const float*)b2, hid, out, B, H, W, shift, eps, st);
+      (const float*)b2, hid, (const float*)dp, out, B, H, W, shift, eps, st);
+}
+
+// Backward of mp_spectral_stats for one raw input (no x2). Inputs: x, LN,
+// wqkv [C][3C], wdw [9][3C] as in the forward; dgram (B, C, dh), dnq / dnk
+// (B, nH, dh) float32. Outputs, unrolled frame: un (B, H, W, C) the (LN'd)
+// input, t (B, H, W, 2C) float32 the q|k 1x1 output, dqk (B, H, W, 2C)
+// float32 the cotangent after the depthwise conv.
+extern "C" int mp_spectral_stats_bwd(const void* x, const void* lnw, const void* lnb,
+                                     const void* wqkv, const void* wdw, const void* dgram,
+                                     const void* dnq, const void* dnk, void* un, void* t,
+                                     void* dqk, int dtype, int B, int H, int W, int C, int nH,
+                                     int shift, float eps, void* stream) {
+  if (C % nH != 0 || H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
+  auto st = (cudaStream_t)stream;
+  auto f = [](const void* p) { return (const float*)p; };
+  if (dtype == 0)
+    return (int)mp::launch_stats_bwd<float>(x, f(lnw), f(lnb), wqkv, wdw, f(dgram), f(dnq),
+                                            f(dnk), un, (float*)t, (float*)dqk, B, H, W, C, nH,
+                                            shift, eps, st);
+  return (int)mp::launch_stats_bwd<__nv_bfloat16>(x, f(lnw), f(lnb), wqkv, wdw, f(dgram), f(dnq),
+                                                  f(dnk), un, (float*)t, (float*)dqk, B, H, W, C,
+                                                  nH, shift, eps, st);
+}
+
+// Backward of mp_spectral_apply without the MLP tail or x2. dy (B, H, W, C)
+// unrolled frame. Outputs, unrolled frame: un (LN'd input), t (float32 v 1x1
+// output), v, dys (dy * dp, rounded), dv (float32), extra (float32 input
+// cotangent of the gate / residual epilogue; NULL when neither), pdp
+// (per-tile d dp partials; NULL without dp), dgate (B, H/8, W/8, C) float32.
+extern "C" int mp_spectral_apply_bwd(const void* x, const void* lnw, const void* lnb,
+                                     const void* wqkv, const void* wdw, const void* comb,
+                                     const void* gate, const void* dp, const void* dy, void* un,
+                                     void* t, void* v, void* dys, void* dv, void* extra,
+                                     void* pdp, void* dgate, int dtype, int B, int H, int W,
+                                     int C, int residual, int shift, float eps, void* stream) {
+  if (H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
+  auto st = (cudaStream_t)stream;
+  auto f = [](const void* p) { return (const float*)p; };
+  if (dtype == 0)
+    return (int)mp::launch_apply_bwd<float>(x, f(lnw), f(lnb), wqkv, wdw, f(comb), gate, f(dp),
+                                            residual, dy, un, (float*)t, v, dys, (float*)dv,
+                                            (float*)extra, (float*)pdp, (float*)dgate, B, H, W,
+                                            C, shift, eps, st);
+  return (int)mp::launch_apply_bwd<__nv_bfloat16>(x, f(lnw), f(lnb), wqkv, wdw, f(comb), gate,
+                                                  f(dp), residual, dy, un, (float*)t, v, dys,
+                                                  (float*)dv, (float*)extra, (float*)pdp,
+                                                  (float*)dgate, B, H, W, C, shift, eps, st);
 }

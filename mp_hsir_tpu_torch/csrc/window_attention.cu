@@ -141,6 +141,163 @@ cudaError_t launch_window(const void* x, const float* lnw, const float* lnb, con
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// Backward (K8, replaces _win_bwd_kernel, mp_hsir_tpu/ops/pallas_vjp.py:539).
+// One block = one window of the rolled frame. It recomputes LN(x) and, per
+// head, q/k/v and the max-subtracted softmax A (the forward's -100 mask);
+// dy gets the pooled-mean cotangent dpool / 64 on every token of its window.
+// Per head: o = rnd(A) v (the saved-o of the TPU kernel, recomputed here),
+// do = rnd(dy Wp^T), dA = do v^T, dS = A (dA - rowsum(A dA)), dq = dS k
+// scale, dk = dS^T q scale, dv = rnd(A)^T do. It writes LN(x), o, the
+// rounded dy, dqkv (all in the rolled frame) and per-window partials of the
+// relative-bias and bp cotangents; grad.cu does the qkv/LN backward (rolling
+// dx back) and the weight products.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+window_attention_bwd_kernel(const T* __restrict__ x, const float* __restrict__ lnw,
+                            const float* __restrict__ lnb, const T* __restrict__ wqkv,
+                            const float* __restrict__ bqkv, const float* __restrict__ bias,
+                            const int* __restrict__ labels, const T* __restrict__ wp,
+                            const T* __restrict__ dy, const T* __restrict__ dpool,
+                            T* __restrict__ xn_out, T* __restrict__ o_out,
+                            T* __restrict__ dyt_out, T* __restrict__ dqkv_out,
+                            float* __restrict__ pbias, float* __restrict__ pbp, int H, int W,
+                            int C, int nH, int shift, float eps) {
+  extern __shared__ float sm[];
+  __shared__ int lab[kPix];
+  const int dh = C / nH, C3 = 3 * C;
+  const int ldx = C + 1, ldq = 3 * dh + 1, lds = kPix + 1, ldo = dh + 1;
+  float* xs = sm;                // [64][ldx] LN(x)
+  float* dys = xs + kPix * ldx;  // [64][ldx] dy + dpool / 64, then rounded
+  float* qkv = dys + kPix * ldx; // [64][ldq] q | k | v of one head
+  float* s = qkv + kPix * ldq;   // [64][lds] A
+  float* d = s + kPix * lds;     // [64][lds] dA, then dS
+  float* dos = d + kPix * lds;   // [64][ldo] do of one head (rounded)
+  const int wx = blockIdx.x, wy = blockIdx.y, b = blockIdx.z;
+  const int win = (b * (H / kTile) + wy) * (W / kTile) + wx;
+  auto fp = [&](int i) { return tile_pix(b, wy, wx, i, H, W); };  // rolled-frame pixel
+
+  for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
+    const int i = idx / C, k = idx - i * C;
+    const int sr = (wy * kTile + (i >> 3) + shift) % H, sc = (wx * kTile + (i & 7) + shift) % W;
+    xs[i * ldx + k] = to_f(x[(((size_t)b * H + sr) * W + sc) * C + k]);
+    dys[i * ldx + k] = to_f(dy[fp(i) * C + k]) + to_f(dpool[(size_t)win * C + k]) * (1.f / kPix);
+  }
+  if (threadIdx.x < kPix) {
+    const int i = threadIdx.x;
+    lab[i] = labels ? labels[(wy * kTile + (i >> 3)) * W + wx * kTile + (i & 7)] : 0;
+  }
+  __syncthreads();
+  ln_rows_inplace<T>(xs, ldx, kPix, C, lnw, lnb, eps, [](int) { return true; });
+  for (int k = threadIdx.x; k < C; k += blockDim.x) {
+    float sum = 0.f;
+    for (int i = 0; i < kPix; ++i) sum += dys[i * ldx + k];
+    pbp[(size_t)win * C + k] = sum;
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
+    const int i = idx / C, k = idx - i * C;
+    const float v = rnd<T>(dys[i * ldx + k]);
+    dys[i * ldx + k] = v;
+    dyt_out[fp(i) * C + k] = from_f<T>(v);
+    xn_out[fp(i) * C + k] = from_f<T>(xs[i * ldx + k]);
+  }
+  __syncthreads();
+
+  const float scale = rsqrtf((float)dh);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int h = 0; h < nH; ++h) {
+    auto qcol = [&](int j) { const int sec = j / dh; return sec * C + h * dh + (j - sec * dh); };
+    gemm<T>(kPix, 3 * dh, C,
+        [&](int i, int k) { return xs[i * ldx + k]; },
+        [&](int k, int j) { return to_f(wqkv[(size_t)k * C3 + qcol(j)]); },
+        [&](int i, int j, float acc) { qkv[i * ldq + j] = rnd<T>(acc + bqkv[qcol(j)]); });
+    __syncthreads();
+    gemm<T>(kPix, kPix, dh,
+        [&](int i, int k) { return qkv[i * ldq + k]; },
+        [&](int k, int j) { return qkv[j * ldq + dh + k]; },
+        [&](int i, int j, float acc) {
+          float v = acc * scale + bias[((size_t)h * kPix + i) * kPix + j];
+          if (labels != nullptr && lab[i] != lab[j]) v -= 100.f;
+          s[i * lds + j] = v;
+        });
+    // do = rnd(dy Wp^T) for this head's columns: do[i][j] = sum_o dy[i][o] Wp[h*dh + j][o]
+    gemm<T>(kPix, dh, C,
+        [&](int i, int k) { return dys[i * ldx + k]; },
+        [&](int k, int j) { return to_f(wp[(size_t)(h * dh + j) * C + k]); },
+        [&](int i, int j, float acc) { dos[i * ldo + j] = rnd<T>(acc); });
+    __syncthreads();
+    for (int i = warp; i < kPix; i += kThreads / 32) {
+      float* row = s + i * lds;
+      const float m = warp_max(fmaxf(row[lane], row[lane + 32]));
+      const float e0 = expf(row[lane] - m), e1 = expf(row[lane + 32] - m);
+      const float inv = 1.f / warp_sum(e0 + e1);
+      row[lane] = e0 * inv;
+      row[lane + 32] = e1 * inv;
+    }
+    __syncthreads();
+    gemm<T>(kPix, dh, kPix,  // o = rnd(A) v
+        [&](int i, int k) { return rnd<T>(s[i * lds + k]); },
+        [&](int k, int j) { return qkv[k * ldq + 2 * dh + j]; },
+        [&](int i, int j, float acc) { o_out[fp(i) * C + h * dh + j] = from_f<T>(acc); });
+    gemm<T>(kPix, kPix, dh,  // dA = do v^T
+        [&](int i, int k) { return dos[i * ldo + k]; },
+        [&](int k, int j) { return qkv[j * ldq + 2 * dh + k]; },
+        [&](int i, int j, float acc) { d[i * lds + j] = acc; });
+    __syncthreads();
+    for (int i = warp; i < kPix; i += kThreads / 32) {
+      const float* a = s + i * lds;
+      float* g = d + i * lds;
+      const float dot = warp_sum(a[lane] * g[lane] + a[lane + 32] * g[lane + 32]);
+      const float v0 = a[lane] * (g[lane] - dot), v1 = a[lane + 32] * (g[lane + 32] - dot);
+      g[lane] = v0;
+      g[lane + 32] = v1;
+      float* pb = pbias + (((size_t)win * nH + h) * kPix + i) * kPix;
+      pb[lane] = v0;
+      pb[lane + 32] = v1;
+    }
+    __syncthreads();
+    T* dq = dqkv_out;
+    gemm<T>(kPix, dh, kPix,  // dq = rnd(dS) k scale
+        [&](int i, int k) { return rnd<T>(d[i * lds + k]); },
+        [&](int k, int j) { return qkv[k * ldq + dh + j]; },
+        [&](int i, int j, float acc) { dq[fp(i) * C3 + h * dh + j] = from_f<T>(acc * scale); });
+    gemm<T>(kPix, dh, kPix,  // dk = rnd(dS)^T q scale
+        [&](int i, int k) { return rnd<T>(d[k * lds + i]); },
+        [&](int k, int j) { return qkv[k * ldq + j]; },
+        [&](int i, int j, float acc) { dq[fp(i) * C3 + C + h * dh + j] = from_f<T>(acc * scale); });
+    gemm<T>(kPix, dh, kPix,  // dv = rnd(A)^T do
+        [&](int i, int k) { return rnd<T>(s[k * lds + i]); },
+        [&](int k, int j) { return dos[k * ldo + j]; },
+        [&](int i, int j, float acc) { dq[fp(i) * C3 + 2 * C + h * dh + j] = from_f<T>(acc); });
+    __syncthreads();
+  }
+}
+
+inline size_t window_bwd_smem(int C, int nH) {
+  const int dh = C / nH;
+  return sizeof(float) * (size_t)(2 * kPix * (C + 1) + kPix * (3 * dh + 1) +
+                                  2 * kPix * (kPix + 1) + kPix * (dh + 1));
+}
+
+template <typename T>
+cudaError_t launch_window_bwd(const void* x, const float* lnw, const float* lnb,
+                              const void* wqkv, const float* bqkv, const float* bias,
+                              const int* labels, const void* wp, const void* dy,
+                              const void* dpool, void* xn, void* o, void* dyt, void* dqkv,
+                              float* pbias, float* pbp, int B, int H, int W, int C, int nH,
+                              int shift, float eps, cudaStream_t stream) {
+  const size_t smem = window_bwd_smem(C, nH);
+  cudaError_t err = set_smem(window_attention_bwd_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  window_attention_bwd_kernel<T><<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
+      (const T*)x, lnw, lnb, (const T*)wqkv, bqkv, bias, labels, (const T*)wp, (const T*)dy,
+      (const T*)dpool, (T*)xn, (T*)o, (T*)dyt, (T*)dqkv, pbias, pbp, H, W, C, nH, shift, eps);
+  return cudaGetLastError();
+}
+
 }  // namespace mp
 
 // dtype: 0 = float32, 1 = bfloat16. Weights are [in][out] in the compute
@@ -162,4 +319,30 @@ extern "C" int mp_window_attention(const void* x, const void* lnw, const void* l
                                                (const float*)bqkv, (const float*)bias,
                                                (const int*)labels, wp, (const float*)bp, out,
                                                pooled, B, H, W, C, nH, shift, eps, st);
+}
+
+// The per-window half of the window-attention backward. dy (B, H, W, C) in
+// the rolled frame, dpool (B, H/8, W/8, C). Outputs, rolled frame, compute
+// type: xn = LN(x), o (pre-projection attention output), dyt (dy + dpool/64),
+// dqkv (B, H, W, 3C); float32 partials pbias (windows, nH, 64, 64) and pbp
+// (windows, C).
+extern "C" int mp_window_attention_bwd(const void* x, const void* lnw, const void* lnb,
+                                       const void* wqkv, const void* bqkv, const void* bias,
+                                       const void* labels, const void* wp, const void* dy,
+                                       const void* dpool, void* xn, void* o, void* dyt,
+                                       void* dqkv, void* pbias, void* pbp, int dtype, int B,
+                                       int H, int W, int C, int nH, int shift, float eps,
+                                       void* stream) {
+  if (C % nH != 0 || H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
+  auto st = (cudaStream_t)stream;
+  auto f = [](const void* p) { return (const float*)p; };
+  if (dtype == 0)
+    return (int)mp::launch_window_bwd<float>(x, f(lnw), f(lnb), wqkv, f(bqkv), f(bias),
+                                             (const int*)labels, wp, dy, dpool, xn, o, dyt, dqkv,
+                                             (float*)pbias, (float*)pbp, B, H, W, C, nH, shift,
+                                             eps, st);
+  return (int)mp::launch_window_bwd<__nv_bfloat16>(x, f(lnw), f(lnb), wqkv, f(bqkv), f(bias),
+                                                   (const int*)labels, wp, dy, dpool, xn, o, dyt,
+                                                   dqkv, (float*)pbias, (float*)pbp, B, H, W, C,
+                                                   nH, shift, eps, st);
 }

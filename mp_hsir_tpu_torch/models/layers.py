@@ -1,5 +1,7 @@
 """Building blocks of MP-HSIR as ``nn.Module``s over NHWC tensors
-(counterparts of ``mp_hsir_tpu/models/layers.py``, eval route).
+(counterparts of ``mp_hsir_tpu/models/layers.py``). ``module.train()`` runs
+the training route and ``module.eval()`` the eval route, as JAX switches on
+``deterministic``.
 
 Attribute names mirror the flax module names, so a state_dict key is the
 flax parameter path with '.' for '/'. Layouts are PyTorch's: Linear weights
@@ -8,6 +10,9 @@ flax parameter path with '.' for '/'. Layouts are PyTorch's: Linear weights
 Every PGSSTB, TransformerBlock and 3x3 conv goes through the kernel wrappers
 of ``ops/kernels``; they run the CUDA kernels on the card and their plain
 versions on the CPU, so both devices take the same route through this code.
+The wrappers are ``torch.autograd.Function``s with backward kernels; the
+eval route's fused extras (the apply kernel's MLP tail, PromptFusion's
+in-kernel concat and exit conv) have no backward, as in JAX.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from mp_hsir_tpu_torch.ops.basic import gelu_exact, layer_norm
 from mp_hsir_tpu_torch.ops.conv import conv2d, depthwise_conv2d
 from mp_hsir_tpu_torch.ops.kernels.conv3 import conv3
 from mp_hsir_tpu_torch.ops.kernels.gdfn import gdfn
+from mp_hsir_tpu_torch.ops.kernels.mlp import mlp
 from mp_hsir_tpu_torch.ops.kernels.spectral import spectral_apply, spectral_fold, spectral_stats
 from mp_hsir_tpu_torch.ops.kernels.window_attention import (
     relative_position_index, window_attention,
@@ -89,10 +95,28 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.weight, self.bias, self.eps)
 
 
+class DropPath(nn.Module):
+    """Per-sample stochastic depth (counterpart of ``DropPath``,
+    ``mp_hsir_tpu/models/layers.py:202``): :meth:`scales` draws the (B,)
+    float32 scales, 1/keep or 0, from an explicit ``torch.Generator``. The
+    kernels apply them in-kernel; the numbers differ from JAX's (another
+    generator), the distribution is the same."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def scales(self, b: int, generator: torch.Generator | None, device) -> torch.Tensor:
+        keep = 1.0 - self.rate
+        mask = torch.bernoulli(torch.full((b,), keep, device=device), generator=generator)
+        return mask / keep
+
+
 class GatedMlp(nn.Module):
     """Token MLP with a gated exact GELU, ``fc2(a * gelu(g))`` with
     ``[a|g] = fc1(x)`` (reference net/MP_HSIR.py:66-82). On the eval route
-    its weights ride the spectral apply kernel's tail."""
+    its weights ride the spectral apply kernel's tail; on the training route
+    the MLP kernel runs it with the residual and drop-path scale."""
 
     def __init__(self, dim: int, hidden: int):
         super().__init__()
@@ -342,25 +366,34 @@ class PromptFusion(nn.Module):
         self.conv = Conv2d(dim, out_dim, 1)
 
     def forward(self, x, prompt):
+        if self.training:
+            # the explicit composition, as JAX's training route does
+            # (mp_hsir_tpu/models/layers.py:1027-1029)
+            _count_path("prompt_fusion_train")
+            return self.conv(self.transformer(torch.cat([x, prompt], dim=-1)))
         _count_path("prompt_fusion_kernels")
         return self.transformer(x, x2=prompt, proj_w=self.conv.weight)
 
 
 class PGSSTB(nn.Module):
     """Prompt-guided spatial-spectral transformer block (reference
-    net/MP_HSIR.py:601-723), eval route:
+    net/MP_HSIR.py:601-723):
 
     1. window kernel: LN + (shifted) window MSA + proj -> sa (rolled frame)
        and the per-window means;
     2. PG gate on the means (plain, as in JAX);
     3. spectral stats kernel on sa read in the unrolled frame, fold;
-    4. spectral apply kernel: shortcut + sa * gate + attn(sa), then the tail
-       out + GatedMlp(LN2(out)), written in the unrolled frame.
+    4. spectral apply kernel: shortcut + sa * gate + attn(sa), then (eval)
+       the tail out + GatedMlp(LN2(out)), written in the unrolled frame.
+
+    Training route (JAX ``layers.py:1113-1238``): step 4 scales the branch
+    sum by the drop-path scale ``dp1`` and leaves out the tail; the MLP
+    kernel then writes out + dp2 * GatedMlp(LN2(out)).
     """
 
     def __init__(self, dim: int, num_heads: int, window_size: int, shift_size: int,
                  mlp_ratio: float, compress_ratio: int, prompt_len: int,
-                 input_resolution: Tuple[int, int] = (64, 64)):
+                 input_resolution: Tuple[int, int] = (64, 64), drop_path: float = 0.0):
         super().__init__()
         ws, shift = window_size, shift_size
         # the reference freezes the window/shift decision at construction
@@ -374,8 +407,17 @@ class PGSSTB(nn.Module):
         self.gobal_spectral_attn = SpectralAttention(dim, num_heads)
         self.norm2 = LayerNorm(dim)
         self.mlp = GatedMlp(dim, int(dim * mlp_ratio))
+        self.drop_path = DropPath(drop_path)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def drop_path_scales(self, b: int, generator, device):
+        """(dp1, dp2) for one training forward, drawn in JAX's order (branch
+        sum, then MLP), or None when the rate is 0 (JAX draws none then)."""
+        if self.drop_path.rate == 0.0:
+            return None
+        return (self.drop_path.scales(b, generator, device),
+                self.drop_path.scales(b, generator, device))
+
+    def forward(self, x: torch.Tensor, dp=None) -> torch.Tensor:
         b, h, w, c = x.shape
         if min(self.ws, h, w) != 8 or h % 8 or w % 8:
             raise ValueError(f"the window kernel takes 8x8 windows on H, W % 8 == 0; got "
@@ -390,6 +432,12 @@ class PGSSTB(nn.Module):
         sp = self.gobal_spectral_attn
         comb = sp.comb(sa, shift=shift)
         m = self.mlp
+        if self.training:
+            dp1, dp2 = (None, None) if dp is None else dp
+            y = spectral_apply(sa, comb, sp.qkv.weight, sp.qkv_dwconv.weight, shift=shift,
+                               gate=gate, shortcut=x, dp_scale=dp1)
+            return mlp(y, self.norm2.weight, self.norm2.bias, m.fc1.weight, m.fc1.bias,
+                       m.fc2.weight, m.fc2.bias, residual=True, dp_scale=dp2)
         return spectral_apply(sa, comb, sp.qkv.weight, sp.qkv_dwconv.weight, shift=shift,
                               gate=gate, shortcut=x,
                               mlp=(self.norm2.weight, self.norm2.bias, m.fc1.weight,
@@ -402,16 +450,19 @@ class BaseBlock(nn.Module):
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: int, mlp_ratio: float,
                  compress_ratio: int, prompt_len: int,
-                 input_resolution: Tuple[int, int] = (64, 64)):
+                 input_resolution: Tuple[int, int] = (64, 64), drop_path=()):
         super().__init__()
         self.depth = depth
         for i in range(depth):
             self.add_module(f"blocks_{i}", PGSSTB(
                 dim, num_heads, window_size, 0 if i % 2 == 0 else window_size // 2,
-                mlp_ratio, compress_ratio, prompt_len, input_resolution))
+                mlp_ratio, compress_ratio, prompt_len, input_resolution,
+                float(drop_path[i]) if len(drop_path) else 0.0))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         y = x
         for i in range(self.depth):
-            y = getattr(self, f"blocks_{i}")(y)
+            blk = getattr(self, f"blocks_{i}")
+            dp = blk.drop_path_scales(x.shape[0], generator, x.device) if self.training else None
+            y = blk(y, dp)
         return y + x

@@ -54,6 +54,12 @@ class Route:
             return False
         return True
 
+    def count_plain_backward(self, x: torch.Tensor) -> None:
+        """A plain backward about to run for a forward that took the plain
+        version: counted like the forward when it is on the card."""
+        if x.device.type == "cuda":
+            self.plain_cuda_calls += 1
+
 
 ROUTE = Route()
 COUNTERS: dict[str, KernelCounter] = {}

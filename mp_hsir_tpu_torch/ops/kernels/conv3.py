@@ -6,6 +6,11 @@ Kernel: ``csrc/conv3.cu`` (replaces ``_conv3_kernel``,
 ``_conv3_down_kernel`` and ``_conv3_up_kernel``,
 ``mp_hsir_tpu/ops/pallas_attention.py:1084``, ``:1218``, ``:1243``).
 Plain version: :func:`conv3_plain`. Weight layout: OIHW (Cout, Cin, 3, 3).
+
+Backward (``_conv3_core``'s VJP, ``mp_hsir_tpu/ops/pallas_vjp.py:1296``):
+dx runs the same kernel on the cotangent after the inverse pixel
+(un)shuffle, with the weights flipped and transposed; dW is nine products
+in PyTorch, as JAX takes them outside Pallas (:func:`conv3_weight_grad`).
 """
 
 from __future__ import annotations
@@ -13,6 +18,7 @@ from __future__ import annotations
 from functools import lru_cache
 
 import torch
+import torch.nn.functional as F
 
 from mp_hsir_tpu_torch.ops.basic import pixel_shuffle, pixel_unshuffle
 from mp_hsir_tpu_torch.ops.conv import conv2d
@@ -43,14 +49,7 @@ def _entry():
     return _build.entry("mp_conv3", 4, [ctypes.c_int] * 7)
 
 
-def conv3(x: torch.Tensor, w: torch.Tensor, mode: str = "plain",
-          res: torch.Tensor | None = None) -> torch.Tensor:
-    """Same contract as :func:`conv3_plain`; launches the CUDA kernel on a
-    CUDA tensor."""
-    if mode not in MODES or (mode == "res") != (res is not None):
-        raise ValueError(f"bad conv3 mode {mode!r} / residual")
-    if not ROUTE.use_kernel(x):
-        return conv3_plain(x, w, mode, res)
+def _launch(x, w, mode, res):
     b, h, wd, cin = x.shape
     cout = w.shape[0]
     if h % 8 or wd % 8 or w.shape[1:] != (cin, 3, 3):
@@ -74,3 +73,54 @@ def conv3(x: torch.Tensor, w: torch.Tensor, mode: str = "plain",
     _build.check("mp_conv3", err)
     COUNTER.record(("conv3", b, h, wd, cin, cout, mode, str(dt)))
     return out
+
+
+def conv3_weight_grad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """dW (Cout, Cin, 3, 3) float32 of the stride-1, pad-1 conv: nine
+    (BHW, Cin)^T (BHW, Cout) products of the padded input and the cotangent."""
+    b, h, w, cin = x.shape
+    cout = dy.shape[-1]
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    d2 = dy.float().reshape(-1, cout)
+    taps = [d2.t() @ xp[:, ky:ky + h, kx:kx + w, :].reshape(-1, cin)
+            for ky in range(3) for kx in range(3)]
+    return torch.stack(taps, dim=-1).reshape(cout, cin, 3, 3)
+
+
+class _Conv3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, res, mode):
+        ctx.kernel = ROUTE.use_kernel(x)
+        ctx.mode = mode
+        ctx.save_for_backward(x, w)
+        return (_launch if ctx.kernel else conv3_plain)(x, w, mode, res)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        mode = ctx.mode
+        dres = dy if mode == "res" else None
+        if mode == "down":
+            dy = pixel_shuffle(dy, 2)
+        elif mode == "up":
+            dy = pixel_unshuffle(dy, 2)
+        dy = dy.to(x.dtype).contiguous()
+        dx = None
+        if ctx.needs_input_grad[0]:
+            wt = w.flip(2, 3).transpose(0, 1)  # dx = conv(dy, flip(w)^T)
+            if ctx.kernel:
+                dx = _launch(dy, wt, "plain", None)
+            else:
+                ROUTE.count_plain_backward(x)
+                dx = conv3_plain(dy, wt, "plain")
+        return dx, conv3_weight_grad(x, dy), dres, None
+
+
+def conv3(x: torch.Tensor, w: torch.Tensor, mode: str = "plain",
+          res: torch.Tensor | None = None) -> torch.Tensor:
+    """Same contract as :func:`conv3_plain`, differentiable; launches the CUDA
+    kernel on a CUDA tensor (forward, and the backward's dx). The dx of an
+    input that needs no gradient is not computed."""
+    if mode not in MODES or (mode == "res") != (res is not None):
+        raise ValueError(f"bad conv3 mode {mode!r} / residual")
+    return _Conv3.apply(x, w, res, mode)

@@ -1,0 +1,163 @@
+"""LayerNorm + gated MLP over NHWC maps with an optional residual and a
+per-sample drop-path scale: the PGSSTB tail on the training route,
+``[x +] s_b * (fc2(a * gelu(g)) + b2)``, ``[a | g] = fc1(LN(x)) + b1``.
+
+Kernels: ``csrc/mlp.cu`` ``mp_mlp`` (replaces ``_mlp_kernel``,
+``mp_hsir_tpu/ops/pallas_attention.py:965``, host ``_mlp_fwd_call`` :996)
+and ``mp_mlp_bwd`` + ``csrc/grad.cu`` (replace ``_mlp_bwd_kernel``,
+``mp_hsir_tpu/ops/pallas_vjp.py:124``). Plain versions: :func:`mlp_plain`,
+:func:`mlp_bwd_plain`. Weights in torch Linear layout: w1 (2h, C), w2 (C, h).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
+
+import torch
+
+from mp_hsir_tpu_torch.ops.basic import gelu_exact, layer_norm
+from mp_hsir_tpu_torch.ops.kernels import _build
+from mp_hsir_tpu_torch.ops.kernels._grad import (
+    ln_bwd_plain, ln_linear_bwd, ln_stats, sum_parts, wgrad,
+)
+from mp_hsir_tpu_torch.ops.kernels._route import (
+    ROUTE, counter, dtype_code, f32, kernel_weight, stream_ptr,
+)
+
+COUNTER = counter("mlp")
+BWD = counter("mlp_bwd")
+
+
+def _scale(dp_scale, b):
+    return 1.0 if dp_scale is None else dp_scale.float().reshape(b, 1, 1, 1)
+
+
+def mlp_plain(x, ln_w, ln_b, w1, b1, w2, b2, residual: bool = False, dp_scale=None,
+              eps: float = 1e-5):
+    dt = x.dtype
+    hid = w2.shape[1]
+    h = layer_norm(x, ln_w, ln_b, eps).float() @ w1.to(dt).float().t() + b1.float()
+    gated = (h[..., :hid] * gelu_exact(h[..., hid:])).to(dt).float()
+    br = ((gated @ w2.to(dt).float().t() + b2.float()) * _scale(dp_scale, x.shape[0])).to(dt)
+    return (x.float() + br.float()).to(dt) if residual else br
+
+
+def mlp_bwd_plain(x, ln_w, ln_b, w1, b1, w2, b2, dp_scale, residual, eps, dy):
+    """Explicit VJP of :func:`mlp_plain`: returns (dx, d ln_w, d ln_b, d w1,
+    d b1, d w2, d b2, d dp_scale), parameter cotangents float32."""
+    dt = x.dtype
+    b, c = x.shape[0], x.shape[-1]
+    hid = w2.shape[1]
+    w1r, w2r = w1.to(dt).float(), w2.to(dt).float()
+    xhat, rstd = ln_stats(x, eps)
+    xn = layer_norm(x, ln_w, ln_b, eps).float()
+    h = xn @ w1r.t() + b1.float()
+    a, g = h[..., :hid], h[..., hid:]
+    gelu_g = gelu_exact(g)
+    gated = (a * gelu_g).to(dt).float()
+    dyf = dy.float()
+    ddp = None
+    if dp_scale is not None:
+        ddp = (dyf * (gated @ w2r.t() + b2.float())).sum(dim=(1, 2, 3)).to(dp_scale.dtype)
+    dys = (dyf * _scale(dp_scale, b)).to(dt).float()
+    dgated = dys @ w2r
+    dw2 = dys.reshape(-1, c).t() @ gated.reshape(-1, hid)
+    db2 = dys.sum(dim=(0, 1, 2))
+    phi = torch.exp(-0.5 * g * g) * (2 * torch.pi) ** -0.5
+    dgelu = 0.5 * (1 + torch.erf(g * 2 ** -0.5)) + g * phi
+    dh = torch.cat([dgated * gelu_g, dgated * a * dgelu], dim=-1).to(dt).float()
+    db1 = dh.sum(dim=(0, 1, 2))
+    dw1 = dh.reshape(-1, 2 * hid).t() @ xn.reshape(-1, c)
+    dx, dlnw, dlnb = ln_bwd_plain(dh @ w1r, xhat, rstd, ln_w)
+    if residual:
+        dx = dx + dyf
+    return dx.to(dt), dlnw, dlnb, dw1, db1, dw2, db2, ddp
+
+
+@lru_cache(maxsize=None)
+def _entry(bwd: bool = False):
+    if bwd:
+        return _build.entry("mp_mlp_bwd", 15, [ctypes.c_int] * 6 + [ctypes.c_float])
+    return _build.entry("mp_mlp", 9, [ctypes.c_int] * 7 + [ctypes.c_float])
+
+
+def _launch(x, ln_w, ln_b, w1, b1, w2, b2, residual, dp_scale, eps):
+    b, h, w, c = x.shape
+    if h % 8 or w % 8:
+        raise ValueError(f"mlp needs H, W % 8 == 0, got {x.shape}")
+    dt = x.dtype
+    hid = w2.shape[1]
+    x = x.contiguous()
+    # every operand bound to a name until the launch: a temporary freed
+    # mid-call could hand its memory to the next one
+    lnw, lnb, b1f, b2f, dp = f32(ln_w), f32(ln_b), f32(b1), f32(b2), f32(dp_scale)
+    w1k, w2k = kernel_weight(w1, dt), kernel_weight(w2, dt)
+    out = torch.empty_like(x)
+    err = _entry()(x.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), w1k.data_ptr(), b1f.data_ptr(),
+                   w2k.data_ptr(), b2f.data_ptr(), _build.ptr(dp), out.data_ptr(), dtype_code(x),
+                   b, h, w, c, hid, int(residual), eps, stream_ptr())
+    _build.check("mp_mlp", err)
+    COUNTER.record(("mlp", b, h, w, c, hid, bool(residual), dp_scale is not None, str(dt)))
+    return out
+
+
+def _bwd_launch(x, ln_w, ln_b, w1, b1, w2, b2, dp_scale, residual, eps, dy):
+    b, h, w, c = x.shape
+    dt = x.dtype
+    hid = w2.shape[1]
+    x, dy = x.contiguous(), dy.to(dt).contiguous()
+    lnw, lnb, b1f, b2f, dp = f32(ln_w), f32(ln_b), f32(b1), f32(b2), f32(dp_scale)
+    w1k, w2k = kernel_weight(w1, dt), kernel_weight(w2, dt)
+    dev = x.device
+    tiles = (h // 8) * (w // 8)
+    xn, dys = torch.empty_like(x), torch.empty_like(x)
+    dh = torch.empty((b, h, w, 2 * hid), dtype=dt, device=dev)
+    gated = torch.empty((b, h, w, hid), dtype=dt, device=dev)
+    pb2 = torch.empty((1, b * tiles, c), dtype=torch.float32, device=dev)
+    pdp = torch.empty((b, tiles), dtype=torch.float32, device=dev) if dp is not None else None
+    p = _build.ptr
+    err = _entry(True)(x.data_ptr(), dy.data_ptr(), lnw.data_ptr(), lnb.data_ptr(),
+                       w1k.data_ptr(), b1f.data_ptr(), w2k.data_ptr(),
+                       b2f.data_ptr(), p(dp), xn.data_ptr(), dh.data_ptr(), gated.data_ptr(),
+                       dys.data_ptr(), pb2.data_ptr(), p(pdp), dtype_code(x), b, h, w, c, hid,
+                       eps, stream_ptr())
+    _build.check("mp_mlp_bwd", err)
+    dx, (dlnw, dlnb), db1 = ln_linear_bwd(dh, w1k, 0, x, ln_w, extra_t=dy if residual else None,
+                                          eps=eps, bias=True)
+    dw1 = wgrad(xn.reshape(-1, c), dh.reshape(-1, 2 * hid)).t()
+    dw2 = wgrad(gated.reshape(-1, hid), dys.reshape(-1, c)).t()
+    db2 = sum_parts(pb2)[0]
+    ddp = None if pdp is None else sum_parts(pdp.unsqueeze(-1))[:, 0].to(dp_scale.dtype)
+    BWD.record(("mlp_bwd", b, h, w, c, hid, bool(residual), dp is not None, str(dt)))
+    return dx, dlnw, dlnb, dw1, db1, dw2, db2, ddp
+
+
+class _Mlp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2, dp_scale, cfg):
+        residual, eps = cfg
+        ctx.kernel = ROUTE.use_kernel(x)
+        out = (_launch if ctx.kernel else mlp_plain)(x, ln_w, ln_b, w1, b1, w2, b2, residual,
+                                                     dp_scale, eps)
+        ctx.cfg = cfg
+        ctx.save_for_backward(x, ln_w, ln_b, w1, b1, w2, b2, dp_scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x = ctx.saved_tensors[0]
+        if ctx.kernel:
+            fn = _bwd_launch
+        else:
+            ROUTE.count_plain_backward(x)
+            fn = mlp_bwd_plain
+        residual, eps = ctx.cfg
+        return (*fn(*ctx.saved_tensors, residual, eps, dy.contiguous()), None)
+
+
+def mlp(x, ln_w, ln_b, w1, b1, w2, b2, residual: bool = False, dp_scale=None,
+        eps: float = 1e-5):
+    """Same contract as :func:`mlp_plain`, differentiable; launches the CUDA
+    kernels on a CUDA tensor. ``dp_scale`` (B,) float32 or None."""
+    return _Mlp.apply(x, ln_w, ln_b, w1, b1, w2, b2, dp_scale, (bool(residual), eps))

@@ -3,9 +3,19 @@
 Kernels: ``csrc/spectral.cu`` — ``mp_spectral_stats`` (the Gram and norm
 sums: phase 0 of ``_spectral_kernel`` and the spectral half of
 ``_nhwc_sp0_kernel``, ``mp_hsir_tpu/ops/pallas_attention.py:1429`` and
-``:362``) and ``mp_spectral_apply`` (phase 1 with its epilogues, ``:1429``).
-:func:`spectral_fold` turns the sums into the C x C ``comb`` matrix in
-PyTorch, as ``spectral_sharded_fold`` (``:2125``) does on the JAX split route.
+``:362``; on the training route ``_sp0_kernel``, ``:1926``) and
+``mp_spectral_apply`` (phase 1 with its epilogues, ``:1429``; on the training
+route ``_sp1_kernel`` with its drop-path scale, ``:1962``). :func:`spectral_fold`
+turns the sums into the C x C ``comb`` matrix in PyTorch, as
+``spectral_sharded_fold`` (``:2125``) does on the JAX split route; autograd
+differentiates it.
+
+Backward (training): ``mp_spectral_stats_bwd`` and ``mp_spectral_apply_bwd``
+plus the shared stages of ``csrc/grad.cu`` replace ``_sp0_bwd_kernel`` /
+``_sp1_bwd_kernel`` (``mp_hsir_tpu/ops/pallas_vjp.py:1443``, ``:1501``) and
+the two phases of ``_spectral_bwd_kernel`` (``:953``). The eval-only options
+(``x2``, the ``mlp`` tail) have no backward, as in the JAX package; a
+backward through them raises.
 
 Layouts at these functions: NHWC maps; wqkv (3C, C, 1, 1) and wdw
 (3C, 1, 3, 3) conv weights; the optional second input ``x2`` makes the
@@ -18,10 +28,13 @@ from __future__ import annotations
 from functools import lru_cache
 
 import torch
-import torch.nn.functional as F
 
 from mp_hsir_tpu_torch.ops.basic import gelu_exact, layer_norm
 from mp_hsir_tpu_torch.ops.kernels import _build
+from mp_hsir_tpu_torch.ops.kernels._grad import (
+    dwconv3_bwd_plain, dwconv3_f32, dwconv_bwd, grad_or_zeros, ln_bwd_plain, ln_linear_bwd,
+    ln_stats, sum_parts, wgrad,
+)
 from mp_hsir_tpu_torch.ops.kernels._route import (
     ROUTE, counter, dtype_code, f32, kernel_weight, stream_ptr,
 )
@@ -29,20 +42,11 @@ from mp_hsir_tpu_torch.ops.window import roll_hw
 
 STATS = counter("spectral_stats")
 APPLY = counter("spectral_apply")
+STATS_BWD = counter("spectral_stats_bwd")
+APPLY_BWD = counter("spectral_apply_bwd")
 MAX_PARTS = 128
 
-
-def dwconv3_f32(t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """3x3 depthwise conv with zero padding in float32, as nine shifted
-    products summed in tap order: t (B, H, W, C), w (C, 1, 3, 3)."""
-    b, h, wd, c = t.shape
-    tp = F.pad(t.float(), (0, 0, 1, 1, 1, 1))
-    w9 = w.float().reshape(c, 9)
-    acc = torch.zeros((b, h, wd, c), dtype=torch.float32, device=t.device)
-    for tap in range(9):
-        dy, dx = divmod(tap, 3)
-        acc = acc + tp[:, dy:dy + h, dx:dx + wd, :] * w9[:, tap]
-    return acc
+__all__ = ["dwconv3_f32", "spectral_stats", "spectral_apply", "spectral_fold"]
 
 
 def _input(x, x2, shift, ln_w, ln_b, eps):
@@ -54,11 +58,23 @@ def _input(x, x2, shift, ln_w, ln_b, eps):
 
 
 def _qkv_part(u, wqkv, wdw, lo, hi, dt):
-    """dw3x3(1x1(u))[..., lo:hi], rounded to dt where the kernels round."""
+    """(t, dw3x3(t)) with t = 1x1(u)[..., lo:hi], rounded to dt where the
+    kernels round (float32 tensors of dt values)."""
     c = u.shape[-1]
-    t = (u.float() @ wqkv[lo:hi].reshape(hi - lo, c).to(dt).float().t()).to(dt)
-    return dwconv3_f32(t, wdw[lo:hi].to(dt)).to(dt)
+    t = (u.float() @ wqkv[lo:hi].reshape(hi - lo, c).to(dt).float().t()).to(dt).float()
+    return t, dwconv3_f32(t, wdw[lo:hi].to(dt)).to(dt).float()
 
+
+def _no_eval_only_grad(name, **opts):
+    bad = [k for k, v in opts.items() if v is not None]
+    if bad:
+        raise RuntimeError(f"{name}: no backward for the eval-only option(s) {bad} "
+                           "(the training route runs without them, as in the JAX package)")
+
+
+# ---------------------------------------------------------------------------
+# stats
+# ---------------------------------------------------------------------------
 
 def spectral_stats_plain(x, wqkv, wdw, num_heads: int, shift: int = 0, x2=None,
                          ln_w=None, ln_b=None, eps: float = 1e-5):
@@ -66,25 +82,52 @@ def spectral_stats_plain(x, wqkv, wdw, num_heads: int, shift: int = 0, x2=None,
     _, u = _input(x, x2, shift, ln_w, ln_b, eps)
     b, h, w, c = u.shape
     dh = c // num_heads
-    qk = _qkv_part(u, wqkv, wdw, 0, 2 * c, x.dtype).float().reshape(b, h * w, 2, num_heads, dh)
+    qk = _qkv_part(u, wqkv, wdw, 0, 2 * c, x.dtype)[1].reshape(b, h * w, 2, num_heads, dh)
     q, k = qk[:, :, 0], qk[:, :, 1]
     gram = torch.einsum("bphd,bphe->bhde", q, k).reshape(b, c, dh)
     return gram, q.square().sum(dim=1), k.square().sum(dim=1)
 
 
-@lru_cache(maxsize=1)
-def _stats_entry():
+def spectral_stats_bwd_plain(x, wqkv, wdw, num_heads, shift, ln_w, ln_b, eps, dgram, dnq, dnk):
+    """Explicit VJP of :func:`spectral_stats_plain` (one input): returns
+    (dx, d wqkv, d wdw, d ln_w, d ln_b); the v sections of the weight
+    cotangents are zero."""
+    dt = x.dtype
+    raw, u = _input(x, None, shift, ln_w, ln_b, eps)
+    b, h, w, c = u.shape
+    dh = c // num_heads
+    wqk = wqkv[:2 * c].reshape(2 * c, c).to(dt).float()
+    t, qk = _qkv_part(u, wqkv, wdw, 0, 2 * c, dt)
+    q = qk[..., :c].reshape(b, h, w, num_heads, dh)
+    k = qk[..., c:].reshape(b, h, w, num_heads, dh)
+    dg = dgram.to(dt).float().reshape(b, num_heads, dh, dh)
+    dq = torch.einsum("byxne,bnde->byxnd", k, dg) + 2 * q * dnq.reshape(b, 1, 1, num_heads, dh)
+    dk = torch.einsum("byxnd,bnde->byxne", q, dg) + 2 * k * dnk.reshape(b, 1, 1, num_heads, dh)
+    dqk = torch.cat([dq.reshape(b, h, w, c), dk.reshape(b, h, w, c)], dim=-1)
+    dtt, dwdw_qk = dwconv3_bwd_plain(dqk, t, wdw[:2 * c].to(dt))
+    dtt = dtt.to(dt).float()
+    dw = torch.zeros((3 * c, c), dtype=torch.float32, device=x.device)
+    dw[:2 * c] = dtt.reshape(-1, 2 * c).t() @ u.float().reshape(-1, c)
+    dwdw = torch.zeros((3 * c, 1, 3, 3), dtype=torch.float32, device=x.device)
+    dwdw[:2 * c] = dwdw_qk
+    du = dtt @ wqk
+    dlnw = dlnb = None
+    if ln_w is not None:
+        du, dlnw, dlnb = ln_bwd_plain(du, *ln_stats(raw, eps), ln_w)
+    dx = roll_hw(du, -shift, -shift) if shift else du
+    return dx.to(dt), dw.reshape(3 * c, c, 1, 1), dwdw, dlnw, dlnb
+
+
+@lru_cache(maxsize=None)
+def _stats_entry(bwd: bool = False):
     import ctypes
 
+    if bwd:
+        return _build.entry("mp_spectral_stats_bwd", 11, [ctypes.c_int] * 7 + [ctypes.c_float])
     return _build.entry("mp_spectral_stats", 12, [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int])
 
 
-def spectral_stats(x, wqkv, wdw, num_heads: int, shift: int = 0, x2=None, ln_w=None,
-                   ln_b=None, eps: float = 1e-5):
-    """Same contract as :func:`spectral_stats_plain`; launches the CUDA kernel
-    on a CUDA tensor (a per-part pass, then an in-order sum of the parts)."""
-    if not ROUTE.use_kernel(x):
-        return spectral_stats_plain(x, wqkv, wdw, num_heads, shift, x2, ln_w, ln_b, eps)
+def _stats_launch(x, wqkv, wdw, num_heads, shift, x2, ln_w, ln_b, eps):
     b, h, w, c1 = x.shape
     c2 = 0 if x2 is None else x2.shape[-1]
     c = c1 + c2
@@ -113,6 +156,73 @@ def spectral_stats(x, wqkv, wdw, num_heads: int, shift: int = 0, x2=None, ln_w=N
     return gram, nq, nk
 
 
+def _stats_bwd_launch(x, wqkv, wdw, num_heads, shift, ln_w, ln_b, eps, dgram, dnq, dnk):
+    b, h, w, c = x.shape
+    dt = x.dtype
+    x = x.contiguous()
+    wq, wd = kernel_weight(wqkv, dt), kernel_weight(wdw, dt)
+    lnw, lnb = f32(ln_w), f32(ln_b)
+    dgram, dnq, dnk = f32(dgram), f32(dnq), f32(dnk)
+    dev = x.device
+    un = torch.empty((b, h, w, c), dtype=dt, device=dev)
+    t = torch.empty((b, h, w, 2 * c), dtype=torch.float32, device=dev)
+    dqk = torch.empty_like(t)
+    err = _stats_entry(True)(x.data_ptr(), _build.ptr(lnw), _build.ptr(lnb), wq.data_ptr(),
+                             wd.data_ptr(), dgram.data_ptr(), dnq.data_ptr(),
+                             dnk.data_ptr(), un.data_ptr(), t.data_ptr(), dqk.data_ptr(),
+                             dtype_code(x), b, h, w, c, num_heads, shift, eps, stream_ptr())
+    _build.check("mp_spectral_stats_bwd", err)
+    dtt, dwdw_qk = dwconv_bwd(dqk, t, wd, 0, dt)
+    dx, dln, _ = ln_linear_bwd(dtt, wq, 0, x, ln_w, shift=-shift, eps=eps)
+    dw = torch.zeros((3 * c, c), dtype=torch.float32, device=dev)
+    dw[:2 * c] = wgrad(un.reshape(-1, c), dtt.reshape(-1, 2 * c)).t()
+    dwdw = torch.zeros((3 * c, 9), dtype=torch.float32, device=dev)
+    dwdw[:2 * c] = dwdw_qk.t()
+    STATS_BWD.record(("spectral_stats_bwd", b, h, w, c, num_heads, shift, ln_w is not None, str(dt)))
+    return (dx, dw.reshape(3 * c, c, 1, 1), dwdw.reshape(3 * c, 1, 3, 3),
+            *(dln if dln is not None else (None, None)))
+
+
+class _SpectralStats(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, wqkv, wdw, x2, ln_w, ln_b, cfg):
+        num_heads, shift, eps = cfg
+        ctx.kernel = ROUTE.use_kernel(x)
+        fn = _stats_launch if ctx.kernel else spectral_stats_plain
+        out = fn(x, wqkv, wdw, num_heads, shift, x2, ln_w, ln_b, eps)
+        ctx.cfg = cfg
+        ctx.has_x2 = x2 is not None
+        ctx.save_for_backward(x, wqkv, wdw, ln_w, ln_b)
+        return out
+
+    @staticmethod
+    def backward(ctx, dgram, dnq, dnk):
+        x, wqkv, wdw, ln_w, ln_b = ctx.saved_tensors
+        num_heads, shift, eps = ctx.cfg
+        _no_eval_only_grad("spectral_stats", x2=True if ctx.has_x2 else None)
+        b, c = x.shape[0], x.shape[-1]
+        dh = c // num_heads
+        z = x.new_zeros((b, c, dh), dtype=torch.float32)
+        dgram = grad_or_zeros(dgram, z)
+        dnq = grad_or_zeros(dnq, z[:, :num_heads])
+        dnk = grad_or_zeros(dnk, z[:, :num_heads])
+        if ctx.kernel:
+            fn = _stats_bwd_launch
+        else:
+            ROUTE.count_plain_backward(x)
+            fn = spectral_stats_bwd_plain
+        dx, dw, dwdw, dlnw, dlnb = fn(x, wqkv, wdw, num_heads, shift, ln_w, ln_b, eps, dgram, dnq, dnk)
+        return dx, dw, dwdw, None, dlnw, dlnb, None
+
+
+def spectral_stats(x, wqkv, wdw, num_heads: int, shift: int = 0, x2=None, ln_w=None,
+                   ln_b=None, eps: float = 1e-5):
+    """Same contract as :func:`spectral_stats_plain`, differentiable; launches
+    the CUDA kernels (forward: a per-part pass, then an in-order sum of the
+    parts; backward: ``mp_spectral_stats_bwd`` and grad.cu) on a CUDA tensor."""
+    return _SpectralStats.apply(x, wqkv, wdw, x2, ln_w, ln_b, (num_heads, shift, eps))
+
+
 def spectral_fold(gram, nq, nk, temperature, wout) -> torch.Tensor:
     """comb (B, C, C) float32, row = v channel (h, e), col = output channel:
     comb[h*dh+e, o] = sum_d softmax_e(G[d, e] / (|q_d| |k_e|) * t_h) W[(h, d), o]."""
@@ -126,24 +236,39 @@ def spectral_fold(gram, nq, nk, temperature, wout) -> torch.Tensor:
     return torch.einsum("bhde,hdo->bheo", attn, wr).reshape(b, c, c).contiguous()
 
 
+# ---------------------------------------------------------------------------
+# apply
+# ---------------------------------------------------------------------------
+
+def _gate_map(gate, shift):
+    """Per-window gates of the rolled frame as a per-pixel map of the
+    unrolled frame."""
+    gmap = gate.repeat_interleave(8, dim=1).repeat_interleave(8, dim=2)
+    return roll_hw(gmap, shift, shift) if shift else gmap
+
+
 def spectral_apply_plain(x, comb, wqkv, wdw, shift: int = 0, x2=None, ln_w=None, ln_b=None,
                          residual: bool = False, gate=None, shortcut=None, mlp=None,
-                         eps: float = 1e-5):
+                         eps: float = 1e-5, dp_scale=None):
     """out = v @ comb [+ x * gate] [+ x] [+ shortcut], then optionally the
     PGSSTB tail ``out + fc2(a * gelu(g))``, ``[a|g] = fc1(LN2(out))``;
     ``mlp = (ln2_w, ln2_b, fc1_w (2h, C), fc1_b, fc2_w (C, h), fc2_b)``.
     ``gate`` (B, H/8, W/8, C) holds the per-window gates of the rolled frame.
+    ``dp_scale`` (B,): per-sample drop-path scale of the branch
+    ``v @ comb [+ x * gate]``, summed in float32 and rounded once.
     Output (B, H, W, C) in the unrolled frame."""
     dt = x.dtype
     raw, u = _input(x, x2, shift, ln_w, ln_b, eps)
     b, h, w, c = u.shape
-    v = _qkv_part(u, wqkv, wdw, 2 * c, 3 * c, dt)
-    y = torch.einsum("bhwc,bco->bhwo", v.float(), comb.to(dt).float()).to(dt)
-    if gate is not None:
-        gmap = gate.repeat_interleave(8, dim=1).repeat_interleave(8, dim=2)
-        if shift:
-            gmap = roll_hw(gmap, shift, shift)
-        y = ((raw.float() * gmap.float()).to(dt).float() + y.float()).to(dt)
+    v = _qkv_part(u, wqkv, wdw, 2 * c, 3 * c, dt)[1]
+    y = torch.einsum("bhwc,bco->bhwo", v, comb.to(dt).float())
+    gu = None if gate is None else raw.float() * _gate_map(gate, shift).float()
+    if dp_scale is not None:
+        y = ((y if gu is None else y + gu) * dp_scale.float().reshape(b, 1, 1, 1)).to(dt)
+    else:
+        y = y.to(dt)
+        if gu is not None:
+            y = (gu.to(dt).float() + y.float()).to(dt)
     if residual:
         y = (raw.float() + y.float()).to(dt)
     if shortcut is not None:
@@ -157,35 +282,76 @@ def spectral_apply_plain(x, comb, wqkv, wdw, shift: int = 0, x2=None, ln_w=None,
     return y
 
 
-@lru_cache(maxsize=1)
-def _apply_entry():
+def spectral_apply_bwd_plain(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate, dp_scale,
+                             eps, dy):
+    """Explicit VJP of :func:`spectral_apply_plain` without x2 / mlp: returns
+    (dx, d comb, d wqkv, d wdw, d ln_w, d ln_b, d gate, d shortcut, d dp);
+    the q/k sections of the weight cotangents are zero."""
+    dt = x.dtype
+    raw, u = _input(x, None, shift, ln_w, ln_b, eps)
+    b, h, w, c = u.shape
+    wv = wqkv[2 * c:].reshape(c, c).to(dt).float()
+    t, v = _qkv_part(u, wqkv, wdw, 2 * c, 3 * c, dt)
+    dyf = dy.float()
+    dys = dyf if dp_scale is None else (dyf * dp_scale.float().reshape(b, 1, 1, 1)).to(dt).float()
+    cr = comb.to(dt).float()
+    dcomb = torch.einsum("byxk,byxo->bko", v, dys)
+    dv = torch.einsum("byxo,bko->byxk", dys, cr)
+    extra = torch.zeros_like(dyf)
+    dgate = ddp = gu = None
+    if gate is not None:
+        gmap = _gate_map(gate, shift).float()
+        gu = raw.float() * gmap
+        extra = extra + dys * gmap
+        prod = dys * raw.float()
+        prod = roll_hw(prod, -shift, -shift) if shift else prod
+        dgate = prod.reshape(b, h // 8, 8, w // 8, 8, c).sum(dim=(2, 4)).to(gate.dtype)
+    if residual:
+        extra = extra + dyf
+    if dp_scale is not None:
+        br = torch.einsum("byxk,bko->byxo", v, cr)
+        br = br if gu is None else br + gu
+        ddp = (dyf * br).sum(dim=(1, 2, 3)).to(dp_scale.dtype)
+    dtt, dwdw_v = dwconv3_bwd_plain(dv, t, wdw[2 * c:].to(dt))
+    dtt = dtt.to(dt).float()
+    dw = torch.zeros((3 * c, c), dtype=torch.float32, device=x.device)
+    dw[2 * c:] = dtt.reshape(-1, c).t() @ u.float().reshape(-1, c)
+    dwdw = torch.zeros((3 * c, 1, 3, 3), dtype=torch.float32, device=x.device)
+    dwdw[2 * c:] = dwdw_v
+    du = dtt @ wv
+    dlnw = dlnb = None
+    if ln_w is not None:
+        du, dlnw, dlnb = ln_bwd_plain(du, *ln_stats(raw, eps), ln_w)
+    du = du + extra
+    dx = roll_hw(du, -shift, -shift) if shift else du
+    return (dx.to(dt), dcomb, dw.reshape(3 * c, c, 1, 1), dwdw, dlnw, dlnb, dgate, dy, ddp)
+
+
+@lru_cache(maxsize=None)
+def _apply_entry(bwd: bool = False):
     import ctypes
 
-    return _build.entry("mp_spectral_apply", 16, [ctypes.c_int] * 9 + [ctypes.c_float])
+    if bwd:
+        return _build.entry("mp_spectral_apply_bwd", 17, [ctypes.c_int] * 7 + [ctypes.c_float])
+    return _build.entry("mp_spectral_apply", 17, [ctypes.c_int] * 9 + [ctypes.c_float])
 
 
-def spectral_apply(x, comb, wqkv, wdw, shift: int = 0, x2=None, ln_w=None, ln_b=None,
-                   residual: bool = False, gate=None, shortcut=None, mlp=None,
-                   eps: float = 1e-5):
-    """Same contract as :func:`spectral_apply_plain`; launches the CUDA kernel
-    on a CUDA tensor."""
-    if not ROUTE.use_kernel(x):
-        return spectral_apply_plain(x, comb, wqkv, wdw, shift, x2, ln_w, ln_b, residual,
-                                    gate, shortcut, mlp, eps)
+def _apply_launch(x, comb, wqkv, wdw, shift, x2, ln_w, ln_b, residual, gate, shortcut, mlp, eps,
+                  dp_scale):
     b, h, w, c1 = x.shape
     c2 = 0 if x2 is None else x2.shape[-1]
     c = c1 + c2
     if h % 8 or w % 8:
         raise ValueError(f"spectral apply needs H, W % 8 == 0, got {x.shape}")
-    if gate is not None and (x2 is not None or ln_w is not None):
-        raise ValueError("the gate epilogue takes one raw input")
+    if (gate is not None or dp_scale is not None) and (x2 is not None or ln_w is not None):
+        raise ValueError("the gate and drop-path epilogues take one raw input")
     dt, code = x.dtype, dtype_code(x)
     x = x.contiguous()
     x2 = None if x2 is None else x2.to(dt).contiguous()
     gate = None if gate is None else gate.to(dt).contiguous()
     shortcut = None if shortcut is None else shortcut.to(dt).contiguous()
     wq, wd = kernel_weight(wqkv, dt), kernel_weight(wdw, dt)
-    lnw, lnb, cb = f32(ln_w), f32(ln_b), f32(comb)
+    lnw, lnb, cb, dp = f32(ln_w), f32(ln_b), f32(comb), f32(dp_scale)
     hid = 0
     ln2w = ln2b = w1 = b1 = w2 = b2 = None
     if mlp is not None:
@@ -197,9 +363,98 @@ def spectral_apply(x, comb, wqkv, wdw, shift: int = 0, x2=None, ln_w=None, ln_b=
     p = _build.ptr
     err = _apply_entry()(x.data_ptr(), p(x2), p(lnw), p(lnb), wq.data_ptr(), wd.data_ptr(),
                          cb.data_ptr(), p(gate), p(shortcut), p(ln2w), p(ln2b), p(w1), p(b1),
-                         p(w2), p(b2), out.data_ptr(), code, b, h, w, c1, c2, int(residual),
-                         hid, shift, eps, stream_ptr())
+                         p(w2), p(b2), p(dp), out.data_ptr(), code, b, h, w, c1, c2,
+                         int(residual), hid, shift, eps, stream_ptr())
     _build.check("mp_spectral_apply", err)
-    APPLY.record(("spectral_apply", b, h, w, c1, c2, shift, ln_w is not None, bool(residual),
-                  gate is not None, shortcut is not None, hid, str(dt)))
+    spec = ("spectral_apply", b, h, w, c1, c2, shift, ln_w is not None, bool(residual),
+            gate is not None, shortcut is not None, hid, str(dt))
+    APPLY.record(spec if dp_scale is None else spec[:-1] + ("dp", str(dt)))
     return out
+
+
+def _apply_bwd_launch(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate, dp_scale, eps, dy):
+    b, h, w, c = x.shape
+    dt = x.dtype
+    x, dy = x.contiguous(), dy.to(dt).contiguous()
+    gate_t = None if gate is None else gate.to(dt).contiguous()
+    wq, wd = kernel_weight(wqkv, dt), kernel_weight(wdw, dt)
+    lnw, lnb, cb, dp = f32(ln_w), f32(ln_b), f32(comb), f32(dp_scale)
+    dev = x.device
+    tiles = (h // 8) * (w // 8)
+    like = dict(dtype=dt, device=dev)
+    un, v, dys = (torch.empty((b, h, w, c), **like) for _ in range(3))
+    t = torch.empty((b, h, w, c), dtype=torch.float32, device=dev)
+    dv = torch.empty_like(t)
+    extra = torch.empty_like(t) if (gate is not None or residual) else None
+    pdp = torch.empty((b, tiles), dtype=torch.float32, device=dev) if dp is not None else None
+    dgate = (torch.empty((b, h // 8, w // 8, c), dtype=torch.float32, device=dev)
+             if gate is not None else None)
+    p = _build.ptr
+    err = _apply_entry(True)(x.data_ptr(), p(lnw), p(lnb), wq.data_ptr(), wd.data_ptr(),
+                             cb.data_ptr(), p(gate_t), p(dp), dy.data_ptr(), un.data_ptr(),
+                             t.data_ptr(), v.data_ptr(), dys.data_ptr(), dv.data_ptr(), p(extra),
+                             p(pdp), p(dgate), dtype_code(x), b, h, w, c, int(residual), shift,
+                             eps, stream_ptr())
+    _build.check("mp_spectral_apply_bwd", err)
+    dtt, dwdw_v = dwconv_bwd(dv, t, wd, 2 * c, dt)
+    dx, dln, _ = ln_linear_bwd(dtt, wq, 2 * c, x, ln_w, extra_f=extra, shift=-shift, eps=eps)
+    dw = torch.zeros((3 * c, c), dtype=torch.float32, device=dev)
+    dw[2 * c:] = wgrad(un.reshape(-1, c), dtt.reshape(-1, c)).t()
+    dwdw = torch.zeros((3 * c, 9), dtype=torch.float32, device=dev)
+    dwdw[2 * c:] = dwdw_v.t()
+    dcomb = wgrad(v.reshape(b, h * w, c), dys.reshape(b, h * w, c))
+    ddp = None if pdp is None else sum_parts(pdp.unsqueeze(-1))[:, 0]
+    APPLY_BWD.record(("spectral_apply_bwd", b, h, w, c, shift, ln_w is not None, bool(residual),
+                      gate is not None, dp is not None, str(dt)))
+    dlnw, dlnb = dln if dln is not None else (None, None)
+    return (dx, dcomb, dw.reshape(3 * c, c, 1, 1), dwdw.reshape(3 * c, 1, 3, 3), dlnw, dlnb,
+            None if dgate is None else dgate.to(gate.dtype), dy,
+            None if ddp is None else ddp.to(dp_scale.dtype))
+
+
+class _SpectralApply(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comb, wqkv, wdw, x2, ln_w, ln_b, gate, shortcut, dp_scale, ln2_w, ln2_b,
+                w1, b1, w2, b2, cfg):
+        shift, residual, eps = cfg
+        mlp = None if w1 is None else (ln2_w, ln2_b, w1, b1, w2, b2)
+        ctx.kernel = ROUTE.use_kernel(x)
+        if ctx.kernel:
+            out = _apply_launch(x, comb, wqkv, wdw, shift, x2, ln_w, ln_b, residual, gate,
+                                shortcut, mlp, eps, dp_scale)
+        else:
+            out = spectral_apply_plain(x, comb, wqkv, wdw, shift, x2, ln_w, ln_b, residual, gate,
+                                       shortcut, mlp, eps, dp_scale)
+        ctx.cfg = cfg
+        ctx.eval_only = dict(x2=x2, mlp=w1)
+        ctx.has_shortcut = shortcut is not None
+        ctx.save_for_backward(x, comb, wqkv, wdw, ln_w, ln_b, gate, dp_scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, comb, wqkv, wdw, ln_w, ln_b, gate, dp_scale = ctx.saved_tensors
+        shift, residual, eps = ctx.cfg
+        _no_eval_only_grad("spectral_apply", **ctx.eval_only)
+        dy = dy.contiguous()
+        if ctx.kernel:
+            fn = _apply_bwd_launch
+        else:
+            ROUTE.count_plain_backward(x)
+            fn = spectral_apply_bwd_plain
+        dx, dcomb, dw, dwdw, dlnw, dlnb, dgate, dshort, ddp = fn(
+            x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate, dp_scale, eps, dy)
+        if not ctx.has_shortcut:
+            dshort = None
+        return (dx, dcomb, dw, dwdw, None, dlnw, dlnb, dgate, dshort, ddp,
+                None, None, None, None, None, None, None)
+
+
+def spectral_apply(x, comb, wqkv, wdw, shift: int = 0, x2=None, ln_w=None, ln_b=None,
+                   residual: bool = False, gate=None, shortcut=None, mlp=None,
+                   eps: float = 1e-5, dp_scale=None):
+    """Same contract as :func:`spectral_apply_plain`, differentiable without
+    ``x2`` / ``mlp``; launches the CUDA kernels on a CUDA tensor."""
+    m = (None,) * 6 if mlp is None else tuple(mlp)
+    return _SpectralApply.apply(x, comb, wqkv, wdw, x2, ln_w, ln_b, gate, shortcut, dp_scale,
+                                *m, (shift, bool(residual), eps))

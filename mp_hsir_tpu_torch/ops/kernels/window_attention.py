@@ -2,8 +2,11 @@
 
 Kernel: ``csrc/window_attention.cu`` (replaces the TPU kernels
 ``_nhwc_kernel`` and the window half of ``_nhwc_sp0_kernel``,
-``mp_hsir_tpu/ops/pallas_attention.py:198`` and ``:362``).
-Plain version: :func:`window_attention_plain`, the same arithmetic in PyTorch.
+``mp_hsir_tpu/ops/pallas_attention.py:198`` and ``:362``; backward
+``mp_window_attention_bwd`` + ``csrc/grad.cu`` replace ``_win_bwd_kernel``,
+``mp_hsir_tpu/ops/pallas_vjp.py:539``). Plain versions:
+:func:`window_attention_plain` and :func:`window_attention_bwd_plain`, the
+same arithmetic in PyTorch.
 """
 
 from __future__ import annotations
@@ -15,6 +18,9 @@ import torch
 
 from mp_hsir_tpu_torch.ops.basic import layer_norm
 from mp_hsir_tpu_torch.ops.kernels import _build
+from mp_hsir_tpu_torch.ops.kernels._grad import (
+    grad_or_zeros, ln_bwd_plain, ln_linear_bwd, ln_stats, sum_parts, wgrad,
+)
 from mp_hsir_tpu_torch.ops.kernels._route import (
     ROUTE, counter, dtype_code, f32, kernel_weight, stream_ptr,
 )
@@ -24,6 +30,7 @@ from mp_hsir_tpu_torch.ops.window import (
 
 WS = 8
 COUNTER = counter("window_attention")
+BWD = counter("window_attention_bwd")
 
 
 @lru_cache(maxsize=32)
@@ -47,8 +54,7 @@ def window_attention_plain(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_head
     qkv = qkv.reshape(bw, n, 3, num_heads, dh).permute(2, 0, 3, 1, 4)  # (3, Bw, nH, N, dh)
     s = (qkv[0] @ qkv[1].transpose(-1, -2)) * dh ** -0.5 + rel_bias.float()[None]
     if shift:
-        lab = window_partition(region_labels(h, w, shift, x.device)[None, :, :, None], WS)[..., 0]
-        mask = torch.where(lab[:, :, None] != lab[:, None, :], -100.0, 0.0)  # (nW, N, N)
+        mask = _window_mask(h, w, shift, x.device)
         s = (s.reshape(b, -1, num_heads, n, n) + mask[None, :, None]).reshape(bw, num_heads, n, n)
     p = torch.softmax(s, dim=-1).to(dt).float()
     o = (p @ qkv[2]).to(dt).float()  # (Bw, nH, N, dh)
@@ -58,21 +64,68 @@ def window_attention_plain(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_head
     return window_reverse(y, WS, h, w), pooled
 
 
-@lru_cache(maxsize=1)
-def _entry():
+def _window_mask(h, w, shift, device):
+    """(nW, 64, 64) additive {0, -100} mask of the rolled frame."""
+    lab = window_partition(region_labels(h, w, shift, device)[None, :, :, None], WS)[..., 0]
+    return torch.where(lab[:, :, None] != lab[:, None, :], -100.0, 0.0)
+
+
+def window_attention_bwd_plain(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift,
+                               eps, dout, dpool):
+    """Explicit VJP of :func:`window_attention_plain` at cotangents (dout in
+    the rolled frame, dpool): returns (dx, d ln_w, d ln_b, d wqkv, d bqkv,
+    d rel_bias, d wp, d bp), weight cotangents float32."""
+    b, h, w, c = x.shape
+    dt = x.dtype
+    dh = c // num_heads
+    scale = dh ** -0.5
+    xr = roll_hw(x, -shift, -shift) if shift else x
+    xhat, rstd = ln_stats(xr, eps)
+    xn = window_partition(layer_norm(xr, ln_w, ln_b, eps), WS).float()  # (Bw, 64, C)
+    wq = wqkv.to(dt).float()
+    qkv = (xn @ wq.t() + bqkv.float()).to(dt).float()
+    bw, n = qkv.shape[:2]
+    q, k, v = qkv.reshape(bw, n, 3, num_heads, dh).permute(2, 0, 3, 1, 4)  # (Bw, nH, N, dh)
+    s = (q @ k.transpose(-1, -2)) * scale + rel_bias.float()[None]
+    if shift:
+        mask = _window_mask(h, w, shift, x.device)
+        s = (s.reshape(b, -1, num_heads, n, n) + mask[None, :, None]).reshape(bw, num_heads, n, n)
+    a = torch.softmax(s, dim=-1)
+    ar = a.to(dt).float()
+    o = (ar @ v).to(dt).float().permute(0, 2, 1, 3).reshape(bw, n, c)
+    dyt = window_partition(dout.float(), WS) + dpool.float().reshape(bw, 1, c) / n
+    dbp = dyt.sum(dim=(0, 1))
+    dy2 = dyt.to(dt).float()
+    dwp = dy2.reshape(-1, c).t() @ o.reshape(-1, c)
+    do = (dy2 @ wp.to(dt).float()).to(dt).float()
+    do = do.reshape(bw, n, num_heads, dh).permute(0, 2, 1, 3)
+    da = do @ v.transpose(-1, -2)
+    ds = a * (da - (a * da).sum(dim=-1, keepdim=True))
+    dbias = ds.sum(dim=0)
+    dsr = ds.to(dt).float()
+    dq = dsr @ k * scale
+    dk = dsr.transpose(-1, -2) @ q * scale
+    dv = ar.transpose(-1, -2) @ do
+    dqkv = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(bw, n, 3 * c).to(dt).float()
+    dbqkv = dqkv.sum(dim=(0, 1))
+    dwqkv = dqkv.reshape(-1, 3 * c).t() @ xn.reshape(-1, c)
+    dxn = window_reverse(dqkv @ wq, WS, h, w)
+    dxr, dlnw, dlnb = ln_bwd_plain(dxn, xhat, rstd, ln_w)
+    dx = roll_hw(dxr, shift, shift) if shift else dxr
+    return dx.to(dt), dlnw, dlnb, dwqkv, dbqkv, dbias, dwp, dbp
+
+
+@lru_cache(maxsize=None)
+def _entry(bwd: bool = False):
     import ctypes
 
+    if bwd:
+        return _build.entry("mp_window_attention_bwd", 16, [ctypes.c_int] * 7 + [ctypes.c_float])
     return _build.entry("mp_window_attention", 11,
                         [ctypes.c_int] * 7 + [ctypes.c_float])
 
 
-def window_attention(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads: int,
-                     shift: int = 0, eps: float = 1e-5):
-    """Same contract as :func:`window_attention_plain`; launches the CUDA
-    kernel on a CUDA tensor."""
-    if not ROUTE.use_kernel(x):
-        return window_attention_plain(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp,
-                                      num_heads, shift, eps)
+def _launch(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, eps):
     b, h, w, c = x.shape
     if h % WS or w % WS or c % num_heads:
         raise ValueError(f"window attention needs H, W % 8 == 0 and C % heads == 0, got {x.shape}")
@@ -91,6 +144,69 @@ def window_attention(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads: int
     _build.check("mp_window_attention", err)
     COUNTER.record(("window_attention", b, h, w, c, num_heads, shift, str(dt)))
     return out, pooled
+
+
+def _bwd_launch(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, eps, dout, dpool):
+    b, h, w, c = x.shape
+    dt = x.dtype
+    x = x.contiguous()
+    dout, dpool = dout.to(dt).contiguous(), dpool.to(dt).contiguous()
+    wq, wpk = kernel_weight(wqkv, dt), kernel_weight(wp, dt)
+    lnw, lnb, bq, bias = f32(ln_w), f32(ln_b), f32(bqkv), f32(rel_bias)
+    labels = region_labels(h, w, shift, x.device) if shift else None
+    dev = x.device
+    n_win = b * (h // WS) * (w // WS)
+    xn, o, dyt = (torch.empty_like(x) for _ in range(3))
+    dqkv = torch.empty((b, h, w, 3 * c), dtype=dt, device=dev)
+    pbias = torch.empty((n_win, num_heads * 64 * 64), dtype=torch.float32, device=dev)
+    pbp = torch.empty((n_win, c), dtype=torch.float32, device=dev)
+    p = _build.ptr
+    err = _entry(True)(x.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), wq.data_ptr(), bq.data_ptr(),
+                       bias.data_ptr(), p(labels), wpk.data_ptr(), dout.data_ptr(),
+                       dpool.data_ptr(), xn.data_ptr(), o.data_ptr(), dyt.data_ptr(),
+                       dqkv.data_ptr(), pbias.data_ptr(), pbp.data_ptr(), dtype_code(x), b, h, w,
+                       c, num_heads, shift, eps, stream_ptr())
+    _build.check("mp_window_attention_bwd", err)
+    dx, (dlnw, dlnb), dbqkv = ln_linear_bwd(dqkv, wq, 0, x, ln_w, shift=shift, eps=eps, bias=True)
+    dwqkv = wgrad(xn.reshape(-1, c), dqkv.reshape(-1, 3 * c)).t()
+    dwp = wgrad(o.reshape(-1, c), dyt.reshape(-1, c)).t()
+    dbias = sum_parts(pbias.unsqueeze(0))[0].reshape(num_heads, 64, 64)
+    dbp = sum_parts(pbp.unsqueeze(0))[0]
+    BWD.record(("window_attention_bwd", b, h, w, c, num_heads, shift, str(dt)))
+    return dx, dlnw, dlnb, dwqkv, dbqkv, dbias, dwp, dbp
+
+
+class _WindowAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, cfg):
+        ctx.kernel = ROUTE.use_kernel(x)
+        out = (_launch if ctx.kernel else window_attention_plain)(
+            x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, *cfg)
+        ctx.cfg = cfg
+        ctx.save_for_backward(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout, dpool):
+        saved = ctx.saved_tensors
+        x = saved[0]
+        b, h, w, c = x.shape
+        dout = grad_or_zeros(dout, x)
+        dpool = grad_or_zeros(dpool, x.new_empty((b, h // WS, w // WS, c)))
+        if ctx.kernel:
+            fn = _bwd_launch
+        else:
+            ROUTE.count_plain_backward(x)
+            fn = window_attention_bwd_plain
+        return (*fn(*saved, *ctx.cfg, dout, dpool), None)
+
+
+def window_attention(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads: int,
+                     shift: int = 0, eps: float = 1e-5):
+    """Same contract as :func:`window_attention_plain`, differentiable;
+    launches the CUDA kernels on a CUDA tensor."""
+    return _WindowAttention.apply(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp,
+                                  (num_heads, shift, eps))
 
 
 def relative_position_index(ws: int = WS) -> np.ndarray:

@@ -1,0 +1,99 @@
+"""Single-device train step (counterpart of ``make_train_step`` on a
+one-device mesh, ``mp_hsir_tpu/training/trainer.py:75-138``).
+
+One step: the model's training route (bf16 compute from the config,
+float32 parameters and gradients, per-sample drop-path from a
+``torch.Generator``), L1 on the clamped output (reference train.py:50-67),
+backward through the kernels' backward launches, then AdamW (0.9, 0.999,
+eps 1e-8, decoupled weight decay) at the linear-warmup cosine learning rate.
+With ``grad_accum`` = k the gradients of k micro-steps are averaged and the
+optimizer updates on every k-th, as ``optax.MultiSteps`` does; the schedule
+runs in optimizer updates (``trainer.py:55``). The mesh routes are later work.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from mp_hsir_tpu_torch import resolve_device
+from mp_hsir_tpu_torch.config import ModelConfig, TrainConfig
+from mp_hsir_tpu_torch.models.mp_hsir import MPHSIRNet, build_model
+from mp_hsir_tpu_torch.training import losses
+from mp_hsir_tpu_torch.training.schedules import linear_warmup_cosine_annealing
+
+
+@dataclasses.dataclass
+class TrainState:
+    """``step`` counts train steps (micro-steps), as JAX's ``TrainState.step``;
+    ``updates`` counts optimizer updates, the schedule's argument."""
+
+    model: MPHSIRNet
+    optimizer: torch.optim.AdamW
+    schedule: object
+    grad_accum: int
+    step: int = 0
+    updates: int = 0
+    last_lr: float = 0.0
+
+
+def make_schedule(tc: TrainConfig):
+    """The per-update learning rate: optax evaluates the schedule at the
+    update count before it increments, so update n (from 0) takes
+    ``schedule(n)``; under grad accumulation the epoch is counted in
+    updates (``trainer.py:55``)."""
+    updates_per_epoch = max(tc.steps_per_epoch // max(tc.grad_accum, 1), 1)
+    return linear_warmup_cosine_annealing(
+        base_lr=tc.lr, warmup_epochs=int(tc.warmup_frac * tc.epochs), max_epochs=tc.epochs,
+        steps_per_epoch=updates_per_epoch, eta_min=tc.eta_min)
+
+
+def make_optimizer(params, tc: TrainConfig) -> torch.optim.AdamW:
+    """AdamW as ``optax.adamw(sched, 0.9, 0.999, 1e-8, wd)``: the rate is set
+    per update by :func:`train_step`; decoupled decay on every parameter."""
+    return torch.optim.AdamW(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=tc.weight_decay)
+
+
+def create_train_state(cfg: ModelConfig, tc: TrainConfig, seed: int | None = None,
+                       device: str | torch.device = "cuda", model: MPHSIRNet | None = None
+                       ) -> TrainState:
+    """A training-mode model (weights from ``torch.manual_seed(seed)``, or the
+    given ``model``), its optimizer and schedule; the model computes in
+    ``cfg.compute_dtype``. ``device`` defaults to the card and raises
+    without one."""
+    dev = resolve_device(device)
+    if model is None:
+        torch.manual_seed(tc.seed if seed is None else seed)
+        model = build_model(cfg, dev, train=True)
+    else:
+        model.cfg = cfg
+        model.to(dev).train()
+    opt = make_optimizer(model.parameters(), tc)
+    return TrainState(model, opt, make_schedule(tc), max(tc.grad_accum, 1))
+
+
+def train_step(state: TrainState, batch: dict, generator: torch.Generator | None = None
+               ) -> torch.Tensor:
+    """One micro-step on ``batch`` (``degraded``, ``clean`` (B, C, H, W)
+    float32, ``task_id`` (B,)); returns the loss (a 0-dim tensor on the
+    model's device, not synchronised). Updates on every ``grad_accum``-th
+    call."""
+    model = state.model
+    pred = model(batch["degraded"], batch["task_id"], generator)
+    loss = losses.l1_clamped(pred, batch["clean"])
+    loss.backward()
+    state.step += 1
+    if state.step % state.grad_accum == 0:
+        if state.grad_accum > 1:
+            for p in model.parameters():
+                if p.grad is not None:
+                    p.grad.div_(state.grad_accum)
+        state.last_lr = float(state.schedule(state.updates))
+        for group in state.optimizer.param_groups:
+            group["lr"] = state.last_lr
+        state.optimizer.step()
+        state.optimizer.zero_grad(set_to_none=True)
+        state.updates += 1
+    return loss.detach()

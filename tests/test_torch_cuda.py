@@ -175,3 +175,162 @@ def test_cuda_tiny_model_bf16_matches_plain_on_card():
     err = (got - ref).abs().max().item()
     assert torch.isfinite(got).all()
     assert err <= 3e-2 * ref.abs().max().item(), err
+
+
+# ---------------------------------------------------------------------------
+# training route: every wrapper's forward and backward kernels against the
+# plain forward and explicit plain backward, same inputs and cotangents
+# ---------------------------------------------------------------------------
+
+def _vjp(fn, tensors, kw, cots=None):
+    ts = [t.detach().clone().requires_grad_(True) for t in tensors]
+    outs = fn(*ts, **kw)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    if cots is None:
+        g = torch.Generator(device=outs[0].device).manual_seed(0)
+        cots = [torch.randn(o.shape, generator=g, device=o.device).to(o.dtype) for o in outs]
+    loss = sum((o.float() * c.float()).sum() for o, c in zip(outs, cots))
+    return list(outs) + list(torch.autograd.grad(loss, ts)), cots
+
+
+def _check_vjp(fn, tensors, kw, tol):
+    got, cots = _vjp(fn, tensors, kw)
+    with _route.plain_reference():
+        ref, _ = _vjp(fn, tensors, kw, cots)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert a.shape == b.shape and a.dtype == b.dtype, (i, a.shape, b.shape)
+        assert torch.isfinite(a.float()).all(), i
+        err = (a.float() - b.float()).abs().max().item()
+        scale = b.float().abs().max().item()
+        assert err <= tol * scale, f"output/grad {i}: {err:.3e} > {tol} * {scale:.3e}"
+
+
+def _train_cases(dev, dt):
+    """(name, fn, tensors, kwargs) at a tiny and a flagship width."""
+    from mp_hsir_tpu_torch.ops.kernels.mlp import mlp
+
+    r = _rng(30)
+    f = lambda *s, scale=1.0: _t(_n(r, s, scale)).to(dev)  # noqa: E731
+    act = lambda *s: f(*s).to(dt)  # noqa: E731
+    cases = []
+    for b, hw, c, hid, heads in ((2, 16, 16, 42, 2), (2, 16, 256, 680, 8)):
+        dp = torch.tensor([1.25, 0.0], device=dev)
+        cases.append(("mlp", lambda *a: mlp(*a[:7], residual=True, dp_scale=a[7]),
+                      [act(b, hw, hw, c), 1 + f(c, scale=0.1), f(c, scale=0.1),
+                       f(2 * hid, c, scale=c ** -0.5), f(2 * hid, scale=0.1),
+                       f(c, hid, scale=hid ** -0.5), f(c, scale=0.1), dp], {}))
+        for shift in (0, 4):
+            cases.append((f"window{shift}", window_attention,
+                          [act(b, hw, hw, c), 1 + f(c, scale=0.1), f(c, scale=0.1),
+                           f(3 * c, c, scale=c ** -0.5), f(3 * c, scale=0.1),
+                           f(heads, 64, 64, scale=0.02), f(c, c, scale=c ** -0.5), f(c, scale=0.1)],
+                          dict(num_heads=heads, shift=shift)))
+            wq, wd = f(3 * c, c, 1, 1, scale=c ** -0.5), f(3 * c, 1, 3, 3, scale=1 / 3)
+
+            def pgsstb_spectral(x, wq, wd, temp, wout, gate, short, dp, shift=shift, heads=heads):
+                comb = spectral_fold(*spectral_stats(x, wq, wd, heads, shift=shift), temp, wout)
+                return spectral_apply(x, comb, wq, wd, shift=shift, gate=gate, shortcut=short,
+                                      dp_scale=dp)
+
+            cases.append((f"spectral{shift}", pgsstb_spectral,
+                          [act(b, hw, hw, c), wq, wd, 1 + f(heads, 1, 1, scale=0.2),
+                           f(c, c, 1, 1, scale=c ** -0.5), act(b, hw // 8, hw // 8, c),
+                           act(b, hw, hw, c), dp], {}))
+
+        def tb_spectral(x, wq, wd, temp, wout, lw, lb, heads=heads):
+            comb = spectral_fold(*spectral_stats(x, wq, wd, heads, ln_w=lw, ln_b=lb), temp, wout)
+            return spectral_apply(x, comb, wq, wd, ln_w=lw, ln_b=lb, residual=True)
+
+        cases.append(("spectral_ln", tb_spectral,
+                      [act(b, hw, hw, c), f(3 * c, c, 1, 1, scale=c ** -0.5),
+                       f(3 * c, 1, 3, 3, scale=1 / 3), 1 + f(heads, 1, 1, scale=0.2),
+                       f(c, c, 1, 1, scale=c ** -0.5), 1 + f(c, scale=0.1), f(c, scale=0.1)], {}))
+        cases.append(("gdfn", gdfn, [act(b, hw, hw, c), 1 + f(c, scale=0.1), f(c, scale=0.1),
+                                     f(2 * hid, c, 1, 1, scale=c ** -0.5),
+                                     f(2 * hid, 1, 3, 3, scale=1 / 3),
+                                     f(c, hid, 1, 1, scale=hid ** -0.5)], dict(residual=True)))
+    for mode, cin, cout in (("plain", 31, 64), ("down", 64, 32), ("up", 256, 512), ("res", 128, 31)):
+        ts = [act(2, 16, 16, cin), f(cout, cin, 3, 3, scale=(9 * cin) ** -0.5)]
+        kw = dict(mode=mode)
+        if mode == "res":
+            kw["res"] = f(2, 16, 16, cout)
+        cases.append((f"conv3_{mode}", conv3, ts, kw))
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 3e-2)])
+def test_cuda_train_route_kernels_match_plain(dtype, tol):
+    """Forward and backward kernels of every training-route wrapper at a tiny
+    and a flagship width: float32 within 1e-4 and bf16 within 3e-2 of each
+    output's and gradient's max-abs (as chip_smoke.py)."""
+    dev = _cuda()
+    faults = []
+    for name, fn, ts, kw in _train_cases(dev, getattr(torch, dtype)):
+        try:
+            _check_vjp(fn, ts, kw, tol)
+        except AssertionError as e:
+            faults.append(f"{name} {tuple(ts[0].shape)}: {e}")
+    assert not faults, "\n".join(faults)
+
+
+def _tiny_train(dev, seed=0):
+    from mp_hsir_tpu_torch.config import ModelConfig
+    from mp_hsir_tpu_torch.models.mp_hsir import build_model
+
+    cfg = ModelConfig(in_channels=5, out_channels=5, dim=16, num_blocks=(1, 1, 1),
+                      num_refinement_blocks=1, heads=(2, 2, 2), drop_path_max=0.0)
+    torch.manual_seed(seed)
+    return build_model(cfg, device=dev, train=True)
+
+
+@pytest.mark.cuda
+def test_cuda_tiny_train_step_matches_cpu_plain():
+    """One train step of the tiny model on the card (float32 kernels, forward
+    and backward) against the same step on the CPU plain path: the loss,
+    every parameter gradient and the updated parameters."""
+    from mp_hsir_tpu_torch.config import TrainConfig
+    from mp_hsir_tpu_torch.training.trainer import create_train_state, train_step
+
+    dev = _cuda()
+    cpu = _tiny_train("cpu")
+    card = _tiny_train(dev)
+    card.load_state_dict(cpu.state_dict())
+    tc = TrainConfig(epochs=4, steps_per_epoch=1, warmup_frac=0.25, lr=1e-4)
+    r = _rng(31)
+    clean = torch.from_numpy(r.random((2, 5, 32, 32)).astype(np.float32))
+    batch = dict(degraded=(clean + 0.1 * torch.from_numpy(_n(r, (2, 5, 32, 32)))).clamp(0, 1),
+                 clean=clean, task_id=torch.tensor([0, 3]))
+    states = [create_train_state(m.cfg, tc, device=d, model=m) for m, d in ((cpu, "cpu"), (card, dev))]
+    losses = []
+    for st, d in zip(states, ("cpu", dev)):
+        st.grad_accum = 2  # keep the gradients: no update on this first micro-step
+        losses.append(train_step(st, {k: v.to(d) for k, v in batch.items()}).item())
+    assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[0])
+    for (k, p), q in zip(cpu.named_parameters(), card.parameters()):
+        err = (q.grad.cpu() - p.grad).abs().max().item()
+        assert err <= 1e-3 * p.grad.abs().max().item() + 1e-9, k
+    for st in states:
+        for group in st.optimizer.param_groups:
+            group["lr"] = tc.lr
+        st.optimizer.step()
+    for (k, p), q in zip(cpu.named_parameters(), card.parameters()):
+        torch.testing.assert_close(q.detach().cpu(), p.detach(), atol=2e-5, rtol=0, msg=k)
+
+
+@pytest.mark.cuda
+def test_cuda_forward_with_grad_reaches_every_parameter():
+    """The fault the autograd Functions repair: a forward on the card with
+    gradients enabled (training route) gives every parameter a finite
+    gradient, and no plain version runs on the card."""
+    dev = _cuda()
+    model = _tiny_train(dev, seed=3)
+    x = torch.from_numpy(_rng(32).random((2, 5, 32, 32)).astype(np.float32)).to(dev)
+    _route.reset_counters()
+    model(x, torch.tensor([1, 2], device=dev)).square().mean().backward()
+    assert _route.ROUTE.plain_cuda_calls == 0
+    for k, p in model.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), k
+    for name in ("window_attention_bwd", "spectral_stats_bwd", "spectral_apply_bwd", "mlp_bwd",
+                 "gdfn_bwd"):
+        assert _route.COUNTERS[name].launches > 0, name
