@@ -7,9 +7,10 @@ stdout lines of ``mp_hsir_tpu/cli/test_cli.py``'s synchronous loop:
     Denoise sigma=70: sam: x.xxx deg, net time: x.xxx s/cube
 
 Run: ``python -m mp_hsir_tpu_torch.cli.test_cli --mode 0 --test_dir DIR
---ckpt_path assets/trained/natural_12k_f16.npz``. It runs on the card unless
-``--device cpu`` is given. The other modes, ``--pipeline``, ``--auto_task``
-and the remote-sensing preset are not ported yet.
+--ckpt_path assets/trained/natural_12k_f16.npz``; ``--data_type
+remote_sensing`` selects the 100-band preset (as the JAX CLI's flag does). It
+runs on the card unless ``--device cpu`` is given. The other modes,
+``--pipeline`` and ``--auto_task`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,12 +24,15 @@ import torch
 
 from mp_hsir_tpu_torch import resolve_device
 from mp_hsir_tpu_torch.checkpoint import load_params_npz
-from mp_hsir_tpu_torch.config import EvalConfig, ModelConfig, natural_scene_config
+from mp_hsir_tpu_torch.config import (
+    EvalConfig, ModelConfig, natural_scene_config, remote_sensing_config,
+)
 from mp_hsir_tpu_torch.data.eval_datasets import GaussianDenoiseDataset, save_false_color
 from mp_hsir_tpu_torch.models.mp_hsir import build_model
 from mp_hsir_tpu_torch.ops.metrics import AverageMeter, compute_psnr_ssim, compute_sam
 
 MODE_TASK_ID = {0: 0}
+PRESETS = {"natural_scene": natural_scene_config, "remote_sensing": remote_sensing_config}
 
 
 def load_model(ckpt_path: str, model_cfg: ModelConfig, device="cuda"):
@@ -51,10 +55,13 @@ def run_mode(cfg: EvalConfig, model_cfg: ModelConfig, model=None, device="cuda")
     completion on the device, metrics on the device."""
     if cfg.mode not in MODE_TASK_ID:
         raise SystemExit(f"mode {cfg.mode} is not ported yet (only mode 0)")
+    task_id = MODE_TASK_ID[cfg.mode]
+    if task_id >= model_cfg.task_classes:
+        raise SystemExit(f"task id {task_id} out of range for {model_cfg.task_classes} classes")
     device = resolve_device(device)
     if model is None:
         model = load_model(cfg.ckpt_path, model_cfg, device)
-    tid = torch.tensor([MODE_TASK_ID[cfg.mode]], device=device)
+    tid = torch.tensor([task_id], device=device)
     dataset = GaussianDenoiseDataset(cfg.test_dir, cfg.gaussian_noise_sigma, cfg.seed)
     out_dir = os.path.join(cfg.output_path, "gaussian_denoise")
     psnr, ssim, sam = AverageMeter(), AverageMeter(), AverageMeter()
@@ -99,6 +106,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--select_bands", type=int, nargs="+", default=[27, 15, 9])
     p.add_argument("--output_path", type=str, default="output/")
     p.add_argument("--ckpt_path", type=str, default="")
+    p.add_argument("--data_type", type=str, default="natural_scene", choices=sorted(PRESETS))
     p.add_argument("--no_save_images", action="store_true")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     return p
@@ -110,7 +118,7 @@ def main(argv=None) -> None:
                      gaussian_noise_sigma=args.gaussian_noise_sigma,
                      select_bands=tuple(args.select_bands), output_path=args.output_path,
                      ckpt_path=args.ckpt_path, save_images=not args.no_save_images)
-    model_cfg = natural_scene_config()
+    model_cfg = PRESETS[args.data_type]()
     print(f"Start gaussian denoise testing sigma={cfg.gaussian_noise_sigma}")
     run_mode(cfg, model_cfg, device=args.device)
 

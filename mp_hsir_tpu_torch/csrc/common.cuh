@@ -12,6 +12,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <initializer_list>
 #include <type_traits>
 
 namespace mp {
@@ -207,6 +208,66 @@ __device__ __forceinline__ void ln_rows_inplace(float* s, int ld, int rows, int 
   }
 }
 
+// Channel-chunked staging (the plans that fit C = 384 and dh = 96 in 227 KB).
+// A kernel whose input is too wide to stage whole keeps only each pixel's
+// LayerNorm mean and rstd in shared memory and streams the input of every 1x1
+// product in chunks of kc channels from L2, normalising as they arrive. The
+// statistics are computed exactly as ln_rows_inplace computes them (the same
+// lane-strided sums), so a chunk holds the values that kernel would hold.
+//
+// ln_stats_rows: mu / rs of `rows` pixels, channel k of pixel i read as
+// at(i, k); one warp per pixel. Pixels with valid(i) false get 0 / 0.
+template <typename At, typename Valid>
+__device__ __forceinline__ void ln_stats_rows(float* mu, float* rs, int rows, int C, float eps,
+                                              At at, Valid valid) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int i = warp; i < rows; i += blockDim.x >> 5) {
+    float m = 0.f, r = 0.f;
+    if (valid(i)) {
+      float sum = 0.f;
+      for (int k = lane; k < C; k += 32) sum += at(i, k);
+      m = warp_sum(sum) / C;
+      float var = 0.f;
+      for (int k = lane; k < C; k += 32) {
+        const float d = at(i, k) - m;
+        var += d * d;
+      }
+      r = rsqrtf(warp_sum(var) / C + eps);
+    }
+    if (lane == 0) {
+      mu[i] = m;
+      rs[i] = r;
+    }
+  }
+}
+
+// s[i][j] ([rows][ld]) = channel c0 + j (j < nc) of pixel i, normalised with
+// (mu, rs, lnw, lnb) and rounded to T when lnw != nullptr, raw otherwise;
+// zero where valid(i) is false (the out-of-image halo is zero after the LN).
+template <typename T, typename At, typename Valid>
+__device__ __forceinline__ void load_chunk(float* s, int ld, int rows, int c0, int nc, At at,
+                                           Valid valid, const float* mu, const float* rs,
+                                           const float* __restrict__ lnw,
+                                           const float* __restrict__ lnb) {
+  for (int idx = threadIdx.x; idx < rows * nc; idx += blockDim.x) {
+    const int i = idx / nc, j = idx - i * nc, k = c0 + j;
+    float v = 0.f;
+    if (valid(i)) {
+      v = at(i, k);
+      if (lnw != nullptr) v = rnd<T>((v - mu[i]) * rs[i] * lnw[k] + lnb[k]);
+    }
+    s[i * ld + j] = v;
+  }
+}
+
+// Epilogue of one K-chunk of a chunked product: the float32 sum of the chunks
+// so far lives in acc; the last chunk hands the total to finish (which rounds).
+template <typename Fin>
+__device__ __forceinline__ void chunk_acc(float& acc, float part, bool first, bool last, Fin finish) {
+  const float v = first ? part : acc + part;
+  acc = last ? finish(v) : v;
+}
+
 // One 8x8 tile of a 3x3 depthwise conv with zero padding: src holds the
 // 10x10 halo ([kHaloPix][lds]) of `nc` channels, dst gets [kPix][ldd];
 // tap weight of channel j at tap t is wtap(t, j). epi(p, j, acc) stores.
@@ -230,7 +291,7 @@ __device__ __forceinline__ void dwconv3_tile(const float* src, int lds, int nc, 
 // or, with branch_only, y[p][o] = fc2(a * gelu(g)) + b2 (the standalone MLP
 // kernel, which adds its residual and drop-path scale itself). y ([kPix][ldy],
 // float32 values already rounded to T) is updated in place; yn ([kPix][ldy])
-// and hb ([kPix][2*kHC+1]) are scratch.
+// and hb ([kPix][2*khc+1]) are scratch; khc is the hidden chunk.
 constexpr int kHC = 64;  // hidden chunk (apply smem at C = 256: 210 KB of 227)
 
 template <typename T>
@@ -241,8 +302,8 @@ __device__ __forceinline__ void mlp_tail_tile(float* y, float* yn, int ldy, floa
                                               const float* __restrict__ b1,
                                               const T* __restrict__ w2,
                                               const float* __restrict__ b2, float eps,
-                                              bool branch_only = false) {
-  const int ldh = 2 * kHC + 1;
+                                              bool branch_only = false, int khc = kHC) {
+  const int ldh = 2 * khc + 1;
   for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
     const int p = idx / C, k = idx - p * C;
     yn[p * ldy + k] = y[p * ldy + k];
@@ -254,8 +315,8 @@ __device__ __forceinline__ void mlp_tail_tile(float* y, float* yn, int ldy, floa
     y[p * ldy + k] = branch_only ? b2[k] : y[p * ldy + k] + b2[k];
   }
   __syncthreads();
-  for (int j0 = 0; j0 < hid; j0 += kHC) {
-    const int hc = min(kHC, hid - j0);
+  for (int j0 = 0; j0 < hid; j0 += khc) {
+    const int hc = min(khc, hid - j0);
     // column j < hc: a-half hidden unit j0 + j; j >= hc: g-half
     gemm<T>(kPix, 2 * hc, C,
         [&](int i, int k) { return yn[i * ldy + k]; },
@@ -265,12 +326,12 @@ __device__ __forceinline__ void mlp_tail_tile(float* y, float* yn, int ldy, floa
         },
         [&](int i, int j, float acc) {
           const int col = j < hc ? j0 + j : hid + j0 + (j - hc);
-          hb[i * ldh + (j < hc ? j : kHC + j - hc)] = acc + b1[col];
+          hb[i * ldh + (j < hc ? j : khc + j - hc)] = acc + b1[col];
         });
     __syncthreads();
     for (int idx = threadIdx.x; idx < kPix * hc; idx += blockDim.x) {
       const int p = idx / hc, j = idx - p * hc;
-      hb[p * ldh + j] = rnd<T>(hb[p * ldh + j] * gelu_erf(hb[p * ldh + kHC + j]));
+      hb[p * ldh + j] = rnd<T>(hb[p * ldh + j] * gelu_erf(hb[p * ldh + khc + j]));
     }
     __syncthreads();
     gemm<T>(kPix, C, hc,
@@ -286,6 +347,29 @@ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 template <typename K>
 inline cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// Shared memory a block of the current device may opt into (bytes; 232,448
+// on an H100), read from the device (defined in spectral.cu).
+int smem_optin();
+
+// A launch plan's shared memory per block: `dyn` dynamic bytes plus the
+// kernel's static shared memory.
+template <typename K>
+inline long long plan_bytes(K kernel, size_t dyn) {
+  cudaFuncAttributes a{};
+  if (cudaFuncGetAttributes(&a, kernel) != cudaSuccess) return -1;
+  return (long long)(dyn + a.sharedSizeBytes);
+}
+
+// The channel chunk of a staged kernel: C (the whole input resident, staged
+// once, the plan of the natural-scene widths) where that plan fits the
+// device, else 64 (whether or not that fits: the wrapper's plan check then
+// raises before the launch). bytes(kc) is the plan. The wrappers ask once per
+// shape (mp_<kernel>_chunk) and pass the chunk to every launch.
+template <typename F>
+inline int pick_chunk(int C, F bytes) {
+  return C <= 64 || bytes(C) <= smem_optin() ? C : 64;
 }
 
 // out[b][i] = sum over p (in order) of part[b][p][i], i < n: the second pass

@@ -100,10 +100,12 @@ conv3_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __re
   }
 }
 
+inline size_t conv3_smem(int Cin) { return sizeof(float) * (size_t)kHaloPix * (Cin + 1); }
+
 template <typename T>
 cudaError_t launch_conv3(const void* x, const void* w, const float* res, void* out, int B,
                          int H, int W, int Cin, int Cout, int mode, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)kHaloPix * (Cin + 1);
+  const size_t smem = conv3_smem(Cin);
   cudaError_t err = set_smem(conv3_kernel<T>, smem);
   if (err != cudaSuccess) return err;
   conv3_kernel<T><<<dim3(W / kTile, H / kTile, B), kConvThreads, smem, stream>>>(
@@ -126,4 +128,9 @@ extern "C" int mp_conv3(const void* x, const void* w, const void* res, void* out
     return (int)mp::launch_conv3<float>(x, w, (const float*)res, out, B, H, W, Cin, Cout, mode, st);
   return (int)mp::launch_conv3<__nv_bfloat16>(x, w, (const float*)res, out, B, H, W, Cin, Cout,
                                               mode, st);
+}
+
+// Shared-memory plan per block (bytes, static included).
+extern "C" long long mp_conv3_smem(int Cin) {
+  return mp::plan_bytes(mp::conv3_kernel<float>, mp::conv3_smem(Cin));
 }

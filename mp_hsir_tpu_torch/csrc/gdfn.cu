@@ -20,49 +20,65 @@ namespace mp {
 
 constexpr int kGC = 32;  // hidden chunk
 
+// Shared memory: the LN'd halo is staged in channel chunks of kc (all C at
+// once where that fits: every natural-scene width; 64 at C = 384, where the
+// whole halo makes the plan 280 KB).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 gdfn_kernel(const T* __restrict__ x, const float* __restrict__ lnw, const float* __restrict__ lnb,
             const T* __restrict__ win, const T* __restrict__ wdw, const T* __restrict__ wout,
             const T* __restrict__ wproj, int Co, int residual, T* __restrict__ out, int H, int W,
-            int C, int hid, float eps) {
+            int C, int hid, float eps, int kc) {
   extern __shared__ float sm[];
-  const int ldx = C + 1, ldt = 2 * kGC + 1, ldg = kGC + 1;
-  float* xs = sm;                    // [100][ldx] LN(x) halo
-  float* ts = xs + kHaloPix * ldx;   // [100][ldt] project_in chunk: x1 | x2
+  __shared__ float mu[kHaloPix], rs[kHaloPix];
+  const int ldc = kc + 1, ldx = C + 1, ldt = 2 * kGC + 1, ldg = kGC + 1;
+  float* xc = sm;                    // [100][ldc] LN(x) halo chunk
+  float* ts = xc + kHaloPix * ldc;   // [100][ldt] project_in chunk: x1 | x2
   float* gs = ts + kHaloPix * ldt;   // [64][ldg] gelu(x1) * x2
   float* acc = gs + kPix * ldg;      // [64][ldx] project_out accumulator
   const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
   const int H2 = 2 * hid;
+  const bool resident = kc >= C;
 
   auto inside = [&](int p) {
     const int r = ty * kTile + p / kHalo - 1, c = tx * kTile + p % kHalo - 1;
     return r >= 0 && r < H && c >= 0 && c < W;
   };
-  for (int idx = threadIdx.x; idx < kHaloPix * C; idx += blockDim.x) {
-    const int p = idx / C, k = idx - p * C;
+  auto at = [&](int p, int k) {
     const int r = ty * kTile + p / kHalo - 1, c = tx * kTile + p % kHalo - 1;
-    xs[p * ldx + k] = inside(p) ? to_f(x[(((size_t)b * H + r) * W + c) * C + k]) : 0.f;
-  }
+    return to_f(x[(((size_t)b * H + r) * W + c) * C + k]);
+  };
   for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
     const int p = idx / C, k = idx - p * C;
     acc[p * ldx + k] = 0.f;
   }
+  ln_stats_rows(mu, rs, kHaloPix, C, eps, at, inside);
   __syncthreads();
-  ln_rows_inplace<T>(xs, ldx, kHaloPix, C, lnw, lnb, eps, inside);
-  __syncthreads();
+  if (resident) {
+    load_chunk<T>(xc, ldc, kHaloPix, 0, C, at, inside, mu, rs, lnw, lnb);
+    __syncthreads();
+  }
 
   for (int j0 = 0; j0 < hid; j0 += kGC) {
     const int hc = min(kGC, hid - j0);
     // column j < hc: x1 unit j0 + j; j >= hc: x2 unit hid + j0 + j - hc
-    gemm<T>(kHaloPix, 2 * hc, C,
-        [&](int i, int k) { return xs[i * ldx + k]; },
-        [&](int k, int j) {
-          const int col = j < hc ? j0 + j : hid + j0 + (j - hc);
-          return to_f(win[(size_t)k * H2 + col]);
-        },
-        [&](int i, int j, float a) { ts[i * ldt + (j < hc ? j : kGC + j - hc)] = a; });
-    __syncthreads();
+    auto col = [&](int j) { return j < hc ? j0 + j : hid + j0 + (j - hc); };
+    for (int c0 = 0; c0 < C; c0 += kc) {
+      const int nc = min(kc, C - c0);
+      if (!resident) {
+        load_chunk<T>(xc, ldc, kHaloPix, c0, nc, at, inside, mu, rs, lnw, lnb);
+        __syncthreads();
+      }
+      const bool first = c0 == 0, last = c0 + nc >= C;
+      gemm<T>(kHaloPix, 2 * hc, nc,
+          [&](int i, int k) { return xc[i * ldc + k]; },
+          [&](int k, int j) { return to_f(win[(size_t)(c0 + k) * H2 + col(j)]); },
+          [&](int i, int j, float a) {
+            chunk_acc(ts[i * ldt + (j < hc ? j : kGC + j - hc)], a, first, last,
+                      [](float v) { return v; });
+          });
+      __syncthreads();
+    }
     for (int idx = threadIdx.x; idx < kPix * hc; idx += blockDim.x) {
       const int p = idx / hc, j = idx - p * hc;
       const int pr = p >> 3, pc = p & 7;
@@ -113,18 +129,26 @@ gdfn_kernel(const T* __restrict__ x, const float* __restrict__ lnw, const float*
   }
 }
 
+inline size_t gdfn_smem(int C, int kc) {
+  return sizeof(float) * ((size_t)kHaloPix * (kc + 1) + (size_t)kHaloPix * (2 * kGC + 1) +
+                          (size_t)kPix * (kGC + 1) + (size_t)kPix * (C + 1));
+}
+
+inline int gdfn_chunk(int C) {
+  return pick_chunk(C, [&](int kc) { return plan_bytes(gdfn_kernel<float>, gdfn_smem(C, kc)); });
+}
+
 template <typename T>
 cudaError_t launch_gdfn(const void* x, const float* lnw, const float* lnb, const void* win,
                         const void* wdw, const void* wout, const void* wproj, int Co,
-                        int residual, void* out, int B, int H, int W, int C, int hid, float eps,
-                        cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)kHaloPix * (C + 1) + (size_t)kHaloPix * (2 * kGC + 1) +
-                                       (size_t)kPix * (kGC + 1) + (size_t)kPix * (C + 1));
+                        int residual, void* out, int B, int H, int W, int C, int hid, int kc,
+                        float eps, cudaStream_t stream) {
+  const size_t smem = gdfn_smem(C, kc);
   cudaError_t err = set_smem(gdfn_kernel<T>, smem);
   if (err != cudaSuccess) return err;
   gdfn_kernel<T><<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
       (const T*)x, lnw, lnb, (const T*)win, (const T*)wdw, (const T*)wout, (const T*)wproj, Co,
-      residual, (T*)out, H, W, C, hid, eps);
+      residual, (T*)out, H, W, C, hid, eps, kc);
   return cudaGetLastError();
 }
 
@@ -216,13 +240,17 @@ gdfn_bwd_kernel(const T* __restrict__ x, const float* __restrict__ lnw,
   }
 }
 
+inline size_t gdfn_bwd_smem(int C) {
+  return sizeof(float) * ((size_t)kHaloPix * (C + 1) + (size_t)kHaloPix * (2 * kGC + 1) +
+                          (size_t)kPix * (2 * kGC + 1) + (size_t)kPix * (C + 1));
+}
+
 template <typename T>
 cudaError_t launch_gdfn_bwd(const void* x, const float* lnw, const float* lnb, const void* win,
                             const void* wdw, const void* wout, const void* dy, void* xn, float* t,
                             float* dc, void* gated, int B, int H, int W, int C, int hid,
                             float eps, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)kHaloPix * (C + 1) + (size_t)kHaloPix * (2 * kGC + 1) +
-                                       (size_t)kPix * (2 * kGC + 1) + (size_t)kPix * (C + 1));
+  const size_t smem = gdfn_bwd_smem(C);
   cudaError_t err = set_smem(gdfn_bwd_kernel<T>, smem);
   if (err != cudaSuccess) return err;
   gdfn_bwd_kernel<T><<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
@@ -235,19 +263,33 @@ cudaError_t launch_gdfn_bwd(const void* x, const float* lnw, const float* lnb, c
 
 // x (B, H, W, C); LN float32; win [C][2*hid], wdw [9][2*hid], wout [hid][C],
 // wproj [C][Co] or NULL, all in the compute type. Output (B, H, W, Co), with
-// Co = C when wproj is NULL.
+// Co = C when wproj is NULL. kc: the channel chunk (mp_gdfn_chunk).
 extern "C" int mp_gdfn(const void* x, const void* lnw, const void* lnb, const void* win,
                        const void* wdw, const void* wout, const void* wproj, void* out,
                        int dtype, int B, int H, int W, int C, int hid, int Co, int residual,
-                       float eps, void* stream) {
-  if (H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
+                       int kc, float eps, void* stream) {
+  if (H % mp::kTile != 0 || W % mp::kTile != 0 || kc <= 0 || kc > C)
+    return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   if (dtype == 0)
     return (int)mp::launch_gdfn<float>(x, (const float*)lnw, (const float*)lnb, win, wdw, wout,
-                                       wproj, Co, residual, out, B, H, W, C, hid, eps, st);
+                                       wproj, Co, residual, out, B, H, W, C, hid, kc, eps, st);
   return (int)mp::launch_gdfn<__nv_bfloat16>(x, (const float*)lnw, (const float*)lnb, win, wdw,
                                              wout, wproj, Co, residual, out, B, H, W, C, hid,
-                                             eps, st);
+                                             kc, eps, st);
+}
+
+// The channel chunk the forward kernel launches with at C.
+extern "C" int mp_gdfn_chunk(int C) { return mp::gdfn_chunk(C); }
+
+// Shared-memory plans per block (bytes, static included) at C and channel
+// chunk kc.
+extern "C" long long mp_gdfn_smem(int C, int kc) {
+  return mp::plan_bytes(mp::gdfn_kernel<float>, mp::gdfn_smem(C, kc));
+}
+
+extern "C" long long mp_gdfn_bwd_smem(int C) {
+  return mp::plan_bytes(mp::gdfn_bwd_kernel<float>, mp::gdfn_bwd_smem(C));
 }
 
 // The per-tile half of the GDFN backward (no exit projection). dy (B, H, W,

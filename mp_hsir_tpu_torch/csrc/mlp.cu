@@ -138,12 +138,21 @@ mlp_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float* _
   }
 }
 
+inline size_t mlp_smem(int C) {
+  return sizeof(float) * ((size_t)2 * kPix * (C + 1) + (size_t)kPix * (2 * kHC + 1));
+}
+
+inline size_t mlp_bwd_smem(int C) {
+  return sizeof(float) * ((size_t)2 * kPix * (C + 1) + (size_t)kPix * (2 * kHC + 1) +
+                          (size_t)2 * kPix * (kHC + 1));
+}
+
 template <typename T>
 cudaError_t launch_mlp(const void* x, const float* lnw, const float* lnb, const void* w1,
                        const float* b1, const void* w2, const float* b2, const float* dp,
                        int residual, void* out, int B, int H, int W, int C, int hid, float eps,
                        cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)2 * kPix * (C + 1) + (size_t)kPix * (2 * kHC + 1));
+  const size_t smem = mlp_smem(C);
   cudaError_t err = set_smem(mlp_kernel<T>, smem);
   if (err != cudaSuccess) return err;
   mlp_kernel<T><<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
@@ -158,8 +167,7 @@ cudaError_t launch_mlp_bwd(const void* x, const void* dy, const float* lnw, cons
                            const float* dp, void* xn, void* dh, void* gated, void* dys,
                            float* pb2, float* pdp, int B, int H, int W, int C, int hid, float eps,
                            cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)2 * kPix * (C + 1) + (size_t)kPix * (2 * kHC + 1) +
-                                       (size_t)2 * kPix * (kHC + 1));
+  const size_t smem = mlp_bwd_smem(C);
   cudaError_t err = set_smem(mlp_bwd_kernel<T>, smem);
   if (err != cudaSuccess) return err;
   mlp_bwd_kernel<T><<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
@@ -204,4 +212,13 @@ extern "C" int mp_mlp_bwd(const void* x, const void* dy, const void* lnw, const 
   return (int)mp::launch_mlp_bwd<__nv_bfloat16>(x, dy, f(lnw), f(lnb), w1, f(b1), w2, f(b2),
                                                 f(dp), xn, dh, gated, dys, (float*)pb2,
                                                 (float*)pdp, B, H, W, C, hid, eps, st);
+}
+
+// Shared-memory plans per block (bytes, static included).
+extern "C" long long mp_mlp_smem(int C) {
+  return mp::plan_bytes(mp::mlp_kernel<float>, mp::mlp_smem(C));
+}
+
+extern "C" long long mp_mlp_bwd_smem(int C) {
+  return mp::plan_bytes(mp::mlp_bwd_kernel<float>, mp::mlp_bwd_smem(C));
 }

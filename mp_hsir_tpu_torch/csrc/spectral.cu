@@ -58,47 +58,100 @@ __device__ __forceinline__ void load_halo(float* s, int ld, const T* __restrict_
   }
 }
 
+// The logical input cat(x1, x2) of tile (ty, tx)'s 10x10 halo in the unrolled
+// frame: at(p, k) is channel k of halo pixel p, inside(p) whether it lies in
+// the image (outside, the halo is zero after the optional LayerNorm).
+template <typename T>
+struct Halo {
+  const T* x1;
+  const T* x2;
+  int C1, C2, b, ty, tx, H, W, shift;
+  __device__ __forceinline__ bool inside(int p) const {
+    const int ur = ty * kTile + p / kHalo - 1, uc = tx * kTile + p % kHalo - 1;
+    return ur >= 0 && ur < H && uc >= 0 && uc < W;
+  }
+  __device__ __forceinline__ float at(int p, int k) const {
+    const int ur = ty * kTile + p / kHalo - 1, uc = tx * kTile + p % kHalo - 1;
+    const int sr = (ur - shift + H) % H, sc = (uc - shift + W) % W;
+    const size_t pix = ((size_t)b * H + sr) * W + sc;
+    return k < C1 ? to_f(x1[pix * C1 + k]) : to_f(x2[pix * C2 + (k - C1)]);
+  }
+};
+
+// Stages the halo's channels [c0, c0 + nc) into s ([kHaloPix][ld]), with the
+// LayerNorm from (mu, rs) when lnw != nullptr; mu / rs come from halo_stats.
+template <typename T>
+__device__ __forceinline__ void halo_chunk(float* s, int ld, const Halo<T>& hl, int c0, int nc,
+                                           const float* mu, const float* rs,
+                                           const float* lnw, const float* lnb) {
+  load_chunk<T>(s, ld, kHaloPix, c0, nc, [&](int p, int k) { return hl.at(p, k); },
+                [&](int p) { return hl.inside(p); }, mu, rs, lnw, lnb);
+}
+
+template <typename T>
+__device__ __forceinline__ void halo_stats(float* mu, float* rs, const Halo<T>& hl, float eps) {
+  ln_stats_rows(mu, rs, kHaloPix, hl.C1 + hl.C2, eps, [&](int p, int k) { return hl.at(p, k); },
+                [&](int p) { return hl.inside(p); });
+}
+
+// Shared memory: the halo input is staged in channel chunks of kc (all C at
+// once where that fits: every natural-scene width). Plans at the
+// remote-sensing widths: C = 384, dh 48 and C = 192, dh 96 stage 64 channels.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 spectral_stats_kernel(const T* __restrict__ x1, const T* __restrict__ x2, int C1, int C2,
                       const float* __restrict__ lnw, const float* __restrict__ lnb,
                       const T* __restrict__ wqkv, const T* __restrict__ wdw, int H, int W,
                       int nH, int shift, float eps, int tiles_per_part, float* __restrict__ pg,
-                      float* __restrict__ pnq, float* __restrict__ pnk) {
+                      float* __restrict__ pnq, float* __restrict__ pnk, int kc) {
   extern __shared__ float sm[];
+  __shared__ float mu[kHaloPix], rs[kHaloPix];
   const int C = C1 + C2, C3 = 3 * C, dh = C / nH;
-  const int ldx = C + 1, ldt = 2 * dh + 1;
-  float* xs = sm;                     // [100][ldx] halo input
-  float* ts = xs + kHaloPix * ldx;    // [100][ldt] 1x1 output, q|k of one head
+  const int ldc = kc + 1, ldt = 2 * dh + 1;
+  float* xc = sm;                     // [100][ldc] halo input chunk
+  float* ts = xc + kHaloPix * ldc;    // [100][ldt] 1x1 output, q|k of one head
   float* qk = ts + kHaloPix * ldt;    // [64][ldt] q|k after the dwconv
   float* gacc = qk + kPix * ldt;      // [C*dh] Gram partial, [h][d][e]
   float* nacc = gacc + C * dh;        // [2C] |q|^2, |k|^2 partials
   const int part = blockIdx.x, b = blockIdx.y, n_parts = gridDim.x;
   const int tiles_w = W / kTile, n_tiles = (H / kTile) * tiles_w;
+  const bool resident = kc >= C;
 
   for (int i = threadIdx.x; i < C * dh; i += blockDim.x) gacc[i] = 0.f;
   for (int i = threadIdx.x; i < 2 * C; i += blockDim.x) nacc[i] = 0.f;
 
   const int t_end = min(n_tiles, (part + 1) * tiles_per_part);
   for (int t = part * tiles_per_part; t < t_end; ++t) {
+    const Halo<T> hl{x1, x2, C1, C2, b, t / tiles_w, t % tiles_w, H, W, shift};
     __syncthreads();
-    load_halo<T>(xs, ldx, x1, x2, C1, C2, b, t / tiles_w, t % tiles_w, H, W, shift, lnw, lnb, eps);
-    __syncthreads();
+    if (lnw != nullptr) {
+      halo_stats(mu, rs, hl, eps);
+      __syncthreads();
+    }
+    if (resident) {
+      halo_chunk(xc, ldc, hl, 0, C, mu, rs, lnw, lnb);
+      __syncthreads();
+    }
     for (int h = 0; h < nH; ++h) {
       // column j < dh: q channel h*dh + j; j >= dh: k channel C + h*dh + j - dh
-      gemm<T>(kHaloPix, 2 * dh, C,
-          [&](int i, int k) { return xs[i * ldx + k]; },
-          [&](int k, int j) {
-            const int col = j < dh ? h * dh + j : C + h * dh + (j - dh);
-            return to_f(wqkv[(size_t)k * C3 + col]);
-          },
-          [&](int i, int j, float acc) { ts[i * ldt + j] = rnd<T>(acc); });
-      __syncthreads();
+      auto col = [&](int j) { return j < dh ? h * dh + j : C + h * dh + (j - dh); };
+      for (int c0 = 0; c0 < C; c0 += kc) {
+        const int nc = min(kc, C - c0);
+        if (!resident) {
+          halo_chunk(xc, ldc, hl, c0, nc, mu, rs, lnw, lnb);
+          __syncthreads();
+        }
+        const bool first = c0 == 0, last = c0 + nc >= C;
+        gemm<T>(kHaloPix, 2 * dh, nc,
+            [&](int i, int k) { return xc[i * ldc + k]; },
+            [&](int k, int j) { return to_f(wqkv[(size_t)(c0 + k) * C3 + col(j)]); },
+            [&](int i, int j, float acc) {
+              chunk_acc(ts[i * ldt + j], acc, first, last, [](float v) { return rnd<T>(v); });
+            });
+        __syncthreads();
+      }
       dwconv3_tile(ts, ldt, 2 * dh,
-          [&](int tap, int j) {
-            const int col = j < dh ? h * dh + j : C + h * dh + (j - dh);
-            return to_f(wdw[tap * C3 + col]);
-          },
+          [&](int tap, int j) { return to_f(wdw[tap * C3 + col(j)]); },
           [&](int p, int j, float acc) { qk[p * ldt + j] = rnd<T>(acc); });
       __syncthreads();
       // this tile's Gram: G[d][e] += sum_p q[p][d] k[p][e]; the owner of each
@@ -135,6 +188,13 @@ __global__ void sum_parts_kernel(const float* __restrict__ part, float* __restri
   }
 }
 
+int smem_optin() {
+  int dev = 0, v = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess) return 0;
+  return v;
+}
+
 cudaError_t launch_sum_parts(const float* part, float* out, int nb, int n_parts, int n,
                              cudaStream_t stream) {
   const int blocks = min(ceil_div(n, kThreads), 1024);
@@ -142,9 +202,33 @@ cudaError_t launch_sum_parts(const float* part, float* out, int nb, int n_parts,
   return cudaGetLastError();
 }
 
-constexpr int kVC = 32;  // v channel chunk
+constexpr int kVC = 32;   // v channel chunk when the input is resident
+constexpr int kVCw = 128; // v channel chunk when it is streamed (fewer re-reads)
+constexpr int kHCw = 32;  // tail hidden chunk when it is streamed (C = 384: 226 KB at kc 64)
 
-template <typename T>
+// The apply kernel's plan: the halo input chunk xc [100][kc+1] and the v 1x1
+// chunk vt [100][nv+1] share one region with the output y [64][C+1] (y is
+// written after the v stage); vs [64][C+1] holds v, later LN2(y); hb holds
+// the tail's hidden chunk. Resident (kc = C): the natural-scene layout, a
+// kernel instance of its own whose chunks are compile-time constants.
+struct ApplyPlan {
+  int kc, nv, khc;
+  __host__ __device__ size_t front(int C) const {
+    const size_t stage = (size_t)kHaloPix * (kc + 1) + (size_t)kHaloPix * (nv + 1);
+    const size_t y = (size_t)kPix * (C + 1);
+    return stage > y ? stage : y;
+  }
+  __host__ __device__ size_t floats(int C, bool tail) const {
+    return front(C) + (size_t)kPix * (C + 1) + (tail ? (size_t)kPix * (2 * khc + 1) : 0);
+  }
+};
+
+template <bool kStream>
+__host__ __device__ inline ApplyPlan apply_plan(int kc, int C) {
+  return kStream ? ApplyPlan{kc, kVCw, kHCw} : ApplyPlan{C, kVC, kHC};
+}
+
+template <typename T, bool kStream>
 __global__ void __launch_bounds__(kThreads)
 spectral_apply_kernel(const T* __restrict__ x1, const T* __restrict__ x2, int C1, int C2,
                       const float* __restrict__ lnw, const float* __restrict__ lnb,
@@ -155,33 +239,52 @@ spectral_apply_kernel(const T* __restrict__ x1, const T* __restrict__ x2, int C1
                       const T* __restrict__ w1, const float* __restrict__ b1,
                       const T* __restrict__ w2, const float* __restrict__ b2, int hid,
                       const float* __restrict__ dp, T* __restrict__ out, int H, int W,
-                      int shift, float eps) {
+                      int shift, float eps, int kc) {
   extern __shared__ float sm[];
+  __shared__ float mu[kHaloPix], rs[kHaloPix];
   const int C = C1 + C2, C3 = 3 * C;
-  const int ldx = C + 1, ldv = kVC + 1;
-  float* xs = sm;                     // [100][ldx] halo input; later y [64][ldx]
-  float* vt = xs + kHaloPix * ldx;    // [100][ldv] 1x1 output chunk
-  float* vs = vt + kHaloPix * ldv;    // [64][ldx] v; later LN2(y)
-  float* hb = vs + kPix * ldx;        // [64][2*kHC+1] MLP hidden chunk
+  const ApplyPlan plan = apply_plan<kStream>(kc, C);
+  const int ldc = plan.kc + 1, ldx = C + 1, ldv = plan.nv + 1;
+  float* xc = sm;                       // [100][ldc] halo input chunk
+  float* vt = xc + kHaloPix * ldc;      // [100][ldv] 1x1 output chunk
+  float* y = sm;                        // [64][ldx] output (after the v stage)
+  float* vs = sm + plan.front(C);       // [64][ldx] v; later LN2(y)
+  float* hb = vs + kPix * ldx;          // [64][2*khc+1] MLP hidden chunk
   const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
+  const Halo<T> hl{x1, x2, C1, C2, b, ty, tx, H, W, shift};
 
-  load_halo<T>(xs, ldx, x1, x2, C1, C2, b, ty, tx, H, W, shift, lnw, lnb, eps);
-  __syncthreads();
-  for (int c0 = 0; c0 < C; c0 += kVC) {
-    const int nc = min(kVC, C - c0);
-    gemm<T>(kHaloPix, nc, C,
-        [&](int i, int k) { return xs[i * ldx + k]; },
-        [&](int k, int j) { return to_f(wqkv[(size_t)k * C3 + 2 * C + c0 + j]); },
-        [&](int i, int j, float acc) { vt[i * ldv + j] = rnd<T>(acc); });
+  if (lnw != nullptr) {
+    halo_stats(mu, rs, hl, eps);
     __syncthreads();
-    dwconv3_tile(vt, ldv, nc,
-        [&](int tap, int j) { return to_f(wdw[tap * C3 + 2 * C + c0 + j]); },
-        [&](int p, int j, float acc) { vs[p * ldx + c0 + j] = rnd<T>(acc); });
+  }
+  if constexpr (!kStream) {
+    halo_chunk(xc, ldc, hl, 0, C, mu, rs, lnw, lnb);
+    __syncthreads();
+  }
+  for (int v0 = 0; v0 < C; v0 += plan.nv) {
+    const int nvc = min(plan.nv, C - v0);
+    for (int c0 = 0; c0 < C; c0 += plan.kc) {
+      const int nc = min(plan.kc, C - c0);
+      if constexpr (kStream) {
+        halo_chunk(xc, ldc, hl, c0, nc, mu, rs, lnw, lnb);
+        __syncthreads();
+      }
+      const bool first = !kStream || c0 == 0, last = !kStream || c0 + nc >= C;
+      gemm<T>(kHaloPix, nvc, nc,
+          [&](int i, int k) { return xc[i * ldc + k]; },
+          [&](int k, int j) { return to_f(wqkv[(size_t)(c0 + k) * C3 + 2 * C + v0 + j]); },
+          [&](int i, int j, float acc) {
+            chunk_acc(vt[i * ldv + j], acc, first, last, [](float v) { return rnd<T>(v); });
+          });
+      __syncthreads();
+    }
+    dwconv3_tile(vt, ldv, nvc,
+        [&](int tap, int j) { return to_f(wdw[tap * C3 + 2 * C + v0 + j]); },
+        [&](int p, int j, float acc) { vs[p * ldx + v0 + j] = rnd<T>(acc); });
     __syncthreads();
   }
 
   const float* cb = comb + (size_t)b * C * C;
-  float* y = xs;
   gemm<T>(kPix, C, C,
       [&](int i, int k) { return vs[i * ldx + k]; },
       [&](int k, int j) { return rnd<T>(cb[(size_t)k * C + j]); },
@@ -208,7 +311,8 @@ spectral_apply_kernel(const T* __restrict__ x1, const T* __restrict__ x2, int C1
         y[i * ldx + j] = v;
       });
   __syncthreads();
-  if (w1 != nullptr) mlp_tail_tile<T>(y, vs, ldx, hb, C, hid, ln2w, ln2b, w1, b1, w2, b2, eps);
+  if (w1 != nullptr)
+    mlp_tail_tile<T>(y, vs, ldx, hb, C, hid, ln2w, ln2b, w1, b1, w2, b2, eps, false, plan.khc);
 
   for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
     const int i = idx / C, k = idx - i * C;
@@ -217,32 +321,50 @@ spectral_apply_kernel(const T* __restrict__ x1, const T* __restrict__ x2, int C1
   }
 }
 
-inline size_t stats_smem(int C, int nH) {
+inline size_t stats_smem(int C, int nH, int kc) {
   const int dh = C / nH;
-  return sizeof(float) * ((size_t)kHaloPix * (C + 1) + (size_t)kHaloPix * (2 * dh + 1) +
+  return sizeof(float) * ((size_t)kHaloPix * (kc + 1) + (size_t)kHaloPix * (2 * dh + 1) +
                           (size_t)kPix * (2 * dh + 1) + (size_t)C * dh + 2 * C);
 }
 
-inline size_t apply_smem(int C) {
-  return sizeof(float) * ((size_t)kHaloPix * (C + 1) + (size_t)kHaloPix * (kVC + 1) +
-                          (size_t)kPix * (C + 1) + (size_t)kPix * (2 * kHC + 1));
+inline size_t apply_smem(int C, bool tail, int kc) {
+  const ApplyPlan plan = kc >= C ? apply_plan<false>(kc, C) : apply_plan<true>(kc, C);
+  return sizeof(float) * plan.floats(C, tail);
+}
+
+// The apply kernel instance of a chunk: resident where kc covers C.
+template <typename T>
+inline auto apply_kernel(int kc, int C) {
+  return kc >= C ? spectral_apply_kernel<T, false> : spectral_apply_kernel<T, true>;
+}
+
+inline int stats_chunk(int C, int nH) {
+  return pick_chunk(C, [&](int kc) {
+    return plan_bytes(spectral_stats_kernel<float>, stats_smem(C, nH, kc));
+  });
+}
+
+inline int apply_chunk(int C, bool tail) {
+  return pick_chunk(C, [&](int kc) {
+    return plan_bytes(apply_kernel<float>(kc, C), apply_smem(C, tail, kc));
+  });
 }
 
 template <typename T>
 cudaError_t launch_stats(const void* x1, const void* x2, int C1, int C2, const float* lnw,
                          const float* lnb, const void* wqkv, const void* wdw, float* pg,
                          float* pnq, float* pnk, float* gram, float* nq, float* nk, int B,
-                         int H, int W, int nH, int shift, float eps, int n_parts,
+                         int H, int W, int nH, int shift, float eps, int n_parts, int kc,
                          cudaStream_t stream) {
   const int C = C1 + C2, dh = C / nH;
   const int n_tiles = (H / kTile) * (W / kTile);
   const int tpp = ceil_div(n_tiles, n_parts);
-  const size_t smem = stats_smem(C, nH);
+  const size_t smem = stats_smem(C, nH, kc);
   cudaError_t err = set_smem(spectral_stats_kernel<T>, smem);
   if (err != cudaSuccess) return err;
   spectral_stats_kernel<T><<<dim3(n_parts, B), kThreads, smem, stream>>>(
       (const T*)x1, (const T*)x2, C1, C2, lnw, lnb, (const T*)wqkv, (const T*)wdw, H, W, nH,
-      shift, eps, tpp, pg, pnq, pnk);
+      shift, eps, tpp, pg, pnq, pnk, kc);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   sum_parts_kernel<<<dim3(ceil_div(C * dh, kThreads), B), kThreads, 0, stream>>>(pg, gram, n_parts, C * dh);
   sum_parts_kernel<<<dim3(ceil_div(C, kThreads), B), kThreads, 0, stream>>>(pnq, nq, n_parts, C);
@@ -256,14 +378,17 @@ cudaError_t launch_apply(const void* x1, const void* x2, int C1, int C2, const f
                          const void* gate, const void* shortcut, int residual,
                          const float* ln2w, const float* ln2b, const void* w1, const float* b1,
                          const void* w2, const float* b2, int hid, const float* dp, void* out,
-                         int B, int H, int W, int shift, float eps, cudaStream_t stream) {
-  const size_t smem = apply_smem(C1 + C2);
-  cudaError_t err = set_smem(spectral_apply_kernel<T>, smem);
+                         int B, int H, int W, int shift, int kc, float eps,
+                         cudaStream_t stream) {
+  const bool tail = w1 != nullptr;
+  const size_t smem = apply_smem(C1 + C2, tail, kc);
+  const auto kernel = apply_kernel<T>(kc, C1 + C2);
+  cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  spectral_apply_kernel<T><<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
+  kernel<<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
       (const T*)x1, (const T*)x2, C1, C2, lnw, lnb, (const T*)wqkv, (const T*)wdw, comb,
       (const T*)gate, (const T*)shortcut, residual, ln2w, ln2b, (const T*)w1, b1, (const T*)w2,
-      b2, hid, dp, (T*)out, H, W, shift, eps);
+      b2, hid, dp, (T*)out, H, W, shift, eps, kc);
   return cudaGetLastError();
 }
 
@@ -499,50 +624,80 @@ cudaError_t launch_apply_bwd(const void* x, const float* lnw, const float* lnb, 
 // cat(x1, x2); optional LN (float32, over C1 + C2); wqkv [C][3C] and wdw
 // [9][3C] in the compute type. Partial buffers: pg [B][n_parts][C*dh], pnq and
 // pnk [B][n_parts][C]. Outputs (float32): gram [B][C][dh] (row h*dh + d, col
-// e), nq and nk [B][nH][dh].
+// e), nq and nk [B][nH][dh]. kc: the channel chunk (mp_spectral_stats_chunk).
 extern "C" int mp_spectral_stats(const void* x1, const void* x2, const void* lnw,
                                  const void* lnb, const void* wqkv, const void* wdw, void* pg,
                                  void* pnq, void* pnk, void* gram, void* nq, void* nk,
                                  int dtype, int B, int H, int W, int C1, int C2, int nH,
-                                 int shift, float eps, int n_parts, void* stream) {
-  if ((C1 + C2) % nH != 0 || H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
+                                 int shift, float eps, int n_parts, int kc, void* stream) {
+  if ((C1 + C2) % nH != 0 || H % mp::kTile != 0 || W % mp::kTile != 0 || kc <= 0 || kc > C1 + C2)
+    return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   if (dtype == 0)
     return (int)mp::launch_stats<float>(x1, x2, C1, C2, (const float*)lnw, (const float*)lnb,
                                         wqkv, wdw, (float*)pg, (float*)pnq, (float*)pnk,
                                         (float*)gram, (float*)nq, (float*)nk, B, H, W, nH,
-                                        shift, eps, n_parts, st);
+                                        shift, eps, n_parts, kc, st);
   return (int)mp::launch_stats<__nv_bfloat16>(x1, x2, C1, C2, (const float*)lnw,
                                               (const float*)lnb, wqkv, wdw, (float*)pg,
                                               (float*)pnq, (float*)pnk, (float*)gram,
                                               (float*)nq, (float*)nk, B, H, W, nH, shift, eps,
-                                              n_parts, st);
+                                              n_parts, kc, st);
 }
 
 // comb [B][C][C] float32 (row: v channel h*dh + e, col: output channel).
 // gate (B, H/8, W/8, C) per-window gates of the rolled frame, shortcut
 // (B, H, W, C), residual adds the raw input; w1 [C][2*hid] / w2 [hid][C] (the
 // PGSSTB tail; NULL = none); dp (B,) float32 per-sample drop-path scales of
-// the branch (NULL = none). Output (B, H, W, C) in the unrolled frame.
+// the branch (NULL = none). kc: the channel chunk (mp_spectral_apply_chunk;
+// kc = C is the resident instance). Output (B, H, W, C) in the unrolled frame.
 extern "C" int mp_spectral_apply(const void* x1, const void* x2, const void* lnw,
                                  const void* lnb, const void* wqkv, const void* wdw,
                                  const void* comb, const void* gate, const void* shortcut,
                                  const void* ln2w, const void* ln2b, const void* w1,
                                  const void* b1, const void* w2, const void* b2, const void* dp,
                                  void* out, int dtype, int B, int H, int W, int C1, int C2,
-                                 int residual, int hid, int shift, float eps, void* stream) {
-  if (H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
+                                 int residual, int hid, int shift, int kc, float eps,
+                                 void* stream) {
+  if (H % mp::kTile != 0 || W % mp::kTile != 0 || kc <= 0 || kc > C1 + C2)
+    return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   if (dtype == 0)
     return (int)mp::launch_apply<float>(x1, x2, C1, C2, (const float*)lnw, (const float*)lnb,
                                         wqkv, wdw, (const float*)comb, gate, shortcut, residual,
                                         (const float*)ln2w, (const float*)ln2b, w1,
                                         (const float*)b1, w2, (const float*)b2, hid,
-                                        (const float*)dp, out, B, H, W, shift, eps, st);
+                                        (const float*)dp, out, B, H, W, shift, kc, eps, st);
   return (int)mp::launch_apply<__nv_bfloat16>(
       x1, x2, C1, C2, (const float*)lnw, (const float*)lnb, wqkv, wdw, (const float*)comb,
       gate, shortcut, residual, (const float*)ln2w, (const float*)ln2b, w1, (const float*)b1, w2,
-      (const float*)b2, hid, (const float*)dp, out, B, H, W, shift, eps, st);
+      (const float*)b2, hid, (const float*)dp, out, B, H, W, shift, kc, eps, st);
+}
+
+// The device's opt-in shared-memory limit per block, in bytes.
+extern "C" int mp_smem_optin() { return mp::smem_optin(); }
+
+// The channel chunks the stats and apply kernels launch with at a shape.
+extern "C" int mp_spectral_stats_chunk(int C, int nH) { return mp::stats_chunk(C, nH); }
+
+extern "C" int mp_spectral_apply_chunk(int C, int tail) { return mp::apply_chunk(C, tail != 0); }
+
+// Shared-memory plans per block (bytes, static included) at a shape and
+// channel chunk kc.
+extern "C" long long mp_spectral_stats_smem(int C, int nH, int kc) {
+  return mp::plan_bytes(mp::spectral_stats_kernel<float>, mp::stats_smem(C, nH, kc));
+}
+
+extern "C" long long mp_spectral_apply_smem(int C, int tail, int kc) {
+  return mp::plan_bytes(mp::apply_kernel<float>(kc, C), mp::apply_smem(C, tail != 0, kc));
+}
+
+extern "C" long long mp_spectral_stats_bwd_smem(int C, int nH) {
+  return mp::plan_bytes(mp::spectral_stats_bwd_kernel<float>, mp::stats_bwd_smem(C, nH));
+}
+
+extern "C" long long mp_spectral_apply_bwd_smem(int C) {
+  return mp::plan_bytes(mp::spectral_apply_bwd_kernel<float>, mp::apply_bwd_smem(C));
 }
 
 // Backward of mp_spectral_stats for one raw input (no x2). Inputs: x, LN,

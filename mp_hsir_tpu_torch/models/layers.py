@@ -33,6 +33,7 @@ from mp_hsir_tpu_torch.ops.kernels.spectral import spectral_apply, spectral_fold
 from mp_hsir_tpu_torch.ops.kernels.window_attention import (
     relative_position_index, window_attention,
 )
+from mp_hsir_tpu_torch.ops.kernels.window_msa import window_msa
 from mp_hsir_tpu_torch.ops.resize import resize_bilinear, resize_nearest
 
 # Route counters (counterpart of FUSED_PATH_STATS): how many blocks of each
@@ -192,8 +193,11 @@ class PGSpectralAttention(nn.Module):
 
 
 class SpatialAttention(nn.Module):
-    """Window MSA parameters (reference net/MP_HSIR.py:158-218): qkv, the
-    relative-position table (225, nH) and proj; the window kernel runs it."""
+    """Window MSA (reference net/MP_HSIR.py:158-218): qkv, the
+    relative-position table (225, nH) and proj. Inside a PGSSTB the window
+    kernel runs it with the block's LayerNorm; :meth:`forward` runs it alone
+    on window tokens through the window MSA kernel (K14), as JAX's
+    ``SpatialAttention(use_pallas=True)`` does."""
 
     def __init__(self, dim: int, window_size: int, num_heads: int):
         super().__init__()
@@ -212,6 +216,13 @@ class SpatialAttention(nn.Module):
         n = self.ws * self.ws
         b = self.relative_position_bias_table[self.relative_position_index]
         return b.reshape(n, n, self.num_heads).permute(2, 0, 1).float().contiguous()
+
+    def forward(self, windows: torch.Tensor, shift_labels=None) -> torch.Tensor:
+        """windows (NW, 64, C) -> (NW, 64, C); ``shift_labels`` (nW_pattern,
+        64) int region labels of a shifted block (tokens of different regions
+        do not attend to each other), tiled over the windows, or None."""
+        return window_msa(windows, self.qkv.weight, self.qkv.bias, self.rel_bias(),
+                          self.proj.weight, self.proj.bias, self.num_heads, shift_labels)
 
 
 class CrossAttention(nn.Module):

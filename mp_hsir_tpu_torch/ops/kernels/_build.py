@@ -7,7 +7,12 @@ together, then one ``nvcc -shared`` links them into
 covers the sources, headers and flags, so an edited source rebuilds and an
 unchanged tree reuses the library. Every C entry point takes plain pointers
 (``c_void_p``) and the CUDA stream, launches on that stream and returns
-``cudaGetLastError()``; :func:`check` raises when it is not 0.
+``cudaGetLastError()``; :func:`check` raises when it is not 0. Each kernel
+also exports ``mp_<kernel>_smem``, the shared memory per block of its plan at
+a shape; :func:`check_plan` holds that against the device's opt-in limit
+before the launch. The kernels that stage their input in channel chunks
+export ``mp_<kernel>_chunk`` too (:func:`chunk`), and take the chunk as an
+argument.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import shutil
 import subprocess
 import threading
 import time
+from functools import lru_cache
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
@@ -126,3 +132,45 @@ def check(name: str, err: int) -> None:
 def ptr(t) -> int | None:
     """Device pointer of a tensor, or None (NULL) for an absent operand."""
     return None if t is None else t.data_ptr()
+
+
+@lru_cache(maxsize=None)
+def smem_limit() -> int:
+    """Shared memory a block may opt into on the current device, in bytes
+    (``cudaDevAttrMaxSharedMemoryPerBlockOptin``; 232,448 on an H100)."""
+    fn = lib().mp_smem_optin
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return int(fn())
+
+
+@lru_cache(maxsize=None)
+def chunk(entry: str, *shape: int) -> int:
+    """The channel chunk a staged kernel launches with at ``shape``: the
+    return of ``entry``, an ``mp_<kernel>_chunk`` function of ints (C, the
+    whole input resident, where that plan fits the device; else 64). Asked
+    once per shape; the wrapper passes it to every launch."""
+    fn = getattr(lib(), entry)
+    fn.argtypes, fn.restype = [ctypes.c_int] * len(shape), ctypes.c_int
+    return int(fn(*shape))
+
+
+@lru_cache(maxsize=None)
+def plan_bytes(entry: str, *shape: int) -> int:
+    """Shared memory per block (dynamic plus static, bytes) of the plan the C
+    side launches with at ``shape`` (the staged kernels' shapes end with the
+    channel chunk): the return of ``entry``, an ``mp_<kernel>_smem`` function
+    of ints."""
+    fn = getattr(lib(), entry)
+    fn.argtypes, fn.restype = [ctypes.c_int] * len(shape), ctypes.c_longlong
+    return int(fn(*shape))
+
+
+def check_plan(kernel: str, entry: str, what: str, *shape: int) -> int:
+    """Raise ValueError before a launch whose shared-memory plan exceeds the
+    device's opt-in limit (the launch would fail with a bare cudaError);
+    ``what`` names the shape. Returns the plan's bytes."""
+    n, limit = plan_bytes(entry, *shape), smem_limit()
+    if n > limit:
+        raise ValueError(f"{kernel} at {what}: its shared-memory plan needs {n} bytes per "
+                         f"block, over this device's opt-in limit of {limit} bytes")
+    return n

@@ -55,6 +55,7 @@ def _launch(x, w, mode, res):
     if h % 8 or wd % 8 or w.shape[1:] != (cin, 3, 3):
         raise ValueError(f"conv3 needs H, W % 8 == 0 and an OIHW 3x3 weight, got {x.shape}, {w.shape}")
     dt, code = x.dtype, dtype_code(x)
+    _build.check_plan("conv3", "mp_conv3_smem", f"Cin={cin}", cin)
     x = x.contiguous()
     wk = w.permute(2, 3, 1, 0).to(dt).contiguous()  # [3][3][Cin][Cout]
     if mode == "res":

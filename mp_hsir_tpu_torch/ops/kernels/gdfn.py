@@ -82,7 +82,7 @@ def _entry(bwd: bool = False):
 
     if bwd:
         return _build.entry("mp_gdfn_bwd", 11, [ctypes.c_int] * 6 + [ctypes.c_float])
-    return _build.entry("mp_gdfn", 8, [ctypes.c_int] * 8 + [ctypes.c_float])
+    return _build.entry("mp_gdfn", 8, [ctypes.c_int] * 9 + [ctypes.c_float])
 
 
 def _launch(x, ln_w, ln_b, w_in, w_dw, w_out, residual, proj_w, eps):
@@ -92,6 +92,8 @@ def _launch(x, ln_w, ln_b, w_in, w_dw, w_out, residual, proj_w, eps):
     dt, code = x.dtype, dtype_code(x)
     hid = w_out.shape[1]
     co = c if proj_w is None else proj_w.shape[0]
+    kc = _build.chunk("mp_gdfn_chunk", c)
+    _build.check_plan("gdfn", "mp_gdfn_smem", f"C={c}", c, kc)
     x = x.contiguous()
     wi, wd, wo = kernel_weight(w_in, dt), kernel_weight(w_dw, dt), kernel_weight(w_out, dt)
     wp = None if proj_w is None else kernel_weight(proj_w, dt)
@@ -99,7 +101,7 @@ def _launch(x, ln_w, ln_b, w_in, w_dw, w_out, residual, proj_w, eps):
     out = torch.empty((b, h, w, co), dtype=dt, device=x.device)
     err = _entry()(x.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), wi.data_ptr(), wd.data_ptr(),
                    wo.data_ptr(), _build.ptr(wp), out.data_ptr(), code, b, h, w, c, hid, co,
-                   int(residual), eps, stream_ptr())
+                   int(residual), kc, eps, stream_ptr())
     _build.check("mp_gdfn", err)
     COUNTER.record(("gdfn", b, h, w, c, hid, co, bool(residual), str(dt)))
     return out
@@ -109,6 +111,7 @@ def _bwd_launch(x, ln_w, ln_b, w_in, w_dw, w_out, residual, eps, dy):
     b, h, w, c = x.shape
     dt = x.dtype
     hid = w_out.shape[1]
+    _build.check_plan("gdfn_bwd", "mp_gdfn_bwd_smem", f"C={c}", c)
     x, dy = x.contiguous(), dy.to(dt).contiguous()
     wi, wd, wo = kernel_weight(w_in, dt), kernel_weight(w_dw, dt), kernel_weight(w_out, dt)
     lnw, lnb = f32(ln_w), f32(ln_b)

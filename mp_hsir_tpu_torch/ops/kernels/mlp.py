@@ -88,6 +88,7 @@ def _launch(x, ln_w, ln_b, w1, b1, w2, b2, residual, dp_scale, eps):
         raise ValueError(f"mlp needs H, W % 8 == 0, got {x.shape}")
     dt = x.dtype
     hid = w2.shape[1]
+    _build.check_plan("mlp", "mp_mlp_smem", f"C={c}", c)
     x = x.contiguous()
     # every operand bound to a name until the launch: a temporary freed
     # mid-call could hand its memory to the next one
@@ -106,6 +107,7 @@ def _bwd_launch(x, ln_w, ln_b, w1, b1, w2, b2, dp_scale, residual, eps, dy):
     b, h, w, c = x.shape
     dt = x.dtype
     hid = w2.shape[1]
+    _build.check_plan("mlp_bwd", "mp_mlp_bwd_smem", f"C={c}", c)
     x, dy = x.contiguous(), dy.to(dt).contiguous()
     lnw, lnb, b1f, b2f, dp = f32(ln_w), f32(ln_b), f32(b1), f32(b2), f32(dp_scale)
     w1k, w2k = kernel_weight(w1, dt), kernel_weight(w2, dt)

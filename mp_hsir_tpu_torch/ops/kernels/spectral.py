@@ -124,7 +124,7 @@ def _stats_entry(bwd: bool = False):
 
     if bwd:
         return _build.entry("mp_spectral_stats_bwd", 11, [ctypes.c_int] * 7 + [ctypes.c_float])
-    return _build.entry("mp_spectral_stats", 12, [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int])
+    return _build.entry("mp_spectral_stats", 12, [ctypes.c_int] * 8 + [ctypes.c_float] + [ctypes.c_int] * 2)
 
 
 def _stats_launch(x, wqkv, wdw, num_heads, shift, x2, ln_w, ln_b, eps):
@@ -135,6 +135,9 @@ def _stats_launch(x, wqkv, wdw, num_heads, shift, x2, ln_w, ln_b, eps):
         raise ValueError(f"spectral stats needs H, W % 8 == 0 and C % heads == 0, got {x.shape}")
     dt, code = x.dtype, dtype_code(x)
     dh = c // num_heads
+    kc = _build.chunk("mp_spectral_stats_chunk", c, num_heads)
+    _build.check_plan("spectral_stats", "mp_spectral_stats_smem", f"C={c}, heads={num_heads}",
+                      c, num_heads, kc)
     x = x.contiguous()
     x2 = None if x2 is None else x2.to(dt).contiguous()
     wq, wd = kernel_weight(wqkv, dt), kernel_weight(wdw, dt)
@@ -150,7 +153,7 @@ def _stats_launch(x, wqkv, wdw, num_heads, shift, x2, ln_w, ln_b, eps):
     err = _stats_entry()(x.data_ptr(), _build.ptr(x2), _build.ptr(lnw), _build.ptr(lnb),
                          wq.data_ptr(), wd.data_ptr(), pg.data_ptr(), pnq.data_ptr(),
                          pnk.data_ptr(), gram.data_ptr(), nq.data_ptr(), nk.data_ptr(), code,
-                         b, h, w, c1, c2, num_heads, shift, eps, n_parts, stream_ptr())
+                         b, h, w, c1, c2, num_heads, shift, eps, n_parts, kc, stream_ptr())
     _build.check("mp_spectral_stats", err)
     STATS.record(("spectral_stats", b, h, w, c1, c2, num_heads, shift, ln_w is not None, str(dt)))
     return gram, nq, nk
@@ -159,6 +162,8 @@ def _stats_launch(x, wqkv, wdw, num_heads, shift, x2, ln_w, ln_b, eps):
 def _stats_bwd_launch(x, wqkv, wdw, num_heads, shift, ln_w, ln_b, eps, dgram, dnq, dnk):
     b, h, w, c = x.shape
     dt = x.dtype
+    _build.check_plan("spectral_stats_bwd", "mp_spectral_stats_bwd_smem",
+                      f"C={c}, heads={num_heads}", c, num_heads)
     x = x.contiguous()
     wq, wd = kernel_weight(wqkv, dt), kernel_weight(wdw, dt)
     lnw, lnb = f32(ln_w), f32(ln_b)
@@ -333,7 +338,7 @@ def _apply_entry(bwd: bool = False):
 
     if bwd:
         return _build.entry("mp_spectral_apply_bwd", 17, [ctypes.c_int] * 7 + [ctypes.c_float])
-    return _build.entry("mp_spectral_apply", 17, [ctypes.c_int] * 9 + [ctypes.c_float])
+    return _build.entry("mp_spectral_apply", 17, [ctypes.c_int] * 10 + [ctypes.c_float])
 
 
 def _apply_launch(x, comb, wqkv, wdw, shift, x2, ln_w, ln_b, residual, gate, shortcut, mlp, eps,
@@ -346,6 +351,10 @@ def _apply_launch(x, comb, wqkv, wdw, shift, x2, ln_w, ln_b, residual, gate, sho
     if (gate is not None or dp_scale is not None) and (x2 is not None or ln_w is not None):
         raise ValueError("the gate and drop-path epilogues take one raw input")
     dt, code = x.dtype, dtype_code(x)
+    kc = _build.chunk("mp_spectral_apply_chunk", c, int(mlp is not None))
+    _build.check_plan("spectral_apply", "mp_spectral_apply_smem",
+                      f"C={c}, {'with' if mlp is not None else 'no'} MLP tail", c,
+                      int(mlp is not None), kc)
     x = x.contiguous()
     x2 = None if x2 is None else x2.to(dt).contiguous()
     gate = None if gate is None else gate.to(dt).contiguous()
@@ -364,7 +373,7 @@ def _apply_launch(x, comb, wqkv, wdw, shift, x2, ln_w, ln_b, residual, gate, sho
     err = _apply_entry()(x.data_ptr(), p(x2), p(lnw), p(lnb), wq.data_ptr(), wd.data_ptr(),
                          cb.data_ptr(), p(gate), p(shortcut), p(ln2w), p(ln2b), p(w1), p(b1),
                          p(w2), p(b2), p(dp), out.data_ptr(), code, b, h, w, c1, c2,
-                         int(residual), hid, shift, eps, stream_ptr())
+                         int(residual), hid, shift, kc, eps, stream_ptr())
     _build.check("mp_spectral_apply", err)
     spec = ("spectral_apply", b, h, w, c1, c2, shift, ln_w is not None, bool(residual),
             gate is not None, shortcut is not None, hid, str(dt))
@@ -375,6 +384,7 @@ def _apply_launch(x, comb, wqkv, wdw, shift, x2, ln_w, ln_b, residual, gate, sho
 def _apply_bwd_launch(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate, dp_scale, eps, dy):
     b, h, w, c = x.shape
     dt = x.dtype
+    _build.check_plan("spectral_apply_bwd", "mp_spectral_apply_bwd_smem", f"C={c}", c)
     x, dy = x.contiguous(), dy.to(dt).contiguous()
     gate_t = None if gate is None else gate.to(dt).contiguous()
     wq, wd = kernel_weight(wqkv, dt), kernel_weight(wdw, dt)

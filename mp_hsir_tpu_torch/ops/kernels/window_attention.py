@@ -122,7 +122,7 @@ def _entry(bwd: bool = False):
     if bwd:
         return _build.entry("mp_window_attention_bwd", 16, [ctypes.c_int] * 7 + [ctypes.c_float])
     return _build.entry("mp_window_attention", 11,
-                        [ctypes.c_int] * 7 + [ctypes.c_float])
+                        [ctypes.c_int] * 8 + [ctypes.c_float])
 
 
 def _launch(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, eps):
@@ -131,6 +131,9 @@ def _launch(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, eps):
         raise ValueError(f"window attention needs H, W % 8 == 0 and C % heads == 0, got {x.shape}")
     dt = x.dtype
     code = dtype_code(x)
+    kc = _build.chunk("mp_window_chunk", c, num_heads)
+    _build.check_plan("window_attention", "mp_window_attention_smem", f"C={c}, heads={num_heads}",
+                      c, num_heads, kc)
     x = x.contiguous()
     wq, wpk = kernel_weight(wqkv, dt), kernel_weight(wp, dt)
     lnw, lnb, bq, bpf, bias = f32(ln_w), f32(ln_b), f32(bqkv), f32(bp), f32(rel_bias)
@@ -140,7 +143,7 @@ def _launch(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, eps):
     err = _entry()(x.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), wq.data_ptr(), bq.data_ptr(),
                    bias.data_ptr(), _build.ptr(labels), wpk.data_ptr(), bpf.data_ptr(),
                    out.data_ptr(), pooled.data_ptr(), code, b, h, w, c, num_heads, shift,
-                   eps, stream_ptr())
+                   kc, eps, stream_ptr())
     _build.check("mp_window_attention", err)
     COUNTER.record(("window_attention", b, h, w, c, num_heads, shift, str(dt)))
     return out, pooled
@@ -149,6 +152,8 @@ def _launch(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, eps):
 def _bwd_launch(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, eps, dout, dpool):
     b, h, w, c = x.shape
     dt = x.dtype
+    _build.check_plan("window_attention_bwd", "mp_window_attention_bwd_smem",
+                      f"C={c}, heads={num_heads}", c, num_heads)
     x = x.contiguous()
     dout, dpool = dout.to(dt).contiguous(), dpool.to(dt).contiguous()
     wq, wpk = kernel_weight(wqkv, dt), kernel_weight(wp, dt)

@@ -334,3 +334,103 @@ def test_cuda_forward_with_grad_reaches_every_parameter():
     for name in ("window_attention_bwd", "spectral_stats_bwd", "spectral_apply_bwd", "mlp_bwd",
                  "gdfn_bwd"):
         assert _route.COUNTERS[name].launches > 0, name
+
+
+# ---------------------------------------------------------------------------
+# remote-sensing widths (channel-chunked plans) and the window MSA kernel
+# ---------------------------------------------------------------------------
+
+def _check_fwd(fn, args, kw, tol):
+    got, ref = _pair(fn, *args, **kw)
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert a.shape == b.shape and a.dtype == b.dtype, (i, a.shape, b.shape)
+        assert torch.isfinite(a.float()).all(), i
+        err = (a.float() - b.float()).abs().max().item()
+        scale = b.float().abs().max().item()
+        assert err <= tol * scale, f"output {i}: {err:.3e} > {tol} * {scale:.3e}"
+
+
+def _rs_cases(dev, dt):
+    """The eval kernels at the widths whose whole-input plans exceed 227 KB:
+    C = 384 with dh 48 (latent, fusion2) and C = 192 with dh 96 (dec1,
+    refinement), on a 16x16 map."""
+    r = _rng(40)
+    f = lambda *s, scale=1.0: _t(_n(r, s, scale)).to(dev)  # noqa: E731
+    act = lambda *s: f(*s).to(dt)  # noqa: E731
+    cases = []
+    for c, heads in ((384, 8), (192, 2)):
+        hid = int(c * 2.66)
+        cases.append((f"window C={c}", window_attention,
+                      [act(1, 16, 16, c), 1 + f(c, scale=0.1), f(c, scale=0.1),
+                       f(3 * c, c, scale=c ** -0.5), f(3 * c, scale=0.1),
+                       f(heads, 64, 64, scale=0.02), f(c, c, scale=c ** -0.5), f(c, scale=0.1),
+                       heads], dict(shift=4)))
+        wq, wd = f(3 * c, c, 1, 1, scale=c ** -0.5), f(3 * c, 1, 3, 3, scale=1 / 3)
+        cases.append((f"stats C={c}", spectral_stats, [act(1, 16, 16, c), wq, wd, heads],
+                      dict(shift=4)))
+        mlp = (1 + f(c, scale=0.1), f(c, scale=0.1), f(2 * hid, c, scale=c ** -0.5),
+               f(2 * hid, scale=0.1), f(c, hid, scale=hid ** -0.5), f(c, scale=0.1))
+        cases.append((f"apply+tail C={c}", spectral_apply,
+                      [act(1, 16, 16, c), f(1, c, c, scale=c ** -0.5), wq, wd],
+                      dict(shift=4, gate=act(1, 2, 2, c), shortcut=act(1, 16, 16, c), mlp=mlp)))
+    c, half, hid = 384, 192, int(384 * 2.66)
+    lw, lb = 1 + f(c, scale=0.1), f(c, scale=0.1)
+    wq, wd = f(3 * c, c, 1, 1, scale=c ** -0.5), f(3 * c, 1, 3, 3, scale=1 / 3)
+    x1, x2 = act(1, 16, 16, half), act(1, 16, 16, half)
+    cases.append(("stats x2+LN C=384", spectral_stats, [x1, wq, wd, 8],
+                  dict(x2=x2, ln_w=lw, ln_b=lb)))
+    cases.append(("apply x2+LN C=384", spectral_apply, [x1, f(1, c, c, scale=c ** -0.5), wq, wd],
+                  dict(x2=x2, ln_w=lw, ln_b=lb, residual=True)))
+    cases.append(("gdfn+proj C=384", gdfn,
+                  [act(1, 16, 16, c), lw, lb, f(2 * hid, c, 1, 1, scale=c ** -0.5),
+                   f(2 * hid, 1, 3, 3, scale=1 / 3), f(c, hid, 1, 1, scale=hid ** -0.5)],
+                  dict(residual=True, proj_w=f(half, c, 1, 1, scale=c ** -0.5))))
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 3e-2)])
+def test_cuda_remote_sensing_widths_match_plain(dtype, tol):
+    """The channel-chunked plans against the plain versions: float32 within
+    1e-4 and bf16 within 3e-2 of each output's max-abs (as chip_smoke.py);
+    every plan within the device's opt-in limit."""
+    from mp_hsir_tpu_torch.ops.kernels import _build
+
+    dev = _cuda()
+    faults = []
+    for name, fn, args, kw in _rs_cases(dev, getattr(torch, dtype)):
+        try:
+            _check_fwd(fn, args, kw, tol)
+        except AssertionError as e:
+            faults.append(f"{name}: {e}")
+    assert not faults, "\n".join(faults)
+    for kernel, shape in (("window", (384, 8)), ("spectral_stats", (192, 2)),
+                          ("spectral_apply", (384, 1)), ("gdfn", (384,))):
+        kc = _build.chunk(f"mp_{kernel}_chunk", *shape)
+        entry = "mp_window_attention_smem" if kernel == "window" else f"mp_{kernel}_smem"
+        assert kc == 64, kernel
+        assert 0 < _build.plan_bytes(entry, *shape, kc) <= _build.smem_limit(), entry
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads", [(64, 2), (384, 8)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_cuda_window_msa_matches_plain(c, heads, masked):
+    """K14 on the card against its plain version, float32 (1e-4) and bf16
+    (3e-2 of the output's max-abs), 8 windows tiling a 4-window label
+    pattern."""
+    from mp_hsir_tpu_torch.ops.kernels.window_msa import window_msa
+    from mp_hsir_tpu_torch.ops.window import shifted_window_labels
+
+    dev = _cuda()
+    r = _rng(41)
+    lab = torch.as_tensor(shifted_window_labels(16, 16, 8, 4)).to(dev) if masked else None
+    w = [_t(_u(r, s, c)).to(dev) for s in ((3 * c, c), (3 * c,), (c, c), (c,))]
+    bias = _t(_n(r, (heads, 64, 64), 0.02)).to(dev)
+    x = _t(_n(r, (8, 64, c))).to(dev)
+    for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+        _route.reset_counters()
+        _check_fwd(window_msa, [x.to(dt), w[0], w[1], bias, w[2], w[3], heads], dict(labels=lab), tol)
+        assert _route.COUNTERS["window_msa"].launches == 1
