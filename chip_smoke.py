@@ -15,7 +15,11 @@ Phases (any failure exits non-zero; no phase's error is caught):
    the same points, float32 sums in other orders can flip a rounding);
    float32 <= 1e-4 * max|plain|. Times each with CUDA events, beside the
    plain version, F.conv2d for the conv (library_ms) and the bound
-   max(bytes / 3.35 TB/s, flops / 989 TFLOP/s). The window, spectral and
+   max(bytes / 3.35 TB/s, flops / 989 TFLOP/s); each conv3 call (here and
+   in phases 5 and 7) is also timed as its kernel alone (the weight packed
+   once, the C entry launched directly) and prints its achieved TFLOP/s,
+   the kernel alone's and F.conv2d's (flops / ms); its sums over the path's
+   calls follow the table. The window, spectral and
    GDFN kernels keep their input resident where that fits; each such call
    at C > 64 is checked and timed once more with its input streamed in
    64-channel chunks (the remote-sensing latent's plan), summed per
@@ -310,8 +314,11 @@ def plan_of(spec) -> dict:
 
     name = spec[0]
     if name == "conv3":
-        n = _build.plan_bytes("mp_conv3_smem", spec[4])
-        return dict(smem=n, smem_whole=n, kc=spec[4], c=spec[4])
+        # one plan per compute type, whatever the shape: Cin streams in
+        # chunks of CHUNK_K
+        from mp_hsir_tpu_torch.ops.kernels.conv3 import CHUNK_K
+        n = _build.plan_bytes("mp_conv3_smem", int(spec[-1] != "torch.float32"))
+        return dict(smem=n, smem_whole=n, kc=CHUNK_K, c=spec[4])
     if name == "window_attention":
         smem_entry, chunk_entry, shape = "mp_window_attention_smem", "mp_window_chunk", spec[4:6]
     elif name == "window_msa":
@@ -416,6 +423,50 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def conv3_kernel_ms(args) -> float:
+    """conv3's kernel alone on the call's inputs: the weight packed once and
+    the C entry launched directly, without what the wrapper adds on the host
+    per call (the packing copy, the output allocation, Python)."""
+    from mp_hsir_tpu_torch.ops.kernels import _build, conv3
+    from mp_hsir_tpu_torch.ops.kernels._route import dtype_code, stream_ptr
+
+    x, w, mode, res = args
+    b, h, wd, cin = x.shape
+    wk = conv3.pack_weight(w, x.dtype)
+    res = None if res is None else res.float().contiguous()
+    out = conv3.conv3(x, w, mode, res)
+    launch = [x.data_ptr(), wk.data_ptr(), _build.ptr(res), out.data_ptr(), dtype_code(x), b, h,
+              wd, cin, w.shape[0], conv3.MODES[mode], stream_ptr()]
+    _build.check("mp_conv3", conv3._entry()(*launch))
+    return time_ms(lambda: conv3._entry()(*launch), 20)
+
+
+def tflops(spec, args, flops, ms, lib_ms) -> dict:
+    """conv3's kernel-alone time, and the achieved rates (flops / ms) of the
+    wrapper, the kernel alone and its F.conv2d yardstick."""
+    if spec[0] != "conv3":
+        return {}
+    kms = conv3_kernel_ms(args)
+    return dict(kernel_ms=kms, tflops=flops / ms / 1e9, kernel_tflops=flops / kms / 1e9,
+                library_tflops=None if lib_ms is None else flops / lib_ms / 1e9)
+
+
+def log_tflops(row) -> str:
+    if "tflops" not in row:
+        return ""
+    lib = row["library_tflops"]
+    return (f"  {row['tflops']:.1f} TFLOP/s; kernel alone {row['kernel_ms']:.4f} ms "
+            f"{row['kernel_tflops']:.1f} TFLOP/s (lib {'-' if lib is None else f'{lib:.1f}'})")
+
+
+def log_conv3_sums(what: str, rows, per: str) -> None:
+    """conv3 summed over the path's calls: wrapper, kernel alone, F.conv2d."""
+    mine = [r for r in rows if r["spec"][0] == "conv3"]
+    tot = lambda k: sum(r[k] * r[per] for r in mine)  # noqa: E731
+    log(f"  conv3 {what}: wrapper {tot('ms'):.4f} ms, kernel alone {tot('kernel_ms'):.4f} ms, "
+        f"F.conv2d {tot('library_ms'):.4f} ms ({sum(r[per] for r in mine)} calls)")
+
+
 def kernel_checks(specs: Counter, dev) -> dict:
     from mp_hsir_tpu_torch.ops.kernels._route import plain_reference
 
@@ -442,13 +493,14 @@ def kernel_checks(specs: Counter, dev) -> dict:
                    library_ms=lib_ms, bound_ms=bound_ms, bytes=byts, flops=flops,
                    bound_by="bytes" if byts / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
                    smem=plan["smem"], smem_whole=plan["smem_whole"], kc=plan["kc"],
-                   ms_streamed=ms_streamed)
+                   ms_streamed=ms_streamed, **tflops(spec, args, flops, ms, lib_ms))
         rows.append(row)
         log(f"  {spec[0]:16s} {str(spec[1:-1]):58s} x{mult:<2d} err {err:.2e} (rel {rel:.1e}, "
             f"f32 rel {rel32:.1e})  {ms:8.3f} ms  plain {plain_ms:8.3f}  "
             f"lib {'-' if lib_ms is None else f'{lib_ms:.3f}'}  bound {bound_ms:.4f} ({row['bound_by']})  "
             f"smem {plan['smem']} B at kc {plan['kc']} (whole input {plan['smem_whole']} B)"
-            + ("" if ms_streamed is None else f"  streamed kc 64: {ms_streamed:.3f} ms"))
+            + ("" if ms_streamed is None else f"  streamed kc 64: {ms_streamed:.3f} ms")
+            + log_tflops(row))
         del args, kw
         torch.cuda.empty_cache()
     return rows
@@ -865,10 +917,13 @@ def train_kernel_checks(specs: Counter, dev) -> list:
                          max_abs_err_f32=err32, rel_err_f32=rel32, ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=bound_ms, bytes=byts, flops=flops,
                          bound_by="bytes" if byts / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
-                         ms_streamed=ms_streamed))
+                         ms_streamed=ms_streamed,
+                         **(tflops(spec, args, flops, ms, lib_ms) if library else {})))
         log(f"  {name:20s} {str(spec[1:-1]):50s} x{mult:<2d} err {err:.2e} (rel {rel:.1e}, "
-            f"f32 rel {rel32:.1e})  {ms:8.3f} ms  plain {plain_ms:8.3f}  bound {bound_ms:.4f}"
-            + ("" if ms_streamed is None else f"  streamed kc 64: {ms_streamed:.3f} ms"))
+            f"f32 rel {rel32:.1e})  {ms:8.3f} ms  plain {plain_ms:8.3f}  "
+            f"lib {'-' if lib_ms is None else f'{lib_ms:.3f}'}  bound {bound_ms:.4f}"
+            + ("" if ms_streamed is None else f"  streamed kc 64: {ms_streamed:.3f} ms")
+            + log_tflops(rows[-1]))
         torch.cuda.empty_cache()
     return rows
 
@@ -1186,6 +1241,7 @@ def main() -> None:
     torch.set_float32_matmul_precision("highest")
     rows = kernel_checks(specs, dev)
     streamed = dict(eval=log_streamed("per flagship forward", rows, "per_forward"))
+    log_conv3_sums("per flagship forward", rows, "per_forward")
 
     log("== phase 3: main path, flagship bf16 forward on the trained weights")
     model = build_model(cfg, dev)
@@ -1213,6 +1269,7 @@ def main() -> None:
     log_kernel_ms("per train step (phase 5 calls x calls per step)", step, "launches_per_step",
                   train_res["median_ms"])
     streamed["train"] = log_streamed("per train step (forward kernels)", train_rows, "per_step")
+    log_conv3_sums("per train step", train_rows, "per_step")
     torch.cuda.empty_cache()
 
     rs_cfg = remote_sensing_config(compute_dtype="bfloat16")
@@ -1220,6 +1277,7 @@ def main() -> None:
     log("== phase 7: remote-sensing kernels against their plain versions (bf16 and f32, "
         f"{RS_SIZE}x{RS_SIZE} path shapes)")
     rs_rows = kernel_checks(rs_specs, dev)
+    log_conv3_sums("per remote-sensing forward", rs_rows, "per_forward")
     limit = _build.smem_limit()
     worst = max(rs_rows, key=lambda r: r["smem"])
     log(f"  shared memory: the device's opt-in limit {limit} B per block; largest plan "

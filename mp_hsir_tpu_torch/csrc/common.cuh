@@ -3,8 +3,9 @@
 // Every kernel runs 512 threads per block over one 8x8 pixel tile (or one
 // 8x8 attention window) and keeps its working set in shared memory as float32.
 // Products go through gemm<T>: warp-level mma.sync on the tensor cores for
-// bf16, block-level loops over 4x4 register tiles (SIMT FMA) for float32
-// (conv3 runs 256 threads: its SIMT loop measured slower at 512).
+// bf16, block-level loops over 4x4 register tiles (SIMT FMA) for float32.
+// conv3 is the exception: an implicit GEMM over 8x16-pixel tiles whose bf16
+// operands are staged as bf16 with cp.async and fed to mma.sync by ldmatrix.
 // wgmma and TMA are later work; see PERF.md for the gap to each bound.
 #pragma once
 
@@ -120,6 +121,43 @@ __device__ __forceinline__ void mma_16x8x16(float* d, uint32_t a0, uint32_t a1, 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Shared-memory address of a generic pointer, as the PTX below takes it.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16-byte asynchronous copy global -> shared (both 16-byte aligned);
+// src_bytes = 0 reads nothing and fills the 16 bytes with zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N committed groups of this thread are still in flight
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices from shared memory; lane l gives the address of row
+// l % 8 of matrix l / 8. Lane l receives row l / 4, elements 2 (l % 4) and
+// +1 of each (with trans: column l / 4, rows 2 (l % 4) and +1), which is
+// the mma.m16n8k16 fragment layout.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
 }
 
 // Same contract as block_gemm, on the tensor cores: each warp owns 16x32

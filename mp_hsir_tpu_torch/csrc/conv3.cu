@@ -8,129 +8,357 @@
 // kernels shuffle with 0/1 matrix products on the MXU; here the shuffle is the
 // index of the store.
 //
-// One block = one 8x8 output tile (pre-shuffle coordinates) and all output
-// channels: the 10x10 input halo is staged once in shared memory and reused by
-// all 9 taps. Bound on this card: 18*Cin*Cout flops per pixel against
-// (Cin + Cout) elements of traffic, tensor-core rate at these widths; this
-// version runs SIMT FMA (see PERF.md).
+// Bound on this card: operations, 18*Cin*Cout flops per pixel against
+// (Cin + Cout) elements of traffic. So the kernel is an implicit GEMM on the
+// tensor cores: M = output pixels, N = Cout, K = 9 taps x Cin. One block owns
+// a 16x16 tile of output pixels (M = 256) and 64 output channels (blockIdx.x
+// walks the Cout tiles); 8 warps of 64x32 (four rows of 16 pixels). The K
+// loop streams Cin in chunks of 16: per chunk the block stages, three stages
+// deep with cp.async, the bf16 halo (18x18 pixels x 16 channels, pixel stride
+// 24 so that ldmatrix rows are 16-byte aligned and conflict-free) and the
+// weight slab (9 taps x 16 x 64, 16-byte columns XOR-swizzled by k), then
+// runs the 9 taps as mma.sync m16n8k16 (bf16 in, float32 sums). The A rows of
+// tap (dy, dx) are the halo rows shifted by (dy, dx): no im2col buffer, and
+// the fragments of one halo row serve the three dy taps of the rows they
+// feed (6 A loads per 3 taps instead of 12). Each weight is staged once per
+// block and chunk and reused over 256 pixels; shared memory is one
+// compile-time plan whatever Cin is. The wrapper packs the weight into the
+// staged layout, zero-padded to the chunk and the tile. Out-of-image halo
+// pixels and channels past Cin are zero-filled (cp.async with a source size
+// of 0); a Cin whose pixel rows are not 16-byte aligned (31, 100) stages the
+// halo by element instead. Out-of-map rows and columns (H, W % 16 == 8) and channels
+// past Cout are masked at the store; the sums are rounded once, there, to
+// the output type. No atomics, no split K: the result is deterministic.
+//
+// float32 (the checks and the float32 CLI) runs the same tiles and staging
+// with a SIMT FMA inner product, as every kernel's gemm<T> does.
+// Later work: wgmma with A from registers over the tap-shifted halo, TMA.
 #include "common.cuh"
 
 namespace mp {
 
 enum Conv3Mode { kPlain = 0, kRes = 1, kDown = 2, kUp = 3 };
-constexpr int kConvThreads = 256;
+
+constexpr int kC3Threads = 256;             // 8 warps
+constexpr int kC3T = 16;                    // output tile side, pre-shuffle pixels (M = 256)
+constexpr int kC3HaloW = kC3T + 2;          // halo side
+constexpr int kC3HaloPix = kC3HaloW * kC3HaloW;  // 324
+constexpr int kC3N = 64;                    // output channels per block
+constexpr int kC3K = 16;                    // input channels per K chunk
+constexpr int kC3Slab = 9 * kC3K * kC3N;    // weights staged per chunk (elements)
+constexpr int kC3Stages = 3;
+constexpr int kC3StLd = kC3N + 8;  // epilogue tile row (floats): float2 stores conflict-free per half-warp
+
+// halo pixel stride in elements: bf16 48 bytes (16-byte aligned ldmatrix
+// rows, 8 consecutive pixels on 8 distinct bank groups); float32 17 words
+template <typename T>
+constexpr int kC3Ld = std::is_same<T, float>::value ? 17 : 24;
 
 template <typename T>
-__global__ void __launch_bounds__(kConvThreads)
-conv3_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __restrict__ res,
-             void* __restrict__ out, int H, int W, int Cin, int Cout, int mode) {
-  extern __shared__ float sm[];
-  const int ldx = Cin + 1;
-  float* xs = sm;  // [100][ldx]
-  const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
+__host__ __device__ constexpr size_t c3_stage_bytes() {
+  return sizeof(T) * ((size_t)kC3HaloPix * kC3Ld<T> + kC3Slab);
+}
+// three stages: bf16 101,952 B (two blocks per SM), float32 176,688 B; the
+// epilogue's float32 tile (73,728 B) reuses them
+template <typename T>
+__host__ __device__ constexpr size_t conv3_smem() { return kC3Stages * c3_stage_bytes<T>(); }
+static_assert(kC3T * kC3T * kC3StLd * sizeof(float) <= conv3_smem<__nv_bfloat16>(),
+              "the epilogue tile must fit the staging buffers");
 
-  for (int idx = threadIdx.x; idx < kHaloPix * Cin; idx += blockDim.x) {
-    const int p = idx / Cin, k = idx - p * Cin;
-    const int r = ty * kTile + p / kHalo - 1, c = tx * kTile + p % kHalo - 1;
-    xs[p * ldx + k] = (r >= 0 && r < H && c >= 0 && c < W)
-                          ? to_f(x[(((size_t)b * H + r) * W + c) * Cin + k])
-                          : 0.f;
-  }
-  __syncthreads();
-
-  const int tiles_n = (Cout + 3) >> 2;
-  const int tiles = (kPix >> 2) * tiles_n;
-  for (int t = threadIdx.x; t < tiles; t += blockDim.x) {
-    const int i0 = (t / tiles_n) << 2;
-    const int j0 = (t % tiles_n) << 2;
-    const int nc = min(4, Cout - j0);
-    float acc[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3, dx = tap - dy * 3;
-      const float* arow[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = i0 + r;
-        arow[r] = xs + (((i >> 3) + dy) * kHalo + (i & 7) + dx) * ldx;
-      }
-      const T* wt = w + (size_t)tap * Cin * Cout + j0;
-      for (int k = 0; k < Cin; ++k) {
-        float bv[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) bv[c] = c < nc ? to_f(wt[(size_t)k * Cout + c]) : 0.f;
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float a = arow[r][k];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a, bv[c], acc[r][c]);
-        }
-      }
+// Stage K chunk c0..c0+15 of tile (y0, x0) of image b into one buffer: the
+// halo [324][ld] and the weight slab [9][16][64] (wslab: this chunk's slab
+// of the block's Cout tile, contiguous in the packed layout).
+template <typename T, bool kVec>
+__device__ __forceinline__ void c3_stage(T* xs, const T* __restrict__ x,
+                                         const T* __restrict__ wslab, int b, int y0, int x0,
+                                         int H, int W, int Cin, int c0) {
+  constexpr int ld = kC3Ld<T>, per16 = 16 / (int)sizeof(T);
+  T* ws = xs + kC3HaloPix * ld;
+  for (int u = threadIdx.x; u < kC3Slab / per16; u += kC3Threads) {
+    int dst = u * per16;
+    if constexpr (!std::is_same<T, float>::value) {
+      // row = tap * 16 + k of 64 bf16 (eight 16-byte columns); column
+      // ch lands at ch ^ (k & 7): the eight k rows an ldmatrix reads at one
+      // column fall on eight distinct bank groups
+      const int row = u >> 3, ch = u & 7;
+      dst = row * kC3N + ((ch ^ (row & 7)) << 3);
     }
+    cp_async16(smem_u32(ws + dst), wslab + u * per16, 16);
+  }
+  if constexpr (kVec) {  // bf16, Cin % 8 == 0: 16-byte copies of 8 channels
+    for (int u = threadIdx.x; u < kC3HaloPix * (kC3K / 8); u += kC3Threads) {
+      const int p = u >> 1, g = u & 1;
+      const int r = y0 - 1 + p / kC3HaloW, c = x0 - 1 + p % kC3HaloW, k = c0 + 8 * g;
+      const bool in = r >= 0 && r < H && c >= 0 && c < W && k < Cin;
+      const T* src = in ? x + (((size_t)b * H + r) * W + c) * Cin + k : x;
+      cp_async16(smem_u32(xs + p * ld + 8 * g), src, in ? 16 : 0);
+    }
+  } else {  // float32, or pixel rows not 16-byte aligned: element by element
+    for (int u = threadIdx.x; u < kC3HaloPix * kC3K; u += kC3Threads) {
+      const int p = u / kC3K, j = u - p * kC3K;
+      const int r = y0 - 1 + p / kC3HaloW, c = x0 - 1 + p % kC3HaloW, k = c0 + j;
+      xs[p * ld + j] = (r >= 0 && r < H && c >= 0 && c < W && k < Cin)
+                           ? x[(((size_t)b * H + r) * W + c) * Cin + k]
+                           : from_f<T>(0.f);
+    }
+  }
+}
+
+// One staged chunk on the tensor cores. Warp (wm, wn) owns output rows
+// 4 wm .. 4 wm + 3 of the tile (one m16 tile each: the 16 pixels of a row) and
+// channels 32 wn .. 32 wn + 31 (four n8 tiles). acc[(mt * 4 + nt) * 4 + q] is
+// the m16n8 accumulator fragment q of (mt, nt). Per column shift dx the warp
+// loads the A fragments of its six halo rows once; row mt + dy feeds m16
+// tile mt at tap (dy, dx).
+__device__ __forceinline__ void c3_mma_chunk(const __nv_bfloat16* xs, float* acc, int wm, int wn,
+                                             int lane) {
+  constexpr int ld = kC3Ld<__nv_bfloat16>;
+  const __nv_bfloat16* ws = xs + kC3HaloPix * ld;
+  const int i = lane & 7, j = lane >> 3;
+  // A: lane gives row i + 8 (j & 1) of the m16 tile (pixel column) at k
+  // offset 8 (j >> 1): matrices a0..a3 in order
+  const uint32_t a0 = smem_u32(xs + (4 * wm * kC3HaloW + i + 8 * (j & 1)) * ld + 8 * (j >> 1));
+  // B ([k][n], transposed on load): lane gives k row 8 (j & 1) + i of n
+  // column 4 wn + 2 p + (j >> 1): b0, b1 of n8 tile 2p, then of 2p + 1
+  uint32_t b0[2];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = i0 + r;
-      const int y = ty * kTile + (i >> 3), xc = tx * kTile + (i & 7);
+  for (int p = 0; p < 2; ++p)
+    b0[p] = smem_u32(ws + (8 * (j & 1) + i) * kC3N + (((4 * wn + 2 * p + (j >> 1)) ^ i) << 3));
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        if (c >= nc) continue;
-        const int j = j0 + c;
-        const float v = acc[r][c];
-        if (mode == kPlain) {
-          ((T*)out)[(((size_t)b * H + y) * W + xc) * Cout + j] = from_f<T>(v);
-        } else if (mode == kRes) {
-          const size_t o = (((size_t)b * H + y) * W + xc) * Cout + j;
-          ((float*)out)[o] = v + res[o];
-        } else if (mode == kDown) {
-          // out[b, y/2, x/2, j*4 + (y%2)*2 + x%2], (B, H/2, W/2, 4*Cout)
-          const size_t o = (((size_t)b * (H / 2) + (y >> 1)) * (W / 2) + (xc >> 1)) * (4 * Cout) +
-                           j * 4 + (y & 1) * 2 + (xc & 1);
-          ((T*)out)[o] = from_f<T>(v);
-        } else {
-          // channel j = ch*4 + i2*2 + j2 -> out[b, 2y+i2, 2x+j2, ch], (B, 2H, 2W, Cout/4)
-          const int co = Cout >> 2, ch = j >> 2, i2 = (j >> 1) & 1, j2 = j & 1;
-          const size_t o = (((size_t)b * (2 * H) + 2 * y + i2) * (2 * W) + 2 * xc + j2) * co + ch;
-          ((T*)out)[o] = from_f<T>(v);
-        }
+  for (int dx = 0; dx < 3; ++dx) {
+    uint32_t a[6][4];
+#pragma unroll
+    for (int r = 0; r < 6; ++r) ldmatrix_x4(a[r], a0 + 2 * ((r * kC3HaloW + dx) * ld));
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy) {
+      uint32_t bq[2][4];
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+        ldmatrix_x4_trans(bq[p], b0[p] + 2 * ((dy * 3 + dx) * kC3K * kC3N));
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          mma_16x8x16(acc + (mt * 4 + nt) * 4, a[mt + dy][0], a[mt + dy][1], a[mt + dy][2],
+                      a[mt + dy][3], bq[nt >> 1][2 * (nt & 1)], bq[nt >> 1][2 * (nt & 1) + 1]);
+    }
+  }
+}
+
+// One staged chunk in float32 FMA. Lane owns pixels lane + 32 q (row
+// 2 q + lane / 16, column lane % 16), warp w channels 8 w .. 8 w + 7 (the
+// weight reads are warp-wide broadcasts). acc[q * 8 + jn].
+__device__ __forceinline__ void c3_fma_chunk(const float* xs, float* acc, int warp, int lane) {
+  constexpr int ld = kC3Ld<float>;
+  const float* ws = xs + kC3HaloPix * ld;
+  const int pr = lane >> 4, pc = lane & 15;
+  for (int tap = 0; tap < 9; ++tap) {
+    const int dy = tap / 3, dx = tap % 3;
+    const float* xa = xs + ((pr + dy) * kC3HaloW + pc + dx) * ld;
+    const float* wt = ws + tap * kC3K * kC3N + 8 * warp;
+#pragma unroll 2
+    for (int k = 0; k < kC3K; ++k) {
+      const float4 w0 = *reinterpret_cast<const float4*>(wt + k * kC3N);
+      const float4 w1 = *reinterpret_cast<const float4*>(wt + k * kC3N + 4);
+      const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const float a = xa[2 * q * kC3HaloW * ld + k];
+#pragma unroll
+        for (int jn = 0; jn < 8; ++jn) acc[q * 8 + jn] = fmaf(a, wv[jn], acc[q * 8 + jn]);
       }
     }
   }
 }
 
-inline size_t conv3_smem(int Cin) { return sizeof(float) * (size_t)kHaloPix * (Cin + 1); }
+// The epilogue. The block's float32 sums are staged in shared memory as
+// st[256 pixels][kC3StLd] (pixel = row * 16 + column of the tile, channel
+// n - n0), then written in the mode's output layout, where the block's
+// outputs are runs of contiguous channels ("segments"): plain / res one run
+// of nc channels per pixel; down one run of 4 nc per output pixel (channel
+// 4 j + 2 (y % 2) + x % 2); up one run of nc / 4 per output pixel (channel
+// j / 4 of pixel (2y + j / 2 % 2, 2x + j % 2)). Runs are stored as 16-byte
+// vectors where the output row allows it, else element by element. Each
+// value is rounded once, to the output type.
 
-template <typename T>
-cudaError_t launch_conv3(const void* x, const void* w, const float* res, void* out, int B,
-                         int H, int W, int Cin, int Cout, int mode, cudaStream_t stream) {
-  const size_t smem = conv3_smem(Cin);
-  cudaError_t err = set_smem(conv3_kernel<T>, smem);
+template <typename O>
+__device__ __forceinline__ void c3_put(O* __restrict__ o, const float* v, int n);
+template <>
+__device__ __forceinline__ void c3_put<float>(float* __restrict__ o, const float* v, int n) {
+  if (n == 4) {
+    *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    for (int i = 0; i < n; ++i) o[i] = v[i];
+  }
+}
+template <>
+__device__ __forceinline__ void c3_put<__nv_bfloat16>(__nv_bfloat16* __restrict__ o, const float* v,
+                                                     int n) {
+  if (n == 8) {
+    *reinterpret_cast<uint4*>(o) = make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]),
+                                              pack_bf16x2(v[4], v[5]), pack_bf16x2(v[6], v[7]));
+  } else {
+    for (int i = 0; i < n; ++i) o[i] = __float2bfloat16(v[i]);
+  }
+}
+
+template <typename O>
+__device__ __forceinline__ void c3_write(const float* st, O* __restrict__ out,
+                                         const float* __restrict__ res, int b, int y0, int x0,
+                                         int n0, int H, int W, int Cout, int mode) {
+  constexpr int V = 16 / (int)sizeof(O);
+  const int nc = min(kC3N, Cout - n0);
+  // segments, run length, output row width (channels)
+  const int segs = mode == kDown ? kC3T * kC3T / 4 : mode == kUp ? 4 * kC3T * kC3T : kC3T * kC3T;
+  const int len = mode == kDown ? 4 * nc : mode == kUp ? nc / 4 : nc;
+  const int row = mode == kDown ? 4 * Cout : mode == kUp ? Cout / 4 : Cout;
+  const int per = row % V == 0 ? V : 1;  // then len % V == 0 too: nc is Cout or 64
+  const int units = len / per;
+  for (int u = threadIdx.x; u < segs * units; u += kC3Threads) {
+    const int sg = u / units, e0 = (u - sg * units) * per;
+    int y, xc;  // the segment's pre-shuffle pixel (its top-left one for down)
+    size_t o;
+    if (mode == kDown) {
+      y = y0 + 2 * (sg >> 3), xc = x0 + 2 * (sg & 7);
+      o = (((size_t)b * (H / 2) + (y >> 1)) * (W / 2) + (xc >> 1)) * row + 4 * n0;
+    } else if (mode == kUp) {
+      const int oy = sg >> 5, ox = sg & 31;
+      y = y0 + (oy >> 1), xc = x0 + (ox >> 1);
+      o = (((size_t)b * (2 * H) + 2 * y0 + oy) * (2 * W) + 2 * x0 + ox) * row + n0 / 4;
+    } else {
+      y = y0 + (sg >> 4), xc = x0 + (sg & 15);
+      o = (((size_t)b * H + y) * W + xc) * row + n0;
+    }
+    if (y >= H || xc >= W) continue;
+    float v[V];
+    for (int i = 0; i < per; ++i) {
+      const int e = e0 + i;
+      int p, j;  // tile pixel, channel in the tile
+      if (mode == kDown) {
+        j = e >> 2;
+        p = (2 * (sg >> 3) + ((e >> 1) & 1)) * kC3T + 2 * (sg & 7) + (e & 1);
+      } else if (mode == kUp) {
+        const int oy = sg >> 5, ox = sg & 31;
+        j = 4 * e + 2 * (oy & 1) + (ox & 1);
+        p = (oy >> 1) * kC3T + (ox >> 1);
+      } else {
+        j = e;
+        p = sg;
+      }
+      v[i] = st[p * kC3StLd + j];
+      if (mode == kRes) v[i] += res[o + e];
+    }
+    c3_put<O>(out + o + e0, v, per);
+  }
+}
+
+// grid (Cout tiles, row tiles x column tiles, B); w is the packed weight
+// [ceil(Cout/64)][ceil(Cin/16)][9][16][64].
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kC3Threads, 2)
+conv3_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __restrict__ res,
+             void* __restrict__ out, int H, int W, int Cin, int Cout, int mode) {
+  extern __shared__ __align__(16) unsigned char c3_smem[];
+  auto buf = [&](int c) { return (T*)(c3_smem + (c % kC3Stages) * c3_stage_bytes<T>()); };
+  const int tiles_x = (W + kC3T - 1) / kC3T;
+  const int n0 = blockIdx.x * kC3N, b = blockIdx.z;
+  const int y0 = blockIdx.y / tiles_x * kC3T, x0 = blockIdx.y % tiles_x * kC3T;
+  const int chunks = (Cin + kC3K - 1) / kC3K;
+  const T* wt = w + (size_t)blockIdx.x * chunks * kC3Slab;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  float acc[64];
+#pragma unroll
+  for (int q = 0; q < 64; ++q) acc[q] = 0.f;
+
+  // stages hold chunks c, c + 1, c + 2; one barrier per chunk: after it,
+  // chunk c has landed for every thread and nobody still reads chunk c - 1,
+  // whose buffer takes chunk c + 2
+#pragma unroll
+  for (int c = 0; c < kC3Stages - 1; ++c) {
+    if (c < chunks)
+      c3_stage<T, kVec>(buf(c), x, wt + (size_t)c * kC3Slab, b, y0, x0, H, W, Cin, c * kC3K);
+    cp_async_commit();
+  }
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<kC3Stages - 2>();
+    __syncthreads();
+    const int cn = c + kC3Stages - 1;
+    if (cn < chunks)
+      c3_stage<T, kVec>(buf(cn), x, wt + (size_t)cn * kC3Slab, b, y0, x0, H, W, Cin, cn * kC3K);
+    cp_async_commit();
+    if constexpr (std::is_same<T, float>::value) {
+      c3_fma_chunk(buf(c), acc, warp, lane);
+    } else {
+      c3_mma_chunk(buf(c), acc, warp & 3, warp >> 2, lane);
+    }
+  }
+
+  __syncthreads();  // every warp is done with the last chunk's buffer
+  float* st = (float*)c3_smem;
+  if constexpr (std::is_same<T, float>::value) {
+    const int pr = lane >> 4, pc = lane & 15;
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+#pragma unroll
+      for (int jn = 0; jn < 8; ++jn)
+        st[((2 * q + pr) * kC3T + pc) * kC3StLd + 8 * warp + jn] = acc[q * 8 + jn];
+  } else {
+    const int wm = warp & 3, wn = warp >> 2, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(
+              st + ((4 * wm + mt) * kC3T + g + 8 * h) * kC3StLd + 32 * wn + 8 * nt + 2 * t) =
+              make_float2(acc[(mt * 4 + nt) * 4 + 2 * h], acc[(mt * 4 + nt) * 4 + 2 * h + 1]);
+  }
+  __syncthreads();
+  if (mode == kRes) {
+    c3_write<float>(st, (float*)out, res, b, y0, x0, n0, H, W, Cout, mode);
+  } else {
+    c3_write<T>(st, (T*)out, res, b, y0, x0, n0, H, W, Cout, mode);
+  }
+}
+
+template <typename T, bool kVec>
+cudaError_t launch_conv3(const void* x, const void* w, const float* res, void* out, int B, int H,
+                         int W, int Cin, int Cout, int mode, cudaStream_t stream) {
+  constexpr size_t smem = conv3_smem<T>();
+  cudaError_t err = set_smem(conv3_kernel<T, kVec>, smem);
   if (err != cudaSuccess) return err;
-  conv3_kernel<T><<<dim3(W / kTile, H / kTile, B), kConvThreads, smem, stream>>>(
-      (const T*)x, (const T*)w, res, out, H, W, Cin, Cout, mode);
+  const dim3 grid(ceil_div(Cout, kC3N), ceil_div(H, kC3T) * ceil_div(W, kC3T), B);
+  conv3_kernel<T, kVec><<<grid, kC3Threads, smem, stream>>>((const T*)x, (const T*)w, res, out,
+                                                            H, W, Cin, Cout, mode);
   return cudaGetLastError();
 }
 
 }  // namespace mp
 
-// x (B, H, W, Cin), w [9][Cin][Cout] (HWIO) in the compute type; res float32
-// (B, H, W, Cout) for mode 1, else NULL. mode: 0 plain, 1 res (float32
-// output), 2 down (PixelUnshuffle 2), 3 up (PixelShuffle 2, Cout % 4 == 0).
+// x (B, H, W, Cin) in the compute type; w the packed weight
+// [ceil(Cout/64)][ceil(Cin/16)][9 taps][16 in][64 out] in the compute type,
+// zero-padded (ops/kernels/conv3.py:pack_weight); res float32 (B, H, W, Cout)
+// for mode 1, else NULL. mode: 0 plain, 1 res (float32 output), 2 down
+// (PixelUnshuffle 2), 3 up (PixelShuffle 2, Cout % 4 == 0). H, W % 8 == 0.
 extern "C" int mp_conv3(const void* x, const void* w, const void* res, void* out, int dtype,
                         int B, int H, int W, int Cin, int Cout, int mode, void* stream) {
   if (H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
   if (mode == mp::kUp && Cout % 4 != 0) return (int)cudaErrorInvalidValue;
   if (mode == mp::kRes && res == nullptr) return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return (int)mp::launch_conv3<float>(x, w, (const float*)res, out, B, H, W, Cin, Cout, mode, st);
-  return (int)mp::launch_conv3<__nv_bfloat16>(x, w, (const float*)res, out, B, H, W, Cin, Cout,
-                                              mode, st);
+  auto r = (const float*)res;
+  if (dtype == 0) return (int)mp::launch_conv3<float, false>(x, w, r, out, B, H, W, Cin, Cout, mode, st);
+  // 16-byte halo copies need every pixel row 16-byte aligned
+  if (Cin % 8 == 0 && ((uintptr_t)x & 15) == 0)
+    return (int)mp::launch_conv3<__nv_bfloat16, true>(x, w, r, out, B, H, W, Cin, Cout, mode, st);
+  return (int)mp::launch_conv3<__nv_bfloat16, false>(x, w, r, out, B, H, W, Cin, Cout, mode, st);
 }
 
-// Shared-memory plan per block (bytes, static included).
-extern "C" long long mp_conv3_smem(int Cin) {
-  return mp::plan_bytes(mp::conv3_kernel<float>, mp::conv3_smem(Cin));
+// Shared-memory plan per block (bytes, static included) of the compute type
+// (0 float32, 1 bf16); it does not depend on the shape.
+extern "C" long long mp_conv3_smem(int dtype) {
+  if (dtype == 0) return mp::plan_bytes(mp::conv3_kernel<float, false>, mp::conv3_smem<float>());
+  return mp::plan_bytes(mp::conv3_kernel<__nv_bfloat16, true>, mp::conv3_smem<__nv_bfloat16>());
 }

@@ -5,7 +5,9 @@ four writebacks: ``plain``, ``res`` (+ float32 residual, float32 output),
 Kernel: ``csrc/conv3.cu`` (replaces ``_conv3_kernel``,
 ``_conv3_down_kernel`` and ``_conv3_up_kernel``,
 ``mp_hsir_tpu/ops/pallas_attention.py:1084``, ``:1218``, ``:1243``).
-Plain version: :func:`conv3_plain`. Weight layout: OIHW (Cout, Cin, 3, 3).
+Plain version: :func:`conv3_plain`. Weight layout: OIHW (Cout, Cin, 3, 3) at
+the wrapper; the kernel stages it per block and K chunk from the layout
+:func:`pack_weight` makes.
 
 Backward (``_conv3_core``'s VJP, ``mp_hsir_tpu/ops/pallas_vjp.py:1296``):
 dx runs the same kernel on the cotangent after the inverse pixel
@@ -27,6 +29,9 @@ from mp_hsir_tpu_torch.ops.kernels._route import ROUTE, counter, dtype_code, str
 
 MODES = {"plain": 0, "res": 1, "down": 2, "up": 3}
 COUNTER = counter("conv3")
+# the kernel's input-channel chunk and output-channel tile: kC3K and kC3N of
+# csrc/conv3.cu, which stages the layout pack_weight makes
+CHUNK_K, TILE_N = 16, 64
 
 
 def conv3_plain(x: torch.Tensor, w: torch.Tensor, mode: str = "plain",
@@ -49,15 +54,29 @@ def _entry():
     return _build.entry("mp_conv3", 4, [ctypes.c_int] * 7)
 
 
+def pack_weight(w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """OIHW (Cout, Cin, 3, 3) -> the kernel's staged layout
+    [ceil(Cout/64)][ceil(Cin/16)][9 taps][16 in][64 out] in ``dt``: the slab
+    of one block's Cout tile and one K chunk is contiguous; channels past Cin
+    and Cout are zeros. Tap t = 3 ky + kx."""
+    cout, cin = w.shape[:2]
+    pad = (0, 0, 0, 0, 0, -cin % CHUNK_K, 0, -cout % TILE_N)
+    wp = F.pad(w, pad) if any(pad) else w
+    nt, nc = wp.shape[0] // TILE_N, wp.shape[1] // CHUNK_K
+    view = wp.reshape(nt, TILE_N, nc, CHUNK_K, 9).permute(0, 2, 4, 3, 1)
+    # one copy: the cast and the permutation together
+    return torch.empty(view.shape, dtype=dt, device=w.device).copy_(view)
+
+
 def _launch(x, w, mode, res):
     b, h, wd, cin = x.shape
     cout = w.shape[0]
     if h % 8 or wd % 8 or w.shape[1:] != (cin, 3, 3):
         raise ValueError(f"conv3 needs H, W % 8 == 0 and an OIHW 3x3 weight, got {x.shape}, {w.shape}")
     dt, code = x.dtype, dtype_code(x)
-    _build.check_plan("conv3", "mp_conv3_smem", f"Cin={cin}", cin)
+    _build.check_plan("conv3", "mp_conv3_smem", str(dt), code)
     x = x.contiguous()
-    wk = w.permute(2, 3, 1, 0).to(dt).contiguous()  # [3][3][Cin][Cout]
+    wk = pack_weight(w, dt)
     if mode == "res":
         res = res.float().contiguous()
         out = torch.empty((b, h, wd, cout), dtype=torch.float32, device=x.device)

@@ -67,16 +67,36 @@ def test_cuda_window_and_stats_match_plain(shift):
         torch.testing.assert_close(g, r, atol=1e-3, rtol=1e-4)
 
 
+# (B, H, W, Cin, Cout): Cin 31 and 100 stage the halo by element (pixel rows
+# not 16-byte aligned) and end in a partial 16-channel K chunk, 40 by 16-byte
+# copies with a half chunk, 512 and 768 run 32 and 48 chunks; Cout 31, 48 and
+# 100 mask the store inside a 64-channel tile (and take the element-wise
+# store where the output row is not a whole number of 16-byte vectors);
+# H or W = 8 and 24 leave half of the last 16x16 tile outside the map.
+CONV3_SHAPES = [(1, 8, 8, 31, 64), (2, 16, 24, 31, 31), (1, 8, 24, 100, 48),
+                (1, 16, 8, 100, 100), (1, 8, 24, 512, 512), (2, 8, 8, 512, 31),
+                (1, 24, 16, 40, 100), (1, 8, 8, 768, 48)]
+CONV3_CASES = [(mode,) + s for mode in ("plain", "res", "down", "up") for s in CONV3_SHAPES
+               if mode != "up" or s[4] % 4 == 0]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["plain", "res", "down", "up"])
-def test_cuda_conv3_matches_plain(mode):
+@pytest.mark.parametrize("mode,b,h,w,cin,cout", CONV3_CASES)
+def test_cuda_conv3_matches_plain(mode, b, h, w, cin, cout):
+    """bf16 within 3e-2 and float32 within 1e-4 of the plain version's
+    max-abs (the chip_smoke.py tolerances: the same rounding points, float32
+    sums in another order)."""
     dev = _cuda()
     rng = _rng(6)
-    x = _t(_n(rng, (1, 32, 32, 16))).to(dev)
-    w = _t(_u(rng, (32, 16, 3, 3), 144)).to(dev)
-    res = _t(_n(rng, (1, 32, 32, 32))).to(dev) if mode == "res" else None
-    got, ref = _pair(conv3, x, w, mode, res)
-    torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+    x = _t(_n(rng, (b, h, w, cin))).to(dev)
+    wt = _t(_u(rng, (cout, cin, 3, 3), 9 * cin)).to(dev)
+    res = _t(_n(rng, (b, h, w, cout))).to(dev) if mode == "res" else None
+    for dt, tol in ((torch.bfloat16, 3e-2), (torch.float32, 1e-4)):
+        got, ref = _pair(conv3, x.to(dt), wt, mode, res)
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+        scale = ref.float().abs().max().item()
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= tol * scale, f"{dt}: max abs err {err:.3e} > {tol} * {scale:.3e}"
 
 
 @pytest.mark.cuda

@@ -18,7 +18,7 @@ import torch
 
 from mp_hsir_tpu.ops import pallas_attention as PA
 from mp_hsir_tpu_torch.ops.kernels import _route
-from mp_hsir_tpu_torch.ops.kernels.conv3 import conv3, conv3_plain
+from mp_hsir_tpu_torch.ops.kernels.conv3 import CHUNK_K, TILE_N, conv3, conv3_plain, pack_weight
 from mp_hsir_tpu_torch.ops.kernels.gdfn import gdfn_plain
 from mp_hsir_tpu_torch.ops.kernels.spectral import (
     spectral_apply_plain, spectral_fold, spectral_stats_plain,
@@ -135,6 +135,26 @@ def test_conv3_matches_pallas(mode, cin, cout):
     got = conv3_plain(_t(x), _oihw(w), mode, _t(res) if mode == "res" else None)
     assert tuple(got.shape) == want.shape
     _close(got, want)
+
+
+@pytest.mark.parametrize("cin,cout", [(5, 7), (31, 64), (100, 48), (64, 512), (768, 100)])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_conv3_pack_weight_layout(cin, cout, dt):
+    """The weight layout the conv3 kernel stages: [Cout/64][Cin/16][9][16][64],
+    the unpadded block equal to the OIHW weight (tap 3 ky + kx), the padding
+    zeros."""
+    w = _t(_n(_rng(9), (cout, cin, 3, 3)))
+    wk = pack_weight(w, dt)
+    nt, nc = -(-cout // TILE_N), -(-cin // CHUNK_K)
+    assert wk.shape == (nt, nc, 9, CHUNK_K, TILE_N) and wk.dtype == dt and wk.is_contiguous()
+    # [nt][nc][tap][k][n] -> (Cout padded, Cin padded, 3, 3)
+    full = wk.permute(0, 4, 1, 3, 2).reshape(nt * TILE_N, nc * CHUNK_K, 3, 3)
+    assert torch.equal(full[:cout, :cin], w.to(dt))
+    pad = torch.ones_like(full, dtype=torch.bool)
+    pad[:cout, :cin] = False
+    assert not full[pad].any()
+    n, k, ky, kx = cout - 1, cin - 1, 2, 1
+    assert wk[n // TILE_N, k // CHUNK_K, 3 * ky + kx, k % CHUNK_K, n % TILE_N] == w[n, k, ky, kx].to(dt)
 
 
 def test_gdfn_with_exit_projection_matches_pallas():
