@@ -79,7 +79,21 @@ Phases (any failure exits non-zero; no phase's error is caught):
     in bf16 and float32, timed with its bound and beside one library call of
     the same function (F.multi_head_attention_forward with the bias and the
     label mask as a float attn_mask), itself held to the plain version.
-11. The kernel summary line, then the result line.
+11. Remote-sensing training kernels: every kernel call signature of the
+    100-band preset's train step (batch 32 of 64x64 patches, C up to 384
+    with 8 heads: the backward kernels' channel-chunked plans), bf16 and
+    float32, against the plain forward or the explicit plain backward (phase
+    2's tolerances); each call's plan bytes and channel chunk, time and
+    bound; the largest plan against the device's opt-in limit.
+12. Remote-sensing train step: the preset in training mode at full width on
+    seeded random weights (text-query LN biases drawn), float32 parameter
+    gradients against the plain step as in phase 6 at batch 8, then 11 bf16
+    AdamW steps at batch 32 x 100 x 64^2 (task ids over the 7 tasks) with
+    phase 6's launch checks: the median loss of the last 3 steps below the
+    first; ms per step (median of 8 after 3 warm-up) and peak memory, and
+    kernel ms per step from phase 11.
+13. The kernel summary line (each kernel's main-path numbers, and its
+    remote-sensing train-step numbers beside them), then the result line.
 """
 
 from __future__ import annotations
@@ -119,6 +133,9 @@ BF16_FAULTS = ("window projection transposed",)
 REQUESTS = 4
 SIZE = 512
 TRAIN_BATCH, TRAIN_SIZE, TRAIN_STEPS, TRAIN_WARMUP = 32, 64, 20, 3
+# remote-sensing train step: 3 warm-up + 8 timed steps; the float32 gradient
+# check's batch (the step itself runs TRAIN_BATCH)
+RS_TRAIN_STEPS, RS_GRAD_BATCH = 11, 8
 GRAD_TOL = 1e-3  # float32 train-step gradients, kernels vs plain, norm-wise per tensor
 
 KERNELS = {
@@ -305,6 +322,27 @@ def make_call(spec, dev, dt):
     raise KeyError(name)
 
 
+# the kernels whose plan is one function of the shape: (smem entry, chunk
+# entry or None, the shape's ints from the spec)
+PLAN_ENTRIES = {
+    "window_attention": ("mp_window_attention_smem", "mp_window_chunk", lambda s: s[4:6]),
+    "window_msa": ("mp_window_msa_smem", "mp_window_chunk", lambda s: s[2:4]),
+    "spectral_stats": ("mp_spectral_stats_smem", "mp_spectral_stats_chunk",
+                       lambda s: (s[4] + s[5], s[6])),
+    "spectral_apply": ("mp_spectral_apply_smem", "mp_spectral_apply_chunk",
+                       lambda s: (s[4] + s[5], int(s[11] > 0))),
+    "gdfn": ("mp_gdfn_smem", "mp_gdfn_chunk", lambda s: s[4:5]),
+    "mlp": ("mp_mlp_smem", None, lambda s: s[4:5]),
+    "mlp_bwd": ("mp_mlp_bwd_smem", "mp_mlp_bwd_chunk", lambda s: s[4:5]),
+    "window_attention_bwd": ("mp_window_attention_bwd_smem", "mp_window_attention_bwd_chunk",
+                             lambda s: s[4:6]),
+    "spectral_stats_bwd": ("mp_spectral_stats_bwd_smem", None, lambda s: s[4:6]),
+    "spectral_apply_bwd": ("mp_spectral_apply_bwd_smem", "mp_spectral_apply_bwd_chunk",
+                           lambda s: s[4:5]),
+    "gdfn_bwd": ("mp_gdfn_bwd_smem", "mp_gdfn_bwd_chunk", lambda s: s[4:5]),
+}
+
+
 def plan_of(spec) -> dict:
     """The shared-memory plan of one spec: ``smem``, the bytes of the plan
     the kernel launches with; ``smem_whole``, those of its whole-input plan
@@ -319,21 +357,13 @@ def plan_of(spec) -> dict:
         from mp_hsir_tpu_torch.ops.kernels.conv3 import CHUNK_K
         n = _build.plan_bytes("mp_conv3_smem", int(spec[-1] != "torch.float32"))
         return dict(smem=n, smem_whole=n, kc=CHUNK_K, c=spec[4])
-    if name == "window_attention":
-        smem_entry, chunk_entry, shape = "mp_window_attention_smem", "mp_window_chunk", spec[4:6]
-    elif name == "window_msa":
-        smem_entry, chunk_entry, shape = "mp_window_msa_smem", "mp_window_chunk", spec[2:4]
-    elif name == "spectral_stats":
-        smem_entry, chunk_entry = "mp_spectral_stats_smem", "mp_spectral_stats_chunk"
-        shape = (spec[4] + spec[5], spec[6])
-    elif name == "spectral_apply":
-        smem_entry, chunk_entry = "mp_spectral_apply_smem", "mp_spectral_apply_chunk"
-        shape = (spec[4] + spec[5], int(spec[11] > 0))
-    elif name == "gdfn":
-        smem_entry, chunk_entry, shape = "mp_gdfn_smem", "mp_gdfn_chunk", spec[4:5]
-    else:
-        raise KeyError(name)
-    c, kc = shape[0], _build.chunk(chunk_entry, *shape)
+    smem_entry, chunk_entry, shape_of = PLAN_ENTRIES[name]
+    shape = tuple(shape_of(spec))
+    c = shape[0]
+    if chunk_entry is None:  # a single whole-input plan
+        n = _build.plan_bytes(smem_entry, *shape)
+        return dict(smem=n, smem_whole=n, kc=c, c=c)
+    kc = _build.chunk(chunk_entry, *shape)
     return dict(smem=_build.plan_bytes(smem_entry, *shape, kc),
                 smem_whole=_build.plan_bytes(smem_entry, *shape, c), kc=kc, c=c)
 
@@ -877,11 +907,13 @@ def compare_pair(kernel, plain, tol):
     return worst, worst_rel
 
 
-def train_kernel_checks(specs: Counter, dev) -> list:
+def train_kernel_checks(specs: Counter, dev, streamed: bool = True) -> list:
     """Every kernel of the training route (the new ones, the apply kernel's
     drop-path option and the eval kernels at the step's shapes; conv3's
     backward dx calls are conv3 calls) at every call signature of the train
-    step, bf16 and float32, timed in bf16."""
+    step, bf16 and float32, timed in bf16, with its shared-memory plan;
+    ``streamed``: also time the resident forward calls streamed in
+    64-channel chunks."""
     from mp_hsir_tpu_torch.ops.kernels._route import plain_reference
 
     rows = []
@@ -904,7 +936,9 @@ def train_kernel_checks(specs: Counter, dev) -> list:
             kern = lambda fn=fn, args=args, kw=kw: fn(*args, **kw)  # noqa: E731
             plain = kern
         ms = time_ms(kern, 10)
-        ms_streamed = None if name.endswith("_bwd") else streamed_ms(spec, fn, args, kw)
+        ms_streamed = (None if name.endswith("_bwd") or not streamed
+                       else streamed_ms(spec, fn, args, kw))
+        plan = plan_of(spec)
 
         def run_plain():
             with plain_reference():
@@ -917,46 +951,45 @@ def train_kernel_checks(specs: Counter, dev) -> list:
                          max_abs_err_f32=err32, rel_err_f32=rel32, ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=bound_ms, bytes=byts, flops=flops,
                          bound_by="bytes" if byts / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
-                         ms_streamed=ms_streamed,
+                         ms_streamed=ms_streamed, smem=plan["smem"], smem_whole=plan["smem_whole"],
+                         kc=plan["kc"],
                          **(tflops(spec, args, flops, ms, lib_ms) if library else {})))
         log(f"  {name:20s} {str(spec[1:-1]):50s} x{mult:<2d} err {err:.2e} (rel {rel:.1e}, "
             f"f32 rel {rel32:.1e})  {ms:8.3f} ms  plain {plain_ms:8.3f}  "
-            f"lib {'-' if lib_ms is None else f'{lib_ms:.3f}'}  bound {bound_ms:.4f}"
+            f"lib {'-' if lib_ms is None else f'{lib_ms:.3f}'}  bound {bound_ms:.4f}  "
+            f"smem {plan['smem']} B at kc {plan['kc']} (whole input {plan['smem_whole']} B)"
             + ("" if ms_streamed is None else f"  streamed kc 64: {ms_streamed:.3f} ms")
             + log_tflops(rows[-1]))
         torch.cuda.empty_cache()
     return rows
 
 
-def train_batch(dev, b: int, size: int, seed: int = 2024) -> dict:
+def train_batch(dev, b: int, size: int, seed: int = 2024, bands: int = 31,
+                tasks: int = 1) -> dict:
     """Clean size x size patches, one quality cube per sample, sigma = 70
-    Gaussian noise from a torch.Generator on the card, task 0."""
-    clean = torch.from_numpy(np.stack([quality_cube(3000 + i, size)[0] for i in range(b)])).to(dev)
+    Gaussian noise from a torch.Generator on the card; task ids cycle over
+    the first ``tasks`` ids."""
+    clean = torch.from_numpy(np.stack([quality_cube(3000 + i, size, bands)[0]
+                                       for i in range(b)])).to(dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
     noise = torch.randn(clean.shape, generator=gen, device=dev)
     return dict(degraded=(clean + noise * (70 / 255.0)).clamp(0, 1), clean=clean,
-                task_id=torch.zeros(b, dtype=torch.long, device=dev))
+                task_id=torch.arange(b, device=dev) % tasks)
 
 
-def train_path(dev, expected: Counter) -> dict:
+def grad_check(dev, model, batch, what: str) -> dict:
+    """The float32 step's parameter gradients on the kernel path against the
+    plain float32 step on the card (per tensor, norm-wise, GRAD_TOL). The L1
+    loss's cotangent sign(pred - clean) / N flips for pixels within float32
+    noise of their target, so both paths take the plain step's loss
+    cotangent: the comparison then sees the backward kernels only."""
     import dataclasses
 
-    from mp_hsir_tpu_torch.checkpoint import load_params_npz
-    from mp_hsir_tpu_torch.config import TrainConfig, natural_scene_config
-    from mp_hsir_tpu_torch.models.mp_hsir import build_model
     from mp_hsir_tpu_torch.ops.kernels import _route
     from mp_hsir_tpu_torch.training.losses import l1_clamped
-    from mp_hsir_tpu_torch.training.trainer import create_train_state, train_step
 
-    cfg = natural_scene_config(compute_dtype="bfloat16")
-    model = build_model(cfg, dev, train=True)
-    load_params_npz(ART, model)
-    batch = train_batch(dev, TRAIN_BATCH, TRAIN_SIZE)
+    cfg = model.cfg
 
-    # float32 step gradients: kernels against the plain versions on the card.
-    # The L1 loss's cotangent sign(pred - clean) / N flips for pixels within
-    # float32 noise of their target, so both paths take the plain step's
-    # loss cotangent: the comparison then sees the backward kernels only.
     def grads(cot=None, degraded=None):
         model.zero_grad(set_to_none=True)
         gen = torch.Generator(device=dev).manual_seed(5)
@@ -978,6 +1011,7 @@ def train_path(dev, expected: Counter) -> dict:
             batch["degraded"].shape, generator=torch.Generator(device=dev).manual_seed(9), device=dev))
         _, g_n, _ = grads(cot, noisy)
     loss_k, g_k, _ = grads(cot)
+    model.cfg = cfg
 
     def rel(a, b):  # norm-wise relative difference of one tensor
         return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
@@ -986,7 +1020,7 @@ def train_path(dev, expected: Counter) -> dict:
                       (g_k[k] - g).abs().max().item() / max(g.abs().max().item(), 1e-30), k)
                      for k, g in g_p.items()), reverse=True)
     worst = rows_g[0]
-    log(f"  float32 step: loss kernels {loss_k:.6f} plain {loss_p:.6f}; per-tensor "
+    log(f"  float32 step ({what}): loss kernels {loss_k:.6f} plain {loss_p:.6f}; per-tensor "
         f"|g_kernel - g_plain| / |g_plain| (bound {GRAD_TOL}), the plain step's own change "
         f"for a 1e-6 input change, and max-abs error / max-abs, worst five:")
     for r in rows_g[:5]:
@@ -996,17 +1030,25 @@ def train_path(dev, expected: Counter) -> dict:
     del g_k, g_p, g_n
     model.zero_grad(set_to_none=True)
     torch.cuda.empty_cache()
+    return dict(f32_grad_worst=rows_g[:10], loss_f32_kernels=loss_k, loss_f32_plain=loss_p)
 
-    # bf16 AdamW steps from the committed weights; counters over all steps
-    model.cfg = cfg
-    tc = TrainConfig(warmup_frac=0.0)
-    state = create_train_state(cfg, tc, device=dev, model=model)
+
+def step_run(dev, model, batch, expected: Counter, steps: int, what: str) -> dict:
+    """bf16 AdamW steps (no warm-up of the rate) with the counters zeroed
+    before and read after: every kernel launches its expected count per step,
+    the recorded call signatures equal the enumerated ones, no plain version
+    runs; ms per step (median after TRAIN_WARMUP steps) and peak memory."""
+    from mp_hsir_tpu_torch.config import TrainConfig
+    from mp_hsir_tpu_torch.ops.kernels import _route
+    from mp_hsir_tpu_torch.training.trainer import create_train_state, train_step
+
+    state = create_train_state(model.cfg, TrainConfig(warmup_frac=0.0), device=dev, model=model)
     gen = torch.Generator(device=dev).manual_seed(2024)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _route.reset_counters()
     losses, times = [], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss = train_step(state, batch, gen)
@@ -1020,16 +1062,17 @@ def train_path(dev, expected: Counter) -> dict:
     plain_calls = _route.ROUTE.plain_cuda_calls
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     steady = times[TRAIN_WARMUP:]
+    b, bands, size = batch["degraded"].shape[:3]
     log("  losses: " + " ".join(f"{v:.5f}" for v in losses))
-    log(f"  ms per train step (bf16, batch {TRAIN_BATCH} x 31 x {TRAIN_SIZE}^2, median of "
+    log(f"  ms per train step ({what}, bf16, batch {b} x {bands} x {size}^2, median of "
         f"{len(steady)} after {TRAIN_WARMUP} warm-up): {statistics.median(steady):.2f} "
         f"(min {min(steady):.2f}, max {max(steady):.2f}); peak memory {peak_gib:.2f} GiB")
-    per_step = {k: v // TRAIN_STEPS for k, v in counts.items()}
+    per_step = {k: v // steps for k, v in counts.items()}
     log(f"  launches per step: {json.dumps(per_step)}; conv3 = 8 forward + 7 dx (the patch "
         f"embed's input needs no gradient); plain versions on CUDA tensors: {plain_calls}")
     if plain_calls:
         fail(f"{plain_calls} plain-version calls on CUDA tensors in the train steps")
-    want = Counter({k: v * TRAIN_STEPS for k, v in expected.items()})
+    want = Counter({k: v * steps for k, v in expected.items()})
     if recorded != want:
         fail(f"train kernel calls differ from the enumerated step: extra {dict(recorded - want)}, "
              f"missing {dict(want - recorded)}")
@@ -1037,14 +1080,62 @@ def train_path(dev, expected: Counter) -> dict:
     for spec, n in expected.items():
         exp_per[spec[0]] += n
     for name, n in exp_per.items():
-        if counts.get(name, 0) != n * TRAIN_STEPS:
-            fail(f"{name}: {counts.get(name, 0)} launches in {TRAIN_STEPS} steps, expected "
-                 f"{n * TRAIN_STEPS}")
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        fail(f"train loss did not fall over {TRAIN_STEPS} steps: {losses[0]} -> {losses[-1]}")
+        if counts.get(name, 0) != n * steps:
+            fail(f"{name}: {counts.get(name, 0)} launches in {steps} steps, expected {n * steps}")
+    if not all(np.isfinite(losses)):
+        fail(f"train loss not finite: {losses}")
     return dict(losses=losses, ms_per_step=times, median_ms=statistics.median(steady),
-                peak_gib=peak_gib, launches=counts, launches_per_step=per_step,
-                f32_grad_worst=rows_g[:10], loss_f32_kernels=loss_k, loss_f32_plain=loss_p)
+                peak_gib=peak_gib, launches=counts, launches_per_step=per_step)
+
+
+def train_path(dev, expected: Counter) -> dict:
+    from mp_hsir_tpu_torch.checkpoint import load_params_npz
+    from mp_hsir_tpu_torch.config import natural_scene_config
+    from mp_hsir_tpu_torch.models.mp_hsir import build_model
+
+    cfg = natural_scene_config(compute_dtype="bfloat16")
+    model = build_model(cfg, dev, train=True)
+    load_params_npz(ART, model)
+    batch = train_batch(dev, TRAIN_BATCH, TRAIN_SIZE)
+    checks = grad_check(dev, model, batch, f"batch {TRAIN_BATCH}")
+    # bf16 AdamW steps from the committed weights; counters over all steps
+    res = step_run(dev, model, batch, expected, TRAIN_STEPS, "flagship")
+    losses = res["losses"]
+    if not losses[-1] < losses[0]:
+        fail(f"train loss did not fall over {TRAIN_STEPS} steps: {losses[0]} -> {losses[-1]}")
+    return dict(res, **checks)
+
+
+def rs_train_path(dev, expected: Counter) -> dict:
+    """Phase 12: the remote-sensing preset's train step at full width on
+    seeded random weights (no trained remote-sensing checkpoint exists), the
+    TVSP text-query LN biases drawn as tests/test_torch_train.py draws them
+    (at their zero init the query gradients are float32 noise in both
+    paths). Task ids cycle over the preset's 7 tasks."""
+    from mp_hsir_tpu_torch.config import remote_sensing_config
+    from mp_hsir_tpu_torch.models.mp_hsir import build_model
+
+    cfg = remote_sensing_config(compute_dtype="bfloat16")
+    torch.manual_seed(RS_SEED)
+    model = build_model(cfg, dev, train=True)
+    rng = np.random.default_rng(RS_SEED)
+    with torch.no_grad():
+        for name, prm in model.named_parameters():
+            if name.endswith("cross_transformer.norm11.bias"):
+                prm.copy_(torch.from_numpy(0.5 * rng.standard_normal(prm.shape).astype(np.float32)))
+    bands, tasks = cfg.in_channels, cfg.task_classes
+    checks = grad_check(dev, model, train_batch(dev, RS_GRAD_BATCH, TRAIN_SIZE, bands=bands,
+                                                tasks=tasks),
+                        f"batch {RS_GRAD_BATCH} x {bands} x {TRAIN_SIZE}^2, tasks 0-{tasks - 1}")
+    batch = train_batch(dev, TRAIN_BATCH, TRAIN_SIZE, bands=bands, tasks=tasks)
+    res = step_run(dev, model, batch, expected, RS_TRAIN_STEPS, "remote sensing")
+    losses = res["losses"]
+    if not statistics.median(losses[-3:]) < losses[0]:
+        fail(f"remote-sensing train loss did not fall over {RS_TRAIN_STEPS} steps: first "
+             f"{losses[0]}, median of the last 3 {statistics.median(losses[-3:])}")
+    del model
+    torch.cuda.empty_cache()
+    return dict(res, **checks)
 
 
 # ---------------------------------------------------------------------------
@@ -1284,20 +1375,6 @@ def main() -> None:
         f"{worst['smem']} B ({worst['spec'][0]} {worst['spec'][1:-1]})")
     if worst["smem"] > limit:
         fail("a shared-memory plan exceeds the device's opt-in limit")
-    # the training kernels' plans at the preset's widths (its train step is
-    # not ported yet: the wrappers of plans over the limit raise)
-    d = rs_cfg.dim
-    for c, nh in ((d, rs_cfg.heads[0]), (2 * d, rs_cfg.heads[1]), (2 * d, rs_cfg.heads[0]),
-                  (4 * d, rs_cfg.heads[2])):
-        plans = {"window_attention_bwd": _build.plan_bytes("mp_window_attention_bwd_smem", c, nh),
-                 "spectral_stats_bwd": _build.plan_bytes("mp_spectral_stats_bwd_smem", c, nh),
-                 "spectral_apply_bwd": _build.plan_bytes("mp_spectral_apply_bwd_smem", c),
-                 "gdfn_bwd": _build.plan_bytes("mp_gdfn_bwd_smem", c),
-                 "mlp": _build.plan_bytes("mp_mlp_smem", c),
-                 "mlp_bwd": _build.plan_bytes("mp_mlp_bwd_smem", c)}
-        log(f"  training-kernel plans at C={c}, heads={nh}: " + ", ".join(
-            f"{k} {v} B{' (over)' if v > limit else ''}" for k, v in plans.items()))
-
     log(f"== phase 8: remote-sensing main path, bf16 {RS_SIZE}x{RS_SIZE}x100 forward on "
         f"seeded random weights")
     torch.manual_seed(RS_SEED)
@@ -1317,16 +1394,44 @@ def main() -> None:
     log("== phase 10: window MSA kernel (K14) through SpatialAttention")
     k14_rows, k14_launches = k14_path(dev)
 
+    rs_tspecs = train_path_specs(rs_cfg, TRAIN_BATCH, TRAIN_SIZE, "torch.bfloat16")
+    log(f"== phase 11: remote-sensing training kernels against their plain versions (bf16 and "
+        f"f32, batch {TRAIN_BATCH} x {TRAIN_SIZE}^2 step shapes)")
+    rs_train_rows = train_kernel_checks(rs_tspecs, dev, streamed=False)
+    worst = max(rs_train_rows, key=lambda r: r["smem"])
+    log(f"  shared memory: the device's opt-in limit {limit} B per block; largest plan "
+        f"{worst['smem']} B ({worst['spec'][0]} {worst['spec'][1:-1]})")
+    if worst["smem"] > limit:
+        fail("a shared-memory plan exceeds the device's opt-in limit")
+
+    log(f"== phase 12: remote-sensing train step, bf16 batch {TRAIN_BATCH} x 100 x "
+        f"{TRAIN_SIZE}^2 on seeded random weights")
+    log(card)
+    rs_train = rs_train_path(dev, rs_tspecs)
+    rs_step = summarize(rs_train_rows, rs_train["launches"], {n: KERNELS.get(n) or TRAIN_KERNELS[n]
+                        for n in sorted({r["spec"][0] for r in rs_train_rows})}, "per_step")
+    rs_train["kernel_ms_per_step"] = rs_step
+    log_kernel_ms("per remote-sensing train step (phase 11 calls x calls per step)", rs_step,
+                  "launches_per_step", rs_train["median_ms"])
+
     summary = summarize(rows, main_res["launches"], KERNELS, "per_forward")
     summary += summarize([r for r in train_rows if r["spec"][0] in TRAIN_KERNELS],
                          train_res["launches"], TRAIN_KERNELS, "per_step")
     summary += summarize(k14_rows, {"window_msa": k14_launches}, K14_KERNEL, "per_run")
+    # this slice's path beside each kernel's main-path numbers
+    by_name = {k["name"]: k for k in rs_step}
+    for k in summary:
+        if k["name"] in by_name:
+            k["remote_sensing_train"] = {key: by_name[k["name"]][key] for key in (
+                "launches", "launches_per_step", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by")}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
             json.dump(dict(card=card, build=_build.BUILD_INFO.get("seconds"), rows=rows,
                            main=main_res, cli=cli_res, train_rows=train_rows, train=train_res,
                            rs_rows=rs_rows, rs_main=rs_res, rs_cli=rs_cli, k14_rows=k14_rows,
+                           rs_train_rows=rs_train_rows, rs_train=rs_train,
                            smem_limit=limit, streamed=streamed, kernels=summary,
                            seconds=time.perf_counter() - t_start), fh, indent=1)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")

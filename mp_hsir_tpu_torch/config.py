@@ -52,16 +52,29 @@ def remote_sensing_config(**kw) -> ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Single-device training knobs (the fields of JAX ``TrainConfig``,
-    reference train.py:68-120, that the train step reads)."""
+    reference train.py:68-120, that the train step and its callers read)."""
 
     seed: int = 2024
     epochs: int = 100
     steps_per_epoch: int = 1000
+    batch_size: int = 32
     lr: float = 2e-4
     eta_min: float = 1e-6
     warmup_frac: float = 0.1
     weight_decay: float = 0.01  # torch AdamW default
+    patch_size: int = 64
+    data_type: str = "remote_sensing"  # or "natural_scene"
+    de_types: Tuple[str, ...] = ()
     grad_accum: int = 1
+
+    def de_types_resolved(self) -> Tuple[str, ...]:
+        """The degradations a training batch draws from: ``de_types``, else
+        the preset's own list (the remote-sensing one adds haze)."""
+        if self.de_types:
+            return self.de_types
+        if self.data_type == "natural_scene":
+            return ("gaussianN", "complexN", "blur", "sr", "inpaint", "bandmiss")
+        return ("gaussianN", "complexN", "blur", "sr", "inpaint", "haze", "bandmiss")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -161,51 +161,79 @@ cudaError_t launch_gdfn(const void* x, const float* lnw, const float* lnb, const
 // writes LN(x), t and d[a1 | a2] (float32) and the gated product for grad.cu
 // (depthwise backward, 1x1 + LN backward with the residual, weight products).
 // ---------------------------------------------------------------------------
-template <typename T>
+//
+// Shared memory: the LN'd halo is staged whole where that fits (every
+// natural-scene width); at C = 384 (295 KB whole) each halo pixel's LN mean
+// and rstd stay in shared memory and the halo streams in channel chunks of
+// kc for project_in (168 KB), re-read per hidden chunk. dy stays whole.
+template <typename T, bool kStream>
 __global__ void __launch_bounds__(kThreads)
 gdfn_bwd_kernel(const T* __restrict__ x, const float* __restrict__ lnw,
                 const float* __restrict__ lnb, const T* __restrict__ win,
                 const T* __restrict__ wdw, const T* __restrict__ wout, const T* __restrict__ dy,
                 T* __restrict__ xn_out, float* __restrict__ t_out, float* __restrict__ dc_out,
-                T* __restrict__ gated_out, int H, int W, int C, int hid, float eps) {
+                T* __restrict__ gated_out, int H, int W, int C, int hid, float eps, int kc) {
   extern __shared__ float sm[];
-  const int ldx = C + 1, ldt = 2 * kGC + 1;
-  float* xs = sm;                    // [100][ldx] LN(x) halo
-  float* ts = xs + kHaloPix * ldx;   // [100][ldt] project_in chunk: x1 | x2
+  const int ldc = kc + 1, ldx = C + 1, ldt = 2 * kGC + 1;
+  constexpr bool resident = !kStream;  // kc = C
+  float* xs = sm;                    // [100][ldc] LN(x) halo: whole or a chunk
+  float* ts = xs + kHaloPix * ldc;   // [100][ldt] project_in chunk: x1 | x2
   float* cs = ts + kHaloPix * ldt;   // [64][ldt] depthwise output a1 | a2
   float* dys = cs + kPix * ldt;      // [64][ldx] dy
+  float* mu = dys + kPix * ldx;      // streamed: [100] LN mean, then [100] rstd
+  float* rs = mu + kHaloPix;
   const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
   const int H2 = 2 * hid;
   auto inside = [&](int p) {
     const int r = ty * kTile + p / kHalo - 1, c = tx * kTile + p % kHalo - 1;
     return r >= 0 && r < H && c >= 0 && c < W;
   };
+  auto at = [&](int p, int k) {
+    const int r = ty * kTile + p / kHalo - 1, c = tx * kTile + p % kHalo - 1;
+    return to_f(x[(((size_t)b * H + r) * W + c) * C + k]);
+  };
   auto hp = [](int i) { return ((i >> 3) + 1) * kHalo + (i & 7) + 1; };
   auto pix = [&](int i) { return tile_pix(b, ty, tx, i, H, W); };
-  for (int idx = threadIdx.x; idx < kHaloPix * C; idx += blockDim.x) {
-    const int p = idx / C, k = idx - p * C;
-    const int r = ty * kTile + p / kHalo - 1, c = tx * kTile + p % kHalo - 1;
-    xs[p * ldx + k] = inside(p) ? to_f(x[(((size_t)b * H + r) * W + c) * C + k]) : 0.f;
-  }
   for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
     const int i = idx / C, k = idx - i * C;
     dys[i * ldx + k] = to_f(dy[pix(i) * C + k]);
   }
-  __syncthreads();
-  ln_rows_inplace<T>(xs, ldx, kHaloPix, C, lnw, lnb, eps, inside);
+  if (resident) {
+    for (int idx = threadIdx.x; idx < kHaloPix * C; idx += blockDim.x) {
+      const int p = idx / C, k = idx - p * C;
+      xs[p * ldc + k] = inside(p) ? at(p, k) : 0.f;
+    }
+    __syncthreads();
+    ln_rows_inplace<T>(xs, ldc, kHaloPix, C, lnw, lnb, eps, inside);
+  } else {
+    ln_stats_rows(mu, rs, kHaloPix, C, eps, at, inside);
+  }
   __syncthreads();
   for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
-    const int i = idx / C, k = idx - i * C;
-    xn_out[pix(i) * C + k] = from_f<T>(xs[hp(i) * ldx + k]);
+    const int i = idx / C, k = idx - i * C, p = hp(i);
+    const float v = resident ? xs[p * ldc + k]
+                             : rnd<T>((at(p, k) - mu[p]) * rs[p] * lnw[k] + lnb[k]);
+    xn_out[pix(i) * C + k] = from_f<T>(v);
   }
   for (int j0 = 0; j0 < hid; j0 += kGC) {
     const int hc = min(kGC, hid - j0);
     auto col = [&](int j) { return j < hc ? j0 + j : hid + j0 + (j - hc); };
-    gemm<T>(kHaloPix, 2 * hc, C,
-        [&](int i, int k) { return xs[i * ldx + k]; },
-        [&](int k, int j) { return to_f(win[(size_t)k * H2 + col(j)]); },
-        [&](int i, int j, float a) { ts[i * ldt + (j < hc ? j : kGC + j - hc)] = a; });
-    __syncthreads();
+    for (int c0 = 0; c0 < C; c0 += kc) {
+      const int nc = min(kc, C - c0);
+      if (!resident) {
+        load_chunk<T>(xs, ldc, kHaloPix, c0, nc, at, inside, mu, rs, lnw, lnb);
+        __syncthreads();
+      }
+      const bool first = c0 == 0, last = c0 + nc >= C;
+      gemm<T>(kHaloPix, 2 * hc, nc,
+          [&](int i, int k) { return xs[i * ldc + k]; },
+          [&](int k, int j) { return to_f(win[(size_t)(c0 + k) * H2 + col(j)]); },
+          [&](int i, int j, float a) {
+            chunk_acc(ts[i * ldt + (j < hc ? j : kGC + j - hc)], a, first, last,
+                      [](float v) { return v; });
+          });
+      __syncthreads();
+    }
     for (int idx = threadIdx.x; idx < kPix * 2 * hc; idx += blockDim.x) {
       const int i = idx / (2 * hc), j = idx - i * 2 * hc;
       t_out[pix(i) * H2 + col(j)] = ts[hp(i) * ldt + (j < hc ? j : kGC + j - hc)];
@@ -240,22 +268,38 @@ gdfn_bwd_kernel(const T* __restrict__ x, const float* __restrict__ lnw,
   }
 }
 
-inline size_t gdfn_bwd_smem(int C) {
-  return sizeof(float) * ((size_t)kHaloPix * (C + 1) + (size_t)kHaloPix * (2 * kGC + 1) +
-                          (size_t)kPix * (2 * kGC + 1) + (size_t)kPix * (C + 1));
+// The backward instance of a chunk: resident (the whole halo) where kc
+// covers C, a kernel of its own as the natural-scene widths' plan.
+template <typename T>
+inline auto gdfn_bwd_kernel_for(int kc, int C) {
+  return kc >= C ? gdfn_bwd_kernel<T, false> : gdfn_bwd_kernel<T, true>;
+}
+
+// kc = C: the whole halo; kc < C: a chunk of it and the LN statistics.
+inline size_t gdfn_bwd_smem(int C, int kc) {
+  const size_t whole = (size_t)kHaloPix * (kc + 1) + (size_t)kHaloPix * (2 * kGC + 1) +
+                       (size_t)kPix * (2 * kGC + 1) + (size_t)kPix * (C + 1);
+  return sizeof(float) * (kc >= C ? whole : whole + 2 * kHaloPix);
+}
+
+inline int gdfn_bwd_chunk(int C) {
+  return pick_chunk(C, [&](int kc) {
+    return plan_bytes(gdfn_bwd_kernel_for<float>(kc, C), gdfn_bwd_smem(C, kc));
+  });
 }
 
 template <typename T>
 cudaError_t launch_gdfn_bwd(const void* x, const float* lnw, const float* lnb, const void* win,
                             const void* wdw, const void* wout, const void* dy, void* xn, float* t,
-                            float* dc, void* gated, int B, int H, int W, int C, int hid,
+                            float* dc, void* gated, int B, int H, int W, int C, int hid, int kc,
                             float eps, cudaStream_t stream) {
-  const size_t smem = gdfn_bwd_smem(C);
-  cudaError_t err = set_smem(gdfn_bwd_kernel<T>, smem);
+  const size_t smem = gdfn_bwd_smem(C, kc);
+  const auto kernel = gdfn_bwd_kernel_for<T>(kc, C);
+  cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  gdfn_bwd_kernel<T><<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
+  kernel<<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
       (const T*)x, lnw, lnb, (const T*)win, (const T*)wdw, (const T*)wout, (const T*)dy, (T*)xn,
-      t, dc, (T*)gated, H, W, C, hid, eps);
+      t, dc, (T*)gated, H, W, C, hid, eps, kc);
   return cudaGetLastError();
 }
 
@@ -288,25 +332,29 @@ extern "C" long long mp_gdfn_smem(int C, int kc) {
   return mp::plan_bytes(mp::gdfn_kernel<float>, mp::gdfn_smem(C, kc));
 }
 
-extern "C" long long mp_gdfn_bwd_smem(int C) {
-  return mp::plan_bytes(mp::gdfn_bwd_kernel<float>, mp::gdfn_bwd_smem(C));
+extern "C" long long mp_gdfn_bwd_smem(int C, int kc) {
+  return mp::plan_bytes(mp::gdfn_bwd_kernel_for<float>(kc, C), mp::gdfn_bwd_smem(C, kc));
 }
+
+// The channel chunk the backward kernel launches with at C.
+extern "C" int mp_gdfn_bwd_chunk(int C) { return mp::gdfn_bwd_chunk(C); }
 
 // The per-tile half of the GDFN backward (no exit projection). dy (B, H, W,
 // C). Outputs: xn (B, H, W, C) LN(x) and gated (B, H, W, hid) in the compute
 // type; t and dc (B, H, W, 2*hid) float32: project_in output and the
-// cotangent at the depthwise output.
+// cotangent at the depthwise output. kc: the channel chunk (mp_gdfn_bwd_chunk).
 extern "C" int mp_gdfn_bwd(const void* x, const void* lnw, const void* lnb, const void* win,
                            const void* wdw, const void* wout, const void* dy, void* xn, void* t,
                            void* dc, void* gated, int dtype, int B, int H, int W, int C, int hid,
-                           float eps, void* stream) {
-  if (H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
+                           int kc, float eps, void* stream) {
+  if (H % mp::kTile != 0 || W % mp::kTile != 0 || kc <= 0 || kc > C)
+    return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   if (dtype == 0)
     return (int)mp::launch_gdfn_bwd<float>(x, (const float*)lnw, (const float*)lnb, win, wdw, wout,
                                            dy, xn, (float*)t, (float*)dc, gated, B, H, W, C, hid,
-                                           eps, st);
+                                           kc, eps, st);
   return (int)mp::launch_gdfn_bwd<__nv_bfloat16>(x, (const float*)lnw, (const float*)lnb, win, wdw,
                                                  wout, dy, xn, (float*)t, (float*)dc, gated, B, H,
-                                                 W, C, hid, eps, st);
+                                                 W, C, hid, kc, eps, st);
 }

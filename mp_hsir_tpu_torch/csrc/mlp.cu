@@ -51,7 +51,11 @@ mlp_kernel(const T* __restrict__ x, const float* __restrict__ lnw, const float* 
   }
 }
 
-template <typename T>
+// Shared memory: LN(x) and dy are staged whole where that fits (every
+// natural-scene width); at C = 384 (263 KB whole) each pixel's LN mean and
+// rstd stay in shared memory and both operands of the C-deep products (fc1,
+// dy fc2^T) stream in channel chunks of kc (117 KB), re-read per hidden chunk.
+template <typename T, bool kStream>
 __global__ void __launch_bounds__(kThreads)
 mlp_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float* __restrict__ lnw,
                const float* __restrict__ lnb, const T* __restrict__ w1,
@@ -59,35 +63,47 @@ mlp_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float* _
                const float* __restrict__ b2, const float* __restrict__ dp,
                T* __restrict__ xn_out, T* __restrict__ dh_out, T* __restrict__ gated_out,
                T* __restrict__ dys_out, float* __restrict__ pb2, float* __restrict__ pdp, int H,
-               int W, int C, int hid, float eps) {
+               int W, int C, int hid, float eps, int kc) {
   extern __shared__ float sm[];
   __shared__ float red[kThreads / 32];
-  const int ld = C + 1, ldh = 2 * kHC + 1, ldg = kHC + 1;
-  float* xs = sm;                // [64][ld] LN(x), rounded
-  float* ds = xs + kPix * ld;    // [64][ld] dy
-  float* hs = ds + kPix * ld;    // [64][ldh] a | g of one chunk (float32)
+  const int ldc = kc + 1, ldh = 2 * kHC + 1, ldg = kHC + 1;
+  constexpr bool resident = !kStream;  // kc = C
+  float* xs = sm;                // [64][ldc] LN(x), rounded: whole or a chunk
+  float* ds = xs + kPix * ldc;   // [64][ldc] dy: whole or a chunk
+  float* hs = ds + kPix * ldc;   // [64][ldh] a | g of one chunk (float32)
   float* gs = hs + kPix * ldh;   // [64][ldg] gated (rounded)
   float* dg = gs + kPix * ldg;   // [64][ldg] dgated
+  float* dq = dg + kPix * ldg;   // streamed: [64][ldg] dy fc2^T (the d s_b product)
+  float* mu = dq + kPix * ldg;   // streamed: [64] LN mean, then [64] rstd
+  float* rs = mu + kPix;
   const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
   const int tile = (b * (H / kTile) + ty) * (W / kTile) + tx;
   const float s = dp == nullptr ? 1.f : dp[b];
   auto pix = [&](int i) { return tile_pix(b, ty, tx, i, H, W); };
+  auto xat = [&](int i, int k) { return to_f(x[pix(i) * C + k]); };
+  auto dyat = [&](int i, int k) { return to_f(dy[pix(i) * C + k]); };
+  auto all = [](int) { return true; };
 
-  for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
-    const int i = idx / C, k = idx - i * C;
-    xs[i * ld + k] = to_f(x[pix(i) * C + k]);
-    ds[i * ld + k] = to_f(dy[pix(i) * C + k]);
+  if (resident) {
+    for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
+      const int i = idx / C, k = idx - i * C;
+      xs[i * ldc + k] = xat(i, k);
+      ds[i * ldc + k] = dyat(i, k);
+    }
+    __syncthreads();
+    ln_rows_inplace<T>(xs, ldc, kPix, C, lnw, lnb, eps, all);
+  } else {
+    ln_stats_rows(mu, rs, kPix, C, eps, xat, all);
   }
-  __syncthreads();
-  ln_rows_inplace<T>(xs, ld, kPix, C, lnw, lnb, eps, [](int) { return true; });
   float part = 0.f;  // this thread's share of d s_b
   for (int k = threadIdx.x; k < C; k += blockDim.x) {
     float sb = 0.f, db = 0.f;
     for (int i = 0; i < kPix; ++i) {
-      const float d = rnd<T>(ds[i * ld + k] * s);
+      const float d0 = resident ? ds[i * ldc + k] : dyat(i, k);
+      const float d = rnd<T>(d0 * s);
       dys_out[pix(i) * C + k] = from_f<T>(d);
       db += d;
-      sb += ds[i * ld + k];
+      sb += d0;
     }
     pb2[(size_t)tile * C + k] = db;
     part = fmaf(sb, b2[k], part);
@@ -95,16 +111,29 @@ mlp_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float* _
   __syncthreads();
   for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
     const int i = idx / C, k = idx - i * C;
-    xn_out[pix(i) * C + k] = from_f<T>(xs[i * ld + k]);
+    const float v = resident ? xs[i * ldc + k]
+                             : rnd<T>((xat(i, k) - mu[i]) * rs[i] * lnw[k] + lnb[k]);
+    xn_out[pix(i) * C + k] = from_f<T>(v);
   }
   for (int j0 = 0; j0 < hid; j0 += kHC) {
     const int hc = min(kHC, hid - j0);
     auto col1 = [&](int j) { return j < hc ? j0 + j : hid + j0 + (j - hc); };
-    gemm<T>(kPix, 2 * hc, C,
-        [&](int i, int k) { return xs[i * ld + k]; },
-        [&](int k, int j) { return to_f(w1[(size_t)k * 2 * hid + col1(j)]); },
-        [&](int i, int j, float acc) { hs[i * ldh + (j < hc ? j : kHC + j - hc)] = acc + b1[col1(j)]; });
-    __syncthreads();
+    for (int c0 = 0; c0 < C; c0 += kc) {  // [a | g] = LN(x) fc1 + b1
+      const int nc = min(kc, C - c0);
+      if (!resident) {
+        load_chunk<T>(xs, ldc, kPix, c0, nc, xat, all, mu, rs, lnw, lnb);
+        __syncthreads();
+      }
+      const bool first = c0 == 0, last = c0 + nc >= C;
+      gemm<T>(kPix, 2 * hc, nc,
+          [&](int i, int k) { return xs[i * ldc + k]; },
+          [&](int k, int j) { return to_f(w1[(size_t)(c0 + k) * 2 * hid + col1(j)]); },
+          [&](int i, int j, float acc) {
+            chunk_acc(hs[i * ldh + (j < hc ? j : kHC + j - hc)], acc, first, last,
+                      [&](float v) { return v + b1[col1(j)]; });
+          });
+      __syncthreads();
+    }
     for (int idx = threadIdx.x; idx < kPix * hc; idx += blockDim.x) {
       const int p = idx / hc, j = idx - p * hc;
       const float gv = rnd<T>(hs[p * ldh + j] * gelu_erf(hs[p * ldh + kHC + j]));
@@ -112,17 +141,31 @@ mlp_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float* _
       gated_out[pix(p) * hid + j0 + j] = from_f<T>(gv);
     }
     __syncthreads();
-    if (dp != nullptr) {
-      gemm<T>(kPix, hc, C,
-          [&](int i, int k) { return ds[i * ld + k]; },
-          [&](int k, int j) { return to_f(w2[(size_t)(j0 + j) * C + k]); },
-          [&](int i, int j, float acc) { part = fmaf(gs[i * ldg + j], acc, part); });
+    for (int c0 = 0; c0 < C; c0 += kc) {  // dy fc2^T, and dgated = dys fc2^T
+      const int nc = min(kc, C - c0);
+      if (!resident) {
+        load_chunk<T>(ds, ldc, kPix, c0, nc, dyat, all, nullptr, nullptr, nullptr, nullptr);
+        __syncthreads();
+      }
+      const bool first = c0 == 0, last = c0 + nc >= C;
+      if (dp != nullptr) {
+        gemm<T>(kPix, hc, nc,
+            [&](int i, int k) { return ds[i * ldc + k]; },
+            [&](int k, int j) { return to_f(w2[(size_t)(j0 + j) * C + c0 + k]); },
+            [&](int i, int j, float acc) {
+              auto use = [&](float v) { part = fmaf(gs[i * ldg + j], v, part); return v; };
+              if (resident) use(acc);
+              else chunk_acc(dq[i * ldg + j], acc, first, last, use);
+            });
+      }
+      gemm<T>(kPix, hc, nc,
+          [&](int i, int k) { return rnd<T>(ds[i * ldc + k] * s); },
+          [&](int k, int j) { return to_f(w2[(size_t)(j0 + j) * C + c0 + k]); },
+          [&](int i, int j, float acc) {
+            chunk_acc(dg[i * ldg + j], acc, first, last, [](float v) { return v; });
+          });
+      __syncthreads();
     }
-    gemm<T>(kPix, hc, C,
-        [&](int i, int k) { return rnd<T>(ds[i * ld + k] * s); },
-        [&](int k, int j) { return to_f(w2[(size_t)(j0 + j) * C + k]); },
-        [&](int i, int j, float acc) { dg[i * ldg + j] = acc; });
-    __syncthreads();
     for (int idx = threadIdx.x; idx < kPix * 2 * hc; idx += blockDim.x) {
       const int p = idx / (2 * hc), jj = idx - p * 2 * hc;
       const int j = jj < hc ? jj : jj - hc;
@@ -142,9 +185,25 @@ inline size_t mlp_smem(int C) {
   return sizeof(float) * ((size_t)2 * kPix * (C + 1) + (size_t)kPix * (2 * kHC + 1));
 }
 
-inline size_t mlp_bwd_smem(int C) {
-  return sizeof(float) * ((size_t)2 * kPix * (C + 1) + (size_t)kPix * (2 * kHC + 1) +
-                          (size_t)2 * kPix * (kHC + 1));
+// The backward instance of a chunk: resident (LN(x) and dy whole) where kc
+// covers C, a kernel of its own as the natural-scene widths' plan.
+template <typename T>
+inline auto mlp_bwd_kernel_for(int kc, int C) {
+  return kc >= C ? mlp_bwd_kernel<T, false> : mlp_bwd_kernel<T, true>;
+}
+
+// kc = C: LN(x) and dy whole; kc < C: their chunks, the d s_b product's
+// chunk sums and the LN statistics.
+inline size_t mlp_bwd_smem(int C, int kc) {
+  const size_t whole = (size_t)2 * kPix * (kc + 1) + (size_t)kPix * (2 * kHC + 1) +
+                       (size_t)2 * kPix * (kHC + 1);
+  return sizeof(float) * (kc >= C ? whole : whole + (size_t)kPix * (kHC + 1) + 2 * kPix);
+}
+
+inline int mlp_bwd_chunk(int C) {
+  return pick_chunk(C, [&](int kc) {
+    return plan_bytes(mlp_bwd_kernel_for<float>(kc, C), mlp_bwd_smem(C, kc));
+  });
 }
 
 template <typename T>
@@ -165,14 +224,15 @@ template <typename T>
 cudaError_t launch_mlp_bwd(const void* x, const void* dy, const float* lnw, const float* lnb,
                            const void* w1, const float* b1, const void* w2, const float* b2,
                            const float* dp, void* xn, void* dh, void* gated, void* dys,
-                           float* pb2, float* pdp, int B, int H, int W, int C, int hid, float eps,
-                           cudaStream_t stream) {
-  const size_t smem = mlp_bwd_smem(C);
-  cudaError_t err = set_smem(mlp_bwd_kernel<T>, smem);
+                           float* pb2, float* pdp, int B, int H, int W, int C, int hid, int kc,
+                           float eps, cudaStream_t stream) {
+  const size_t smem = mlp_bwd_smem(C, kc);
+  const auto kernel = mlp_bwd_kernel_for<T>(kc, C);
+  cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  mlp_bwd_kernel<T><<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
+  kernel<<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
       (const T*)x, (const T*)dy, lnw, lnb, (const T*)w1, b1, (const T*)w2, b2, dp, (T*)xn,
-      (T*)dh, (T*)gated, (T*)dys, pb2, pdp, H, W, C, hid, eps);
+      (T*)dh, (T*)gated, (T*)dys, pb2, pdp, H, W, C, hid, eps, kc);
   return cudaGetLastError();
 }
 
@@ -197,28 +257,34 @@ extern "C" int mp_mlp(const void* x, const void* lnw, const void* lnb, const voi
 // The per-tile half of the MLP backward. Outputs: xn (B, H, W, C) LN(x), dh
 // (B, H, W, 2*hid), gated (B, H, W, hid), dys (B, H, W, C), all in the compute
 // type; pb2 (tiles, C) and pdp (tiles,) float32 partials (pdp only with dp).
+// kc: the channel chunk (mp_mlp_bwd_chunk).
 extern "C" int mp_mlp_bwd(const void* x, const void* dy, const void* lnw, const void* lnb,
                           const void* w1, const void* b1, const void* w2, const void* b2,
                           const void* dp, void* xn, void* dh, void* gated, void* dys, void* pb2,
-                          void* pdp, int dtype, int B, int H, int W, int C, int hid, float eps,
-                          void* stream) {
-  if (H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
+                          void* pdp, int dtype, int B, int H, int W, int C, int hid, int kc,
+                          float eps, void* stream) {
+  if (H % mp::kTile != 0 || W % mp::kTile != 0 || kc <= 0 || kc > C)
+    return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   auto f = [](const void* p) { return (const float*)p; };
   if (dtype == 0)
     return (int)mp::launch_mlp_bwd<float>(x, dy, f(lnw), f(lnb), w1, f(b1), w2, f(b2), f(dp), xn,
                                           dh, gated, dys, (float*)pb2, (float*)pdp, B, H, W, C,
-                                          hid, eps, st);
+                                          hid, kc, eps, st);
   return (int)mp::launch_mlp_bwd<__nv_bfloat16>(x, dy, f(lnw), f(lnb), w1, f(b1), w2, f(b2),
                                                 f(dp), xn, dh, gated, dys, (float*)pb2,
-                                                (float*)pdp, B, H, W, C, hid, eps, st);
+                                                (float*)pdp, B, H, W, C, hid, kc, eps, st);
 }
 
-// Shared-memory plans per block (bytes, static included).
+// The channel chunk the backward kernel launches with at C.
+extern "C" int mp_mlp_bwd_chunk(int C) { return mp::mlp_bwd_chunk(C); }
+
+// Shared-memory plans per block (bytes, static included); the backward's at
+// channel chunk kc.
 extern "C" long long mp_mlp_smem(int C) {
   return mp::plan_bytes(mp::mlp_kernel<float>, mp::mlp_smem(C));
 }
 
-extern "C" long long mp_mlp_bwd_smem(int C) {
-  return mp::plan_bytes(mp::mlp_bwd_kernel<float>, mp::mlp_bwd_smem(C));
+extern "C" long long mp_mlp_bwd_smem(int C, int kc) {
+  return mp::plan_bytes(mp::mlp_bwd_kernel_for<float>(kc, C), mp::mlp_bwd_smem(C, kc));
 }

@@ -467,7 +467,14 @@ spectral_stats_bwd_kernel(const T* __restrict__ x, const float* __restrict__ lnw
 // dy * dp (rounded) feeds dv = dys comb^T and the dcomb product; the gate and
 // residual epilogues give the extra input cotangent dys * g + dy; with dp the
 // per-tile partial of d dp = sum dy * (v comb + u g).
-template <typename T>
+//
+// Shared memory: the halo input is staged whole where that fits (every
+// natural-scene width; v in kVC-wide chunks); at C = 384 (266 KB whole) each
+// halo pixel's LN statistics stay in shared memory and the halo streams in
+// channel chunks of kc per kVCw-wide v chunk (198 KB: the chunks share one
+// region with dys, as the forward's with y; `apply_plan`, without the tail).
+// v stays whole. The resident plan is a kernel instance of its own.
+template <typename T, bool kStream>
 __global__ void __launch_bounds__(kThreads)
 spectral_apply_bwd_kernel(const T* __restrict__ x, const float* __restrict__ lnw,
                           const float* __restrict__ lnb, const T* __restrict__ wqkv,
@@ -477,16 +484,21 @@ spectral_apply_bwd_kernel(const T* __restrict__ x, const float* __restrict__ lnw
                           float* __restrict__ t_out, T* __restrict__ v_out,
                           T* __restrict__ dys_out, float* __restrict__ dv_out,
                           float* __restrict__ extra_out, float* __restrict__ pdp, int H, int W,
-                          int C, int shift, float eps) {
+                          int C, int shift, float eps, int kc) {
   extern __shared__ float sm[];
   __shared__ float red[kThreads / 32];
   const int C3 = 3 * C;
-  const int ldx = C + 1, ldv = kVC + 1;
-  float* xs = sm;                     // [100][ldx] halo input; later dys [64][ldx]
-  float* vt = xs + kHaloPix * ldx;    // [100][ldv] 1x1 output chunk
-  float* vs = vt + kHaloPix * ldv;    // [64][ldx] v
+  constexpr bool resident = !kStream;  // kc = C
+  const ApplyPlan plan = apply_plan<kStream>(kc, C);
+  const int ldc = plan.kc + 1, ldx = C + 1, ldv = plan.nv + 1;
+  float* xs = sm;                       // [100][ldc] halo input: whole or a chunk
+  float* vt = xs + kHaloPix * ldc;      // [100][ldv] 1x1 output chunk
+  float* vs = sm + plan.front(C);       // [64][ldx] v
+  float* mu = vs + kPix * ldx;          // streamed: [100] LN mean, then [100] rstd
+  float* rs = mu + kHaloPix;
   const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
   const int tile = (b * (H / kTile) + ty) * (W / kTile) + tx;
+  const Halo<T> hl{x, (const T*)nullptr, C, 0, b, ty, tx, H, W, shift};
   auto hp = [](int i) { return ((i >> 3) + 1) * kHalo + (i & 7) + 1; };
   // raw input pixel behind unrolled-frame pixel i (the roll-back)
   auto src = [&](int i) {
@@ -497,27 +509,47 @@ spectral_apply_bwd_kernel(const T* __restrict__ x, const float* __restrict__ lnw
     const int r = (ty * kTile + (i >> 3) - shift + H) % H, c = (tx * kTile + (i & 7) - shift + W) % W;
     return to_f(gate[(((size_t)b * (H / kTile) + r / kTile) * (W / kTile) + c / kTile) * C + j]);
   };
-
-  load_halo<T>(xs, ldx, x, (const T*)nullptr, C, 0, b, ty, tx, H, W, shift, lnw, lnb, eps);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
-    const int i = idx / C, k = idx - i * C;
-    un_out[tile_pix(b, ty, tx, i, H, W) * C + k] = from_f<T>(xs[hp(i) * ldx + k]);
-  }
-  for (int c0 = 0; c0 < C; c0 += kVC) {
-    const int nc = min(kVC, C - c0);
-    gemm<T>(kHaloPix, nc, C,
-        [&](int i, int k) { return xs[i * ldx + k]; },
-        [&](int k, int j) { return to_f(wqkv[(size_t)k * C3 + 2 * C + c0 + j]); },
-        [&](int i, int j, float acc) { vt[i * ldv + j] = rnd<T>(acc); });
-    __syncthreads();
+  // the (LN'd) input of this tile's pixels, channels [c0, c0 + nc) of xs
+  auto write_un = [&](int c0, int nc) {
     for (int idx = threadIdx.x; idx < kPix * nc; idx += blockDim.x) {
-      const int i = idx / nc, j = idx - i * nc;
-      t_out[tile_pix(b, ty, tx, i, H, W) * C + c0 + j] = vt[hp(i) * ldv + j];
+      const int i = idx / nc, k = idx - i * nc;
+      un_out[tile_pix(b, ty, tx, i, H, W) * C + c0 + k] = from_f<T>(xs[hp(i) * ldc + k]);
     }
-    dwconv3_tile(vt, ldv, nc,
-        [&](int tap, int j) { return to_f(wdw[tap * C3 + 2 * C + c0 + j]); },
-        [&](int p, int j, float acc) { vs[p * ldx + c0 + j] = rnd<T>(acc); });
+  };
+
+  if (resident) {
+    load_halo<T>(xs, ldc, x, (const T*)nullptr, C, 0, b, ty, tx, H, W, shift, lnw, lnb, eps);
+    __syncthreads();
+    write_un(0, C);
+  } else if (lnw != nullptr) {
+    halo_stats(mu, rs, hl, eps);
+    __syncthreads();
+  }
+  for (int v0 = 0; v0 < C; v0 += plan.nv) {
+    const int nvc = min(plan.nv, C - v0);
+    for (int c0 = 0; c0 < C; c0 += plan.kc) {
+      const int nc = min(plan.kc, C - c0);
+      if (!resident) {
+        halo_chunk(xs, ldc, hl, c0, nc, mu, rs, lnw, lnb);
+        __syncthreads();
+        if (v0 == 0) write_un(c0, nc);
+      }
+      const bool first = c0 == 0, last = c0 + nc >= C;
+      gemm<T>(kHaloPix, nvc, nc,
+          [&](int i, int k) { return xs[i * ldc + k]; },
+          [&](int k, int j) { return to_f(wqkv[(size_t)(c0 + k) * C3 + 2 * C + v0 + j]); },
+          [&](int i, int j, float acc) {
+            chunk_acc(vt[i * ldv + j], acc, first, last, [](float v) { return rnd<T>(v); });
+          });
+      __syncthreads();
+    }
+    for (int idx = threadIdx.x; idx < kPix * nvc; idx += blockDim.x) {
+      const int i = idx / nvc, j = idx - i * nvc;
+      t_out[tile_pix(b, ty, tx, i, H, W) * C + v0 + j] = vt[hp(i) * ldv + j];
+    }
+    dwconv3_tile(vt, ldv, nvc,
+        [&](int tap, int j) { return to_f(wdw[tap * C3 + 2 * C + v0 + j]); },
+        [&](int p, int j, float acc) { vs[p * ldx + v0 + j] = rnd<T>(acc); });
     __syncthreads();
   }
   const float dpb = dp == nullptr ? 1.f : dp[b];
@@ -578,9 +610,21 @@ inline size_t stats_bwd_smem(int C, int nH) {
                           (size_t)kPix * (2 * dh + 1));
 }
 
-inline size_t apply_bwd_smem(int C) {
-  return sizeof(float) * ((size_t)kHaloPix * (C + 1) + (size_t)kHaloPix * (kVC + 1) +
-                          (size_t)kPix * (C + 1));
+// The halo stage (or dys) and v; kc < C adds the LN statistics.
+inline size_t apply_bwd_smem(int C, int kc) {
+  return apply_smem(C, false, kc) + (kc >= C ? 0 : sizeof(float) * 2 * kHaloPix);
+}
+
+// The apply backward instance of a chunk: resident where kc covers C.
+template <typename T>
+inline auto apply_bwd_kernel(int kc, int C) {
+  return kc >= C ? spectral_apply_bwd_kernel<T, false> : spectral_apply_bwd_kernel<T, true>;
+}
+
+inline int apply_bwd_chunk(int C) {
+  return pick_chunk(C, [&](int kc) {
+    return plan_bytes(apply_bwd_kernel<float>(kc, C), apply_bwd_smem(C, kc));
+  });
 }
 
 template <typename T>
@@ -602,15 +646,16 @@ cudaError_t launch_apply_bwd(const void* x, const float* lnw, const float* lnb, 
                              const void* wdw, const float* comb, const void* gate,
                              const float* dp, int residual, const void* dy, void* un, float* t,
                              void* v, void* dys, float* dv, float* extra, float* pdp,
-                             float* dgate, int B, int H, int W, int C, int shift, float eps,
-                             cudaStream_t stream) {
-  const size_t smem = apply_bwd_smem(C);
-  cudaError_t err = set_smem(spectral_apply_bwd_kernel<T>, smem);
+                             float* dgate, int B, int H, int W, int C, int shift, int kc,
+                             float eps, cudaStream_t stream) {
+  const size_t smem = apply_bwd_smem(C, kc);
+  const auto kernel = apply_bwd_kernel<T>(kc, C);
+  cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(W / kTile, H / kTile, B);
-  spectral_apply_bwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       (const T*)x, lnw, lnb, (const T*)wqkv, (const T*)wdw, comb, (const T*)gate, dp, residual,
-      (const T*)dy, (T*)un, t, (T*)v, (T*)dys, dv, extra, pdp, H, W, C, shift, eps);
+      (const T*)dy, (T*)un, t, (T*)v, (T*)dys, dv, extra, pdp, H, W, C, shift, eps, kc);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (gate != nullptr)
     spectral_gate_grad_kernel<T><<<grid, 256, 0, stream>>>((const T*)dys, (const T*)x, dgate, H,
@@ -696,9 +741,12 @@ extern "C" long long mp_spectral_stats_bwd_smem(int C, int nH) {
   return mp::plan_bytes(mp::spectral_stats_bwd_kernel<float>, mp::stats_bwd_smem(C, nH));
 }
 
-extern "C" long long mp_spectral_apply_bwd_smem(int C) {
-  return mp::plan_bytes(mp::spectral_apply_bwd_kernel<float>, mp::apply_bwd_smem(C));
+extern "C" long long mp_spectral_apply_bwd_smem(int C, int kc) {
+  return mp::plan_bytes(mp::apply_bwd_kernel<float>(kc, C), mp::apply_bwd_smem(C, kc));
 }
+
+// The channel chunk the apply backward kernel launches with at C.
+extern "C" int mp_spectral_apply_bwd_chunk(int C) { return mp::apply_bwd_chunk(C); }
 
 // Backward of mp_spectral_stats for one raw input (no x2). Inputs: x, LN,
 // wqkv [C][3C], wdw [9][3C] as in the forward; dgram (B, C, dh), dnq / dnk
@@ -727,22 +775,25 @@ extern "C" int mp_spectral_stats_bwd(const void* x, const void* lnw, const void*
 // output), v, dys (dy * dp, rounded), dv (float32), extra (float32 input
 // cotangent of the gate / residual epilogue; NULL when neither), pdp
 // (per-tile d dp partials; NULL without dp), dgate (B, H/8, W/8, C) float32.
+// kc: the channel chunk (mp_spectral_apply_bwd_chunk).
 extern "C" int mp_spectral_apply_bwd(const void* x, const void* lnw, const void* lnb,
                                      const void* wqkv, const void* wdw, const void* comb,
                                      const void* gate, const void* dp, const void* dy, void* un,
                                      void* t, void* v, void* dys, void* dv, void* extra,
                                      void* pdp, void* dgate, int dtype, int B, int H, int W,
-                                     int C, int residual, int shift, float eps, void* stream) {
-  if (H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
+                                     int C, int residual, int shift, int kc, float eps,
+                                     void* stream) {
+  if (H % mp::kTile != 0 || W % mp::kTile != 0 || kc <= 0 || kc > C)
+    return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   auto f = [](const void* p) { return (const float*)p; };
   if (dtype == 0)
     return (int)mp::launch_apply_bwd<float>(x, f(lnw), f(lnb), wqkv, wdw, f(comb), gate, f(dp),
                                             residual, dy, un, (float*)t, v, dys, (float*)dv,
                                             (float*)extra, (float*)pdp, (float*)dgate, B, H, W,
-                                            C, shift, eps, st);
+                                            C, shift, kc, eps, st);
   return (int)mp::launch_apply_bwd<__nv_bfloat16>(x, f(lnw), f(lnb), wqkv, wdw, f(comb), gate,
                                                   f(dp), residual, dy, un, (float*)t, v, dys,
                                                   (float*)dv, (float*)extra, (float*)pdp,
-                                                  (float*)dgate, B, H, W, C, shift, eps, st);
+                                                  (float*)dgate, B, H, W, C, shift, kc, eps, st);
 }

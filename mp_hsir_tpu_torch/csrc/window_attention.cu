@@ -255,7 +255,13 @@ cudaError_t launch_window_msa(const void* x, const void* wqkv, const float* bqkv
 // relative-bias and bp cotangents; grad.cu does the qkv/LN backward (rolling
 // dx back) and the weight products.
 // ---------------------------------------------------------------------------
-template <typename T>
+//
+// Shared memory: LN(x) and dy are staged whole where that fits (every
+// natural-scene width, and C = 192 with 2 heads at 231 KB); at C = 384 with 8
+// heads (280 KB whole) each pixel's LN mean and rstd stay in shared memory
+// and both operands of the C-deep products (qkv, do) stream in channel chunks
+// of kc, re-read per head (117 KB).
+template <typename T, bool kStream>
 __global__ void __launch_bounds__(kThreads)
 window_attention_bwd_kernel(const T* __restrict__ x, const float* __restrict__ lnw,
                             const float* __restrict__ lnb, const T* __restrict__ wqkv,
@@ -265,45 +271,66 @@ window_attention_bwd_kernel(const T* __restrict__ x, const float* __restrict__ l
                             T* __restrict__ xn_out, T* __restrict__ o_out,
                             T* __restrict__ dyt_out, T* __restrict__ dqkv_out,
                             float* __restrict__ pbias, float* __restrict__ pbp, int H, int W,
-                            int C, int nH, int shift, float eps) {
+                            int C, int nH, int shift, float eps, int kc) {
   extern __shared__ float sm[];
   __shared__ int lab[kPix];
   const int dh = C / nH, C3 = 3 * C;
-  const int ldx = C + 1, ldq = 3 * dh + 1, lds = kPix + 1, ldo = dh + 1;
-  float* xs = sm;                // [64][ldx] LN(x)
-  float* dys = xs + kPix * ldx;  // [64][ldx] dy + dpool / 64, then rounded
-  float* qkv = dys + kPix * ldx; // [64][ldq] q | k | v of one head
+  const int ldc = kc + 1, ldq = 3 * dh + 1, lds = kPix + 1, ldo = dh + 1;
+  constexpr bool resident = !kStream;  // kc = C
+  float* xs = sm;                // [64][ldc] LN(x): whole or a chunk
+  float* dys = xs + kPix * ldc;  // [64][ldc] dy + dpool / 64, rounded: whole or a chunk
+  float* qkv = dys + kPix * ldc; // [64][ldq] q | k | v of one head
   float* s = qkv + kPix * ldq;   // [64][lds] A
   float* d = s + kPix * lds;     // [64][lds] dA, then dS
   float* dos = d + kPix * lds;   // [64][ldo] do of one head (rounded)
+  float* mu = dos + kPix * ldo;  // streamed: [64] LN mean, then [64] rstd
+  float* rs = mu + kPix;
   const int wx = blockIdx.x, wy = blockIdx.y, b = blockIdx.z;
   const int win = (b * (H / kTile) + wy) * (W / kTile) + wx;
   auto fp = [&](int i) { return tile_pix(b, wy, wx, i, H, W); };  // rolled-frame pixel
-
-  for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
-    const int i = idx / C, k = idx - i * C;
+  auto xat = [&](int i, int k) {
     const int sr = (wy * kTile + (i >> 3) + shift) % H, sc = (wx * kTile + (i & 7) + shift) % W;
-    xs[i * ldx + k] = to_f(x[(((size_t)b * H + sr) * W + sc) * C + k]);
-    dys[i * ldx + k] = to_f(dy[fp(i) * C + k]) + to_f(dpool[(size_t)win * C + k]) * (1.f / kPix);
-  }
+    return to_f(x[(((size_t)b * H + sr) * W + sc) * C + k]);
+  };
+  auto dyat = [&](int i, int k) {
+    return to_f(dy[fp(i) * C + k]) + to_f(dpool[(size_t)win * C + k]) * (1.f / kPix);
+  };
+  auto all = [](int) { return true; };
+
   if (threadIdx.x < kPix) {
     const int i = threadIdx.x;
     lab[i] = labels ? labels[(wy * kTile + (i >> 3)) * W + wx * kTile + (i & 7)] : 0;
   }
-  __syncthreads();
-  ln_rows_inplace<T>(xs, ldx, kPix, C, lnw, lnb, eps, [](int) { return true; });
+  if (resident) {
+    for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
+      const int i = idx / C, k = idx - i * C;
+      xs[i * ldc + k] = xat(i, k);
+      dys[i * ldc + k] = dyat(i, k);
+    }
+    __syncthreads();
+    ln_rows_inplace<T>(xs, ldc, kPix, C, lnw, lnb, eps, all);
+  } else {
+    ln_stats_rows(mu, rs, kPix, C, eps, xat, all);
+  }
   for (int k = threadIdx.x; k < C; k += blockDim.x) {
     float sum = 0.f;
-    for (int i = 0; i < kPix; ++i) sum += dys[i * ldx + k];
+    for (int i = 0; i < kPix; ++i) sum += resident ? dys[i * ldc + k] : dyat(i, k);
     pbp[(size_t)win * C + k] = sum;
   }
   __syncthreads();
   for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
     const int i = idx / C, k = idx - i * C;
-    const float v = rnd<T>(dys[i * ldx + k]);
-    dys[i * ldx + k] = v;
+    float v, xn;
+    if (resident) {
+      v = rnd<T>(dys[i * ldc + k]);
+      dys[i * ldc + k] = v;
+      xn = xs[i * ldc + k];
+    } else {
+      v = rnd<T>(dyat(i, k));
+      xn = rnd<T>((xat(i, k) - mu[i]) * rs[i] * lnw[k] + lnb[k]);
+    }
     dyt_out[fp(i) * C + k] = from_f<T>(v);
-    xn_out[fp(i) * C + k] = from_f<T>(xs[i * ldx + k]);
+    xn_out[fp(i) * C + k] = from_f<T>(xn);
   }
   __syncthreads();
 
@@ -311,11 +338,22 @@ window_attention_bwd_kernel(const T* __restrict__ x, const float* __restrict__ l
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int h = 0; h < nH; ++h) {
     auto qcol = [&](int j) { const int sec = j / dh; return sec * C + h * dh + (j - sec * dh); };
-    gemm<T>(kPix, 3 * dh, C,
-        [&](int i, int k) { return xs[i * ldx + k]; },
-        [&](int k, int j) { return to_f(wqkv[(size_t)k * C3 + qcol(j)]); },
-        [&](int i, int j, float acc) { qkv[i * ldq + j] = rnd<T>(acc + bqkv[qcol(j)]); });
-    __syncthreads();
+    for (int c0 = 0; c0 < C; c0 += kc) {  // q | k | v = LN(x) Wqkv + bqkv
+      const int nc = min(kc, C - c0);
+      if (!resident) {
+        load_chunk<T>(xs, ldc, kPix, c0, nc, xat, all, mu, rs, lnw, lnb);
+        __syncthreads();
+      }
+      const bool first = c0 == 0, last = c0 + nc >= C;
+      gemm<T>(kPix, 3 * dh, nc,
+          [&](int i, int k) { return xs[i * ldc + k]; },
+          [&](int k, int j) { return to_f(wqkv[(size_t)(c0 + k) * C3 + qcol(j)]); },
+          [&](int i, int j, float acc) {
+            chunk_acc(qkv[i * ldq + j], acc, first, last,
+                      [&](float v) { return rnd<T>(v + bqkv[qcol(j)]); });
+          });
+      __syncthreads();
+    }
     gemm<T>(kPix, kPix, dh,
         [&](int i, int k) { return qkv[i * ldq + k]; },
         [&](int k, int j) { return qkv[j * ldq + dh + k]; },
@@ -325,10 +363,22 @@ window_attention_bwd_kernel(const T* __restrict__ x, const float* __restrict__ l
           s[i * lds + j] = v;
         });
     // do = rnd(dy Wp^T) for this head's columns: do[i][j] = sum_o dy[i][o] Wp[h*dh + j][o]
-    gemm<T>(kPix, dh, C,
-        [&](int i, int k) { return dys[i * ldx + k]; },
-        [&](int k, int j) { return to_f(wp[(size_t)(h * dh + j) * C + k]); },
-        [&](int i, int j, float acc) { dos[i * ldo + j] = rnd<T>(acc); });
+    for (int c0 = 0; c0 < C; c0 += kc) {
+      const int nc = min(kc, C - c0);
+      if (!resident) {
+        __syncthreads();  // the previous chunk's readers are done
+        load_chunk<T>(dys, ldc, kPix, c0, nc, [&](int i, int k) { return rnd<T>(dyat(i, k)); },
+                      all, nullptr, nullptr, nullptr, nullptr);
+        __syncthreads();
+      }
+      const bool first = c0 == 0, last = c0 + nc >= C;
+      gemm<T>(kPix, dh, nc,
+          [&](int i, int k) { return dys[i * ldc + k]; },
+          [&](int k, int j) { return to_f(wp[(size_t)(h * dh + j) * C + c0 + k]); },
+          [&](int i, int j, float acc) {
+            chunk_acc(dos[i * ldo + j], acc, first, last, [](float v) { return rnd<T>(v); });
+          });
+    }
     __syncthreads();
     for (int i = warp; i < kPix; i += kThreads / 32) {
       float* row = s + i * lds;
@@ -377,10 +427,25 @@ window_attention_bwd_kernel(const T* __restrict__ x, const float* __restrict__ l
   }
 }
 
-inline size_t window_bwd_smem(int C, int nH) {
+// The backward instance of a chunk: resident (LN(x) and dy whole) where kc
+// covers C, a kernel of its own as the natural-scene widths' plan.
+template <typename T>
+inline auto window_bwd_kernel_for(int kc, int C) {
+  return kc >= C ? window_attention_bwd_kernel<T, false> : window_attention_bwd_kernel<T, true>;
+}
+
+// kc = C: LN(x) and dy whole; kc < C: their chunks and the LN statistics.
+inline size_t window_bwd_smem(int C, int nH, int kc) {
   const int dh = C / nH;
-  return sizeof(float) * (size_t)(2 * kPix * (C + 1) + kPix * (3 * dh + 1) +
-                                  2 * kPix * (kPix + 1) + kPix * (dh + 1));
+  const size_t n = (size_t)(2 * kPix * (kc + 1) + kPix * (3 * dh + 1) + 2 * kPix * (kPix + 1) +
+                            kPix * (dh + 1));
+  return sizeof(float) * (kc >= C ? n : n + 2 * kPix);
+}
+
+inline int window_bwd_chunk(int C, int nH) {
+  return pick_chunk(C, [&](int kc) {
+    return plan_bytes(window_bwd_kernel_for<float>(kc, C), window_bwd_smem(C, nH, kc));
+  });
 }
 
 template <typename T>
@@ -389,13 +454,14 @@ cudaError_t launch_window_bwd(const void* x, const float* lnw, const float* lnb,
                               const int* labels, const void* wp, const void* dy,
                               const void* dpool, void* xn, void* o, void* dyt, void* dqkv,
                               float* pbias, float* pbp, int B, int H, int W, int C, int nH,
-                              int shift, float eps, cudaStream_t stream) {
-  const size_t smem = window_bwd_smem(C, nH);
-  cudaError_t err = set_smem(window_attention_bwd_kernel<T>, smem);
+                              int shift, int kc, float eps, cudaStream_t stream) {
+  const size_t smem = window_bwd_smem(C, nH, kc);
+  const auto kernel = window_bwd_kernel_for<T>(kc, C);
+  cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  window_attention_bwd_kernel<T><<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
+  kernel<<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
       (const T*)x, lnw, lnb, (const T*)wqkv, bqkv, bias, labels, (const T*)wp, (const T*)dy,
-      (const T*)dpool, (T*)xn, (T*)o, (T*)dyt, (T*)dqkv, pbias, pbp, H, W, C, nH, shift, eps);
+      (const T*)dpool, (T*)xn, (T*)o, (T*)dyt, (T*)dqkv, pbias, pbp, H, W, C, nH, shift, eps, kc);
   return cudaGetLastError();
 }
 
@@ -455,32 +521,36 @@ extern "C" long long mp_window_msa_smem(int C, int nH, int kc) {
   return mp::plan_bytes(mp::window_msa_kernel<float>, mp::window_smem(C, nH, kc));
 }
 
-extern "C" long long mp_window_attention_bwd_smem(int C, int nH) {
-  return mp::plan_bytes(mp::window_attention_bwd_kernel<float>, mp::window_bwd_smem(C, nH));
+extern "C" long long mp_window_attention_bwd_smem(int C, int nH, int kc) {
+  return mp::plan_bytes(mp::window_bwd_kernel_for<float>(kc, C), mp::window_bwd_smem(C, nH, kc));
 }
+
+// The channel chunk the backward kernel launches with at (C, nH).
+extern "C" int mp_window_attention_bwd_chunk(int C, int nH) { return mp::window_bwd_chunk(C, nH); }
 
 // The per-window half of the window-attention backward. dy (B, H, W, C) in
 // the rolled frame, dpool (B, H/8, W/8, C). Outputs, rolled frame, compute
 // type: xn = LN(x), o (pre-projection attention output), dyt (dy + dpool/64),
 // dqkv (B, H, W, 3C); float32 partials pbias (windows, nH, 64, 64) and pbp
-// (windows, C).
+// (windows, C). kc: the channel chunk (mp_window_attention_bwd_chunk).
 extern "C" int mp_window_attention_bwd(const void* x, const void* lnw, const void* lnb,
                                        const void* wqkv, const void* bqkv, const void* bias,
                                        const void* labels, const void* wp, const void* dy,
                                        const void* dpool, void* xn, void* o, void* dyt,
                                        void* dqkv, void* pbias, void* pbp, int dtype, int B,
-                                       int H, int W, int C, int nH, int shift, float eps,
+                                       int H, int W, int C, int nH, int shift, int kc, float eps,
                                        void* stream) {
-  if (C % nH != 0 || H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
+  if (C % nH != 0 || H % mp::kTile != 0 || W % mp::kTile != 0 || kc <= 0 || kc > C)
+    return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   auto f = [](const void* p) { return (const float*)p; };
   if (dtype == 0)
     return (int)mp::launch_window_bwd<float>(x, f(lnw), f(lnb), wqkv, f(bqkv), f(bias),
                                              (const int*)labels, wp, dy, dpool, xn, o, dyt, dqkv,
                                              (float*)pbias, (float*)pbp, B, H, W, C, nH, shift,
-                                             eps, st);
+                                             kc, eps, st);
   return (int)mp::launch_window_bwd<__nv_bfloat16>(x, f(lnw), f(lnb), wqkv, f(bqkv), f(bias),
                                                    (const int*)labels, wp, dy, dpool, xn, o, dyt,
                                                    dqkv, (float*)pbias, (float*)pbp, B, H, W, C,
-                                                   nH, shift, eps, st);
+                                                   nH, shift, kc, eps, st);
 }

@@ -81,7 +81,7 @@ def _entry(bwd: bool = False):
     import ctypes
 
     if bwd:
-        return _build.entry("mp_gdfn_bwd", 11, [ctypes.c_int] * 6 + [ctypes.c_float])
+        return _build.entry("mp_gdfn_bwd", 11, [ctypes.c_int] * 7 + [ctypes.c_float])
     return _build.entry("mp_gdfn", 8, [ctypes.c_int] * 9 + [ctypes.c_float])
 
 
@@ -111,7 +111,8 @@ def _bwd_launch(x, ln_w, ln_b, w_in, w_dw, w_out, residual, eps, dy):
     b, h, w, c = x.shape
     dt = x.dtype
     hid = w_out.shape[1]
-    _build.check_plan("gdfn_bwd", "mp_gdfn_bwd_smem", f"C={c}", c)
+    kc = _build.chunk("mp_gdfn_bwd_chunk", c)
+    _build.check_plan("gdfn_bwd", "mp_gdfn_bwd_smem", f"C={c}", c, kc)
     x, dy = x.contiguous(), dy.to(dt).contiguous()
     wi, wd, wo = kernel_weight(w_in, dt), kernel_weight(w_dw, dt), kernel_weight(w_out, dt)
     lnw, lnb = f32(ln_w), f32(ln_b)
@@ -122,7 +123,7 @@ def _bwd_launch(x, ln_w, ln_b, w_in, w_dw, w_out, residual, eps, dy):
     gated = torch.empty((b, h, w, hid), dtype=dt, device=dev)
     err = _entry(True)(x.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), wi.data_ptr(), wd.data_ptr(),
                        wo.data_ptr(), dy.data_ptr(), xn.data_ptr(), t.data_ptr(), dc.data_ptr(),
-                       gated.data_ptr(), dtype_code(x), b, h, w, c, hid, eps, stream_ptr())
+                       gated.data_ptr(), dtype_code(x), b, h, w, c, hid, kc, eps, stream_ptr())
     _build.check("mp_gdfn_bwd", err)
     dtt, dwdw = dwconv_bwd(dc, t, wd, 0, dt)
     dx, (dlnw, dlnb), _ = ln_linear_bwd(dtt, wi, 0, x, ln_w, extra_t=dy if residual else None,

@@ -78,7 +78,7 @@ def mlp_bwd_plain(x, ln_w, ln_b, w1, b1, w2, b2, dp_scale, residual, eps, dy):
 @lru_cache(maxsize=None)
 def _entry(bwd: bool = False):
     if bwd:
-        return _build.entry("mp_mlp_bwd", 15, [ctypes.c_int] * 6 + [ctypes.c_float])
+        return _build.entry("mp_mlp_bwd", 15, [ctypes.c_int] * 7 + [ctypes.c_float])
     return _build.entry("mp_mlp", 9, [ctypes.c_int] * 7 + [ctypes.c_float])
 
 
@@ -107,7 +107,8 @@ def _bwd_launch(x, ln_w, ln_b, w1, b1, w2, b2, dp_scale, residual, eps, dy):
     b, h, w, c = x.shape
     dt = x.dtype
     hid = w2.shape[1]
-    _build.check_plan("mlp_bwd", "mp_mlp_bwd_smem", f"C={c}", c)
+    kc = _build.chunk("mp_mlp_bwd_chunk", c)
+    _build.check_plan("mlp_bwd", "mp_mlp_bwd_smem", f"C={c}", c, kc)
     x, dy = x.contiguous(), dy.to(dt).contiguous()
     lnw, lnb, b1f, b2f, dp = f32(ln_w), f32(ln_b), f32(b1), f32(b2), f32(dp_scale)
     w1k, w2k = kernel_weight(w1, dt), kernel_weight(w2, dt)
@@ -123,7 +124,7 @@ def _bwd_launch(x, ln_w, ln_b, w1, b1, w2, b2, dp_scale, residual, eps, dy):
                        w1k.data_ptr(), b1f.data_ptr(), w2k.data_ptr(),
                        b2f.data_ptr(), p(dp), xn.data_ptr(), dh.data_ptr(), gated.data_ptr(),
                        dys.data_ptr(), pb2.data_ptr(), p(pdp), dtype_code(x), b, h, w, c, hid,
-                       eps, stream_ptr())
+                       kc, eps, stream_ptr())
     _build.check("mp_mlp_bwd", err)
     dx, (dlnw, dlnb), db1 = ln_linear_bwd(dh, w1k, 0, x, ln_w, extra_t=dy if residual else None,
                                           eps=eps, bias=True)

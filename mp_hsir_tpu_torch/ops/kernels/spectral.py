@@ -337,7 +337,7 @@ def _apply_entry(bwd: bool = False):
     import ctypes
 
     if bwd:
-        return _build.entry("mp_spectral_apply_bwd", 17, [ctypes.c_int] * 7 + [ctypes.c_float])
+        return _build.entry("mp_spectral_apply_bwd", 17, [ctypes.c_int] * 8 + [ctypes.c_float])
     return _build.entry("mp_spectral_apply", 17, [ctypes.c_int] * 10 + [ctypes.c_float])
 
 
@@ -384,7 +384,8 @@ def _apply_launch(x, comb, wqkv, wdw, shift, x2, ln_w, ln_b, residual, gate, sho
 def _apply_bwd_launch(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate, dp_scale, eps, dy):
     b, h, w, c = x.shape
     dt = x.dtype
-    _build.check_plan("spectral_apply_bwd", "mp_spectral_apply_bwd_smem", f"C={c}", c)
+    kc = _build.chunk("mp_spectral_apply_bwd_chunk", c)
+    _build.check_plan("spectral_apply_bwd", "mp_spectral_apply_bwd_smem", f"C={c}", c, kc)
     x, dy = x.contiguous(), dy.to(dt).contiguous()
     gate_t = None if gate is None else gate.to(dt).contiguous()
     wq, wd = kernel_weight(wqkv, dt), kernel_weight(wdw, dt)
@@ -404,7 +405,7 @@ def _apply_bwd_launch(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate, dp_
                              cb.data_ptr(), p(gate_t), p(dp), dy.data_ptr(), un.data_ptr(),
                              t.data_ptr(), v.data_ptr(), dys.data_ptr(), dv.data_ptr(), p(extra),
                              p(pdp), p(dgate), dtype_code(x), b, h, w, c, int(residual), shift,
-                             eps, stream_ptr())
+                             kc, eps, stream_ptr())
     _build.check("mp_spectral_apply_bwd", err)
     dtt, dwdw_v = dwconv_bwd(dv, t, wd, 2 * c, dt)
     dx, dln, _ = ln_linear_bwd(dtt, wq, 2 * c, x, ln_w, extra_f=extra, shift=-shift, eps=eps)

@@ -120,7 +120,7 @@ def _entry(bwd: bool = False):
     import ctypes
 
     if bwd:
-        return _build.entry("mp_window_attention_bwd", 16, [ctypes.c_int] * 7 + [ctypes.c_float])
+        return _build.entry("mp_window_attention_bwd", 16, [ctypes.c_int] * 8 + [ctypes.c_float])
     return _build.entry("mp_window_attention", 11,
                         [ctypes.c_int] * 8 + [ctypes.c_float])
 
@@ -152,8 +152,9 @@ def _launch(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, eps):
 def _bwd_launch(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, eps, dout, dpool):
     b, h, w, c = x.shape
     dt = x.dtype
+    kc = _build.chunk("mp_window_attention_bwd_chunk", c, num_heads)
     _build.check_plan("window_attention_bwd", "mp_window_attention_bwd_smem",
-                      f"C={c}, heads={num_heads}", c, num_heads)
+                      f"C={c}, heads={num_heads}", c, num_heads, kc)
     x = x.contiguous()
     dout, dpool = dout.to(dt).contiguous(), dpool.to(dt).contiguous()
     wq, wpk = kernel_weight(wqkv, dt), kernel_weight(wp, dt)
@@ -170,7 +171,7 @@ def _bwd_launch(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, e
                        bias.data_ptr(), p(labels), wpk.data_ptr(), dout.data_ptr(),
                        dpool.data_ptr(), xn.data_ptr(), o.data_ptr(), dyt.data_ptr(),
                        dqkv.data_ptr(), pbias.data_ptr(), pbp.data_ptr(), dtype_code(x), b, h, w,
-                       c, num_heads, shift, eps, stream_ptr())
+                       c, num_heads, shift, kc, eps, stream_ptr())
     _build.check("mp_window_attention_bwd", err)
     dx, (dlnw, dlnb), dbqkv = ln_linear_bwd(dqkv, wq, 0, x, ln_w, shift=shift, eps=eps, bias=True)
     dwqkv = wgrad(xn.reshape(-1, c), dqkv.reshape(-1, 3 * c)).t()

@@ -225,15 +225,24 @@ def _check_vjp(fn, tensors, kw, tol):
         assert err <= tol * scale, f"output/grad {i}: {err:.3e} > {tol} * {scale:.3e}"
 
 
-def _train_cases(dev, dt):
-    """(name, fn, tensors, kwargs) at a tiny and a flagship width."""
+# (batch, map side, C, hidden, heads): a tiny and a flagship width; the
+# remote-sensing latent (C = 384, 8 heads: the backward kernels' chunked
+# plans) and its dec1 / refinement width (C = 192, 2 heads, dh 96: the
+# window backward's resident plan, 1.3 KB under the limit)
+TRAIN_WIDTHS = ((2, 16, 16, 42, 2), (2, 16, 256, 680, 8))
+RS_TRAIN_WIDTHS = ((2, 16, 384, 1021, 8), (2, 16, 192, 510, 2))
+
+
+def _train_cases(dev, dt, widths=TRAIN_WIDTHS, conv=True):
+    """(name, fn, tensors, kwargs) at each width of ``widths``, and conv3's
+    modes with ``conv``."""
     from mp_hsir_tpu_torch.ops.kernels.mlp import mlp
 
     r = _rng(30)
     f = lambda *s, scale=1.0: _t(_n(r, s, scale)).to(dev)  # noqa: E731
     act = lambda *s: f(*s).to(dt)  # noqa: E731
     cases = []
-    for b, hw, c, hid, heads in ((2, 16, 16, 42, 2), (2, 16, 256, 680, 8)):
+    for b, hw, c, hid, heads in widths:
         dp = torch.tensor([1.25, 0.0], device=dev)
         cases.append(("mlp", lambda *a: mlp(*a[:7], residual=True, dp_scale=a[7]),
                       [act(b, hw, hw, c), 1 + f(c, scale=0.1), f(c, scale=0.1),
@@ -269,6 +278,8 @@ def _train_cases(dev, dt):
                                      f(2 * hid, c, 1, 1, scale=c ** -0.5),
                                      f(2 * hid, 1, 3, 3, scale=1 / 3),
                                      f(c, hid, 1, 1, scale=hid ** -0.5)], dict(residual=True)))
+    if not conv:
+        return cases
     for mode, cin, cout in (("plain", 31, 64), ("down", 64, 32), ("up", 256, 512), ("res", 128, 31)):
         ts = [act(2, 16, 16, cin), f(cout, cin, 3, 3, scale=(9 * cin) ** -0.5)]
         kw = dict(mode=mode)
@@ -292,6 +303,38 @@ def test_cuda_train_route_kernels_match_plain(dtype, tol):
         except AssertionError as e:
             faults.append(f"{name} {tuple(ts[0].shape)}: {e}")
     assert not faults, "\n".join(faults)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 3e-2)])
+def test_cuda_remote_sensing_backward_matches_plain(dtype, tol):
+    """The backward kernels at the remote-sensing widths against the plain
+    backward, through each wrapper's autograd: mlp with drop-path, window
+    attention plain and shifted, the PGSSTB spectral pair (apply_bwd with
+    gate, shortcut and drop-path), the TransformerBlock one (LN, residual)
+    and gdfn; float32 within 1e-4 and bf16 within 3e-2 of each output's and
+    gradient's max-abs (as chip_smoke.py). Every backward plan lies within
+    the device's opt-in limit; at C = 384 they stream 64-channel chunks,
+    and the window backward at C = 192 with 2 heads stays resident."""
+    from mp_hsir_tpu_torch.ops.kernels import _build
+
+    dev = _cuda()
+    faults = []
+    for name, fn, ts, kw in _train_cases(dev, getattr(torch, dtype), RS_TRAIN_WIDTHS, conv=False):
+        try:
+            _check_vjp(fn, ts, kw, tol)
+        except AssertionError as e:
+            faults.append(f"{name} {tuple(ts[0].shape)}: {e}")
+    assert not faults, "\n".join(faults)
+    for kernel, shape, want in (("window_attention_bwd", (384, 8), 64),
+                                ("window_attention_bwd", (192, 2), 192),
+                                ("mlp_bwd", (384,), 64), ("spectral_apply_bwd", (384,), 64),
+                                ("gdfn_bwd", (384,), 64)):
+        kc = _build.chunk(f"mp_{kernel}_chunk", *shape)
+        assert kc == want, (kernel, shape, kc)
+        assert 0 < _build.plan_bytes(f"mp_{kernel}_smem", *shape, kc) <= _build.smem_limit(), kernel
+    assert 0 < _build.plan_bytes("mp_spectral_stats_bwd_smem", 384, 8) <= _build.smem_limit()
+    assert 0 < _build.plan_bytes("mp_mlp_smem", 384) <= _build.smem_limit()
 
 
 def _tiny_train(dev, seed=0):

@@ -2,7 +2,10 @@
 float32, on the same weights and inputs.
 
 * the tiny configuration (dim 16, 32x32): the whole eval forward, random
-  weights; tolerance 1e-4 absolute (float32, different summation orders);
+  weights, batch 1 (tasks 0 and 3) and batch 2 with mixed tasks [0, 3];
+  tolerance 1e-4 absolute (float32, different summation orders);
+* the training fields of ``TrainConfig`` and ``de_types_resolved()`` for
+  both data types;
 * the flagship preset on the committed trained weights at 64x64 on the
   mode-0 cube of tests/test_quality_artifact.py: max-abs error bound and a
   PSNR difference of at most 0.01 dB.
@@ -18,12 +21,15 @@ import jax.numpy as jnp
 import torch
 from flax import traverse_util
 
+import dataclasses
+
 from mp_hsir_tpu.config import ModelConfig as JaxModelConfig
+from mp_hsir_tpu.config import TrainConfig as JaxTrainConfig
 from mp_hsir_tpu.config import natural_scene_config as jax_natural_scene_config
 from mp_hsir_tpu.models.mp_hsir import MPHSIRNet as JaxNet
 from mp_hsir_tpu.models.mp_hsir import init_params
 from mp_hsir_tpu_torch.checkpoint import load_params_npz, params_from_jax
-from mp_hsir_tpu_torch.config import ModelConfig, natural_scene_config
+from mp_hsir_tpu_torch.config import ModelConfig, TrainConfig, natural_scene_config
 from mp_hsir_tpu_torch.data.eval_datasets import gaussian_noise_fixed
 from mp_hsir_tpu_torch.models import layers as L
 from mp_hsir_tpu_torch.models.mp_hsir import build_model
@@ -55,14 +61,15 @@ def _quality_cube():
     return clean, degraded
 
 
-@pytest.mark.parametrize("task", [0, 3])
-def test_tiny_model_matches_jax(task):
+@pytest.mark.parametrize("tasks", [pytest.param((0,), id="0"), pytest.param((3,), id="3"),
+                                   pytest.param((0, 3), id="batch2-0-3")])
+def test_tiny_model_matches_jax(tasks):
     jc = JaxModelConfig(**TINY)
     params = init_params(jc, jax.random.key(0), sample_hw=32)
-    x = np.random.default_rng(task).random((1, 5, 32, 32)).astype(np.float32)
+    x = np.random.default_rng(tasks[0]).random((len(tasks), 5, 32, 32)).astype(np.float32)
     jm = JaxNet(jc)
     want = np.asarray(jax.jit(lambda p, x, t: jm.apply({"params": p}, x, t))(
-        params, jnp.asarray(x), jnp.asarray([task], jnp.int32)))
+        params, jnp.asarray(x), jnp.asarray(tasks, jnp.int32)))
 
     model = build_model(ModelConfig(**TINY), device="cpu")
     flat = {k: np.asarray(v) for k, v in traverse_util.flatten_dict(params, sep="/").items()}
@@ -70,7 +77,7 @@ def test_tiny_model_matches_jax(task):
     L.reset_path_stats()
     _route.reset_counters()
     with torch.no_grad():
-        got = model(torch.from_numpy(x), torch.tensor([task])).numpy()
+        got = model(torch.from_numpy(x), torch.tensor(tasks)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
     # every PGSSTB and PromptFusion took the kernel route; on the CPU the
     # wrappers ran their plain versions and launched nothing
@@ -103,3 +110,19 @@ def test_flagship_trained_weights_match_jax():
     p_port = _band_psnr(np.clip(got, 0, 1), clean)
     assert abs(p_port - p_jax) <= 0.01, (p_port, p_jax)
     assert p_port - _band_psnr(degraded, clean) >= 3.0
+
+
+@pytest.mark.parametrize("data_type", ["remote_sensing", "natural_scene"])
+def test_train_config_fields_match_jax(data_type):
+    """Every port TrainConfig field has JAX's name and default, and the
+    degradation list resolves as JAX's does (default and explicit)."""
+    port, jax_tc = TrainConfig(data_type=data_type), JaxTrainConfig(data_type=data_type)
+    for f in dataclasses.fields(TrainConfig):
+        assert getattr(port, f.name) == getattr(jax_tc, f.name), f.name
+    assert {"batch_size", "patch_size", "data_type", "de_types"} <= {
+        f.name for f in dataclasses.fields(TrainConfig)}
+    assert TrainConfig().data_type == JaxTrainConfig().data_type == "remote_sensing"
+    assert port.de_types_resolved() == jax_tc.de_types_resolved()
+    picked = ("blur", "haze")
+    assert (TrainConfig(data_type=data_type, de_types=picked).de_types_resolved()
+            == JaxTrainConfig(data_type=data_type, de_types=picked).de_types_resolved() == picked)

@@ -6,6 +6,9 @@ float32 (plain versions of every kernel), tiny configuration (dim 16, 32x32).
 * ``train_step`` after 1 and 3 steps against JAX ``make_train_step`` on a
   one-device mesh: parameters within 1e-5, and the learning rate of every
   update equal to the JAX schedule's;
+* both also on a tiny 100-band, 7-task model (the remote-sensing preset's
+  bands and tasks) at batch 2 with task ids [5, 6] (haze and band-missing,
+  which only that preset has);
 * schedules and losses against ``mp_hsir_tpu/training``;
 * ``save_params_npz`` -> ``params_from_jax`` round trip, and the port's npz
   loading into the JAX package.
@@ -42,22 +45,25 @@ from mp_hsir_tpu_torch.training.trainer import create_train_state, train_step
 
 TINY = dict(in_channels=5, out_channels=5, dim=16, num_blocks=(1, 1, 1),
             num_refinement_blocks=1, heads=(2, 2, 2), task_classes=6, drop_path_max=0.0)
+TINY_RS = dict(TINY, in_channels=100, out_channels=100, task_classes=7)
+# (configuration, task ids of the batch's two samples)
+FLAGSHIP, REMOTE = (TINY, (0, 3)), (TINY_RS, (5, 6))
 
 
 def _flat(params):
     return {k: np.asarray(v) for k, v in traverse_util.flatten_dict(params, sep="/").items()}
 
 
-def _batch(seed, b=2, c=5, hw=32):
+def _batch(seed, tiny=TINY, tasks=(0, 3), hw=32):
     r = np.random.default_rng(seed)
-    clean = r.random((b, c, hw, hw)).astype(np.float32)
+    clean = r.random((len(tasks), tiny["in_channels"], hw, hw)).astype(np.float32)
     degraded = np.clip(clean + 0.2 * r.standard_normal(clean.shape), 0, 1).astype(np.float32)
-    return dict(degraded=degraded, clean=clean, task_id=np.array([0, 3], np.int32))
+    return dict(degraded=degraded, clean=clean, task_id=np.array(tasks, np.int32))
 
 
-def _init(seed):
+def _init(seed, tiny=TINY):
     """Tiny JAX params, text-query LN biases drawn (see the module note)."""
-    params = init_params(JaxModelConfig(**TINY), jax.random.key(seed), sample_hw=32)
+    params = init_params(JaxModelConfig(**tiny), jax.random.key(seed), sample_hw=32)
     flat = traverse_util.flatten_dict(params, sep="/")
     r = np.random.default_rng(seed)
     for k in flat:
@@ -66,8 +72,8 @@ def _init(seed):
     return traverse_util.unflatten_dict(flat, sep="/")
 
 
-def _port(params, train=True):
-    model = build_model(ModelConfig(**TINY), device="cpu", train=train)
+def _port(params, train=True, tiny=TINY):
+    model = build_model(ModelConfig(**tiny), device="cpu", train=train)
     model.load_state_dict(params_from_jax(_flat(params), model.state_dict()))
     return model
 
@@ -78,10 +84,10 @@ def _torch_batch(batch):
                 task_id=torch.from_numpy(batch["task_id"]).long())
 
 
-def test_tiny_model_train_loss_and_grads_match_jax():
-    jc = JaxModelConfig(**TINY)
-    params = _init(0)
-    batch = _batch(1)
+def _loss_and_grads_match_jax(tiny, tasks):
+    jc = JaxModelConfig(**tiny)
+    params = _init(0, tiny)
+    batch = _batch(1, tiny, tasks)
     jm = JaxNet(jc)
 
     def loss_fn(p):
@@ -91,7 +97,7 @@ def test_tiny_model_train_loss_and_grads_match_jax():
         return jax_losses.l1_clamped(pred, jnp.asarray(batch["clean"]))
 
     want_loss, want_grads = jax.jit(jax.value_and_grad(loss_fn))(params)
-    model = _port(params)
+    model = _port(params, tiny=tiny)
     tb = _torch_batch(batch)
     loss = losses.l1_clamped(model(tb["degraded"], tb["task_id"]), tb["clean"])
     loss.backward()
@@ -105,8 +111,18 @@ def test_tiny_model_train_loss_and_grads_match_jax():
         assert err <= 1e-4 * scale, f"{k}: {err:.3e} > 1e-4 * {scale:.3e}"
 
 
-@pytest.mark.parametrize("grad_accum", [1, 2])
-def test_train_step_matches_jax_make_train_step(grad_accum):
+def test_tiny_model_train_loss_and_grads_match_jax():
+    _loss_and_grads_match_jax(*FLAGSHIP)
+
+
+def test_tiny_remote_sensing_train_loss_and_grads_match_jax():
+    _loss_and_grads_match_jax(*REMOTE)
+
+
+@pytest.mark.parametrize("grad_accum,preset", [pytest.param(1, FLAGSHIP, id="1"),
+                                               pytest.param(2, FLAGSHIP, id="2"),
+                                               pytest.param(1, REMOTE, id="remote_sensing")])
+def test_train_step_matches_jax_make_train_step(grad_accum, preset):
     """1 and 3 steps of the port's train step against the JAX train step
     (jnp path, one-device mesh): same parameters within 1e-5 and the same
     learning rate for every optimizer update. The schedule has a 1-epoch
@@ -115,19 +131,21 @@ def test_train_step_matches_jax_make_train_step(grad_accum):
     from mp_hsir_tpu.training.trainer import create_train_state as jax_state
     from mp_hsir_tpu.training.trainer import make_train_step
 
-    jc = JaxModelConfig(**TINY)
+    tiny, tasks = preset
+    jc = JaxModelConfig(**tiny)
     jtc = JaxTrainConfig(epochs=4, steps_per_epoch=grad_accum, warmup_frac=0.25, lr=1e-4,
                          eta_min=1e-6, patch_size=32, grad_accum=grad_accum, batch_size=2)
     tc = TrainConfig(**{f.name: getattr(jtc, f.name) for f in dataclasses.fields(TrainConfig)})
     js = jax_state(jc, jtc, jax.random.key(0))
-    js = js.replace(params=_init(0))
+    js = js.replace(params=_init(0, tiny))
     step = make_train_step(jc, make_mesh(1, 1, devices=jax.devices()[:1]))
     sched = jax_sched.linear_warmup_cosine_annealing(
         base_lr=jtc.lr, warmup_epochs=int(jtc.warmup_frac * jtc.epochs), max_epochs=jtc.epochs,
         steps_per_epoch=max(jtc.steps_per_epoch // grad_accum, 1), eta_min=jtc.eta_min)
-    state = create_train_state(ModelConfig(**TINY), tc, device="cpu", model=_port(js.params))
+    state = create_train_state(ModelConfig(**tiny), tc, device="cpu",
+                               model=_port(js.params, tiny=tiny))
     for i in range(3):
-        batch = _batch(10 + i)
+        batch = _batch(10 + i, tiny, tasks)
         jb = {k: jnp.asarray(v) for k, v in batch.items()}
         js, jloss = step(js, jb, jax.random.key(i))
         loss = train_step(state, _torch_batch(batch))
