@@ -16,14 +16,16 @@ Phases (any failure exits non-zero; no phase's error is caught):
    float32 <= 1e-4 * max|plain|. Times each with CUDA events, beside the
    plain version, F.conv2d for the conv (library_ms) and the bound
    max(bytes / 3.35 TB/s, flops / 989 TFLOP/s); each conv3 call (here and
-   in phases 5 and 7) is also timed as its kernel alone (the weight packed
-   once, the C entry launched directly) and prints its achieved TFLOP/s,
-   the kernel alone's and F.conv2d's (flops / ms); its sums over the path's
-   calls follow the table. The window, spectral and
-   GDFN kernels keep their input resident where that fits; each such call
-   at C > 64 is checked and timed once more with its input streamed in
-   64-channel chunks (the remote-sensing latent's plan), summed per
-   forward beside the resident plan.
+   in phases 5 and 7) and each window_attention call (here and in phase 7)
+   is also timed as its kernel alone (the weights packed once, the C entry
+   launched directly) and prints its achieved TFLOP/s, the kernel alone's
+   and its library call's (flops / ms); their sums over the path's calls
+   follow the table. The spectral and GDFN kernels keep their input
+   resident where that fits; each such call at C > 64 is checked and timed
+   once more with its input streamed in 64-channel chunks (the
+   remote-sensing latent's plan), summed per forward beside the resident
+   plan. The window kernel stages its whole input in bf16 and has no
+   chunk to stream.
 3. Main path: the flagship preset on the committed trained weights, bf16 at
    1x31x512x512, answering 4 requests (mode-0 cubes) after a warm-up. The
    launch counters are zeroed just before the requests and read just after;
@@ -78,7 +80,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
     without shift-region labels, counted; then each against its plain version
     in bf16 and float32, timed with its bound and beside one library call of
     the same function (F.multi_head_attention_forward with the bias and the
-    label mask as a float attn_mask), itself held to the plain version.
+    label mask as a float attn_mask), itself held to the plain version;
+    each call's TFLOP/s and the sums over the 6 calls, kernel alone too.
 11. Remote-sensing training kernels: every kernel call signature of the
     100-band preset's train step (batch 32 of 64x64 patches, C up to 384
     with 8 heads: the backward kernels' channel-chunked plans), bf16 and
@@ -152,8 +155,12 @@ KERNELS = {
 }
 K14_KERNEL = {"window_msa": dict(source="mp_hsir_tpu_torch/csrc/window_attention.cu", tpu=["K14"],
                                  replaces="mp_hsir_tpu/ops/pallas_attention.py:40")}
-# the kernels that stage their input whole where it fits, else in chunks
-STAGED = ("window_attention", "spectral_stats", "spectral_apply", "gdfn")
+# the kernels that stage their input whole where it fits, else in chunks (the
+# window kernel's bf16 plan stages the whole window at every width)
+STAGED = ("spectral_stats", "spectral_apply", "gdfn")
+# the kernels timed alone beside their wrappers, with their library yardsticks
+ALONE = {"conv3": "F.conv2d", "window_attention": None,
+         "window_msa": "F.multi_head_attention_forward"}
 # the training route's new kernels (timed at the train step's shapes)
 TRAIN_KERNELS = {
     "mlp": dict(source="mp_hsir_tpu_torch/csrc/mlp.cu", tpu=["K6"],
@@ -322,11 +329,17 @@ def make_call(spec, dev, dt):
     raise KeyError(name)
 
 
+def _code(spec) -> int:
+    """The kernels' compute-type code of a spec (0 float32, 1 bf16)."""
+    return int(spec[-1] != "torch.float32")
+
+
 # the kernels whose plan is one function of the shape: (smem entry, chunk
 # entry or None, the shape's ints from the spec)
 PLAN_ENTRIES = {
-    "window_attention": ("mp_window_attention_smem", "mp_window_chunk", lambda s: s[4:6]),
-    "window_msa": ("mp_window_msa_smem", "mp_window_chunk", lambda s: s[2:4]),
+    "window_attention": ("mp_window_attention_smem", "mp_window_chunk",
+                         lambda s: (*s[4:6], _code(s))),
+    "window_msa": ("mp_window_msa_smem", "mp_window_chunk", lambda s: (*s[2:4], _code(s))),
     "spectral_stats": ("mp_spectral_stats_smem", "mp_spectral_stats_chunk",
                        lambda s: (s[4] + s[5], s[6])),
     "spectral_apply": ("mp_spectral_apply_smem", "mp_spectral_apply_chunk",
@@ -347,7 +360,11 @@ def plan_of(spec) -> dict:
     """The shared-memory plan of one spec: ``smem``, the bytes of the plan
     the kernel launches with; ``smem_whole``, those of its whole-input plan
     (the only one before the channel-chunked staging); ``kc``, its channel
-    chunk, and ``c`` its input width (kc = c: the input is resident)."""
+    chunk, and ``c`` its input width (kc = c: the input is resident); for
+    the window kernels also ``blocks_per_window``, the thread-block cluster
+    that splits a window's heads where windows are few (bf16)."""
+    import ctypes
+
     from mp_hsir_tpu_torch.ops.kernels import _build
 
     name = spec[0]
@@ -364,8 +381,22 @@ def plan_of(spec) -> dict:
         n = _build.plan_bytes(smem_entry, *shape)
         return dict(smem=n, smem_whole=n, kc=c, c=c)
     kc = _build.chunk(chunk_entry, *shape)
-    return dict(smem=_build.plan_bytes(smem_entry, *shape, kc),
+    plan = dict(smem=_build.plan_bytes(smem_entry, *shape, kc),
                 smem_whole=_build.plan_bytes(smem_entry, *shape, c), kc=kc, c=c)
+    if name in ("window_attention", "window_msa"):
+        k14 = name == "window_msa"
+        nwin = spec[1] if k14 else spec[1] * (spec[2] // 8) * (spec[3] // 8)
+        fn = _build.lib().mp_window_cluster
+        fn.argtypes, fn.restype = [ctypes.c_int] * 5, ctypes.c_int
+        plan["blocks_per_window"] = int(fn(*shape, nwin, int(k14)))
+    return plan
+
+
+def log_plan(plan) -> str:
+    """A plan's bytes and chunk (and blocks per window) for the logs."""
+    g = plan.get("blocks_per_window")
+    return (f"smem {plan['smem']} B at kc {plan['kc']} (whole input {plan['smem_whole']} B)"
+            + ("" if g is None else f", {g} block{'s' * (g > 1)} per window"))
 
 
 @contextlib.contextmanager
@@ -453,30 +484,43 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def conv3_kernel_ms(args) -> float:
-    """conv3's kernel alone on the call's inputs: the weight packed once and
-    the C entry launched directly, without what the wrapper adds on the host
-    per call (the packing copy, the output allocation, Python)."""
-    from mp_hsir_tpu_torch.ops.kernels import _build, conv3
+def kernel_alone_ms(name, args, kw) -> float:
+    """A kernel alone on a call's inputs: its launch prepared once (conv3's
+    weight packed, the window kernels' weights packed and their outputs
+    allocated) and the C entry launched directly, without what the wrapper
+    adds on the host per call (the packing copies, allocations, Python)."""
+    from mp_hsir_tpu_torch.ops.kernels import _build, conv3, window_attention, window_msa
     from mp_hsir_tpu_torch.ops.kernels._route import dtype_code, stream_ptr
 
-    x, w, mode, res = args
-    b, h, wd, cin = x.shape
-    wk = conv3.pack_weight(w, x.dtype)
-    res = None if res is None else res.float().contiguous()
-    out = conv3.conv3(x, w, mode, res)
-    launch = [x.data_ptr(), wk.data_ptr(), _build.ptr(res), out.data_ptr(), dtype_code(x), b, h,
-              wd, cin, w.shape[0], conv3.MODES[mode], stream_ptr()]
-    _build.check("mp_conv3", conv3._entry()(*launch))
-    return time_ms(lambda: conv3._entry()(*launch), 20)
+    if name == "conv3":
+        x, w, mode, res = args
+        b, h, wd, cin = x.shape
+        wk = conv3.pack_weight(w, x.dtype)
+        res = None if res is None else res.float().contiguous()
+        out = conv3.conv3(x, w, mode, res)
+        held = (wk, res, out)
+        launch = [x.data_ptr(), wk.data_ptr(), _build.ptr(res), out.data_ptr(), dtype_code(x), b,
+                  h, wd, cin, w.shape[0], conv3.MODES[mode], stream_ptr()]
+        entry, what = conv3._entry(), "mp_conv3"
+    elif name == "window_attention":
+        launch, _, held = window_attention._prepare(*args, kw.get("shift", 0), kw.get("eps", 1e-5))
+        entry, what = window_attention._entry(), "mp_window_attention"
+    else:
+        launch, _, held = window_msa._prepare(*args, kw.get("labels"))
+        entry, what = window_msa._entry(), "mp_window_msa"
+    _build.check(what, entry(*launch))
+    ms = time_ms(lambda: entry(*launch), 20)
+    del held
+    return ms
 
 
-def tflops(spec, args, flops, ms, lib_ms) -> dict:
-    """conv3's kernel-alone time, and the achieved rates (flops / ms) of the
-    wrapper, the kernel alone and its F.conv2d yardstick."""
-    if spec[0] != "conv3":
+def tflops(spec, args, kw, flops, ms, lib_ms) -> dict:
+    """For the kernels of ALONE: the kernel-alone time, and the achieved
+    rates (flops / ms) of the wrapper, the kernel alone and its library
+    yardstick."""
+    if spec[0] not in ALONE:
         return {}
-    kms = conv3_kernel_ms(args)
+    kms = kernel_alone_ms(spec[0], args, kw)
     return dict(kernel_ms=kms, tflops=flops / ms / 1e9, kernel_tflops=flops / kms / 1e9,
                 library_tflops=None if lib_ms is None else flops / lib_ms / 1e9)
 
@@ -489,12 +533,21 @@ def log_tflops(row) -> str:
             f"{row['kernel_tflops']:.1f} TFLOP/s (lib {'-' if lib is None else f'{lib:.1f}'})")
 
 
-def log_conv3_sums(what: str, rows, per: str) -> None:
-    """conv3 summed over the path's calls: wrapper, kernel alone, F.conv2d."""
-    mine = [r for r in rows if r["spec"][0] == "conv3"]
-    tot = lambda k: sum(r[k] * r[per] for r in mine)  # noqa: E731
-    log(f"  conv3 {what}: wrapper {tot('ms'):.4f} ms, kernel alone {tot('kernel_ms'):.4f} ms, "
-        f"F.conv2d {tot('library_ms'):.4f} ms ({sum(r[per] for r in mine)} calls)")
+def log_alone_sums(what: str, rows, per: str) -> None:
+    """Each kernel of ALONE summed over the path's calls: wrapper, kernel
+    alone and library call, with the rates of the sums."""
+    for name, lib_name in ALONE.items():
+        mine = [r for r in rows if r["spec"][0] == name and "kernel_ms" in r]
+        if not mine:
+            continue
+        tot = lambda k: sum(r[k] * r[per] for r in mine)  # noqa: E731
+        flops = tot("flops") / 1e9
+        lib = ""
+        if lib_name is not None and all(r["library_ms"] is not None for r in mine):
+            lib = f", {lib_name} {tot('library_ms'):.4f} ms ({flops / tot('library_ms'):.1f} TFLOP/s)"
+        log(f"  {name} {what}: wrapper {tot('ms'):.4f} ms ({flops / tot('ms'):.1f} TFLOP/s), "
+            f"kernel alone {tot('kernel_ms'):.4f} ms ({flops / tot('kernel_ms'):.1f} TFLOP/s)"
+            f"{lib} ({sum(r[per] for r in mine)} calls)")
 
 
 def kernel_checks(specs: Counter, dev) -> dict:
@@ -523,12 +576,13 @@ def kernel_checks(specs: Counter, dev) -> dict:
                    library_ms=lib_ms, bound_ms=bound_ms, bytes=byts, flops=flops,
                    bound_by="bytes" if byts / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
                    smem=plan["smem"], smem_whole=plan["smem_whole"], kc=plan["kc"],
-                   ms_streamed=ms_streamed, **tflops(spec, args, flops, ms, lib_ms))
+                   blocks_per_window=plan.get("blocks_per_window"),
+                   ms_streamed=ms_streamed, **tflops(spec, args, kw, flops, ms, lib_ms))
         rows.append(row)
         log(f"  {spec[0]:16s} {str(spec[1:-1]):58s} x{mult:<2d} err {err:.2e} (rel {rel:.1e}, "
             f"f32 rel {rel32:.1e})  {ms:8.3f} ms  plain {plain_ms:8.3f}  "
             f"lib {'-' if lib_ms is None else f'{lib_ms:.3f}'}  bound {bound_ms:.4f} ({row['bound_by']})  "
-            f"smem {plan['smem']} B at kc {plan['kc']} (whole input {plan['smem_whole']} B)"
+            + log_plan(plan)
             + ("" if ms_streamed is None else f"  streamed kc 64: {ms_streamed:.3f} ms")
             + log_tflops(row))
         del args, kw
@@ -953,11 +1007,11 @@ def train_kernel_checks(specs: Counter, dev, streamed: bool = True) -> list:
                          bound_by="bytes" if byts / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
                          ms_streamed=ms_streamed, smem=plan["smem"], smem_whole=plan["smem_whole"],
                          kc=plan["kc"],
-                         **(tflops(spec, args, flops, ms, lib_ms) if library else {})))
+                         **(tflops(spec, args, kw, flops, ms, lib_ms) if library else {})))
         log(f"  {name:20s} {str(spec[1:-1]):50s} x{mult:<2d} err {err:.2e} (rel {rel:.1e}, "
             f"f32 rel {rel32:.1e})  {ms:8.3f} ms  plain {plain_ms:8.3f}  "
             f"lib {'-' if lib_ms is None else f'{lib_ms:.3f}'}  bound {bound_ms:.4f}  "
-            f"smem {plan['smem']} B at kc {plan['kc']} (whole input {plan['smem_whole']} B)"
+            + log_plan(plan)
             + ("" if ms_streamed is None else f"  streamed kc 64: {ms_streamed:.3f} ms")
             + log_tflops(rows[-1]))
         torch.cuda.empty_cache()
@@ -1232,16 +1286,19 @@ def k14_path(dev) -> tuple:
         bound_ms = max(byts / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
         spec = ("window_msa", nw, c, nh, 0 if lab is None else lab.shape[0], "torch.bfloat16")
         plan = plan_of(spec)
+        with torch.inference_mode():
+            rates = tflops(spec, (x,) + w, kw, flops, ms, lib_ms)
         rows.append(dict(spec=list(spec), per_run=1, max_abs_err=err, rel_err=rel,
                          max_abs_err_f32=err32, rel_err_f32=rel32, ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, library_rel_err=lib_rel, bound_ms=bound_ms, bytes=byts,
                          flops=flops,
                          bound_by="bytes" if byts / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
-                         smem=plan["smem"], smem_whole=plan["smem_whole"], kc=plan["kc"]))
+                         smem=plan["smem"], smem_whole=plan["smem_whole"], kc=plan["kc"],
+                         blocks_per_window=plan["blocks_per_window"], **rates))
         log(f"  window_msa {str(spec[1:-1]):24s} err {err:.2e} (rel {rel:.1e}, f32 rel {rel32:.1e})  "
             f"{ms:8.3f} ms  plain {plain_ms:8.3f}  lib {lib_ms:.3f} (rel err {lib_rel:.1e})  "
-            f"bound {bound_ms:.4f} ({rows[-1]['bound_by']})  smem {plan['smem']} B at kc "
-            f"{plan['kc']} (whole input {plan['smem_whole']} B)")
+            f"bound {bound_ms:.4f} ({rows[-1]['bound_by']})  " + log_plan(plan)
+            + log_tflops(rows[-1]))
         torch.cuda.empty_cache()
     return rows, launches
 
@@ -1332,7 +1389,7 @@ def main() -> None:
     torch.set_float32_matmul_precision("highest")
     rows = kernel_checks(specs, dev)
     streamed = dict(eval=log_streamed("per flagship forward", rows, "per_forward"))
-    log_conv3_sums("per flagship forward", rows, "per_forward")
+    log_alone_sums("per flagship forward", rows, "per_forward")
 
     log("== phase 3: main path, flagship bf16 forward on the trained weights")
     model = build_model(cfg, dev)
@@ -1360,7 +1417,7 @@ def main() -> None:
     log_kernel_ms("per train step (phase 5 calls x calls per step)", step, "launches_per_step",
                   train_res["median_ms"])
     streamed["train"] = log_streamed("per train step (forward kernels)", train_rows, "per_step")
-    log_conv3_sums("per train step", train_rows, "per_step")
+    log_alone_sums("per train step", train_rows, "per_step")
     torch.cuda.empty_cache()
 
     rs_cfg = remote_sensing_config(compute_dtype="bfloat16")
@@ -1368,7 +1425,7 @@ def main() -> None:
     log("== phase 7: remote-sensing kernels against their plain versions (bf16 and f32, "
         f"{RS_SIZE}x{RS_SIZE} path shapes)")
     rs_rows = kernel_checks(rs_specs, dev)
-    log_conv3_sums("per remote-sensing forward", rs_rows, "per_forward")
+    log_alone_sums("per remote-sensing forward", rs_rows, "per_forward")
     limit = _build.smem_limit()
     worst = max(rs_rows, key=lambda r: r["smem"])
     log(f"  shared memory: the device's opt-in limit {limit} B per block; largest plan "
@@ -1393,6 +1450,7 @@ def main() -> None:
 
     log("== phase 10: window MSA kernel (K14) through SpatialAttention")
     k14_rows, k14_launches = k14_path(dev)
+    log_alone_sums(f"over phase 10's {len(k14_rows)} calls", k14_rows, "per_run")
 
     rs_tspecs = train_path_specs(rs_cfg, TRAIN_BATCH, TRAIN_SIZE, "torch.bfloat16")
     log(f"== phase 11: remote-sensing training kernels against their plain versions (bf16 and "

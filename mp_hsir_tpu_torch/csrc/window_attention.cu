@@ -15,32 +15,72 @@
 // per-token region labels tiled over the windows, knocked-out scores at -inf
 // (not K1's -100). The TPU kernel flattens a block of windows into one T x T
 // problem masked block-diagonally to suit Mosaic; here one block is one
-// window, and the per-head code is K1's (window_msa_tile).
+// window, and both kernels run the same window tile.
 //
-// One block = one 8x8 window. The (-shift, -shift) cyclic roll of shifted
-// blocks is index arithmetic on the load; the output stays in the rolled
-// frame, like the TPU kernel's shift_in path. Scores use an ordinary
-// max-subtracted float32 softmax (the TPU kernel's unsubtracted, clipped exp2
-// is a Mosaic workaround and is not copied). LN, softmax and every
-// accumulation are float32; values are rounded to the compute type where the
-// JAX kernels cast.
+// The (-shift, -shift) cyclic roll of shifted windows is index arithmetic on
+// the load; the output stays in the rolled frame, like the TPU kernel's
+// shift_in path. Scores use an ordinary max-subtracted float32 softmax (the
+// TPU kernel's unsubtracted, clipped exp2 is a Mosaic workaround and is not
+// copied). LN, softmax and every accumulation are float32; values are
+// rounded to the compute type where the JAX kernels cast: qkv after its bias,
+// P after normalisation, the heads' output O, y after its bias, the mean.
 //
-// Shared memory: the block keeps the heads' output [64][C+1], one head's
-// q|k|v and the scores; the (normalised) input is staged in channel chunks of
-// kc (pick_chunk): all C at once where that fits (every natural-scene width),
-// 64 at C = 384 (245 KB whole, 166 KB chunked).
+// Bound on this card: operations. A token costs 8C^2 + 256C flops (qkv and
+// projection 8C^2, scores and PV 256C) against 4C bytes in and out, so the
+// products must run on the tensor cores, fed as fast as they consume.
 //
-// Bound on this card: the qkv/proj products dominate (8C^2 + 256C flops per
-// pixel against 4C bytes in and out), so tensor-core rate bounds it. bf16
-// products run as mma.sync on the tensor cores, float32 ones as SIMT FMA
-// (common.cuh gemm); PERF.md records the gap.
+// bf16 (window_tc_kernel): a block of four warps per window (or per half of
+// its heads, below); warp w owns token rows 16w .. 16w + 15 from the load to
+// the store, so no product waits on another warp's rows except through k
+// and v.
+// - The window's input (LN(x) for K1, rounded to bf16, or x for K14) is staged
+//   once as bf16 rows of C (padded to the 64-deep K chunk) + 8 elements: a
+//   16-byte-aligned stride whose eight ldmatrix rows fall on eight distinct
+//   bank groups. A whole window fits at every width (50 KB at C = 384), so
+//   there is no channel chunking.
+// - The wrapper packs the weights into a head-major layout
+//   (ops/kernels/window_attention.py: pack_qkv_weight, pack_proj_weight): per
+//   head its q, k and v rows [3][DHP][C], and per output chunk of one head
+//   width [DHP][C] of Wp, zero-padded to the head width DHP (16 .. 128) and
+//   the K chunk. The block streams them as one sequence of [DHP][64] tiles
+//   through a cp.async ring (about 40 KB: 2 to 6 stages); each staged tile
+//   serves all 64 tokens, with one block-wide barrier per tile.
+// - q stays in registers: the m16n8 accumulators of its product, biased and
+//   rounded, are m16n8k16 A fragments. k and v go to shared memory (bf16,
+//   [64][DHP + 8]). S = q k^T runs in accumulators (16 x 64 per warp), gets
+//   the scale, the float32 relative bias and the mask, and is normalised with
+//   quad shuffles; P = rnd(e / l) is packed straight from the accumulators
+//   into A fragments and O = P V takes V through ldmatrix.trans. No score
+//   tile lives in shared memory and no barrier sits between S, the softmax
+//   and PV.
+// - O (bf16, heads packed) stays in shared memory for the projection
+//   Y = O Wp + bp, which streams Wp one head width of output columns at a
+//   time. y is staged in the input's buffer and written in 16-byte runs;
+//   K1's window means are a fixed-order column sum of the rounded y (no
+//   atomics: deterministic).
+// - Where windows are few, a window's heads split over a thread-block
+//   cluster of two blocks (tc_cluster: where twice the windows still fit on
+//   the card at once, e.g. 64 windows at C = 384), which exchange their
+//   heads' O through distributed shared memory before the projection; each
+//   block writes the output columns of its heads. Elsewhere one window per
+//   block (4096 blocks at the flagship's 512^2).
+//
+// float32 (the checks and the float32 CLI) keeps the earlier tile
+// (window_msa_tile<float>: float32 staging, SIMT FMA products, input channel
+// chunks of kc where C = 384 does not fit), held to 1e-4 of the plain
+// version.
+#include <cooperative_groups.h>
 #include <math.h>
+
+#include <map>
+#include <mutex>
+#include <utility>
 
 #include "common.cuh"
 
 namespace mp {
 
-// One window: q|k|v = xn Wqkv + bqkv per head, scores q k^T / sqrt(dh) + the
+// The float32 window tile. One window: q|k|v = xn Wqkv + bqkv per head, scores q k^T / sqrt(dh) + the
 // relative-position bias, masked where the region labels differ (lab in shared
 // memory, or nullptr: no mask) by -100 (neg_inf false) or -inf, softmax, o =
 // p v; then y = o Wp + bp. load(xc, ld, c0, nc) stages input channels
@@ -242,6 +282,545 @@ cudaError_t launch_window_msa(const void* x, const void* wqkv, const float* bqkv
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores: window_tc_kernel (K1 with kK1, else K14). The
+// design is in the note at the top of this file.
+// ---------------------------------------------------------------------------
+
+constexpr int kTcWarps = 4;
+constexpr int kTcThreads = 32 * kTcWarps;
+constexpr int kTcK = 64;         // depth of a streamed weight tile
+constexpr int kTcLd = kTcK + 8;  // its row stride: 144 B, an odd multiple of 16 B
+
+// The padded head width of the bf16 plan at head width dh (0: dh > 128, no
+// plan); ops/kernels/window_attention.py:head_width must agree.
+inline int tc_head_width(int dh) {
+  for (int d : {16, 32, 48, 64, 96, 128})
+    if (dh <= d) return d;
+  return 0;
+}
+// ring stages at head width dhp: about 40 KB of tiles, 2 to 6 of them (2 at
+// dhp >= 96, so that two blocks fit on an SM at C = 192 with 2 heads)
+__host__ __device__ constexpr int tc_stages(int dhp) {
+  return dhp >= 96 ? 2 : 40960 / (dhp * kTcLd * 2) > 6 ? 6 : 40960 / (dhp * kTcLd * 2);
+}
+__host__ __device__ constexpr int round64(int n) { return (n + kTcK - 1) / kTcK * kTcK; }
+
+// input / y [64][kx + 8], O [64][ko + 8], k and v [64][DHP + 8], the ring
+inline size_t window_tc_smem(int C, int nH) {
+  const int dhp = tc_head_width(C / nH), kx = round64(C), ko = round64(nH * dhp);
+  return sizeof(__nv_bfloat16) * ((size_t)kPix * (kx + 8) + (size_t)kPix * (ko + 8) +
+                                  2 * (size_t)kPix * (dhp + 8) + (size_t)tc_stages(dhp) * dhp * kTcLd);
+}
+
+__device__ __forceinline__ void st_u32(__nv_bfloat16* p, uint32_t v) {
+  *reinterpret_cast<uint32_t*>(p) = v;
+}
+
+// eight bf16 (16 bytes) as float32
+__device__ __forceinline__ void bf16x8_to_f32(uint4 u, float* f) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 v = __bfloat1622float2(p[e]);
+    f[2 * e] = v.x;
+    f[2 * e + 1] = v.y;
+  }
+}
+
+// acc (16 rows x DHP columns as m16n8 fragments, acc[4 nt + q]) += A x B^T,
+// A the warp's 16 rows at a (row stride lda, 64 deep), B the staged tile wt
+// ([DHP][kTcLd]: row n, depth k).
+template <int DHP>
+__device__ __forceinline__ void tc_rows16_k64(float* acc, const __nv_bfloat16* a, int lda,
+                                              const __nv_bfloat16* wt, int lane) {
+  // A: lane gives row lane % 16 at k offset 8 (lane / 16): matrices a0..a3.
+  // B: lane gives n row (lane % 8) + 8 (lane / 16) at k offset 8 (lane / 8 % 2):
+  // b0, b1 of n8 tile 2p, then of 2p + 1.
+  const uint32_t a0 = smem_u32(a + (lane & 15) * lda + 8 * (lane >> 4));
+  const uint32_t b0 = smem_u32(wt + ((lane & 7) + 8 * (lane >> 4)) * kTcLd + 8 * ((lane >> 3) & 1));
+#pragma unroll
+  for (int kk = 0; kk < kTcK / 16; ++kk) {
+    uint32_t af[4];
+    ldmatrix_x4(af, a0 + 2 * 16 * kk);
+#pragma unroll
+    for (int p = 0; p < DHP / 16; ++p) {
+      uint32_t bf[4];
+      ldmatrix_x4(bf, b0 + 2 * (16 * p * kTcLd + 16 * kk));
+      mma_16x8x16(acc + 8 * p, af[0], af[1], af[2], af[3], bf[0], bf[1]);
+      mma_16x8x16(acc + 8 * p + 4, af[0], af[1], af[2], af[3], bf[2], bf[3]);
+    }
+  }
+}
+
+// K1 (kK1): x (B, H, W, C), window w = (b, wy, wx) of the rolled frame, LN
+// first, the -100 mask from the (H, W) label map, y in the rolled frame and
+// the window means. K14: x (NW, 64, C), window w, no LN, the -inf mask from
+// row w % n_pat of the (n_pat, 64) labels. labels NULL: no mask. wqkv
+// [nH][3][DHP][round64(C)], wp [nH][DHP][round64(nH DHP)] (the wrapper's
+// packs). vec: C % 8 == 0 and x, out 16-byte aligned (16-byte loads and
+// stores), else element by element.
+//
+// G blocks per window (a thread-block cluster of G, G | nH; 1 where windows
+// fill the card): block rank r of window w = blockIdx.x / G runs heads
+// r nH / G .. and writes output columns of the same heads. Each block stages
+// the whole window; after the heads, the cluster exchanges O through
+// distributed shared memory, so each block's projection reads all heads.
+template <bool kK1, int DHP>
+__global__ void __launch_bounds__(kTcThreads)
+window_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ lnw,
+                 const float* __restrict__ lnb, const __nv_bfloat16* __restrict__ wqkv,
+                 const float* __restrict__ bqkv, const float* __restrict__ bias,
+                 const int* __restrict__ labels, int n_pat, const __nv_bfloat16* __restrict__ wp,
+                 const float* __restrict__ bp, __nv_bfloat16* __restrict__ out,
+                 __nv_bfloat16* __restrict__ pooled, int H, int W, int C, int nH, int shift,
+                 float eps, int vec, int G) {
+  using bf16 = __nv_bfloat16;
+  constexpr int S = tc_stages(DHP), NT = DHP / 8, ldk = DHP + 8;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  __shared__ int lab[kPix];
+  const int dh = C / nH, kx = round64(C), ko = round64(nH * DHP);
+  const int ldx = kx + 8, ldo = ko + 8;
+  bf16* xs = (bf16*)tc_smem;  // [64][ldx] the input, later y
+  bf16* os = xs + kPix * ldx;  // [64][ldo] O, heads packed at DHP
+  bf16* ks = os + kPix * ldo;  // [64][ldk] k of one head
+  bf16* vs = ks + kPix * ldk;  // [64][ldk] v of one head
+  bf16* ring = vs + kPix * ldk;  // [S][DHP][kTcLd] weight tiles
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t4 = lane & 3;
+  const int r0 = 16 * warp + (lane >> 2), r1 = r0 + 8;  // the thread's accumulator rows
+
+  const int w = blockIdx.x / G, rank = blockIdx.x - w * G;
+  const int nhb = nH / G, h0 = rank * nhb;  // this block's heads
+  int b = 0, wy = 0, wx = 0;
+  if (kK1) {
+    const int nwx = W / kTile, nwy = H / kTile;
+    wx = w % nwx;
+    wy = w / nwx % nwy;
+    b = w / (nwx * nwy);
+  }
+  // token i's input row (K1: x[(r + shift) % H, (c + shift) % W] of the
+  // rolled frame's window) and output row
+  auto src_row = [&](int i) -> const bf16* {
+    if (kK1) {
+      const int sr = (wy * kTile + (i >> 3) + shift) % H, sc = (wx * kTile + (i & 7) + shift) % W;
+      return x + (((size_t)b * H + sr) * W + sc) * C;
+    }
+    return x + ((size_t)w * kPix + i) * C;
+  };
+  auto dst_row = [&](int i) -> bf16* {
+    return out + (kK1 ? tile_pix(b, wy, wx, i, H, W) : (size_t)w * kPix + i) * C;
+  };
+
+  // the input, zero past C
+  if (vec) {
+    const int units = kx / 8;
+    for (int u = threadIdx.x; u < kPix * units; u += kTcThreads) {
+      const int i = u / units, c = (u - i * units) * 8;
+      const bool in = c < C;
+      cp_async16(smem_u32(xs + i * ldx + c), in ? src_row(i) + c : x, in ? 16 : 0);
+    }
+  } else {
+    for (int u = threadIdx.x; u < kPix * kx; u += kTcThreads) {
+      const int i = u / kx, c = u - i * kx;
+      xs[i * ldx + c] = c < C ? src_row(i)[c] : __float2bfloat16(0.f);
+    }
+  }
+  cp_async_commit();
+  // O's columns past the heads are depth padding of the projection: zeros
+  const int opad = ko - nH * DHP;
+  for (int u = threadIdx.x; u < kPix * opad; u += kTcThreads) {
+    const int i = u / opad;
+    os[i * ldo + nH * DHP + u - i * opad] = __float2bfloat16(0.f);
+  }
+  const bool masked = labels != nullptr;
+  if (masked && threadIdx.x < kPix) {
+    const int i = threadIdx.x;
+    lab[i] = kK1 ? labels[(wy * kTile + (i >> 3)) * W + wx * kTile + (i & 7)]
+                 : labels[(w % n_pat) * kPix + i];
+  }
+
+  // The weight stream of the block's heads: tile t < nqkv is K chunk t % nkx
+  // of section 3 h0 + t / nkx (head h = / 3, q | k | v = % 3) of wqkv; then K
+  // chunk u % nko of output chunk h0 + u / nko of wp (u = t - nqkv). Each
+  // call of next() waits for tile t, passes one block-wide barrier (after it
+  // nobody reads tile t - 1, whose buffer takes tile t + S - 1), issues that
+  // tile and returns tile t.
+  const int nkx = kx / kTcK, nko = ko / kTcK, nqkv = 3 * nhb * nkx, T = nqkv + nhb * nko;
+  auto issue = [&](int t) {
+    if (t < T) {
+      const bf16* src;
+      int ld;
+      if (t < nqkv) {
+        const int sec = t / nkx;
+        src = wqkv + (size_t)(3 * h0 + sec) * DHP * kx + (t - sec * nkx) * kTcK;
+        ld = kx;
+      } else {
+        const int u = t - nqkv, j = u / nko;
+        src = wp + (size_t)(h0 + j) * DHP * ko + (u - j * nko) * kTcK;
+        ld = ko;
+      }
+      bf16* dst = ring + (t % S) * DHP * kTcLd;
+      for (int u = threadIdx.x; u < DHP * (kTcK / 8); u += kTcThreads) {
+        const int r = u >> 3, c = (u & 7) * 8;
+        cp_async16(smem_u32(dst + r * kTcLd + c), src + (size_t)r * ld + c, 16);
+      }
+    }
+    cp_async_commit();
+  };
+  for (int t = 0; t < S - 1; ++t) issue(t);
+  cp_async_wait<S - 1>();  // the input has landed
+  __syncthreads();
+  if (kK1) {
+    // LayerNorm in place, float32 statistics, rounded to bf16: token row
+    // threadIdx.x / 2, its 16-byte units (or elements) split between the
+    // thread pair, whose sums meet by one shuffle
+    static_assert(kTcThreads == 2 * kPix, "two threads per token row");
+    const int hf = threadIdx.x & 1;
+    bf16* row = xs + (threadIdx.x >> 1) * ldx;
+    float f[8], sum = 0.f, var = 0.f;
+    if (vec) {
+      for (int c = 8 * hf; c < C; c += 16) {
+        bf16x8_to_f32(*reinterpret_cast<const uint4*>(row + c), f);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) sum += f[e];
+      }
+    } else {
+      for (int k = hf; k < C; k += 2) sum += __bfloat162float(row[k]);
+    }
+    const float mu = (sum + __shfl_xor_sync(0xffffffffu, sum, 1)) / C;
+    if (vec) {
+      for (int c = 8 * hf; c < C; c += 16) {
+        bf16x8_to_f32(*reinterpret_cast<const uint4*>(row + c), f);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) var += (f[e] - mu) * (f[e] - mu);
+      }
+    } else {
+      for (int k = hf; k < C; k += 2) {
+        const float d = __bfloat162float(row[k]) - mu;
+        var += d * d;
+      }
+    }
+    const float rs = rsqrtf((var + __shfl_xor_sync(0xffffffffu, var, 1)) / C + eps);
+    if (vec) {
+      for (int c = 8 * hf; c < C; c += 16) {
+        bf16x8_to_f32(*reinterpret_cast<const uint4*>(row + c), f);
+        uint32_t o[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          o[e] = pack_bf16x2((f[2 * e] - mu) * rs * lnw[c + 2 * e] + lnb[c + 2 * e],
+                             (f[2 * e + 1] - mu) * rs * lnw[c + 2 * e + 1] + lnb[c + 2 * e + 1]);
+        *reinterpret_cast<uint4*>(row + c) = make_uint4(o[0], o[1], o[2], o[3]);
+      }
+    } else {
+      for (int k = hf; k < C; k += 2)
+        row[k] = __float2bfloat16((__bfloat162float(row[k]) - mu) * rs * lnw[k] + lnb[k]);
+    }
+  }
+  int t = 0;
+  auto next = [&]() {
+    cp_async_wait<S - 2>();
+    __syncthreads();
+    issue(t + S - 1);
+    return ring + (t++ % S) * DHP * kTcLd;
+  };
+
+  const float scale = rsqrtf((float)dh);
+  const bf16* xa = xs + 16 * warp * ldx;
+  // key rows of k for S (non-trans, as B), key rows of v for PV (trans)
+  const uint32_t kb = smem_u32(ks + ((lane & 7) + 8 * (lane >> 4)) * ldk + 8 * ((lane >> 3) & 1));
+  const uint32_t vb = smem_u32(vs + ((lane & 7) + 8 * ((lane >> 3) & 1)) * ldk + 8 * (lane >> 4));
+  for (int h = h0; h < h0 + nhb; ++h) {
+    uint32_t qa[DHP / 16][4];  // q of the warp's rows as A fragments
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+      float acc[NT * 4];
+#pragma unroll
+      for (int q = 0; q < NT * 4; ++q) acc[q] = 0.f;
+      for (int kc = 0; kc < nkx; ++kc) tc_rows16_k64<DHP>(acc, xa + kc * kTcK, ldx, next(), lane);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int col = 8 * nt + 2 * t4;
+        const float* bq = bqkv + s * C + h * dh + col;
+        const float b0 = col < dh ? bq[0] : 0.f, b1 = col + 1 < dh ? bq[1] : 0.f;
+        const uint32_t lo = pack_bf16x2(acc[4 * nt] + b0, acc[4 * nt + 1] + b1);
+        const uint32_t hi = pack_bf16x2(acc[4 * nt + 2] + b0, acc[4 * nt + 3] + b1);
+        if (s == 0) {
+          qa[nt >> 1][2 * (nt & 1)] = lo;
+          qa[nt >> 1][2 * (nt & 1) + 1] = hi;
+        } else {
+          bf16* d = s == 1 ? ks : vs;
+          st_u32(d + r0 * ldk + col, lo);
+          st_u32(d + r1 * ldk + col, hi);
+        }
+      }
+    }
+    __syncthreads();  // k and v of head h are complete
+
+    // S = q k^T: 16 rows x 64 keys, sc[4 nt + q] for keys 8 nt ..
+    float sc[32];
+#pragma unroll
+    for (int q = 0; q < 32; ++q) sc[q] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DHP / 16; ++kk)
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        uint32_t bf[4];
+        ldmatrix_x4(bf, kb + 2 * (16 * p * ldk + 16 * kk));
+        mma_16x8x16(sc + 8 * p, qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3], bf[0], bf[1]);
+        mma_16x8x16(sc + 8 * p + 4, qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3], bf[2], bf[3]);
+      }
+    // scale, relative bias, mask; max-subtracted softmax over the quad's rows
+    const float* bh = bias + (size_t)h * kPix * kPix;
+    float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int col = 8 * nt + 2 * t4;
+      const float2 c0 = *reinterpret_cast<const float2*>(bh + r0 * kPix + col);
+      const float2 c1 = *reinterpret_cast<const float2*>(bh + r1 * kPix + col);
+      float* v = sc + 4 * nt;
+      v[0] = v[0] * scale + c0.x;
+      v[1] = v[1] * scale + c0.y;
+      v[2] = v[2] * scale + c1.x;
+      v[3] = v[3] * scale + c1.y;
+      if (masked) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (lab[e < 2 ? r0 : r1] != lab[col + (e & 1)]) v[e] = kK1 ? v[e] - 100.f : -INFINITY;
+      }
+      m0 = fmaxf(m0, fmaxf(v[0], v[1]));
+      m1 = fmaxf(m1, fmaxf(v[2], v[3]));
+    }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
+    }
+    float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      float* v = sc + 4 * nt;
+      v[0] = expf(v[0] - m0);
+      v[1] = expf(v[1] - m0);
+      v[2] = expf(v[2] - m1);
+      v[3] = expf(v[3] - m1);
+      l0 += v[0] + v[1];
+      l1 += v[2] + v[3];
+    }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, o);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, o);
+    }
+    const float i0 = 1.f / l0, i1 = 1.f / l1;
+
+    // O = rnd(P) V: the accumulators of keys 16 kk .. are the A fragment
+    float oa[NT * 4];
+#pragma unroll
+    for (int q = 0; q < NT * 4; ++q) oa[q] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float* s0 = sc + 8 * kk;
+      const float* s1 = s0 + 4;
+      const uint32_t a0 = pack_bf16x2(s0[0] * i0, s0[1] * i0);
+      const uint32_t a1 = pack_bf16x2(s0[2] * i1, s0[3] * i1);
+      const uint32_t a2 = pack_bf16x2(s1[0] * i0, s1[1] * i0);
+      const uint32_t a3 = pack_bf16x2(s1[2] * i1, s1[3] * i1);
+#pragma unroll
+      for (int p = 0; p < DHP / 16; ++p) {
+        uint32_t bf[4];
+        ldmatrix_x4_trans(bf, vb + 2 * (16 * kk * ldk + 16 * p));
+        mma_16x8x16(oa + 8 * p, a0, a1, a2, a3, bf[0], bf[1]);
+        mma_16x8x16(oa + 8 * p + 4, a0, a1, a2, a3, bf[2], bf[3]);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int col = h * DHP + 8 * nt + 2 * t4;
+      st_u32(os + r0 * ldo + col, pack_bf16x2(oa[4 * nt], oa[4 * nt + 1]));
+      st_u32(os + r1 * ldo + col, pack_bf16x2(oa[4 * nt + 2], oa[4 * nt + 3]));
+    }
+  }
+
+  if (G > 1) {  // the other heads' O from the cluster's blocks
+    namespace cg = cooperative_groups;
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();  // every block's O is complete
+    const int units = nhb * DHP / 8;
+    for (int q = 1; q < G; ++q) {
+      const int peer = (rank + q) % G;
+      const bf16* src = cluster.map_shared_rank(os, peer);
+      for (int u = threadIdx.x; u < kPix * units; u += kTcThreads) {
+        const int i = u / units, c = peer * nhb * DHP + (u - i * units) * 8;
+        *reinterpret_cast<uint4*>(os + i * ldo + c) =
+            *reinterpret_cast<const uint4*>(src + i * ldo + c);
+      }
+    }
+  }
+
+  // y = O Wp + bp, one head width of output columns at a time, staged in xs
+  // (the warp's own rows: its input is no longer read)
+  const bf16* oaddr = os + 16 * warp * ldo;
+  for (int j = h0; j < h0 + nhb; ++j) {
+    float acc[NT * 4];
+#pragma unroll
+    for (int q = 0; q < NT * 4; ++q) acc[q] = 0.f;
+    for (int kc = 0; kc < nko; ++kc) tc_rows16_k64<DHP>(acc, oaddr + kc * kTcK, ldo, next(), lane);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * nt + 2 * t4 + (e & 1);
+        if (col < dh)
+          xs[(e < 2 ? r0 : r1) * ldx + j * dh + col] =
+              __float2bfloat16(acc[4 * nt + e] + bp[j * dh + col]);
+      }
+  }
+  __syncthreads();
+  // the block's output columns c0 .. c0 + cb - 1
+  const int c0 = h0 * dh, cb = nhb * dh;
+  if (vec && c0 % 8 == 0 && cb % 8 == 0) {
+    const int units = cb / 8;
+    for (int u = threadIdx.x; u < kPix * units; u += kTcThreads) {
+      const int i = u / units, c = c0 + (u - i * units) * 8;
+      *reinterpret_cast<uint4*>(dst_row(i) + c) = *reinterpret_cast<const uint4*>(xs + i * ldx + c);
+    }
+  } else {
+    for (int u = threadIdx.x; u < kPix * cb; u += kTcThreads) {
+      const int i = u / cb, c = c0 + u - i * cb;
+      dst_row(i)[c] = xs[i * ldx + c];
+    }
+  }
+  if (kK1) {
+    // the window's mean of the rounded y, in a fixed order: item (column
+    // pair p, row quarter q) sums rows 16 q .. 16 q + 15 in order; the four
+    // quarters of a pair sit on neighbouring lanes and meet by two shuffles
+    if (c0 % 2 == 0 && cb % 2 == 0) {
+      const int items = 2 * cb;  // cb / 2 pairs x 4 quarters
+      for (int base = 0; base < items; base += kTcThreads) {
+        const int it = base + threadIdx.x, c = c0 + 2 * (it >> 2), q = it & 3;
+        float s0 = 0.f, s1 = 0.f;
+        if (it < items) {
+          for (int i = 16 * q; i < 16 * q + 16; ++i) {
+            const float2 v =
+                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xs + i * ldx + c));
+            s0 += v.x;
+            s1 += v.y;
+          }
+        }
+#pragma unroll
+        for (int o = 1; o < 4; o <<= 1) {
+          s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+          s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+        }
+        if (it < items && q == 0)
+          st_u32(pooled + (size_t)w * C + c, pack_bf16x2(s0 * (1.f / kPix), s1 * (1.f / kPix)));
+      }
+    } else {
+      for (int c = c0 + threadIdx.x; c < c0 + cb; c += kTcThreads) {
+        float sum = 0.f;
+        for (int i = 0; i < kPix; ++i) sum += __bfloat162float(xs[i * ldx + c]);
+        pooled[(size_t)w * C + c] = __float2bfloat16(sum * (1.f / kPix));
+      }
+    }
+  }
+  // no block of the cluster leaves while another may still read its O
+  if (G > 1) cooperative_groups::this_cluster().sync();
+}
+
+using TcKernel = void (*)(const __nv_bfloat16*, const float*, const float*, const __nv_bfloat16*,
+                          const float*, const float*, const int*, int, const __nv_bfloat16*,
+                          const float*, __nv_bfloat16*, __nv_bfloat16*, int, int, int, int, int,
+                          float, int, int);
+
+// the instance of head width dhp (nullptr: none)
+template <bool kK1>
+inline TcKernel tc_kernel_for(int dhp) {
+  switch (dhp) {
+    case 16: return window_tc_kernel<kK1, 16>;
+    case 32: return window_tc_kernel<kK1, 32>;
+    case 48: return window_tc_kernel<kK1, 48>;
+    case 64: return window_tc_kernel<kK1, 64>;
+    case 96: return window_tc_kernel<kK1, 96>;
+    case 128: return window_tc_kernel<kK1, 128>;
+    default: return nullptr;
+  }
+}
+
+// The bf16 plan at (C, nH): shared memory per block, static included (-1:
+// no plan, dh > 128).
+template <bool kK1>
+inline long long window_tc_plan(int C, int nH) {
+  const TcKernel k = tc_kernel_for<kK1>(tc_head_width(C / nH));
+  return k == nullptr ? -1 : plan_bytes(k, window_tc_smem(C, nH));
+}
+
+// Blocks per window (the cluster size G): 2 where nH is even and twice the
+// windows still fit on the card at once (64 windows at C = 384, 128 at
+// C = 256), else 1. Splitting further, or into a second wave, measured
+// slower: each block stages and normalises the whole window.
+inline int tc_cluster(TcKernel kernel, size_t smem, int nwin, int nH) {
+  if (nH % 2 != 0) return 1;
+  // the card's block slots for (kernel, smem), asked of the runtime once
+  static std::mutex mu;
+  static std::map<std::pair<TcKernel, size_t>, long long> slots;
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = slots.find({kernel, smem});
+  if (it == slots.end()) {
+    int dev = 0, sms = 0, per_sm = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kTcThreads, smem) !=
+            cudaSuccess)
+      return 1;
+    it = slots.emplace(std::make_pair(kernel, smem), (long long)sms * per_sm).first;
+  }
+  return 2LL * nwin <= it->second ? 2 : 1;
+}
+
+// The cluster size the bf16 kernel launches with for nwin windows at (C, nH)
+// (k14: the window MSA's instance); 0 where there is no bf16 plan.
+template <bool kK1>
+inline int window_tc_cluster(int C, int nH, int nwin) {
+  const TcKernel kernel = tc_kernel_for<kK1>(tc_head_width(C / nH));
+  if (kernel == nullptr) return 0;
+  const size_t smem = window_tc_smem(C, nH);
+  if (set_smem(kernel, smem) != cudaSuccess) return 0;
+  return tc_cluster(kernel, smem, nwin, nH);
+}
+
+template <bool kK1>
+cudaError_t launch_window_tc(const void* x, const float* lnw, const float* lnb, const void* wqkv,
+                             const float* bqkv, const float* bias, const int* labels, int n_pat,
+                             const void* wp, const float* bp, void* out, void* pooled, int nwin,
+                             int H, int W, int C, int nH, int shift, float eps,
+                             cudaStream_t stream) {
+  const TcKernel kernel = tc_kernel_for<kK1>(tc_head_width(C / nH));
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  const size_t smem = window_tc_smem(C, nH);
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int G = tc_cluster(kernel, smem, nwin, nH);
+  const int vec = C % 8 == 0 && ((uintptr_t)x & 15) == 0 && ((uintptr_t)out & 15) == 0;
+  using bf16 = __nv_bfloat16;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nwin * G);
+  cfg.blockDim = dim3(kTcThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = G;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, (const bf16*)x, lnw, lnb, (const bf16*)wqkv, bqkv, bias,
+                           labels, n_pat, (const bf16*)wp, bp, (bf16*)out, (bf16*)pooled, H, W, C,
+                           nH, shift, eps, vec, G);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
 
 // ---------------------------------------------------------------------------
 // Backward (K8, replaces _win_bwd_kernel, mp_hsir_tpu/ops/pallas_vjp.py:539).
@@ -467,58 +1046,76 @@ cudaError_t launch_window_bwd(const void* x, const float* lnw, const float* lnb,
 
 }  // namespace mp
 
-// dtype: 0 = float32, 1 = bfloat16. Weights are [in][out] in the compute
-// type; LN, biases and the (nH, 64, 64) relative-position bias are float32;
-// labels is the (H, W) int32 shift-region map or NULL; kc the channel chunk
-// (mp_window_chunk).
+// dtype: 0 = float32, 1 = bfloat16. float32 weights are [in][out]; bf16
+// weights are the packs of ops/kernels/window_attention.py (wqkv
+// [nH][3][DHP][round64(C)], wp [nH][DHP][round64(nH DHP)]); LN, biases and
+// the (nH, 64, 64) relative-position bias are float32; labels is the (H, W)
+// int32 shift-region map or NULL; kc the channel chunk (mp_window_chunk: C
+// in bf16).
 extern "C" int mp_window_attention(const void* x, const void* lnw, const void* lnb,
                                    const void* wqkv, const void* bqkv, const void* bias,
                                    const void* labels, const void* wp, const void* bp,
                                    void* out, void* pooled, int dtype, int B, int H, int W,
                                    int C, int nH, int shift, int kc, float eps, void* stream) {
-  if (C % nH != 0 || H % mp::kTile != 0 || W % mp::kTile != 0 || kc <= 0 || kc > C)
+  if (C % nH != 0 || H % mp::kTile != 0 || W % mp::kTile != 0 || kc <= 0 || kc > C ||
+      (dtype != 0 && kc != C))
     return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
+  auto f = [](const void* p) { return (const float*)p; };
   if (dtype == 0)
-    return (int)mp::launch_window<float>(x, (const float*)lnw, (const float*)lnb, wqkv,
-                                         (const float*)bqkv, (const float*)bias,
-                                         (const int*)labels, wp, (const float*)bp, out, pooled,
-                                         B, H, W, C, nH, shift, kc, eps, st);
-  return (int)mp::launch_window<__nv_bfloat16>(x, (const float*)lnw, (const float*)lnb, wqkv,
-                                               (const float*)bqkv, (const float*)bias,
-                                               (const int*)labels, wp, (const float*)bp, out,
-                                               pooled, B, H, W, C, nH, shift, kc, eps, st);
+    return (int)mp::launch_window<float>(x, f(lnw), f(lnb), wqkv, f(bqkv), f(bias),
+                                         (const int*)labels, wp, f(bp), out, pooled, B, H, W, C,
+                                         nH, shift, kc, eps, st);
+  const int nwin = B * (H / mp::kTile) * (W / mp::kTile);
+  return (int)mp::launch_window_tc<true>(x, f(lnw), f(lnb), wqkv, f(bqkv), f(bias),
+                                         (const int*)labels, 0, wp, f(bp), out, pooled, nwin, H,
+                                         W, C, nH, shift, eps, st);
 }
 
-// K14. x (NW, 64, C) window tokens; wqkv [C][3C], wp [C][C] in the compute
-// type; bqkv, bp, the (nH, 64, 64) bias float32; labels (n_pat, 64) int32
-// region labels tiled over the windows (NW % n_pat == 0) or NULL. Output
-// (NW, 64, C). kc: the channel chunk (mp_window_chunk).
+// K14. x (NW, 64, C) window tokens; wqkv, wp as mp_window_attention's; bqkv,
+// bp, the (nH, 64, 64) bias float32; labels (n_pat, 64) int32 region labels
+// tiled over the windows (NW % n_pat == 0) or NULL. Output (NW, 64, C). kc:
+// the channel chunk (mp_window_chunk).
 extern "C" int mp_window_msa(const void* x, const void* wqkv, const void* bqkv, const void* bias,
                              const void* labels, const void* wp, const void* bp, void* out,
                              int dtype, int NW, int C, int nH, int n_pat, int kc, void* stream) {
-  if (C % nH != 0 || (labels != nullptr && (n_pat <= 0 || NW % n_pat != 0)) || kc <= 0 || kc > C)
+  if (C % nH != 0 || (labels != nullptr && (n_pat <= 0 || NW % n_pat != 0)) || kc <= 0 ||
+      kc > C || (dtype != 0 && kc != C))
     return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   auto f = [](const void* p) { return (const float*)p; };
   if (dtype == 0)
     return (int)mp::launch_window_msa<float>(x, wqkv, f(bqkv), f(bias), (const int*)labels, n_pat,
                                              wp, f(bp), out, NW, C, nH, kc, st);
-  return (int)mp::launch_window_msa<__nv_bfloat16>(x, wqkv, f(bqkv), f(bias), (const int*)labels,
-                                                   n_pat, wp, f(bp), out, NW, C, nH, kc, st);
+  return (int)mp::launch_window_tc<false>(x, nullptr, nullptr, wqkv, f(bqkv), f(bias),
+                                          (const int*)labels, n_pat, wp, f(bp), out, nullptr, NW,
+                                          0, 0, C, nH, 0, 0.f, st);
 }
 
-// The channel chunk both window kernels launch with at (C, nH).
-extern "C" int mp_window_chunk(int C, int nH) { return mp::window_chunk(C, nH); }
+// The channel chunk both window kernels launch with at (C, nH) in dtype: C
+// in bf16 (the input is staged whole), float32's as pick_chunk finds it.
+extern "C" int mp_window_chunk(int C, int nH, int dtype) {
+  return dtype == 0 ? mp::window_chunk(C, nH) : C;
+}
 
-// Shared-memory plans per block (bytes, static included) at a shape and
-// channel chunk kc.
-extern "C" long long mp_window_attention_smem(int C, int nH, int kc) {
+// Shared-memory plans per block (bytes, static included) at a shape, dtype
+// and channel chunk kc (bf16: kc = C; -1 where there is no bf16 plan, head
+// width over 128).
+extern "C" long long mp_window_attention_smem(int C, int nH, int dtype, int kc) {
+  if (dtype != 0) return kc == C ? mp::window_tc_plan<true>(C, nH) : -1;
   return mp::plan_bytes(mp::window_attention_kernel<float>, mp::window_smem(C, nH, kc));
 }
 
-extern "C" long long mp_window_msa_smem(int C, int nH, int kc) {
+extern "C" long long mp_window_msa_smem(int C, int nH, int dtype, int kc) {
+  if (dtype != 0) return kc == C ? mp::window_tc_plan<false>(C, nH) : -1;
   return mp::plan_bytes(mp::window_msa_kernel<float>, mp::window_smem(C, nH, kc));
+}
+
+// Blocks per window the bf16 kernels launch with for nwin windows at (C, nH)
+// (k14 != 0: mp_window_msa); 1 for float32.
+extern "C" int mp_window_cluster(int C, int nH, int dtype, int nwin, int k14) {
+  if (dtype == 0) return 1;
+  return k14 ? mp::window_tc_cluster<false>(C, nH, nwin) : mp::window_tc_cluster<true>(C, nH, nwin);
 }
 
 extern "C" long long mp_window_attention_bwd_smem(int C, int nH, int kc) {

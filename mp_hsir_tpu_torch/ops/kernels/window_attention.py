@@ -7,6 +7,10 @@ Kernel: ``csrc/window_attention.cu`` (replaces the TPU kernels
 ``mp_hsir_tpu/ops/pallas_vjp.py:539``). Plain versions:
 :func:`window_attention_plain` and :func:`window_attention_bwd_plain`, the
 same arithmetic in PyTorch.
+
+Weight layouts at the launch: float32 (and the backward) takes [in][out]
+copies; the bf16 forward streams the head-major packs of
+:func:`pack_qkv_weight` and :func:`pack_proj_weight`, made on every call.
 """
 
 from __future__ import annotations
@@ -29,6 +33,10 @@ from mp_hsir_tpu_torch.ops.window import (
 )
 
 WS = 8
+# the bf16 kernel's head widths and weight-tile depth: tc_head_width and
+# kTcK of csrc/window_attention.cu, which stream the layouts the packs make
+HEAD_WIDTHS = (16, 32, 48, 64, 96, 128)
+K_CHUNK = 64
 COUNTER = counter("window_attention")
 BWD = counter("window_attention_bwd")
 
@@ -125,28 +133,83 @@ def _entry(bwd: bool = False):
                         [ctypes.c_int] * 8 + [ctypes.c_float])
 
 
-def _launch(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, eps):
+def head_width(dh: int) -> int:
+    """The bf16 kernel's padded head width for head width ``dh``: the least
+    of :data:`HEAD_WIDTHS` that holds it; ValueError past 128."""
+    for d in HEAD_WIDTHS:
+        if dh <= d:
+            return d
+    raise ValueError(f"the bf16 window kernels take head widths up to {HEAD_WIDTHS[-1]}, got {dh}")
+
+
+def _round_k(n: int) -> int:
+    return -(-n // K_CHUNK) * K_CHUNK
+
+
+def pack_qkv_weight(wqkv: torch.Tensor, num_heads: int, dt: torch.dtype) -> torch.Tensor:
+    """(3C, C) torch-Linear qkv weight -> the bf16 kernel's head-major
+    [nH][3][DHP][round64(C)] in ``dt``: slab h holds head h's q, k and v rows
+    (rows s*C + h*dh + r of ``wqkv``), zero past dh and past C."""
+    c = wqkv.shape[1]
+    dh = c // num_heads
+    dhp, kx = head_width(dh), _round_k(c)
+    view = wqkv.reshape(3, num_heads, dh, c).transpose(0, 1)
+    if dhp == dh and kx == c:  # one copy: the cast and the permutation together
+        return torch.empty(view.shape, dtype=dt, device=wqkv.device).copy_(view)
+    out = torch.zeros((num_heads, 3, dhp, kx), dtype=dt, device=wqkv.device)
+    out[:, :, :dh, :c] = view
+    return out
+
+
+def pack_proj_weight(wp: torch.Tensor, num_heads: int, dt: torch.dtype) -> torch.Tensor:
+    """(C, C) torch-Linear projection weight -> [nH][DHP][round64(nH DHP)] in
+    ``dt``: chunk j holds output rows j*dh + r, their input column h*dh + d at
+    h*DHP + d (the heads' output as the kernel packs it), zero elsewhere."""
+    c = wp.shape[0]
+    dh = c // num_heads
+    dhp = head_width(dh)
+    ko = _round_k(num_heads * dhp)
+    view = wp.reshape(num_heads, dh, num_heads, dh)
+    if dhp == dh and ko == c:
+        return torch.empty((num_heads, dh, c), dtype=dt, device=wp.device).copy_(
+            view.reshape(num_heads, dh, c))
+    out = torch.zeros((num_heads, dhp, ko), dtype=dt, device=wp.device)
+    out[:, :dh, :num_heads * dhp].unflatten(-1, (num_heads, dhp))[..., :dh] = view
+    return out
+
+
+def _prepare(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, eps):
+    """Everything a launch needs: (the C entry's arguments, (out, pooled),
+    the tensors the arguments point into, to be held until the launch)."""
     b, h, w, c = x.shape
     if h % WS or w % WS or c % num_heads:
         raise ValueError(f"window attention needs H, W % 8 == 0 and C % heads == 0, got {x.shape}")
     dt = x.dtype
     code = dtype_code(x)
-    kc = _build.chunk("mp_window_chunk", c, num_heads)
+    kc = _build.chunk("mp_window_chunk", c, num_heads, code)
     _build.check_plan("window_attention", "mp_window_attention_smem", f"C={c}, heads={num_heads}",
-                      c, num_heads, kc)
+                      c, num_heads, code, kc)
     x = x.contiguous()
-    wq, wpk = kernel_weight(wqkv, dt), kernel_weight(wp, dt)
+    if code:
+        wq, wpk = pack_qkv_weight(wqkv, num_heads, dt), pack_proj_weight(wp, num_heads, dt)
+    else:
+        wq, wpk = kernel_weight(wqkv, dt), kernel_weight(wp, dt)
     lnw, lnb, bq, bpf, bias = f32(ln_w), f32(ln_b), f32(bqkv), f32(bp), f32(rel_bias)
     labels = region_labels(h, w, shift, x.device) if shift else None
     out = torch.empty_like(x)
     pooled = torch.empty((b, h // WS, w // WS, c), dtype=dt, device=x.device)
-    err = _entry()(x.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), wq.data_ptr(), bq.data_ptr(),
-                   bias.data_ptr(), _build.ptr(labels), wpk.data_ptr(), bpf.data_ptr(),
-                   out.data_ptr(), pooled.data_ptr(), code, b, h, w, c, num_heads, shift,
-                   kc, eps, stream_ptr())
-    _build.check("mp_window_attention", err)
-    COUNTER.record(("window_attention", b, h, w, c, num_heads, shift, str(dt)))
-    return out, pooled
+    args = (x.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), wq.data_ptr(), bq.data_ptr(),
+            bias.data_ptr(), _build.ptr(labels), wpk.data_ptr(), bpf.data_ptr(), out.data_ptr(),
+            pooled.data_ptr(), code, b, h, w, c, num_heads, shift, kc, eps, stream_ptr())
+    return args, (out, pooled), (x, wq, wpk, lnw, lnb, bq, bpf, bias, labels)
+
+
+def _launch(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, eps):
+    args, out, _held = _prepare(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, eps)
+    _build.check("mp_window_attention", _entry()(*args))
+    b, h, w, c = x.shape
+    COUNTER.record(("window_attention", b, h, w, c, num_heads, shift, str(x.dtype)))
+    return out
 
 
 def _bwd_launch(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, eps, dout, dpool):

@@ -11,9 +11,10 @@ same arithmetic in PyTorch. There is no backward, as in the JAX package
 (its Pallas call has no VJP): a backward through it raises.
 
 Layouts: windows (NW, 64, C); wqkv (3C, C) and wp (C, C) as torch Linear
-weights; bqkv (3C,), bp (C,) and rel_bias (nH, 64, 64) are used in float32;
-labels (nW_pattern, 64) int region labels, tiled over the windows
-(NW % nW_pattern == 0), or None.
+weights (the bf16 kernel streams them as the window kernel's head-major
+packs, float32 as [in][out] copies); bqkv (3C,), bp (C,) and rel_bias
+(nH, 64, 64) are used in float32; labels (nW_pattern, 64) int region labels,
+tiled over the windows (NW % nW_pattern == 0), or None.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from mp_hsir_tpu_torch.ops.kernels import _build
 from mp_hsir_tpu_torch.ops.kernels._route import (
     ROUTE, counter, dtype_code, f32, kernel_weight, stream_ptr,
 )
+from mp_hsir_tpu_torch.ops.kernels.window_attention import pack_proj_weight, pack_qkv_weight
 
 COUNTER = counter("window_msa")
 N_TOK = 64
@@ -53,27 +55,38 @@ def _entry():
     return _build.entry("mp_window_msa", 8, [ctypes.c_int] * 6)
 
 
-def _launch(x, wqkv, bqkv, rel_bias, wp, bp, num_heads, labels):
+def _prepare(x, wqkv, bqkv, rel_bias, wp, bp, num_heads, labels):
+    """Everything a launch needs: (the C entry's arguments, out, the tensors
+    the arguments point into, to be held until the launch)."""
     nw, n, c = x.shape
     if n != N_TOK or c % num_heads:
         raise ValueError(f"window_msa takes (NW, 64, C) tokens with C % heads == 0, got {x.shape}")
     if labels is not None and (labels.shape[-1] != N_TOK or nw % labels.shape[0]):
         raise ValueError(f"labels {tuple(labels.shape)} do not tile {nw} windows of 64 tokens")
     dt, code = x.dtype, dtype_code(x)
-    kc = _build.chunk("mp_window_chunk", c, num_heads)
+    kc = _build.chunk("mp_window_chunk", c, num_heads, code)
     _build.check_plan("window_msa", "mp_window_msa_smem", f"C={c}, heads={num_heads}",
-                      c, num_heads, kc)
+                      c, num_heads, code, kc)
     x = x.contiguous()
-    wq, wpk = kernel_weight(wqkv, dt), kernel_weight(wp, dt)
+    if code:
+        wq, wpk = pack_qkv_weight(wqkv, num_heads, dt), pack_proj_weight(wp, num_heads, dt)
+    else:
+        wq, wpk = kernel_weight(wqkv, dt), kernel_weight(wp, dt)
     bq, bpf, bias = f32(bqkv), f32(bp), f32(rel_bias)
     lab = None if labels is None else labels.to(x.device, torch.int32).contiguous()
     n_pat = 0 if lab is None else lab.shape[0]
     out = torch.empty_like(x)
-    err = _entry()(x.data_ptr(), wq.data_ptr(), bq.data_ptr(), bias.data_ptr(), _build.ptr(lab),
-                   wpk.data_ptr(), bpf.data_ptr(), out.data_ptr(), code, nw, c, num_heads, n_pat,
-                   kc, stream_ptr())
-    _build.check("mp_window_msa", err)
-    COUNTER.record(("window_msa", nw, c, num_heads, n_pat, str(dt)))
+    args = (x.data_ptr(), wq.data_ptr(), bq.data_ptr(), bias.data_ptr(), _build.ptr(lab),
+            wpk.data_ptr(), bpf.data_ptr(), out.data_ptr(), code, nw, c, num_heads, n_pat, kc,
+            stream_ptr())
+    return args, out, (x, wq, wpk, bq, bpf, bias, lab)
+
+
+def _launch(x, wqkv, bqkv, rel_bias, wp, bp, num_heads, labels):
+    args, out, _held = _prepare(x, wqkv, bqkv, rel_bias, wp, bp, num_heads, labels)
+    _build.check("mp_window_msa", _entry()(*args))
+    n_pat = 0 if labels is None else labels.shape[0]
+    COUNTER.record(("window_msa", x.shape[0], x.shape[2], num_heads, n_pat, str(x.dtype)))
     return out
 
 

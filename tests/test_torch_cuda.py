@@ -469,30 +469,66 @@ def test_cuda_remote_sensing_widths_match_plain(dtype, tol):
         except AssertionError as e:
             faults.append(f"{name}: {e}")
     assert not faults, "\n".join(faults)
-    for kernel, shape in (("window", (384, 8)), ("spectral_stats", (192, 2)),
-                          ("spectral_apply", (384, 1)), ("gdfn", (384,))):
+    # the window kernel: bf16 stages the whole window (its chunk is C),
+    # float32 streams 64-channel chunks; both plans within the limit
+    code = int(dtype == "bfloat16")
+    for kernel, shape, want in (("window", (384, 8, code), 384 if code else 64),
+                                ("spectral_stats", (192, 2), 64), ("spectral_apply", (384, 1), 64),
+                                ("gdfn", (384,), 64)):
         kc = _build.chunk(f"mp_{kernel}_chunk", *shape)
         entry = "mp_window_attention_smem" if kernel == "window" else f"mp_{kernel}_smem"
-        assert kc == 64, kernel
+        assert kc == want, kernel
         assert 0 < _build.plan_bytes(entry, *shape, kc) <= _build.smem_limit(), entry
 
 
+# (C, heads): dh 32, 64, 96 and 48 (an even head count: the bf16 kernel
+# splits these few windows' heads over a two-block cluster), 3 heads of 32
+# (one block per window); C = 36 and 27 (rows not 16-byte multiples: staged
+# and stored element by element; dh 18 and 9 padded to 32 and 16; an odd C
+# and an odd split point of the output columns); the maps give 3 windows
+# (8x24) and, at B = 2, 12 (16x24): odd counts, and a window grid that is
+# not square
+WINDOW_CASES = [(c, heads, shift, b, h)
+                for c, heads in ((64, 2), (128, 2), (192, 2), (384, 8), (96, 3), (36, 2), (27, 3))
+                for shift in (0, 4) for b, h in ((1, 8), (2, 16))]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,heads", [(64, 2), (384, 8)])
+@pytest.mark.parametrize("c,heads,shift,b,h", WINDOW_CASES)
+def test_cuda_window_attention_widths_match_plain(c, heads, shift, b, h):
+    """K1 on the card against its plain version at every head width of the
+    presets, shifted and not: bf16 within 3e-2 and float32 within 1e-4 of
+    each output's max-abs (y and the window means)."""
+    dev = _cuda()
+    d = _window_inputs(50 + c, c, heads, h, 24)
+    x = _t(np.concatenate([d["x"], -d["x"][:, ::-1]], axis=0)[:b]).to(dev)
+    w = [_t(d["ln_w"]).to(dev), _t(d["ln_b"]).to(dev), _t(d["wqkv"]).t().to(dev),
+         _t(d["bqkv"]).to(dev), _t(d["rel_bias"]).to(dev), _t(d["wp"]).t().to(dev),
+         _t(d["bp"]).to(dev)]
+    for dt, tol in ((torch.bfloat16, 3e-2), (torch.float32, 1e-4)):
+        _route.reset_counters()
+        _check_fwd(window_attention, [x.to(dt), *w, heads], dict(shift=shift), tol)
+        assert _route.COUNTERS["window_attention"].launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads", [(64, 2), (256, 8), (384, 8), (96, 3), (36, 2)])
+@pytest.mark.parametrize("nw", [3, 8])
 @pytest.mark.parametrize("masked", [False, True])
-def test_cuda_window_msa_matches_plain(c, heads, masked):
+def test_cuda_window_msa_matches_plain(c, heads, masked, nw):
     """K14 on the card against its plain version, float32 (1e-4) and bf16
-    (3e-2 of the output's max-abs), 8 windows tiling a 4-window label
-    pattern."""
+    (3e-2 of the output's max-abs): 8 windows tiling a 4-window label
+    pattern, 3 windows tiling a 3-window one."""
     from mp_hsir_tpu_torch.ops.kernels.window_msa import window_msa
     from mp_hsir_tpu_torch.ops.window import shifted_window_labels
 
     dev = _cuda()
     r = _rng(41)
-    lab = torch.as_tensor(shifted_window_labels(16, 16, 8, 4)).to(dev) if masked else None
+    side = (16, 16) if nw == 8 else (8, 24)
+    lab = torch.as_tensor(shifted_window_labels(*side, 8, 4)).to(dev) if masked else None
     w = [_t(_u(r, s, c)).to(dev) for s in ((3 * c, c), (3 * c,), (c, c), (c,))]
     bias = _t(_n(r, (heads, 64, 64), 0.02)).to(dev)
-    x = _t(_n(r, (8, 64, c))).to(dev)
+    x = _t(_n(r, (nw, 64, c))).to(dev)
     for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
         _route.reset_counters()
         _check_fwd(window_msa, [x.to(dt), w[0], w[1], bias, w[2], w[3], heads], dict(labels=lab), tol)

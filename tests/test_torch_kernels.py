@@ -23,7 +23,9 @@ from mp_hsir_tpu_torch.ops.kernels.gdfn import gdfn_plain
 from mp_hsir_tpu_torch.ops.kernels.spectral import (
     spectral_apply_plain, spectral_fold, spectral_stats_plain,
 )
-from mp_hsir_tpu_torch.ops.kernels.window_attention import window_attention_plain
+from mp_hsir_tpu_torch.ops.kernels.window_attention import (
+    HEAD_WIDTHS, K_CHUNK, head_width, pack_proj_weight, pack_qkv_weight, window_attention_plain,
+)
 from mp_hsir_tpu_torch.ops.window import shifted_region_map
 from torch_port_inputs import (
     normal as _n, oihw as _oihw, rng as _rng, spectral_weights as _spectral_weights,
@@ -155,6 +157,49 @@ def test_conv3_pack_weight_layout(cin, cout, dt):
     assert not full[pad].any()
     n, k, ky, kx = cout - 1, cin - 1, 2, 1
     assert wk[n // TILE_N, k // CHUNK_K, 3 * ky + kx, k % CHUNK_K, n % TILE_N] == w[n, k, ky, kx].to(dt)
+
+
+# (C, heads): dh 8 padded to 16 and C to one 64-deep chunk; dh 48 with C 96
+# padded to 128; no padding at 64 / 2 and 384 / 8 (the remote-sensing latent)
+@pytest.mark.parametrize("c,heads", [(16, 2), (96, 2), (64, 2), (384, 8)])
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_window_pack_weight_layout(c, heads, dt):
+    """The weight layouts the bf16 window kernels stream: qkv slab h holds
+    exactly head h's q, k and v rows of the torch-Linear weight, the
+    projection chunk j output rows j*dh .. with head h's input columns at
+    h*DHP; every padding is zero; O Wp through the packs is the projection."""
+    r = _rng(12)
+    wqkv, wp = _t(_n(r, (3 * c, c))), _t(_n(r, (c, c)))
+    dh = c // heads
+    dhp, kx = head_width(dh), -(-c // K_CHUNK) * K_CHUNK
+    ko = -(-heads * dhp // K_CHUNK) * K_CHUNK
+    assert dhp in HEAD_WIDTHS and dh <= dhp < dh + 16
+    wk = pack_qkv_weight(wqkv, heads, dt)
+    assert wk.shape == (heads, 3, dhp, kx) and wk.dtype == dt and wk.is_contiguous()
+    pad = torch.ones_like(wk, dtype=torch.bool)
+    for h in range(heads):
+        for sec in range(3):
+            rows = wqkv[sec * c + h * dh:sec * c + (h + 1) * dh]
+            assert torch.equal(wk[h, sec, :dh, :c], rows.to(dt))
+            pad[h, sec, :dh, :c] = False
+    assert not wk[pad].any()
+    pk = pack_proj_weight(wp, heads, dt)
+    assert pk.shape == (heads, dhp, ko) and pk.dtype == dt and pk.is_contiguous()
+    pad = torch.ones_like(pk, dtype=torch.bool)
+    for j in range(heads):
+        for h in range(heads):
+            block = wp[j * dh:(j + 1) * dh, h * dh:(h + 1) * dh]
+            assert torch.equal(pk[j, :dh, h * dhp:h * dhp + dh], block.to(dt))
+            pad[j, :dh, h * dhp:h * dhp + dh] = False
+    assert not pk[pad].any()
+    # the heads' output o (64, C) packed as the kernel keeps it, times each chunk
+    o = _t(_n(r, (64, c)))
+    op = torch.zeros(64, ko)
+    op[:, :heads * dhp].unflatten(-1, (heads, dhp))[..., :dh] = o.reshape(64, heads, dh)
+    y = torch.cat([(op @ pk[j].float().t())[:, :dh] for j in range(heads)], dim=1)
+    torch.testing.assert_close(y, o @ wp.to(dt).float().t(), atol=1e-4, rtol=1e-4)
+    with pytest.raises(ValueError, match="head widths up to 128"):
+        head_width(129)
 
 
 def test_gdfn_with_exit_projection_matches_pallas():
