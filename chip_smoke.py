@@ -15,12 +15,15 @@ Phases (any failure exits non-zero; no phase's error is caught):
    the same points, float32 sums in other orders can flip a rounding);
    float32 <= 1e-4 * max|plain|. Times each with CUDA events, beside the
    plain version, F.conv2d for the conv (library_ms) and the bound
-   max(bytes / 3.35 TB/s, flops / 989 TFLOP/s); each conv3 call (here and
-   in phases 5 and 7) and each window_attention call (here and in phase 7)
-   is also timed as its kernel alone (the weights packed once, the C entry
-   launched directly) and prints its achieved TFLOP/s, the kernel alone's
-   and its library call's (flops / ms); their sums over the path's calls
-   follow the table. The spectral and GDFN kernels keep their input
+   max(bytes / 3.35 TB/s, flops / 989 TFLOP/s); each conv3, window_attention,
+   spectral_apply and mlp call (here and in phases 5, 7 and 11) is also
+   timed as its kernel alone (the weights packed once, the C entry launched
+   directly) and prints its achieved TFLOP/s, the kernel alone's and its
+   library call's (flops / ms); their sums over the path's calls follow the
+   table. Each spectral_apply call with the PGSSTB tail is timed once more
+   on the same inputs without it (through the wrapper and alone): the sums
+   split the apply time into the front and the tail. The spectral and GDFN
+   kernels keep their input
    resident where that fits; each such call at C > 64 is checked and timed
    once more with its input streamed in 64-channel chunks (the
    remote-sensing latent's plan), summed per forward beside the resident
@@ -160,7 +163,7 @@ K14_KERNEL = {"window_msa": dict(source="mp_hsir_tpu_torch/csrc/window_attention
 STAGED = ("spectral_stats", "spectral_apply", "gdfn")
 # the kernels timed alone beside their wrappers, with their library yardsticks
 ALONE = {"conv3": "F.conv2d", "window_attention": None,
-         "window_msa": "F.multi_head_attention_forward"}
+         "window_msa": "F.multi_head_attention_forward", "mlp": None, "spectral_apply": None}
 # the training route's new kernels (timed at the train step's shapes)
 TRAIN_KERNELS = {
     "mlp": dict(source="mp_hsir_tpu_torch/csrc/mlp.cu", tpu=["K6"],
@@ -343,9 +346,9 @@ PLAN_ENTRIES = {
     "spectral_stats": ("mp_spectral_stats_smem", "mp_spectral_stats_chunk",
                        lambda s: (s[4] + s[5], s[6])),
     "spectral_apply": ("mp_spectral_apply_smem", "mp_spectral_apply_chunk",
-                       lambda s: (s[4] + s[5], int(s[11] > 0))),
+                       lambda s: (s[4] + s[5], int(s[11] > 0), _code(s))),
     "gdfn": ("mp_gdfn_smem", "mp_gdfn_chunk", lambda s: s[4:5]),
-    "mlp": ("mp_mlp_smem", None, lambda s: s[4:5]),
+    "mlp": ("mp_mlp_smem", None, lambda s: (s[4], _code(s))),
     "mlp_bwd": ("mp_mlp_bwd_smem", "mp_mlp_bwd_chunk", lambda s: s[4:5]),
     "window_attention_bwd": ("mp_window_attention_bwd_smem", "mp_window_attention_bwd_chunk",
                              lambda s: s[4:6]),
@@ -486,10 +489,13 @@ def time_ms(fn, iters: int) -> float:
 
 def kernel_alone_ms(name, args, kw) -> float:
     """A kernel alone on a call's inputs: its launch prepared once (conv3's
-    weight packed, the window kernels' weights packed and their outputs
-    allocated) and the C entry launched directly, without what the wrapper
-    adds on the host per call (the packing copies, allocations, Python)."""
-    from mp_hsir_tpu_torch.ops.kernels import _build, conv3, window_attention, window_msa
+    weight packed, the window, mlp and spectral apply kernels' weights
+    packed and their outputs allocated) and the C entry launched directly,
+    without what the wrapper adds on the host per call (the packing copies,
+    allocations, Python)."""
+    from mp_hsir_tpu_torch.ops.kernels import (
+        _build, conv3, mlp, spectral, window_attention, window_msa,
+    )
     from mp_hsir_tpu_torch.ops.kernels._route import dtype_code, stream_ptr
 
     if name == "conv3":
@@ -505,6 +511,13 @@ def kernel_alone_ms(name, args, kw) -> float:
     elif name == "window_attention":
         launch, _, held = window_attention._prepare(*args, kw.get("shift", 0), kw.get("eps", 1e-5))
         entry, what = window_attention._entry(), "mp_window_attention"
+    elif name == "mlp":
+        launch, _, held = mlp._prepare(*args, kw.get("residual", False), kw.get("dp_scale"),
+                                       kw.get("eps", 1e-5))
+        entry, what = mlp._entry(), "mp_mlp"
+    elif name == "spectral_apply":
+        launch, _, held = spectral._apply_prepare(*args, **kw)
+        entry, what = spectral._apply_entry(), "mp_spectral_apply"
     else:
         launch, _, held = window_msa._prepare(*args, kw.get("labels"))
         entry, what = window_msa._entry(), "mp_window_msa"
@@ -525,12 +538,27 @@ def tflops(spec, args, kw, flops, ms, lib_ms) -> dict:
                 library_tflops=None if lib_ms is None else flops / lib_ms / 1e9)
 
 
+def front_split(spec, fn, args, kw) -> dict:
+    """A spectral apply call with the PGSSTB tail timed once more on the same
+    inputs without it (mlp=None): the front's time through the wrapper and
+    alone; the tail's is the difference."""
+    if spec[0] != "spectral_apply" or not kw.get("mlp"):
+        return {}
+    front = dict(kw, mlp=None)
+    compare(fn, args, front, BF16_TOL)
+    return dict(front_ms=time_ms(lambda: fn(*args, **front), 10),
+                front_kernel_ms=kernel_alone_ms(spec[0], args, front))
+
+
 def log_tflops(row) -> str:
     if "tflops" not in row:
         return ""
     lib = row["library_tflops"]
+    front = ("" if "front_ms" not in row else
+             f"; without the tail {row['front_ms']:.4f} ms, alone {row['front_kernel_ms']:.4f}")
     return (f"  {row['tflops']:.1f} TFLOP/s; kernel alone {row['kernel_ms']:.4f} ms "
-            f"{row['kernel_tflops']:.1f} TFLOP/s (lib {'-' if lib is None else f'{lib:.1f}'})")
+            f"{row['kernel_tflops']:.1f} TFLOP/s (lib {'-' if lib is None else f'{lib:.1f}'})"
+            + front)
 
 
 def log_alone_sums(what: str, rows, per: str) -> None:
@@ -548,6 +576,14 @@ def log_alone_sums(what: str, rows, per: str) -> None:
         log(f"  {name} {what}: wrapper {tot('ms'):.4f} ms ({flops / tot('ms'):.1f} TFLOP/s), "
             f"kernel alone {tot('kernel_ms'):.4f} ms ({flops / tot('kernel_ms'):.1f} TFLOP/s)"
             f"{lib} ({sum(r[per] for r in mine)} calls)")
+        tails = [r for r in mine if "front_ms" in r]
+        if tails:
+            tot_t = lambda k: sum(r[k] * r[per] for r in tails)  # noqa: E731
+            log(f"    of it the {sum(r[per] for r in tails)} calls with the PGSSTB tail: wrapper "
+                f"{tot_t('ms'):.4f} ms = front {tot_t('front_ms'):.4f} + tail "
+                f"{tot_t('ms') - tot_t('front_ms'):.4f}; alone {tot_t('kernel_ms'):.4f} ms = front "
+                f"{tot_t('front_kernel_ms'):.4f} + tail "
+                f"{tot_t('kernel_ms') - tot_t('front_kernel_ms'):.4f}")
 
 
 def kernel_checks(specs: Counter, dev) -> dict:
@@ -577,7 +613,8 @@ def kernel_checks(specs: Counter, dev) -> dict:
                    bound_by="bytes" if byts / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
                    smem=plan["smem"], smem_whole=plan["smem_whole"], kc=plan["kc"],
                    blocks_per_window=plan.get("blocks_per_window"),
-                   ms_streamed=ms_streamed, **tflops(spec, args, kw, flops, ms, lib_ms))
+                   ms_streamed=ms_streamed, **tflops(spec, args, kw, flops, ms, lib_ms),
+                   **front_split(spec, fn, args, kw))
         rows.append(row)
         log(f"  {spec[0]:16s} {str(spec[1:-1]):58s} x{mult:<2d} err {err:.2e} (rel {rel:.1e}, "
             f"f32 rel {rel32:.1e})  {ms:8.3f} ms  plain {plain_ms:8.3f}  "
@@ -1007,7 +1044,7 @@ def train_kernel_checks(specs: Counter, dev, streamed: bool = True) -> list:
                          bound_by="bytes" if byts / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
                          ms_streamed=ms_streamed, smem=plan["smem"], smem_whole=plan["smem_whole"],
                          kc=plan["kc"],
-                         **(tflops(spec, args, kw, flops, ms, lib_ms) if library else {})))
+                         **({} if name.endswith("_bwd") else tflops(spec, args, kw, flops, ms, lib_ms))))
         log(f"  {name:20s} {str(spec[1:-1]):50s} x{mult:<2d} err {err:.2e} (rel {rel:.1e}, "
             f"f32 rel {rel32:.1e})  {ms:8.3f} ms  plain {plain_ms:8.3f}  "
             f"lib {'-' if lib_ms is None else f'{lib_ms:.3f}'}  bound {bound_ms:.4f}  "
@@ -1310,6 +1347,18 @@ def summarize(rows, launches, kernels, per) -> list:
         tot = lambda k: sum(r[k] * r[per] for r in mine)  # noqa: E731
         lib = None if any(r["library_ms"] is None for r in mine) else tot("library_ms")
         byts, flops = tot("bytes"), tot("flops")
+        alone = {}
+        if mine and all("kernel_ms" in r for r in mine):
+            alone = dict(kernel_alone_ms=tot("kernel_ms"), tflops=flops / tot("ms") / 1e9,
+                         kernel_tflops=flops / tot("kernel_ms") / 1e9)
+            tails = [r for r in mine if "front_ms" in r]
+            if tails:  # the apply calls with the PGSSTB tail: front and tail
+                front = sum(r["front_ms"] * r[per] for r in tails)
+                front_alone = sum(r["front_kernel_ms"] * r[per] for r in tails)
+                alone.update(tail_calls_ms=sum(r["ms"] * r[per] for r in tails),
+                             tail_calls_front_ms=front, tail_calls_kernel_ms=sum(
+                                 r["kernel_ms"] * r[per] for r in tails),
+                             tail_calls_front_kernel_ms=front_alone)
         summary.append(dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
             tpu=meta["tpu"], launches=launches[name],
@@ -1318,7 +1367,7 @@ def summarize(rows, launches, kernels, per) -> list:
             rel_err=max(r["rel_err"] for r in mine), ms=tot("ms"), plain_ms=tot("plain_ms"),
             bound_ms=tot("bound_ms"),
             bound_by="bytes" if byts / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
-            library_ms=lib))
+            library_ms=lib, **alone))
     return summary
 
 
@@ -1456,6 +1505,7 @@ def main() -> None:
     log(f"== phase 11: remote-sensing training kernels against their plain versions (bf16 and "
         f"f32, batch {TRAIN_BATCH} x {TRAIN_SIZE}^2 step shapes)")
     rs_train_rows = train_kernel_checks(rs_tspecs, dev, streamed=False)
+    log_alone_sums("per remote-sensing train step", rs_train_rows, "per_step")
     worst = max(rs_train_rows, key=lambda r: r["smem"])
     log(f"  shared memory: the device's opt-in limit {limit} B per block; largest plan "
         f"{worst['smem']} B ({worst['spec'][0]} {worst['spec'][1:-1]})")
@@ -1482,7 +1532,7 @@ def main() -> None:
         if k["name"] in by_name:
             k["remote_sensing_train"] = {key: by_name[k["name"]][key] for key in (
                 "launches", "launches_per_step", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                "bound_by")}
+                "bound_by", "kernel_alone_ms", "kernel_tflops") if key in by_name[k["name"]]}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:

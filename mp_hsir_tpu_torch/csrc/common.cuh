@@ -4,9 +4,11 @@
 // 8x8 attention window) and keeps its working set in shared memory as float32.
 // Products go through gemm<T>: warp-level mma.sync on the tensor cores for
 // bf16, block-level loops over 4x4 register tiles (SIMT FMA) for float32.
-// conv3 is the exception: an implicit GEMM over 8x16-pixel tiles whose bf16
-// operands are staged as bf16 with cp.async and fed to mma.sync by ldmatrix.
-// wgmma and TMA are later work; see PERF.md for the gap to each bound.
+// The exceptions stage their bf16 operands as bf16 with cp.async and feed
+// mma.sync by ldmatrix: conv3 (an implicit GEMM over 16x16-pixel tiles), the
+// bf16 window forward (window_attention.cu) and the bf16 PGSSTB tail MLP
+// (mlp_tail.cuh). wgmma and TMA are later work; see PERF.md for the gap to
+// each bound.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -325,9 +327,10 @@ __device__ __forceinline__ void dwconv3_tile(const float* src, int lds, int nc, 
 }
 
 // The gated MLP on one 8x8 tile: y[p][o] += fc2(a * gelu(g)) + b2 with
-// [a | g] = fc1(LN2(y)) + b1 (the PGSSTB tail of the spectral apply kernel),
-// or, with branch_only, y[p][o] = fc2(a * gelu(g)) + b2 (the standalone MLP
-// kernel, which adds its residual and drop-path scale itself). y ([kPix][ldy],
+// [a | g] = fc1(LN2(y)) + b1 (the PGSSTB tail of the float32 spectral apply
+// kernel), or, with branch_only, y[p][o] = fc2(a * gelu(g)) + b2 (the float32
+// MLP kernel, which adds its residual and drop-path scale itself; bf16 runs
+// mlp_tail.cuh's tensor-core tile). y ([kPix][ldy],
 // float32 values already rounded to T) is updated in place; yn ([kPix][ldy])
 // and hb ([kPix][2*khc+1]) are scratch; khc is the hidden chunk.
 constexpr int kHC = 64;  // hidden chunk (apply smem at C = 256: 210 KB of 227)

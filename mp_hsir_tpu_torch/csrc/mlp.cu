@@ -3,9 +3,12 @@
 // with an optional per-sample drop-path scale s_b.
 //
 //   mp_mlp      replaces _mlp_kernel (mp_hsir_tpu/ops/pallas_attention.py:965,
-//               host _mlp_fwd_call :996, K6). The tile body is the spectral
-//               apply kernel's tail (common.cuh mlp_tail_tile). As there,
-//               the scaled branch is rounded once, then the residual added.
+//               host _mlp_fwd_call :996, K6). bf16: mlp_tc_kernel, the
+//               tensor-core tail tile of mlp_tail.cuh on the x tile staged
+//               as bf16 (cp.async; LN in place). float32: mlp_kernel, the
+//               spectral apply kernel's float32 tail (common.cuh
+//               mlp_tail_tile). As there, the scaled branch is rounded once,
+//               then the residual added.
 //   mp_mlp_bwd  the per-tile half of K6's VJP (_mlp_bwd_kernel,
 //               mp_hsir_tpu/ops/pallas_vjp.py:124, K9): recompute LN, fc1 and
 //               the gate per 64-wide hidden chunk; dgated = dys fc2^T with
@@ -18,8 +21,9 @@
 //
 // One block = one 8x8 tile. Bound on this card: 6*C*hidden flops per pixel
 // forward (12*C*hidden backward, + 2*C*hidden with drop-path) against ~4C
-// bytes per pixel: tensor-core rate. bf16 products on mma.sync, float32 SIMT.
-#include "common.cuh"
+// bytes per pixel: tensor-core rate. The backward's bf16 products run on
+// mma.sync fed element by element (common.cuh gemm), float32 on SIMT FMA.
+#include "mlp_tail.cuh"
 
 namespace mp {
 
@@ -49,6 +53,56 @@ mlp_kernel(const T* __restrict__ x, const float* __restrict__ lnw, const float* 
     if (residual) v = rnd<T>(to_f(x[o]) + v);
     out[o] = from_f<T>(v);
   }
+}
+
+// bf16 (K6 on the tensor cores): x staged as bf16 ([64][round_up64(C) + 8],
+// cp.async, zero past C), LN in place, the tail tile, then the branch
+// rounded once (times s_b) in the x tile's place and stored in 16-byte runs,
+// the residual re-read from x. w1p / w2p: pack_mlp_weights' layouts. vec: C %
+// 8 == 0 and x, out 16-byte aligned, else element by element.
+__global__ void __launch_bounds__(kThreads)
+mlp_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ lnw,
+              const float* __restrict__ lnb, const __nv_bfloat16* __restrict__ w1p,
+              const float* __restrict__ b1, const __nv_bfloat16* __restrict__ w2p,
+              const float* __restrict__ b2, const float* __restrict__ dp, int residual,
+              __nv_bfloat16* __restrict__ out, int H, int W, int C, int hid, float eps, int vec) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char tail_smem[];
+  const int CK = round_up64(C), ldx = CK + 8;
+  bf16* xs = (bf16*)tail_smem;         // [64][ldx] x, LN(x) in place, then the branch
+  bf16* gs = xs + kPix * ldx;          // [64][kTailLdg] gated chunk
+  bf16* ring = gs + kPix * kTailLdg;   // [S][kTailN][kTailLd] weight tiles
+  const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
+  auto row = [&](int i) { return tile_pix(b, ty, tx, i, H, W) * C; };
+  if (vec) {
+    const int units = CK / 8;
+    for (int u = threadIdx.x; u < kPix * units; u += blockDim.x) {
+      const int i = u / units, c = (u - i * units) * 8;
+      const bool in = c < C;
+      cp_async16(smem_u32(xs + i * ldx + c), in ? x + row(i) + c : x, in ? 16 : 0);
+    }
+  } else {
+    for (int u = threadIdx.x; u < kPix * CK; u += blockDim.x) {
+      const int i = u / CK, c = u - i * CK;
+      xs[i * ldx + c] = c < C ? x[row(i) + c] : __float2bfloat16(0.f);
+    }
+  }
+  cp_async_commit();
+  TailRing rg(w1p, w2p, ring, kTailStages, C, hid);
+  rg.prefetch();
+  cp_async_wait<kTailStages - 1>();  // the x tile has landed
+  __syncthreads();
+  tail_ln([&](int i, int k) { return __bfloat162float(xs[i * ldx + k]); }, xs, ldx, C, lnw, lnb,
+          eps);
+  float acc[2 * kTailGroups][4];
+  mlp_tail_tc(acc, xs, ldx, gs, rg, b1, hid);
+  const float s = dp == nullptr ? 1.f : dp[b];
+  tail_out(acc, C,
+           [&](int i, int k, float v) { xs[i * ldx + k] = __float2bfloat16((v + b2[k]) * s); });
+  __syncthreads();
+  tail_store(xs, ldx, C, vec, [&](int i) { return out + row(i); }, [&](int i, int k, float v) {
+    return residual ? __bfloat162float(x[row(i) + k]) + v : v;  // rounded by the store
+  });
 }
 
 // Shared memory: LN(x) and dy are staged whole where that fits (every
@@ -185,6 +239,9 @@ inline size_t mlp_smem(int C) {
   return sizeof(float) * ((size_t)2 * kPix * (C + 1) + (size_t)kPix * (2 * kHC + 1));
 }
 
+// bf16: the x tile, the gated chunk and a kTailStages-deep ring
+inline size_t mlp_tc_smem(int C) { return tail_scratch_bytes(C, kTailStages); }
+
 // The backward instance of a chunk: resident (LN(x) and dy whole) where kc
 // covers C, a kernel of its own as the natural-scene widths' plan.
 template <typename T>
@@ -211,12 +268,24 @@ cudaError_t launch_mlp(const void* x, const float* lnw, const float* lnb, const 
                        const float* b1, const void* w2, const float* b2, const float* dp,
                        int residual, void* out, int B, int H, int W, int C, int hid, float eps,
                        cudaStream_t stream) {
-  const size_t smem = mlp_smem(C);
-  cudaError_t err = set_smem(mlp_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  mlp_kernel<T><<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
-      (const T*)x, lnw, lnb, (const T*)w1, b1, (const T*)w2, b2, dp, residual, (T*)out, H, W, C,
-      hid, eps);
+  const dim3 grid(W / kTile, H / kTile, B);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (C > kTailMaxC) return cudaErrorInvalidValue;
+    const size_t smem = mlp_tc_smem(C);
+    cudaError_t err = set_smem(mlp_tc_kernel, smem);
+    if (err != cudaSuccess) return err;
+    const int vec = C % 8 == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)out % 16 == 0;
+    mlp_tc_kernel<<<grid, kThreads, smem, stream>>>(
+        (const T*)x, lnw, lnb, (const T*)w1, b1, (const T*)w2, b2, dp, residual, (T*)out, H, W,
+        C, hid, eps, vec);
+  } else {
+    const size_t smem = mlp_smem(C);
+    cudaError_t err = set_smem(mlp_kernel<T>, smem);
+    if (err != cudaSuccess) return err;
+    mlp_kernel<T><<<grid, kThreads, smem, stream>>>(
+        (const T*)x, lnw, lnb, (const T*)w1, b1, (const T*)w2, b2, dp, residual, (T*)out, H, W, C,
+        hid, eps);
+  }
   return cudaGetLastError();
 }
 
@@ -238,8 +307,10 @@ cudaError_t launch_mlp_bwd(const void* x, const void* dy, const float* lnw, cons
 
 }  // namespace mp
 
-// x (B, H, W, C); LN, b1, b2 float32; w1 [C][2*hid], w2 [hid][C] in the
-// compute type; dp (B,) float32 drop-path scales or NULL. out (B, H, W, C).
+// x (B, H, W, C); LN, b1, b2 float32; dp (B,) float32 drop-path scales or
+// NULL. Weights in the compute type: float32 w1 [C][2*hid], w2 [hid][C];
+// bf16 (C <= 384) pack_mlp_weights' w1p [hidP/64][128][CK], w2p [CK][hidP].
+// out (B, H, W, C).
 extern "C" int mp_mlp(const void* x, const void* lnw, const void* lnb, const void* w1,
                       const void* b1, const void* w2, const void* b2, const void* dp, void* out,
                       int dtype, int B, int H, int W, int C, int hid, int residual, float eps,
@@ -279,10 +350,12 @@ extern "C" int mp_mlp_bwd(const void* x, const void* dy, const void* lnw, const 
 // The channel chunk the backward kernel launches with at C.
 extern "C" int mp_mlp_bwd_chunk(int C) { return mp::mlp_bwd_chunk(C); }
 
-// Shared-memory plans per block (bytes, static included); the backward's at
-// channel chunk kc.
-extern "C" long long mp_mlp_smem(int C) {
-  return mp::plan_bytes(mp::mlp_kernel<float>, mp::mlp_smem(C));
+// Shared-memory plans per block (bytes, static included): the forward's in
+// the compute type (dtype 0 float32, 1 bf16; -1: bf16 past C = 384), the
+// backward's at channel chunk kc.
+extern "C" long long mp_mlp_smem(int C, int dtype) {
+  if (dtype == 0) return mp::plan_bytes(mp::mlp_kernel<float>, mp::mlp_smem(C));
+  return C > mp::kTailMaxC ? -1 : mp::plan_bytes(mp::mlp_tc_kernel, mp::mlp_tc_smem(C));
 }
 
 extern "C" long long mp_mlp_bwd_smem(int C, int kc) {

@@ -1,0 +1,289 @@
+// The PGSSTB tail MLP of one 64-pixel tile on the tensor cores (bf16):
+// branch = fc2(a * gelu(g)) + b2 with [a | g] = fc1(LN2(y)) + b1. Called by
+// the bf16 mlp kernel (K6, mlp.cu) and the bf16 spectral apply kernel's
+// PGSSTB tail (spectral.cu); the float32 instances keep mlp_tail_tile
+// (common.cuh) and SIMT FMA.
+//
+// Rounding points as mlp_tail_tile: LN2(y) rounded to bf16; h = LN2(y) W1 +
+// b1 summed in float32; gated = bf16(a * gelu_erf(g)); fc2 summed in float32
+// over all of hid; the caller adds b2 and its residual or scale and rounds once.
+//
+// Design (bound: 6 C hid flops per pixel against ~4C bytes, tensor-core rate;
+// the weights are re-read from L2 by every tile, 64 flops per weight byte):
+// - the wrapper packs the weights (ops/kernels/mlp.py pack_mlp_weights), hid
+//   padded with zeros to a multiple of 64 and C to round_up64(C): fc1 as one
+//   [128][CK] slab per 64-unit hidden chunk whose row 32 q + i (q < 4, i <
+//   16) is a-unit 16 q + i of the chunk and row 32 q + 16 + i the same
+//   unit's g-row; fc2 as its torch layout [CK][hidP] (row = output channel).
+//   Zero fc1 rows with zero b1 give a = g = 0 and gated = 0; zero fc2 columns
+//   add nothing.
+// - LN2(y) is staged once as bf16 ([64][CK + 8], rows of an odd multiple of
+//   16 bytes: ldmatrix without bank conflicts), zero past C.
+// - The weights stream as [128 n][64 k] tiles ([kTailN][kTailLd]) through an
+//   S-stage cp.async ring (S = 2 to 4, what the plan holds): per hidden chunk
+//   CK / 64 fc1 tiles, then ceil(CK / 128) fc2 tiles of 128 (the last maybe
+//   64) output channels. One block-wide barrier per tile.
+// - 16 warps: warp w owns pixel rows 16 (w / 4) .. + 15. fc1: its 32 columns
+//   32 (w % 4) .. of the chunk's 128, that is 16 a-units and the same 16
+//   g-units, so a * gelu(g) pairs accumulators of one thread (n8 tiles 0-1
+//   with 2-3); the gated chunk goes to shared memory as bf16 ([64][72]),
+//   one store per value. fc2: the warp keeps a fixed 16 x (2 x 8) slice of
+//   each 64-channel group of the 64 x CK output in registers across the
+//   whole hidden loop (acc[2 G + h]: 8 floats per group, 48 at C = 384).
+#pragma once
+
+#include "common.cuh"
+
+namespace mp {
+
+constexpr int kTailK = 64;            // weight-tile depth; the hidden chunk
+constexpr int kTailN = 128;           // weight-tile width: one chunk's a | g rows
+constexpr int kTailLd = kTailK + 8;   // tile row stride: 144 B, an odd multiple of 16 B
+constexpr int kTailLdg = kTailK + 8;  // gated chunk row stride
+constexpr int kTailMaxC = 384;        // fc2's output slice is held in registers up to C = 384
+constexpr int kTailGroups = kTailMaxC / 64;  // 64-channel output groups a warp holds
+constexpr int kTailStages = 4;        // ring stages at most
+constexpr size_t kTailStage = sizeof(__nv_bfloat16) * kTailN * kTailLd;  // 18,432 B
+
+__host__ __device__ constexpr int round_up64(int n) { return (n + 63) / 64 * 64; }
+
+// Bytes of the tail's scratch at width C with S ring stages: LN2(y), the
+// gated chunk, the ring (every piece a multiple of 16 bytes).
+__host__ __device__ constexpr size_t tail_scratch_bytes(int C, int S) {
+  return sizeof(__nv_bfloat16) * ((size_t)kPix * (round_up64(C) + 8) + (size_t)kPix * kTailLdg) +
+         (size_t)S * kTailStage;
+}
+
+// The ring stages that `bytes` of scratch hold (at most kTailStages).
+__host__ __device__ constexpr int tail_stages(int C, size_t bytes) {
+  return bytes < tail_scratch_bytes(C, 0) ? 0
+       : (bytes - tail_scratch_bytes(C, 0)) / kTailStage > (size_t)kTailStages
+           ? kTailStages
+           : (int)((bytes - tail_scratch_bytes(C, 0)) / kTailStage);
+}
+
+// wait until at most n of this thread's cp.async groups are in flight
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  if (n <= 0) cp_async_wait<0>();
+  else if (n == 1) cp_async_wait<1>();
+  else if (n == 2) cp_async_wait<2>();
+  else cp_async_wait<3>();
+}
+
+// The weight stream: tile t is, in hidden chunk t / (nk1 + nk2), fc1 depth
+// chunk i (i < nk1) or fc2 channel chunk i - nk1, with i = t % (nk1 + nk2);
+// it goes to stage t % S. issue() copies the next tile and consume() hands
+// out the oldest; both walk their cursors without divisions.
+struct TailRing {
+  const __nv_bfloat16* w1p;  // [hidP / 64][128][CK]
+  const __nv_bfloat16* w2p;  // [CK][hidP]
+  __nv_bfloat16* ring;       // [S][kTailN][kTailLd]
+  int S, CK, hidP, nk1, nk2, T;
+  int it = 0, ichunk = 0, ipos = 0, istage = 0;  // the next tile to copy
+  int cstage = 0;                                // the stage of the next tile to use
+
+  __device__ TailRing(const __nv_bfloat16* w1, const __nv_bfloat16* w2, __nv_bfloat16* r, int s,
+                      int C, int hid)
+      : w1p(w1), w2p(w2), ring(r), S(s), CK(round_up64(C)), hidP(round_up64(hid)) {
+    nk1 = CK / kTailK;
+    nk2 = (CK + kTailN - 1) / kTailN;
+    T = hidP / kTailK * (nk1 + nk2);
+  }
+
+  // copy the next tile (nothing past the last) into its stage; one commit group
+  __device__ void issue() {
+    if (it < T) {
+      const __nv_bfloat16* src;
+      int rows, ld;
+      if (ipos < nk1) {
+        src = w1p + (size_t)ichunk * kTailN * CK + ipos * kTailK;
+        rows = kTailN;
+        ld = CK;
+      } else {
+        const int n0 = (ipos - nk1) * kTailN;
+        src = w2p + (size_t)n0 * hidP + ichunk * kTailK;
+        rows = min(kTailN, CK - n0);
+        ld = hidP;
+      }
+      __nv_bfloat16* dst = ring + istage * kTailN * kTailLd;
+      for (int u = threadIdx.x; u < rows * (kTailK / 8); u += blockDim.x) {
+        const int r = u >> 3, c = (u & 7) * 8;
+        cp_async16(smem_u32(dst + r * kTailLd + c), src + (size_t)r * ld + c, 16);
+      }
+      if (++ipos == nk1 + nk2) {
+        ipos = 0;
+        ++ichunk;
+      }
+      if (++istage == S) istage = 0;
+    }
+    ++it;
+    cp_async_commit();
+  }
+
+  // the first S - 1 tiles, issued before the caller stages LN2(y)
+  __device__ void prefetch() {
+    for (int t = 0; t < S - 1; ++t) issue();
+  }
+
+  // the next tile: waits for it, passes one block-wide barrier (after it
+  // nobody reads the previous tile, whose stage takes the tile issued here)
+  __device__ const __nv_bfloat16* consume() {
+    cp_async_wait_upto(S - 2);
+    __syncthreads();
+    issue();
+    const __nv_bfloat16* tile = ring + cstage * kTailN * kTailLd;
+    if (++cstage == S) cstage = 0;
+    return tile;
+  }
+};
+
+// LayerNorm of the tile's 64 rows (channel k of row i read as src(i, k)),
+// as ln_rows_inplace computes it (one warp per row, lane-strided float32
+// sums), rounded to bf16 into dst ([64][ldd]); zero from C to round_up64(C).
+// src may read dst itself (each lane rewrites only the elements it read).
+template <typename Src>
+__device__ __forceinline__ void tail_ln(Src src, __nv_bfloat16* dst, int ldd, int C,
+                                        const float* __restrict__ w, const float* __restrict__ b,
+                                        float eps) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, CK = round_up64(C);
+  for (int i = warp; i < kPix; i += blockDim.x >> 5) {
+    float sum = 0.f;
+    for (int k = lane; k < C; k += 32) sum += src(i, k);
+    const float mu = warp_sum(sum) / C;
+    float var = 0.f;
+    for (int k = lane; k < C; k += 32) {
+      const float d = src(i, k) - mu;
+      var += d * d;
+    }
+    const float rs = rsqrtf(warp_sum(var) / C + eps);
+    for (int k = lane; k < CK; k += 32)
+      dst[i * ldd + k] = __float2bfloat16(k < C ? (src(i, k) - mu) * rs * w[k] + b[k] : 0.f);
+  }
+}
+
+// The hidden loop. xn: LN2(y) as bf16 ([64][ldx], zero from C to CK); gs:
+// the gated chunk ([64][kTailLdg]); rg: the weight stream, its first S - 1
+// tiles issued. acc gets the fc2 sums of the warp's slice (without b2); see
+// tail_out for its layout. Its first step is a block-wide barrier, so xn
+// must be complete when it is called. When a thread returns, no thread
+// reads xn any more (every fc1 tile came before the last fc2 tile's
+// barrier): the caller may stage its output there.
+__device__ __forceinline__ void mlp_tail_tc(float (&acc)[2 * kTailGroups][4],
+                                            const __nv_bfloat16* xn, int ldx, __nv_bfloat16* gs,
+                                            TailRing& rg, const float* __restrict__ b1,
+                                            int hid) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t4 = lane & 3;
+  const int wr = warp >> 2, wc = warp & 3;
+  const int r0 = 16 * wr + (lane >> 2), r1 = r0 + 8;
+  const int groups = rg.CK / 64;
+#pragma unroll
+  for (int q = 0; q < 2 * kTailGroups; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[q][e] = 0.f;
+  // A: lane gives row lane % 16 at k offset 8 (lane / 16). B ([n][k] tiles):
+  // lane gives n row (lane % 8) + 8 (lane / 16) at k offset 8 (lane / 8 % 2).
+  const uint32_t a1 = smem_u32(xn + (16 * wr + (lane & 15)) * ldx + 8 * (lane >> 4));
+  const uint32_t a2 = smem_u32(gs + (16 * wr + (lane & 15)) * kTailLdg + 8 * (lane >> 4));
+  const int boff = ((lane & 7) + 8 * (lane >> 4)) * kTailLd + 8 * ((lane >> 3) & 1);
+  for (int j = 0; j < rg.hidP / kTailK; ++j) {
+    // fc1: the warp's 16 rows x (16 a | 16 g) columns of the chunk
+    float h[4][4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) h[q][e] = 0.f;
+    for (int kt = 0; kt < rg.nk1; ++kt) {
+      const uint32_t b = smem_u32(rg.consume() + 32 * wc * kTailLd + boff);
+#pragma unroll
+      for (int kk = 0; kk < kTailK / 16; ++kk) {
+        uint32_t af[4], bf[4];
+        ldmatrix_x4(af, a1 + 2 * (kt * kTailK + 16 * kk));
+        ldmatrix_x4(bf, b + 2 * 16 * kk);
+        mma_16x8x16(h[0], af[0], af[1], af[2], af[3], bf[0], bf[1]);
+        mma_16x8x16(h[1], af[0], af[1], af[2], af[3], bf[2], bf[3]);
+        ldmatrix_x4(bf, b + 2 * (16 * kTailLd + 16 * kk));
+        mma_16x8x16(h[2], af[0], af[1], af[2], af[3], bf[0], bf[1]);
+        mma_16x8x16(h[3], af[0], af[1], af[2], af[3], bf[2], bf[3]);
+      }
+    }
+    // + b1, a * gelu(g), rounded: unit 16 wc + 8 nt + 2 t4 (+1) of the chunk
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int col = 16 * wc + 8 * nt + 2 * t4, u = j * kTailK + col;
+      const float ba0 = u < hid ? b1[u] : 0.f, ba1 = u + 1 < hid ? b1[u + 1] : 0.f;
+      const float bg0 = u < hid ? b1[hid + u] : 0.f, bg1 = u + 1 < hid ? b1[hid + u + 1] : 0.f;
+      const float* a = h[nt];
+      const float* g = h[nt + 2];
+      *reinterpret_cast<uint32_t*>(gs + r0 * kTailLdg + col) =
+          pack_bf16x2((a[0] + ba0) * gelu_erf(g[0] + bg0), (a[1] + ba1) * gelu_erf(g[1] + bg1));
+      *reinterpret_cast<uint32_t*>(gs + r1 * kTailLdg + col) =
+          pack_bf16x2((a[2] + ba0) * gelu_erf(g[2] + bg0), (a[3] + ba1) * gelu_erf(g[3] + bg1));
+    }
+    // fc2: tile i holds output groups 2 i and 2 i + 1 (64 channels each);
+    // the barrier of its consume() makes the gated chunk visible
+    for (int i = 0; i < rg.nk2; ++i) {
+      const uint32_t b = smem_u32(rg.consume() + 16 * wc * kTailLd + boff);
+      const int g0 = 2 * i;
+#pragma unroll
+      for (int kk = 0; kk < kTailK / 16; ++kk) {
+        uint32_t af[4];
+        ldmatrix_x4(af, a2 + 2 * 16 * kk);
+#pragma unroll
+        for (int G = 0; G < kTailGroups; ++G) {
+          if (G >= g0 && G < g0 + 2 && G < groups) {  // warp-uniform
+            uint32_t bf[4];
+            ldmatrix_x4(bf, b + 2 * ((G - g0) * 64 * kTailLd + 16 * kk));
+            mma_16x8x16(acc[2 * G], af[0], af[1], af[2], af[3], bf[0], bf[1]);
+            mma_16x8x16(acc[2 * G + 1], af[0], af[1], af[2], af[3], bf[2], bf[3]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// Each of the thread's fc2 sums with its pixel row and channel: f(i, k, v)
+// for k < C. acc[2 G + h][e] is row 16 (w / 4) + lane / 4 (+ 8 for e >= 2),
+// channel 64 G + 16 (w % 4) + 8 h + 2 (lane % 4) + e % 2.
+template <typename F>
+__device__ __forceinline__ void tail_out(const float (&acc)[2 * kTailGroups][4], int C, F f) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = 16 * (warp >> 2) + (lane >> 2);
+#pragma unroll
+  for (int q = 0; q < 2 * kTailGroups; ++q) {
+    const int col = 64 * (q >> 1) + 16 * (warp & 3) + 8 * (q & 1) + 2 * (lane & 3);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (col + (e & 1) < C) f(r0 + 8 * (e >> 1), col + (e & 1), acc[q][e]);
+  }
+}
+
+// Rows of 64 tile pixels from shared memory (bf16, [64][lds]) to global
+// memory: pixel i's row at dst(i); v(i, k, value) gives the value stored.
+// 16-byte runs where vec (C % 8 == 0 and every row 16-byte aligned).
+template <typename Dst, typename V>
+__device__ __forceinline__ void tail_store(const __nv_bfloat16* s, int lds, int C, bool vec,
+                                           Dst dst, V v) {
+  if (vec) {
+    const int units = C / 8;
+    for (int u = threadIdx.x; u < kPix * units; u += blockDim.x) {
+      const int i = u / units, c = (u - i * units) * 8;
+      uint4 in = *reinterpret_cast<const uint4*>(s + i * lds + c);
+      const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&in);
+      uint32_t o[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(p[e]);
+        o[e] = pack_bf16x2(v(i, c + 2 * e, f.x), v(i, c + 2 * e + 1, f.y));
+      }
+      *reinterpret_cast<uint4*>(dst(i) + c) = make_uint4(o[0], o[1], o[2], o[3]);
+    }
+  } else {
+    for (int u = threadIdx.x; u < kPix * C; u += blockDim.x) {
+      const int i = u / C, k = u - i * C;
+      dst(i)[k] = __float2bfloat16(v(i, k, __bfloat162float(s[i * lds + k])));
+    }
+  }
+}
+
+}  // namespace mp

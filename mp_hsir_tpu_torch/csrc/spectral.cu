@@ -7,7 +7,10 @@
 //                      output projection into one C x C matrix.
 //   mp_spectral_apply  v = dw3x3(1x1([LN] x)); out = v @ comb plus the
 //                      epilogue: [x * gate] [+ x] [+ shortcut], then optionally
-//                      the PGSSTB tail out + fc2(a * gelu(g)), [a|g] = fc1(LN2(out)).
+//                      the PGSSTB tail out + fc2(a * gelu(g)), [a|g] = fc1(LN2(out))
+//                      (bf16: the tensor-core tail tile of mlp_tail.cuh in
+//                      the plan's space after the output tile; float32:
+//                      common.cuh mlp_tail_tile).
 //
 // Replaces _spectral_kernel (mp_hsir_tpu/ops/pallas_attention.py:1429, K2: the
 // stats launch is its phase 0, the apply launch its phase 1) and the spectral
@@ -24,7 +27,7 @@
 // 4C^2 + 2C*dh in the stats launch against ~4C bytes per pixel: tensor-core
 // rate bounds both at these widths. bf16 products run as mma.sync on the
 // tensor cores, float32 ones as SIMT FMA (common.cuh gemm; PERF.md).
-#include "common.cuh"
+#include "mlp_tail.cuh"
 
 namespace mp {
 
@@ -208,9 +211,11 @@ constexpr int kHCw = 32;  // tail hidden chunk when it is streamed (C = 384: 226
 
 // The apply kernel's plan: the halo input chunk xc [100][kc+1] and the v 1x1
 // chunk vt [100][nv+1] share one region with the output y [64][C+1] (y is
-// written after the v stage); vs [64][C+1] holds v, later LN2(y); hb holds
-// the tail's hidden chunk. Resident (kc = C): the natural-scene layout, a
-// kernel instance of its own whose chunks are compile-time constants.
+// written after the v stage); vs [64][C+1] holds v, later (float32) LN2(y);
+// hb holds the float32 tail's hidden chunk. The bf16 tail tile uses
+// everything after y instead (LN2(y) and its gated chunk as bf16, its weight
+// ring: apply_smem). Resident (kc = C): the natural-scene layout, a kernel
+// instance of its own whose chunks are compile-time constants.
 struct ApplyPlan {
   int kc, nv, khc;
   __host__ __device__ size_t front(int C) const {
@@ -239,8 +244,9 @@ spectral_apply_kernel(const T* __restrict__ x1, const T* __restrict__ x2, int C1
                       const T* __restrict__ w1, const float* __restrict__ b1,
                       const T* __restrict__ w2, const float* __restrict__ b2, int hid,
                       const float* __restrict__ dp, T* __restrict__ out, int H, int W,
-                      int shift, float eps, int kc) {
-  extern __shared__ float sm[];
+                      int shift, float eps, int kc, int tail_stages) {
+  extern __shared__ float4 apply_dyn[];  // 16-byte aligned: the bf16 tail's cp.async ring
+  float* sm = reinterpret_cast<float*>(apply_dyn);
   __shared__ float mu[kHaloPix], rs[kHaloPix];
   const int C = C1 + C2, C3 = 3 * C;
   const ApplyPlan plan = apply_plan<kStream>(kc, C);
@@ -311,8 +317,30 @@ spectral_apply_kernel(const T* __restrict__ x1, const T* __restrict__ x2, int C1
         y[i * ldx + j] = v;
       });
   __syncthreads();
-  if (w1 != nullptr)
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (w1 != nullptr) {
+      // the tail tile in the space after y (apply_smem): LN2(y) as bf16, the
+      // gated chunk, the ring; y + branch rounded once, in 16-byte runs
+      const int ldn = round_up64(C) + 8;
+      __nv_bfloat16* xn = reinterpret_cast<__nv_bfloat16*>(y + kPix * ldx);
+      __nv_bfloat16* gs = xn + kPix * ldn;
+      TailRing rg(w1, w2, gs + kPix * kTailLdg, tail_stages, C, hid);
+      rg.prefetch();
+      tail_ln([&](int i, int k) { return y[i * ldx + k]; }, xn, ldn, C, ln2w, ln2b, eps);
+      float acc[2 * kTailGroups][4];
+      mlp_tail_tc(acc, xn, ldn, gs, rg, b1, hid);
+      tail_out(acc, C, [&](int i, int k, float v) {
+        xn[i * ldn + k] = __float2bfloat16(y[i * ldx + k] + (v + b2[k]));
+      });
+      __syncthreads();
+      tail_store(
+          xn, ldn, C, C % 8 == 0, [&](int i) { return out + tile_pix(b, ty, tx, i, H, W) * C; },
+          [](int, int, float v) { return v; });
+      return;
+    }
+  } else if (w1 != nullptr) {
     mlp_tail_tile<T>(y, vs, ldx, hb, C, hid, ln2w, ln2b, w1, b1, w2, b2, eps, false, plan.khc);
+  }
 
   for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
     const int i = idx / C, k = idx - i * C;
@@ -332,10 +360,31 @@ inline size_t apply_smem(int C, bool tail, int kc) {
   return sizeof(float) * plan.floats(C, tail);
 }
 
+// The plan in the compute type: bf16's tail tile takes the space after the
+// output tile y, at least two ring stages (more where the float32 layout's
+// space holds them, up to kTailStages); at every width of the presets that
+// space is already in the float32 plan.
+inline size_t apply_smem(int C, bool tail, int kc, bool bf16) {
+  const size_t f = apply_smem(C, tail, kc);
+  if (!bf16 || !tail) return f;
+  const size_t need = sizeof(float) * kPix * (C + 1) + tail_scratch_bytes(C, 2);
+  return f > need ? f : need;
+}
+
+inline int apply_tail_stages(int C, size_t smem) {
+  return tail_stages(C, smem - sizeof(float) * kPix * (C + 1));
+}
+
 // The apply kernel instance of a chunk: resident where kc covers C.
 template <typename T>
 inline auto apply_kernel(int kc, int C) {
   return kc >= C ? spectral_apply_kernel<T, false> : spectral_apply_kernel<T, true>;
+}
+
+inline long long apply_plan_bytes(int C, bool tail, int kc, bool bf16) {
+  const size_t smem = apply_smem(C, tail, kc, bf16);
+  return bf16 ? plan_bytes(apply_kernel<__nv_bfloat16>(kc, C), smem)
+              : plan_bytes(apply_kernel<float>(kc, C), smem);
 }
 
 inline int stats_chunk(int C, int nH) {
@@ -344,10 +393,8 @@ inline int stats_chunk(int C, int nH) {
   });
 }
 
-inline int apply_chunk(int C, bool tail) {
-  return pick_chunk(C, [&](int kc) {
-    return plan_bytes(apply_kernel<float>(kc, C), apply_smem(C, tail, kc));
-  });
+inline int apply_chunk(int C, bool tail, bool bf16) {
+  return pick_chunk(C, [&](int kc) { return apply_plan_bytes(C, tail, kc, bf16); });
 }
 
 template <typename T>
@@ -380,15 +427,17 @@ cudaError_t launch_apply(const void* x1, const void* x2, int C1, int C2, const f
                          const void* w2, const float* b2, int hid, const float* dp, void* out,
                          int B, int H, int W, int shift, int kc, float eps,
                          cudaStream_t stream) {
-  const bool tail = w1 != nullptr;
-  const size_t smem = apply_smem(C1 + C2, tail, kc);
-  const auto kernel = apply_kernel<T>(kc, C1 + C2);
+  const bool tail = w1 != nullptr, bf16 = std::is_same<T, __nv_bfloat16>::value;
+  const int C = C1 + C2;
+  if (bf16 && tail && (C > kTailMaxC || (uintptr_t)out % 16 != 0)) return cudaErrorInvalidValue;
+  const size_t smem = apply_smem(C, tail, kc, bf16);
+  const auto kernel = apply_kernel<T>(kc, C);
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
       (const T*)x1, (const T*)x2, C1, C2, lnw, lnb, (const T*)wqkv, (const T*)wdw, comb,
       (const T*)gate, (const T*)shortcut, residual, ln2w, ln2b, (const T*)w1, b1, (const T*)w2,
-      b2, hid, dp, (T*)out, H, W, shift, eps, kc);
+      b2, hid, dp, (T*)out, H, W, shift, eps, kc, bf16 && tail ? apply_tail_stages(C, smem) : 0);
   return cudaGetLastError();
 }
 
@@ -692,10 +741,12 @@ extern "C" int mp_spectral_stats(const void* x1, const void* x2, const void* lnw
 
 // comb [B][C][C] float32 (row: v channel h*dh + e, col: output channel).
 // gate (B, H/8, W/8, C) per-window gates of the rolled frame, shortcut
-// (B, H, W, C), residual adds the raw input; w1 [C][2*hid] / w2 [hid][C] (the
-// PGSSTB tail; NULL = none); dp (B,) float32 per-sample drop-path scales of
-// the branch (NULL = none). kc: the channel chunk (mp_spectral_apply_chunk;
-// kc = C is the resident instance). Output (B, H, W, C) in the unrolled frame.
+// (B, H, W, C), residual adds the raw input; w1 / w2 the PGSSTB tail (NULL =
+// none): float32 w1 [C][2*hid], w2 [hid][C]; bf16 (C <= 384) pack_mlp_weights'
+// w1p [hidP/64][128][CK], w2p [CK][hidP]; dp (B,) float32 per-sample
+// drop-path scales of the branch (NULL = none). kc: the channel chunk
+// (mp_spectral_apply_chunk; kc = C is the resident instance). Output (B, H, W,
+// C) in the unrolled frame.
 extern "C" int mp_spectral_apply(const void* x1, const void* x2, const void* lnw,
                                  const void* lnb, const void* wqkv, const void* wdw,
                                  const void* comb, const void* gate, const void* shortcut,
@@ -725,7 +776,9 @@ extern "C" int mp_smem_optin() { return mp::smem_optin(); }
 // The channel chunks the stats and apply kernels launch with at a shape.
 extern "C" int mp_spectral_stats_chunk(int C, int nH) { return mp::stats_chunk(C, nH); }
 
-extern "C" int mp_spectral_apply_chunk(int C, int tail) { return mp::apply_chunk(C, tail != 0); }
+extern "C" int mp_spectral_apply_chunk(int C, int tail, int dtype) {
+  return mp::apply_chunk(C, tail != 0, dtype != 0);
+}
 
 // Shared-memory plans per block (bytes, static included) at a shape and
 // channel chunk kc.
@@ -733,8 +786,9 @@ extern "C" long long mp_spectral_stats_smem(int C, int nH, int kc) {
   return mp::plan_bytes(mp::spectral_stats_kernel<float>, mp::stats_smem(C, nH, kc));
 }
 
-extern "C" long long mp_spectral_apply_smem(int C, int tail, int kc) {
-  return mp::plan_bytes(mp::apply_kernel<float>(kc, C), mp::apply_smem(C, tail != 0, kc));
+// The apply plan takes the compute type (dtype 0 float32, 1 bf16).
+extern "C" long long mp_spectral_apply_smem(int C, int tail, int dtype, int kc) {
+  return mp::apply_plan_bytes(C, tail != 0, kc, dtype != 0);
 }
 
 extern "C" long long mp_spectral_stats_bwd_smem(int C, int nH) {

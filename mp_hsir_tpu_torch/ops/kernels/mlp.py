@@ -7,6 +7,11 @@ Kernels: ``csrc/mlp.cu`` ``mp_mlp`` (replaces ``_mlp_kernel``,
 and ``mp_mlp_bwd`` + ``csrc/grad.cu`` (replace ``_mlp_bwd_kernel``,
 ``mp_hsir_tpu/ops/pallas_vjp.py:124``). Plain versions: :func:`mlp_plain`,
 :func:`mlp_bwd_plain`. Weights in torch Linear layout: w1 (2h, C), w2 (C, h).
+
+Weight layouts at the launch: float32 (and the backward) takes [in][out]
+copies; the bf16 forward (the tensor-core tail tile of ``csrc/mlp_tail.cuh``,
+also the bf16 spectral apply kernel's PGSSTB tail) streams the packs of
+:func:`pack_mlp_weights`, made on every call.
 """
 
 from __future__ import annotations
@@ -27,6 +32,11 @@ from mp_hsir_tpu_torch.ops.kernels._route import (
 
 COUNTER = counter("mlp")
 BWD = counter("mlp_bwd")
+# the bf16 tail tile's hidden chunk and depth tile (kTailK of
+# csrc/mlp_tail.cuh) and its widest C (kTailMaxC: fc2's output slice is held
+# in registers)
+TAIL_K = 64
+TAIL_MAX_C = 384
 
 
 def _scale(dp_scale, b):
@@ -75,6 +85,37 @@ def mlp_bwd_plain(x, ln_w, ln_b, w1, b1, w2, b2, dp_scale, residual, eps, dy):
     return dx.to(dt), dlnw, dlnb, dw1, db1, dw2, db2, ddp
 
 
+def _round_k(n: int) -> int:
+    return -(-n // TAIL_K) * TAIL_K
+
+
+@lru_cache(maxsize=32)
+def _fc1_rows(hid: int, device: torch.device) -> torch.Tensor:
+    """The packed fc1 row of each torch fc1 row: a-unit u (row u) at
+    128 (u // 64) + 32 (u % 64 // 16) + u % 16 of the slab stack, its g-row
+    (row hid + u) 16 further."""
+    u = torch.arange(hid)
+    a = u // TAIL_K * 128 + u % TAIL_K // 16 * 32 + u % 16
+    return torch.cat([a, a + 16]).to(device)
+
+
+def pack_mlp_weights(w1: torch.Tensor, w2: torch.Tensor, dt: torch.dtype):
+    """(2h, C) fc1 and (C, h) fc2 torch-Linear weights -> the bf16 tail
+    tile's streamed layouts in ``dt``: fc1 as [hP / 64][128][CK], one slab
+    per 64-unit hidden chunk whose row 32 q + i (q < 4, i < 16) is a-unit
+    16 q + i of the chunk and row 32 q + 16 + i the same unit's g-row; fc2
+    as [CK][hP]. hP and CK are h and C rounded up to 64; every other entry
+    is zero."""
+    hid2, c = w1.shape
+    hid = hid2 // 2
+    ck, hp = _round_k(c), _round_k(hid)
+    w1p = torch.zeros((hp // TAIL_K * 128, ck), dtype=dt, device=w1.device)
+    w1p[_fc1_rows(hid, w1.device), :c] = w1.to(dt)
+    w2p = torch.zeros((ck, hp), dtype=dt, device=w2.device)
+    w2p[:c, :hid] = w2
+    return w1p.reshape(hp // TAIL_K, 128, ck), w2p
+
+
 @lru_cache(maxsize=None)
 def _entry(bwd: bool = False):
     if bwd:
@@ -82,24 +123,44 @@ def _entry(bwd: bool = False):
     return _build.entry("mp_mlp", 9, [ctypes.c_int] * 7 + [ctypes.c_float])
 
 
-def _launch(x, ln_w, ln_b, w1, b1, w2, b2, residual, dp_scale, eps):
+def check_tail_width(c: int, dt: torch.dtype) -> None:
+    """ValueError where the bf16 tail tile cannot take width ``c``."""
+    if dt == torch.bfloat16 and c > TAIL_MAX_C:
+        raise ValueError(f"the bf16 tail MLP kernels take C up to {TAIL_MAX_C}, got {c}")
+
+
+def _prepare(x, ln_w, ln_b, w1, b1, w2, b2, residual, dp_scale, eps):
+    """Everything a launch needs: (the C entry's arguments, out, the tensors
+    the arguments point into, to be held until the launch)."""
     b, h, w, c = x.shape
     if h % 8 or w % 8:
         raise ValueError(f"mlp needs H, W % 8 == 0, got {x.shape}")
     dt = x.dtype
+    code = dtype_code(x)
     hid = w2.shape[1]
-    _build.check_plan("mlp", "mp_mlp_smem", f"C={c}", c)
+    check_tail_width(c, dt)
+    _build.check_plan("mlp", "mp_mlp_smem", f"C={c}", c, code)
     x = x.contiguous()
     # every operand bound to a name until the launch: a temporary freed
     # mid-call could hand its memory to the next one
     lnw, lnb, b1f, b2f, dp = f32(ln_w), f32(ln_b), f32(b1), f32(b2), f32(dp_scale)
-    w1k, w2k = kernel_weight(w1, dt), kernel_weight(w2, dt)
+    if code:
+        w1k, w2k = pack_mlp_weights(w1, w2, dt)
+    else:
+        w1k, w2k = kernel_weight(w1, dt), kernel_weight(w2, dt)
     out = torch.empty_like(x)
-    err = _entry()(x.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), w1k.data_ptr(), b1f.data_ptr(),
-                   w2k.data_ptr(), b2f.data_ptr(), _build.ptr(dp), out.data_ptr(), dtype_code(x),
-                   b, h, w, c, hid, int(residual), eps, stream_ptr())
-    _build.check("mp_mlp", err)
-    COUNTER.record(("mlp", b, h, w, c, hid, bool(residual), dp_scale is not None, str(dt)))
+    args = (x.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), w1k.data_ptr(), b1f.data_ptr(),
+            w2k.data_ptr(), b2f.data_ptr(), _build.ptr(dp), out.data_ptr(), code, b, h, w, c,
+            hid, int(residual), eps, stream_ptr())
+    return args, out, (x, lnw, lnb, b1f, b2f, dp, w1k, w2k)
+
+
+def _launch(x, ln_w, ln_b, w1, b1, w2, b2, residual, dp_scale, eps):
+    args, out, _held = _prepare(x, ln_w, ln_b, w1, b1, w2, b2, residual, dp_scale, eps)
+    _build.check("mp_mlp", _entry()(*args))
+    b, h, w, c = x.shape
+    COUNTER.record(("mlp", b, h, w, c, w2.shape[1], bool(residual), dp_scale is not None,
+                    str(x.dtype)))
     return out
 
 

@@ -38,6 +38,7 @@ from mp_hsir_tpu_torch.ops.kernels._grad import (
 from mp_hsir_tpu_torch.ops.kernels._route import (
     ROUTE, counter, dtype_code, f32, kernel_weight, stream_ptr,
 )
+from mp_hsir_tpu_torch.ops.kernels.mlp import check_tail_width, pack_mlp_weights
 from mp_hsir_tpu_torch.ops.window import roll_hw
 
 STATS = counter("spectral_stats")
@@ -341,8 +342,11 @@ def _apply_entry(bwd: bool = False):
     return _build.entry("mp_spectral_apply", 17, [ctypes.c_int] * 10 + [ctypes.c_float])
 
 
-def _apply_launch(x, comb, wqkv, wdw, shift, x2, ln_w, ln_b, residual, gate, shortcut, mlp, eps,
-                  dp_scale):
+def _apply_prepare(x, comb, wqkv, wdw, shift=0, x2=None, ln_w=None, ln_b=None, residual=False,
+                   gate=None, shortcut=None, mlp=None, eps=1e-5, dp_scale=None):
+    """Everything a launch needs: (the C entry's arguments, out, the tensors
+    the arguments point into, to be held until the launch). The tail's
+    weights: float32 [in][out] copies, bf16 :func:`pack_mlp_weights`."""
     b, h, w, c1 = x.shape
     c2 = 0 if x2 is None else x2.shape[-1]
     c = c1 + c2
@@ -351,10 +355,12 @@ def _apply_launch(x, comb, wqkv, wdw, shift, x2, ln_w, ln_b, residual, gate, sho
     if (gate is not None or dp_scale is not None) and (x2 is not None or ln_w is not None):
         raise ValueError("the gate and drop-path epilogues take one raw input")
     dt, code = x.dtype, dtype_code(x)
-    kc = _build.chunk("mp_spectral_apply_chunk", c, int(mlp is not None))
+    tail = int(mlp is not None)
+    if tail:
+        check_tail_width(c, dt)
+    kc = _build.chunk("mp_spectral_apply_chunk", c, tail, code)
     _build.check_plan("spectral_apply", "mp_spectral_apply_smem",
-                      f"C={c}, {'with' if mlp is not None else 'no'} MLP tail", c,
-                      int(mlp is not None), kc)
+                      f"C={c}, {'with' if tail else 'no'} MLP tail", c, tail, code, kc)
     x = x.contiguous()
     x2 = None if x2 is None else x2.to(dt).contiguous()
     gate = None if gate is None else gate.to(dt).contiguous()
@@ -363,18 +369,31 @@ def _apply_launch(x, comb, wqkv, wdw, shift, x2, ln_w, ln_b, residual, gate, sho
     lnw, lnb, cb, dp = f32(ln_w), f32(ln_b), f32(comb), f32(dp_scale)
     hid = 0
     ln2w = ln2b = w1 = b1 = w2 = b2 = None
-    if mlp is not None:
-        ln2w, ln2b = f32(mlp[0]), f32(mlp[1])
-        w1, b1 = kernel_weight(mlp[2], dt), f32(mlp[3])
-        w2, b2 = kernel_weight(mlp[4], dt), f32(mlp[5])
+    if tail:
+        ln2w, ln2b, b1, b2 = f32(mlp[0]), f32(mlp[1]), f32(mlp[3]), f32(mlp[5])
+        if code:
+            w1, w2 = pack_mlp_weights(mlp[2], mlp[4], dt)
+        else:
+            w1, w2 = kernel_weight(mlp[2], dt), kernel_weight(mlp[4], dt)
         hid = mlp[4].shape[1]
     out = torch.empty((b, h, w, c), dtype=dt, device=x.device)
     p = _build.ptr
-    err = _apply_entry()(x.data_ptr(), p(x2), p(lnw), p(lnb), wq.data_ptr(), wd.data_ptr(),
-                         cb.data_ptr(), p(gate), p(shortcut), p(ln2w), p(ln2b), p(w1), p(b1),
-                         p(w2), p(b2), p(dp), out.data_ptr(), code, b, h, w, c1, c2,
-                         int(residual), hid, shift, kc, eps, stream_ptr())
-    _build.check("mp_spectral_apply", err)
+    args = (x.data_ptr(), p(x2), p(lnw), p(lnb), wq.data_ptr(), wd.data_ptr(), cb.data_ptr(),
+            p(gate), p(shortcut), p(ln2w), p(ln2b), p(w1), p(b1), p(w2), p(b2), p(dp),
+            out.data_ptr(), code, b, h, w, c1, c2, int(residual), hid, shift, kc, eps,
+            stream_ptr())
+    return args, out, (x, x2, gate, shortcut, wq, wd, lnw, lnb, cb, dp, ln2w, ln2b, w1, b1, w2, b2)
+
+
+def _apply_launch(x, comb, wqkv, wdw, shift, x2, ln_w, ln_b, residual, gate, shortcut, mlp, eps,
+                  dp_scale):
+    args, out, _held = _apply_prepare(x, comb, wqkv, wdw, shift, x2, ln_w, ln_b, residual, gate,
+                                      shortcut, mlp, eps, dp_scale)
+    _build.check("mp_spectral_apply", _apply_entry()(*args))
+    b, h, w, c1 = x.shape
+    c2 = 0 if x2 is None else x2.shape[-1]
+    hid = 0 if mlp is None else mlp[4].shape[1]
+    dt = x.dtype
     spec = ("spectral_apply", b, h, w, c1, c2, shift, ln_w is not None, bool(residual),
             gate is not None, shortcut is not None, hid, str(dt))
     APPLY.record(spec if dp_scale is None else spec[:-1] + ("dp", str(dt)))

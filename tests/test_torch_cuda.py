@@ -334,7 +334,7 @@ def test_cuda_remote_sensing_backward_matches_plain(dtype, tol):
         assert kc == want, (kernel, shape, kc)
         assert 0 < _build.plan_bytes(f"mp_{kernel}_smem", *shape, kc) <= _build.smem_limit(), kernel
     assert 0 < _build.plan_bytes("mp_spectral_stats_bwd_smem", 384, 8) <= _build.smem_limit()
-    assert 0 < _build.plan_bytes("mp_mlp_smem", 384) <= _build.smem_limit()
+    assert 0 < _build.plan_bytes("mp_mlp_smem", 384, int(dtype == "bfloat16")) <= _build.smem_limit()
 
 
 def _tiny_train(dev, seed=0):
@@ -473,8 +473,8 @@ def test_cuda_remote_sensing_widths_match_plain(dtype, tol):
     # float32 streams 64-channel chunks; both plans within the limit
     code = int(dtype == "bfloat16")
     for kernel, shape, want in (("window", (384, 8, code), 384 if code else 64),
-                                ("spectral_stats", (192, 2), 64), ("spectral_apply", (384, 1), 64),
-                                ("gdfn", (384,), 64)):
+                                ("spectral_stats", (192, 2), 64),
+                                ("spectral_apply", (384, 1, code), 64), ("gdfn", (384,), 64)):
         kc = _build.chunk(f"mp_{kernel}_chunk", *shape)
         entry = "mp_window_attention_smem" if kernel == "window" else f"mp_{kernel}_smem"
         assert kc == want, kernel
@@ -533,3 +533,55 @@ def test_cuda_window_msa_matches_plain(c, heads, masked, nw):
         _route.reset_counters()
         _check_fwd(window_msa, [x.to(dt), w[0], w[1], bias, w[2], w[3], heads], dict(labels=lab), tol)
         assert _route.COUNTERS["window_msa"].launches == 1
+
+
+# (C, B, H): every PGSSTB width of the presets (hid = int(2.66 C), never a
+# multiple of 16: the last hidden chunk is ragged; C = 96 and 192 pad the
+# depth and the output channels to 128 and 192 with a half-width fc2 tile;
+# C = 384 is the apply kernel's streamed plan and the widest register slice),
+# on 3 tiles (8x24) and, at B = 2, 12 (16x24)
+TAIL_CASES = [(c, b, h) for c in (64, 128, 256, 96, 192, 384) for b, h in ((1, 8), (2, 16))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,b,h", TAIL_CASES)
+def test_cuda_mlp_tail_widths_match_plain(c, b, h):
+    """The tail MLP tile on the card against the plain versions: the mlp
+    kernel (K6) with and without its residual and drop-path scale, and the
+    spectral apply kernel's PGSSTB tail after the gate epilogue of a shifted
+    block and after the x2 + LN entry; bf16 within 3e-2 and float32 within
+    1e-4 of each output's max-abs. Each plan lies within the device's limit,
+    and the bf16 apply plan is no larger than the float32 layout's."""
+    from mp_hsir_tpu_torch.ops.kernels import _build
+    from mp_hsir_tpu_torch.ops.kernels.mlp import mlp
+
+    dev = _cuda()
+    hid = int(c * 2.66)
+    r = _rng(60 + c)
+    f = lambda *s, scale=1.0: _t(_n(r, s, scale)).to(dev)  # noqa: E731
+    weights = (1 + f(c, scale=0.1), f(c, scale=0.1), f(2 * hid, c, scale=c ** -0.5),
+               f(2 * hid, scale=0.1), f(c, hid, scale=hid ** -0.5), f(c, scale=0.1))
+    x, x2, short = f(b, h, 24, c), f(b, h, 24, c // 2), f(b, h, 24, c)
+    gate = f(b, h // 8, 3, c, scale=0.5)
+    dp = torch.tensor([1.25, 0.0][:b], device=dev)
+    wq, wd = f(3 * c, c, 1, 1, scale=c ** -0.5), f(3 * c, 1, 3, 3, scale=1 / 3)
+    comb = f(b, c, c, scale=c ** -0.5)
+    lw, lb = 1 + f(c, scale=0.1), f(c, scale=0.1)
+    for dt, tol in ((torch.bfloat16, 3e-2), (torch.float32, 1e-4)):
+        code = int(dt == torch.bfloat16)
+        _route.reset_counters()
+        for residual in (False, True):
+            for scale in (None, dp):
+                _check_fwd(mlp, [x.to(dt), *weights], dict(residual=residual, dp_scale=scale), tol)
+        _check_fwd(spectral_apply, [x.to(dt), comb, wq, wd],
+                   dict(shift=4, gate=gate.to(dt), shortcut=short.to(dt), mlp=weights), tol)
+        _check_fwd(spectral_apply, [x[..., :c - c // 2].to(dt), comb, wq, wd],
+                   dict(x2=x2.to(dt), ln_w=lw, ln_b=lb, residual=True, mlp=weights), tol)
+        assert _route.COUNTERS["mlp"].launches == 4
+        assert _route.COUNTERS["spectral_apply"].launches == 2
+        assert _route.ROUTE.plain_cuda_calls == 6
+        assert 0 < _build.plan_bytes("mp_mlp_smem", c, code) <= _build.smem_limit()
+        kc = _build.chunk("mp_spectral_apply_chunk", c, 1, code)
+        n = _build.plan_bytes("mp_spectral_apply_smem", c, 1, code, kc)
+        assert 0 < n <= _build.smem_limit()
+        assert n <= _build.plan_bytes("mp_spectral_apply_smem", c, 1, 0, kc)

@@ -19,7 +19,9 @@ import torch
 from mp_hsir_tpu.ops import pallas_attention as PA
 from mp_hsir_tpu_torch.ops.kernels import _route
 from mp_hsir_tpu_torch.ops.kernels.conv3 import CHUNK_K, TILE_N, conv3, conv3_plain, pack_weight
+from mp_hsir_tpu_torch.ops.basic import gelu_exact, layer_norm
 from mp_hsir_tpu_torch.ops.kernels.gdfn import gdfn_plain
+from mp_hsir_tpu_torch.ops.kernels.mlp import TAIL_K, mlp_plain, pack_mlp_weights
 from mp_hsir_tpu_torch.ops.kernels.spectral import (
     spectral_apply_plain, spectral_fold, spectral_stats_plain,
 )
@@ -200,6 +202,54 @@ def test_window_pack_weight_layout(c, heads, dt):
     torch.testing.assert_close(y, o @ wp.to(dt).float().t(), atol=1e-4, rtol=1e-4)
     with pytest.raises(ValueError, match="head widths up to 128"):
         head_width(129)
+
+
+# (C, hid): the tiny width, then every PGSSTB width of the two presets
+# (hid = int(2.66 C): never a multiple of 16, so the last chunk is ragged)
+@pytest.mark.parametrize("c,hid", [(16, 42), (64, 170), (128, 340), (96, 255), (192, 510),
+                                   (384, 1021)])
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_mlp_pack_weight_layout(c, hid, dt):
+    """The weight layouts the bf16 tail tile streams: slab j of the fc1 pack
+    holds exactly chunk j's a-rows and g-rows of the torch-Linear weight at
+    the interleaved rows (32 q + i: a-unit 64 j + 16 q + i, 32 q + 16 + i:
+    its g-row), fc2's pack is its weight; every padding is zero; the MLP
+    computed chunk by chunk through the packs (float32 sums) is mlp_plain's."""
+    r = _rng(13)
+    w1, w2 = _t(_u(r, (2 * hid, c), c)), _t(_u(r, (c, hid), hid))
+    b1, b2 = _t(_u(r, (2 * hid,), c)), _t(_u(r, (c,), hid))
+    ck, hp = -(-c // TAIL_K) * TAIL_K, -(-hid // TAIL_K) * TAIL_K
+    w1p, w2p = pack_mlp_weights(w1, w2, dt)
+    assert w1p.shape == (hp // TAIL_K, 128, ck) and w1p.dtype == dt and w1p.is_contiguous()
+    assert w2p.shape == (ck, hp) and w2p.dtype == dt and w2p.is_contiguous()
+    pad = torch.ones_like(w1p, dtype=torch.bool)
+    for j in range(hp // TAIL_K):
+        for q in range(4):
+            for i in range(16):
+                u = j * TAIL_K + 16 * q + i
+                if u < hid:
+                    assert torch.equal(w1p[j, 32 * q + i, :c], w1[u].to(dt))
+                    assert torch.equal(w1p[j, 32 * q + 16 + i, :c], w1[hid + u].to(dt))
+                    pad[j, [32 * q + i, 32 * q + 16 + i], :c] = False
+    assert not w1p[pad].any()
+    assert torch.equal(w2p[:c, :hid], w2.to(dt))
+    assert not w2p[c:].any() and not w2p[:, hid:].any()
+    # the tile's two products, chunk by chunk, in float32 on the rounded weights
+    x = _t(_n(r, (2, 8, 8, c)))
+    lw, lb = 1 + _t(_n(r, (c,), 0.1)), _t(_n(r, (c,), 0.1))
+    xn = torch.zeros(128, ck)
+    xn[:, :c] = layer_norm(x, lw, lb, 1e-5).reshape(128, c)
+    ba, bg = torch.zeros(hp), torch.zeros(hp)
+    ba[:hid], bg[:hid] = b1[:hid], b1[hid:]
+    y = torch.zeros(128, ck)
+    for j in range(hp // TAIL_K):
+        h = (xn @ w1p[j].float().t()).reshape(128, 4, 2, 16)
+        units = slice(j * TAIL_K, (j + 1) * TAIL_K)
+        a = h[:, :, 0] + ba[units].reshape(4, 16)
+        g = h[:, :, 1] + bg[units].reshape(4, 16)
+        y += (a * gelu_exact(g)).reshape(128, TAIL_K) @ w2p[:, units].float().t()
+    want = mlp_plain(x, lw, lb, w1.to(dt).float(), b1, w2.to(dt).float(), b2)
+    torch.testing.assert_close(y[:, :c].reshape(x.shape) + b2, want, atol=1e-5, rtol=1e-5)
 
 
 def test_gdfn_with_exit_projection_matches_pallas():
