@@ -6,7 +6,9 @@
 Phases (any failure exits non-zero; no phase's error is caught):
 
 1. Environment: the card's name and power limit (nvidia-smi), then the build
-   of mp_hsir_tpu_torch/csrc/*.cu with nvcc (one process per source).
+   of mp_hsir_tpu_torch/csrc/*.cu with nvcc (one process per source), each
+   kernel's registers and spills, and the bf16 spectral apply tile's plan
+   bytes at every preset width.
 2. Kernel checks: every kernel wrapper on the card at each shape the
    flagship 512x512x31 eval forward gives it, in bf16 from numpy-seeded
    inputs, against its plain PyTorch version on the same inputs; also once
@@ -21,14 +23,15 @@ Phases (any failure exits non-zero; no phase's error is caught):
    directly) and prints its achieved TFLOP/s, the kernel alone's and its
    library call's (flops / ms); their sums over the path's calls follow the
    table. Each spectral_apply call with the PGSSTB tail is timed once more
-   on the same inputs without it (through the wrapper and alone): the sums
-   split the apply time into the front and the tail. The spectral and GDFN
-   kernels keep their input
-   resident where that fits; each such call at C > 64 is checked and timed
-   once more with its input streamed in 64-channel chunks (the
-   remote-sensing latent's plan), summed per forward beside the resident
-   plan. The window kernel stages its whole input in bf16 and has no
-   chunk to stream.
+   on the same inputs without it (through the wrapper and alone, with the
+   front's own bound and TFLOP/s): the sums split the apply time into the
+   front and the tail; the calls without the tail (PromptFusion, the
+   training route's drop-path call) are fronts alone. The spectral stats
+   and GDFN kernels keep their input resident where that fits; each such
+   call at C > 64 is checked and timed once more with its input streamed in
+   64-channel chunks (the remote-sensing latent's plan), summed per forward
+   beside the resident plan. The window kernel and the spectral apply tile
+   stage their whole input in bf16 and have no chunk to stream.
 3. Main path: the flagship preset on the committed trained weights, bf16 at
    1x31x512x512, answering 4 requests (mode-0 cubes) after a warm-up. The
    launch counters are zeroed just before the requests and read just after;
@@ -249,6 +252,17 @@ class Inputs:
         return torch.from_numpy(a).to(self.dev)
 
 
+def apply_cost(b, h, w, c, e, gate, short) -> tuple:
+    """(bytes, flops) of one spectral apply call without the PGSSTB tail (the
+    front): its input, comb (float32), the v weights, the gate and shortcut
+    maps read once, its output written once; the 1x1, the depthwise 3x3 and
+    the comb product."""
+    p = b * h * w
+    byts = 2 * p * c * e + b * c * c * 4 + (c * c + 9 * c) * e
+    byts += (p // 64 * c * e if gate else 0) + (p * c * e if short else 0)
+    return byts, p * (4 * c * c + 18 * c)
+
+
 def make_call(spec, dev, dt):
     """(kernel fn, args, kwargs, library fn or None, bytes, flops) for one spec."""
     from mp_hsir_tpu_torch.ops.kernels import conv3, gdfn, spectral, window_attention
@@ -286,18 +300,15 @@ def make_call(spec, dev, dt):
         if dp:
             kw["dp_scale"] = torch.tensor([1.25, 0.0] * (b // 2) + [1.25] * (b % 2), device=dev)
         p = b * h * w
-        byts = 2 * p * c * e + b * c * c * 4 + (c * c + 9 * c) * e
-        flops = p * (4 * c * c + 18 * c)
+        byts, flops = apply_cost(b, h, w, c, e, gate, short)
         if c2:
             kw["x2"] = g.n((b, h, w, c2))
         if ln:
             kw.update(ln_w=1 + f32((c,), 0.1), ln_b=f32((c,), 0.1))
         if gate:
             kw["gate"] = g.n((b, h // 8, w // 8, c), 0.5)
-            byts += p // 64 * c * e
         if short:
             kw["shortcut"] = g.n((b, h, w, c))
-            byts += p * c * e
         if hid:
             kw["mlp"] = (1 + f32((c,), 0.1), f32((c,), 0.1), g.u((2 * hid, c), c),
                          g.u((2 * hid,), c), g.u((c, hid), hid), g.u((c,), hid))
@@ -421,8 +432,8 @@ def streamed_ms(spec, fn, args, kw):
     plain version and timed once more with its input streamed in 64-channel
     chunks: what a single streamed plan would cost at this shape. None for
     the calls that stream already or have no chunk."""
-    if spec[0] not in STAGED:
-        return None
+    if spec[0] not in STAGED or spec[0] == "spectral_apply" and _code(spec):
+        return None  # (the bf16 apply tile has one resident plan)
     plan = plan_of(spec)
     if plan["kc"] < plan["c"] or plan["c"] <= 64:
         return None
@@ -540,14 +551,27 @@ def tflops(spec, args, kw, flops, ms, lib_ms) -> dict:
 
 def front_split(spec, fn, args, kw) -> dict:
     """A spectral apply call with the PGSSTB tail timed once more on the same
-    inputs without it (mlp=None): the front's time through the wrapper and
-    alone; the tail's is the difference."""
+    inputs without it (mlp=None): the front's time through the wrapper,
+    alone and as its plain version, its bound and rates (apply_cost); the
+    tail's time is the difference."""
+    from mp_hsir_tpu_torch.ops.kernels._route import plain_reference
+
     if spec[0] != "spectral_apply" or not kw.get("mlp"):
         return {}
     front = dict(kw, mlp=None)
     compare(fn, args, front, BF16_TOL)
-    return dict(front_ms=time_ms(lambda: fn(*args, **front), 10),
-                front_kernel_ms=kernel_alone_ms(spec[0], args, front))
+    _, b, h, w, c1, c2, _, _, _, gate, short = spec[:11]
+    byts, flops = apply_cost(b, h, w, c1 + c2, args[0].element_size(), gate, short)
+    ms, kms = time_ms(lambda: fn(*args, **front), 10), kernel_alone_ms(spec[0], args, front)
+
+    def plain():
+        with plain_reference():
+            return fn(*args, **front)
+
+    return dict(front_ms=ms, front_kernel_ms=kms, front_plain_ms=time_ms(plain, 3),
+                front_flops=flops,
+                front_bound_ms=max(byts / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
+                front_tflops=flops / ms / 1e9, front_kernel_tflops=flops / kms / 1e9)
 
 
 def log_tflops(row) -> str:
@@ -555,7 +579,9 @@ def log_tflops(row) -> str:
         return ""
     lib = row["library_tflops"]
     front = ("" if "front_ms" not in row else
-             f"; without the tail {row['front_ms']:.4f} ms, alone {row['front_kernel_ms']:.4f}")
+             f"; without the tail {row['front_ms']:.4f} ms ({row['front_tflops']:.1f} TFLOP/s), "
+             f"alone {row['front_kernel_ms']:.4f} ({row['front_kernel_tflops']:.1f}), "
+             f"front bound {row['front_bound_ms']:.4f}")
     return (f"  {row['tflops']:.1f} TFLOP/s; kernel alone {row['kernel_ms']:.4f} ms "
             f"{row['kernel_tflops']:.1f} TFLOP/s (lib {'-' if lib is None else f'{lib:.1f}'})"
             + front)
@@ -579,11 +605,22 @@ def log_alone_sums(what: str, rows, per: str) -> None:
         tails = [r for r in mine if "front_ms" in r]
         if tails:
             tot_t = lambda k: sum(r[k] * r[per] for r in tails)  # noqa: E731
+            ff = tot_t("front_flops") / 1e9
             log(f"    of it the {sum(r[per] for r in tails)} calls with the PGSSTB tail: wrapper "
                 f"{tot_t('ms'):.4f} ms = front {tot_t('front_ms'):.4f} + tail "
                 f"{tot_t('ms') - tot_t('front_ms'):.4f}; alone {tot_t('kernel_ms'):.4f} ms = front "
                 f"{tot_t('front_kernel_ms'):.4f} + tail "
-                f"{tot_t('kernel_ms') - tot_t('front_kernel_ms'):.4f}")
+                f"{tot_t('kernel_ms') - tot_t('front_kernel_ms'):.4f}; their fronts: bound "
+                f"{tot_t('front_bound_ms'):.4f} ms, plain {tot_t('front_plain_ms'):.4f} ms, "
+                f"{ff / tot_t('front_ms'):.1f} TFLOP/s, alone {ff / tot_t('front_kernel_ms'):.1f}")
+        fronts = [r for r in mine if r["spec"][0] == "spectral_apply" and "front_ms" not in r]
+        if fronts:  # the calls without the tail are fronts alone
+            tot_f = lambda k: sum(r[k] * r[per] for r in fronts)  # noqa: E731
+            ff = tot_f("flops") / 1e9
+            log(f"    the {sum(r[per] for r in fronts)} calls without the tail (fronts): wrapper "
+                f"{tot_f('ms'):.4f} ms ({ff / tot_f('ms'):.1f} TFLOP/s), alone "
+                f"{tot_f('kernel_ms'):.4f} ({ff / tot_f('kernel_ms'):.1f}), bound "
+                f"{tot_f('bound_ms'):.4f} ms")
 
 
 def kernel_checks(specs: Counter, dev) -> dict:
@@ -1353,12 +1390,12 @@ def summarize(rows, launches, kernels, per) -> list:
                          kernel_tflops=flops / tot("kernel_ms") / 1e9)
             tails = [r for r in mine if "front_ms" in r]
             if tails:  # the apply calls with the PGSSTB tail: front and tail
-                front = sum(r["front_ms"] * r[per] for r in tails)
-                front_alone = sum(r["front_kernel_ms"] * r[per] for r in tails)
-                alone.update(tail_calls_ms=sum(r["ms"] * r[per] for r in tails),
-                             tail_calls_front_ms=front, tail_calls_kernel_ms=sum(
-                                 r["kernel_ms"] * r[per] for r in tails),
-                             tail_calls_front_kernel_ms=front_alone)
+                tot_t = lambda k: sum(r[k] * r[per] for r in tails)  # noqa: E731
+                alone.update(tail_calls_ms=tot_t("ms"), tail_calls_front_ms=tot_t("front_ms"),
+                             tail_calls_kernel_ms=tot_t("kernel_ms"),
+                             tail_calls_front_kernel_ms=tot_t("front_kernel_ms"),
+                             tail_calls_front_plain_ms=tot_t("front_plain_ms"),
+                             tail_calls_front_bound_ms=tot_t("front_bound_ms"))
         summary.append(dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
             tpu=meta["tpu"], launches=launches[name],
@@ -1397,6 +1434,22 @@ def log_streamed(what: str, rows, per: str) -> dict:
     return out
 
 
+def log_front_plans(_build) -> dict:
+    """The bf16 spectral apply tile's shared-memory plan (bytes, static
+    included) at every width of the presets' apply calls, with and without
+    the tail, beside the float32 layout's at its own chunk."""
+    plans = {}
+    for c in (64, 96, 128, 192, 256, 384):
+        for tail in (1, 0):
+            f32 = _build.plan_bytes("mp_spectral_apply_smem", c, tail, 0,
+                                    _build.chunk("mp_spectral_apply_chunk", c, tail, 0))
+            plans[f"C={c}{'+tail' if tail else ''}"] = dict(
+                bf16=_build.plan_bytes("mp_spectral_apply_smem", c, tail, 1, c), f32=f32)
+    log("  bf16 spectral apply plans (B; float32's in brackets): " + ", ".join(
+        f"{k} {v['bf16']} ({v['f32']})" for k, v in plans.items()))
+    return plans
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="", help="write the detailed results here (JSON)")
@@ -1428,6 +1481,8 @@ def main() -> None:
     for line in _build.BUILD_INFO.get("log", "").splitlines():
         if "registers" in line or "spill" in line.lower() and "0 bytes spill" not in line:
             log("  ptxas: " + line.strip())
+
+    front_plans = log_front_plans(_build)
 
     cfg = natural_scene_config(compute_dtype="bfloat16")
     specs = path_specs(cfg, SIZE, "torch.bfloat16")
@@ -1541,6 +1596,7 @@ def main() -> None:
                            rs_rows=rs_rows, rs_main=rs_res, rs_cli=rs_cli, k14_rows=k14_rows,
                            rs_train_rows=rs_train_rows, rs_train=rs_train,
                            smem_limit=limit, streamed=streamed, kernels=summary,
+                           front_plans=front_plans,
                            seconds=time.perf_counter() - t_start), fh, indent=1)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card)

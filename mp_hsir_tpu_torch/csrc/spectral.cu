@@ -8,9 +8,9 @@
 //   mp_spectral_apply  v = dw3x3(1x1([LN] x)); out = v @ comb plus the
 //                      epilogue: [x * gate] [+ x] [+ shortcut], then optionally
 //                      the PGSSTB tail out + fc2(a * gelu(g)), [a|g] = fc1(LN2(out))
-//                      (bf16: the tensor-core tail tile of mlp_tail.cuh in
-//                      the plan's space after the output tile; float32:
-//                      common.cuh mlp_tail_tile).
+//                      (bf16: the tensor-core tile of spectral_front.cuh with
+//                      the tail tile of mlp_tail.cuh after it; float32:
+//                      spectral_apply_kernel below with common.cuh mlp_tail_tile).
 //
 // Replaces _spectral_kernel (mp_hsir_tpu/ops/pallas_attention.py:1429, K2: the
 // stats launch is its phase 0, the apply launch its phase 1) and the spectral
@@ -26,8 +26,9 @@
 // Bound on this card: 4C^2 + 6C*hidden flops per pixel in the apply launch and
 // 4C^2 + 2C*dh in the stats launch against ~4C bytes per pixel: tensor-core
 // rate bounds both at these widths. bf16 products run as mma.sync on the
-// tensor cores, float32 ones as SIMT FMA (common.cuh gemm; PERF.md).
-#include "mlp_tail.cuh"
+// tensor cores, float32 ones as SIMT FMA (common.cuh gemm; PERF.md); the bf16
+// apply launch runs its own tile (spectral_front.cuh).
+#include "spectral_front.cuh"
 
 namespace mp {
 
@@ -209,13 +210,12 @@ constexpr int kVC = 32;   // v channel chunk when the input is resident
 constexpr int kVCw = 128; // v channel chunk when it is streamed (fewer re-reads)
 constexpr int kHCw = 32;  // tail hidden chunk when it is streamed (C = 384: 226 KB at kc 64)
 
-// The apply kernel's plan: the halo input chunk xc [100][kc+1] and the v 1x1
-// chunk vt [100][nv+1] share one region with the output y [64][C+1] (y is
-// written after the v stage); vs [64][C+1] holds v, later (float32) LN2(y);
-// hb holds the float32 tail's hidden chunk. The bf16 tail tile uses
-// everything after y instead (LN2(y) and its gated chunk as bf16, its weight
-// ring: apply_smem). Resident (kc = C): the natural-scene layout, a kernel
-// instance of its own whose chunks are compile-time constants.
+// The float32 apply kernel's plan (and the apply backward's): the halo input
+// chunk xc [100][kc+1] and the v 1x1 chunk vt [100][nv+1] share one region
+// with the output y [64][C+1] (y is written after the v stage); vs [64][C+1]
+// holds v, later LN2(y); hb holds the tail's hidden chunk. Resident (kc = C):
+// the natural-scene layout, a kernel instance of its own whose chunks are
+// compile-time constants. The bf16 apply kernel has its own plan (FrontPlan).
 struct ApplyPlan {
   int kc, nv, khc;
   __host__ __device__ size_t front(int C) const {
@@ -244,9 +244,8 @@ spectral_apply_kernel(const T* __restrict__ x1, const T* __restrict__ x2, int C1
                       const T* __restrict__ w1, const float* __restrict__ b1,
                       const T* __restrict__ w2, const float* __restrict__ b2, int hid,
                       const float* __restrict__ dp, T* __restrict__ out, int H, int W,
-                      int shift, float eps, int kc, int tail_stages) {
-  extern __shared__ float4 apply_dyn[];  // 16-byte aligned: the bf16 tail's cp.async ring
-  float* sm = reinterpret_cast<float*>(apply_dyn);
+                      int shift, float eps, int kc) {
+  extern __shared__ float sm[];
   __shared__ float mu[kHaloPix], rs[kHaloPix];
   const int C = C1 + C2, C3 = 3 * C;
   const ApplyPlan plan = apply_plan<kStream>(kc, C);
@@ -317,28 +316,7 @@ spectral_apply_kernel(const T* __restrict__ x1, const T* __restrict__ x2, int C1
         y[i * ldx + j] = v;
       });
   __syncthreads();
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (w1 != nullptr) {
-      // the tail tile in the space after y (apply_smem): LN2(y) as bf16, the
-      // gated chunk, the ring; y + branch rounded once, in 16-byte runs
-      const int ldn = round_up64(C) + 8;
-      __nv_bfloat16* xn = reinterpret_cast<__nv_bfloat16*>(y + kPix * ldx);
-      __nv_bfloat16* gs = xn + kPix * ldn;
-      TailRing rg(w1, w2, gs + kPix * kTailLdg, tail_stages, C, hid);
-      rg.prefetch();
-      tail_ln([&](int i, int k) { return y[i * ldx + k]; }, xn, ldn, C, ln2w, ln2b, eps);
-      float acc[2 * kTailGroups][4];
-      mlp_tail_tc(acc, xn, ldn, gs, rg, b1, hid);
-      tail_out(acc, C, [&](int i, int k, float v) {
-        xn[i * ldn + k] = __float2bfloat16(y[i * ldx + k] + (v + b2[k]));
-      });
-      __syncthreads();
-      tail_store(
-          xn, ldn, C, C % 8 == 0, [&](int i) { return out + tile_pix(b, ty, tx, i, H, W) * C; },
-          [](int, int, float v) { return v; });
-      return;
-    }
-  } else if (w1 != nullptr) {
+  if (w1 != nullptr) {
     mlp_tail_tile<T>(y, vs, ldx, hb, C, hid, ln2w, ln2b, w1, b1, w2, b2, eps, false, plan.khc);
   }
 
@@ -360,31 +338,20 @@ inline size_t apply_smem(int C, bool tail, int kc) {
   return sizeof(float) * plan.floats(C, tail);
 }
 
-// The plan in the compute type: bf16's tail tile takes the space after the
-// output tile y, at least two ring stages (more where the float32 layout's
-// space holds them, up to kTailStages); at every width of the presets that
-// space is already in the float32 plan.
+// The plan in the compute type: bf16 takes the front tile's plan (always
+// resident: no chunk), float32 the chunked layout above.
 inline size_t apply_smem(int C, bool tail, int kc, bool bf16) {
-  const size_t f = apply_smem(C, tail, kc);
-  if (!bf16 || !tail) return f;
-  const size_t need = sizeof(float) * kPix * (C + 1) + tail_scratch_bytes(C, 2);
-  return f > need ? f : need;
+  return bf16 ? FrontPlan(C).bytes(tail) : apply_smem(C, tail, kc);
 }
 
-inline int apply_tail_stages(int C, size_t smem) {
-  return tail_stages(C, smem - sizeof(float) * kPix * (C + 1));
-}
-
-// The apply kernel instance of a chunk: resident where kc covers C.
-template <typename T>
+// The float32 apply kernel instance of a chunk: resident where kc covers C.
 inline auto apply_kernel(int kc, int C) {
-  return kc >= C ? spectral_apply_kernel<T, false> : spectral_apply_kernel<T, true>;
+  return kc >= C ? spectral_apply_kernel<float, false> : spectral_apply_kernel<float, true>;
 }
 
 inline long long apply_plan_bytes(int C, bool tail, int kc, bool bf16) {
   const size_t smem = apply_smem(C, tail, kc, bf16);
-  return bf16 ? plan_bytes(apply_kernel<__nv_bfloat16>(kc, C), smem)
-              : plan_bytes(apply_kernel<float>(kc, C), smem);
+  return bf16 ? plan_bytes(spectral_apply_tc_kernel, smem) : plan_bytes(apply_kernel(kc, C), smem);
 }
 
 inline int stats_chunk(int C, int nH) {
@@ -394,7 +361,7 @@ inline int stats_chunk(int C, int nH) {
 }
 
 inline int apply_chunk(int C, bool tail, bool bf16) {
-  return pick_chunk(C, [&](int kc) { return apply_plan_bytes(C, tail, kc, bf16); });
+  return bf16 ? C : pick_chunk(C, [&](int kc) { return apply_plan_bytes(C, tail, kc, false); });
 }
 
 template <typename T>
@@ -419,28 +386,54 @@ cudaError_t launch_stats(const void* x1, const void* x2, int C1, int C2, const f
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_apply(const void* x1, const void* x2, int C1, int C2, const float* lnw,
-                         const float* lnb, const void* wqkv, const void* wdw, const float* comb,
-                         const void* gate, const void* shortcut, int residual,
-                         const float* ln2w, const float* ln2b, const void* w1, const float* b1,
-                         const void* w2, const float* b2, int hid, const float* dp, void* out,
-                         int B, int H, int W, int shift, int kc, float eps,
-                         cudaStream_t stream) {
-  const bool tail = w1 != nullptr, bf16 = std::is_same<T, __nv_bfloat16>::value;
+cudaError_t launch_apply(const float* x1, const float* x2, int C1, int C2, const float* lnw,
+                         const float* lnb, const float* wqkv, const float* wdw, const float* comb,
+                         const float* gate, const float* shortcut, int residual,
+                         const float* ln2w, const float* ln2b, const float* w1, const float* b1,
+                         const float* w2, const float* b2, int hid, const float* dp, float* out,
+                         int B, int H, int W, int shift, int kc, float eps, cudaStream_t stream) {
   const int C = C1 + C2;
-  if (bf16 && tail && (C > kTailMaxC || (uintptr_t)out % 16 != 0)) return cudaErrorInvalidValue;
-  const size_t smem = apply_smem(C, tail, kc, bf16);
-  const auto kernel = apply_kernel<T>(kc, C);
+  const size_t smem = apply_smem(C, w1 != nullptr, kc);
+  const auto kernel = apply_kernel(kc, C);
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
-      (const T*)x1, (const T*)x2, C1, C2, lnw, lnb, (const T*)wqkv, (const T*)wdw, comb,
-      (const T*)gate, (const T*)shortcut, residual, ln2w, ln2b, (const T*)w1, b1, (const T*)w2,
-      b2, hid, dp, (T*)out, H, W, shift, eps, kc, bf16 && tail ? apply_tail_stages(C, smem) : 0);
+      x1, x2, C1, C2, lnw, lnb, wqkv, wdw, comb, gate, shortcut, residual, ln2w, ln2b, w1, b1, w2,
+      b2, hid, dp, out, H, W, shift, eps, kc);
   return cudaGetLastError();
 }
 
+inline bool aligned(const void* p, int n) { return (uintptr_t)p % n == 0; }
+
+// The bf16 tile (spectral_front.cuh): wv [C][C8], taps [C][9], comb
+// [B][C][C8] bf16 (C8 = C rounded up to 8; wv and comb 16-byte aligned); C up
+// to kFrontMaxC.
+cudaError_t launch_apply_tc(const __nv_bfloat16* x1, const __nv_bfloat16* x2, int C1, int C2,
+                            const float* lnw, const float* lnb, const __nv_bfloat16* wv,
+                            const __nv_bfloat16* taps, const __nv_bfloat16* comb,
+                            const __nv_bfloat16* gate, const __nv_bfloat16* shortcut,
+                            int residual, const float* ln2w, const float* ln2b,
+                            const __nv_bfloat16* w1, const float* b1, const __nv_bfloat16* w2,
+                            const float* b2, int hid, const float* dp, __nv_bfloat16* out, int B,
+                            int H, int W, int shift, float eps, cudaStream_t stream) {
+  const int C = C1 + C2;
+  if (C > kFrontMaxC || !aligned(wv, 16) || !aligned(comb, 16)) return cudaErrorInvalidValue;
+  const bool tail = w1 != nullptr;
+  const FrontPlan pl(C);
+  const size_t smem = pl.bytes(tail);
+  int flags = 0;
+  if (C1 % 8 == 0 && C2 % 8 == 0 && aligned(x1, 16) && aligned(x2, 16)) flags |= kVecX;
+  if (C1 % 2 == 0 && C2 % 2 == 0 && aligned(x1, 4) && aligned(x2, 4) && aligned(gate, 4) &&
+      aligned(shortcut, 4))
+    flags |= kPairs;
+  if (C % 8 == 0 && aligned(out, 16)) flags |= kVecOut;
+  cudaError_t err = set_smem(spectral_apply_tc_kernel, smem);
+  if (err != cudaSuccess) return err;
+  spectral_apply_tc_kernel<<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
+      x1, x2, C1, C2, lnw, lnb, wv, taps, comb, gate, shortcut, residual, ln2w, ln2b, w1, b1, w2,
+      b2, hid, dp, out, H, W, shift, eps, flags, tail ? tail_stages(C, smem - pl.y) : 0);
+  return cudaGetLastError();
+}
 
 // ---------------------------------------------------------------------------
 // Backward (training). Each launch below is one 8x8 tile of the unrolled
@@ -739,14 +732,18 @@ extern "C" int mp_spectral_stats(const void* x1, const void* x2, const void* lnw
                                               n_parts, kc, st);
 }
 
-// comb [B][C][C] float32 (row: v channel h*dh + e, col: output channel).
-// gate (B, H/8, W/8, C) per-window gates of the rolled frame, shortcut
-// (B, H, W, C), residual adds the raw input; w1 / w2 the PGSSTB tail (NULL =
-// none): float32 w1 [C][2*hid], w2 [hid][C]; bf16 (C <= 384) pack_mlp_weights'
-// w1p [hidP/64][128][CK], w2p [CK][hidP]; dp (B,) float32 per-sample
-// drop-path scales of the branch (NULL = none). kc: the channel chunk
-// (mp_spectral_apply_chunk; kc = C is the resident instance). Output (B, H, W,
-// C) in the unrolled frame.
+// comb [B][C][C] (row: v channel h*dh + e, col: output channel). gate (B,
+// H/8, W/8, C) per-window gates of the rolled frame, shortcut (B, H, W, C),
+// residual adds the raw input; dp (B,) float32 per-sample drop-path scales of
+// the branch (NULL = none); w1 / w2 the PGSSTB tail (NULL = none). Output (B,
+// H, W, C) in the unrolled frame.
+// float32 (dtype 0): wqkv [C][3C], wdw [9][3C] ([in][out] copies), comb
+// float32, tail w1 [C][2*hid], w2 [hid][C]; kc the channel chunk
+// (mp_spectral_apply_chunk; kc = C is the resident instance).
+// bf16 (dtype 1, C <= 384): wqkv the v rows of the torch weight ([C][C8], C8 =
+// C rounded up to 8, zero past C; 16-byte aligned), wdw their depthwise taps
+// ([C][9]), comb bf16 [B][C][C8] (16-byte aligned), tail pack_mlp_weights' w1p
+// [hidP/64][128][CK], w2p [CK][hidP]; kc is C.
 extern "C" int mp_spectral_apply(const void* x1, const void* x2, const void* lnw,
                                  const void* lnb, const void* wqkv, const void* wdw,
                                  const void* comb, const void* gate, const void* shortcut,
@@ -758,16 +755,17 @@ extern "C" int mp_spectral_apply(const void* x1, const void* x2, const void* lnw
   if (H % mp::kTile != 0 || W % mp::kTile != 0 || kc <= 0 || kc > C1 + C2)
     return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
+  auto f = [](const void* p) { return (const float*)p; };
   if (dtype == 0)
-    return (int)mp::launch_apply<float>(x1, x2, C1, C2, (const float*)lnw, (const float*)lnb,
-                                        wqkv, wdw, (const float*)comb, gate, shortcut, residual,
-                                        (const float*)ln2w, (const float*)ln2b, w1,
-                                        (const float*)b1, w2, (const float*)b2, hid,
-                                        (const float*)dp, out, B, H, W, shift, kc, eps, st);
-  return (int)mp::launch_apply<__nv_bfloat16>(
-      x1, x2, C1, C2, (const float*)lnw, (const float*)lnb, wqkv, wdw, (const float*)comb,
-      gate, shortcut, residual, (const float*)ln2w, (const float*)ln2b, w1, (const float*)b1, w2,
-      (const float*)b2, hid, (const float*)dp, out, B, H, W, shift, kc, eps, st);
+    return (int)mp::launch_apply(f(x1), f(x2), C1, C2, f(lnw), f(lnb), f(wqkv), f(wdw), f(comb),
+                                 f(gate), f(shortcut), residual, f(ln2w), f(ln2b), f(w1), f(b1),
+                                 f(w2), f(b2), hid, f(dp), (float*)out, B, H, W, shift, kc, eps,
+                                 st);
+  using bf = const __nv_bfloat16*;
+  return (int)mp::launch_apply_tc((bf)x1, (bf)x2, C1, C2, f(lnw), f(lnb), (bf)wqkv, (bf)wdw,
+                                  (bf)comb, (bf)gate, (bf)shortcut, residual, f(ln2w), f(ln2b),
+                                  (bf)w1, f(b1), (bf)w2, f(b2), hid, f(dp), (__nv_bfloat16*)out,
+                                  B, H, W, shift, eps, st);
 }
 
 // The device's opt-in shared-memory limit per block, in bytes.

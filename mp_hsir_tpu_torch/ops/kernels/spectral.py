@@ -21,6 +21,11 @@ Layouts at these functions: NHWC maps; wqkv (3C, C, 1, 1) and wdw
 (3C, 1, 3, 3) conv weights; the optional second input ``x2`` makes the
 logical input ``cat([x, x2], -1)``; ``shift`` > 0 means ``x`` is in the
 rolled frame of a shifted block and is read through the roll-back.
+
+The bf16 apply launch runs the tensor-core tile of ``csrc/spectral_front.cuh``
+(C up to :data:`FRONT_MAX_C`): it streams the v rows of the torch weights and
+a bf16 copy of ``comb`` as they are (:func:`pack_front`), in the tiles that
+:func:`front_plan` describes.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from __future__ import annotations
 from functools import lru_cache
 
 import torch
+import torch.nn.functional as F
 
 from mp_hsir_tpu_torch.ops.basic import gelu_exact, layer_norm
 from mp_hsir_tpu_torch.ops.kernels import _build
@@ -38,7 +44,7 @@ from mp_hsir_tpu_torch.ops.kernels._grad import (
 from mp_hsir_tpu_torch.ops.kernels._route import (
     ROUTE, counter, dtype_code, f32, kernel_weight, stream_ptr,
 )
-from mp_hsir_tpu_torch.ops.kernels.mlp import check_tail_width, pack_mlp_weights
+from mp_hsir_tpu_torch.ops.kernels.mlp import pack_mlp_weights
 from mp_hsir_tpu_torch.ops.window import roll_hw
 
 STATS = counter("spectral_stats")
@@ -46,6 +52,13 @@ APPLY = counter("spectral_apply")
 STATS_BWD = counter("spectral_stats_bwd")
 APPLY_BWD = counter("spectral_apply_bwd")
 MAX_PARTS = 128
+# the bf16 apply tile (csrc/spectral_front.cuh): its widest C (kFrontMaxC),
+# the 16 x 32 output units a warp holds (kFrontUnits), the halo rows padded to
+# 7 row tiles (kFrontRows) and the weight tiles' depth
+FRONT_MAX_C = 384
+FRONT_UNITS = 3
+FRONT_ROWS = 112
+FRONT_K = 64
 
 __all__ = ["dwconv3_f32", "spectral_stats", "spectral_apply", "spectral_fold"]
 
@@ -333,6 +346,31 @@ def spectral_apply_bwd_plain(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, ga
     return (dx.to(dt), dcomb, dw.reshape(3 * c, c, 1, 1), dwdw, dlnw, dlnb, dgate, dy, ddp)
 
 
+def front_plan(c: int) -> dict:
+    """The bf16 apply tile's tiling at width ``c`` (``FrontPlan`` in
+    csrc/spectral_front.cuh): ``cp`` = c rounded up to 32, the 1x1 product's
+    output passes of ``np`` columns, ``nk`` 64-deep weight tiles per pass."""
+    cp = -(-c // 32) * 32
+    nb = cp // 32
+    passes = -(-7 * nb // (16 * FRONT_UNITS))
+    return dict(cp=cp, passes=passes, np=32 * -(-nb // passes), nk=-(-cp // FRONT_K))
+
+
+def pack_front(wqkv, wdw, comb, dt):
+    """The operands the bf16 apply tile streams, in ``dt``: the v rows of
+    the 1x1 weight as [C out][C8 in] (torch layout), their depthwise taps as
+    [C][9], and ``comb`` as (B, C, C8); C8 is C rounded up to 8, the rows
+    padded with zeros only where C is not a multiple of 8 (16-byte rows for
+    the kernel's copies). Views of the weights where they are already in
+    ``dt``; the kernel stages [np][64] tiles of the first and [64][cp] tiles
+    of the last (:func:`front_plan`), zero past C."""
+    c = wqkv.shape[1]
+    wv, cb = wqkv[2 * c:].reshape(c, c).to(dt), comb.to(dt)
+    if c % 8:
+        wv, cb = F.pad(wv, (0, -c % 8)), F.pad(cb, (0, -c % 8))
+    return wv.contiguous(), wdw[2 * c:].reshape(c, 9).to(dt).contiguous(), cb.contiguous()
+
+
 @lru_cache(maxsize=None)
 def _apply_entry(bwd: bool = False):
     import ctypes
@@ -345,8 +383,9 @@ def _apply_entry(bwd: bool = False):
 def _apply_prepare(x, comb, wqkv, wdw, shift=0, x2=None, ln_w=None, ln_b=None, residual=False,
                    gate=None, shortcut=None, mlp=None, eps=1e-5, dp_scale=None):
     """Everything a launch needs: (the C entry's arguments, out, the tensors
-    the arguments point into, to be held until the launch). The tail's
-    weights: float32 [in][out] copies, bf16 :func:`pack_mlp_weights`."""
+    the arguments point into, to be held until the launch). Weights: float32
+    [in][out] copies; bf16 :func:`pack_front` and, for the tail,
+    :func:`pack_mlp_weights`."""
     b, h, w, c1 = x.shape
     c2 = 0 if x2 is None else x2.shape[-1]
     c = c1 + c2
@@ -356,8 +395,8 @@ def _apply_prepare(x, comb, wqkv, wdw, shift=0, x2=None, ln_w=None, ln_b=None, r
         raise ValueError("the gate and drop-path epilogues take one raw input")
     dt, code = x.dtype, dtype_code(x)
     tail = int(mlp is not None)
-    if tail:
-        check_tail_width(c, dt)
+    if code and c > FRONT_MAX_C:  # the front's and the tail tile's widest C
+        raise ValueError(f"the bf16 spectral apply kernel takes C up to {FRONT_MAX_C}, got {c}")
     kc = _build.chunk("mp_spectral_apply_chunk", c, tail, code)
     _build.check_plan("spectral_apply", "mp_spectral_apply_smem",
                       f"C={c}, {'with' if tail else 'no'} MLP tail", c, tail, code, kc)
@@ -365,8 +404,11 @@ def _apply_prepare(x, comb, wqkv, wdw, shift=0, x2=None, ln_w=None, ln_b=None, r
     x2 = None if x2 is None else x2.to(dt).contiguous()
     gate = None if gate is None else gate.to(dt).contiguous()
     shortcut = None if shortcut is None else shortcut.to(dt).contiguous()
-    wq, wd = kernel_weight(wqkv, dt), kernel_weight(wdw, dt)
-    lnw, lnb, cb, dp = f32(ln_w), f32(ln_b), f32(comb), f32(dp_scale)
+    if code:
+        wq, wd, cb = pack_front(wqkv, wdw, comb, dt)
+    else:
+        wq, wd, cb = kernel_weight(wqkv, dt), kernel_weight(wdw, dt), f32(comb)
+    lnw, lnb, dp = f32(ln_w), f32(ln_b), f32(dp_scale)
     hid = 0
     ln2w = ln2b = w1 = b1 = w2 = b2 = None
     if tail:

@@ -470,11 +470,13 @@ def test_cuda_remote_sensing_widths_match_plain(dtype, tol):
             faults.append(f"{name}: {e}")
     assert not faults, "\n".join(faults)
     # the window kernel: bf16 stages the whole window (its chunk is C),
-    # float32 streams 64-channel chunks; both plans within the limit
+    # float32 streams 64-channel chunks; every plan within the limit
     code = int(dtype == "bfloat16")
+    # the bf16 apply tile has one resident plan (its chunk is C)
     for kernel, shape, want in (("window", (384, 8, code), 384 if code else 64),
                                 ("spectral_stats", (192, 2), 64),
-                                ("spectral_apply", (384, 1, code), 64), ("gdfn", (384,), 64)):
+                                ("spectral_apply", (384, 1, code), 384 if code else 64),
+                                ("gdfn", (384,), 64)):
         kc = _build.chunk(f"mp_{kernel}_chunk", *shape)
         entry = "mp_window_attention_smem" if kernel == "window" else f"mp_{kernel}_smem"
         assert kc == want, kernel
@@ -585,3 +587,90 @@ def test_cuda_mlp_tail_widths_match_plain(c, b, h):
         n = _build.plan_bytes("mp_spectral_apply_smem", c, 1, code, kc)
         assert 0 < n <= _build.smem_limit()
         assert n <= _build.plan_bytes("mp_spectral_apply_smem", c, 1, 0, kc)
+
+
+# The bf16 spectral apply tile (csrc/spectral_front.cuh) at every width of the
+# presets' apply calls, in every variant they launch: the PGSSTB call (gate and
+# shortcut, shift 0 and 4, with and without the tail), the PromptFusion call
+# (x2 + LN + residual, C split in halves) and the training call (gate, drop-path
+# [1.25, 0.0], shortcut); C = 36 and 27 take the element-wise staging and
+# epilogue loads (rows not 16-byte multiples; 27 odd: no bf16 pairs) and pad
+# to 64 and 32; on 3 tiles (8x24) and, at B = 2, 12 (16x24: a non-square
+# tile grid, two images with their own comb)
+FRONT_VARIANTS = ("pgsstb0", "pgsstb4", "pgsstb0+tail", "pgsstb4+tail", "fusion", "train")
+FRONT_CASES = [(v, c, b, h) for v in FRONT_VARIANTS for c in (64, 128, 256, 96, 192, 384, 36, 27)
+               for b, h in ((1, 8), (2, 16))]
+# mp_spectral_apply_bwd_smem(C, kc) at each width's chunk (kc = C, and 64 at
+# C = 384): the apply backward's plans, which the bf16 front leaves as they were
+APPLY_BWD_PLANS = {64: 55904, 128: 97888, 256: 181856, 96: 76896, 192: 139872, 384: 197984}
+
+
+def _front_inputs(variant, c, b, h, dev):
+    """(args, kwargs) of one spectral_apply call of the variant, float32."""
+    hid = int(c * 2.66)
+    r = _rng(70 + c + b)
+    f = lambda *s, scale=1.0: _t(_n(r, s, scale)).to(dev)  # noqa: E731
+    wq, wd = f(3 * c, c, 1, 1, scale=c ** -0.5), f(3 * c, 1, 3, 3, scale=1 / 3)
+    comb = f(b, c, c, scale=c ** -0.5)
+    x = f(b, h, 24, c)
+    gate, short = f(b, h // 8, 3, c, scale=0.5), f(b, h, 24, c)
+    if variant == "fusion":
+        return [x[..., :c // 2], comb, wq, wd], dict(
+            x2=f(b, h, 24, c - c // 2), ln_w=1 + f(c, scale=0.1), ln_b=f(c, scale=0.1),
+            residual=True)
+    kw = dict(shift=4 if variant.startswith("pgsstb4") else 0, gate=gate, shortcut=short)
+    if variant == "train":
+        kw.update(shift=4, dp_scale=torch.tensor([1.25, 0.0][:b], device=dev))
+    if variant.endswith("+tail"):
+        kw["mlp"] = (1 + f(c, scale=0.1), f(c, scale=0.1), f(2 * hid, c, scale=c ** -0.5),
+                     f(2 * hid, scale=0.1), f(c, hid, scale=hid ** -0.5), f(c, scale=0.1))
+    return [x, comb, wq, wd], kw
+
+
+def _as(dt, args, kw):
+    """The call's activations (x, x2, gate, shortcut) in ``dt``."""
+    kw = {k: v.to(dt) if k in ("x2", "gate", "shortcut") else v for k, v in kw.items()}
+    return [args[0].to(dt)] + args[1:], kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,c,b,h", FRONT_CASES)
+def test_cuda_spectral_front_matches_plain(variant, c, b, h):
+    """The bf16 apply tile against the plain version, bf16 within 3e-2 and the
+    float32 kernel within 1e-4 of the output's max-abs; one launch each, the
+    plain version only inside the check; the bf16 plan within the device's
+    limit and, with the tail, no larger than the float32 layout's at the
+    same chunk; the apply backward's plans as they were."""
+    from mp_hsir_tpu_torch.ops.kernels import _build
+
+    dev = _cuda()
+    args, kw = _front_inputs(variant, c, b, h, dev)
+    tail = int("mlp" in kw)
+    for dt, tol in ((torch.bfloat16, 3e-2), (torch.float32, 1e-4)):
+        _route.reset_counters()
+        _check_fwd(spectral_apply, *_as(dt, args, kw), tol)
+        assert _route.COUNTERS["spectral_apply"].launches == 1
+        assert _route.ROUTE.plain_cuda_calls == 1
+    kc = _build.chunk("mp_spectral_apply_chunk", c, tail, 1)
+    n = _build.plan_bytes("mp_spectral_apply_smem", c, tail, 1, kc)
+    assert kc == c and 0 < n <= _build.smem_limit()
+    if tail:  # the float32 layout holds the tail's scratch too
+        assert n <= _build.plan_bytes("mp_spectral_apply_smem", c, tail, 0, kc)
+    if c in APPLY_BWD_PLANS:
+        kc = _build.chunk("mp_spectral_apply_bwd_chunk", c)
+        assert _build.plan_bytes("mp_spectral_apply_bwd_smem", c, kc) == APPLY_BWD_PLANS[c]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [64, 384])
+def test_cuda_spectral_front_check_sees_the_roll(c):
+    """The per-call check is not blind to the roll-back: a shifted block's
+    input through the bf16 tile with shift = 0 fails the 3e-2 bound against
+    the plain version with shift = 4 (the model-level bound cannot see it)."""
+    dev = _cuda()
+    args, kw = _as(torch.bfloat16, *_front_inputs("pgsstb4", c, 2, 16, dev))
+    got = spectral_apply(*args, **dict(kw, shift=0))
+    with _route.plain_reference():
+        ref = spectral_apply(*args, **kw)
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err > 3e-2 * ref.float().abs().max().item(), err

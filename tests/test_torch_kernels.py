@@ -22,8 +22,10 @@ from mp_hsir_tpu_torch.ops.kernels.conv3 import CHUNK_K, TILE_N, conv3, conv3_pl
 from mp_hsir_tpu_torch.ops.basic import gelu_exact, layer_norm
 from mp_hsir_tpu_torch.ops.kernels.gdfn import gdfn_plain
 from mp_hsir_tpu_torch.ops.kernels.mlp import TAIL_K, mlp_plain, pack_mlp_weights
+from mp_hsir_tpu_torch.ops.kernels._grad import dwconv3_f32
 from mp_hsir_tpu_torch.ops.kernels.spectral import (
-    spectral_apply_plain, spectral_fold, spectral_stats_plain,
+    FRONT_K, FRONT_ROWS, front_plan, pack_front, spectral_apply_plain, spectral_fold,
+    spectral_stats_plain,
 )
 from mp_hsir_tpu_torch.ops.kernels.window_attention import (
     HEAD_WIDTHS, K_CHUNK, head_width, pack_proj_weight, pack_qkv_weight, window_attention_plain,
@@ -250,6 +252,80 @@ def test_mlp_pack_weight_layout(c, hid, dt):
         y += (a * gelu_exact(g)).reshape(128, TAIL_K) @ w2p[:, units].float().t()
     want = mlp_plain(x, lw, lb, w1.to(dt).float(), b1, w2.to(dt).float(), b2)
     torch.testing.assert_close(y[:, :c].reshape(x.shape) + b2, want, atol=1e-5, rtol=1e-5)
+
+
+def _stage(flat, lds, r0, c0, rows, cols, rmax, cmax):
+    """The bf16 apply tile's stage_tile in numpy: element (r, c) of the staged
+    tile is flat[(r0 + r) * lds + c0 + c] where r < rmax and c < cmax, else 0."""
+    r, c = np.meshgrid(np.arange(rows), np.arange(cols), indexing="ij")
+    ok = (r < rmax) & (c < cmax)
+    return np.where(ok, flat[np.where(ok, (r0 + r) * lds + c0 + c, 0)], 0)
+
+
+# every width of the presets' spectral apply calls (PGSSTB 64-384, the
+# PromptFusion 128 and 256 and the remote-sensing fusion's 384), and C = 36:
+# rows padded to 40 (c8) and the tiles to 64 (cp), a partial last 64-deep tile
+@pytest.mark.parametrize("c", [64, 128, 256, 96, 192, 384, 36])
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_spectral_front_pack_layout(c, dt):
+    """The operands the bf16 apply tile streams (pack_front), read with the
+    kernel's own indexing: the [np][64] weight tiles of every 1x1 pass give
+    back the v rows of wqkv, the staged [9][cp] taps the v rows' depthwise
+    taps, the [64][cp] comb tiles comb itself, all exactly and zero past C
+    (the rows padded to c8, a multiple of 8, only where C is not one);
+    the tile's three products through those tiles (float32 sums) are the
+    plain version's 1x1, depthwise 3x3 and comb product."""
+    r = _rng(14)
+    wqkv, wdw = _t(_u(r, (3 * c, c, 1, 1), c)), _t(_u(r, (3 * c, 1, 3, 3), 9))
+    comb = _t(_n(r, (2, c, c), c ** -0.5))
+    wv, taps, cb = pack_front(wqkv, wdw, comb, dt)
+    c8 = -(-c // 8) * 8
+    assert wv.shape == (c, c8) and taps.shape == (c, 9) and cb.shape == (2, c, c8)
+    assert all(t.dtype == dt and t.is_contiguous() for t in (wv, taps, cb))
+    pl = front_plan(c)
+    cp, npass = pl["cp"], pl["np"]
+    assert cp % 32 == 0 and c <= cp < c + 32 and pl["nk"] * FRONT_K >= cp
+    assert pl["passes"] * npass >= cp and 7 * npass // 32 <= 48  # 3 units of 16 x 32 per warp
+    flat_w = wv.float().numpy().ravel()
+    got = np.zeros((cp, pl["nk"] * FRONT_K), np.float32)
+    for n0 in range(0, cp, npass):
+        n = min(npass, cp - n0)
+        for t in range(pl["nk"]):
+            got[n0:n0 + n, FRONT_K * t:FRONT_K * (t + 1)] = _stage(
+                flat_w, c8, n0, FRONT_K * t, n, FRONT_K, c - n0, c8 - FRONT_K * t)
+    want_w = wqkv[2 * c:].reshape(c, c).to(dt).float().numpy()
+    np.testing.assert_array_equal(got[:c, :c], want_w)
+    assert not got[c:].any() and not got[:, c:].any()
+    flat_t = taps.float().numpy().ravel()
+    tp = np.array([[flat_t[k * 9 + tap] if k < c else 0 for k in range(cp)] for tap in range(9)])
+    np.testing.assert_array_equal(tp[:, :c], wdw[2 * c:].reshape(c, 9).t().to(dt).float().numpy())
+    assert not tp[:, c:].any()
+    flat_c = cb.float().numpy().ravel()
+    for b in range(2):
+        ct = np.concatenate([_stage(flat_c, c8, b * c + FRONT_K * t, 0, FRONT_K, cp,
+                                    c - FRONT_K * t, c8) for t in range(pl["nk"])])
+        np.testing.assert_array_equal(ct[:c, :c], comb[b].to(dt).float().numpy())
+        assert not ct[c:].any() and not ct[:, c:].any()
+    # the three products on one image's 10x10 halo (112 rows: 12 zero rows of
+    # padding) through the staged tiles, against the plain version's
+    x = _t(_n(r, (1, 10, 10, c))).to(dt).float()
+    halo = np.zeros((FRONT_ROWS, got.shape[1]), np.float32)
+    halo[:100, :c] = x.reshape(100, c).numpy()
+    t1 = halo @ got.T[:, :cp]
+    np.testing.assert_allclose(t1[:100, :c], (x @ torch.from_numpy(want_w).t()).reshape(100, c),
+                               atol=1e-5, rtol=1e-5)
+    assert not t1[:, c:].any()
+    t1 = torch.from_numpy(t1[:100]).to(dt).float()
+    v = dwconv3_f32(t1[:, :c].reshape(1, 10, 10, c), wdw[2 * c:].to(dt))[:, 1:9, 1:9]
+    vt = np.zeros((64, cp), np.float32)
+    for p in range(64):
+        pr, pc = divmod(p, 8)
+        for tap in range(9):
+            vt[p] += t1.numpy()[(pr + tap // 3) * 10 + pc + tap % 3] * tp[tap]
+    np.testing.assert_allclose(vt[:, :c], v.reshape(64, c).numpy(), atol=1e-5, rtol=1e-5)
+    vt = torch.from_numpy(vt).to(dt).float().numpy()
+    np.testing.assert_allclose((vt @ ct[:cp])[:, :c], vt[:, :c] @ comb[1].to(dt).float().numpy(),
+                               atol=1e-4, rtol=1e-4)
 
 
 def test_gdfn_with_exit_projection_matches_pallas():
