@@ -7,8 +7,9 @@ Phases (any failure exits non-zero; no phase's error is caught):
 
 1. Environment: the card's name and power limit (nvidia-smi), then the build
    of mp_hsir_tpu_torch/csrc/*.cu with nvcc (one process per source), each
-   kernel's registers and spills, and the bf16 spectral apply tile's plan
-   bytes at every preset width.
+   kernel's registers and spills, the bf16 spectral apply tile's plan bytes
+   at every preset width, and the bf16 spectral stats tile's at every (C,
+   heads) of the presets beside the float32 kernel's.
 2. Kernel checks: every kernel wrapper on the card at each shape the
    flagship 512x512x31 eval forward gives it, in bf16 from numpy-seeded
    inputs, against its plain PyTorch version on the same inputs; also once
@@ -18,20 +19,22 @@ Phases (any failure exits non-zero; no phase's error is caught):
    float32 <= 1e-4 * max|plain|. Times each with CUDA events, beside the
    plain version, F.conv2d for the conv (library_ms) and the bound
    max(bytes / 3.35 TB/s, flops / 989 TFLOP/s); each conv3, window_attention,
-   spectral_apply and mlp call (here and in phases 5, 7 and 11) is also
-   timed as its kernel alone (the weights packed once, the C entry launched
-   directly) and prints its achieved TFLOP/s, the kernel alone's and its
-   library call's (flops / ms); their sums over the path's calls follow the
-   table. Each spectral_apply call with the PGSSTB tail is timed once more
-   on the same inputs without it (through the wrapper and alone, with the
-   front's own bound and TFLOP/s): the sums split the apply time into the
-   front and the tail; the calls without the tail (PromptFusion, the
-   training route's drop-path call) are fronts alone. The spectral stats
-   and GDFN kernels keep their input resident where that fits; each such
-   call at C > 64 is checked and timed once more with its input streamed in
-   64-channel chunks (the remote-sensing latent's plan), summed per forward
-   beside the resident plan. The window kernel and the spectral apply tile
-   stage their whole input in bf16 and have no chunk to stream.
+   spectral_stats, spectral_apply and mlp call (here and in phases 5, 7 and
+   11) is also timed as its kernel alone (the weights packed once, the C
+   entry launched directly) and prints its achieved TFLOP/s, the kernel
+   alone's and its library call's (flops / ms); their sums over the path's
+   calls follow the table. Each spectral_apply call with the PGSSTB tail is
+   timed once more on the same inputs without it (through the wrapper and
+   alone, with the front's own bound and TFLOP/s): the sums split the apply
+   time into the front and the tail; the calls without the tail
+   (PromptFusion, the training route's drop-path call) are fronts alone.
+   The float32 spectral stats kernel and the GDFN kernel keep their input
+   resident where that fits; each such call at C > 64 is checked and timed
+   once more, resident and with its input streamed in 64-channel chunks
+   (the remote-sensing latent's plan), summed per forward: GDFN in bf16,
+   spectral_stats on its float32 instance. The window kernel and the
+   spectral stats and apply tiles stage their whole input in bf16 and have
+   no chunk to stream.
 3. Main path: the flagship preset on the committed trained weights, bf16 at
    1x31x512x512, answering 4 requests (mode-0 cubes) after a warm-up. The
    launch counters are zeroed just before the requests and read just after;
@@ -150,7 +153,7 @@ GRAD_TOL = 1e-3  # float32 train-step gradients, kernels vs plain, norm-wise per
 KERNELS = {
     "window_attention": dict(source="mp_hsir_tpu_torch/csrc/window_attention.cu", tpu=["K1", "K3"],
                              replaces="mp_hsir_tpu/ops/pallas_attention.py:198"),
-    "spectral_stats": dict(source="mp_hsir_tpu_torch/csrc/spectral.cu", tpu=["K3", "K2"],
+    "spectral_stats": dict(source="mp_hsir_tpu_torch/csrc/spectral_stats.cuh", tpu=["K3", "K2"],
                            replaces="mp_hsir_tpu/ops/pallas_attention.py:362"),
     "spectral_apply": dict(source="mp_hsir_tpu_torch/csrc/spectral.cu", tpu=["K2"],
                            replaces="mp_hsir_tpu/ops/pallas_attention.py:1429"),
@@ -162,11 +165,13 @@ KERNELS = {
 K14_KERNEL = {"window_msa": dict(source="mp_hsir_tpu_torch/csrc/window_attention.cu", tpu=["K14"],
                                  replaces="mp_hsir_tpu/ops/pallas_attention.py:40")}
 # the kernels that stage their input whole where it fits, else in chunks (the
-# window kernel's bf16 plan stages the whole window at every width)
+# window kernel's bf16 plan stages the whole window at every width, the bf16
+# spectral stats and apply tiles their whole input)
 STAGED = ("spectral_stats", "spectral_apply", "gdfn")
 # the kernels timed alone beside their wrappers, with their library yardsticks
 ALONE = {"conv3": "F.conv2d", "window_attention": None,
-         "window_msa": "F.multi_head_attention_forward", "mlp": None, "spectral_apply": None}
+         "window_msa": "F.multi_head_attention_forward", "mlp": None, "spectral_stats": None,
+         "spectral_apply": None}
 # the training route's new kernels (timed at the train step's shapes)
 TRAIN_KERNELS = {
     "mlp": dict(source="mp_hsir_tpu_torch/csrc/mlp.cu", tpu=["K6"],
@@ -391,6 +396,9 @@ def plan_of(spec) -> dict:
     smem_entry, chunk_entry, shape_of = PLAN_ENTRIES[name]
     shape = tuple(shape_of(spec))
     c = shape[0]
+    if name == "spectral_stats" and _code(spec):  # the bf16 tile: one resident plan
+        n = _build.plan_bytes("mp_spectral_stats_tc_smem", *shape)
+        return dict(smem=n, smem_whole=n, kc=c, c=c)
     if chunk_entry is None:  # a single whole-input plan
         n = _build.plan_bytes(smem_entry, *shape)
         return dict(smem=n, smem_whole=n, kc=c, c=c)
@@ -428,18 +436,27 @@ def streamed_plans(kc: int = 64):
 
 
 def streamed_ms(spec, fn, args, kw):
-    """A call whose input is resident (kc = C > 64) checked against its
-    plain version and timed once more with its input streamed in 64-channel
-    chunks: what a single streamed plan would cost at this shape. None for
-    the calls that stream already or have no chunk."""
+    """A call whose input is resident (kc = C > 64) timed, then checked
+    against its plain version and timed once more with its input streamed in
+    64-channel chunks: what a single streamed plan would cost at this shape
+    (``ms_resident``, ``ms_streamed`` and the instance's ``dtype``). A bf16
+    spectral_stats call runs its float32 instance here (the bf16 tile has no
+    chunk). None for the calls that stream already or have no chunk."""
     if spec[0] not in STAGED or spec[0] == "spectral_apply" and _code(spec):
         return None  # (the bf16 apply tile has one resident plan)
-    plan = plan_of(spec)
+    f32spec = spec[:-1] + ("torch.float32",)
+    plan = plan_of(f32spec)  # the chunked layout (gdfn's is the same in bf16)
     if plan["kc"] < plan["c"] or plan["c"] <= 64:
         return None
+    tol = BF16_TOL
+    if spec[0] == "spectral_stats" and _code(spec):
+        fn, args, kw, *_ = make_call(f32spec, args[0].device, torch.float32)
+        tol = F32_TOL
+    resident = time_ms(lambda: fn(*args, **kw), 10)
     with streamed_plans():
-        compare(fn, args, kw, BF16_TOL)
-        return time_ms(lambda: fn(*args, **kw), 10)
+        compare(fn, args, kw, tol)
+        return dict(ms_resident=resident, ms_streamed=time_ms(lambda: fn(*args, **kw), 10),
+                    dtype=str(args[0].dtype).replace("torch.", ""))
 
 
 def _flat(out):
@@ -500,10 +517,10 @@ def time_ms(fn, iters: int) -> float:
 
 def kernel_alone_ms(name, args, kw) -> float:
     """A kernel alone on a call's inputs: its launch prepared once (conv3's
-    weight packed, the window, mlp and spectral apply kernels' weights
-    packed and their outputs allocated) and the C entry launched directly,
-    without what the wrapper adds on the host per call (the packing copies,
-    allocations, Python)."""
+    weight packed, the window, mlp and spectral kernels' weights packed and
+    their outputs allocated) and the C entry launched directly, without what
+    the wrapper adds on the host per call (the packing copies, allocations,
+    Python)."""
     from mp_hsir_tpu_torch.ops.kernels import (
         _build, conv3, mlp, spectral, window_attention, window_msa,
     )
@@ -529,6 +546,9 @@ def kernel_alone_ms(name, args, kw) -> float:
     elif name == "spectral_apply":
         launch, _, held = spectral._apply_prepare(*args, **kw)
         entry, what = spectral._apply_entry(), "mp_spectral_apply"
+    elif name == "spectral_stats":
+        launch, _, held = spectral._stats_prepare(*args, **kw)
+        entry, what = spectral._stats_entry(), "mp_spectral_stats"
     else:
         launch, _, held = window_msa._prepare(*args, kw.get("labels"))
         entry, what = window_msa._entry(), "mp_window_msa"
@@ -601,7 +621,7 @@ def log_alone_sums(what: str, rows, per: str) -> None:
             lib = f", {lib_name} {tot('library_ms'):.4f} ms ({flops / tot('library_ms'):.1f} TFLOP/s)"
         log(f"  {name} {what}: wrapper {tot('ms'):.4f} ms ({flops / tot('ms'):.1f} TFLOP/s), "
             f"kernel alone {tot('kernel_ms'):.4f} ms ({flops / tot('kernel_ms'):.1f} TFLOP/s)"
-            f"{lib} ({sum(r[per] for r in mine)} calls)")
+            f"{lib} ({sum(r[per] for r in mine)} calls), bound {tot('bound_ms'):.4f} ms")
         tails = [r for r in mine if "front_ms" in r]
         if tails:
             tot_t = lambda k: sum(r[k] * r[per] for r in tails)  # noqa: E731
@@ -643,22 +663,21 @@ def kernel_checks(specs: Counter, dev) -> dict:
         lib_ms = time_ms(library, 10) if library is not None else None
         bound_ms = max(byts / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
         plan = plan_of(spec)
-        ms_streamed = streamed_ms(spec, fn, args, kw)
+        streamed = streamed_ms(spec, fn, args, kw)
         row = dict(spec=list(spec), per_forward=mult, max_abs_err=err, rel_err=rel,
                    max_abs_err_f32=err32, rel_err_f32=rel32, ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=bound_ms, bytes=byts, flops=flops,
                    bound_by="bytes" if byts / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
                    smem=plan["smem"], smem_whole=plan["smem_whole"], kc=plan["kc"],
                    blocks_per_window=plan.get("blocks_per_window"),
-                   ms_streamed=ms_streamed, **tflops(spec, args, kw, flops, ms, lib_ms),
+                   streamed=streamed, **tflops(spec, args, kw, flops, ms, lib_ms),
                    **front_split(spec, fn, args, kw))
         rows.append(row)
         log(f"  {spec[0]:16s} {str(spec[1:-1]):58s} x{mult:<2d} err {err:.2e} (rel {rel:.1e}, "
             f"f32 rel {rel32:.1e})  {ms:8.3f} ms  plain {plain_ms:8.3f}  "
             f"lib {'-' if lib_ms is None else f'{lib_ms:.3f}'}  bound {bound_ms:.4f} ({row['bound_by']})  "
             + log_plan(plan)
-            + ("" if ms_streamed is None else f"  streamed kc 64: {ms_streamed:.3f} ms")
-            + log_tflops(row))
+            + log_streamed_call(streamed) + log_tflops(row))
         del args, kw
         torch.cuda.empty_cache()
     return rows
@@ -1064,8 +1083,8 @@ def train_kernel_checks(specs: Counter, dev, streamed: bool = True) -> list:
             kern = lambda fn=fn, args=args, kw=kw: fn(*args, **kw)  # noqa: E731
             plain = kern
         ms = time_ms(kern, 10)
-        ms_streamed = (None if name.endswith("_bwd") or not streamed
-                       else streamed_ms(spec, fn, args, kw))
+        st = (None if name.endswith("_bwd") or not streamed
+              else streamed_ms(spec, fn, args, kw))
         plan = plan_of(spec)
 
         def run_plain():
@@ -1079,15 +1098,14 @@ def train_kernel_checks(specs: Counter, dev, streamed: bool = True) -> list:
                          max_abs_err_f32=err32, rel_err_f32=rel32, ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=bound_ms, bytes=byts, flops=flops,
                          bound_by="bytes" if byts / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
-                         ms_streamed=ms_streamed, smem=plan["smem"], smem_whole=plan["smem_whole"],
+                         streamed=st, smem=plan["smem"], smem_whole=plan["smem_whole"],
                          kc=plan["kc"],
                          **({} if name.endswith("_bwd") else tflops(spec, args, kw, flops, ms, lib_ms))))
         log(f"  {name:20s} {str(spec[1:-1]):50s} x{mult:<2d} err {err:.2e} (rel {rel:.1e}, "
             f"f32 rel {rel32:.1e})  {ms:8.3f} ms  plain {plain_ms:8.3f}  "
             f"lib {'-' if lib_ms is None else f'{lib_ms:.3f}'}  bound {bound_ms:.4f}  "
             + log_plan(plan)
-            + ("" if ms_streamed is None else f"  streamed kc 64: {ms_streamed:.3f} ms")
-            + log_tflops(rows[-1]))
+            + log_streamed_call(st) + log_tflops(rows[-1]))
         torch.cuda.empty_cache()
     return rows
 
@@ -1417,19 +1435,25 @@ def log_kernel_ms(what: str, summary: list, calls_key: str, total_ms: float) -> 
     log(f"    sum {sum(k['ms'] for k in summary):.2f} of the median's {total_ms:.2f} ms")
 
 
+def log_streamed_call(st) -> str:
+    return ("" if st is None else f"  {st['dtype']} resident {st['ms_resident']:.3f} ms, "
+            f"streamed kc 64: {st['ms_streamed']:.3f} ms")
+
+
 def log_streamed(what: str, rows, per: str) -> dict:
     """Per staged kernel: its resident calls' time (each call's isolated
-    time x its calls) beside the same calls with the input streamed in
-    64-channel chunks."""
+    time x its calls, in the instance streamed_ms ran) beside the same calls
+    with the input streamed in 64-channel chunks."""
     out = {}
     log(f"  resident vs streamed (kc 64) plans {what}:")
     for name in STAGED:
-        mine = [r for r in rows if r["spec"][0] == name and r.get("ms_streamed") is not None]
+        mine = [r for r in rows if r["spec"][0] == name and r.get("streamed") is not None]
         if mine:
-            res = sum(r["ms"] * r[per] for r in mine)
-            st = sum(r["ms_streamed"] * r[per] for r in mine)
-            out[name] = dict(resident_ms=res, streamed_ms=st, calls=sum(r[per] for r in mine))
-            log(f"    {name:16s} resident {res:8.2f} ms  streamed {st:8.2f} ms  "
+            res = sum(r["streamed"]["ms_resident"] * r[per] for r in mine)
+            st = sum(r["streamed"]["ms_streamed"] * r[per] for r in mine)
+            out[name] = dict(resident_ms=res, streamed_ms=st, calls=sum(r[per] for r in mine),
+                             dtype=mine[0]["streamed"]["dtype"])
+            log(f"    {name:16s} ({out[name]['dtype']}) resident {res:8.2f} ms  streamed {st:8.2f} ms  "
                 f"({st / res - 1:+.1%}, {out[name]['calls']} calls)")
     return out
 
@@ -1447,6 +1471,25 @@ def log_front_plans(_build) -> dict:
                 bf16=_build.plan_bytes("mp_spectral_apply_smem", c, tail, 1, c), f32=f32)
     log("  bf16 spectral apply plans (B; float32's in brackets): " + ", ".join(
         f"{k} {v['bf16']} ({v['f32']})" for k, v in plans.items()))
+    return plans
+
+
+def log_stats_plans(_build, cfgs) -> dict:
+    """The bf16 spectral stats tile's shared-memory plan (bytes, static
+    included) at every (C, heads) of the presets' stats calls, beside the
+    float32 kernel's at its own chunk."""
+    shapes = set()
+    for cfg in cfgs:
+        for specs in (path_specs(cfg, SIZE, "bf16"), train_path_specs(cfg, 1, 64, "bf16")):
+            shapes |= {(s[4] + s[5], s[6]) for s in specs if s[0] == "spectral_stats"}
+    plans = {}
+    for c, nh in sorted(shapes):
+        kc = _build.chunk("mp_spectral_stats_chunk", c, nh)
+        plans[f"C={c}/{nh}"] = dict(bf16=_build.plan_bytes("mp_spectral_stats_tc_smem", c, nh),
+                                    f32=_build.plan_bytes("mp_spectral_stats_smem", c, nh, kc),
+                                    f32_kc=kc)
+    log("  bf16 spectral stats plans (B; float32's at its chunk in brackets): " + ", ".join(
+        f"{k} {v['bf16']} ({v['f32']} kc {v['f32_kc']})" for k, v in plans.items()))
     return plans
 
 
@@ -1483,8 +1526,9 @@ def main() -> None:
             log("  ptxas: " + line.strip())
 
     front_plans = log_front_plans(_build)
-
     cfg = natural_scene_config(compute_dtype="bfloat16")
+    stats_plans = log_stats_plans(_build, (cfg, remote_sensing_config(compute_dtype="bfloat16")))
+
     specs = path_specs(cfg, SIZE, "torch.bfloat16")
 
     log("== phase 2: kernels against their plain versions (bf16, path shapes)")
@@ -1596,7 +1640,7 @@ def main() -> None:
                            rs_rows=rs_rows, rs_main=rs_res, rs_cli=rs_cli, k14_rows=k14_rows,
                            rs_train_rows=rs_train_rows, rs_train=rs_train,
                            smem_limit=limit, streamed=streamed, kernels=summary,
-                           front_plans=front_plans,
+                           front_plans=front_plans, stats_plans=stats_plans,
                            seconds=time.perf_counter() - t_start), fh, indent=1)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -2,7 +2,9 @@
 // launches around a small fold done in PyTorch:
 //
 //   mp_spectral_stats  q, k = dw3x3(1x1([LN] x)); per-head Gram q^T k and the
-//                      squared norms of q and k, summed over all pixels.
+//                      squared norms of q and k, summed over all pixels
+//                      (bf16: the tensor-core tile of spectral_stats.cuh;
+//                      float32: spectral_stats_kernel below).
 //   (fold, PyTorch)    comb = softmax(Gram / (|q| |k|) * temp) folded with the
 //                      output projection into one C x C matrix.
 //   mp_spectral_apply  v = dw3x3(1x1([LN] x)); out = v @ comb plus the
@@ -27,8 +29,9 @@
 // 4C^2 + 2C*dh in the stats launch against ~4C bytes per pixel: tensor-core
 // rate bounds both at these widths. bf16 products run as mma.sync on the
 // tensor cores, float32 ones as SIMT FMA (common.cuh gemm; PERF.md); the bf16
-// apply launch runs its own tile (spectral_front.cuh).
-#include "spectral_front.cuh"
+// stats and apply launches run their own tiles (spectral_stats.cuh,
+// spectral_front.cuh).
+#include "spectral_stats.cuh"
 
 namespace mp {
 
@@ -98,16 +101,17 @@ __device__ __forceinline__ void halo_stats(float* mu, float* rs, const Halo<T>& 
                 [&](int p) { return hl.inside(p); });
 }
 
-// Shared memory: the halo input is staged in channel chunks of kc (all C at
-// once where that fits: every natural-scene width). Plans at the
-// remote-sensing widths: C = 384, dh 48 and C = 192, dh 96 stage 64 channels.
+// The float32 stats kernel. Shared memory: the halo input is staged in
+// channel chunks of kc (all C at once where that fits: every natural-scene
+// width). Plans at the remote-sensing widths: C = 384, dh 48 and C = 192, dh
+// 96 stage 64 channels. Part `ipart` of image b walks tiles [ipart T / P,
+// (ipart + 1) T / P) and writes its Gram and norm sums to part[b][ipart].
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 spectral_stats_kernel(const T* __restrict__ x1, const T* __restrict__ x2, int C1, int C2,
                       const float* __restrict__ lnw, const float* __restrict__ lnb,
                       const T* __restrict__ wqkv, const T* __restrict__ wdw, int H, int W,
-                      int nH, int shift, float eps, int tiles_per_part, float* __restrict__ pg,
-                      float* __restrict__ pnq, float* __restrict__ pnk, int kc) {
+                      int nH, int shift, float eps, float* __restrict__ part, int kc) {
   extern __shared__ float sm[];
   __shared__ float mu[kHaloPix], rs[kHaloPix];
   const int C = C1 + C2, C3 = 3 * C, dh = C / nH;
@@ -117,15 +121,15 @@ spectral_stats_kernel(const T* __restrict__ x1, const T* __restrict__ x2, int C1
   float* qk = ts + kHaloPix * ldt;    // [64][ldt] q|k after the dwconv
   float* gacc = qk + kPix * ldt;      // [C*dh] Gram partial, [h][d][e]
   float* nacc = gacc + C * dh;        // [2C] |q|^2, |k|^2 partials
-  const int part = blockIdx.x, b = blockIdx.y, n_parts = gridDim.x;
+  const int ipart = blockIdx.x, b = blockIdx.y, n_parts = gridDim.x;
   const int tiles_w = W / kTile, n_tiles = (H / kTile) * tiles_w;
   const bool resident = kc >= C;
 
   for (int i = threadIdx.x; i < C * dh; i += blockDim.x) gacc[i] = 0.f;
   for (int i = threadIdx.x; i < 2 * C; i += blockDim.x) nacc[i] = 0.f;
 
-  const int t_end = min(n_tiles, (part + 1) * tiles_per_part);
-  for (int t = part * tiles_per_part; t < t_end; ++t) {
+  const int t1 = (int)((long long)(ipart + 1) * n_tiles / n_parts);
+  for (int t = (int)((long long)ipart * n_tiles / n_parts); t < t1; ++t) {
     const Halo<T> hl{x1, x2, C1, C2, b, t / tiles_w, t % tiles_w, H, W, shift};
     __syncthreads();
     if (lnw != nullptr) {
@@ -173,12 +177,9 @@ spectral_stats_kernel(const T* __restrict__ x1, const T* __restrict__ x2, int C1
     }
   }
   __syncthreads();
-  const size_t slot = (size_t)b * n_parts + part;
-  for (int i = threadIdx.x; i < C * dh; i += blockDim.x) pg[slot * C * dh + i] = gacc[i];
-  for (int i = threadIdx.x; i < C; i += blockDim.x) {
-    pnq[slot * C + i] = nacc[i];
-    pnk[slot * C + i] = nacc[C + i];
-  }
+  // the Gram, then |q|^2 and |k|^2 (nacc follows gacc)
+  float* out = part + ((size_t)b * n_parts + ipart) * (C * dh + 2 * C);
+  for (int i = threadIdx.x; i < C * dh + 2 * C; i += blockDim.x) out[i] = gacc[i];
 }
 
 // out[b][i] = sum over parts (in order) of part[b][part][i]
@@ -189,6 +190,21 @@ __global__ void sum_parts_kernel(const float* __restrict__ part, float* __restri
     float s = 0.f;
     for (int p = 0; p < n_parts; ++p) s += part[((size_t)b * n_parts + p) * n + i];
     out[(size_t)b * n + i] = s;
+  }
+}
+
+// The stats kernels' second pass: part [B][n_parts][C dh + 2C] summed over the
+// parts in order into gram [B][C dh], nq [B][C] and nk [B][C].
+__global__ void sum_stats_kernel(const float* __restrict__ part, float* __restrict__ gram,
+                                 float* __restrict__ nq, float* __restrict__ nk, int n_parts,
+                                 int n, int C) {
+  const int b = blockIdx.y, m = n + 2 * C;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < m; i += gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int p = 0; p < n_parts; ++p) s += part[((size_t)b * n_parts + p) * m + i];
+    if (i < n) gram[(size_t)b * n + i] = s;
+    else if (i < n + C) nq[(size_t)b * C + i - n] = s;
+    else nk[(size_t)b * C + i - n - C] = s;
   }
 }
 
@@ -364,26 +380,71 @@ inline int apply_chunk(int C, bool tail, bool bf16) {
   return bf16 ? C : pick_chunk(C, [&](int kc) { return apply_plan_bytes(C, tail, kc, false); });
 }
 
-template <typename T>
-cudaError_t launch_stats(const void* x1, const void* x2, int C1, int C2, const float* lnw,
-                         const float* lnb, const void* wqkv, const void* wdw, float* pg,
-                         float* pnq, float* pnk, float* gram, float* nq, float* nk, int B,
-                         int H, int W, int nH, int shift, float eps, int n_parts, int kc,
-                         cudaStream_t stream) {
-  const int C = C1 + C2, dh = C / nH;
+// The parts per image of a stats launch: the blocks the card holds at once
+// (SMs x the kernel's occupancy at this plan) shared among the B images, at
+// least one and at most one per tile.
+template <typename K>
+int stats_parts(K kernel, int threads, size_t smem, int B, int n_tiles) {
+  int dev = 0, sms = 0, occ = 0;
+  if (set_smem(kernel, smem) != cudaSuccess || cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, threads, smem) != cudaSuccess)
+    return 0;
+  const int parts = sms * (occ > 1 ? occ : 1) / B;
+  return parts < 1 ? 1 : parts > n_tiles ? n_tiles : parts;
+}
+
+// The parts per image of a launch (dtype 0: float32 at chunk kc; 1: the bf16
+// tile).
+inline int stats_launch_parts(int dtype, int B, int H, int W, int C, int nH, int kc) {
   const int n_tiles = (H / kTile) * (W / kTile);
-  const int tpp = ceil_div(n_tiles, n_parts);
-  const size_t smem = stats_smem(C, nH, kc);
-  cudaError_t err = set_smem(spectral_stats_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  spectral_stats_kernel<T><<<dim3(n_parts, B), kThreads, smem, stream>>>(
-      (const T*)x1, (const T*)x2, C1, C2, lnw, lnb, (const T*)wqkv, (const T*)wdw, H, W, nH,
-      shift, eps, tpp, pg, pnq, pnk, kc);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  sum_parts_kernel<<<dim3(ceil_div(C * dh, kThreads), B), kThreads, 0, stream>>>(pg, gram, n_parts, C * dh);
-  sum_parts_kernel<<<dim3(ceil_div(C, kThreads), B), kThreads, 0, stream>>>(pnq, nq, n_parts, C);
-  sum_parts_kernel<<<dim3(ceil_div(C, kThreads), B), kThreads, 0, stream>>>(pnk, nk, n_parts, C);
+  if (dtype == 0)
+    return stats_parts(spectral_stats_kernel<float>, kThreads, stats_smem(C, nH, kc), B, n_tiles);
+  return stats_parts(spectral_stats_tc_kernel, kThreads, StatsPlan(C, nH).bytes, B, n_tiles);
+}
+
+cudaError_t launch_sum_stats(const float* part, float* gram, float* nq, float* nk, int B,
+                             int n_parts, int C, int dh, cudaStream_t stream) {
+  const int m = C * dh + 2 * C;
+  sum_stats_kernel<<<dim3(min(ceil_div(m, kThreads), 1024), B), kThreads, 0, stream>>>(
+      part, gram, nq, nk, n_parts, C * dh, C);
   return cudaGetLastError();
+}
+
+cudaError_t launch_stats(const float* x1, const float* x2, int C1, int C2, const float* lnw,
+                         const float* lnb, const float* wqkv, const float* wdw, float* part,
+                         float* gram, float* nq, float* nk, int B, int H, int W, int nH,
+                         int shift, float eps, int n_parts, int kc, cudaStream_t stream) {
+  const int C = C1 + C2;
+  const size_t smem = stats_smem(C, nH, kc);
+  cudaError_t err = set_smem(spectral_stats_kernel<float>, smem);
+  if (err != cudaSuccess) return err;
+  spectral_stats_kernel<float><<<dim3(n_parts, B), kThreads, smem, stream>>>(
+      x1, x2, C1, C2, lnw, lnb, wqkv, wdw, H, W, nH, shift, eps, part, kc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return launch_sum_stats(part, gram, nq, nk, B, n_parts, C, C / nH, stream);
+}
+
+inline bool aligned(const void* p, int n) { return (uintptr_t)p % n == 0; }
+
+// The bf16 tile (spectral_stats.cuh): wqk [2C][C8] (16-byte aligned), taps
+// [2C][9]; C up to kFrontMaxC.
+cudaError_t launch_stats_tc(const __nv_bfloat16* x1, const __nv_bfloat16* x2, int C1, int C2,
+                            const float* lnw, const float* lnb, const __nv_bfloat16* wqk,
+                            const __nv_bfloat16* taps, float* part, float* gram, float* nq,
+                            float* nk, int B, int H, int W, int nH, int shift, float eps,
+                            int n_parts, cudaStream_t stream) {
+  const int C = C1 + C2;
+  if (C > kFrontMaxC || !aligned(wqk, 16)) return cudaErrorInvalidValue;
+  const size_t smem = StatsPlan(C, nH).bytes;
+  int flags = 0;
+  if (C1 % 8 == 0 && C2 % 8 == 0 && aligned(x1, 16) && aligned(x2, 16)) flags |= kVecX;
+  cudaError_t err = set_smem(spectral_stats_tc_kernel, smem);
+  if (err != cudaSuccess) return err;
+  spectral_stats_tc_kernel<<<dim3(n_parts, B), kThreads, smem, stream>>>(
+      x1, x2, C1, C2, lnw, lnb, wqk, taps, H, W, nH, shift, eps, flags, part);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return launch_sum_stats(part, gram, nq, nk, B, n_parts, C, C / nH, stream);
 }
 
 cudaError_t launch_apply(const float* x1, const float* x2, int C1, int C2, const float* lnw,
@@ -402,8 +463,6 @@ cudaError_t launch_apply(const float* x1, const float* x2, int C1, int C2, const
       b2, hid, dp, out, H, W, shift, eps, kc);
   return cudaGetLastError();
 }
-
-inline bool aligned(const void* p, int n) { return (uintptr_t)p % n == 0; }
 
 // The bf16 tile (spectral_front.cuh): wv [C][C8], taps [C][9], comb
 // [B][C][C8] bf16 (C8 = C rounded up to 8; wv and comb 16-byte aligned); C up
@@ -708,28 +767,37 @@ cudaError_t launch_apply_bwd(const void* x, const float* lnw, const float* lnb, 
 }  // namespace mp
 
 // Inputs: x1 (B, H, W, C1) and optional x2 (B, H, W, C2), logical input
-// cat(x1, x2); optional LN (float32, over C1 + C2); wqkv [C][3C] and wdw
-// [9][3C] in the compute type. Partial buffers: pg [B][n_parts][C*dh], pnq and
-// pnk [B][n_parts][C]. Outputs (float32): gram [B][C][dh] (row h*dh + d, col
-// e), nq and nk [B][nH][dh]. kc: the channel chunk (mp_spectral_stats_chunk).
+// cat(x1, x2); optional LN (float32, over C1 + C2). float32 (dtype 0): wqkv
+// [C][3C] and wdw [9][3C] ([in][out] copies), kc the channel chunk
+// (mp_spectral_stats_chunk). bf16 (dtype 1, C <= 384): wqkv the q|k rows of
+// the torch weight ([2C][C8], C8 = C rounded up to 8, zero past C; 16-byte
+// aligned), wdw their depthwise taps ([2C][9]); kc is C.
+// Partial buffer part [B][n_parts][C*dh + 2C] (n_parts from
+// mp_spectral_stats_parts). Outputs (float32): gram [B][C][dh] (row h*dh + d,
+// col e), nq and nk [B][nH][dh].
 extern "C" int mp_spectral_stats(const void* x1, const void* x2, const void* lnw,
-                                 const void* lnb, const void* wqkv, const void* wdw, void* pg,
-                                 void* pnq, void* pnk, void* gram, void* nq, void* nk,
-                                 int dtype, int B, int H, int W, int C1, int C2, int nH,
-                                 int shift, float eps, int n_parts, int kc, void* stream) {
-  if ((C1 + C2) % nH != 0 || H % mp::kTile != 0 || W % mp::kTile != 0 || kc <= 0 || kc > C1 + C2)
+                                 const void* lnb, const void* wqkv, const void* wdw, void* part,
+                                 void* gram, void* nq, void* nk, int dtype, int B, int H, int W,
+                                 int C1, int C2, int nH, int shift, float eps, int n_parts, int kc,
+                                 void* stream) {
+  if ((C1 + C2) % nH != 0 || H % mp::kTile != 0 || W % mp::kTile != 0 || kc <= 0 ||
+      kc > C1 + C2 || n_parts <= 0)
     return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
+  auto f = [](const void* p) { return (const float*)p; };
+  float *pt = (float*)part, *g = (float*)gram, *q = (float*)nq, *k = (float*)nk;
   if (dtype == 0)
-    return (int)mp::launch_stats<float>(x1, x2, C1, C2, (const float*)lnw, (const float*)lnb,
-                                        wqkv, wdw, (float*)pg, (float*)pnq, (float*)pnk,
-                                        (float*)gram, (float*)nq, (float*)nk, B, H, W, nH,
-                                        shift, eps, n_parts, kc, st);
-  return (int)mp::launch_stats<__nv_bfloat16>(x1, x2, C1, C2, (const float*)lnw,
-                                              (const float*)lnb, wqkv, wdw, (float*)pg,
-                                              (float*)pnq, (float*)pnk, (float*)gram,
-                                              (float*)nq, (float*)nk, B, H, W, nH, shift, eps,
-                                              n_parts, kc, st);
+    return (int)mp::launch_stats(f(x1), f(x2), C1, C2, f(lnw), f(lnb), f(wqkv), f(wdw), pt, g, q,
+                                 k, B, H, W, nH, shift, eps, n_parts, kc, st);
+  using bf = const __nv_bfloat16*;
+  return (int)mp::launch_stats_tc((bf)x1, (bf)x2, C1, C2, f(lnw), f(lnb), (bf)wqkv, (bf)wdw, pt, g,
+                                  q, k, B, H, W, nH, shift, eps, n_parts, st);
+}
+
+// The parts per image a stats launch takes (0 on a device error): the
+// blocks the card holds at once over B images, at most one per tile.
+extern "C" int mp_spectral_stats_parts(int dtype, int B, int H, int W, int C, int nH, int kc) {
+  return mp::stats_launch_parts(dtype, B, H, W, C, nH, kc);
 }
 
 // comb [B][C][C] (row: v channel h*dh + e, col: output channel). gate (B,
@@ -782,6 +850,11 @@ extern "C" int mp_spectral_apply_chunk(int C, int tail, int dtype) {
 // channel chunk kc.
 extern "C" long long mp_spectral_stats_smem(int C, int nH, int kc) {
   return mp::plan_bytes(mp::spectral_stats_kernel<float>, mp::stats_smem(C, nH, kc));
+}
+
+// The bf16 stats tile's plan (StatsPlan; no chunk).
+extern "C" long long mp_spectral_stats_tc_smem(int C, int nH) {
+  return mp::plan_bytes(mp::spectral_stats_tc_kernel, mp::StatsPlan(C, nH).bytes);
 }
 
 // The apply plan takes the compute type (dtype 0 float32, 1 bf16).

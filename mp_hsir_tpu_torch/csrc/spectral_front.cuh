@@ -218,6 +218,134 @@ __device__ __forceinline__ void front_zero(float (&acc)[kFrontUnits][4][4]) {
       for (int e = 0; e < 4; ++e) acc[j][nt][e] = 0.f;
 }
 
+// The raw source pixel of halo row p of tile (ty, tx) of image b (the unrolled
+// frame read through the roll-back), or -1 where the row is zero (outside the
+// image, or one of the 12 padding rows).
+__device__ __forceinline__ int halo_src(int p, int b, int ty, int tx, int H, int W, int shift) {
+  const int ur = ty * kTile + p / kHalo - 1, uc = tx * kTile + p % kHalo - 1;
+  const bool in = p < kHaloPix && ur >= 0 && ur < H && uc >= 0 && uc < W;
+  return in ? (b * H + (ur - shift + H) % H) * W + (uc - shift + W) % W : -1;
+}
+
+// Stages the halo of cat(x1, x2) as bf16 [112][ld] (row p from pixel hsrc[p],
+// zero where it is -1 and past C, CP / 8 units of 8 channels a row) by 16-byte
+// cp.async copies where vec_x (C1, C2 multiples of 8, 16-byte aligned rows),
+// else element by element; one commit group.
+__device__ __forceinline__ void stage_halo(__nv_bfloat16* xh, int ld, const int* hsrc,
+                                           const __nv_bfloat16* __restrict__ x1,
+                                           const __nv_bfloat16* __restrict__ x2, int C1, int C2,
+                                           int CP, bool vec_x) {
+  const int C = C1 + C2, units = CP / 8;
+  for (int u = threadIdx.x; u < kFrontRows * units; u += blockDim.x) {
+    const int p = u / units, c = (u - p * units) * 8;
+    const int pix = hsrc[p];
+    __nv_bfloat16* d = xh + p * ld + c;
+    if (vec_x) {
+      const bool ok = pix >= 0 && c < C;
+      const __nv_bfloat16* s = !ok ? x1 : c < C1 ? x1 + (size_t)pix * C1 + c
+                                                 : x2 + (size_t)pix * C2 + (c - C1);
+      cp_async16(smem_u32(d), s, ok ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int k = c + e;
+        d[e] = pix < 0 || k >= C ? __float2bfloat16(0.f)
+             : k < C1 ? x1[(size_t)pix * C1 + k] : x2[(size_t)pix * C2 + (k - C1)];
+      }
+    }
+  }
+  cp_async_commit();
+}
+
+// The LayerNorm of the staged halo in place, one warp per in-image row, as
+// ln_rows_inplace computes it (zero rows stay zero).
+__device__ __forceinline__ void halo_ln(__nv_bfloat16* xh, int ld, const int* hsrc, int C,
+                                        const float* __restrict__ lnw,
+                                        const float* __restrict__ lnb, float eps) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int p = warp; p < kHaloPix; p += blockDim.x >> 5) {
+    if (hsrc[p] < 0) continue;
+    __nv_bfloat16* row = xh + p * ld;
+    float sum = 0.f;
+    for (int k = lane; k < C; k += 32) sum += __bfloat162float(row[k]);
+    const float mu = warp_sum(sum) / C;
+    float var = 0.f;
+    for (int k = lane; k < C; k += 32) {
+      const float d = __bfloat162float(row[k]) - mu;
+      var += d * d;
+    }
+    const float rs = rsqrtf(warp_sum(var) / C + eps);
+    for (int k = lane; k < C; k += 32)
+      row[k] = __float2bfloat16((__bfloat162float(row[k]) - mu) * rs * lnw[k] + lnb[k]);
+  }
+}
+
+// One 1x1 pass over the staged halo: acc (the warp's units of the 112 x np
+// output, 7 row tiles, n_units = 7 np / 32) = halo [112][CP] x the ring's
+// [np][64] weight tiles, nk tiles deep.
+template <typename Ring>
+__device__ __forceinline__ void halo_1x1(float (&acc)[kFrontUnits][4][4], const __nv_bfloat16* xh,
+                                         int ld, Ring& wr, int n_units, int CP, int nk) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  uint32_t a[kFrontUnits], bo[kFrontUnits];
+#pragma unroll
+  for (int j = 0; j < kFrontUnits; ++j) {
+    const int q = warp + 16 * j, mt = q % 7, nb = q / 7;
+    a[j] = smem_u32(xh + (16 * mt + (lane & 15)) * ld + 8 * (lane >> 4));
+    bo[j] = 2 * ((32 * nb + (lane & 7) + 8 * (lane >> 4)) * kFrontLdw + 8 * ((lane >> 3) & 1));
+  }
+  front_zero(acc);
+  for (int t = 0; t < nk; ++t) {
+    const uint32_t tile = smem_u32(wr.consume());
+    uint32_t at[kFrontUnits], bt[kFrontUnits];
+#pragma unroll
+    for (int j = 0; j < kFrontUnits; ++j) {
+      at[j] = a[j] + 2 * 64 * t;
+      bt[j] = tile + bo[j];
+    }
+    front_mma<false>(acc, at, bt, n_units, min(4, (CP - 64 * t) / 16), 0);
+  }
+}
+
+// The depthwise 3x3 on bf16 pairs: out[p][2j..] (p < 64, row stride ldo) from
+// the 1x1 output t ([100][ldt], the 10x10 halo) and the tap pairs tp[tap * tps
+// + j], j < npairs; one item = (channel pair, tile column, 4 output rows).
+__device__ __forceinline__ void dw3_pairs(const __nv_bfloat16* t, int ldt,
+                                          const __nv_bfloat162* tp, int tps, __nv_bfloat16* out,
+                                          int ldo, int npairs) {
+  for (int idx = threadIdx.x; idx < 16 * npairs; idx += blockDim.x) {
+    const int j = idx % npairs, h = idx / npairs, pc = h & 7, pr = (h >> 3) * 4;
+    float2 w[9];
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) w[tap] = __bfloat1622float2(tp[tap * tps + j]);
+    float2 s[4];
+#pragma unroll
+    for (int o = 0; o < 4; ++o) s[o] = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int rr = 0; rr < 6; ++rr) {
+      float2 in[3];
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx)
+        in[dx] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+            t + ((pr + rr) * kHalo + pc + dx) * ldt + 2 * j));
+#pragma unroll
+      for (int o = 0; o < 4; ++o) {
+        const int dy = rr - o;
+        if (dy < 0 || dy > 2) continue;
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          s[o].x = fmaf(in[dx].x, w[dy * 3 + dx].x, s[o].x);
+          s[o].y = fmaf(in[dx].y, w[dy * 3 + dx].y, s[o].y);
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 0; o < 4; ++o)
+      *reinterpret_cast<uint32_t*>(out + ((pr + o) * kTile + pc) * ldo + 2 * j) =
+          pack_bf16x2(s[o].x, s[o].y);
+  }
+}
+
 // Arguments: as mp_spectral_apply in bf16, with wv the v rows of wqkv ([C][C8],
 // torch layout), taps the v rows of the depthwise weight ([C][9]) and comb in
 // bf16 ([B][C][C8]); flags: kVecX | kPairs | kVecOut (launch_apply_tc).
@@ -253,9 +381,7 @@ spectral_apply_tc_kernel(const __nv_bfloat16* __restrict__ x1, const __nv_bfloat
   // the raw source pixel of each halo pixel (unrolled frame, read through the
   // roll-back) and of each tile pixel, and each tile pixel's gate window
   for (int p = threadIdx.x; p < kFrontRows; p += blockDim.x) {
-    const int ur = ty * kTile + p / kHalo - 1, uc = tx * kTile + p % kHalo - 1;
-    const bool in = p < kHaloPix && ur >= 0 && ur < H && uc >= 0 && uc < W;
-    hsrc[p] = in ? (b * H + (ur - shift + H) % H) * W + (uc - shift + W) % W : -1;
+    hsrc[p] = halo_src(p, b, ty, tx, H, W, shift);
     if (p < kPix) {
       const int sr = (ty * kTile + (p >> 3) - shift + H) % H;
       const int sc = (tx * kTile + (p & 7) - shift + W) % W;
@@ -272,28 +398,7 @@ spectral_apply_tc_kernel(const __nv_bfloat16* __restrict__ x1, const __nv_bfloat
   __syncthreads();
 
   // the halo as bf16, one commit group
-  {
-    const int units = CP / 8;
-    for (int u = threadIdx.x; u < kFrontRows * units; u += blockDim.x) {
-      const int p = u / units, c = (u - p * units) * 8;
-      const int pix = hsrc[p];
-      __nv_bfloat16* d = xh + p * ld + c;
-      if (vec_x) {
-        const bool ok = pix >= 0 && c < C;
-        const __nv_bfloat16* s = !ok ? x1 : c < C1 ? x1 + (size_t)pix * C1 + c
-                                                   : x2 + (size_t)pix * C2 + (c - C1);
-        cp_async16(smem_u32(d), s, ok ? 16 : 0);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const int k = c + e;
-          d[e] = pix < 0 || k >= C ? __float2bfloat16(0.f)
-               : k < C1 ? x1[(size_t)pix * C1 + k] : x2[(size_t)pix * C2 + (k - C1)];
-        }
-      }
-    }
-    cp_async_commit();
-  }
+  stage_halo(xh, ld, hsrc, x1, x2, C1, C2, CP, vec_x);
 
   // the 1x1 weights of pass p: [NP out][64 in] tiles of wv, zero past C
   float acc[kFrontUnits][4][4];
@@ -309,42 +414,9 @@ spectral_apply_tc_kernel(const __nv_bfloat16* __restrict__ x1, const __nv_bfloat
       // row, as ln_rows_inplace computes it
       cp_async_wait_upto(pl.ws - 1);
       __syncthreads();
-      if (lnw != nullptr) {
-        for (int p = warp; p < kHaloPix; p += blockDim.x >> 5) {
-          if (hsrc[p] < 0) continue;
-          __nv_bfloat16* row = xh + p * ld;
-          float sum = 0.f;
-          for (int k = lane; k < C; k += 32) sum += __bfloat162float(row[k]);
-          const float mu = warp_sum(sum) / C;
-          float var = 0.f;
-          for (int k = lane; k < C; k += 32) {
-            const float d = __bfloat162float(row[k]) - mu;
-            var += d * d;
-          }
-          const float rs = rsqrtf(warp_sum(var) / C + eps);
-          for (int k = lane; k < C; k += 32)
-            row[k] = __float2bfloat16((__bfloat162float(row[k]) - mu) * rs * lnw[k] + lnb[k]);
-        }
-      }
+      if (lnw != nullptr) halo_ln(xh, ld, hsrc, C, lnw, lnb, eps);
     }
-    uint32_t a[kFrontUnits], bo[kFrontUnits];
-#pragma unroll
-    for (int j = 0; j < kFrontUnits; ++j) {
-      const int q = warp + 16 * j, mt = q % 7, nb = q / 7;
-      a[j] = smem_u32(xh + (16 * mt + (lane & 15)) * ld + 8 * (lane >> 4));
-      bo[j] = 2 * ((32 * nb + (lane & 7) + 8 * (lane >> 4)) * kFrontLdw + 8 * ((lane >> 3) & 1));
-    }
-    front_zero(acc);
-    for (int t = 0; t < pl.nk; ++t) {
-      const uint32_t tile = smem_u32(wr.consume());
-      uint32_t at[kFrontUnits], bt[kFrontUnits];
-#pragma unroll
-      for (int j = 0; j < kFrontUnits; ++j) {
-        at[j] = a[j] + 2 * 64 * t;
-        bt[j] = tile + bo[j];
-      }
-      front_mma<false>(acc, at, bt, n_units, min(4, (CP - 64 * t) / 16), 0);
-    }
+    halo_1x1(acc, xh, ld, wr, n_units, CP, pl.nk);
     cp_async_wait<0>();
     __syncthreads();
     // the pass's 1x1 output, rounded to bf16, into the ring's space ([100][NP + 8])
@@ -354,39 +426,8 @@ spectral_apply_tc_kernel(const __nv_bfloat16* __restrict__ x1, const __nv_bfloat
         *reinterpret_cast<uint32_t*>(rg + r * ldt + c) = pack_bf16x2(v0, v1);
     });
     __syncthreads();
-    // depthwise 3x3 on bf16 pairs: item = (channel pair, tile column, 4 rows)
-    const int npairs = np / 2;
-    for (int idx = threadIdx.x; idx < 16 * npairs; idx += blockDim.x) {
-      const int j = idx % npairs, h = idx / npairs, pc = h & 7, pr = (h >> 3) * 4;
-      float2 w[9];
-#pragma unroll
-      for (int tap = 0; tap < 9; ++tap) w[tap] = __bfloat1622float2(tp[tap * (CP / 2) + n0 / 2 + j]);
-      float2 s[4];
-#pragma unroll
-      for (int o = 0; o < 4; ++o) s[o] = make_float2(0.f, 0.f);
-#pragma unroll
-      for (int rr = 0; rr < 6; ++rr) {
-        float2 in[3];
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx)
-          in[dx] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-              rg + ((pr + rr) * kHalo + pc + dx) * ldt + 2 * j));
-#pragma unroll
-        for (int o = 0; o < 4; ++o) {
-          const int dy = rr - o;
-          if (dy < 0 || dy > 2) continue;
-#pragma unroll
-          for (int dx = 0; dx < 3; ++dx) {
-            s[o].x = fmaf(in[dx].x, w[dy * 3 + dx].x, s[o].x);
-            s[o].y = fmaf(in[dx].y, w[dy * 3 + dx].y, s[o].y);
-          }
-        }
-      }
-#pragma unroll
-      for (int o = 0; o < 4; ++o)
-        *reinterpret_cast<uint32_t*>(vs + ((pr + o) * kTile + pc) * ld + n0 + 2 * j) =
-            pack_bf16x2(s[o].x, s[o].y);
-    }
+    // depthwise 3x3 on bf16 pairs into v
+    dw3_pairs(rg, ldt, tp + n0 / 2, CP / 2, vs + n0, ld, np / 2);
     __syncthreads();
   }
 

@@ -22,10 +22,14 @@ Layouts at these functions: NHWC maps; wqkv (3C, C, 1, 1) and wdw
 logical input ``cat([x, x2], -1)``; ``shift`` > 0 means ``x`` is in the
 rolled frame of a shifted block and is read through the roll-back.
 
-The bf16 apply launch runs the tensor-core tile of ``csrc/spectral_front.cuh``
-(C up to :data:`FRONT_MAX_C`): it streams the v rows of the torch weights and
-a bf16 copy of ``comb`` as they are (:func:`pack_front`), in the tiles that
-:func:`front_plan` describes.
+The bf16 stats launch runs the tensor-core tile of ``csrc/spectral_stats.cuh``
+(C up to :data:`FRONT_MAX_C`): it streams the q|k rows of the torch weights as
+they are (:func:`pack_stats`), in the head groups and passes that
+:func:`stats_plan` describes, and sums its per-part partials in one more
+launch. The bf16 apply launch runs the tensor-core tile of
+``csrc/spectral_front.cuh`` (C up to :data:`FRONT_MAX_C`): it streams the v
+rows of the torch weights and a bf16 copy of ``comb`` as they are
+(:func:`pack_front`), in the tiles that :func:`front_plan` describes.
 """
 
 from __future__ import annotations
@@ -51,7 +55,6 @@ STATS = counter("spectral_stats")
 APPLY = counter("spectral_apply")
 STATS_BWD = counter("spectral_stats_bwd")
 APPLY_BWD = counter("spectral_apply_bwd")
-MAX_PARTS = 128
 # the bf16 apply tile (csrc/spectral_front.cuh): its widest C (kFrontMaxC),
 # the 16 x 32 output units a warp holds (kFrontUnits), the halo rows padded to
 # 7 row tiles (kFrontRows) and the weight tiles' depth
@@ -59,6 +62,10 @@ FRONT_MAX_C = 384
 FRONT_UNITS = 3
 FRONT_ROWS = 112
 FRONT_K = 64
+# the bf16 stats tile (csrc/spectral_stats.cuh): a pass's widest column count
+# (kStatsMaxN) and the dynamic shared memory its plan may take (kStatsBudget)
+STATS_MAX_N = 192
+STATS_BUDGET = 232448 - 1024
 
 __all__ = ["dwconv3_f32", "spectral_stats", "spectral_apply", "spectral_fold"]
 
@@ -132,16 +139,87 @@ def spectral_stats_bwd_plain(x, wqkv, wdw, num_heads, shift, ln_w, ln_b, eps, dg
     return dx.to(dt), dw.reshape(3 * c, c, 1, 1), dwdw, dlnw, dlnb
 
 
+def stats_plan(c: int, heads: int) -> dict:
+    """The bf16 stats tile's tiling at width ``c`` (``StatsPlan`` in
+    csrc/spectral_stats.cuh): the output columns ordered by head, each head
+    ``hw`` = 2 ``dhp`` wide (q, then k, dh padded to ``dhp``, a multiple of
+    16), in ``groups`` groups of ``hg`` heads (``gw`` columns), each group's
+    1x1 in passes of ``np`` columns over ``nk`` 64-deep weight tiles and ``ws``
+    ring stages; ``cp`` = c rounded up to 32; ``bytes`` the dynamic shared
+    memory."""
+    dh = c // heads
+    dhp = -(-dh // 16) * 16
+    hw, cp = 2 * dhp, -(-c // 32) * 32
+    nqk = heads * hw
+    fixed = 2 * 9 * nqk + 4 * heads * dhp * dhp + 4 * nqk + 2 * FRONT_ROWS * (cp + 8)
+    hmax = max(1, STATS_MAX_N // hw)
+    while True:
+        groups = -(-heads // hmax)
+        hg = -(-heads // groups)
+        gw = hg * hw
+        pp = -(-gw // STATS_MAX_N)
+        np_ = 32 * -(-(gw // 32) // pp)
+        for ws in (3, 2):
+            nbytes = fixed + 2 * 64 * (gw + 8) + max(2 * ws * np_ * 72, 2 * 100 * (np_ + 8))
+            if nbytes <= STATS_BUDGET:
+                break
+        if nbytes <= STATS_BUDGET or hmax == 1:
+            break
+        hmax -= 1
+    return dict(dh=dh, dhp=dhp, hw=hw, nqk=nqk, cp=cp, nk=-(-cp // FRONT_K), hg=hg,
+                groups=groups, gw=gw, np=np_, ws=ws, bytes=nbytes)
+
+
+def qk_row(n: int, plan: dict, c: int) -> int:
+    """The row of :func:`pack_stats`' q|k weights behind column ``n`` of the
+    tile's head-grouped order (``qk_row`` in csrc/spectral_stats.cuh), or -1
+    for a padding column."""
+    h, j = divmod(n, plan["hw"])
+    d = j if j < plan["dhp"] else j - plan["dhp"]
+    return (0 if j < plan["dhp"] else c) + h * plan["dh"] + d if d < plan["dh"] else -1
+
+
+def pack_stats(wqkv, wdw, dt):
+    """The operands the bf16 stats tile streams, in ``dt``: the q|k rows of
+    the 1x1 weight as [2C out][C8 in] (torch layout) and their depthwise taps
+    as [2C][9]; C8 is C rounded up to 8, the rows padded with zeros only where
+    C is not a multiple of 8 (16-byte rows for the kernel's copies). Views of
+    the weights where they are already in ``dt``."""
+    c = wqkv.shape[1]
+    wqk = wqkv[:2 * c].reshape(2 * c, c).to(dt)
+    if c % 8:
+        wqk = F.pad(wqk, (0, -c % 8))
+    return wqk.contiguous(), wdw[:2 * c].reshape(2 * c, 9).to(dt).contiguous()
+
+
 @lru_cache(maxsize=None)
 def _stats_entry(bwd: bool = False):
     import ctypes
 
     if bwd:
         return _build.entry("mp_spectral_stats_bwd", 11, [ctypes.c_int] * 7 + [ctypes.c_float])
-    return _build.entry("mp_spectral_stats", 12, [ctypes.c_int] * 8 + [ctypes.c_float] + [ctypes.c_int] * 2)
+    return _build.entry("mp_spectral_stats", 10, [ctypes.c_int] * 8 + [ctypes.c_float]
+                        + [ctypes.c_int] * 2)
 
 
-def _stats_launch(x, wqkv, wdw, num_heads, shift, x2, ln_w, ln_b, eps):
+@lru_cache(maxsize=None)
+def _stats_parts(*shape: int) -> int:
+    """The parts per image of a stats launch (``mp_spectral_stats_parts``:
+    dtype, B, H, W, C, heads, chunk), asked once per shape."""
+    import ctypes
+
+    fn = _build.lib().mp_spectral_stats_parts
+    fn.argtypes, fn.restype = [ctypes.c_int] * len(shape), ctypes.c_int
+    n = int(fn(*shape))
+    if n <= 0:
+        raise RuntimeError(f"mp_spectral_stats_parts{shape} failed")
+    return n
+
+
+def _stats_prepare(x, wqkv, wdw, num_heads, shift=0, x2=None, ln_w=None, ln_b=None, eps=1e-5):
+    """Everything a launch needs: (the C entry's arguments, the outputs, the
+    tensors the arguments point into, to be held until the launch). Weights:
+    float32 [in][out] copies; bf16 :func:`pack_stats`."""
     b, h, w, c1 = x.shape
     c2 = 0 if x2 is None else x2.shape[-1]
     c = c1 + c2
@@ -149,28 +227,42 @@ def _stats_launch(x, wqkv, wdw, num_heads, shift, x2, ln_w, ln_b, eps):
         raise ValueError(f"spectral stats needs H, W % 8 == 0 and C % heads == 0, got {x.shape}")
     dt, code = x.dtype, dtype_code(x)
     dh = c // num_heads
-    kc = _build.chunk("mp_spectral_stats_chunk", c, num_heads)
-    _build.check_plan("spectral_stats", "mp_spectral_stats_smem", f"C={c}, heads={num_heads}",
-                      c, num_heads, kc)
+    if code:
+        if c > FRONT_MAX_C:  # the widest C of the tile's plan
+            raise ValueError(f"the bf16 spectral stats kernel takes C up to {FRONT_MAX_C}, got {c}")
+        kc = c
+        _build.check_plan("spectral_stats", "mp_spectral_stats_tc_smem",
+                          f"C={c}, heads={num_heads}", c, num_heads)
+        wq, wd = pack_stats(wqkv, wdw, dt)
+    else:
+        kc = _build.chunk("mp_spectral_stats_chunk", c, num_heads)
+        _build.check_plan("spectral_stats", "mp_spectral_stats_smem",
+                          f"C={c}, heads={num_heads}", c, num_heads, kc)
+        wq, wd = kernel_weight(wqkv, dt), kernel_weight(wdw, dt)
     x = x.contiguous()
     x2 = None if x2 is None else x2.to(dt).contiguous()
-    wq, wd = kernel_weight(wqkv, dt), kernel_weight(wdw, dt)
     lnw, lnb = f32(ln_w), f32(ln_b)
-    n_parts = min((h // 8) * (w // 8), MAX_PARTS)
+    n_parts = _stats_parts(code, b, h, w, c, num_heads, kc)
     dev = x.device
-    pg = torch.empty((b, n_parts, c * dh), dtype=torch.float32, device=dev)
-    pnq = torch.empty((b, n_parts, c), dtype=torch.float32, device=dev)
-    pnk = torch.empty_like(pnq)
+    part = torch.empty((b, n_parts, c * dh + 2 * c), dtype=torch.float32, device=dev)
     gram = torch.empty((b, c, dh), dtype=torch.float32, device=dev)
     nq = torch.empty((b, num_heads, dh), dtype=torch.float32, device=dev)
     nk = torch.empty_like(nq)
-    err = _stats_entry()(x.data_ptr(), _build.ptr(x2), _build.ptr(lnw), _build.ptr(lnb),
-                         wq.data_ptr(), wd.data_ptr(), pg.data_ptr(), pnq.data_ptr(),
-                         pnk.data_ptr(), gram.data_ptr(), nq.data_ptr(), nk.data_ptr(), code,
-                         b, h, w, c1, c2, num_heads, shift, eps, n_parts, kc, stream_ptr())
-    _build.check("mp_spectral_stats", err)
-    STATS.record(("spectral_stats", b, h, w, c1, c2, num_heads, shift, ln_w is not None, str(dt)))
-    return gram, nq, nk
+    p = _build.ptr
+    args = (x.data_ptr(), p(x2), p(lnw), p(lnb), wq.data_ptr(), wd.data_ptr(), part.data_ptr(),
+            gram.data_ptr(), nq.data_ptr(), nk.data_ptr(), code, b, h, w, c1, c2, num_heads,
+            shift, eps, n_parts, kc, stream_ptr())
+    return args, (gram, nq, nk), (x, x2, lnw, lnb, wq, wd, part)
+
+
+def _stats_launch(x, wqkv, wdw, num_heads, shift, x2, ln_w, ln_b, eps):
+    args, out, _held = _stats_prepare(x, wqkv, wdw, num_heads, shift, x2, ln_w, ln_b, eps)
+    _build.check("mp_spectral_stats", _stats_entry()(*args))
+    b, h, w, c1 = x.shape
+    c2 = 0 if x2 is None else x2.shape[-1]
+    STATS.record(("spectral_stats", b, h, w, c1, c2, num_heads, shift, ln_w is not None,
+                  str(x.dtype)))
+    return out
 
 
 def _stats_bwd_launch(x, wqkv, wdw, num_heads, shift, ln_w, ln_b, eps, dgram, dnq, dnk):
@@ -237,8 +329,9 @@ class _SpectralStats(torch.autograd.Function):
 def spectral_stats(x, wqkv, wdw, num_heads: int, shift: int = 0, x2=None, ln_w=None,
                    ln_b=None, eps: float = 1e-5):
     """Same contract as :func:`spectral_stats_plain`, differentiable; launches
-    the CUDA kernels (forward: a per-part pass, then an in-order sum of the
-    parts; backward: ``mp_spectral_stats_bwd`` and grad.cu) on a CUDA tensor."""
+    the CUDA kernels (forward: a per-part pass, bf16 on the tensor-core tile,
+    then an in-order sum of the parts; backward: ``mp_spectral_stats_bwd`` and
+    grad.cu) on a CUDA tensor."""
     return _SpectralStats.apply(x, wqkv, wdw, x2, ln_w, ln_b, (num_heads, shift, eps))
 
 

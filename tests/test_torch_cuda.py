@@ -674,3 +674,97 @@ def test_cuda_spectral_front_check_sees_the_roll(c):
         ref = spectral_apply(*args, **kw)
     err = (got.float() - ref.float()).abs().max().item()
     assert err > 3e-2 * ref.float().abs().max().item(), err
+
+
+# The bf16 spectral stats tile (csrc/spectral_stats.cuh) at every (C, heads)
+# of the presets' stats calls (dh 32, 64, 48 and 96) and C = 36 and 27 (dh 18
+# and 9 padded to 32 and 16; rows not 16-byte multiples: element-wise halo,
+# weight rows padded to 40 and 32), in the variants the path launches: a
+# block's stats at shift 0 and 4, the PromptFusion entry (x2 + LN, C split in
+# halves); on 3 tiles (1x8x24) and 12 (2x16x24: two images, a non-square tile
+# grid), and one train shape (4x64x64, shift 4: 64 tiles an image over fewer
+# parts than tiles)
+STATS_VARIANTS = ("shift0", "shift4", "fusion")
+STATS_WIDTHS = ((64, 2), (128, 4), (128, 2), (256, 8), (96, 2), (192, 2), (384, 8), (36, 2),
+                (27, 3))
+STATS_CASES = ([(v, c, heads, b, h, 24) for v in STATS_VARIANTS for c, heads in STATS_WIDTHS
+                for b, h in ((1, 8), (2, 16))]
+               + [("shift4", c, heads, 4, 64, 64) for c, heads in STATS_WIDTHS])
+# mp_spectral_stats_smem(C, heads, kc) at each width's chunk (the float32
+# kernel's plans) and mp_spectral_stats_bwd_smem(C, heads), which the bf16
+# tile leaves as they were
+STATS_F32_PLANS = {(64, 2): 78144, (128, 4): 112448, (128, 2): 170816, (256, 8): 181056,
+                   (96, 2): 122432, (192, 2): 228672, (384, 8): 167232, (36, 2): 42752,
+                   (27, 3): 25652}
+STATS_BWD_PLANS = {(64, 2): 68640, (128, 4): 94240, (128, 2): 136224, (256, 8): 145440,
+                   (96, 2): 102432, (192, 2): 203808, (384, 8): 217632, (36, 2): 39072,
+                   (27, 3): 23664}
+
+
+def _stats_inputs(variant, c, heads, b, h, w, dev):
+    """(args, kwargs) of one spectral_stats call of the variant, float32."""
+    r = _rng(80 + c + heads + b)
+    f = lambda *s, scale=1.0: _t(_n(r, s, scale)).to(dev)  # noqa: E731
+    wq, wd = f(3 * c, c, 1, 1, scale=c ** -0.5), f(3 * c, 1, 3, 3, scale=1 / 3)
+    x = f(b, h, w, c)
+    if variant == "fusion":
+        return [x[..., :c // 2], wq, wd, heads], dict(
+            x2=f(b, h, w, c - c // 2), ln_w=1 + f(c, scale=0.1), ln_b=f(c, scale=0.1))
+    return [x, wq, wd, heads], dict(shift=0 if variant == "shift0" else 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,c,heads,b,h,w", STATS_CASES)
+def test_cuda_spectral_stats_matches_plain(variant, c, heads, b, h, w):
+    """The bf16 stats tile and the float32 kernel against the plain version,
+    bf16 within 3e-2 and float32 within 1e-4 of each output's max-abs (the
+    Gram, |q|^2, |k|^2); one launch each, the plain version only inside the
+    check; two calls bitwise identical; the bf16 plan within the device's
+    limit, the float32 and backward plans as they were."""
+    from mp_hsir_tpu_torch.ops.kernels import _build
+
+    dev = _cuda()
+    args, kw = _stats_inputs(variant, c, heads, b, h, w, dev)
+    for dt, tol in ((torch.bfloat16, 3e-2), (torch.float32, 1e-4)):
+        call = [args[0].to(dt)] + args[1:]
+        ckw = {k: v.to(dt) if k == "x2" else v for k, v in kw.items()}
+        _route.reset_counters()
+        _check_fwd(spectral_stats, call, ckw, tol)
+        assert _route.COUNTERS["spectral_stats"].launches == 1
+        assert _route.ROUTE.plain_cuda_calls == 1
+        once, again = spectral_stats(*call, **ckw), spectral_stats(*call, **ckw)
+        assert all(torch.equal(u, v) for u, v in zip(once, again)), dt
+    n = _build.plan_bytes("mp_spectral_stats_tc_smem", c, heads)
+    assert 0 < n <= _build.smem_limit()
+    kc = _build.chunk("mp_spectral_stats_chunk", c, heads)
+    assert _build.plan_bytes("mp_spectral_stats_smem", c, heads, kc) == STATS_F32_PLANS[c, heads]
+    assert _build.plan_bytes("mp_spectral_stats_bwd_smem", c, heads) == STATS_BWD_PLANS[c, heads]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads", [(64, 2), (384, 8)])
+def test_cuda_spectral_stats_check_sees_the_roll(c, heads):
+    """The per-call check is not blind to the roll-back: a shifted block's
+    input through the bf16 tile with shift = 0 gives a Gram outside the 3e-2
+    bound of the plain version's with shift = 4."""
+    dev = _cuda()
+    args, _ = _stats_inputs("shift4", c, heads, 2, 16, 24, dev)
+    x = args[0].to(torch.bfloat16)
+    got = spectral_stats(x, *args[1:], shift=0)[0]
+    with _route.plain_reference():
+        ref = spectral_stats(x, *args[1:], shift=4)[0]
+    err = (got - ref).abs().max().item()
+    assert err > 3e-2 * ref.abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_cuda_spectral_stats_bf16_past_384_raises():
+    """The bf16 stats tile takes C up to 384 and raises above it (no
+    fallback); float32 streams its input in chunks and runs."""
+    dev = _cuda()
+    args, kw = _stats_inputs("shift4", 400, 8, 1, 8, 8, dev)
+    _route.reset_counters()
+    with pytest.raises(ValueError, match="C up to 384"):
+        spectral_stats(args[0].to(torch.bfloat16), *args[1:], **kw)
+    _check_fwd(spectral_stats, args, kw, 1e-4)
+    assert _route.COUNTERS["spectral_stats"].launches == 1

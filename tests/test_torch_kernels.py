@@ -24,8 +24,8 @@ from mp_hsir_tpu_torch.ops.kernels.gdfn import gdfn_plain
 from mp_hsir_tpu_torch.ops.kernels.mlp import TAIL_K, mlp_plain, pack_mlp_weights
 from mp_hsir_tpu_torch.ops.kernels._grad import dwconv3_f32
 from mp_hsir_tpu_torch.ops.kernels.spectral import (
-    FRONT_K, FRONT_ROWS, front_plan, pack_front, spectral_apply_plain, spectral_fold,
-    spectral_stats_plain,
+    FRONT_K, FRONT_ROWS, STATS_BUDGET, front_plan, pack_front, pack_stats, qk_row,
+    spectral_apply_plain, spectral_fold, spectral_stats_plain, stats_plan,
 )
 from mp_hsir_tpu_torch.ops.kernels.window_attention import (
     HEAD_WIDTHS, K_CHUNK, head_width, pack_proj_weight, pack_qkv_weight, window_attention_plain,
@@ -326,6 +326,105 @@ def test_spectral_front_pack_layout(c, dt):
     vt = torch.from_numpy(vt).to(dt).float().numpy()
     np.testing.assert_allclose((vt @ ct[:cp])[:, :c], vt[:, :c] @ comb[1].to(dt).float().numpy(),
                                atol=1e-4, rtol=1e-4)
+
+
+def _dyadic(r, shape, scale, p):
+    """Values k * scale, k in {-2..2}, nonzero with probability p: every sum
+    the stats tile and its plain version take at these sizes is exact in
+    float32 and every rounding point exact in bf16, so the two agree whatever
+    their summation order."""
+    k = r.integers(-2, 3, shape) * (r.random(shape) < p)
+    return (k * scale).astype(np.float32)
+
+
+# every (C, heads) of the presets' stats calls (flagship 64/2, 128/4, 128/2,
+# 256/8; remote sensing 96/2, 192/2, 384/8) and C = 36 (dh 18 padded to 32,
+# rows to 40) and 27 (dh 9 padded to 16, an odd C)
+@pytest.mark.parametrize("c,heads", [(64, 2), (128, 4), (128, 2), (256, 8), (96, 2), (192, 2),
+                                     (384, 8), (36, 2), (27, 3)])
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_spectral_stats_pack_layout(c, heads, dt):
+    """The operands the bf16 stats tile streams (pack_stats), read with the
+    kernel's own indexing (stats_plan, qk_row): the [np][64] weight tiles of
+    every pass give back the q|k rows of wqkv in the head-grouped order and
+    the staged [9][nqk] taps their depthwise taps, exactly, with zeros for the
+    padding columns and past C. Then the tile emulated in numpy on a shifted
+    16x24 image (6 tiles) in 4 parts: the 112-row halo through the roll-back,
+    each group's 1x1 passes rounded to dt, the depthwise 3x3 rounded to dt,
+    each head's Gram and the norms per part, the parts summed in order;
+    against spectral_stats_plain at 1e-5 relative."""
+    r = _rng(15)
+    wqkv = _t(_dyadic(r, (3 * c, c, 1, 1), 1 / 8, 0.25))
+    wdw = _t(_dyadic(r, (3 * c, 1, 3, 3), 1 / 2, 0.5))
+    wqk, taps = pack_stats(wqkv, wdw, dt)
+    c8 = -(-c // 8) * 8
+    assert wqk.shape == (2 * c, c8) and taps.shape == (2 * c, 9)
+    assert all(t.dtype == dt and t.is_contiguous() for t in (wqk, taps))
+    pl = stats_plan(c, heads)
+    dh, dhp, hw, nqk, cp, gw, npass = (pl[k] for k in ("dh", "dhp", "hw", "nqk", "cp", "gw", "np"))
+    assert dhp % 16 == 0 and dh <= dhp < dh + 16 and hw == 2 * dhp and nqk == heads * hw
+    assert gw == pl["hg"] * hw and pl["groups"] * pl["hg"] >= heads and npass % 32 == 0
+    assert 7 * npass // 32 <= 48 and pl["nk"] * FRONT_K >= cp  # 3 units of 16 x 32 per warp
+    assert pl["bytes"] <= STATS_BUDGET
+    # the weight tiles of every pass, as the kernel stages them
+    flat = wqk.float().numpy().ravel()
+    wt = np.zeros((nqk, pl["nk"] * FRONT_K), np.float32)
+    for g0 in range(0, nqk, gw):
+        for n0 in range(g0, min(g0 + gw, nqk), npass):
+            n = min(npass, min(g0 + gw, nqk) - n0)
+            rows = np.array([qk_row(n0 + i, pl, c) for i in range(n)])
+            for kt in range(pl["nk"]):
+                cols = FRONT_K * kt + np.arange(FRONT_K)
+                ok = (rows >= 0)[:, None] & (cols < c8)[None, :]
+                wt[n0:n0 + n, cols] = np.where(ok, flat[np.where(ok, rows[:, None] * c8 + cols, 0)], 0)
+    want = wqkv[:2 * c].reshape(2 * c, c).to(dt).float().numpy()
+    col_rows = np.array([qk_row(n, pl, c) for n in range(nqk)])
+    assert sorted(col_rows[col_rows >= 0]) == list(range(2 * c))
+    np.testing.assert_array_equal(wt[col_rows >= 0, :c], want[col_rows[col_rows >= 0]])
+    assert not wt[col_rows < 0].any() and not wt[:, c:].any()
+    flat_t = taps.float().numpy().ravel()
+    tp = np.array([[flat_t[k * 9 + tap] if k >= 0 else 0 for k in col_rows] for tap in range(9)])
+    np.testing.assert_array_equal(tp[:, col_rows >= 0],
+                                  wdw[:2 * c].reshape(2 * c, 9).t().to(dt).float().numpy()[
+                                      :, col_rows[col_rows >= 0]])
+    assert not tp[:, col_rows < 0].any()
+    # the tile on a shifted 16x24 image in 4 parts
+    h, w, shift, n_parts = 16, 24, 4, 4
+    x = _t(_dyadic(r, (1, h, w, c), 1 / 4, 0.25)).to(dt)
+    xf = x.float().numpy()[0]
+    tiles = (h // 8) * (w // 8)
+    parts = np.zeros((n_parts, c * dh + 2 * c), np.float32)
+    for ip in range(n_parts):
+        gacc = np.zeros((heads, dhp, dhp), np.float32)
+        nacc = np.zeros(nqk, np.float32)
+        for t in range(ip * tiles // n_parts, (ip + 1) * tiles // n_parts):
+            ty, tx = divmod(t, w // 8)
+            halo = np.zeros((FRONT_ROWS, cp), np.float32)
+            for p in range(100):
+                ur, uc = ty * 8 + p // 10 - 1, tx * 8 + p % 10 - 1
+                if 0 <= ur < h and 0 <= uc < w:
+                    halo[p, :c] = xf[(ur - shift) % h, (uc - shift) % w]
+            t1 = halo @ wt[:, :cp].T
+            assert not t1[100:].any() and not t1[:, col_rows < 0].any()
+            t1 = torch.from_numpy(t1[:100]).to(dt).float().numpy().reshape(10, 10, nqk)
+            qk = np.zeros((64, nqk), np.float32)
+            for tap in range(9):
+                qk += (t1[tap // 3:tap // 3 + 8, tap % 3:tap % 3 + 8] * tp[tap]).reshape(64, nqk)
+            qk = torch.from_numpy(qk).to(dt).float().numpy()
+            for hh in range(heads):
+                q, k = qk[:, hh * hw:hh * hw + dhp], qk[:, hh * hw + dhp:(hh + 1) * hw]
+                gacc[hh] += q.T @ k
+            nacc += (qk * qk).sum(axis=0)
+        nq = nacc.reshape(heads, hw)
+        parts[ip] = np.concatenate([gacc[:, :dh, :dh].ravel(), nq[:, :dh].ravel(),
+                                    nq[:, dhp:dhp + dh].ravel()])
+    tot = parts[0]
+    for ip in range(1, n_parts):
+        tot = tot + parts[ip]
+    gram, nq, nk = spectral_stats_plain(x, wqkv, wdw, heads, shift=shift)
+    assert np.abs(gram.numpy()).max() > 0
+    for got, ref in ((tot[:c * dh], gram), (tot[c * dh:c * dh + c], nq), (tot[c * dh + c:], nk)):
+        np.testing.assert_allclose(got, ref.numpy().ravel(), rtol=1e-5, atol=0)
 
 
 def test_gdfn_with_exit_projection_matches_pallas():
