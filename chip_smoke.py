@@ -9,7 +9,9 @@ Phases (any failure exits non-zero; no phase's error is caught):
    of mp_hsir_tpu_torch/csrc/*.cu with nvcc (one process per source), each
    kernel's registers and spills, the bf16 spectral apply tile's plan bytes
    at every preset width, and the bf16 spectral stats tile's at every (C,
-   heads) of the presets beside the float32 kernel's.
+   heads) of the presets beside the float32 kernel's, and the bf16 GDFN
+   tile's at every width of the presets' GDFN calls beside the float32
+   kernel's at its chunk.
 2. Kernel checks: every kernel wrapper on the card at each shape the
    flagship 512x512x31 eval forward gives it, in bf16 from numpy-seeded
    inputs, against its plain PyTorch version on the same inputs; also once
@@ -19,8 +21,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
    float32 <= 1e-4 * max|plain|. Times each with CUDA events, beside the
    plain version, F.conv2d for the conv (library_ms) and the bound
    max(bytes / 3.35 TB/s, flops / 989 TFLOP/s); each conv3, window_attention,
-   spectral_stats, spectral_apply and mlp call (here and in phases 5, 7 and
-   11) is also timed as its kernel alone (the weights packed once, the C
+   spectral_stats, spectral_apply, gdfn and mlp call (here and in phases 5, 7
+   and 11) is also timed as its kernel alone (the weights packed once, the C
    entry launched directly) and prints its achieved TFLOP/s, the kernel
    alone's and its library call's (flops / ms); their sums over the path's
    calls follow the table. Each spectral_apply call with the PGSSTB tail is
@@ -28,13 +30,12 @@ Phases (any failure exits non-zero; no phase's error is caught):
    alone, with the front's own bound and TFLOP/s): the sums split the apply
    time into the front and the tail; the calls without the tail
    (PromptFusion, the training route's drop-path call) are fronts alone.
-   The float32 spectral stats kernel and the GDFN kernel keep their input
-   resident where that fits; each such call at C > 64 is checked and timed
-   once more, resident and with its input streamed in 64-channel chunks
-   (the remote-sensing latent's plan), summed per forward: GDFN in bf16,
-   spectral_stats on its float32 instance. The window kernel and the
-   spectral stats and apply tiles stage their whole input in bf16 and have
-   no chunk to stream.
+   The float32 spectral stats and GDFN kernels keep their input resident
+   where that fits; each spectral_stats call at C > 64 is checked and timed
+   once more on its float32 instance, resident and with its input streamed
+   in 64-channel chunks (the remote-sensing latent's plan), summed per
+   forward. The window kernel and the spectral stats, apply and GDFN tiles
+   stage their whole input in bf16 and have no chunk to stream.
 3. Main path: the flagship preset on the committed trained weights, bf16 at
    1x31x512x512, answering 4 requests (mode-0 cubes) after a warm-up. The
    launch counters are zeroed just before the requests and read just after;
@@ -166,12 +167,12 @@ K14_KERNEL = {"window_msa": dict(source="mp_hsir_tpu_torch/csrc/window_attention
                                  replaces="mp_hsir_tpu/ops/pallas_attention.py:40")}
 # the kernels that stage their input whole where it fits, else in chunks (the
 # window kernel's bf16 plan stages the whole window at every width, the bf16
-# spectral stats and apply tiles their whole input)
+# spectral stats, apply and GDFN tiles their whole input)
 STAGED = ("spectral_stats", "spectral_apply", "gdfn")
 # the kernels timed alone beside their wrappers, with their library yardsticks
 ALONE = {"conv3": "F.conv2d", "window_attention": None,
          "window_msa": "F.multi_head_attention_forward", "mlp": None, "spectral_stats": None,
-         "spectral_apply": None}
+         "spectral_apply": None, "gdfn": None}
 # the training route's new kernels (timed at the train step's shapes)
 TRAIN_KERNELS = {
     "mlp": dict(source="mp_hsir_tpu_torch/csrc/mlp.cu", tpu=["K6"],
@@ -399,6 +400,9 @@ def plan_of(spec) -> dict:
     if name == "spectral_stats" and _code(spec):  # the bf16 tile: one resident plan
         n = _build.plan_bytes("mp_spectral_stats_tc_smem", *shape)
         return dict(smem=n, smem_whole=n, kc=c, c=c)
+    if name == "gdfn" and _code(spec):  # the bf16 tile: one resident plan
+        n = _build.plan_bytes("mp_gdfn_tc_smem", c)
+        return dict(smem=n, smem_whole=n, kc=c, c=c)
     if chunk_entry is None:  # a single whole-input plan
         n = _build.plan_bytes(smem_entry, *shape)
         return dict(smem=n, smem_whole=n, kc=c, c=c)
@@ -442,10 +446,10 @@ def streamed_ms(spec, fn, args, kw):
     (``ms_resident``, ``ms_streamed`` and the instance's ``dtype``). A bf16
     spectral_stats call runs its float32 instance here (the bf16 tile has no
     chunk). None for the calls that stream already or have no chunk."""
-    if spec[0] not in STAGED or spec[0] == "spectral_apply" and _code(spec):
-        return None  # (the bf16 apply tile has one resident plan)
+    if spec[0] not in STAGED or spec[0] in ("spectral_apply", "gdfn") and _code(spec):
+        return None  # (the bf16 apply and GDFN tiles have one resident plan)
     f32spec = spec[:-1] + ("torch.float32",)
-    plan = plan_of(f32spec)  # the chunked layout (gdfn's is the same in bf16)
+    plan = plan_of(f32spec)  # the chunked layout
     if plan["kc"] < plan["c"] or plan["c"] <= 64:
         return None
     tol = BF16_TOL
@@ -517,12 +521,12 @@ def time_ms(fn, iters: int) -> float:
 
 def kernel_alone_ms(name, args, kw) -> float:
     """A kernel alone on a call's inputs: its launch prepared once (conv3's
-    weight packed, the window, mlp and spectral kernels' weights packed and
-    their outputs allocated) and the C entry launched directly, without what
-    the wrapper adds on the host per call (the packing copies, allocations,
-    Python)."""
+    weight packed, the window, mlp, spectral and GDFN kernels' weights packed
+    and their outputs allocated) and the C entry launched directly, without
+    what the wrapper adds on the host per call (the packing copies,
+    allocations, Python)."""
     from mp_hsir_tpu_torch.ops.kernels import (
-        _build, conv3, mlp, spectral, window_attention, window_msa,
+        _build, conv3, gdfn, mlp, spectral, window_attention, window_msa,
     )
     from mp_hsir_tpu_torch.ops.kernels._route import dtype_code, stream_ptr
 
@@ -549,9 +553,14 @@ def kernel_alone_ms(name, args, kw) -> float:
     elif name == "spectral_stats":
         launch, _, held = spectral._stats_prepare(*args, **kw)
         entry, what = spectral._stats_entry(), "mp_spectral_stats"
-    else:
+    elif name == "gdfn":
+        launch, _, held = gdfn._prepare(*args, **kw)
+        entry, what = gdfn._entry(), "mp_gdfn"
+    elif name == "window_msa":
         launch, _, held = window_msa._prepare(*args, kw.get("labels"))
         entry, what = window_msa._entry(), "mp_window_msa"
+    else:
+        raise KeyError(name)
     _build.check(what, entry(*launch))
     ms = time_ms(lambda: entry(*launch), 20)
     del held
@@ -1493,6 +1502,24 @@ def log_stats_plans(_build, cfgs) -> dict:
     return plans
 
 
+def log_gdfn_plans(_build, cfgs) -> dict:
+    """The bf16 GDFN tile's shared-memory plan (bytes, static included) at
+    every width of the presets' GDFN calls, beside the float32 kernel's at
+    its own chunk."""
+    widths = set()
+    for cfg in cfgs:
+        for specs in (path_specs(cfg, SIZE, "bf16"), train_path_specs(cfg, 1, 64, "bf16")):
+            widths |= {s[4] for s in specs if s[0] == "gdfn"}
+    plans = {}
+    for c in sorted(widths):
+        kc = _build.chunk("mp_gdfn_chunk", c)
+        plans[f"C={c}"] = dict(bf16=_build.plan_bytes("mp_gdfn_tc_smem", c),
+                               f32=_build.plan_bytes("mp_gdfn_smem", c, kc), f32_kc=kc)
+    log("  bf16 gdfn plans (B; float32's at its chunk in brackets): " + ", ".join(
+        f"{k} {v['bf16']} ({v['f32']} kc {v['f32_kc']})" for k, v in plans.items()))
+    return plans
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="", help="write the detailed results here (JSON)")
@@ -1527,7 +1554,9 @@ def main() -> None:
 
     front_plans = log_front_plans(_build)
     cfg = natural_scene_config(compute_dtype="bfloat16")
-    stats_plans = log_stats_plans(_build, (cfg, remote_sensing_config(compute_dtype="bfloat16")))
+    preset_cfgs = (cfg, remote_sensing_config(compute_dtype="bfloat16"))
+    stats_plans = log_stats_plans(_build, preset_cfgs)
+    gdfn_plans = log_gdfn_plans(_build, preset_cfgs)
 
     specs = path_specs(cfg, SIZE, "torch.bfloat16")
 
@@ -1641,6 +1670,7 @@ def main() -> None:
                            rs_train_rows=rs_train_rows, rs_train=rs_train,
                            smem_limit=limit, streamed=streamed, kernels=summary,
                            front_plans=front_plans, stats_plans=stats_plans,
+                           gdfn_plans=gdfn_plans,
                            seconds=time.perf_counter() - t_start), fh, indent=1)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card)

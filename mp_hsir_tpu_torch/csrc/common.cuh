@@ -385,6 +385,8 @@ __device__ __forceinline__ void mlp_tail_tile(float* y, float* yn, int ldy, floa
 
 inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
+inline bool aligned(const void* p, int n) { return (uintptr_t)p % n == 0; }
+
 template <typename K>
 inline cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);

@@ -8,17 +8,42 @@
 // rounded to the compute type before project_out. GELU is the exact erf form
 // (the TPU kernel's polynomial is a Mosaic workaround, 1.5e-6 from it).
 //
-// One block = one 8x8 tile; the hidden width is walked in chunks of 32 units
-// of each half, so the 2*hidden-wide intermediate never leaves shared memory.
 // Bound on this card: 6*C*hidden + 2*C*Co flops per pixel (plus the halo
 // recompute) against (C + Co) elements of traffic: tensor-core rate bounds
-// it. bf16 products run as mma.sync, float32 ones as SIMT FMA (common.cuh
-// gemm; PERF.md).
-#include "common.cuh"
+// it. Two kernels:
+//
+// - bf16: gdfn_tc_kernel below, one 8x8 tile per 512-thread block on the
+//   tensor cores (cp.async, ldmatrix, mma.sync), built from the halo tiles'
+//   pieces (spectral_front.cuh) and the tail tile's fc2 (mlp_tail.cuh):
+//   * the 10x10 halo staged once as bf16 [112][CP + 8] (100 rows padded to 7
+//     row tiles; CP = C rounded up to 32), the LayerNorm in place; rows
+//     outside the image stay zero after it;
+//   * the hidden width in chunks of 64 units: project_in is a 112 x 128 x CP
+//     product (the chunk's 64 x1 rows and its 64 x2 rows of w_in, read from
+//     the torch layout [2 hid][C8], zero past hid), each warp holding up to 2
+//     units of 16 x 32 sums; t goes to shared memory in float32
+//     ([100][136]: float2 stores without bank conflicts), the depthwise 3x3
+//     runs in float32 on float32 taps (the chunk's rows of w_dw, staged as
+//     float32 from bf16), 4 output rows a thread, then gelu(x1) * x2 is
+//     rounded to bf16 into the gated tile ([64][72]);
+//   * project_out: gated [64 x 64] x the chunk's columns of w_out (torch
+//     layout [C][hid8], the [n][k] operand) as the tail tile's fc2, the
+//     64 x C sums in registers across the whole hidden loop (C up to 384);
+//   * every weight tile ([128][64] bf16: project_in, project_out, then the
+//     exit 1x1's) through one cp.async ring of 2-4 stages, one block-wide
+//     barrier per tile;
+//   * epilogue: + x (float32), one rounding to bf16 into the halo's space,
+//     then stored in 16-byte runs, or used as the A operand of the exit 1x1
+//     against proj_w's torch layout [Co][C8] (the output staged in t's
+//     space, then stored).
+// - float32: gdfn_kernel, the first design: the 8x8 tile's working set in
+//   float32 shared memory, the hidden width in chunks of 32 units, products
+//   as SIMT FMA (common.cuh gemm) on [in][out] weight copies.
+#include "spectral_front.cuh"
 
 namespace mp {
 
-constexpr int kGC = 32;  // hidden chunk
+constexpr int kGC = 32;  // hidden chunk of the float32 kernel and the backward
 
 // Shared memory: the LN'd halo is staged in channel chunks of kc (all C at
 // once where that fits: every natural-scene width; 64 at C = 384, where the
@@ -138,20 +163,232 @@ inline int gdfn_chunk(int C) {
   return pick_chunk(C, [&](int kc) { return plan_bytes(gdfn_kernel<float>, gdfn_smem(C, kc)); });
 }
 
-template <typename T>
-cudaError_t launch_gdfn(const void* x, const float* lnw, const float* lnb, const void* win,
-                        const void* wdw, const void* wout, const void* wproj, int Co,
-                        int residual, void* out, int B, int H, int W, int C, int hid, int kc,
+// The float32 kernel (the bf16 compute type runs gdfn_tc_kernel below).
+cudaError_t launch_gdfn(const float* x, const float* lnw, const float* lnb, const float* win,
+                        const float* wdw, const float* wout, const float* wproj, int Co,
+                        int residual, float* out, int B, int H, int W, int C, int hid, int kc,
                         float eps, cudaStream_t stream) {
   const size_t smem = gdfn_smem(C, kc);
-  cudaError_t err = set_smem(gdfn_kernel<T>, smem);
+  cudaError_t err = set_smem(gdfn_kernel<float>, smem);
   if (err != cudaSuccess) return err;
-  gdfn_kernel<T><<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
-      (const T*)x, lnw, lnb, (const T*)win, (const T*)wdw, (const T*)wout, (const T*)wproj, Co,
-      residual, (T*)out, H, W, C, hid, eps, kc);
+  gdfn_kernel<float><<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
+      x, lnw, lnb, win, wdw, wout, wproj, Co, residual, out, H, W, C, hid, eps, kc);
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 tile (the design is at the top of this file).
+// ---------------------------------------------------------------------------
+
+constexpr int kGdfnK = kTailK;            // hidden chunk: 64 x1 units and their 64 x2 units
+constexpr int kGdfnLdt = 2 * kGdfnK + 8;  // t row in floats (544 B: float2 stores conflict-free)
+constexpr int kGdfnUnits = 2;             // project_in: 7 x 4 units of 16 x 32 over 16 warps
+constexpr int kGdfnInUnits = 7 * (2 * kGdfnK / 32);
+// the dynamic bytes a plan may take: the H100's opt-in limit less the static
+constexpr size_t kGdfnBudget = 232448 - 1024;
+
+// The bf16 tile's plan at width C, hidden width hid and exit width Co (0: no
+// exit 1x1): taps [9][128] float32 | gated [64][kTailLdg] | t [100][kGdfnLdt]
+// float32 | halo [112][ld] | ring (ws stages of [kTailN][kTailLd]), every
+// piece a multiple of 16 bytes; the ring holds as many stages (at most 4) as
+// the budget allows. The weight stream: per hidden chunk nk project_in tiles
+// (64 deep) and nk2 project_out tiles (128 output channels), then npb x nk
+// tiles of the exit 1x1 (128 output channels, 64 deep).
+struct GdfnPlan {
+  int CP, ld, nk, nch, nk2, npb, ws;
+  size_t taps, gated, t, bytes;
+  __host__ __device__ GdfnPlan(int C, int hid, int Co) {
+    CP = round_up32(C);
+    ld = CP + 8;
+    nk = (CP + kGdfnK - 1) / kGdfnK;
+    nch = (hid + kGdfnK - 1) / kGdfnK;
+    nk2 = (round_up64(C) + kTailN - 1) / kTailN;
+    npb = (Co + kTailN - 1) / kTailN;
+    taps = sizeof(float) * 9 * 2 * kGdfnK;
+    gated = sizeof(__nv_bfloat16) * kPix * kTailLdg;
+    t = sizeof(float) * kHaloPix * kGdfnLdt;
+    const size_t fixed = taps + gated + t + sizeof(__nv_bfloat16) * kFrontRows * ld;
+    for (ws = kTailStages; ws > 2 && fixed + ws * kTailStage > kGdfnBudget; --ws) {
+    }
+    bytes = fixed + ws * kTailStage;
+  }
+  __host__ __device__ int tiles() const { return nch * (nk + nk2) + npb * nk; }
+};
+
+// Arguments: x (B, H, W, C) bf16, LN float32; win [2 hid][C8], taps [2 hid][9],
+// wout [C][hid8], wproj [Co][C8] or NULL: the torch layouts in bf16, rows
+// padded to C8 / hid8 (rounded up to 8), 16-byte aligned; flags: kVecX |
+// kVecOut. Output (B, H, W, Co), Co = C without wproj.
+__global__ void __launch_bounds__(kThreads)
+gdfn_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ lnw,
+               const float* __restrict__ lnb, const __nv_bfloat16* __restrict__ win,
+               const __nv_bfloat16* __restrict__ taps, const __nv_bfloat16* __restrict__ wout,
+               const __nv_bfloat16* __restrict__ wproj, int Co, int residual,
+               __nv_bfloat16* __restrict__ out, int H, int W, int C, int hid, float eps,
+               int flags) {
+  extern __shared__ float4 gdfn_dyn[];
+  __shared__ int hsrc[kFrontRows];  // halo row -> source pixel (-1: zero row)
+  const GdfnPlan pl(C, hid, wproj != nullptr ? Co : 0);
+  const int ld = pl.ld, CP = pl.CP, nk = pl.nk, nk2 = pl.nk2;
+  const int C8 = round_up8(C), hid8 = round_up8(hid), CK = round_up64(C);
+  char* sm = reinterpret_cast<char*>(gdfn_dyn);
+  float* tp = reinterpret_cast<float*>(sm);                            // [9][128] the chunk's taps
+  __nv_bfloat16* gs = reinterpret_cast<__nv_bfloat16*>(sm + pl.taps);  // [64][kTailLdg] gated
+  float* ts = reinterpret_cast<float*>(sm + pl.taps + pl.gated);       // [100][kGdfnLdt] t
+  __nv_bfloat16* xh = reinterpret_cast<__nv_bfloat16*>(sm + pl.taps + pl.gated + pl.t);  // halo
+  __nv_bfloat16* rg = xh + kFrontRows * ld;                            // the ring
+  const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  for (int p = threadIdx.x; p < kFrontRows; p += blockDim.x)
+    hsrc[p] = halo_src(p, b, ty, tx, H, W, 0);
+  __syncthreads();
+  stage_halo(xh, ld, hsrc, x, nullptr, C, 0, CP, flags & kVecX);
+
+  // tile t of the weight stream, zero past hid, C and Co
+  const int per = nk + nk2, n_in = pl.nch * per;
+  auto wr = front_ring(rg, (size_t)kTailN * kTailLd, pl.ws, pl.tiles(),
+      [=](int t, __nv_bfloat16* dst) {
+        if (t < n_in) {
+          const int j0 = t / per * kGdfnK, pos = t % per;
+          if (pos < nk) {  // project_in: rows j0.. (x1), then hid + j0.. (x2), depth k0..
+            const int k0 = kGdfnK * pos;
+            stage_tile(dst, kTailLd, win + (size_t)j0 * C8 + k0, C8, kGdfnK, kGdfnK, hid - j0,
+                       C8 - k0);
+            stage_tile(dst + kGdfnK * kTailLd, kTailLd, win + (size_t)(hid + j0) * C8 + k0, C8,
+                       kGdfnK, kGdfnK, hid - j0, C8 - k0);
+          } else {  // project_out: output channels n0.., hidden units j0..
+            const int n0 = kTailN * (pos - nk);
+            stage_tile(dst, kTailLd, wout + (size_t)n0 * hid8 + j0, hid8, min(kTailN, CK - n0),
+                       kGdfnK, C - n0, hid8 - j0);
+          }
+        } else {  // the exit 1x1: output channels n0.., depth k0..
+          const int u = t - n_in, n0 = u / nk * kTailN, k0 = u % nk * kGdfnK;
+          stage_tile(dst, kTailLd, wproj + (size_t)n0 * C8 + k0, C8, kTailN, kGdfnK, Co - n0,
+                     C8 - k0);
+        }
+      });
+  wr.prefetch();
+  // the halo landed (the oldest group); LayerNorm in place (zero rows stay zero)
+  cp_async_wait_upto(pl.ws - 1);
+  __syncthreads();
+  halo_ln(xh, ld, hsrc, C, lnw, lnb, eps);
+
+  // project_out's operands as the tail tile's fc2: A the gated tile at the
+  // warp's 16 rows, B the lane's offset in a tile; sums in registers
+  const int wc = warp & 3, groups = CK / 64;
+  const uint32_t ag = smem_u32(gs + (16 * (warp >> 2) + (lane & 15)) * kTailLdg + 8 * (lane >> 4));
+  const int boff = ((lane & 7) + 8 * (lane >> 4)) * kTailLd + 8 * ((lane >> 3) & 1);
+  float oacc[2 * kTailGroups][4];
+#pragma unroll
+  for (int q = 0; q < 2 * kTailGroups; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[q][e] = 0.f;
+  float acc[kGdfnUnits][4][4];
+  for (int j0 = 0; j0 < hid; j0 += kGdfnK) {
+    // the chunk's taps in float32: column u < 64 is x1 unit j0 + u, the rest
+    // x2 unit j0 + u - 64; zero past hid (every thread is past the last
+    // chunk's depthwise conv: the last project_out tile's barrier)
+    for (int i = threadIdx.x; i < 9 * 2 * kGdfnK; i += blockDim.x) {
+      const int tap = i / (2 * kGdfnK), u = i % (2 * kGdfnK), unit = j0 + u % kGdfnK;
+      tp[i] = unit < hid ? __bfloat162float(taps[(size_t)(u < kGdfnK ? unit : hid + unit) * 9 + tap])
+                         : 0.f;
+    }
+    // project_in over the halo; t of its 100 rows in float32
+    halo_1x1(acc, xh, ld, wr, kGdfnInUnits, CP, nk);
+    front_out(acc, kGdfnInUnits, 7, [&](int r, int c, float v0, float v1) {
+      if (r < kHaloPix) *reinterpret_cast<float2*>(ts + r * kGdfnLdt + c) = make_float2(v0, v1);
+    });
+    __syncthreads();
+    // the depthwise 3x3 in float32 (taps in order, as dwconv3_f32), then
+    // gelu(x1) * x2 rounded to bf16; one item = (unit u, tile column pc, 4
+    // output rows from pr)
+    for (int idx = threadIdx.x; idx < kGdfnK * 16; idx += blockDim.x) {
+      const int u = idx % kGdfnK, h = idx / kGdfnK, pc = h & 7, pr = (h >> 3) * 4;
+      float w1[9], w2[9];
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        w1[tap] = tp[tap * 2 * kGdfnK + u];
+        w2[tap] = tp[tap * 2 * kGdfnK + kGdfnK + u];
+      }
+      float s1[4], s2[4];
+#pragma unroll
+      for (int o = 0; o < 4; ++o) s1[o] = s2[o] = 0.f;
+#pragma unroll
+      for (int rr = 0; rr < 6; ++rr)
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          const float* tr = ts + ((pr + rr) * kHalo + pc + dx) * kGdfnLdt + u;
+          const float v1 = tr[0], v2 = tr[kGdfnK];
+#pragma unroll
+          for (int o = 0; o < 4; ++o) {
+            const int dy = rr - o;
+            if (dy < 0 || dy > 2) continue;
+            s1[o] = fmaf(v1, w1[dy * 3 + dx], s1[o]);
+            s2[o] = fmaf(v2, w2[dy * 3 + dx], s2[o]);
+          }
+        }
+#pragma unroll
+      for (int o = 0; o < 4; ++o)
+        gs[((pr + o) * kTile + pc) * kTailLdg + u] = __float2bfloat16(gelu_erf(s1[o]) * s2[o]);
+    }
+    // project_out; the first tile's barrier makes the gated tile visible
+    for (int i = 0; i < nk2; ++i)
+      tail_fc2(oacc, ag, smem_u32(wr.consume() + 16 * wc * kTailLd + boff), 2 * i, groups);
+  }
+
+  // y = the sums (+ x), rounded once, into the halo's space ([64][ld]; its
+  // columns C..CP stay zero from the staging): every thread is past its last
+  // halo read (the last project_in tile came before the last project_out
+  // tile's barrier)
+  __nv_bfloat16* y = xh;
+  tail_out(oacc, C, [&](int i, int k, float v) {
+    if (residual) v += __bfloat162float(x[tile_pix(b, ty, tx, i, H, W) * C + k]);
+    y[i * ld + k] = __float2bfloat16(v);
+  });
+  __syncthreads();
+  const bool vec_out = flags & kVecOut;
+  auto same = [](int, int, float v) { return v; };
+  if (wproj == nullptr) {
+    tail_store(y, ld, C, vec_out, [&](int i) { return out + tile_pix(b, ty, tx, i, H, W) * C; },
+               same);
+    return;
+  }
+  // the exit 1x1: y x proj_w in passes of 128 output channels (4 row tiles x
+  // up to 4 column blocks), rounded into t's space ([64][ldo] bf16), stored
+  const int ldo = round_up8(Co) + 8;
+  __nv_bfloat16* ob = reinterpret_cast<__nv_bfloat16*>(ts);
+  for (int n0 = 0; n0 < Co; n0 += kTailN) {
+    const int n_units = 4 * (min(kTailN, round_up32(Co) - n0) / 32);
+    halo_1x1(acc, y, ld, wr, n_units, CP, nk, 4);
+    front_out(acc, n_units, 4, [&](int r, int c, float v0, float v1) {
+      if (n0 + c < Co) *reinterpret_cast<uint32_t*>(ob + r * ldo + n0 + c) = pack_bf16x2(v0, v1);
+    });
+  }
+  __syncthreads();
+  tail_store(ob, ldo, Co, vec_out, [&](int i) { return out + tile_pix(b, ty, tx, i, H, W) * Co; },
+             same);
+}
+
+// The bf16 tile: C and Co up to kTailMaxC; win, wout and wproj 16-byte aligned.
+cudaError_t launch_gdfn_tc(const __nv_bfloat16* x, const float* lnw, const float* lnb,
+                           const __nv_bfloat16* win, const __nv_bfloat16* taps,
+                           const __nv_bfloat16* wout, const __nv_bfloat16* wproj, int Co,
+                           int residual, __nv_bfloat16* out, int B, int H, int W, int C, int hid,
+                           float eps, cudaStream_t stream) {
+  if (C > kTailMaxC || Co > kTailMaxC || !aligned(win, 16) || !aligned(wout, 16) ||
+      !aligned(wproj, 16))
+    return cudaErrorInvalidValue;
+  const size_t smem = GdfnPlan(C, hid, wproj != nullptr ? Co : 0).bytes;
+  int flags = 0;
+  if (C % 8 == 0 && aligned(x, 16)) flags |= kVecX;
+  if (Co % 8 == 0 && aligned(out, 16)) flags |= kVecOut;
+  cudaError_t err = set_smem(gdfn_tc_kernel, smem);
+  if (err != cudaSuccess) return err;
+  gdfn_tc_kernel<<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
+      x, lnw, lnb, win, taps, wout, wproj, Co, residual, out, H, W, C, hid, eps, flags);
+  return cudaGetLastError();
+}
 
 // ---------------------------------------------------------------------------
 // Backward (K11, replaces _gdfn_bwd_kernel, mp_hsir_tpu/ops/pallas_vjp.py:342):
@@ -305,9 +542,13 @@ cudaError_t launch_gdfn_bwd(const void* x, const float* lnw, const float* lnb, c
 
 }  // namespace mp
 
-// x (B, H, W, C); LN float32; win [C][2*hid], wdw [9][2*hid], wout [hid][C],
-// wproj [C][Co] or NULL, all in the compute type. Output (B, H, W, Co), with
-// Co = C when wproj is NULL. kc: the channel chunk (mp_gdfn_chunk).
+// x (B, H, W, C); LN float32. Output (B, H, W, Co), with Co = C when wproj
+// is NULL. float32 (dtype 0): win [C][2*hid], wdw [9][2*hid], wout [hid][C],
+// wproj [C][Co] or NULL ([in][out] copies); kc the channel chunk
+// (mp_gdfn_chunk). bf16 (dtype 1, C and Co up to 384): the torch layouts,
+// win [2*hid][C8], wdw [2*hid][9], wout [C][hid8], wproj [Co][C8] or NULL
+// (rows padded with zeros to C8 / hid8, rounded up to 8; 16-byte aligned);
+// kc is C.
 extern "C" int mp_gdfn(const void* x, const void* lnw, const void* lnb, const void* win,
                        const void* wdw, const void* wout, const void* wproj, void* out,
                        int dtype, int B, int H, int W, int C, int hid, int Co, int residual,
@@ -315,21 +556,27 @@ extern "C" int mp_gdfn(const void* x, const void* lnw, const void* lnb, const vo
   if (H % mp::kTile != 0 || W % mp::kTile != 0 || kc <= 0 || kc > C)
     return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
+  auto f = [](const void* p) { return (const float*)p; };
   if (dtype == 0)
-    return (int)mp::launch_gdfn<float>(x, (const float*)lnw, (const float*)lnb, win, wdw, wout,
-                                       wproj, Co, residual, out, B, H, W, C, hid, kc, eps, st);
-  return (int)mp::launch_gdfn<__nv_bfloat16>(x, (const float*)lnw, (const float*)lnb, win, wdw,
-                                             wout, wproj, Co, residual, out, B, H, W, C, hid,
-                                             kc, eps, st);
+    return (int)mp::launch_gdfn(f(x), f(lnw), f(lnb), f(win), f(wdw), f(wout), f(wproj), Co,
+                                residual, (float*)out, B, H, W, C, hid, kc, eps, st);
+  using bf = const __nv_bfloat16*;
+  return (int)mp::launch_gdfn_tc((bf)x, f(lnw), f(lnb), (bf)win, (bf)wdw, (bf)wout, (bf)wproj, Co,
+                                 residual, (__nv_bfloat16*)out, B, H, W, C, hid, eps, st);
 }
 
-// The channel chunk the forward kernel launches with at C.
+// The channel chunk the float32 forward kernel launches with at C.
 extern "C" int mp_gdfn_chunk(int C) { return mp::gdfn_chunk(C); }
 
-// Shared-memory plans per block (bytes, static included) at C and channel
-// chunk kc.
+// Shared-memory plans per block (bytes, static included): the float32
+// forward at C and channel chunk kc; the bf16 tile at C (GdfnPlan; its
+// bytes do not depend on hid or Co).
 extern "C" long long mp_gdfn_smem(int C, int kc) {
   return mp::plan_bytes(mp::gdfn_kernel<float>, mp::gdfn_smem(C, kc));
+}
+
+extern "C" long long mp_gdfn_tc_smem(int C) {
+  return mp::plan_bytes(mp::gdfn_tc_kernel, mp::GdfnPlan(C, 0, 0).bytes);
 }
 
 extern "C" long long mp_gdfn_bwd_smem(int C, int kc) {

@@ -161,6 +161,28 @@ __device__ __forceinline__ void tail_ln(Src src, __nv_bfloat16* dst, int ldd, in
   }
 }
 
+// One fc2 tile: acc (the warp's slice of the output, see tail_out) += the
+// gated chunk ([64][kTailLdg] bf16; a: the lane's ldmatrix address at its
+// warp's rows) x the tile's output groups g0 and g0 + 1 (of `groups`); b: the
+// lane's address in the [kTailN][kTailLd] tile at the warp's 16 columns.
+__device__ __forceinline__ void tail_fc2(float (&acc)[2 * kTailGroups][4], uint32_t a, uint32_t b,
+                                         int g0, int groups) {
+#pragma unroll
+  for (int kk = 0; kk < kTailK / 16; ++kk) {
+    uint32_t af[4];
+    ldmatrix_x4(af, a + 2 * 16 * kk);
+#pragma unroll
+    for (int G = 0; G < kTailGroups; ++G) {
+      if (G >= g0 && G < g0 + 2 && G < groups) {  // warp-uniform
+        uint32_t bf[4];
+        ldmatrix_x4(bf, b + 2 * ((G - g0) * 64 * kTailLd + 16 * kk));
+        mma_16x8x16(acc[2 * G], af[0], af[1], af[2], af[3], bf[0], bf[1]);
+        mma_16x8x16(acc[2 * G + 1], af[0], af[1], af[2], af[3], bf[2], bf[3]);
+      }
+    }
+  }
+}
+
 // The hidden loop. xn: LN2(y) as bf16 ([64][ldx], zero from C to CK); gs:
 // the gated chunk ([64][kTailLdg]); rg: the weight stream, its first S - 1
 // tiles issued. acc gets the fc2 sums of the warp's slice (without b2); see
@@ -221,24 +243,8 @@ __device__ __forceinline__ void mlp_tail_tc(float (&acc)[2 * kTailGroups][4],
     }
     // fc2: tile i holds output groups 2 i and 2 i + 1 (64 channels each);
     // the barrier of its consume() makes the gated chunk visible
-    for (int i = 0; i < rg.nk2; ++i) {
-      const uint32_t b = smem_u32(rg.consume() + 16 * wc * kTailLd + boff);
-      const int g0 = 2 * i;
-#pragma unroll
-      for (int kk = 0; kk < kTailK / 16; ++kk) {
-        uint32_t af[4];
-        ldmatrix_x4(af, a2 + 2 * 16 * kk);
-#pragma unroll
-        for (int G = 0; G < kTailGroups; ++G) {
-          if (G >= g0 && G < g0 + 2 && G < groups) {  // warp-uniform
-            uint32_t bf[4];
-            ldmatrix_x4(bf, b + 2 * ((G - g0) * 64 * kTailLd + 16 * kk));
-            mma_16x8x16(acc[2 * G], af[0], af[1], af[2], af[3], bf[0], bf[1]);
-            mma_16x8x16(acc[2 * G + 1], af[0], af[1], af[2], af[3], bf[2], bf[3]);
-          }
-        }
-      }
-    }
+    for (int i = 0; i < rg.nk2; ++i)
+      tail_fc2(acc, a2, smem_u32(rg.consume() + 16 * wc * kTailLd + boff), 2 * i, groups);
   }
 }
 

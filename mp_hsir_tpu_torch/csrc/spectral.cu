@@ -343,6 +343,178 @@ spectral_apply_kernel(const T* __restrict__ x1, const T* __restrict__ x2, int C1
   }
 }
 
+// Arguments: as mp_spectral_apply in bf16, with wv the v rows of wqkv ([C][C8],
+// torch layout), taps the v rows of the depthwise weight ([C][9]) and comb in
+// bf16 ([B][C][C8]); flags: kVecX | kPairs | kVecOut (launch_apply_tc).
+__global__ void __launch_bounds__(kThreads)
+spectral_apply_tc_kernel(const __nv_bfloat16* __restrict__ x1, const __nv_bfloat16* __restrict__ x2,
+                         int C1, int C2, const float* __restrict__ lnw,
+                         const float* __restrict__ lnb, const __nv_bfloat16* __restrict__ wv,
+                         const __nv_bfloat16* __restrict__ taps,
+                         const __nv_bfloat16* __restrict__ comb,
+                         const __nv_bfloat16* __restrict__ gate,
+                         const __nv_bfloat16* __restrict__ shortcut, int residual,
+                         const float* __restrict__ ln2w, const float* __restrict__ ln2b,
+                         const __nv_bfloat16* __restrict__ w1, const float* __restrict__ b1,
+                         const __nv_bfloat16* __restrict__ w2, const float* __restrict__ b2,
+                         int hid, const float* __restrict__ dp, __nv_bfloat16* __restrict__ out,
+                         int H, int W, int shift, float eps, int flags, int tail_stages) {
+  extern __shared__ float4 front_dyn[];
+  __shared__ int hsrc[kFrontRows];            // halo row -> raw source pixel (-1: zero row)
+  __shared__ int esrc[kPix], egate[kPix];     // tile pixel -> raw source pixel, gate row
+  const int C = C1 + C2;
+  const FrontPlan pl(C);
+  const int ld = pl.ld, CP = pl.CP, C8 = round_up8(C);
+  char* sm = reinterpret_cast<char*>(front_dyn);
+  __nv_bfloat162* tp = reinterpret_cast<__nv_bfloat162*>(sm);        // [9][CP / 2] tap pairs
+  __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(sm + pl.taps);  // [64][ld] v
+  __nv_bfloat16* xh = vs + kPix * ld;                                  // [112][ld] halo
+  __nv_bfloat16* rg = xh + kFrontRows * ld;                            // ring / 1x1 output
+  __nv_bfloat16* y = reinterpret_cast<__nv_bfloat16*>(sm);             // [64][ld] (after comb)
+  const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool vec_x = flags & kVecX, pairs = flags & kPairs;
+
+  // the raw source pixel of each halo pixel (unrolled frame, read through the
+  // roll-back) and of each tile pixel, and each tile pixel's gate window
+  for (int p = threadIdx.x; p < kFrontRows; p += blockDim.x) {
+    hsrc[p] = halo_src(p, b, ty, tx, H, W, shift);
+    if (p < kPix) {
+      const int sr = (ty * kTile + (p >> 3) - shift + H) % H;
+      const int sc = (tx * kTile + (p & 7) - shift + W) % W;
+      esrc[p] = (b * H + sr) * W + sc;
+      egate[p] = (b * (H / kTile) + sr / kTile) * (W / kTile) + sc / kTile;
+    }
+  }
+  // the depthwise taps of v as bf16 pairs [9][CP / 2], zero past C
+  for (int i = threadIdx.x; i < 9 * (CP / 2); i += blockDim.x) {
+    const int tap = i / (CP / 2), c = 2 * (i - tap * (CP / 2));
+    const __nv_bfloat16 z = __float2bfloat16(0.f);
+    tp[i] = __halves2bfloat162(c < C ? taps[c * 9 + tap] : z, c + 1 < C ? taps[(c + 1) * 9 + tap] : z);
+  }
+  __syncthreads();
+
+  // the halo as bf16, one commit group
+  stage_halo(xh, ld, hsrc, x1, x2, C1, C2, CP, vec_x);
+
+  // the 1x1 weights of pass p: [NP out][64 in] tiles of wv, zero past C
+  float acc[kFrontUnits][4][4];
+  for (int n0 = 0; n0 < CP; n0 += pl.NP) {
+    const int np = min(pl.NP, CP - n0), n_units = 7 * (np / 32);
+    auto wr = front_ring(rg, (size_t)pl.NP * kFrontLdw, pl.ws, pl.nk,
+        [=](int t, __nv_bfloat16* dst) {
+          stage_tile(dst, kFrontLdw, wv + (size_t)n0 * C8 + 64 * t, C8, np, 64, C - n0, C8 - 64 * t);
+        });
+    wr.prefetch();
+    if (n0 == 0) {
+      // the halo landed (the oldest group); LayerNorm in place, one warp per
+      // row, as ln_rows_inplace computes it
+      cp_async_wait_upto(pl.ws - 1);
+      __syncthreads();
+      if (lnw != nullptr) halo_ln(xh, ld, hsrc, C, lnw, lnb, eps);
+    }
+    halo_1x1(acc, xh, ld, wr, n_units, CP, pl.nk);
+    cp_async_wait<0>();
+    __syncthreads();
+    // the pass's 1x1 output, rounded to bf16, into the ring's space ([100][NP + 8])
+    const int ldt = pl.NP + 8;
+    front_out(acc, n_units, 7, [&](int r, int c, float v0, float v1) {
+      if (r < kHaloPix)
+        *reinterpret_cast<uint32_t*>(rg + r * ldt + c) = pack_bf16x2(v0, v1);
+    });
+    __syncthreads();
+    // depthwise 3x3 on bf16 pairs into v
+    dw3_pairs(rg, ldt, tp + n0 / 2, CP / 2, vs + n0, ld, np / 2);
+    __syncthreads();
+  }
+
+  // comb's product: [64 k][CP n] tiles of this image's comb through the halo
+  // and ring space, v by ldmatrix, comb by ldmatrix.trans
+  {
+    const __nv_bfloat16* cb = comb + (size_t)b * C * C8;
+    auto cr = front_ring(xh, pl.cstage / sizeof(__nv_bfloat16), pl.cs, pl.nk,
+        [=](int t, __nv_bfloat16* dst) {
+          stage_tile(dst, ld, cb + (size_t)64 * t * C8, C8, 64, CP, C - 64 * t, C8);
+        });
+    cr.prefetch();
+    const int n_units = 4 * (CP / 32);
+    uint32_t a[kFrontUnits], bo[kFrontUnits];
+#pragma unroll
+    for (int j = 0; j < kFrontUnits; ++j) {
+      const int q = warp + 16 * j, mt = q & 3, nb = q >> 2;
+      a[j] = smem_u32(vs + (16 * mt + (lane & 15)) * ld + 8 * (lane >> 4));
+      bo[j] = 2 * (((lane & 7) + 8 * ((lane >> 3) & 1)) * ld + 32 * nb + 8 * (lane >> 4));
+    }
+    front_zero(acc);
+    for (int t = 0; t < pl.nk; ++t) {
+      const uint32_t tile = smem_u32(cr.consume());
+      uint32_t at[kFrontUnits], bt[kFrontUnits];
+#pragma unroll
+      for (int j = 0; j < kFrontUnits; ++j) {
+        at[j] = a[j] + 2 * 64 * t;
+        bt[j] = tile + bo[j];
+      }
+      front_mma<true>(acc, at, bt, n_units, min(4, (CP - 64 * t) / 16), ld);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    // the epilogue from the accumulators into y (bf16)
+    const bool epi = gate != nullptr || residual || dp != nullptr;
+    const float dpb = dp != nullptr ? dp[b] : 1.f;
+    front_out(acc, n_units, 4, [&](int i, int c, float v0, float v1) {
+      if (c >= C) return;
+      float o0 = __bfloat162float(__float2bfloat16(v0)), o1 = __bfloat162float(__float2bfloat16(v1));
+      if (epi) {
+        const float2 u = load_pair(x1, x2, C1, C2, esrc[i], c, pairs);
+        const float2 g = gate != nullptr ? load_pair(gate, nullptr, C, 0, egate[i], c, pairs)
+                                         : make_float2(0.f, 0.f);
+        if (dp != nullptr) {
+          o0 = rnd<__nv_bfloat16>((v0 + u.x * g.x) * dpb);
+          o1 = rnd<__nv_bfloat16>((v1 + u.y * g.y) * dpb);
+        } else if (gate != nullptr) {
+          o0 = rnd<__nv_bfloat16>(rnd<__nv_bfloat16>(u.x * g.x) + o0);
+          o1 = rnd<__nv_bfloat16>(rnd<__nv_bfloat16>(u.y * g.y) + o1);
+        }
+        if (residual) {
+          o0 = rnd<__nv_bfloat16>(u.x + o0);
+          o1 = rnd<__nv_bfloat16>(u.y + o1);
+        }
+      }
+      if (shortcut != nullptr) {
+        const float2 s = load_pair(shortcut, nullptr, C, 0, tile_pix(b, ty, tx, i, H, W), c, pairs);
+        o0 = rnd<__nv_bfloat16>(s.x + o0);
+        o1 = rnd<__nv_bfloat16>(s.y + o1);
+      }
+      *reinterpret_cast<uint32_t*>(y + i * ld + c) = pack_bf16x2(o0, o1);
+    });
+    __syncthreads();
+  }
+
+  const bool vec_out = flags & kVecOut;
+  auto dst = [&](int i) { return out + tile_pix(b, ty, tx, i, H, W) * C; };
+  auto same = [](int, int, float v) { return v; };
+  if (w1 == nullptr) {
+    tail_store(y, ld, C, vec_out, dst, same);
+    return;
+  }
+  // the tail tile in the space after y: LN2(y) as bf16, the gated chunk, the
+  // ring; y + branch rounded once
+  const int ldn = round_up64(C) + 8;
+  __nv_bfloat16* xn = y + kPix * ld;
+  __nv_bfloat16* gs = xn + kPix * ldn;
+  TailRing tr(w1, w2, gs + kPix * kTailLdg, tail_stages, C, hid);
+  tr.prefetch();
+  tail_ln([&](int i, int k) { return __bfloat162float(y[i * ld + k]); }, xn, ldn, C, ln2w, ln2b,
+          eps);
+  float tacc[2 * kTailGroups][4];
+  mlp_tail_tc(tacc, xn, ldn, gs, tr, b1, hid);
+  tail_out(tacc, C, [&](int i, int k, float v) {
+    xn[i * ldn + k] = __float2bfloat16(__bfloat162float(y[i * ld + k]) + (v + b2[k]));
+  });
+  __syncthreads();
+  tail_store(xn, ldn, C, vec_out, dst, same);
+}
+
 inline size_t stats_smem(int C, int nH, int kc) {
   const int dh = C / nH;
   return sizeof(float) * ((size_t)kHaloPix * (kc + 1) + (size_t)kHaloPix * (2 * dh + 1) +
@@ -424,8 +596,6 @@ cudaError_t launch_stats(const float* x1, const float* x2, int C1, int C2, const
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   return launch_sum_stats(part, gram, nq, nk, B, n_parts, C, C / nH, stream);
 }
-
-inline bool aligned(const void* p, int n) { return (uintptr_t)p % n == 0; }
 
 // The bf16 tile (spectral_stats.cuh): wqk [2C][C8] (16-byte aligned), taps
 // [2C][9]; C up to kFrontMaxC.

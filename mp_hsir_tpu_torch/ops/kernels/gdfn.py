@@ -8,6 +8,12 @@ Kernel: ``csrc/gdfn.cu`` (replaces ``_gdfn_kernel``,
 :func:`gdfn_bwd_plain`. Weights are conv weights in OIHW: w_in
 (2h, C, 1, 1), w_dw (2h, 1, 3, 3), w_out (C, h, 1, 1), proj_w (Co, C, 1, 1).
 The exit projection ``proj_w`` is eval-only (no backward), as in JAX.
+
+The bf16 forward runs the tensor-core tile ``gdfn_tc_kernel`` (C and Co up
+to :data:`GDFN_MAX_C`): it streams the torch layouts of the weights as they
+are (:func:`pack_gdfn`) in the tiles that :func:`gdfn_plan` describes. The
+float32 forward and the backward keep the chunked SIMT kernels on [in][out]
+weight copies.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ from __future__ import annotations
 from functools import lru_cache
 
 import torch
+import torch.nn.functional as F
 
 from mp_hsir_tpu_torch.ops.basic import gelu_exact, layer_norm
 from mp_hsir_tpu_torch.ops.kernels import _build
@@ -24,9 +31,23 @@ from mp_hsir_tpu_torch.ops.kernels._grad import (
 from mp_hsir_tpu_torch.ops.kernels._route import (
     ROUTE, counter, dtype_code, f32, kernel_weight, stream_ptr,
 )
+from mp_hsir_tpu_torch.ops.kernels.mlp import TAIL_K, TAIL_MAX_C
+from mp_hsir_tpu_torch.ops.kernels.spectral import FRONT_ROWS, STATS_BUDGET
 
 COUNTER = counter("gdfn")
 BWD = counter("gdfn_bwd")
+# the bf16 tile (csrc/gdfn.cu), which takes the tail tile's fc2 and the
+# front's halo: its widest C and Co (kTailMaxC), the hidden chunk and the
+# weight tiles' depth (kGdfnK = kTailK), a tile's output rows (kTailN) and
+# bytes (kTailStage), the ring's most stages (kTailStages), the float32 t
+# row (kGdfnLdt), the gated tile's row (kTailLdg), the halo rows (kFrontRows)
+# and the dynamic bytes a plan may take (kGdfnBudget, the stats tile's too)
+GDFN_MAX_C, GDFN_K, GDFN_ROWS, GDFN_BUDGET = TAIL_MAX_C, TAIL_K, FRONT_ROWS, STATS_BUDGET
+GDFN_N = 128
+GDFN_STAGE = 2 * GDFN_N * (GDFN_K + 8)
+GDFN_STAGES = 4
+GDFN_LDT = 2 * GDFN_K + 8
+GDFN_LDG = GDFN_K + 8
 
 
 def gdfn_plain(x, ln_w, ln_b, w_in, w_dw, w_out, residual: bool = False, proj_w=None,
@@ -76,6 +97,44 @@ def gdfn_bwd_plain(x, ln_w, ln_b, w_in, w_dw, w_out, residual, eps, dy):
             dw_out.reshape(c, hid, 1, 1))
 
 
+def gdfn_plan(c: int, hid: int, co: int = 0) -> dict:
+    """The bf16 tile's tiling (``GdfnPlan`` in csrc/gdfn.cu) at width ``c``,
+    hidden width ``hid`` and exit width ``co`` (0: no exit 1x1): ``cp`` = c
+    rounded up to 32, ``ld`` the halo's row; ``nch`` hidden chunks of
+    :data:`GDFN_K` units, each ``nk`` project_in tiles (64 deep over cp) and
+    ``nk2`` project_out tiles (128 output channels over c rounded up to 64);
+    then ``npb`` x ``nk`` exit tiles; ``tiles`` in all through ``ws`` ring
+    stages; ``bytes`` the dynamic shared memory (taps, gated tile, float32 t,
+    halo, ring)."""
+    cp = -(-c // 32) * 32
+    ld = cp + 8
+    nk, nch = -(-cp // GDFN_K), -(-hid // GDFN_K)
+    nk2, npb = -(-(-(-c // 64) * 64) // GDFN_N), -(-co // GDFN_N)
+    fixed = 4 * 9 * 2 * GDFN_K + 2 * 64 * GDFN_LDG + 4 * 100 * GDFN_LDT + 2 * GDFN_ROWS * ld
+    ws = GDFN_STAGES
+    while ws > 2 and fixed + ws * GDFN_STAGE > GDFN_BUDGET:
+        ws -= 1
+    return dict(cp=cp, ld=ld, nk=nk, nch=nch, nk2=nk2, npb=npb, ws=ws,
+                tiles=nch * (nk + nk2) + npb * nk, bytes=fixed + ws * GDFN_STAGE)
+
+
+def pack_gdfn(w_in, w_dw, w_out, proj_w, dt):
+    """The operands the bf16 tile streams, in ``dt``, in their torch layouts:
+    w_in as [2 hid][C8], the depthwise taps as [2 hid][9], w_out as [C][hid8]
+    and proj_w as [Co][C8] (or None); C8 and hid8 are C and hid rounded up
+    to 8, the rows padded with zeros only where they are not multiples of 8
+    (16-byte rows for the kernel's copies). Views of the weights where they
+    are already in ``dt`` and need no padding."""
+    c, hid = w_out.shape[0], w_out.shape[1]
+
+    def rows(w, n):
+        w = w.reshape(w.shape[0], n).to(dt)
+        return (F.pad(w, (0, -n % 8)) if n % 8 else w).contiguous()
+
+    wp = None if proj_w is None else rows(proj_w, c)
+    return rows(w_in, c), w_dw.reshape(2 * hid, 9).to(dt).contiguous(), rows(w_out, hid), wp
+
+
 @lru_cache(maxsize=None)
 def _entry(bwd: bool = False):
     import ctypes
@@ -85,25 +144,43 @@ def _entry(bwd: bool = False):
     return _build.entry("mp_gdfn", 8, [ctypes.c_int] * 9 + [ctypes.c_float])
 
 
-def _launch(x, ln_w, ln_b, w_in, w_dw, w_out, residual, proj_w, eps):
+def _prepare(x, ln_w, ln_b, w_in, w_dw, w_out, residual=False, proj_w=None, eps=1e-5):
+    """Everything a launch needs: (the C entry's arguments, out, the tensors
+    the arguments point into, to be held until the launch). Weights: float32
+    [in][out] copies; bf16 :func:`pack_gdfn`."""
     b, h, w, c = x.shape
     if h % 8 or w % 8:
         raise ValueError(f"gdfn needs H, W % 8 == 0, got {x.shape}")
     dt, code = x.dtype, dtype_code(x)
     hid = w_out.shape[1]
     co = c if proj_w is None else proj_w.shape[0]
-    kc = _build.chunk("mp_gdfn_chunk", c)
-    _build.check_plan("gdfn", "mp_gdfn_smem", f"C={c}", c, kc)
+    if code:
+        if max(c, co) > GDFN_MAX_C:  # the widest C (and Co) of the tile's plan
+            raise ValueError(f"the bf16 gdfn kernel takes C and Co up to {GDFN_MAX_C}, got "
+                             f"C={c}, Co={co}")
+        kc = c
+        _build.check_plan("gdfn", "mp_gdfn_tc_smem", f"C={c}", c)
+        wi, wd, wo, wp = pack_gdfn(w_in, w_dw, w_out, proj_w, dt)
+    else:
+        kc = _build.chunk("mp_gdfn_chunk", c)
+        _build.check_plan("gdfn", "mp_gdfn_smem", f"C={c}", c, kc)
+        wi, wd, wo = kernel_weight(w_in, dt), kernel_weight(w_dw, dt), kernel_weight(w_out, dt)
+        wp = None if proj_w is None else kernel_weight(proj_w, dt)
     x = x.contiguous()
-    wi, wd, wo = kernel_weight(w_in, dt), kernel_weight(w_dw, dt), kernel_weight(w_out, dt)
-    wp = None if proj_w is None else kernel_weight(proj_w, dt)
     lnw, lnb = f32(ln_w), f32(ln_b)
     out = torch.empty((b, h, w, co), dtype=dt, device=x.device)
-    err = _entry()(x.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), wi.data_ptr(), wd.data_ptr(),
-                   wo.data_ptr(), _build.ptr(wp), out.data_ptr(), code, b, h, w, c, hid, co,
-                   int(residual), kc, eps, stream_ptr())
-    _build.check("mp_gdfn", err)
-    COUNTER.record(("gdfn", b, h, w, c, hid, co, bool(residual), str(dt)))
+    args = (x.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), wi.data_ptr(), wd.data_ptr(),
+            wo.data_ptr(), _build.ptr(wp), out.data_ptr(), code, b, h, w, c, hid, co,
+            int(residual), kc, eps, stream_ptr())
+    return args, out, (x, lnw, lnb, wi, wd, wo, wp)
+
+
+def _launch(x, ln_w, ln_b, w_in, w_dw, w_out, residual, proj_w, eps):
+    args, out, _held = _prepare(x, ln_w, ln_b, w_in, w_dw, w_out, residual, proj_w, eps)
+    _build.check("mp_gdfn", _entry()(*args))
+    b, h, w, c = x.shape
+    COUNTER.record(("gdfn", b, h, w, c, w_out.shape[1], out.shape[-1], bool(residual),
+                    str(x.dtype)))
     return out
 
 

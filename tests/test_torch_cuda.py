@@ -768,3 +768,94 @@ def test_cuda_spectral_stats_bf16_past_384_raises():
         spectral_stats(args[0].to(torch.bfloat16), *args[1:], **kw)
     _check_fwd(spectral_stats, args, kw, 1e-4)
     assert _route.COUNTERS["spectral_stats"].launches == 1
+
+
+# The bf16 GDFN tile (gdfn_tc_kernel, csrc/gdfn.cu) at every (C, hid, Co) of
+# the presets' calls (hid 340 and 510 pad w_out's rows, 1021 pads to 1024;
+# the last hidden chunk is ragged at every width; C = 384 holds the widest
+# register slice) and C = 36 and 27 (element-wise halo and stores, w_in's rows
+# padded to 40 and 32, an odd C and Co), with and without the residual and
+# the exit 1x1, on 3 tiles (1x8x24) and 24 (2x16x48: two images, a non-square
+# tile grid)
+GDFN_WIDTHS = ((128, 340, 64), (256, 680, 128), (192, 510, 96), (384, 1021, 192), (36, 95, 18),
+               (27, 71, 13))
+GDFN_CASES = [(c, hid, co, residual, proj, b, h, w) for c, hid, co in GDFN_WIDTHS
+              for residual, proj in ((False, False), (True, False), (True, True), (False, True))
+              for b, h, w in ((1, 8, 24), (2, 16, 48))]
+# mp_gdfn_tc_smem(C) (GdfnPlan, static included: 4 ring stages at every
+# width), and the plans the tile leaves as they were: mp_gdfn_smem(C, kc) and
+# mp_gdfn_bwd_smem(C, kc) at each width's chunk (64 at C = 384, else C)
+GDFN_TC_PLANS = {128: 172864, 256: 201536, 192: 187200, 384: 230208, 36: 158528, 27: 151360}
+GDFN_F32_PLANS = {128: 119872, 256: 203840, 192: 161856, 384: 159808, 36: 59520, 27: 53616}
+GDFN_BWD_PLANS = {128: 127264, 256: 211232, 192: 169248, 384: 168000, 36: 66912, 27: 61008}
+
+
+def _gdfn_inputs(c, hid, co, proj, b, h, w, dev):
+    """(args, kwargs) of one gdfn call, float32."""
+    r = _rng(90 + c + b)
+    f = lambda *s, scale=1.0: _t(_n(r, s, scale)).to(dev)  # noqa: E731
+    args = [f(b, h, w, c), 1 + f(c, scale=0.1), f(c, scale=0.1),
+            f(2 * hid, c, 1, 1, scale=c ** -0.5), f(2 * hid, 1, 3, 3, scale=1 / 3),
+            f(c, hid, 1, 1, scale=hid ** -0.5)]
+    return args, dict(proj_w=f(co, c, 1, 1, scale=c ** -0.5) if proj else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,hid,co,residual,proj,b,h,w", GDFN_CASES)
+def test_cuda_gdfn_tile_matches_plain(c, hid, co, residual, proj, b, h, w):
+    """The bf16 tile and the float32 kernel against the plain version, bf16
+    within 3e-2 and float32 within 1e-4 of the output's max-abs; one launch
+    each, the plain version only inside the check; two calls bitwise equal
+    (no cross-block sums); the bf16 plan pinned and within the device's
+    limit, the float32 forward and backward plans as they were."""
+    from mp_hsir_tpu_torch.ops.kernels import _build
+
+    dev = _cuda()
+    args, kw = _gdfn_inputs(c, hid, co, proj, b, h, w, dev)
+    kw["residual"] = residual
+    for dt, tol in ((torch.bfloat16, 3e-2), (torch.float32, 1e-4)):
+        call = [args[0].to(dt)] + args[1:]
+        _route.reset_counters()
+        _check_fwd(gdfn, call, kw, tol)
+        assert _route.COUNTERS["gdfn"].launches == 1
+        assert _route.ROUTE.plain_cuda_calls == 1
+        assert torch.equal(gdfn(*call, **kw), gdfn(*call, **kw)), dt
+    n = _build.plan_bytes("mp_gdfn_tc_smem", c)
+    assert n == GDFN_TC_PLANS[c] and n <= _build.smem_limit()
+    kc = _build.chunk("mp_gdfn_chunk", c)
+    assert _build.plan_bytes("mp_gdfn_smem", c, kc) == GDFN_F32_PLANS[c]
+    kc = _build.chunk("mp_gdfn_bwd_chunk", c)
+    assert _build.plan_bytes("mp_gdfn_bwd_smem", c, kc) == GDFN_BWD_PLANS[c]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,hid,co", [(128, 340, 64), (384, 1021, 192)])
+def test_cuda_gdfn_check_sees_the_gate(c, hid, co):
+    """The per-call check is not blind to the gate's side: the tile given
+    w_in and w_dw with their x1 and x2 halves swapped (x1 * gelu(x2), the tail
+    tile's gate) fails the 3e-2 bound against the plain version."""
+    dev = _cuda()
+    args, kw = _gdfn_inputs(c, hid, co, True, 2, 16, 24, dev)
+    x = args[0].to(torch.bfloat16)
+    swap = [torch.cat([wt[hid:], wt[:hid]]) for wt in args[3:5]]
+    got = gdfn(x, *args[1:3], *swap, args[5], residual=True, **kw)
+    with _route.plain_reference():
+        ref = gdfn(x, *args[1:], residual=True, **kw)
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err > 3e-2 * ref.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_cuda_gdfn_bf16_past_384_raises():
+    """The bf16 tile takes C and Co up to 384 and raises above them (no
+    fallback); float32 streams its input in chunks and runs."""
+    dev = _cuda()
+    args, kw = _gdfn_inputs(400, 1064, 0, False, 1, 8, 8, dev)
+    _route.reset_counters()
+    with pytest.raises(ValueError, match="C and Co up to 384"):
+        gdfn(args[0].to(torch.bfloat16), *args[1:], **kw)
+    _check_fwd(gdfn, args, kw, 1e-4)
+    assert _route.COUNTERS["gdfn"].launches == 1
+    args, kw = _gdfn_inputs(128, 340, 400, True, 1, 8, 8, dev)
+    with pytest.raises(ValueError, match="C and Co up to 384"):
+        gdfn(args[0].to(torch.bfloat16), *args[1:], **kw)
