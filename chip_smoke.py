@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of MP-HSIR on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py [--out results.json] [--mlp-bwd-split]
 
 Phases (any failure exits non-zero; no phase's error is caught):
 
@@ -11,7 +11,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
    at every preset width, and the bf16 spectral stats tile's at every (C,
    heads) of the presets beside the float32 kernel's, and the bf16 GDFN
    tile's at every width of the presets' GDFN calls beside the float32
-   kernel's at its chunk.
+   kernel's at its chunk, and the bf16 MLP backward tile's at every width of
+   the presets' train steps beside the float32 backward's.
 2. Kernel checks: every kernel wrapper on the card at each shape the
    flagship 512x512x31 eval forward gives it, in bf16 from numpy-seeded
    inputs, against its plain PyTorch version on the same inputs; also once
@@ -53,7 +54,11 @@ Phases (any failure exits non-zero; no phase's error is caught):
    option, the eval kernels at the step's shapes), float32 and bf16, against
    the plain forward or the explicit plain backward on the same inputs
    (same tolerances as phase 2); times and bounds per call, and the
-   resident forward calls streamed as in phase 2.
+   resident forward calls streamed as in phase 2. Each mlp_bwd call is also
+   split into its stages (the tile, the dW1 and dW2 weight products, the
+   partial sums: each C entry timed with CUDA events, the host queued ahead
+   of the device), whose sum is the backward alone; the stages per step
+   follow phase 6 (and phase 12 for phase 11's calls).
 6. Training main path: the flagship preset in training mode (batch 32 of
    64x64 patches cut from the quality cube, Gaussian noise, task 0) from the
    committed weights. The float32 step's parameter gradients on the kernel
@@ -107,6 +112,10 @@ Phases (any failure exits non-zero; no phase's error is caught):
     kernel ms per step from phase 11.
 13. The kernel summary line (each kernel's main-path numbers, and its
     remote-sensing train-step numbers beside them), then the result line.
+
+--mlp-bwd-split runs phase 1's build and only that stage split, at both
+presets' train-step shapes: the same measurement for another checkout of
+the package (this file copied to its root and run there).
 """
 
 from __future__ import annotations
@@ -172,7 +181,7 @@ STAGED = ("spectral_stats", "spectral_apply", "gdfn")
 # the kernels timed alone beside their wrappers, with their library yardsticks
 ALONE = {"conv3": "F.conv2d", "window_attention": None,
          "window_msa": "F.multi_head_attention_forward", "mlp": None, "spectral_stats": None,
-         "spectral_apply": None, "gdfn": None}
+         "spectral_apply": None, "gdfn": None, "mlp_bwd": None}
 # the training route's new kernels (timed at the train step's shapes)
 TRAIN_KERNELS = {
     "mlp": dict(source="mp_hsir_tpu_torch/csrc/mlp.cu", tpu=["K6"],
@@ -402,6 +411,9 @@ def plan_of(spec) -> dict:
         return dict(smem=n, smem_whole=n, kc=c, c=c)
     if name == "gdfn" and _code(spec):  # the bf16 tile: one resident plan
         n = _build.plan_bytes("mp_gdfn_tc_smem", c)
+        return dict(smem=n, smem_whole=n, kc=c, c=c)
+    if name == "mlp_bwd" and _code(spec):  # the bf16 tile: one resident plan
+        n = _build.plan_bytes("mp_mlp_bwd_tc_smem", c)
         return dict(smem=n, smem_whole=n, kc=c, c=c)
     if chunk_entry is None:  # a single whole-input plan
         n = _build.plan_bytes(smem_entry, *shape)
@@ -1063,6 +1075,79 @@ def compare_pair(kernel, plain, tol):
     return worst, worst_rel
 
 
+MLP_BWD_STAGES = ("tile", "wgrad_dw1", "wgrad_dw2", "sums")
+
+
+def mlp_bwd_split(kern, flops: float, ms: float, reps: int = 5) -> dict:
+    """The MLP backward's device time by stage: every C entry its wrapper
+    calls, timed with CUDA events around the call, the device held by a
+    sleep kernel until the host has queued all ``reps`` calls (no host gap
+    counts); the mean per call of ``tile`` (bf16: mp_mlp_bwd_tc; the float32
+    route and the design before the tile: mp_mlp_bwd and mp_ln_linear_bwd with
+    its part sums), ``wgrad_dw1`` and ``wgrad_dw2`` (a call's first and second
+    mp_wgrad, with their part sums) and ``sums`` (mp_sum_parts). Their sum is
+    the backward alone (``kernel_ms``), without the wrapper's host time and
+    weight packing; rates are flops over the wrapper's and that time."""
+    from mp_hsir_tpu_torch.ops.kernels import _grad, mlp
+
+    events = []
+
+    def timed(get):
+        def entry(*key):
+            fn = get(*key)
+
+            def call(*a):
+                e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                e0.record()
+                err = fn(*a)
+                e1.record()
+                events.append((fn.__name__, e0, e1))
+                return err
+
+            return call
+
+        return entry
+
+    kern()
+    torch.cuda.synchronize()
+    saved = {m: m._entry for m in (mlp, _grad)}
+    try:
+        for m, get in saved.items():
+            m._entry = timed(get)
+        torch.cuda._sleep(50_000_000)
+        for _ in range(reps):
+            kern()
+        torch.cuda.synchronize()
+    finally:
+        for m, get in saved.items():
+            m._entry = get
+    split = dict.fromkeys(MLP_BWD_STAGES, 0.0)
+    n_wgrad = 0
+    for name, e0, e1 in events:
+        if name == "mp_wgrad":
+            key = MLP_BWD_STAGES[1 + n_wgrad % 2]
+            n_wgrad += 1
+        else:
+            key = "sums" if name == "mp_sum_parts" else "tile"
+        split[key] += e0.elapsed_time(e1) / reps
+    alone = sum(split.values())
+    return dict(split=split, kernel_ms=alone, tflops=flops / ms / 1e9,
+                kernel_tflops=flops / alone / 1e9, library_tflops=None)
+
+
+def log_mlp_bwd_split(what: str, rows, per: str) -> dict:
+    """The MLP backward's stages summed over the path's calls (each call's
+    split times its calls), beside the wrapper's time."""
+    mine = [r for r in rows if r["spec"][0] == "mlp_bwd" and "split" in r]
+    out = {k: sum(r["split"][k] * r[per] for r in mine) for k in MLP_BWD_STAGES}
+    out.update(alone_ms=sum(r["kernel_ms"] * r[per] for r in mine),
+               wrapper_ms=sum(r["ms"] * r[per] for r in mine), calls=sum(r[per] for r in mine))
+    log(f"  mlp_bwd stages {what}: tile {out['tile']:.3f} + wgrad dw1 {out['wgrad_dw1']:.3f} "
+        f"+ wgrad dw2 {out['wgrad_dw2']:.3f} + sums {out['sums']:.3f} = alone "
+        f"{out['alone_ms']:.3f} ms; wrapper {out['wrapper_ms']:.3f} ms ({out['calls']} calls)")
+    return out
+
+
 def train_kernel_checks(specs: Counter, dev, streamed: bool = True) -> list:
     """Every kernel of the training route (the new ones, the apply kernel's
     drop-path option and the eval kernels at the step's shapes; conv3's
@@ -1109,14 +1194,22 @@ def train_kernel_checks(specs: Counter, dev, streamed: bool = True) -> list:
                          bound_by="bytes" if byts / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
                          streamed=st, smem=plan["smem"], smem_whole=plan["smem_whole"],
                          kc=plan["kc"],
-                         **({} if name.endswith("_bwd") else tflops(spec, args, kw, flops, ms, lib_ms))))
+                         **(mlp_bwd_split(kern, flops, ms) if name == "mlp_bwd" else
+                            {} if name.endswith("_bwd") else
+                            tflops(spec, args, kw, flops, ms, lib_ms))))
         log(f"  {name:20s} {str(spec[1:-1]):50s} x{mult:<2d} err {err:.2e} (rel {rel:.1e}, "
             f"f32 rel {rel32:.1e})  {ms:8.3f} ms  plain {plain_ms:8.3f}  "
             f"lib {'-' if lib_ms is None else f'{lib_ms:.3f}'}  bound {bound_ms:.4f}  "
             + log_plan(plan)
-            + log_streamed_call(st) + log_tflops(rows[-1]))
+            + log_streamed_call(st) + log_tflops(rows[-1]) + log_split(rows[-1]))
         torch.cuda.empty_cache()
     return rows
+
+
+def log_split(row) -> str:
+    if "split" not in row:
+        return ""
+    return "  stages " + ", ".join(f"{k} {v:.4f}" for k, v in row["split"].items())
 
 
 def train_batch(dev, b: int, size: int, seed: int = 2024, bands: int = 31,
@@ -1520,9 +1613,52 @@ def log_gdfn_plans(_build, cfgs) -> dict:
     return plans
 
 
+def log_mlp_bwd_plans(_build, cfgs) -> dict:
+    """The bf16 MLP backward tile's shared-memory plan (bytes, static
+    included) at every width of the presets' train steps, beside the float32
+    backward's at its own chunk."""
+    widths = sorted({s[4] for cfg in cfgs for s in train_path_specs(cfg, 1, 64, "bf16")
+                     if s[0] == "mlp_bwd"})
+    plans = {}
+    for c in widths:
+        kc = _build.chunk("mp_mlp_bwd_chunk", c)
+        plans[f"C={c}"] = dict(bf16=_build.plan_bytes("mp_mlp_bwd_tc_smem", c),
+                               f32=_build.plan_bytes("mp_mlp_bwd_smem", c, kc), f32_kc=kc)
+    log("  bf16 mlp_bwd plans (B; float32's at its chunk in brackets): " + ", ".join(
+        f"{k} {v['bf16']} ({v['f32']} kc {v['f32_kc']})" for k, v in plans.items()))
+    return plans
+
+
+def split_only(dev, cfgs, out: str) -> None:
+    """``--mlp-bwd-split``: only the MLP backward's stage split, at every bf16
+    call signature of both presets' train steps (no check against the plain
+    version, no other phase): the same measurement run against another
+    checkout of the package (this file copied to its root and run there)."""
+    res = {}
+    for cfg, what in zip(cfgs, ("flagship", "remote sensing")):
+        rows = []
+        specs = train_path_specs(cfg, TRAIN_BATCH, TRAIN_SIZE, "torch.bfloat16")
+        for spec in sorted(s for s in specs if s[0] == "mlp_bwd"):
+            kern, _, _, flops = make_bwd_call(spec, dev, torch.bfloat16)
+            ms = time_ms(kern, 10)
+            rows.append(dict(spec=list(spec), per_step=specs[spec], ms=ms,
+                             **mlp_bwd_split(kern, flops, ms)))
+            log(f"  mlp_bwd {str(spec[1:-1]):40s} x{specs[spec]:<2d} {ms:8.3f} ms  alone "
+                f"{rows[-1]['kernel_ms']:.4f}" + log_split(rows[-1]))
+            torch.cuda.empty_cache()
+        res[what] = dict(rows=rows, per_step=log_mlp_bwd_split(f"per {what} train step", rows,
+                                                               "per_step"))
+    if out:
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w") as fh:
+            json.dump(res, fh, indent=1)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="", help="write the detailed results here (JSON)")
+    ap.add_argument("--mlp-bwd-split", action="store_true",
+                    help="only time the MLP backward's stages at the train steps' shapes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs an NVIDIA GPU")
@@ -1552,11 +1688,16 @@ def main() -> None:
         if "registers" in line or "spill" in line.lower() and "0 bytes spill" not in line:
             log("  ptxas: " + line.strip())
 
-    front_plans = log_front_plans(_build)
     cfg = natural_scene_config(compute_dtype="bfloat16")
     preset_cfgs = (cfg, remote_sensing_config(compute_dtype="bfloat16"))
+    if args.mlp_bwd_split:
+        split_only(dev, preset_cfgs, args.out)
+        log(f"== done in {time.perf_counter() - t_start:.1f} s")
+        return
+    front_plans = log_front_plans(_build)
     stats_plans = log_stats_plans(_build, preset_cfgs)
     gdfn_plans = log_gdfn_plans(_build, preset_cfgs)
+    mlp_bwd_plans = log_mlp_bwd_plans(_build, preset_cfgs)
 
     specs = path_specs(cfg, SIZE, "torch.bfloat16")
 
@@ -1595,6 +1736,8 @@ def main() -> None:
                   train_res["median_ms"])
     streamed["train"] = log_streamed("per train step (forward kernels)", train_rows, "per_step")
     log_alone_sums("per train step", train_rows, "per_step")
+    train_res["mlp_bwd_stages_per_step"] = log_mlp_bwd_split("per train step", train_rows,
+                                                             "per_step")
     torch.cuda.empty_cache()
 
     rs_cfg = remote_sensing_config(compute_dtype="bfloat16")
@@ -1649,6 +1792,8 @@ def main() -> None:
     rs_train["kernel_ms_per_step"] = rs_step
     log_kernel_ms("per remote-sensing train step (phase 11 calls x calls per step)", rs_step,
                   "launches_per_step", rs_train["median_ms"])
+    rs_train["mlp_bwd_stages_per_step"] = log_mlp_bwd_split("per remote-sensing train step",
+                                                            rs_train_rows, "per_step")
 
     summary = summarize(rows, main_res["launches"], KERNELS, "per_forward")
     summary += summarize([r for r in train_rows if r["spec"][0] in TRAIN_KERNELS],
@@ -1670,7 +1815,7 @@ def main() -> None:
                            rs_train_rows=rs_train_rows, rs_train=rs_train,
                            smem_limit=limit, streamed=streamed, kernels=summary,
                            front_plans=front_plans, stats_plans=stats_plans,
-                           gdfn_plans=gdfn_plans,
+                           gdfn_plans=gdfn_plans, mlp_bwd_plans=mlp_bwd_plans,
                            seconds=time.perf_counter() - t_start), fh, indent=1)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -70,11 +70,14 @@ __device__ __forceinline__ void cp_async_wait_upto(int n) {
   else cp_async_wait<3>();
 }
 
-// The weight stream: tile t is, in hidden chunk t / (nk1 + nk2), fc1 depth
-// chunk i (i < nk1) or fc2 channel chunk i - nk1, with i = t % (nk1 + nk2);
-// it goes to stage t % S. issue() copies the next tile and consume() hands
-// out the oldest; both walk their cursors without divisions.
-struct TailRing {
+// The weight stream: tile t is, in hidden chunk t / per, fc1 depth chunk i
+// (i < nk1) or fc2 channel chunk i - nk1 (i < nk1 + nk2), with i = t % per;
+// the backward (kBack) streams each chunk's fc1 slab once more after its fc2
+// tiles (i - nk1 - nk2, the dx product's depth chunks), so per = nk1 + nk2
+// (+ nk1). Tile t goes to stage t % S. issue() copies the next tile and
+// consume() hands out the oldest; both walk their cursors without divisions.
+template <bool kBack>
+struct TailRingT {
   const __nv_bfloat16* w1p;  // [hidP / 64][128][CK]
   const __nv_bfloat16* w2p;  // [CK][hidP]
   __nv_bfloat16* ring;       // [S][kTailN][kTailLd]
@@ -82,25 +85,26 @@ struct TailRing {
   int it = 0, ichunk = 0, ipos = 0, istage = 0;  // the next tile to copy
   int cstage = 0;                                // the stage of the next tile to use
 
-  __device__ TailRing(const __nv_bfloat16* w1, const __nv_bfloat16* w2, __nv_bfloat16* r, int s,
-                      int C, int hid)
+  __device__ TailRingT(const __nv_bfloat16* w1, const __nv_bfloat16* w2, __nv_bfloat16* r, int s,
+                       int C, int hid)
       : w1p(w1), w2p(w2), ring(r), S(s), CK(round_up64(C)), hidP(round_up64(hid)) {
     nk1 = CK / kTailK;
     nk2 = (CK + kTailN - 1) / kTailN;
-    T = hidP / kTailK * (nk1 + nk2);
+    T = hidP / kTailK * (nk1 + nk2 + (kBack ? nk1 : 0));
   }
 
   // copy the next tile (nothing past the last) into its stage; one commit group
   __device__ void issue() {
     if (it < T) {
       const __nv_bfloat16* src;
-      int rows, ld;
-      if (ipos < nk1) {
-        src = w1p + (size_t)ichunk * kTailN * CK + ipos * kTailK;
+      int rows, ld, pos = ipos;
+      if (kBack && pos >= nk1 + nk2) pos -= nk1 + nk2;  // the slab again
+      if (pos < nk1) {
+        src = w1p + (size_t)ichunk * kTailN * CK + pos * kTailK;
         rows = kTailN;
         ld = CK;
       } else {
-        const int n0 = (ipos - nk1) * kTailN;
+        const int n0 = (pos - nk1) * kTailN;
         src = w2p + (size_t)n0 * hidP + ichunk * kTailK;
         rows = min(kTailN, CK - n0);
         ld = hidP;
@@ -110,7 +114,7 @@ struct TailRing {
         const int r = u >> 3, c = (u & 7) * 8;
         cp_async16(smem_u32(dst + r * kTailLd + c), src + (size_t)r * ld + c, 16);
       }
-      if (++ipos == nk1 + nk2) {
+      if (++ipos == nk1 + nk2 + (kBack ? nk1 : 0)) {
         ipos = 0;
         ++ichunk;
       }
@@ -136,15 +140,39 @@ struct TailRing {
     return tile;
   }
 };
+using TailRing = TailRingT<false>;
+
+// Rows of 64 tile pixels from global memory (row i at src + row(i) * C) to
+// shared memory as bf16 ([64][ldd]), zero from C to CK: 16-byte cp.async
+// where vec (C % 8 == 0, 16-byte aligned rows; the caller commits), else
+// element by element.
+template <typename Row>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, int ldd, const __nv_bfloat16* src,
+                                           int C, int CK, bool vec, Row row) {
+  if (vec) {
+    const int units = CK / 8;
+    for (int u = threadIdx.x; u < kPix * units; u += blockDim.x) {
+      const int i = u / units, c = (u - i * units) * 8;
+      const bool in = c < C;
+      cp_async16(smem_u32(dst + i * ldd + c), in ? src + row(i) * C + c : src, in ? 16 : 0);
+    }
+  } else {
+    for (int u = threadIdx.x; u < kPix * CK; u += blockDim.x) {
+      const int i = u / CK, c = u - i * CK;
+      dst[i * ldd + c] = c < C ? src[row(i) * C + c] : __float2bfloat16(0.f);
+    }
+  }
+}
 
 // LayerNorm of the tile's 64 rows (channel k of row i read as src(i, k)),
 // as ln_rows_inplace computes it (one warp per row, lane-strided float32
 // sums), rounded to bf16 into dst ([64][ldd]); zero from C to round_up64(C).
 // src may read dst itself (each lane rewrites only the elements it read).
+// stats: where not null, row i's mean and rstd go to stats[i], stats[64 + i].
 template <typename Src>
 __device__ __forceinline__ void tail_ln(Src src, __nv_bfloat16* dst, int ldd, int C,
                                         const float* __restrict__ w, const float* __restrict__ b,
-                                        float eps) {
+                                        float eps, float* stats = nullptr) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, CK = round_up64(C);
   for (int i = warp; i < kPix; i += blockDim.x >> 5) {
     float sum = 0.f;
@@ -156,6 +184,10 @@ __device__ __forceinline__ void tail_ln(Src src, __nv_bfloat16* dst, int ldd, in
       var += d * d;
     }
     const float rs = rsqrtf(warp_sum(var) / C + eps);
+    if (stats != nullptr && lane == 0) {
+      stats[i] = mu;
+      stats[kPix + i] = rs;
+    }
     for (int k = lane; k < CK; k += 32)
       dst[i * ldd + k] = __float2bfloat16(k < C ? (src(i, k) - mu) * rs * w[k] + b[k] : 0.f);
   }
@@ -179,6 +211,35 @@ __device__ __forceinline__ void tail_fc2(float (&acc)[2 * kTailGroups][4], uint3
         mma_16x8x16(acc[2 * G], af[0], af[1], af[2], af[3], bf[0], bf[1]);
         mma_16x8x16(acc[2 * G + 1], af[0], af[1], af[2], af[3], bf[2], bf[3]);
       }
+    }
+  }
+}
+
+// fc1 of one hidden chunk from the ring's next nk1 (slab depth) tiles: h =
+// the warp's 16 rows x (16 a | 16 g) columns of the chunk, without b1. a1:
+// the lane's ldmatrix address of LN2(y) at the warp's rows; boff: the lane's
+// offset in a [kTailN][kTailLd] tile (see mlp_tail_tc); wc = warp % 4.
+// h[nt] (nt < 2) is a-unit 16 wc + 8 nt + 2 (lane % 4) (+1) of rows lane / 4
+// (+8) of the warp's 16, h[nt + 2] the same units' g.
+template <typename Ring>
+__device__ __forceinline__ void tail_fc1(float (&h)[4][4], uint32_t a1, Ring& rg, int wc,
+                                         int boff) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) h[q][e] = 0.f;
+  for (int kt = 0; kt < rg.nk1; ++kt) {
+    const uint32_t b = smem_u32(rg.consume() + 32 * wc * kTailLd + boff);
+#pragma unroll
+    for (int kk = 0; kk < kTailK / 16; ++kk) {
+      uint32_t af[4], bf[4];
+      ldmatrix_x4(af, a1 + 2 * (kt * kTailK + 16 * kk));
+      ldmatrix_x4(bf, b + 2 * 16 * kk);
+      mma_16x8x16(h[0], af[0], af[1], af[2], af[3], bf[0], bf[1]);
+      mma_16x8x16(h[1], af[0], af[1], af[2], af[3], bf[2], bf[3]);
+      ldmatrix_x4(bf, b + 2 * (16 * kTailLd + 16 * kk));
+      mma_16x8x16(h[2], af[0], af[1], af[2], af[3], bf[0], bf[1]);
+      mma_16x8x16(h[3], af[0], af[1], af[2], af[3], bf[2], bf[3]);
     }
   }
 }
@@ -208,26 +269,8 @@ __device__ __forceinline__ void mlp_tail_tc(float (&acc)[2 * kTailGroups][4],
   const uint32_t a2 = smem_u32(gs + (16 * wr + (lane & 15)) * kTailLdg + 8 * (lane >> 4));
   const int boff = ((lane & 7) + 8 * (lane >> 4)) * kTailLd + 8 * ((lane >> 3) & 1);
   for (int j = 0; j < rg.hidP / kTailK; ++j) {
-    // fc1: the warp's 16 rows x (16 a | 16 g) columns of the chunk
     float h[4][4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) h[q][e] = 0.f;
-    for (int kt = 0; kt < rg.nk1; ++kt) {
-      const uint32_t b = smem_u32(rg.consume() + 32 * wc * kTailLd + boff);
-#pragma unroll
-      for (int kk = 0; kk < kTailK / 16; ++kk) {
-        uint32_t af[4], bf[4];
-        ldmatrix_x4(af, a1 + 2 * (kt * kTailK + 16 * kk));
-        ldmatrix_x4(bf, b + 2 * 16 * kk);
-        mma_16x8x16(h[0], af[0], af[1], af[2], af[3], bf[0], bf[1]);
-        mma_16x8x16(h[1], af[0], af[1], af[2], af[3], bf[2], bf[3]);
-        ldmatrix_x4(bf, b + 2 * (16 * kTailLd + 16 * kk));
-        mma_16x8x16(h[2], af[0], af[1], af[2], af[3], bf[0], bf[1]);
-        mma_16x8x16(h[3], af[0], af[1], af[2], af[3], bf[2], bf[3]);
-      }
-    }
+    tail_fc1(h, a1, rg, wc, boff);
     // + b1, a * gelu(g), rounded: unit 16 wc + 8 nt + 2 t4 (+1) of the chunk
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt) {

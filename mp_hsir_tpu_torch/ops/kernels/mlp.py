@@ -3,15 +3,19 @@ per-sample drop-path scale: the PGSSTB tail on the training route,
 ``[x +] s_b * (fc2(a * gelu(g)) + b2)``, ``[a | g] = fc1(LN(x)) + b1``.
 
 Kernels: ``csrc/mlp.cu`` ``mp_mlp`` (replaces ``_mlp_kernel``,
-``mp_hsir_tpu/ops/pallas_attention.py:965``, host ``_mlp_fwd_call`` :996)
-and ``mp_mlp_bwd`` + ``csrc/grad.cu`` (replace ``_mlp_bwd_kernel``,
-``mp_hsir_tpu/ops/pallas_vjp.py:124``). Plain versions: :func:`mlp_plain`,
-:func:`mlp_bwd_plain`. Weights in torch Linear layout: w1 (2h, C), w2 (C, h).
+``mp_hsir_tpu/ops/pallas_attention.py:965``, host ``_mlp_fwd_call`` :996);
+the backward (replaces ``_mlp_bwd_kernel``,
+``mp_hsir_tpu/ops/pallas_vjp.py:124``, host ``_mlp_bwd_call`` :260) is
+``mp_mlp_bwd_tc`` in bf16 (one tensor-core tile computes everything per
+pixel) and ``mp_mlp_bwd`` + ``csrc/grad.cu``'s ``ln_linear_bwd`` in float32,
+both followed by grad.cu's weight products and partial sums. Plain versions:
+:func:`mlp_plain`, :func:`mlp_bwd_plain`. Weights in torch Linear layout: w1
+(2h, C), w2 (C, h).
 
-Weight layouts at the launch: float32 (and the backward) takes [in][out]
-copies; the bf16 forward (the tensor-core tail tile of ``csrc/mlp_tail.cuh``,
-also the bf16 spectral apply kernel's PGSSTB tail) streams the packs of
-:func:`pack_mlp_weights`, made on every call.
+Weight layouts at the launch: the float32 kernels take [in][out] copies; the
+bf16 forward (the tensor-core tail tile of ``csrc/mlp_tail.cuh``, also the
+bf16 spectral apply kernel's PGSSTB tail) and the bf16 backward tile stream
+the packs of :func:`pack_mlp_weights`, made on every call.
 """
 
 from __future__ import annotations
@@ -37,6 +41,14 @@ BWD = counter("mlp_bwd")
 # in registers)
 TAIL_K = 64
 TAIL_MAX_C = 384
+# the bf16 backward tile's plan (MlpBwdPlan in csrc/mlp.cu): a ring stage's
+# bytes (kTailStage: [128][TAIL_K + 8] bf16) and its most stages
+# (kTailStages), the dh chunk's row (kBwdLdh) and the dynamic bytes a plan
+# may take (kBwdBudget: the H100's opt-in limit less 1 KB)
+TAIL_STAGE = 2 * 128 * (TAIL_K + 8)
+TAIL_STAGES = 4
+MLP_BWD_LDH = 2 * TAIL_K + 8
+MLP_BWD_BUDGET = 232448 - 1024
 
 
 def _scale(dp_scale, b):
@@ -116,10 +128,32 @@ def pack_mlp_weights(w1: torch.Tensor, w2: torch.Tensor, dt: torch.dtype):
     return w1p.reshape(hp // TAIL_K, 128, ck), w2p
 
 
+def mlp_bwd_tc_plan(c: int, hid: int = 0) -> dict:
+    """The bf16 backward tile's plan (``MlpBwdPlan`` in csrc/mlp.cu) at width
+    ``c`` and hidden width ``hid``: ``ck`` = c rounded up to 64 and ``ld`` =
+    ck + 8, the row of the x, dys and dy tiles; per hidden chunk ``nk1`` fc1
+    slab tiles (64 deep), ``nk2`` fc2 tiles (128 channels), then the slab's
+    ``nk1`` tiles again (``per`` in all), ``tiles`` over the ``nch`` chunks,
+    through ``ws`` ring stages; ``bytes`` the dynamic shared memory (the three
+    tiles, the dh chunk, the LN statistics, db1's column sums, the ring)."""
+    ck = _round_k(c)
+    ld = ck + 8
+    fixed = 3 * 2 * 64 * ld + 2 * 64 * MLP_BWD_LDH + 4 * (2 * 64 + 4 * 2 * TAIL_K)
+    ws = TAIL_STAGES
+    while ws > 2 and fixed + ws * TAIL_STAGE > MLP_BWD_BUDGET:
+        ws -= 1
+    nk1, nk2, nch = ck // TAIL_K, -(-ck // 128), -(-hid // TAIL_K)
+    per = 2 * nk1 + nk2
+    return dict(ck=ck, ld=ld, nk1=nk1, nk2=nk2, per=per, nch=nch, tiles=nch * per, ws=ws,
+                bytes=fixed + ws * TAIL_STAGE)
+
+
 @lru_cache(maxsize=None)
-def _entry(bwd: bool = False):
-    if bwd:
-        return _build.entry("mp_mlp_bwd", 15, [ctypes.c_int] * 7 + [ctypes.c_float])
+def _entry(kind: str = "fwd"):
+    if kind == "bwd_tc":
+        return _build.entry("mp_mlp_bwd_tc", 16, [ctypes.c_int] * 6 + [ctypes.c_float])
+    if kind == "bwd":
+        return _build.entry("mp_mlp_bwd", 15, [ctypes.c_int] * 6 + [ctypes.c_float])
     return _build.entry("mp_mlp", 9, [ctypes.c_int] * 7 + [ctypes.c_float])
 
 
@@ -164,7 +198,44 @@ def _launch(x, ln_w, ln_b, w1, b1, w2, b2, residual, dp_scale, eps):
     return out
 
 
+def _bwd_tc_launch(x, ln_w, ln_b, w1, b1, w2, b2, dp_scale, residual, eps, dy):
+    """The bf16 backward: the tile (everything per pixel), the two weight
+    products, one in-order sum of the per-tile partials (and one of d s_b's
+    per image)."""
+    b, h, w, c = x.shape
+    dt = x.dtype
+    hid = w2.shape[1]
+    check_tail_width(c, dt)
+    _build.check_plan("mlp_bwd", "mp_mlp_bwd_tc_smem", f"C={c}", c)
+    x, dy = x.contiguous(), dy.to(dt).contiguous()
+    lnw, lnb, b1f, b2f, dp = f32(ln_w), f32(ln_b), f32(b1), f32(b2), f32(dp_scale)
+    w1p, w2p = pack_mlp_weights(w1, w2, dt)
+    dev = x.device
+    tiles = (h // 8) * (w // 8)
+    xn, dx = torch.empty_like(x), torch.empty_like(x)
+    dys = dy if dp is None else torch.empty_like(x)  # without drop-path dys is dy
+    dh = torch.empty((b, h, w, 2 * hid), dtype=dt, device=dev)
+    gated = torch.empty((b, h, w, hid), dtype=dt, device=dev)
+    part = torch.empty((1, b * tiles, 3 * c + 2 * hid), dtype=torch.float32, device=dev)
+    pdp = torch.empty((b, tiles, 1), dtype=torch.float32, device=dev) if dp is not None else None
+    p = _build.ptr
+    err = _entry("bwd_tc")(x.data_ptr(), dy.data_ptr(), lnw.data_ptr(), lnb.data_ptr(),
+                           w1p.data_ptr(), b1f.data_ptr(), w2p.data_ptr(), b2f.data_ptr(), p(dp),
+                           xn.data_ptr(), dh.data_ptr(), gated.data_ptr(), dys.data_ptr(),
+                           dx.data_ptr(), part.data_ptr(), p(pdp), b, h, w, c, hid,
+                           int(residual), eps, stream_ptr())
+    _build.check("mp_mlp_bwd_tc", err)
+    dw1 = wgrad(xn.reshape(-1, c), dh.reshape(-1, 2 * hid)).t()
+    dw2 = wgrad(gated.reshape(-1, hid), dys.reshape(-1, c)).t()
+    dlnw, dlnb, db1, db2 = sum_parts(part)[0].split([c, c, 2 * hid, c])
+    ddp = None if pdp is None else sum_parts(pdp)[:, 0].to(dp_scale.dtype)
+    BWD.record(("mlp_bwd", b, h, w, c, hid, bool(residual), dp is not None, str(dt)))
+    return dx, dlnw, dlnb, dw1, db1, dw2, db2, ddp
+
+
 def _bwd_launch(x, ln_w, ln_b, w1, b1, w2, b2, dp_scale, residual, eps, dy):
+    if x.dtype == torch.bfloat16:
+        return _bwd_tc_launch(x, ln_w, ln_b, w1, b1, w2, b2, dp_scale, residual, eps, dy)
     b, h, w, c = x.shape
     dt = x.dtype
     hid = w2.shape[1]
@@ -181,11 +252,11 @@ def _bwd_launch(x, ln_w, ln_b, w1, b1, w2, b2, dp_scale, residual, eps, dy):
     pb2 = torch.empty((1, b * tiles, c), dtype=torch.float32, device=dev)
     pdp = torch.empty((b, tiles), dtype=torch.float32, device=dev) if dp is not None else None
     p = _build.ptr
-    err = _entry(True)(x.data_ptr(), dy.data_ptr(), lnw.data_ptr(), lnb.data_ptr(),
-                       w1k.data_ptr(), b1f.data_ptr(), w2k.data_ptr(),
-                       b2f.data_ptr(), p(dp), xn.data_ptr(), dh.data_ptr(), gated.data_ptr(),
-                       dys.data_ptr(), pb2.data_ptr(), p(pdp), dtype_code(x), b, h, w, c, hid,
-                       kc, eps, stream_ptr())
+    err = _entry("bwd")(x.data_ptr(), dy.data_ptr(), lnw.data_ptr(), lnb.data_ptr(),
+                        w1k.data_ptr(), b1f.data_ptr(), w2k.data_ptr(),
+                        b2f.data_ptr(), p(dp), xn.data_ptr(), dh.data_ptr(), gated.data_ptr(),
+                        dys.data_ptr(), pb2.data_ptr(), p(pdp), b, h, w, c, hid, kc, eps,
+                        stream_ptr())
     _build.check("mp_mlp_bwd", err)
     dx, (dlnw, dlnb), db1 = ln_linear_bwd(dh, w1k, 0, x, ln_w, extra_t=dy if residual else None,
                                           eps=eps, bias=True)

@@ -859,3 +859,115 @@ def test_cuda_gdfn_bf16_past_384_raises():
     args, kw = _gdfn_inputs(128, 340, 400, True, 1, 8, 8, dev)
     with pytest.raises(ValueError, match="C and Co up to 384"):
         gdfn(args[0].to(torch.bfloat16), *args[1:], **kw)
+
+
+# The bf16 MLP backward tile (mlp_bwd_tc_kernel, csrc/mlp.cu) at every preset
+# width (the last hidden chunk ragged at each; hid 255 and 1021 odd: dh's
+# g-half starts at an odd column) and C = 36 and 27 (element-wise staging,
+# CK 64), on 3 tiles (1x8x24) and 24 (2x16x48: two images with drop-path
+# scales [1.25, 0.0], a non-square tile grid)
+MLP_BWD_WIDTHS = ((64, 170), (128, 340), (256, 680), (96, 255), (192, 510), (384, 1021),
+                  (36, 95), (27, 71))
+MLP_BWD_CASES = [(c, hid, b, h, w) for c, hid in MLP_BWD_WIDTHS
+                 for b, h, w in ((1, 8, 24), (2, 16, 48))]
+# mp_mlp_bwd_tc_smem(C): MlpBwdPlan's bytes (4 ring stages, 3 at C = 384)
+# and block_sum's 64 static bytes; and the float32 backward's plans, which the
+# tile leaves as they were: mp_mlp_bwd_smem(C, kc) at its chunk (64 at C = 384)
+MLP_BWD_TC_PLANS = {64: 121408, 128: 145984, 256: 195136, 96: 145984, 192: 170560,
+                    384: 225856, 36: 121408, 27: 121408}
+MLP_BWD_F32_PLANS = {64: 99648, 128: 132416, 256: 197952, 96: 116032, 192: 165184,
+                     384: 116800, 36: 85312, 27: 80704}
+
+
+def _mlp_bwd_inputs(c, hid, b, h, w, dev):
+    """(x, the six weights, dy), float32."""
+    r = _rng(110 + c + b)
+    f = lambda *s, scale=1.0: _t(_n(r, s, scale)).to(dev)  # noqa: E731
+    return f(b, h, w, c), (1 + f(c, scale=0.1), f(c, scale=0.1), f(2 * hid, c, scale=c ** -0.5),
+                           f(2 * hid, scale=0.1), f(c, hid, scale=hid ** -0.5),
+                           f(c, scale=0.1)), f(b, h, w, c)
+
+
+def _outputs_close(got, ref, tol, what):
+    for i, (a, r) in enumerate(zip(got, ref)):
+        assert (a is None) == (r is None), (what, i)
+        if r is None:
+            continue
+        assert a.shape == r.shape and a.dtype == r.dtype, (what, i, a.shape, r.shape)
+        assert torch.isfinite(a.float()).all(), (what, i)
+        err = (a.float() - r.float()).abs().max().item()
+        scale = r.float().abs().max().item()
+        assert err <= tol * scale, f"{what} output {i}: {err:.3e} > {tol} * {scale:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,hid,b,h,w", MLP_BWD_CASES)
+def test_cuda_mlp_bwd_tile_matches_plain(c, hid, b, h, w, monkeypatch):
+    """The MLP backward on the card against mlp_bwd_plain, every output, with
+    and without the residual and the drop-path scale: bf16 (the tile) within
+    3e-2 and float32 (mlp_bwd_kernel + ln_linear_bwd, SIMT) within 1e-4 of each
+    output's max-abs. One counted launch per call; the bf16 route launches no
+    ln_linear_bwd; two bf16 calls give bitwise the same outputs (no float
+    atomics). The tile's plan pinned, within the device's limit; the float32
+    plans as they were."""
+    from mp_hsir_tpu_torch.ops.kernels import _build, mlp as mlp_mod
+
+    dev = _cuda()
+    x, weights, dy = _mlp_bwd_inputs(c, hid, b, h, w, dev)
+    ln_calls = []
+    ln_linear = mlp_mod.ln_linear_bwd
+    monkeypatch.setattr(mlp_mod, "ln_linear_bwd",
+                        lambda *a, **k: ln_calls.append(1) or ln_linear(*a, **k))
+    for dt, tol in ((torch.bfloat16, 3e-2), (torch.float32, 1e-4)):
+        for residual in (False, True):
+            for dp in (None, torch.tensor([1.25, 0.0][:b], device=dev)):
+                call = (x.to(dt), *weights, dp, residual, 1e-5, dy.to(dt))
+                what = f"{dt} residual={residual} dp={dp is not None}"
+                _route.reset_counters()
+                ln_calls.clear()
+                got = mlp_mod._bwd_launch(*call)
+                assert _route.COUNTERS["mlp_bwd"].launches == 1, what
+                assert len(ln_calls) == (0 if dt == torch.bfloat16 else 1), what
+                _outputs_close(got, mlp_mod.mlp_bwd_plain(*call), tol, what)
+                if dt == torch.bfloat16:
+                    again = mlp_mod._bwd_launch(*call)
+                    assert all(a is None or torch.equal(a, r) for a, r in zip(got, again)), what
+    n = _build.plan_bytes("mp_mlp_bwd_tc_smem", c)
+    assert n == MLP_BWD_TC_PLANS[c] and n <= _build.smem_limit()
+    kc = _build.chunk("mp_mlp_bwd_chunk", c)
+    assert _build.plan_bytes("mp_mlp_bwd_smem", c, kc) == MLP_BWD_F32_PLANS[c]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,hid", [(128, 340), (384, 1021)])
+def test_cuda_mlp_bwd_check_sees_the_gate(c, hid):
+    """The per-call check is not blind to the packed slab's a|g order: the
+    tile given fc1 with its a and g halves swapped (w1's rows and b1) fails
+    the 3e-2 bound on dx against the plain backward of the weights as they
+    are."""
+    from mp_hsir_tpu_torch.ops.kernels import mlp as mlp_mod
+
+    dev = _cuda()
+    x, (lw, lb, w1, b1, w2, b2), dy = _mlp_bwd_inputs(c, hid, 2, 16, 24, dev)
+    x, dy = x.to(torch.bfloat16), dy.to(torch.bfloat16)
+    dp = torch.tensor([1.25, 0.0], device=dev)
+    swap = lambda t: torch.cat([t[hid:], t[:hid]])  # noqa: E731
+    got = mlp_mod._bwd_launch(x, lw, lb, swap(w1), swap(b1), w2, b2, dp, True, 1e-5, dy)[0]
+    ref = mlp_mod.mlp_bwd_plain(x, lw, lb, w1, b1, w2, b2, dp, True, 1e-5, dy)[0]
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err > 3e-2 * ref.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_cuda_mlp_bwd_bf16_past_384_raises():
+    """The bf16 tile takes C up to 384 and raises above it (no fallback);
+    float32 streams its input in chunks and runs."""
+    from mp_hsir_tpu_torch.ops.kernels import mlp as mlp_mod
+
+    dev = _cuda()
+    x, weights, dy = _mlp_bwd_inputs(400, 1064, 1, 8, 8, dev)
+    with pytest.raises(ValueError, match="C up to 384"):
+        mlp_mod._bwd_launch(x.to(torch.bfloat16), *weights, None, True, 1e-5,
+                            dy.to(torch.bfloat16))
+    _outputs_close(mlp_mod._bwd_launch(x, *weights, None, True, 1e-5, dy),
+                   mlp_mod.mlp_bwd_plain(x, *weights, None, True, 1e-5, dy), 1e-4, "float32")
