@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of MP-HSIR on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--out results.json] [--mlp-bwd-split]
+    python3 chip_smoke.py [--out results.json] [--bwd-split KERNEL] [--mlp-bwd-split]
 
 Phases (any failure exits non-zero; no phase's error is caught):
 
@@ -12,7 +12,10 @@ Phases (any failure exits non-zero; no phase's error is caught):
    heads) of the presets beside the float32 kernel's, and the bf16 GDFN
    tile's at every width of the presets' GDFN calls beside the float32
    kernel's at its chunk, and the bf16 MLP backward tile's at every width of
-   the presets' train steps beside the float32 backward's.
+   the presets' train steps beside the float32 backward's, and the bf16
+   spectral stats backward's two tiles' (their registers and spills, their
+   plan bytes at every (C, heads) of the presets' train steps beside the
+   float32 kernel's).
 2. Kernel checks: every kernel wrapper on the card at each shape the
    flagship 512x512x31 eval forward gives it, in bf16 from numpy-seeded
    inputs, against its plain PyTorch version on the same inputs; also once
@@ -54,11 +57,13 @@ Phases (any failure exits non-zero; no phase's error is caught):
    option, the eval kernels at the step's shapes), float32 and bf16, against
    the plain forward or the explicit plain backward on the same inputs
    (same tolerances as phase 2); times and bounds per call, and the
-   resident forward calls streamed as in phase 2. Each mlp_bwd call is also
-   split into its stages (the tile, the dW1 and dW2 weight products, the
-   partial sums: each C entry timed with CUDA events, the host queued ahead
-   of the device), whose sum is the backward alone; the stages per step
-   follow phase 6 (and phase 12 for phase 11's calls).
+   resident forward calls streamed as in phase 2. Each mlp_bwd and
+   spectral_stats_bwd call is also split into its stages (each C entry its
+   wrapper calls, timed with CUDA events, the host queued ahead of the
+   device; mlp_bwd's as the tile, the dW1 and dW2 weight products and the
+   partial sums, spectral_stats_bwd's by C entry name), whose sum is the
+   backward alone; the stages per step follow phase 6 (and phase 12 for
+   phase 11's calls).
 6. Training main path: the flagship preset in training mode (batch 32 of
    64x64 patches cut from the quality cube, Gaussian noise, task 0) from the
    committed weights. The float32 step's parameter gradients on the kernel
@@ -113,17 +118,21 @@ Phases (any failure exits non-zero; no phase's error is caught):
 13. The kernel summary line (each kernel's main-path numbers, and its
     remote-sensing train-step numbers beside them), then the result line.
 
---mlp-bwd-split runs phase 1's build and only that stage split, at both
-presets' train-step shapes: the same measurement for another checkout of
-the package (this file copied to its root and run there).
+--bwd-split KERNEL (mlp_bwd or spectral_stats_bwd; repeatable) runs phase
+1's build and only that kernel's stage split, at both presets' train-step
+shapes: the same measurement for another checkout of the package (this
+file copied to its root and run there); --mlp-bwd-split is --bwd-split
+mlp_bwd.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -190,7 +199,8 @@ TRAIN_KERNELS = {
                     replaces="mp_hsir_tpu/ops/pallas_vjp.py:260"),
     "window_attention_bwd": dict(source="mp_hsir_tpu_torch/csrc/window_attention.cu", tpu=["K8"],
                                  replaces="mp_hsir_tpu/ops/pallas_vjp.py:853"),
-    "spectral_stats_bwd": dict(source="mp_hsir_tpu_torch/csrc/spectral.cu", tpu=["K10a", "K12"],
+    "spectral_stats_bwd": dict(source="mp_hsir_tpu_torch/csrc/spectral_stats.cuh",
+                               tpu=["K10a", "K12"],
                                replaces="mp_hsir_tpu/ops/pallas_vjp.py:1671"),
     "spectral_apply_bwd": dict(source="mp_hsir_tpu_torch/csrc/spectral.cu", tpu=["K10b", "K12"],
                                replaces="mp_hsir_tpu/ops/pallas_vjp.py:1758"),
@@ -414,6 +424,10 @@ def plan_of(spec) -> dict:
         return dict(smem=n, smem_whole=n, kc=c, c=c)
     if name == "mlp_bwd" and _code(spec):  # the bf16 tile: one resident plan
         n = _build.plan_bytes("mp_mlp_bwd_tc_smem", c)
+        return dict(smem=n, smem_whole=n, kc=c, c=c)
+    if name == "spectral_stats_bwd" and _code(spec):  # the bf16 tiles: the larger plan
+        n = max(_build.plan_bytes("mp_spectral_stats_bwd_tc_smem", *shape),
+                _build.plan_bytes("mp_dwconv_dx_tc_smem", c, 2 * c))
         return dict(smem=n, smem_whole=n, kc=c, c=c)
     if chunk_entry is None:  # a single whole-input plan
         n = _build.plan_bytes(smem_entry, *shape)
@@ -1076,20 +1090,28 @@ def compare_pair(kernel, plain, tol):
 
 
 MLP_BWD_STAGES = ("tile", "wgrad_dw1", "wgrad_dw2", "sums")
+# the backward kernels split into stages: the module whose ctypes entry
+# getter the wrapper calls (grad.cu's getter is timed too)
+BWD_SPLIT = {"mlp_bwd": ("mlp", "_entry"), "spectral_stats_bwd": ("spectral", "_stats_entry")}
 
 
-def mlp_bwd_split(kern, flops: float, ms: float, reps: int = 5) -> dict:
-    """The MLP backward's device time by stage: every C entry its wrapper
+def bwd_split(name: str, kern, flops: float, ms: float, reps: int = 5) -> dict:
+    """A backward kernel's device time by stage: every C entry its wrapper
     calls, timed with CUDA events around the call, the device held by a
     sleep kernel until the host has queued all ``reps`` calls (no host gap
-    counts); the mean per call of ``tile`` (bf16: mp_mlp_bwd_tc; the float32
-    route and the design before the tile: mp_mlp_bwd and mp_ln_linear_bwd with
-    its part sums), ``wgrad_dw1`` and ``wgrad_dw2`` (a call's first and second
-    mp_wgrad, with their part sums) and ``sums`` (mp_sum_parts). Their sum is
-    the backward alone (``kernel_ms``), without the wrapper's host time and
-    weight packing; rates are flops over the wrapper's and that time."""
-    from mp_hsir_tpu_torch.ops.kernels import _grad, mlp
+    counts); the mean per call. mlp_bwd's stages are ``tile`` (bf16:
+    mp_mlp_bwd_tc; the float32 route and the design before the tile:
+    mp_mlp_bwd and mp_ln_linear_bwd with its part sums), ``wgrad_dw1`` and
+    ``wgrad_dw2`` (a call's first and second mp_wgrad, with their part sums)
+    and ``sums`` (mp_sum_parts); the other kernels' are keyed by C entry name
+    (a grad.cu entry with its own part sums), so that the same script splits
+    the trees before and after a redesign. Their sum is the backward alone
+    (``kernel_ms``), without the wrapper's host time and weight packing;
+    rates are flops over the wrapper's and that time."""
+    from mp_hsir_tpu_torch.ops.kernels import _grad
 
+    mod_name, getter = BWD_SPLIT[name]
+    mod = importlib.import_module(f"mp_hsir_tpu_torch.ops.kernels.{mod_name}")
     events = []
 
     def timed(get):
@@ -1110,41 +1132,44 @@ def mlp_bwd_split(kern, flops: float, ms: float, reps: int = 5) -> dict:
 
     kern()
     torch.cuda.synchronize()
-    saved = {m: m._entry for m in (mlp, _grad)}
+    saved = {(mod, getter): getattr(mod, getter), (_grad, "_entry"): _grad._entry}
     try:
-        for m, get in saved.items():
-            m._entry = timed(get)
+        for (m, attr), get in saved.items():
+            setattr(m, attr, timed(get))
         torch.cuda._sleep(50_000_000)
         for _ in range(reps):
             kern()
         torch.cuda.synchronize()
     finally:
-        for m, get in saved.items():
-            m._entry = get
-    split = dict.fromkeys(MLP_BWD_STAGES, 0.0)
+        for (m, attr), get in saved.items():
+            setattr(m, attr, get)
+    split: dict = dict.fromkeys(MLP_BWD_STAGES, 0.0) if name == "mlp_bwd" else {}
     n_wgrad = 0
-    for name, e0, e1 in events:
-        if name == "mp_wgrad":
-            key = MLP_BWD_STAGES[1 + n_wgrad % 2]
-            n_wgrad += 1
-        else:
-            key = "sums" if name == "mp_sum_parts" else "tile"
-        split[key] += e0.elapsed_time(e1) / reps
+    for entry, e0, e1 in events:
+        key = entry
+        if name == "mlp_bwd":
+            if entry == "mp_wgrad":
+                key = MLP_BWD_STAGES[1 + n_wgrad % 2]
+                n_wgrad += 1
+            else:
+                key = "sums" if entry == "mp_sum_parts" else "tile"
+        split[key] = split.get(key, 0.0) + e0.elapsed_time(e1) / reps
     alone = sum(split.values())
     return dict(split=split, kernel_ms=alone, tflops=flops / ms / 1e9,
                 kernel_tflops=flops / alone / 1e9, library_tflops=None)
 
 
-def log_mlp_bwd_split(what: str, rows, per: str) -> dict:
-    """The MLP backward's stages summed over the path's calls (each call's
+def log_bwd_split(name: str, what: str, rows, per: str) -> dict:
+    """A backward kernel's stages summed over the path's calls (each call's
     split times its calls), beside the wrapper's time."""
-    mine = [r for r in rows if r["spec"][0] == "mlp_bwd" and "split" in r]
-    out = {k: sum(r["split"][k] * r[per] for r in mine) for k in MLP_BWD_STAGES}
+    mine = [r for r in rows if r["spec"][0] == name and "split" in r]
+    keys = list(dict.fromkeys(k for r in mine for k in r["split"]))
+    out = {k: sum(r["split"].get(k, 0.0) * r[per] for r in mine) for k in keys}
     out.update(alone_ms=sum(r["kernel_ms"] * r[per] for r in mine),
                wrapper_ms=sum(r["ms"] * r[per] for r in mine), calls=sum(r[per] for r in mine))
-    log(f"  mlp_bwd stages {what}: tile {out['tile']:.3f} + wgrad dw1 {out['wgrad_dw1']:.3f} "
-        f"+ wgrad dw2 {out['wgrad_dw2']:.3f} + sums {out['sums']:.3f} = alone "
-        f"{out['alone_ms']:.3f} ms; wrapper {out['wrapper_ms']:.3f} ms ({out['calls']} calls)")
+    log(f"  {name} stages {what}: " + " + ".join(f"{k} {out[k]:.3f}" for k in keys)
+        + f" = alone {out['alone_ms']:.3f} ms; wrapper {out['wrapper_ms']:.3f} ms "
+        f"({out['calls']} calls)")
     return out
 
 
@@ -1194,7 +1219,7 @@ def train_kernel_checks(specs: Counter, dev, streamed: bool = True) -> list:
                          bound_by="bytes" if byts / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
                          streamed=st, smem=plan["smem"], smem_whole=plan["smem_whole"],
                          kc=plan["kc"],
-                         **(mlp_bwd_split(kern, flops, ms) if name == "mlp_bwd" else
+                         **(bwd_split(name, kern, flops, ms) if name in BWD_SPLIT else
                             {} if name.endswith("_bwd") else
                             tflops(spec, args, kw, flops, ms, lib_ms))))
         log(f"  {name:20s} {str(spec[1:-1]):50s} x{mult:<2d} err {err:.2e} (rel {rel:.1e}, "
@@ -1629,25 +1654,69 @@ def log_mlp_bwd_plans(_build, cfgs) -> dict:
     return plans
 
 
-def split_only(dev, cfgs, out: str) -> None:
-    """``--mlp-bwd-split``: only the MLP backward's stage split, at every bf16
-    call signature of both presets' train steps (no check against the plain
-    version, no other phase): the same measurement run against another
-    checkout of the package (this file copied to its root and run there)."""
+def ptxas_report(kernel: str) -> dict:
+    """Registers and spill bytes of one kernel from nvcc's ``-Xptxas -v``
+    report of this process's build (empty where the library was cached)."""
+    from mp_hsir_tpu_torch.ops.kernels import _build
+
+    lines = _build.BUILD_INFO.get("log", "").splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            rep = {}
+            for nxt in lines[i + 1:i + 6]:
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", nxt)
+                if m:
+                    rep.update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+                m = re.search(r"Used (\d+) registers", nxt)
+                if m:
+                    rep["registers"] = int(m.group(1))
+                    break
+            return rep
+    return {}
+
+
+def log_stats_bwd_plans(_build, cfgs) -> dict:
+    """The bf16 spectral stats backward's two tiles: their registers and
+    spills, and their shared-memory plans (bytes, static included) at every
+    (C, heads) of the presets' train steps, beside the float32 kernel's."""
+    regs = {k: ptxas_report(k) for k in ("spectral_stats_bwd_tc_kernel", "dwconv_dx_tc_kernel")}
+    log("  bf16 spectral_stats_bwd tiles (ptxas): " + ", ".join(
+        f"{k} {v.get('registers', '?')} registers, spills {v.get('spill_stores', '?')}/"
+        f"{v.get('spill_loads', '?')} B" for k, v in regs.items()))
+    shapes = sorted({(s[4], s[5]) for cfg in cfgs for s in train_path_specs(cfg, 1, 64, "bf16")
+                     if s[0] == "spectral_stats_bwd"})
+    plans = {}
+    for c, nh in shapes:
+        plans[f"C={c}/{nh}"] = dict(
+            tile1=_build.plan_bytes("mp_spectral_stats_bwd_tc_smem", c, nh),
+            tile2=_build.plan_bytes("mp_dwconv_dx_tc_smem", c, 2 * c),
+            f32=_build.plan_bytes("mp_spectral_stats_bwd_smem", c, nh))
+    log("  bf16 spectral_stats_bwd plans (B: tile 1, tile 2; float32's in brackets): "
+        + ", ".join(f"{k} {v['tile1']}, {v['tile2']} ({v['f32']})" for k, v in plans.items()))
+    return dict(ptxas=regs, plans=plans)
+
+
+def split_only(dev, cfgs, out: str, names) -> None:
+    """``--bwd-split``: only the named backward kernels' stage splits, at
+    every bf16 call signature of both presets' train steps (no check against
+    the plain version, no other phase): the same measurement run against
+    another checkout of the package (this file copied to its root and run
+    there)."""
     res = {}
-    for cfg, what in zip(cfgs, ("flagship", "remote sensing")):
-        rows = []
-        specs = train_path_specs(cfg, TRAIN_BATCH, TRAIN_SIZE, "torch.bfloat16")
-        for spec in sorted(s for s in specs if s[0] == "mlp_bwd"):
-            kern, _, _, flops = make_bwd_call(spec, dev, torch.bfloat16)
-            ms = time_ms(kern, 10)
-            rows.append(dict(spec=list(spec), per_step=specs[spec], ms=ms,
-                             **mlp_bwd_split(kern, flops, ms)))
-            log(f"  mlp_bwd {str(spec[1:-1]):40s} x{specs[spec]:<2d} {ms:8.3f} ms  alone "
-                f"{rows[-1]['kernel_ms']:.4f}" + log_split(rows[-1]))
-            torch.cuda.empty_cache()
-        res[what] = dict(rows=rows, per_step=log_mlp_bwd_split(f"per {what} train step", rows,
-                                                               "per_step"))
+    for name in names:
+        for cfg, what in zip(cfgs, ("flagship", "remote sensing")):
+            rows = []
+            specs = train_path_specs(cfg, TRAIN_BATCH, TRAIN_SIZE, "torch.bfloat16")
+            for spec in sorted(s for s in specs if s[0] == name):
+                kern, _, _, flops = make_bwd_call(spec, dev, torch.bfloat16)
+                ms = time_ms(kern, 10)
+                rows.append(dict(spec=list(spec), per_step=specs[spec], ms=ms,
+                                 **bwd_split(name, kern, flops, ms)))
+                log(f"  {name} {str(spec[1:-1]):40s} x{specs[spec]:<2d} {ms:8.3f} ms  alone "
+                    f"{rows[-1]['kernel_ms']:.4f}" + log_split(rows[-1]))
+                torch.cuda.empty_cache()
+            res[f"{name} {what}"] = dict(rows=rows, per_step=log_bwd_split(
+                name, f"per {what} train step", rows, "per_step"))
     if out:
         os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
         with open(out, "w") as fh:
@@ -1657,8 +1726,10 @@ def split_only(dev, cfgs, out: str) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="", help="write the detailed results here (JSON)")
-    ap.add_argument("--mlp-bwd-split", action="store_true",
-                    help="only time the MLP backward's stages at the train steps' shapes")
+    ap.add_argument("--bwd-split", action="append", default=[], choices=sorted(BWD_SPLIT),
+                    metavar="KERNEL", help="only time this backward kernel's stages at the train "
+                    f"steps' shapes (one of {', '.join(sorted(BWD_SPLIT))}; repeatable)")
+    ap.add_argument("--mlp-bwd-split", action="store_true", help="the same as --bwd-split mlp_bwd")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs an NVIDIA GPU")
@@ -1690,14 +1761,16 @@ def main() -> None:
 
     cfg = natural_scene_config(compute_dtype="bfloat16")
     preset_cfgs = (cfg, remote_sensing_config(compute_dtype="bfloat16"))
-    if args.mlp_bwd_split:
-        split_only(dev, preset_cfgs, args.out)
+    splits = args.bwd_split + ["mlp_bwd"] * args.mlp_bwd_split
+    if splits:
+        split_only(dev, preset_cfgs, args.out, list(dict.fromkeys(splits)))
         log(f"== done in {time.perf_counter() - t_start:.1f} s")
         return
     front_plans = log_front_plans(_build)
     stats_plans = log_stats_plans(_build, preset_cfgs)
     gdfn_plans = log_gdfn_plans(_build, preset_cfgs)
     mlp_bwd_plans = log_mlp_bwd_plans(_build, preset_cfgs)
+    stats_bwd_plans = log_stats_bwd_plans(_build, preset_cfgs)
 
     specs = path_specs(cfg, SIZE, "torch.bfloat16")
 
@@ -1736,8 +1809,9 @@ def main() -> None:
                   train_res["median_ms"])
     streamed["train"] = log_streamed("per train step (forward kernels)", train_rows, "per_step")
     log_alone_sums("per train step", train_rows, "per_step")
-    train_res["mlp_bwd_stages_per_step"] = log_mlp_bwd_split("per train step", train_rows,
-                                                             "per_step")
+    for name in BWD_SPLIT:
+        train_res[f"{name}_stages_per_step"] = log_bwd_split(name, "per train step", train_rows,
+                                                              "per_step")
     torch.cuda.empty_cache()
 
     rs_cfg = remote_sensing_config(compute_dtype="bfloat16")
@@ -1792,8 +1866,9 @@ def main() -> None:
     rs_train["kernel_ms_per_step"] = rs_step
     log_kernel_ms("per remote-sensing train step (phase 11 calls x calls per step)", rs_step,
                   "launches_per_step", rs_train["median_ms"])
-    rs_train["mlp_bwd_stages_per_step"] = log_mlp_bwd_split("per remote-sensing train step",
-                                                            rs_train_rows, "per_step")
+    for name in BWD_SPLIT:
+        rs_train[f"{name}_stages_per_step"] = log_bwd_split(
+            name, "per remote-sensing train step", rs_train_rows, "per_step")
 
     summary = summarize(rows, main_res["launches"], KERNELS, "per_forward")
     summary += summarize([r for r in train_rows if r["spec"][0] in TRAIN_KERNELS],
@@ -1816,6 +1891,7 @@ def main() -> None:
                            smem_limit=limit, streamed=streamed, kernels=summary,
                            front_plans=front_plans, stats_plans=stats_plans,
                            gdfn_plans=gdfn_plans, mlp_bwd_plans=mlp_bwd_plans,
+                           stats_bwd_plans=stats_bwd_plans,
                            seconds=time.perf_counter() - t_start), fh, indent=1)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card)

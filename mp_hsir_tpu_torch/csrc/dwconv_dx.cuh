@@ -1,0 +1,345 @@
+// The bf16 backward of `[LN ->] 1x1 -> depthwise 3x3` from the cotangent at
+// the depthwise output, on the tensor cores: the second launch of the bf16
+// spectral stats backward (K10a, the tail of _sp0_bwd_kernel:
+// _sp_taps_bwd and _sp_rows_out, mp_hsir_tpu/ops/pallas_vjp.py:1401-1440).
+// It replaces grad.cu's dwconv_bwd (the transposed stencil and the tap
+// partials) and ln_linear_bwd (dxn and the LayerNorm backward) on that
+// route; the float32 route keeps both.
+//
+// Per 8x8 tile of the kernel frame (one 512-thread block), per 64-channel
+// chunk of the K depthwise channels:
+// - the chunk of dout (float32) and t (bf16) on the 10x10 halo, zero outside
+//   the image, and the chunk's K rows of the 1x1 weight w ([K][C8], torch
+//   layout: row = the 1x1's output channel) as one [64][CK + 8] bf16 tile,
+//   all three through one 2-3 stage cp.async ring (one barrier per chunk);
+// - dt = the transposed stencil in float32 (tap order and roundings as
+//   dwconv3_bwd_plain: the product rounded, then added), rounded to bf16
+//   into a [64][72] chunk and to device memory (the weight product's
+//   operand); each thread one channel and one tile row, the 3 x 10 halo
+//   values it needs read once;
+// - the per-tile tap partials sum_p t[p + off] dout[p], one row per tile;
+// - dxn += dt chunk x w chunk on mma.sync (B is [k][n]: ldmatrix.trans),
+//   every warp 16 pixel rows x 16 columns of each 64-channel output group,
+//   the sums in registers across the chunks (tail_out's layout: up to 48
+//   floats a thread at C = 384).
+// Epilogue in float32: x staged at the roll-back position (the kernel frame's
+// pixel (r, c) is x's (r - shift, c - shift)), xhat from x itself, the LN
+// backward per pixel with its row sums across the 4 column warps through
+// shared memory, dx rounded once and stored in x's frame; per-tile partials
+// of d ln_w and d ln_b after the tap partials. Without LN, dx = dxn. No float
+// atomics: two calls give bitwise the same outputs.
+//
+// Rounding points as spectral_stats_bwd_plain: dt rounded to bf16 before both
+// dxn and dW; dxn in float32; dx rounded once.
+//
+// Bound: 2 C K (dxn) + 36 K flops per pixel against ~8K + 2C bytes per pixel
+// read and 2K + 2C written (K = 2C: ~22 C bytes): bytes bound it at these
+// widths, the stencil and the product overlap no copy but the next chunk's.
+#pragma once
+
+#include "spectral_front.cuh"
+
+namespace mp {
+
+constexpr int kDxLdd = 68;  // dout chunk row: 64 floats + 4 (272 B)
+constexpr int kDxLdt = 72;  // t and dt chunk rows: 64 bf16 + 8 (144 B, an odd multiple of 16)
+// the dynamic bytes a plan may take: the H100's opt-in limit less the static
+constexpr size_t kDxBudget = 232448 - 1024;
+
+// The plan at width C (the 1x1's input) and K depthwise channels: the dt
+// chunk [64][72] bf16 | S ring stages of (dout [100][68] float32, t [100][72]
+// bf16, w rows [64][CK + 8] bf16), 3 where they fit the budget, else 2.
+// After the last chunk the ring's space holds the epilogue: x [64][CK + 8]
+// bf16, the LN mean and rstd [2][64], the row sums [4][64][2] and the column
+// sums [4][2][CK] (float32), within one stage and a half at every C.
+struct DwDxPlan {
+  int CK, ldw, nck, S;
+  size_t dq, tt, wt, stage, da, bytes;
+  __host__ __device__ DwDxPlan(int C, int K) {
+    CK = round_up64(C);
+    ldw = CK + 8;
+    nck = (K + 63) / 64;
+    dq = sizeof(float) * kHaloPix * kDxLdd;
+    tt = sizeof(__nv_bfloat16) * kHaloPix * kDxLdt;
+    wt = sizeof(__nv_bfloat16) * 64 * ldw;
+    stage = dq + tt + wt;
+    da = sizeof(__nv_bfloat16) * kPix * kDxLdt;
+    for (S = 3; S > 2 && da + S * stage > kDxBudget; --S) {
+    }
+    bytes = da + S * stage;
+  }
+};
+
+// Arguments: dout (B, H, W, K) float32 and t (B, H, W, K) bf16 in the
+// kernel frame; taps [K][9] and w [K][C8] bf16 (w 16-byte aligned); x (B, H,
+// W, C) bf16 in its own frame; lnw float32 or NULL (no LN). vec_in: K % 8 ==
+// 0 with dout and t 16-byte aligned; vec_x: C % 8 == 0 with x and dx 16-byte
+// aligned (else element by element). Outputs: dt (B, H, W, K) bf16 in the
+// kernel frame, dx (B, H, W, C) bf16 in x's frame, part [tiles][9 K (+ 2 C
+// with LN)] float32: the tap partials [9][K], then d ln_w, d ln_b.
+__global__ void __launch_bounds__(kThreads)
+dwconv_dx_tc_kernel(const float* __restrict__ dout, const __nv_bfloat16* __restrict__ t,
+                    const __nv_bfloat16* __restrict__ taps, const __nv_bfloat16* __restrict__ w,
+                    const __nv_bfloat16* __restrict__ x, const float* __restrict__ lnw, int H,
+                    int W, int C, int K, int shift, float eps, int vec_in, int vec_x,
+                    __nv_bfloat16* __restrict__ dt_out, __nv_bfloat16* __restrict__ dx_out,
+                    float* __restrict__ part) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ float4 dwdx_dyn[];
+  __shared__ int hpix[kHaloPix];  // halo pixel -> kernel-frame pixel (-1: outside the image)
+  const DwDxPlan pl(C, K);
+  const int CK = pl.CK, ldw = pl.ldw, C8 = round_up8(C), groups = CK / 64;
+  char* sm = reinterpret_cast<char*>(dwdx_dyn);
+  bf16* da = reinterpret_cast<bf16*>(sm);  // [64][kDxLdt] the rounded dt chunk
+  char* ring = sm + pl.da;
+  const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
+  const int tile = (b * (H / kTile) + ty) * (W / kTile) + tx;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t4 = lane & 3;
+  const int wr = warp >> 2, wc = warp & 3;
+  const int r0 = 16 * wr + (lane >> 2), r1 = r0 + 8;
+  float* prow = part + (size_t)tile * (9 * K + (lnw != nullptr ? 2 * C : 0));
+  auto pix = [&](int i) { return tile_pix(b, ty, tx, i, H, W); };
+  auto src = [&](int i) {  // x's pixel behind kernel-frame pixel i (the roll-back)
+    const int r = ty * kTile + (i >> 3), c = tx * kTile + (i & 7);
+    return ((size_t)b * H + (r - shift + H) % H) * W + (c - shift + W) % W;
+  };
+  auto same = [](int, int, float v) { return v; };
+
+  for (int p = threadIdx.x; p < kHaloPix; p += blockDim.x) {
+    const int ur = ty * kTile + p / kHalo - 1, uc = tx * kTile + p % kHalo - 1;
+    hpix[p] = ur >= 0 && ur < H && uc >= 0 && uc < W ? (b * H + ur) * W + uc : -1;
+  }
+  __syncthreads();
+  // chunk j of dout, t and w into a ring stage; zero outside the image and
+  // past K (and w past C8)
+  auto rg = front_ring(reinterpret_cast<bf16*>(ring), pl.stage / sizeof(bf16), pl.S, pl.nck,
+      [&](int j, bf16* dst) {
+        float* dq = reinterpret_cast<float*>(dst);
+        bf16* tt = reinterpret_cast<bf16*>(reinterpret_cast<char*>(dst) + pl.dq);
+        bf16* wt = tt + kHaloPix * kDxLdt;
+        const int k0 = 64 * j;
+        if (vec_in) {
+          for (int u = threadIdx.x; u < kHaloPix * 16; u += blockDim.x) {
+            const int p = u >> 4, c = (u & 15) * 4, q = hpix[p];
+            const bool ok = q >= 0 && k0 + c < K;
+            cp_async16(smem_u32(dq + p * kDxLdd + c), ok ? dout + (size_t)q * K + k0 + c : dout,
+                       ok ? 16 : 0);
+          }
+          for (int u = threadIdx.x; u < kHaloPix * 8; u += blockDim.x) {
+            const int p = u >> 3, c = (u & 7) * 8, q = hpix[p];
+            const bool ok = q >= 0 && k0 + c < K;
+            cp_async16(smem_u32(tt + p * kDxLdt + c), ok ? t + (size_t)q * K + k0 + c : t,
+                       ok ? 16 : 0);
+          }
+        } else {
+          for (int u = threadIdx.x; u < kHaloPix * 64; u += blockDim.x) {
+            const int p = u >> 6, c = u & 63, q = hpix[p];
+            const bool ok = q >= 0 && k0 + c < K;
+            dq[p * kDxLdd + c] = ok ? dout[(size_t)q * K + k0 + c] : 0.f;
+            tt[p * kDxLdt + c] = ok ? t[(size_t)q * K + k0 + c] : __float2bfloat16(0.f);
+          }
+        }
+        for (int u = threadIdx.x; u < 64 * (CK / 8); u += blockDim.x) {
+          const int r = u / (CK / 8), c = (u - r * (CK / 8)) * 8;
+          const bool ok = k0 + r < K && c < C8;
+          cp_async16(smem_u32(wt + r * ldw + c), ok ? w + (size_t)(k0 + r) * C8 + c : w,
+                     ok ? 16 : 0);
+        }
+      });
+  rg.prefetch();
+
+  float acc[2 * kTailGroups][4];  // dxn, tail_out's layout
+#pragma unroll
+  for (int q = 0; q < 2 * kTailGroups; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[q][e] = 0.f;
+  // the stencil's channel and tile row; A (the dt chunk) and B (the w rows,
+  // [k][n] read transposed: lane gives k row lane % 8 + 8 (lane / 8 % 2) at
+  // n column 16 wc + 8 (lane / 16)) addresses
+  const int sj = threadIdx.x & 63, spr = threadIdx.x >> 6;
+  const uint32_t aa = smem_u32(da + (16 * wr + (lane & 15)) * kDxLdt + 8 * (lane >> 4));
+  const int toff = ((lane & 7) + 8 * ((lane >> 3) & 1)) * ldw + 16 * wc + 8 * (lane >> 4);
+  for (int ch = 0; ch < pl.nck; ++ch) {
+    const bf16* st = rg.consume();
+    const float* dq = reinterpret_cast<const float*>(st);
+    const bf16* tt = reinterpret_cast<const bf16*>(reinterpret_cast<const char*>(st) + pl.dq);
+    const bf16* wt = tt + kHaloPix * kDxLdt;
+    const int k0 = 64 * ch;
+    {
+      // dt(pr, pc) = sum over (ty, tx) in order of dout(pr + ty - 1, pc + tx
+      // - 1) w[2 - ty][2 - tx]: halo row pr + a, column pc + tx
+      const int k = k0 + sj;
+      float wv[9], o[kTile];
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap)
+        wv[tap] = k < K ? __bfloat162float(taps[(size_t)k * 9 + tap]) : 0.f;
+#pragma unroll
+      for (int pc = 0; pc < kTile; ++pc) o[pc] = 0.f;
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+#pragma unroll
+        for (int hc = 0; hc < kHalo; ++hc) {
+          const float v = dq[((spr + a) * kHalo + hc) * kDxLdd + sj];
+#pragma unroll
+          for (int tx_ = 0; tx_ < 3; ++tx_) {
+            const int pc = hc - tx_;
+            if (pc >= 0 && pc < kTile)
+              o[pc] = __fadd_rn(o[pc], __fmul_rn(v, wv[(2 - a) * 3 + 2 - tx_]));
+          }
+        }
+#pragma unroll
+      for (int pc = 0; pc < kTile; ++pc) {
+        const bf16 v = __float2bfloat16(o[pc]);
+        da[(spr * kTile + pc) * kDxLdt + sj] = v;
+        if (k < K) dt_out[pix(spr * kTile + pc) * K + k] = v;
+      }
+    }
+    // the tap partials: sum over the tile's pixels of t[p + off(tap)] dout[p]
+    for (int idx = threadIdx.x; idx < 9 * 64; idx += blockDim.x) {
+      const int tap = idx >> 6, j = idx & 63, dy = tap / 3, dx = tap - 3 * dy;
+      if (k0 + j >= K) continue;
+      float s = 0.f;
+#pragma unroll 8
+      for (int p = 0; p < kPix; ++p) {
+        const int pr = p >> 3, pc = p & 7;
+        s = fmaf(__bfloat162float(tt[((pr + dy) * kHalo + pc + dx) * kDxLdt + j]),
+                 dq[((pr + 1) * kHalo + pc + 1) * kDxLdd + j], s);
+      }
+      prow[tap * K + k0 + j] = s;
+    }
+    __syncthreads();  // the dt chunk is complete
+    const uint32_t bt = smem_u32(wt) + 2 * toff;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t af[4];
+      ldmatrix_x4(af, aa + 32 * kk);
+#pragma unroll
+      for (int G = 0; G < kTailGroups; ++G) {
+        if (G < groups) {  // block-uniform
+          uint32_t bf[4];
+          ldmatrix_x4_trans(bf, bt + 2 * (16 * kk * ldw + 64 * G));
+          mma_16x8x16(acc[2 * G], af[0], af[1], af[2], af[3], bf[0], bf[1]);
+          mma_16x8x16(acc[2 * G + 1], af[0], af[1], af[2], af[3], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+
+  __syncthreads();  // every warp is past its last product: the ring's space is free
+  bf16* xs = reinterpret_cast<bf16*>(ring);                 // [64][ldw] x, then dx
+  float* stt = reinterpret_cast<float*>(xs + kPix * ldw);   // LN mean | rstd
+  float* rowred = stt + 2 * kPix;                           // [4 wc][64][2] row sums
+  float* colred = rowred + 4 * kPix * 2;                    // [4 wr][2][CK] column sums
+  stage_rows(xs, ldw, x, C, CK, vec_x, src);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  if (lnw != nullptr) {
+    // each row's mean and rstd from x itself, as tail_ln computes them
+    for (int i = warp; i < kPix; i += kThreads / 32) {
+      float s = 0.f;
+      for (int k = lane; k < C; k += 32) s += __bfloat162float(xs[i * ldw + k]);
+      const float mu = warp_sum(s) / C;
+      float v = 0.f;
+      for (int k = lane; k < C; k += 32) {
+        const float d = __bfloat162float(xs[i * ldw + k]) - mu;
+        v += d * d;
+      }
+      const float rs = rsqrtf(warp_sum(v) / C + eps);
+      if (lane == 0) {
+        stt[i] = mu;
+        stt[kPix + i] = rs;
+      }
+    }
+    __syncthreads();
+    const float* mu = stt;
+    const float* rs = stt + kPix;
+    // per row m1 = sum g, m2 = sum g xhat with g = dxn ln_w; per channel
+    // sum dxn xhat and sum dxn (d ln_w, d ln_b)
+    float m[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+    for (int q = 0; q < 2 * kTailGroups; ++q) {
+      if ((q >> 1) >= groups) break;  // block-uniform
+      const int col = 64 * (q >> 1) + 16 * wc + 8 * (q & 1) + 2 * t4;
+      float cw[2] = {0.f, 0.f}, cb[2] = {0.f, 0.f};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e < 2 ? r0 : r1, k = col + (e & 1);
+        if (k < C) {
+          const float xh = (__bfloat162float(xs[i * ldw + k]) - mu[i]) * rs[i], d = acc[q][e];
+          const float g = d * lnw[k];
+          m[e >> 1][0] += g;
+          m[e >> 1][1] = fmaf(g, xh, m[e >> 1][1]);
+          cw[e & 1] = fmaf(d, xh, cw[e & 1]);
+          cb[e & 1] += d;
+        }
+      }
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          cw[e] += __shfl_xor_sync(0xffffffffu, cw[e], o);
+          cb[e] += __shfl_xor_sync(0xffffffffu, cb[e], o);
+        }
+      if (lane < 4)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          colred[(wr * 2) * CK + col + e] = cw[e];
+          colred[(wr * 2 + 1) * CK + col + e] = cb[e];
+        }
+    }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        m[q >> 1][q & 1] += __shfl_xor_sync(0xffffffffu, m[q >> 1][q & 1], o);
+    if (t4 == 0)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        rowred[(wc * kPix + (q < 2 ? r0 : r1)) * 2 + (q & 1)] = m[q >> 1][q & 1];
+    __syncthreads();
+    float m1[2], m2[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int i = rr ? r1 : r0;
+      float s1 = 0.f, s2 = 0.f;
+      for (int w4 = 0; w4 < 4; ++w4) {
+        s1 += rowred[(w4 * kPix + i) * 2];
+        s2 += rowred[(w4 * kPix + i) * 2 + 1];
+      }
+      m1[rr] = s1 / C;
+      m2[rr] = s2 / C;
+    }
+    // dx = (g - m1 - xhat m2) rstd, rounded once, into x's place (each
+    // element read and written by its own thread only)
+#pragma unroll
+    for (int q = 0; q < 2 * kTailGroups; ++q) {
+      if ((q >> 1) >= groups) break;
+      const int col = 64 * (q >> 1) + 16 * wc + 8 * (q & 1) + 2 * t4;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e < 2 ? r0 : r1, k = col + (e & 1);
+        if (k < C) {
+          const float xh = (__bfloat162float(xs[i * ldw + k]) - mu[i]) * rs[i];
+          xs[i * ldw + k] =
+              __float2bfloat16((acc[q][e] * lnw[k] - m1[e >> 1] - xh * m2[e >> 1]) * rs[i]);
+        }
+      }
+    }
+    for (int k = threadIdx.x; k < C; k += blockDim.x) {
+      float sw = 0.f, sb = 0.f;
+      for (int w4 = 0; w4 < 4; ++w4) {
+        sw += colred[(w4 * 2) * CK + k];
+        sb += colred[(w4 * 2 + 1) * CK + k];
+      }
+      prow[9 * K + k] = sw;
+      prow[9 * K + C + k] = sb;
+    }
+  } else {
+    tail_out(acc, C, [&](int i, int k, float v) { xs[i * ldw + k] = __float2bfloat16(v); });
+  }
+  __syncthreads();
+  tail_store(xs, ldw, C, vec_x, [&](int i) { return dx_out + src(i) * C; }, same);
+}
+
+}  // namespace mp

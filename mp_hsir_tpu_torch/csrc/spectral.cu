@@ -30,7 +30,11 @@
 // rate bounds both at these widths. bf16 products run as mma.sync on the
 // tensor cores, float32 ones as SIMT FMA (common.cuh gemm; PERF.md); the bf16
 // stats and apply launches run their own tiles (spectral_stats.cuh,
-// spectral_front.cuh).
+// spectral_front.cuh). The bf16 stats backward runs two tensor-core tiles:
+// spectral_stats_bwd_tc_kernel (spectral_stats.cuh) and dwconv_dx_tc_kernel
+// (dwconv_dx.cuh); the float32 one spectral_stats_bwd_kernel below and
+// grad.cu's dwconv_bwd and ln_linear_bwd.
+#include "dwconv_dx.cuh"
 #include "spectral_stats.cuh"
 
 namespace mp {
@@ -674,8 +678,9 @@ cudaError_t launch_apply_tc(const __nv_bfloat16* x1, const __nv_bfloat16* x2, in
 // dx back into the input's frame) and the weight products.
 // ---------------------------------------------------------------------------
 
-// VJP of the stats launch (K10a): dq = k dG^T + 2 q dnq, dk = q dG + 2 k dnk
-// per head, dG rounded to T as _sp0_bwd_kernel does.
+// VJP of the stats launch (K10a), float32 (bf16 runs the tiles of
+// spectral_stats.cuh and dwconv_dx.cuh): dq = k dG^T + 2 q dnq, dk = q dG +
+// 2 k dnk per head.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 spectral_stats_bwd_kernel(const T* __restrict__ x, const float* __restrict__ lnw,
@@ -912,6 +917,41 @@ cudaError_t launch_stats_bwd(const void* x, const float* lnw, const float* lnb, 
   return cudaGetLastError();
 }
 
+// The bf16 stats backward's two tiles: launch 1 (spectral_stats.cuh) writes
+// un, t and dqk; launch 2 (dwconv_dx.cuh, K = 2C) dtt, dx and the per-tile
+// partials. wqk [2C][C8] and taps [2C][9] as the forward tile's; C up to
+// kFrontMaxC.
+cudaError_t launch_stats_bwd_tc(const __nv_bfloat16* x, const float* lnw, const float* lnb,
+                                const __nv_bfloat16* wqk, const __nv_bfloat16* taps,
+                                const float* dgram, const float* dnq, const float* dnk,
+                                __nv_bfloat16* un, __nv_bfloat16* t, float* dqk, int B, int H,
+                                int W, int C, int nH, int shift, float eps, cudaStream_t stream) {
+  if (C > kFrontMaxC || !aligned(wqk, 16)) return cudaErrorInvalidValue;
+  const size_t smem = StatsBwdPlan(C, nH).bytes;
+  const int flags = C % 8 == 0 && aligned(x, 16) && aligned(un, 16) ? kVecX : 0;
+  cudaError_t err = set_smem(spectral_stats_bwd_tc_kernel, smem);
+  if (err != cudaSuccess) return err;
+  spectral_stats_bwd_tc_kernel<<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
+      x, lnw, lnb, wqk, taps, dgram, dnq, dnk, C, H, W, nH, shift, eps, flags, un, t, dqk);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dwconv_dx_tc(const float* dout, const __nv_bfloat16* t,
+                                const __nv_bfloat16* taps, const __nv_bfloat16* w,
+                                const __nv_bfloat16* x, const float* lnw, __nv_bfloat16* dt,
+                                __nv_bfloat16* dx, float* part, int B, int H, int W, int C, int K,
+                                int shift, float eps, cudaStream_t stream) {
+  if (C > kTailMaxC || !aligned(w, 16)) return cudaErrorInvalidValue;
+  const size_t smem = DwDxPlan(C, K).bytes;
+  const int vec_in = K % 8 == 0 && aligned(dout, 16) && aligned(t, 16);
+  const int vec_x = C % 8 == 0 && aligned(x, 16) && aligned(dx, 16);
+  cudaError_t err = set_smem(dwconv_dx_tc_kernel, smem);
+  if (err != cudaSuccess) return err;
+  dwconv_dx_tc_kernel<<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
+      dout, t, taps, w, x, lnw, H, W, C, K, shift, eps, vec_in, vec_x, dt, dx, part);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_apply_bwd(const void* x, const float* lnw, const float* lnb, const void* wqkv,
                              const void* wdw, const float* comb, const void* gate,
@@ -1036,6 +1076,18 @@ extern "C" long long mp_spectral_stats_bwd_smem(int C, int nH) {
   return mp::plan_bytes(mp::spectral_stats_bwd_kernel<float>, mp::stats_bwd_smem(C, nH));
 }
 
+// The bf16 stats backward's tiles (StatsBwdPlan; DwDxPlan at C and K = 2C
+// for this route); -1 past C = 384.
+extern "C" long long mp_spectral_stats_bwd_tc_smem(int C, int nH) {
+  return C > mp::kFrontMaxC ? -1
+                            : mp::plan_bytes(mp::spectral_stats_bwd_tc_kernel,
+                                             mp::StatsBwdPlan(C, nH).bytes);
+}
+
+extern "C" long long mp_dwconv_dx_tc_smem(int C, int K) {
+  return C > mp::kTailMaxC ? -1 : mp::plan_bytes(mp::dwconv_dx_tc_kernel, mp::DwDxPlan(C, K).bytes);
+}
+
 extern "C" long long mp_spectral_apply_bwd_smem(int C, int kc) {
   return mp::plan_bytes(mp::apply_bwd_kernel<float>(kc, C), mp::apply_bwd_smem(C, kc));
 }
@@ -1043,26 +1095,58 @@ extern "C" long long mp_spectral_apply_bwd_smem(int C, int kc) {
 // The channel chunk the apply backward kernel launches with at C.
 extern "C" int mp_spectral_apply_bwd_chunk(int C) { return mp::apply_bwd_chunk(C); }
 
-// Backward of mp_spectral_stats for one raw input (no x2). Inputs: x, LN,
-// wqkv [C][3C], wdw [9][3C] as in the forward; dgram (B, C, dh), dnq / dnk
-// (B, nH, dh) float32. Outputs, unrolled frame: un (B, H, W, C) the (LN'd)
-// input, t (B, H, W, 2C) float32 the q|k 1x1 output, dqk (B, H, W, 2C)
-// float32 the cotangent after the depthwise conv.
+// The float32 backward of mp_spectral_stats for one raw input (no x2; bf16
+// runs mp_spectral_stats_bwd_tc and mp_dwconv_dx_tc). Inputs: x, LN, wqkv
+// [C][3C], wdw [9][3C] as in the forward; dgram (B, C, dh), dnq / dnk (B,
+// nH, dh). Outputs, unrolled frame: un (B, H, W, C) the (LN'd) input, t (B,
+// H, W, 2C) the q|k 1x1 output, dqk (B, H, W, 2C) the cotangent after the
+// depthwise conv.
 extern "C" int mp_spectral_stats_bwd(const void* x, const void* lnw, const void* lnb,
                                      const void* wqkv, const void* wdw, const void* dgram,
                                      const void* dnq, const void* dnk, void* un, void* t,
-                                     void* dqk, int dtype, int B, int H, int W, int C, int nH,
-                                     int shift, float eps, void* stream) {
+                                     void* dqk, int B, int H, int W, int C, int nH, int shift,
+                                     float eps, void* stream) {
   if (C % nH != 0 || H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
-  auto st = (cudaStream_t)stream;
   auto f = [](const void* p) { return (const float*)p; };
-  if (dtype == 0)
-    return (int)mp::launch_stats_bwd<float>(x, f(lnw), f(lnb), wqkv, wdw, f(dgram), f(dnq),
-                                            f(dnk), un, (float*)t, (float*)dqk, B, H, W, C, nH,
-                                            shift, eps, st);
-  return (int)mp::launch_stats_bwd<__nv_bfloat16>(x, f(lnw), f(lnb), wqkv, wdw, f(dgram), f(dnq),
-                                                  f(dnk), un, (float*)t, (float*)dqk, B, H, W, C,
-                                                  nH, shift, eps, st);
+  return (int)mp::launch_stats_bwd<float>(x, f(lnw), f(lnb), wqkv, wdw, f(dgram), f(dnq), f(dnk),
+                                          un, (float*)t, (float*)dqk, B, H, W, C, nH, shift, eps,
+                                          (cudaStream_t)stream);
+}
+
+// The bf16 stats backward's first tile (C <= 384): x (B, H, W, C) bf16, LN
+// float32 or NULL; wqk the q|k rows of the torch weight ([2C][C8], 16-byte
+// aligned) and taps [2C][9] bf16 (the forward tile's operands); dgram (B, C,
+// dh), dnq / dnk (B, nH, dh) float32. Outputs, unrolled frame, torch channel
+// order: un (B, H, W, C) bf16, t (B, H, W, 2C) bf16, dqk (B, H, W, 2C) float32.
+extern "C" int mp_spectral_stats_bwd_tc(const void* x, const void* lnw, const void* lnb,
+                                        const void* wqk, const void* taps, const void* dgram,
+                                        const void* dnq, const void* dnk, void* un, void* t,
+                                        void* dqk, int B, int H, int W, int C, int nH, int shift,
+                                        float eps, void* stream) {
+  if (C % nH != 0 || H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
+  using bf = const __nv_bfloat16*;
+  auto f = [](const void* p) { return (const float*)p; };
+  return (int)mp::launch_stats_bwd_tc((bf)x, f(lnw), f(lnb), (bf)wqk, (bf)taps, f(dgram), f(dnq),
+                                      f(dnk), (__nv_bfloat16*)un, (__nv_bfloat16*)t, (float*)dqk,
+                                      B, H, W, C, nH, shift, eps, (cudaStream_t)stream);
+}
+
+// The second tile (C <= 384): the backward of [LN ->] 1x1 -> depthwise 3x3
+// from the cotangent dout (B, H, W, K) float32 at the depthwise output; t (B,
+// H, W, K) bf16 its input; taps [K][9] and w [K][C8] bf16 (16-byte aligned);
+// x (B, H, W, C) bf16 whose pixel (r - shift, c - shift) is the kernel
+// frame's (r, c); lnw NULL = no LN. Outputs: dt (B, H, W, K) bf16 kernel
+// frame, dx (B, H, W, C) bf16 x's frame, part (tiles, 9 K [+ 2 C]) float32.
+extern "C" int mp_dwconv_dx_tc(const void* dout, const void* t, const void* taps, const void* w,
+                               const void* x, const void* lnw, void* dt, void* dx, void* part,
+                               int B, int H, int W, int C, int K, int shift, float eps,
+                               void* stream) {
+  if (H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
+  using bf = const __nv_bfloat16*;
+  return (int)mp::launch_dwconv_dx_tc((const float*)dout, (bf)t, (bf)taps, (bf)w, (bf)x,
+                                      (const float*)lnw, (__nv_bfloat16*)dt, (__nv_bfloat16*)dx,
+                                      (float*)part, B, H, W, C, K, shift, eps,
+                                      (cudaStream_t)stream);
 }
 
 // Backward of mp_spectral_apply without the MLP tail or x2. dy (B, H, W, C)

@@ -34,6 +34,11 @@
 //   ldmatrix.trans + mma.sync, every 16 x 16 unit owned by one warp, added to
 //   the float32 partial [nH][dhp][dhp]; the norms from the same tile, every
 //   column's 64 pixels summed by 4 lanes in a fixed order.
+//
+// spectral_stats_bwd_tc_kernel (below) is the first of the two launches of
+// the bf16 backward (K10a, _sp0_bwd_kernel, mp_hsir_tpu/ops/pallas_vjp.py:1443;
+// the second is dwconv_dx_tc_kernel, dwconv_dx.cuh): the same front per 8x8
+// tile, then dq_h = k_h dG_h^T and dk_h = q_h dG_h on the tensor cores.
 #pragma once
 
 #include "spectral_front.cuh"
@@ -243,6 +248,210 @@ spectral_stats_tc_kernel(const __nv_bfloat16* __restrict__ x1, const __nv_bfloat
       v = nacc[h * pl.hw + side * dhp + d];
     }
     out[i] = v;
+  }
+}
+
+
+// ---------------------------------------------------------------------------
+// The bf16 backward's first launch (K10a: the recompute and dq | dk of
+// _sp0_bwd_kernel, mp_hsir_tpu/ops/pallas_vjp.py:1443-1498). One 8x8 tile of
+// the unrolled frame per 512-thread block; the forward tile's front as it is
+// (the halo staged once as bf16 with LN in place, head groups, the q|k 1x1
+// passes through the cp.async ring, each pass rounded to bf16, dw3_pairs
+// into the group's q|k tile), then per head of the group, on the tensor
+// cores: dq_h = k_h dG_h^T (B = dG_h as [n = d][k = e], ldmatrix) and dk_h =
+// q_h dG_h (B = dG_h as [k = d][n = e], ldmatrix.trans), K = dhp, every 16 x
+// 16 unit owned by one warp; the epilogue adds 2 q dnq (2 k dnk) in float32.
+// Writes, in the torch channel order (q at h dh + d, k at C + h dh + d): un
+// (the LN'd tile pixels, bf16, for the weight product), t (the 1x1 output at
+// the tile's pixels, bf16: the forward rounds it there) and dqk (float32:
+// the stencil's input, not rounded, as in the plain version and in JAX).
+// Rounding points as spectral_stats_bwd_plain: q, k and dG rounded to bf16;
+// the products and the norm terms summed in float32.
+// ---------------------------------------------------------------------------
+
+// Launch 1's plan: StatsPlan's (the same groups, passes and ring), with dG
+// (bf16 [nH][dhp][dhp + 8], zero in the padding; rows of an odd multiple of
+// 16 bytes for ldmatrix) in the place of the Gram partial and the column
+// cotangents dn (float32 [nqk]: dnq | dnk per head, zero in the padding) in
+// that of the norms. dG takes at most the partial's bytes: the plan stays
+// within the forward's.
+struct StatsBwdPlan {
+  StatsPlan f;
+  int ldg;
+  size_t dg, bytes;
+  __host__ __device__ StatsBwdPlan(int c, int nh) : f(c, nh) {
+    ldg = f.dhp + 8;
+    dg = sizeof(__nv_bfloat16) * f.nH * f.dhp * ldg;
+    bytes = f.bytes - f.gacc + dg;
+  }
+};
+
+// Arguments: x (B, H, W, C) bf16, the raw input, read through the roll-back;
+// lnw, lnb float32 or NULL (no LN); wqk, taps as spectral_stats_tc_kernel;
+// dgram (B, C, dh), dnq, dnk (B, nH, dh) float32; flags: kVecX (C % 8 == 0,
+// x and un 16-byte aligned). Outputs in the unrolled frame: un (B, H, W, C)
+// and t (B, H, W, 2C) bf16, dqk (B, H, W, 2C) float32.
+__global__ void __launch_bounds__(kThreads)
+spectral_stats_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ lnw,
+                             const float* __restrict__ lnb, const __nv_bfloat16* __restrict__ wqk,
+                             const __nv_bfloat16* __restrict__ taps,
+                             const float* __restrict__ dgram, const float* __restrict__ dnq,
+                             const float* __restrict__ dnk, int C, int H, int W, int nH,
+                             int shift, float eps, int flags, __nv_bfloat16* __restrict__ un_out,
+                             __nv_bfloat16* __restrict__ t_out, float* __restrict__ dqk_out) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ float4 stats_bwd_dyn[];
+  __shared__ int hsrc[kFrontRows];  // halo row -> raw source pixel (-1: zero row)
+  const StatsBwdPlan bp(C, nH);
+  const StatsPlan& pl = bp.f;
+  const int ld = pl.ld, C8 = round_up8(C), dh = pl.dh, dhp = pl.dhp, hw = pl.hw;
+  const int ldq = pl.GW + 8, ldt = pl.NP + 8, ldg = bp.ldg, C2 = 2 * C;
+  char* sm = reinterpret_cast<char*>(stats_bwd_dyn);
+  __nv_bfloat162* tp = reinterpret_cast<__nv_bfloat162*>(sm);  // [9][nqk / 2] tap pairs
+  bf16* dg = reinterpret_cast<bf16*>(sm + pl.taps);             // [nH][dhp][ldg] rnd(dG)
+  float* dn = reinterpret_cast<float*>(sm + pl.taps + bp.dg);   // [nqk] dnq | dnk per head
+  bf16* xh = reinterpret_cast<bf16*>(dn + pl.nqk);               // [112][ld] halo
+  bf16* qk = xh + kFrontRows * ld;                               // [64][ldq] q|k of a group
+  bf16* rg = qk + kPix * ldq;                                    // ring / 1x1 output
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
+  const bool vec_x = flags & kVecX;
+  auto pix = [&](int i) { return tile_pix(b, ty, tx, i, H, W); };
+  auto hp = [](int i) { return ((i >> 3) + 1) * kHalo + (i & 7) + 1; };  // halo row of pixel i
+
+  for (int p = threadIdx.x; p < kFrontRows; p += blockDim.x)
+    hsrc[p] = halo_src(p, b, ty, tx, H, W, shift);
+  // the taps (as the forward), rnd(dG) and dn in the head-grouped order
+  for (int i = threadIdx.x; i < 9 * (pl.nqk / 2); i += blockDim.x) {
+    const int tap = i / (pl.nqk / 2), n = 2 * (i - tap * (pl.nqk / 2));
+    const int r0 = pl.row(n), r1 = pl.row(n + 1);
+    const bf16 z = __float2bfloat16(0.f);
+    tp[i] = __halves2bfloat162(r0 < 0 ? z : taps[r0 * 9 + tap], r1 < 0 ? z : taps[r1 * 9 + tap]);
+  }
+  const float* dgb = dgram + (size_t)b * C * dh;
+  for (int i = threadIdx.x; i < nH * dhp * dhp; i += blockDim.x) {
+    const int h = i / (dhp * dhp), d = (i / dhp) % dhp, e = i % dhp;
+    dg[(h * dhp + d) * ldg + e] =
+        __float2bfloat16(d < dh && e < dh ? dgb[(h * dh + d) * dh + e] : 0.f);
+  }
+  for (int n = threadIdx.x; n < pl.nqk; n += blockDim.x) {
+    const int h = n / hw, j = n - h * hw, side = j >= dhp, d = j - side * dhp;
+    dn[n] = d < dh ? (side ? dnk : dnq)[((size_t)b * nH + h) * dh + d] : 0.f;
+  }
+  __syncthreads();
+  stage_halo(xh, ld, hsrc, x, nullptr, C, 0, pl.CP, vec_x);
+
+  float acc[kFrontUnits][4][4];
+  for (int g = 0; g < pl.groups; ++g) {
+    const int g0 = g * pl.GW, gw = min(pl.GW, pl.nqk - g0);
+    for (int n0 = 0; n0 < gw; n0 += pl.NP) {
+      // the pass's columns [g0 + n0, g0 + n0 + np), as the forward streams them
+      const int np = min(pl.NP, gw - n0), n_units = 7 * (np / 32), c0 = g0 + n0;
+      auto wr = front_ring(rg, (size_t)pl.NP * kFrontLdw, pl.ws, pl.nk,
+          [=](int kt, bf16* dst) {
+            for (int u = threadIdx.x; u < np * 8; u += blockDim.x) {
+              const int r = u >> 3, c = 64 * kt + (u & 7) * 8;
+              const int row = qk_row(c0 + r, hw, dhp, dh, C);
+              const bool ok = row >= 0 && c < C8;
+              cp_async16(smem_u32(dst + r * kFrontLdw + (u & 7) * 8),
+                         ok ? wqk + (size_t)row * C8 + c : wqk, ok ? 16 : 0);
+            }
+          });
+      wr.prefetch();
+      if (g == 0 && n0 == 0) {
+        // the halo landed; LayerNorm in place; un from the tile's rows
+        cp_async_wait_upto(pl.ws - 1);
+        __syncthreads();
+        if (lnw != nullptr) {
+          halo_ln(xh, ld, hsrc, C, lnw, lnb, eps);
+          __syncthreads();
+        }
+        if (vec_x) {
+          for (int u = threadIdx.x; u < kPix * (C / 8); u += blockDim.x) {
+            const int i = u / (C / 8), c = (u - i * (C / 8)) * 8;
+            *reinterpret_cast<uint4*>(un_out + pix(i) * C + c) =
+                *reinterpret_cast<const uint4*>(xh + hp(i) * ld + c);
+          }
+        } else {
+          for (int u = threadIdx.x; u < kPix * C; u += blockDim.x) {
+            const int i = u / C, c = u - i * C;
+            un_out[pix(i) * C + c] = xh[hp(i) * ld + c];
+          }
+        }
+      }
+      halo_1x1(acc, xh, ld, wr, n_units, pl.CP, pl.nk);
+      cp_async_wait<0>();
+      __syncthreads();
+      front_out(acc, n_units, 7, [&](int r, int c, float v0, float v1) {
+        if (r < kHaloPix) *reinterpret_cast<uint32_t*>(rg + r * ldt + c) = pack_bf16x2(v0, v1);
+      });
+      __syncthreads();
+      // t at the tile's pixels, in the torch order (a column pair is one
+      // side of one head: dhp is a multiple of 16)
+      for (int u = threadIdx.x; u < kPix * (np / 2); u += blockDim.x) {
+        const int i = u / (np / 2), j = 2 * (u - i * (np / 2));
+        const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(rg + hp(i) * ldt + j);
+        const int r0 = qk_row(c0 + j, hw, dhp, dh, C), r1 = qk_row(c0 + j + 1, hw, dhp, dh, C);
+        bf16* o = t_out + pix(i) * C2;
+        if (r1 == r0 + 1 && (r0 & 1) == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(o + r0) = v;
+        } else {
+          if (r0 >= 0) o[r0] = v.x;
+          if (r1 >= 0) o[r1] = v.y;
+        }
+      }
+      dw3_pairs(rg, ldt, tp + c0 / 2, pl.nqk / 2, qk + n0, ldq, np / 2);
+      __syncthreads();
+    }
+    // dq_h = k_h dG_h^T, dk_h = q_h dG_h: unit u = (head of the group, side,
+    // 16-row block mi, 16-column block ni); A is the other side's columns of
+    // the q|k tile, K = dhp
+    const int m16 = dhp / 16, per_head = 8 * m16, units = (gw / hw) * per_head;
+    for (int u = warp; u < units; u += kThreads / 32) {
+      const int hh = u / per_head, rem = u - hh * per_head;
+      const int side = rem / (4 * m16), mi = (rem / m16) & 3, ni = rem % m16;
+      const int oc = hh * hw + side * dhp;            // the output's columns in the tile
+      const int ac = hh * hw + (side ? 0 : dhp);      // A's: k_h for dq, q_h for dk
+      const uint32_t a = smem_u32(qk + (16 * mi + (lane & 15)) * ldq + ac + 8 * (lane >> 4));
+      const bf16* gh = dg + (size_t)(g * pl.hg + hh) * dhp * ldg;
+      const uint32_t bq = smem_u32(gh + (16 * ni + (lane & 7) + 8 * (lane >> 4)) * ldg +
+                                   8 * ((lane >> 3) & 1));
+      const uint32_t bk = smem_u32(gh + ((lane & 7) + 8 * ((lane >> 3) & 1)) * ldg + 16 * ni +
+                                   8 * (lane >> 4));
+      float c[2][4] = {};
+      for (int kk = 0; kk < m16; ++kk) {
+        uint32_t af[4], bf[4];
+        ldmatrix_x4(af, a + 32 * kk);
+        if (side) {
+          ldmatrix_x4_trans(bf, bk + 2 * 16 * kk * ldg);
+        } else {
+          ldmatrix_x4(bf, bq + 32 * kk);
+        }
+        mma_16x8x16(c[0], af[0], af[1], af[2], af[3], bf[0], bf[1]);
+        mma_16x8x16(c[1], af[0], af[1], af[2], af[3], bf[2], bf[3]);
+      }
+      // + 2 own dn in float32, to dqk in the torch order
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int r = 16 * mi + (lane >> 2) + 8 * rr, d = 16 * ni + 8 * nt + 2 * (lane & 3);
+          const int n = g0 + oc + d;
+          const float2 own = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(qk + r * ldq + oc + d));
+          const float v0 = c[nt][2 * rr] + 2.f * own.x * dn[n];
+          const float v1 = c[nt][2 * rr + 1] + 2.f * own.y * dn[n + 1];
+          const int q0 = qk_row(n, hw, dhp, dh, C), q1 = qk_row(n + 1, hw, dhp, dh, C);
+          float* o = dqk_out + pix(r) * C2;
+          if (q1 == q0 + 1 && (q0 & 1) == 0) {
+            *reinterpret_cast<float2*>(o + q0) = make_float2(v0, v1);
+          } else {
+            if (q0 >= 0) o[q0] = v0;
+            if (q1 >= 0) o[q1] = v1;
+          }
+        }
+    }
   }
 }
 

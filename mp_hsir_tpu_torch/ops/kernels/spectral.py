@@ -13,7 +13,13 @@ differentiates it.
 Backward (training): ``mp_spectral_stats_bwd`` and ``mp_spectral_apply_bwd``
 plus the shared stages of ``csrc/grad.cu`` replace ``_sp0_bwd_kernel`` /
 ``_sp1_bwd_kernel`` (``mp_hsir_tpu/ops/pallas_vjp.py:1443``, ``:1501``) and
-the two phases of ``_spectral_bwd_kernel`` (``:953``). The eval-only options
+the two phases of ``_spectral_bwd_kernel`` (``:953``). The bf16 stats
+backward runs two tensor-core tiles instead of ``mp_spectral_stats_bwd`` and
+grad.cu's depthwise and LayerNorm stages: ``mp_spectral_stats_bwd_tc`` (the
+forward tile's front and dq | dk, ``csrc/spectral_stats.cuh``) and
+``mp_dwconv_dx_tc`` (the transposed stencil, dx and the LayerNorm backward,
+``csrc/dwconv_dx.cuh``), then the weight product and one in-order sum of the
+per-tile partials (:func:`stats_bwd_tc_plan` mirrors both plans). The eval-only options
 (``x2``, the ``mlp`` tail) have no backward, as in the JAX package; a
 backward through them raises.
 
@@ -66,6 +72,10 @@ FRONT_K = 64
 # (kStatsMaxN) and the dynamic shared memory its plan may take (kStatsBudget)
 STATS_MAX_N = 192
 STATS_BUDGET = 232448 - 1024
+# the bf16 backward's second tile (csrc/dwconv_dx.cuh): the row strides of
+# its dout (float32) and t / dt (bf16) chunks (kDxLdd, kDxLdt)
+DX_LDD = 68
+DX_LDT = 72
 
 __all__ = ["dwconv3_f32", "spectral_stats", "spectral_apply", "spectral_fold"]
 
@@ -170,6 +180,32 @@ def stats_plan(c: int, heads: int) -> dict:
                 groups=groups, gw=gw, np=np_, ws=ws, bytes=nbytes)
 
 
+def dwconv_dx_plan(c: int, k: int) -> dict:
+    """The plan of the bf16 backward's second tile at width ``c`` and ``k``
+    depthwise channels (``DwDxPlan`` in csrc/dwconv_dx.cuh): ``nck`` 64-channel
+    chunks; ``stages`` ring stages (3 where they fit, else 2) of ``stage``
+    bytes (the dout and t halo chunks and the chunk's rows of the 1x1 weight,
+    ``ck`` = c rounded up to 64 columns); ``bytes`` the dynamic shared memory,
+    the dt chunk included."""
+    ck = -(-c // 64) * 64
+    stage = 4 * 100 * DX_LDD + 2 * 100 * DX_LDT + 2 * 64 * (ck + 8)
+    da = 2 * 64 * DX_LDT
+    stages = 3 if da + 3 * stage <= STATS_BUDGET else 2
+    return dict(ck=ck, nck=-(-k // 64), stages=stages, stage=stage, bytes=da + stages * stage)
+
+
+def stats_bwd_tc_plan(c: int, heads: int) -> dict:
+    """The bf16 stats backward's plans: the first tile's (``StatsBwdPlan``
+    in csrc/spectral_stats.cuh: :func:`stats_plan`'s tiling with dG, bf16
+    [heads][dhp][``ldg`` = dhp + 8], in the place of the Gram partial;
+    ``bytes``) and the second tile's at K = 2C (``dx``: :func:`dwconv_dx_plan`)."""
+    pl = stats_plan(c, heads)
+    ldg = pl["dhp"] + 8
+    dg = 2 * heads * pl["dhp"] * ldg
+    return dict(pl, ldg=ldg, bytes=pl["bytes"] - 4 * heads * pl["dhp"] ** 2 + dg,
+                dx=dwconv_dx_plan(c, 2 * c))
+
+
 def qk_row(n: int, plan: dict, c: int) -> int:
     """The row of :func:`pack_stats`' q|k weights behind column ``n`` of the
     tile's head-grouped order (``qk_row`` in csrc/spectral_stats.cuh), or -1
@@ -193,11 +229,15 @@ def pack_stats(wqkv, wdw, dt):
 
 
 @lru_cache(maxsize=None)
-def _stats_entry(bwd: bool = False):
+def _stats_entry(kind: str = "fwd"):
     import ctypes
 
-    if bwd:
-        return _build.entry("mp_spectral_stats_bwd", 11, [ctypes.c_int] * 7 + [ctypes.c_float])
+    if kind == "bwd":
+        return _build.entry("mp_spectral_stats_bwd", 11, [ctypes.c_int] * 6 + [ctypes.c_float])
+    if kind == "bwd_tc":
+        return _build.entry("mp_spectral_stats_bwd_tc", 11, [ctypes.c_int] * 6 + [ctypes.c_float])
+    if kind == "dx_tc":
+        return _build.entry("mp_dwconv_dx_tc", 9, [ctypes.c_int] * 6 + [ctypes.c_float])
     return _build.entry("mp_spectral_stats", 10, [ctypes.c_int] * 8 + [ctypes.c_float]
                         + [ctypes.c_int] * 2)
 
@@ -265,7 +305,52 @@ def _stats_launch(x, wqkv, wdw, num_heads, shift, x2, ln_w, ln_b, eps):
     return out
 
 
+def _stats_bwd_tc_launch(x, wqkv, wdw, num_heads, shift, ln_w, ln_b, eps, dgram, dnq, dnk):
+    """The bf16 backward: the two tiles, the weight product and one in-order
+    sum of the per-tile partials (the taps' [9][2C], then d ln_w, d ln_b)."""
+    b, h, w, c = x.shape
+    dt = x.dtype
+    if c > FRONT_MAX_C:  # the widest C of both tiles' plans
+        raise ValueError(f"the bf16 spectral stats backward takes C up to {FRONT_MAX_C}, got {c}")
+    what = f"C={c}, heads={num_heads}"
+    _build.check_plan("spectral_stats_bwd", "mp_spectral_stats_bwd_tc_smem", what, c, num_heads)
+    _build.check_plan("spectral_stats_bwd", "mp_dwconv_dx_tc_smem", what, c, 2 * c)
+    x = x.contiguous()
+    wq, wd = pack_stats(wqkv, wdw, dt)
+    lnw, lnb = f32(ln_w), f32(ln_b)
+    dgram, dnq, dnk = f32(dgram), f32(dnq), f32(dnk)
+    dev = x.device
+    tiles = b * (h // 8) * (w // 8)
+    un = torch.empty((b, h, w, c), dtype=dt, device=dev)
+    t = torch.empty((b, h, w, 2 * c), dtype=dt, device=dev)
+    dqk = torch.empty((b, h, w, 2 * c), dtype=torch.float32, device=dev)
+    dtt, dx = torch.empty_like(t), torch.empty_like(x)
+    ln = lnw is not None
+    part = torch.empty((1, tiles, 18 * c + (2 * c if ln else 0)), dtype=torch.float32, device=dev)
+    p = _build.ptr
+    err = _stats_entry("bwd_tc")(x.data_ptr(), p(lnw), p(lnb), wq.data_ptr(), wd.data_ptr(),
+                                 dgram.data_ptr(), dnq.data_ptr(), dnk.data_ptr(), un.data_ptr(),
+                                 t.data_ptr(), dqk.data_ptr(), b, h, w, c, num_heads, shift, eps,
+                                 stream_ptr())
+    _build.check("mp_spectral_stats_bwd_tc", err)
+    err = _stats_entry("dx_tc")(dqk.data_ptr(), t.data_ptr(), wd.data_ptr(), wq.data_ptr(),
+                                x.data_ptr(), p(lnw), dtt.data_ptr(), dx.data_ptr(),
+                                part.data_ptr(), b, h, w, c, 2 * c, shift, eps, stream_ptr())
+    _build.check("mp_dwconv_dx_tc", err)
+    dw = torch.zeros((3 * c, c), dtype=torch.float32, device=dev)
+    dw[:2 * c] = wgrad(un.reshape(-1, c), dtt.reshape(-1, 2 * c)).t()
+    sums = sum_parts(part)[0]
+    dwdw = torch.zeros((3 * c, 9), dtype=torch.float32, device=dev)
+    dwdw[:2 * c] = sums[:18 * c].reshape(9, 2 * c).t()
+    STATS_BWD.record(("spectral_stats_bwd", b, h, w, c, num_heads, shift, ln, str(dt)))
+    return (dx, dw.reshape(3 * c, c, 1, 1), dwdw.reshape(3 * c, 1, 3, 3),
+            *((sums[18 * c:19 * c], sums[19 * c:]) if ln else (None, None)))
+
+
 def _stats_bwd_launch(x, wqkv, wdw, num_heads, shift, ln_w, ln_b, eps, dgram, dnq, dnk):
+    if x.dtype == torch.bfloat16:
+        return _stats_bwd_tc_launch(x, wqkv, wdw, num_heads, shift, ln_w, ln_b, eps, dgram, dnq,
+                                    dnk)
     b, h, w, c = x.shape
     dt = x.dtype
     _build.check_plan("spectral_stats_bwd", "mp_spectral_stats_bwd_smem",
@@ -278,10 +363,10 @@ def _stats_bwd_launch(x, wqkv, wdw, num_heads, shift, ln_w, ln_b, eps, dgram, dn
     un = torch.empty((b, h, w, c), dtype=dt, device=dev)
     t = torch.empty((b, h, w, 2 * c), dtype=torch.float32, device=dev)
     dqk = torch.empty_like(t)
-    err = _stats_entry(True)(x.data_ptr(), _build.ptr(lnw), _build.ptr(lnb), wq.data_ptr(),
+    err = _stats_entry("bwd")(x.data_ptr(), _build.ptr(lnw), _build.ptr(lnb), wq.data_ptr(),
                              wd.data_ptr(), dgram.data_ptr(), dnq.data_ptr(),
-                             dnk.data_ptr(), un.data_ptr(), t.data_ptr(), dqk.data_ptr(),
-                             dtype_code(x), b, h, w, c, num_heads, shift, eps, stream_ptr())
+                             dnk.data_ptr(), un.data_ptr(), t.data_ptr(), dqk.data_ptr(), b, h,
+                             w, c, num_heads, shift, eps, stream_ptr())
     _build.check("mp_spectral_stats_bwd", err)
     dtt, dwdw_qk = dwconv_bwd(dqk, t, wd, 0, dt)
     dx, dln, _ = ln_linear_bwd(dtt, wq, 0, x, ln_w, shift=-shift, eps=eps)
@@ -330,8 +415,8 @@ def spectral_stats(x, wqkv, wdw, num_heads: int, shift: int = 0, x2=None, ln_w=N
                    ln_b=None, eps: float = 1e-5):
     """Same contract as :func:`spectral_stats_plain`, differentiable; launches
     the CUDA kernels (forward: a per-part pass, bf16 on the tensor-core tile,
-    then an in-order sum of the parts; backward: ``mp_spectral_stats_bwd`` and
-    grad.cu) on a CUDA tensor."""
+    then an in-order sum of the parts; backward: bf16 the two tiles, float32
+    ``mp_spectral_stats_bwd`` and grad.cu's stages) on a CUDA tensor."""
     return _SpectralStats.apply(x, wqkv, wdw, x2, ln_w, ln_b, (num_heads, shift, eps))
 
 

@@ -698,7 +698,7 @@ STATS_F32_PLANS = {(64, 2): 78144, (128, 4): 112448, (128, 2): 170816, (256, 8):
                    (27, 3): 25652}
 STATS_BWD_PLANS = {(64, 2): 68640, (128, 4): 94240, (128, 2): 136224, (256, 8): 145440,
                    (96, 2): 102432, (192, 2): 203808, (384, 8): 217632, (36, 2): 39072,
-                   (27, 3): 23664}
+                   (27, 3): 23664, (192, 4): 140832}
 
 
 def _stats_inputs(variant, c, heads, b, h, w, dev):
@@ -971,3 +971,89 @@ def test_cuda_mlp_bwd_bf16_past_384_raises():
                             dy.to(torch.bfloat16))
     _outputs_close(mlp_mod._bwd_launch(x, *weights, None, True, 1e-5, dy),
                    mlp_mod.mlp_bwd_plain(x, *weights, None, True, 1e-5, dy), 1e-4, "float32")
+
+
+# The bf16 spectral stats backward (K10a): spectral_stats_bwd_tc_kernel
+# (csrc/spectral_stats.cuh) and dwconv_dx_tc_kernel (csrc/dwconv_dx.cuh) at
+# every (C, heads) of STATS_WIDTHS and the remote-sensing step's (192, 4),
+# shift 0 and 4, LN on and off, on 3 tiles (1x8x24) and 12 (2x16x24: two
+# images, a non-square tile grid)
+STATS_BWD_CASES = [(c, heads, b, h) for c, heads in STATS_WIDTHS + ((192, 4),)
+                   for b, h in ((1, 8), (2, 16))]
+
+
+def _stats_bwd_inputs(c, heads, b, h, w, dev):
+    """((x, wqkv, wdw), (ln_w, ln_b), (dgram, dnq, dnk)), float32."""
+    r = _rng(130 + c + heads + b)
+    f = lambda *s, scale=1.0: _t(_n(r, s, scale)).to(dev)  # noqa: E731
+    dh = c // heads
+    return ((f(b, h, w, c), f(3 * c, c, 1, 1, scale=c ** -0.5), f(3 * c, 1, 3, 3, scale=1 / 3)),
+            (1 + f(c, scale=0.1), f(c, scale=0.1)),
+            (f(b, c, dh, scale=0.05), f(b, heads, dh, scale=0.05), f(b, heads, dh, scale=0.05)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads,b,h", STATS_BWD_CASES)
+def test_cuda_spectral_stats_bwd_tiles_match_plain(c, heads, b, h, monkeypatch):
+    """The stats backward on the card against spectral_stats_bwd_plain, every
+    output: bf16 (the two tiles, wgrad, one sum_parts) within 3e-2 and float32
+    (mp_spectral_stats_bwd + dwconv_bwd + ln_linear_bwd, SIMT) within 1e-4 of
+    each output's max-abs. One counted launch per call; the bf16 route
+    launches each tile once and no dwconv_bwd or ln_linear_bwd; two bf16 calls
+    give bitwise the same outputs (no float atomics). Both tiles' plans
+    within the device's limit, each at most its mirror's dynamic bytes plus
+    the static; the float32 plan as it was."""
+    from mp_hsir_tpu_torch.ops.kernels import _build, spectral as sp
+
+    dev = _cuda()
+    (x, wq, wd), (lw, lb), cots = _stats_bwd_inputs(c, heads, b, h, 24, dev)
+    calls = []
+    for name in ("dwconv_bwd", "ln_linear_bwd"):
+        fn = getattr(sp, name)
+        monkeypatch.setattr(sp, name,
+                            lambda *a, _f=fn, _n=name, **k: calls.append(_n) or _f(*a, **k))
+    get = sp._stats_entry
+
+    def counted(kind="fwd"):
+        fn = get(kind)
+        return lambda *a: calls.append(fn.__name__) or fn(*a)
+
+    monkeypatch.setattr(sp, "_stats_entry", counted)
+    for dt, tol in ((torch.bfloat16, 3e-2), (torch.float32, 1e-4)):
+        bf16 = dt == torch.bfloat16
+        for shift in (0, 4):
+            for ln in (False, True):
+                call = (x.to(dt), wq, wd, heads, shift, lw if ln else None, lb if ln else None,
+                        1e-5, *cots)
+                what = f"{dt} shift={shift} ln={ln}"
+                _route.reset_counters()
+                calls.clear()
+                got = sp._stats_bwd_launch(*call)
+                assert _route.COUNTERS["spectral_stats_bwd"].launches == 1, what
+                assert calls == (["mp_spectral_stats_bwd_tc", "mp_dwconv_dx_tc"] if bf16 else
+                                 ["mp_spectral_stats_bwd", "dwconv_bwd", "ln_linear_bwd"]), what
+                _outputs_close(got, sp.spectral_stats_bwd_plain(*call), tol, what)
+                if bf16:
+                    again = sp._stats_bwd_launch(*call)
+                    assert all(a is None or torch.equal(a, r) for a, r in zip(got, again)), what
+    pl, limit = sp.stats_bwd_tc_plan(c, heads), _build.smem_limit()
+    n1 = _build.plan_bytes("mp_spectral_stats_bwd_tc_smem", c, heads)
+    n2 = _build.plan_bytes("mp_dwconv_dx_tc_smem", c, 2 * c)
+    assert pl["bytes"] < n1 <= min(pl["bytes"] + 1024, limit), n1
+    assert pl["dx"]["bytes"] < n2 <= min(pl["dx"]["bytes"] + 1024, limit), n2
+    assert _build.plan_bytes("mp_spectral_stats_bwd_smem", c, heads) == STATS_BWD_PLANS[c, heads]
+
+
+@pytest.mark.cuda
+def test_cuda_spectral_stats_bwd_bf16_past_384_raises():
+    """The bf16 stats backward takes C up to 384 and raises above it (no
+    fallback); float32 runs its SIMT kernels."""
+    from mp_hsir_tpu_torch.ops.kernels import spectral as sp
+
+    dev = _cuda()
+    (x, wq, wd), (lw, lb), cots = _stats_bwd_inputs(400, 8, 1, 8, 8, dev)
+    with pytest.raises(ValueError, match="C up to 384"):
+        sp._stats_bwd_launch(x.to(torch.bfloat16), wq, wd, 8, 4, lw, lb, 1e-5, *cots)
+    call = (x, wq, wd, 8, 4, lw, lb, 1e-5, *cots)
+    _outputs_close(sp._stats_bwd_launch(*call), sp.spectral_stats_bwd_plain(*call), 1e-4,
+                   "float32")

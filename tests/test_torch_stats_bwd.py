@@ -1,0 +1,299 @@
+"""The bf16 spectral stats backward (K10a) without a card: the plan mirror
+``stats_bwd_tc_plan``, and both of its tiles emulated in numpy from their
+own tile maps (launch 1, ``spectral_stats_bwd_tc_kernel``: the head-grouped
+q|k columns with dh padded to dhp in groups and passes, dG staged
+[nH][dhp][dhp], dq | dk per head; launch 2, ``dwconv_dx_tc_kernel``: the
+64-channel stencil chunks, dxn summed over the chunks, the LayerNorm
+epilogue and the roll-back, the per-tile partials) and the wrapper's weight
+product and in-order sums, at the rounding points of
+``spectral_stats_bwd_plain``, against it; one tiny case against JAX's
+``_sp0_bwd_call`` in interpret mode. The kernels themselves are held against
+the plain version on the card by tests/test_torch_cuda.py and chip_smoke.py.
+Imports JAX only in the test that compares with it."""
+
+import numpy as np
+import pytest
+import torch
+
+from mp_hsir_tpu_torch.ops.kernels.spectral import (
+    DX_LDD, DX_LDT, STATS_BUDGET, dwconv_dx_plan, pack_stats, qk_row, spectral_stats,
+    spectral_stats_bwd_plain, stats_bwd_tc_plan, stats_plan,
+)
+from torch_port_inputs import normal as _n, rng as _rng, uniform as _u
+
+# (C, heads) of every stats call of the presets' train steps (dh 32, 64, 48
+# and 96) and C = 36 and 27 (dh 18 and 9, padded to 32 and 16; 2C = 72 and
+# 54: the last stencil chunk is ragged)
+WIDTHS = [(64, 2), (128, 4), (128, 2), (256, 8), (96, 2), (192, 2), (192, 4), (384, 8), (36, 2),
+          (27, 3)]
+# the dynamic bytes of both tiles' plans: launch 1 (the forward tile's plan
+# with dG in the Gram partial's place) and launch 2 (its ring stages, bytes)
+PLANS = {(64, 2): (96768, 3, 161664), (128, 4): (119040, 3, 186240),
+         (128, 2): (127232, 3, 186240), (256, 8): (199424, 2, 160000),
+         (96, 2): (146816, 3, 186240), (192, 2): (174080, 3, 210816),
+         (192, 4): (183296, 3, 210816),
+         (384, 8): (188672, 2, 192768), (36, 2): (96768, 3, 161664),
+         (27, 3): (68160, 3, 161664)}
+
+
+def _rnd(a, dt):
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dt).float().numpy()
+
+
+def _ln(a, w, b, eps):
+    mu = a.mean(-1, keepdims=True)
+    rs = 1 / np.sqrt(((a - mu) ** 2).mean(-1, keepdims=True) + eps)
+    return (a - mu) * rs, rs, None if w is None else (a - mu) * rs * w + b
+
+
+def _tiles(a):
+    """(B, H, W, n) -> (B, H/8, W/8, 10 x 10 halo, n), zero outside the image."""
+    b, h, w, n = a.shape
+    p = np.pad(a, ((0, 0), (1, 1), (1, 1), (0, 0)))
+    out = np.zeros((b, h // 8, w // 8, 100, n), np.float32)
+    for ty in range(h // 8):
+        for tx in range(w // 8):
+            out[:, ty, tx] = p[:, 8 * ty:8 * ty + 10, 8 * tx:8 * tx + 10].reshape(b, 100, n)
+    return out
+
+
+def _interior(halo):
+    """(..., 100, n) halo -> (..., 64, n) tile pixels."""
+    return halo.reshape(*halo.shape[:-2], 10, 10, halo.shape[-1])[..., 1:9, 1:9, :].reshape(
+        *halo.shape[:-2], 64, halo.shape[-1])
+
+
+def _untile(t, b, h, w):
+    n = t.shape[-1]
+    return t.reshape(b, h // 8, w // 8, 8, 8, n).transpose(0, 1, 3, 2, 4, 5).reshape(b, h, w, n)
+
+
+def _launch1(x, wq, wd, heads, shift, lnw, lnb, dgram, dnq, dnk, dt, eps, transposed=True):
+    """The first tile on every 8x8 tile: (un, t, dqk) in the unrolled frame,
+    t and dqk in the torch channel order. transposed=False computes dq with
+    dG instead of dG^T (a planted fault)."""
+    b, h, w, c = x.shape
+    pl = stats_bwd_tc_plan(c, heads)
+    dh, dhp, hw, nqk = pl["dh"], pl["dhp"], pl["hw"], pl["nqk"]
+    raw = np.roll(x, (shift, shift), axis=(1, 2))
+    un = raw if lnw is None else _rnd(_ln(raw, lnw, lnb, eps)[2], dt)
+    halo = _tiles(un)  # the halo staged as bf16, LN in place, zero outside
+    rows = np.array([qk_row(n, pl, c) for n in range(nqk)])
+    ok = rows >= 0
+    wg = np.where(ok[:, None], wq[np.maximum(rows, 0), :c], 0)  # [nqk][C]
+    tg = np.where(ok[:, None], wd[np.maximum(rows, 0)], 0)      # [nqk][9]
+    dg = np.zeros((b, heads, dhp, dhp), np.float32)
+    dg[:, :, :dh, :dh] = _rnd(dgram.reshape(b, heads, dh, dh), dt)
+    dn = np.zeros((b, heads, 2, dhp), np.float32)
+    dn[:, :, 0, :dh], dn[:, :, 1, :dh] = dnq, dnk
+    t_out = np.zeros(halo.shape[:3] + (64, 2 * c), np.float32)
+    dqk = np.zeros_like(t_out)
+    for g in range(pl["groups"]):
+        g0 = g * pl["gw"]
+        gw = min(pl["gw"], nqk - g0)
+        qk = np.zeros(halo.shape[:3] + (64, gw), np.float32)
+        for n0 in range(0, gw, pl["np"]):  # the passes of up to np columns
+            cols = np.arange(g0 + n0, g0 + min(n0 + pl["np"], gw))
+            t = _rnd(halo @ wg[cols].T, dt)  # [..., 100, np]
+            t_out[..., rows[cols[ok[cols]]]] = _interior(t)[..., ok[cols]]
+            t10 = t.reshape(*t.shape[:-2], 10, 10, len(cols))
+            acc = np.zeros(t.shape[:-2] + (8, 8, len(cols)), np.float32)
+            for tap in range(9):
+                dy, dx = divmod(tap, 3)
+                acc += t10[..., dy:dy + 8, dx:dx + 8, :] * tg[cols, tap]
+            qk[..., cols - g0] = _rnd(acc.reshape(*acc.shape[:-3], 64, len(cols)), dt)
+        for hh in range(gw // hw):  # dq_h = k_h dG_h^T, dk_h = q_h dG_h, K = dhp
+            hd = g * pl["hg"] + hh
+            q, k = qk[..., hh * hw:hh * hw + dhp], qk[..., hh * hw + dhp:(hh + 1) * hw]
+            gh = dg[:, hd][:, None, None]
+            gq = np.swapaxes(gh, -1, -2) if transposed else gh
+            dq = k @ gq + 2 * q * dn[:, hd, 0][:, None, None, None]
+            dk = q @ gh + 2 * k * dn[:, hd, 1][:, None, None, None]
+            for side, v in ((0, dq), (1, dk)):
+                n = g0 + hh * hw + side * dhp + np.arange(dh)
+                dqk[..., rows[n]] = v[..., :dh]
+    return un, _untile(t_out.reshape(-1, 64, 2 * c), b, h, w), _untile(
+        dqk.reshape(-1, 64, 2 * c), b, h, w)
+
+
+def _launch2(x, dqk, t, wd, wq, lnw, shift, dt, eps):
+    """The second tile on every 8x8 tile (K = 2C in 64-channel chunks): (dtt,
+    dx in x's frame, the per-tile partial rows)."""
+    b, h, w, c = x.shape
+    k2 = 2 * c
+    pl = dwconv_dx_plan(c, k2)
+    dq, tt = _tiles(dqk), _tiles(t)
+    nt = dq.shape[1] * dq.shape[2]
+    dtt = np.zeros(dq.shape[:3] + (64, k2), np.float32)
+    taps = np.zeros(dq.shape[:3] + (9, k2), np.float32)
+    dxn = np.zeros(dq.shape[:3] + (64, c), np.float32)
+    for ch in range(pl["nck"]):
+        ks = np.arange(64 * ch, min(64 * ch + 64, k2))
+        d10 = dq[..., ks].reshape(*dq.shape[:3], 10, 10, len(ks))
+        t10 = tt[..., ks].reshape(*dq.shape[:3], 10, 10, len(ks))
+        # the transposed stencil: products rounded, added in tap order
+        s = np.zeros(dq.shape[:3] + (8, 8, len(ks)), np.float32)
+        for ty in range(3):
+            for tx in range(3):
+                s = s + (d10[..., ty:ty + 8, tx:tx + 8, :] * wd[ks, 8 - 3 * ty - tx]).astype(
+                    np.float32)
+        chunk = _rnd(s.reshape(*s.shape[:3], 64, len(ks)), dt)
+        dtt[..., ks] = chunk
+        own = d10[..., 1:9, 1:9, :]
+        for tap in range(9):
+            dy, dx = divmod(tap, 3)
+            taps[..., tap, ks] = (t10[..., dy:dy + 8, dx:dx + 8, :] * own).sum((-3, -2))
+        dxn += chunk @ wq[ks, :c]
+    raw = np.roll(x, (shift, shift), axis=(1, 2))  # x read at the roll-back
+    xt = raw.reshape(b, h // 8, 8, w // 8, 8, c).transpose(0, 1, 3, 2, 4, 5).reshape(
+        b, h // 8, w // 8, 64, c)
+    parts = [taps.reshape(b, h // 8, w // 8, 9 * k2)]
+    if lnw is not None:
+        xh, rs, _ = _ln(xt, None, None, eps)
+        g = dxn * lnw
+        dx = (g - g.mean(-1, keepdims=True) - xh * (g * xh).mean(-1, keepdims=True)) * rs
+        parts += [(dxn * xh).sum(-2), dxn.sum(-2)]
+    else:
+        dx = dxn
+    dx = np.roll(_untile(_rnd(dx, dt).reshape(-1, 64, c), b, h, w), (-shift, -shift), axis=(1, 2))
+    assert nt == (h // 8) * (w // 8)
+    return (_untile(dtt.reshape(-1, 64, k2), b, h, w), dx,
+            np.concatenate(parts, -1).reshape(b * nt, -1))
+
+
+def _emulate(x, wqkv, wdw, heads, shift, ln_w, ln_b, eps, dgram, dnq, dnk, transposed=True):
+    """Both tiles, the weight product and the in-order partial sums: the
+    outputs of spectral_stats_bwd_plain as numpy arrays."""
+    dt = x.dtype
+    c = x.shape[-1]
+    wq, wd = (a.float().numpy() for a in pack_stats(wqkv, wdw, dt))
+    lnw = None if ln_w is None else ln_w.float().numpy()
+    lnb = None if ln_b is None else ln_b.float().numpy()
+    xf = x.float().numpy()
+    un, t, dqk = _launch1(xf, wq, wd, heads, shift, lnw, lnb, dgram.numpy(), dnq.numpy(),
+                          dnk.numpy(), dt, eps, transposed)
+    dtt, dx, part = _launch2(xf, dqk, t, wd, wq, lnw, shift, dt, eps)
+    tot = np.zeros(part.shape[1], np.float32)
+    for row in part:  # sum_parts: the tiles in order
+        tot += row
+    dw = np.zeros((3 * c, c), np.float32)
+    dw[:2 * c] = dtt.reshape(-1, 2 * c).T @ un.reshape(-1, c)
+    dwdw = np.zeros((3 * c, 9), np.float32)
+    dwdw[:2 * c] = tot[:18 * c].reshape(9, 2 * c).T
+    dln = (tot[18 * c:19 * c], tot[19 * c:]) if ln_w is not None else (None, None)
+    return (dx, dw.reshape(3 * c, c, 1, 1), dwdw.reshape(3 * c, 1, 3, 3), *dln)
+
+
+def _inputs(c, heads, dt, seed, ln, b=2, h=8, w=16):
+    r = _rng(seed)
+    f = lambda *s, scale=1.0: torch.from_numpy(_n(r, s, scale))  # noqa: E731
+    dh = c // heads
+    x = f(b, h, w, c).to(dt)
+    wqkv, wdw = torch.from_numpy(_u(r, (3 * c, c, 1, 1), c)), torch.from_numpy(
+        _u(r, (3 * c, 1, 3, 3), 9))
+    lnw, lnb = (1 + f(c, scale=0.1), f(c, scale=0.1)) if ln else (None, None)
+    return (x, wqkv, wdw, heads, lnw, lnb, f(b, c, dh, scale=0.05), f(b, heads, dh, scale=0.05),
+            f(b, heads, dh, scale=0.05))
+
+
+def _errs(got, ref):
+    out = []
+    for g, r in zip(got, ref):
+        if r is None:
+            assert g is None
+            continue
+        r = r.float().numpy()
+        assert g.shape == r.shape, (g.shape, r.shape)
+        out.append((float(np.abs(g - r).max()), float(np.abs(r).max())))
+    return out
+
+
+def _case(c, heads, shift, ln, dt, transposed=True):
+    x, wqkv, wdw, nh, lnw, lnb, dg, dq, dk = _inputs(c, heads, dt, 60 + c + heads, ln)
+    got = _emulate(x, wqkv, wdw, nh, shift, lnw, lnb, 1e-5, dg, dq, dk, transposed)
+    ref = spectral_stats_bwd_plain(x, wqkv, wdw, nh, shift, lnw, lnb, 1e-5, dg, dq, dk)
+    return _errs(got, ref)
+
+
+@pytest.mark.parametrize("c,heads", WIDTHS)
+def test_stats_bwd_tc_plan(c, heads):
+    """The plan mirror: launch 1 keeps the forward tile's groups, passes and
+    ring and takes at most its bytes (dG bf16 in the float32 Gram partial's
+    place); launch 2 takes 3 ring stages where they fit (2 at C = 256 and
+    384), every chunk of the 2C channels; both within the budget."""
+    pl, fwd = stats_bwd_tc_plan(c, heads), stats_plan(c, heads)
+    one, stages, two = PLANS[c, heads]
+    assert pl["bytes"] == one and pl["bytes"] <= fwd["bytes"] <= STATS_BUDGET
+    assert {k: pl[k] for k in fwd if k != "bytes"} == {k: v for k, v in fwd.items() if k != "bytes"}
+    assert pl["ldg"] == pl["dhp"] + 8 and pl["dhp"] % 16 == 0
+    dx = pl["dx"]
+    assert (dx["stages"], dx["bytes"]) == (stages, two) and two <= STATS_BUDGET
+    if stages == 2:
+        assert two + dx["stage"] > STATS_BUDGET
+    assert dx["nck"] * 64 >= 2 * c > (dx["nck"] - 1) * 64
+    assert dx["stage"] == 4 * 100 * DX_LDD + 2 * 100 * DX_LDT + 2 * 64 * (dx["ck"] + 8)
+
+
+@pytest.mark.parametrize("c,heads", WIDTHS)
+@pytest.mark.parametrize("shift", [0, 4])
+@pytest.mark.parametrize("ln", [False, True])
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_stats_bwd_tiles_emulation_matches_plain(c, heads, shift, ln, dt):
+    """Both tiles emulated from their tile maps on 2 images of 8x16 (4 tiles,
+    the roll-back wrapping at shift 4) against spectral_stats_bwd_plain, every
+    output. float32: the same arithmetic in other orders, 1e-4 of each
+    output's max-abs. bf16: the same rounding points (q, k, dG, dtt, dx),
+    where a float32 sum in another order can flip one rounding: 3e-2."""
+    tol = 3e-2 if dt == torch.bfloat16 else 1e-4
+    for i, (err, mx) in enumerate(_case(c, heads, shift, ln, dt)):
+        assert mx > 0 and err <= tol * mx, f"output {i}: {err:.3e} > {tol} * {mx:.3e}"
+
+
+@pytest.mark.parametrize("c,heads", [(64, 2), (27, 3)])
+def test_stats_bwd_emulation_sees_the_transpose(c, heads):
+    """The check is not blind to dG's orientation: dq computed with dG
+    instead of dG^T moves dx and d wqkv past the bf16 bound."""
+    errs = _case(c, heads, 4, True, torch.bfloat16, transposed=False)
+    assert all(errs[i][0] > 3e-2 * errs[i][1] for i in (0, 1)), errs
+
+
+def test_stats_bwd_emulation_matches_pallas_interpret():
+    """One tiny case (C 16, 2 heads, LN, 2 images of 8x16) of both emulated
+    tiles in float32 against the JAX package's _sp0_bwd_call in interpret
+    mode with zero halos and both edges true, as the port's kernels take
+    them (the slab rows folded into dx by _halo_grads): 1e-4 of each
+    output's max-abs."""
+    import jax.numpy as jnp
+
+    from mp_hsir_tpu.ops.pallas_vjp import _halo_grads, _sp0_bwd_call
+
+    c, heads = 16, 2
+    x, wqkv, wdw, nh, lnw, lnb, dg, dq, dk = _inputs(c, heads, torch.float32, 5, True)
+    got = _emulate(x, wqkv, wdw, nh, 0, lnw, lnb, 1e-5, dg, dq, dk)
+    j = lambda t: jnp.asarray(t.numpy())  # noqa: E731
+    b, h, w, _ = x.shape
+    zero = jnp.zeros((b, 1, w, c), jnp.float32)
+    out = _sp0_bwd_call(j(x), zero, zero, jnp.array([1, 1], jnp.int32),
+                        j(wqkv.reshape(3 * c, c).t()), j(wdw.reshape(3 * c, 9).t()), j(lnw),
+                        j(lnb), j(dg), j(dq), j(dk), num_heads=nh, eps=1e-5, interpret=True)
+    dx, dtop, dbot, dwqk, dwdwqk, dlnw, dlnb = out
+    dx = _halo_grads(dx, dtop, dbot)[0]
+    want = (np.asarray(dx), np.asarray(dwqk).T, np.asarray(dwdwqk).T, np.asarray(dlnw)[0],
+            np.asarray(dlnb)[0])
+    mine = (got[0], got[1].reshape(3 * c, c)[:2 * c], got[2].reshape(3 * c, 9)[:2 * c], got[3],
+            got[4])
+    for i, (g, wv) in enumerate(zip(mine, want)):
+        err, mx = float(np.abs(g - wv.reshape(g.shape)).max()), float(np.abs(wv).max())
+        assert mx > 0 and err <= 1e-4 * mx, f"output {i}: {err:.3e} > 1e-4 * {mx:.3e}"
+
+
+def test_stats_wrapper_backward_runs_plain_on_cpu():
+    """On a CPU tensor the wrapper's backward is the plain one, bf16 included:
+    the gradients autograd gives equal spectral_stats_bwd_plain's."""
+    x, wqkv, wdw, nh, lnw, lnb, dg, dq, dk = _inputs(36, 2, torch.bfloat16, 3, True)
+    ts = [t.clone().requires_grad_(True) for t in (x, wqkv, wdw, lnw, lnb)]
+    out = spectral_stats(ts[0], ts[1], ts[2], nh, shift=4, ln_w=ts[3], ln_b=ts[4])
+    got = torch.autograd.grad(out, ts, (dg, dq, dk))
+    ref = spectral_stats_bwd_plain(x, wqkv, wdw, nh, 4, lnw, lnb, 1e-5, dg, dq, dk)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert torch.equal(g, r), i
