@@ -13,9 +13,9 @@ Phases (any failure exits non-zero; no phase's error is caught):
    tile's at every width of the presets' GDFN calls beside the float32
    kernel's at its chunk, and the bf16 MLP backward tile's at every width of
    the presets' train steps beside the float32 backward's, and the bf16
-   spectral stats backward's two tiles' (their registers and spills, their
-   plan bytes at every (C, heads) of the presets' train steps beside the
-   float32 kernel's).
+   spectral stats and window-attention backwards' two tiles each (their
+   registers and spills, their plan bytes at every (C, heads) of the
+   presets' train steps beside the float32 kernel's).
 2. Kernel checks: every kernel wrapper on the card at each shape the
    flagship 512x512x31 eval forward gives it, in bf16 from numpy-seeded
    inputs, against its plain PyTorch version on the same inputs; also once
@@ -57,13 +57,14 @@ Phases (any failure exits non-zero; no phase's error is caught):
    option, the eval kernels at the step's shapes), float32 and bf16, against
    the plain forward or the explicit plain backward on the same inputs
    (same tolerances as phase 2); times and bounds per call, and the
-   resident forward calls streamed as in phase 2. Each mlp_bwd and
-   spectral_stats_bwd call is also split into its stages (each C entry its
-   wrapper calls, timed with CUDA events, the host queued ahead of the
-   device; mlp_bwd's as the tile, the dW1 and dW2 weight products and the
-   partial sums, spectral_stats_bwd's by C entry name), whose sum is the
-   backward alone; the stages per step follow phase 6 (and phase 12 for
-   phase 11's calls).
+   resident forward calls streamed as in phase 2. Each mlp_bwd,
+   spectral_stats_bwd and window_attention_bwd call is also split into its
+   stages (each C entry its wrapper calls, timed with CUDA events, the host
+   queued ahead of the device; mlp_bwd's as the tile, the dW1 and dW2
+   weight products and the partial sums, the others' by C entry name,
+   window_attention_bwd's two mp_wgrad calls told apart as dWqkv and dWp),
+   whose sum is the backward alone; the stages per step follow phase 6 (and
+   phase 12 for phase 11's calls).
 6. Training main path: the flagship preset in training mode (batch 32 of
    64x64 patches cut from the quality cube, Gaussian noise, task 0) from the
    committed weights. The float32 step's parameter gradients on the kernel
@@ -118,7 +119,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
 13. The kernel summary line (each kernel's main-path numbers, and its
     remote-sensing train-step numbers beside them), then the result line.
 
---bwd-split KERNEL (mlp_bwd or spectral_stats_bwd; repeatable) runs phase
+--bwd-split KERNEL (mlp_bwd, spectral_stats_bwd or window_attention_bwd;
+repeatable) runs phase
 1's build and only that kernel's stage split, at both presets' train-step
 shapes: the same measurement for another checkout of the package (this
 file copied to its root and run there); --mlp-bwd-split is --bwd-split
@@ -428,6 +430,10 @@ def plan_of(spec) -> dict:
     if name == "spectral_stats_bwd" and _code(spec):  # the bf16 tiles: the larger plan
         n = max(_build.plan_bytes("mp_spectral_stats_bwd_tc_smem", *shape),
                 _build.plan_bytes("mp_dwconv_dx_tc_smem", c, 2 * c))
+        return dict(smem=n, smem_whole=n, kc=c, c=c)
+    if name == "window_attention_bwd" and _code(spec):  # the bf16 tiles: the larger plan
+        n = max(_build.plan_bytes("mp_window_attention_bwd_tc_smem", *shape),
+                _build.plan_bytes("mp_window_attention_dx_tc_smem", c))
         return dict(smem=n, smem_whole=n, kc=c, c=c)
     if chunk_entry is None:  # a single whole-input plan
         n = _build.plan_bytes(smem_entry, *shape)
@@ -1092,7 +1098,12 @@ def compare_pair(kernel, plain, tol):
 MLP_BWD_STAGES = ("tile", "wgrad_dw1", "wgrad_dw2", "sums")
 # the backward kernels split into stages: the module whose ctypes entry
 # getter the wrapper calls (grad.cu's getter is timed too)
-BWD_SPLIT = {"mlp_bwd": ("mlp", "_entry"), "spectral_stats_bwd": ("spectral", "_stats_entry")}
+BWD_SPLIT = {"mlp_bwd": ("mlp", "_entry"), "spectral_stats_bwd": ("spectral", "_stats_entry"),
+             "window_attention_bwd": ("window_attention", "_entry")}
+# the kernels whose backward calls mp_wgrad twice: the two calls' stage keys
+# (each call's first, then its second)
+WGRAD_STAGES = {"mlp_bwd": MLP_BWD_STAGES[1:3],
+                "window_attention_bwd": ("mp_wgrad dWqkv", "mp_wgrad dWp")}
 
 
 def bwd_split(name: str, kern, flops: float, ms: float, reps: int = 5) -> dict:
@@ -1104,8 +1115,9 @@ def bwd_split(name: str, kern, flops: float, ms: float, reps: int = 5) -> dict:
     mp_mlp_bwd and mp_ln_linear_bwd with its part sums), ``wgrad_dw1`` and
     ``wgrad_dw2`` (a call's first and second mp_wgrad, with their part sums)
     and ``sums`` (mp_sum_parts); the other kernels' are keyed by C entry name
-    (a grad.cu entry with its own part sums), so that the same script splits
-    the trees before and after a redesign. Their sum is the backward alone
+    (a grad.cu entry with its own part sums; window_attention_bwd's two
+    mp_wgrad calls as ``mp_wgrad dWqkv`` and ``mp_wgrad dWp``), so that the
+    same script splits the trees before and after a redesign. Their sum is the backward alone
     (``kernel_ms``), without the wrapper's host time and weight packing;
     rates are flops over the wrapper's and that time."""
     from mp_hsir_tpu_torch.ops.kernels import _grad
@@ -1147,12 +1159,11 @@ def bwd_split(name: str, kern, flops: float, ms: float, reps: int = 5) -> dict:
     n_wgrad = 0
     for entry, e0, e1 in events:
         key = entry
-        if name == "mlp_bwd":
-            if entry == "mp_wgrad":
-                key = MLP_BWD_STAGES[1 + n_wgrad % 2]
-                n_wgrad += 1
-            else:
-                key = "sums" if entry == "mp_sum_parts" else "tile"
+        if name in WGRAD_STAGES and entry == "mp_wgrad":
+            key = WGRAD_STAGES[name][n_wgrad % 2]
+            n_wgrad += 1
+        elif name == "mlp_bwd":
+            key = "sums" if entry == "mp_sum_parts" else "tile"
         split[key] = split.get(key, 0.0) + e0.elapsed_time(e1) / reps
     alone = sum(split.values())
     return dict(split=split, kernel_ms=alone, tflops=flops / ms / 1e9,
@@ -1679,7 +1690,8 @@ def log_stats_bwd_plans(_build, cfgs) -> dict:
     """The bf16 spectral stats backward's two tiles: their registers and
     spills, and their shared-memory plans (bytes, static included) at every
     (C, heads) of the presets' train steps, beside the float32 kernel's."""
-    regs = {k: ptxas_report(k) for k in ("spectral_stats_bwd_tc_kernel", "dwconv_dx_tc_kernel")}
+    regs = {k: ptxas_report(k) for k in ("spectral_stats_bwd_tc_kernel",
+                                         "dwconv_dx_tc_kernelILb1E")}
     log("  bf16 spectral_stats_bwd tiles (ptxas): " + ", ".join(
         f"{k} {v.get('registers', '?')} registers, spills {v.get('spill_stores', '?')}/"
         f"{v.get('spill_loads', '?')} B" for k, v in regs.items()))
@@ -1693,6 +1705,34 @@ def log_stats_bwd_plans(_build, cfgs) -> dict:
             f32=_build.plan_bytes("mp_spectral_stats_bwd_smem", c, nh))
     log("  bf16 spectral_stats_bwd plans (B: tile 1, tile 2; float32's in brackets): "
         + ", ".join(f"{k} {v['tile1']}, {v['tile2']} ({v['f32']})" for k, v in plans.items()))
+    return dict(ptxas=regs, plans=plans)
+
+
+def log_window_bwd_plans(_build, cfgs) -> dict:
+    """The bf16 window-attention backward's two tiles: their registers and
+    spills (tile 1 per head width), and their shared-memory plans (bytes,
+    static included) at every (C, heads) of the presets' train steps, beside
+    the float32 kernel's at its chunk."""
+    from mp_hsir_tpu_torch.ops.kernels.window_attention import HEAD_WIDTHS
+
+    regs = {f"tile 1 DHP {d}": ptxas_report(f"window_attention_bwd_tc_kernelILi{d}E")
+            for d in HEAD_WIDTHS}
+    regs["tile 2"] = ptxas_report("dwconv_dx_tc_kernelILb0E")
+    log("  bf16 window_attention_bwd tiles (ptxas): " + ", ".join(
+        f"{k} {v.get('registers', '?')} registers, spills {v.get('spill_stores', '?')}/"
+        f"{v.get('spill_loads', '?')} B" for k, v in regs.items()))
+    shapes = sorted({(s[4], s[5]) for cfg in cfgs for s in train_path_specs(cfg, 1, 64, "bf16")
+                     if s[0] == "window_attention_bwd"})
+    plans = {}
+    for c, nh in shapes:
+        kc = _build.chunk("mp_window_attention_bwd_chunk", c, nh)
+        plans[f"C={c}/{nh}"] = dict(
+            tile1=_build.plan_bytes("mp_window_attention_bwd_tc_smem", c, nh),
+            tile2=_build.plan_bytes("mp_window_attention_dx_tc_smem", c),
+            f32=_build.plan_bytes("mp_window_attention_bwd_smem", c, nh, kc), f32_kc=kc)
+    log("  bf16 window_attention_bwd plans (B: tile 1, tile 2; float32's at its chunk in "
+        "brackets): " + ", ".join(f"{k} {v['tile1']}, {v['tile2']} ({v['f32']} kc {v['f32_kc']})"
+                                  for k, v in plans.items()))
     return dict(ptxas=regs, plans=plans)
 
 
@@ -1771,6 +1811,7 @@ def main() -> None:
     gdfn_plans = log_gdfn_plans(_build, preset_cfgs)
     mlp_bwd_plans = log_mlp_bwd_plans(_build, preset_cfgs)
     stats_bwd_plans = log_stats_bwd_plans(_build, preset_cfgs)
+    window_bwd_plans = log_window_bwd_plans(_build, preset_cfgs)
 
     specs = path_specs(cfg, SIZE, "torch.bfloat16")
 
@@ -1892,6 +1933,7 @@ def main() -> None:
                            front_plans=front_plans, stats_plans=stats_plans,
                            gdfn_plans=gdfn_plans, mlp_bwd_plans=mlp_bwd_plans,
                            stats_bwd_plans=stats_bwd_plans,
+                           window_bwd_plans=window_bwd_plans,
                            seconds=time.perf_counter() - t_start), fh, indent=1)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card)

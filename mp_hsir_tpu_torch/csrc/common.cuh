@@ -6,7 +6,7 @@
 // bf16, block-level loops over 4x4 register tiles (SIMT FMA) for float32.
 // The exceptions stage their bf16 operands as bf16 with cp.async and feed
 // mma.sync by ldmatrix: conv3 (an implicit GEMM over 16x16-pixel tiles), the
-// bf16 window forward (window_attention.cu), the bf16 PGSSTB tail MLP
+// bf16 window forward and backward (window_attention.cu), the bf16 PGSSTB tail MLP
 // (mlp_tail.cuh) and the bf16 spectral apply front (spectral_front.cuh).
 // wgmma and TMA are later work; see PERF.md for the gap to each bound.
 #pragma once

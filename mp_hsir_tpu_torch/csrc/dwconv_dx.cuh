@@ -6,6 +6,14 @@
 // partials) and ln_linear_bwd (dxn and the LayerNorm backward) on that
 // route; the float32 route keeps both.
 //
+// Without the stencil (kStencil false) the same tile is the bf16 backward of
+// `LN -> 1x1` from the cotangent at the 1x1 output: the second launch of the
+// bf16 window-attention backward (K8, the qkv / LayerNorm tail of
+// _win_bwd_kernel, mp_hsir_tpu/ops/pallas_vjp.py:539), from dqkv (bf16, K =
+// 3C) in place of dt. Each chunk of it is staged straight into the ring ([64]
+// [72] bf16: no halo, no stencil, no tap partials); the per-tile partials are
+// the chunk's column sums (the 1x1 bias cotangent), then d ln_w and d ln_b.
+//
 // Per 8x8 tile of the kernel frame (one 512-thread block), per 64-channel
 // chunk of the K depthwise channels:
 // - the chunk of dout (float32) and t (bf16) on the 10x10 halo, zero outside
@@ -35,6 +43,8 @@
 // Bound: 2 C K (dxn) + 36 K flops per pixel against ~8K + 2C bytes per pixel
 // read and 2K + 2C written (K = 2C: ~22 C bytes): bytes bound it at these
 // widths, the stencil and the product overlap no copy but the next chunk's.
+// Without the stencil: 2 C K flops against 2K + 4C bytes (K = 3C: 6 C^2
+// flops against 20 C bytes), operations-bound above C = 160.
 #pragma once
 
 #include "spectral_front.cuh"
@@ -51,19 +61,21 @@ constexpr size_t kDxBudget = 232448 - 1024;
 // bf16, w rows [64][CK + 8] bf16), 3 where they fit the budget, else 2.
 // After the last chunk the ring's space holds the epilogue: x [64][CK + 8]
 // bf16, the LN mean and rstd [2][64], the row sums [4][64][2] and the column
-// sums [4][2][CK] (float32), within one stage and a half at every C.
+// sums [4][2][CK] (float32), within one stage and a half at every C. Without
+// the stencil a stage is (the cotangent chunk [64][72] bf16, w rows) and
+// there is no dt chunk: 3 stages at every C up to 384.
 struct DwDxPlan {
   int CK, ldw, nck, S;
   size_t dq, tt, wt, stage, da, bytes;
-  __host__ __device__ DwDxPlan(int C, int K) {
+  __host__ __device__ DwDxPlan(int C, int K, bool stencil) {
     CK = round_up64(C);
     ldw = CK + 8;
     nck = (K + 63) / 64;
-    dq = sizeof(float) * kHaloPix * kDxLdd;
-    tt = sizeof(__nv_bfloat16) * kHaloPix * kDxLdt;
+    dq = stencil ? sizeof(float) * kHaloPix * kDxLdd : 0;
+    tt = sizeof(__nv_bfloat16) * (stencil ? kHaloPix : kPix) * kDxLdt;
     wt = sizeof(__nv_bfloat16) * 64 * ldw;
     stage = dq + tt + wt;
-    da = sizeof(__nv_bfloat16) * kPix * kDxLdt;
+    da = stencil ? sizeof(__nv_bfloat16) * kPix * kDxLdt : 0;
     for (S = 3; S > 2 && da + S * stage > kDxBudget; --S) {
     }
     bytes = da + S * stage;
@@ -76,28 +88,35 @@ struct DwDxPlan {
 // 0 with dout and t 16-byte aligned; vec_x: C % 8 == 0 with x and dx 16-byte
 // aligned (else element by element). Outputs: dt (B, H, W, K) bf16 in the
 // kernel frame, dx (B, H, W, C) bf16 in x's frame, part [tiles][9 K (+ 2 C
-// with LN)] float32: the tap partials [9][K], then d ln_w, d ln_b.
+// with LN)] float32: the tap partials [9][K], then d ln_w, d ln_b. Without
+// the stencil, t is the cotangent (B, H, W, K) bf16 at the 1x1 output, dout,
+// taps and dt are unused, and the part row of a tile, at part + tile ldp,
+// holds the column sums [K] of t, then d ln_w, d ln_b (ldp is read only
+// here).
+template <bool kStencil>
 __global__ void __launch_bounds__(kThreads)
 dwconv_dx_tc_kernel(const float* __restrict__ dout, const __nv_bfloat16* __restrict__ t,
                     const __nv_bfloat16* __restrict__ taps, const __nv_bfloat16* __restrict__ w,
                     const __nv_bfloat16* __restrict__ x, const float* __restrict__ lnw, int H,
                     int W, int C, int K, int shift, float eps, int vec_in, int vec_x,
                     __nv_bfloat16* __restrict__ dt_out, __nv_bfloat16* __restrict__ dx_out,
-                    float* __restrict__ part) {
+                    float* __restrict__ part, int ldp) {
   using bf16 = __nv_bfloat16;
   extern __shared__ float4 dwdx_dyn[];
-  __shared__ int hpix[kHaloPix];  // halo pixel -> kernel-frame pixel (-1: outside the image)
-  const DwDxPlan pl(C, K);
+  // halo pixel -> kernel-frame pixel (-1: outside the image)
+  __shared__ int hpix[kStencil ? kHaloPix : 1];
+  constexpr int kRows = kStencil ? kHaloPix : kPix;  // rows of a staged t chunk
+  const DwDxPlan pl(C, K, kStencil);
   const int CK = pl.CK, ldw = pl.ldw, C8 = round_up8(C), groups = CK / 64;
   char* sm = reinterpret_cast<char*>(dwdx_dyn);
-  bf16* da = reinterpret_cast<bf16*>(sm);  // [64][kDxLdt] the rounded dt chunk
+  bf16* da = reinterpret_cast<bf16*>(sm);  // [64][kDxLdt] the rounded dt chunk (stencil)
   char* ring = sm + pl.da;
   const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
   const int tile = (b * (H / kTile) + ty) * (W / kTile) + tx;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t4 = lane & 3;
   const int wr = warp >> 2, wc = warp & 3;
   const int r0 = 16 * wr + (lane >> 2), r1 = r0 + 8;
-  float* prow = part + (size_t)tile * (9 * K + (lnw != nullptr ? 2 * C : 0));
+  float* prow = part + (size_t)tile * (kStencil ? 9 * K + (lnw != nullptr ? 2 * C : 0) : ldp);
   auto pix = [&](int i) { return tile_pix(b, ty, tx, i, H, W); };
   auto src = [&](int i) {  // x's pixel behind kernel-frame pixel i (the roll-back)
     const int r = ty * kTile + (i >> 3), c = tx * kTile + (i & 7);
@@ -105,20 +124,36 @@ dwconv_dx_tc_kernel(const float* __restrict__ dout, const __nv_bfloat16* __restr
   };
   auto same = [](int, int, float v) { return v; };
 
-  for (int p = threadIdx.x; p < kHaloPix; p += blockDim.x) {
-    const int ur = ty * kTile + p / kHalo - 1, uc = tx * kTile + p % kHalo - 1;
-    hpix[p] = ur >= 0 && ur < H && uc >= 0 && uc < W ? (b * H + ur) * W + uc : -1;
+  if constexpr (kStencil) {
+    for (int p = threadIdx.x; p < kHaloPix; p += blockDim.x) {
+      const int ur = ty * kTile + p / kHalo - 1, uc = tx * kTile + p % kHalo - 1;
+      hpix[p] = ur >= 0 && ur < H && uc >= 0 && uc < W ? (b * H + ur) * W + uc : -1;
+    }
+    __syncthreads();
   }
-  __syncthreads();
   // chunk j of dout, t and w into a ring stage; zero outside the image and
   // past K (and w past C8)
   auto rg = front_ring(reinterpret_cast<bf16*>(ring), pl.stage / sizeof(bf16), pl.S, pl.nck,
       [&](int j, bf16* dst) {
         float* dq = reinterpret_cast<float*>(dst);
         bf16* tt = reinterpret_cast<bf16*>(reinterpret_cast<char*>(dst) + pl.dq);
-        bf16* wt = tt + kHaloPix * kDxLdt;
+        bf16* wt = tt + kRows * kDxLdt;
         const int k0 = 64 * j;
-        if (vec_in) {
+        if constexpr (!kStencil) {  // the tile's 64 pixel rows of the cotangent chunk
+          if (vec_in) {
+            for (int u = threadIdx.x; u < kPix * 8; u += blockDim.x) {
+              const int p = u >> 3, c = (u & 7) * 8;
+              const bool ok = k0 + c < K;
+              cp_async16(smem_u32(tt + p * kDxLdt + c), ok ? t + pix(p) * K + k0 + c : t,
+                         ok ? 16 : 0);
+            }
+          } else {
+            for (int u = threadIdx.x; u < kPix * 64; u += blockDim.x) {
+              const int p = u >> 6, c = u & 63;
+              tt[p * kDxLdt + c] = k0 + c < K ? t[pix(p) * K + k0 + c] : __float2bfloat16(0.f);
+            }
+          }
+        } else if (vec_in) {
           for (int u = threadIdx.x; u < kHaloPix * 16; u += blockDim.x) {
             const int p = u >> 4, c = (u & 15) * 4, q = hpix[p];
             const bool ok = q >= 0 && k0 + c < K;
@@ -157,15 +192,22 @@ dwconv_dx_tc_kernel(const float* __restrict__ dout, const __nv_bfloat16* __restr
   // [k][n] read transposed: lane gives k row lane % 8 + 8 (lane / 8 % 2) at
   // n column 16 wc + 8 (lane / 16)) addresses
   const int sj = threadIdx.x & 63, spr = threadIdx.x >> 6;
-  const uint32_t aa = smem_u32(da + (16 * wr + (lane & 15)) * kDxLdt + 8 * (lane >> 4));
+  const uint32_t adt = smem_u32(da + (16 * wr + (lane & 15)) * kDxLdt + 8 * (lane >> 4));
   const int toff = ((lane & 7) + 8 * ((lane >> 3) & 1)) * ldw + 16 * wc + 8 * (lane >> 4);
   for (int ch = 0; ch < pl.nck; ++ch) {
     const bf16* st = rg.consume();
     const float* dq = reinterpret_cast<const float*>(st);
     const bf16* tt = reinterpret_cast<const bf16*>(reinterpret_cast<const char*>(st) + pl.dq);
-    const bf16* wt = tt + kHaloPix * kDxLdt;
+    const bf16* wt = tt + kRows * kDxLdt;
     const int k0 = 64 * ch;
-    {
+    if constexpr (!kStencil) {
+      // the chunk's column sums over the tile's pixels, in pixel order
+      if (threadIdx.x < 64 && k0 + threadIdx.x < K) {
+        float s = 0.f;
+        for (int p = 0; p < kPix; ++p) s += __bfloat162float(tt[p * kDxLdt + threadIdx.x]);
+        prow[k0 + threadIdx.x] = s;
+      }
+    } else {
       // dt(pr, pc) = sum over (ty, tx) in order of dout(pr + ty - 1, pc + tx
       // - 1) w[2 - ty][2 - tx]: halo row pr + a, column pc + tx
       const int k = k0 + sj;
@@ -193,21 +235,23 @@ dwconv_dx_tc_kernel(const float* __restrict__ dout, const __nv_bfloat16* __restr
         da[(spr * kTile + pc) * kDxLdt + sj] = v;
         if (k < K) dt_out[pix(spr * kTile + pc) * K + k] = v;
       }
-    }
-    // the tap partials: sum over the tile's pixels of t[p + off(tap)] dout[p]
-    for (int idx = threadIdx.x; idx < 9 * 64; idx += blockDim.x) {
-      const int tap = idx >> 6, j = idx & 63, dy = tap / 3, dx = tap - 3 * dy;
-      if (k0 + j >= K) continue;
-      float s = 0.f;
+      // the tap partials: sum over the tile's pixels of t[p + off(tap)] dout[p]
+      for (int idx = threadIdx.x; idx < 9 * 64; idx += blockDim.x) {
+        const int tap = idx >> 6, j = idx & 63, dy = tap / 3, dx = tap - 3 * dy;
+        if (k0 + j >= K) continue;
+        float s = 0.f;
 #pragma unroll 8
-      for (int p = 0; p < kPix; ++p) {
-        const int pr = p >> 3, pc = p & 7;
-        s = fmaf(__bfloat162float(tt[((pr + dy) * kHalo + pc + dx) * kDxLdt + j]),
-                 dq[((pr + 1) * kHalo + pc + 1) * kDxLdd + j], s);
+        for (int p = 0; p < kPix; ++p) {
+          const int pr = p >> 3, pc = p & 7;
+          s = fmaf(__bfloat162float(tt[((pr + dy) * kHalo + pc + dx) * kDxLdt + j]),
+                   dq[((pr + 1) * kHalo + pc + 1) * kDxLdd + j], s);
+        }
+        prow[tap * K + k0 + j] = s;
       }
-      prow[tap * K + k0 + j] = s;
     }
-    __syncthreads();  // the dt chunk is complete
+    if constexpr (kStencil) __syncthreads();  // the dt chunk is complete
+    const uint32_t aa =
+        kStencil ? adt : smem_u32(tt + (16 * wr + (lane & 15)) * kDxLdt + 8 * (lane >> 4));
     const uint32_t bt = smem_u32(wt) + 2 * toff;
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
@@ -332,8 +376,9 @@ dwconv_dx_tc_kernel(const float* __restrict__ dout, const __nv_bfloat16* __restr
         sw += colred[(w4 * 2) * CK + k];
         sb += colred[(w4 * 2 + 1) * CK + k];
       }
-      prow[9 * K + k] = sw;
-      prow[9 * K + C + k] = sb;
+      // d ln_w, d ln_b after the tap or column sums
+      prow[(kStencil ? 9 * K : K) + k] = sw;
+      prow[(kStencil ? 9 * K : K) + C + k] = sb;
     }
   } else {
     tail_out(acc, C, [&](int i, int k, float v) { xs[i * ldw + k] = __float2bfloat16(v); });

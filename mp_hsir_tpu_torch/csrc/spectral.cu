@@ -942,13 +942,13 @@ cudaError_t launch_dwconv_dx_tc(const float* dout, const __nv_bfloat16* t,
                                 __nv_bfloat16* dx, float* part, int B, int H, int W, int C, int K,
                                 int shift, float eps, cudaStream_t stream) {
   if (C > kTailMaxC || !aligned(w, 16)) return cudaErrorInvalidValue;
-  const size_t smem = DwDxPlan(C, K).bytes;
+  const size_t smem = DwDxPlan(C, K, true).bytes;
   const int vec_in = K % 8 == 0 && aligned(dout, 16) && aligned(t, 16);
   const int vec_x = C % 8 == 0 && aligned(x, 16) && aligned(dx, 16);
-  cudaError_t err = set_smem(dwconv_dx_tc_kernel, smem);
+  cudaError_t err = set_smem(dwconv_dx_tc_kernel<true>, smem);
   if (err != cudaSuccess) return err;
-  dwconv_dx_tc_kernel<<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
-      dout, t, taps, w, x, lnw, H, W, C, K, shift, eps, vec_in, vec_x, dt, dx, part);
+  dwconv_dx_tc_kernel<true><<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
+      dout, t, taps, w, x, lnw, H, W, C, K, shift, eps, vec_in, vec_x, dt, dx, part, 0);
   return cudaGetLastError();
 }
 
@@ -1085,7 +1085,9 @@ extern "C" long long mp_spectral_stats_bwd_tc_smem(int C, int nH) {
 }
 
 extern "C" long long mp_dwconv_dx_tc_smem(int C, int K) {
-  return C > mp::kTailMaxC ? -1 : mp::plan_bytes(mp::dwconv_dx_tc_kernel, mp::DwDxPlan(C, K).bytes);
+  return C > mp::kTailMaxC ? -1
+                           : mp::plan_bytes(mp::dwconv_dx_tc_kernel<true>,
+                                            mp::DwDxPlan(C, K, true).bytes);
 }
 
 extern "C" long long mp_spectral_apply_bwd_smem(int C, int kc) {

@@ -76,7 +76,7 @@
 #include <mutex>
 #include <utility>
 
-#include "common.cuh"
+#include "dwconv_dx.cuh"
 
 namespace mp {
 
@@ -354,6 +354,57 @@ __device__ __forceinline__ void tc_rows16_k64(float* acc, const __nv_bfloat16* a
   }
 }
 
+// LayerNorm in place on a window's 64 staged bf16 rows xs ([64][ldx]),
+// float32 statistics, rounded to bf16: token row threadIdx.x / 2, its 16-byte
+// units (vec) or elements split between the thread pair, whose sums meet by
+// one shuffle. Called by all kTcThreads threads.
+__device__ __forceinline__ void tc_ln_rows(__nv_bfloat16* xs, int ldx, int C, int vec,
+                                           const float* __restrict__ lnw,
+                                           const float* __restrict__ lnb, float eps) {
+  using bf16 = __nv_bfloat16;
+  static_assert(kTcThreads == 2 * kPix, "two threads per token row");
+  const int hf = threadIdx.x & 1;
+  bf16* row = xs + (threadIdx.x >> 1) * ldx;
+  float f[8], sum = 0.f, var = 0.f;
+  if (vec) {
+    for (int c = 8 * hf; c < C; c += 16) {
+      bf16x8_to_f32(*reinterpret_cast<const uint4*>(row + c), f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) sum += f[e];
+    }
+  } else {
+    for (int k = hf; k < C; k += 2) sum += __bfloat162float(row[k]);
+  }
+  const float mu = (sum + __shfl_xor_sync(0xffffffffu, sum, 1)) / C;
+  if (vec) {
+    for (int c = 8 * hf; c < C; c += 16) {
+      bf16x8_to_f32(*reinterpret_cast<const uint4*>(row + c), f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) var += (f[e] - mu) * (f[e] - mu);
+    }
+  } else {
+    for (int k = hf; k < C; k += 2) {
+      const float d = __bfloat162float(row[k]) - mu;
+      var += d * d;
+    }
+  }
+  const float rs = rsqrtf((var + __shfl_xor_sync(0xffffffffu, var, 1)) / C + eps);
+  if (vec) {
+    for (int c = 8 * hf; c < C; c += 16) {
+      bf16x8_to_f32(*reinterpret_cast<const uint4*>(row + c), f);
+      uint32_t o[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o[e] = pack_bf16x2((f[2 * e] - mu) * rs * lnw[c + 2 * e] + lnb[c + 2 * e],
+                           (f[2 * e + 1] - mu) * rs * lnw[c + 2 * e + 1] + lnb[c + 2 * e + 1]);
+      *reinterpret_cast<uint4*>(row + c) = make_uint4(o[0], o[1], o[2], o[3]);
+    }
+  } else {
+    for (int k = hf; k < C; k += 2)
+      row[k] = __float2bfloat16((__bfloat162float(row[k]) - mu) * rs * lnw[k] + lnb[k]);
+  }
+}
+
 // K1 (kK1): x (B, H, W, C), window w = (b, wy, wx) of the rolled frame, LN
 // first, the -100 mask from the (H, W) label map, y in the rolled frame and
 // the window means. K14: x (NW, 64, C), window w, no LN, the -inf mask from
@@ -471,52 +522,7 @@ window_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ 
   for (int t = 0; t < S - 1; ++t) issue(t);
   cp_async_wait<S - 1>();  // the input has landed
   __syncthreads();
-  if (kK1) {
-    // LayerNorm in place, float32 statistics, rounded to bf16: token row
-    // threadIdx.x / 2, its 16-byte units (or elements) split between the
-    // thread pair, whose sums meet by one shuffle
-    static_assert(kTcThreads == 2 * kPix, "two threads per token row");
-    const int hf = threadIdx.x & 1;
-    bf16* row = xs + (threadIdx.x >> 1) * ldx;
-    float f[8], sum = 0.f, var = 0.f;
-    if (vec) {
-      for (int c = 8 * hf; c < C; c += 16) {
-        bf16x8_to_f32(*reinterpret_cast<const uint4*>(row + c), f);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) sum += f[e];
-      }
-    } else {
-      for (int k = hf; k < C; k += 2) sum += __bfloat162float(row[k]);
-    }
-    const float mu = (sum + __shfl_xor_sync(0xffffffffu, sum, 1)) / C;
-    if (vec) {
-      for (int c = 8 * hf; c < C; c += 16) {
-        bf16x8_to_f32(*reinterpret_cast<const uint4*>(row + c), f);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) var += (f[e] - mu) * (f[e] - mu);
-      }
-    } else {
-      for (int k = hf; k < C; k += 2) {
-        const float d = __bfloat162float(row[k]) - mu;
-        var += d * d;
-      }
-    }
-    const float rs = rsqrtf((var + __shfl_xor_sync(0xffffffffu, var, 1)) / C + eps);
-    if (vec) {
-      for (int c = 8 * hf; c < C; c += 16) {
-        bf16x8_to_f32(*reinterpret_cast<const uint4*>(row + c), f);
-        uint32_t o[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          o[e] = pack_bf16x2((f[2 * e] - mu) * rs * lnw[c + 2 * e] + lnb[c + 2 * e],
-                             (f[2 * e + 1] - mu) * rs * lnw[c + 2 * e + 1] + lnb[c + 2 * e + 1]);
-        *reinterpret_cast<uint4*>(row + c) = make_uint4(o[0], o[1], o[2], o[3]);
-      }
-    } else {
-      for (int k = hf; k < C; k += 2)
-        row[k] = __float2bfloat16((__bfloat162float(row[k]) - mu) * rs * lnw[k] + lnb[k]);
-    }
-  }
+  if (kK1) tc_ln_rows(xs, ldx, C, vec, lnw, lnb, eps);
   int t = 0;
   auto next = [&]() {
     cp_async_wait<S - 2>();
@@ -823,8 +829,8 @@ cudaError_t launch_window_tc(const void* x, const float* lnw, const float* lnb, 
 }
 
 // ---------------------------------------------------------------------------
-// Backward (K8, replaces _win_bwd_kernel, mp_hsir_tpu/ops/pallas_vjp.py:539).
-// One block = one window of the rolled frame. It recomputes LN(x) and, per
+// float32 backward (K8, replaces _win_bwd_kernel, mp_hsir_tpu/ops/pallas_vjp.py:539;
+// bf16 runs the tensor-core tiles below). One block = one window of the rolled frame. It recomputes LN(x) and, per
 // head, q/k/v and the max-subtracted softmax A (the forward's -100 mask);
 // dy gets the pooled-mean cotangent dpool / 64 on every token of its window.
 // Per head: o = rnd(A) v (the saved-o of the TPU kernel, recomputed here),
@@ -1044,6 +1050,463 @@ cudaError_t launch_window_bwd(const void* x, const float* lnw, const float* lnb,
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16 backward on the tensor cores (K8, replaces _win_bwd_kernel,
+// mp_hsir_tpu/ops/pallas_vjp.py:539, host _win_bwd_call :816): two tiles,
+// then grad.cu's weight products and one in-order sum of the partials.
+//
+// Tile 1, window_attention_bwd_tc_kernel: one window of the rolled frame per
+// block of four warps, all heads; warp w owns token rows 16w .. 16w + 15 in
+// every product whose rows are tokens, and key rows 16w .. in dk and dv.
+// - Staged once as bf16 rows of C (padded to the 64-deep K chunk) + 8: x with
+//   the LayerNorm in place (the forward tile's staging and tc_ln_rows), and
+//   dy + dpool / 64, rounded (its float32 column sums are the bp partial).
+//   LN(x) and the rounded dy are written back for the weight products.
+// - Per head, one cp.async ring of [DHP][64] tiles streams the head's q, k
+//   and v weight tiles (the forward's pack_qkv_weight) and its columns of Wp
+//   (pack_proj_t_weight: the rows of Wp^T, [nH][DHP][round64(C)]): q, k, v
+//   = rnd(LN(x) Wqkv + b) and do = rnd(dy Wp) into shared memory as bf16
+//   [64][DHP + 8] (one barrier per weight tile, one after the four).
+// - S = q k^T scale + bias (-100 where the region labels differ) and A, the
+//   max-subtracted softmax, stay in registers (16 x 64 per warp), as in the
+//   forward; o = rnd(rnd(A) v) goes out for dWp; dA = do v^T in registers;
+//   dS = A (dA - rowsum(A dA)) (the row sum from A itself, as
+//   window_attention_bwd_plain); its float32 values are the relative-bias
+//   partial; dq = rnd(dS) k scale from the registers.
+// - rnd(dS) and rnd(A) are staged as bf16 [64][72]; after one barrier dk =
+//   rnd(dS)^T q scale and dv = rnd(A)^T do read them by ldmatrix.trans (and q,
+//   do as [k][n] operands by ldmatrix.trans).
+// - dqkv goes out in bf16 in the torch channel order (s C + h dh + d); the
+//   per-window partial row [nH][64][64] (dS) | [C] (bp) is float32 and is
+//   summed in window order by sum_parts: no atomics, two calls are bitwise
+//   equal.
+// Tile 2 is dwconv_dx.cuh's tile without the stencil at K = 3C: dxn =
+// dqkv Wqkv in registers over the 64-channel chunks, the LayerNorm backward
+// with x read at the roll-back, dx rounded once, per-window partials of
+// dbqkv (the column sums of dqkv), d ln_w and d ln_b after tile 1's.
+//
+// Bound: a token costs 8C^2 (qkv, do) + 6 x 128 C (S, o, dA, dq, dk, dv)
+// flops in tile 1 and 6C^2 in tile 2 against ~20 C bytes: the tensor-core
+// rate bounds both at every width here.
+// ---------------------------------------------------------------------------
+
+// The bf16 tile 1's dynamic shared memory at (C, nH): xs and ys [64][kx + 8],
+// q, k, v, do [64][DHP + 8], rnd(dS) and rnd(A) [64][72], the ring of
+// tc_stages(DHP) [DHP][72] weight tiles (the Python mirror is
+// ops/kernels/window_attention.py:window_bwd_tc_plan).
+inline size_t window_bwd_tc_smem(int C, int nH) {
+  const int dhp = tc_head_width(C / nH), kx = round64(C);
+  return sizeof(__nv_bfloat16) *
+         (2 * (size_t)kPix * (kx + 8) + 4 * (size_t)kPix * (dhp + 8) + 2 * (size_t)kPix * kTcLd +
+          (size_t)tc_stages(dhp) * dhp * kTcLd);
+}
+
+// x (B, H, W, C) and dy (B, H, W, C) bf16, dy in the rolled frame, dpool (B,
+// H/8, W/8, C) bf16; lnw, lnb, bqkv, bias (nH, 64, 64) float32; labels the
+// (H, W) region map or NULL; wqkv [nH][3][DHP][kx] and wpt [nH][DHP][kx]
+// bf16 (16-byte aligned). Outputs, rolled frame, bf16: xn = LN(x), o, dyt =
+// rnd(dy + dpool / 64), dqkv (B, H, W, 3C); part row w (at part + w ldp) gets
+// dS [nH][64][64] | the bp partial [C]. vec: C % 8 == 0 with x, dy, xn, dyt
+// 16-byte aligned.
+template <int DHP>
+__global__ void __launch_bounds__(kTcThreads)
+window_attention_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ lnw,
+                               const float* __restrict__ lnb,
+                               const __nv_bfloat16* __restrict__ wqkv,
+                               const float* __restrict__ bqkv, const float* __restrict__ bias,
+                               const int* __restrict__ labels,
+                               const __nv_bfloat16* __restrict__ wpt,
+                               const __nv_bfloat16* __restrict__ dy,
+                               const __nv_bfloat16* __restrict__ dpool,
+                               __nv_bfloat16* __restrict__ xn_out, __nv_bfloat16* __restrict__ o_out,
+                               __nv_bfloat16* __restrict__ dyt_out,
+                               __nv_bfloat16* __restrict__ dqkv_out, float* __restrict__ part,
+                               int ldp, int H, int W, int C, int nH, int shift, float eps,
+                               int vec) {
+  using bf16 = __nv_bfloat16;
+  constexpr int S = tc_stages(DHP), NT = DHP / 8, ldk = DHP + 8;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  __shared__ int lab[kPix];
+  const int dh = C / nH, C3 = 3 * C, kx = round64(C), ldx = kx + 8, nkx = kx / kTcK;
+  bf16* xs = (bf16*)tc_smem;      // [64][ldx] LN(x)
+  bf16* ys = xs + kPix * ldx;     // [64][ldx] rnd(dy + dpool / 64)
+  bf16* qs = ys + kPix * ldx;     // [64][ldk] q, k, v and do of one head
+  bf16* ks = qs + kPix * ldk;
+  bf16* vs = ks + kPix * ldk;
+  bf16* ds = vs + kPix * ldk;
+  bf16* gs = ds + kPix * ldk;     // [64][kTcLd] rnd(dS)
+  bf16* as = gs + kPix * kTcLd;   // [64][kTcLd] rnd(A)
+  bf16* ring = as + kPix * kTcLd; // [S][DHP][kTcLd] weight tiles
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t4 = lane & 3;
+  const int r0 = 16 * warp + (lane >> 2), r1 = r0 + 8;  // the thread's accumulator rows
+  const int w = blockIdx.x, nwx = W / kTile, nwy = H / kTile;
+  const int wx = w % nwx, wy = w / nwx % nwy, b = w / (nwx * nwy);
+  // x's pixel behind token i (x[(r + shift) % H, (c + shift) % W]); token
+  // i's pixel of the rolled frame
+  auto src = [&](int i) -> size_t {
+    const int sr = (wy * kTile + (i >> 3) + shift) % H, sc = (wx * kTile + (i & 7) + shift) % W;
+    return ((size_t)b * H + sr) * W + sc;
+  };
+  auto pix = [&](int i) { return tile_pix(b, wy, wx, i, H, W); };
+  float* prow = part + (size_t)w * ldp;
+
+  stage_rows(xs, ldx, x, C, kx, vec, src);
+  stage_rows(ys, ldx, dy, C, kx, vec, pix);
+  cp_async_commit();
+  const bool masked = labels != nullptr;
+  if (masked && threadIdx.x < kPix) {
+    const int i = threadIdx.x;
+    lab[i] = labels[(wy * kTile + (i >> 3)) * W + wx * kTile + (i & 7)];
+  }
+  // The weight stream: tile t is K chunk t % nkx of section t / nkx % 4 of
+  // head t / (4 nkx): q, k, v of wqkv, then the head's rows of wpt. next()
+  // waits for tile t, passes one block-wide barrier (after it nobody reads
+  // tile t - 1, whose stage takes tile t + S - 1), issues that tile and
+  // returns tile t.
+  const int T = 4 * nH * nkx;
+  auto issue = [&](int t) {
+    if (t < T) {
+      const int sec = t / nkx, h = sec >> 2, q = sec & 3;
+      const bf16* from = (q < 3 ? wqkv + (size_t)(3 * h + q) * DHP * kx
+                                : wpt + (size_t)h * DHP * kx) + (t - sec * nkx) * kTcK;
+      bf16* dst = ring + (t % S) * DHP * kTcLd;
+      for (int u = threadIdx.x; u < DHP * (kTcK / 8); u += kTcThreads) {
+        const int r = u >> 3, c = (u & 7) * 8;
+        cp_async16(smem_u32(dst + r * kTcLd + c), from + (size_t)r * kx + c, 16);
+      }
+    }
+    cp_async_commit();
+  };
+  for (int t = 0; t < S - 1; ++t) issue(t);
+  cp_async_wait<S - 1>();  // x and dy have landed
+  __syncthreads();
+  tc_ln_rows(xs, ldx, C, vec, lnw, lnb, eps);
+  // dy + dpool / 64 in float32: its column sums (in token order) are the bp
+  // partial; rounded in place
+  for (int c = threadIdx.x; c < C; c += kTcThreads) {
+    const float add = __bfloat162float(dpool[(size_t)w * C + c]) * (1.f / kPix);
+    float sum = 0.f;
+    for (int i = 0; i < kPix; ++i) {
+      const float v = __bfloat162float(ys[i * ldx + c]) + add;
+      sum += v;
+      ys[i * ldx + c] = __float2bfloat16(v);
+    }
+    prow[nH * kPix * kPix + c] = sum;
+  }
+  __syncthreads();
+  auto same = [](int, int, float v) { return v; };
+  tail_store(xs, ldx, C, vec, [&](int i) { return xn_out + pix(i) * C; }, same);
+  tail_store(ys, ldx, C, vec, [&](int i) { return dyt_out + pix(i) * C; }, same);
+
+  int t = 0;
+  auto next = [&]() {
+    cp_async_wait<S - 2>();
+    __syncthreads();
+    issue(t + S - 1);
+    return ring + (t++ % S) * DHP * kTcLd;
+  };
+  // columns col, col + 1 (< dh) of one token row of a head's output, p at
+  // the head's column 0: a bf16 pair where dh is even, else one by one
+  auto put = [&](bf16* p, int col, float v0, float v1) {
+    if (col >= dh) return;
+    if (dh % 2 == 0) {
+      st_u32(p + col, pack_bf16x2(v0, v1));
+    } else {
+      p[col] = __float2bfloat16(v0);
+      if (col + 1 < dh) p[col + 1] = __float2bfloat16(v1);
+    }
+  };
+  const float scale = rsqrtf((float)dh);
+  // ldmatrix lane offsets: A rows (the warp's 16 rows of q / do); B from [n][k]
+  // rows (k, v in S and dA); B from [k][n] rows by .trans (k, q, v, do); A^T
+  // from [k][m] rows by .trans (rnd(dS), rnd(A): m = the warp's 16 keys)
+  const int a_off = (16 * warp + (lane & 15)) * ldk + 8 * (lane >> 4);
+  const int nk_off = ((lane & 7) + 8 * (lane >> 4)) * ldk + 8 * ((lane >> 3) & 1);
+  const int kn_off = ((lane & 7) + 8 * ((lane >> 3) & 1)) * ldk + 8 * (lane >> 4);
+  const int at_off = ((lane & 7) + 8 * (lane >> 4)) * kTcLd + 16 * warp + 8 * ((lane >> 3) & 1);
+  const bf16* xa = xs + 16 * warp * ldx;
+  const bf16* ya = ys + 16 * warp * ldx;
+  for (int h = 0; h < nH; ++h) {
+    // q, k, v = rnd(LN(x) Wqkv + b) and do = rnd(dy Wp) of the warp's rows
+#pragma unroll 1
+    for (int s = 0; s < 4; ++s) {
+      float acc[NT * 4];
+#pragma unroll
+      for (int q = 0; q < NT * 4; ++q) acc[q] = 0.f;
+      const bf16* a = s < 3 ? xa : ya;
+      for (int kc = 0; kc < nkx; ++kc) tc_rows16_k64<DHP>(acc, a + kc * kTcK, ldx, next(), lane);
+      bf16* d = s == 0 ? qs : s == 1 ? ks : s == 2 ? vs : ds;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int col = 8 * nt + 2 * t4;
+        float b0 = 0.f, b1 = 0.f;
+        if (s < 3) {
+          const float* bq = bqkv + s * C + h * dh + col;
+          b0 = col < dh ? bq[0] : 0.f;
+          b1 = col + 1 < dh ? bq[1] : 0.f;
+        }
+        st_u32(d + r0 * ldk + col, pack_bf16x2(acc[4 * nt] + b0, acc[4 * nt + 1] + b1));
+        st_u32(d + r1 * ldk + col, pack_bf16x2(acc[4 * nt + 2] + b0, acc[4 * nt + 3] + b1));
+      }
+    }
+    __syncthreads();  // q, k, v and do of head h are complete
+
+    // S = q k^T: 16 rows x 64 keys, sc[4 nt + q] for keys 8 nt ..
+    float sc[32];
+#pragma unroll
+    for (int q = 0; q < 32; ++q) sc[q] = 0.f;
+    {
+      const uint32_t qa = smem_u32(qs + a_off), kb = smem_u32(ks + nk_off);
+#pragma unroll
+      for (int kk = 0; kk < DHP / 16; ++kk) {
+        uint32_t af[4];
+        ldmatrix_x4(af, qa + 2 * 16 * kk);
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          uint32_t bf[4];
+          ldmatrix_x4(bf, kb + 2 * (16 * p * ldk + 16 * kk));
+          mma_16x8x16(sc + 8 * p, af[0], af[1], af[2], af[3], bf[0], bf[1]);
+          mma_16x8x16(sc + 8 * p + 4, af[0], af[1], af[2], af[3], bf[2], bf[3]);
+        }
+      }
+    }
+    // scale, relative bias, mask; A = the max-subtracted softmax (float32)
+    const float* bh = bias + (size_t)h * kPix * kPix;
+    float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int col = 8 * nt + 2 * t4;
+      const float2 c0 = *reinterpret_cast<const float2*>(bh + r0 * kPix + col);
+      const float2 c1 = *reinterpret_cast<const float2*>(bh + r1 * kPix + col);
+      float* v = sc + 4 * nt;
+      v[0] = v[0] * scale + c0.x;
+      v[1] = v[1] * scale + c0.y;
+      v[2] = v[2] * scale + c1.x;
+      v[3] = v[3] * scale + c1.y;
+      if (masked) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (lab[e < 2 ? r0 : r1] != lab[col + (e & 1)]) v[e] -= 100.f;
+      }
+      m0 = fmaxf(m0, fmaxf(v[0], v[1]));
+      m1 = fmaxf(m1, fmaxf(v[2], v[3]));
+    }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
+    }
+    float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      float* v = sc + 4 * nt;
+      v[0] = expf(v[0] - m0);
+      v[1] = expf(v[1] - m0);
+      v[2] = expf(v[2] - m1);
+      v[3] = expf(v[3] - m1);
+      l0 += v[0] + v[1];
+      l1 += v[2] + v[3];
+    }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, o);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, o);
+    }
+    const float i0 = 1.f / l0, i1 = 1.f / l1;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      sc[4 * nt] *= i0;
+      sc[4 * nt + 1] *= i0;
+      sc[4 * nt + 2] *= i1;
+      sc[4 * nt + 3] *= i1;
+    }
+    // A fragment of keys 16 kk .. from 16 x 64 accumulators (rounded to bf16)
+    auto frag = [](const float* f, int kk, uint32_t* a) {
+      const float* s0 = f + 8 * kk;
+      a[0] = pack_bf16x2(s0[0], s0[1]);
+      a[1] = pack_bf16x2(s0[2], s0[3]);
+      a[2] = pack_bf16x2(s0[4], s0[5]);
+      a[3] = pack_bf16x2(s0[6], s0[7]);
+    };
+    const uint32_t vt = smem_u32(vs + kn_off);
+    {  // o = rnd(rnd(A) v), out for dWp
+      float oa[NT * 4];
+#pragma unroll
+      for (int q = 0; q < NT * 4; ++q) oa[q] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t af[4];
+        frag(sc, kk, af);
+#pragma unroll
+        for (int p = 0; p < DHP / 16; ++p) {
+          uint32_t bf[4];
+          ldmatrix_x4_trans(bf, vt + 2 * (16 * kk * ldk + 16 * p));
+          mma_16x8x16(oa + 8 * p, af[0], af[1], af[2], af[3], bf[0], bf[1]);
+          mma_16x8x16(oa + 8 * p + 4, af[0], af[1], af[2], af[3], bf[2], bf[3]);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int col = 8 * nt + 2 * t4;
+        put(o_out + pix(r0) * C + h * dh, col, oa[4 * nt], oa[4 * nt + 1]);
+        put(o_out + pix(r1) * C + h * dh, col, oa[4 * nt + 2], oa[4 * nt + 3]);
+      }
+    }
+    // dA = do v^T, then dS = A (dA - rowsum(A dA)) in place
+    float ga[32];
+#pragma unroll
+    for (int q = 0; q < 32; ++q) ga[q] = 0.f;
+    {
+      const uint32_t da = smem_u32(ds + a_off), vb = smem_u32(vs + nk_off);
+#pragma unroll
+      for (int kk = 0; kk < DHP / 16; ++kk) {
+        uint32_t af[4];
+        ldmatrix_x4(af, da + 2 * 16 * kk);
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          uint32_t bf[4];
+          ldmatrix_x4(bf, vb + 2 * (16 * p * ldk + 16 * kk));
+          mma_16x8x16(ga + 8 * p, af[0], af[1], af[2], af[3], bf[0], bf[1]);
+          mma_16x8x16(ga + 8 * p + 4, af[0], af[1], af[2], af[3], bf[2], bf[3]);
+        }
+      }
+    }
+    float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      d0 += sc[4 * nt] * ga[4 * nt] + sc[4 * nt + 1] * ga[4 * nt + 1];
+      d1 += sc[4 * nt + 2] * ga[4 * nt + 2] + sc[4 * nt + 3] * ga[4 * nt + 3];
+    }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      d0 += __shfl_xor_sync(0xffffffffu, d0, o);
+      d1 += __shfl_xor_sync(0xffffffffu, d1, o);
+    }
+    float* pb = prow + (size_t)h * kPix * kPix;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int col = 8 * nt + 2 * t4;
+      float* g = ga + 4 * nt;
+      const float* a = sc + 4 * nt;
+      g[0] = a[0] * (g[0] - d0);
+      g[1] = a[1] * (g[1] - d0);
+      g[2] = a[2] * (g[2] - d1);
+      g[3] = a[3] * (g[3] - d1);
+      *reinterpret_cast<float2*>(pb + r0 * kPix + col) = make_float2(g[0], g[1]);
+      *reinterpret_cast<float2*>(pb + r1 * kPix + col) = make_float2(g[2], g[3]);
+      st_u32(gs + r0 * kTcLd + col, pack_bf16x2(g[0], g[1]));
+      st_u32(gs + r1 * kTcLd + col, pack_bf16x2(g[2], g[3]));
+      st_u32(as + r0 * kTcLd + col, pack_bf16x2(a[0], a[1]));
+      st_u32(as + r1 * kTcLd + col, pack_bf16x2(a[2], a[3]));
+    }
+    // dq = rnd(dS) k scale from the registers; dk = rnd(dS)^T q scale and dv =
+    // rnd(A)^T do from the staged tiles (s = 0, 1, 2: the section of dqkv)
+    const uint32_t kt = smem_u32(ks + kn_off), qt = smem_u32(qs + kn_off);
+    const uint32_t dt = smem_u32(ds + kn_off);
+    const uint32_t gt = smem_u32(gs + at_off), atr = smem_u32(as + at_off);
+#pragma unroll 1
+    for (int s = 0; s < 3; ++s) {
+      if (s == 1) __syncthreads();  // rnd(dS) and rnd(A) are complete
+      float acc[NT * 4];
+#pragma unroll
+      for (int q = 0; q < NT * 4; ++q) acc[q] = 0.f;
+      const uint32_t bt = s == 0 ? kt : s == 1 ? qt : dt;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t af[4];
+        if (s == 0)
+          frag(ga, kk, af);
+        else
+          ldmatrix_x4_trans(af, (s == 1 ? gt : atr) + 2 * 16 * kk * kTcLd);
+#pragma unroll
+        for (int p = 0; p < DHP / 16; ++p) {
+          uint32_t bf[4];
+          ldmatrix_x4_trans(bf, bt + 2 * (16 * kk * ldk + 16 * p));
+          mma_16x8x16(acc + 8 * p, af[0], af[1], af[2], af[3], bf[0], bf[1]);
+          mma_16x8x16(acc + 8 * p + 4, af[0], af[1], af[2], af[3], bf[2], bf[3]);
+        }
+      }
+      const float f = s < 2 ? scale : 1.f;
+      bf16* base = dqkv_out + s * C + h * dh;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int col = 8 * nt + 2 * t4;
+        put(base + pix(r0) * C3, col, acc[4 * nt] * f, acc[4 * nt + 1] * f);
+        put(base + pix(r1) * C3, col, acc[4 * nt + 2] * f, acc[4 * nt + 3] * f);
+      }
+    }
+  }
+}
+
+using TcBwdKernel = void (*)(const __nv_bfloat16*, const float*, const float*,
+                             const __nv_bfloat16*, const float*, const float*, const int*,
+                             const __nv_bfloat16*, const __nv_bfloat16*, const __nv_bfloat16*,
+                             __nv_bfloat16*, __nv_bfloat16*, __nv_bfloat16*, __nv_bfloat16*,
+                             float*, int, int, int, int, int, int, float, int);
+
+// the backward instance of head width dhp (nullptr: none)
+inline TcBwdKernel tc_bwd_kernel_for(int dhp) {
+  switch (dhp) {
+    case 16: return window_attention_bwd_tc_kernel<16>;
+    case 32: return window_attention_bwd_tc_kernel<32>;
+    case 48: return window_attention_bwd_tc_kernel<48>;
+    case 64: return window_attention_bwd_tc_kernel<64>;
+    case 96: return window_attention_bwd_tc_kernel<96>;
+    case 128: return window_attention_bwd_tc_kernel<128>;
+    default: return nullptr;
+  }
+}
+
+// The bf16 backward's plans at (C, nH), static included: tile 1 (-1: dh >
+// 128) and tile 2 (DwDxPlan without the stencil at K = 3C; -1: C > 384).
+inline long long window_bwd_tc_plan(int C, int nH) {
+  const TcBwdKernel k = tc_bwd_kernel_for(tc_head_width(C / nH));
+  return k == nullptr ? -1 : plan_bytes(k, window_bwd_tc_smem(C, nH));
+}
+inline long long window_dx_tc_plan(int C) {
+  return C > kTailMaxC ? -1 : plan_bytes(dwconv_dx_tc_kernel<false>, DwDxPlan(C, 3 * C, false).bytes);
+}
+
+cudaError_t launch_window_bwd_tc(const __nv_bfloat16* x, const float* lnw, const float* lnb,
+                                 const __nv_bfloat16* wqkv, const float* bqkv, const float* bias,
+                                 const int* labels, const __nv_bfloat16* wpt,
+                                 const __nv_bfloat16* dy, const __nv_bfloat16* dpool,
+                                 __nv_bfloat16* xn, __nv_bfloat16* o, __nv_bfloat16* dyt,
+                                 __nv_bfloat16* dqkv, float* part, int ldp, int B, int H, int W,
+                                 int C, int nH, int shift, float eps, cudaStream_t stream) {
+  const TcBwdKernel kernel = tc_bwd_kernel_for(tc_head_width(C / nH));
+  if (kernel == nullptr || !aligned(wqkv, 16) || !aligned(wpt, 16) || ldp % 2 != 0)
+    return cudaErrorInvalidValue;
+  const size_t smem = window_bwd_tc_smem(C, nH);
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int vec = C % 8 == 0 && aligned(x, 16) && aligned(dy, 16) && aligned(xn, 16) &&
+                  aligned(dyt, 16);
+  kernel<<<B * (H / kTile) * (W / kTile), kTcThreads, smem, stream>>>(
+      x, lnw, lnb, wqkv, bqkv, bias, labels, wpt, dy, dpool, xn, o, dyt, dqkv, part, ldp, H, W, C,
+      nH, shift, eps, vec);
+  return cudaGetLastError();
+}
+
+// Tile 2: the kernel frame is the rolled frame, x's pixel (r + shift, c +
+// shift) behind its (r, c): dwconv_dx_tc_kernel's roll-back at -shift.
+cudaError_t launch_window_dx_tc(const __nv_bfloat16* dqkv, const __nv_bfloat16* w,
+                                const __nv_bfloat16* x, const float* lnw, __nv_bfloat16* dx,
+                                float* part, int ldp, int B, int H, int W, int C, int shift,
+                                float eps, cudaStream_t stream) {
+  if (C > kTailMaxC || !aligned(w, 16)) return cudaErrorInvalidValue;
+  const int K = 3 * C;
+  const size_t smem = DwDxPlan(C, K, false).bytes;
+  const int vec_in = K % 8 == 0 && aligned(dqkv, 16);
+  const int vec_x = C % 8 == 0 && aligned(x, 16) && aligned(dx, 16);
+  cudaError_t err = set_smem(dwconv_dx_tc_kernel<false>, smem);
+  if (err != cudaSuccess) return err;
+  dwconv_dx_tc_kernel<false><<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
+      nullptr, dqkv, nullptr, w, x, lnw, H, W, C, K, -shift, eps, vec_in, vec_x, nullptr, dx,
+      part, ldp);
+  return cudaGetLastError();
+}
 }  // namespace mp
 
 // dtype: 0 = float32, 1 = bfloat16. float32 weights are [in][out]; bf16
@@ -1125,29 +1588,71 @@ extern "C" long long mp_window_attention_bwd_smem(int C, int nH, int kc) {
 // The channel chunk the backward kernel launches with at (C, nH).
 extern "C" int mp_window_attention_bwd_chunk(int C, int nH) { return mp::window_bwd_chunk(C, nH); }
 
-// The per-window half of the window-attention backward. dy (B, H, W, C) in
-// the rolled frame, dpool (B, H/8, W/8, C). Outputs, rolled frame, compute
-// type: xn = LN(x), o (pre-projection attention output), dyt (dy + dpool/64),
-// dqkv (B, H, W, 3C); float32 partials pbias (windows, nH, 64, 64) and pbp
-// (windows, C). kc: the channel chunk (mp_window_attention_bwd_chunk).
+// The float32 per-window half of the window-attention backward (bf16 runs
+// mp_window_attention_bwd_tc and mp_window_attention_dx_tc). dy (B, H, W, C)
+// in the rolled frame, dpool (B, H/8, W/8, C). Outputs, rolled frame: xn =
+// LN(x), o (pre-projection attention output), dyt (dy + dpool/64), dqkv (B,
+// H, W, 3C); partials pbias (windows, nH, 64, 64) and pbp (windows, C). kc:
+// the channel chunk (mp_window_attention_bwd_chunk).
 extern "C" int mp_window_attention_bwd(const void* x, const void* lnw, const void* lnb,
                                        const void* wqkv, const void* bqkv, const void* bias,
                                        const void* labels, const void* wp, const void* dy,
                                        const void* dpool, void* xn, void* o, void* dyt,
-                                       void* dqkv, void* pbias, void* pbp, int dtype, int B,
-                                       int H, int W, int C, int nH, int shift, int kc, float eps,
+                                       void* dqkv, void* pbias, void* pbp, int B, int H, int W,
+                                       int C, int nH, int shift, int kc, float eps,
                                        void* stream) {
   if (C % nH != 0 || H % mp::kTile != 0 || W % mp::kTile != 0 || kc <= 0 || kc > C)
     return (int)cudaErrorInvalidValue;
-  auto st = (cudaStream_t)stream;
   auto f = [](const void* p) { return (const float*)p; };
-  if (dtype == 0)
-    return (int)mp::launch_window_bwd<float>(x, f(lnw), f(lnb), wqkv, f(bqkv), f(bias),
-                                             (const int*)labels, wp, dy, dpool, xn, o, dyt, dqkv,
-                                             (float*)pbias, (float*)pbp, B, H, W, C, nH, shift,
-                                             kc, eps, st);
-  return (int)mp::launch_window_bwd<__nv_bfloat16>(x, f(lnw), f(lnb), wqkv, f(bqkv), f(bias),
-                                                   (const int*)labels, wp, dy, dpool, xn, o, dyt,
-                                                   dqkv, (float*)pbias, (float*)pbp, B, H, W, C,
-                                                   nH, shift, kc, eps, st);
+  return (int)mp::launch_window_bwd<float>(x, f(lnw), f(lnb), wqkv, f(bqkv), f(bias),
+                                           (const int*)labels, wp, dy, dpool, xn, o, dyt, dqkv,
+                                           (float*)pbias, (float*)pbp, B, H, W, C, nH, shift, kc,
+                                           eps, (cudaStream_t)stream);
 }
+
+// The bf16 backward's tile 1 (C up to 384, dh up to 128): x (B, H, W, C), dy
+// (B, H, W, C) rolled frame and dpool (B, H/8, W/8, C) bf16; LN, bqkv and the
+// (nH, 64, 64) bias float32; labels the (H, W) region map or NULL; wqkv the
+// forward's pack [nH][3][DHP][round64(C)], wpt the rows of Wp^T as
+// [nH][DHP][round64(C)] (bf16, 16-byte aligned). Outputs, rolled frame, bf16:
+// xn = LN(x), o, dyt = rnd(dy + dpool / 64), dqkv (B, H, W, 3C) in the torch
+// channel order; part (windows, ldp) float32, ldp even: row w starts with dS
+// [nH][64][64] | the bp partial [C].
+extern "C" int mp_window_attention_bwd_tc(const void* x, const void* lnw, const void* lnb,
+                                          const void* wqkv, const void* bqkv, const void* bias,
+                                          const void* labels, const void* wpt, const void* dy,
+                                          const void* dpool, void* xn, void* o, void* dyt,
+                                          void* dqkv, void* part, int ldp, int B, int H, int W,
+                                          int C, int nH, int shift, float eps, void* stream) {
+  if (C % nH != 0 || H % mp::kTile != 0 || W % mp::kTile != 0 || C > mp::kTailMaxC)
+    return (int)cudaErrorInvalidValue;
+  using bf = __nv_bfloat16;
+  auto f = [](const void* p) { return (const float*)p; };
+  return (int)mp::launch_window_bwd_tc((const bf*)x, f(lnw), f(lnb), (const bf*)wqkv, f(bqkv),
+                                       f(bias), (const int*)labels, (const bf*)wpt,
+                                       (const bf*)dy, (const bf*)dpool, (bf*)xn, (bf*)o,
+                                       (bf*)dyt, (bf*)dqkv, (float*)part, ldp, B, H, W, C, nH,
+                                       shift, eps, (cudaStream_t)stream);
+}
+
+// The bf16 backward's tile 2 (C up to 384): dqkv (B, H, W, 3C) bf16 rolled
+// frame; w the torch qkv weight [3C][C8] bf16 (C8 = C rounded up to 8,
+// 16-byte aligned); x (B, H, W, C) bf16 unrolled, lnw float32. Outputs: dx
+// (B, H, W, C) bf16 in x's frame; part row w (at part + w ldp) gets the
+// column sums of dqkv [3C] | d ln_w [C] | d ln_b [C].
+extern "C" int mp_window_attention_dx_tc(const void* dqkv, const void* w, const void* x,
+                                         const void* lnw, void* dx, void* part, int ldp, int B,
+                                         int H, int W, int C, int shift, float eps, void* stream) {
+  if (H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
+  using bf = __nv_bfloat16;
+  return (int)mp::launch_window_dx_tc((const bf*)dqkv, (const bf*)w, (const bf*)x,
+                                      (const float*)lnw, (bf*)dx, (float*)part, ldp, B, H, W, C,
+                                      shift, eps, (cudaStream_t)stream);
+}
+
+// The bf16 backward's plans per block (bytes, static included): tile 1 at
+// (C, nH) (-1: head width over 128) and tile 2 at C (-1: C over 384).
+extern "C" long long mp_window_attention_bwd_tc_smem(int C, int nH) {
+  return mp::window_bwd_tc_plan(C, nH);
+}
+extern "C" long long mp_window_attention_dx_tc_smem(int C) { return mp::window_dx_tc_plan(C); }

@@ -180,16 +180,19 @@ def stats_plan(c: int, heads: int) -> dict:
                 groups=groups, gw=gw, np=np_, ws=ws, bytes=nbytes)
 
 
-def dwconv_dx_plan(c: int, k: int) -> dict:
+def dwconv_dx_plan(c: int, k: int, stencil: bool = True) -> dict:
     """The plan of the bf16 backward's second tile at width ``c`` and ``k``
     depthwise channels (``DwDxPlan`` in csrc/dwconv_dx.cuh): ``nck`` 64-channel
     chunks; ``stages`` ring stages (3 where they fit, else 2) of ``stage``
     bytes (the dout and t halo chunks and the chunk's rows of the 1x1 weight,
     ``ck`` = c rounded up to 64 columns); ``bytes`` the dynamic shared memory,
-    the dt chunk included."""
+    the dt chunk included. Without the stencil (the window backward's tile
+    2, ``k`` = 3C) a stage is the cotangent chunk [64][72] and the weight
+    rows, and there is no dt chunk."""
     ck = -(-c // 64) * 64
-    stage = 4 * 100 * DX_LDD + 2 * 100 * DX_LDT + 2 * 64 * (ck + 8)
-    da = 2 * 64 * DX_LDT
+    rows = 100 if stencil else 64
+    stage = (4 * 100 * DX_LDD if stencil else 0) + 2 * rows * DX_LDT + 2 * 64 * (ck + 8)
+    da = 2 * 64 * DX_LDT if stencil else 0
     stages = 3 if da + 3 * stage <= STATS_BUDGET else 2
     return dict(ck=ck, nck=-(-k // 64), stages=stages, stage=stage, bytes=da + stages * stage)
 

@@ -2,15 +2,23 @@
 
 Kernel: ``csrc/window_attention.cu`` (replaces the TPU kernels
 ``_nhwc_kernel`` and the window half of ``_nhwc_sp0_kernel``,
-``mp_hsir_tpu/ops/pallas_attention.py:198`` and ``:362``; backward
-``mp_window_attention_bwd`` + ``csrc/grad.cu`` replace ``_win_bwd_kernel``,
-``mp_hsir_tpu/ops/pallas_vjp.py:539``). Plain versions:
+``mp_hsir_tpu/ops/pallas_attention.py:198`` and ``:362``). The backward
+replaces ``_win_bwd_kernel`` (``mp_hsir_tpu/ops/pallas_vjp.py:539``): in
+bf16 two tensor-core tiles, ``mp_window_attention_bwd_tc`` (the per-window
+recompute and attention backward) and ``mp_window_attention_dx_tc``
+(``csrc/dwconv_dx.cuh`` without its stencil: dxn = dqkv Wqkv and the
+LayerNorm backward), then ``csrc/grad.cu``'s two weight products and one
+in-order sum of the per-window partials (:func:`window_bwd_tc_plan` mirrors
+both plans); in float32 ``mp_window_attention_bwd`` (SIMT) and grad.cu's
+``ln_linear_bwd``, weight products and sums. Plain versions:
 :func:`window_attention_plain` and :func:`window_attention_bwd_plain`, the
 same arithmetic in PyTorch.
 
-Weight layouts at the launch: float32 (and the backward) takes [in][out]
-copies; the bf16 forward streams the head-major packs of
-:func:`pack_qkv_weight` and :func:`pack_proj_weight`, made on every call.
+Weight layouts at the launch: float32 takes [in][out] copies; the bf16
+forward streams the head-major packs of :func:`pack_qkv_weight` and
+:func:`pack_proj_weight`, the bf16 backward those of :func:`pack_qkv_weight`
+and :func:`pack_proj_t_weight` and the torch qkv weight (rows padded to 16
+bytes), all made on every call.
 """
 
 from __future__ import annotations
@@ -19,15 +27,18 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from mp_hsir_tpu_torch.ops.basic import layer_norm
 from mp_hsir_tpu_torch.ops.kernels import _build
 from mp_hsir_tpu_torch.ops.kernels._grad import (
-    grad_or_zeros, ln_bwd_plain, ln_linear_bwd, ln_stats, sum_parts, wgrad,
+    col_ptr, grad_or_zeros, ln_bwd_plain, ln_linear_bwd, ln_stats, sum_parts, wgrad,
 )
 from mp_hsir_tpu_torch.ops.kernels._route import (
     ROUTE, counter, dtype_code, f32, kernel_weight, stream_ptr,
 )
+from mp_hsir_tpu_torch.ops.kernels.mlp import TAIL_MAX_C
+from mp_hsir_tpu_torch.ops.kernels.spectral import dwconv_dx_plan
 from mp_hsir_tpu_torch.ops.window import (
     roll_hw, shifted_region_map, window_partition, window_reverse,
 )
@@ -37,6 +48,9 @@ WS = 8
 # kTcK of csrc/window_attention.cu, which stream the layouts the packs make
 HEAD_WIDTHS = (16, 32, 48, 64, 96, 128)
 K_CHUNK = 64
+# the ring's row stride (kTcLd) and its bytes target (tc_stages)
+TC_LD = K_CHUNK + 8
+RING_BYTES = 40960
 COUNTER = counter("window_attention")
 BWD = counter("window_attention_bwd")
 
@@ -124,11 +138,16 @@ def window_attention_bwd_plain(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_
 
 
 @lru_cache(maxsize=None)
-def _entry(bwd: bool = False):
+def _entry(kind: str = "fwd"):
     import ctypes
 
-    if bwd:
-        return _build.entry("mp_window_attention_bwd", 16, [ctypes.c_int] * 8 + [ctypes.c_float])
+    if kind == "bwd":
+        return _build.entry("mp_window_attention_bwd", 16, [ctypes.c_int] * 7 + [ctypes.c_float])
+    if kind == "bwd_tc":
+        return _build.entry("mp_window_attention_bwd_tc", 15,
+                            [ctypes.c_int] * 7 + [ctypes.c_float])
+    if kind == "dx_tc":
+        return _build.entry("mp_window_attention_dx_tc", 6, [ctypes.c_int] * 6 + [ctypes.c_float])
     return _build.entry("mp_window_attention", 11,
                         [ctypes.c_int] * 8 + [ctypes.c_float])
 
@@ -149,14 +168,15 @@ def _round_k(n: int) -> int:
 def pack_qkv_weight(wqkv: torch.Tensor, num_heads: int, dt: torch.dtype) -> torch.Tensor:
     """(3C, C) torch-Linear qkv weight -> the bf16 kernel's head-major
     [nH][3][DHP][round64(C)] in ``dt``: slab h holds head h's q, k and v rows
-    (rows s*C + h*dh + r of ``wqkv``), zero past dh and past C."""
+    (rows s*C + h*dh + r of ``wqkv``), zero past dh and past C. Any (S C, C)
+    stack of row sections packs the same way, as [nH][S][DHP][round64(C)]."""
     c = wqkv.shape[1]
     dh = c // num_heads
     dhp, kx = head_width(dh), _round_k(c)
-    view = wqkv.reshape(3, num_heads, dh, c).transpose(0, 1)
+    view = wqkv.reshape(-1, num_heads, dh, c).transpose(0, 1)
     if dhp == dh and kx == c:  # one copy: the cast and the permutation together
         return torch.empty(view.shape, dtype=dt, device=wqkv.device).copy_(view)
-    out = torch.zeros((num_heads, 3, dhp, kx), dtype=dt, device=wqkv.device)
+    out = torch.zeros((num_heads, view.shape[1], dhp, kx), dtype=dt, device=wqkv.device)
     out[:, :, :dh, :c] = view
     return out
 
@@ -176,6 +196,34 @@ def pack_proj_weight(wp: torch.Tensor, num_heads: int, dt: torch.dtype) -> torch
     out = torch.zeros((num_heads, dhp, ko), dtype=dt, device=wp.device)
     out[:, :dh, :num_heads * dhp].unflatten(-1, (num_heads, dhp))[..., :dh] = view
     return out
+
+
+def pack_proj_t_weight(wp: torch.Tensor, num_heads: int, dt: torch.dtype) -> torch.Tensor:
+    """(C, C) torch-Linear projection weight -> the bf16 backward's
+    [nH][DHP][round64(C)] in ``dt``: slab h row j holds column h*dh + j of
+    ``wp`` (do = dy Wp reads it as head h's [DHP][C] weight tiles), zero past
+    dh and past C."""
+    return pack_qkv_weight(wp.t(), num_heads, dt)[:, 0]
+
+
+def tc_stages(dhp: int) -> int:
+    """The weight ring's stages at padded head width ``dhp`` (``tc_stages``
+    in csrc/window_attention.cu): about 40 KB of [DHP][72] tiles, 2 to 6, 2
+    at dhp >= 96."""
+    return 2 if dhp >= 96 else min(6, RING_BYTES // (dhp * TC_LD * 2))
+
+
+def window_bwd_tc_plan(c: int, heads: int) -> dict:
+    """The bf16 backward's plans at (C, heads): tile 1's (``window_bwd_tc_smem``
+    in csrc/window_attention.cu: LN(x) and the rounded dy [64][``kx`` + 8],
+    q, k, v, do [64][``dhp`` + 8], rnd(dS) and rnd(A) [64][72], ``stages``
+    [dhp][72] weight tiles; ``bytes`` dynamic) and tile 2's (``dx``:
+    :func:`dwconv_dx_plan` without the stencil at K = 3C)."""
+    dhp, kx = head_width(c // heads), _round_k(c)
+    stages = tc_stages(dhp)
+    nbytes = 2 * (2 * 64 * (kx + 8) + 4 * 64 * (dhp + 8) + 2 * 64 * TC_LD + stages * dhp * TC_LD)
+    return dict(dhp=dhp, kx=kx, stages=stages, bytes=nbytes,
+                dx=dwconv_dx_plan(c, 3 * c, stencil=False))
 
 
 def _prepare(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, eps):
@@ -212,7 +260,59 @@ def _launch(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, eps):
     return out
 
 
+def _bwd_tc_launch(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, eps, dout,
+                   dpool):
+    """The bf16 backward: the two tiles, the two weight products and one
+    in-order sum of the per-window partial rows (dS [nH][64][64] | bp [C] from
+    tile 1, dbqkv [3C] | d ln_w | d ln_b from tile 2)."""
+    b, h, w, c = x.shape
+    dt = x.dtype
+    if c > TAIL_MAX_C:  # tile 2 keeps dxn in registers up to kTailMaxC
+        raise ValueError(f"the bf16 window attention backward takes C up to {TAIL_MAX_C}, "
+                         f"got {c}")
+    what = f"C={c}, heads={num_heads}"
+    _build.check_plan("window_attention_bwd", "mp_window_attention_bwd_tc_smem", what, c,
+                      num_heads)
+    _build.check_plan("window_attention_bwd", "mp_window_attention_dx_tc_smem", what, c)
+    x = x.contiguous()
+    dout, dpool = dout.to(dt).contiguous(), dpool.to(dt).contiguous()
+    wq, wpt = pack_qkv_weight(wqkv, num_heads, dt), pack_proj_t_weight(wp, num_heads, dt)
+    wrows = wqkv.to(dt)
+    if c % 8:  # 16-byte rows for the tile's copies
+        wrows = F.pad(wrows, (0, -c % 8))
+    wrows = wrows.contiguous()
+    lnw, lnb, bq, bias = f32(ln_w), f32(ln_b), f32(bqkv), f32(rel_bias)
+    labels = region_labels(h, w, shift, x.device) if shift else None
+    dev = x.device
+    n_win = b * (h // WS) * (w // WS)
+    nb = num_heads * 64 * 64
+    ldp = nb + 6 * c
+    xn, o, dyt, dx = (torch.empty_like(x) for _ in range(4))
+    dqkv = torch.empty((b, h, w, 3 * c), dtype=dt, device=dev)
+    part = torch.empty((1, n_win, ldp), dtype=torch.float32, device=dev)
+    p = _build.ptr
+    err = _entry("bwd_tc")(x.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), wq.data_ptr(),
+                           bq.data_ptr(), bias.data_ptr(), p(labels), wpt.data_ptr(),
+                           dout.data_ptr(), dpool.data_ptr(), xn.data_ptr(), o.data_ptr(),
+                           dyt.data_ptr(), dqkv.data_ptr(), part.data_ptr(), ldp, b, h, w, c,
+                           num_heads, shift, eps, stream_ptr())
+    _build.check("mp_window_attention_bwd_tc", err)
+    err = _entry("dx_tc")(dqkv.data_ptr(), wrows.data_ptr(), x.data_ptr(), lnw.data_ptr(),
+                          dx.data_ptr(), col_ptr(part[0], nb + c), ldp, b, h, w, c, shift, eps,
+                          stream_ptr())
+    _build.check("mp_window_attention_dx_tc", err)
+    dwqkv = wgrad(xn.reshape(-1, c), dqkv.reshape(-1, 3 * c)).t()
+    dwp = wgrad(o.reshape(-1, c), dyt.reshape(-1, c)).t()
+    sums = sum_parts(part)[0]
+    dbias, dbp, dbqkv, dlnw, dlnb = sums.split([nb, c, 3 * c, c, c])
+    BWD.record(("window_attention_bwd", b, h, w, c, num_heads, shift, str(dt)))
+    return dx, dlnw, dlnb, dwqkv, dbqkv, dbias.reshape(num_heads, 64, 64), dwp, dbp
+
+
 def _bwd_launch(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, eps, dout, dpool):
+    if x.dtype == torch.bfloat16:
+        return _bwd_tc_launch(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, eps,
+                              dout, dpool)
     b, h, w, c = x.shape
     dt = x.dtype
     kc = _build.chunk("mp_window_attention_bwd_chunk", c, num_heads)
@@ -230,11 +330,11 @@ def _bwd_launch(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, e
     pbias = torch.empty((n_win, num_heads * 64 * 64), dtype=torch.float32, device=dev)
     pbp = torch.empty((n_win, c), dtype=torch.float32, device=dev)
     p = _build.ptr
-    err = _entry(True)(x.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), wq.data_ptr(), bq.data_ptr(),
-                       bias.data_ptr(), p(labels), wpk.data_ptr(), dout.data_ptr(),
-                       dpool.data_ptr(), xn.data_ptr(), o.data_ptr(), dyt.data_ptr(),
-                       dqkv.data_ptr(), pbias.data_ptr(), pbp.data_ptr(), dtype_code(x), b, h, w,
-                       c, num_heads, shift, kc, eps, stream_ptr())
+    err = _entry("bwd")(x.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), wq.data_ptr(),
+                        bq.data_ptr(), bias.data_ptr(), p(labels), wpk.data_ptr(), dout.data_ptr(),
+                        dpool.data_ptr(), xn.data_ptr(), o.data_ptr(), dyt.data_ptr(),
+                        dqkv.data_ptr(), pbias.data_ptr(), pbp.data_ptr(), b, h, w, c, num_heads,
+                        shift, kc, eps, stream_ptr())
     _build.check("mp_window_attention_bwd", err)
     dx, (dlnw, dlnb), dbqkv = ln_linear_bwd(dqkv, wq, 0, x, ln_w, shift=shift, eps=eps, bias=True)
     dwqkv = wgrad(xn.reshape(-1, c), dqkv.reshape(-1, 3 * c)).t()

@@ -335,6 +335,10 @@ def test_cuda_remote_sensing_backward_matches_plain(dtype, tol):
         assert 0 < _build.plan_bytes(f"mp_{kernel}_smem", *shape, kc) <= _build.smem_limit(), kernel
     assert 0 < _build.plan_bytes("mp_spectral_stats_bwd_smem", 384, 8) <= _build.smem_limit()
     assert 0 < _build.plan_bytes("mp_mlp_smem", 384, int(dtype == "bfloat16")) <= _build.smem_limit()
+    for c, heads in ((384, 8), (192, 2)):  # the bf16 window backward's two tiles
+        assert 0 < _build.plan_bytes("mp_window_attention_bwd_tc_smem", c, heads) <= \
+            _build.smem_limit()
+        assert 0 < _build.plan_bytes("mp_window_attention_dx_tc_smem", c) <= _build.smem_limit()
 
 
 def _tiny_train(dev, seed=0):
@@ -1057,3 +1061,89 @@ def test_cuda_spectral_stats_bwd_bf16_past_384_raises():
     call = (x, wq, wd, 8, 4, lw, lb, 1e-5, *cots)
     _outputs_close(sp._stats_bwd_launch(*call), sp.spectral_stats_bwd_plain(*call), 1e-4,
                    "float32")
+
+
+# The bf16 window-attention backward (K8): window_attention_bwd_tc_kernel
+# (tile 1) and dwconv_dx_tc_kernel without its stencil (tile 2) at every
+# (C, heads) of both presets' train steps (dh 32, 64, 48, 96) and C = 36 and
+# 27 (dh 18 and 9, padded to 32 and 16; 3C = 108 and 81: element-wise copies
+# and a ragged last chunk), on 3 windows (1x8x24) and 12 (2x16x24: two
+# images, a non-square window grid)
+WINDOW_BWD_WIDTHS = ((64, 2), (128, 4), (256, 8), (128, 2), (96, 2), (192, 4), (384, 8),
+                     (192, 2), (36, 2), (27, 3))
+WINDOW_BWD_CASES = [(c, heads, b, h) for c, heads in WINDOW_BWD_WIDTHS
+                    for b, h in ((1, 8), (2, 16))]
+
+
+def _window_bwd_inputs(c, heads, b, h, w, dev):
+    """(forward operands in the torch layouts, (dout, dpool)), float32."""
+    r = _rng(150 + c + heads + b)
+    f = lambda *s, scale=1.0: _t(_n(r, s, scale)).to(dev)  # noqa: E731
+    return ((f(b, h, w, c), 1 + f(c, scale=0.1), f(c, scale=0.1), f(3 * c, c, scale=c ** -0.5),
+             f(3 * c, scale=0.1), f(heads, 64, 64, scale=0.02), f(c, c, scale=c ** -0.5),
+             f(c, scale=0.1)), (f(b, h, w, c), f(b, h // 8, w // 8, c)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads,b,h", WINDOW_BWD_CASES)
+def test_cuda_window_attention_bwd_tiles_match_plain(c, heads, b, h, monkeypatch):
+    """The window-attention backward on the card against
+    window_attention_bwd_plain, every output, unshifted and shifted: bf16 (the
+    two tiles, two wgrads, one sum_parts) within 3e-2 and float32
+    (mp_window_attention_bwd + ln_linear_bwd, SIMT) within 1e-4 of each
+    output's max-abs (the bounds of test_cuda_remote_sensing_backward_matches_
+    plain). One counted launch per call; the bf16 route launches each tile
+    once and no mp_window_attention_bwd or ln_linear_bwd; two bf16 calls give
+    bitwise the same outputs (no float atomics). Both tiles' plans within the
+    device's limit, each at least its mirror's dynamic bytes and at most 1 KB
+    of static more."""
+    from mp_hsir_tpu_torch.ops.kernels import _build, window_attention as wa
+
+    dev = _cuda()
+    fwd, (dout, dpool) = _window_bwd_inputs(c, heads, b, h, 24, dev)
+    calls = []
+    fn = wa.ln_linear_bwd
+    monkeypatch.setattr(wa, "ln_linear_bwd",
+                        lambda *a, **k: calls.append("ln_linear_bwd") or fn(*a, **k))
+    get = wa._entry
+
+    def counted(kind="fwd"):
+        entry = get(kind)
+        return lambda *a: calls.append(entry.__name__) or entry(*a)
+
+    monkeypatch.setattr(wa, "_entry", counted)
+    for dt, tol in ((torch.bfloat16, 3e-2), (torch.float32, 1e-4)):
+        bf16 = dt == torch.bfloat16
+        for shift in (0, 4):
+            call = (fwd[0].to(dt), *fwd[1:], heads, shift, 1e-5, dout.to(dt), dpool.to(dt))
+            what = f"{dt} shift={shift}"
+            _route.reset_counters()
+            calls.clear()
+            got = wa._bwd_launch(*call)
+            assert _route.COUNTERS["window_attention_bwd"].launches == 1, what
+            assert calls == (["mp_window_attention_bwd_tc", "mp_window_attention_dx_tc"] if bf16
+                             else ["mp_window_attention_bwd", "ln_linear_bwd"]), (what, calls)
+            _outputs_close(got, wa.window_attention_bwd_plain(*call), tol, what)
+            if bf16:
+                again = wa._bwd_launch(*call)
+                assert all(torch.equal(a, r) for a, r in zip(got, again)), what
+    pl, limit = wa.window_bwd_tc_plan(c, heads), _build.smem_limit()
+    n1 = _build.plan_bytes("mp_window_attention_bwd_tc_smem", c, heads)
+    n2 = _build.plan_bytes("mp_window_attention_dx_tc_smem", c)
+    assert pl["bytes"] <= n1 <= min(pl["bytes"] + 1024, limit), n1
+    assert pl["dx"]["bytes"] <= n2 <= min(pl["dx"]["bytes"] + 1024, limit), n2
+
+
+@pytest.mark.cuda
+def test_cuda_window_attention_bwd_bf16_past_384_raises():
+    """The bf16 window backward takes C up to 384 and raises above it (no
+    fallback); float32 runs its SIMT kernel."""
+    from mp_hsir_tpu_torch.ops.kernels import window_attention as wa
+
+    dev = _cuda()
+    fwd, (dout, dpool) = _window_bwd_inputs(400, 8, 1, 8, 8, dev)
+    with pytest.raises(ValueError, match="C up to 384"):
+        wa._bwd_launch(fwd[0].to(torch.bfloat16), *fwd[1:], 8, 0, 1e-5,
+                       dout.to(torch.bfloat16), dpool.to(torch.bfloat16))
+    call = (*fwd, 8, 0, 1e-5, dout, dpool)
+    _outputs_close(wa._bwd_launch(*call), wa.window_attention_bwd_plain(*call), 1e-4, "float32")
