@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of MP-HSIR on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--out results.json] [--bwd-split KERNEL] [--mlp-bwd-split]
+    python3 chip_smoke.py [--out results.json] [--bwd-split KERNEL] [--mlp-bwd-split] [--wgrad]
 
 Phases (any failure exits non-zero; no phase's error is caught):
 
@@ -15,7 +15,9 @@ Phases (any failure exits non-zero; no phase's error is caught):
    the presets' train steps beside the float32 backward's, and the bf16
    spectral stats and window-attention backwards' two tiles each (their
    registers and spills, their plan bytes at every (C, heads) of the
-   presets' train steps beside the float32 kernel's).
+   presets' train steps beside the float32 kernel's), and the registers and
+   spills of the bf16 weight product's 16 instances (copy widths of A and
+   B) beside dwconv_dx_tc_kernel<true>'s guard (<= 128 registers, no spills).
 2. Kernel checks: every kernel wrapper on the card at each shape the
    flagship 512x512x31 eval forward gives it, in bf16 from numpy-seeded
    inputs, against its plain PyTorch version on the same inputs; also once
@@ -57,14 +59,20 @@ Phases (any failure exits non-zero; no phase's error is caught):
    option, the eval kernels at the step's shapes), float32 and bf16, against
    the plain forward or the explicit plain backward on the same inputs
    (same tolerances as phase 2); times and bounds per call, and the
-   resident forward calls streamed as in phase 2. Each mlp_bwd,
-   spectral_stats_bwd and window_attention_bwd call is also split into its
-   stages (each C entry its wrapper calls, timed with CUDA events, the host
-   queued ahead of the device; mlp_bwd's as the tile, the dW1 and dW2
-   weight products and the partial sums, the others' by C entry name,
-   window_attention_bwd's two mp_wgrad calls told apart as dWqkv and dWp),
-   whose sum is the backward alone; the stages per step follow phase 6 (and
-   phase 12 for phase 11's calls).
+   resident forward calls streamed as in phase 2. Each backward call is
+   also split into its stages (each C entry its wrapper calls, timed with
+   CUDA events, the host queued ahead of the device; mlp_bwd's as the tile,
+   the dW1 and dW2 weight products and the partial sums, the others' by C
+   entry name, the two mp_wgrad calls of window_attention_bwd,
+   spectral_apply_bwd and gdfn_bwd told apart as dWqkv / dWp, dWv / dcomb
+   and dW_in / dW_out), whose sum is the backward alone; the stages per step,
+   and their mp_wgrad stages summed, follow phase 6 (and phase 12 for phase
+   11's calls). Then the wgrad phase: every weight product (nb, P, M, N)
+   of the step, on seeded inputs made on the card, bf16 and float32 against
+   wgrad_plain (TF32 off) within 1e-4 of the plain product's max-abs, two
+   bf16 calls bitwise equal; ms through the wrapper and alone, TFLOP/s, the
+   bound, the plain version's ms and torch.bmm's (float32 output; the bf16
+   torch.matmul where bmm takes no out_dtype), per call and per step.
 6. Training main path: the flagship preset in training mode (batch 32 of
    64x64 patches cut from the quality cube, Gaussian noise, task 0) from the
    committed weights. The float32 step's parameter gradients on the kernel
@@ -108,7 +116,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
     with 8 heads: the backward kernels' channel-chunked plans), bf16 and
     float32, against the plain forward or the explicit plain backward (phase
     2's tolerances); each call's plan bytes and channel chunk, time and
-    bound; the largest plan against the device's opt-in limit.
+    bound; the largest plan against the device's opt-in limit; then the
+    wgrad phase of phase 5 at this step's signatures.
 12. Remote-sensing train step: the preset in training mode at full width on
     seeded random weights (text-query LN biases drawn), float32 parameter
     gradients against the plain step as in phase 6 at batch 8, then 11 bf16
@@ -119,12 +128,13 @@ Phases (any failure exits non-zero; no phase's error is caught):
 13. The kernel summary line (each kernel's main-path numbers, and its
     remote-sensing train-step numbers beside them), then the result line.
 
---bwd-split KERNEL (mlp_bwd, spectral_stats_bwd or window_attention_bwd;
-repeatable) runs phase
-1's build and only that kernel's stage split, at both presets' train-step
-shapes: the same measurement for another checkout of the package (this
-file copied to its root and run there); --mlp-bwd-split is --bwd-split
-mlp_bwd.
+--bwd-split KERNEL (mlp_bwd, spectral_stats_bwd, window_attention_bwd,
+spectral_apply_bwd or gdfn_bwd; repeatable) runs phase 1's build and only
+that kernel's stage split, at both presets' train-step shapes, and the sum
+of the named kernels' mp_wgrad stages: the same measurement for another
+checkout of the package (this file copied to its root and run there);
+--mlp-bwd-split is --bwd-split mlp_bwd. --wgrad runs phase 1 and only the
+wgrad phase, at both presets' train-step signatures.
 """
 
 from __future__ import annotations
@@ -208,7 +218,18 @@ TRAIN_KERNELS = {
                                replaces="mp_hsir_tpu/ops/pallas_vjp.py:1758"),
     "gdfn_bwd": dict(source="mp_hsir_tpu_torch/csrc/gdfn.cu", tpu=["K11"],
                      replaces="mp_hsir_tpu/ops/pallas_vjp.py:471"),
+    # the weight products of the five backward kernels: the float32 weight
+    # accumulators their TPU kernels carry across the grid (_mlp_bwd_kernel
+    # :124, _gdfn_bwd_kernel :342, _win_bwd_kernel :539, _sp0_bwd_kernel
+    # :1443, _sp1_bwd_kernel :1501); its time lies inside theirs
+    "wgrad": dict(source="mp_hsir_tpu_torch/csrc/grad.cu", tpu=["K9", "K11", "K8", "K10a", "K10b"],
+                  replaces="mp_hsir_tpu/ops/pallas_vjp.py:124"),
 }
+# kernels whose time lies inside other kernels' (left out of the step's sum)
+INSIDE = ("wgrad",)
+# wgrad against wgrad_plain, both dtypes: float32 sums of the same products
+# (bf16 products are exact in float32) in other orders
+WGRAD_TOL = F32_TOL
 
 
 def log(msg: str) -> None:
@@ -984,7 +1005,29 @@ def train_path_specs(cfg, b: int, size: int, dt: str) -> Counter:
         specs[("conv3", b, h, w, cin, cout, mode, dt)] += 1
         if i:
             specs[("conv3", b, h, w, cout, cin, "plain", dt)] += 1
+    for spec, k in list(specs.items()):
+        for call in wgrad_calls(spec):
+            specs[("wgrad",) + call + (dt,)] += k
     return specs
+
+
+def wgrad_calls(spec) -> list:
+    """The wgrad calls (nb, P, M, N) of one backward kernel call, in its
+    order: mlp_bwd and gdfn_bwd dW1 / dW_in (C, 2 hid) then dW2 / dW_out
+    (hid, C); window_attention_bwd dWqkv (C, 3C) then dWp (C, C);
+    spectral_stats_bwd dWqk (C, 2C); spectral_apply_bwd dWv (C, C) then
+    dcomb per image."""
+    name, b, h, w, c = spec[:5]
+    p = b * h * w
+    if name in ("mlp_bwd", "gdfn_bwd"):
+        return [(1, p, c, 2 * spec[5]), (1, p, spec[5], c)]
+    if name == "window_attention_bwd":
+        return [(1, p, c, 3 * c), (1, p, c, c)]
+    if name == "spectral_stats_bwd":
+        return [(1, p, c, 2 * c)]
+    if name == "spectral_apply_bwd":
+        return [(1, p, c, c), (b, h * w, c, c)]
+    return []
 
 
 def make_bwd_call(spec, dev, dt):
@@ -1099,11 +1142,14 @@ MLP_BWD_STAGES = ("tile", "wgrad_dw1", "wgrad_dw2", "sums")
 # the backward kernels split into stages: the module whose ctypes entry
 # getter the wrapper calls (grad.cu's getter is timed too)
 BWD_SPLIT = {"mlp_bwd": ("mlp", "_entry"), "spectral_stats_bwd": ("spectral", "_stats_entry"),
-             "window_attention_bwd": ("window_attention", "_entry")}
+             "window_attention_bwd": ("window_attention", "_entry"),
+             "spectral_apply_bwd": ("spectral", "_apply_entry"), "gdfn_bwd": ("gdfn", "_entry")}
 # the kernels whose backward calls mp_wgrad twice: the two calls' stage keys
 # (each call's first, then its second)
 WGRAD_STAGES = {"mlp_bwd": MLP_BWD_STAGES[1:3],
-                "window_attention_bwd": ("mp_wgrad dWqkv", "mp_wgrad dWp")}
+                "window_attention_bwd": ("mp_wgrad dWqkv", "mp_wgrad dWp"),
+                "spectral_apply_bwd": ("mp_wgrad dWv", "mp_wgrad dcomb"),
+                "gdfn_bwd": ("mp_wgrad dW_in", "mp_wgrad dW_out")}
 
 
 def bwd_split(name: str, kern, flops: float, ms: float, reps: int = 5) -> dict:
@@ -1115,9 +1161,11 @@ def bwd_split(name: str, kern, flops: float, ms: float, reps: int = 5) -> dict:
     mp_mlp_bwd and mp_ln_linear_bwd with its part sums), ``wgrad_dw1`` and
     ``wgrad_dw2`` (a call's first and second mp_wgrad, with their part sums)
     and ``sums`` (mp_sum_parts); the other kernels' are keyed by C entry name
-    (a grad.cu entry with its own part sums; window_attention_bwd's two
-    mp_wgrad calls as ``mp_wgrad dWqkv`` and ``mp_wgrad dWp``), so that the
-    same script splits the trees before and after a redesign. Their sum is the backward alone
+    (a grad.cu entry with its own part sums; the two mp_wgrad calls of
+    window_attention_bwd as ``mp_wgrad dWqkv`` and ``mp_wgrad dWp``, of
+    spectral_apply_bwd as ``mp_wgrad dWv`` and ``mp_wgrad dcomb``, of gdfn_bwd
+    as ``mp_wgrad dW_in`` and ``mp_wgrad dW_out``), so that the same script
+    splits the trees before and after a redesign. Their sum is the backward alone
     (``kernel_ms``), without the wrapper's host time and weight packing;
     rates are flops over the wrapper's and that time."""
     from mp_hsir_tpu_torch.ops.kernels import _grad
@@ -1177,11 +1225,21 @@ def log_bwd_split(name: str, what: str, rows, per: str) -> dict:
     keys = list(dict.fromkeys(k for r in mine for k in r["split"]))
     out = {k: sum(r["split"].get(k, 0.0) * r[per] for r in mine) for k in keys}
     out.update(alone_ms=sum(r["kernel_ms"] * r[per] for r in mine),
-               wrapper_ms=sum(r["ms"] * r[per] for r in mine), calls=sum(r[per] for r in mine))
+               wrapper_ms=sum(r["ms"] * r[per] for r in mine), calls=sum(r[per] for r in mine),
+               wgrad_ms=sum(out[k] for k in keys if "wgrad" in k))
     log(f"  {name} stages {what}: " + " + ".join(f"{k} {out[k]:.3f}" for k in keys)
         + f" = alone {out['alone_ms']:.3f} ms; wrapper {out['wrapper_ms']:.3f} ms "
         f"({out['calls']} calls)")
     return out
+
+
+def log_wgrad_stages(what: str, splits: dict) -> float:
+    """The mp_wgrad stages of the split backward kernels, summed: wgrad's
+    device time inside a step's backward (the same sum for any checkout)."""
+    tot = sum(v["wgrad_ms"] for v in splits.values())
+    log(f"  mp_wgrad inside the backward kernels {what}: {tot:.3f} ms ("
+        + ", ".join(f"{k} {v['wgrad_ms']:.3f}" for k, v in splits.items()) + ")")
+    return tot
 
 
 def train_kernel_checks(specs: Counter, dev, streamed: bool = True) -> list:
@@ -1196,6 +1254,8 @@ def train_kernel_checks(specs: Counter, dev, streamed: bool = True) -> list:
     rows = []
     for spec in sorted(specs, key=str):
         mult, name = specs[spec], spec[0]
+        if name == "wgrad":  # wgrad_checks
+            continue
         f32spec = spec[:-1] + ("torch.float32",)
         library = None
         if name.endswith("_bwd"):
@@ -1239,6 +1299,97 @@ def train_kernel_checks(specs: Counter, dev, streamed: bool = True) -> list:
             + log_plan(plan)
             + log_streamed_call(st) + log_tflops(rows[-1]) + log_split(rows[-1]))
         torch.cuda.empty_cache()
+    return rows
+
+
+def wgrad_library(a, b):
+    """(call, name): one PyTorch call of wgrad's function on the same inputs,
+    torch.bmm(a^T, b) with a float32 output (cuBLAS); where this torch's bmm
+    takes no out_dtype, the bf16 product torch.matmul(a^T, b), named so."""
+    try:
+        torch.bmm(a[:1, :16].mT, b[:1, :16], out_dtype=torch.float32)
+        return (lambda: torch.bmm(a.mT, b, out_dtype=torch.float32),
+                "torch.bmm(out_dtype=float32)")
+    except (TypeError, RuntimeError, NotImplementedError):
+        return lambda: torch.matmul(a.mT, b), "torch.matmul in bf16 (bmm has no out_dtype here)"
+
+
+def wgrad_alone_ms(a, b) -> float:
+    """The C entry mp_wgrad alone on (a, b): its partials and output allocated
+    once, launched directly (without the wrapper's allocations and Python)."""
+    from mp_hsir_tpu_torch.ops.kernels import _build, _grad
+    from mp_hsir_tpu_torch.ops.kernels._route import dtype_code, stream_ptr
+
+    nb, p, m = a.shape
+    n = b.shape[-1]
+    n_parts, _ = _grad.wgrad_plan(nb, p, m, n, a.dtype == torch.bfloat16)
+    f32 = dict(dtype=torch.float32, device=a.device)
+    part = torch.empty((nb, n_parts, m, n), **f32) if n_parts > 1 else None
+    out = torch.empty((nb, m, n), **f32)
+    launch = [a.data_ptr(), b.data_ptr(), _build.ptr(part), out.data_ptr(), dtype_code(a), nb, p,
+              m, n, n_parts, stream_ptr()]
+    entry = _grad._entry("mp_wgrad")
+    _build.check("mp_wgrad", entry(*launch))
+    return time_ms(lambda: entry(*launch), 20)
+
+
+def wgrad_checks(specs: Counter, dev, what: str) -> list:
+    """Every wgrad signature (nb, P, M, N) of a train step, on seeded normal
+    inputs made on the card: the kernel against wgrad_plain (TF32 off) in
+    bf16 and in float32, within WGRAD_TOL of the plain product's max-abs;
+    two bf16 calls bitwise equal; the library call held to the plain product
+    (BF16_TOL). Per signature: ms through the wrapper and alone (CUDA
+    events), TFLOP/s, the bound max(bytes / 3.35 TB/s, flops / 989 TFLOP/s)
+    with the operands read once and the float32 output written once, the
+    plain version's and the library call's ms; then the sums per step."""
+    from mp_hsir_tpu_torch.ops.kernels import _build
+    from mp_hsir_tpu_torch.ops.kernels._grad import wgrad, wgrad_plain, wgrad_plan
+
+    rows, lib_name = [], ""
+    smem = _build.plan_bytes("mp_wgrad_tc_smem")
+    for spec in sorted((s for s in specs if s[0] == "wgrad"), key=str):
+        _, nb, p, m, n, _ = spec
+        gen = torch.Generator(device=dev).manual_seed(zlib.crc32(repr(spec[:-1]).encode()))
+        a32 = torch.randn((nb, p, m), generator=gen, device=dev)
+        b32 = torch.randn((nb, p, n), generator=gen, device=dev)
+        a, b = a32.bfloat16(), b32.bfloat16()
+        err, rel = compare_pair(lambda: (wgrad(a, b),), lambda: (wgrad(a, b),), WGRAD_TOL)
+        err32, rel32 = compare_pair(lambda: (wgrad(a32, b32),), lambda: (wgrad(a32, b32),),
+                                    WGRAD_TOL)
+        del a32, b32
+        if not torch.equal(wgrad(a, b), wgrad(a, b)):
+            fail(f"wgrad {spec[1:-1]}: two bf16 calls differ")
+        ms, kms = time_ms(lambda: wgrad(a, b), 10), wgrad_alone_ms(a, b)
+        plain_ms = time_ms(lambda: wgrad_plain(a, b), 3)
+        library, lib_name = wgrad_library(a, b)
+        compare_library(library, wgrad, (a, b), {})
+        lib_ms = time_ms(library, 10)
+        byts, flops = nb * p * (m + n) * 2 + nb * m * n * 4, 2 * nb * p * m * n
+        bound_ms = max(byts / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+        rows.append(dict(spec=list(spec), per_step=specs[spec], max_abs_err=err, rel_err=rel,
+                         max_abs_err_f32=err32, rel_err_f32=rel32, ms=ms, kernel_ms=kms,
+                         plain_ms=plain_ms, library_ms=lib_ms, library=lib_name,
+                         bound_ms=bound_ms, bytes=byts, flops=flops,
+                         bound_by="bytes" if byts / HBM_BYTES_PER_S >= flops / BF16_FLOPS
+                         else "operations", n_parts=wgrad_plan(nb, p, m, n)[0],
+                         smem=smem, smem_whole=smem, kc=None, streamed=None,
+                         tflops=flops / ms / 1e9, kernel_tflops=flops / kms / 1e9,
+                         library_tflops=flops / lib_ms / 1e9))
+        log(f"  wgrad {str(spec[1:-1]):28s} x{specs[spec]:<2d} parts {rows[-1]['n_parts']:<3d} "
+            f"err rel {rel:.1e} (f32 {rel32:.1e}, bound {WGRAD_TOL})  {ms:7.4f} ms  alone "
+            f"{kms:7.4f} ({flops / kms / 1e9:5.1f} TFLOP/s)  plain {plain_ms:7.4f}  lib "
+            f"{lib_ms:7.4f} ({flops / lib_ms / 1e9:5.1f})  bound {bound_ms:.4f} "
+            f"({rows[-1]['bound_by']})")
+        del a, b
+        torch.cuda.empty_cache()
+    tot = lambda k: sum(r[k] * r["per_step"] for r in rows)  # noqa: E731
+    tf = tot("flops") / 1e9
+    log(f"  wgrad per {what} train step ({sum(r['per_step'] for r in rows)} calls, "
+        f"{tf:.1f} GFLOP, {tot('bytes') / 1e9:.2f} GB): wrapper {tot('ms'):.3f} ms "
+        f"({tf / tot('ms'):.1f} TFLOP/s), alone {tot('kernel_ms'):.3f} ({tf / tot('kernel_ms'):.1f}), "
+        f"bound {tot('bound_ms'):.4f}, plain {tot('plain_ms'):.3f}, library {tot('library_ms'):.3f} "
+        f"({tf / tot('library_ms'):.1f}; {lib_name}); alone / library "
+        f"{tot('kernel_ms') / tot('library_ms'):.2f}")
     return rows
 
 
@@ -1570,7 +1721,8 @@ def log_kernel_ms(what: str, summary: list, calls_key: str, total_ms: float) -> 
         lib = "-" if k["library_ms"] is None else f"{k['library_ms']:.2f}"
         log(f"    {k['name']:22s} {k['ms']:8.2f}  plain {k['plain_ms']:8.2f}  bound "
             f"{k['bound_ms']:.4f} ({k['bound_by']})  library {lib}  calls {k[calls_key]}")
-    log(f"    sum {sum(k['ms'] for k in summary):.2f} of the median's {total_ms:.2f} ms")
+    log(f"    sum {sum(k['ms'] for k in summary if k['name'] not in INSIDE):.2f} of the "
+        f"median's {total_ms:.2f} ms ({', '.join(INSIDE)} inside the others, not added)")
 
 
 def log_streamed_call(st) -> str:
@@ -1757,10 +1909,36 @@ def split_only(dev, cfgs, out: str, names) -> None:
                 torch.cuda.empty_cache()
             res[f"{name} {what}"] = dict(rows=rows, per_step=log_bwd_split(
                 name, f"per {what} train step", rows, "per_step"))
+    for what in ("flagship", "remote sensing"):
+        res[f"wgrad {what}"] = log_wgrad_stages(f"per {what} train step", {
+            name: res[f"{name} {what}"]["per_step"] for name in names})
     if out:
         os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
         with open(out, "w") as fh:
             json.dump(res, fh, indent=1)
+
+
+def log_wgrad_ptxas() -> dict:
+    """The bf16 weight product's shared-memory plan and the registers and
+    spills of its instances (copy widths VA x VB), and the guard of the
+    headers' shared helpers: the stencil tile dwconv_dx_tc_kernel<true> at
+    128 registers or fewer with no spills."""
+    from mp_hsir_tpu_torch.ops.kernels import _build
+
+    regs = {f"wgrad_tc<{va},{vb}>": ptxas_report(f"wgrad_tc_kernelILi{va}ELi{vb}E")
+            for va in (8, 4, 2, 1) for vb in (8, 4, 2, 1)}
+    smem = _build.plan_bytes("mp_wgrad_tc_smem")
+    log(f"  bf16 wgrad plan: {smem} B of dynamic shared memory per block (two blocks per SM); "
+        "instances (ptxas): " + ", ".join(
+        f"{k} {v.get('registers', '?')} regs, spills {v.get('spill_stores', '?')}/"
+        f"{v.get('spill_loads', '?')} B" for k, v in regs.items()))
+    guard = ptxas_report("dwconv_dx_tc_kernelILb1E")
+    held = None  # no report: the library was built by an earlier process
+    if guard:
+        held = guard.get("registers", 999) <= 128 and not guard.get("spill_stores", 1)
+    verdict = {None: "no ptxas report in this process", True: "holds", False: "BROKEN"}[held]
+    log(f"  dwconv_dx_tc_kernel<true>: {guard} ({verdict}: <= 128 registers, no spills)")
+    return dict(wgrad=regs, wgrad_smem=smem, dwconv_dx_true=guard, guard_holds=held)
 
 
 def main() -> None:
@@ -1770,6 +1948,8 @@ def main() -> None:
                     metavar="KERNEL", help="only time this backward kernel's stages at the train "
                     f"steps' shapes (one of {', '.join(sorted(BWD_SPLIT))}; repeatable)")
     ap.add_argument("--mlp-bwd-split", action="store_true", help="the same as --bwd-split mlp_bwd")
+    ap.add_argument("--wgrad", action="store_true", help="only the wgrad checks at both train "
+                    "steps' signatures (after the build)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs an NVIDIA GPU")
@@ -1806,6 +1986,22 @@ def main() -> None:
         split_only(dev, preset_cfgs, args.out, list(dict.fromkeys(splits)))
         log(f"== done in {time.perf_counter() - t_start:.1f} s")
         return
+    wgrad_ptxas = log_wgrad_ptxas()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    if args.wgrad:
+        res = {}
+        for c_, what in zip(preset_cfgs, ("flagship", "remote sensing")):
+            log(f"== wgrad: every weight product of the {what} train step")
+            res[what] = wgrad_checks(train_path_specs(c_, TRAIN_BATCH, TRAIN_SIZE,
+                                                      "torch.bfloat16"), dev, what)
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "w") as fh:
+                json.dump(dict(card=card, ptxas=wgrad_ptxas, **res), fh, indent=1)
+        log(f"== done in {time.perf_counter() - t_start:.1f} s")
+        return
     front_plans = log_front_plans(_build)
     stats_plans = log_stats_plans(_build, preset_cfgs)
     gdfn_plans = log_gdfn_plans(_build, preset_cfgs)
@@ -1816,9 +2012,6 @@ def main() -> None:
     specs = path_specs(cfg, SIZE, "torch.bfloat16")
 
     log("== phase 2: kernels against their plain versions (bf16, path shapes)")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
     rows = kernel_checks(specs, dev)
     streamed = dict(eval=log_streamed("per flagship forward", rows, "per_forward"))
     log_alone_sums("per flagship forward", rows, "per_forward")
@@ -1838,6 +2031,8 @@ def main() -> None:
     tspecs = train_path_specs(cfg, TRAIN_BATCH, TRAIN_SIZE, "torch.bfloat16")
     log("== phase 5: training kernels against their plain versions (bf16 and f32, step shapes)")
     train_rows = train_kernel_checks(tspecs, dev)
+    log("== phase 5 (wgrad): every weight product of the flagship train step against wgrad_plain")
+    train_rows += wgrad_checks(tspecs, dev, "flagship")
 
     log("== phase 6: training main path, flagship bf16 train steps from the trained weights")
     train_res = train_path(dev, tspecs)
@@ -1853,6 +2048,8 @@ def main() -> None:
     for name in BWD_SPLIT:
         train_res[f"{name}_stages_per_step"] = log_bwd_split(name, "per train step", train_rows,
                                                               "per_step")
+    train_res["wgrad_stages_ms_per_step"] = log_wgrad_stages("per train step", {
+        name: train_res[f"{name}_stages_per_step"] for name in BWD_SPLIT})
     torch.cuda.empty_cache()
 
     rs_cfg = remote_sensing_config(compute_dtype="bfloat16")
@@ -1892,6 +2089,9 @@ def main() -> None:
         f"f32, batch {TRAIN_BATCH} x {TRAIN_SIZE}^2 step shapes)")
     rs_train_rows = train_kernel_checks(rs_tspecs, dev, streamed=False)
     log_alone_sums("per remote-sensing train step", rs_train_rows, "per_step")
+    log("== phase 11 (wgrad): every weight product of the remote-sensing train step against "
+        "wgrad_plain")
+    rs_train_rows += wgrad_checks(rs_tspecs, dev, "remote sensing")
     worst = max(rs_train_rows, key=lambda r: r["smem"])
     log(f"  shared memory: the device's opt-in limit {limit} B per block; largest plan "
         f"{worst['smem']} B ({worst['spec'][0]} {worst['spec'][1:-1]})")
@@ -1910,6 +2110,8 @@ def main() -> None:
     for name in BWD_SPLIT:
         rs_train[f"{name}_stages_per_step"] = log_bwd_split(
             name, "per remote-sensing train step", rs_train_rows, "per_step")
+    rs_train["wgrad_stages_ms_per_step"] = log_wgrad_stages("per remote-sensing train step", {
+        name: rs_train[f"{name}_stages_per_step"] for name in BWD_SPLIT})
 
     summary = summarize(rows, main_res["launches"], KERNELS, "per_forward")
     summary += summarize([r for r in train_rows if r["spec"][0] in TRAIN_KERNELS],
@@ -1933,7 +2135,7 @@ def main() -> None:
                            front_plans=front_plans, stats_plans=stats_plans,
                            gdfn_plans=gdfn_plans, mlp_bwd_plans=mlp_bwd_plans,
                            stats_bwd_plans=stats_bwd_plans,
-                           window_bwd_plans=window_bwd_plans,
+                           window_bwd_plans=window_bwd_plans, wgrad_ptxas=wgrad_ptxas,
                            seconds=time.perf_counter() - t_start), fh, indent=1)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card)

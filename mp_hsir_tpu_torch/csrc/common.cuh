@@ -7,7 +7,8 @@
 // The exceptions stage their bf16 operands as bf16 with cp.async and feed
 // mma.sync by ldmatrix: conv3 (an implicit GEMM over 16x16-pixel tiles), the
 // bf16 window forward and backward (window_attention.cu), the bf16 PGSSTB tail MLP
-// (mlp_tail.cuh) and the bf16 spectral apply front (spectral_front.cuh).
+// (mlp_tail.cuh), the bf16 spectral apply front (spectral_front.cuh), the
+// bf16 backward tiles, and the bf16 weight product (grad.cu wgrad_tc_kernel).
 // wgmma and TMA are later work; see PERF.md for the gap to each bound.
 #pragma once
 
@@ -134,6 +135,19 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // src_bytes = 0 reads nothing and fills the 16 bytes with zeros.
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+// 8- and 4-byte asynchronous copies (cp.async.cg takes 16 bytes only), for
+// operands whose rows are not a whole number of 16-byte vectors; dst and
+// src aligned to the copy's size, src_bytes = 0 fills with zeros.
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
                "r"(src_bytes)
                : "memory");
 }

@@ -4,9 +4,11 @@
 // launches finish the backward from them:
 //
 //   mp_wgrad          weight cotangents, out[b][m][n] = sum_p A[b][p][m] B[b][p][n]:
-//                     each block sums a fixed pixel range of a 64x64 output
-//                     tile into its own partial, then the partials are added
-//                     in a fixed order (deterministic, no float atomics).
+//                     each block sums a fixed pixel range of an output tile
+//                     (bf16: 128x128 on the tensor cores, wgrad_tc_kernel;
+//                     float32: 64x64, SIMT) into its own partial, then the
+//                     partials are added in a fixed order (deterministic, no
+//                     float atomics).
 //   mp_dwconv_bwd     3x3 depthwise conv backward: dt = the transposed stencil
 //                     of dout (zero padding), per-tile tap-weight partials.
 //   mp_ln_linear_bwd  dxn = d W^T through a 1x1 (Linear) layer, then the
@@ -21,8 +23,9 @@
 // (mp_hsir_tpu/ops/pallas_vjp.py _mlp_bwd_kernel :124, _gdfn_bwd_kernel :342,
 // _win_bwd_kernel :539, _sp0_bwd_kernel :1443, _sp1_bwd_kernel :1501), which
 // carry weight sums across a sequential grid; Hopper blocks run in no order.
-// Bound: the weight products are 2*P*M*N flops over P*(M+N) elements read;
-// tensor-core rate at these widths. bf16 runs on mma.sync (common.cuh gemm).
+// Bound: the weight products are 2*P*M*N flops over P*(M+N) elements read,
+// ~50 flops a byte at the flagship's widths: the bytes bound them, and a
+// bf16 product has to run at ~200 TFLOP/s to reach that bound.
 #include "common.cuh"
 
 namespace mp {
@@ -65,6 +68,173 @@ wgrad_kernel(const T* __restrict__ A, const T* __restrict__ Bm, int P, int M, in
     const int i = idx / kWN, j = idx - i * kWN;
     if (m0 + i < M && n0 + j < N) o[(size_t)(m0 + i) * N + n0 + j] = acc[i][j];
   }
+}
+
+// The bf16 weight product on the tensor cores. Each 256-thread block owns a
+// kWT x kWT tile of out (rows of A's width, columns of B's) and one part's
+// pixel range; the depth of the product is pixels. Both operands are
+// [pixel][channel] rows in device memory and stage as bf16 [kWP][kWT + 8]
+// tiles (272-byte rows: 16-byte aligned, ldmatrix rows conflict-free) through
+// a kWS-stage ring; A is the [m][k] operand stored [k][m] and B the [k][n]
+// operand, so both are read by ldmatrix.trans into mma.sync m16n8k16, float32
+// sums in registers. The 8 warps own 64x32 sub-tiles (2 x 4); a warp whose
+// sub-tile starts past M or N skips the products (the rows and columns past
+// them in a live sub-tile are zeros, never stored), and where a tile holds
+// at most 64 live rows (or columns) the live warps are 0-3, one on each of
+// the SM's four tensor cores. Per 16 pixels a warp loads all six fragments
+// (two of B, four of A) before its 16 products, so that one shared-memory
+// latency is exposed, not one per fragment. A block writes its partial once
+// (out itself when there is one part); one sum_parts adds the parts in order.
+//
+// Copies: per operand the widest its row width and base pointer allow,
+// V elements each (8: 16-byte cp.async.cg, 4 / 2: 8 / 4-byte cp.async.ca;
+// 1: two 2-byte loads into registers while the previous stage is multiplied,
+// then one 4-byte st.shared). Columns past the width and pixels past the
+// part's end read as zeros. M <= 128 sits in one row of tiles, so the wide
+// operand B is read from device memory once and A once per 128 columns.
+constexpr int kWT = 128, kWP = 32, kWS = 4, kWLd = kWT + 8, kWTcThreads = 256;
+constexpr int kWStage = kWP * kWLd;  // bf16 elements of one operand's stage
+constexpr size_t kWgradTcSmem = sizeof(__nv_bfloat16) * 2 * kWS * kWStage;  // 69,632 B
+
+// The kWP x kWT tile of X ([P][width]) at pixel p0 and column c0 into s: the
+// cp.async copies (V >= 2), or the loads into held (V == 1, stored by
+// wg_store after the current stage's product).
+template <int V>
+__device__ __forceinline__ void wg_issue(const __nv_bfloat16* __restrict__ X, int width, int p0,
+                                         int p_end, int c0, __nv_bfloat16* s, uint32_t* held) {
+  constexpr int kE = V >= 2 ? V : 2;  // elements per unit
+  constexpr int kRow = kWT / kE, kPer = kWP * kRow / kWTcThreads;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int u = threadIdx.x + i * kWTcThreads;
+    const int r = u / kRow, c = (u - r * kRow) * kE;
+    const int p = p0 + r, col = c0 + c;
+    if constexpr (V >= 2) {
+      const bool ok = p < p_end && col < width;
+      const __nv_bfloat16* src = ok ? X + (size_t)p * width + col : X;
+      const uint32_t dst = smem_u32(s + r * kWLd + c);
+      if constexpr (V == 8) {
+        cp_async16(dst, src, ok ? 16 : 0);
+      } else if constexpr (V == 4) {
+        cp_async8(dst, src, ok ? 8 : 0);
+      } else {
+        cp_async4(dst, src, ok ? 4 : 0);
+      }
+    } else {
+      uint32_t lo = 0, hi = 0;
+      if (p < p_end) {
+        const unsigned short* row = reinterpret_cast<const unsigned short*>(X) + (size_t)p * width;
+        if (col < width) lo = __ldg(row + col);
+        if (col + 1 < width) hi = __ldg(row + col + 1);
+      }
+      held[i] = lo | (hi << 16);
+    }
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void wg_store(__nv_bfloat16* s, const uint32_t* held) {
+  if constexpr (V == 1) {
+    constexpr int kRow = kWT / 2, kPer = kWP * kRow / kWTcThreads;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int u = threadIdx.x + i * kWTcThreads;
+      const int r = u / kRow, c = (u - r * kRow) * 2;
+      *reinterpret_cast<uint32_t*>(s + r * kWLd + c) = held[i];
+    }
+  }
+}
+
+template <int VA, int VB>
+__global__ void __launch_bounds__(kWTcThreads, 2)
+wgrad_tc_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ Bm, int P,
+                int M, int N, int n_parts, int chunk, float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  __nv_bfloat16* sa = reinterpret_cast<__nv_bfloat16*>(wg_smem);  // [kWS][kWP][kWLd]
+  __nv_bfloat16* sb = sa + kWS * kWStage;                         // [kWS][kWP][kWLd]
+  const int n0 = blockIdx.x * kWT, m0 = blockIdx.y * kWT;
+  const int b = blockIdx.z / n_parts, part = blockIdx.z - b * n_parts;
+  const __nv_bfloat16* a = A + (size_t)b * P * M;
+  const __nv_bfloat16* bb = Bm + (size_t)b * P * N;
+  const int p_begin = min(P, part * chunk), p_end = min(P, p_begin + chunk);
+  const int steps = (p_end - p_begin + kWP - 1) / kWP;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool low = M - m0 <= 64;
+  const int wm = low ? warp >> 2 : warp & 1, wn = low ? warp & 3 : warp >> 1;
+  const int rm = m0 + wm * 64, cn = n0 + wn * 32;  // the warp's first row and column
+  const bool live = rm < M && cn < N;               // warp-uniform
+  uint32_t ha[VA == 1 ? kWP * kWT / 2 / kWTcThreads : 1];
+  uint32_t hb[VB == 1 ? kWP * kWT / 2 / kWTcThreads : 1];
+  auto issue = [&](int step) {
+    const int p0 = p_begin + step * kWP, slot = step % kWS;
+    wg_issue<VA>(a, M, p0, p_end, m0, sa + slot * kWStage, ha);
+    wg_issue<VB>(bb, N, p0, p_end, n0, sb + slot * kWStage, hb);
+  };
+  auto store = [&](int step) {
+    const int slot = step % kWS;
+    wg_store<VA>(sa + slot * kWStage, ha);
+    wg_store<VB>(sb + slot * kWStage, hb);
+  };
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+  for (int s = 0; s < kWS - 1; ++s) {
+    if (s < steps) {
+      issue(s);
+      store(s);
+    }
+    cp_async_commit();
+  }
+  // ldmatrix lanes: row lr of matrix lj; A's four 8x8 matrices are (k, m)
+  // blocks (0,0) (0,8) (8,0) (8,8), B's (k, n) blocks (0,0) (8,0) (0,8) (8,8)
+  const int lr = lane & 7, lj = lane >> 3;
+  const int a_off = ((lj >> 1) * 8 + lr) * kWLd + wm * 64 + (lj & 1) * 8;
+  const int b_off = ((lj & 1) * 8 + lr) * kWLd + wn * 32 + (lj >> 1) * 8;
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<kWS - 2>();
+    __syncthreads();  // stage `step` landed; the slot of step - 1 is free
+    const int next = step + kWS - 1;
+    if (next < steps) issue(next);
+    cp_async_commit();
+    if (live) {
+      const uint32_t xa = smem_u32(sa + (step % kWS) * kWStage + a_off);
+      const uint32_t xb = smem_u32(sb + (step % kWS) * kWStage + b_off);
+#pragma unroll
+      for (int kk = 0; kk < kWP; kk += 16) {
+        uint32_t bq[2][4], af[4][4];  // bq[j]: n8 tiles 2j (regs 0, 1) and 2j + 1 (2, 3)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) ldmatrix_x4_trans(bq[j], xb + 2 * (kk * kWLd + j * 16));
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) ldmatrix_x4_trans(af[mt], xa + 2 * (kk * kWLd + mt * 16));
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            mma_16x8x16(acc[mt][nt], af[mt][0], af[mt][1], af[mt][2], af[mt][3],
+                        bq[nt >> 1][2 * (nt & 1)], bq[nt >> 1][2 * (nt & 1) + 1]);
+      }
+    }
+    if (next < steps) store(next);
+  }
+  float* o = out + ((size_t)b * n_parts + part) * M * N;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int c = cn + nt * 8 + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = rm + mt * 16 + g + 8 * h;
+        if (r >= M) continue;
+        if (c < N) o[(size_t)r * N + c] = acc[mt][nt][2 * h];
+        if (c + 1 < N) o[(size_t)r * N + c + 1] = acc[mt][nt][2 * h + 1];
+      }
+    }
 }
 
 constexpr int kDC = 32;  // channel chunk of the depthwise backward
@@ -237,6 +407,57 @@ cudaError_t launch_wgrad(const void* A, const void* Bm, float* part, float* out,
   return launch_sum_parts(part, out, nb, n_parts, M * N, stream);
 }
 
+// Elements per copy of an operand with rows of `width` bf16 from p: the
+// widest of 8, 4, 2 that divides the width and whose byte size aligns p;
+// else 1 (element loads).
+inline int wgrad_copy_elems(const void* p, int width) {
+  for (int v = 8; v >= 2; v >>= 1)
+    if (width % v == 0 && aligned(p, 2 * v)) return v;
+  return 1;
+}
+
+template <int VA, int VB>
+cudaError_t launch_wgrad_tc_v(const void* A, const void* Bm, float* dst, int nb, int P, int M,
+                              int N, int n_parts, int chunk, cudaStream_t stream) {
+  cudaError_t err = set_smem(wgrad_tc_kernel<VA, VB>, kWgradTcSmem);
+  if (err != cudaSuccess) return err;
+  wgrad_tc_kernel<VA, VB><<<dim3(ceil_div(N, kWT), ceil_div(M, kWT), nb * n_parts), kWTcThreads,
+                            kWgradTcSmem, stream>>>((const __nv_bfloat16*)A,
+                                                    (const __nv_bfloat16*)Bm, P, M, N, n_parts,
+                                                    chunk, dst);
+  return cudaGetLastError();
+}
+
+template <int VA>
+cudaError_t launch_wgrad_tc_b(int vb, const void* A, const void* Bm, float* dst, int nb, int P,
+                              int M, int N, int n_parts, int chunk, cudaStream_t stream) {
+  switch (vb) {
+    case 8: return launch_wgrad_tc_v<VA, 8>(A, Bm, dst, nb, P, M, N, n_parts, chunk, stream);
+    case 4: return launch_wgrad_tc_v<VA, 4>(A, Bm, dst, nb, P, M, N, n_parts, chunk, stream);
+    case 2: return launch_wgrad_tc_v<VA, 2>(A, Bm, dst, nb, P, M, N, n_parts, chunk, stream);
+    default: return launch_wgrad_tc_v<VA, 1>(A, Bm, dst, nb, P, M, N, n_parts, chunk, stream);
+  }
+}
+
+// The bf16 route: wgrad_tc_kernel over ceil(N / 128) x ceil(M / 128) tiles x
+// nb x n_parts, each part kWP-aligned pixels, then the in-order part sums.
+cudaError_t launch_wgrad_tc(const void* A, const void* Bm, float* part, float* out, int nb, int P,
+                            int M, int N, int n_parts, cudaStream_t stream) {
+  if (nb * n_parts > 65535 || M <= 0 || N <= 0) return cudaErrorInvalidValue;
+  const int chunk = ceil_div(ceil_div(P, n_parts), kWP) * kWP;
+  float* dst = n_parts > 1 ? part : out;
+  const int vb = wgrad_copy_elems(Bm, N);
+  cudaError_t err;
+  switch (wgrad_copy_elems(A, M)) {
+    case 8: err = launch_wgrad_tc_b<8>(vb, A, Bm, dst, nb, P, M, N, n_parts, chunk, stream); break;
+    case 4: err = launch_wgrad_tc_b<4>(vb, A, Bm, dst, nb, P, M, N, n_parts, chunk, stream); break;
+    case 2: err = launch_wgrad_tc_b<2>(vb, A, Bm, dst, nb, P, M, N, n_parts, chunk, stream); break;
+    default: err = launch_wgrad_tc_b<1>(vb, A, Bm, dst, nb, P, M, N, n_parts, chunk, stream);
+  }
+  if (err != cudaSuccess || n_parts == 1) return err;
+  return launch_sum_parts(part, out, nb, n_parts, M * N, stream);
+}
+
 template <typename T>
 cudaError_t launch_dwconv_bwd(const float* dout, const float* t, const void* w, int ldw, void* dt,
                               float* part, float* dw, int B, int H, int W, int Cn,
@@ -277,9 +498,11 @@ extern "C" int mp_wgrad(const void* A, const void* B, void* part, void* out, int
   auto st = (cudaStream_t)stream;
   if (dtype == 0)
     return (int)mp::launch_wgrad<float>(A, B, (float*)part, (float*)out, nb, P, M, N, n_parts, st);
-  return (int)mp::launch_wgrad<__nv_bfloat16>(A, B, (float*)part, (float*)out, nb, P, M, N,
-                                              n_parts, st);
+  return (int)mp::launch_wgrad_tc(A, B, (float*)part, (float*)out, nb, P, M, N, n_parts, st);
 }
+
+// Shared memory per block of the bf16 weight product (dynamic, bytes).
+extern "C" long long mp_wgrad_tc_smem() { return (long long)mp::kWgradTcSmem; }
 
 // dout, t (B, H, W, Cn) float32; w the forward's [9][ldw] taps (pointer at the
 // first column), compute type. Outputs: dt (B, H, W, Cn) compute type, part

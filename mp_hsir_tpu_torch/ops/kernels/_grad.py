@@ -22,9 +22,15 @@ import torch
 import torch.nn.functional as F
 
 from mp_hsir_tpu_torch.ops.kernels import _build
-from mp_hsir_tpu_torch.ops.kernels._route import dtype_code, stream_ptr
+from mp_hsir_tpu_torch.ops.kernels._route import ROUTE, counter, dtype_code, stream_ptr
 
-WGRAD_BLOCKS = 512  # aim for this many (tile, part) blocks in a weight product
+WGRAD = counter("wgrad")
+# the bf16 weight product's tile map (kWT, kWP, kWS in csrc/grad.cu): output
+# tiles of WGRAD_TILE x WGRAD_TILE, WGRAD_DEPTH pixels per ring stage,
+# WGRAD_RING stages
+WGRAD_TILE, WGRAD_DEPTH, WGRAD_RING = 128, 32, 4
+WGRAD_BLOCKS = 4 * 132  # (tile, part) blocks to aim for: two waves of two blocks per H100 SM
+WGRAD_MIN_PIX = 1024    # pixels a part sums at least (its partial is small beside its operands)
 
 
 def dwconv3_f32(t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -92,23 +98,52 @@ def col_ptr(t: torch.Tensor, col0: int) -> int:
     return t.data_ptr() + col0 * t.element_size()
 
 
+def wgrad_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The plain version of :func:`wgrad`: the float32 sum over pixels of
+    a^T b, a (nb, P, M) or (P, M), b likewise with N columns."""
+    return torch.einsum("...pm,...pn->...mn", a.float(), b.float())
+
+
+def wgrad_plan(nb: int, p: int, m: int, n: int, bf16: bool = True) -> tuple[int, int]:
+    """(n_parts, pixels per part) of a weight product, a pure function of the
+    shape: each (output tile, part) block sums the pixel range [i * chunk,
+    min(P, (i + 1) * chunk)) of part i into its own partial, and the partials
+    are added in order after. bf16 (the tensor-core kernel): 128 x 128 tiles,
+    enough parts for WGRAD_BLOCKS blocks, each part at least WGRAD_MIN_PIX
+    pixels; float32 (the SIMT kernel): its 64 x 64 tiles and 512 blocks of at
+    least 256 pixels, as before."""
+    if bf16:
+        tiles = nb * -(-m // WGRAD_TILE) * -(-n // WGRAD_TILE)
+        n_parts = max(1, min(p // WGRAD_MIN_PIX, -(-WGRAD_BLOCKS // tiles)))
+    else:
+        n_parts = max(1, min(p // 256, -(-512 // (nb * -(-m // 64) * -(-n // 64)))))
+    per = -(-p // n_parts)
+    return n_parts, -(-per // WGRAD_DEPTH) * WGRAD_DEPTH
+
+
 def wgrad(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """sum over pixels of a^T b: a (nb, P, M) or (P, M) and b likewise with N
-    columns, both contiguous in the compute type; returns float32 (nb, M, N)
-    or (M, N)."""
+    columns, in the compute type; returns float32 (nb, M, N) or (M, N). A CPU
+    tensor takes :func:`wgrad_plain`; a CUDA tensor launches grad.cu's
+    kernel (bf16: ``wgrad_tc_kernel`` on the tensor cores)."""
+    if not ROUTE.use_kernel(a):
+        return wgrad_plain(a, b)
+    if b.dtype != a.dtype:
+        raise TypeError(f"wgrad takes operands of one dtype, got {a.dtype} and {b.dtype}")
     squeeze = a.dim() == 2
     if squeeze:
         a, b = a.unsqueeze(0), b.unsqueeze(0)
+    a, b = a.contiguous(), b.contiguous()
     nb, p, m = a.shape
     n = b.shape[-1]
-    tiles = -(-m // 64) * -(-n // 64) * nb
-    n_parts = max(1, min(p // 256, -(-WGRAD_BLOCKS // tiles)))
+    n_parts, _ = wgrad_plan(nb, p, m, n, a.dtype == torch.bfloat16)
     dev = a.device
     part = torch.empty((nb, n_parts, m, n), dtype=torch.float32, device=dev) if n_parts > 1 else None
     out = torch.empty((nb, m, n), dtype=torch.float32, device=dev)
     err = _entry("mp_wgrad")(a.data_ptr(), b.data_ptr(), _build.ptr(part), out.data_ptr(),
                              dtype_code(a), nb, p, m, n, n_parts, stream_ptr())
     _build.check("mp_wgrad", err)
+    WGRAD.record(("wgrad", nb, p, m, n, str(a.dtype)))
     return out[0] if squeeze else out
 
 

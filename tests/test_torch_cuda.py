@@ -1147,3 +1147,80 @@ def test_cuda_window_attention_bwd_bf16_past_384_raises():
                        dout.to(torch.bfloat16), dpool.to(torch.bfloat16))
     call = (*fwd, 8, 0, 1e-5, dout, dpool)
     _outputs_close(wa._bwd_launch(*call), wa.window_attention_bwd_plain(*call), 1e-4, "float32")
+
+
+# The weight product (csrc/grad.cu): bf16 on the tensor cores
+# (wgrad_tc_kernel), float32 on the SIMT kernel, at the presets' widths whose
+# rows are not whole 16-byte vectors (hid 170 and 340: 4- and 8-byte copies;
+# 255 and 1021: element loads; 2 hid 510 and 2042: 4-byte copies) beside C =
+# 64, 96, 384, and at C = 36 and 27 (3C = 108, 81); P not a multiple of the
+# ring depth (128 pixels), two images in some; (32, 256, 384, 384) is the
+# remote-sensing latent's dcomb, whose single part writes out directly.
+WGRAD_CASES = [(1, 2248, 64, 340), (1, 2248, 170, 64), (2, 2248, 255, 96), (1, 2248, 96, 510),
+               (1, 2248, 1021, 384), (1, 1100, 384, 2042), (2, 1100, 36, 108),
+               (1, 1100, 27, 81), (32, 256, 384, 384)]
+WGRAD_TOL = 1e-4  # as chip_smoke.py: float32 sums of the same products in another order
+
+
+def _wgrad_inputs(nb, p, m, n, dev):
+    r = _rng(170 + m + n + nb)
+    return _t(_n(r, (nb, p, m))).to(dev), _t(_n(r, (nb, p, n))).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,p,m,n", WGRAD_CASES)
+def test_cuda_wgrad_matches_plain(nb, p, m, n):
+    """wgrad on the card against wgrad_plain (TF32 off), bf16 and float32,
+    3-D and (nb = 1) 2-D operands, within 1e-4 of the plain product's
+    max-abs; one counted launch per call; two calls bitwise equal (the parts
+    are summed in a fixed order)."""
+    from mp_hsir_tpu_torch.ops.kernels._grad import wgrad, wgrad_plain, wgrad_plan
+
+    dev = _cuda()
+    a32, b32 = _wgrad_inputs(nb, p, m, n, dev)
+    if (nb, p) == (32, 256):
+        assert wgrad_plan(nb, p, m, n)[0] == 1
+    for dt in (torch.bfloat16, torch.float32):
+        a, b = a32.to(dt), b32.to(dt)
+        if nb == 1:
+            a, b = a[0], b[0]
+        _route.reset_counters()
+        got = wgrad(a, b)
+        assert _route.COUNTERS["wgrad"].launches == 1, dt
+        ref = wgrad_plain(a, b)
+        _outputs_close((got,), (ref,), WGRAD_TOL, f"{dt}")
+        assert torch.equal(got, wgrad(a, b)), dt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(64, 340), (255, 96)])
+def test_cuda_wgrad_unaligned_base_matches_plain(m, n):
+    """Operands that start 2 bytes past an aligned address (views from
+    element 1 of a buffer): the kernel takes the widest copy the base allows
+    (element loads here) and still agrees with wgrad_plain."""
+    from mp_hsir_tpu_torch.ops.kernels._grad import wgrad, wgrad_plain
+
+    dev = _cuda()
+    p = 1100
+    a32, b32 = _wgrad_inputs(1, p, m, n, dev)
+    bufs = [torch.zeros(1 + p * w, dtype=torch.bfloat16, device=dev) for w in (m, n)]
+    a, b = (buf[1:].view(p, w) for buf, w in zip(bufs, (m, n)))
+    a.copy_(a32[0])
+    b.copy_(b32[0])
+    assert a.data_ptr() % 16 == 2 and a.is_contiguous()
+    _outputs_close((wgrad(a, b),), (wgrad_plain(a, b),), WGRAD_TOL, "unaligned")
+
+
+@pytest.mark.cuda
+def test_cuda_wgrad_plain_reference_runs_plain():
+    """Inside plain_reference a CUDA tensor takes wgrad_plain: no launch, one
+    plain call counted."""
+    from mp_hsir_tpu_torch.ops.kernels._grad import wgrad, wgrad_plain
+
+    dev = _cuda()
+    a, b = (t[0].to(torch.bfloat16) for t in _wgrad_inputs(1, 300, 64, 96, dev))
+    _route.reset_counters()
+    with _route.plain_reference():
+        out = wgrad(a, b)
+    assert _route.COUNTERS["wgrad"].launches == 0 and _route.ROUTE.plain_cuda_calls == 1
+    assert torch.equal(out, wgrad_plain(a, b))
