@@ -15,9 +15,13 @@ Phases (any failure exits non-zero; no phase's error is caught):
    the presets' train steps beside the float32 backward's, and the bf16
    spectral stats and window-attention backwards' two tiles each (their
    registers and spills, their plan bytes at every (C, heads) of the
-   presets' train steps beside the float32 kernel's), and the registers and
-   spills of the bf16 weight product's 16 instances (copy widths of A and
-   B) beside dwconv_dx_tc_kernel<true>'s guard (<= 128 registers, no spills).
+   presets' train steps beside the float32 kernel's), and the bf16 spectral
+   apply backward's two tiles (their registers and spills, their plan bytes
+   at every width of the presets' train steps beside the float32 kernel's),
+   and the registers and spills of the bf16 weight product's 16 instances
+   (copy widths of A and B) beside the guard of K10a's stencil tile
+   dwconv_dx_tc_kernel<true, false> (<= 128 registers, no spills) and K10b's
+   instance <true, true>.
 2. Kernel checks: every kernel wrapper on the card at each shape the
    flagship 512x512x31 eval forward gives it, in bf16 from numpy-seeded
    inputs, against its plain PyTorch version on the same inputs; also once
@@ -65,8 +69,10 @@ Phases (any failure exits non-zero; no phase's error is caught):
    the dW1 and dW2 weight products and the partial sums, the others' by C
    entry name, the two mp_wgrad calls of window_attention_bwd,
    spectral_apply_bwd and gdfn_bwd told apart as dWqkv / dWp, dWv / dcomb
-   and dW_in / dW_out), whose sum is the backward alone; the stages per step,
-   and their mp_wgrad stages summed, follow phase 6 (and phase 12 for phase
+   and dW_in / dW_out; the bf16 spectral_apply_bwd's as tile 1, tile 2,
+   wgrad dWv, wgrad dcomb, d gate and sums), whose sum is the backward
+   alone; two bf16 spectral_apply_bwd calls must agree bitwise; the stages
+   per step, and their mp_wgrad stages summed, follow phase 6 (and phase 12 for phase
    11's calls). Then the wgrad phase: every weight product (nb, P, M, N)
    of the step, on seeded inputs made on the card, bf16 and float32 against
    wgrad_plain (TF32 off) within 1e-4 of the plain product's max-abs, two
@@ -82,8 +88,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
    20 bf16 AdamW steps with the counters zeroed before and read after: every
    kernel launches its expected count per step, the recorded call signatures
    equal the enumerated ones, no plain version runs; the loss of the last
-   step is below the first; ms per step (median after 3 warm-up steps) and
-   peak memory.
+   step is below the first; ms per step (median after 3 warm-up steps), the
+   time until train_step returns, and peak memory.
 7. Remote-sensing kernels: every kernel call signature of the 100-band
    preset's bf16 eval forward at 256x256 (C up to 384, dh 48 and 96: the
    channel-chunked shared-memory plans), bf16 and float32, against the plain
@@ -123,8 +129,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
     gradients against the plain step as in phase 6 at batch 8, then 11 bf16
     AdamW steps at batch 32 x 100 x 64^2 (task ids over the 7 tasks) with
     phase 6's launch checks: the median loss of the last 3 steps below the
-    first; ms per step (median of 8 after 3 warm-up) and peak memory, and
-    kernel ms per step from phase 11.
+    first; ms per step (median of 8 after 3 warm-up), the time until
+    train_step returns, peak memory, and kernel ms per step from phase 11.
 13. The kernel summary line (each kernel's main-path numbers, and its
     remote-sensing train-step numbers beside them), then the result line.
 
@@ -214,7 +220,8 @@ TRAIN_KERNELS = {
     "spectral_stats_bwd": dict(source="mp_hsir_tpu_torch/csrc/spectral_stats.cuh",
                                tpu=["K10a", "K12"],
                                replaces="mp_hsir_tpu/ops/pallas_vjp.py:1671"),
-    "spectral_apply_bwd": dict(source="mp_hsir_tpu_torch/csrc/spectral.cu", tpu=["K10b", "K12"],
+    "spectral_apply_bwd": dict(source="mp_hsir_tpu_torch/csrc/spectral_apply_bwd.cuh",
+                               tpu=["K10b", "K12"],
                                replaces="mp_hsir_tpu/ops/pallas_vjp.py:1758"),
     "gdfn_bwd": dict(source="mp_hsir_tpu_torch/csrc/gdfn.cu", tpu=["K11"],
                      replaces="mp_hsir_tpu/ops/pallas_vjp.py:471"),
@@ -451,6 +458,9 @@ def plan_of(spec) -> dict:
     if name == "spectral_stats_bwd" and _code(spec):  # the bf16 tiles: the larger plan
         n = max(_build.plan_bytes("mp_spectral_stats_bwd_tc_smem", *shape),
                 _build.plan_bytes("mp_dwconv_dx_tc_smem", c, 2 * c))
+        return dict(smem=n, smem_whole=n, kc=c, c=c)
+    if name == "spectral_apply_bwd" and _code(spec):  # the bf16 tiles: the larger plan
+        n = max(_build.plan_bytes("mp_spectral_apply_bwd_tc_smem", c, tile) for tile in (1, 2))
         return dict(smem=n, smem_whole=n, kc=c, c=c)
     if name == "window_attention_bwd" and _code(spec):  # the bf16 tiles: the larger plan
         n = max(_build.plan_bytes("mp_window_attention_bwd_tc_smem", *shape),
@@ -1144,11 +1154,17 @@ MLP_BWD_STAGES = ("tile", "wgrad_dw1", "wgrad_dw2", "sums")
 BWD_SPLIT = {"mlp_bwd": ("mlp", "_entry"), "spectral_stats_bwd": ("spectral", "_stats_entry"),
              "window_attention_bwd": ("window_attention", "_entry"),
              "spectral_apply_bwd": ("spectral", "_apply_entry"), "gdfn_bwd": ("gdfn", "_entry")}
+# the stages named for what they are rather than by C entry (the bf16
+# spectral apply backward's; an entry not listed keeps its name, so that the
+# parent tree's split reads as before)
+STAGE_NAMES = {"spectral_apply_bwd": {"mp_spectral_apply_bwd_tc": "tile 1",
+                                      "mp_spectral_apply_dx_tc": "tile 2",
+                                      "mp_spectral_gate_grad": "d gate", "mp_sum_parts": "sums"}}
 # the kernels whose backward calls mp_wgrad twice: the two calls' stage keys
 # (each call's first, then its second)
 WGRAD_STAGES = {"mlp_bwd": MLP_BWD_STAGES[1:3],
                 "window_attention_bwd": ("mp_wgrad dWqkv", "mp_wgrad dWp"),
-                "spectral_apply_bwd": ("mp_wgrad dWv", "mp_wgrad dcomb"),
+                "spectral_apply_bwd": ("wgrad dWv", "wgrad dcomb"),
                 "gdfn_bwd": ("mp_wgrad dW_in", "mp_wgrad dW_out")}
 
 
@@ -1163,9 +1179,10 @@ def bwd_split(name: str, kern, flops: float, ms: float, reps: int = 5) -> dict:
     and ``sums`` (mp_sum_parts); the other kernels' are keyed by C entry name
     (a grad.cu entry with its own part sums; the two mp_wgrad calls of
     window_attention_bwd as ``mp_wgrad dWqkv`` and ``mp_wgrad dWp``, of
-    spectral_apply_bwd as ``mp_wgrad dWv`` and ``mp_wgrad dcomb``, of gdfn_bwd
-    as ``mp_wgrad dW_in`` and ``mp_wgrad dW_out``), so that the same script
-    splits the trees before and after a redesign. Their sum is the backward alone
+    spectral_apply_bwd as ``wgrad dWv`` and ``wgrad dcomb``, of gdfn_bwd as
+    ``mp_wgrad dW_in`` and ``mp_wgrad dW_out``; the bf16 spectral_apply_bwd's
+    tiles, d gate and sums by STAGE_NAMES), so that the same script splits
+    the trees before and after a redesign. Their sum is the backward alone
     (``kernel_ms``), without the wrapper's host time and weight packing;
     rates are flops over the wrapper's and that time."""
     from mp_hsir_tpu_torch.ops.kernels import _grad
@@ -1212,6 +1229,8 @@ def bwd_split(name: str, kern, flops: float, ms: float, reps: int = 5) -> dict:
             n_wgrad += 1
         elif name == "mlp_bwd":
             key = "sums" if entry == "mp_sum_parts" else "tile"
+        else:
+            key = STAGE_NAMES.get(name, {}).get(entry, entry)
         split[key] = split.get(key, 0.0) + e0.elapsed_time(e1) / reps
     alone = sum(split.values())
     return dict(split=split, kernel_ms=alone, tflops=flops / ms / 1e9,
@@ -1261,6 +1280,11 @@ def train_kernel_checks(specs: Counter, dev, streamed: bool = True) -> list:
         if name.endswith("_bwd"):
             kern, plain, byts, flops = make_bwd_call(spec, dev, torch.bfloat16)
             err, rel = compare_pair(kern, plain, BF16_TOL)
+            if name == "spectral_apply_bwd":  # no float atomics: two calls agree bitwise
+                one, two = kern(), kern()
+                if not all(a is None or torch.equal(a, r) for a, r in zip(one, two)):
+                    raise AssertionError(f"{name} {spec[1:-1]}: two bf16 calls differ")
+                del one, two
             k32, p32, *_ = make_bwd_call(f32spec, dev, torch.float32)
             err32, rel32 = compare_pair(k32, p32, F32_TOL)
             del k32, p32
@@ -1472,7 +1496,10 @@ def step_run(dev, model, batch, expected: Counter, steps: int, what: str) -> dic
     """bf16 AdamW steps (no warm-up of the rate) with the counters zeroed
     before and read after: every kernel launches its expected count per step,
     the recorded call signatures equal the enumerated ones, no plain version
-    runs; ms per step (median after TRAIN_WARMUP steps) and peak memory."""
+    runs; ms per step (median after TRAIN_WARMUP steps), the time until
+    train_step returns (it does not synchronise: where this is near the
+    step's time, the host holds the step or waits on the device inside it)
+    and peak memory."""
     from mp_hsir_tpu_torch.config import TrainConfig
     from mp_hsir_tpu_torch.ops.kernels import _route
     from mp_hsir_tpu_torch.training.trainer import create_train_state, train_step
@@ -1482,11 +1509,12 @@ def step_run(dev, model, batch, expected: Counter, steps: int, what: str) -> dic
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _route.reset_counters()
-    losses, times = [], []
+    losses, times, returns = [], [], []
     for _ in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss = train_step(state, batch, gen)
+        returns.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(loss.item())
@@ -1501,7 +1529,8 @@ def step_run(dev, model, batch, expected: Counter, steps: int, what: str) -> dic
     log("  losses: " + " ".join(f"{v:.5f}" for v in losses))
     log(f"  ms per train step ({what}, bf16, batch {b} x {bands} x {size}^2, median of "
         f"{len(steady)} after {TRAIN_WARMUP} warm-up): {statistics.median(steady):.2f} "
-        f"(min {min(steady):.2f}, max {max(steady):.2f}); peak memory {peak_gib:.2f} GiB")
+        f"(min {min(steady):.2f}, max {max(steady):.2f}); train_step returns after a median "
+        f"{statistics.median(returns[TRAIN_WARMUP:]):.2f}; peak memory {peak_gib:.2f} GiB")
     per_step = {k: v // steps for k, v in counts.items()}
     log(f"  launches per step: {json.dumps(per_step)}; conv3 = 8 forward + 7 dx (the patch "
         f"embed's input needs no gradient); plain versions on CUDA tensors: {plain_calls}")
@@ -1520,7 +1549,7 @@ def step_run(dev, model, batch, expected: Counter, steps: int, what: str) -> dic
     if not all(np.isfinite(losses)):
         fail(f"train loss not finite: {losses}")
     return dict(losses=losses, ms_per_step=times, median_ms=statistics.median(steady),
-                peak_gib=peak_gib, launches=counts, launches_per_step=per_step)
+                returns_ms=returns, peak_gib=peak_gib, launches=counts, launches_per_step=per_step)
 
 
 def train_path(dev, expected: Counter) -> dict:
@@ -1843,7 +1872,7 @@ def log_stats_bwd_plans(_build, cfgs) -> dict:
     spills, and their shared-memory plans (bytes, static included) at every
     (C, heads) of the presets' train steps, beside the float32 kernel's."""
     regs = {k: ptxas_report(k) for k in ("spectral_stats_bwd_tc_kernel",
-                                         "dwconv_dx_tc_kernelILb1E")}
+                                         "dwconv_dx_tc_kernelILb1ELb0E")}
     log("  bf16 spectral_stats_bwd tiles (ptxas): " + ", ".join(
         f"{k} {v.get('registers', '?')} registers, spills {v.get('spill_stores', '?')}/"
         f"{v.get('spill_loads', '?')} B" for k, v in regs.items()))
@@ -1869,7 +1898,7 @@ def log_window_bwd_plans(_build, cfgs) -> dict:
 
     regs = {f"tile 1 DHP {d}": ptxas_report(f"window_attention_bwd_tc_kernelILi{d}E")
             for d in HEAD_WIDTHS}
-    regs["tile 2"] = ptxas_report("dwconv_dx_tc_kernelILb0E")
+    regs["tile 2"] = ptxas_report("dwconv_dx_tc_kernelILb0ELb0E")
     log("  bf16 window_attention_bwd tiles (ptxas): " + ", ".join(
         f"{k} {v.get('registers', '?')} registers, spills {v.get('spill_stores', '?')}/"
         f"{v.get('spill_loads', '?')} B" for k, v in regs.items()))
@@ -1883,6 +1912,31 @@ def log_window_bwd_plans(_build, cfgs) -> dict:
             tile2=_build.plan_bytes("mp_window_attention_dx_tc_smem", c),
             f32=_build.plan_bytes("mp_window_attention_bwd_smem", c, nh, kc), f32_kc=kc)
     log("  bf16 window_attention_bwd plans (B: tile 1, tile 2; float32's at its chunk in "
+        "brackets): " + ", ".join(f"{k} {v['tile1']}, {v['tile2']} ({v['f32']} kc {v['f32_kc']})"
+                                  for k, v in plans.items()))
+    return dict(ptxas=regs, plans=plans)
+
+
+def log_apply_bwd_plans(_build, cfgs) -> dict:
+    """The bf16 spectral apply backward's two tiles: their registers and
+    spills, and their shared-memory plans (bytes, static included) at every
+    width of the presets' train steps, beside the float32 kernel's at its
+    chunk."""
+    regs = {"tile 1": ptxas_report("spectral_apply_bwd_tc_kernel"),
+            "tile 2": ptxas_report("dwconv_dx_tc_kernelILb1ELb1E")}
+    log("  bf16 spectral_apply_bwd tiles (ptxas): " + ", ".join(
+        f"{k} {v.get('registers', '?')} registers, spills {v.get('spill_stores', '?')}/"
+        f"{v.get('spill_loads', '?')} B" for k, v in regs.items()))
+    widths = sorted({s[4] for cfg in cfgs for s in train_path_specs(cfg, 1, 64, "bf16")
+                     if s[0] == "spectral_apply_bwd"})
+    plans = {}
+    for c in widths:
+        kc = _build.chunk("mp_spectral_apply_bwd_chunk", c)
+        plans[f"C={c}"] = dict(
+            tile1=_build.plan_bytes("mp_spectral_apply_bwd_tc_smem", c, 1),
+            tile2=_build.plan_bytes("mp_spectral_apply_bwd_tc_smem", c, 2),
+            f32=_build.plan_bytes("mp_spectral_apply_bwd_smem", c, kc), f32_kc=kc)
+    log("  bf16 spectral_apply_bwd plans (B: tile 1, tile 2; float32's at its chunk in "
         "brackets): " + ", ".join(f"{k} {v['tile1']}, {v['tile2']} ({v['f32']} kc {v['f32_kc']})"
                                   for k, v in plans.items()))
     return dict(ptxas=regs, plans=plans)
@@ -1932,13 +1986,16 @@ def log_wgrad_ptxas() -> dict:
         "instances (ptxas): " + ", ".join(
         f"{k} {v.get('registers', '?')} regs, spills {v.get('spill_stores', '?')}/"
         f"{v.get('spill_loads', '?')} B" for k, v in regs.items()))
-    guard = ptxas_report("dwconv_dx_tc_kernelILb1E")
+    guard = ptxas_report("dwconv_dx_tc_kernelILb1ELb0E")
     held = None  # no report: the library was built by an earlier process
     if guard:
         held = guard.get("registers", 999) <= 128 and not guard.get("spill_stores", 1)
     verdict = {None: "no ptxas report in this process", True: "holds", False: "BROKEN"}[held]
-    log(f"  dwconv_dx_tc_kernel<true>: {guard} ({verdict}: <= 128 registers, no spills)")
-    return dict(wgrad=regs, wgrad_smem=smem, dwconv_dx_true=guard, guard_holds=held)
+    k10b = ptxas_report("dwconv_dx_tc_kernelILb1ELb1E")
+    log(f"  dwconv_dx_tc_kernel<true, false> (K10a): {guard} ({verdict}: <= 128 registers, no "
+        f"spills); <true, true> (K10b): {k10b}")
+    return dict(wgrad=regs, wgrad_smem=smem, dwconv_dx_true=guard, guard_holds=held,
+                dwconv_dx_extra=k10b)
 
 
 def main() -> None:
@@ -2008,6 +2065,7 @@ def main() -> None:
     mlp_bwd_plans = log_mlp_bwd_plans(_build, preset_cfgs)
     stats_bwd_plans = log_stats_bwd_plans(_build, preset_cfgs)
     window_bwd_plans = log_window_bwd_plans(_build, preset_cfgs)
+    apply_bwd_plans = log_apply_bwd_plans(_build, preset_cfgs)
 
     specs = path_specs(cfg, SIZE, "torch.bfloat16")
 
@@ -2135,7 +2193,8 @@ def main() -> None:
                            front_plans=front_plans, stats_plans=stats_plans,
                            gdfn_plans=gdfn_plans, mlp_bwd_plans=mlp_bwd_plans,
                            stats_bwd_plans=stats_bwd_plans,
-                           window_bwd_plans=window_bwd_plans, wgrad_ptxas=wgrad_ptxas,
+                           window_bwd_plans=window_bwd_plans, apply_bwd_plans=apply_bwd_plans,
+                           wgrad_ptxas=wgrad_ptxas,
                            seconds=time.perf_counter() - t_start), fh, indent=1)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card)

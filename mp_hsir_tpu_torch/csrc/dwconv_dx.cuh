@@ -40,6 +40,14 @@
 // Rounding points as spectral_stats_bwd_plain: dt rounded to bf16 before both
 // dxn and dW; dxn in float32; dx rounded once.
 //
+// With kExtra (the second launch of the bf16 spectral apply backward, K10b,
+// at K = C: spectral_apply_bwd.cuh) the epilogue adds a float32 cotangent
+// extra (B, H, W, C) in the kernel frame, staged with x, to dx before it
+// rounds, after the LayerNorm backward where there is one, and the part row
+// of a tile lies at part + tile ldp (the first launch writes its d dp column
+// after the tap and LayerNorm partials). An instance of its own: K10a's
+// dwconv_dx_tc_kernel<true, false> keeps its code as it was.
+//
 // Bound: 2 C K (dxn) + 36 K flops per pixel against ~8K + 2C bytes per pixel
 // read and 2K + 2C written (K = 2C: ~22 C bytes): bytes bound it at these
 // widths, the stencil and the product overlap no copy but the next chunk's.
@@ -61,9 +69,11 @@ constexpr size_t kDxBudget = 232448 - 1024;
 // bf16, w rows [64][CK + 8] bf16), 3 where they fit the budget, else 2.
 // After the last chunk the ring's space holds the epilogue: x [64][CK + 8]
 // bf16, the LN mean and rstd [2][64], the row sums [4][64][2] and the column
-// sums [4][2][CK] (float32), within one stage and a half at every C. Without
-// the stencil a stage is (the cotangent chunk [64][72] bf16, w rows) and
-// there is no dt chunk: 3 stages at every C up to 384.
+// sums [4][2][CK] (float32), within one stage and a half at every C; with
+// kExtra (K = C) the extra cotangent's rows [64][CK + 4] float32 after them,
+// within two stages. Without the stencil a stage is (the cotangent chunk
+// [64][72] bf16, w rows) and there is no dt chunk: 3 stages at every C up to
+// 384.
 struct DwDxPlan {
   int CK, ldw, nck, S;
   size_t dq, tt, wt, stage, da, bytes;
@@ -92,15 +102,15 @@ struct DwDxPlan {
 // the stencil, t is the cotangent (B, H, W, K) bf16 at the 1x1 output, dout,
 // taps and dt are unused, and the part row of a tile, at part + tile ldp,
 // holds the column sums [K] of t, then d ln_w, d ln_b (ldp is read only
-// here).
-template <bool kStencil>
+// here, and with kExtra). extra: kExtra's cotangent (NULL: none).
+template <bool kStencil, bool kExtra = false>
 __global__ void __launch_bounds__(kThreads)
 dwconv_dx_tc_kernel(const float* __restrict__ dout, const __nv_bfloat16* __restrict__ t,
                     const __nv_bfloat16* __restrict__ taps, const __nv_bfloat16* __restrict__ w,
                     const __nv_bfloat16* __restrict__ x, const float* __restrict__ lnw, int H,
                     int W, int C, int K, int shift, float eps, int vec_in, int vec_x,
                     __nv_bfloat16* __restrict__ dt_out, __nv_bfloat16* __restrict__ dx_out,
-                    float* __restrict__ part, int ldp) {
+                    float* __restrict__ part, int ldp, const float* __restrict__ extra) {
   using bf16 = __nv_bfloat16;
   extern __shared__ float4 dwdx_dyn[];
   // halo pixel -> kernel-frame pixel (-1: outside the image)
@@ -116,7 +126,8 @@ dwconv_dx_tc_kernel(const float* __restrict__ dout, const __nv_bfloat16* __restr
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t4 = lane & 3;
   const int wr = warp >> 2, wc = warp & 3;
   const int r0 = 16 * wr + (lane >> 2), r1 = r0 + 8;
-  float* prow = part + (size_t)tile * (kStencil ? 9 * K + (lnw != nullptr ? 2 * C : 0) : ldp);
+  float* prow =
+      part + (size_t)tile * (kStencil && !kExtra ? 9 * K + (lnw != nullptr ? 2 * C : 0) : ldp);
   auto pix = [&](int i) { return tile_pix(b, ty, tx, i, H, W); };
   auto src = [&](int i) {  // x's pixel behind kernel-frame pixel i (the roll-back)
     const int r = ty * kTile + (i >> 3), c = tx * kTile + (i & 7);
@@ -275,6 +286,21 @@ dwconv_dx_tc_kernel(const float* __restrict__ dout, const __nv_bfloat16* __restr
   float* rowred = stt + 2 * kPix;                           // [4 wc][64][2] row sums
   float* colred = rowred + 4 * kPix * 2;                    // [4 wr][2][CK] column sums
   stage_rows(xs, ldw, x, C, CK, vec_x, src);
+  float* es = colred + 4 * 2 * CK;  // kExtra: [64][CK + 4] the extra cotangent's rows
+  const int lde = CK + 4;
+  if constexpr (kExtra) {
+    if (vec_in && extra != nullptr) {  // C % 8 == 0, 16-byte aligned rows
+      for (int u = threadIdx.x; u < kPix * (C / 4); u += blockDim.x) {
+        const int i = u / (C / 4), c = (u - i * (C / 4)) * 4;
+        cp_async16(smem_u32(es + i * lde + c), extra + pix(i) * C + c, 16);
+      }
+    } else {  // element by element; zero without an extra cotangent
+      for (int u = threadIdx.x; u < kPix * C; u += blockDim.x) {
+        const int i = u / C, c = u - i * C;
+        es[i * lde + c] = extra != nullptr ? extra[pix(i) * C + c] : 0.f;
+      }
+    }
+  }
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -365,8 +391,13 @@ dwconv_dx_tc_kernel(const float* __restrict__ dout, const __nv_bfloat16* __restr
         const int i = e < 2 ? r0 : r1, k = col + (e & 1);
         if (k < C) {
           const float xh = (__bfloat162float(xs[i * ldw + k]) - mu[i]) * rs[i];
-          xs[i * ldw + k] =
-              __float2bfloat16((acc[q][e] * lnw[k] - m1[e >> 1] - xh * m2[e >> 1]) * rs[i]);
+          if constexpr (kExtra) {
+            xs[i * ldw + k] = __float2bfloat16(
+                (acc[q][e] * lnw[k] - m1[e >> 1] - xh * m2[e >> 1]) * rs[i] + es[i * lde + k]);
+          } else {
+            xs[i * ldw + k] =
+                __float2bfloat16((acc[q][e] * lnw[k] - m1[e >> 1] - xh * m2[e >> 1]) * rs[i]);
+          }
         }
       }
     }
@@ -380,6 +411,10 @@ dwconv_dx_tc_kernel(const float* __restrict__ dout, const __nv_bfloat16* __restr
       prow[(kStencil ? 9 * K : K) + k] = sw;
       prow[(kStencil ? 9 * K : K) + C + k] = sb;
     }
+  } else if constexpr (kExtra) {
+    tail_out(acc, C, [&](int i, int k, float v) {
+      xs[i * ldw + k] = __float2bfloat16(v + es[i * lde + k]);
+    });
   } else {
     tail_out(acc, C, [&](int i, int k, float v) { xs[i * ldw + k] = __float2bfloat16(v); });
   }

@@ -33,8 +33,12 @@
 // spectral_front.cuh). The bf16 stats backward runs two tensor-core tiles:
 // spectral_stats_bwd_tc_kernel (spectral_stats.cuh) and dwconv_dx_tc_kernel
 // (dwconv_dx.cuh); the float32 one spectral_stats_bwd_kernel below and
-// grad.cu's dwconv_bwd and ln_linear_bwd.
+// grad.cu's dwconv_bwd and ln_linear_bwd. So does the bf16 apply backward:
+// spectral_apply_bwd_tc_kernel (spectral_apply_bwd.cuh) and
+// dwconv_dx_tc_kernel<true, true>; the float32 one spectral_apply_bwd_kernel
+// below and grad.cu's stages.
 #include "dwconv_dx.cuh"
+#include "spectral_apply_bwd.cuh"
 #include "spectral_stats.cuh"
 
 namespace mp {
@@ -739,7 +743,8 @@ spectral_stats_bwd_kernel(const T* __restrict__ x, const float* __restrict__ lnw
   }
 }
 
-// VJP of the apply launch without the MLP tail (K10b): v recomputed; dys =
+// VJP of the apply launch without the MLP tail (K10b), float32 (bf16 runs
+// the tiles of spectral_apply_bwd.cuh and dwconv_dx.cuh): v recomputed; dys =
 // dy * dp (rounded) feeds dv = dys comb^T and the dcomb product; the gate and
 // residual epilogues give the extra input cotangent dys * g + dy; with dp the
 // per-tile partial of d dp = sum dy * (v comb + u g).
@@ -948,7 +953,51 @@ cudaError_t launch_dwconv_dx_tc(const float* dout, const __nv_bfloat16* t,
   cudaError_t err = set_smem(dwconv_dx_tc_kernel<true>, smem);
   if (err != cudaSuccess) return err;
   dwconv_dx_tc_kernel<true><<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
-      dout, t, taps, w, x, lnw, H, W, C, K, shift, eps, vec_in, vec_x, dt, dx, part, 0);
+      dout, t, taps, w, x, lnw, H, W, C, K, shift, eps, vec_in, vec_x, dt, dx, part, 0, nullptr);
+  return cudaGetLastError();
+}
+
+// The bf16 apply backward's first tile (spectral_apply_bwd.cuh): wv [C][C8],
+// taps [C][9] and comb [B][C][C8] as the forward tile's; C up to kFrontMaxC.
+cudaError_t launch_apply_bwd_tc(const __nv_bfloat16* x, const float* lnw, const float* lnb,
+                                const __nv_bfloat16* wv, const __nv_bfloat16* taps,
+                                const __nv_bfloat16* comb, const __nv_bfloat16* gate,
+                                const float* dp, int residual, const __nv_bfloat16* dy,
+                                __nv_bfloat16* un, __nv_bfloat16* t, __nv_bfloat16* v,
+                                __nv_bfloat16* dys, float* dv, float* extra, float* pdp, int ldp,
+                                int B, int H, int W, int C, int shift, float eps,
+                                cudaStream_t stream) {
+  if (C > kFrontMaxC || !aligned(wv, 16) || !aligned(comb, 16)) return cudaErrorInvalidValue;
+  const size_t smem = ApplyBwdPlan(C).bytes;
+  int flags = 0;
+  if (C % 8 == 0 && aligned(x, 16)) flags |= kVecX;
+  if (C % 2 == 0 && aligned(x, 4) && aligned(gate, 4) && aligned(dy, 4) && aligned(dys, 4) &&
+      aligned(dv, 8) && aligned(extra, 8))
+    flags |= kPairs;
+  if (C % 8 == 0 && aligned(un, 16) && aligned(t, 16) && aligned(v, 16)) flags |= kVecOut;
+  cudaError_t err = set_smem(spectral_apply_bwd_tc_kernel, smem);
+  if (err != cudaSuccess) return err;
+  spectral_apply_bwd_tc_kernel<<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
+      x, lnw, lnb, wv, taps, comb, gate, dp, residual, dy, H, W, C, shift, eps, flags, un, t, v,
+      dys, dv, extra, pdp, ldp);
+  return cudaGetLastError();
+}
+
+// Its second tile: dwconv_dx_tc_kernel<true, true> at K = C with the extra
+// cotangent; the part rows at stride ldp.
+cudaError_t launch_apply_dx_tc(const float* dv, const __nv_bfloat16* t, const __nv_bfloat16* taps,
+                               const __nv_bfloat16* wv, const __nv_bfloat16* x, const float* lnw,
+                               const float* extra, __nv_bfloat16* dt, __nv_bfloat16* dx,
+                               float* part, int ldp, int B, int H, int W, int C, int shift,
+                               float eps, cudaStream_t stream) {
+  if (C > kTailMaxC || !aligned(wv, 16)) return cudaErrorInvalidValue;
+  const size_t smem = DwDxPlan(C, C, true).bytes;
+  const int vec_in = C % 8 == 0 && aligned(dv, 16) && aligned(t, 16) && aligned(extra, 16);
+  const int vec_x = C % 8 == 0 && aligned(x, 16) && aligned(dx, 16);
+  cudaError_t err = set_smem(dwconv_dx_tc_kernel<true, true>, smem);
+  if (err != cudaSuccess) return err;
+  dwconv_dx_tc_kernel<true, true><<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
+      dv, t, taps, wv, x, lnw, H, W, C, C, shift, eps, vec_in, vec_x, dt, dx, part, ldp, extra);
   return cudaGetLastError();
 }
 
@@ -1151,12 +1200,77 @@ extern "C" int mp_dwconv_dx_tc(const void* dout, const void* t, const void* taps
                                       (cudaStream_t)stream);
 }
 
-// Backward of mp_spectral_apply without the MLP tail or x2. dy (B, H, W, C)
-// unrolled frame. Outputs, unrolled frame: un (LN'd input), t (float32 v 1x1
-// output), v, dys (dy * dp, rounded), dv (float32), extra (float32 input
-// cotangent of the gate / residual epilogue; NULL when neither), pdp
-// (per-tile d dp partials; NULL without dp), dgate (B, H/8, W/8, C) float32.
-// kc: the channel chunk (mp_spectral_apply_bwd_chunk).
+// The bf16 backward of mp_spectral_apply (C <= 384), first tile: x (B, H,
+// W, C) bf16, LN float32 or NULL; wv [C][C8], taps [C][9], comb [B][C][C8]
+// bf16 (pack_front's operands, wv and comb 16-byte aligned); gate (B, H/8,
+// W/8, C) bf16, dp (B,) float32, each NULL = none; dy (B, H, W, C) bf16,
+// unrolled frame. Outputs, unrolled frame: un, t, v (B, H, W, C) bf16, dys
+// (dy * dp rounded; with dp only), dv (B, H, W, C) float32, extra (float32;
+// NULL without gate and residual), pdp (with dp: the d dp column of every
+// tile's part row, row stride ldp).
+extern "C" int mp_spectral_apply_bwd_tc(const void* x, const void* lnw, const void* lnb,
+                                        const void* wv, const void* taps, const void* comb,
+                                        const void* gate, const void* dp, const void* dy, void* un,
+                                        void* t, void* v, void* dys, void* dv, void* extra,
+                                        void* pdp, int B, int H, int W, int C, int residual,
+                                        int shift, int ldp, float eps, void* stream) {
+  if (H % mp::kTile != 0 || W % mp::kTile != 0 || (dp != nullptr) != (dys != nullptr))
+    return (int)cudaErrorInvalidValue;
+  using bf = const __nv_bfloat16*;
+  using bo = __nv_bfloat16*;
+  auto f = [](const void* p) { return (const float*)p; };
+  return (int)mp::launch_apply_bwd_tc((bf)x, f(lnw), f(lnb), (bf)wv, (bf)taps, (bf)comb, (bf)gate,
+                                      f(dp), residual, (bf)dy, (bo)un, (bo)t, (bo)v, (bo)dys,
+                                      (float*)dv, (float*)extra, (float*)pdp, ldp, B, H, W, C,
+                                      shift, eps, (cudaStream_t)stream);
+}
+
+// Its second tile (C <= 384): dv (B, H, W, C) float32 and t bf16 (unrolled
+// frame), taps and wv as the first tile's, x and lnw as its, extra float32
+// or NULL (added to dx before it rounds). Outputs: dt (B, H, W, C) bf16
+// unrolled frame, dx (B, H, W, C) bf16 x's frame, part rows (stride ldp):
+// the tap partials [9][C], then with LN d ln_w and d ln_b.
+extern "C" int mp_spectral_apply_dx_tc(const void* dv, const void* t, const void* taps,
+                                       const void* wv, const void* x, const void* lnw,
+                                       const void* extra, void* dt, void* dx, void* part, int B,
+                                       int H, int W, int C, int shift, int ldp, float eps,
+                                       void* stream) {
+  if (H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
+  using bf = const __nv_bfloat16*;
+  return (int)mp::launch_apply_dx_tc((const float*)dv, (bf)t, (bf)taps, (bf)wv, (bf)x,
+                                     (const float*)lnw, (const float*)extra, (__nv_bfloat16*)dt,
+                                     (__nv_bfloat16*)dx, (float*)part, ldp, B, H, W, C, shift,
+                                     eps, (cudaStream_t)stream);
+}
+
+// d gate (B, H/8, W/8, C) float32 of the bf16 backward: per window of the
+// rolled frame the sum of dys * x (dys (B, H, W, C) unrolled frame, x rolled).
+extern "C" int mp_spectral_gate_grad(const void* dys, const void* x, void* dgate, int B, int H,
+                                     int W, int C, int shift, void* stream) {
+  if (H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
+  mp::spectral_gate_grad_kernel<__nv_bfloat16>
+      <<<dim3(W / mp::kTile, H / mp::kTile, B), 256, 0, (cudaStream_t)stream>>>(
+          (const __nv_bfloat16*)dys, (const __nv_bfloat16*)x, (float*)dgate, H, W, C, shift);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 apply backward's plans (bytes, static included): tile 1
+// (ApplyBwdPlan) or 2 (DwDxPlan at K = C, its own instance); -1 past C = 384.
+extern "C" long long mp_spectral_apply_bwd_tc_smem(int C, int tile) {
+  if (C > mp::kFrontMaxC) return -1;
+  return tile == 1 ? mp::plan_bytes(mp::spectral_apply_bwd_tc_kernel, mp::ApplyBwdPlan(C).bytes)
+                   : mp::plan_bytes(mp::dwconv_dx_tc_kernel<true, true>,
+                                    mp::DwDxPlan(C, C, true).bytes);
+}
+
+// The float32 backward of mp_spectral_apply without the MLP tail or x2 (bf16
+// runs mp_spectral_apply_bwd_tc, mp_spectral_gate_grad and
+// mp_spectral_apply_dx_tc). dy (B, H, W, C) unrolled frame. Outputs,
+// unrolled frame: un (LN'd input), t (float32 v 1x1 output), v, dys (dy *
+// dp), dv (float32), extra (float32 input cotangent of the gate / residual
+// epilogue; NULL when neither), pdp (per-tile d dp partials; NULL without
+// dp), dgate (B, H/8, W/8, C) float32. kc: the channel chunk
+// (mp_spectral_apply_bwd_chunk).
 extern "C" int mp_spectral_apply_bwd(const void* x, const void* lnw, const void* lnb,
                                      const void* wqkv, const void* wdw, const void* comb,
                                      const void* gate, const void* dp, const void* dy, void* un,
@@ -1164,17 +1278,11 @@ extern "C" int mp_spectral_apply_bwd(const void* x, const void* lnw, const void*
                                      void* pdp, void* dgate, int dtype, int B, int H, int W,
                                      int C, int residual, int shift, int kc, float eps,
                                      void* stream) {
-  if (H % mp::kTile != 0 || W % mp::kTile != 0 || kc <= 0 || kc > C)
+  if (H % mp::kTile != 0 || W % mp::kTile != 0 || kc <= 0 || kc > C || dtype != 0)
     return (int)cudaErrorInvalidValue;
-  auto st = (cudaStream_t)stream;
   auto f = [](const void* p) { return (const float*)p; };
-  if (dtype == 0)
-    return (int)mp::launch_apply_bwd<float>(x, f(lnw), f(lnb), wqkv, wdw, f(comb), gate, f(dp),
-                                            residual, dy, un, (float*)t, v, dys, (float*)dv,
-                                            (float*)extra, (float*)pdp, (float*)dgate, B, H, W,
-                                            C, shift, kc, eps, st);
-  return (int)mp::launch_apply_bwd<__nv_bfloat16>(x, f(lnw), f(lnb), wqkv, wdw, f(comb), gate,
-                                                  f(dp), residual, dy, un, (float*)t, v, dys,
-                                                  (float*)dv, (float*)extra, (float*)pdp,
-                                                  (float*)dgate, B, H, W, C, shift, kc, eps, st);
+  return (int)mp::launch_apply_bwd<float>(x, f(lnw), f(lnb), wqkv, wdw, f(comb), gate, f(dp),
+                                          residual, dy, un, (float*)t, v, dys, (float*)dv,
+                                          (float*)extra, (float*)pdp, (float*)dgate, B, H, W, C,
+                                          shift, kc, eps, (cudaStream_t)stream);
 }

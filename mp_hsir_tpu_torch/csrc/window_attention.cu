@@ -1504,7 +1504,7 @@ cudaError_t launch_window_dx_tc(const __nv_bfloat16* dqkv, const __nv_bfloat16* 
   if (err != cudaSuccess) return err;
   dwconv_dx_tc_kernel<false><<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
       nullptr, dqkv, nullptr, w, x, lnw, H, W, C, K, -shift, eps, vec_in, vec_x, nullptr, dx,
-      part, ldp);
+      part, ldp, nullptr);
   return cudaGetLastError();
 }
 }  // namespace mp

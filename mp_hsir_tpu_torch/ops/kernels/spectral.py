@@ -19,9 +19,17 @@ grad.cu's depthwise and LayerNorm stages: ``mp_spectral_stats_bwd_tc`` (the
 forward tile's front and dq | dk, ``csrc/spectral_stats.cuh``) and
 ``mp_dwconv_dx_tc`` (the transposed stencil, dx and the LayerNorm backward,
 ``csrc/dwconv_dx.cuh``), then the weight product and one in-order sum of the
-per-tile partials (:func:`stats_bwd_tc_plan` mirrors both plans). The eval-only options
-(``x2``, the ``mlp`` tail) have no backward, as in the JAX package; a
-backward through them raises.
+per-tile partials (:func:`stats_bwd_tc_plan` mirrors both plans). The bf16
+apply backward runs two tensor-core tiles too, instead of
+``mp_spectral_apply_bwd`` and grad.cu's depthwise and LayerNorm stages:
+``mp_spectral_apply_bwd_tc`` (v recomputed by the forward front's pieces,
+then dv and the drop-path product from one staged comb tile,
+``csrc/spectral_apply_bwd.cuh``) and ``mp_spectral_apply_dx_tc`` (the same
+second tile at K = C with the extra input cotangent in its epilogue), then
+``mp_spectral_gate_grad``, the two weight products and the in-order sums of
+the per-tile partials (:func:`apply_bwd_tc_plan` mirrors both plans). The
+eval-only options (``x2``, the ``mlp`` tail) have no backward, as in the JAX
+package; a backward through them raises.
 
 Layouts at these functions: NHWC maps; wqkv (3C, C, 1, 1) and wdw
 (3C, 1, 3, 3) conv weights; the optional second input ``x2`` makes the
@@ -68,6 +76,7 @@ FRONT_MAX_C = 384
 FRONT_UNITS = 3
 FRONT_ROWS = 112
 FRONT_K = 64
+FRONT_LDW = 72  # a weight tile's row: 64 deep + 8 (kFrontLdw)
 # the bf16 stats tile (csrc/spectral_stats.cuh): a pass's widest column count
 # (kStatsMaxN) and the dynamic shared memory its plan may take (kStatsBudget)
 STATS_MAX_N = 192
@@ -552,12 +561,38 @@ def pack_front(wqkv, wdw, comb, dt):
     return wv.contiguous(), wdw[2 * c:].reshape(c, 9).to(dt).contiguous(), cb.contiguous()
 
 
+def apply_bwd_tc_plan(c: int) -> dict:
+    """The bf16 apply backward's plans at width ``c``: the first tile's
+    (``ApplyBwdPlan`` in csrc/spectral_apply_bwd.cuh: :func:`front_plan`'s
+    tiling; ``front`` = v [64][ld] | taps [9][cp] | halo [112][ld] | the
+    weight ring of ``ws`` stages or a pass's 1x1 output, whichever is larger;
+    after the front ``post`` = v | dys | ``cs`` comb stages of [64][ld], 3
+    where they fit; ``bytes`` the larger) and the second tile's at K = C
+    (``dx``: :func:`dwconv_dx_plan`)."""
+    pl = front_plan(c)
+    ld = pl["cp"] + 8
+    v = 2 * 64 * ld
+    ws = 2 if pl["passes"] > 1 else 3
+    ring = max(ws * 2 * pl["np"] * FRONT_LDW, 2 * 100 * (pl["np"] + 8))
+    front = v + 2 * 9 * pl["cp"] + 2 * FRONT_ROWS * ld + ring
+    cs = 3 if 5 * v <= STATS_BUDGET else 2
+    post = (2 + cs) * v
+    return dict(pl, ld=ld, ws=ws, cs=cs, front=front, post=post, bytes=max(front, post),
+                dx=dwconv_dx_plan(c, c))
+
+
 @lru_cache(maxsize=None)
-def _apply_entry(bwd: bool = False):
+def _apply_entry(kind: str = "fwd"):
     import ctypes
 
-    if bwd:
+    if kind == "bwd":
         return _build.entry("mp_spectral_apply_bwd", 17, [ctypes.c_int] * 8 + [ctypes.c_float])
+    if kind == "bwd_tc":
+        return _build.entry("mp_spectral_apply_bwd_tc", 16, [ctypes.c_int] * 7 + [ctypes.c_float])
+    if kind == "dx_tc":
+        return _build.entry("mp_spectral_apply_dx_tc", 10, [ctypes.c_int] * 6 + [ctypes.c_float])
+    if kind == "gate":
+        return _build.entry("mp_spectral_gate_grad", 3, [ctypes.c_int] * 5)
     return _build.entry("mp_spectral_apply", 17, [ctypes.c_int] * 10 + [ctypes.c_float])
 
 
@@ -623,7 +658,70 @@ def _apply_launch(x, comb, wqkv, wdw, shift, x2, ln_w, ln_b, residual, gate, sho
     return out
 
 
+def _apply_bwd_tc_launch(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate, dp_scale, eps,
+                         dy):
+    """The bf16 backward: the two tiles, d gate, the two weight products and
+    the in-order sums of the per-tile partial rows (the taps' [9][C], then d
+    ln_w, d ln_b, then d dp): per image over its tiles, then over the images
+    (d dp per image from the first)."""
+    b, h, w, c = x.shape
+    dt = x.dtype
+    if c > FRONT_MAX_C:  # the widest C of both tiles' plans
+        raise ValueError(f"the bf16 spectral apply backward takes C up to {FRONT_MAX_C}, got {c}")
+    _build.check_plan("spectral_apply_bwd", "mp_spectral_apply_bwd_tc_smem", f"C={c}, tile 1", c, 1)
+    _build.check_plan("spectral_apply_bwd", "mp_spectral_apply_bwd_tc_smem", f"C={c}, tile 2", c, 2)
+    x, dy = x.contiguous(), dy.to(dt).contiguous()
+    gate_t = None if gate is None else gate.to(dt).contiguous()
+    wv, wd, cb = pack_front(wqkv, wdw, comb, dt)
+    lnw, lnb, dp = f32(ln_w), f32(ln_b), f32(dp_scale)
+    dev = x.device
+    tiles = b * (h // 8) * (w // 8)
+    like = dict(dtype=dt, device=dev)
+    un, t, v, dtt, dx = (torch.empty((b, h, w, c), **like) for _ in range(5))
+    dys = dy if dp is None else torch.empty_like(un)
+    dv = torch.empty((b, h, w, c), dtype=torch.float32, device=dev)
+    extra = torch.empty_like(dv) if (gate is not None or residual) else None
+    ln = lnw is not None
+    o_dp = 9 * c + (2 * c if ln else 0)  # the part row: taps, [LN], [d dp]
+    ldp = o_dp + int(dp is not None)
+    part = torch.empty((b, tiles // b, ldp), dtype=torch.float32, device=dev)
+    pdp = None if dp is None else part.data_ptr() + 4 * o_dp  # column o_dp of row 0
+    p = _build.ptr
+    err = _apply_entry("bwd_tc")(x.data_ptr(), p(lnw), p(lnb), wv.data_ptr(), wd.data_ptr(),
+                                 cb.data_ptr(), p(gate_t), p(dp), dy.data_ptr(), un.data_ptr(),
+                                 t.data_ptr(), v.data_ptr(), None if dp is None else dys.data_ptr(),
+                                 dv.data_ptr(), p(extra), pdp, b, h, w, c, int(residual), shift,
+                                 ldp, eps, stream_ptr())
+    _build.check("mp_spectral_apply_bwd_tc", err)
+    dgate = None
+    if gate is not None:
+        dgate = torch.empty((b, h // 8, w // 8, c), dtype=torch.float32, device=dev)
+        err = _apply_entry("gate")(dys.data_ptr(), x.data_ptr(), dgate.data_ptr(), b, h, w, c,
+                                   shift, stream_ptr())
+        _build.check("mp_spectral_gate_grad", err)
+    err = _apply_entry("dx_tc")(dv.data_ptr(), t.data_ptr(), wd.data_ptr(), wv.data_ptr(),
+                                x.data_ptr(), p(lnw), p(extra), dtt.data_ptr(), dx.data_ptr(),
+                                part.data_ptr(), b, h, w, c, shift, ldp, eps, stream_ptr())
+    _build.check("mp_spectral_apply_dx_tc", err)
+    dw = torch.zeros((3 * c, c), dtype=torch.float32, device=dev)
+    dw[2 * c:] = wgrad(un.reshape(-1, c), dtt.reshape(-1, c)).t()
+    dcomb = wgrad(v.reshape(b, h * w, c), dys.reshape(b, h * w, c))
+    per_image = sum_parts(part)
+    sums = sum_parts(per_image.unsqueeze(0))[0]
+    dwdw = torch.zeros((3 * c, 9), dtype=torch.float32, device=dev)
+    dwdw[2 * c:] = sums[:9 * c].reshape(9, c).t()
+    APPLY_BWD.record(("spectral_apply_bwd", b, h, w, c, shift, ln, bool(residual),
+                      gate is not None, dp is not None, str(dt)))
+    return (dx, dcomb, dw.reshape(3 * c, c, 1, 1), dwdw.reshape(3 * c, 1, 3, 3),
+            *((sums[9 * c:10 * c], sums[10 * c:11 * c]) if ln else (None, None)),
+            None if dgate is None else dgate.to(gate.dtype), dy,
+            None if dp is None else per_image[:, o_dp].to(dp_scale.dtype))
+
+
 def _apply_bwd_launch(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate, dp_scale, eps, dy):
+    if x.dtype == torch.bfloat16:
+        return _apply_bwd_tc_launch(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate,
+                                    dp_scale, eps, dy)
     b, h, w, c = x.shape
     dt = x.dtype
     kc = _build.chunk("mp_spectral_apply_bwd_chunk", c)
@@ -643,11 +741,11 @@ def _apply_bwd_launch(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate, dp_
     dgate = (torch.empty((b, h // 8, w // 8, c), dtype=torch.float32, device=dev)
              if gate is not None else None)
     p = _build.ptr
-    err = _apply_entry(True)(x.data_ptr(), p(lnw), p(lnb), wq.data_ptr(), wd.data_ptr(),
-                             cb.data_ptr(), p(gate_t), p(dp), dy.data_ptr(), un.data_ptr(),
-                             t.data_ptr(), v.data_ptr(), dys.data_ptr(), dv.data_ptr(), p(extra),
-                             p(pdp), p(dgate), dtype_code(x), b, h, w, c, int(residual), shift,
-                             kc, eps, stream_ptr())
+    err = _apply_entry("bwd")(x.data_ptr(), p(lnw), p(lnb), wq.data_ptr(), wd.data_ptr(),
+                              cb.data_ptr(), p(gate_t), p(dp), dy.data_ptr(), un.data_ptr(),
+                              t.data_ptr(), v.data_ptr(), dys.data_ptr(), dv.data_ptr(), p(extra),
+                              p(pdp), p(dgate), dtype_code(x), b, h, w, c, int(residual), shift,
+                              kc, eps, stream_ptr())
     _build.check("mp_spectral_apply_bwd", err)
     dtt, dwdw_v = dwconv_bwd(dv, t, wd, 2 * c, dt)
     dx, dln, _ = ln_linear_bwd(dtt, wq, 2 * c, x, ln_w, extra_f=extra, shift=-shift, eps=eps)

@@ -1,0 +1,102 @@
+"""Numpy emulation of the bf16 backward's second tile, ``dwconv_dx_tc_kernel``
+with its stencil (csrc/dwconv_dx.cuh), from its own tile map, and the tile
+helpers the emulations of the first tiles share: the spectral stats backward
+(K = 2C, tests/test_torch_stats_bwd.py) and the spectral apply backward (K =
+C, with the extra input cotangent in the epilogue, tests/test_torch_apply_bwd.py).
+Imports no JAX."""
+
+import numpy as np
+import torch
+
+from mp_hsir_tpu_torch.ops.kernels.spectral import dwconv_dx_plan
+
+
+def rnd(a, dt):
+    """``a`` rounded to ``dt`` and back to float32."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dt).float().numpy()
+
+
+def ln(a, w, b, eps):
+    """(xhat, rstd, LN(a) or None) over the last axis."""
+    mu = a.mean(-1, keepdims=True)
+    rs = 1 / np.sqrt(((a - mu) ** 2).mean(-1, keepdims=True) + eps)
+    return (a - mu) * rs, rs, None if w is None else (a - mu) * rs * w + b
+
+
+def tiles(a):
+    """(B, H, W, n) -> (B, H/8, W/8, 10 x 10 halo, n), zero outside the image."""
+    b, h, w, n = a.shape
+    p = np.pad(a, ((0, 0), (1, 1), (1, 1), (0, 0)))
+    out = np.zeros((b, h // 8, w // 8, 100, n), np.float32)
+    for ty in range(h // 8):
+        for tx in range(w // 8):
+            out[:, ty, tx] = p[:, 8 * ty:8 * ty + 10, 8 * tx:8 * tx + 10].reshape(b, 100, n)
+    return out
+
+
+def interior(halo):
+    """(..., 100, n) halo -> (..., 64, n) tile pixels."""
+    return halo.reshape(*halo.shape[:-2], 10, 10, halo.shape[-1])[..., 1:9, 1:9, :].reshape(
+        *halo.shape[:-2], 64, halo.shape[-1])
+
+
+def tile_rows(a):
+    """(B, H, W, n) -> (B, H/8, W/8, 64, n): each tile's pixels in row order."""
+    b, h, w, n = a.shape
+    return a.reshape(b, h // 8, 8, w // 8, 8, n).transpose(0, 1, 3, 2, 4, 5).reshape(
+        b, h // 8, w // 8, 64, n)
+
+
+def untile(t, b, h, w):
+    """(tiles, 64, n) in tile order -> (B, H, W, n)."""
+    n = t.shape[-1]
+    return t.reshape(b, h // 8, w // 8, 8, 8, n).transpose(0, 1, 3, 2, 4, 5).reshape(b, h, w, n)
+
+
+def launch2(x, dout, t, taps, wk, lnw, shift, dt, eps, extra=None):
+    """The second tile on every 8x8 tile (K = dout's channels, in 64-channel
+    chunks): (dt, dx in x's frame, the per-tile partial rows: the taps [9][K],
+    then with LN d ln_w and d ln_b). dout (float32) and t are in the kernel
+    frame, x in its own (read at the roll-back); taps [K][9], wk [K][>= C]
+    the 1x1's rows; ``extra`` (kernel frame, float32) is added to dx before it
+    rounds, after the LayerNorm backward."""
+    b, h, w, c = x.shape
+    k = dout.shape[-1]
+    pl = dwconv_dx_plan(c, k)
+    dq, tt = tiles(dout), tiles(t)
+    nt = dq.shape[1] * dq.shape[2]
+    dtt = np.zeros(dq.shape[:3] + (64, k), np.float32)
+    tp = np.zeros(dq.shape[:3] + (9, k), np.float32)
+    dxn = np.zeros(dq.shape[:3] + (64, c), np.float32)
+    for ch in range(pl["nck"]):
+        ks = np.arange(64 * ch, min(64 * ch + 64, k))
+        d10 = dq[..., ks].reshape(*dq.shape[:3], 10, 10, len(ks))
+        t10 = tt[..., ks].reshape(*dq.shape[:3], 10, 10, len(ks))
+        # the transposed stencil: products rounded, added in tap order
+        s = np.zeros(dq.shape[:3] + (8, 8, len(ks)), np.float32)
+        for ty in range(3):
+            for tx in range(3):
+                s = s + (d10[..., ty:ty + 8, tx:tx + 8, :] * taps[ks, 8 - 3 * ty - tx]).astype(
+                    np.float32)
+        chunk = rnd(s.reshape(*s.shape[:3], 64, len(ks)), dt)
+        dtt[..., ks] = chunk
+        own = d10[..., 1:9, 1:9, :]
+        for tap in range(9):
+            dy, dx = divmod(tap, 3)
+            tp[..., tap, ks] = (t10[..., dy:dy + 8, dx:dx + 8, :] * own).sum((-3, -2))
+        dxn += chunk @ wk[ks, :c]
+    xt = tile_rows(np.roll(x, (shift, shift), axis=(1, 2)))  # x read at the roll-back
+    parts = [tp.reshape(b, h // 8, w // 8, 9 * k)]
+    if lnw is not None:
+        xh, rs, _ = ln(xt, None, None, eps)
+        g = dxn * lnw
+        dx = (g - g.mean(-1, keepdims=True) - xh * (g * xh).mean(-1, keepdims=True)) * rs
+        parts += [(dxn * xh).sum(-2), dxn.sum(-2)]
+    else:
+        dx = dxn
+    if extra is not None:
+        dx = dx + tile_rows(extra)
+    dx = np.roll(untile(rnd(dx, dt).reshape(-1, 64, c), b, h, w), (-shift, -shift), axis=(1, 2))
+    assert nt == (h // 8) * (w // 8)
+    return (untile(dtt.reshape(-1, 64, k), b, h, w), dx,
+            np.concatenate(parts, -1).reshape(b * nt, -1))

@@ -1063,6 +1063,102 @@ def test_cuda_spectral_stats_bwd_bf16_past_384_raises():
                    "float32")
 
 
+# The bf16 spectral apply backward (K10b): spectral_apply_bwd_tc_kernel
+# (csrc/spectral_apply_bwd.cuh) and dwconv_dx_tc_kernel<true, true> at K = C
+# at every preset width and C = 36 and 27, in the call shapes of the train
+# steps: the PGSSTB call (gate with drop-path [1.25, 0.0] at shift 0 and 4,
+# and without drop-path) and the TransformerBlock call (LN, residual); on 3
+# tiles (1x8x24) and 12 (2x16x24: two images, a non-square tile grid)
+APPLY_BWD_CASES = [(c, b, h) for c in (64, 128, 256, 96, 192, 384, 36, 27)
+                   for b, h in ((1, 8), (2, 16))]
+APPLY_BWD_CALLS = (dict(gate=True, dp=True, shift=0), dict(gate=True, dp=True, shift=4),
+                   dict(gate=True, dp=False, shift=4), dict(ln=True, residual=True, shift=0))
+
+
+def _apply_bwd_inputs(c, b, h, w, dev):
+    """((x, comb, wqkv, wdw), (ln_w, ln_b), gate, dy), float32."""
+    r = _rng(150 + c + b)
+    f = lambda *s, scale=1.0: _t(_n(r, s, scale)).to(dev)  # noqa: E731
+    return ((f(b, h, w, c), f(b, c, c, scale=c ** -0.5), f(3 * c, c, 1, 1, scale=c ** -0.5),
+             f(3 * c, 1, 3, 3, scale=1 / 3)), (1 + f(c, scale=0.1), f(c, scale=0.1)),
+            f(b, h // 8, w // 8, c, scale=0.5), f(b, h, w, c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,b,h", APPLY_BWD_CASES)
+def test_cuda_spectral_apply_bwd_tiles_match_plain(c, b, h, monkeypatch):
+    """The apply backward on the card against spectral_apply_bwd_plain, every
+    output: bf16 (the two tiles, d gate, wgrad, the part sums) within 3e-2
+    and float32 (mp_spectral_apply_bwd + dwconv_bwd + ln_linear_bwd, SIMT)
+    within 1e-4 of each output's max-abs. One counted launch per call; the
+    bf16 route launches tile 1, d gate where there is a gate, and tile 2, and
+    no dwconv_bwd or ln_linear_bwd; two bf16 calls give bitwise the same
+    outputs (no float atomics). Both tiles' plans within the device's limit,
+    each at most its mirror's dynamic bytes plus the static; the float32
+    plan as it was."""
+    from mp_hsir_tpu_torch.ops.kernels import _build, spectral as sp
+
+    dev = _cuda()
+    (x, comb, wq, wd), (lw, lb), gate, dy = _apply_bwd_inputs(c, b, h, 24, dev)
+    dps = torch.tensor([1.25, 0.0][:b], device=dev)
+    calls = []
+    for name in ("dwconv_bwd", "ln_linear_bwd"):
+        fn = getattr(sp, name)
+        monkeypatch.setattr(sp, name,
+                            lambda *a, _f=fn, _n=name, **k: calls.append(_n) or _f(*a, **k))
+    get = sp._apply_entry
+
+    def counted(kind="fwd"):
+        fn = get(kind)
+        return lambda *a: calls.append(fn.__name__) or fn(*a)
+
+    monkeypatch.setattr(sp, "_apply_entry", counted)
+    for dt, tol in ((torch.bfloat16, 3e-2), (torch.float32, 1e-4)):
+        bf16 = dt == torch.bfloat16
+        for kw in APPLY_BWD_CALLS:
+            ln, g = kw.get("ln", False), kw.get("gate", False)
+            call = (x.to(dt), comb, wq, wd, kw["shift"], lw if ln else None, lb if ln else None,
+                    kw.get("residual", False), gate.to(dt) if g else None,
+                    dps if kw.get("dp") else None, 1e-5, dy.to(dt))
+            what = f"{dt} {kw}"
+            _route.reset_counters()
+            calls.clear()
+            got = sp._apply_bwd_launch(*call)
+            assert _route.COUNTERS["spectral_apply_bwd"].launches == 1, what
+            want = (["mp_spectral_apply_bwd_tc"] + ["mp_spectral_gate_grad"] * g
+                    + ["mp_spectral_apply_dx_tc"] if bf16 else
+                    ["mp_spectral_apply_bwd", "dwconv_bwd", "ln_linear_bwd"])
+            assert calls == want, (what, calls)
+            _outputs_close(got, sp.spectral_apply_bwd_plain(*call), tol, what)
+            if bf16:
+                again = sp._apply_bwd_launch(*call)
+                assert all(a is None or torch.equal(a, r) for a, r in zip(got, again)), what
+    pl, limit = sp.apply_bwd_tc_plan(c), _build.smem_limit()
+    n1 = _build.plan_bytes("mp_spectral_apply_bwd_tc_smem", c, 1)
+    n2 = _build.plan_bytes("mp_spectral_apply_bwd_tc_smem", c, 2)
+    assert pl["bytes"] < n1 <= min(pl["bytes"] + 1024, limit), n1
+    assert pl["dx"]["bytes"] < n2 <= min(pl["dx"]["bytes"] + 1024, limit), n2
+    if c in APPLY_BWD_PLANS:
+        kc = _build.chunk("mp_spectral_apply_bwd_chunk", c)
+        assert _build.plan_bytes("mp_spectral_apply_bwd_smem", c, kc) == APPLY_BWD_PLANS[c]
+
+
+@pytest.mark.cuda
+def test_cuda_spectral_apply_bwd_bf16_past_384_raises():
+    """The bf16 apply backward takes C up to 384 and raises above it (no
+    fallback); float32 runs its SIMT kernels."""
+    from mp_hsir_tpu_torch.ops.kernels import spectral as sp
+
+    dev = _cuda()
+    (x, comb, wq, wd), _, gate, dy = _apply_bwd_inputs(400, 1, 8, 8, dev)
+    with pytest.raises(ValueError, match="C up to 384"):
+        sp._apply_bwd_launch(x.to(torch.bfloat16), comb, wq, wd, 4, None, None, False,
+                             gate.to(torch.bfloat16), None, 1e-5, dy.to(torch.bfloat16))
+    call = (x, comb, wq, wd, 4, None, None, False, gate, None, 1e-5, dy)
+    _outputs_close(sp._apply_bwd_launch(*call), sp.spectral_apply_bwd_plain(*call), 1e-4,
+                   "float32")
+
+
 # The bf16 window-attention backward (K8): window_attention_bwd_tc_kernel
 # (tile 1) and dwconv_dx_tc_kernel without its stencil (tile 2) at every
 # (C, heads) of both presets' train steps (dh 32, 64, 48, 96) and C = 36 and

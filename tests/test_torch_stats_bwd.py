@@ -4,7 +4,8 @@ own tile maps (launch 1, ``spectral_stats_bwd_tc_kernel``: the head-grouped
 q|k columns with dh padded to dhp in groups and passes, dG staged
 [nH][dhp][dhp], dq | dk per head; launch 2, ``dwconv_dx_tc_kernel``: the
 64-channel stencil chunks, dxn summed over the chunks, the LayerNorm
-epilogue and the roll-back, the per-tile partials) and the wrapper's weight
+epilogue and the roll-back, the per-tile partials, emulated in
+tests/dwconv_dx_emulation.py) and the wrapper's weight
 product and in-order sums, at the rounding points of
 ``spectral_stats_bwd_plain``, against it; one tiny case against JAX's
 ``_sp0_bwd_call`` in interpret mode. The kernels themselves are held against
@@ -15,9 +16,13 @@ import numpy as np
 import pytest
 import torch
 
+from dwconv_dx_emulation import (
+    interior as _interior, launch2 as _launch2, ln as _ln, rnd as _rnd, tiles as _tiles,
+    untile as _untile,
+)
 from mp_hsir_tpu_torch.ops.kernels.spectral import (
-    DX_LDD, DX_LDT, STATS_BUDGET, dwconv_dx_plan, pack_stats, qk_row, spectral_stats,
-    spectral_stats_bwd_plain, stats_bwd_tc_plan, stats_plan,
+    DX_LDD, DX_LDT, STATS_BUDGET, pack_stats, qk_row, spectral_stats, spectral_stats_bwd_plain,
+    stats_bwd_tc_plan, stats_plan,
 )
 from torch_port_inputs import normal as _n, rng as _rng, uniform as _u
 
@@ -34,38 +39,6 @@ PLANS = {(64, 2): (96768, 3, 161664), (128, 4): (119040, 3, 186240),
          (192, 4): (183296, 3, 210816),
          (384, 8): (188672, 2, 192768), (36, 2): (96768, 3, 161664),
          (27, 3): (68160, 3, 161664)}
-
-
-def _rnd(a, dt):
-    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dt).float().numpy()
-
-
-def _ln(a, w, b, eps):
-    mu = a.mean(-1, keepdims=True)
-    rs = 1 / np.sqrt(((a - mu) ** 2).mean(-1, keepdims=True) + eps)
-    return (a - mu) * rs, rs, None if w is None else (a - mu) * rs * w + b
-
-
-def _tiles(a):
-    """(B, H, W, n) -> (B, H/8, W/8, 10 x 10 halo, n), zero outside the image."""
-    b, h, w, n = a.shape
-    p = np.pad(a, ((0, 0), (1, 1), (1, 1), (0, 0)))
-    out = np.zeros((b, h // 8, w // 8, 100, n), np.float32)
-    for ty in range(h // 8):
-        for tx in range(w // 8):
-            out[:, ty, tx] = p[:, 8 * ty:8 * ty + 10, 8 * tx:8 * tx + 10].reshape(b, 100, n)
-    return out
-
-
-def _interior(halo):
-    """(..., 100, n) halo -> (..., 64, n) tile pixels."""
-    return halo.reshape(*halo.shape[:-2], 10, 10, halo.shape[-1])[..., 1:9, 1:9, :].reshape(
-        *halo.shape[:-2], 64, halo.shape[-1])
-
-
-def _untile(t, b, h, w):
-    n = t.shape[-1]
-    return t.reshape(b, h // 8, w // 8, 8, 8, n).transpose(0, 1, 3, 2, 4, 5).reshape(b, h, w, n)
 
 
 def _launch1(x, wq, wd, heads, shift, lnw, lnb, dgram, dnq, dnk, dt, eps, transposed=True):
@@ -114,51 +87,6 @@ def _launch1(x, wq, wd, heads, shift, lnw, lnb, dgram, dnq, dnk, dt, eps, transp
                 dqk[..., rows[n]] = v[..., :dh]
     return un, _untile(t_out.reshape(-1, 64, 2 * c), b, h, w), _untile(
         dqk.reshape(-1, 64, 2 * c), b, h, w)
-
-
-def _launch2(x, dqk, t, wd, wq, lnw, shift, dt, eps):
-    """The second tile on every 8x8 tile (K = 2C in 64-channel chunks): (dtt,
-    dx in x's frame, the per-tile partial rows)."""
-    b, h, w, c = x.shape
-    k2 = 2 * c
-    pl = dwconv_dx_plan(c, k2)
-    dq, tt = _tiles(dqk), _tiles(t)
-    nt = dq.shape[1] * dq.shape[2]
-    dtt = np.zeros(dq.shape[:3] + (64, k2), np.float32)
-    taps = np.zeros(dq.shape[:3] + (9, k2), np.float32)
-    dxn = np.zeros(dq.shape[:3] + (64, c), np.float32)
-    for ch in range(pl["nck"]):
-        ks = np.arange(64 * ch, min(64 * ch + 64, k2))
-        d10 = dq[..., ks].reshape(*dq.shape[:3], 10, 10, len(ks))
-        t10 = tt[..., ks].reshape(*dq.shape[:3], 10, 10, len(ks))
-        # the transposed stencil: products rounded, added in tap order
-        s = np.zeros(dq.shape[:3] + (8, 8, len(ks)), np.float32)
-        for ty in range(3):
-            for tx in range(3):
-                s = s + (d10[..., ty:ty + 8, tx:tx + 8, :] * wd[ks, 8 - 3 * ty - tx]).astype(
-                    np.float32)
-        chunk = _rnd(s.reshape(*s.shape[:3], 64, len(ks)), dt)
-        dtt[..., ks] = chunk
-        own = d10[..., 1:9, 1:9, :]
-        for tap in range(9):
-            dy, dx = divmod(tap, 3)
-            taps[..., tap, ks] = (t10[..., dy:dy + 8, dx:dx + 8, :] * own).sum((-3, -2))
-        dxn += chunk @ wq[ks, :c]
-    raw = np.roll(x, (shift, shift), axis=(1, 2))  # x read at the roll-back
-    xt = raw.reshape(b, h // 8, 8, w // 8, 8, c).transpose(0, 1, 3, 2, 4, 5).reshape(
-        b, h // 8, w // 8, 64, c)
-    parts = [taps.reshape(b, h // 8, w // 8, 9 * k2)]
-    if lnw is not None:
-        xh, rs, _ = _ln(xt, None, None, eps)
-        g = dxn * lnw
-        dx = (g - g.mean(-1, keepdims=True) - xh * (g * xh).mean(-1, keepdims=True)) * rs
-        parts += [(dxn * xh).sum(-2), dxn.sum(-2)]
-    else:
-        dx = dxn
-    dx = np.roll(_untile(_rnd(dx, dt).reshape(-1, 64, c), b, h, w), (-shift, -shift), axis=(1, 2))
-    assert nt == (h // 8) * (w // 8)
-    return (_untile(dtt.reshape(-1, 64, k2), b, h, w), dx,
-            np.concatenate(parts, -1).reshape(b * nt, -1))
 
 
 def _emulate(x, wqkv, wdw, heads, shift, ln_w, ln_b, eps, dgram, dnq, dnk, transposed=True):
