@@ -18,10 +18,12 @@ Phases (any failure exits non-zero; no phase's error is caught):
    presets' train steps beside the float32 kernel's), and the bf16 spectral
    apply backward's two tiles (their registers and spills, their plan bytes
    at every width of the presets' train steps beside the float32 kernel's),
-   and the registers and spills of the bf16 weight product's 16 instances
-   (copy widths of A and B) beside the guard of K10a's stencil tile
-   dwconv_dx_tc_kernel<true, false> (<= 128 registers, no spills) and K10b's
-   instance <true, true>.
+   and the bf16 GDFN backward's two tiles (their registers and spills, their
+   plan bytes at every width of the presets' train steps beside the float32
+   kernel's), and the registers and spills of the bf16 weight product's 16
+   instances (copy widths of A and B) beside the guard of K10a's stencil tile
+   dwconv_dx_tc_kernel<true, false, false> (<= 128 registers, no spills),
+   K10b's instance <true, true, false> and K11's <true, true, true>.
 2. Kernel checks: every kernel wrapper on the card at each shape the
    flagship 512x512x31 eval forward gives it, in bf16 from numpy-seeded
    inputs, against its plain PyTorch version on the same inputs; also once
@@ -70,8 +72,9 @@ Phases (any failure exits non-zero; no phase's error is caught):
    entry name, the two mp_wgrad calls of window_attention_bwd,
    spectral_apply_bwd and gdfn_bwd told apart as dWqkv / dWp, dWv / dcomb
    and dW_in / dW_out; the bf16 spectral_apply_bwd's as tile 1, tile 2,
-   wgrad dWv, wgrad dcomb, d gate and sums), whose sum is the backward
-   alone; two bf16 spectral_apply_bwd calls must agree bitwise; the stages
+   wgrad dWv, wgrad dcomb, d gate and sums, the bf16 gdfn_bwd's as tile 1,
+   tile 2, wgrad dW_in, wgrad dW_out and sums), whose sum is the backward
+   alone; two bf16 spectral_apply_bwd or gdfn_bwd calls must agree bitwise; the stages
    per step, and their mp_wgrad stages summed, follow phase 6 (and phase 12 for phase
    11's calls). Then the wgrad phase: every weight product (nb, P, M, N)
    of the step, on seeded inputs made on the card, bf16 and float32 against
@@ -461,6 +464,9 @@ def plan_of(spec) -> dict:
         return dict(smem=n, smem_whole=n, kc=c, c=c)
     if name == "spectral_apply_bwd" and _code(spec):  # the bf16 tiles: the larger plan
         n = max(_build.plan_bytes("mp_spectral_apply_bwd_tc_smem", c, tile) for tile in (1, 2))
+        return dict(smem=n, smem_whole=n, kc=c, c=c)
+    if name == "gdfn_bwd" and _code(spec):  # the bf16 tiles: the larger plan
+        n = max(_build.plan_bytes(f"mp_gdfn_{tile}_tc_smem", c) for tile in ("bwd", "dx"))
         return dict(smem=n, smem_whole=n, kc=c, c=c)
     if name == "window_attention_bwd" and _code(spec):  # the bf16 tiles: the larger plan
         n = max(_build.plan_bytes("mp_window_attention_bwd_tc_smem", *shape),
@@ -1155,17 +1161,19 @@ BWD_SPLIT = {"mlp_bwd": ("mlp", "_entry"), "spectral_stats_bwd": ("spectral", "_
              "window_attention_bwd": ("window_attention", "_entry"),
              "spectral_apply_bwd": ("spectral", "_apply_entry"), "gdfn_bwd": ("gdfn", "_entry")}
 # the stages named for what they are rather than by C entry (the bf16
-# spectral apply backward's; an entry not listed keeps its name, so that the
-# parent tree's split reads as before)
+# spectral apply and GDFN backwards'; an entry not listed keeps its name, so
+# that the parent tree's split reads as before)
 STAGE_NAMES = {"spectral_apply_bwd": {"mp_spectral_apply_bwd_tc": "tile 1",
                                       "mp_spectral_apply_dx_tc": "tile 2",
-                                      "mp_spectral_gate_grad": "d gate", "mp_sum_parts": "sums"}}
+                                      "mp_spectral_gate_grad": "d gate", "mp_sum_parts": "sums"},
+               "gdfn_bwd": {"mp_gdfn_bwd_tc": "tile 1", "mp_gdfn_dx_tc": "tile 2",
+                            "mp_sum_parts": "sums"}}
 # the kernels whose backward calls mp_wgrad twice: the two calls' stage keys
 # (each call's first, then its second)
 WGRAD_STAGES = {"mlp_bwd": MLP_BWD_STAGES[1:3],
                 "window_attention_bwd": ("mp_wgrad dWqkv", "mp_wgrad dWp"),
                 "spectral_apply_bwd": ("wgrad dWv", "wgrad dcomb"),
-                "gdfn_bwd": ("mp_wgrad dW_in", "mp_wgrad dW_out")}
+                "gdfn_bwd": ("wgrad dW_in", "wgrad dW_out")}
 
 
 def bwd_split(name: str, kern, flops: float, ms: float, reps: int = 5) -> dict:
@@ -1180,8 +1188,9 @@ def bwd_split(name: str, kern, flops: float, ms: float, reps: int = 5) -> dict:
     (a grad.cu entry with its own part sums; the two mp_wgrad calls of
     window_attention_bwd as ``mp_wgrad dWqkv`` and ``mp_wgrad dWp``, of
     spectral_apply_bwd as ``wgrad dWv`` and ``wgrad dcomb``, of gdfn_bwd as
-    ``mp_wgrad dW_in`` and ``mp_wgrad dW_out``; the bf16 spectral_apply_bwd's
-    tiles, d gate and sums by STAGE_NAMES), so that the same script splits
+    ``wgrad dW_in`` and ``wgrad dW_out``; the bf16 spectral_apply_bwd's
+    tiles, d gate and sums and the bf16 gdfn_bwd's tiles and sums by
+    STAGE_NAMES), so that the same script splits
     the trees before and after a redesign. Their sum is the backward alone
     (``kernel_ms``), without the wrapper's host time and weight packing;
     rates are flops over the wrapper's and that time."""
@@ -1280,7 +1289,7 @@ def train_kernel_checks(specs: Counter, dev, streamed: bool = True) -> list:
         if name.endswith("_bwd"):
             kern, plain, byts, flops = make_bwd_call(spec, dev, torch.bfloat16)
             err, rel = compare_pair(kern, plain, BF16_TOL)
-            if name == "spectral_apply_bwd":  # no float atomics: two calls agree bitwise
+            if name in ("spectral_apply_bwd", "gdfn_bwd"):  # no float atomics: bitwise
                 one, two = kern(), kern()
                 if not all(a is None or torch.equal(a, r) for a, r in zip(one, two)):
                     raise AssertionError(f"{name} {spec[1:-1]}: two bf16 calls differ")
@@ -1872,7 +1881,7 @@ def log_stats_bwd_plans(_build, cfgs) -> dict:
     spills, and their shared-memory plans (bytes, static included) at every
     (C, heads) of the presets' train steps, beside the float32 kernel's."""
     regs = {k: ptxas_report(k) for k in ("spectral_stats_bwd_tc_kernel",
-                                         "dwconv_dx_tc_kernelILb1ELb0E")}
+                                         "dwconv_dx_tc_kernelILb1ELb0ELb0E")}
     log("  bf16 spectral_stats_bwd tiles (ptxas): " + ", ".join(
         f"{k} {v.get('registers', '?')} registers, spills {v.get('spill_stores', '?')}/"
         f"{v.get('spill_loads', '?')} B" for k, v in regs.items()))
@@ -1898,7 +1907,7 @@ def log_window_bwd_plans(_build, cfgs) -> dict:
 
     regs = {f"tile 1 DHP {d}": ptxas_report(f"window_attention_bwd_tc_kernelILi{d}E")
             for d in HEAD_WIDTHS}
-    regs["tile 2"] = ptxas_report("dwconv_dx_tc_kernelILb0ELb0E")
+    regs["tile 2"] = ptxas_report("dwconv_dx_tc_kernelILb0ELb0ELb0E")
     log("  bf16 window_attention_bwd tiles (ptxas): " + ", ".join(
         f"{k} {v.get('registers', '?')} registers, spills {v.get('spill_stores', '?')}/"
         f"{v.get('spill_loads', '?')} B" for k, v in regs.items()))
@@ -1923,7 +1932,7 @@ def log_apply_bwd_plans(_build, cfgs) -> dict:
     width of the presets' train steps, beside the float32 kernel's at its
     chunk."""
     regs = {"tile 1": ptxas_report("spectral_apply_bwd_tc_kernel"),
-            "tile 2": ptxas_report("dwconv_dx_tc_kernelILb1ELb1E")}
+            "tile 2": ptxas_report("dwconv_dx_tc_kernelILb1ELb1ELb0E")}
     log("  bf16 spectral_apply_bwd tiles (ptxas): " + ", ".join(
         f"{k} {v.get('registers', '?')} registers, spills {v.get('spill_stores', '?')}/"
         f"{v.get('spill_loads', '?')} B" for k, v in regs.items()))
@@ -1939,6 +1948,29 @@ def log_apply_bwd_plans(_build, cfgs) -> dict:
     log("  bf16 spectral_apply_bwd plans (B: tile 1, tile 2; float32's at its chunk in "
         "brackets): " + ", ".join(f"{k} {v['tile1']}, {v['tile2']} ({v['f32']} kc {v['f32_kc']})"
                                   for k, v in plans.items()))
+    return dict(ptxas=regs, plans=plans)
+
+
+def log_gdfn_bwd_plans(_build, cfgs) -> dict:
+    """The bf16 GDFN backward's two tiles: their registers and spills, and
+    their shared-memory plans (bytes, static included) at every width of the
+    presets' train steps, beside the float32 kernel's at its chunk."""
+    regs = {"tile 1": ptxas_report("gdfn_bwd_tc_kernel"),
+            "tile 2": ptxas_report("dwconv_dx_tc_kernelILb1ELb1ELb1E")}
+    log("  bf16 gdfn_bwd tiles (ptxas): " + ", ".join(
+        f"{k} {v.get('registers', '?')} registers, spills {v.get('spill_stores', '?')}/"
+        f"{v.get('spill_loads', '?')} B" for k, v in regs.items()))
+    widths = sorted({s[4] for cfg in cfgs for s in train_path_specs(cfg, 1, 64, "bf16")
+                     if s[0] == "gdfn_bwd"})
+    plans = {}
+    for c in widths:
+        kc = _build.chunk("mp_gdfn_bwd_chunk", c)
+        plans[f"C={c}"] = dict(tile1=_build.plan_bytes("mp_gdfn_bwd_tc_smem", c),
+                               tile2=_build.plan_bytes("mp_gdfn_dx_tc_smem", c),
+                               f32=_build.plan_bytes("mp_gdfn_bwd_smem", c, kc), f32_kc=kc)
+    log("  bf16 gdfn_bwd plans (B: tile 1, tile 2; float32's at its chunk in brackets): "
+        + ", ".join(f"{k} {v['tile1']}, {v['tile2']} ({v['f32']} kc {v['f32_kc']})"
+                    for k, v in plans.items()))
     return dict(ptxas=regs, plans=plans)
 
 
@@ -1986,16 +2018,18 @@ def log_wgrad_ptxas() -> dict:
         "instances (ptxas): " + ", ".join(
         f"{k} {v.get('registers', '?')} regs, spills {v.get('spill_stores', '?')}/"
         f"{v.get('spill_loads', '?')} B" for k, v in regs.items()))
-    guard = ptxas_report("dwconv_dx_tc_kernelILb1ELb0E")
+    guard = ptxas_report("dwconv_dx_tc_kernelILb1ELb0ELb0E")
     held = None  # no report: the library was built by an earlier process
     if guard:
         held = guard.get("registers", 999) <= 128 and not guard.get("spill_stores", 1)
     verdict = {None: "no ptxas report in this process", True: "holds", False: "BROKEN"}[held]
-    k10b = ptxas_report("dwconv_dx_tc_kernelILb1ELb1E")
-    log(f"  dwconv_dx_tc_kernel<true, false> (K10a): {guard} ({verdict}: <= 128 registers, no "
-        f"spills); <true, true> (K10b): {k10b}")
+    k10b = ptxas_report("dwconv_dx_tc_kernelILb1ELb1ELb0E")
+    k11 = ptxas_report("dwconv_dx_tc_kernelILb1ELb1ELb1E")
+    log(f"  dwconv_dx_tc_kernel<true, false, false> (K10a): {guard} ({verdict}: <= 128 "
+        f"registers, no spills); <true, true, false> (K10b): {k10b}; <true, true, true> (K11): "
+        f"{k11}")
     return dict(wgrad=regs, wgrad_smem=smem, dwconv_dx_true=guard, guard_holds=held,
-                dwconv_dx_extra=k10b)
+                dwconv_dx_extra=k10b, dwconv_dx_f32t=k11)
 
 
 def main() -> None:
@@ -2066,6 +2100,7 @@ def main() -> None:
     stats_bwd_plans = log_stats_bwd_plans(_build, preset_cfgs)
     window_bwd_plans = log_window_bwd_plans(_build, preset_cfgs)
     apply_bwd_plans = log_apply_bwd_plans(_build, preset_cfgs)
+    gdfn_bwd_plans = log_gdfn_bwd_plans(_build, preset_cfgs)
 
     specs = path_specs(cfg, SIZE, "torch.bfloat16")
 
@@ -2194,7 +2229,7 @@ def main() -> None:
                            gdfn_plans=gdfn_plans, mlp_bwd_plans=mlp_bwd_plans,
                            stats_bwd_plans=stats_bwd_plans,
                            window_bwd_plans=window_bwd_plans, apply_bwd_plans=apply_bwd_plans,
-                           wgrad_ptxas=wgrad_ptxas,
+                           gdfn_bwd_plans=gdfn_bwd_plans, wgrad_ptxas=wgrad_ptxas,
                            seconds=time.perf_counter() - t_start), fh, indent=1)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card)

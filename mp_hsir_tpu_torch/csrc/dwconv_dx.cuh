@@ -48,6 +48,15 @@
 // after the tap and LayerNorm partials). An instance of its own: K10a's
 // dwconv_dx_tc_kernel<true, false> keeps its code as it was.
 //
+// With kF32T as well (the second launch of the bf16 GDFN backward, K11, at K
+// = 2 hid: gdfn.cu) t is float32, as gdfn_bwd_plain keeps it between
+// project_in and the depthwise conv: its halo chunk is staged as float32
+// [100][68] like dout's and the tap partials read it so; vec_in gives the
+// floats per copy of dout and t (4: 16-byte, 2: 8-byte cp.async, 1: element
+// loads; K % 4 != 0 where hid is odd, 1021 on the main path) and vec_x (C %
+// 8 == 0, x, dx and extra 16-byte aligned) the extra's 16-byte copies.
+// Compiled out of the instances with bf16 t.
+//
 // Bound: 2 C K (dxn) + 36 K flops per pixel against ~8K + 2C bytes per pixel
 // read and 2K + 2C written (K = 2C: ~22 C bytes): bytes bound it at these
 // widths, the stencil and the product overlap no copy but the next chunk's.
@@ -59,8 +68,11 @@
 
 namespace mp {
 
-constexpr int kDxLdd = 68;  // dout chunk row: 64 floats + 4 (272 B)
+constexpr int kDxLdd = 68;  // dout (and float32 t) chunk row: 64 floats + 4 (272 B)
 constexpr int kDxLdt = 72;  // t and dt chunk rows: 64 bf16 + 8 (144 B, an odd multiple of 16)
+// the element type of t: float32 with kF32T, else bf16
+template <bool kF32T>
+using DxT = std::conditional_t<kF32T, float, __nv_bfloat16>;
 // the dynamic bytes a plan may take: the H100's opt-in limit less the static
 constexpr size_t kDxBudget = 232448 - 1024;
 
@@ -73,16 +85,17 @@ constexpr size_t kDxBudget = 232448 - 1024;
 // kExtra (K = C) the extra cotangent's rows [64][CK + 4] float32 after them,
 // within two stages. Without the stencil a stage is (the cotangent chunk
 // [64][72] bf16, w rows) and there is no dt chunk: 3 stages at every C up to
-// 384.
+// 384. With float32 t (f32t) its halo chunk is [100][68] float32 like dout's.
 struct DwDxPlan {
   int CK, ldw, nck, S;
   size_t dq, tt, wt, stage, da, bytes;
-  __host__ __device__ DwDxPlan(int C, int K, bool stencil) {
+  __host__ __device__ DwDxPlan(int C, int K, bool stencil, bool f32t = false) {
     CK = round_up64(C);
     ldw = CK + 8;
     nck = (K + 63) / 64;
     dq = stencil ? sizeof(float) * kHaloPix * kDxLdd : 0;
-    tt = sizeof(__nv_bfloat16) * (stencil ? kHaloPix : kPix) * kDxLdt;
+    tt = stencil && f32t ? sizeof(float) * kHaloPix * kDxLdd
+                         : sizeof(__nv_bfloat16) * (stencil ? kHaloPix : kPix) * kDxLdt;
     wt = sizeof(__nv_bfloat16) * 64 * ldw;
     stage = dq + tt + wt;
     da = stencil ? sizeof(__nv_bfloat16) * kPix * kDxLdt : 0;
@@ -102,21 +115,24 @@ struct DwDxPlan {
 // the stencil, t is the cotangent (B, H, W, K) bf16 at the 1x1 output, dout,
 // taps and dt are unused, and the part row of a tile, at part + tile ldp,
 // holds the column sums [K] of t, then d ln_w, d ln_b (ldp is read only
-// here, and with kExtra). extra: kExtra's cotangent (NULL: none).
-template <bool kStencil, bool kExtra = false>
+// here, and with kExtra). extra: kExtra's cotangent (NULL: none). kF32T: t
+// float32 (with the stencil and kExtra only).
+template <bool kStencil, bool kExtra = false, bool kF32T = false>
 __global__ void __launch_bounds__(kThreads)
-dwconv_dx_tc_kernel(const float* __restrict__ dout, const __nv_bfloat16* __restrict__ t,
+dwconv_dx_tc_kernel(const float* __restrict__ dout, const DxT<kF32T>* __restrict__ t,
                     const __nv_bfloat16* __restrict__ taps, const __nv_bfloat16* __restrict__ w,
                     const __nv_bfloat16* __restrict__ x, const float* __restrict__ lnw, int H,
                     int W, int C, int K, int shift, float eps, int vec_in, int vec_x,
                     __nv_bfloat16* __restrict__ dt_out, __nv_bfloat16* __restrict__ dx_out,
                     float* __restrict__ part, int ldp, const float* __restrict__ extra) {
   using bf16 = __nv_bfloat16;
+  using TT = DxT<kF32T>;
   extern __shared__ float4 dwdx_dyn[];
   // halo pixel -> kernel-frame pixel (-1: outside the image)
   __shared__ int hpix[kStencil ? kHaloPix : 1];
   constexpr int kRows = kStencil ? kHaloPix : kPix;  // rows of a staged t chunk
-  const DwDxPlan pl(C, K, kStencil);
+  constexpr int kLdt = kF32T ? kDxLdd : kDxLdt;      // its row
+  const DwDxPlan pl(C, K, kStencil, kF32T);
   const int CK = pl.CK, ldw = pl.ldw, C8 = round_up8(C), groups = CK / 64;
   char* sm = reinterpret_cast<char*>(dwdx_dyn);
   bf16* da = reinterpret_cast<bf16*>(sm);  // [64][kDxLdt] the rounded dt chunk (stencil)
@@ -147,8 +163,8 @@ dwconv_dx_tc_kernel(const float* __restrict__ dout, const __nv_bfloat16* __restr
   auto rg = front_ring(reinterpret_cast<bf16*>(ring), pl.stage / sizeof(bf16), pl.S, pl.nck,
       [&](int j, bf16* dst) {
         float* dq = reinterpret_cast<float*>(dst);
-        bf16* tt = reinterpret_cast<bf16*>(reinterpret_cast<char*>(dst) + pl.dq);
-        bf16* wt = tt + kRows * kDxLdt;
+        TT* tt = reinterpret_cast<TT*>(reinterpret_cast<char*>(dst) + pl.dq);
+        bf16* wt = reinterpret_cast<bf16*>(tt + kRows * kLdt);
         const int k0 = 64 * j;
         if constexpr (!kStencil) {  // the tile's 64 pixel rows of the cotangent chunk
           if (vec_in) {
@@ -162,6 +178,27 @@ dwconv_dx_tc_kernel(const float* __restrict__ dout, const __nv_bfloat16* __restr
             for (int u = threadIdx.x; u < kPix * 64; u += blockDim.x) {
               const int p = u >> 6, c = u & 63;
               tt[p * kDxLdt + c] = k0 + c < K ? t[pix(p) * K + k0 + c] : __float2bfloat16(0.f);
+            }
+          }
+        } else if constexpr (kF32T) {
+          // float32 dout and t: vec_in floats a copy (4: 16-byte, 2: 8-byte
+          // cp.async, 1: element loads), 1 << sh copies a halo row each
+          const int sh = vec_in == 4 ? 4 : vec_in == 2 ? 5 : 6;
+          for (int u = threadIdx.x; u < kHaloPix << sh; u += blockDim.x) {
+            const int p = u >> sh, c = (u & ((1 << sh) - 1)) * vec_in, q = hpix[p];
+            const bool ok = q >= 0 && k0 + c < K;
+            const size_t g = ok ? (size_t)q * K + k0 + c : 0;
+            float* d0 = dq + p * kDxLdd + c;
+            float* d1 = tt + p * kDxLdd + c;
+            if (vec_in == 4) {
+              cp_async16(smem_u32(d0), dout + g, ok ? 16 : 0);
+              cp_async16(smem_u32(d1), t + g, ok ? 16 : 0);
+            } else if (vec_in == 2) {
+              cp_async8(smem_u32(d0), dout + g, ok ? 8 : 0);
+              cp_async8(smem_u32(d1), t + g, ok ? 8 : 0);
+            } else {
+              *d0 = ok ? dout[g] : 0.f;
+              *d1 = ok ? t[g] : 0.f;
             }
           }
         } else if (vec_in) {
@@ -208,8 +245,8 @@ dwconv_dx_tc_kernel(const float* __restrict__ dout, const __nv_bfloat16* __restr
   for (int ch = 0; ch < pl.nck; ++ch) {
     const bf16* st = rg.consume();
     const float* dq = reinterpret_cast<const float*>(st);
-    const bf16* tt = reinterpret_cast<const bf16*>(reinterpret_cast<const char*>(st) + pl.dq);
-    const bf16* wt = tt + kRows * kDxLdt;
+    const TT* tt = reinterpret_cast<const TT*>(reinterpret_cast<const char*>(st) + pl.dq);
+    const bf16* wt = reinterpret_cast<const bf16*>(tt + kRows * kLdt);
     const int k0 = 64 * ch;
     if constexpr (!kStencil) {
       // the chunk's column sums over the tile's pixels, in pixel order
@@ -254,7 +291,7 @@ dwconv_dx_tc_kernel(const float* __restrict__ dout, const __nv_bfloat16* __restr
 #pragma unroll 8
         for (int p = 0; p < kPix; ++p) {
           const int pr = p >> 3, pc = p & 7;
-          s = fmaf(__bfloat162float(tt[((pr + dy) * kHalo + pc + dx) * kDxLdt + j]),
+          s = fmaf(to_f(tt[((pr + dy) * kHalo + pc + dx) * kLdt + j]),
                    dq[((pr + 1) * kHalo + pc + 1) * kDxLdd + j], s);
         }
         prow[tap * K + k0 + j] = s;
@@ -289,7 +326,7 @@ dwconv_dx_tc_kernel(const float* __restrict__ dout, const __nv_bfloat16* __restr
   float* es = colred + 4 * 2 * CK;  // kExtra: [64][CK + 4] the extra cotangent's rows
   const int lde = CK + 4;
   if constexpr (kExtra) {
-    if (vec_in && extra != nullptr) {  // C % 8 == 0, 16-byte aligned rows
+    if ((kF32T ? vec_x : vec_in) && extra != nullptr) {  // C % 8 == 0, 16-byte aligned rows
       for (int u = threadIdx.x; u < kPix * (C / 4); u += blockDim.x) {
         const int i = u / (C / 4), c = (u - i * (C / 4)) * 4;
         cp_async16(smem_u32(es + i * lde + c), extra + pix(i) * C + c, 16);

@@ -39,7 +39,12 @@
 // - float32: gdfn_kernel, the first design: the 8x8 tile's working set in
 //   float32 shared memory, the hidden width in chunks of 32 units, products
 //   as SIMT FMA (common.cuh gemm) on [in][out] weight copies.
-#include "spectral_front.cuh"
+//
+// The backward (K11) likewise: bf16 runs gdfn_bwd_tc_kernel, built from the
+// forward tile's pieces, then dwconv_dx.cuh's tile with float32 t (the
+// design is above gdfn_bwd_tc_kernel); float32 runs gdfn_bwd_kernel and
+// grad.cu's stages.
+#include "dwconv_dx.cuh"  // and spectral_front.cuh
 
 namespace mp {
 
@@ -215,6 +220,29 @@ struct GdfnPlan {
   __host__ __device__ int tiles() const { return nch * (nk + nk2) + npb * nk; }
 };
 
+// Tile t < nch (nk + nk2) of the weight stream of the bf16 tiles (per hidden
+// chunk of kGdfnK units: nk project_in tiles, then nk2 project_out tiles), as
+// [kTailN][kTailLd]: project_in's the chunk's x1 rows j0.. of win, then its
+// x2 rows hid + j0.., at depth k0..; project_out's output channels n0.. of
+// wout at the chunk's hidden units; zero past hid and C.
+__device__ __forceinline__ void stage_gdfn_tile(__nv_bfloat16* dst, int t, int per, int nk,
+                                                const __nv_bfloat16* __restrict__ win,
+                                                const __nv_bfloat16* __restrict__ wout, int C,
+                                                int hid) {
+  const int C8 = round_up8(C), hid8 = round_up8(hid), CK = round_up64(C);
+  const int j0 = t / per * kGdfnK, pos = t % per;
+  if (pos < nk) {
+    const int k0 = kGdfnK * pos;
+    stage_tile(dst, kTailLd, win + (size_t)j0 * C8 + k0, C8, kGdfnK, kGdfnK, hid - j0, C8 - k0);
+    stage_tile(dst + kGdfnK * kTailLd, kTailLd, win + (size_t)(hid + j0) * C8 + k0, C8, kGdfnK,
+               kGdfnK, hid - j0, C8 - k0);
+  } else {
+    const int n0 = kTailN * (pos - nk);
+    stage_tile(dst, kTailLd, wout + (size_t)n0 * hid8 + j0, hid8, min(kTailN, CK - n0), kGdfnK,
+               C - n0, hid8 - j0);
+  }
+}
+
 // Arguments: x (B, H, W, C) bf16, LN float32; win [2 hid][C8], taps [2 hid][9],
 // wout [C][hid8], wproj [Co][C8] or NULL: the torch layouts in bf16, rows
 // padded to C8 / hid8 (rounded up to 8), 16-byte aligned; flags: kVecX |
@@ -230,7 +258,7 @@ gdfn_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ ln
   __shared__ int hsrc[kFrontRows];  // halo row -> source pixel (-1: zero row)
   const GdfnPlan pl(C, hid, wproj != nullptr ? Co : 0);
   const int ld = pl.ld, CP = pl.CP, nk = pl.nk, nk2 = pl.nk2;
-  const int C8 = round_up8(C), hid8 = round_up8(hid), CK = round_up64(C);
+  const int C8 = round_up8(C), CK = round_up64(C);
   char* sm = reinterpret_cast<char*>(gdfn_dyn);
   float* tp = reinterpret_cast<float*>(sm);                            // [9][128] the chunk's taps
   __nv_bfloat16* gs = reinterpret_cast<__nv_bfloat16*>(sm + pl.taps);  // [64][kTailLdg] gated
@@ -250,18 +278,7 @@ gdfn_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ ln
   auto wr = front_ring(rg, (size_t)kTailN * kTailLd, pl.ws, pl.tiles(),
       [=](int t, __nv_bfloat16* dst) {
         if (t < n_in) {
-          const int j0 = t / per * kGdfnK, pos = t % per;
-          if (pos < nk) {  // project_in: rows j0.. (x1), then hid + j0.. (x2), depth k0..
-            const int k0 = kGdfnK * pos;
-            stage_tile(dst, kTailLd, win + (size_t)j0 * C8 + k0, C8, kGdfnK, kGdfnK, hid - j0,
-                       C8 - k0);
-            stage_tile(dst + kGdfnK * kTailLd, kTailLd, win + (size_t)(hid + j0) * C8 + k0, C8,
-                       kGdfnK, kGdfnK, hid - j0, C8 - k0);
-          } else {  // project_out: output channels n0.., hidden units j0..
-            const int n0 = kTailN * (pos - nk);
-            stage_tile(dst, kTailLd, wout + (size_t)n0 * hid8 + j0, hid8, min(kTailN, CK - n0),
-                       kGdfnK, C - n0, hid8 - j0);
-          }
+          stage_gdfn_tile(dst, t, per, nk, win, wout, C, hid);
         } else {  // the exit 1x1: output channels n0.., depth k0..
           const int u = t - n_in, n0 = u / nk * kTailN, k0 = u % nk * kGdfnK;
           stage_tile(dst, kTailLd, wproj + (size_t)n0 * C8 + k0, C8, kTailN, kGdfnK, Co - n0,
@@ -391,7 +408,300 @@ cudaError_t launch_gdfn_tc(const __nv_bfloat16* x, const float* lnw, const float
 }
 
 // ---------------------------------------------------------------------------
-// Backward (K11, replaces _gdfn_bwd_kernel, mp_hsir_tpu/ops/pallas_vjp.py:342):
+// The bf16 backward (K11, replaces _gdfn_bwd_kernel,
+// mp_hsir_tpu/ops/pallas_vjp.py:342, host _gdfn_bwd_call :471) on the tensor
+// cores, in two launches; the float32 route keeps gdfn_bwd_kernel below and
+// grad.cu's depthwise and LayerNorm stages.
+//
+// Tile 1, gdfn_bwd_tc_kernel: per 8x8 tile (one 512-thread block) the
+// forward tile's front, then dgated and the cotangent at the depthwise
+// output:
+// - the halo staged once as bf16 [112][CP + 8] with LN in place (the forward
+//   tile's staging), dy staged once as bf16 [64][CP + 8] in the same copy
+//   group; xn = LN(x) written from the halo's inner rows (dW_in's operand);
+// - per hidden chunk of 64 units: project_in over the halo on mma.sync (the
+//   forward's halo_1x1, the chunk's x1 and x2 rows of w_in through the
+//   ring), t into shared memory in float32 ([100][136]) and, at the tile's
+//   pixels, to device memory in float32 (tile 2's operand); the depthwise
+//   3x3 in float32 in tap order with the taps read from device memory (L1),
+//   a1 | a2 held in registers; gated = rnd(gelu(a1) a2) written out (dW_out's
+//   operand); after a barrier a1 | a2 overlay t's first 64 rows;
+// - dgated = dy W_out[:, chunk] on mma.sync: the chunk's project_out tiles of
+//   the forward's stream (w_out's [C][hid8] rows, 128 channels x 64 units)
+//   read .trans as B = [k = channel][n = unit], every warp a 16 x 16 block;
+//   the epilogue reads a1 | a2 at each accumulator's place and writes dc =
+//   [dgated a2 gelu'(a1) | dgated gelu(a1)] in float32.
+// Tile 2 is dwconv_dx_tc_kernel<true, true, true> (dwconv_dx.cuh) at K =
+// 2 hid: the transposed stencil of dc, dt rounded to bf16, the tap partials
+// on float32 t, dxn = dt w_in on mma.sync, the LayerNorm backward and the
+// residual's dy added (float32) before dx rounds. Then the wrapper's two
+// wgrads (dW_in = dt^T xn, dW_out = dy^T gated) and the in-order sums of the
+// part rows (per image, then over the images). No float atomics: two calls
+// give bitwise the same outputs.
+//
+// Rounding points as gdfn_bwd_plain: LN(x) rounded (the halo), t, a, dgated,
+// dc float32, gated rounded, dt rounded once before both dxn and dW_in, dx +
+// dy rounded once.
+//
+// Bound: 6.25 C hid (project_in over the 100 halo pixels of 64) + 2 C hid
+// (dgated) + 36 hid flops per pixel against 4C bytes read (x, dy) and 2C +
+// 18 hid written (xn, gated, t, dc); tile 2 reads t and dc again: bytes
+// bound the pair at these widths.
+// ---------------------------------------------------------------------------
+
+// Tile 1's plan at width C and hidden width hid: t [100][kGdfnLdt] float32 |
+// halo [112][ld] | dy [64][ld] | ring (ws stages of [kTailN][kTailLd], at most
+// kTailStages, as many as the budget allows), every piece a multiple of 16
+// bytes. The taps are not staged: with them (4,608 B) C = 384 would need
+// 233,856 B with 2 ring stages, over the budget. The weight stream is the
+// forward's without the exit 1x1: per hidden chunk nk project_in tiles, nk2
+// project_out tiles.
+struct GdfnBwdPlan {
+  int CP, ld, nk, nch, nk2, ws;
+  size_t t, halo, dy, bytes;
+  __host__ __device__ GdfnBwdPlan(int C, int hid) {
+    CP = round_up32(C);
+    ld = CP + 8;
+    nk = (CP + kGdfnK - 1) / kGdfnK;
+    nch = (hid + kGdfnK - 1) / kGdfnK;
+    nk2 = (round_up64(C) + kTailN - 1) / kTailN;
+    t = sizeof(float) * kHaloPix * kGdfnLdt;
+    halo = sizeof(__nv_bfloat16) * kFrontRows * ld;
+    dy = sizeof(__nv_bfloat16) * kPix * ld;
+    const size_t fixed = t + halo + dy;
+    for (ws = kTailStages; ws > 2 && fixed + ws * kTailStage > kGdfnBudget; --ws) {
+    }
+    bytes = fixed + ws * kTailStage;
+  }
+  __host__ __device__ int tiles() const { return nch * (nk + nk2); }
+};
+
+// v0 at o[0], v1 at o[1] where `both`; one 8-byte store where `pair`.
+__device__ __forceinline__ void store_f2(float* o, float v0, float v1, bool both, bool pair) {
+  if (both && pair) {
+    *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+  } else {
+    o[0] = v0;
+    if (both) o[1] = v1;
+  }
+}
+
+// Arguments: x, dy (B, H, W, C) bf16; LN float32; win [2 hid][C8], taps
+// [2 hid][9], wout [C][hid8]: pack_gdfn's operands (win and wout 16-byte
+// aligned). flags: kVecX (x and dy 16-byte rows) | kPairs (t and dc 8-byte
+// aligned) | kVecOut (xn 16-byte rows). Outputs: xn (B, H, W, C) and gated
+// (B, H, W, hid) bf16; t and dc (B, H, W, 2 hid) float32 (x1 units, then x2).
+__global__ void __launch_bounds__(kThreads)
+gdfn_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ lnw,
+                   const float* __restrict__ lnb, const __nv_bfloat16* __restrict__ win,
+                   const __nv_bfloat16* __restrict__ taps, const __nv_bfloat16* __restrict__ wout,
+                   const __nv_bfloat16* __restrict__ dy, int H, int W, int C, int hid, float eps,
+                   int flags, __nv_bfloat16* __restrict__ xn_out, float* __restrict__ t_out,
+                   float* __restrict__ dc_out, __nv_bfloat16* __restrict__ gated_out) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ float4 gdfn_bwd_dyn[];
+  __shared__ int hsrc[kFrontRows];  // halo row -> source pixel (-1: zero row)
+  const GdfnBwdPlan pl(C, hid);
+  const int ld = pl.ld, CP = pl.CP, nk = pl.nk, nk2 = pl.nk2, H2 = 2 * hid;
+  char* sm = reinterpret_cast<char*>(gdfn_bwd_dyn);
+  float* ts = reinterpret_cast<float*>(sm);  // [100][kGdfnLdt] t, then a1 | a2 in rows 0..63
+  bf16* xh = reinterpret_cast<bf16*>(sm + pl.t);   // [112][ld] the LN'd halo
+  bf16* ds = xh + kFrontRows * ld;                 // [64][ld] dy
+  bf16* rg = ds + kPix * ld;                       // the ring
+  const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool vec_x = flags & kVecX, pairs = flags & kPairs, pair2 = pairs && (hid & 1) == 0;
+  auto pix = [&](int i) { return tile_pix(b, ty, tx, i, H, W); };
+
+  for (int p = threadIdx.x; p < kFrontRows; p += blockDim.x)
+    hsrc[p] = halo_src(p, b, ty, tx, H, W, 0);
+  // dy's rows, zero past C, in the halo's copy group
+  if (vec_x) {
+    for (int u = threadIdx.x; u < kPix * (CP / 8); u += blockDim.x) {
+      const int i = u / (CP / 8), c = (u - i * (CP / 8)) * 8;
+      cp_async16(smem_u32(ds + i * ld + c), c < C ? dy + pix(i) * C + c : dy, c < C ? 16 : 0);
+    }
+  } else {
+    for (int u = threadIdx.x; u < kPix * CP; u += blockDim.x) {
+      const int i = u / CP, c = u - i * CP;
+      ds[i * ld + c] = c < C ? dy[pix(i) * C + c] : __float2bfloat16(0.f);
+    }
+  }
+  __syncthreads();
+  stage_halo(xh, ld, hsrc, x, nullptr, C, 0, CP, vec_x);
+
+  const int per = nk + nk2;
+  auto wr = front_ring(rg, (size_t)kTailN * kTailLd, pl.ws, pl.tiles(),
+      [=](int t, bf16* dst) { stage_gdfn_tile(dst, t, per, nk, win, wout, C, hid); });
+  wr.prefetch();
+  // the halo and dy landed (the oldest group); LayerNorm in place
+  cp_async_wait_upto(pl.ws - 1);
+  __syncthreads();
+  halo_ln(xh, ld, hsrc, C, lnw, lnb, eps);
+
+  // dgated's operands: A dy at the warp's 16 rows (row tile wr4), B a
+  // project_out tile read .trans at the warp's 16 units (column block wc):
+  // lane gives k row lane % 8 + 8 (lane / 8 % 2) at n column 16 wc + 8 (lane / 16)
+  const int wr4 = warp >> 2, wc = warp & 3;
+  const int r0 = 16 * wr4 + (lane >> 2), cu = 16 * wc + 2 * (lane & 3);  // accumulator row, unit
+  const uint32_t ad = smem_u32(ds + (16 * wr4 + (lane & 15)) * ld + 8 * (lane >> 4));
+  const int boff = ((lane & 7) + 8 * ((lane >> 3) & 1)) * kTailLd + 16 * wc + 8 * (lane >> 4);
+  // the depthwise conv's items: unit du, tile column dpc, rows 0-3 and 4-7
+  const int du = threadIdx.x & 63, dpc = threadIdx.x >> 6;
+  float acc[kGdfnUnits][4][4];
+  for (int j0 = 0; j0 < hid; j0 += kGdfnK) {
+    // project_in over the halo; t of its 100 rows in float32, and at the
+    // tile's pixels to device memory (every thread is past the last chunk's
+    // epilogue: the first project_in tile's barrier)
+    halo_1x1(acc, xh, ld, wr, kGdfnInUnits, CP, nk);
+    front_out(acc, kGdfnInUnits, 7, [&](int r, int c, float v0, float v1) {
+      if (r >= kHaloPix) return;
+      *reinterpret_cast<float2*>(ts + r * kGdfnLdt + c) = make_float2(v0, v1);
+      const int hr = r / kHalo, hc = r - hr * kHalo, j = j0 + (c & (kGdfnK - 1));
+      if (hr < 1 || hr > kTile || hc < 1 || hc > kTile || j >= hid) return;
+      float* o = t_out + pix((hr - 1) * kTile + hc - 1) * H2 + (c < kGdfnK ? j : hid + j);
+      store_f2(o, v0, v1, j + 1 < hid, c < kGdfnK ? pairs : pair2);
+    });
+    __syncthreads();
+    // the depthwise 3x3 in float32 (taps in order, as the forward tile),
+    // then gated = rnd(gelu(a1) a2) to device memory
+    const int unit = j0 + du;
+    float w1[9], w2[9];
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      w1[tap] = unit < hid ? __bfloat162float(taps[(size_t)unit * 9 + tap]) : 0.f;
+      w2[tap] = unit < hid ? __bfloat162float(taps[(size_t)(hid + unit) * 9 + tap]) : 0.f;
+    }
+    float s1[2][4], s2[2][4];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int pr = 4 * hh;
+#pragma unroll
+      for (int o = 0; o < 4; ++o) s1[hh][o] = s2[hh][o] = 0.f;
+#pragma unroll
+      for (int rr = 0; rr < 6; ++rr)
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          const float* tr = ts + ((pr + rr) * kHalo + dpc + dx) * kGdfnLdt + du;
+          const float v1 = tr[0], v2 = tr[kGdfnK];
+#pragma unroll
+          for (int o = 0; o < 4; ++o) {
+            const int dyy = rr - o;
+            if (dyy < 0 || dyy > 2) continue;
+            s1[hh][o] = fmaf(v1, w1[dyy * 3 + dx], s1[hh][o]);
+            s2[hh][o] = fmaf(v2, w2[dyy * 3 + dx], s2[hh][o]);
+          }
+        }
+      if (unit < hid)
+#pragma unroll
+        for (int o = 0; o < 4; ++o)
+          gated_out[pix((pr + o) * kTile + dpc) * hid + unit] =
+              __float2bfloat16(gelu_erf(s1[hh][o]) * s2[hh][o]);
+    }
+    __syncthreads();  // every thread is past its reads of t: a1 | a2 over its first 64 rows
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int o = 0; o < 4; ++o) {
+        float* a = ts + ((4 * hh + o) * kTile + dpc) * kGdfnLdt + du;
+        a[0] = s1[hh][o];
+        a[kGdfnK] = s2[hh][o];
+      }
+    // dgated over the chunk's project_out tiles (the first tile's barrier
+    // makes a1 | a2 visible); 16-deep steps up to CP
+    float dg[2][4];
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dg[q][e] = 0.f;
+    for (int i = 0; i < nk2; ++i) {
+      const uint32_t bt = smem_u32(wr.consume()) + 2 * boff;
+      const int steps = min(kTailN, CP - kTailN * i) / 16;
+      for (int kk = 0; kk < steps; ++kk) {
+        uint32_t af[4], bf[4];
+        ldmatrix_x4(af, ad + 2 * (kTailN * i + 16 * kk));
+        ldmatrix_x4_trans(bf, bt + 2 * 16 * kk * kTailLd);
+        mma_16x8x16(dg[0], af[0], af[1], af[2], af[3], bf[0], bf[1]);
+        mma_16x8x16(dg[1], af[0], af[1], af[2], af[3], bf[2], bf[3]);
+      }
+    }
+    // dc = [dgated a2 gelu'(a1) | dgated gelu(a1)] at each accumulator pair
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int i = r0 + 8 * rr, u = cu + 8 * q, j = j0 + u;
+        if (j >= hid) continue;
+        const float* a = ts + i * kGdfnLdt + u;
+        const float g0 = dg[q][2 * rr], g1 = dg[q][2 * rr + 1];
+        float* o = dc_out + pix(i) * H2;
+        store_f2(o + j, g0 * a[kGdfnK] * dgelu_erf(a[0]), g1 * a[kGdfnK + 1] * dgelu_erf(a[1]),
+                 j + 1 < hid, pairs);
+        store_f2(o + hid + j, g0 * gelu_erf(a[0]), g1 * gelu_erf(a[1]), j + 1 < hid, pair2);
+      }
+  }
+  cp_async_wait<0>();
+  // xn from the halo's inner rows (LayerNorm'd before the first tile's barrier)
+  auto hp = [](int i) { return ((i >> 3) + 1) * kHalo + (i & 7) + 1; };
+  if (flags & kVecOut) {
+    for (int u = threadIdx.x; u < kPix * (C / 8); u += blockDim.x) {
+      const int i = u / (C / 8), c = (u - i * (C / 8)) * 8;
+      *reinterpret_cast<uint4*>(xn_out + pix(i) * C + c) =
+          *reinterpret_cast<const uint4*>(xh + hp(i) * ld + c);
+    }
+  } else {
+    for (int u = threadIdx.x; u < kPix * C; u += blockDim.x) {
+      const int i = u / C, c = u - i * C;
+      xn_out[pix(i) * C + c] = xh[hp(i) * ld + c];
+    }
+  }
+}
+
+// Tile 1 (C up to kTailMaxC; win and wout 16-byte aligned).
+cudaError_t launch_gdfn_bwd_tc(const __nv_bfloat16* x, const float* lnw, const float* lnb,
+                               const __nv_bfloat16* win, const __nv_bfloat16* taps,
+                               const __nv_bfloat16* wout, const __nv_bfloat16* dy,
+                               __nv_bfloat16* xn, float* t, float* dc, __nv_bfloat16* gated, int B,
+                               int H, int W, int C, int hid, float eps, cudaStream_t stream) {
+  if (C > kTailMaxC || !aligned(win, 16) || !aligned(wout, 16)) return cudaErrorInvalidValue;
+  const size_t smem = GdfnBwdPlan(C, hid).bytes;
+  int flags = 0;
+  if (C % 8 == 0 && aligned(x, 16) && aligned(dy, 16)) flags |= kVecX;
+  if (aligned(t, 8) && aligned(dc, 8)) flags |= kPairs;
+  if (C % 8 == 0 && aligned(xn, 16)) flags |= kVecOut;
+  cudaError_t err = set_smem(gdfn_bwd_tc_kernel, smem);
+  if (err != cudaSuccess) return err;
+  gdfn_bwd_tc_kernel<<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
+      x, lnw, lnb, win, taps, wout, dy, H, W, C, hid, eps, flags, xn, t, dc, gated);
+  return cudaGetLastError();
+}
+
+// Tile 2: dwconv_dx_tc_kernel<true, true, true> at K = 2 hid, unshifted, the
+// part row of a tile [9 K | d ln_w | d ln_b]; extra (dy in float32, the
+// residual) or NULL.
+cudaError_t launch_gdfn_dx_tc(const float* dc, const float* t, const __nv_bfloat16* taps,
+                              const __nv_bfloat16* win, const __nv_bfloat16* x, const float* lnw,
+                              const float* extra, __nv_bfloat16* dt, __nv_bfloat16* dx,
+                              float* part, int B, int H, int W, int C, int hid, float eps,
+                              cudaStream_t stream) {
+  if (C > kTailMaxC || !aligned(win, 16)) return cudaErrorInvalidValue;
+  const int K = 2 * hid;
+  const size_t smem = DwDxPlan(C, K, true, true).bytes;
+  const int vec_in = K % 4 == 0 && aligned(dc, 16) && aligned(t, 16) ? 4
+                     : aligned(dc, 8) && aligned(t, 8)             ? 2
+                                                                   : 1;
+  const int vec_x = C % 8 == 0 && aligned(x, 16) && aligned(dx, 16) && aligned(extra, 16);
+  const auto kernel = dwconv_dx_tc_kernel<true, true, true>;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
+      dc, t, taps, win, x, lnw, H, W, C, K, 0, eps, vec_in, vec_x, dt, dx, part, 9 * K + 2 * C,
+      extra);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The float32 backward (K11, replaces _gdfn_bwd_kernel, mp_hsir_tpu/ops/pallas_vjp.py:342):
 // per 8x8 tile and hidden chunk, recompute LN(x) on the halo, t = LN(x) W_in
 // (float32, as the forward keeps it) and the depthwise output [a1 | a2];
 // dgated = dy W_out^T; da1 = dgated a2 gelu'(a1), da2 = dgated gelu(a1). It
@@ -583,25 +893,68 @@ extern "C" long long mp_gdfn_bwd_smem(int C, int kc) {
   return mp::plan_bytes(mp::gdfn_bwd_kernel_for<float>(kc, C), mp::gdfn_bwd_smem(C, kc));
 }
 
+// The bf16 backward's tiles (bytes, static included): tile 1 (GdfnBwdPlan;
+// its bytes do not depend on hid) and tile 2 (DwDxPlan with float32 t; nor
+// do its on K); -1 past C = 384.
+extern "C" long long mp_gdfn_bwd_tc_smem(int C) {
+  return C > mp::kTailMaxC ? -1
+                           : mp::plan_bytes(mp::gdfn_bwd_tc_kernel, mp::GdfnBwdPlan(C, 0).bytes);
+}
+
+extern "C" long long mp_gdfn_dx_tc_smem(int C) {
+  return C > mp::kTailMaxC ? -1
+                           : mp::plan_bytes(mp::dwconv_dx_tc_kernel<true, true, true>,
+                                            mp::DwDxPlan(C, 0, true, true).bytes);
+}
+
 // The channel chunk the backward kernel launches with at C.
 extern "C" int mp_gdfn_bwd_chunk(int C) { return mp::gdfn_bwd_chunk(C); }
 
-// The per-tile half of the GDFN backward (no exit projection). dy (B, H, W,
-// C). Outputs: xn (B, H, W, C) LN(x) and gated (B, H, W, hid) in the compute
-// type; t and dc (B, H, W, 2*hid) float32: project_in output and the
-// cotangent at the depthwise output. kc: the channel chunk (mp_gdfn_bwd_chunk).
+// The per-tile half of the float32 GDFN backward (no exit projection; bf16
+// runs mp_gdfn_bwd_tc and mp_gdfn_dx_tc). dy (B, H, W, C). Outputs: xn (B,
+// H, W, C) LN(x) and gated (B, H, W, hid); t and dc (B, H, W, 2*hid):
+// project_in output and the cotangent at the depthwise output. kc: the
+// channel chunk (mp_gdfn_bwd_chunk).
 extern "C" int mp_gdfn_bwd(const void* x, const void* lnw, const void* lnb, const void* win,
                            const void* wdw, const void* wout, const void* dy, void* xn, void* t,
                            void* dc, void* gated, int dtype, int B, int H, int W, int C, int hid,
                            int kc, float eps, void* stream) {
-  if (H % mp::kTile != 0 || W % mp::kTile != 0 || kc <= 0 || kc > C)
+  if (H % mp::kTile != 0 || W % mp::kTile != 0 || kc <= 0 || kc > C || dtype != 0)
     return (int)cudaErrorInvalidValue;
-  auto st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return (int)mp::launch_gdfn_bwd<float>(x, (const float*)lnw, (const float*)lnb, win, wdw, wout,
-                                           dy, xn, (float*)t, (float*)dc, gated, B, H, W, C, hid,
-                                           kc, eps, st);
-  return (int)mp::launch_gdfn_bwd<__nv_bfloat16>(x, (const float*)lnw, (const float*)lnb, win, wdw,
-                                                 wout, dy, xn, (float*)t, (float*)dc, gated, B, H,
-                                                 W, C, hid, kc, eps, st);
+  return (int)mp::launch_gdfn_bwd<float>(x, (const float*)lnw, (const float*)lnb, win, wdw, wout,
+                                         dy, xn, (float*)t, (float*)dc, gated, B, H, W, C, hid,
+                                         kc, eps, (cudaStream_t)stream);
+}
+
+// The bf16 backward's first tile (C <= 384): x, dy (B, H, W, C) bf16, LN
+// float32; win [2 hid][C8], taps [2 hid][9], wout [C][hid8] bf16 (pack_gdfn's
+// operands, win and wout 16-byte aligned). Outputs: xn (B, H, W, C) and gated
+// (B, H, W, hid) bf16; t and dc (B, H, W, 2 hid) float32.
+extern "C" int mp_gdfn_bwd_tc(const void* x, const void* lnw, const void* lnb, const void* win,
+                              const void* taps, const void* wout, const void* dy, void* xn,
+                              void* t, void* dc, void* gated, int B, int H, int W, int C, int hid,
+                              float eps, void* stream) {
+  if (H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
+  using bf = const __nv_bfloat16*;
+  using bo = __nv_bfloat16*;
+  return (int)mp::launch_gdfn_bwd_tc((bf)x, (const float*)lnw, (const float*)lnb, (bf)win,
+                                     (bf)taps, (bf)wout, (bf)dy, (bo)xn, (float*)t, (float*)dc,
+                                     (bo)gated, B, H, W, C, hid, eps, (cudaStream_t)stream);
+}
+
+// Its second tile (C <= 384): dc and t (B, H, W, 2 hid) float32 from the
+// first; taps and win as the first tile's, x and lnw as its; extra (B, H, W,
+// C) float32 (dy, the residual) or NULL, added to dx before it rounds.
+// Outputs: dt (B, H, W, 2 hid) and dx (B, H, W, C) bf16, part (tiles, 9 (2
+// hid) + 2 C) float32: the tap partials [9][2 hid], then d ln_w, d ln_b.
+extern "C" int mp_gdfn_dx_tc(const void* dc, const void* t, const void* taps, const void* win,
+                             const void* x, const void* lnw, const void* extra, void* dt, void* dx,
+                             void* part, int B, int H, int W, int C, int hid, float eps,
+                             void* stream) {
+  if (H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
+  using bf = const __nv_bfloat16*;
+  auto f = [](const void* p) { return (const float*)p; };
+  return (int)mp::launch_gdfn_dx_tc(f(dc), f(t), (bf)taps, (bf)win, (bf)x, f(lnw), f(extra),
+                                    (__nv_bfloat16*)dt, (__nv_bfloat16*)dx, (float*)part, B, H, W,
+                                    C, hid, eps, (cudaStream_t)stream);
 }

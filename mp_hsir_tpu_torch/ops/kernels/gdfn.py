@@ -2,18 +2,26 @@
 an optional residual and an optional trailing 1x1 projection.
 
 Kernel: ``csrc/gdfn.cu`` (replaces ``_gdfn_kernel``,
-``mp_hsir_tpu/ops/pallas_attention.py:1274``; backward ``mp_gdfn_bwd`` +
-``csrc/grad.cu`` replace ``_gdfn_bwd_kernel``,
-``mp_hsir_tpu/ops/pallas_vjp.py:342``). Plain versions: :func:`gdfn_plain`,
-:func:`gdfn_bwd_plain`. Weights are conv weights in OIHW: w_in
-(2h, C, 1, 1), w_dw (2h, 1, 3, 3), w_out (C, h, 1, 1), proj_w (Co, C, 1, 1).
-The exit projection ``proj_w`` is eval-only (no backward), as in JAX.
+``mp_hsir_tpu/ops/pallas_attention.py:1274``; the backward replaces
+``_gdfn_bwd_kernel``, ``mp_hsir_tpu/ops/pallas_vjp.py:342``). Plain
+versions: :func:`gdfn_plain`, :func:`gdfn_bwd_plain`. Weights are conv
+weights in OIHW: w_in (2h, C, 1, 1), w_dw (2h, 1, 3, 3), w_out (C, h, 1, 1),
+proj_w (Co, C, 1, 1). The exit projection ``proj_w`` is eval-only (no
+backward), as in JAX.
 
 The bf16 forward runs the tensor-core tile ``gdfn_tc_kernel`` (C and Co up
 to :data:`GDFN_MAX_C`): it streams the torch layouts of the weights as they
 are (:func:`pack_gdfn`) in the tiles that :func:`gdfn_plan` describes. The
-float32 forward and the backward keep the chunked SIMT kernels on [in][out]
-weight copies.
+bf16 backward runs two tensor-core tiles on the same operands:
+``mp_gdfn_bwd_tc`` (the forward tile's front, then dgated from the
+project_out tiles read transposed and the cotangent dc at the depthwise
+output) and ``mp_gdfn_dx_tc`` (``csrc/dwconv_dx.cuh`` with float32 t at K = 2
+hid: the transposed stencil, dx through project_in and the LayerNorm, plus
+dy with the residual), then the two weight products and the in-order sums
+of the per-tile partials (:func:`gdfn_bwd_tc_plan` mirrors both plans). The
+float32 forward and backward keep the chunked SIMT kernels (``mp_gdfn_bwd``
++ ``csrc/grad.cu``'s depthwise and LayerNorm stages) on [in][out] weight
+copies.
 """
 
 from __future__ import annotations
@@ -26,13 +34,14 @@ import torch.nn.functional as F
 from mp_hsir_tpu_torch.ops.basic import gelu_exact, layer_norm
 from mp_hsir_tpu_torch.ops.kernels import _build
 from mp_hsir_tpu_torch.ops.kernels._grad import (
-    dwconv3_bwd_plain, dwconv3_f32, dwconv_bwd, ln_bwd_plain, ln_linear_bwd, ln_stats, wgrad,
+    dwconv3_bwd_plain, dwconv3_f32, dwconv_bwd, ln_bwd_plain, ln_linear_bwd, ln_stats, sum_parts,
+    wgrad,
 )
 from mp_hsir_tpu_torch.ops.kernels._route import (
     ROUTE, counter, dtype_code, f32, kernel_weight, stream_ptr,
 )
 from mp_hsir_tpu_torch.ops.kernels.mlp import TAIL_K, TAIL_MAX_C
-from mp_hsir_tpu_torch.ops.kernels.spectral import FRONT_ROWS, STATS_BUDGET
+from mp_hsir_tpu_torch.ops.kernels.spectral import FRONT_ROWS, STATS_BUDGET, dwconv_dx_plan
 
 COUNTER = counter("gdfn")
 BWD = counter("gdfn_bwd")
@@ -118,6 +127,23 @@ def gdfn_plan(c: int, hid: int, co: int = 0) -> dict:
                 tiles=nch * (nk + nk2) + npb * nk, bytes=fixed + ws * GDFN_STAGE)
 
 
+def gdfn_bwd_tc_plan(c: int, hid: int) -> dict:
+    """The bf16 backward's plans at width ``c``: tile 1's (``GdfnBwdPlan`` in
+    csrc/gdfn.cu: :func:`gdfn_plan`'s tiling without the exit; ``bytes`` =
+    float32 t [100][:data:`GDFN_LDT`] | halo [112][``ld``] | dy [64][``ld``] |
+    ``ws`` ring stages, at most 4; the taps are read from device memory) and
+    tile 2's at K = 2 ``hid`` (``dx``: :func:`dwconv_dx_plan` with float32
+    t)."""
+    pl = gdfn_plan(c, hid)
+    fixed = 4 * 100 * GDFN_LDT + 2 * GDFN_ROWS * pl["ld"] + 2 * 64 * pl["ld"]
+    ws = GDFN_STAGES
+    while ws > 2 and fixed + ws * GDFN_STAGE > GDFN_BUDGET:
+        ws -= 1
+    return dict(cp=pl["cp"], ld=pl["ld"], nk=pl["nk"], nch=pl["nch"], nk2=pl["nk2"], ws=ws,
+                tiles=pl["nch"] * (pl["nk"] + pl["nk2"]), bytes=fixed + ws * GDFN_STAGE,
+                dx=dwconv_dx_plan(c, 2 * hid, f32_t=True))
+
+
 def pack_gdfn(w_in, w_dw, w_out, proj_w, dt):
     """The operands the bf16 tile streams, in ``dt``, in their torch layouts:
     w_in as [2 hid][C8], the depthwise taps as [2 hid][9], w_out as [C][hid8]
@@ -136,11 +162,15 @@ def pack_gdfn(w_in, w_dw, w_out, proj_w, dt):
 
 
 @lru_cache(maxsize=None)
-def _entry(bwd: bool = False):
+def _entry(kind: str = "fwd"):
     import ctypes
 
-    if bwd:
+    if kind == "bwd":
         return _build.entry("mp_gdfn_bwd", 11, [ctypes.c_int] * 7 + [ctypes.c_float])
+    if kind == "bwd_tc":
+        return _build.entry("mp_gdfn_bwd_tc", 11, [ctypes.c_int] * 5 + [ctypes.c_float])
+    if kind == "dx_tc":
+        return _build.entry("mp_gdfn_dx_tc", 10, [ctypes.c_int] * 5 + [ctypes.c_float])
     return _build.entry("mp_gdfn", 8, [ctypes.c_int] * 9 + [ctypes.c_float])
 
 
@@ -184,7 +214,49 @@ def _launch(x, ln_w, ln_b, w_in, w_dw, w_out, residual, proj_w, eps):
     return out
 
 
+def _bwd_tc_launch(x, ln_w, ln_b, w_in, w_dw, w_out, residual, eps, dy):
+    """The bf16 backward: the two tiles, the two weight products and the
+    in-order sums of the per-tile partial rows (the taps' [9][2 hid], then d
+    ln_w, d ln_b): per image over its tiles, then over the images."""
+    b, h, w, c = x.shape
+    dt = x.dtype
+    hid = w_out.shape[1]
+    k = 2 * hid
+    if c > GDFN_MAX_C:  # the widest C of both tiles' plans
+        raise ValueError(f"the bf16 gdfn backward takes C up to {GDFN_MAX_C}, got C={c}")
+    _build.check_plan("gdfn_bwd", "mp_gdfn_bwd_tc_smem", f"C={c}, tile 1", c)
+    _build.check_plan("gdfn_bwd", "mp_gdfn_dx_tc_smem", f"C={c}, tile 2", c)
+    x, dy = x.contiguous(), dy.to(dt).contiguous()
+    wi, wd, wo, _ = pack_gdfn(w_in, w_dw, w_out, None, dt)
+    lnw, lnb = f32(ln_w), f32(ln_b)
+    dev = x.device
+    xn, dx = torch.empty_like(x), torch.empty_like(x)
+    t = torch.empty((b, h, w, k), dtype=torch.float32, device=dev)
+    dc = torch.empty_like(t)
+    gated = torch.empty((b, h, w, hid), dtype=dt, device=dev)
+    dtt = torch.empty((b, h, w, k), dtype=dt, device=dev)
+    part = torch.empty((b, (h // 8) * (w // 8), 9 * k + 2 * c), dtype=torch.float32, device=dev)
+    extra = dy.float() if residual else None
+    err = _entry("bwd_tc")(x.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), wi.data_ptr(),
+                           wd.data_ptr(), wo.data_ptr(), dy.data_ptr(), xn.data_ptr(),
+                           t.data_ptr(), dc.data_ptr(), gated.data_ptr(), b, h, w, c, hid, eps,
+                           stream_ptr())
+    _build.check("mp_gdfn_bwd_tc", err)
+    err = _entry("dx_tc")(dc.data_ptr(), t.data_ptr(), wd.data_ptr(), wi.data_ptr(), x.data_ptr(),
+                          lnw.data_ptr(), _build.ptr(extra), dtt.data_ptr(), dx.data_ptr(),
+                          part.data_ptr(), b, h, w, c, hid, eps, stream_ptr())
+    _build.check("mp_gdfn_dx_tc", err)
+    dw_in = wgrad(xn.reshape(-1, c), dtt.reshape(-1, k)).t()
+    dw_out = wgrad(gated.reshape(-1, hid), dy.reshape(-1, c)).t()
+    sums = sum_parts(sum_parts(part).unsqueeze(0))[0]
+    BWD.record(("gdfn_bwd", b, h, w, c, hid, bool(residual), str(dt)))
+    return (dx, sums[9 * k:9 * k + c], sums[9 * k + c:], dw_in.reshape(k, c, 1, 1),
+            sums[:9 * k].reshape(9, k).t().reshape(k, 1, 3, 3), dw_out.reshape(c, hid, 1, 1))
+
+
 def _bwd_launch(x, ln_w, ln_b, w_in, w_dw, w_out, residual, eps, dy):
+    if x.dtype == torch.bfloat16:
+        return _bwd_tc_launch(x, ln_w, ln_b, w_in, w_dw, w_out, residual, eps, dy)
     b, h, w, c = x.shape
     dt = x.dtype
     hid = w_out.shape[1]
@@ -198,9 +270,9 @@ def _bwd_launch(x, ln_w, ln_b, w_in, w_dw, w_out, residual, eps, dy):
     t = torch.empty((b, h, w, 2 * hid), dtype=torch.float32, device=dev)
     dc = torch.empty_like(t)
     gated = torch.empty((b, h, w, hid), dtype=dt, device=dev)
-    err = _entry(True)(x.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), wi.data_ptr(), wd.data_ptr(),
-                       wo.data_ptr(), dy.data_ptr(), xn.data_ptr(), t.data_ptr(), dc.data_ptr(),
-                       gated.data_ptr(), dtype_code(x), b, h, w, c, hid, kc, eps, stream_ptr())
+    err = _entry("bwd")(x.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), wi.data_ptr(), wd.data_ptr(),
+                        wo.data_ptr(), dy.data_ptr(), xn.data_ptr(), t.data_ptr(), dc.data_ptr(),
+                        gated.data_ptr(), dtype_code(x), b, h, w, c, hid, kc, eps, stream_ptr())
     _build.check("mp_gdfn_bwd", err)
     dtt, dwdw = dwconv_bwd(dc, t, wd, 0, dt)
     dx, (dlnw, dlnb), _ = ln_linear_bwd(dtt, wi, 0, x, ln_w, extra_t=dy if residual else None,

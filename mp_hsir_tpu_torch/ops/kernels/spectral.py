@@ -189,7 +189,7 @@ def stats_plan(c: int, heads: int) -> dict:
                 groups=groups, gw=gw, np=np_, ws=ws, bytes=nbytes)
 
 
-def dwconv_dx_plan(c: int, k: int, stencil: bool = True) -> dict:
+def dwconv_dx_plan(c: int, k: int, stencil: bool = True, f32_t: bool = False) -> dict:
     """The plan of the bf16 backward's second tile at width ``c`` and ``k``
     depthwise channels (``DwDxPlan`` in csrc/dwconv_dx.cuh): ``nck`` 64-channel
     chunks; ``stages`` ring stages (3 where they fit, else 2) of ``stage``
@@ -197,10 +197,12 @@ def dwconv_dx_plan(c: int, k: int, stencil: bool = True) -> dict:
     ``ck`` = c rounded up to 64 columns); ``bytes`` the dynamic shared memory,
     the dt chunk included. Without the stencil (the window backward's tile
     2, ``k`` = 3C) a stage is the cotangent chunk [64][72] and the weight
-    rows, and there is no dt chunk."""
+    rows, and there is no dt chunk. ``f32_t`` (the GDFN backward's tile 2):
+    the t chunk is float32 [100][68], as dout's."""
     ck = -(-c // 64) * 64
     rows = 100 if stencil else 64
-    stage = (4 * 100 * DX_LDD if stencil else 0) + 2 * rows * DX_LDT + 2 * 64 * (ck + 8)
+    tt = 4 * 100 * DX_LDD if stencil and f32_t else 2 * rows * DX_LDT
+    stage = (4 * 100 * DX_LDD if stencil else 0) + tt + 2 * 64 * (ck + 8)
     da = 2 * 64 * DX_LDT if stencil else 0
     stages = 3 if da + 3 * stage <= STATS_BUDGET else 2
     return dict(ck=ck, nck=-(-k // 64), stages=stages, stage=stage, bytes=da + stages * stage)

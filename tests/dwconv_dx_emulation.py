@@ -1,9 +1,10 @@
 """Numpy emulation of the bf16 backward's second tile, ``dwconv_dx_tc_kernel``
 with its stencil (csrc/dwconv_dx.cuh), from its own tile map, and the tile
 helpers the emulations of the first tiles share: the spectral stats backward
-(K = 2C, tests/test_torch_stats_bwd.py) and the spectral apply backward (K =
-C, with the extra input cotangent in the epilogue, tests/test_torch_apply_bwd.py).
-Imports no JAX."""
+(K = 2C, tests/test_torch_stats_bwd.py), the spectral apply backward (K =
+C, with the extra input cotangent in the epilogue, tests/test_torch_apply_bwd.py)
+and the GDFN backward (K = 2 hid, t in float32, the residual's dy as the
+extra, tests/test_torch_gdfn_bwd.py). Imports no JAX."""
 
 import numpy as np
 import torch

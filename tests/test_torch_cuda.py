@@ -1159,6 +1159,83 @@ def test_cuda_spectral_apply_bwd_bf16_past_384_raises():
                    "float32")
 
 
+# The bf16 GDFN backward (K11): gdfn_bwd_tc_kernel (csrc/gdfn.cu) and
+# dwconv_dx_tc_kernel<true, true, true> at K = 2 hid (float32 t) at every (C,
+# hid) of both presets' train steps (hid 1021: x2's columns at an odd
+# offset, K = 2042 not a multiple of 4) and C = 36 and 27 (element-wise x and
+# dy, w_in's rows padded to 40 and 32), with and without the residual, on 3
+# tiles (1x8x24) and 12 (2x16x24: two images, a non-square tile grid)
+GDFN_BWD_CASES = [(c, hid, b, h) for c, hid, _ in GDFN_WIDTHS for b, h in ((1, 8), (2, 16))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,hid,b,h", GDFN_BWD_CASES)
+def test_cuda_gdfn_bwd_tiles_match_plain(c, hid, b, h, monkeypatch):
+    """The GDFN backward on the card against gdfn_bwd_plain, every output,
+    with and without the residual: bf16 (the two tiles, wgrad, the part sums)
+    within 3e-2 and float32 (mp_gdfn_bwd + dwconv_bwd + ln_linear_bwd, SIMT)
+    within 1e-4 of each output's max-abs. One counted launch per call; the
+    bf16 route launches tile 1 and tile 2 and no dwconv_bwd or ln_linear_bwd;
+    two bf16 calls give bitwise the same outputs (no float atomics). Both
+    tiles' plans within the device's limit, each its mirror's dynamic bytes
+    plus the static; the float32 plan as it was."""
+    from mp_hsir_tpu_torch.ops.kernels import _build, gdfn as gd
+
+    dev = _cuda()
+    args, _ = _gdfn_inputs(c, hid, 0, False, b, h, 24, dev)
+    dy = _t(_n(_rng(170 + c + b), (b, h, 24, c))).to(dev)
+    calls = []
+    for name in ("dwconv_bwd", "ln_linear_bwd"):
+        fn = getattr(gd, name)
+        monkeypatch.setattr(gd, name,
+                            lambda *a, _f=fn, _n=name, **k: calls.append(_n) or _f(*a, **k))
+    get = gd._entry
+
+    def counted(kind="fwd"):
+        fn = get(kind)
+        return lambda *a: calls.append(fn.__name__) or fn(*a)
+
+    monkeypatch.setattr(gd, "_entry", counted)
+    for dt, tol in ((torch.bfloat16, 3e-2), (torch.float32, 1e-4)):
+        bf16 = dt == torch.bfloat16
+        for residual in (False, True):
+            call = (args[0].to(dt), *args[1:], residual, 1e-5, dy.to(dt))
+            what = f"{dt} residual={residual}"
+            _route.reset_counters()
+            calls.clear()
+            got = gd._bwd_launch(*call)
+            assert _route.COUNTERS["gdfn_bwd"].launches == 1, what
+            want = (["mp_gdfn_bwd_tc", "mp_gdfn_dx_tc"] if bf16 else
+                    ["mp_gdfn_bwd", "dwconv_bwd", "ln_linear_bwd"])
+            assert calls == want, (what, calls)
+            _outputs_close(got, gd.gdfn_bwd_plain(*call), tol, what)
+            if bf16:
+                again = gd._bwd_launch(*call)
+                assert all(torch.equal(a, r) for a, r in zip(got, again)), what
+    pl, limit = gd.gdfn_bwd_tc_plan(c, hid), _build.smem_limit()
+    n1 = _build.plan_bytes("mp_gdfn_bwd_tc_smem", c)
+    n2 = _build.plan_bytes("mp_gdfn_dx_tc_smem", c)
+    assert pl["bytes"] < n1 <= min(pl["bytes"] + 1024, limit), n1
+    assert pl["dx"]["bytes"] < n2 <= min(pl["dx"]["bytes"] + 1024, limit), n2
+    kc = _build.chunk("mp_gdfn_bwd_chunk", c)
+    assert _build.plan_bytes("mp_gdfn_bwd_smem", c, kc) == GDFN_BWD_PLANS[c]
+
+
+@pytest.mark.cuda
+def test_cuda_gdfn_bwd_bf16_past_384_raises():
+    """The bf16 GDFN backward takes C up to 384 and raises above it (no
+    fallback); float32 streams its input in chunks and runs."""
+    from mp_hsir_tpu_torch.ops.kernels import gdfn as gd
+
+    dev = _cuda()
+    args, _ = _gdfn_inputs(400, 1064, 0, False, 1, 8, 8, dev)
+    dy = _t(_n(_rng(171), (1, 8, 8, 400))).to(dev)
+    with pytest.raises(ValueError, match="C up to 384"):
+        gd._bwd_launch(args[0].to(torch.bfloat16), *args[1:], True, 1e-5, dy.to(torch.bfloat16))
+    call = (*args, True, 1e-5, dy)
+    _outputs_close(gd._bwd_launch(*call), gd.gdfn_bwd_plain(*call), 1e-4, "float32")
+
+
 # The bf16 window-attention backward (K8): window_attention_bwd_tc_kernel
 # (tile 1) and dwconv_dx_tc_kernel without its stencil (tile 2) at every
 # (C, heads) of both presets' train steps (dh 32, 64, 48, 96) and C = 36 and
