@@ -2,6 +2,7 @@
 """Drive the PyTorch port of MP-HSIR on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--out results.json] [--bwd-split KERNEL] [--mlp-bwd-split] [--wgrad]
+                          [--train-cli]
 
 Phases (any failure exits non-zero; no phase's error is caught):
 
@@ -134,8 +135,26 @@ Phases (any failure exits non-zero; no phase's error is caught):
     phase 6's launch checks: the median loss of the last 3 steps below the
     first; ms per step (median of 8 after 3 warm-up), the time until
     train_step returns, peak memory, and kernel ms per step from phase 11.
-13. The kernel summary line (each kernel's main-path numbers, and its
-    remote-sensing train-step numbers beside them), then the result line.
+13. The training entry point, with torch's default TF32 settings (cuDNN's
+    on): every branch of the degradation pipeline at
+    both presets' band counts and 64x64, its draws made on the card, the
+    card's apply against the CPU's on those draws (1e-5 max-abs); two batch
+    degrades with one seed bitwise equal; the streaming pipeline (float32
+    and uint16 upload) for 4 batches under set_sync_debug_mode("error");
+    then the remote-sensing train CLI (python -m
+    mp_hsir_tpu_torch.cli.train_cli) at full width, bf16, batch 32 x 64^2,
+    on a store of 128 seeded 100-band patches (sources WDC_*) written by the
+    port's PatchStoreWriter: 2 epochs x 6 steps with a checkpoint per epoch,
+    every kernel at 12 x its per-step launches of phase 12's enumeration and
+    no plain version on the card, every logged loss finite, the npz loading
+    into build_model; resume from epoch 1's checkpoint reproducing epoch 2's
+    losses (bitwise or the difference printed, bound 1e-3 of the loss); 6
+    steps each with --upload_dtype uint16 and --resident_bank; ms per step
+    (median after 2 warm-up), the upload and degrade ms per step (CUDA
+    events), peak memory, beside phase 12's synthetic step.
+14. The kernel summary line (each kernel's main-path numbers, its
+    remote-sensing train-step numbers and the train CLI's launches beside
+    them), then the result line.
 
 --bwd-split KERNEL (mlp_bwd, spectral_stats_bwd, window_attention_bwd,
 spectral_apply_bwd or gdfn_bwd; repeatable) runs phase 1's build and only
@@ -143,7 +162,8 @@ that kernel's stage split, at both presets' train-step shapes, and the sum
 of the named kernels' mp_wgrad stages: the same measurement for another
 checkout of the package (this file copied to its root and run there);
 --mlp-bwd-split is --bwd-split mlp_bwd. --wgrad runs phase 1 and only the
-wgrad phase, at both presets' train-step signatures.
+wgrad phase, at both presets' train-step signatures. --train-cli runs phase
+1 and only phase 13.
 """
 
 from __future__ import annotations
@@ -1612,6 +1632,213 @@ def rs_train_path(dev, expected: Counter) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the training entry point (patch store, pipeline, train CLI)
+# ---------------------------------------------------------------------------
+
+DEGRADE_TOL = 1e-5  # a branch's apply on the card against the same apply on the CPU
+CLI_STORE, CLI_EPOCHS, CLI_STEPS, CLI_WARMUP = 128, 2, 6, 2
+
+
+def degradation_checks(dev) -> dict:
+    """Every branch of make_degrader at both presets' band counts and 64x64
+    (each of its host-drawn options), its dense draws made on the card and
+    copied to the CPU: the card's apply against the CPU's (DEGRADE_TOL
+    max-abs); then two batch degrades with one seed bitwise equal on the card."""
+    from mp_hsir_tpu_torch.data.degradations_np import default_cirrus
+    from mp_hsir_tpu_torch.ops.pipeline_degrade import TABLES, make_batch_degrader, make_degrader
+
+    cirrus = np.stack([default_cirrus(TRAIN_SIZE, TRAIN_SIZE, seed=s) for s in range(4)])
+    worst, out = 0.0, {}
+    for data_type, bands in (("remote_sensing", 100), ("natural_scene", 31)):
+        types = tuple(TABLES[data_type])
+        deg = make_degrader(types, data_type, cirrus)
+        clean = np.stack([quality_cube(5000 + i, TRAIN_SIZE, bands)[0] for i in range(4)])
+        x_cpu = torch.from_numpy(clean)
+        x_dev = x_cpu.to(dev)
+        errs = {}
+        for br in deg.branches:
+            for sub in range(br.n_sub):
+                for sub2 in range(br.n_sub2[sub] if br.n_sub2 else 1):
+                    gen = torch.Generator(device=dev).manual_seed(11 + sub + 7 * sub2)
+                    draws = br.draw(gen, x_dev, sub, sub2)
+                    y_dev = br.apply(x_dev, draws, sub, sub2)
+                    y_cpu = br.apply(x_cpu, tuple(d.cpu() for d in draws), sub, sub2)
+                    err = (y_dev.cpu() - y_cpu).abs().max().item()
+                    errs[f"{br.name}[{sub},{sub2}]"] = err
+                    if not torch.isfinite(y_dev).all() or err > DEGRADE_TOL:
+                        fail(f"degradation {br.name} ({data_type}, option {sub},{sub2}): card "
+                             f"vs CPU max-abs {err:.3e} (bound {DEGRADE_TOL})")
+        worst = max(worst, max(errs.values()))
+        log(f"  {data_type} ({bands} bands, {TRAIN_SIZE}^2, 4 samples): {len(errs)} branch "
+            f"options, card vs CPU on the card's draws, max-abs worst "
+            f"{max(errs.values()):.2e} ({max(errs, key=errs.get)}; bound {DEGRADE_TOL})")
+        bd = make_batch_degrader(types, data_type, cirrus)
+        batch = torch.from_numpy(np.concatenate([clean] * 8)).to(dev)
+        de_ids = np.arange(32) % len(types)
+        runs = []
+        for _ in range(2):
+            gen = torch.Generator(device=dev).manual_seed(2024)
+            runs.append(bd(gen, batch, de_ids, np.random.default_rng([2024, 0, 0, 1])))
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        log(f"  {data_type}: two batch degrades of 32 samples with one seed on the card: "
+            f"{'bitwise equal' if same else 'DIFFER'}")
+        if not same:
+            fail(f"{data_type}: two degrades with one seed differ on the card")
+        out[data_type] = errs
+    return dict(max_abs=worst, branches=out)
+
+
+def write_store(path: str, n: int, bands: int) -> None:
+    """n seeded smooth band-correlated 64x64 patches, sources WDC_* (the
+    remote-sensing source filter keeps them)."""
+    from mp_hsir_tpu_torch.data.patch_store import PatchStoreWriter
+
+    with PatchStoreWriter(path) as w:
+        for i in range(n):
+            w.add(quality_cube(6000 + i, TRAIN_SIZE, bands)[0], f"WDC_{i:04d}.mat")
+
+
+def sync_free_pipeline(dev, store: str) -> None:
+    """The streaming pipeline (degrade and upload) under
+    torch.cuda.set_sync_debug_mode("error") for 4 batches: any synchronising
+    call raises."""
+    from mp_hsir_tpu_torch.config import TrainConfig
+    from mp_hsir_tpu_torch.data.degradations_np import default_cirrus
+    from mp_hsir_tpu_torch.data.patch_store import PatchStore
+    from mp_hsir_tpu_torch.data.train_pipeline import TrainPipeline
+
+    tc = TrainConfig(batch_size=TRAIN_BATCH, patch_size=TRAIN_SIZE)
+    cirrus = np.stack([default_cirrus(TRAIN_SIZE, TRAIN_SIZE, seed=s) for s in range(4)])
+    for dtype in ("float32", "uint16"):
+        pipe = TrainPipeline(PatchStore(store), tc, cirrus_bank=cirrus, target_bands=100,
+                             upload_dtype=dtype, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            batches = list(pipe.epoch(0, steps=4))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        ok = all(torch.isfinite(b["degraded"]).all().item() for b in batches)
+        log(f"  streaming pipeline, upload {dtype}: 4 batches of {TRAIN_BATCH} x 100 x "
+            f"{TRAIN_SIZE}^2 under set_sync_debug_mode('error'): no synchronising call; "
+            f"finite {ok}")
+        if not ok:
+            fail("the pipeline's degraded batches are not finite")
+
+
+def cli_run(dev, expected: Counter, argv: list, steps: int, what: str) -> dict:
+    """One train CLI run with the counters zeroed just before and read just
+    after: every kernel launches steps x its per-step count, the recorded
+    call signatures equal the enumerated ones x steps, no plain version runs
+    on the card, every logged loss is finite."""
+    import gc
+
+    from mp_hsir_tpu_torch.cli import train_cli
+    from mp_hsir_tpu_torch.ops.kernels import _route
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _route.reset_counters()
+    res = train_cli.main(argv)
+    counts = {name: cnt.launches for name, cnt in _route.COUNTERS.items() if cnt.launches}
+    recorded = Counter()
+    for cnt in _route.COUNTERS.values():
+        recorded.update(cnt.specs)
+    if _route.ROUTE.plain_cuda_calls:
+        fail(f"train CLI ({what}): {_route.ROUTE.plain_cuda_calls} plain-version calls on CUDA "
+             f"tensors")
+    want = Counter({k: v * steps for k, v in expected.items()})
+    if recorded != want:
+        fail(f"train CLI ({what}) kernel calls differ from {steps} x the enumerated step: extra "
+             f"{dict(recorded - want)}, missing {dict(want - recorded)}")
+    losses = [r["train_loss"] for r in res["losses"]]
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        fail(f"train CLI ({what}): logged losses {losses}")
+    ms = res["step_ms"][CLI_WARMUP:]
+    up = [u for u, _ in res["pipeline_ms"][CLI_WARMUP:] if u is not None]
+    dg = [d for _, d in res["pipeline_ms"][CLI_WARMUP:]]
+    res.update(what=what, launches=counts, median_ms=statistics.median(ms),
+               upload_ms=statistics.median(up) if up else None,
+               degrade_ms=statistics.median(dg))
+    upl = "-" if res["upload_ms"] is None else f"{res['upload_ms']:.3f}"
+    log(f"  {what}: ms per step median {res['median_ms']:.2f} of {len(ms)} after {CLI_WARMUP} "
+        f"warm-up (min {min(ms):.2f}, max {max(ms):.2f}); upload {upl} ms and degrade "
+        f"{res['degrade_ms']:.3f} ms per step (CUDA events, medians); peak "
+        f"{res['peak_gib']:.2f} GiB; launches {json.dumps(counts)}")
+    return res
+
+
+def train_cli_path(dev, expected: Counter, synthetic_ms) -> dict:
+    """Phase 13: the degradations on the card, the pipeline without a
+    synchronising call, then the remote-sensing train CLI at full width:
+    2 epochs x 6 steps (checkpoint each epoch), resume of epoch 2 from epoch
+    1's checkpoint, and 6 steps each with --upload_dtype uint16 and with
+    --resident_bank."""
+    import shutil
+
+    from mp_hsir_tpu_torch.checkpoint import load_params_npz
+    from mp_hsir_tpu_torch.config import remote_sensing_config
+    from mp_hsir_tpu_torch.models.mp_hsir import build_model
+
+    # torch's default TF32 settings, as a user's process has them (the other
+    # phases turn TF32 off): the blur must still match the CPU, through its
+    # own TF32-off scope
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    tmp = tempfile.mkdtemp(prefix="mp_hsir_train_cli_")
+    try:
+        deg = degradation_checks(dev)
+        store = os.path.join(tmp, "store")
+        write_store(store, CLI_STORE, 100)
+        sync_free_pipeline(dev, store)
+        base = ["--db_path", store, "--data_type", "remote_sensing", "--batch_size",
+                str(TRAIN_BATCH), "--patch_size", str(TRAIN_SIZE), "--compute_dtype", "bfloat16",
+                "--log_every", "1", "--ckpt_every_epochs", "1", "--steps_per_epoch", str(CLI_STEPS)]
+        ck = os.path.join(tmp, "ck")
+        runs = [cli_run(dev, expected, base + ["--epochs", str(CLI_EPOCHS), "--ckpt_dir", ck],
+                        CLI_EPOCHS * CLI_STEPS, f"streaming float32, {CLI_EPOCHS} epochs x "
+                        f"{CLI_STEPS} steps")]
+        first = runs[0]
+        if len(first["checkpoints"]) != CLI_EPOCHS or not all(
+                os.path.exists(c) for c in first["checkpoints"] + [first["params"]]):
+            fail(f"train CLI files missing: {first['checkpoints']}, {first['params']}")
+        model = build_model(remote_sensing_config(compute_dtype="bfloat16"), dev)
+        load_params_npz(first["params"], model)
+        del model
+        resumed = cli_run(dev, expected, base + ["--epochs", str(CLI_EPOCHS), "--ckpt_dir",
+                                                 os.path.join(tmp, "ck_resume"), "--ckpt_path",
+                                                 first["checkpoints"][0]],
+                          CLI_STEPS, "resume of epoch 2 from epoch 1's checkpoint")
+        want = [r["train_loss"] for r in first["losses"][CLI_STEPS:]]
+        got = [r["train_loss"] for r in resumed["losses"]]
+        resume_diff = max(abs(a - b) for a, b in zip(got, want))
+        log(f"  resume: epoch 2's losses {' '.join(f'{v:.6f}' for v in got)} against the "
+            f"uninterrupted run's {' '.join(f'{v:.6f}' for v in want)}: "
+            f"{'bitwise equal' if got == want else f'max |diff| {resume_diff:.3e}'}")
+        if not np.allclose(got, want, rtol=0, atol=1e-3 * max(map(abs, want))):
+            fail("the resumed epoch's losses differ from the uninterrupted run's")
+        for flag, what in ((["--upload_dtype", "uint16"], "streaming uint16"),
+                           (["--resident_bank"], "resident bank")):
+            runs.append(cli_run(dev, expected, base + ["--epochs", "1", "--ckpt_dir",
+                                                       os.path.join(tmp, flag[0][2:])] + flag,
+                                CLI_STEPS, what))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    log(f"  ms per step, remote-sensing train CLI (bf16, batch {TRAIN_BATCH} x 100 x "
+        f"{TRAIN_SIZE}^2, degradation and upload included) beside phase 12's synthetic batch: "
+        + ", ".join(f"{r['what']} {r['median_ms']:.2f}" for r in runs)
+        + ("" if synthetic_ms is None else f"; phase 12 synthetic step {synthetic_ms:.2f}"))
+    keep = ("what", "losses", "step_ms", "median_ms", "upload_ms", "degrade_ms", "peak_gib",
+            "launches", "pipeline_ms")
+    return dict(degradations=deg, runs=[{k: r[k] for k in keep} for r in runs],
+                resume={k: resumed[k] for k in keep}, resume_bitwise=got == want,
+                resume_max_diff=resume_diff, synthetic_ms=synthetic_ms)
+
+
+# ---------------------------------------------------------------------------
 # phase 10: the window MSA kernel (K14) through SpatialAttention
 # ---------------------------------------------------------------------------
 
@@ -2041,6 +2268,8 @@ def main() -> None:
     ap.add_argument("--mlp-bwd-split", action="store_true", help="the same as --bwd-split mlp_bwd")
     ap.add_argument("--wgrad", action="store_true", help="only the wgrad checks at both train "
                     "steps' signatures (after the build)")
+    ap.add_argument("--train-cli", action="store_true", help="only phase 13, the training entry "
+                    "point (after the build)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs an NVIDIA GPU")
@@ -2091,6 +2320,16 @@ def main() -> None:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
             with open(args.out, "w") as fh:
                 json.dump(dict(card=card, ptxas=wgrad_ptxas, **res), fh, indent=1)
+        log(f"== done in {time.perf_counter() - t_start:.1f} s")
+        return
+    if args.train_cli:
+        log("== phase 13 only: the training entry point")
+        cli = train_cli_path(dev, train_path_specs(preset_cfgs[1], TRAIN_BATCH, TRAIN_SIZE,
+                                                   "torch.bfloat16"), None)
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "w") as fh:
+                json.dump(dict(card=card, train_cli=cli), fh, indent=1)
         log(f"== done in {time.perf_counter() - t_start:.1f} s")
         return
     front_plans = log_front_plans(_build)
@@ -2206,6 +2445,12 @@ def main() -> None:
     rs_train["wgrad_stages_ms_per_step"] = log_wgrad_stages("per remote-sensing train step", {
         name: rs_train[f"{name}_stages_per_step"] for name in BWD_SPLIT})
 
+    log(f"== phase 13: the training entry point: degradations on the card, the pipeline "
+        f"without a sync, the remote-sensing train CLI (bf16, batch {TRAIN_BATCH} x 100 x "
+        f"{TRAIN_SIZE}^2)")
+    log(card)
+    cli = train_cli_path(dev, rs_tspecs, rs_train["median_ms"])
+
     summary = summarize(rows, main_res["launches"], KERNELS, "per_forward")
     summary += summarize([r for r in train_rows if r["spec"][0] in TRAIN_KERNELS],
                          train_res["launches"], TRAIN_KERNELS, "per_step")
@@ -2217,6 +2462,9 @@ def main() -> None:
             k["remote_sensing_train"] = {key: by_name[k["name"]][key] for key in (
                 "launches", "launches_per_step", "max_abs_err", "ms", "plain_ms", "bound_ms",
                 "bound_by", "kernel_alone_ms", "kernel_tflops") if key in by_name[k["name"]]}
+            # this slice's path: the train CLI's first run
+            n = cli["runs"][0]["launches"].get(k["name"], 0)
+            k["train_cli"] = dict(launches=n, launches_per_step=n // (CLI_EPOCHS * CLI_STEPS))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
@@ -2230,6 +2478,7 @@ def main() -> None:
                            stats_bwd_plans=stats_bwd_plans,
                            window_bwd_plans=window_bwd_plans, apply_bwd_plans=apply_bwd_plans,
                            gdfn_bwd_plans=gdfn_bwd_plans, wgrad_ptxas=wgrad_ptxas,
+                           train_cli=cli,
                            seconds=time.perf_counter() - t_start), fh, indent=1)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card)

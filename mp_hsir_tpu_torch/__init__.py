@@ -6,6 +6,7 @@ unless the caller passes ``device="cpu"``; on the CPU every kernel wrapper
 uses its plain PyTorch version.
 """
 
+import numpy as np
 import torch
 
 
@@ -18,3 +19,15 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             "device 'cuda' requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run the plain PyTorch path")
     return dev
+
+
+def upload(a: np.ndarray, device: str | torch.device) -> torch.Tensor:
+    """A host array on ``device`` without a synchronising copy: on the card
+    it goes through pinned memory with ``non_blocking`` (the caching host
+    allocator keeps the pinned block until the copy has run), so code that
+    runs under ``torch.cuda.set_sync_debug_mode("error")`` may call it."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return t.to(dev)
+    return t.pin_memory().to(dev, non_blocking=True)

@@ -16,6 +16,7 @@ runs on the card unless ``--device cpu`` is given. The other modes,
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 
@@ -27,9 +28,10 @@ from mp_hsir_tpu_torch.checkpoint import load_params_npz
 from mp_hsir_tpu_torch.config import (
     EvalConfig, ModelConfig, natural_scene_config, remote_sensing_config,
 )
-from mp_hsir_tpu_torch.data.eval_datasets import GaussianDenoiseDataset, save_false_color
+from mp_hsir_tpu_torch.data.eval_datasets import GaussianDenoiseDataset
 from mp_hsir_tpu_torch.models.mp_hsir import build_model
 from mp_hsir_tpu_torch.ops.metrics import AverageMeter, compute_psnr_ssim, compute_sam
+from mp_hsir_tpu_torch.utils.image import save_false_color
 
 MODE_TASK_ID = {0: 0}
 PRESETS = {"natural_scene": natural_scene_config, "remote_sensing": remote_sensing_config}
@@ -108,6 +110,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ckpt_path", type=str, default="")
     p.add_argument("--data_type", type=str, default="natural_scene", choices=sorted(PRESETS))
     p.add_argument("--no_save_images", action="store_true")
+    p.add_argument("--dim", type=int, default=None, help="model width override")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     return p
 
@@ -119,6 +122,8 @@ def main(argv=None) -> None:
                      select_bands=tuple(args.select_bands), output_path=args.output_path,
                      ckpt_path=args.ckpt_path, save_images=not args.no_save_images)
     model_cfg = PRESETS[args.data_type]()
+    if args.dim:
+        model_cfg = dataclasses.replace(model_cfg, dim=args.dim)
     print(f"Start gaussian denoise testing sigma={cfg.gaussian_noise_sigma}")
     run_mode(cfg, model_cfg, device=args.device)
 

@@ -1,11 +1,12 @@
 """Typed configuration (mirrors ``mp_hsir_tpu/config.py``: ModelConfig, the two
-published presets, the mode-0 fields of EvalConfig and the single-device
-fields of TrainConfig). Mesh fields are absent: this package runs one card."""
+published presets, the mode-0 fields of EvalConfig and every field of
+TrainConfig with JAX's defaults). The mesh fields exist but this package
+runs one card: the train CLI raises on any mesh size other than 1."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,8 +52,7 @@ def remote_sensing_config(**kw) -> ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Single-device training knobs (the fields of JAX ``TrainConfig``,
-    reference train.py:68-120, that the train step and its callers read)."""
+    """Training knobs (JAX ``TrainConfig``, reference train.py:68-120)."""
 
     seed: int = 2024
     epochs: int = 100
@@ -65,7 +65,26 @@ class TrainConfig:
     patch_size: int = 64
     data_type: str = "remote_sensing"  # or "natural_scene"
     de_types: Tuple[str, ...] = ()
+    db_path: str = ""
+    ckpt_dir: str = "ckpt"
+    ckpt_every_epochs: int = 50
+    resume_from: Optional[str] = None
     grad_accum: int = 1
+    # mesh sizes along (data, spatial); only 1 x 1 runs in this package
+    mesh_data: int = 1
+    mesh_spatial: int = 1
+    mixed_precision: bool = True  # bf16 compute (reference uses fp16-mixed)
+    log_every: int = 50
+    # input pipeline (data/train_pipeline.py): the dtype clean patches cross
+    # the host -> device link in ("float32", "float16", "bfloat16", or
+    # "uint16" fixed point); resident_bank uploads the patch store once and
+    # gathers each batch on the device, bank_patches caps the bank and
+    # refresh_per_step streams that many fresh patches into it per step
+    upload_dtype: str = "float32"
+    resident_bank: bool = False
+    bank_patches: Optional[int] = None
+    refresh_per_step: int = 0
+    prefetch: int = 2
 
     def de_types_resolved(self) -> Tuple[str, ...]:
         """The degradations a training batch draws from: ``de_types``, else

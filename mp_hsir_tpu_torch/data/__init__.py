@@ -1,1 +1,1 @@
-"""Host-side data loading and degradation for evaluation."""
+"""Host-side data: patch store, train pipeline, offline builders and evaluation sets."""

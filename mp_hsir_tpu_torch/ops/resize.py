@@ -1,5 +1,8 @@
 """Separable NHWC resizing as interpolation-matrix products (counterpart of
-``mp_hsir_tpu/ops/resize.py``; torch ``F.interpolate`` semantics)."""
+``mp_hsir_tpu/ops/resize.py``; torch ``F.interpolate`` semantics: bicubic
+a = -0.75, bilinear's negative-source clamp, nearest's floor rule). The
+matrices are built in numpy, as the JAX package builds them, and kept on
+each device once uploaded."""
 
 from __future__ import annotations
 
@@ -7,6 +10,17 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+
+from mp_hsir_tpu_torch import upload
+
+
+def _cubic_weight(t: np.ndarray, a: float = -0.75) -> np.ndarray:
+    at = np.abs(t)
+    return np.where(
+        at <= 1,
+        (a + 2) * at**3 - (a + 3) * at**2 + 1,
+        np.where(at < 2, a * at**3 - 5 * a * at**2 + 8 * a * at - 4 * a, 0.0),
+    )
 
 
 def _source_coords(n_in: int, n_out: int, align_corners: bool, clamp_neg: bool) -> np.ndarray:
@@ -19,26 +33,53 @@ def _source_coords(n_in: int, n_out: int, align_corners: bool, clamp_neg: bool) 
 
 
 @lru_cache(maxsize=256)
-def _bilinear_matrix(n_in: int, n_out: int, align_corners: bool) -> np.ndarray:
-    """(n_out, n_in) float32 row-stochastic bilinear interpolation matrix."""
+def _resize_matrix(n_in: int, n_out: int, mode: str, align_corners: bool) -> np.ndarray:
+    """(n_out, n_in) float32 row-stochastic interpolation matrix."""
     m = np.zeros((n_out, n_in), dtype=np.float64)
-    src = _source_coords(n_in, n_out, align_corners, clamp_neg=not align_corners)
+    if mode == "bicubic":
+        src = _source_coords(n_in, n_out, align_corners, clamp_neg=False)
+        taps = range(-1, 3)
+    elif mode == "bilinear":
+        src = _source_coords(n_in, n_out, align_corners, clamp_neg=not align_corners)
+        taps = range(2)
+    else:
+        raise ValueError(mode)
     i0 = np.floor(src).astype(np.int64)
     t = src - i0
-    for k, wk in ((0, 1 - t), (1, t)):
+    for k in taps:
+        wk = _cubic_weight(t - k) if mode == "bicubic" else (1 - t if k == 0 else t)
         np.add.at(m, (np.arange(n_out), np.clip(i0 + k, 0, n_in - 1)), wk)
     return m.astype(np.float32)
 
 
-def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int,
-                    align_corners: bool = False) -> torch.Tensor:
-    """NHWC bilinear resize (antialias off) in float32, cast back to x's dtype."""
+@lru_cache(maxsize=256)
+def _device_matrix(n_in: int, n_out: int, mode: str, align_corners: bool,
+                   device: torch.device) -> torch.Tensor:
+    return upload(_resize_matrix(n_in, n_out, mode, align_corners), device)
+
+
+def _separable(x: torch.Tensor, out_h: int, out_w: int, mode: str,
+               align_corners: bool) -> torch.Tensor:
+    """x: (..., H, W, C) -> (..., out_h, out_w, C), two float32 products, cast
+    back to x's dtype."""
     h, w = x.shape[-3], x.shape[-2]
-    mh = torch.as_tensor(_bilinear_matrix(h, out_h, align_corners), device=x.device)
-    mw = torch.as_tensor(_bilinear_matrix(w, out_w, align_corners), device=x.device)
+    mh = _device_matrix(h, out_h, mode, align_corners, x.device)
+    mw = _device_matrix(w, out_w, mode, align_corners, x.device)
     y = torch.einsum("oh,...hwc->...owc", mh, x.float())
     y = torch.einsum("pw,...owc->...opc", mw, y)
     return y.to(x.dtype)
+
+
+def resize_bicubic(x: torch.Tensor, out_h: int, out_w: int,
+                   align_corners: bool = False) -> torch.Tensor:
+    """NHWC bicubic resize (antialias off)."""
+    return _separable(x, out_h, out_w, "bicubic", align_corners)
+
+
+def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int,
+                    align_corners: bool = False) -> torch.Tensor:
+    """NHWC bilinear resize (antialias off)."""
+    return _separable(x, out_h, out_w, "bilinear", align_corners)
 
 
 def resize_nearest(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
@@ -49,3 +90,12 @@ def resize_nearest(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     hi = torch.as_tensor(hi, device=x.device)
     wi = torch.as_tensor(wi, device=x.device)
     return x.index_select(-3, hi).index_select(-2, wi)
+
+
+def pixel_replicate_upsample(x: torch.Tensor, r: int) -> torch.Tensor:
+    """Repeat every pixel of an NHWC tensor r x r times (the reference's
+    'resize' that blows a downsampled cube back to full resolution,
+    utils/degradation_utils.py:189-200)."""
+    *lead, h, w, c = x.shape
+    y = x[..., :, None, :, None, :].expand(*lead, h, r, w, r, c)
+    return y.reshape(*lead, h * r, w * r, c)
