@@ -2,7 +2,7 @@
 """Drive the PyTorch port of MP-HSIR on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--out results.json] [--bwd-split KERNEL] [--mlp-bwd-split] [--wgrad]
-                          [--train-cli]
+                          [--train-cli] [--eval-cli]
 
 Phases (any failure exits non-zero; no phase's error is caught):
 
@@ -152,9 +152,27 @@ Phases (any failure exits non-zero; no phase's error is caught):
     steps each with --upload_dtype uint16 and --resident_bank; ms per step
     (median after 2 warm-up), the upload and degrade ms per step (CUDA
     events), peak memory, beside phase 12's synthetic step.
-14. The kernel summary line (each kernel's main-path numbers, its
-    remote-sensing train-step numbers and the train CLI's launches beside
-    them), then the result line.
+14. The eval entry point (mp_hsir_tpu_torch.cli.test_cli's run_mode, in
+    process, float32 as the JAX CLI): two 512x512x31 quality cubes (seeds
+    991, 992; mode 12 pairs them with seeded sigma-30/255 copies) through
+    every mode 0-12 on the trained flagship weights, one loaded model: each
+    run launches every kernel (1 warm-up + 2 cubes) x the float32 forward's
+    enumerated signatures, no plain version on the card; per mode the first
+    cube through the kernel and the plain float32 forward under the mode's
+    task id (max abs <= 1e-4: prompts 0-5); mode 0 restores >= 3 dB above
+    the degraded input, the other modes print PSNR, SSIM, SAM and the
+    degraded PSNR (mode 10: the zeroed bands); --pipeline 3 against the
+    synchronous loop for modes 0, 7 and 10 under set_sync_debug_mode("error")
+    (float32 upload within 1e-4 dB / 1e-5 / 1e-4 of PSNR / SSIM / SAM,
+    float16 within 0.05 / 1e-3 / 0.05); the seeded random FFC classifier as
+    the router on the card, consulted once per cube, synchronous and
+    pipelined; one subprocess run of the CLI (mode 7, --pipeline 2
+    --upload_dtype float16) held to the stdout lines; the remote-sensing
+    preset on seeded random weights at 256x256x100, modes 0 and 10 (task 6),
+    with the same launch and kernel-vs-plain checks; s/cube per mode.
+15. The kernel summary line (each kernel's main-path numbers, its
+    remote-sensing train-step numbers and the train and eval CLIs' launches
+    beside them), then the result line.
 
 --bwd-split KERNEL (mlp_bwd, spectral_stats_bwd, window_attention_bwd,
 spectral_apply_bwd or gdfn_bwd; repeatable) runs phase 1's build and only
@@ -163,7 +181,7 @@ of the named kernels' mp_wgrad stages: the same measurement for another
 checkout of the package (this file copied to its root and run there);
 --mlp-bwd-split is --bwd-split mlp_bwd. --wgrad runs phase 1 and only the
 wgrad phase, at both presets' train-step signatures. --train-cli runs phase
-1 and only phase 13.
+1 and only phase 13, --eval-cli phase 1 and only phase 14.
 """
 
 from __future__ import annotations
@@ -1839,6 +1857,259 @@ def train_cli_path(dev, expected: Counter, synthetic_ms) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the eval entry point (every mode, band-missing scoring, the
+# pipelined loop, the classifier router)
+# ---------------------------------------------------------------------------
+
+EVAL_MODES = tuple(range(13))
+EVAL_CUBES = 2
+# the warm-up forward and one per cube, per run_mode
+EVAL_FORWARDS = 1 + EVAL_CUBES
+# pipelined against synchronous, float32 upload, then float16: PSNR dB, SSIM, SAM
+PIPE_TOL = {"float32": (1e-4, 1e-5, 1e-4), "float16": (0.05, 1e-3, 0.05)}
+PIPE_MODES, PIPE_DEPTH = (0, 7, 10), 3
+
+
+def write_eval_cubes(d: str, size: int, bands: int) -> tuple:
+    """Two quality cubes (seeds 991, 992) as HWC .mat files in ``d``/clean,
+    and seeded noisy copies (sigma 30/255) in ``d``/degraded for mode 12."""
+    import scipy.io as sio
+
+    clean_dir, degrad_dir = os.path.join(d, "clean"), os.path.join(d, "degraded")
+    os.makedirs(clean_dir)
+    os.makedirs(degrad_dir)
+    rng = np.random.default_rng(4321)
+    for i, seed in enumerate((991, 992)):
+        clean, _ = quality_cube(seed, size, bands)
+        noisy = np.clip(clean + rng.normal(0, 30 / 255.0, clean.shape), 0, 1).astype(np.float32)
+        sio.savemat(os.path.join(clean_dir, f"cube_{i}.mat"), {"data": clean.transpose(1, 2, 0)})
+        sio.savemat(os.path.join(degrad_dir, f"cube_{i}.mat"), {"data": noisy.transpose(1, 2, 0)})
+    return clean_dir, degrad_dir
+
+
+def eval_run(dev, model, model_cfg, cfg, expected: Counter, what: str, router=None) -> dict:
+    """One run_mode with the counters zeroed just before and read just
+    after: every kernel launches EVAL_FORWARDS x its per-forward count with
+    the enumerated signatures, no plain version on the card. Its stdout is
+    logged indented."""
+    import io
+
+    from mp_hsir_tpu_torch.cli import test_cli
+    from mp_hsir_tpu_torch.ops.kernels import _route
+
+    out = io.StringIO()
+    _route.reset_counters()
+    with contextlib.redirect_stdout(out):
+        res = test_cli.run_mode(cfg, model_cfg, model=model, device=dev, task_router=router)
+    counts = {name: cnt.launches for name, cnt in _route.COUNTERS.items() if cnt.launches}
+    recorded = Counter()
+    for cnt in _route.COUNTERS.values():
+        recorded.update(cnt.specs)
+    plain = _route.ROUTE.plain_cuda_calls
+    for line in out.getvalue().strip().splitlines():
+        log("    " + line)
+    if plain:
+        fail(f"eval CLI ({what}): {plain} plain-version calls on CUDA tensors")
+    want = Counter({k: v * EVAL_FORWARDS for k, v in expected.items()})
+    if recorded != want:
+        fail(f"eval CLI ({what}) kernel calls differ from {EVAL_FORWARDS} x the enumerated "
+             f"forward: extra {dict(recorded - want)}, missing {dict(want - recorded)}")
+    if not all(np.isfinite([res["psnr"], res["ssim"], res["sam"]])):
+        fail(f"eval CLI ({what}): metrics not finite: {res}")
+    res.update(launches=counts, stdout=out.getvalue().strip().splitlines())
+    return res
+
+
+def kernel_vs_plain_per_prompt(dev, model, cfg, task_id: int, what: str) -> dict:
+    """The mode's first cube through the kernel forward and the plain float32
+    forward on the card with the mode's task id: max abs <= F32_TOL; and the
+    degraded PSNR of the mode's cubes."""
+    import io
+
+    from mp_hsir_tpu_torch.data.eval_datasets import MODE_DATASETS
+    from mp_hsir_tpu_torch.ops.kernels import _route
+    from mp_hsir_tpu_torch.ops.metrics import compute_psnr_ssim_missing_bands
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        items = list(MODE_DATASETS[cfg.mode](cfg))
+    pairs = [(torch.from_numpy(it["degraded"])[None], torch.from_numpy(it["clean"])[None])
+             for it in items]
+    if cfg.mode == 10:  # the zeroed bands alone, as the mode scores
+        deg = [compute_psnr_ssim_missing_bands(d, c, d)[0] for d, c in pairs]
+    else:
+        deg = [band_psnr(d, c) for d, c in pairs]
+    x = torch.from_numpy(items[0]["degraded"])[None].to(dev)
+    tid = torch.tensor([task_id], device=dev)
+    with torch.inference_mode():
+        out = model(x, tid)
+        with _route.plain_reference():
+            ref = model(x, tid)
+    err = (out - ref).abs().max().item()
+    if not err <= F32_TOL:
+        fail(f"{what}: float32 kernel forward differs from the plain one by {err:.3e} "
+             f"(bound {F32_TOL}) under task {task_id}")
+    return dict(max_abs_err=err, psnr_degraded=statistics.mean(deg))
+
+
+def float32_kernel_ms(specs: Counter, dev) -> dict:
+    """Each float32 kernel call of the eval forward timed alone through its
+    wrapper on seeded inputs (CUDA events, 5 calls), times its calls per
+    forward, summed per kernel: where the CLI's float32 forward goes."""
+    per_kernel = Counter()
+    for spec, mult in specs.items():
+        fn, args, kw, *_ = make_call(spec, dev, torch.float32)
+        per_kernel[spec[0]] += time_ms(lambda: fn(*args, **kw), 5) * mult
+        del args, kw
+    return dict(per_kernel)
+
+
+def eval_cli_path(dev, card: str) -> dict:
+    """Phase 14: the eval entry point on the card, float32 as the JAX CLI."""
+    import dataclasses
+    import shutil
+
+    from mp_hsir_tpu_torch.checkpoint import load_params_npz
+    from mp_hsir_tpu_torch.cli import test_cli
+    from mp_hsir_tpu_torch.config import EvalConfig, natural_scene_config, remote_sensing_config
+    from mp_hsir_tpu_torch.models.mp_hsir import build_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tmp = tempfile.mkdtemp(prefix="mp_hsir_eval_cli_")
+    res = dict(modes={}, pipelined={}, remote_sensing={})
+    try:
+        clean_dir, degrad_dir = write_eval_cubes(os.path.join(tmp, "flagship"), SIZE, 31)
+        cfg_m = natural_scene_config()
+        model = build_model(cfg_m, dev)
+        load_params_npz(ART, model)
+        specs = path_specs(cfg_m, SIZE, "torch.float32")
+        base = EvalConfig(test_dir=clean_dir, test_degrad_dir=degrad_dir, save_images=False,
+                          output_path=os.path.join(tmp, "out"))
+        log(f"  flagship, trained weights, float32, {EVAL_CUBES} cubes 31 x {SIZE}^2 per mode "
+            f"(synchronous loop)")
+        for mode in EVAL_MODES:
+            cfg = dataclasses.replace(base, mode=mode)
+            r = eval_run(dev, model, cfg_m, cfg, specs, f"mode {mode}")
+            kp = kernel_vs_plain_per_prompt(dev, model, cfg, test_cli.MODE_TASK_ID[mode],
+                                            f"mode {mode}")
+            r.update(kp, task_id=test_cli.MODE_TASK_ID[mode])
+            log(f"  mode {mode:2d} (task {r['task_id']}): PSNR {r['psnr']:.3f} dB (degraded "
+                f"{r['psnr_degraded']:.3f}), SSIM {r['ssim']:.4f}, SAM {r['sam']:.3f} deg, "
+                f"{r['sec_per_cube'] * 1e3:.2f} ms/cube; kernels vs plain float32 max abs "
+                f"{r['max_abs_err']:.3e}")
+            res["modes"][mode] = r
+        res["float32_kernel_ms"] = float32_kernel_ms(specs, dev)
+        log("  float32 kernels per forward, each call alone through its wrapper x its calls: "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(res["float32_kernel_ms"].items()))
+            + f"; sum {sum(res['float32_kernel_ms'].values()):.2f} ms against "
+            f"{res['modes'][0]['sec_per_cube'] * 1e3:.2f} ms per cube")
+        gain = res["modes"][0]["psnr"] - res["modes"][0]["psnr_degraded"]
+        log(f"  mode 0: restored - degraded PSNR {gain:.3f} dB (floor 3)")
+        if gain < 3.0:
+            fail("mode 0 restores less than 3 dB above the degraded input")
+
+        log(f"  pipelined (--pipeline {PIPE_DEPTH}) against the synchronous loop, under "
+            f"set_sync_debug_mode('error') outside the drain's event wait")
+        for mode in PIPE_MODES:
+            sync = res["modes"][mode]
+            for dtype, tol in PIPE_TOL.items():
+                cfg = dataclasses.replace(base, mode=mode, pipeline=PIPE_DEPTH, upload_dtype=dtype)
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    r = eval_run(dev, model, cfg_m, cfg, specs, f"mode {mode} pipelined {dtype}")
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                diffs = [abs(r[k] - sync[k]) for k in ("psnr", "ssim", "sam")]
+                log(f"  mode {mode:2d} pipelined x{PIPE_DEPTH} {dtype}: "
+                    f"{r['sec_per_cube'] * 1e3:.2f} ms/cube (synchronous "
+                    f"{sync['sec_per_cube'] * 1e3:.2f}); |diff| PSNR {diffs[0]:.2e} dB, SSIM "
+                    f"{diffs[1]:.2e}, SAM {diffs[2]:.2e} (bounds {tol})")
+                if any(d > t for d, t in zip(diffs, tol)):
+                    fail(f"mode {mode}: the pipelined loop ({dtype} upload) differs from the "
+                         f"synchronous one")
+                res["pipelined"][f"{mode}/{dtype}"] = r
+
+        log("  --auto_task: the seeded random classifier routes each cube, synchronous and "
+            "pipelined")
+        route = test_cli.make_classifier_router("", "natural_scene", dev)
+        if next(route.classifier.parameters()).device.type != "cuda":
+            fail("the classifier router is not on the card")
+        calls = []
+
+        def router(degraded):
+            calls.append(route(degraded))
+            return calls[-1]
+
+        for pipe in (1, PIPE_DEPTH):
+            cfg = dataclasses.replace(base, mode=5, pipeline=pipe)
+            n0 = len(calls)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error" if pipe > 1 else 0)
+            try:
+                r = eval_run(dev, model, cfg_m, cfg, specs, f"mode 5 auto_task pipeline {pipe}",
+                             router)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            log(f"  pipeline {pipe}: routed task ids {calls[n0:]}, "
+                f"{r['sec_per_cube'] * 1e3:.2f} ms/cube")
+            if len(calls) - n0 != EVAL_CUBES:
+                fail(f"the router was consulted {len(calls) - n0} times for {EVAL_CUBES} cubes")
+            res[f"auto_task_pipeline_{pipe}"] = dict(task_ids=calls[n0:], **r)
+        del model, route
+        torch.cuda.empty_cache()
+
+        log("  the CLI in a subprocess: --mode 7 --pipeline 2 --upload_dtype float16")
+        cmd = [sys.executable, "-m", "mp_hsir_tpu_torch.cli.test_cli", "--mode", "7",
+               "--test_dir", clean_dir, "--ckpt_path", ART, "--no_save_images", "--pipeline", "2",
+               "--upload_dtype", "float16"]
+        t0 = time.perf_counter()
+        p = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        lines = p.stdout.strip().splitlines()
+        log("    " + "\n    ".join(lines) + f"\n    ({time.perf_counter() - t0:.1f} s)")
+        label = "Super resolution downsample factor=8"
+        if (p.returncode != 0 or len(lines) != 4
+                or lines[0] != "Start super-resolution testing downsampling factor=8"
+                or lines[1] != f"Total Test HSIs Ids : {EVAL_CUBES}"
+                or not lines[2].startswith(f"{label}: psnr: ")
+                or not lines[3].startswith(f"{label}: sam: ")
+                or not lines[3].endswith(" s/cube (pipelined x2)")):
+            fail(f"CLI stdout differs from the contract (exit {p.returncode}): {lines} "
+                 f"{p.stderr[-3000:]}")
+        res["subprocess_stdout"] = lines
+
+        log(f"  remote sensing, seeded random weights, float32, {EVAL_CUBES} cubes 100 x "
+            f"{RS_SIZE}^2: modes 0 and 10 (task 6)")
+        rs_clean, _ = write_eval_cubes(os.path.join(tmp, "rs"), RS_SIZE, 100)
+        rs_cfg = remote_sensing_config()
+        torch.manual_seed(RS_SEED)
+        rs_model = build_model(rs_cfg, dev)
+        rs_specs = path_specs(rs_cfg, RS_SIZE, "torch.float32")
+        for mode, task in ((0, 0), (10, 6)):
+            cfg = dataclasses.replace(base, mode=mode, test_dir=rs_clean)
+            r = eval_run(dev, rs_model, rs_cfg, cfg, rs_specs, f"remote sensing mode {mode}")
+            r.update(kernel_vs_plain_per_prompt(dev, rs_model, cfg, task,
+                                                f"remote sensing mode {mode}"), task_id=task)
+            log(f"  remote sensing mode {mode:2d} (task {task}): PSNR {r['psnr']:.3f} dB, SSIM "
+                f"{r['ssim']:.4f}, SAM {r['sam']:.3f} deg, {r['sec_per_cube'] * 1e3:.2f} "
+                f"ms/cube; kernels vs plain float32 max abs {r['max_abs_err']:.3e}")
+            res["remote_sensing"][mode] = r
+        del rs_model
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(card)
+    log("  s/cube (float32, 512^2 x 31, trained weights; net time as the CLI prints it): "
+        + ", ".join(f"mode {m} {r['sec_per_cube']:.4f}" for m, r in res["modes"].items()))
+    log("  pipelined x3: " + ", ".join(f"mode {k} {r['sec_per_cube']:.4f}"
+                                       for k, r in res["pipelined"].items()))
+    res["launches"] = Counter()  # the 13 modes' synchronous runs
+    for r in res["modes"].values():
+        res["launches"].update(r["launches"])
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 10: the window MSA kernel (K14) through SpatialAttention
 # ---------------------------------------------------------------------------
 
@@ -2270,6 +2541,8 @@ def main() -> None:
                     "steps' signatures (after the build)")
     ap.add_argument("--train-cli", action="store_true", help="only phase 13, the training entry "
                     "point (after the build)")
+    ap.add_argument("--eval-cli", action="store_true", help="only phase 14, the eval entry "
+                    "point (after the build)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs an NVIDIA GPU")
@@ -2330,6 +2603,15 @@ def main() -> None:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
             with open(args.out, "w") as fh:
                 json.dump(dict(card=card, train_cli=cli), fh, indent=1)
+        log(f"== done in {time.perf_counter() - t_start:.1f} s")
+        return
+    if args.eval_cli:
+        log("== phase 14 only: the eval entry point")
+        ev = eval_cli_path(dev, card)
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "w") as fh:
+                json.dump(dict(card=card, eval_cli=ev), fh, indent=1, default=str)
         log(f"== done in {time.perf_counter() - t_start:.1f} s")
         return
     front_plans = log_front_plans(_build)
@@ -2451,6 +2733,11 @@ def main() -> None:
     log(card)
     cli = train_cli_path(dev, rs_tspecs, rs_train["median_ms"])
 
+    log("== phase 14: the eval entry point: modes 0-12 (float32, trained weights), band-missing "
+        "scoring, the pipelined loop, the classifier router, the remote-sensing preset")
+    log(card)
+    ev = eval_cli_path(dev, card)
+
     summary = summarize(rows, main_res["launches"], KERNELS, "per_forward")
     summary += summarize([r for r in train_rows if r["spec"][0] in TRAIN_KERNELS],
                          train_res["launches"], TRAIN_KERNELS, "per_step")
@@ -2465,6 +2752,11 @@ def main() -> None:
             # this slice's path: the train CLI's first run
             n = cli["runs"][0]["launches"].get(k["name"], 0)
             k["train_cli"] = dict(launches=n, launches_per_step=n // (CLI_EPOCHS * CLI_STEPS))
+        if k["name"] in KERNELS:
+            # phase 14: the eval CLI's 13 synchronous mode runs, float32
+            n = ev["launches"].get(k["name"], 0)
+            k["eval_cli"] = dict(launches=n, launches_per_forward=n // (len(EVAL_MODES)
+                                                                        * EVAL_FORWARDS))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
@@ -2478,8 +2770,8 @@ def main() -> None:
                            stats_bwd_plans=stats_bwd_plans,
                            window_bwd_plans=window_bwd_plans, apply_bwd_plans=apply_bwd_plans,
                            gdfn_bwd_plans=gdfn_bwd_plans, wgrad_ptxas=wgrad_ptxas,
-                           train_cli=cli,
-                           seconds=time.perf_counter() - t_start), fh, indent=1)
+                           train_cli=cli, eval_cli=ev,
+                           seconds=time.perf_counter() - t_start), fh, indent=1, default=str)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": summary}))

@@ -25,9 +25,13 @@ def upload(a: np.ndarray, device: str | torch.device) -> torch.Tensor:
     """A host array on ``device`` without a synchronising copy: on the card
     it goes through pinned memory with ``non_blocking`` (the caching host
     allocator keeps the pinned block until the copy has run), so code that
-    runs under ``torch.cuda.set_sync_debug_mode("error")`` may call it."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    dev = torch.device(device)
-    if dev.type != "cuda":
-        return t.to(dev)
-    return t.pin_memory().to(dev, non_blocking=True)
+    runs under ``torch.cuda.set_sync_debug_mode("error")`` may call it. The
+    result is a normal tensor even inside ``torch.inference_mode``, so that a
+    constant cached on its first use by an eval forward serves autograd in a
+    later train step."""
+    with torch.inference_mode(False):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        dev = torch.device(device)
+        if dev.type != "cuda":
+            return t.to(dev)
+        return t.pin_memory().to(dev, non_blocking=True)

@@ -37,7 +37,12 @@ def params_from_jax(flat: Mapping[str, np.ndarray],
     """Flat '/'-keyed JAX params -> state_dict. With ``expected`` (a model's
     state_dict) it raises on any missing or extra key and on any shape
     mismatch."""
-    sd = {k.replace("/", "."): _convert(k, v) for k, v in flat.items()}
+    return _checked({k.replace("/", "."): _convert(k, v) for k, v in flat.items()}, expected)
+
+
+def _checked(sd: dict, expected: Optional[Mapping[str, torch.Tensor]]) -> dict:
+    """``sd``, after raising on any key missing from or extra to ``expected``
+    and on any shape mismatch (no check without ``expected``)."""
     if expected is not None:
         missing = sorted(set(expected) - set(sd))
         extra = sorted(set(sd) - set(expected))
@@ -83,3 +88,81 @@ def save_params_npz(path: str, model: torch.nn.Module, dtype=np.float16) -> None
     float16 by default), so port-trained weights load into either package."""
     flat = params_to_jax(model.state_dict())
     np.savez_compressed(path, **{k: v.astype(dtype) for k, v in flat.items()})
+
+
+# ---------------------------------------------------------------------------
+# the degradation classifier (models/classifier.py): flax variables, that is
+# ``params`` and ``batch_stats``, <-> its state_dict. Each flax BatchNorm sits
+# one level down, as ``params/<name>/bn/{scale, bias}`` and
+# ``batch_stats/<name>/bn/{mean, var}``; the port's ``_BN`` holds them as
+# ``<name>.{weight, bias, running_mean, running_var}``. Conv and Linear
+# weights convert as the net's do.
+# ---------------------------------------------------------------------------
+
+_BN_LEAVES = {("params", "scale"): "weight", ("params", "bias"): "bias",
+              ("batch_stats", "mean"): "running_mean", ("batch_stats", "var"): "running_var"}
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> dict:
+    """Nested mapping -> flat '/'-keyed one (flat keys pass through)."""
+    flat = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            flat.update(_flatten(v, f"{prefix}{k}/"))
+        else:
+            flat[f"{prefix}{k}"] = v
+    return flat
+
+
+def classifier_params_from_jax(variables: Mapping,
+                               expected: Optional[Mapping[str, torch.Tensor]] = None) -> dict:
+    """flax ``{"params": ..., "batch_stats": ...}`` of ``FFCResNet`` (nested,
+    or flat with '/'-joined keys under the two collections) -> the port
+    classifier's state_dict; with ``expected``, checked as
+    :func:`params_from_jax` checks."""
+    sd = {}
+    for key, value in _flatten(variables).items():
+        coll, *path = key.split("/")
+        if len(path) >= 2 and path[-2] == "bn" and (coll, path[-1]) in _BN_LEAVES:
+            path = path[:-2] + [_BN_LEAVES[(coll, path[-1])]]
+        elif coll != "params":
+            raise KeyError(f"unexpected classifier variable {key}")
+        sd[".".join(path)] = _convert("/".join(path), value)
+    return _checked(sd, expected)
+
+
+def classifier_params_to_jax(model: torch.nn.Module) -> dict:
+    """The classifier's state_dict as flat '/'-keyed numpy flax variables
+    (``params/...``, ``batch_stats/...``): the inverse of
+    :func:`classifier_params_from_jax`."""
+    from mp_hsir_tpu_torch.models.classifier import _BN
+
+    flat = {}
+    bn = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+          "running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var")}
+    for key, v in model.state_dict().items():
+        *path, leaf = key.split(".")
+        owner = model.get_submodule(".".join(path))
+        a = v.detach().float().cpu().numpy()
+        if isinstance(owner, _BN):
+            coll, leaf = bn[leaf]
+            path = path + ["bn"]
+        else:
+            coll = "params"
+            if leaf == "weight":
+                a = a.T if a.ndim == 2 else a.transpose(2, 3, 1, 0)
+        flat["/".join([coll, *path, leaf])] = np.ascontiguousarray(a)
+    return flat
+
+
+def save_classifier_npz(path: str, model: torch.nn.Module) -> None:
+    """The classifier's variables as a flat npz (float32, flax layouts)."""
+    np.savez_compressed(path, **classifier_params_to_jax(model))
+
+
+def load_classifier_npz(path: str, model: torch.nn.Module) -> None:
+    """Load a flat npz written by :func:`save_classifier_npz` (or flax
+    variables flattened the same way) into ``model``, strictly."""
+    with np.load(path) as z:
+        flat = {k: z[k] for k in z.files}
+    model.load_state_dict(classifier_params_from_jax(flat, model.state_dict()), strict=True)

@@ -1,6 +1,6 @@
 """Typed configuration (mirrors ``mp_hsir_tpu/config.py``: ModelConfig, the two
-published presets, the mode-0 fields of EvalConfig and every field of
-TrainConfig with JAX's defaults). The mesh fields exist but this package
+published presets, and every field of EvalConfig and TrainConfig with JAX's
+defaults). The mesh fields exist but this package
 runs one card: the train CLI raises on any mesh size other than 1."""
 
 from __future__ import annotations
@@ -98,13 +98,37 @@ class TrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class EvalConfig:
-    """Mode-0 evaluation knobs (reference test.py:541-569)."""
+    """Evaluation knobs (JAX ``EvalConfig``, reference test.py:541-569)."""
 
     seed: int = 2024
     mode: int = 0
     test_dir: str = ""
+    # mode 12: the directory of real degraded cubes paired by name order
+    test_degrad_dir: str = ""
     gaussian_noise_sigma: int = 70
+    gaussian_noise_sigmas: Tuple[int, ...] = (10, 30, 50, 70)
+    stripe_noise_ratio: Tuple[float, float] = (0.05, 0.15)
+    deadline_noise_ratio: Tuple[float, float] = (0.05, 0.15)
+    impulse_noise_ratio: Tuple[float, ...] = (0.1, 0.3, 0.5, 0.7)
+    gaussian_blur_radius: int = 15
+    motion_blur: Tuple[int, int] = (15, 45)
+    downsample_factor: int = 8
+    mask_ratio: float = 0.9
+    haze_omega: float = 1.0
+    bandmis_ratio: float = 0.3
+    poisson_scale: float = 10.0
+    # label-only id printed by modes 11/12 (reference --degrad_id, default 1,
+    # test.py:552); the prompt those modes route stays 0 / 1
+    degrad_id: int = 1
     select_bands: Tuple[int, ...] = (27, 15, 9)
     output_path: str = "output/"
     ckpt_path: str = ""
     save_images: bool = True
+    # streaming eval: up to `pipeline` cubes in flight (a producer thread for
+    # the dataset, an uploader thread for the host -> device copies, one
+    # (4,) metric vector read back per cube); 1 = the synchronous loop
+    pipeline: int = 1
+    # the dtype the pipelined loop's cubes cross the host -> device link in
+    # ("float32", "float16", "bfloat16"); they are widened to float32 on the
+    # device before the forward and the metrics
+    upload_dtype: str = "float32"

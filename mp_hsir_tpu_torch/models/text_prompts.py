@@ -11,6 +11,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from mp_hsir_tpu_torch import upload
+
 _ASSET = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
                       "assets", "clip_text_embeddings.npz")
 
@@ -55,8 +57,13 @@ def text_prompt_weights(task_id: torch.Tensor, task_classes: int) -> torch.Tenso
     return onehot
 
 
+@lru_cache(maxsize=None)
+def _device_table(task_classes: int, device: torch.device) -> torch.Tensor:
+    return upload(clip_text_table(task_classes), device)
+
+
 def clip_prompt_embedding(prompt_weights: torch.Tensor, task_classes: int) -> torch.Tensor:
     """(B, T) weights -> (B, 512) embedding, averaged over the task axis
-    (reference net/MP_HSIR.py:529-530)."""
-    table = torch.as_tensor(clip_text_table(task_classes), device=prompt_weights.device)
-    return (prompt_weights @ table) / task_classes
+    (reference net/MP_HSIR.py:529-530). The table is copied to each device
+    once, without a synchronising copy."""
+    return (prompt_weights @ _device_table(task_classes, prompt_weights.device)) / task_classes

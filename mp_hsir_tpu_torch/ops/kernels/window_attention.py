@@ -29,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from mp_hsir_tpu_torch import upload
 from mp_hsir_tpu_torch.ops.basic import layer_norm
 from mp_hsir_tpu_torch.ops.kernels import _build
 from mp_hsir_tpu_torch.ops.kernels._grad import (
@@ -58,7 +59,7 @@ BWD = counter("window_attention_bwd")
 @lru_cache(maxsize=32)
 def region_labels(h: int, w: int, shift: int, device: torch.device) -> torch.Tensor:
     """(H, W) int32 shift-region labels of the rolled frame, on ``device``."""
-    return torch.as_tensor(shifted_region_map(h, w, WS, shift), device=device)
+    return upload(shifted_region_map(h, w, WS, shift), device)
 
 
 def window_attention_plain(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads: int,

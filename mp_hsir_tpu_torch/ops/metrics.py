@@ -54,6 +54,52 @@ def compute_psnr_ssim(recovered: torch.Tensor, clean: torch.Tensor) -> Tuple[flo
     return float(p.mean()), float(s.mean()), int(p.shape[0])
 
 
+def _missing_band_means(psnr_b: torch.Tensor, ssim_b: torch.Tensor, degraded: torch.Tensor):
+    """Per-cube means over the bands that are all zero in ``degraded`` (0
+    for a cube without one), and which cubes have any: ((B,) psnr, (B,)
+    ssim, (B,) bool)."""
+    missing = (degraded == 0).all(dim=-1).all(dim=-1)  # (B, C)
+    n_missing = missing.sum(dim=1)
+    denom = n_missing.clamp_min(1)
+    zero = torch.zeros((), dtype=psnr_b.dtype, device=psnr_b.device)
+    psnr_i = torch.where(missing, psnr_b, zero).sum(dim=1) / denom
+    ssim_i = torch.where(missing, ssim_b, zero).sum(dim=1) / denom
+    return psnr_i, ssim_i, n_missing > 0
+
+
+def compute_psnr_ssim_missing_bands(recovered: torch.Tensor, clean: torch.Tensor,
+                                    degraded: torch.Tensor) -> Tuple[float, float, int]:
+    """Band completion: score only the bands that are entirely zero in the
+    degraded input (reference utils/val_utils.py:71-105). Returns (psnr,
+    ssim, cubes with a missing band); (0, 0, 0) when no band is missing."""
+    psnr_b, ssim_b = psnr_ssim(recovered, clean)
+    psnr_i, ssim_i, has = _missing_band_means(psnr_b, ssim_b, degraded)
+    count = int(has.sum())
+    if count == 0:
+        return 0.0, 0.0, 0
+    return float(psnr_i.sum()) / count, float(ssim_i.sum()) / count, count
+
+
+def eval_metrics(restored: torch.Tensor, clean: torch.Tensor, degraded: torch.Tensor,
+                 missing_bands: bool = False) -> torch.Tensor:
+    """One cube batch's scores on the device as a stacked (4,) float32
+    ``[psnr, ssim, count, sam]``, so a streaming loop reads back one small
+    vector per cube. ``psnr`` and ``ssim`` are means over bands then batch
+    and ``count`` the batch; with ``missing_bands`` (mode 10) they are the
+    sums over the cubes that have an all-zero band in ``degraded`` of each
+    cube's mean over those bands, and ``count`` the number of such cubes.
+    ``sam`` is the batch's mean spectral angle in degrees."""
+    psnr_b, ssim_b = psnr_ssim(restored, clean)
+    sam = sam_degrees(restored, clean).mean()
+    if missing_bands:
+        psnr_i, ssim_i, has = _missing_band_means(psnr_b, ssim_b, degraded)
+        p, s, count = psnr_i.sum(), ssim_i.sum(), has.sum().float()
+    else:
+        p, s = psnr_b.mean(), ssim_b.mean()
+        count = torch.full((), float(psnr_b.shape[0]), device=psnr_b.device)
+    return torch.stack([p, s, count, sam]).float()
+
+
 def sam_degrees(recovered: torch.Tensor, clean: torch.Tensor) -> torch.Tensor:
     """(B, C, H, W) -> (B,) mean spectral angle in degrees."""
     r = recovered.float().clamp(0.0, 1.0)

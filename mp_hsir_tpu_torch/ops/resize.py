@@ -82,14 +82,18 @@ def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int,
     return _separable(x, out_h, out_w, "bilinear", align_corners)
 
 
+@lru_cache(maxsize=256)
+def _nearest_index(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
+    """src = min(floor(i * in / out), in - 1) on ``device``, copied once."""
+    return upload(np.minimum((np.arange(n_out) * n_in / n_out).astype(np.int64), n_in - 1),
+                  device)
+
+
 def resize_nearest(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
-    """NHWC nearest resize: src = min(floor(i*in/out), in-1) (torch 'nearest')."""
+    """NHWC nearest resize (torch 'nearest')."""
     h, w = x.shape[-3], x.shape[-2]
-    hi = np.minimum((np.arange(out_h) * h / out_h).astype(np.int64), h - 1)
-    wi = np.minimum((np.arange(out_w) * w / out_w).astype(np.int64), w - 1)
-    hi = torch.as_tensor(hi, device=x.device)
-    wi = torch.as_tensor(wi, device=x.device)
-    return x.index_select(-3, hi).index_select(-2, wi)
+    return (x.index_select(-3, _nearest_index(h, out_h, x.device))
+            .index_select(-2, _nearest_index(w, out_w, x.device)))
 
 
 def pixel_replicate_upsample(x: torch.Tensor, r: int) -> torch.Tensor:

@@ -22,6 +22,7 @@ from mp_hsir_tpu_torch.ops.kernels.spectral import (
     spectral_apply, spectral_apply_bwd_plain,
 )
 from torch_port_inputs import normal as _n, rng as _rng, uniform as _u
+import torch_threads  # noqa: E402,F401  (one compute thread per process)
 
 # the presets' apply widths (flagship 64, 128, 256; remote sensing 96, 192,
 # 384) and C = 36 and 27 (rows not 16-byte multiples; 27 odd)

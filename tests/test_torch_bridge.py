@@ -10,6 +10,7 @@ import torch
 from mp_hsir_tpu_torch.checkpoint import load_params_npz, params_from_jax
 from mp_hsir_tpu_torch.config import natural_scene_config
 from mp_hsir_tpu_torch.models.mp_hsir import MPHSIRNet
+import torch_threads  # noqa: E402,F401  (one compute thread per process)
 
 ART = os.path.join(os.path.dirname(__file__), "..", "assets", "trained", "natural_12k_f16.npz")
 needs_art = pytest.mark.skipif(not os.path.exists(ART), reason="trained artifact not committed")

@@ -44,6 +44,7 @@ from mp_hsir_tpu_torch.ops import degradations as D
 from mp_hsir_tpu_torch.ops import pipeline_degrade as PD
 from mp_hsir_tpu_torch.ops import resize as R
 from mp_hsir_tpu_torch.utils import image as I
+import torch_threads  # noqa: E402,F401  (one compute thread per process)
 
 CUBE = np.random.default_rng(42).uniform(0.2, 0.8, size=(12, 32, 32)).astype(np.float32)
 

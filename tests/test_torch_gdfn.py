@@ -14,6 +14,7 @@ from mp_hsir_tpu_torch.ops.kernels.gdfn import (
     GDFN_BUDGET, GDFN_K, GDFN_N, GDFN_ROWS, gdfn, gdfn_plain, gdfn_plan, pack_gdfn,
 )
 from torch_port_inputs import rng as _rng
+import torch_threads  # noqa: E402,F401  (one compute thread per process)
 
 # (C, hid, Co): the presets' calls (flagship fusion1 / fusion2, remote
 # sensing fusion1 / fusion2; hid 340 and 510 pad w_out's rows to 344 and 512,

@@ -24,6 +24,7 @@ from mp_hsir_tpu_torch.ops.kernels.gdfn import (
 from mp_hsir_tpu_torch.ops.kernels.spectral import DX_LDD
 from test_torch_gdfn import _stream
 from torch_port_inputs import normal as _n, rng as _rng
+import torch_threads  # noqa: E402,F401  (one compute thread per process)
 
 # (C, hid) of the presets' TransformerBlock calls (flagship 128 / 340 and 256
 # / 680, remote sensing 192 / 510 and 384 / 1021, where x2's columns start at

@@ -35,6 +35,7 @@ from torch_port_inputs import (
     normal as _n, oihw as _oihw, rng as _rng, spectral_weights as _spectral_weights,
     tensor as _t, uniform as _u, window_inputs as _window_inputs,
 )
+import torch_threads  # noqa: E402,F401  (one compute thread per process)
 
 ATOL = RTOL = 1e-4
 

@@ -16,6 +16,7 @@ from mp_hsir_tpu_torch.ops.kernels.mlp import (
     MLP_BWD_BUDGET, TAIL_K, TAIL_STAGE, mlp, mlp_bwd_plain, mlp_bwd_tc_plan, pack_mlp_weights,
 )
 from torch_port_inputs import rng as _rng
+import torch_threads  # noqa: E402,F401  (one compute thread per process)
 
 # (C, hid): every preset width (hid = int(2.66 C), never a multiple of 64: the
 # last hidden chunk is ragged; 255 and 1021 odd: the g-half of dh starts at

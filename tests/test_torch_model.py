@@ -30,10 +30,11 @@ from mp_hsir_tpu.models.mp_hsir import MPHSIRNet as JaxNet
 from mp_hsir_tpu.models.mp_hsir import init_params
 from mp_hsir_tpu_torch.checkpoint import load_params_npz, params_from_jax
 from mp_hsir_tpu_torch.config import ModelConfig, TrainConfig, natural_scene_config
-from mp_hsir_tpu_torch.data.eval_datasets import gaussian_noise_fixed
+from mp_hsir_tpu_torch.data.degradations_np import gaussian_noise_fixed
 from mp_hsir_tpu_torch.models import layers as L
 from mp_hsir_tpu_torch.models.mp_hsir import build_model
 from mp_hsir_tpu_torch.ops.kernels import _route
+import torch_threads  # noqa: E402,F401  (one compute thread per process)
 
 ART = os.path.join(os.path.dirname(__file__), "..", "assets", "trained", "natural_12k_f16.npz")
 TINY = dict(in_channels=5, out_channels=5, dim=16, num_blocks=(1, 1, 1),

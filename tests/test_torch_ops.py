@@ -27,6 +27,7 @@ from mp_hsir_tpu_torch.ops import conv as TCV
 from mp_hsir_tpu_torch.ops import resize as TR
 from mp_hsir_tpu_torch.ops import window as TW
 from torch_port_inputs import normal, rng
+import torch_threads  # noqa: E402,F401  (one compute thread per process)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

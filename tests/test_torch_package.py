@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import jax.numpy as jnp
+import torch_threads  # noqa: E402  (one compute thread per process)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PKG = REPO / "mp_hsir_tpu_torch"
@@ -30,8 +31,8 @@ def test_importing_every_module_leaves_jax_out():
         "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'triton', 'mp_hsir_tpu')]\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n")
-    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
-                       timeout=300)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=torch_threads.SUBPROCESS_ENV,
+                       capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
 
 
@@ -107,13 +108,14 @@ def test_eval_data_equals_jax(tmp_path):
     from mp_hsir_tpu.config import EvalConfig
     from mp_hsir_tpu.data.eval_datasets import GaussianDenoiseDataset as JaxDataset
     from mp_hsir_tpu.utils.image import save_mat_cube
+    from mp_hsir_tpu_torch.config import EvalConfig as PortEvalConfig
     from mp_hsir_tpu_torch.data.eval_datasets import GaussianDenoiseDataset
 
     rng = np.random.default_rng(9)
     for i in range(2):
         save_mat_cube(str(tmp_path / f"c{i}.mat"), rng.random((70, 66, 31)).astype(np.float32))
     want = list(JaxDataset(EvalConfig(test_dir=str(tmp_path))))
-    got = list(GaussianDenoiseDataset(str(tmp_path), 70, 2024))
+    got = list(GaussianDenoiseDataset(PortEvalConfig(test_dir=str(tmp_path))))
     assert [g["name"] for g in got] == [w["name"] for w in want]
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g["clean"], w["clean"])
@@ -131,7 +133,7 @@ def test_cli_mode0_stdout_contract(tmp_path):
     r = subprocess.run(
         [sys.executable, "-m", "mp_hsir_tpu_torch.cli.test_cli", "--mode", "0", "--test_dir",
          str(d), "--device", "cpu", "--no_save_images"],
-        cwd=REPO, capture_output=True, text=True, timeout=600)
+        cwd=REPO, env=torch_threads.SUBPROCESS_ENV, capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stderr
     lines = r.stdout.strip().splitlines()
     assert lines[0] == "Start gaussian denoise testing sigma=70"

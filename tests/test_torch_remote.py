@@ -30,6 +30,7 @@ from mp_hsir_tpu_torch.checkpoint import params_from_jax
 from mp_hsir_tpu_torch.config import ModelConfig, remote_sensing_config
 from mp_hsir_tpu_torch.models import layers as L
 from mp_hsir_tpu_torch.models.mp_hsir import build_model
+import torch_threads  # noqa: E402  (one compute thread per process)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 TINY_RS = dict(in_channels=100, out_channels=100, dim=16, num_blocks=(1, 1, 1),
@@ -84,7 +85,7 @@ def test_cli_remote_sensing_stdout_contract(tmp_path):
     r = subprocess.run(
         [sys.executable, "-m", "mp_hsir_tpu_torch.cli.test_cli", "--mode", "0", "--test_dir",
          str(d), "--data_type", "remote_sensing", "--device", "cpu", "--no_save_images"],
-        cwd=REPO, capture_output=True, text=True, timeout=600)
+        cwd=REPO, env=torch_threads.SUBPROCESS_ENV, capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stderr
     lines = r.stdout.strip().splitlines()
     assert len(lines) == 4, lines

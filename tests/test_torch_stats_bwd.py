@@ -25,6 +25,7 @@ from mp_hsir_tpu_torch.ops.kernels.spectral import (
     stats_bwd_tc_plan, stats_plan,
 )
 from torch_port_inputs import normal as _n, rng as _rng, uniform as _u
+import torch_threads  # noqa: E402,F401  (one compute thread per process)
 
 # (C, heads) of every stats call of the presets' train steps (dh 32, 64, 48
 # and 96) and C = 36 and 27 (dh 18 and 9, padded to 32 and 16; 2C = 72 and

@@ -42,6 +42,7 @@ from mp_hsir_tpu_torch.config import ModelConfig, TrainConfig
 from mp_hsir_tpu_torch.models.mp_hsir import build_model
 from mp_hsir_tpu_torch.training import losses, schedules
 from mp_hsir_tpu_torch.training.trainer import create_train_state, train_step
+import torch_threads  # noqa: E402,F401  (one compute thread per process)
 
 TINY = dict(in_channels=5, out_channels=5, dim=16, num_blocks=(1, 1, 1),
             num_refinement_blocks=1, heads=(2, 2, 2), task_classes=6, drop_path_max=0.0)

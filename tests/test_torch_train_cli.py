@@ -38,6 +38,7 @@ from mp_hsir_tpu_torch.cli import train_cli
 from mp_hsir_tpu_torch.config import ModelConfig, TrainConfig
 from mp_hsir_tpu_torch.data.patch_store import PatchStore, PatchStoreWriter
 from mp_hsir_tpu_torch.data.train_pipeline import TrainPipeline, _dev_widen, _host_shrink
+import torch_threads  # noqa: E402,F401  (one compute thread per process)
 
 DTYPES = ["float32", "float16", "bfloat16", "uint16"]
 

@@ -20,6 +20,7 @@ from mp_hsir_tpu_torch.ops.kernels._grad import (
     wgrad_plan,
 )
 from torch_port_inputs import rng as _rng
+import torch_threads  # noqa: E402,F401  (one compute thread per process)
 
 # float32 sums of the same exact bf16 products in other orders, P <= 2248
 EMU_TOL = 1e-5

@@ -27,6 +27,7 @@ from mp_hsir_tpu_torch.ops.kernels.window_attention import (
 )
 from mp_hsir_tpu_torch.ops.window import shifted_region_map
 from torch_port_inputs import normal as _n, rng as _rng, uniform as _u
+import torch_threads  # noqa: E402,F401  (one compute thread per process)
 
 # (C, heads) of every window call of the presets' train steps (dh 32, 64, 48
 # and 96) and C = 36 and 27 (dh 18 and 9, padded to 32 and 16; 3C = 108 and

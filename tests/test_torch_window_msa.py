@@ -25,6 +25,7 @@ from mp_hsir_tpu_torch.ops.kernels import _build
 from mp_hsir_tpu_torch.ops.kernels._route import COUNTERS
 from mp_hsir_tpu_torch.ops.kernels.window_msa import window_msa, window_msa_plain
 from torch_port_inputs import normal, rng, tensor, uniform
+import torch_threads  # noqa: E402,F401  (one compute thread per process)
 
 WS, N = 8, 64
 
