@@ -2,7 +2,7 @@
 """Drive the PyTorch port of MP-HSIR on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--out results.json] [--bwd-split KERNEL] [--mlp-bwd-split] [--wgrad]
-                          [--train-cli] [--eval-cli]
+                          [--train-cli] [--eval-cli] [--f32-eval]
 
 Phases (any failure exits non-zero; no phase's error is caught):
 
@@ -24,7 +24,11 @@ Phases (any failure exits non-zero; no phase's error is caught):
    kernel's), and the registers and spills of the bf16 weight product's 16
    instances (copy widths of A and B) beside the guard of K10a's stencil tile
    dwconv_dx_tc_kernel<true, false, false> (<= 128 registers, no spills),
-   K10b's instance <true, true, false> and K11's <true, true, true>.
+   K10b's instance <true, true, false> and K11's <true, true, true>; the
+   float32 tail tile's kernels' registers and spills (mlp_f32_kernel, the
+   two float32 spectral_apply_kernel instances), and the float32 apply
+   (with the tail, at its chunk) and mlp plans at every tail width and C =
+   400, beside the plans of the SIMT tail the tile replaced.
 2. Kernel checks: every kernel wrapper on the card at each shape the
    flagship 512x512x31 eval forward gives it, in bf16 from numpy-seeded
    inputs, against its plain PyTorch version on the same inputs; also once
@@ -48,7 +52,14 @@ Phases (any failure exits non-zero; no phase's error is caught):
    once more on its float32 instance, resident and with its input streamed
    in 64-channel chunks (the remote-sensing latent's plan), summed per
    forward. The window kernel and the spectral stats, apply and GDFN tiles
-   stage their whole input in bf16 and have no chunk to stream.
+   stage their whole input in bf16 and have no chunk to stream. Each call's
+   float32 instance is timed too (wrapper, alone, plain, F.conv2d with TF32
+   off for conv3) beside its float32 bound max(bytes / 3.35 TB/s, 3 flops /
+   495 TFLOP/s: 3xTF32), each float32 apply call with the tail once more
+   without it; per forward the float32 sums per kernel and the apply's front
+   / tail split (the tail: the float32 tail tile, 3xTF32) beside their
+   bounds. Then a float32 spectral apply with the tail and a float32 mlp call
+   at C = 400 (the tail tile in two output groups) against plain (1e-4).
 3. Main path: the flagship preset on the committed trained weights, bf16 at
    1x31x512x512, answering 4 requests (mode-0 cubes) after a warm-up. The
    launch counters are zeroed just before the requests and read just after;
@@ -75,7 +86,9 @@ Phases (any failure exits non-zero; no phase's error is caught):
    and dW_in / dW_out; the bf16 spectral_apply_bwd's as tile 1, tile 2,
    wgrad dWv, wgrad dcomb, d gate and sums, the bf16 gdfn_bwd's as tile 1,
    tile 2, wgrad dW_in, wgrad dW_out and sums), whose sum is the backward
-   alone; two bf16 spectral_apply_bwd or gdfn_bwd calls must agree bitwise; the stages
+   alone; two bf16 spectral_apply_bwd or gdfn_bwd calls must agree bitwise;
+   each mlp call's float32 instance (K6's float32 body: the float32 tail
+   tile) is timed as in phase 2, summed per step (also in phase 11); the stages
    per step, and their mp_wgrad stages summed, follow phase 6 (and phase 12 for phase
    11's calls). Then the wgrad phase: every weight product (nb, P, M, N)
    of the step, on seeded inputs made on the card, bf16 and float32 against
@@ -157,7 +170,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
     991, 992; mode 12 pairs them with seeded sigma-30/255 copies) through
     every mode 0-12 on the trained flagship weights, one loaded model: each
     run launches every kernel (1 warm-up + 2 cubes) x the float32 forward's
-    enumerated signatures, no plain version on the card; per mode the first
+    enumerated signatures (and the float32 tail tile once per apply call with
+    the tail, counted apart), no plain version on the card; per mode the first
     cube through the kernel and the plain float32 forward under the mode's
     task id (max abs <= 1e-4: prompts 0-5); mode 0 restores >= 3 dB above
     the degraded input, the other modes print PSNR, SSIM, SAM and the
@@ -172,7 +186,9 @@ Phases (any failure exits non-zero; no phase's error is caught):
     with the same launch and kernel-vs-plain checks; s/cube per mode.
 15. The kernel summary line (each kernel's main-path numbers, its
     remote-sensing train-step numbers and the train and eval CLIs' launches
-    beside them), then the result line.
+    beside them; the float32 tail tile's row: phase 14's launches, phase 2's
+    tail ms per flagship float32 forward beside its bound and plain, the
+    largest float32 error of its calls), then the result line.
 
 --bwd-split KERNEL (mlp_bwd, spectral_stats_bwd, window_attention_bwd,
 spectral_apply_bwd or gdfn_bwd; repeatable) runs phase 1's build and only
@@ -181,7 +197,12 @@ of the named kernels' mp_wgrad stages: the same measurement for another
 checkout of the package (this file copied to its root and run there);
 --mlp-bwd-split is --bwd-split mlp_bwd. --wgrad runs phase 1 and only the
 wgrad phase, at both presets' train-step signatures. --train-cli runs phase
-1 and only phase 13, --eval-cli phase 1 and only phase 14.
+1 and only phase 13, --eval-cli phase 1 and only phase 14. --f32-eval runs
+phases 1, 2, K6's float32 calls of phases 5 and 11 (checked and timed) and
+14: the float32 path's kernels and the eval CLI, also for an
+older checkout (this file copied to its root: where its package has no
+float32 tail tile, the tile's launches are not expected and its C = 400 mlp
+call is left out).
 """
 
 from __future__ import annotations
@@ -205,6 +226,9 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet: HBM rate and dense bf16 tensor-core rate
 BF16_FLOPS = 989e12
+# dense TF32 tensor-core rate (data sheet); a float32 call's bound counts three
+# TF32 products per float32 product (3xTF32, the float32 tail tile's method)
+TF32_FLOPS = 495e12
 ART = os.path.join("assets", "trained", "natural_12k_f16.npz")
 RS_SIZE, RS_SEED = 256, 2024  # remote-sensing main path: bench size, weight seed
 BF16_TOL, F32_TOL = 3e-2, 1e-4
@@ -246,6 +270,14 @@ K14_KERNEL = {"window_msa": dict(source="mp_hsir_tpu_torch/csrc/window_attention
 # window kernel's bf16 plan stages the whole window at every width, the bf16
 # spectral stats, apply and GDFN tiles their whole input)
 STAGED = ("spectral_stats", "spectral_apply", "gdfn")
+# the float32 tail tile (mlp_tail_f32 in csrc/mlp_tail.cuh): K6's float32 body
+# and the float32 spectral apply's PGSSTB tail; its launches count in its own
+# counter beside mlp's and spectral_apply's
+TAIL_F32_KERNEL = {"mlp_tail_f32": dict(source="mp_hsir_tpu_torch/csrc/mlp_tail.cuh",
+                                        tpu=["K2", "K6"],
+                                        replaces="mp_hsir_tpu/ops/pallas_attention.py:965")}
+# a width past fc2's 384-channel register slice (two output groups), float32
+WIDE_C = 400
 # the kernels timed alone beside their wrappers, with their library yardsticks
 ALONE = {"conv3": "F.conv2d", "window_attention": None,
          "window_msa": "F.multi_head_attention_forward", "mlp": None, "spectral_stats": None,
@@ -710,6 +742,143 @@ def front_split(spec, fn, args, kw) -> dict:
                 front_tflops=flops / ms / 1e9, front_kernel_tflops=flops / kms / 1e9)
 
 
+def has_tail_f32() -> bool:
+    """Whether this checkout's package has the float32 tail tile (an older
+    checkout measured with this file has not: its float32 tail is SIMT)."""
+    from mp_hsir_tpu_torch.ops.kernels import mlp
+
+    return hasattr(mlp, "TAIL_F32")
+
+
+def tail_f32_specs(specs: Counter) -> Counter:
+    """The float32 tail tile's launches of a multiset of calls: one per
+    float32 spectral_apply call with the tail and per float32 mlp call, as
+    ("mlp_tail_f32", B, H, W, C, hid); none where the package has no such
+    tile."""
+    out: Counter = Counter()
+    if not has_tail_f32():
+        return out
+    for spec, n in specs.items():
+        if spec[-1] != "torch.float32":
+            continue
+        if spec[0] == "spectral_apply" and spec[11]:
+            out[("mlp_tail_f32", *spec[1:4], spec[4] + spec[5], spec[11])] += n
+        elif spec[0] == "mlp":
+            out[("mlp_tail_f32", *spec[1:6])] += n
+    return out
+
+
+def f32_bound_ms(byts, flops) -> float:
+    """A float32 call's bound: its bytes at the HBM rate or three TF32
+    products per float32 product at the TF32 rate, the larger."""
+    return max(byts / HBM_BYTES_PER_S, 3 * flops / TF32_FLOPS) * 1e3
+
+
+def f32_times(spec, fn, args, kw, byts, flops) -> dict:
+    """A float32 call timed: through its wrapper, alone (the kernels of
+    ALONE), as its plain version, beside its float32 bound (a call that runs
+    the float32 tail tile is first run twice: bitwise equal); a conv3 call
+    beside F.conv2d (TF32 off). A spectral_apply call with the tail is timed
+    once more without it (wrapper, alone, plain; the front's bound): the
+    difference is the tail's time, beside the tail's bound (its weights read
+    once; 6 C hid flops per pixel)."""
+    from mp_hsir_tpu_torch.ops.kernels._route import plain_reference
+
+    def plain(kw=kw):
+        with plain_reference():
+            return fn(*args, **kw)
+
+    if spec[0] == "mlp" or spec[0] == "spectral_apply" and kw.get("mlp"):
+        # the float32 tail tile sums in a fixed order, with no float atomics
+        if not torch.equal(fn(*args, **kw), fn(*args, **kw)):
+            raise AssertionError(f"{spec[0]} {spec[1:-1]}: two float32 calls differ")
+    row = dict(f32_ms=time_ms(lambda: fn(*args, **kw), 10), f32_plain_ms=time_ms(plain, 3),
+               f32_bound_ms=f32_bound_ms(byts, flops), f32_flops=flops)
+    if spec[0] in ALONE:
+        row["f32_kernel_ms"] = kernel_alone_ms(spec[0], args, kw)
+    if spec[0] == "conv3":
+        x, w, *_ = args
+        xc, wl = x.permute(0, 3, 1, 2), w.float()
+        row["f32_library_ms"] = time_ms(lambda: torch.nn.functional.conv2d(xc, wl, padding=1), 10)
+    if spec[0] == "spectral_apply" and kw.get("mlp"):
+        front = dict(kw, mlp=None)
+        _, b, h, w, c1, c2, _, _, _, gate, short = spec[:11]
+        c, hid = c1 + c2, spec[11]
+        fb, ff = apply_cost(b, h, w, c, 4, gate, short)
+        row.update(f32_front_ms=time_ms(lambda: fn(*args, **front), 10),
+                   f32_front_kernel_ms=kernel_alone_ms(spec[0], args, front),
+                   f32_front_plain_ms=time_ms(lambda: plain(front), 3),
+                   f32_front_bound_ms=f32_bound_ms(fb, ff),
+                   f32_tail_bound_ms=f32_bound_ms(4 * (3 * c * hid + 2 * hid + 3 * c),
+                                                  6 * b * h * w * c * hid),
+                   f32_tail_flops=6 * b * h * w * c * hid)
+    return row
+
+
+def log_f32(row) -> str:
+    if "f32_ms" not in row:
+        return ""
+    alone = f", alone {row['f32_kernel_ms']:.4f}" if "f32_kernel_ms" in row else ""
+    lib = f", F.conv2d {row['f32_library_ms']:.4f}" if "f32_library_ms" in row else ""
+    tail = ("" if "f32_front_ms" not in row else
+            f"; without the tail {row['f32_front_ms']:.4f} (alone "
+            f"{row['f32_front_kernel_ms']:.4f}): tail {row['f32_ms'] - row['f32_front_ms']:.4f}, "
+            f"bound {row['f32_tail_bound_ms']:.4f}")
+    return (f"\n      float32: {row['f32_ms']:.4f} ms{alone}, plain {row['f32_plain_ms']:.3f}, "
+            f"bound {row['f32_bound_ms']:.4f}{lib}{tail}")
+
+
+def tflop_rate(flops, ms) -> float:
+    """flops / ms in TFLOP/s (nan where a difference of two times is not positive)."""
+    return flops / ms / 1e9 if ms > 0 else float("nan")
+
+
+def log_f32_sums(what: str, rows, per: str) -> dict:
+    """The float32 calls summed per kernel over the path (wrapper, alone,
+    plain, bound, F.conv2d), the spectral_apply calls with the tail split
+    into front and tail (each beside its bound), and the float32 tail tile's
+    row for the kernels line."""
+    out = {}
+    mine = [r for r in rows if "f32_ms" in r]
+    log(f"  float32 calls {what}: ms through the wrapper, alone, plain, bound "
+        f"max(bytes / 3.35 TB/s, 3 flops / 495 TFLOP/s), library")
+    for name in sorted({r["spec"][0] for r in mine}):
+        rs = [r for r in mine if r["spec"][0] == name]
+        tot = lambda k, rs=rs: sum(r[k] * r[per] for r in rs)  # noqa: E731
+        d = dict(ms=tot("f32_ms"), plain_ms=tot("f32_plain_ms"), bound_ms=tot("f32_bound_ms"),
+                 calls=sum(r[per] for r in rs), max_abs_err=max(r["max_abs_err_f32"] for r in rs),
+                 rel_err=max(r["rel_err_f32"] for r in rs))
+        if all("f32_kernel_ms" in r for r in rs):
+            d["kernel_alone_ms"] = tot("f32_kernel_ms")
+        if all("f32_library_ms" in r for r in rs):
+            d["library_ms"] = tot("f32_library_ms")
+        out[name] = d
+        log(f"    {name:18s} {d['ms']:9.3f} ms  alone "
+            f"{d.get('kernel_alone_ms', float('nan')):9.3f}  plain {d['plain_ms']:9.3f}  bound "
+            f"{d['bound_ms']:.4f}  library {d.get('library_ms', '-')}  ({d['calls']} calls)")
+    tails = [r for r in mine if "f32_front_ms" in r]
+    if tails:
+        tot = lambda k: sum(r[k] * r[per] for r in tails)  # noqa: E731
+        t = dict(calls=sum(r[per] for r in tails), ms=tot("f32_ms") - tot("f32_front_ms"),
+                 kernel_alone_ms=tot("f32_kernel_ms") - tot("f32_front_kernel_ms"),
+                 plain_ms=tot("f32_plain_ms") - tot("f32_front_plain_ms"),
+                 bound_ms=tot("f32_tail_bound_ms"), flops=tot("f32_tail_flops"),
+                 front_ms=tot("f32_front_ms"), front_kernel_ms=tot("f32_front_kernel_ms"),
+                 front_plain_ms=tot("f32_front_plain_ms"), front_bound_ms=tot("f32_front_bound_ms"),
+                 with_tail_ms=tot("f32_ms"), with_tail_kernel_ms=tot("f32_kernel_ms"),
+                 max_abs_err=max(r["max_abs_err_f32"] for r in tails),
+                 rel_err=max(r["rel_err_f32"] for r in tails))
+        out["spectral_apply_split"] = t
+        log(f"    spectral_apply, the {t['calls']} calls with the PGSSTB tail: wrapper "
+            f"{t['with_tail_ms']:.3f} ms = front {t['front_ms']:.3f} + tail {t['ms']:.3f}; "
+            f"alone {t['with_tail_kernel_ms']:.3f} = front {t['front_kernel_ms']:.3f} + tail "
+            f"{t['kernel_alone_ms']:.3f}; plain front {t['front_plain_ms']:.3f} + tail "
+            f"{t['plain_ms']:.3f}; bounds front {t['front_bound_ms']:.4f}, tail "
+            f"{t['bound_ms']:.4f} ms; tail {tflop_rate(t['flops'], t['ms']):.1f} TFLOP/s through "
+            f"the wrapper, {tflop_rate(t['flops'], t['kernel_alone_ms']):.1f} alone")
+    return out
+
+
 def log_tflops(row) -> str:
     if "tflops" not in row:
         return ""
@@ -766,8 +935,10 @@ def kernel_checks(specs: Counter, dev) -> dict:
     for spec, mult in sorted(specs.items(), key=lambda kv: str(kv[0])):
         fn, args, kw, library, byts, flops = make_call(spec, dev, torch.bfloat16)
         err, rel = compare(fn, args, kw, BF16_TOL)
-        f_fn, f_args, f_kw, *_ = make_call(spec[:-1] + ("torch.float32",), dev, torch.float32)
+        f32spec = spec[:-1] + ("torch.float32",)
+        f_fn, f_args, f_kw, _, f_byts, f_flops = make_call(f32spec, dev, torch.float32)
         err32, rel32 = compare(f_fn, f_args, f_kw, F32_TOL)
+        f32 = f32_times(f32spec, f_fn, f_args, f_kw, f_byts, f_flops)
         del f_args, f_kw
         ms = time_ms(lambda: fn(*args, **kw), 10)
 
@@ -787,13 +958,13 @@ def kernel_checks(specs: Counter, dev) -> dict:
                    smem=plan["smem"], smem_whole=plan["smem_whole"], kc=plan["kc"],
                    blocks_per_window=plan.get("blocks_per_window"),
                    streamed=streamed, **tflops(spec, args, kw, flops, ms, lib_ms),
-                   **front_split(spec, fn, args, kw))
+                   **front_split(spec, fn, args, kw), **f32)
         rows.append(row)
         log(f"  {spec[0]:16s} {str(spec[1:-1]):58s} x{mult:<2d} err {err:.2e} (rel {rel:.1e}, "
             f"f32 rel {rel32:.1e})  {ms:8.3f} ms  plain {plain_ms:8.3f}  "
             f"lib {'-' if lib_ms is None else f'{lib_ms:.3f}'}  bound {bound_ms:.4f} ({row['bound_by']})  "
             + log_plan(plan)
-            + log_streamed_call(streamed) + log_tflops(row))
+            + log_streamed_call(streamed) + log_tflops(row) + log_f32(row))
         del args, kw
         torch.cuda.empty_cache()
     return rows
@@ -1323,7 +1494,7 @@ def train_kernel_checks(specs: Counter, dev, streamed: bool = True) -> list:
         if name == "wgrad":  # wgrad_checks
             continue
         f32spec = spec[:-1] + ("torch.float32",)
-        library = None
+        library, f32 = None, {}
         if name.endswith("_bwd"):
             kern, plain, byts, flops = make_bwd_call(spec, dev, torch.bfloat16)
             err, rel = compare_pair(kern, plain, BF16_TOL)
@@ -1338,8 +1509,11 @@ def train_kernel_checks(specs: Counter, dev, streamed: bool = True) -> list:
         else:
             fn, args, kw, library, byts, flops = make_train_fwd_call(spec, dev, torch.bfloat16)
             err, rel = compare(fn, args, kw, BF16_TOL)
-            f_fn, f_args, f_kw, *_ = make_train_fwd_call(f32spec, dev, torch.float32)
+            f_fn, f_args, f_kw, _, f_byts, f_flops = make_train_fwd_call(f32spec, dev,
+                                                                         torch.float32)
             err32, rel32 = compare(f_fn, f_args, f_kw, F32_TOL)
+            if name == "mlp":  # K6's float32 calls: the float32 tail tile
+                f32 = f32_times(f32spec, f_fn, f_args, f_kw, f_byts, f_flops)
             del f_args, f_kw
             kern = lambda fn=fn, args=args, kw=kw: fn(*args, **kw)  # noqa: E731
             plain = kern
@@ -1363,12 +1537,13 @@ def train_kernel_checks(specs: Counter, dev, streamed: bool = True) -> list:
                          kc=plan["kc"],
                          **(bwd_split(name, kern, flops, ms) if name in BWD_SPLIT else
                             {} if name.endswith("_bwd") else
-                            tflops(spec, args, kw, flops, ms, lib_ms))))
+                            tflops(spec, args, kw, flops, ms, lib_ms)), **f32))
         log(f"  {name:20s} {str(spec[1:-1]):50s} x{mult:<2d} err {err:.2e} (rel {rel:.1e}, "
             f"f32 rel {rel32:.1e})  {ms:8.3f} ms  plain {plain_ms:8.3f}  "
             f"lib {'-' if lib_ms is None else f'{lib_ms:.3f}'}  bound {bound_ms:.4f}  "
             + log_plan(plan)
-            + log_streamed_call(st) + log_tflops(rows[-1]) + log_split(rows[-1]))
+            + log_streamed_call(st) + log_tflops(rows[-1]) + log_split(rows[-1])
+            + log_f32(rows[-1]))
         torch.cuda.empty_cache()
     return rows
 
@@ -1890,8 +2065,9 @@ def write_eval_cubes(d: str, size: int, bands: int) -> tuple:
 def eval_run(dev, model, model_cfg, cfg, expected: Counter, what: str, router=None) -> dict:
     """One run_mode with the counters zeroed just before and read just
     after: every kernel launches EVAL_FORWARDS x its per-forward count with
-    the enumerated signatures, no plain version on the card. Its stdout is
-    logged indented."""
+    the enumerated signatures (the float32 tail tile once per apply call
+    with the tail, tail_f32_specs), no plain version on the card. Its stdout
+    is logged indented."""
     import io
 
     from mp_hsir_tpu_torch.cli import test_cli
@@ -1910,7 +2086,7 @@ def eval_run(dev, model, model_cfg, cfg, expected: Counter, what: str, router=No
         log("    " + line)
     if plain:
         fail(f"eval CLI ({what}): {plain} plain-version calls on CUDA tensors")
-    want = Counter({k: v * EVAL_FORWARDS for k, v in expected.items()})
+    want = Counter({k: v * EVAL_FORWARDS for k, v in (expected + tail_f32_specs(expected)).items()})
     if recorded != want:
         fail(f"eval CLI ({what}) kernel calls differ from {EVAL_FORWARDS} x the enumerated "
              f"forward: extra {dict(recorded - want)}, missing {dict(want - recorded)}")
@@ -2337,6 +2513,93 @@ def log_gdfn_plans(_build, cfgs) -> dict:
     return plans
 
 
+def simt_f32_plans(c: int, limit: int) -> tuple:
+    """The float32 plans (bytes, static included) of the SIMT tail that the
+    tensor-core tile replaced, at width c: the apply kernel with the tail
+    (the front's halo / v stage or y [64][C + 1] | v [64][C + 1] | the hidden
+    chunk [64][2 khc + 1]; mu, rs 800 B static) at the chunk it picked (C
+    where that fit ``limit``, else 64 with the streamed chunks), and the mlp
+    kernel (x | LN(x) [64][C + 1] | the hidden chunk [64][129])."""
+    def apply(kc):
+        khc, nv = (64, 32) if kc >= c else (32, 128)
+        front = max(100 * (kc + 1) + 100 * (nv + 1), 64 * (c + 1))
+        return 4 * (front + 64 * (c + 1) + 64 * (2 * khc + 1)) + 800
+    return apply(c if apply(c) <= limit else 64), 4 * (2 * 64 * (c + 1) + 64 * 129)
+
+
+def log_f32_tail_plans(_build) -> dict:
+    """The float32 tail tile's registers and spills (mlp_f32_kernel and the
+    two float32 apply instances that run it), and the float32 plans with the
+    tail at every width of the presets' tail calls and at WIDE_C: the apply
+    kernel's at its chunk and the mlp kernel's, beside the SIMT tail's."""
+    regs = {k: ptxas_report(m) for k, m in (
+        ("mlp_f32_kernel", "mlp_f32_kernel"), ("spectral_apply_kernel<float, resident>",
+                                               "spectral_apply_kernelIfLb0E"),
+        ("spectral_apply_kernel<float, streamed>", "spectral_apply_kernelIfLb1E"))}
+    log("  float32 tail tile (ptxas): " + ", ".join(
+        f"{k} {v.get('registers', '?')} regs, spills {v.get('spill_stores', '?')}/"
+        f"{v.get('spill_loads', '?')} B" for k, v in regs.items()))
+    limit, plans = _build.smem_limit(), {}
+    for c in (64, 96, 128, 192, 256, 384, WIDE_C):
+        kc = _build.chunk("mp_spectral_apply_chunk", c, 1, 0)
+        old_apply, old_mlp = simt_f32_plans(c, limit)
+        plans[c] = dict(apply=_build.plan_bytes("mp_spectral_apply_smem", c, 1, 0, kc), kc=kc,
+                        mlp=_build.plan_bytes("mp_mlp_smem", c, 0), simt_apply=old_apply,
+                        simt_mlp=old_mlp)
+        if has_tail_f32():
+            from mp_hsir_tpu_torch.ops.kernels.mlp import tail_f32_plan
+
+            plans[c]["stages"] = tail_f32_plan(c)["ws"]
+    log(f"  float32 plans with the tail (B; the SIMT tail's in brackets; limit {limit}): "
+        + ", ".join(f"C={c} apply {v['apply']} at kc {v['kc']} ({v['simt_apply']}), mlp "
+                    f"{v['mlp']} ({v['simt_mlp']}), {v.get('stages', '-')} stages"
+                    for c, v in plans.items()))
+    return dict(ptxas=regs, plans=plans)
+
+
+def k6_f32_checks(specs: Counter, dev) -> list:
+    """K6's float32 calls (the mlp calls of a train step, float32: the
+    float32 tail tile) against their plain versions (F32_TOL), timed as in
+    phase 2 (f32_times), with their calls per step."""
+    rows = []
+    for spec in sorted(s for s in specs if s[0] == "mlp"):
+        f32spec = spec[:-1] + ("torch.float32",)
+        fn, args, kw, _, byts, flops = make_train_fwd_call(f32spec, dev, torch.float32)
+        err, rel = compare(fn, args, kw, F32_TOL)
+        rows.append(dict(spec=list(f32spec), per_step=specs[spec], max_abs_err_f32=err,
+                         rel_err_f32=rel, **f32_times(f32spec, fn, args, kw, byts, flops)))
+        log(f"  {spec[0]:16s} {str(spec[1:-1]):58s} x{specs[spec]:<2d} float32 err {err:.2e} "
+            f"(rel {rel:.1e})" + log_f32(rows[-1]))
+        del args, kw
+    return rows
+
+
+def wide_f32_checks(dev) -> list:
+    """Float32 calls at C = WIDE_C, past fc2's 384-channel register slice
+    (the tail tile in two output groups): the spectral apply with the tail
+    after a shifted block's gate and shortcut epilogue, and K6 with its
+    residual and drop-path, on 1 x 64 x 64, against their plain versions
+    (F32_TOL), timed with their bounds. The mlp call is left out where the
+    package has no float32 tail tile (the SIMT plan does not fit there)."""
+    hid = int(WIDE_C * 2.66)
+    rows = []
+    for spec in (("spectral_apply", 1, 64, 64, WIDE_C, 0, 4, False, False, True, True, hid,
+                  "torch.float32"),
+                 ("mlp", 1, 64, 64, WIDE_C, hid, True, True, "torch.float32")):
+        if spec[0] == "mlp" and not has_tail_f32():
+            log(f"  {spec[0]} {spec[1:-1]}: no float32 tail tile in this package (skipped)")
+            continue
+        fn, args, kw, _, byts, flops = make_train_fwd_call(spec, dev, torch.float32)
+        err, rel = compare(fn, args, kw, F32_TOL)
+        row = dict(spec=list(spec), max_abs_err_f32=err, rel_err_f32=rel, per_call=1,
+                   **f32_times(spec, fn, args, kw, byts, flops))
+        rows.append(row)
+        log(f"  {spec[0]:16s} {str(spec[1:-1]):58s} float32 err {err:.2e} (rel {rel:.1e}, "
+            f"bound {F32_TOL})" + log_f32(row))
+        del args, kw
+    return rows
+
+
 def log_mlp_bwd_plans(_build, cfgs) -> dict:
     """The bf16 MLP backward tile's shared-memory plan (bytes, static
     included) at every width of the presets' train steps, beside the float32
@@ -2543,6 +2806,9 @@ def main() -> None:
                     "point (after the build)")
     ap.add_argument("--eval-cli", action="store_true", help="only phase 14, the eval entry "
                     "point (after the build)")
+    ap.add_argument("--f32-eval", action="store_true", help="only phase 1, phase 2 (its "
+                    "float32 times and the C = 400 calls), K6's float32 calls of phases 5 and "
+                    "11, and phase 14: the float32 path, for this checkout or an older one")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs an NVIDIA GPU")
@@ -2622,6 +2888,7 @@ def main() -> None:
     window_bwd_plans = log_window_bwd_plans(_build, preset_cfgs)
     apply_bwd_plans = log_apply_bwd_plans(_build, preset_cfgs)
     gdfn_bwd_plans = log_gdfn_bwd_plans(_build, preset_cfgs)
+    f32_tail_plans = log_f32_tail_plans(_build)
 
     specs = path_specs(cfg, SIZE, "torch.bfloat16")
 
@@ -2629,6 +2896,29 @@ def main() -> None:
     rows = kernel_checks(specs, dev)
     streamed = dict(eval=log_streamed("per flagship forward", rows, "per_forward"))
     log_alone_sums("per flagship forward", rows, "per_forward")
+    f32_eval = log_f32_sums("per flagship forward", rows, "per_forward")
+    log(card)
+    log(f"== phase 2 (C = {WIDE_C}): float32 calls past the tail tile's register slice")
+    wide = wide_f32_checks(dev)
+    if args.f32_eval:
+        k6 = {}
+        for c_, what in zip(preset_cfgs, ("flagship", "remote-sensing")):
+            log(f"== phases 5 and 11 (float32 K6): the mlp calls of the {what} train step")
+            k6_rows = k6_f32_checks(train_path_specs(c_, TRAIN_BATCH, TRAIN_SIZE,
+                                                     "torch.bfloat16"), dev)
+            k6[what] = log_f32_sums(f"per {what} train step (K6's float32 calls)", k6_rows,
+                                    "per_step")
+        log(card)
+        log("== phase 14: the eval entry point (float32)")
+        ev = eval_cli_path(dev, card)
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "w") as fh:
+                json.dump(dict(card=card, rows=rows, f32_eval=f32_eval, wide=wide, k6_f32=k6,
+                               f32_tail_plans=f32_tail_plans, eval_cli=ev), fh, indent=1,
+                          default=str)
+        log(f"== done in {time.perf_counter() - t_start:.1f} s")
+        return
 
     log("== phase 3: main path, flagship bf16 forward on the trained weights")
     model = build_model(cfg, dev)
@@ -2659,6 +2949,7 @@ def main() -> None:
                   train_res["median_ms"])
     streamed["train"] = log_streamed("per train step (forward kernels)", train_rows, "per_step")
     log_alone_sums("per train step", train_rows, "per_step")
+    f32_train = log_f32_sums("per train step (K6's float32 calls)", train_rows, "per_step")
     for name in BWD_SPLIT:
         train_res[f"{name}_stages_per_step"] = log_bwd_split(name, "per train step", train_rows,
                                                               "per_step")
@@ -2672,6 +2963,7 @@ def main() -> None:
         f"{RS_SIZE}x{RS_SIZE} path shapes)")
     rs_rows = kernel_checks(rs_specs, dev)
     log_alone_sums("per remote-sensing forward", rs_rows, "per_forward")
+    f32_rs = log_f32_sums("per remote-sensing forward", rs_rows, "per_forward")
     limit = _build.smem_limit()
     worst = max(rs_rows, key=lambda r: r["smem"])
     log(f"  shared memory: the device's opt-in limit {limit} B per block; largest plan "
@@ -2703,6 +2995,8 @@ def main() -> None:
         f"f32, batch {TRAIN_BATCH} x {TRAIN_SIZE}^2 step shapes)")
     rs_train_rows = train_kernel_checks(rs_tspecs, dev, streamed=False)
     log_alone_sums("per remote-sensing train step", rs_train_rows, "per_step")
+    f32_rs_train = log_f32_sums("per remote-sensing train step (K6's float32 calls)",
+                                rs_train_rows, "per_step")
     log("== phase 11 (wgrad): every weight product of the remote-sensing train step against "
         "wgrad_plain")
     rs_train_rows += wgrad_checks(rs_tspecs, dev, "remote sensing")
@@ -2757,6 +3051,24 @@ def main() -> None:
             n = ev["launches"].get(k["name"], 0)
             k["eval_cli"] = dict(launches=n, launches_per_forward=n // (len(EVAL_MODES)
                                                                         * EVAL_FORWARDS))
+    # the float32 tail tile: its own path is the float32 eval CLI (phase 14's
+    # launches); ms, plain and bound per flagship float32 forward from phase
+    # 2's split (the apply calls with the tail less the same calls without)
+    split = f32_eval["spectral_apply_split"]
+    n = ev["launches"].get("mlp_tail_f32", 0)
+    if n == 0:
+        fail("the float32 tail tile was not launched by the eval CLI")
+    k6 = [r for r in train_rows + rs_train_rows + wide if r["spec"][0] == "mlp" and "f32_ms" in r]
+    meta = TAIL_F32_KERNEL["mlp_tail_f32"]
+    summary.append(dict(
+        name="mlp_tail_f32", route="cuda", source=meta["source"], replaces=meta["replaces"],
+        tpu=meta["tpu"], launches=n, launches_per_forward=split["calls"],
+        max_abs_err=max([split["max_abs_err"]] + [r["max_abs_err_f32"] for r in k6]),
+        rel_err=max([split["rel_err"]] + [r["rel_err_f32"] for r in k6]), ms=split["ms"],
+        plain_ms=split["plain_ms"], bound_ms=split["bound_ms"], bound_by="operations",
+        library_ms=None, kernel_alone_ms=split["kernel_alone_ms"],
+        k6_train_f32=f32_train.get("mlp"), k6_rs_train_f32=f32_rs_train.get("mlp"),
+        eval_cli=dict(launches=n, launches_per_forward=n // (len(EVAL_MODES) * EVAL_FORWARDS))))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
@@ -2770,6 +3082,8 @@ def main() -> None:
                            stats_bwd_plans=stats_bwd_plans,
                            window_bwd_plans=window_bwd_plans, apply_bwd_plans=apply_bwd_plans,
                            gdfn_bwd_plans=gdfn_bwd_plans, wgrad_ptxas=wgrad_ptxas,
+                           f32_tail_plans=f32_tail_plans, f32_eval=f32_eval, f32_rs=f32_rs,
+                           f32_train=f32_train, f32_rs_train=f32_rs_train, wide=wide,
                            train_cli=cli, eval_cli=ev,
                            seconds=time.perf_counter() - t_start), fh, indent=1, default=str)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")

@@ -6,10 +6,12 @@
 // bf16, block-level loops over 4x4 register tiles (SIMT FMA) for float32.
 // The exceptions stage their bf16 operands as bf16 with cp.async and feed
 // mma.sync by ldmatrix: conv3 (an implicit GEMM over 16x16-pixel tiles), the
-// bf16 window forward and backward (window_attention.cu), the bf16 PGSSTB tail MLP
-// (mlp_tail.cuh), the bf16 spectral apply front (spectral_front.cuh), the
-// bf16 backward tiles, and the bf16 weight product (grad.cu wgrad_tc_kernel).
-// wgmma and TMA are later work; see PERF.md for the gap to each bound.
+// bf16 window forward and backward (window_attention.cu), the PGSSTB tail MLP
+// (mlp_tail.cuh; its float32 twin stages float32 and runs 3xTF32 mma.sync),
+// the bf16 spectral apply front (spectral_front.cuh), the bf16 backward
+// tiles, and the bf16 weight product (grad.cu wgrad_tc_kernel). The other
+// float32 kernels keep SIMT FMA. wgmma and TMA are later work; see PERF.md
+// for the gap to each bound.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -337,63 +339,6 @@ __device__ __forceinline__ void dwconv3_tile(const float* src, int lds, int nc, 
       for (int dx = 0; dx < 3; ++dx)
         acc = fmaf(src[((pr + dy) * kHalo + pc + dx) * lds + j], wtap(dy * 3 + dx, j), acc);
     epi(p, j, acc);
-  }
-}
-
-// The gated MLP on one 8x8 tile: y[p][o] += fc2(a * gelu(g)) + b2 with
-// [a | g] = fc1(LN2(y)) + b1 (the PGSSTB tail of the float32 spectral apply
-// kernel), or, with branch_only, y[p][o] = fc2(a * gelu(g)) + b2 (the float32
-// MLP kernel, which adds its residual and drop-path scale itself; bf16 runs
-// mlp_tail.cuh's tensor-core tile). y ([kPix][ldy],
-// float32 values already rounded to T) is updated in place; yn ([kPix][ldy])
-// and hb ([kPix][2*khc+1]) are scratch; khc is the hidden chunk.
-constexpr int kHC = 64;  // hidden chunk (apply smem at C = 256: 210 KB of 227)
-
-template <typename T>
-__device__ __forceinline__ void mlp_tail_tile(float* y, float* yn, int ldy, float* hb, int C,
-                                              int hid, const float* __restrict__ ln2w,
-                                              const float* __restrict__ ln2b,
-                                              const T* __restrict__ w1,
-                                              const float* __restrict__ b1,
-                                              const T* __restrict__ w2,
-                                              const float* __restrict__ b2, float eps,
-                                              bool branch_only = false, int khc = kHC) {
-  const int ldh = 2 * khc + 1;
-  for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
-    const int p = idx / C, k = idx - p * C;
-    yn[p * ldy + k] = y[p * ldy + k];
-  }
-  __syncthreads();
-  ln_rows_inplace<T>(yn, ldy, kPix, C, ln2w, ln2b, eps, [](int) { return true; });
-  for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
-    const int p = idx / C, k = idx - p * C;
-    y[p * ldy + k] = branch_only ? b2[k] : y[p * ldy + k] + b2[k];
-  }
-  __syncthreads();
-  for (int j0 = 0; j0 < hid; j0 += khc) {
-    const int hc = min(khc, hid - j0);
-    // column j < hc: a-half hidden unit j0 + j; j >= hc: g-half
-    gemm<T>(kPix, 2 * hc, C,
-        [&](int i, int k) { return yn[i * ldy + k]; },
-        [&](int k, int j) {
-          const int col = j < hc ? j0 + j : hid + j0 + (j - hc);
-          return to_f(w1[(size_t)k * 2 * hid + col]);
-        },
-        [&](int i, int j, float acc) {
-          const int col = j < hc ? j0 + j : hid + j0 + (j - hc);
-          hb[i * ldh + (j < hc ? j : khc + j - hc)] = acc + b1[col];
-        });
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kPix * hc; idx += blockDim.x) {
-      const int p = idx / hc, j = idx - p * hc;
-      hb[p * ldh + j] = rnd<T>(hb[p * ldh + j] * gelu_erf(hb[p * ldh + khc + j]));
-    }
-    __syncthreads();
-    gemm<T>(kPix, C, hc,
-        [&](int i, int k) { return hb[i * ldh + k]; },
-        [&](int k, int j) { return to_f(w2[(size_t)(j0 + k) * C + j]); },
-        [&](int i, int j, float acc) { y[i * ldy + j] += acc; });
-    __syncthreads();
   }
 }
 

@@ -5,9 +5,9 @@
 //   mp_mlp      replaces _mlp_kernel (mp_hsir_tpu/ops/pallas_attention.py:965,
 //               host _mlp_fwd_call :996, K6). bf16: mlp_tc_kernel, the
 //               tensor-core tail tile of mlp_tail.cuh on the x tile staged
-//               as bf16 (cp.async; LN in place). float32: mlp_kernel, the
-//               spectral apply kernel's float32 tail (common.cuh
-//               mlp_tail_tile). As there, the scaled branch is rounded once,
+//               as bf16 (cp.async; LN in place). float32: mlp_f32_kernel,
+//               the same tile in 3xTF32 (mlp_tail.cuh mlp_tail_f32) on the x
+//               tile staged as float32. The scaled branch is rounded once,
 //               then the residual added.
 //   mp_mlp_bwd_tc  K6's VJP in bf16 (replaces _mlp_bwd_kernel,
 //               mp_hsir_tpu/ops/pallas_vjp.py:124, host _mlp_bwd_call :260,
@@ -67,31 +67,45 @@
 
 namespace mp {
 
-template <typename T>
+// float32 (K6 on the tensor cores, 3xTF32): x staged as float32 ([64][CK +
+// 4], cp.async where vec: C % 4 == 0 and x 16-byte aligned; zero past C), LN
+// in place, then per output group of at most kTailMaxC channels the tail
+// tile with its sums started from b2, and out = [x +] s_b branch straight
+// from the registers (the residual re-read from x). w1p / w2p:
+// pack_mlp_weights' layouts in float32; `stages` ring stages.
 __global__ void __launch_bounds__(kThreads)
-mlp_kernel(const T* __restrict__ x, const float* __restrict__ lnw, const float* __restrict__ lnb,
-           const T* __restrict__ w1, const float* __restrict__ b1, const T* __restrict__ w2,
-           const float* __restrict__ b2, const float* __restrict__ dp, int residual,
-           T* __restrict__ out, int H, int W, int C, int hid, float eps) {
-  extern __shared__ float sm[];
-  const int ld = C + 1;
-  float* ys = sm;              // [64][ld] x, then the branch
-  float* yn = ys + kPix * ld;  // [64][ld] LN(x)
-  float* hb = yn + kPix * ld;  // [64][2*kHC+1] hidden chunk
+mlp_f32_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
+               const float* __restrict__ lnb, const float* __restrict__ w1p,
+               const float* __restrict__ b1, const float* __restrict__ w2p,
+               const float* __restrict__ b2, const float* __restrict__ dp, int residual,
+               float* __restrict__ out, int H, int W, int C, int hid, float eps, int vec,
+               int stages) {
+  extern __shared__ float4 mlp_f32_dyn[];
+  const int CK = round_up64(C), ldx = CK + 4;
+  float* xs = reinterpret_cast<float*>(mlp_f32_dyn);  // [64][ldx] x, LN(x) in place
+  float* gs = xs + kPix * ldx;                        // [64][kTailLdF] gated chunk
+  float* ring = gs + kPix * kTailLdF;                 // [stages][kTailN][kTailLdF]
   const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
-  for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
-    const int i = idx / C, k = idx - i * C;
-    ys[i * ld + k] = to_f(x[tile_pix(b, ty, tx, i, H, W) * C + k]);
-  }
-  __syncthreads();
-  mlp_tail_tile<T>(ys, yn, ld, hb, C, hid, lnw, lnb, w1, b1, w2, b2, eps, /*branch_only=*/true);
+  auto pix = [&](int i) { return tile_pix(b, ty, tx, i, H, W); };
+  stage_rows(xs, ldx, x, C, CK, vec, pix);
+  cp_async_commit();
   const float s = dp == nullptr ? 1.f : dp[b];
-  for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
-    const int i = idx / C, k = idx - i * C;
-    const size_t o = tile_pix(b, ty, tx, i, H, W) * C + k;
-    float v = rnd<T>(ys[i * ld + k] * s);
-    if (residual) v = rnd<T>(to_f(x[o]) + v);
-    out[o] = from_f<T>(v);
+  for (int n0 = 0; n0 < CK; n0 += kTailMaxC) {
+    if (n0 > 0) __syncthreads();  // the last group's tiles read before their stages refill
+    TailRingF rg(w1p, w2p, ring, stages, C, hid, n0);
+    rg.prefetch();
+    if (n0 == 0) {
+      cp_async_wait_upto(stages - 1);  // the x tile has landed
+      __syncthreads();
+      tail_ln([&](int i, int k) { return xs[i * ldx + k]; }, xs, ldx, C, lnw, lnb, eps);
+    }
+    float acc[2 * kTailGroups][4];
+    tail_init(acc, C - n0, [&](int, int k) { return b2[n0 + k]; });
+    mlp_tail_f32(acc, xs, ldx, gs, rg, b1, hid);
+    tail_out(acc, C - n0, [&](int i, int k, float v) {
+      const size_t o = pix(i) * C + n0 + k;
+      out[o] = residual ? x[o] + v * s : v * s;
+    });
   }
 }
 
@@ -133,6 +147,8 @@ mlp_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ lnw
     return residual ? __bfloat162float(x[row(i) + k]) + v : v;  // rounded by the store
   });
 }
+
+constexpr int kHC = 64;  // the float32 backward's hidden chunk
 
 // Shared memory: LN(x) and dy are staged whole where that fits (every
 // natural-scene width); at C = 384 (263 KB whole) each pixel's LN mean and
@@ -599,9 +615,8 @@ mlp_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
   }
 }
 
-inline size_t mlp_smem(int C) {
-  return sizeof(float) * ((size_t)2 * kPix * (C + 1) + (size_t)kPix * (2 * kHC + 1));
-}
+// float32: the x tile, the gated chunk and tail_f32_stages(C) ring stages
+inline size_t mlp_f32_smem(int C) { return tail_f32_bytes(C, tail_f32_stages(C)); }
 
 // bf16: the x tile, the gated chunk and a kTailStages-deep ring
 inline size_t mlp_tc_smem(int C) { return tail_scratch_bytes(C, kTailStages); }
@@ -643,12 +658,14 @@ cudaError_t launch_mlp(const void* x, const float* lnw, const float* lnb, const 
         (const T*)x, lnw, lnb, (const T*)w1, b1, (const T*)w2, b2, dp, residual, (T*)out, H, W,
         C, hid, eps, vec);
   } else {
-    const size_t smem = mlp_smem(C);
-    cudaError_t err = set_smem(mlp_kernel<T>, smem);
+    if (!aligned(w1, 16) || !aligned(w2, 16)) return cudaErrorInvalidValue;
+    const size_t smem = mlp_f32_smem(C);
+    cudaError_t err = set_smem(mlp_f32_kernel, smem);
     if (err != cudaSuccess) return err;
-    mlp_kernel<T><<<grid, kThreads, smem, stream>>>(
-        (const T*)x, lnw, lnb, (const T*)w1, b1, (const T*)w2, b2, dp, residual, (T*)out, H, W, C,
-        hid, eps);
+    const int vec = C % 4 == 0 && aligned(x, 16);
+    mlp_f32_kernel<<<grid, kThreads, smem, stream>>>(
+        (const float*)x, lnw, lnb, (const float*)w1, b1, (const float*)w2, b2, dp, residual,
+        (float*)out, H, W, C, hid, eps, vec, tail_f32_stages(C));
   }
   return cudaGetLastError();
 }
@@ -691,8 +708,8 @@ cudaError_t launch_mlp_bwd_tc(const __nv_bfloat16* x, const __nv_bfloat16* dy, c
 }  // namespace mp
 
 // x (B, H, W, C); LN, b1, b2 float32; dp (B,) float32 drop-path scales or
-// NULL. Weights in the compute type: float32 w1 [C][2*hid], w2 [hid][C];
-// bf16 (C <= 384) pack_mlp_weights' w1p [hidP/64][128][CK], w2p [CK][hidP].
+// NULL. Weights: pack_mlp_weights' w1p [hidP/64][128][CK], w2p [CK][hidP]
+// in the compute type (16-byte aligned; bf16 takes C up to 384).
 // out (B, H, W, C).
 extern "C" int mp_mlp(const void* x, const void* lnw, const void* lnb, const void* w1,
                       const void* b1, const void* w2, const void* b2, const void* dp, void* out,
@@ -753,7 +770,7 @@ extern "C" int mp_mlp_bwd_chunk(int C) { return mp::mlp_bwd_chunk(C); }
 // float32 backward's at channel chunk kc, the bf16 backward tile's
 // (MlpBwdPlan; -1 past C = 384).
 extern "C" long long mp_mlp_smem(int C, int dtype) {
-  if (dtype == 0) return mp::plan_bytes(mp::mlp_kernel<float>, mp::mlp_smem(C));
+  if (dtype == 0) return mp::plan_bytes(mp::mlp_f32_kernel, mp::mlp_f32_smem(C));
   return C > mp::kTailMaxC ? -1 : mp::plan_bytes(mp::mlp_tc_kernel, mp::mlp_tc_smem(C));
 }
 

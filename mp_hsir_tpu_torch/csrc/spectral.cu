@@ -12,7 +12,8 @@
 //                      the PGSSTB tail out + fc2(a * gelu(g)), [a|g] = fc1(LN2(out))
 //                      (bf16: the tensor-core tile of spectral_front.cuh with
 //                      the tail tile of mlp_tail.cuh after it; float32:
-//                      spectral_apply_kernel below with common.cuh mlp_tail_tile).
+//                      spectral_apply_kernel below, SIMT FMA, with the 3xTF32
+//                      tail tile of mlp_tail.cuh, mlp_tail_f32).
 //
 // Replaces _spectral_kernel (mp_hsir_tpu/ops/pallas_attention.py:1429, K2: the
 // stats launch is its phase 0, the apply launch its phase 1) and the spectral
@@ -28,7 +29,8 @@
 // Bound on this card: 4C^2 + 6C*hidden flops per pixel in the apply launch and
 // 4C^2 + 2C*dh in the stats launch against ~4C bytes per pixel: tensor-core
 // rate bounds both at these widths. bf16 products run as mma.sync on the
-// tensor cores, float32 ones as SIMT FMA (common.cuh gemm; PERF.md); the bf16
+// tensor cores, float32 ones as SIMT FMA (common.cuh gemm; PERF.md) but for
+// the apply launch's PGSSTB tail, 3xTF32 mma.sync (mlp_tail.cuh); the bf16
 // stats and apply launches run their own tiles (spectral_stats.cuh,
 // spectral_front.cuh). The bf16 stats backward runs two tensor-core tiles:
 // spectral_stats_bwd_tc_kernel (spectral_stats.cuh) and dwconv_dx_tc_kernel
@@ -232,29 +234,32 @@ cudaError_t launch_sum_parts(const float* part, float* out, int nb, int n_parts,
 
 constexpr int kVC = 32;   // v channel chunk when the input is resident
 constexpr int kVCw = 128; // v channel chunk when it is streamed (fewer re-reads)
-constexpr int kHCw = 32;  // tail hidden chunk when it is streamed (C = 384: 226 KB at kc 64)
 
-// The float32 apply kernel's plan (and the apply backward's): the halo input
-// chunk xc [100][kc+1] and the v 1x1 chunk vt [100][nv+1] share one region
-// with the output y [64][C+1] (y is written after the v stage); vs [64][C+1]
-// holds v, later LN2(y); hb holds the tail's hidden chunk. Resident (kc = C):
-// the natural-scene layout, a kernel instance of its own whose chunks are
-// compile-time constants. The bf16 apply kernel has its own plan (FrontPlan).
+// The float32 apply kernel's plan (and the apply backward's, without the
+// tail): the halo input chunk xc [100][kc+1] and the v 1x1 chunk vt
+// [100][nv+1] share one region with the output y (y is written after the v
+// stage): [64][C+1], or with the tail [64][CK+4] (CK = C rounded up to 64),
+// where LN2(y) is taken in place; vs [64][C+1] holds v. With the tail, the
+// tail tile's scratch (LN2(y) in y's place, the gated chunk, the ring;
+// tail_f32_bytes) covers the dead front after the comb product, and the plan
+// is the larger of the two. Resident (kc = C): the natural-scene layout, a
+// kernel instance of its own whose chunks are compile-time constants. The
+// bf16 apply kernel has its own plan (FrontPlan).
 struct ApplyPlan {
-  int kc, nv, khc;
-  __host__ __device__ size_t front(int C) const {
+  int kc, nv;
+  __host__ __device__ size_t front(int C, bool tail = false) const {
     const size_t stage = (size_t)kHaloPix * (kc + 1) + (size_t)kHaloPix * (nv + 1);
-    const size_t y = (size_t)kPix * (C + 1);
+    const size_t y = (size_t)kPix * (tail ? round_up64(C) + 4 : C + 1);
     return stage > y ? stage : y;
   }
   __host__ __device__ size_t floats(int C, bool tail) const {
-    return front(C) + (size_t)kPix * (C + 1) + (tail ? (size_t)kPix * (2 * khc + 1) : 0);
+    return front(C, tail) + (size_t)kPix * (C + 1);
   }
 };
 
 template <bool kStream>
 __host__ __device__ inline ApplyPlan apply_plan(int kc, int C) {
-  return kStream ? ApplyPlan{kc, kVCw, kHCw} : ApplyPlan{C, kVC, kHC};
+  return kStream ? ApplyPlan{kc, kVCw} : ApplyPlan{C, kVC};
 }
 
 template <typename T, bool kStream>
@@ -268,17 +273,19 @@ spectral_apply_kernel(const T* __restrict__ x1, const T* __restrict__ x2, int C1
                       const T* __restrict__ w1, const float* __restrict__ b1,
                       const T* __restrict__ w2, const float* __restrict__ b2, int hid,
                       const float* __restrict__ dp, T* __restrict__ out, int H, int W,
-                      int shift, float eps, int kc) {
-  extern __shared__ float sm[];
+                      int shift, float eps, int kc, int tail_stages) {
+  extern __shared__ float4 apply_dyn[];  // 16-byte aligned: the tail's cp.async and ldmatrix
+  float* sm = reinterpret_cast<float*>(apply_dyn);
   __shared__ float mu[kHaloPix], rs[kHaloPix];
   const int C = C1 + C2, C3 = 3 * C;
+  const bool tail = w1 != nullptr;
   const ApplyPlan plan = apply_plan<kStream>(kc, C);
   const int ldc = plan.kc + 1, ldx = C + 1, ldv = plan.nv + 1;
+  const int ldy = tail ? round_up64(C) + 4 : ldx;
   float* xc = sm;                       // [100][ldc] halo input chunk
   float* vt = xc + kHaloPix * ldc;      // [100][ldv] 1x1 output chunk
-  float* y = sm;                        // [64][ldx] output (after the v stage)
-  float* vs = sm + plan.front(C);       // [64][ldx] v; later LN2(y)
-  float* hb = vs + kPix * ldx;          // [64][2*khc+1] MLP hidden chunk
+  float* y = sm;                        // [64][ldy] output (after the v stage)
+  float* vs = sm + plan.front(C, tail); // [64][ldx] v
   const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
   const Halo<T> hl{x1, x2, C1, C2, b, ty, tx, H, W, shift};
 
@@ -337,17 +344,48 @@ spectral_apply_kernel(const T* __restrict__ x1, const T* __restrict__ x2, int C1
           if (residual) v = rnd<T>(u + v);
         }
         if (shortcut != nullptr) v = rnd<T>(to_f(shortcut[(((size_t)b * H + r) * W + c) * C + j]) + v);
-        y[i * ldx + j] = v;
+        y[i * ldy + j] = v;
       });
   __syncthreads();
-  if (w1 != nullptr) {
-    mlp_tail_tile<T>(y, vs, ldx, hb, C, hid, ln2w, ln2b, w1, b1, w2, b2, eps, false, plan.khc);
+  auto dst = [&](int i) { return out + tile_pix(b, ty, tx, i, H, W) * C; };
+  if (!tail) {
+    for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
+      const int i = idx / C, k = idx - i * C;
+      dst(i)[k] = from_f<T>(y[i * ldy + k]);
+    }
+    return;
   }
-
-  for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
-    const int i = idx / C, k = idx - i * C;
-    const int r = ty * kTile + (i >> 3), c = tx * kTile + (i & 7);
-    out[(((size_t)b * H + r) * W + c) * C + k] = from_f<T>(y[i * ldx + k]);
+  // the PGSSTB tail on the tensor cores (3xTF32, mlp_tail_f32) over the dead
+  // front: LN2(y) in y's place, the gated chunk, the ring. Up to C = 384
+  // fc2's sums start from y + b2 and hold the whole output; wider, y goes to
+  // `out` first and each output group of 384 channels adds its sums there.
+  const int CK = round_up64(C);
+  const bool one = CK <= kTailMaxC;
+  float* gs = y + kPix * ldy;            // [64][kTailLdF] gated chunk
+  float* ring = gs + kPix * kTailLdF;    // [tail_stages][kTailN][kTailLdF]
+  float acc[2 * kTailGroups][4];
+  for (int n0 = 0; n0 < CK; n0 += kTailMaxC) {
+    if (n0 > 0) __syncthreads();  // the last group's tiles read before their stages refill
+    TailRingF rg(w1, w2, ring, tail_stages, C, hid, n0);
+    rg.prefetch();
+    if (n0 == 0) {
+      if (one) {
+        tail_init(acc, C, [&](int i, int k) { return y[i * ldy + k] + b2[k]; });
+      } else {
+        for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
+          const int i = idx / C, k = idx - i * C;
+          dst(i)[k] = y[i * ldy + k];
+        }
+      }
+      __syncthreads();
+      tail_ln([&](int i, int k) { return y[i * ldy + k]; }, y, ldy, C, ln2w, ln2b, eps);
+    }
+    if (!one) tail_init(acc, C - n0, [&](int, int k) { return b2[n0 + k]; });
+    mlp_tail_f32(acc, y, ldy, gs, rg, b1, hid);
+    tail_out(acc, C - n0, [&](int i, int k, float v) {
+      float* o = dst(i) + n0 + k;
+      *o = one ? v : *o + v;
+    });
   }
 }
 
@@ -529,9 +567,13 @@ inline size_t stats_smem(int C, int nH, int kc) {
                           (size_t)kPix * (2 * dh + 1) + (size_t)C * dh + 2 * C);
 }
 
+// The float32 apply plan: the front's layout and, with the tail, the tail
+// tile's scratch over it (tail_f32_stages(C) ring stages), whichever is larger.
 inline size_t apply_smem(int C, bool tail, int kc) {
   const ApplyPlan plan = kc >= C ? apply_plan<false>(kc, C) : apply_plan<true>(kc, C);
-  return sizeof(float) * plan.floats(C, tail);
+  const size_t front = sizeof(float) * plan.floats(C, tail);
+  const size_t t = tail ? tail_f32_bytes(C, tail_f32_stages(C)) : 0;
+  return front > t ? front : t;
 }
 
 // The plan in the compute type: bf16 takes the front tile's plan (always
@@ -632,13 +674,15 @@ cudaError_t launch_apply(const float* x1, const float* x2, int C1, int C2, const
                          const float* w2, const float* b2, int hid, const float* dp, float* out,
                          int B, int H, int W, int shift, int kc, float eps, cudaStream_t stream) {
   const int C = C1 + C2;
-  const size_t smem = apply_smem(C, w1 != nullptr, kc);
+  const bool tail = w1 != nullptr;
+  if (tail && (!aligned(w1, 16) || !aligned(w2, 16))) return cudaErrorInvalidValue;
+  const size_t smem = apply_smem(C, tail, kc);
   const auto kernel = apply_kernel(kc, C);
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
       x1, x2, C1, C2, lnw, lnb, wqkv, wdw, comb, gate, shortcut, residual, ln2w, ln2b, w1, b1, w2,
-      b2, hid, dp, out, H, W, shift, eps, kc);
+      b2, hid, dp, out, H, W, shift, eps, kc, tail ? tail_f32_stages(C) : 0);
   return cudaGetLastError();
 }
 
@@ -1065,8 +1109,9 @@ extern "C" int mp_spectral_stats_parts(int dtype, int B, int H, int W, int C, in
 // the branch (NULL = none); w1 / w2 the PGSSTB tail (NULL = none). Output (B,
 // H, W, C) in the unrolled frame.
 // float32 (dtype 0): wqkv [C][3C], wdw [9][3C] ([in][out] copies), comb
-// float32, tail w1 [C][2*hid], w2 [hid][C]; kc the channel chunk
-// (mp_spectral_apply_chunk; kc = C is the resident instance).
+// float32, tail pack_mlp_weights' w1p [hidP/64][128][CK], w2p [CK][hidP] in
+// float32 (16-byte aligned); kc the channel chunk (mp_spectral_apply_chunk;
+// kc = C is the resident instance).
 // bf16 (dtype 1, C <= 384): wqkv the v rows of the torch weight ([C][C8], C8 =
 // C rounded up to 8, zero past C; 16-byte aligned), wdw their depthwise taps
 // ([C][9]), comb bf16 [B][C][C8] (16-byte aligned), tail pack_mlp_weights' w1p

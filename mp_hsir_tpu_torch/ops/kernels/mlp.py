@@ -12,10 +12,13 @@ both followed by grad.cu's weight products and partial sums. Plain versions:
 :func:`mlp_plain`, :func:`mlp_bwd_plain`. Weights in torch Linear layout: w1
 (2h, C), w2 (C, h).
 
-Weight layouts at the launch: the float32 kernels take [in][out] copies; the
-bf16 forward (the tensor-core tail tile of ``csrc/mlp_tail.cuh``, also the
-bf16 spectral apply kernel's PGSSTB tail) and the bf16 backward tile stream
-the packs of :func:`pack_mlp_weights`, made on every call.
+Weight layouts at the launch: the forward (the tensor-core tail tile of
+``csrc/mlp_tail.cuh``, also the spectral apply kernel's PGSSTB tail: bf16
+``mlp_tail_tc``, float32 ``mlp_tail_f32`` in 3xTF32) and the bf16 backward
+tile stream the packs of :func:`pack_mlp_weights` in the compute type, made
+on every call; the float32 backward takes [in][out] copies. Every launch of
+the float32 tile (here and in the float32 spectral apply with the tail)
+also counts in ``TAIL_F32``.
 """
 
 from __future__ import annotations
@@ -36,6 +39,9 @@ from mp_hsir_tpu_torch.ops.kernels._route import (
 
 COUNTER = counter("mlp")
 BWD = counter("mlp_bwd")
+# the float32 tail tile (3xTF32), launched by this wrapper and by the float32
+# spectral apply with the PGSSTB tail: ("mlp_tail_f32", B, H, W, C, hid)
+TAIL_F32 = counter("mlp_tail_f32")
 # the bf16 tail tile's hidden chunk and depth tile (kTailK of
 # csrc/mlp_tail.cuh) and its widest C (kTailMaxC: fc2's output slice is held
 # in registers)
@@ -49,6 +55,12 @@ TAIL_STAGE = 2 * 128 * (TAIL_K + 8)
 TAIL_STAGES = 4
 MLP_BWD_LDH = 2 * TAIL_K + 8
 MLP_BWD_BUDGET = 232448 - 1024
+# the float32 tail tile's plan (tail_f32_bytes in csrc/mlp_tail.cuh): rows of
+# TAIL_K + 4 floats (kTailLdF), ring stages of [128][TAIL_LDF] float32
+# (kTailStageF), the dynamic bytes a plan may take (kTailF32Budget)
+TAIL_LDF = TAIL_K + 4
+TAIL_STAGE_F32 = 4 * 128 * TAIL_LDF
+TAIL_F32_BUDGET = 232448 - 1024
 
 
 def _scale(dp_scale, b):
@@ -128,6 +140,25 @@ def pack_mlp_weights(w1: torch.Tensor, w2: torch.Tensor, dt: torch.dtype):
     return w1p.reshape(hp // TAIL_K, 128, ck), w2p
 
 
+def tail_f32_plan(c: int, hid: int = 0) -> dict:
+    """The float32 tail tile's plan at width ``c`` and hidden width ``hid``
+    (``tail_f32_bytes`` / ``tail_f32_stages`` in csrc/mlp_tail.cuh): ``ck`` =
+    c rounded up to 64, ``ld`` = ck + 4 the LN2 row; ``ws`` ring stages (2 to
+    4, as many as the budget holds); ``bytes`` = LN2 | the gated chunk | the
+    ring (the mlp kernel's plan; the apply kernel's is the larger of it and
+    its front's); per hidden chunk ``nk1`` fc1 tiles, then per output
+    ``groups`` entry (first channel, fc2 tiles) that group's fc2 tiles, over
+    ``nch`` chunks."""
+    ck = _round_k(c)
+    fixed = 4 * (64 * (ck + 4) + 64 * TAIL_LDF)
+    ws = TAIL_STAGES
+    while ws > 2 and fixed + ws * TAIL_STAGE_F32 > TAIL_F32_BUDGET:
+        ws -= 1
+    groups = [(n0, -(-min(TAIL_MAX_C, ck - n0) // 128)) for n0 in range(0, ck, TAIL_MAX_C)]
+    return dict(ck=ck, ld=ck + 4, ws=ws, bytes=fixed + ws * TAIL_STAGE_F32, nk1=ck // TAIL_K,
+                nch=-(-hid // TAIL_K), groups=groups)
+
+
 def mlp_bwd_tc_plan(c: int, hid: int = 0) -> dict:
     """The bf16 backward tile's plan (``MlpBwdPlan`` in csrc/mlp.cu) at width
     ``c`` and hidden width ``hid``: ``ck`` = c rounded up to 64 and ``ld`` =
@@ -178,10 +209,7 @@ def _prepare(x, ln_w, ln_b, w1, b1, w2, b2, residual, dp_scale, eps):
     # every operand bound to a name until the launch: a temporary freed
     # mid-call could hand its memory to the next one
     lnw, lnb, b1f, b2f, dp = f32(ln_w), f32(ln_b), f32(b1), f32(b2), f32(dp_scale)
-    if code:
-        w1k, w2k = pack_mlp_weights(w1, w2, dt)
-    else:
-        w1k, w2k = kernel_weight(w1, dt), kernel_weight(w2, dt)
+    w1k, w2k = pack_mlp_weights(w1, w2, dt)
     out = torch.empty_like(x)
     args = (x.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), w1k.data_ptr(), b1f.data_ptr(),
             w2k.data_ptr(), b2f.data_ptr(), _build.ptr(dp), out.data_ptr(), code, b, h, w, c,
@@ -195,6 +223,8 @@ def _launch(x, ln_w, ln_b, w1, b1, w2, b2, residual, dp_scale, eps):
     b, h, w, c = x.shape
     COUNTER.record(("mlp", b, h, w, c, w2.shape[1], bool(residual), dp_scale is not None,
                     str(x.dtype)))
+    if x.dtype == torch.float32:
+        TAIL_F32.record(("mlp_tail_f32", b, h, w, c, w2.shape[1]))
     return out
 
 

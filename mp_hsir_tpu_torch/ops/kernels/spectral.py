@@ -43,7 +43,11 @@ they are (:func:`pack_stats`), in the head groups and passes that
 launch. The bf16 apply launch runs the tensor-core tile of
 ``csrc/spectral_front.cuh`` (C up to :data:`FRONT_MAX_C`): it streams the v
 rows of the torch weights and a bf16 copy of ``comb`` as they are
-(:func:`pack_front`), in the tiles that :func:`front_plan` describes.
+(:func:`pack_front`), in the tiles that :func:`front_plan` describes. The
+float32 apply launch keeps its SIMT front; its PGSSTB tail runs the float32
+tail tile of ``csrc/mlp_tail.cuh`` (3xTF32 on the tensor cores, any C whose
+plan fits) on :func:`~mp_hsir_tpu_torch.ops.kernels.mlp.pack_mlp_weights`'
+float32 packs, counted in ``mlp.TAIL_F32`` too.
 """
 
 from __future__ import annotations
@@ -62,7 +66,7 @@ from mp_hsir_tpu_torch.ops.kernels._grad import (
 from mp_hsir_tpu_torch.ops.kernels._route import (
     ROUTE, counter, dtype_code, f32, kernel_weight, stream_ptr,
 )
-from mp_hsir_tpu_torch.ops.kernels.mlp import pack_mlp_weights
+from mp_hsir_tpu_torch.ops.kernels.mlp import TAIL_F32, pack_mlp_weights
 from mp_hsir_tpu_torch.ops.window import roll_hw
 
 STATS = counter("spectral_stats")
@@ -602,8 +606,8 @@ def _apply_prepare(x, comb, wqkv, wdw, shift=0, x2=None, ln_w=None, ln_b=None, r
                    gate=None, shortcut=None, mlp=None, eps=1e-5, dp_scale=None):
     """Everything a launch needs: (the C entry's arguments, out, the tensors
     the arguments point into, to be held until the launch). Weights: float32
-    [in][out] copies; bf16 :func:`pack_front` and, for the tail,
-    :func:`pack_mlp_weights`."""
+    [in][out] copies, bf16 :func:`pack_front`; the tail's
+    :func:`pack_mlp_weights` in the compute type."""
     b, h, w, c1 = x.shape
     c2 = 0 if x2 is None else x2.shape[-1]
     c = c1 + c2
@@ -631,10 +635,7 @@ def _apply_prepare(x, comb, wqkv, wdw, shift=0, x2=None, ln_w=None, ln_b=None, r
     ln2w = ln2b = w1 = b1 = w2 = b2 = None
     if tail:
         ln2w, ln2b, b1, b2 = f32(mlp[0]), f32(mlp[1]), f32(mlp[3]), f32(mlp[5])
-        if code:
-            w1, w2 = pack_mlp_weights(mlp[2], mlp[4], dt)
-        else:
-            w1, w2 = kernel_weight(mlp[2], dt), kernel_weight(mlp[4], dt)
+        w1, w2 = pack_mlp_weights(mlp[2], mlp[4], dt)
         hid = mlp[4].shape[1]
     out = torch.empty((b, h, w, c), dtype=dt, device=x.device)
     p = _build.ptr
@@ -657,6 +658,8 @@ def _apply_launch(x, comb, wqkv, wdw, shift, x2, ln_w, ln_b, residual, gate, sho
     spec = ("spectral_apply", b, h, w, c1, c2, shift, ln_w is not None, bool(residual),
             gate is not None, shortcut is not None, hid, str(dt))
     APPLY.record(spec if dp_scale is None else spec[:-1] + ("dp", str(dt)))
+    if hid and dt == torch.float32:
+        TAIL_F32.record(("mlp_tail_f32", b, h, w, c1 + c2, hid))
     return out
 
 

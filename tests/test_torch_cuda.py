@@ -593,6 +593,60 @@ def test_cuda_mlp_tail_widths_match_plain(c, b, h):
         assert n <= _build.plan_bytes("mp_spectral_apply_smem", c, 1, 0, kc)
 
 
+# The float32 tail tile (mlp_tail_f32, 3xTF32) at every PGSSTB width of the
+# presets and at C = 400 (CK 448: two output groups, 384 + 64 channels; C %
+# 8 != 0 is covered by C = 36 in the front cases), on 3 tiles (8x24) and 12
+# (2x16x24)
+TAIL_F32_CASES = [(c, b, h) for c in (64, 128, 256, 96, 192, 384, 400)
+                  for b, h in ((1, 8), (2, 16))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,b,h", TAIL_F32_CASES)
+def test_cuda_mlp_tail_f32_matches_plain(c, b, h):
+    """The float32 tail tile on the card against the plain versions within
+    1e-4 of each output's max-abs: K6 with and without its residual and
+    drop-path scale, and the spectral apply kernel's tail after a shifted
+    block's gate epilogue and after the x2 + LN entry; every launch counted
+    in mlp_tail_f32 too; two calls bitwise equal (no float atomics); the mlp
+    plan equal to the mirror's, the apply plan holding the tail's scratch,
+    both within the device's limit."""
+    from mp_hsir_tpu_torch.ops.kernels import _build
+    from mp_hsir_tpu_torch.ops.kernels.mlp import mlp, tail_f32_plan
+
+    dev = _cuda()
+    hid = int(c * 2.66)
+    r = _rng(160 + c)
+    f = lambda *s, scale=1.0: _t(_n(r, s, scale)).to(dev)  # noqa: E731
+    weights = (1 + f(c, scale=0.1), f(c, scale=0.1), f(2 * hid, c, scale=c ** -0.5),
+               f(2 * hid, scale=0.1), f(c, hid, scale=hid ** -0.5), f(c, scale=0.1))
+    x, x2, short = f(b, h, 24, c), f(b, h, 24, c // 2), f(b, h, 24, c)
+    gate = f(b, h // 8, 3, c, scale=0.5)
+    dp = torch.tensor([1.25, 0.0][:b], device=dev)
+    wq, wd = f(3 * c, c, 1, 1, scale=c ** -0.5), f(3 * c, 1, 3, 3, scale=1 / 3)
+    comb = f(b, c, c, scale=c ** -0.5)
+    lw, lb = 1 + f(c, scale=0.1), f(c, scale=0.1)
+    _route.reset_counters()
+    for residual in (False, True):
+        for scale in (None, dp):
+            _check_fwd(mlp, [x, *weights], dict(residual=residual, dp_scale=scale), 1e-4)
+    apply_kw = dict(shift=4, gate=gate, shortcut=short, mlp=weights)
+    _check_fwd(spectral_apply, [x, comb, wq, wd], apply_kw, 1e-4)
+    _check_fwd(spectral_apply, [x[..., :c - c // 2], comb, wq, wd],
+               dict(x2=x2, ln_w=lw, ln_b=lb, residual=True, mlp=weights), 1e-4)
+    assert _route.COUNTERS["mlp_tail_f32"].launches == 6
+    assert _route.ROUTE.plain_cuda_calls == 6
+    assert torch.equal(mlp(x, *weights, residual=True, dp_scale=dp),
+                       mlp(x, *weights, residual=True, dp_scale=dp))
+    assert torch.equal(spectral_apply(x, comb, wq, wd, **apply_kw),
+                       spectral_apply(x, comb, wq, wd, **apply_kw))
+    pl = tail_f32_plan(c, hid)
+    assert _build.plan_bytes("mp_mlp_smem", c, 0) == pl["bytes"] <= _build.smem_limit()
+    kc = _build.chunk("mp_spectral_apply_chunk", c, 1, 0)
+    n = _build.plan_bytes("mp_spectral_apply_smem", c, 1, 0, kc)
+    assert pl["bytes"] < n <= _build.smem_limit()
+
+
 # The bf16 spectral apply tile (csrc/spectral_front.cuh) at every width of the
 # presets' apply calls, in every variant they launch: the PGSSTB call (gate and
 # shortcut, shift 0 and 4, with and without the tail), the PromptFusion call
