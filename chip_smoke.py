@@ -28,7 +28,12 @@ Phases (any failure exits non-zero; no phase's error is caught):
    float32 tail tile's kernels' registers and spills (mlp_f32_kernel, the
    two float32 spectral_apply_kernel instances), and the float32 apply
    (with the tail, at its chunk) and mlp plans at every tail width and C =
-   400, beside the plans of the SIMT tail the tile replaced.
+   400, beside the plans of the SIMT tail the tile replaced; the float32
+   conv3 and window tiles' registers and spills (every instance) beside the
+   bf16 tiles', the float32 window plan at every (C, heads) of the presets'
+   window calls (with its ring stages and blocks per window) beside the bf16
+   tile's and the SIMT kernel's it replaced, and conv3's float32 plan beside
+   its bf16 and SIMT ones.
 2. Kernel checks: every kernel wrapper on the card at each shape the
    flagship 512x512x31 eval forward gives it, in bf16 from numpy-seeded
    inputs, against its plain PyTorch version on the same inputs; also once
@@ -58,7 +63,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
    495 TFLOP/s: 3xTF32), each float32 apply call with the tail once more
    without it; per forward the float32 sums per kernel and the apply's front
    / tail split (the tail: the float32 tail tile, 3xTF32) beside their
-   bounds. Then a float32 spectral apply with the tail and a float32 mlp call
+   bounds; each float32 call of the tail, conv3 and window tiles is first run
+   twice: bitwise equal. Then a float32 spectral apply with the tail and a float32 mlp call
    at C = 400 (the tail tile in two output groups) against plain (1e-4).
 3. Main path: the flagship preset on the committed trained weights, bf16 at
    1x31x512x512, answering 4 requests (mode-0 cubes) after a warm-up. The
@@ -171,7 +177,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
     every mode 0-12 on the trained flagship weights, one loaded model: each
     run launches every kernel (1 warm-up + 2 cubes) x the float32 forward's
     enumerated signatures (and the float32 tail tile once per apply call with
-    the tail, counted apart), no plain version on the card; per mode the first
+    the tail, the float32 conv3 and window tiles once per conv3 and window
+    call, each counted apart), no plain version on the card; per mode the first
     cube through the kernel and the plain float32 forward under the mode's
     task id (max abs <= 1e-4: prompts 0-5); mode 0 restores >= 3 dB above
     the degraded input, the other modes print PSNR, SSIM, SAM and the
@@ -183,12 +190,17 @@ Phases (any failure exits non-zero; no phase's error is caught):
     pipelined; one subprocess run of the CLI (mode 7, --pipeline 2
     --upload_dtype float16) held to the stdout lines; the remote-sensing
     preset on seeded random weights at 256x256x100, modes 0 and 10 (task 6),
-    with the same launch and kernel-vs-plain checks; s/cube per mode.
+    with the same launch and kernel-vs-plain checks; s/cube per mode; each
+    preset's float32 kernels per forward (each call alone through its
+    wrapper x its calls).
 15. The kernel summary line (each kernel's main-path numbers, its
     remote-sensing train-step numbers and the train and eval CLIs' launches
     beside them; the float32 tail tile's row: phase 14's launches, phase 2's
     tail ms per flagship float32 forward beside its bound and plain, the
-    largest float32 error of its calls), then the result line.
+    largest float32 error of its calls; the float32 conv3 and window tiles'
+    rows: phase 14's launches, phase 2's float32 ms per flagship forward,
+    alone, plain, bound and library, phase 7's remote-sensing float32 sums),
+    then the result line.
 
 --bwd-split KERNEL (mlp_bwd, spectral_stats_bwd, window_attention_bwd,
 spectral_apply_bwd or gdfn_bwd; repeatable) runs phase 1's build and only
@@ -202,7 +214,9 @@ phases 1, 2, K6's float32 calls of phases 5 and 11 (checked and timed) and
 14: the float32 path's kernels and the eval CLI, also for an
 older checkout (this file copied to its root: where its package has no
 float32 tail tile, the tile's launches are not expected and its C = 400 mlp
-call is left out).
+call is left out; where it has no float32 conv3 and window tiles, their
+launches are not expected and only their SIMT kernels' registers are
+logged).
 """
 
 from __future__ import annotations
@@ -276,6 +290,16 @@ STAGED = ("spectral_stats", "spectral_apply", "gdfn")
 TAIL_F32_KERNEL = {"mlp_tail_f32": dict(source="mp_hsir_tpu_torch/csrc/mlp_tail.cuh",
                                         tpu=["K2", "K6"],
                                         replaces="mp_hsir_tpu/ops/pallas_attention.py:965")}
+# the float32 conv3 and window tiles (3xTF32): K4's and K1's float32
+# instances, the eval CLI's route; their launches count in their own
+# counters beside conv3's and window_attention's
+F32_TILE_KERNELS = {
+    "conv3_f32": dict(source="mp_hsir_tpu_torch/csrc/conv3.cu", tpu=["K4"], of="conv3",
+                      replaces="mp_hsir_tpu/ops/pallas_attention.py:1182"),
+    "window_attention_f32": dict(source="mp_hsir_tpu_torch/csrc/window_attention.cu",
+                                 tpu=["K1", "K3"], of="window_attention",
+                                 replaces="mp_hsir_tpu/ops/pallas_attention.py:794"),
+}
 # a width past fc2's 384-channel register slice (two output groups), float32
 WIDE_C = 400
 # the kernels timed alone beside their wrappers, with their library yardsticks
@@ -519,6 +543,13 @@ def plan_of(spec) -> dict:
     smem_entry, chunk_entry, shape_of = PLAN_ENTRIES[name]
     shape = tuple(shape_of(spec))
     c = shape[0]
+    if name == "window_attention" and has_f32_tiles():  # both tiles: one whole-window plan
+        n = _build.plan_bytes(smem_entry, *shape)
+        fn = _build.lib().mp_window_cluster
+        fn.argtypes, fn.restype = [ctypes.c_int] * 5, ctypes.c_int
+        return dict(smem=n, smem_whole=n, kc=c, c=c,
+                    blocks_per_window=int(fn(*shape, spec[1] * (spec[2] // 8) * (spec[3] // 8),
+                                             0)))
     if name == "spectral_stats" and _code(spec):  # the bf16 tile: one resident plan
         n = _build.plan_bytes("mp_spectral_stats_tc_smem", *shape)
         return dict(smem=n, smem_whole=n, kc=c, c=c)
@@ -768,6 +799,29 @@ def tail_f32_specs(specs: Counter) -> Counter:
     return out
 
 
+def has_f32_tiles() -> bool:
+    """Whether this checkout's package has the float32 conv3 and window
+    tiles (an older checkout measured with this file has not: both are
+    SIMT there)."""
+    from mp_hsir_tpu_torch.ops.kernels import conv3, window_attention
+
+    return hasattr(conv3, "F32_TILE") and hasattr(window_attention, "F32_TILE")
+
+
+def f32_tile_specs(specs: Counter) -> Counter:
+    """The float32 conv3 and window tiles' launches of a multiset of calls:
+    one per float32 conv3 call, as ("conv3_f32", B, H, W, Cin, Cout, mode),
+    and per float32 window_attention call, as ("window_attention_f32", B, H,
+    W, C, heads, shift); none where the package has no such tiles."""
+    out: Counter = Counter()
+    if not has_f32_tiles():
+        return out
+    for spec, n in specs.items():
+        if spec[-1] == "torch.float32" and spec[0] in ("conv3", "window_attention"):
+            out[(spec[0] + "_f32", *spec[1:-1])] += n
+    return out
+
+
 def f32_bound_ms(byts, flops) -> float:
     """A float32 call's bound: its bytes at the HBM rate or three TF32
     products per float32 product at the TF32 rate, the larger."""
@@ -788,9 +842,12 @@ def f32_times(spec, fn, args, kw, byts, flops) -> dict:
         with plain_reference():
             return fn(*args, **kw)
 
-    if spec[0] == "mlp" or spec[0] == "spectral_apply" and kw.get("mlp"):
-        # the float32 tail tile sums in a fixed order, with no float atomics
-        if not torch.equal(fn(*args, **kw), fn(*args, **kw)):
+    if (spec[0] == "mlp" or spec[0] == "spectral_apply" and kw.get("mlp")
+            or spec[0] in ("conv3", "window_attention") and has_f32_tiles()):
+        # the float32 tail, conv3 and window tiles sum in a fixed order, with
+        # no float atomics
+        if not all(torch.equal(a, b) for a, b in zip(_flat(fn(*args, **kw)),
+                                                     _flat(fn(*args, **kw)))):
             raise AssertionError(f"{spec[0]} {spec[1:-1]}: two float32 calls differ")
     row = dict(f32_ms=time_ms(lambda: fn(*args, **kw), 10), f32_plain_ms=time_ms(plain, 3),
                f32_bound_ms=f32_bound_ms(byts, flops), f32_flops=flops)
@@ -2066,8 +2123,9 @@ def eval_run(dev, model, model_cfg, cfg, expected: Counter, what: str, router=No
     """One run_mode with the counters zeroed just before and read just
     after: every kernel launches EVAL_FORWARDS x its per-forward count with
     the enumerated signatures (the float32 tail tile once per apply call
-    with the tail, tail_f32_specs), no plain version on the card. Its stdout
-    is logged indented."""
+    with the tail, tail_f32_specs; the float32 conv3 and window tiles once
+    per conv3 and window call, f32_tile_specs), no plain version on the
+    card. Its stdout is logged indented."""
     import io
 
     from mp_hsir_tpu_torch.cli import test_cli
@@ -2086,7 +2144,8 @@ def eval_run(dev, model, model_cfg, cfg, expected: Counter, what: str, router=No
         log("    " + line)
     if plain:
         fail(f"eval CLI ({what}): {plain} plain-version calls on CUDA tensors")
-    want = Counter({k: v * EVAL_FORWARDS for k, v in (expected + tail_f32_specs(expected)).items()})
+    want = Counter({k: v * EVAL_FORWARDS for k, v in
+                    (expected + tail_f32_specs(expected) + f32_tile_specs(expected)).items()})
     if recorded != want:
         fail(f"eval CLI ({what}) kernel calls differ from {EVAL_FORWARDS} x the enumerated "
              f"forward: extra {dict(recorded - want)}, missing {dict(want - recorded)}")
@@ -2270,6 +2329,12 @@ def eval_cli_path(dev, card: str) -> dict:
                 f"{r['ssim']:.4f}, SAM {r['sam']:.3f} deg, {r['sec_per_cube'] * 1e3:.2f} "
                 f"ms/cube; kernels vs plain float32 max abs {r['max_abs_err']:.3e}")
             res["remote_sensing"][mode] = r
+        res["rs_float32_kernel_ms"] = float32_kernel_ms(rs_specs, dev)
+        log("  remote sensing: float32 kernels per forward, each call alone through its wrapper "
+            "x its calls: " + ", ".join(f"{k} {v:.2f} ms" for k, v in
+                                        sorted(res["rs_float32_kernel_ms"].items()))
+            + f"; sum {sum(res['rs_float32_kernel_ms'].values()):.2f} ms against "
+            f"{res['remote_sensing'][0]['sec_per_cube'] * 1e3:.2f} ms per cube")
         del rs_model
         torch.cuda.empty_cache()
     finally:
@@ -2555,6 +2620,75 @@ def log_f32_tail_plans(_build) -> dict:
                     f"{v['mlp']} ({v['simt_mlp']}), {v.get('stages', '-')} stages"
                     for c, v in plans.items()))
     return dict(ptxas=regs, plans=plans)
+
+
+def simt_window_f32_plan(c: int, heads: int, limit: int) -> int:
+    """The float32 plan (bytes, static included) of the SIMT window kernel
+    that the float32 window tile replaced (window_attention_kernel<float>:
+    the input chunk [64][kc + 1], O [64][C + 1], q|k|v [64][3 dh + 1], the
+    scores [64][65]; the labels, LN mean and rstd 768 B static) at the chunk
+    it picked (C where that fit ``limit``, else 64)."""
+    def plan(kc):
+        return 4 * 64 * ((kc + 1) + (c + 1) + (3 * (c // heads) + 1) + 65) + 768
+    return plan(c) if plan(c) <= limit else plan(64)
+
+
+# the SIMT float32 conv3 plan the tile replaced: three stages of the halo
+# [324][17] and the slab [9][16][64]
+SIMT_CONV3_F32_PLAN = 3 * 4 * (324 * 17 + 9 * 16 * 64)
+
+
+def log_f32_tile_plans(_build, cfgs) -> dict:
+    """The float32 conv3 and window tiles' registers and spills (every
+    instance) beside those of the bf16 tiles of the same kernels, and their
+    plans at every (C, heads) of the presets' window calls and conv3's one
+    plan, beside the SIMT plans they replaced; where the package has no
+    such tiles (an older checkout), the SIMT kernels' registers alone."""
+    names = [("conv3_kernel<float, vec>", "conv3_kernelIfLb1E"),
+             ("conv3_kernel<float, element>", "conv3_kernelIfLb0E"),
+             ("conv3_kernel<bf16, vec>", "conv3_kernelI13__nv_bfloat16Lb1E")]
+    names += [(f"window_f32_kernel<{d}>", f"window_f32_kernelILi{d}E") for d in (16, 32, 48, 64,
+                                                                                96, 128)]
+    names += [("window_tc_kernel<K1, 32>", "window_tc_kernelILb1ELi32E"),
+              ("window_tc_kernel<K1, 64>", "window_tc_kernelILb1ELi64E"),
+              ("window_attention_kernel<float> (SIMT)", "window_attention_kernelIfE")]
+    regs = {k: r for k, m in names if (r := ptxas_report(m))}
+    log("  float32 conv3 / window tiles (ptxas, the bf16 tiles beside them): " + ", ".join(
+        f"{k} {v.get('registers', '?')} regs, spills {v.get('spill_stores', '?')}/"
+        f"{v.get('spill_loads', '?')} B" for k, v in regs.items()))
+    if not has_f32_tiles():
+        log("  float32 conv3 / window: no tensor-core tiles in this package (SIMT)")
+        return dict(ptxas=regs)
+    import ctypes
+
+    from mp_hsir_tpu_torch.ops.kernels.window_attention import window_f32_plan
+
+    limit, plans = _build.smem_limit(), {}
+    fn = _build.lib().mp_window_cluster
+    fn.argtypes, fn.restype = [ctypes.c_int] * 5, ctypes.c_int
+    widths = sorted({s[4:6] for cfg in cfgs for s in path_specs(cfg, 64, "torch.float32")
+                     if s[0] == "window_attention"})
+    for c, heads in widths:
+        mirror = window_f32_plan(c, heads, limit - 256)
+        plans[f"C={c}/{heads}"] = dict(
+            f32=_build.plan_bytes("mp_window_attention_smem", c, heads, 0),
+            bf16=_build.plan_bytes("mp_window_attention_smem", c, heads, 1),
+            simt=simt_window_f32_plan(c, heads, limit), stages=mirror["stages"],
+            blocks=fn(c, heads, 0, 1, 0))
+        if (plans[f"C={c}/{heads}"]["f32"], plans[f"C={c}/{heads}"]["blocks"]) != (
+                mirror["bytes"] + 256, mirror["blocks"]):
+            fail(f"float32 window plan at C={c}/{heads} differs from window_f32_plan's {mirror}")
+    conv = dict(f32=_build.plan_bytes("mp_conv3_smem", 0), bf16=_build.plan_bytes("mp_conv3_smem", 1),
+                simt=SIMT_CONV3_F32_PLAN)
+    log(f"  float32 window plans (B; the bf16 tile's, then the SIMT kernel's in brackets; limit "
+        f"{limit}): " + ", ".join(
+            f"{k} {v['f32']} ({v['bf16']}, {v['simt']}), {v['stages']} stages, {v['blocks']} "
+            f"block(s) per window" for k, v in plans.items()))
+    log(f"  float32 conv3 plan {conv['f32']} B (bf16 {conv['bf16']}, SIMT {conv['simt']})")
+    for k, v in plans.items():
+        if not 0 < v["f32"] <= limit:
+            fail(f"float32 window plan at {k}: {v['f32']} B over the limit {limit}")
+    return dict(ptxas=regs, window=plans, conv3=conv)
 
 
 def k6_f32_checks(specs: Counter, dev) -> list:
@@ -2889,6 +3023,7 @@ def main() -> None:
     apply_bwd_plans = log_apply_bwd_plans(_build, preset_cfgs)
     gdfn_bwd_plans = log_gdfn_bwd_plans(_build, preset_cfgs)
     f32_tail_plans = log_f32_tail_plans(_build)
+    f32_tile_plans = log_f32_tile_plans(_build, preset_cfgs)
 
     specs = path_specs(cfg, SIZE, "torch.bfloat16")
 
@@ -2915,8 +3050,8 @@ def main() -> None:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
             with open(args.out, "w") as fh:
                 json.dump(dict(card=card, rows=rows, f32_eval=f32_eval, wide=wide, k6_f32=k6,
-                               f32_tail_plans=f32_tail_plans, eval_cli=ev), fh, indent=1,
-                          default=str)
+                               f32_tail_plans=f32_tail_plans, f32_tile_plans=f32_tile_plans,
+                               eval_cli=ev), fh, indent=1, default=str)
         log(f"== done in {time.perf_counter() - t_start:.1f} s")
         return
 
@@ -3069,6 +3204,21 @@ def main() -> None:
         library_ms=None, kernel_alone_ms=split["kernel_alone_ms"],
         k6_train_f32=f32_train.get("mlp"), k6_rs_train_f32=f32_rs_train.get("mlp"),
         eval_cli=dict(launches=n, launches_per_forward=n // (len(EVAL_MODES) * EVAL_FORWARDS))))
+    # the float32 conv3 and window tiles: their own path is the float32 eval
+    # CLI (phase 14's launches); ms (wrapper and alone), plain, bound and
+    # library per flagship float32 forward from phase 2's float32 sums
+    for name, meta in F32_TILE_KERNELS.items():
+        n, f = ev["launches"].get(name, 0), f32_eval[meta["of"]]
+        if n == 0:
+            fail(f"the float32 tile {name} was not launched by the eval CLI")
+        summary.append(dict(
+            name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
+            tpu=meta["tpu"], launches=n, launches_per_forward=f["calls"],
+            max_abs_err=f["max_abs_err"], rel_err=f["rel_err"], ms=f["ms"],
+            plain_ms=f["plain_ms"], bound_ms=f["bound_ms"], bound_by="operations",
+            library_ms=f.get("library_ms"), kernel_alone_ms=f.get("kernel_alone_ms"),
+            remote_sensing_f32=f32_rs.get(meta["of"]),
+            eval_cli=dict(launches=n, launches_per_forward=n // (len(EVAL_MODES) * EVAL_FORWARDS))))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
@@ -3082,7 +3232,8 @@ def main() -> None:
                            stats_bwd_plans=stats_bwd_plans,
                            window_bwd_plans=window_bwd_plans, apply_bwd_plans=apply_bwd_plans,
                            gdfn_bwd_plans=gdfn_bwd_plans, wgrad_ptxas=wgrad_ptxas,
-                           f32_tail_plans=f32_tail_plans, f32_eval=f32_eval, f32_rs=f32_rs,
+                           f32_tail_plans=f32_tail_plans, f32_tile_plans=f32_tile_plans,
+                           f32_eval=f32_eval, f32_rs=f32_rs,
                            f32_train=f32_train, f32_rs_train=f32_rs_train, wide=wide,
                            train_cli=cli, eval_cli=ev,
                            seconds=time.perf_counter() - t_start), fh, indent=1, default=str)

@@ -7,11 +7,12 @@
 // The exceptions stage their bf16 operands as bf16 with cp.async and feed
 // mma.sync by ldmatrix: conv3 (an implicit GEMM over 16x16-pixel tiles), the
 // bf16 window forward and backward (window_attention.cu), the PGSSTB tail MLP
-// (mlp_tail.cuh; its float32 twin stages float32 and runs 3xTF32 mma.sync),
-// the bf16 spectral apply front (spectral_front.cuh), the bf16 backward
-// tiles, and the bf16 weight product (grad.cu wgrad_tc_kernel). The other
-// float32 kernels keep SIMT FMA. wgmma and TMA are later work; see PERF.md
-// for the gap to each bound.
+// (mlp_tail.cuh), the bf16 spectral apply front (spectral_front.cuh), the
+// bf16 backward tiles, and the bf16 weight product (grad.cu wgrad_tc_kernel).
+// The float32 twins of conv3, the K1 window tile and the tail MLP stage
+// float32 and run 3xTF32 mma.sync (the helpers at the end of this file). The
+// other float32 kernels keep SIMT FMA. wgmma and TMA are later work; see
+// PERF.md for the gap to each bound.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -382,6 +383,76 @@ cudaError_t launch_sum_parts(const float* part, float* out, int nb, int n_parts,
 // Global index of pixel i (0..63) of 8x8 tile (ty, tx) of image b.
 __device__ __forceinline__ size_t tile_pix(int b, int ty, int tx, int i, int H, int W) {
   return ((size_t)b * H + ty * kTile + (i >> 3)) * W + tx * kTile + (i & 7);
+}
+
+// ---------------------------------------------------------------------------
+// 3xTF32 on the tensor cores: the float32 tiles (mlp_tail.cuh's mlp_tail_f32,
+// conv3.cu's float32 instance, window_attention.cu's window_f32_kernel) load
+// float32 fragments (ldmatrix on 4-byte elements: lane l receives row l / 4,
+// element l % 4 of each 8x4 matrix, the m16n8k8 TF32 fragment layout) and
+// split each into two TF32 values.
+// ---------------------------------------------------------------------------
+
+// A finite float32's bits rounded to TF32 as cvt.rna.tf32.f32 rounds them
+// (the 13 low mantissa bits off, ties away from zero, the carry into the
+// exponent), in two integer operations (cvt.rna also sorts out NaN and
+// infinity, at a few more instructions a value).
+__device__ __forceinline__ uint32_t tf32_rna(uint32_t u) { return (u + 0x1000u) & 0xFFFFE000u; }
+
+// x (four float32 fragment registers) = big + small, both TF32; x - big is
+// exact in float32, so x - big - small is ~2^-22 |x|.
+__device__ __forceinline__ void split_tf32(const uint32_t (&x)[4], uint32_t (&big)[4],
+                                           uint32_t (&small)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    big[e] = tf32_rna(x[e]);
+    small[e] = tf32_rna(__float_as_uint(__uint_as_float(x[e]) - __uint_as_float(big[e])));
+  }
+}
+
+// one float32 value split as split_tf32 splits a fragment register
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(__float_as_uint(x));
+  small = tf32_rna(__float_as_uint(x - __uint_as_float(big)));
+}
+
+// D = A (16x8, row) * B (8x8, col) + D on the tensor cores, TF32 in, f32 sum.
+__device__ __forceinline__ void mma_16x8x8_tf32(float* d, const uint32_t (&a)[4], uint32_t b0,
+                                                uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b in 3xTF32 from the split fragments (ab, as: A's big and small;
+// b: B's big b0, b1 then small b0, b1), the small terms first. The tensor
+// cores round their float32 sums toward zero, a bias that grows with every
+// sum chained through them (~1e-5 of the output over K = 1024 on the card),
+// so the step's three products are summed from zero there and added to d in
+// float32, rounded to nearest: the truncation stays at one k8 step's scale.
+__device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4], uint32_t bb0, uint32_t bb1,
+                                           uint32_t bs0, uint32_t bs1) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_16x8x8_tf32(t, as, bb0, bb1);
+  mma_16x8x8_tf32(t, ab, bs0, bs1);
+  mma_16x8x8_tf32(t, ab, bb0, bb1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += t[e];
+}
+
+// Two n8 tiles of one k8 step: B's fragments from a float32 [n][k] tile by
+// one ldmatrix (lane address b: n row (lane % 8) + 8 (lane / 16), k offset 4
+// (lane / 8 % 2) floats), split, and the 3xTF32 products into d0 and d1.
+__device__ __forceinline__ void mma_pair_f32(float* d0, float* d1, const uint32_t (&ab)[4],
+                                             const uint32_t (&as)[4], uint32_t b) {
+  uint32_t bv[4], bb[4], bs[4];
+  ldmatrix_x4(bv, b);
+  split_tf32(bv, bb, bs);
+  mma_3xtf32(d0, ab, as, bb[0], bb[1], bs[0], bs[1]);
+  mma_3xtf32(d1, ab, as, bb[2], bb[3], bs[2], bs[3]);
 }
 
 }  // namespace mp

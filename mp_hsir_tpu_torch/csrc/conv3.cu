@@ -30,8 +30,21 @@
 // past Cout are masked at the store; the sums are rounded once, there, to
 // the output type. No atomics, no split K: the result is deterministic.
 //
-// float32 (the checks and the float32 CLI) runs the same tiles and staging
-// with a SIMT FMA inner product, as every kernel's gemm<T> does.
+// float32 (the checks and the float32 CLI) runs the same tile map on the
+// tensor cores in 3xTF32 (m16n8k8 mma.sync; each operand split into big =
+// tf32(x) and small = tf32(x - big), three products per step, each step's
+// products summed from zero there and added to float32 registers: the
+// common.cuh helpers of the float32 tail tile). Its K chunk is 8 input
+// channels, one k8 step per tap: the halo [324][12] (48-byte pixel rows,
+// eight consecutive pixels on eight distinct bank groups, 16-byte cp.async
+// where Cin % 4 == 0 and x is 16-byte aligned, else element by element) and
+// the weight slab [9 taps][64 out][8 in] (the wrapper's float32 pack; each
+// row's two 16-byte halves swapped on rows n with n / 4 odd, so that the
+// eight rows an ldmatrix reads fall on eight distinct bank groups). A stage
+// is 33,984 B in both types, so the float32 plan is the bf16 plan's 101,952 B
+// (two blocks per SM). The fragments are loaded as float32 by ldmatrix and
+// split in registers: B once per tap for the warp's four n8 tiles, A once
+// per tap and m16 tile.
 // Later work: wgmma with A from registers over the tap-shifted halo, TMA.
 #include "common.cuh"
 
@@ -44,58 +57,71 @@ constexpr int kC3T = 16;                    // output tile side, pre-shuffle pix
 constexpr int kC3HaloW = kC3T + 2;          // halo side
 constexpr int kC3HaloPix = kC3HaloW * kC3HaloW;  // 324
 constexpr int kC3N = 64;                    // output channels per block
-constexpr int kC3K = 16;                    // input channels per K chunk
-constexpr int kC3Slab = 9 * kC3K * kC3N;    // weights staged per chunk (elements)
+constexpr int kC3K = 16;                    // bf16: input channels per K chunk
 constexpr int kC3Stages = 3;
 constexpr int kC3StLd = kC3N + 8;  // epilogue tile row (floats): float2 stores conflict-free per half-warp
 
-// halo pixel stride in elements: bf16 48 bytes (16-byte aligned ldmatrix
-// rows, 8 consecutive pixels on 8 distinct bank groups); float32 17 words
+// per compute type: input channels per K chunk (float32: one k8 step), the
+// halo pixel stride in elements (bf16 48 bytes: 16-byte aligned ldmatrix
+// rows, 8 consecutive pixels on 8 distinct bank groups; float32 48 bytes
+// too) and the weight slab per chunk (elements)
 template <typename T>
-constexpr int kC3Ld = std::is_same<T, float>::value ? 17 : 24;
+constexpr int kC3Kt = std::is_same<T, float>::value ? 8 : kC3K;
+template <typename T>
+constexpr int kC3Ld = std::is_same<T, float>::value ? 12 : 24;
+template <typename T>
+constexpr int kC3SlabT = 9 * kC3Kt<T> * kC3N;
 
 template <typename T>
 __host__ __device__ constexpr size_t c3_stage_bytes() {
-  return sizeof(T) * ((size_t)kC3HaloPix * kC3Ld<T> + kC3Slab);
+  return sizeof(T) * ((size_t)kC3HaloPix * kC3Ld<T> + kC3SlabT<T>);
 }
-// three stages: bf16 101,952 B (two blocks per SM), float32 176,688 B; the
+// three stages of 33,984 B in both types: 101,952 B (two blocks per SM); the
 // epilogue's float32 tile (73,728 B) reuses them
 template <typename T>
 __host__ __device__ constexpr size_t conv3_smem() { return kC3Stages * c3_stage_bytes<T>(); }
-static_assert(kC3T * kC3T * kC3StLd * sizeof(float) <= conv3_smem<__nv_bfloat16>(),
+static_assert(kC3T * kC3T * kC3StLd * sizeof(float) <= conv3_smem<__nv_bfloat16>() &&
+                  kC3T * kC3T * kC3StLd * sizeof(float) <= conv3_smem<float>(),
               "the epilogue tile must fit the staging buffers");
 
-// Stage K chunk c0..c0+15 of tile (y0, x0) of image b into one buffer: the
-// halo [324][ld] and the weight slab [9][16][64] (wslab: this chunk's slab
-// of the block's Cout tile, contiguous in the packed layout).
+// Stage K chunk c0 .. c0 + K - 1 (K = kC3Kt<T>) of tile (y0, x0) of image b
+// into one buffer: the halo [324][ld] and the weight slab (wslab: this
+// chunk's slab of the block's Cout tile, contiguous in the packed layout;
+// bf16 [9][16][64], float32 [9][64][8]).
 template <typename T, bool kVec>
 __device__ __forceinline__ void c3_stage(T* xs, const T* __restrict__ x,
                                          const T* __restrict__ wslab, int b, int y0, int x0,
                                          int H, int W, int Cin, int c0) {
-  constexpr int ld = kC3Ld<T>, per16 = 16 / (int)sizeof(T);
+  constexpr int ld = kC3Ld<T>, per16 = 16 / (int)sizeof(T), K = kC3Kt<T>;
   T* ws = xs + kC3HaloPix * ld;
-  for (int u = threadIdx.x; u < kC3Slab / per16; u += kC3Threads) {
-    int dst = u * per16;
+  for (int u = threadIdx.x; u < kC3SlabT<T> / per16; u += kC3Threads) {
+    int dst;
     if constexpr (!std::is_same<T, float>::value) {
       // row = tap * 16 + k of 64 bf16 (eight 16-byte columns); column
       // ch lands at ch ^ (k & 7): the eight k rows an ldmatrix reads at one
       // column fall on eight distinct bank groups
       const int row = u >> 3, ch = u & 7;
       dst = row * kC3N + ((ch ^ (row & 7)) << 3);
+    } else {
+      // row = tap * 64 + n of 8 floats (two 16-byte halves); half h lands
+      // at h ^ (n / 4 % 2): the eight n rows an ldmatrix reads at one half
+      // fall on eight distinct bank groups
+      const int row = u >> 1, h = u & 1;
+      dst = row * 8 + 4 * (h ^ ((row >> 2) & 1));
     }
     cp_async16(smem_u32(ws + dst), wslab + u * per16, 16);
   }
-  if constexpr (kVec) {  // bf16, Cin % 8 == 0: 16-byte copies of 8 channels
-    for (int u = threadIdx.x; u < kC3HaloPix * (kC3K / 8); u += kC3Threads) {
-      const int p = u >> 1, g = u & 1;
-      const int r = y0 - 1 + p / kC3HaloW, c = x0 - 1 + p % kC3HaloW, k = c0 + 8 * g;
+  if constexpr (kVec) {  // Cin % per16 == 0: 16-byte copies of per16 channels
+    for (int u = threadIdx.x; u < kC3HaloPix * (K / per16); u += kC3Threads) {
+      const int p = u / (K / per16), g = u % (K / per16);
+      const int r = y0 - 1 + p / kC3HaloW, c = x0 - 1 + p % kC3HaloW, k = c0 + per16 * g;
       const bool in = r >= 0 && r < H && c >= 0 && c < W && k < Cin;
       const T* src = in ? x + (((size_t)b * H + r) * W + c) * Cin + k : x;
-      cp_async16(smem_u32(xs + p * ld + 8 * g), src, in ? 16 : 0);
+      cp_async16(smem_u32(xs + p * ld + per16 * g), src, in ? 16 : 0);
     }
-  } else {  // float32, or pixel rows not 16-byte aligned: element by element
-    for (int u = threadIdx.x; u < kC3HaloPix * kC3K; u += kC3Threads) {
-      const int p = u / kC3K, j = u - p * kC3K;
+  } else {  // pixel rows not 16-byte aligned: element by element
+    for (int u = threadIdx.x; u < kC3HaloPix * K; u += kC3Threads) {
+      const int p = u / K, j = u - p * K;
       const int r = y0 - 1 + p / kC3HaloW, c = x0 - 1 + p % kC3HaloW, k = c0 + j;
       xs[p * ld + j] = (r >= 0 && r < H && c >= 0 && c < W && k < Cin)
                            ? x[(((size_t)b * H + r) * W + c) * Cin + k]
@@ -145,27 +171,45 @@ __device__ __forceinline__ void c3_mma_chunk(const __nv_bfloat16* xs, float* acc
   }
 }
 
-// One staged chunk in float32 FMA. Lane owns pixels lane + 32 q (row
-// 2 q + lane / 16, column lane % 16), warp w channels 8 w .. 8 w + 7 (the
-// weight reads are warp-wide broadcasts). acc[q * 8 + jn].
-__device__ __forceinline__ void c3_fma_chunk(const float* xs, float* acc, int warp, int lane) {
+// One staged chunk in 3xTF32 (float32): c3_mma_chunk's warp map, one k8
+// step (the chunk's 8 channels) per tap. Per tap the warp loads and splits
+// the B fragments of its four n8 tiles (two ldmatrix on the swizzled slab),
+// then per m16 tile the A fragment of halo row mt + dy at column shift dx
+// (float32 rows of 4 by ldmatrix: lane l gets pixel l / 4, channel l % 4 and
+// + 4, the m16n8k8 TF32 layout), split, and the four n8 tiles' products.
+// acc[(mt * 4 + nt) * 4 + q] as in c3_mma_chunk.
+__device__ __forceinline__ void c3_tf32_chunk(const float* xs, float* acc, int wm, int wn,
+                                              int lane) {
   constexpr int ld = kC3Ld<float>;
   const float* ws = xs + kC3HaloPix * ld;
-  const int pr = lane >> 4, pc = lane & 15;
+  // A: lane gives pixel column lane % 16 of the m16 tile at channel offset
+  // 4 (lane / 16): matrices a0..a3 in order
+  const uint32_t a0 = smem_u32(xs + (4 * wm * kC3HaloW + (lane & 15)) * ld + 4 * (lane >> 4));
+  // B ([n][k] rows of 8): lane gives n row 32 wn + 16 p + nr at channel half
+  // lane / 8 % 2 (swizzled as c3_stage stores it; 16 p keeps n / 4 % 2): b0,
+  // b1 of n8 tile 2p, then of 2p + 1
+  const int nr = (lane & 7) + 8 * (lane >> 4);
+  const uint32_t b0 =
+      smem_u32(ws + (32 * wn + nr) * 8 + 4 * (((lane >> 3) & 1) ^ ((nr >> 2) & 1)));
   for (int tap = 0; tap < 9; ++tap) {
-    const int dy = tap / 3, dx = tap % 3;
-    const float* xa = xs + ((pr + dy) * kC3HaloW + pc + dx) * ld;
-    const float* wt = ws + tap * kC3K * kC3N + 8 * warp;
-#pragma unroll 2
-    for (int k = 0; k < kC3K; ++k) {
-      const float4 w0 = *reinterpret_cast<const float4*>(wt + k * kC3N);
-      const float4 w1 = *reinterpret_cast<const float4*>(wt + k * kC3N + 4);
-      const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+    const int dy = tap / 3, dx = tap - 3 * dy;
+    uint32_t bb[2][4], bs[2][4];
 #pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const float a = xa[2 * q * kC3HaloW * ld + k];
+    for (int p = 0; p < 2; ++p) {
+      uint32_t bv[4];
+      ldmatrix_x4(bv, b0 + 4 * ((tap * kC3N + 16 * p) * 8));
+      split_tf32(bv, bb[p], bs[p]);
+    }
 #pragma unroll
-        for (int jn = 0; jn < 8; ++jn) acc[q * 8 + jn] = fmaf(a, wv[jn], acc[q * 8 + jn]);
+    for (int mt = 0; mt < 4; ++mt) {
+      uint32_t av[4], ab[4], as[4];
+      ldmatrix_x4(av, a0 + 4 * (((mt + dy) * kC3HaloW + dx) * ld));
+      split_tf32(av, ab, as);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int p = nt >> 1, q = 2 * (nt & 1);
+        mma_3xtf32(acc + (mt * 4 + nt) * 4, ab, as, bb[p][q], bb[p][q + 1], bs[p][q],
+                   bs[p][q + 1]);
       }
     }
   }
@@ -253,7 +297,7 @@ __device__ __forceinline__ void c3_write(const float* st, O* __restrict__ out,
 }
 
 // grid (Cout tiles, row tiles x column tiles, B); w is the packed weight
-// [ceil(Cout/64)][ceil(Cin/16)][9][16][64].
+// [ceil(Cout/64)][ceil(Cin/K)][slab] (bf16 [9][16][64], float32 [9][64][8]).
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kC3Threads, 2)
 conv3_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __restrict__ res,
@@ -263,8 +307,9 @@ conv3_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __re
   const int tiles_x = (W + kC3T - 1) / kC3T;
   const int n0 = blockIdx.x * kC3N, b = blockIdx.z;
   const int y0 = blockIdx.y / tiles_x * kC3T, x0 = blockIdx.y % tiles_x * kC3T;
-  const int chunks = (Cin + kC3K - 1) / kC3K;
-  const T* wt = w + (size_t)blockIdx.x * chunks * kC3Slab;
+  constexpr int K = kC3Kt<T>, slab = kC3SlabT<T>;
+  const int chunks = (Cin + K - 1) / K;
+  const T* wt = w + (size_t)blockIdx.x * chunks * slab;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   float acc[64];
@@ -277,7 +322,7 @@ conv3_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __re
 #pragma unroll
   for (int c = 0; c < kC3Stages - 1; ++c) {
     if (c < chunks)
-      c3_stage<T, kVec>(buf(c), x, wt + (size_t)c * kC3Slab, b, y0, x0, H, W, Cin, c * kC3K);
+      c3_stage<T, kVec>(buf(c), x, wt + (size_t)c * slab, b, y0, x0, H, W, Cin, c * K);
     cp_async_commit();
   }
   for (int c = 0; c < chunks; ++c) {
@@ -285,10 +330,10 @@ conv3_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __re
     __syncthreads();
     const int cn = c + kC3Stages - 1;
     if (cn < chunks)
-      c3_stage<T, kVec>(buf(cn), x, wt + (size_t)cn * kC3Slab, b, y0, x0, H, W, Cin, cn * kC3K);
+      c3_stage<T, kVec>(buf(cn), x, wt + (size_t)cn * slab, b, y0, x0, H, W, Cin, cn * K);
     cp_async_commit();
     if constexpr (std::is_same<T, float>::value) {
-      c3_fma_chunk(buf(c), acc, warp, lane);
+      c3_tf32_chunk(buf(c), acc, warp & 3, warp >> 2, lane);
     } else {
       c3_mma_chunk(buf(c), acc, warp & 3, warp >> 2, lane);
     }
@@ -296,14 +341,7 @@ conv3_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __re
 
   __syncthreads();  // every warp is done with the last chunk's buffer
   float* st = (float*)c3_smem;
-  if constexpr (std::is_same<T, float>::value) {
-    const int pr = lane >> 4, pc = lane & 15;
-#pragma unroll
-    for (int q = 0; q < 8; ++q)
-#pragma unroll
-      for (int jn = 0; jn < 8; ++jn)
-        st[((2 * q + pr) * kC3T + pc) * kC3StLd + 8 * warp + jn] = acc[q * 8 + jn];
-  } else {
+  {
     const int wm = warp & 3, wn = warp >> 2, g = lane >> 2, t = lane & 3;
 #pragma unroll
     for (int mt = 0; mt < 4; ++mt)
@@ -337,9 +375,10 @@ cudaError_t launch_conv3(const void* x, const void* w, const float* res, void* o
 
 }  // namespace mp
 
-// x (B, H, W, Cin) in the compute type; w the packed weight
-// [ceil(Cout/64)][ceil(Cin/16)][9 taps][16 in][64 out] in the compute type,
-// zero-padded (ops/kernels/conv3.py:pack_weight); res float32 (B, H, W, Cout)
+// x (B, H, W, Cin) in the compute type; w the packed weight in the compute
+// type, zero-padded (ops/kernels/conv3.py:pack_weight): bf16
+// [ceil(Cout/64)][ceil(Cin/16)][9 taps][16 in][64 out], float32
+// [ceil(Cout/64)][ceil(Cin/8)][9 taps][64 out][8 in]; res float32 (B, H, W, Cout)
 // for mode 1, else NULL. mode: 0 plain, 1 res (float32 output), 2 down
 // (PixelUnshuffle 2), 3 up (PixelShuffle 2, Cout % 4 == 0). H, W % 8 == 0.
 extern "C" int mp_conv3(const void* x, const void* w, const void* res, void* out, int dtype,
@@ -349,8 +388,12 @@ extern "C" int mp_conv3(const void* x, const void* w, const void* res, void* out
   if (mode == mp::kRes && res == nullptr) return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   auto r = (const float*)res;
-  if (dtype == 0) return (int)mp::launch_conv3<float, false>(x, w, r, out, B, H, W, Cin, Cout, mode, st);
   // 16-byte halo copies need every pixel row 16-byte aligned
+  if (dtype == 0) {
+    if (Cin % 4 == 0 && ((uintptr_t)x & 15) == 0)
+      return (int)mp::launch_conv3<float, true>(x, w, r, out, B, H, W, Cin, Cout, mode, st);
+    return (int)mp::launch_conv3<float, false>(x, w, r, out, B, H, W, Cin, Cout, mode, st);
+  }
   if (Cin % 8 == 0 && ((uintptr_t)x & 15) == 0)
     return (int)mp::launch_conv3<__nv_bfloat16, true>(x, w, r, out, B, H, W, Cin, Cout, mode, st);
   return (int)mp::launch_conv3<__nv_bfloat16, false>(x, w, r, out, B, H, W, Cin, Cout, mode, st);
@@ -359,6 +402,6 @@ extern "C" int mp_conv3(const void* x, const void* w, const void* res, void* out
 // Shared-memory plan per block (bytes, static included) of the compute type
 // (0 float32, 1 bf16); it does not depend on the shape.
 extern "C" long long mp_conv3_smem(int dtype) {
-  if (dtype == 0) return mp::plan_bytes(mp::conv3_kernel<float, false>, mp::conv3_smem<float>());
+  if (dtype == 0) return mp::plan_bytes(mp::conv3_kernel<float, true>, mp::conv3_smem<float>());
   return mp::plan_bytes(mp::conv3_kernel<__nv_bfloat16, true>, mp::conv3_smem<__nv_bfloat16>());
 }

@@ -383,62 +383,6 @@ __host__ __device__ inline int tail_f32_stages(int C) {
   return s;
 }
 
-// A finite float32's bits rounded to TF32 as cvt.rna.tf32.f32 rounds them
-// (the 13 low mantissa bits off, ties away from zero, the carry into the
-// exponent), in two integer operations (cvt.rna also sorts out NaN and
-// infinity, at a few more instructions a value).
-__device__ __forceinline__ uint32_t tf32_rna(uint32_t u) { return (u + 0x1000u) & 0xFFFFE000u; }
-
-// x (four float32 fragment registers) = big + small, both TF32; x - big is
-// exact in float32, so x - big - small is ~2^-22 |x|.
-__device__ __forceinline__ void split_tf32(const uint32_t (&x)[4], uint32_t (&big)[4],
-                                           uint32_t (&small)[4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    big[e] = tf32_rna(x[e]);
-    small[e] = tf32_rna(__float_as_uint(__uint_as_float(x[e]) - __uint_as_float(big[e])));
-  }
-}
-
-// D = A (16x8, row) * B (8x8, col) + D on the tensor cores, TF32 in, f32 sum.
-__device__ __forceinline__ void mma_16x8x8_tf32(float* d, const uint32_t (&a)[4], uint32_t b0,
-                                                uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a b in 3xTF32 from the split fragments (ab, as: A's big and small;
-// b: B's big b0, b1 then small b0, b1), the small terms first. The tensor
-// cores round their float32 sums toward zero, a bias that grows with every
-// sum chained through them (~1e-5 of the output over K = 1024 on the card),
-// so the step's three products are summed from zero there and added to d in
-// float32, rounded to nearest: the truncation stays at one k8 step's scale.
-__device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t (&ab)[4],
-                                           const uint32_t (&as)[4], uint32_t bb0, uint32_t bb1,
-                                           uint32_t bs0, uint32_t bs1) {
-  float t[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_16x8x8_tf32(t, as, bb0, bb1);
-  mma_16x8x8_tf32(t, ab, bs0, bs1);
-  mma_16x8x8_tf32(t, ab, bb0, bb1);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) d[e] += t[e];
-}
-
-// Two n8 tiles of one k8 step: B's fragments from a [n][kTailLdF] tile by
-// one ldmatrix (lane address b: n row (lane % 8) + 8 (lane / 16), k offset 4
-// (lane / 8 % 2) floats), split, and the 3xTF32 products into d0 and d1.
-__device__ __forceinline__ void mma_pair_f32(float* d0, float* d1, const uint32_t (&ab)[4],
-                                             const uint32_t (&as)[4], uint32_t b) {
-  uint32_t bv[4], bb[4], bs[4];
-  ldmatrix_x4(bv, b);
-  split_tf32(bv, bb, bs);
-  mma_3xtf32(d0, ab, as, bb[0], bb[1], bs[0], bs[1]);
-  mma_3xtf32(d1, ab, as, bb[2], bb[3], bs[2], bs[3]);
-}
-
 // fc1 of one hidden chunk in 3xTF32, tail_fc1's map on float32 [128][kTailLdF]
 // tiles: h[nt] (nt < 2) a-units 16 wc + 8 nt + 2 (lane % 4) (+1), h[nt + 2]
 // their g. a1: the lane's ldmatrix address of LN2(y) (row lane % 16 of the

@@ -65,10 +65,11 @@
 //   block writes the output columns of its heads. Elsewhere one window per
 //   block (4096 blocks at the flagship's 512^2).
 //
-// float32 (the checks and the float32 CLI) keeps the earlier tile
-// (window_msa_tile<float>: float32 staging, SIMT FMA products, input channel
-// chunks of kc where C = 384 does not fit), held to 1e-4 of the plain
-// version.
+// float32 (the checks and the float32 CLI): K1 runs window_f32_kernel, the
+// same tile in 3xTF32 on the tensor cores (its note is above the kernel);
+// K14's float32 instance keeps the earlier SIMT tile (window_msa_tile<float>:
+// float32 staging, SIMT FMA products, input channel chunks of kc where
+// C = 384 does not fit). Both are held to 1e-4 of the plain version.
 #include <cooperative_groups.h>
 #include <math.h>
 
@@ -80,8 +81,8 @@
 
 namespace mp {
 
-// The float32 window tile. One window: q|k|v = xn Wqkv + bqkv per head, scores q k^T / sqrt(dh) + the
-// relative-position bias, masked where the region labels differ (lab in shared
+// K14's float32 window tile (SIMT). One window: q|k|v = x Wqkv + bqkv per
+// head, scores q k^T / sqrt(dh) + the relative-position bias, masked where the region labels differ (lab in shared
 // memory, or nullptr: no mask) by -100 (neg_inf false) or -inf, softmax, o =
 // p v; then y = o Wp + bp. load(xc, ld, c0, nc) stages input channels
 // [c0, c0 + nc) into xc; store(ys, ld, n0, nn) takes output columns
@@ -170,51 +171,6 @@ inline size_t window_smem(int C, int nH, int kc) {
                                   kPix * (kPix + 1));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-window_attention_kernel(const T* __restrict__ x, const float* __restrict__ lnw,
-                        const float* __restrict__ lnb, const T* __restrict__ wqkv,
-                        const float* __restrict__ bqkv, const float* __restrict__ bias,
-                        const int* __restrict__ labels, const T* __restrict__ wp,
-                        const float* __restrict__ bp, T* __restrict__ out,
-                        T* __restrict__ pooled, int H, int W, int C, int nH, int shift,
-                        float eps, int kc) {
-  extern __shared__ float sm[];
-  __shared__ int lab[kPix];
-  __shared__ float mu[kPix], rs[kPix];
-  const int wx = blockIdx.x, wy = blockIdx.y, b = blockIdx.z;
-  // the window in the rolled frame: token (r, c) reads x[(r+shift)%H, (c+shift)%W]
-  auto at = [&](int i, int k) {
-    const int sr = (wy * kTile + (i >> 3) + shift) % H;
-    const int sc = (wx * kTile + (i & 7) + shift) % W;
-    return to_f(x[(((size_t)b * H + sr) * W + sc) * C + k]);
-  };
-  auto all = [](int) { return true; };
-  ln_stats_rows(mu, rs, kPix, C, eps, at, all);
-  if (threadIdx.x < kPix) {
-    const int i = threadIdx.x;
-    lab[i] = labels ? labels[(wy * kTile + (i >> 3)) * W + wx * kTile + (i & 7)] : 0;
-  }
-  __syncthreads();
-  window_msa_tile<T>(
-      sm, C, nH, kc, wqkv, bqkv, bias, labels ? lab : nullptr, false, wp, bp,
-      [&](float* xc, int ld, int c0, int nc) {
-        load_chunk<T>(xc, ld, kPix, c0, nc, at, all, mu, rs, lnw, lnb);
-      },
-      [&](const float* ys, int ld, int n0, int nn) {
-        for (int idx = threadIdx.x; idx < kPix * nn; idx += blockDim.x) {
-          const int i = idx / nn, j = idx - i * nn;
-          out[tile_pix(b, wy, wx, i, H, W) * C + n0 + j] = from_f<T>(ys[i * ld + j]);
-        }
-        for (int j = threadIdx.x; j < nn; j += blockDim.x) {
-          float sum = 0.f;
-          for (int i = 0; i < kPix; ++i) sum += ys[i * ld + j];
-          pooled[(((size_t)b * (H / kTile) + wy) * (W / kTile) + wx) * C + n0 + j] =
-              from_f<T>(sum * (1.f / kPix));
-        }
-      });
-}
-
 // K14: window w's tokens are rows w*64 .. w*64+63 of x; its labels are row
 // w % n_pat of labels (the pattern tiled over the windows), or none.
 template <typename T>
@@ -244,28 +200,12 @@ window_msa_kernel(const T* __restrict__ x, const T* __restrict__ wqkv,
       });
 }
 
-// The channel chunk of the window kernels at (C, nH): both kernels share a
-// layout and a static footprint no larger than the first's.
+// The channel chunk of the float32 window MSA kernel (K14) at (C, nH): C
+// where its whole-window plan fits, else 64.
 inline int window_chunk(int C, int nH) {
   return pick_chunk(C, [&](int kc) {
-    return plan_bytes(window_attention_kernel<float>, window_smem(C, nH, kc));
+    return plan_bytes(window_msa_kernel<float>, window_smem(C, nH, kc));
   });
-}
-
-template <typename T>
-cudaError_t launch_window(const void* x, const float* lnw, const float* lnb, const void* wqkv,
-                          const float* bqkv, const float* bias, const int* labels,
-                          const void* wp, const float* bp, void* out, void* pooled, int B,
-                          int H, int W, int C, int nH, int shift, int kc, float eps,
-                          cudaStream_t stream) {
-  const size_t smem = window_smem(C, nH, kc);
-  cudaError_t err = set_smem(window_attention_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(W / kTile, H / kTile, B);
-  window_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
-      (const T*)x, lnw, lnb, (const T*)wqkv, bqkv, bias, labels, (const T*)wp, bp, (T*)out,
-      (T*)pooled, H, W, C, nH, shift, eps, kc);
-  return cudaGetLastError();
 }
 
 template <typename T>
@@ -824,6 +764,503 @@ cudaError_t launch_window_tc(const void* x, const float* lnw, const float* lnb, 
   err = cudaLaunchKernelEx(&cfg, kernel, (const bf16*)x, lnw, lnb, (const bf16*)wqkv, bqkv, bias,
                            labels, n_pat, (const bf16*)wp, bp, (bf16*)out, (bf16*)pooled, H, W, C,
                            nH, shift, eps, vec, G);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// float32 on the tensor cores: window_f32_kernel (K1), the twin of
+// window_tc_kernel in 3xTF32 (m16n8k8 mma.sync, each operand split into big =
+// tf32(x) and small = tf32(x - big), three products per k8 step summed from
+// zero on the tensor cores and added to float32 registers: common.cuh's
+// helpers, as the float32 tail tile runs them). The same block (four warps
+// per window, warp w owning token rows 16w .. 16w + 15 from the load to the
+// store), the same head-major packs in float32 (rows of 64-float tiles, 16
+// bytes aligned) through a cp.async ring of [DHP][68] tiles, the same data
+// flow:
+// - the window staged once as float32 [64][kx + 4] (16-byte cp.async where
+//   C % 4 == 0 and x, out are 16-byte aligned, else element by element), LN
+//   in place, float32 statistics;
+// - q stays in registers; k [64][DHP + 8] and v [64][DHP + 4] go to shared
+//   memory in float32. The accumulators of a m16n8 product hold columns 2t
+//   and 2t + 1 of the thread's rows, where an m16n8k8 A fragment wants
+//   columns t and t + 4; the k order of q k^T and of P V is free, so each
+//   k8 step takes its eight columns in the order 0, 2, 4, 6, 1, 3, 5, 7: q's
+//   and P's accumulators are A fragments as they stand, and k (a float2 at
+//   columns 2t, 2t + 1 of key row g) and v (rows 2t and 2t + 1 of the step's
+//   keys) are read in the same order. The row strides put every such read
+//   on distinct banks (k: 8 or 24 words mod 32 for the float2 reads; v: 4
+//   or 20);
+// - S = q k^T in accumulators with the scale, the float32 relative bias and
+//   K1's -100 mask, a max-subtracted float32 softmax normalised by quad
+//   shuffles, P in registers for P V, O [64][ko + 4] in shared memory for
+//   Y = O Wp + bp, which streams Wp one head width of output columns at a
+//   time; y staged in the input's buffer; the window means a fixed-order
+//   column sum (no atomics: deterministic).
+// Shared memory: the plan (window_f32_smem) holds the window and O whole at
+// every preset width but C = 384 (8 heads of 48: 252,416 B). There a
+// window's heads split over a cluster of two blocks (as window_tc_kernel's
+// do where windows are few; float32 splits only where it must): each block
+// keeps only its heads' O ([64][196]), the pair waits on the cluster, each
+// block copies both halves of O through distributed shared memory into its
+// dead input buffer, waits again, and projects its heads' output columns
+// from the whole O (203,264 B). The
+// projection's sums run in the same order whatever the split, so one and
+// two blocks per window give the same bits. A head width over 128, or a
+// width whose plan fits neither way, has no plan: the wrapper raises.
+// ---------------------------------------------------------------------------
+
+constexpr int kTcLdF = kTcK + 4;  // float32 weight-tile row stride: 272 B, 4 words mod 32
+constexpr int kTcF32Ring = 26624;  // bytes of weight tiles the float32 ring aims at
+
+// ring stages at head width dhp: about 26 KB of [DHP][68] float32 tiles, 2 to
+// 6 (3 at dhp 32, so that two blocks fit on an SM at C = 128)
+__host__ __device__ constexpr int tc_f32_stages(int dhp) {
+  return kTcF32Ring / (dhp * kTcLdF * 4) > 6   ? 6
+         : kTcF32Ring / (dhp * kTcLdF * 4) < 2 ? 2
+                                               : kTcF32Ring / (dhp * kTcLdF * 4);
+}
+
+// the float32 plan at (C, nH) with G blocks per window (dynamic bytes): the
+// input, later the assembled O (G = 2) or y (G = 1), [64][max(kx, ko) + 4];
+// O of the block's heads [64][ldo] (G = 1: ko + 4; G = 2: nH DHP / 2 + 4,
+// later y); k [64][DHP + 8]; v [64][DHP + 4]; the ring [S][DHP][kTcLdF]
+inline size_t window_f32_smem(int C, int nH, int G) {
+  const int dhp = tc_head_width(C / nH), kx = round64(C), ko = round64(nH * dhp);
+  const int ldx = (kx > ko ? kx : ko) + 4, ldo = (G == 1 ? ko : nH / G * dhp) + 4;
+  return sizeof(float) * ((size_t)kPix * ldx + (size_t)kPix * ldo + (size_t)kPix * (2 * dhp + 12) +
+                          (size_t)tc_f32_stages(dhp) * dhp * kTcLdF);
+}
+
+// acc (16 rows x DHP columns as m16n8 fragments, acc[4 nt + q]) += A x B^T
+// in 3xTF32, A the warp's 16 rows at a (row stride lda floats, 4 words mod
+// 32; 64 deep), B the staged float32 tile wt ([DHP][kTcLdF]: row n, depth k).
+template <int DHP>
+__device__ __forceinline__ void tc_rows16_k64_f32(float* acc, const float* a, int lda,
+                                                  const float* wt, int lane) {
+  // A: lane gives row lane % 16 at k offset 4 (lane / 16): matrices a0..a3.
+  // B: lane gives n row (lane % 8) + 8 (lane / 16) at k offset 4 (lane / 8 % 2):
+  // b0, b1 of n8 tile 2p, then of 2p + 1.
+  const uint32_t a0 = smem_u32(a + (lane & 15) * lda + 4 * (lane >> 4));
+  const uint32_t b0 = smem_u32(wt + ((lane & 7) + 8 * (lane >> 4)) * kTcLdF + 4 * ((lane >> 3) & 1));
+#pragma unroll
+  for (int kk = 0; kk < kTcK / 8; ++kk) {
+    uint32_t av[4], ab[4], as[4];
+    ldmatrix_x4(av, a0 + 4 * 8 * kk);
+    split_tf32(av, ab, as);
+#pragma unroll
+    for (int p = 0; p < DHP / 16; ++p)
+      mma_pair_f32(acc + 8 * p, acc + 8 * p + 4, ab, as, b0 + 4 * (16 * p * kTcLdF + 8 * kk));
+  }
+}
+
+// LayerNorm in place on a window's 64 staged float32 rows xs ([64][ldx]):
+// token row threadIdx.x / 2, its 16-byte units (vec) or elements split
+// between the thread pair, whose sums meet by one shuffle. Called by all
+// kTcThreads threads; each warp normalises its own 16 rows.
+__device__ __forceinline__ void tc_ln_rows_f32(float* xs, int ldx, int C, int vec,
+                                               const float* __restrict__ lnw,
+                                               const float* __restrict__ lnb, float eps) {
+  const int hf = threadIdx.x & 1;
+  float* row = xs + (threadIdx.x >> 1) * ldx;
+  float sum = 0.f, var = 0.f;
+  if (vec) {
+    for (int c = 4 * hf; c < C; c += 8) {
+      const float4 v = *reinterpret_cast<const float4*>(row + c);
+      sum += v.x + v.y + v.z + v.w;
+    }
+  } else {
+    for (int k = hf; k < C; k += 2) sum += row[k];
+  }
+  const float mu = (sum + __shfl_xor_sync(0xffffffffu, sum, 1)) / C;
+  if (vec) {
+    for (int c = 4 * hf; c < C; c += 8) {
+      const float4 v = *reinterpret_cast<const float4*>(row + c);
+      var += (v.x - mu) * (v.x - mu) + (v.y - mu) * (v.y - mu) + (v.z - mu) * (v.z - mu) +
+             (v.w - mu) * (v.w - mu);
+    }
+  } else {
+    for (int k = hf; k < C; k += 2) var += (row[k] - mu) * (row[k] - mu);
+  }
+  const float rs = rsqrtf((var + __shfl_xor_sync(0xffffffffu, var, 1)) / C + eps);
+  for (int k = hf; k < C; k += 2) row[k] = (row[k] - mu) * rs * lnw[k] + lnb[k];
+}
+
+// K1 in float32: x (B, H, W, C), window w = (b, wy, wx) of the rolled frame,
+// LN first, the -100 mask from the (H, W) label map (NULL: no mask), y in
+// the rolled frame and the window means. wqkv [nH][3][DHP][round64(C)], wp
+// [nH][DHP][round64(nH DHP)] (the wrapper's packs, float32). vec: C % 4 == 0
+// and x, out 16-byte aligned. G blocks per window (1 or 2, a cluster of G):
+// block rank r of window w = blockIdx.x / G runs heads r nH / G .. and writes
+// the output columns of the same heads.
+template <int DHP>
+__global__ void __launch_bounds__(kTcThreads)
+window_f32_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
+                  const float* __restrict__ lnb, const float* __restrict__ wqkv,
+                  const float* __restrict__ bqkv, const float* __restrict__ bias,
+                  const int* __restrict__ labels, const float* __restrict__ wp,
+                  const float* __restrict__ bp, float* __restrict__ out,
+                  float* __restrict__ pooled, int H, int W, int C, int nH, int shift, float eps,
+                  int vec, int G) {
+  constexpr int S = tc_f32_stages(DHP), NT = DHP / 8, ldk = DHP + 8, ldv = DHP + 4;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  __shared__ int lab[kPix];
+  const int dh = C / nH, kx = round64(C), ko = round64(nH * DHP), nhb = nH / G;
+  const int ldx = (kx > ko ? kx : ko) + 4, ldo = (G == 1 ? ko : nhb * DHP) + 4;
+  float* xs = (float*)tc_smem;   // [64][ldx] the input; then O (G = 2) or y (G = 1)
+  float* os = xs + kPix * ldx;   // [64][ldo] O of the block's heads; then y (G = 2)
+  float* ks = os + kPix * ldo;   // [64][ldk] k of one head
+  float* vs = ks + kPix * ldk;   // [64][ldv] v of one head
+  float* ring = vs + kPix * ldv;  // [S][DHP][kTcLdF] weight tiles
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int r0 = 16 * warp + g, r1 = r0 + 8;  // the thread's accumulator rows
+
+  const int w = blockIdx.x / G, rank = blockIdx.x - w * G, h0 = rank * nhb;
+  const int nwx = W / kTile, nwy = H / kTile;
+  const int wx = w % nwx, wy = w / nwx % nwy, b = w / (nwx * nwy);
+  // token i's input row (x[(r + shift) % H, (c + shift) % W] of the rolled
+  // frame's window) and output row
+  auto src_row = [&](int i) -> const float* {
+    const int sr = (wy * kTile + (i >> 3) + shift) % H, sc = (wx * kTile + (i & 7) + shift) % W;
+    return x + (((size_t)b * H + sr) * W + sc) * C;
+  };
+  auto dst_row = [&](int i) -> float* { return out + tile_pix(b, wy, wx, i, H, W) * C; };
+
+  // the input, zero from C to kx
+  if (vec) {
+    const int units = kx / 4;
+    for (int u = threadIdx.x; u < kPix * units; u += kTcThreads) {
+      const int i = u / units, c = (u - i * units) * 4;
+      const bool in = c < C;
+      cp_async16(smem_u32(xs + i * ldx + c), in ? src_row(i) + c : x, in ? 16 : 0);
+    }
+  } else {
+    for (int u = threadIdx.x; u < kPix * kx; u += kTcThreads) {
+      const int i = u / kx, c = u - i * kx;
+      xs[i * ldx + c] = c < C ? src_row(i)[c] : 0.f;
+    }
+  }
+  cp_async_commit();
+  const int opad = ko - nH * DHP;  // O's columns past the heads: depth padding, zeros
+  if (G == 1) {
+    for (int u = threadIdx.x; u < kPix * opad; u += kTcThreads) {
+      const int i = u / opad;
+      os[i * ldo + nH * DHP + u - i * opad] = 0.f;
+    }
+  }
+  const bool masked = labels != nullptr;
+  if (masked && threadIdx.x < kPix) {
+    const int i = threadIdx.x;
+    lab[i] = labels[(wy * kTile + (i >> 3)) * W + wx * kTile + (i & 7)];
+  }
+
+  // The weight stream of the block's heads, window_tc_kernel's order: tile
+  // t < nqkv is K chunk t % nkx of section 3 h0 + t / nkx of wqkv; then K
+  // chunk u % nko of output chunk h0 + u / nko of wp (u = t - nqkv). next()
+  // waits for tile t, passes one block-wide barrier, issues tile t + S - 1
+  // into the buffer tile t - 1 left and returns tile t.
+  const int nkx = kx / kTcK, nko = ko / kTcK, nqkv = 3 * nhb * nkx, T = nqkv + nhb * nko;
+  auto issue = [&](int t) {
+    if (t < T) {
+      const float* src;
+      int ld;
+      if (t < nqkv) {
+        const int sec = t / nkx;
+        src = wqkv + (size_t)(3 * h0 + sec) * DHP * kx + (t - sec * nkx) * kTcK;
+        ld = kx;
+      } else {
+        const int u = t - nqkv, j = u / nko;
+        src = wp + (size_t)(h0 + j) * DHP * ko + (u - j * nko) * kTcK;
+        ld = ko;
+      }
+      float* dst = ring + (t % S) * DHP * kTcLdF;
+      for (int u = threadIdx.x; u < DHP * (kTcK / 4); u += kTcThreads) {
+        const int r = u >> 4, c = (u & 15) * 4;
+        cp_async16(smem_u32(dst + r * kTcLdF + c), src + (size_t)r * ld + c, 16);
+      }
+    }
+    cp_async_commit();
+  };
+  for (int t = 0; t < S - 1; ++t) issue(t);
+  cp_async_wait<S - 1>();  // the input has landed
+  __syncthreads();
+  tc_ln_rows_f32(xs, ldx, C, vec, lnw, lnb, eps);
+  int t = 0;
+  auto next = [&]() {
+    cp_async_wait<S - 2>();
+    __syncthreads();
+    issue(t + S - 1);
+    return ring + (t++ % S) * DHP * kTcLdF;
+  };
+
+  const float scale = rsqrtf((float)dh);
+  const float* xa = xs + 16 * warp * ldx;
+  for (int h = h0; h < h0 + nhb; ++h) {
+    float q[NT * 4];  // q + bq of the warp's rows, as m16n8 accumulators
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+      float acc[NT * 4];
+#pragma unroll
+      for (int e = 0; e < NT * 4; ++e) acc[e] = 0.f;
+      for (int kc = 0; kc < nkx; ++kc)
+        tc_rows16_k64_f32<DHP>(acc, xa + kc * kTcK, ldx, next(), lane);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int col = 8 * nt + 2 * t4;
+        const float* bq = bqkv + s * C + h * dh + col;
+        const float b0 = col < dh ? bq[0] : 0.f, b1 = col + 1 < dh ? bq[1] : 0.f;
+        const float2 lo = make_float2(acc[4 * nt] + b0, acc[4 * nt + 1] + b1);
+        const float2 hi = make_float2(acc[4 * nt + 2] + b0, acc[4 * nt + 3] + b1);
+        if (s == 0) {
+          q[4 * nt] = lo.x;
+          q[4 * nt + 1] = lo.y;
+          q[4 * nt + 2] = hi.x;
+          q[4 * nt + 3] = hi.y;
+        } else {
+          float* d = s == 1 ? ks : vs;
+          const int ld = s == 1 ? ldk : ldv;
+          *reinterpret_cast<float2*>(d + r0 * ld + col) = lo;
+          *reinterpret_cast<float2*>(d + r1 * ld + col) = hi;
+        }
+      }
+    }
+    __syncthreads();  // k and v of head h are complete
+
+    // S = q k^T: 16 rows x 64 keys, sc[4 p + e] for keys 8 p ..; k8 step kk
+    // takes columns 8 kk + (0, 2, 4, 6, 1, 3, 5, 7): q's accumulators (rows
+    // g, g + 8; columns 2t, 2t + 1) are its A fragment, k's row g its float2
+    float sc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sc[e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NT; ++kk) {
+      const uint32_t av[4] = {__float_as_uint(q[4 * kk]), __float_as_uint(q[4 * kk + 2]),
+                              __float_as_uint(q[4 * kk + 1]), __float_as_uint(q[4 * kk + 3])};
+      uint32_t ab[4], as[4];
+      split_tf32(av, ab, as);
+#pragma unroll
+      for (int p = 0; p < 8; ++p) {
+        const float2 kv = *reinterpret_cast<const float2*>(ks + (8 * p + g) * ldk + 8 * kk + 2 * t4);
+        uint32_t bb0, bs0, bb1, bs1;
+        split_tf32(kv.x, bb0, bs0);
+        split_tf32(kv.y, bb1, bs1);
+        mma_3xtf32(sc + 4 * p, ab, as, bb0, bb1, bs0, bs1);
+      }
+    }
+    // scale, relative bias, mask; max-subtracted softmax over the quad's rows
+    const float* bh = bias + (size_t)h * kPix * kPix;
+    float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int col = 8 * nt + 2 * t4;
+      const float2 c0 = *reinterpret_cast<const float2*>(bh + r0 * kPix + col);
+      const float2 c1 = *reinterpret_cast<const float2*>(bh + r1 * kPix + col);
+      float* v = sc + 4 * nt;
+      v[0] = v[0] * scale + c0.x;
+      v[1] = v[1] * scale + c0.y;
+      v[2] = v[2] * scale + c1.x;
+      v[3] = v[3] * scale + c1.y;
+      if (masked) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (lab[e < 2 ? r0 : r1] != lab[col + (e & 1)]) v[e] -= 100.f;
+      }
+      m0 = fmaxf(m0, fmaxf(v[0], v[1]));
+      m1 = fmaxf(m1, fmaxf(v[2], v[3]));
+    }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
+    }
+    float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      float* v = sc + 4 * nt;
+      v[0] = expf(v[0] - m0);
+      v[1] = expf(v[1] - m0);
+      v[2] = expf(v[2] - m1);
+      v[3] = expf(v[3] - m1);
+      l0 += v[0] + v[1];
+      l1 += v[2] + v[3];
+    }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, o);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, o);
+    }
+    const float i0 = 1.f / l0, i1 = 1.f / l1;
+
+    // O = P V: k8 step kk takes keys 8 kk + (0, 2, 4, 6, 1, 3, 5, 7), so P's
+    // accumulators of keys 8 kk .. are its A fragment and v is read at rows
+    // 8 kk + 2t (b0) and + 1 (b1), column 8 nt + g
+    float oa[NT * 4];
+#pragma unroll
+    for (int e = 0; e < NT * 4; ++e) oa[e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const float* s0 = sc + 4 * kk;
+      const uint32_t av[4] = {__float_as_uint(s0[0] * i0), __float_as_uint(s0[2] * i1),
+                              __float_as_uint(s0[1] * i0), __float_as_uint(s0[3] * i1)};
+      uint32_t ab[4], as[4];
+      split_tf32(av, ab, as);
+      const float* v0 = vs + (8 * kk + 2 * t4) * ldv + g;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        uint32_t bb0, bs0, bb1, bs1;
+        split_tf32(v0[8 * nt], bb0, bs0);
+        split_tf32(v0[ldv + 8 * nt], bb1, bs1);
+        mma_3xtf32(oa + 4 * nt, ab, as, bb0, bb1, bs0, bs1);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int col = (h - h0) * DHP + 8 * nt + 2 * t4;
+      *reinterpret_cast<float2*>(os + r0 * ldo + col) = make_float2(oa[4 * nt], oa[4 * nt + 1]);
+      *reinterpret_cast<float2*>(os + r1 * ldo + col) =
+          make_float2(oa[4 * nt + 2], oa[4 * nt + 3]);
+    }
+  }
+
+  // the projection's operand (all heads' O) and where y is staged: G = 1 O
+  // in os, y over the warp's own rows of the input; G = 2 O assembled in the
+  // input's buffer, y over the block's O (output column c at c - c0)
+  const int c0 = h0 * dh, cb = nhb * dh;
+  const float* oall = os;
+  int lda = ldo, ldy = ldx, yc0 = 0;
+  float* ys = xs;
+  if (G > 1) {
+    namespace cg = cooperative_groups;
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();  // every block's O is complete
+    const int units = nhb * DHP / 4;
+    for (int q = 0; q < G; ++q) {
+      const int peer = (rank + q) % G;
+      const float* src = q == 0 ? os : cluster.map_shared_rank(os, peer);
+      for (int u = threadIdx.x; u < kPix * units; u += kTcThreads) {
+        const int i = u / units, c = (u - i * units) * 4;
+        *reinterpret_cast<float4*>(xs + i * ldx + peer * nhb * DHP + c) =
+            *reinterpret_cast<const float4*>(src + i * ldo + c);
+      }
+    }
+    for (int u = threadIdx.x; u < kPix * opad; u += kTcThreads) {
+      const int i = u / opad;
+      xs[i * ldx + nH * DHP + u - i * opad] = 0.f;
+    }
+    cluster.sync();  // O is whole in every block; no block reads a peer's os again
+    oall = xs;
+    lda = ldx;
+    ys = os;
+    ldy = ldo;
+    yc0 = c0;
+  }
+
+  // y = O Wp + bp, one head width of output columns at a time (each warp its
+  // own rows)
+  const float* oaddr = oall + 16 * warp * lda;
+  for (int j = h0; j < h0 + nhb; ++j) {
+    float acc[NT * 4];
+#pragma unroll
+    for (int e = 0; e < NT * 4; ++e) acc[e] = 0.f;
+    for (int kc = 0; kc < nko; ++kc)
+      tc_rows16_k64_f32<DHP>(acc, oaddr + kc * kTcK, lda, next(), lane);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * nt + 2 * t4 + (e & 1);
+        if (col < dh)
+          ys[(e < 2 ? r0 : r1) * ldy + j * dh + col - yc0] = acc[4 * nt + e] + bp[j * dh + col];
+      }
+  }
+  __syncthreads();
+  // the block's output columns c0 .. c0 + cb - 1, then their window means,
+  // each column summed over the 64 rows in order
+  const float* yb = ys + c0 - yc0;
+  if (vec && c0 % 4 == 0 && cb % 4 == 0) {
+    const int units = cb / 4;
+    for (int u = threadIdx.x; u < kPix * units; u += kTcThreads) {
+      const int i = u / units, c = (u - i * units) * 4;
+      *reinterpret_cast<float4*>(dst_row(i) + c0 + c) =
+          *reinterpret_cast<const float4*>(yb + i * ldy + c);
+    }
+  } else {
+    for (int u = threadIdx.x; u < kPix * cb; u += kTcThreads) {
+      const int i = u / cb, c = u - i * cb;
+      dst_row(i)[c0 + c] = yb[i * ldy + c];
+    }
+  }
+  for (int c = threadIdx.x; c < cb; c += kTcThreads) {
+    float sum = 0.f;
+    for (int i = 0; i < kPix; ++i) sum += yb[i * ldy + c];
+    pooled[(size_t)w * C + c0 + c] = sum * (1.f / kPix);
+  }
+}
+
+using F32Kernel = void (*)(const float*, const float*, const float*, const float*, const float*,
+                           const float*, const int*, const float*, const float*, float*, float*,
+                           int, int, int, int, int, float, int, int);
+
+// the float32 instance of head width dhp (nullptr: none)
+inline F32Kernel f32_kernel_for(int dhp) {
+  switch (dhp) {
+    case 16: return window_f32_kernel<16>;
+    case 32: return window_f32_kernel<32>;
+    case 48: return window_f32_kernel<48>;
+    case 64: return window_f32_kernel<64>;
+    case 96: return window_f32_kernel<96>;
+    case 128: return window_f32_kernel<128>;
+    default: return nullptr;
+  }
+}
+
+// Blocks per window of the float32 tile at (C, nH): 1 where the one-block
+// plan fits the device; else 2 where nH is even and the split plan fits; 0:
+// no plan.
+inline int window_f32_blocks(int C, int nH) {
+  const F32Kernel kernel = f32_kernel_for(tc_head_width(C / nH));
+  if (kernel == nullptr) return 0;
+  if (plan_bytes(kernel, window_f32_smem(C, nH, 1)) <= smem_optin()) return 1;
+  return nH % 2 == 0 && plan_bytes(kernel, window_f32_smem(C, nH, 2)) <= smem_optin() ? 2 : 0;
+}
+
+// The float32 plan at (C, nH), static included: the one-block plan where it
+// fits the device (or where nH is odd), else the split plan; -1: no
+// instance (head width over 128).
+inline long long window_f32_plan(int C, int nH) {
+  const F32Kernel kernel = f32_kernel_for(tc_head_width(C / nH));
+  if (kernel == nullptr) return -1;
+  const long long one = plan_bytes(kernel, window_f32_smem(C, nH, 1));
+  return one <= smem_optin() || nH % 2 != 0 ? one : plan_bytes(kernel, window_f32_smem(C, nH, 2));
+}
+
+cudaError_t launch_window_f32(const float* x, const float* lnw, const float* lnb,
+                              const float* wqkv, const float* bqkv, const float* bias,
+                              const int* labels, const float* wp, const float* bp, float* out,
+                              float* pooled, int B, int H, int W, int C, int nH, int shift,
+                              float eps, cudaStream_t stream) {
+  const F32Kernel kernel = f32_kernel_for(tc_head_width(C / nH));
+  const int nwin = B * (H / kTile) * (W / kTile);
+  const int G = window_f32_blocks(C, nH);
+  if (kernel == nullptr || G == 0) return cudaErrorInvalidValue;
+  const size_t smem = window_f32_smem(C, nH, G);
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int vec = C % 4 == 0 && aligned(x, 16) && aligned(out, 16);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nwin * G);
+  cfg.blockDim = dim3(kTcThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = G;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, x, lnw, lnb, wqkv, bqkv, bias, labels, wp, bp, out,
+                           pooled, H, W, C, nH, shift, eps, vec, G);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -1509,26 +1946,24 @@ cudaError_t launch_window_dx_tc(const __nv_bfloat16* dqkv, const __nv_bfloat16* 
 }
 }  // namespace mp
 
-// dtype: 0 = float32, 1 = bfloat16. float32 weights are [in][out]; bf16
-// weights are the packs of ops/kernels/window_attention.py (wqkv
+// K1. dtype: 0 = float32 (window_f32_kernel), 1 = bfloat16
+// (window_tc_kernel); x (B, H, W, C) and the outputs in that type. The
+// weights are the packs of ops/kernels/window_attention.py in that type (wqkv
 // [nH][3][DHP][round64(C)], wp [nH][DHP][round64(nH DHP)]); LN, biases and
 // the (nH, 64, 64) relative-position bias are float32; labels is the (H, W)
-// int32 shift-region map or NULL; kc the channel chunk (mp_window_chunk: C
-// in bf16).
+// int32 shift-region map or NULL.
 extern "C" int mp_window_attention(const void* x, const void* lnw, const void* lnb,
                                    const void* wqkv, const void* bqkv, const void* bias,
                                    const void* labels, const void* wp, const void* bp,
                                    void* out, void* pooled, int dtype, int B, int H, int W,
-                                   int C, int nH, int shift, int kc, float eps, void* stream) {
-  if (C % nH != 0 || H % mp::kTile != 0 || W % mp::kTile != 0 || kc <= 0 || kc > C ||
-      (dtype != 0 && kc != C))
-    return (int)cudaErrorInvalidValue;
+                                   int C, int nH, int shift, float eps, void* stream) {
+  if (C % nH != 0 || H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   auto f = [](const void* p) { return (const float*)p; };
   if (dtype == 0)
-    return (int)mp::launch_window<float>(x, f(lnw), f(lnb), wqkv, f(bqkv), f(bias),
-                                         (const int*)labels, wp, f(bp), out, pooled, B, H, W, C,
-                                         nH, shift, kc, eps, st);
+    return (int)mp::launch_window_f32(f(x), f(lnw), f(lnb), f(wqkv), f(bqkv), f(bias),
+                                      (const int*)labels, f(wp), f(bp), (float*)out,
+                                      (float*)pooled, B, H, W, C, nH, shift, eps, st);
   const int nwin = B * (H / mp::kTile) * (W / mp::kTile);
   return (int)mp::launch_window_tc<true>(x, f(lnw), f(lnb), wqkv, f(bqkv), f(bias),
                                          (const int*)labels, 0, wp, f(bp), out, pooled, nwin, H,
@@ -1555,18 +1990,18 @@ extern "C" int mp_window_msa(const void* x, const void* wqkv, const void* bqkv, 
                                           0, 0, C, nH, 0, 0.f, st);
 }
 
-// The channel chunk both window kernels launch with at (C, nH) in dtype: C
-// in bf16 (the input is staged whole), float32's as pick_chunk finds it.
+// The channel chunk the window MSA kernel (K14) launches with at (C, nH) in
+// dtype: C in bf16 (the input is staged whole), float32's as pick_chunk
+// finds it. K1 has none: both its tiles stage the whole window.
 extern "C" int mp_window_chunk(int C, int nH, int dtype) {
   return dtype == 0 ? mp::window_chunk(C, nH) : C;
 }
 
-// Shared-memory plans per block (bytes, static included) at a shape, dtype
-// and channel chunk kc (bf16: kc = C; -1 where there is no bf16 plan, head
-// width over 128).
-extern "C" long long mp_window_attention_smem(int C, int nH, int dtype, int kc) {
-  if (dtype != 0) return kc == C ? mp::window_tc_plan<true>(C, nH) : -1;
-  return mp::plan_bytes(mp::window_attention_kernel<float>, mp::window_smem(C, nH, kc));
+// Shared-memory plans per block (bytes, static included): K1's at a shape
+// and dtype (-1 where there is no plan: head width over 128); K14's at a
+// shape, dtype and channel chunk kc (bf16: kc = C).
+extern "C" long long mp_window_attention_smem(int C, int nH, int dtype) {
+  return dtype != 0 ? mp::window_tc_plan<true>(C, nH) : mp::window_f32_plan(C, nH);
 }
 
 extern "C" long long mp_window_msa_smem(int C, int nH, int dtype, int kc) {
@@ -1574,10 +2009,12 @@ extern "C" long long mp_window_msa_smem(int C, int nH, int dtype, int kc) {
   return mp::plan_bytes(mp::window_msa_kernel<float>, mp::window_smem(C, nH, kc));
 }
 
-// Blocks per window the bf16 kernels launch with for nwin windows at (C, nH)
-// (k14 != 0: mp_window_msa); 1 for float32.
+// Blocks per window the kernels launch with for nwin windows at (C, nH)
+// (k14 != 0: mp_window_msa, whose float32 instance runs one block per
+// window; the float32 K1 tile's does not depend on nwin); 0 where there is
+// no plan.
 extern "C" int mp_window_cluster(int C, int nH, int dtype, int nwin, int k14) {
-  if (dtype == 0) return 1;
+  if (dtype == 0) return k14 ? 1 : mp::window_f32_blocks(C, nH);
   return k14 ? mp::window_tc_cluster<false>(C, nH, nwin) : mp::window_tc_cluster<true>(C, nH, nwin);
 }
 

@@ -4,9 +4,11 @@ four writebacks: ``plain``, ``res`` (+ float32 residual, float32 output),
 
 Kernel: ``csrc/conv3.cu`` (replaces ``_conv3_kernel``,
 ``_conv3_down_kernel`` and ``_conv3_up_kernel``,
-``mp_hsir_tpu/ops/pallas_attention.py:1084``, ``:1218``, ``:1243``).
-Plain version: :func:`conv3_plain`. Weight layout: OIHW (Cout, Cin, 3, 3) at
-the wrapper; the kernel stages it per block and K chunk from the layout
+``mp_hsir_tpu/ops/pallas_attention.py:1084``, ``:1218``, ``:1243``): an
+implicit GEMM on the tensor cores, bf16 on m16n8k16 ``mma.sync``, float32 in
+3xTF32 on m16n8k8 (its launches count in :data:`F32_TILE` too). Plain
+version: :func:`conv3_plain`. Weight layout: OIHW (Cout, Cin, 3, 3) at the
+wrapper; the kernel stages it per block and K chunk from the layout
 :func:`pack_weight` makes.
 
 Backward (``_conv3_core``'s VJP, ``mp_hsir_tpu/ops/pallas_vjp.py:1296``):
@@ -29,9 +31,26 @@ from mp_hsir_tpu_torch.ops.kernels._route import ROUTE, counter, dtype_code, str
 
 MODES = {"plain": 0, "res": 1, "down": 2, "up": 3}
 COUNTER = counter("conv3")
-# the kernel's input-channel chunk and output-channel tile: kC3K and kC3N of
-# csrc/conv3.cu, which stages the layout pack_weight makes
-CHUNK_K, TILE_N = 16, 64
+# the float32 instance (the 3xTF32 tile): ("conv3_f32", B, H, W, Cin, Cout, mode)
+F32_TILE = counter("conv3_f32")
+# the kernel's input-channel chunk (bf16; float32's is CHUNK_K_F32) and
+# output-channel tile: kC3Kt and kC3N of csrc/conv3.cu, which stages the
+# layouts pack_weight makes
+CHUNK_K, CHUNK_K_F32, TILE_N = 16, 8, 64
+
+
+def chunk_k(dt: torch.dtype) -> int:
+    """The kernel's input-channel chunk in compute type ``dt``."""
+    return CHUNK_K_F32 if dt == torch.float32 else CHUNK_K
+
+
+def conv3_plan(dt: torch.dtype) -> int:
+    """The kernel's shared memory per block in ``dt`` (``conv3_smem`` in
+    csrc/conv3.cu), whatever the shape: three stages of the 18x18-pixel halo
+    (pixel rows of 24 bf16 or 12 float32: 48 bytes) and one K chunk's weight
+    slab (9 taps x the chunk x 64 output channels)."""
+    size, ld = (4, 12) if dt == torch.float32 else (2, 24)
+    return 3 * size * (18 * 18 * ld + 9 * chunk_k(dt) * TILE_N)
 
 
 def conv3_plain(x: torch.Tensor, w: torch.Tensor, mode: str = "plain",
@@ -55,15 +74,19 @@ def _entry():
 
 
 def pack_weight(w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
-    """OIHW (Cout, Cin, 3, 3) -> the kernel's staged layout
-    [ceil(Cout/64)][ceil(Cin/16)][9 taps][16 in][64 out] in ``dt``: the slab
-    of one block's Cout tile and one K chunk is contiguous; channels past Cin
-    and Cout are zeros. Tap t = 3 ky + kx."""
+    """OIHW (Cout, Cin, 3, 3) -> the kernel's staged layout in ``dt``: bf16
+    [ceil(Cout/64)][ceil(Cin/16)][9 taps][16 in][64 out], float32
+    [ceil(Cout/64)][ceil(Cin/8)][9 taps][64 out][8 in] (the B operand's rows
+    of the m16n8k8 TF32 fragments): the slab of one block's Cout tile and one
+    K chunk is contiguous; channels past Cin and Cout are zeros. Tap t =
+    3 ky + kx."""
     cout, cin = w.shape[:2]
-    pad = (0, 0, 0, 0, 0, -cin % CHUNK_K, 0, -cout % TILE_N)
+    ck = chunk_k(dt)
+    pad = (0, 0, 0, 0, 0, -cin % ck, 0, -cout % TILE_N)
     wp = F.pad(w, pad) if any(pad) else w
-    nt, nc = wp.shape[0] // TILE_N, wp.shape[1] // CHUNK_K
-    view = wp.reshape(nt, TILE_N, nc, CHUNK_K, 9).permute(0, 2, 4, 3, 1)
+    nt, nc = wp.shape[0] // TILE_N, wp.shape[1] // ck
+    view = wp.reshape(nt, TILE_N, nc, ck, 9)
+    view = view.permute(0, 2, 4, 1, 3) if dt == torch.float32 else view.permute(0, 2, 4, 3, 1)
     # one copy: the cast and the permutation together
     return torch.empty(view.shape, dtype=dt, device=w.device).copy_(view)
 
@@ -92,6 +115,8 @@ def _launch(x, w, mode, res):
                    wd, cin, cout, MODES[mode], stream_ptr())
     _build.check("mp_conv3", err)
     COUNTER.record(("conv3", b, h, wd, cin, cout, mode, str(dt)))
+    if dt == torch.float32:
+        F32_TILE.record(("conv3_f32", b, h, wd, cin, cout, mode))
     return out
 
 

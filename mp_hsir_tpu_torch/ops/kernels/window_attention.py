@@ -14,11 +14,17 @@ both plans); in float32 ``mp_window_attention_bwd`` (SIMT) and grad.cu's
 :func:`window_attention_plain` and :func:`window_attention_bwd_plain`, the
 same arithmetic in PyTorch.
 
-Weight layouts at the launch: float32 takes [in][out] copies; the bf16
-forward streams the head-major packs of :func:`pack_qkv_weight` and
-:func:`pack_proj_weight`, the bf16 backward those of :func:`pack_qkv_weight`
-and :func:`pack_proj_t_weight` and the torch qkv weight (rows padded to 16
-bytes), all made on every call.
+The forward runs one tile design in both types: bf16 on m16n8k16
+``mma.sync`` (``window_tc_kernel``), float32 in 3xTF32 on m16n8k8
+(``window_f32_kernel``, its launches counted in :data:`F32_TILE` too; its
+plan is :func:`window_f32_plan`). A head width over 128, or a width whose
+plan does not fit the device, raises.
+
+Weight layouts at the launch: the forward streams the head-major packs of
+:func:`pack_qkv_weight` and :func:`pack_proj_weight` in its type; the bf16
+backward those of :func:`pack_qkv_weight` and :func:`pack_proj_t_weight`
+and the torch qkv weight (rows padded to 16 bytes); the float32 backward
+takes [in][out] copies; all made on every call.
 """
 
 from __future__ import annotations
@@ -49,10 +55,15 @@ WS = 8
 # kTcK of csrc/window_attention.cu, which stream the layouts the packs make
 HEAD_WIDTHS = (16, 32, 48, 64, 96, 128)
 K_CHUNK = 64
-# the ring's row stride (kTcLd) and its bytes target (tc_stages)
+# the ring's row stride (kTcLd) and its bytes target (tc_stages); the
+# float32 tile's (kTcLdF, kTcF32Ring: tc_f32_stages)
 TC_LD = K_CHUNK + 8
 RING_BYTES = 40960
+TC_LD_F32 = K_CHUNK + 4
+RING_BYTES_F32 = 26624
 COUNTER = counter("window_attention")
+# the float32 forward (the 3xTF32 tile): ("window_attention_f32", B, H, W, C, heads, shift)
+F32_TILE = counter("window_attention_f32")
 BWD = counter("window_attention_bwd")
 
 
@@ -150,7 +161,7 @@ def _entry(kind: str = "fwd"):
     if kind == "dx_tc":
         return _build.entry("mp_window_attention_dx_tc", 6, [ctypes.c_int] * 6 + [ctypes.c_float])
     return _build.entry("mp_window_attention", 11,
-                        [ctypes.c_int] * 8 + [ctypes.c_float])
+                        [ctypes.c_int] * 7 + [ctypes.c_float])
 
 
 def head_width(dh: int) -> int:
@@ -227,6 +238,37 @@ def window_bwd_tc_plan(c: int, heads: int) -> dict:
                 dx=dwconv_dx_plan(c, 3 * c, stencil=False))
 
 
+def tc_f32_stages(dhp: int) -> int:
+    """The float32 tile's weight ring stages at padded head width ``dhp``
+    (``tc_f32_stages`` in csrc/window_attention.cu): about 26 KB of
+    [DHP][68] float32 tiles, 2 to 6."""
+    return max(2, min(6, RING_BYTES_F32 // (dhp * TC_LD_F32 * 4)))
+
+
+def window_f32_plan(c: int, heads: int, limit: int = 232448) -> dict:
+    """The float32 tile's plan at (C, heads) (``window_f32_smem`` in
+    csrc/window_attention.cu), dynamic bytes: the window [64][``ldx``], O of
+    the block's heads [64][``ldo``], k [64][DHP + 8], v [64][DHP + 4] and
+    ``stages`` [DHP][68] ring tiles. ``one``: one block per window (O
+    whole); ``two``: the heads split over a two-block cluster (O half, then
+    assembled in the window's buffer). ``blocks``: the split the plan needs
+    within ``limit`` bytes (the device's opt-in limit less the static
+    bytes): 1, 2, or 0 where neither fits; ``bytes``: its plan."""
+    dhp = head_width(c // heads)
+    kx, ko = _round_k(c), _round_k(heads * dhp)
+    stages = tc_f32_stages(dhp)
+    ldx = max(kx, ko) + 4
+
+    def plan(g):
+        ldo = (ko if g == 1 else heads // g * dhp) + 4
+        return 4 * (64 * ldx + 64 * ldo + 64 * (2 * dhp + 12) + stages * dhp * TC_LD_F32)
+
+    one, two = plan(1), plan(2) if heads % 2 == 0 else None
+    blocks = 1 if one <= limit else 2 if two is not None and two <= limit else 0
+    return dict(dhp=dhp, kx=kx, ko=ko, ldx=ldx, stages=stages, one=one, two=two, blocks=blocks,
+                bytes=one if blocks != 2 else two)
+
+
 def _prepare(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, eps):
     """Everything a launch needs: (the C entry's arguments, (out, pooled),
     the tensors the arguments point into, to be held until the launch)."""
@@ -235,21 +277,17 @@ def _prepare(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, eps)
         raise ValueError(f"window attention needs H, W % 8 == 0 and C % heads == 0, got {x.shape}")
     dt = x.dtype
     code = dtype_code(x)
-    kc = _build.chunk("mp_window_chunk", c, num_heads, code)
     _build.check_plan("window_attention", "mp_window_attention_smem", f"C={c}, heads={num_heads}",
-                      c, num_heads, code, kc)
+                      c, num_heads, code)
     x = x.contiguous()
-    if code:
-        wq, wpk = pack_qkv_weight(wqkv, num_heads, dt), pack_proj_weight(wp, num_heads, dt)
-    else:
-        wq, wpk = kernel_weight(wqkv, dt), kernel_weight(wp, dt)
+    wq, wpk = pack_qkv_weight(wqkv, num_heads, dt), pack_proj_weight(wp, num_heads, dt)
     lnw, lnb, bq, bpf, bias = f32(ln_w), f32(ln_b), f32(bqkv), f32(bp), f32(rel_bias)
     labels = region_labels(h, w, shift, x.device) if shift else None
     out = torch.empty_like(x)
     pooled = torch.empty((b, h // WS, w // WS, c), dtype=dt, device=x.device)
     args = (x.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), wq.data_ptr(), bq.data_ptr(),
             bias.data_ptr(), _build.ptr(labels), wpk.data_ptr(), bpf.data_ptr(), out.data_ptr(),
-            pooled.data_ptr(), code, b, h, w, c, num_heads, shift, kc, eps, stream_ptr())
+            pooled.data_ptr(), code, b, h, w, c, num_heads, shift, eps, stream_ptr())
     return args, (out, pooled), (x, wq, wpk, lnw, lnb, bq, bpf, bias, labels)
 
 
@@ -258,6 +296,8 @@ def _launch(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, eps):
     _build.check("mp_window_attention", _entry()(*args))
     b, h, w, c = x.shape
     COUNTER.record(("window_attention", b, h, w, c, num_heads, shift, str(x.dtype)))
+    if x.dtype == torch.float32:
+        F32_TILE.record(("window_attention_f32", b, h, w, c, num_heads, shift))
     return out
 
 

@@ -473,16 +473,19 @@ def test_cuda_remote_sensing_widths_match_plain(dtype, tol):
         except AssertionError as e:
             faults.append(f"{name}: {e}")
     assert not faults, "\n".join(faults)
-    # the window kernel: bf16 stages the whole window (its chunk is C),
-    # float32 streams 64-channel chunks; every plan within the limit
+    # the window kernel stages the whole window in both types (no chunk; the
+    # float32 tile splits its 8 heads over a two-block cluster at C = 384);
+    # the window MSA kernel's float32 instance (K14, SIMT) streams 64-channel
+    # chunks; every plan within the limit
     code = int(dtype == "bfloat16")
+    assert 0 < _build.plan_bytes("mp_window_attention_smem", 384, 8, code) <= _build.smem_limit()
     # the bf16 apply tile has one resident plan (its chunk is C)
     for kernel, shape, want in (("window", (384, 8, code), 384 if code else 64),
                                 ("spectral_stats", (192, 2), 64),
                                 ("spectral_apply", (384, 1, code), 384 if code else 64),
                                 ("gdfn", (384,), 64)):
         kc = _build.chunk(f"mp_{kernel}_chunk", *shape)
-        entry = "mp_window_attention_smem" if kernel == "window" else f"mp_{kernel}_smem"
+        entry = "mp_window_msa_smem" if kernel == "window" else f"mp_{kernel}_smem"
         assert kc == want, kernel
         assert 0 < _build.plan_bytes(entry, *shape, kc) <= _build.smem_limit(), entry
 
@@ -515,6 +518,101 @@ def test_cuda_window_attention_widths_match_plain(c, heads, shift, b, h):
         _route.reset_counters()
         _check_fwd(window_attention, [x.to(dt), *w, heads], dict(shift=shift), tol)
         assert _route.COUNTERS["window_attention"].launches == 1
+
+
+# The float32 window tile (window_f32_kernel, 3xTF32) at every (C, heads) of
+# the presets' window calls and C = 36 / 27 (dh 18 and 9; C = 27 staged by
+# element), shifted and not, on 3 windows (8x24, C = 384: a two-block cluster
+# per window) and 12 (2x16x24)
+WINDOW_F32_CASES = [(c, heads, shift, b, h)
+                    for c, heads in ((64, 2), (128, 4), (256, 8), (128, 2), (96, 2), (192, 4),
+                                     (384, 8), (192, 2), (36, 2), (27, 3))
+                    for shift in (0, 4) for b, h in ((1, 8), (2, 16))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads,shift,b,h", WINDOW_F32_CASES)
+def test_cuda_window_f32_tile_matches_plain(c, heads, shift, b, h):
+    """The float32 window tile on the card against window_attention_plain
+    within 1e-4 of each output's max-abs (y and the window means), its
+    launch counted in window_attention_f32 too; two calls bitwise equal (a
+    fixed order of sums, no atomics); its plan and blocks per window equal
+    to the mirror's, within the device's limit (two blocks, a cluster, only
+    at C = 384, where one block's plan does not fit)."""
+    import ctypes
+
+    from mp_hsir_tpu_torch.ops.kernels import _build
+    from mp_hsir_tpu_torch.ops.kernels.window_attention import window_f32_plan
+
+    dev = _cuda()
+    d = _window_inputs(150 + c, c, heads, h, 24)
+    x = _t(np.concatenate([d["x"], -d["x"][:, ::-1]], axis=0)[:b]).to(dev)
+    w = [_t(d["ln_w"]).to(dev), _t(d["ln_b"]).to(dev), _t(d["wqkv"]).t().to(dev),
+         _t(d["bqkv"]).to(dev), _t(d["rel_bias"]).to(dev), _t(d["wp"]).t().to(dev),
+         _t(d["bp"]).to(dev)]
+    _route.reset_counters()
+    _check_fwd(window_attention, [x, *w, heads], dict(shift=shift), 1e-4)
+    assert _route.COUNTERS["window_attention_f32"].launches == 1
+    assert _route.ROUTE.plain_cuda_calls == 1
+    got = window_attention(x, *w, heads, shift=shift)
+    again = window_attention(x, *w, heads, shift=shift)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    limit, static = _build.smem_limit(), 256  # static: the window's 64 labels
+    pl = window_f32_plan(c, heads, limit - static)
+    assert _build.plan_bytes("mp_window_attention_smem", c, heads, 0) == pl["bytes"] + static
+    assert pl["bytes"] + static <= limit
+    fn = _build.lib().mp_window_cluster
+    fn.argtypes, fn.restype = [ctypes.c_int] * 5, ctypes.c_int
+    blocks = fn(c, heads, 0, b * (h // 8) * 3, 0)
+    assert blocks == pl["blocks"] == (2 if c == 384 else 1)
+
+
+@pytest.mark.cuda
+def test_cuda_window_f32_without_a_plan_raises():
+    """A float32 width with no plan (C 256 with 2 heads of 128: neither the
+    one-block nor the split plan fits) raises before any launch, as a head
+    width past 128 does."""
+    dev = _cuda()
+    for c, heads in ((256, 2), (258, 2)):
+        d = _window_inputs(7, c, heads, 8, 16)
+        args = [_t(d[k]).to(dev) for k in ("x", "ln_w", "ln_b")]
+        args += [_t(d["wqkv"]).t().to(dev), _t(d["bqkv"]).to(dev), _t(d["rel_bias"]).to(dev),
+                 _t(d["wp"]).t().to(dev), _t(d["bp"]).to(dev)]
+        _route.reset_counters()
+        with pytest.raises(ValueError):
+            window_attention(*args, heads)
+        assert _route.COUNTERS["window_attention_f32"].launches == 0
+
+
+# The float32 conv3 tile (c3_tf32_chunk, 3xTF32) at every conv3 call of the
+# presets' forwards, on a 16x24 map (Cin 31: the halo staged by element;
+# Cin 100: a ragged last chunk; Cout 31 and 100: a ragged last tile)
+CONV3_F32_CASES = [(31, 64, "plain"), (64, 32, "down"), (128, 64, "down"), (256, 512, "up"),
+                   (128, 256, "up"), (128, 128, "plain"), (64, 64, "plain"), (128, 31, "res"),
+                   (100, 96, "plain"), (96, 48, "down"), (192, 96, "down"), (384, 768, "up"),
+                   (192, 384, "up"), (192, 192, "plain"), (96, 96, "plain"), (192, 100, "res")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,mode", CONV3_F32_CASES)
+def test_cuda_conv3_f32_tile_matches_plain(cin, cout, mode):
+    """The float32 conv3 tile on the card against conv3_plain (TF32 off)
+    within 1e-4 of the output's max-abs, its launch counted in conv3_f32
+    too; two calls bitwise equal; its plan the mirror's, 101,952 B."""
+    from mp_hsir_tpu_torch.ops.kernels import _build
+    from mp_hsir_tpu_torch.ops.kernels.conv3 import conv3_plan
+
+    dev = _cuda()
+    rng = _rng(260 + cin + cout)
+    x = _t(_n(rng, (1, 16, 24, cin))).to(dev)
+    wt = _t(_u(rng, (cout, cin, 3, 3), 9 * cin)).to(dev)
+    res = _t(_n(rng, (1, 16, 24, cout))).to(dev) if mode == "res" else None
+    _route.reset_counters()
+    _check_fwd(conv3, [x, wt, mode, res], {}, 1e-4)
+    assert _route.COUNTERS["conv3_f32"].launches == 1
+    assert torch.equal(conv3(x, wt, mode, res), conv3(x, wt, mode, res))
+    assert _build.plan_bytes("mp_conv3_smem", 0) == conv3_plan(torch.float32) == 101952
+    assert _build.plan_bytes("mp_conv3_smem", 1) == conv3_plan(torch.bfloat16) == 101952
 
 
 @pytest.mark.cuda

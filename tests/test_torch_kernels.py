@@ -18,7 +18,9 @@ import torch
 
 from mp_hsir_tpu.ops import pallas_attention as PA
 from mp_hsir_tpu_torch.ops.kernels import _route
-from mp_hsir_tpu_torch.ops.kernels.conv3 import CHUNK_K, TILE_N, conv3, conv3_plain, pack_weight
+from mp_hsir_tpu_torch.ops.kernels.conv3 import (
+    CHUNK_K, CHUNK_K_F32, TILE_N, chunk_k, conv3, conv3_plain, pack_weight,
+)
 from mp_hsir_tpu_torch.ops.basic import gelu_exact, layer_norm
 from mp_hsir_tpu_torch.ops.kernels.gdfn import gdfn_plain
 from mp_hsir_tpu_torch.ops.kernels.mlp import TAIL_K, mlp_plain, pack_mlp_weights
@@ -147,21 +149,28 @@ def test_conv3_matches_pallas(mode, cin, cout):
 @pytest.mark.parametrize("cin,cout", [(5, 7), (31, 64), (100, 48), (64, 512), (768, 100)])
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_conv3_pack_weight_layout(cin, cout, dt):
-    """The weight layout the conv3 kernel stages: [Cout/64][Cin/16][9][16][64],
-    the unpadded block equal to the OIHW weight (tap 3 ky + kx), the padding
-    zeros."""
+    """The weight layout the conv3 kernel stages: bf16
+    [Cout/64][Cin/16][9][16 in][64 out], float32 [Cout/64][Cin/8][9][64 out][8
+    in] (the 3xTF32 tile's B rows), the unpadded block equal to the OIHW
+    weight (tap 3 ky + kx), the padding zeros."""
     w = _t(_n(_rng(9), (cout, cin, 3, 3)))
     wk = pack_weight(w, dt)
-    nt, nc = -(-cout // TILE_N), -(-cin // CHUNK_K)
-    assert wk.shape == (nt, nc, 9, CHUNK_K, TILE_N) and wk.dtype == dt and wk.is_contiguous()
-    # [nt][nc][tap][k][n] -> (Cout padded, Cin padded, 3, 3)
-    full = wk.permute(0, 4, 1, 3, 2).reshape(nt * TILE_N, nc * CHUNK_K, 3, 3)
+    ck = chunk_k(dt)
+    assert ck == (CHUNK_K_F32 if dt == torch.float32 else CHUNK_K)
+    nt, nc = -(-cout // TILE_N), -(-cin // ck)
+    f32 = dt == torch.float32
+    slab = (TILE_N, ck) if f32 else (ck, TILE_N)
+    assert wk.shape == (nt, nc, 9, *slab) and wk.dtype == dt and wk.is_contiguous()
+    # [nt][nc][tap][n][k] (float32) or [nt][nc][tap][k][n] -> (Cout padded, Cin padded, 3, 3)
+    full = wk.permute(0, 3, 1, 4, 2) if f32 else wk.permute(0, 4, 1, 3, 2)
+    full = full.reshape(nt * TILE_N, nc * ck, 3, 3)
     assert torch.equal(full[:cout, :cin], w.to(dt))
     pad = torch.ones_like(full, dtype=torch.bool)
     pad[:cout, :cin] = False
     assert not full[pad].any()
     n, k, ky, kx = cout - 1, cin - 1, 2, 1
-    assert wk[n // TILE_N, k // CHUNK_K, 3 * ky + kx, k % CHUNK_K, n % TILE_N] == w[n, k, ky, kx].to(dt)
+    idx = (n % TILE_N, k % ck) if f32 else (k % ck, n % TILE_N)
+    assert wk[(n // TILE_N, k // ck, 3 * ky + kx) + idx] == w[n, k, ky, kx].to(dt)
 
 
 # (C, heads): dh 8 padded to 16 and C to one 64-deep chunk; dh 48 with C 96

@@ -22,6 +22,7 @@ from mp_hsir_tpu_torch.ops.kernels.mlp import (
     tail_f32_plan,
 )
 from mp_hsir_tpu_torch.ops.kernels.spectral import spectral_apply_plain
+from tf32_emulation import mma as _mma, split as _split, tf32 as _tf32
 from torch_port_inputs import rng as _rng
 import torch_threads  # noqa: E402,F401  (one compute thread per process)
 
@@ -38,45 +39,6 @@ TOL = 1e-5  # of the plain output's max-abs: float32 both sides, sums in other o
 # slab column of each unit of a chunk: a-unit 16 q + i at 32 q + i, its g 16 further
 A_COLS = np.array([32 * q + i for q in range(4) for i in range(16)])
 G_COLS = A_COLS + 16
-
-
-def _tf32(a):
-    """cvt.rna.tf32.f32: the 13 low mantissa bits rounded off, ties away
-    from zero (the carry runs into the exponent as the hardware's does)."""
-    u = np.ascontiguousarray(a, np.float32).view(np.uint32)
-    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
-
-
-def _split(a):
-    big = _tf32(a)
-    return big, _tf32(a - big)
-
-
-def _trunc(x):
-    """float64 -> float32 rounded toward zero: how the tensor cores round
-    the float32 sum of a mma.sync (its products exact)."""
-    f = x.astype(np.float32)
-    over = np.abs(f.astype(np.float64)) > np.abs(x)
-    f[over] = np.nextafter(f[over], np.float32(0))
-    return f
-
-
-def _mma(acc, a, b, three=True, chained=False):
-    """acc (.., M, N) float32 += a (.., M, K) x b (K, N) as the tile's
-    mma_3xtf32 takes it, k8 step by k8 step: the three TF32 products (small
-    big, big small, big big) summed from zero on the tensor cores (rounded
-    toward zero), then added to acc in float32. three=False: one TF32
-    product (a planted fault); chained: the products summed into acc on the
-    tensor cores across all of K (what the per-step flush avoids)."""
-    ab, as_ = _split(a)
-    bb, bs = _split(b)
-    terms = [(as_, bb), (ab, bs), (ab, bb)] if three else [(ab, bb)]
-    for k in range(0, a.shape[-1], 8):
-        t = acc if chained else np.zeros_like(acc)
-        for x, y in terms:
-            t = _trunc(t + x[..., k:k + 8].astype(np.float64) @ y[k:k + 8].astype(np.float64))
-        acc = t if chained else acc + t
-    return acc
 
 
 def _stream(w1p, w2p, pl, n0, nk2):
