@@ -33,7 +33,10 @@ Phases (any failure exits non-zero; no phase's error is caught):
    bf16 tiles', the float32 window plan at every (C, heads) of the presets'
    window calls (with its ring stages and blocks per window) beside the bf16
    tile's and the SIMT kernel's it replaced, and conv3's float32 plan beside
-   its bf16 and SIMT ones.
+   its bf16 and SIMT ones; the float32 stats tile's registers and spills
+   beside the bf16 tile's, and its plan at every (C, heads) of the presets'
+   stats calls and at 36/2, 27/3 and 400/8 beside the SIMT kernel's it
+   replaced, each checked against its mirror (stats_f32_plan).
 2. Kernel checks: every kernel wrapper on the card at each shape the
    flagship 512x512x31 eval forward gives it, in bf16 from numpy-seeded
    inputs, against its plain PyTorch version on the same inputs; also once
@@ -52,20 +55,24 @@ Phases (any failure exits non-zero; no phase's error is caught):
    alone, with the front's own bound and TFLOP/s): the sums split the apply
    time into the front and the tail; the calls without the tail
    (PromptFusion, the training route's drop-path call) are fronts alone.
-   The float32 spectral stats and GDFN kernels keep their input resident
-   where that fits; each spectral_stats call at C > 64 is checked and timed
-   once more on its float32 instance, resident and with its input streamed
-   in 64-channel chunks (the remote-sensing latent's plan), summed per
-   forward. The window kernel and the spectral stats, apply and GDFN tiles
-   stage their whole input in bf16 and have no chunk to stream. Each call's
+   The float32 GDFN kernel keeps its input resident where that fits (an
+   older checkout's float32 stats kernel too: there each spectral_stats
+   call at C > 64 is checked and timed once more on its float32 instance,
+   resident and with its input streamed in 64-channel chunks, summed per
+   forward). The window kernel and the spectral stats, apply and GDFN tiles
+   stage their whole input in bf16 and have no chunk to stream; the float32
+   stats tile streams its input in 32-channel chunks at every width. Each call's
    float32 instance is timed too (wrapper, alone, plain, F.conv2d with TF32
    off for conv3) beside its float32 bound max(bytes / 3.35 TB/s, 3 flops /
    495 TFLOP/s: 3xTF32), each float32 apply call with the tail once more
    without it; per forward the float32 sums per kernel and the apply's front
    / tail split (the tail: the float32 tail tile, 3xTF32) beside their
-   bounds; each float32 call of the tail, conv3 and window tiles is first run
-   twice: bitwise equal. Then a float32 spectral apply with the tail and a float32 mlp call
-   at C = 400 (the tail tile in two output groups) against plain (1e-4).
+   bounds; each float32 call of the tail, conv3, window and stats tiles is
+   first run twice: bitwise equal. Then a float32 spectral apply with the
+   tail and a float32 mlp call at C = 400 (the tail tile in two output
+   groups), and float32 stats calls at 400/8, 36/2, 27/3 and the
+   PromptFusion entry at 18 + 18 (each one stats tile launch, no plain
+   call), against plain (1e-4).
 3. Main path: the flagship preset on the committed trained weights, bf16 at
    1x31x512x512, answering 4 requests (mode-0 cubes) after a warm-up. The
    launch counters are zeroed just before the requests and read just after;
@@ -177,8 +184,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
     every mode 0-12 on the trained flagship weights, one loaded model: each
     run launches every kernel (1 warm-up + 2 cubes) x the float32 forward's
     enumerated signatures (and the float32 tail tile once per apply call with
-    the tail, the float32 conv3 and window tiles once per conv3 and window
-    call, each counted apart), no plain version on the card; per mode the first
+    the tail, the float32 conv3, window and stats tiles once per conv3,
+    window and stats call, each counted apart), no plain version on the card; per mode the first
     cube through the kernel and the plain float32 forward under the mode's
     task id (max abs <= 1e-4: prompts 0-5); mode 0 restores >= 3 dB above
     the degraded input, the other modes print PSNR, SSIM, SAM and the
@@ -197,10 +204,10 @@ Phases (any failure exits non-zero; no phase's error is caught):
     remote-sensing train-step numbers and the train and eval CLIs' launches
     beside them; the float32 tail tile's row: phase 14's launches, phase 2's
     tail ms per flagship float32 forward beside its bound and plain, the
-    largest float32 error of its calls; the float32 conv3 and window tiles'
-    rows: phase 14's launches, phase 2's float32 ms per flagship forward,
-    alone, plain, bound and library, phase 7's remote-sensing float32 sums),
-    then the result line.
+    largest float32 error of its calls; the float32 conv3, window and stats
+    tiles' rows: phase 14's launches (one per call of their kernel), phase
+    2's float32 ms per flagship forward, alone, plain, bound and library,
+    phase 7's remote-sensing float32 sums), then the result line.
 
 --bwd-split KERNEL (mlp_bwd, spectral_stats_bwd, window_attention_bwd,
 spectral_apply_bwd or gdfn_bwd; repeatable) runs phase 1's build and only
@@ -214,9 +221,9 @@ phases 1, 2, K6's float32 calls of phases 5 and 11 (checked and timed) and
 14: the float32 path's kernels and the eval CLI, also for an
 older checkout (this file copied to its root: where its package has no
 float32 tail tile, the tile's launches are not expected and its C = 400 mlp
-call is left out; where it has no float32 conv3 and window tiles, their
-launches are not expected and only their SIMT kernels' registers are
-logged).
+call is left out; where it has no float32 conv3 and window tiles, or no
+float32 stats tile, their launches are not expected and only their SIMT
+kernels' registers are logged).
 """
 
 from __future__ import annotations
@@ -290,15 +297,19 @@ STAGED = ("spectral_stats", "spectral_apply", "gdfn")
 TAIL_F32_KERNEL = {"mlp_tail_f32": dict(source="mp_hsir_tpu_torch/csrc/mlp_tail.cuh",
                                         tpu=["K2", "K6"],
                                         replaces="mp_hsir_tpu/ops/pallas_attention.py:965")}
-# the float32 conv3 and window tiles (3xTF32): K4's and K1's float32
-# instances, the eval CLI's route; their launches count in their own
-# counters beside conv3's and window_attention's
+# the float32 conv3, window and spectral stats tiles (3xTF32): K4's, K1's and
+# K2 phase 0's float32 instances, the eval CLI's route; their launches count
+# in their own counters beside conv3's, window_attention's and
+# spectral_stats's
 F32_TILE_KERNELS = {
     "conv3_f32": dict(source="mp_hsir_tpu_torch/csrc/conv3.cu", tpu=["K4"], of="conv3",
                       replaces="mp_hsir_tpu/ops/pallas_attention.py:1182"),
     "window_attention_f32": dict(source="mp_hsir_tpu_torch/csrc/window_attention.cu",
                                  tpu=["K1", "K3"], of="window_attention",
                                  replaces="mp_hsir_tpu/ops/pallas_attention.py:794"),
+    "spectral_stats_f32": dict(source="mp_hsir_tpu_torch/csrc/spectral_stats_f32.cuh",
+                               tpu=["K2", "K3", "K7a"], of="spectral_stats",
+                               replaces="mp_hsir_tpu/ops/pallas_attention.py:1842"),
 }
 # a width past fc2's 384-channel register slice (two output groups), float32
 WIDE_C = 400
@@ -553,6 +564,9 @@ def plan_of(spec) -> dict:
     if name == "spectral_stats" and _code(spec):  # the bf16 tile: one resident plan
         n = _build.plan_bytes("mp_spectral_stats_tc_smem", *shape)
         return dict(smem=n, smem_whole=n, kc=c, c=c)
+    if name == "spectral_stats" and has_stats_f32_tile():  # the float32 tile: one plan
+        n = _build.plan_bytes("mp_spectral_stats_smem", *shape)
+        return dict(smem=n, smem_whole=n, kc=c, c=c)
     if name == "gdfn" and _code(spec):  # the bf16 tile: one resident plan
         n = _build.plan_bytes("mp_gdfn_tc_smem", c)
         return dict(smem=n, smem_whole=n, kc=c, c=c)
@@ -618,6 +632,8 @@ def streamed_ms(spec, fn, args, kw):
     chunk). None for the calls that stream already or have no chunk."""
     if spec[0] not in STAGED or spec[0] in ("spectral_apply", "gdfn") and _code(spec):
         return None  # (the bf16 apply and GDFN tiles have one resident plan)
+    if spec[0] == "spectral_stats" and has_stats_f32_tile():
+        return None  # (both stats tiles have one plan)
     f32spec = spec[:-1] + ("torch.float32",)
     plan = plan_of(f32spec)  # the chunked layout
     if plan["kc"] < plan["c"] or plan["c"] <= 64:
@@ -808,16 +824,27 @@ def has_f32_tiles() -> bool:
     return hasattr(conv3, "F32_TILE") and hasattr(window_attention, "F32_TILE")
 
 
+def has_stats_f32_tile() -> bool:
+    """Whether this checkout's package has the float32 spectral stats tile
+    (an older checkout measured with this file has not: its float32 stats
+    kernel is SIMT, with a channel chunk)."""
+    from mp_hsir_tpu_torch.ops.kernels import spectral
+
+    return hasattr(spectral, "F32_TILE")
+
+
 def f32_tile_specs(specs: Counter) -> Counter:
-    """The float32 conv3 and window tiles' launches of a multiset of calls:
-    one per float32 conv3 call, as ("conv3_f32", B, H, W, Cin, Cout, mode),
-    and per float32 window_attention call, as ("window_attention_f32", B, H,
-    W, C, heads, shift); none where the package has no such tiles."""
+    """The float32 conv3, window and stats tiles' launches of a multiset of
+    calls: one per float32 conv3 call, as ("conv3_f32", B, H, W, Cin, Cout,
+    mode), per float32 window_attention call, as ("window_attention_f32", B,
+    H, W, C, heads, shift), and per float32 spectral_stats call, as
+    ("spectral_stats_f32", B, H, W, C1, C2, heads, shift, ln); none for the
+    tiles the package does not have."""
     out: Counter = Counter()
-    if not has_f32_tiles():
-        return out
+    kinds = (("conv3", "window_attention") if has_f32_tiles() else ()) + (
+        ("spectral_stats",) if has_stats_f32_tile() else ())
     for spec, n in specs.items():
-        if spec[-1] == "torch.float32" and spec[0] in ("conv3", "window_attention"):
+        if spec[-1] == "torch.float32" and spec[0] in kinds:
             out[(spec[0] + "_f32", *spec[1:-1])] += n
     return out
 
@@ -831,7 +858,7 @@ def f32_bound_ms(byts, flops) -> float:
 def f32_times(spec, fn, args, kw, byts, flops) -> dict:
     """A float32 call timed: through its wrapper, alone (the kernels of
     ALONE), as its plain version, beside its float32 bound (a call that runs
-    the float32 tail tile is first run twice: bitwise equal); a conv3 call
+    a float32 tile is first run twice: bitwise equal); a conv3 call
     beside F.conv2d (TF32 off). A spectral_apply call with the tail is timed
     once more without it (wrapper, alone, plain; the front's bound): the
     difference is the tail's time, beside the tail's bound (its weights read
@@ -843,9 +870,10 @@ def f32_times(spec, fn, args, kw, byts, flops) -> dict:
             return fn(*args, **kw)
 
     if (spec[0] == "mlp" or spec[0] == "spectral_apply" and kw.get("mlp")
-            or spec[0] in ("conv3", "window_attention") and has_f32_tiles()):
-        # the float32 tail, conv3 and window tiles sum in a fixed order, with
-        # no float atomics
+            or spec[0] in ("conv3", "window_attention") and has_f32_tiles()
+            or spec[0] == "spectral_stats" and has_stats_f32_tile()):
+        # the float32 tail, conv3, window and stats tiles sum in a fixed
+        # order, with no float atomics
         if not all(torch.equal(a, b) for a, b in zip(_flat(fn(*args, **kw)),
                                                      _flat(fn(*args, **kw)))):
             raise AssertionError(f"{spec[0]} {spec[1:-1]}: two float32 calls differ")
@@ -2541,20 +2569,29 @@ def log_front_plans(_build) -> dict:
     return plans
 
 
-def log_stats_plans(_build, cfgs) -> dict:
-    """The bf16 spectral stats tile's shared-memory plan (bytes, static
-    included) at every (C, heads) of the presets' stats calls, beside the
-    float32 kernel's at its own chunk."""
+def stats_shapes(cfgs) -> list:
+    """Every (C, heads) of the presets' stats calls (eval and train)."""
     shapes = set()
     for cfg in cfgs:
         for specs in (path_specs(cfg, SIZE, "bf16"), train_path_specs(cfg, 1, 64, "bf16")):
             shapes |= {(s[4] + s[5], s[6]) for s in specs if s[0] == "spectral_stats"}
+    return sorted(shapes)
+
+
+def log_stats_plans(_build, cfgs) -> dict:
+    """The bf16 spectral stats tile's shared-memory plan (bytes, static
+    included) at every (C, heads) of the presets' stats calls, beside the
+    float32 kernel's (the float32 tile's one plan, or an older checkout's
+    SIMT kernel at its own chunk)."""
     plans = {}
-    for c, nh in sorted(shapes):
-        kc = _build.chunk("mp_spectral_stats_chunk", c, nh)
+    for c, nh in stats_shapes(cfgs):
+        if has_stats_f32_tile():
+            kc, f32 = c, _build.plan_bytes("mp_spectral_stats_smem", c, nh)
+        else:
+            kc = _build.chunk("mp_spectral_stats_chunk", c, nh)
+            f32 = _build.plan_bytes("mp_spectral_stats_smem", c, nh, kc)
         plans[f"C={c}/{nh}"] = dict(bf16=_build.plan_bytes("mp_spectral_stats_tc_smem", c, nh),
-                                    f32=_build.plan_bytes("mp_spectral_stats_smem", c, nh, kc),
-                                    f32_kc=kc)
+                                    f32=f32, f32_kc=kc)
     log("  bf16 spectral stats plans (B; float32's at its chunk in brackets): " + ", ".join(
         f"{k} {v['bf16']} ({v['f32']} kc {v['f32_kc']})" for k, v in plans.items()))
     return plans
@@ -2691,6 +2728,61 @@ def log_f32_tile_plans(_build, cfgs) -> dict:
     return dict(ptxas=regs, window=plans, conv3=conv)
 
 
+def simt_stats_f32_plan(c: int, heads: int, limit: int) -> int:
+    """The float32 plan (bytes, static included) of the SIMT stats kernel
+    that the float32 stats tile replaced (spectral_stats_kernel<float>: the
+    halo chunk [100][kc + 1], one head's 1x1 output [100][2 dh + 1] and q|k
+    tile [64][2 dh + 1], the Gram partial [C dh] and the norms [2C]; the LN
+    mean and rstd 800 B static) at the chunk it picked (C where that fit
+    ``limit``, else 64)."""
+    dh = c // heads
+
+    def plan(kc):
+        return 4 * (100 * (kc + 1) + 164 * (2 * dh + 1) + c * dh + 2 * c) + 800
+    return plan(c) if c <= 64 or plan(c) <= limit else plan(64)
+
+
+# the float32 stats tile's widths beside the presets': dh 18 and 9 (rows not
+# 16-byte multiples: the halo by 4-byte copies) and 8 heads of 50 at C =
+# WIDE_C (past the bf16 tile's C = 384)
+STATS_ODD = ((36, 2), (27, 3), (WIDE_C, 8))
+
+
+def log_stats_f32_plans(_build, cfgs) -> dict:
+    """The float32 stats tile's registers and spills beside the bf16 tile's
+    (and an older checkout's SIMT kernel's), and its plans at every (C,
+    heads) of the presets' stats calls and STATS_ODD (bytes, static
+    included, with its column groups and ring stages) beside the SIMT plan
+    it replaced, each the mirror's (stats_f32_plan) and within the limit."""
+    names = (("spectral_stats_f32_kernel", "spectral_stats_f32_kernel"),
+             ("spectral_stats_tc_kernel (bf16)", "spectral_stats_tc_kernel"),
+             ("spectral_stats_kernel<float> (SIMT)", "spectral_stats_kernelIfE"))
+    regs = {k: r for k, m in names if (r := ptxas_report(m))}
+    log("  float32 stats tile (ptxas, the bf16 tile beside it): " + ", ".join(
+        f"{k} {v.get('registers', '?')} regs, spills {v.get('spill_stores', '?')}/"
+        f"{v.get('spill_loads', '?')} B" for k, v in regs.items()))
+    if not has_stats_f32_tile():
+        log("  float32 spectral stats: no tensor-core tile in this package (SIMT)")
+        return dict(ptxas=regs)
+    from mp_hsir_tpu_torch.ops.kernels.spectral import stats_f32_plan
+
+    limit, plans = _build.smem_limit(), {}
+    for c, heads in stats_shapes(cfgs) + list(STATS_ODD):
+        mirror = stats_f32_plan(c, heads)
+        n = _build.plan_bytes("mp_spectral_stats_smem", c, heads)
+        plans[f"C={c}/{heads}"] = dict(f32=n, simt=simt_stats_f32_plan(c, heads, limit),
+                                       groups=mirror["groups"], heads_a_group=mirror["hg"],
+                                       stages=mirror["ws"])
+        if n != mirror["bytes"]:
+            fail(f"float32 stats plan at C={c}/{heads}: {n} B, stats_f32_plan's {mirror}")
+        if not 0 < n <= limit:
+            fail(f"float32 stats plan at C={c}/{heads}: {n} B over the limit {limit}")
+    log(f"  float32 stats plans (B; the SIMT kernel's in brackets; limit {limit}): " + ", ".join(
+        f"{k} {v['f32']} ({v['simt']}), {v['groups']} group(s) of {v['heads_a_group']} head(s), "
+        f"{v['stages']} stages" for k, v in plans.items()))
+    return dict(ptxas=regs, plans=plans)
+
+
 def k6_f32_checks(specs: Counter, dev) -> list:
     """K6's float32 calls (the mlp calls of a train step, float32: the
     float32 tail tile) against their plain versions (F32_TOL), timed as in
@@ -2714,17 +2806,34 @@ def wide_f32_checks(dev) -> list:
     after a shifted block's gate and shortcut epilogue, and K6 with its
     residual and drop-path, on 1 x 64 x 64, against their plain versions
     (F32_TOL), timed with their bounds. The mlp call is left out where the
-    package has no float32 tail tile (the SIMT plan does not fit there)."""
+    package has no float32 tail tile (the SIMT plan does not fit there).
+    Where it has the float32 stats tile, its STATS_ODD widths too (C =
+    WIDE_C shifted, dh 18 shifted, dh 9, and the PromptFusion entry at C =
+    18 + 18 with LN): one spectral_stats_f32 launch each, no plain call."""
+    from mp_hsir_tpu_torch.ops.kernels import _route
+
     hid = int(WIDE_C * 2.66)
     rows = []
-    for spec in (("spectral_apply", 1, 64, 64, WIDE_C, 0, 4, False, False, True, True, hid,
-                  "torch.float32"),
-                 ("mlp", 1, 64, 64, WIDE_C, hid, True, True, "torch.float32")):
+    specs = [("spectral_apply", 1, 64, 64, WIDE_C, 0, 4, False, False, True, True, hid,
+              "torch.float32"),
+             ("mlp", 1, 64, 64, WIDE_C, hid, True, True, "torch.float32")]
+    if has_stats_f32_tile():
+        specs += [("spectral_stats", 1, 64, 64, WIDE_C, 0, 8, 4, False, "torch.float32"),
+                  ("spectral_stats", 1, 64, 64, 36, 0, 2, 4, False, "torch.float32"),
+                  ("spectral_stats", 1, 64, 64, 27, 0, 3, 0, False, "torch.float32"),
+                  ("spectral_stats", 1, 64, 64, 18, 18, 2, 0, True, "torch.float32")]
+    for spec in specs:
         if spec[0] == "mlp" and not has_tail_f32():
             log(f"  {spec[0]} {spec[1:-1]}: no float32 tail tile in this package (skipped)")
             continue
         fn, args, kw, _, byts, flops = make_train_fwd_call(spec, dev, torch.float32)
         err, rel = compare(fn, args, kw, F32_TOL)
+        if spec[0] == "spectral_stats":
+            _route.reset_counters()
+            fn(*args, **kw)
+            n, plain = _route.COUNTERS["spectral_stats_f32"].launches, _route.ROUTE.plain_cuda_calls
+            if (n, plain) != (1, 0):
+                fail(f"float32 stats {spec[1:-1]}: {n} tile launches, {plain} plain calls")
         row = dict(spec=list(spec), max_abs_err_f32=err, rel_err_f32=rel, per_call=1,
                    **f32_times(spec, fn, args, kw, byts, flops))
         rows.append(row)
@@ -3024,6 +3133,7 @@ def main() -> None:
     gdfn_bwd_plans = log_gdfn_bwd_plans(_build, preset_cfgs)
     f32_tail_plans = log_f32_tail_plans(_build)
     f32_tile_plans = log_f32_tile_plans(_build, preset_cfgs)
+    f32_tile_plans["stats"] = log_stats_f32_plans(_build, preset_cfgs)
 
     specs = path_specs(cfg, SIZE, "torch.bfloat16")
 
@@ -3204,13 +3314,15 @@ def main() -> None:
         library_ms=None, kernel_alone_ms=split["kernel_alone_ms"],
         k6_train_f32=f32_train.get("mlp"), k6_rs_train_f32=f32_rs_train.get("mlp"),
         eval_cli=dict(launches=n, launches_per_forward=n // (len(EVAL_MODES) * EVAL_FORWARDS))))
-    # the float32 conv3 and window tiles: their own path is the float32 eval
-    # CLI (phase 14's launches); ms (wrapper and alone), plain, bound and
-    # library per flagship float32 forward from phase 2's float32 sums
+    # the float32 conv3, window and stats tiles: their own path is the
+    # float32 eval CLI (phase 14's launches, one per call of their kernel);
+    # ms (wrapper and alone), plain, bound and library per flagship float32
+    # forward from phase 2's float32 sums
     for name, meta in F32_TILE_KERNELS.items():
         n, f = ev["launches"].get(name, 0), f32_eval[meta["of"]]
-        if n == 0:
-            fail(f"the float32 tile {name} was not launched by the eval CLI")
+        if n == 0 or n != ev["launches"].get(meta["of"]):
+            fail(f"the float32 tile {name} was launched {n} times by the eval CLI, its kernel "
+                 f"{meta['of']} {ev['launches'].get(meta['of'])}")
         summary.append(dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
             tpu=meta["tpu"], launches=n, launches_per_forward=f["calls"],

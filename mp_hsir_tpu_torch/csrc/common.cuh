@@ -9,9 +9,9 @@
 // bf16 window forward and backward (window_attention.cu), the PGSSTB tail MLP
 // (mlp_tail.cuh), the bf16 spectral apply front (spectral_front.cuh), the
 // bf16 backward tiles, and the bf16 weight product (grad.cu wgrad_tc_kernel).
-// The float32 twins of conv3, the K1 window tile and the tail MLP stage
-// float32 and run 3xTF32 mma.sync (the helpers at the end of this file). The
-// other float32 kernels keep SIMT FMA. wgmma and TMA are later work; see
+// The float32 twins of conv3, the K1 window tile, the tail MLP and the
+// spectral stats tile stage float32 and run 3xTF32 mma.sync (the helpers at
+// the end of this file). The other float32 kernels keep SIMT FMA. wgmma and TMA are later work; see
 // PERF.md for the gap to each bound.
 #pragma once
 
@@ -387,7 +387,8 @@ __device__ __forceinline__ size_t tile_pix(int b, int ty, int tx, int i, int H, 
 
 // ---------------------------------------------------------------------------
 // 3xTF32 on the tensor cores: the float32 tiles (mlp_tail.cuh's mlp_tail_f32,
-// conv3.cu's float32 instance, window_attention.cu's window_f32_kernel) load
+// conv3.cu's float32 instance, window_attention.cu's window_f32_kernel,
+// spectral_stats_f32.cuh's spectral_stats_f32_kernel) load
 // float32 fragments (ldmatrix on 4-byte elements: lane l receives row l / 4,
 // element l % 4 of each 8x4 matrix, the m16n8k8 TF32 fragment layout) and
 // split each into two TF32 values.

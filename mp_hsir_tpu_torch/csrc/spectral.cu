@@ -4,7 +4,7 @@
 //   mp_spectral_stats  q, k = dw3x3(1x1([LN] x)); per-head Gram q^T k and the
 //                      squared norms of q and k, summed over all pixels
 //                      (bf16: the tensor-core tile of spectral_stats.cuh;
-//                      float32: spectral_stats_kernel below).
+//                      float32: the 3xTF32 tile of spectral_stats_f32.cuh).
 //   (fold, PyTorch)    comb = softmax(Gram / (|q| |k|) * temp) folded with the
 //                      output projection into one C x C matrix.
 //   mp_spectral_apply  v = dw3x3(1x1([LN] x)); out = v @ comb plus the
@@ -30,18 +30,19 @@
 // 4C^2 + 2C*dh in the stats launch against ~4C bytes per pixel: tensor-core
 // rate bounds both at these widths. bf16 products run as mma.sync on the
 // tensor cores, float32 ones as SIMT FMA (common.cuh gemm; PERF.md) but for
-// the apply launch's PGSSTB tail, 3xTF32 mma.sync (mlp_tail.cuh); the bf16
-// stats and apply launches run their own tiles (spectral_stats.cuh,
-// spectral_front.cuh). The bf16 stats backward runs two tensor-core tiles:
-// spectral_stats_bwd_tc_kernel (spectral_stats.cuh) and dwconv_dx_tc_kernel
-// (dwconv_dx.cuh); the float32 one spectral_stats_bwd_kernel below and
-// grad.cu's dwconv_bwd and ln_linear_bwd. So does the bf16 apply backward:
+// the apply launch's PGSSTB tail and the stats launch, 3xTF32 mma.sync
+// (mlp_tail.cuh, spectral_stats_f32.cuh); the bf16 stats and apply launches
+// run their own tiles (spectral_stats.cuh, spectral_front.cuh). The bf16
+// stats backward runs two tensor-core tiles: spectral_stats_bwd_tc_kernel
+// (spectral_stats.cuh) and dwconv_dx_tc_kernel (dwconv_dx.cuh); the float32
+// one spectral_stats_bwd_kernel below and grad.cu's dwconv_bwd and
+// ln_linear_bwd. So does the bf16 apply backward:
 // spectral_apply_bwd_tc_kernel (spectral_apply_bwd.cuh) and
 // dwconv_dx_tc_kernel<true, true>; the float32 one spectral_apply_bwd_kernel
 // below and grad.cu's stages.
 #include "dwconv_dx.cuh"
 #include "spectral_apply_bwd.cuh"
-#include "spectral_stats.cuh"
+#include "spectral_stats_f32.cuh"
 
 namespace mp {
 
@@ -109,87 +110,6 @@ template <typename T>
 __device__ __forceinline__ void halo_stats(float* mu, float* rs, const Halo<T>& hl, float eps) {
   ln_stats_rows(mu, rs, kHaloPix, hl.C1 + hl.C2, eps, [&](int p, int k) { return hl.at(p, k); },
                 [&](int p) { return hl.inside(p); });
-}
-
-// The float32 stats kernel. Shared memory: the halo input is staged in
-// channel chunks of kc (all C at once where that fits: every natural-scene
-// width). Plans at the remote-sensing widths: C = 384, dh 48 and C = 192, dh
-// 96 stage 64 channels. Part `ipart` of image b walks tiles [ipart T / P,
-// (ipart + 1) T / P) and writes its Gram and norm sums to part[b][ipart].
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-spectral_stats_kernel(const T* __restrict__ x1, const T* __restrict__ x2, int C1, int C2,
-                      const float* __restrict__ lnw, const float* __restrict__ lnb,
-                      const T* __restrict__ wqkv, const T* __restrict__ wdw, int H, int W,
-                      int nH, int shift, float eps, float* __restrict__ part, int kc) {
-  extern __shared__ float sm[];
-  __shared__ float mu[kHaloPix], rs[kHaloPix];
-  const int C = C1 + C2, C3 = 3 * C, dh = C / nH;
-  const int ldc = kc + 1, ldt = 2 * dh + 1;
-  float* xc = sm;                     // [100][ldc] halo input chunk
-  float* ts = xc + kHaloPix * ldc;    // [100][ldt] 1x1 output, q|k of one head
-  float* qk = ts + kHaloPix * ldt;    // [64][ldt] q|k after the dwconv
-  float* gacc = qk + kPix * ldt;      // [C*dh] Gram partial, [h][d][e]
-  float* nacc = gacc + C * dh;        // [2C] |q|^2, |k|^2 partials
-  const int ipart = blockIdx.x, b = blockIdx.y, n_parts = gridDim.x;
-  const int tiles_w = W / kTile, n_tiles = (H / kTile) * tiles_w;
-  const bool resident = kc >= C;
-
-  for (int i = threadIdx.x; i < C * dh; i += blockDim.x) gacc[i] = 0.f;
-  for (int i = threadIdx.x; i < 2 * C; i += blockDim.x) nacc[i] = 0.f;
-
-  const int t1 = (int)((long long)(ipart + 1) * n_tiles / n_parts);
-  for (int t = (int)((long long)ipart * n_tiles / n_parts); t < t1; ++t) {
-    const Halo<T> hl{x1, x2, C1, C2, b, t / tiles_w, t % tiles_w, H, W, shift};
-    __syncthreads();
-    if (lnw != nullptr) {
-      halo_stats(mu, rs, hl, eps);
-      __syncthreads();
-    }
-    if (resident) {
-      halo_chunk(xc, ldc, hl, 0, C, mu, rs, lnw, lnb);
-      __syncthreads();
-    }
-    for (int h = 0; h < nH; ++h) {
-      // column j < dh: q channel h*dh + j; j >= dh: k channel C + h*dh + j - dh
-      auto col = [&](int j) { return j < dh ? h * dh + j : C + h * dh + (j - dh); };
-      for (int c0 = 0; c0 < C; c0 += kc) {
-        const int nc = min(kc, C - c0);
-        if (!resident) {
-          halo_chunk(xc, ldc, hl, c0, nc, mu, rs, lnw, lnb);
-          __syncthreads();
-        }
-        const bool first = c0 == 0, last = c0 + nc >= C;
-        gemm<T>(kHaloPix, 2 * dh, nc,
-            [&](int i, int k) { return xc[i * ldc + k]; },
-            [&](int k, int j) { return to_f(wqkv[(size_t)(c0 + k) * C3 + col(j)]); },
-            [&](int i, int j, float acc) {
-              chunk_acc(ts[i * ldt + j], acc, first, last, [](float v) { return rnd<T>(v); });
-            });
-        __syncthreads();
-      }
-      dwconv3_tile(ts, ldt, 2 * dh,
-          [&](int tap, int j) { return to_f(wdw[tap * C3 + col(j)]); },
-          [&](int p, int j, float acc) { qk[p * ldt + j] = rnd<T>(acc); });
-      __syncthreads();
-      // this tile's Gram: G[d][e] += sum_p q[p][d] k[p][e]; the owner of each
-      // entry is the same thread on every tile, so the sum order is fixed
-      gemm<T>(dh, dh, kPix,
-          [&](int d, int p) { return qk[p * ldt + d]; },
-          [&](int p, int e) { return qk[p * ldt + dh + e]; },
-          [&](int d, int e, float acc) { gacc[(h * dh + d) * dh + e] += acc; });
-      for (int j = threadIdx.x; j < 2 * dh; j += blockDim.x) {
-        float n = 0.f;
-        for (int p = 0; p < kPix; ++p) n = fmaf(qk[p * ldt + j], qk[p * ldt + j], n);
-        nacc[(j < dh ? 0 : C) + h * dh + (j < dh ? j : j - dh)] += n;
-      }
-      __syncthreads();
-    }
-  }
-  __syncthreads();
-  // the Gram, then |q|^2 and |k|^2 (nacc follows gacc)
-  float* out = part + ((size_t)b * n_parts + ipart) * (C * dh + 2 * C);
-  for (int i = threadIdx.x; i < C * dh + 2 * C; i += blockDim.x) out[i] = gacc[i];
 }
 
 // out[b][i] = sum over parts (in order) of part[b][part][i]
@@ -561,12 +481,6 @@ spectral_apply_tc_kernel(const __nv_bfloat16* __restrict__ x1, const __nv_bfloat
   tail_store(xn, ldn, C, vec_out, dst, same);
 }
 
-inline size_t stats_smem(int C, int nH, int kc) {
-  const int dh = C / nH;
-  return sizeof(float) * ((size_t)kHaloPix * (kc + 1) + (size_t)kHaloPix * (2 * dh + 1) +
-                          (size_t)kPix * (2 * dh + 1) + (size_t)C * dh + 2 * C);
-}
-
 // The float32 apply plan: the front's layout and, with the tail, the tail
 // tile's scratch over it (tail_f32_stages(C) ring stages), whichever is larger.
 inline size_t apply_smem(int C, bool tail, int kc) {
@@ -592,12 +506,6 @@ inline long long apply_plan_bytes(int C, bool tail, int kc, bool bf16) {
   return bf16 ? plan_bytes(spectral_apply_tc_kernel, smem) : plan_bytes(apply_kernel(kc, C), smem);
 }
 
-inline int stats_chunk(int C, int nH) {
-  return pick_chunk(C, [&](int kc) {
-    return plan_bytes(spectral_stats_kernel<float>, stats_smem(C, nH, kc));
-  });
-}
-
 inline int apply_chunk(int C, bool tail, bool bf16) {
   return bf16 ? C : pick_chunk(C, [&](int kc) { return apply_plan_bytes(C, tail, kc, false); });
 }
@@ -616,12 +524,12 @@ int stats_parts(K kernel, int threads, size_t smem, int B, int n_tiles) {
   return parts < 1 ? 1 : parts > n_tiles ? n_tiles : parts;
 }
 
-// The parts per image of a launch (dtype 0: float32 at chunk kc; 1: the bf16
+// The parts per image of a launch (dtype 0: the float32 tile; 1: the bf16
 // tile).
-inline int stats_launch_parts(int dtype, int B, int H, int W, int C, int nH, int kc) {
+inline int stats_launch_parts(int dtype, int B, int H, int W, int C, int nH) {
   const int n_tiles = (H / kTile) * (W / kTile);
   if (dtype == 0)
-    return stats_parts(spectral_stats_kernel<float>, kThreads, stats_smem(C, nH, kc), B, n_tiles);
+    return stats_parts(spectral_stats_f32_kernel, kThreads, StatsF32Plan(C, nH).bytes, B, n_tiles);
   return stats_parts(spectral_stats_tc_kernel, kThreads, StatsPlan(C, nH).bytes, B, n_tiles);
 }
 
@@ -633,16 +541,20 @@ cudaError_t launch_sum_stats(const float* part, float* gram, float* nq, float* n
   return cudaGetLastError();
 }
 
+// The float32 tile (spectral_stats_f32.cuh): wqk [2C][C8] (16-byte
+// aligned), taps [2C][9]; heads up to 96 wide.
 cudaError_t launch_stats(const float* x1, const float* x2, int C1, int C2, const float* lnw,
-                         const float* lnb, const float* wqkv, const float* wdw, float* part,
+                         const float* lnb, const float* wqk, const float* taps, float* part,
                          float* gram, float* nq, float* nk, int B, int H, int W, int nH,
-                         int shift, float eps, int n_parts, int kc, cudaStream_t stream) {
+                         int shift, float eps, int n_parts, cudaStream_t stream) {
   const int C = C1 + C2;
-  const size_t smem = stats_smem(C, nH, kc);
-  cudaError_t err = set_smem(spectral_stats_kernel<float>, smem);
+  const StatsF32Plan pl(C, nH);
+  if (!pl.ok() || !aligned(wqk, 16)) return cudaErrorInvalidValue;
+  const int vec_x = C1 % 4 == 0 && C2 % 4 == 0 && aligned(x1, 16) && aligned(x2, 16);
+  cudaError_t err = set_smem(spectral_stats_f32_kernel, pl.bytes);
   if (err != cudaSuccess) return err;
-  spectral_stats_kernel<float><<<dim3(n_parts, B), kThreads, smem, stream>>>(
-      x1, x2, C1, C2, lnw, lnb, wqkv, wdw, H, W, nH, shift, eps, part, kc);
+  spectral_stats_f32_kernel<<<dim3(n_parts, B), kThreads, pl.bytes, stream>>>(
+      x1, x2, C1, C2, lnw, lnb, wqk, taps, H, W, nH, shift, eps, vec_x, part);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   return launch_sum_stats(part, gram, nq, nk, B, n_parts, C, C / nH, stream);
 }
@@ -1070,28 +982,25 @@ cudaError_t launch_apply_bwd(const void* x, const float* lnw, const float* lnb, 
 }  // namespace mp
 
 // Inputs: x1 (B, H, W, C1) and optional x2 (B, H, W, C2), logical input
-// cat(x1, x2); optional LN (float32, over C1 + C2). float32 (dtype 0): wqkv
-// [C][3C] and wdw [9][3C] ([in][out] copies), kc the channel chunk
-// (mp_spectral_stats_chunk). bf16 (dtype 1, C <= 384): wqkv the q|k rows of
-// the torch weight ([2C][C8], C8 = C rounded up to 8, zero past C; 16-byte
-// aligned), wdw their depthwise taps ([2C][9]); kc is C.
-// Partial buffer part [B][n_parts][C*dh + 2C] (n_parts from
+// cat(x1, x2); optional LN (float32, over C1 + C2). float32 (dtype 0) or
+// bf16 (dtype 1): wqkv the q|k rows of the torch weight ([2C][C8], C8 = C
+// rounded up to 8, zero past C; 16-byte aligned), wdw their depthwise taps
+// ([2C][9]); float32 takes heads up to 96 wide, bf16 C up to 384. Partial buffer part [B][n_parts][C*dh + 2C] (n_parts from
 // mp_spectral_stats_parts). Outputs (float32): gram [B][C][dh] (row h*dh + d,
 // col e), nq and nk [B][nH][dh].
 extern "C" int mp_spectral_stats(const void* x1, const void* x2, const void* lnw,
                                  const void* lnb, const void* wqkv, const void* wdw, void* part,
                                  void* gram, void* nq, void* nk, int dtype, int B, int H, int W,
-                                 int C1, int C2, int nH, int shift, float eps, int n_parts, int kc,
+                                 int C1, int C2, int nH, int shift, float eps, int n_parts,
                                  void* stream) {
-  if ((C1 + C2) % nH != 0 || H % mp::kTile != 0 || W % mp::kTile != 0 || kc <= 0 ||
-      kc > C1 + C2 || n_parts <= 0)
+  if ((C1 + C2) % nH != 0 || H % mp::kTile != 0 || W % mp::kTile != 0 || n_parts <= 0)
     return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   auto f = [](const void* p) { return (const float*)p; };
   float *pt = (float*)part, *g = (float*)gram, *q = (float*)nq, *k = (float*)nk;
   if (dtype == 0)
     return (int)mp::launch_stats(f(x1), f(x2), C1, C2, f(lnw), f(lnb), f(wqkv), f(wdw), pt, g, q,
-                                 k, B, H, W, nH, shift, eps, n_parts, kc, st);
+                                 k, B, H, W, nH, shift, eps, n_parts, st);
   using bf = const __nv_bfloat16*;
   return (int)mp::launch_stats_tc((bf)x1, (bf)x2, C1, C2, f(lnw), f(lnb), (bf)wqkv, (bf)wdw, pt, g,
                                   q, k, B, H, W, nH, shift, eps, n_parts, st);
@@ -1099,8 +1008,8 @@ extern "C" int mp_spectral_stats(const void* x1, const void* x2, const void* lnw
 
 // The parts per image a stats launch takes (0 on a device error): the
 // blocks the card holds at once over B images, at most one per tile.
-extern "C" int mp_spectral_stats_parts(int dtype, int B, int H, int W, int C, int nH, int kc) {
-  return mp::stats_launch_parts(dtype, B, H, W, C, nH, kc);
+extern "C" int mp_spectral_stats_parts(int dtype, int B, int H, int W, int C, int nH) {
+  return mp::stats_launch_parts(dtype, B, H, W, C, nH);
 }
 
 // comb [B][C][C] (row: v channel h*dh + e, col: output channel). gate (B,
@@ -1143,17 +1052,16 @@ extern "C" int mp_spectral_apply(const void* x1, const void* x2, const void* lnw
 // The device's opt-in shared-memory limit per block, in bytes.
 extern "C" int mp_smem_optin() { return mp::smem_optin(); }
 
-// The channel chunks the stats and apply kernels launch with at a shape.
-extern "C" int mp_spectral_stats_chunk(int C, int nH) { return mp::stats_chunk(C, nH); }
-
+// The channel chunk the float32 apply kernel launches with at a shape.
 extern "C" int mp_spectral_apply_chunk(int C, int tail, int dtype) {
   return mp::apply_chunk(C, tail != 0, dtype != 0);
 }
 
-// Shared-memory plans per block (bytes, static included) at a shape and
-// channel chunk kc.
-extern "C" long long mp_spectral_stats_smem(int C, int nH, int kc) {
-  return mp::plan_bytes(mp::spectral_stats_kernel<float>, mp::stats_smem(C, nH, kc));
+// Shared-memory plans per block (bytes, static included) at a shape. The
+// float32 stats tile's (StatsF32Plan; no chunk): -1 past heads 96 wide.
+extern "C" long long mp_spectral_stats_smem(int C, int nH) {
+  const mp::StatsF32Plan pl(C, nH);
+  return pl.ok() ? mp::plan_bytes(mp::spectral_stats_f32_kernel, pl.bytes) : -1;
 }
 
 // The bf16 stats tile's plan (StatsPlan; no chunk).

@@ -109,15 +109,16 @@ __device__ __forceinline__ void stage_tile(__nv_bfloat16* dst, int ldd,
 
 // A ring of S tile stages fed by stage(t, dst) (which copies tile t, t < T);
 // the protocol of TailRing: one commit group per tile, one block-wide barrier
-// per consumed tile, after which the freed stage takes the next tile.
-template <typename Stage>
+// per consumed tile, after which the freed stage takes the next tile. E: the
+// stages' element type (bf16; float32 in the float32 halo tiles).
+template <typename Stage, typename E = __nv_bfloat16>
 struct FrontRing {
-  __nv_bfloat16* base;
+  E* base;
   size_t elems;
   int S, T;
   Stage stage;
   int it = 0, istage = 0, cstage = 0;
-  __device__ FrontRing(__nv_bfloat16* b, size_t e, int s, int t, Stage st)
+  __device__ FrontRing(E* b, size_t e, int s, int t, Stage st)
       : base(b), elems(e), S(s), T(t), stage(st) {}
   __device__ void issue() {
     if (it < T) {
@@ -130,20 +131,19 @@ struct FrontRing {
   __device__ void prefetch() {
     for (int t = 0; t < S - 1; ++t) issue();
   }
-  __device__ const __nv_bfloat16* consume() {
+  __device__ E* consume() {
     cp_async_wait_upto(S - 2);
     __syncthreads();
     issue();
-    const __nv_bfloat16* tile = base + cstage * elems;
+    E* tile = base + cstage * elems;
     if (++cstage == S) cstage = 0;
     return tile;
   }
 };
 
-template <typename Stage>
-__device__ __forceinline__ FrontRing<Stage> front_ring(__nv_bfloat16* b, size_t e, int s, int t,
-                                                       Stage st) {
-  return FrontRing<Stage>(b, e, s, t, st);
+template <typename Stage, typename E>
+__device__ __forceinline__ FrontRing<Stage, E> front_ring(E* b, size_t e, int s, int t, Stage st) {
+  return FrontRing<Stage, E>(b, e, s, t, st);
 }
 
 // Elements k and k + 1 (zero past C) of pixel p of the logical input

@@ -4,7 +4,7 @@
 // the tensor cores. q|k = dw3x3(1x1([LN] cat(x1, x2))) over each 8x8 tile's
 // 10x10 halo (the q and k rows of wqkv / wdw), then per image the Gram q_h^T
 // k_h of every head and the squared norms |q|^2, |k|^2 over all pixels. The
-// float32 instances keep spectral_stats_kernel (spectral.cu) and SIMT FMA.
+// float32 instances run the 3xTF32 tile of spectral_stats_f32.cuh.
 //
 // Rounding points as spectral_stats_plain: the 1x1 output rounded to bf16,
 // the depthwise output rounded to bf16; the Gram and the norms summed in

@@ -36,11 +36,13 @@ Layouts at these functions: NHWC maps; wqkv (3C, C, 1, 1) and wdw
 logical input ``cat([x, x2], -1)``; ``shift`` > 0 means ``x`` is in the
 rolled frame of a shifted block and is read through the roll-back.
 
-The bf16 stats launch runs the tensor-core tile of ``csrc/spectral_stats.cuh``
-(C up to :data:`FRONT_MAX_C`): it streams the q|k rows of the torch weights as
-they are (:func:`pack_stats`), in the head groups and passes that
-:func:`stats_plan` describes, and sums its per-part partials in one more
-launch. The bf16 apply launch runs the tensor-core tile of
+The stats launch runs a tensor-core tile in both types: bf16 the tile of
+``csrc/spectral_stats.cuh`` (C up to :data:`FRONT_MAX_C`), float32 the 3xTF32
+tile of ``csrc/spectral_stats_f32.cuh`` (heads up to 96 wide; its launches
+counted in :data:`F32_TILE` too). Both stream the q|k rows of the torch
+weights as they are (:func:`pack_stats`), in the head groups that
+:func:`stats_plan` and :func:`stats_f32_plan` describe, and sum their per-part
+partials in one more launch. The bf16 apply launch runs the tensor-core tile of
 ``csrc/spectral_front.cuh`` (C up to :data:`FRONT_MAX_C`): it streams the v
 rows of the torch weights and a bf16 copy of ``comb`` as they are
 (:func:`pack_front`), in the tiles that :func:`front_plan` describes. The
@@ -70,6 +72,7 @@ from mp_hsir_tpu_torch.ops.kernels.mlp import TAIL_F32, pack_mlp_weights
 from mp_hsir_tpu_torch.ops.window import roll_hw
 
 STATS = counter("spectral_stats")
+F32_TILE = counter("spectral_stats_f32")
 APPLY = counter("spectral_apply")
 STATS_BWD = counter("spectral_stats_bwd")
 APPLY_BWD = counter("spectral_apply_bwd")
@@ -85,6 +88,13 @@ FRONT_LDW = 72  # a weight tile's row: 64 deep + 8 (kFrontLdw)
 # (kStatsMaxN) and the dynamic shared memory its plan may take (kStatsBudget)
 STATS_MAX_N = 192
 STATS_BUDGET = 232448 - 1024
+# the float32 stats tile (csrc/spectral_stats_f32.cuh): a column group's widest
+# count (kStatsF32MaxN), a ring stage's channels and row (kF32K, kF32Ld), the
+# kernel's static shared memory (the halo rows' source pixels)
+STATS_F32_MAX_N = 192
+F32_K = 32
+F32_LD = 36
+STATS_F32_STATIC = 448
 # the bf16 backward's second tile (csrc/dwconv_dx.cuh): the row strides of
 # its dout (float32) and t / dt (bf16) chunks (kDxLdd, kDxLdt)
 DX_LDD = 68
@@ -193,6 +203,32 @@ def stats_plan(c: int, heads: int) -> dict:
                 groups=groups, gw=gw, np=np_, ws=ws, bytes=nbytes)
 
 
+def stats_f32_plan(c: int, heads: int) -> dict:
+    """The float32 stats tile's tiling at width ``c`` (``StatsF32Plan`` in
+    csrc/spectral_stats_f32.cuh): the head-grouped columns of
+    :func:`stats_plan` (``dhp``, ``hw``, ``nqk``) in ``groups`` groups of
+    ``hg`` heads (``gw`` columns), the K chunks ``nk`` of :data:`F32_K`
+    channels, ``ws`` ring stages; ``dyn`` the dynamic shared memory and
+    ``bytes`` the plan with the static (what ``mp_spectral_stats_smem``
+    returns). ``ok``: a head's columns fit one group (dh up to 96)."""
+    dh = c // heads
+    dhp = -(-dh // 16) * 16
+    hw = 2 * dhp
+    hmax = max(1, STATS_F32_MAX_N // hw)
+    groups = -(-heads // hmax)
+    hg = -(-heads // groups)
+    gw = hg * hw
+    ldq = gw + 8
+    fixed = 4 * (9 * gw + hg * dhp * dhp + gw + 2 * FRONT_ROWS + 64 * ldq)
+    for ws in (3, 2):
+        dyn = fixed + max(ws * 4 * (FRONT_ROWS + gw) * F32_LD, 4 * 100 * ldq)
+        if dyn <= STATS_BUDGET:
+            break
+    return dict(dh=dh, dhp=dhp, hw=hw, nqk=heads * hw, nk=-(-c // F32_K), hg=hg, groups=groups,
+                gw=gw, ldq=ldq, ws=ws, dyn=dyn, bytes=dyn + STATS_F32_STATIC,
+                ok=hw <= STATS_F32_MAX_N)
+
+
 def dwconv_dx_plan(c: int, k: int, stencil: bool = True, f32_t: bool = False) -> dict:
     """The plan of the bf16 backward's second tile at width ``c`` and ``k``
     depthwise channels (``DwDxPlan`` in csrc/dwconv_dx.cuh): ``nck`` 64-channel
@@ -234,11 +270,12 @@ def qk_row(n: int, plan: dict, c: int) -> int:
 
 
 def pack_stats(wqkv, wdw, dt):
-    """The operands the bf16 stats tile streams, in ``dt``: the q|k rows of
-    the 1x1 weight as [2C out][C8 in] (torch layout) and their depthwise taps
-    as [2C][9]; C8 is C rounded up to 8, the rows padded with zeros only where
-    C is not a multiple of 8 (16-byte rows for the kernel's copies). Views of
-    the weights where they are already in ``dt``."""
+    """The operands the stats tiles stream, in ``dt``: the q|k rows of the
+    1x1 weight as [2C out][C8 in] (torch layout) and their depthwise taps
+    as [2C][9]; C8 is C rounded up to 8, the rows padded with zeros only
+    where C is not a multiple of 8 (rows of whole 16-byte vectors for the
+    kernels' copies in both types). Views of the weights where they are
+    already in ``dt``."""
     c = wqkv.shape[1]
     wqk = wqkv[:2 * c].reshape(2 * c, c).to(dt)
     if c % 8:
@@ -256,14 +293,14 @@ def _stats_entry(kind: str = "fwd"):
         return _build.entry("mp_spectral_stats_bwd_tc", 11, [ctypes.c_int] * 6 + [ctypes.c_float])
     if kind == "dx_tc":
         return _build.entry("mp_dwconv_dx_tc", 9, [ctypes.c_int] * 6 + [ctypes.c_float])
-    return _build.entry("mp_spectral_stats", 10, [ctypes.c_int] * 8 + [ctypes.c_float]
-                        + [ctypes.c_int] * 2)
+    return _build.entry("mp_spectral_stats", 10,
+                        [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int])
 
 
 @lru_cache(maxsize=None)
 def _stats_parts(*shape: int) -> int:
     """The parts per image of a stats launch (``mp_spectral_stats_parts``:
-    dtype, B, H, W, C, heads, chunk), asked once per shape."""
+    dtype, B, H, W, C, heads), asked once per shape."""
     import ctypes
 
     fn = _build.lib().mp_spectral_stats_parts
@@ -277,7 +314,7 @@ def _stats_parts(*shape: int) -> int:
 def _stats_prepare(x, wqkv, wdw, num_heads, shift=0, x2=None, ln_w=None, ln_b=None, eps=1e-5):
     """Everything a launch needs: (the C entry's arguments, the outputs, the
     tensors the arguments point into, to be held until the launch). Weights:
-    float32 [in][out] copies; bf16 :func:`pack_stats`."""
+    :func:`pack_stats` in the compute type."""
     b, h, w, c1 = x.shape
     c2 = 0 if x2 is None else x2.shape[-1]
     c = c1 + c2
@@ -285,22 +322,21 @@ def _stats_prepare(x, wqkv, wdw, num_heads, shift=0, x2=None, ln_w=None, ln_b=No
         raise ValueError(f"spectral stats needs H, W % 8 == 0 and C % heads == 0, got {x.shape}")
     dt, code = x.dtype, dtype_code(x)
     dh = c // num_heads
+    what = f"C={c}, heads={num_heads}"
     if code:
         if c > FRONT_MAX_C:  # the widest C of the tile's plan
             raise ValueError(f"the bf16 spectral stats kernel takes C up to {FRONT_MAX_C}, got {c}")
-        kc = c
-        _build.check_plan("spectral_stats", "mp_spectral_stats_tc_smem",
-                          f"C={c}, heads={num_heads}", c, num_heads)
-        wq, wd = pack_stats(wqkv, wdw, dt)
+        _build.check_plan("spectral_stats", "mp_spectral_stats_tc_smem", what, c, num_heads)
     else:
-        kc = _build.chunk("mp_spectral_stats_chunk", c, num_heads)
-        _build.check_plan("spectral_stats", "mp_spectral_stats_smem",
-                          f"C={c}, heads={num_heads}", c, num_heads, kc)
-        wq, wd = kernel_weight(wqkv, dt), kernel_weight(wdw, dt)
+        if not stats_f32_plan(c, num_heads)["ok"]:  # a head's columns in one group
+            raise ValueError(f"the float32 spectral stats kernel takes heads up to 96 wide, "
+                             f"got {dh}")
+        _build.check_plan("spectral_stats", "mp_spectral_stats_smem", what, c, num_heads)
+    wq, wd = pack_stats(wqkv, wdw, dt)
     x = x.contiguous()
     x2 = None if x2 is None else x2.to(dt).contiguous()
     lnw, lnb = f32(ln_w), f32(ln_b)
-    n_parts = _stats_parts(code, b, h, w, c, num_heads, kc)
+    n_parts = _stats_parts(code, b, h, w, c, num_heads)
     dev = x.device
     part = torch.empty((b, n_parts, c * dh + 2 * c), dtype=torch.float32, device=dev)
     gram = torch.empty((b, c, dh), dtype=torch.float32, device=dev)
@@ -309,7 +345,7 @@ def _stats_prepare(x, wqkv, wdw, num_heads, shift=0, x2=None, ln_w=None, ln_b=No
     p = _build.ptr
     args = (x.data_ptr(), p(x2), p(lnw), p(lnb), wq.data_ptr(), wd.data_ptr(), part.data_ptr(),
             gram.data_ptr(), nq.data_ptr(), nk.data_ptr(), code, b, h, w, c1, c2, num_heads,
-            shift, eps, n_parts, kc, stream_ptr())
+            shift, eps, n_parts, stream_ptr())
     return args, (gram, nq, nk), (x, x2, lnw, lnb, wq, wd, part)
 
 
@@ -318,8 +354,10 @@ def _stats_launch(x, wqkv, wdw, num_heads, shift, x2, ln_w, ln_b, eps):
     _build.check("mp_spectral_stats", _stats_entry()(*args))
     b, h, w, c1 = x.shape
     c2 = 0 if x2 is None else x2.shape[-1]
-    STATS.record(("spectral_stats", b, h, w, c1, c2, num_heads, shift, ln_w is not None,
-                  str(x.dtype)))
+    ln = ln_w is not None
+    STATS.record(("spectral_stats", b, h, w, c1, c2, num_heads, shift, ln, str(x.dtype)))
+    if x.dtype == torch.float32:
+        F32_TILE.record(("spectral_stats_f32", b, h, w, c1, c2, num_heads, shift, ln))
     return out
 
 

@@ -480,8 +480,9 @@ def test_cuda_remote_sensing_widths_match_plain(dtype, tol):
     code = int(dtype == "bfloat16")
     assert 0 < _build.plan_bytes("mp_window_attention_smem", 384, 8, code) <= _build.smem_limit()
     # the bf16 apply tile has one resident plan (its chunk is C)
+    for c, heads in ((192, 2), (384, 8)):  # the float32 stats tile: one plan, no chunk
+        assert 0 < _build.plan_bytes("mp_spectral_stats_smem", c, heads) <= _build.smem_limit()
     for kernel, shape, want in (("window", (384, 8, code), 384 if code else 64),
-                                ("spectral_stats", (192, 2), 64),
                                 ("spectral_apply", (384, 1, code), 384 if code else 64),
                                 ("gdfn", (384,), 64)):
         kc = _build.chunk(f"mp_{kernel}_chunk", *shape)
@@ -846,12 +847,12 @@ STATS_WIDTHS = ((64, 2), (128, 4), (128, 2), (256, 8), (96, 2), (192, 2), (384, 
 STATS_CASES = ([(v, c, heads, b, h, 24) for v in STATS_VARIANTS for c, heads in STATS_WIDTHS
                 for b, h in ((1, 8), (2, 16))]
                + [("shift4", c, heads, 4, 64, 64) for c, heads in STATS_WIDTHS])
-# mp_spectral_stats_smem(C, heads, kc) at each width's chunk (the float32
-# kernel's plans) and mp_spectral_stats_bwd_smem(C, heads), which the bf16
-# tile leaves as they were
-STATS_F32_PLANS = {(64, 2): 78144, (128, 4): 112448, (128, 2): 170816, (256, 8): 181056,
-                   (96, 2): 122432, (192, 2): 228672, (384, 8): 167232, (36, 2): 42752,
-                   (27, 3): 25652}
+# mp_spectral_stats_smem(C, heads): the float32 tile's plans (static
+# included, as stats_f32_plan mirrors them), and mp_spectral_stats_bwd_smem(C,
+# heads), which the bf16 tile leaves as they were
+STATS_F32_PLANS = {(64, 2): 153152, (128, 4): 153152, (128, 2): 161344, (256, 8): 203840,
+                   (96, 2): 209984, (192, 2): 228416, (384, 8): 209984, (36, 2): 153152,
+                   (27, 3): 124736, (400, 8): 161344}
 STATS_BWD_PLANS = {(64, 2): 68640, (128, 4): 94240, (128, 2): 136224, (256, 8): 145440,
                    (96, 2): 102432, (192, 2): 203808, (384, 8): 217632, (36, 2): 39072,
                    (27, 3): 23664, (192, 4): 140832}
@@ -872,12 +873,14 @@ def _stats_inputs(variant, c, heads, b, h, w, dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant,c,heads,b,h,w", STATS_CASES)
 def test_cuda_spectral_stats_matches_plain(variant, c, heads, b, h, w):
-    """The bf16 stats tile and the float32 kernel against the plain version,
+    """The bf16 stats tile and the float32 tile against the plain version,
     bf16 within 3e-2 and float32 within 1e-4 of each output's max-abs (the
-    Gram, |q|^2, |k|^2); one launch each, the plain version only inside the
-    check; two calls bitwise identical; the bf16 plan within the device's
-    limit, the float32 and backward plans as they were."""
+    Gram, |q|^2, |k|^2); one launch each (the float32 one counted in
+    spectral_stats_f32 too), the plain version only inside the check; two
+    calls bitwise identical; the bf16 plan within the device's limit, the
+    float32 tile's plan the mirror's, the backward plans as they were."""
     from mp_hsir_tpu_torch.ops.kernels import _build
+    from mp_hsir_tpu_torch.ops.kernels.spectral import stats_f32_plan
 
     dev = _cuda()
     args, kw = _stats_inputs(variant, c, heads, b, h, w, dev)
@@ -887,13 +890,15 @@ def test_cuda_spectral_stats_matches_plain(variant, c, heads, b, h, w):
         _route.reset_counters()
         _check_fwd(spectral_stats, call, ckw, tol)
         assert _route.COUNTERS["spectral_stats"].launches == 1
+        assert _route.COUNTERS["spectral_stats_f32"].launches == int(dt == torch.float32)
         assert _route.ROUTE.plain_cuda_calls == 1
         once, again = spectral_stats(*call, **ckw), spectral_stats(*call, **ckw)
         assert all(torch.equal(u, v) for u, v in zip(once, again)), dt
     n = _build.plan_bytes("mp_spectral_stats_tc_smem", c, heads)
     assert 0 < n <= _build.smem_limit()
-    kc = _build.chunk("mp_spectral_stats_chunk", c, heads)
-    assert _build.plan_bytes("mp_spectral_stats_smem", c, heads, kc) == STATS_F32_PLANS[c, heads]
+    n32 = _build.plan_bytes("mp_spectral_stats_smem", c, heads)
+    assert n32 == STATS_F32_PLANS[c, heads] == stats_f32_plan(c, heads)["bytes"]
+    assert n32 <= _build.smem_limit()
     assert _build.plan_bytes("mp_spectral_stats_bwd_smem", c, heads) == STATS_BWD_PLANS[c, heads]
 
 
@@ -916,7 +921,9 @@ def test_cuda_spectral_stats_check_sees_the_roll(c, heads):
 @pytest.mark.cuda
 def test_cuda_spectral_stats_bf16_past_384_raises():
     """The bf16 stats tile takes C up to 384 and raises above it (no
-    fallback); float32 streams its input in chunks and runs."""
+    fallback); float32 runs its tile there (8 heads of 50, one a group)."""
+    from mp_hsir_tpu_torch.ops.kernels import _build
+
     dev = _cuda()
     args, kw = _stats_inputs("shift4", 400, 8, 1, 8, 8, dev)
     _route.reset_counters()
@@ -924,6 +931,62 @@ def test_cuda_spectral_stats_bf16_past_384_raises():
         spectral_stats(args[0].to(torch.bfloat16), *args[1:], **kw)
     _check_fwd(spectral_stats, args, kw, 1e-4)
     assert _route.COUNTERS["spectral_stats"].launches == 1
+    assert _route.COUNTERS["spectral_stats_f32"].launches == 1
+    assert _build.plan_bytes("mp_spectral_stats_smem", 400, 8) == STATS_F32_PLANS[400, 8]
+
+
+@pytest.mark.cuda
+def test_cuda_spectral_stats_f32_past_96_wide_heads_raises():
+    """The float32 stats tile takes heads up to 96 wide (a head's q|k columns
+    in one group) and raises past that before any launch (no fallback)."""
+    dev = _cuda()
+    args, kw = _stats_inputs("shift0", 256, 2, 1, 8, 8, dev)
+    _route.reset_counters()
+    with pytest.raises(ValueError, match="heads up to 96"):
+        spectral_stats(*args, **kw)
+    assert _route.COUNTERS["spectral_stats_f32"].launches == 0
+
+
+def _ptxas(kernel: str) -> dict:
+    """Registers and spill bytes of one kernel from nvcc's -Xptxas -v report
+    of the library's build (this process's, or the build log beside it)."""
+    import os
+    import re
+
+    from mp_hsir_tpu_torch.ops.kernels import _build
+
+    _build.lib()
+    log = _build.BUILD_INFO.get("log")
+    if log is None:
+        with open(os.path.join(_build.BUILD_DIR, "build.log")) as fh:
+            log = fh.read()
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            rep = {}
+            for nxt in lines[i + 1:i + 6]:
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", nxt)
+                if m:
+                    rep.update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+                m = re.search(r"Used (\d+) registers", nxt)
+                if m:
+                    rep["registers"] = int(m.group(1))
+                    break
+            return rep
+    raise AssertionError(f"{kernel}: not in the build's ptxas report")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["spectral_stats_f32_kernel",
+                                    "dwconv_dx_tc_kernelILb1ELb0ELb0E"])
+def test_cuda_stats_tiles_registers(kernel):
+    """The float32 stats tile and K10a's stencil tile (dwconv_dx_tc_kernel<true,
+    false, false>, guarded since the bf16 backward tiles) within 128 registers
+    (512 threads a block) and without spills."""
+    _cuda()
+    rep = _ptxas(kernel)
+    assert rep["registers"] <= 128, rep
+    assert rep.get("spill_stores", 0) == 0 and rep.get("spill_loads", 0) == 0, rep
 
 
 # The bf16 GDFN tile (gdfn_tc_kernel, csrc/gdfn.cu) at every (C, hid, Co) of
