@@ -25,10 +25,10 @@ Phases (any failure exits non-zero; no phase's error is caught):
    instances (copy widths of A and B) beside the guard of K10a's stencil tile
    dwconv_dx_tc_kernel<true, false, false> (<= 128 registers, no spills),
    K10b's instance <true, true, false> and K11's <true, true, true>; the
-   float32 tail tile's kernels' registers and spills (mlp_f32_kernel, the
-   two float32 spectral_apply_kernel instances), and the float32 apply
-   (with the tail, at its chunk) and mlp plans at every tail width and C =
-   400, beside the plans of the SIMT tail the tile replaced; the float32
+   float32 tail tile's kernels' registers and spills (mlp_f32_kernel and
+   the float32 apply tile), and the float32 apply (with the tail) and mlp
+   plans at every tail width and C = 400, beside the plans of the SIMT tail
+   the tile replaced; the float32
    conv3 and window tiles' registers and spills (every instance) beside the
    bf16 tiles', the float32 window plan at every (C, heads) of the presets'
    window calls (with its ring stages and blocks per window) beside the bf16
@@ -36,7 +36,11 @@ Phases (any failure exits non-zero; no phase's error is caught):
    its bf16 and SIMT ones; the float32 stats tile's registers and spills
    beside the bf16 tile's, and its plan at every (C, heads) of the presets'
    stats calls and at 36/2, 27/3 and 400/8 beside the SIMT kernel's it
-   replaced, each checked against its mirror (stats_f32_plan).
+   replaced, each checked against its mirror (stats_f32_plan); the float32
+   apply tile's registers and spills beside the bf16 tile's, and its plan
+   at every (C, tail) of the presets' apply calls and at 27, 36, 54 and 400
+   with and without the tail beside the SIMT front's it replaced, each
+   checked against its mirror (apply_f32_plan).
 2. Kernel checks: every kernel wrapper on the card at each shape the
    flagship 512x512x31 eval forward gives it, in bf16 from numpy-seeded
    inputs, against its plain PyTorch version on the same inputs; also once
@@ -65,14 +69,17 @@ Phases (any failure exits non-zero; no phase's error is caught):
    float32 instance is timed too (wrapper, alone, plain, F.conv2d with TF32
    off for conv3) beside its float32 bound max(bytes / 3.35 TB/s, 3 flops /
    495 TFLOP/s: 3xTF32), each float32 apply call with the tail once more
-   without it; per forward the float32 sums per kernel and the apply's front
-   / tail split (the tail: the float32 tail tile, 3xTF32) beside their
-   bounds; each float32 call of the tail, conv3, window and stats tiles is
-   first run twice: bitwise equal. Then a float32 spectral apply with the
-   tail and a float32 mlp call at C = 400 (the tail tile in two output
-   groups), and float32 stats calls at 400/8, 36/2, 27/3 and the
-   PromptFusion entry at 18 + 18 (each one stats tile launch, no plain
-   call), against plain (1e-4).
+   without it; per forward the float32 sums per kernel, the apply's front
+   / tail split (the tail: the float32 tail tile, 3xTF32) and the apply
+   fronts (the float32 apply tile: the PGSSTB calls' fronts and the
+   PromptFusion calls apart) beside their bounds; each float32 call of the
+   tail, conv3, window, stats and apply tiles is first run twice: bitwise
+   equal. Then a float32 spectral apply with the tail and a float32 mlp
+   call at C = 400 (the tail tile in two output groups, the apply tile in
+   two comb passes), float32 stats calls at 400/8, 36/2, 27/3 and the
+   PromptFusion entry at 18 + 18, and float32 apply calls at 36 and 54
+   (shifted, with the tail), 27 and the PromptFusion entry at 27 + 27 (each
+   one stats or apply tile launch, no plain call), against plain (1e-4).
 3. Main path: the flagship preset on the committed trained weights, bf16 at
    1x31x512x512, answering 4 requests (mode-0 cubes) after a warm-up. The
    launch counters are zeroed just before the requests and read just after;
@@ -184,8 +191,9 @@ Phases (any failure exits non-zero; no phase's error is caught):
     every mode 0-12 on the trained flagship weights, one loaded model: each
     run launches every kernel (1 warm-up + 2 cubes) x the float32 forward's
     enumerated signatures (and the float32 tail tile once per apply call with
-    the tail, the float32 conv3, window and stats tiles once per conv3,
-    window and stats call, each counted apart), no plain version on the card; per mode the first
+    the tail, the float32 conv3, window, stats and apply tiles once per
+    conv3, window, stats and apply call, each counted apart), no plain
+    version on the card; per mode the first
     cube through the kernel and the plain float32 forward under the mode's
     task id (max abs <= 1e-4: prompts 0-5); mode 0 restores >= 3 dB above
     the degraded input, the other modes print PSNR, SSIM, SAM and the
@@ -204,10 +212,11 @@ Phases (any failure exits non-zero; no phase's error is caught):
     remote-sensing train-step numbers and the train and eval CLIs' launches
     beside them; the float32 tail tile's row: phase 14's launches, phase 2's
     tail ms per flagship float32 forward beside its bound and plain, the
-    largest float32 error of its calls; the float32 conv3, window and stats
-    tiles' rows: phase 14's launches (one per call of their kernel), phase
-    2's float32 ms per flagship forward, alone, plain, bound and library,
-    phase 7's remote-sensing float32 sums), then the result line.
+    largest float32 error of its calls; the float32 conv3, window, stats
+    and apply tiles' rows: phase 14's launches (one per call of their
+    kernel), phase 2's float32 ms per flagship forward (the apply tile's:
+    its fronts), alone, plain, bound and library, phase 7's remote-sensing
+    float32 sums), then the result line.
 
 --bwd-split KERNEL (mlp_bwd, spectral_stats_bwd, window_attention_bwd,
 spectral_apply_bwd or gdfn_bwd; repeatable) runs phase 1's build and only
@@ -221,9 +230,10 @@ phases 1, 2, K6's float32 calls of phases 5 and 11 (checked and timed) and
 14: the float32 path's kernels and the eval CLI, also for an
 older checkout (this file copied to its root: where its package has no
 float32 tail tile, the tile's launches are not expected and its C = 400 mlp
-call is left out; where it has no float32 conv3 and window tiles, or no
-float32 stats tile, their launches are not expected and only their SIMT
-kernels' registers are logged).
+call is left out; where it has no float32 conv3 and window tiles, no
+float32 stats tile or no float32 apply tile, their launches are not
+expected and only their SIMT kernels' registers are logged; its float32
+apply calls are timed and counted with its own chunked plan).
 """
 
 from __future__ import annotations
@@ -297,10 +307,11 @@ STAGED = ("spectral_stats", "spectral_apply", "gdfn")
 TAIL_F32_KERNEL = {"mlp_tail_f32": dict(source="mp_hsir_tpu_torch/csrc/mlp_tail.cuh",
                                         tpu=["K2", "K6"],
                                         replaces="mp_hsir_tpu/ops/pallas_attention.py:965")}
-# the float32 conv3, window and spectral stats tiles (3xTF32): K4's, K1's and
-# K2 phase 0's float32 instances, the eval CLI's route; their launches count
-# in their own counters beside conv3's, window_attention's and
-# spectral_stats's
+# the float32 conv3, window, spectral stats and spectral apply tiles
+# (3xTF32): K4's, K1's, K2 phase 0's and K2 phase 1's (with K7b's) float32
+# instances, the eval CLI's route; their launches count in their own
+# counters beside conv3's, window_attention's, spectral_stats's and
+# spectral_apply's
 F32_TILE_KERNELS = {
     "conv3_f32": dict(source="mp_hsir_tpu_torch/csrc/conv3.cu", tpu=["K4"], of="conv3",
                       replaces="mp_hsir_tpu/ops/pallas_attention.py:1182"),
@@ -309,6 +320,9 @@ F32_TILE_KERNELS = {
                                  replaces="mp_hsir_tpu/ops/pallas_attention.py:794"),
     "spectral_stats_f32": dict(source="mp_hsir_tpu_torch/csrc/spectral_stats_f32.cuh",
                                tpu=["K2", "K3", "K7a"], of="spectral_stats",
+                               replaces="mp_hsir_tpu/ops/pallas_attention.py:1842"),
+    "spectral_apply_f32": dict(source="mp_hsir_tpu_torch/csrc/spectral.cu", tpu=["K2", "K7b"],
+                               of="spectral_apply", sums="spectral_apply_front",
                                replaces="mp_hsir_tpu/ops/pallas_attention.py:1842"),
 }
 # a width past fc2's 384-channel register slice (two output groups), float32
@@ -566,6 +580,9 @@ def plan_of(spec) -> dict:
         return dict(smem=n, smem_whole=n, kc=c, c=c)
     if name == "spectral_stats" and has_stats_f32_tile():  # the float32 tile: one plan
         n = _build.plan_bytes("mp_spectral_stats_smem", *shape)
+        return dict(smem=n, smem_whole=n, kc=c, c=c)
+    if name == "spectral_apply" and has_apply_f32_tile():  # both tiles: one plan each
+        n = _build.plan_bytes(smem_entry, *shape)
         return dict(smem=n, smem_whole=n, kc=c, c=c)
     if name == "gdfn" and _code(spec):  # the bf16 tile: one resident plan
         n = _build.plan_bytes("mp_gdfn_tc_smem", c)
@@ -833,16 +850,28 @@ def has_stats_f32_tile() -> bool:
     return hasattr(spectral, "F32_TILE")
 
 
+def has_apply_f32_tile() -> bool:
+    """Whether this checkout's package has the float32 spectral apply tile
+    (an older checkout measured with this file has not: its float32 apply
+    front is SIMT, with a channel chunk)."""
+    from mp_hsir_tpu_torch.ops.kernels import spectral
+
+    return hasattr(spectral, "APPLY_F32")
+
+
 def f32_tile_specs(specs: Counter) -> Counter:
-    """The float32 conv3, window and stats tiles' launches of a multiset of
-    calls: one per float32 conv3 call, as ("conv3_f32", B, H, W, Cin, Cout,
-    mode), per float32 window_attention call, as ("window_attention_f32", B,
-    H, W, C, heads, shift), and per float32 spectral_stats call, as
-    ("spectral_stats_f32", B, H, W, C1, C2, heads, shift, ln); none for the
-    tiles the package does not have."""
+    """The float32 conv3, window, stats and apply tiles' launches of a
+    multiset of calls: one per float32 conv3 call, as ("conv3_f32", B, H, W,
+    Cin, Cout, mode), per float32 window_attention call, as
+    ("window_attention_f32", B, H, W, C, heads, shift), per float32
+    spectral_stats call, as ("spectral_stats_f32", B, H, W, C1, C2, heads,
+    shift, ln), and per float32 spectral_apply call, as
+    ("spectral_apply_f32", B, H, W, C1, C2, shift, ln, residual, gate,
+    shortcut, hid); none for the tiles the package does not have."""
     out: Counter = Counter()
     kinds = (("conv3", "window_attention") if has_f32_tiles() else ()) + (
-        ("spectral_stats",) if has_stats_f32_tile() else ())
+        ("spectral_stats",) if has_stats_f32_tile() else ()) + (
+        ("spectral_apply",) if has_apply_f32_tile() else ())
     for spec, n in specs.items():
         if spec[-1] == "torch.float32" and spec[0] in kinds:
             out[(spec[0] + "_f32", *spec[1:-1])] += n
@@ -871,9 +900,10 @@ def f32_times(spec, fn, args, kw, byts, flops) -> dict:
 
     if (spec[0] == "mlp" or spec[0] == "spectral_apply" and kw.get("mlp")
             or spec[0] in ("conv3", "window_attention") and has_f32_tiles()
-            or spec[0] == "spectral_stats" and has_stats_f32_tile()):
-        # the float32 tail, conv3, window and stats tiles sum in a fixed
-        # order, with no float atomics
+            or spec[0] == "spectral_stats" and has_stats_f32_tile()
+            or spec[0] == "spectral_apply" and has_apply_f32_tile()):
+        # the float32 tail, conv3, window, stats and apply tiles sum in a
+        # fixed order, with no float atomics
         if not all(torch.equal(a, b) for a, b in zip(_flat(fn(*args, **kw)),
                                                      _flat(fn(*args, **kw)))):
             raise AssertionError(f"{spec[0]} {spec[1:-1]}: two float32 calls differ")
@@ -918,11 +948,26 @@ def tflop_rate(flops, ms) -> float:
     return flops / ms / 1e9 if ms > 0 else float("nan")
 
 
+def front_sums(rows, per: str) -> dict:
+    """The float32 apply fronts of a path's calls summed (wrapper, alone,
+    plain, bound): a call with the tail counts its run without it, a call
+    without the tail (PromptFusion) itself."""
+    def one(r, k):
+        return r[k.replace("f32_", "f32_front_")] if "f32_front_ms" in r else r[k]
+    tot = lambda k: sum(one(r, k) * r[per] for r in rows)  # noqa: E731
+    return dict(calls=sum(r[per] for r in rows), ms=tot("f32_ms"),
+                kernel_alone_ms=tot("f32_kernel_ms"), plain_ms=tot("f32_plain_ms"),
+                bound_ms=tot("f32_bound_ms"), max_abs_err=max(r["max_abs_err_f32"] for r in rows),
+                rel_err=max(r["rel_err_f32"] for r in rows))
+
+
 def log_f32_sums(what: str, rows, per: str) -> dict:
     """The float32 calls summed per kernel over the path (wrapper, alone,
     plain, bound, F.conv2d), the spectral_apply calls with the tail split
-    into front and tail (each beside its bound), and the float32 tail tile's
-    row for the kernels line."""
+    into front and tail (each beside its bound), the float32 tail tile's
+    row for the kernels line, and the apply fronts (the float32 apply
+    tile's row): the PGSSTB calls' fronts and the PromptFusion calls
+    apart, each beside its bound."""
     out = {}
     mine = [r for r in rows if "f32_ms" in r]
     log(f"  float32 calls {what}: ms through the wrapper, alone, plain, bound "
@@ -961,6 +1006,19 @@ def log_f32_sums(what: str, rows, per: str) -> dict:
             f"{t['plain_ms']:.3f}; bounds front {t['front_bound_ms']:.4f}, tail "
             f"{t['bound_ms']:.4f} ms; tail {tflop_rate(t['flops'], t['ms']):.1f} TFLOP/s through "
             f"the wrapper, {tflop_rate(t['flops'], t['kernel_alone_ms']):.1f} alone")
+    applies = [r for r in mine if r["spec"][0] == "spectral_apply"]
+    if applies:
+        fr = front_sums(applies, per)
+        for part, rs in (("pgsstb", [r for r in applies if "f32_front_ms" in r]),
+                         ("fusion", [r for r in applies if "f32_front_ms" not in r])):
+            if rs:
+                fr[part] = front_sums(rs, per)
+        out["spectral_apply_front"] = fr
+        log(f"    spectral_apply fronts, all {fr['calls']} calls: wrapper {fr['ms']:.3f} ms, alone "
+            f"{fr['kernel_alone_ms']:.3f}, plain {fr['plain_ms']:.3f}, bound {fr['bound_ms']:.4f}; "
+            + "; ".join(f"{k} ({fr[k]['calls']} calls) wrapper {fr[k]['ms']:.3f} ms, alone "
+                        f"{fr[k]['kernel_alone_ms']:.3f}, plain {fr[k]['plain_ms']:.3f}, bound "
+                        f"{fr[k]['bound_ms']:.4f}" for k in ("pgsstb", "fusion") if k in fr))
     return out
 
 
@@ -2151,9 +2209,9 @@ def eval_run(dev, model, model_cfg, cfg, expected: Counter, what: str, router=No
     """One run_mode with the counters zeroed just before and read just
     after: every kernel launches EVAL_FORWARDS x its per-forward count with
     the enumerated signatures (the float32 tail tile once per apply call
-    with the tail, tail_f32_specs; the float32 conv3 and window tiles once
-    per conv3 and window call, f32_tile_specs), no plain version on the
-    card. Its stdout is logged indented."""
+    with the tail, tail_f32_specs; the float32 conv3, window, stats and
+    apply tiles once per call of their kernel, f32_tile_specs), no plain
+    version on the card. Its stdout is logged indented."""
     import io
 
     from mp_hsir_tpu_torch.cli import test_cli
@@ -2556,14 +2614,19 @@ def log_streamed(what: str, rows, per: str) -> dict:
 def log_front_plans(_build) -> dict:
     """The bf16 spectral apply tile's shared-memory plan (bytes, static
     included) at every width of the presets' apply calls, with and without
-    the tail, beside the float32 layout's at its own chunk."""
+    the tail, beside the float32 tile's (or an older checkout's SIMT layout
+    at its own chunk)."""
     plans = {}
     for c in (64, 96, 128, 192, 256, 384):
         for tail in (1, 0):
-            f32 = _build.plan_bytes("mp_spectral_apply_smem", c, tail, 0,
-                                    _build.chunk("mp_spectral_apply_chunk", c, tail, 0))
-            plans[f"C={c}{'+tail' if tail else ''}"] = dict(
-                bf16=_build.plan_bytes("mp_spectral_apply_smem", c, tail, 1, c), f32=f32)
+            if has_apply_f32_tile():
+                f32 = _build.plan_bytes("mp_spectral_apply_smem", c, tail, 0)
+                bf16 = _build.plan_bytes("mp_spectral_apply_smem", c, tail, 1)
+            else:
+                f32 = _build.plan_bytes("mp_spectral_apply_smem", c, tail, 0,
+                                        _build.chunk("mp_spectral_apply_chunk", c, tail, 0))
+                bf16 = _build.plan_bytes("mp_spectral_apply_smem", c, tail, 1, c)
+            plans[f"C={c}{'+tail' if tail else ''}"] = dict(bf16=bf16, f32=f32)
     log("  bf16 spectral apply plans (B; float32's in brackets): " + ", ".join(
         f"{k} {v['bf16']} ({v['f32']})" for k, v in plans.items()))
     return plans
@@ -2631,21 +2694,28 @@ def simt_f32_plans(c: int, limit: int) -> tuple:
 
 def log_f32_tail_plans(_build) -> dict:
     """The float32 tail tile's registers and spills (mlp_f32_kernel and the
-    two float32 apply instances that run it), and the float32 plans with the
-    tail at every width of the presets' tail calls and at WIDE_C: the apply
-    kernel's at its chunk and the mlp kernel's, beside the SIMT tail's."""
-    regs = {k: ptxas_report(m) for k, m in (
-        ("mlp_f32_kernel", "mlp_f32_kernel"), ("spectral_apply_kernel<float, resident>",
-                                               "spectral_apply_kernelIfLb0E"),
-        ("spectral_apply_kernel<float, streamed>", "spectral_apply_kernelIfLb1E"))}
+    float32 apply tile that run it, or an older checkout's two SIMT apply
+    instances), and the float32 plans with the tail at every width of the
+    presets' tail calls and at WIDE_C: the apply kernel's (at its chunk in
+    an older checkout) and the mlp kernel's, beside the SIMT tail's."""
+    regs = {k: r for k, m in (
+        ("mlp_f32_kernel", "mlp_f32_kernel"), ("spectral_apply_f32_kernel",
+                                               "spectral_apply_f32_kernel"),
+        ("spectral_apply_kernel<float, resident>", "spectral_apply_kernelIfLb0E"),
+        ("spectral_apply_kernel<float, streamed>", "spectral_apply_kernelIfLb1E"))
+        if (r := ptxas_report(m))}
     log("  float32 tail tile (ptxas): " + ", ".join(
         f"{k} {v.get('registers', '?')} regs, spills {v.get('spill_stores', '?')}/"
         f"{v.get('spill_loads', '?')} B" for k, v in regs.items()))
     limit, plans = _build.smem_limit(), {}
     for c in (64, 96, 128, 192, 256, 384, WIDE_C):
-        kc = _build.chunk("mp_spectral_apply_chunk", c, 1, 0)
+        if has_apply_f32_tile():
+            kc, apply = c, _build.plan_bytes("mp_spectral_apply_smem", c, 1, 0)
+        else:
+            kc = _build.chunk("mp_spectral_apply_chunk", c, 1, 0)
+            apply = _build.plan_bytes("mp_spectral_apply_smem", c, 1, 0, kc)
         old_apply, old_mlp = simt_f32_plans(c, limit)
-        plans[c] = dict(apply=_build.plan_bytes("mp_spectral_apply_smem", c, 1, 0, kc), kc=kc,
+        plans[c] = dict(apply=apply, kc=kc,
                         mlp=_build.plan_bytes("mp_mlp_smem", c, 0), simt_apply=old_apply,
                         simt_mlp=old_mlp)
         if has_tail_f32():
@@ -2783,6 +2853,71 @@ def log_stats_f32_plans(_build, cfgs) -> dict:
     return dict(ptxas=regs, plans=plans)
 
 
+def simt_apply_f32_plan(c: int, tail: int, limit: int) -> int:
+    """The float32 plan (bytes, static included) of the SIMT apply front
+    that the float32 apply tile replaced (spectral_apply_kernel<float>: the
+    halo chunk [100][kc + 1] and the v 1x1 chunk [100][nv + 1] sharing one
+    region with y, [64][C + 1] or with the tail [64][CK + 4]; v [64][C +
+    1]; with the tail the tail tile's scratch over the dead front where
+    larger; the LN mean and rstd 800 B static) at the chunk it picked (C
+    where that fit ``limit``, else 64)."""
+    from mp_hsir_tpu_torch.ops.kernels.mlp import tail_f32_plan
+
+    def plan(kc):
+        nv = 32 if kc >= c else 128
+        y = 64 * (-(-c // 64) * 64 + 4 if tail else c + 1)
+        front = 4 * (max(100 * (kc + 1) + 100 * (nv + 1), y) + 64 * (c + 1))
+        return max(front, tail_f32_plan(c)["bytes"] if tail else 0) + 800
+    return plan(c) if c <= 64 or plan(c) <= limit else plan(64)
+
+
+# the float32 apply tile's widths beside the presets': rows not 16-byte
+# multiples (27 odd, 36, 54) and WIDE_C (two comb passes)
+APPLY_ODD = (27, 36, 54, WIDE_C)
+
+
+def log_apply_f32_plans(_build, cfgs) -> dict:
+    """The float32 apply tile's registers and spills beside the bf16 tile's
+    (and an older checkout's SIMT instances'), and its plans at every (C,
+    tail) of the presets' float32 apply calls (eval and train) and at
+    APPLY_ODD with and without the tail (bytes, static included, with its
+    column groups, comb passes and ring stages) beside the SIMT plan it
+    replaced, each the mirror's (apply_f32_plan) and within the limit."""
+    names = (("spectral_apply_f32_kernel", "spectral_apply_f32_kernel"),
+             ("spectral_apply_tc_kernel (bf16)", "spectral_apply_tc_kernel"),
+             ("spectral_apply_kernel<float, resident> (SIMT)", "spectral_apply_kernelIfLb0E"),
+             ("spectral_apply_kernel<float, streamed> (SIMT)", "spectral_apply_kernelIfLb1E"))
+    regs = {k: r for k, m in names if (r := ptxas_report(m))}
+    log("  float32 apply tile (ptxas, the bf16 tile beside it): " + ", ".join(
+        f"{k} {v.get('registers', '?')} regs, spills {v.get('spill_stores', '?')}/"
+        f"{v.get('spill_loads', '?')} B" for k, v in regs.items()))
+    if not has_apply_f32_tile():
+        log("  float32 spectral apply: no tensor-core tile in this package (SIMT front)")
+        return dict(ptxas=regs)
+    from mp_hsir_tpu_torch.ops.kernels.spectral import apply_f32_plan
+
+    shapes = {(c, t) for c in APPLY_ODD for t in (0, 1)}
+    for cfg in cfgs:
+        for specs in (path_specs(cfg, SIZE, "bf16"), train_path_specs(cfg, 1, 64, "bf16")):
+            shapes |= {(s[4] + s[5], int(s[11] > 0)) for s in specs if s[0] == "spectral_apply"}
+    limit, plans = _build.smem_limit(), {}
+    for c, tail in sorted(shapes):
+        mirror = apply_f32_plan(c, bool(tail))
+        n = _build.plan_bytes("mp_spectral_apply_smem", c, tail, 0)
+        key = f"C={c}{'+tail' if tail else ''}"
+        plans[key] = dict(f32=n, simt=simt_apply_f32_plan(c, tail, limit),
+                          groups=mirror["groups"], passes=mirror["passes"], stages=mirror["ws"],
+                          comb_stages=mirror["cs"])
+        if n != mirror["bytes"]:
+            fail(f"float32 apply plan at {key}: {n} B, apply_f32_plan's {mirror}")
+        if not 0 < n <= limit:
+            fail(f"float32 apply plan at {key}: {n} B over the limit {limit}")
+    log(f"  float32 apply plans (B; the SIMT front's in brackets; limit {limit}): " + ", ".join(
+        f"{k} {v['f32']} ({v['simt']}), {v['groups']} group(s), {v['passes']} pass(es), "
+        f"{v['stages']}/{v['comb_stages']} stages" for k, v in plans.items()))
+    return dict(ptxas=regs, plans=plans)
+
+
 def k6_f32_checks(specs: Counter, dev) -> list:
     """K6's float32 calls (the mlp calls of a train step, float32: the
     float32 tail tile) against their plain versions (F32_TOL), timed as in
@@ -2809,7 +2944,11 @@ def wide_f32_checks(dev) -> list:
     package has no float32 tail tile (the SIMT plan does not fit there).
     Where it has the float32 stats tile, its STATS_ODD widths too (C =
     WIDE_C shifted, dh 18 shifted, dh 9, and the PromptFusion entry at C =
-    18 + 18 with LN): one spectral_stats_f32 launch each, no plain call."""
+    18 + 18 with LN): one spectral_stats_f32 launch each, no plain call.
+    Where it has the float32 apply tile, its APPLY_ODD widths too (C = 36
+    shifted with the tail, 27 unshifted without it, 54 shifted with the
+    tail, the PromptFusion entry at 27 + 27 with LN and residual), and the
+    WIDE_C call: one spectral_apply_f32 launch each, no plain call."""
     from mp_hsir_tpu_torch.ops.kernels import _route
 
     hid = int(WIDE_C * 2.66)
@@ -2817,6 +2956,15 @@ def wide_f32_checks(dev) -> list:
     specs = [("spectral_apply", 1, 64, 64, WIDE_C, 0, 4, False, False, True, True, hid,
               "torch.float32"),
              ("mlp", 1, 64, 64, WIDE_C, hid, True, True, "torch.float32")]
+    if has_apply_f32_tile():
+        specs += [("spectral_apply", 1, 64, 64, 36, 0, 4, False, False, True, True, int(36 * 2.66),
+                   "torch.float32"),
+                  ("spectral_apply", 1, 64, 64, 27, 0, 0, False, False, True, True, 0,
+                   "torch.float32"),
+                  ("spectral_apply", 1, 64, 64, 54, 0, 4, False, False, True, True, int(54 * 2.66),
+                   "torch.float32"),
+                  ("spectral_apply", 1, 64, 64, 27, 27, 0, True, True, False, False, 0,
+                   "torch.float32")]
     if has_stats_f32_tile():
         specs += [("spectral_stats", 1, 64, 64, WIDE_C, 0, 8, 4, False, "torch.float32"),
                   ("spectral_stats", 1, 64, 64, 36, 0, 2, 4, False, "torch.float32"),
@@ -2828,12 +2976,13 @@ def wide_f32_checks(dev) -> list:
             continue
         fn, args, kw, _, byts, flops = make_train_fwd_call(spec, dev, torch.float32)
         err, rel = compare(fn, args, kw, F32_TOL)
-        if spec[0] == "spectral_stats":
+        tile = dict(spectral_stats="spectral_stats_f32", spectral_apply="spectral_apply_f32")
+        if spec[0] == "spectral_stats" or spec[0] == "spectral_apply" and has_apply_f32_tile():
             _route.reset_counters()
             fn(*args, **kw)
-            n, plain = _route.COUNTERS["spectral_stats_f32"].launches, _route.ROUTE.plain_cuda_calls
+            n, plain = _route.COUNTERS[tile[spec[0]]].launches, _route.ROUTE.plain_cuda_calls
             if (n, plain) != (1, 0):
-                fail(f"float32 stats {spec[1:-1]}: {n} tile launches, {plain} plain calls")
+                fail(f"float32 {spec[0]} {spec[1:-1]}: {n} tile launches, {plain} plain calls")
         row = dict(spec=list(spec), max_abs_err_f32=err, rel_err_f32=rel, per_call=1,
                    **f32_times(spec, fn, args, kw, byts, flops))
         rows.append(row)
@@ -3134,6 +3283,7 @@ def main() -> None:
     f32_tail_plans = log_f32_tail_plans(_build)
     f32_tile_plans = log_f32_tile_plans(_build, preset_cfgs)
     f32_tile_plans["stats"] = log_stats_f32_plans(_build, preset_cfgs)
+    f32_tile_plans["apply"] = log_apply_f32_plans(_build, preset_cfgs)
 
     specs = path_specs(cfg, SIZE, "torch.bfloat16")
 
@@ -3143,7 +3293,8 @@ def main() -> None:
     log_alone_sums("per flagship forward", rows, "per_forward")
     f32_eval = log_f32_sums("per flagship forward", rows, "per_forward")
     log(card)
-    log(f"== phase 2 (C = {WIDE_C}): float32 calls past the tail tile's register slice")
+    log(f"== phase 2 (C = {WIDE_C} and odd widths): float32 calls past the tail tile's register "
+        f"slice, the float32 stats and apply tiles' odd widths")
     wide = wide_f32_checks(dev)
     if args.f32_eval:
         k6 = {}
@@ -3314,12 +3465,14 @@ def main() -> None:
         library_ms=None, kernel_alone_ms=split["kernel_alone_ms"],
         k6_train_f32=f32_train.get("mlp"), k6_rs_train_f32=f32_rs_train.get("mlp"),
         eval_cli=dict(launches=n, launches_per_forward=n // (len(EVAL_MODES) * EVAL_FORWARDS))))
-    # the float32 conv3, window and stats tiles: their own path is the
-    # float32 eval CLI (phase 14's launches, one per call of their kernel);
-    # ms (wrapper and alone), plain, bound and library per flagship float32
-    # forward from phase 2's float32 sums
+    # the float32 conv3, window, stats and apply tiles: their own path is
+    # the float32 eval CLI (phase 14's launches, one per call of their
+    # kernel); ms (wrapper and alone), plain, bound and library per flagship
+    # float32 forward from phase 2's float32 sums (the apply tile's: its
+    # fronts, spectral_apply_front)
     for name, meta in F32_TILE_KERNELS.items():
-        n, f = ev["launches"].get(name, 0), f32_eval[meta["of"]]
+        sums = meta.get("sums", meta["of"])
+        n, f = ev["launches"].get(name, 0), f32_eval[sums]
         if n == 0 or n != ev["launches"].get(meta["of"]):
             fail(f"the float32 tile {name} was launched {n} times by the eval CLI, its kernel "
                  f"{meta['of']} {ev['launches'].get(meta['of'])}")
@@ -3329,7 +3482,7 @@ def main() -> None:
             max_abs_err=f["max_abs_err"], rel_err=f["rel_err"], ms=f["ms"],
             plain_ms=f["plain_ms"], bound_ms=f["bound_ms"], bound_by="operations",
             library_ms=f.get("library_ms"), kernel_alone_ms=f.get("kernel_alone_ms"),
-            remote_sensing_f32=f32_rs.get(meta["of"]),
+            remote_sensing_f32=f32_rs.get(sums),
             eval_cli=dict(launches=n, launches_per_forward=n // (len(EVAL_MODES) * EVAL_FORWARDS))))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -12,8 +12,9 @@
 //                      the PGSSTB tail out + fc2(a * gelu(g)), [a|g] = fc1(LN2(out))
 //                      (bf16: the tensor-core tile of spectral_front.cuh with
 //                      the tail tile of mlp_tail.cuh after it; float32:
-//                      spectral_apply_kernel below, SIMT FMA, with the 3xTF32
-//                      tail tile of mlp_tail.cuh, mlp_tail_f32).
+//                      spectral_apply_f32_kernel below, the 3xTF32 tile built
+//                      from spectral_front_f32.cuh, with the 3xTF32 tail tile
+//                      of mlp_tail.cuh, mlp_tail_f32).
 //
 // Replaces _spectral_kernel (mp_hsir_tpu/ops/pallas_attention.py:1429, K2: the
 // stats launch is its phase 0, the apply launch its phase 1) and the spectral
@@ -28,15 +29,15 @@
 //
 // Bound on this card: 4C^2 + 6C*hidden flops per pixel in the apply launch and
 // 4C^2 + 2C*dh in the stats launch against ~4C bytes per pixel: tensor-core
-// rate bounds both at these widths. bf16 products run as mma.sync on the
-// tensor cores, float32 ones as SIMT FMA (common.cuh gemm; PERF.md) but for
-// the apply launch's PGSSTB tail and the stats launch, 3xTF32 mma.sync
-// (mlp_tail.cuh, spectral_stats_f32.cuh); the bf16 stats and apply launches
-// run their own tiles (spectral_stats.cuh, spectral_front.cuh). The bf16
-// stats backward runs two tensor-core tiles: spectral_stats_bwd_tc_kernel
-// (spectral_stats.cuh) and dwconv_dx_tc_kernel (dwconv_dx.cuh); the float32
-// one spectral_stats_bwd_kernel below and grad.cu's dwconv_bwd and
-// ln_linear_bwd. So does the bf16 apply backward:
+// rate bounds both at these widths. Every forward product runs on the
+// tensor cores: bf16 as mma.sync in the tiles of spectral_stats.cuh and
+// spectral_front.cuh, float32 as 3xTF32 mma.sync in those of
+// spectral_stats_f32.cuh, spectral_apply_f32_kernel below and mlp_tail.cuh
+// (PERF.md). The float32 backward kernels below keep SIMT FMA (common.cuh
+// gemm). The bf16 stats backward runs two tensor-core tiles:
+// spectral_stats_bwd_tc_kernel (spectral_stats.cuh) and dwconv_dx_tc_kernel
+// (dwconv_dx.cuh); the float32 one spectral_stats_bwd_kernel below and
+// grad.cu's dwconv_bwd and ln_linear_bwd. So does the bf16 apply backward:
 // spectral_apply_bwd_tc_kernel (spectral_apply_bwd.cuh) and
 // dwconv_dx_tc_kernel<true, true>; the float32 one spectral_apply_bwd_kernel
 // below and grad.cu's stages.
@@ -155,26 +156,19 @@ cudaError_t launch_sum_parts(const float* part, float* out, int nb, int n_parts,
 constexpr int kVC = 32;   // v channel chunk when the input is resident
 constexpr int kVCw = 128; // v channel chunk when it is streamed (fewer re-reads)
 
-// The float32 apply kernel's plan (and the apply backward's, without the
-// tail): the halo input chunk xc [100][kc+1] and the v 1x1 chunk vt
-// [100][nv+1] share one region with the output y (y is written after the v
-// stage): [64][C+1], or with the tail [64][CK+4] (CK = C rounded up to 64),
-// where LN2(y) is taken in place; vs [64][C+1] holds v. With the tail, the
-// tail tile's scratch (LN2(y) in y's place, the gated chunk, the ring;
-// tail_f32_bytes) covers the dead front after the comb product, and the plan
-// is the larger of the two. Resident (kc = C): the natural-scene layout, a
-// kernel instance of its own whose chunks are compile-time constants. The
-// bf16 apply kernel has its own plan (FrontPlan).
+// The float32 apply backward's plan: the halo input chunk xc [100][kc+1] and
+// the v 1x1 chunk vt [100][nv+1] share one region with dys [64][C+1] (dys
+// is staged after the v stage); vs [64][C+1] holds v. Resident (kc = C): the
+// natural-scene layout, a kernel instance of its own whose chunks are
+// compile-time constants.
 struct ApplyPlan {
   int kc, nv;
-  __host__ __device__ size_t front(int C, bool tail = false) const {
+  __host__ __device__ size_t front(int C) const {
     const size_t stage = (size_t)kHaloPix * (kc + 1) + (size_t)kHaloPix * (nv + 1);
-    const size_t y = (size_t)kPix * (tail ? round_up64(C) + 4 : C + 1);
+    const size_t y = (size_t)kPix * (C + 1);
     return stage > y ? stage : y;
   }
-  __host__ __device__ size_t floats(int C, bool tail) const {
-    return front(C, tail) + (size_t)kPix * (C + 1);
-  }
+  __host__ __device__ size_t floats(int C) const { return front(C) + (size_t)kPix * (C + 1); }
 };
 
 template <bool kStream>
@@ -182,126 +176,188 @@ __host__ __device__ inline ApplyPlan apply_plan(int kc, int C) {
   return kStream ? ApplyPlan{kc, kVCw} : ApplyPlan{C, kVC};
 }
 
-template <typename T, bool kStream>
+// The float32 apply tile: phase 1 of _spectral_kernel
+// (mp_hsir_tpu/ops/pallas_attention.py:1597-1650) and _sp1_kernel (:1962)
+// in float32, on the tensor cores in 3xTF32, with no rounding points. One
+// 8x8 tile per 512-thread block: v = dw3x3(1x1([LN] cat(x1, x2))) over the
+// tile's 10x10 halo, out = v @ comb, the epilogue [x * gate] [+ x] [+
+// shortcut] (with drop-path (out + x * gate) * dp), then optionally the
+// PGSSTB tail (mlp_tail_f32). Design (the float32 twin of the bf16 front,
+// built from the pieces of spectral_front_f32.cuh; plan ApplyF32Plan):
+// - v's 1x1 per column group of at most 192 v channels: the halo's and the
+//   group's v rows' 32-channel chunks streamed together through a cp.async
+//   ring ([112 + GW][36] float32 stages), LayerNorm per chunk from per-pixel
+//   mean / rstd, the 1x1 into registers (halo_1x1_f32), its output [100][GW
+//   + 8] over the ring's space, the depthwise 3x3 by fmaf in tap order
+//   (dw3_f32, taps staged once as [9][CP]) into the v tile [64][CP + 4].
+// - comb's product per pass of at most 384 output channels (one pass up to
+//   C = 384): v from the v tile by ldmatrix (A), comb^T's 32-deep chunks
+//   ([np][36] stages, the wrapper's transposed pack) through the same ring
+//   form (B); every k8 step's three TF32 products summed from zero on the
+//   tensor cores and added in float32 (mma_3xtf32).
+// - The epilogue straight from the accumulators (raw input pixel, gate
+//   window and output pixel precomputed per tile pixel; float32 pair loads):
+//   with the tail up to C = 384 into y [64][CK + 4] over the dead front,
+//   which tail_ln normalises in place; else to `out`, where the tail (past
+//   C = 384) reads y back and adds each output group of 384 channels.
+// Arguments: x1, x2, lnw, lnb, gate, shortcut, residual, dp and the tail as
+// mp_spectral_apply (float32); wv the v rows of wqkv ([C][C8], torch
+// layout, zero past C; 16-byte aligned), taps their depthwise taps ([C][9]),
+// combt comb transposed ([B][C out][C8 in], 16-byte aligned); flags: kVecX
+// (16-byte halo copies) | kPairs (8-byte epilogue loads and stores).
 __global__ void __launch_bounds__(kThreads)
-spectral_apply_kernel(const T* __restrict__ x1, const T* __restrict__ x2, int C1, int C2,
-                      const float* __restrict__ lnw, const float* __restrict__ lnb,
-                      const T* __restrict__ wqkv, const T* __restrict__ wdw,
-                      const float* __restrict__ comb, const T* __restrict__ gate,
-                      const T* __restrict__ shortcut, int residual,
-                      const float* __restrict__ ln2w, const float* __restrict__ ln2b,
-                      const T* __restrict__ w1, const float* __restrict__ b1,
-                      const T* __restrict__ w2, const float* __restrict__ b2, int hid,
-                      const float* __restrict__ dp, T* __restrict__ out, int H, int W,
-                      int shift, float eps, int kc, int tail_stages) {
-  extern __shared__ float4 apply_dyn[];  // 16-byte aligned: the tail's cp.async and ldmatrix
-  float* sm = reinterpret_cast<float*>(apply_dyn);
-  __shared__ float mu[kHaloPix], rs[kHaloPix];
-  const int C = C1 + C2, C3 = 3 * C;
-  const bool tail = w1 != nullptr;
-  const ApplyPlan plan = apply_plan<kStream>(kc, C);
-  const int ldc = plan.kc + 1, ldx = C + 1, ldv = plan.nv + 1;
-  const int ldy = tail ? round_up64(C) + 4 : ldx;
-  float* xc = sm;                       // [100][ldc] halo input chunk
-  float* vt = xc + kHaloPix * ldc;      // [100][ldv] 1x1 output chunk
-  float* y = sm;                        // [64][ldy] output (after the v stage)
-  float* vs = sm + plan.front(C, tail); // [64][ldx] v
+spectral_apply_f32_kernel(const float* __restrict__ x1, const float* __restrict__ x2, int C1,
+                          int C2, const float* __restrict__ lnw, const float* __restrict__ lnb,
+                          const float* __restrict__ wv, const float* __restrict__ taps,
+                          const float* __restrict__ combt, const float* __restrict__ gate,
+                          const float* __restrict__ shortcut, int residual,
+                          const float* __restrict__ ln2w, const float* __restrict__ ln2b,
+                          const float* __restrict__ w1, const float* __restrict__ b1,
+                          const float* __restrict__ w2, const float* __restrict__ b2, int hid,
+                          const float* __restrict__ dp, float* __restrict__ out, int H, int W,
+                          int shift, float eps, int flags, int tail_stages) {
+  extern __shared__ float4 apply_f32_dyn[];  // 16-byte aligned: cp.async and ldmatrix
+  __shared__ int hsrc[kFrontRows];            // halo row -> raw source pixel (-1: zero row)
+  __shared__ int esrc[kPix], egate[kPix];     // tile pixel -> raw source pixel, gate row
+  const int C = C1 + C2, C8 = round_up8(C);
+  const ApplyF32Plan pl(C);
+  const int CP = pl.CP, ldv = pl.ldv;
+  float* tp = reinterpret_cast<float*>(apply_f32_dyn);  // [9][CP] v taps
+  float* mu = tp + 9 * CP;                              // [112]
+  float* rs = mu + kFrontRows;                          // [112]
+  float* vs = rs + kFrontRows;                          // [64][ldv] v
+  float* rg = vs + kPix * ldv;                          // ring / 1x1 output [100][ldt]
+  float* y = reinterpret_cast<float*>(apply_f32_dyn);   // [64][CK + 4] (after comb, tail)
   const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
-  const Halo<T> hl{x1, x2, C1, C2, b, ty, tx, H, W, shift};
+  const bool pairs = flags & kPairs;
+  const HaloF32 hl{x1, x2, C1, C2, hsrc, (flags & kVecX) != 0};
+  auto dst = [&](int i) { return out + tile_pix(b, ty, tx, i, H, W) * C; };
 
-  if (lnw != nullptr) {
-    halo_stats(mu, rs, hl, eps);
-    __syncthreads();
+  // the raw source pixel of each halo pixel (unrolled frame, read through
+  // the roll-back) and of each tile pixel, each tile pixel's gate window,
+  // and the taps of v, zero past C
+  for (int p = threadIdx.x; p < kFrontRows; p += blockDim.x) {
+    hsrc[p] = halo_src(p, b, ty, tx, H, W, shift);
+    if (p < kPix) {
+      const int sr = (ty * kTile + (p >> 3) - shift + H) % H;
+      const int sc = (tx * kTile + (p & 7) - shift + W) % W;
+      esrc[p] = (b * H + sr) * W + sc;
+      egate[p] = (b * (H / kTile) + sr / kTile) * (W / kTile) + sc / kTile;
+    }
   }
-  if constexpr (!kStream) {
-    halo_chunk(xc, ldc, hl, 0, C, mu, rs, lnw, lnb);
-    __syncthreads();
+  for (int i = threadIdx.x; i < 9 * CP; i += blockDim.x) {
+    const int tap = i / CP, c = i - tap * CP;
+    tp[i] = c < C ? taps[c * 9 + tap] : 0.f;
   }
-  for (int v0 = 0; v0 < C; v0 += plan.nv) {
-    const int nvc = min(plan.nv, C - v0);
-    for (int c0 = 0; c0 < C; c0 += plan.kc) {
-      const int nc = min(plan.kc, C - c0);
-      if constexpr (kStream) {
-        halo_chunk(xc, ldc, hl, c0, nc, mu, rs, lnw, lnb);
+  __syncthreads();
+  if (lnw != nullptr)  // read after the first chunk's barrier
+    ln_stats_rows(mu, rs, kHaloPix, C, eps, [&](int p, int k) { return hl.at(hsrc[p], k); },
+                  [&](int p) { return hsrc[p] >= 0; });
+
+  // v, one column group at a time
+  for (int g0 = 0; g0 < CP; g0 += pl.GW) {
+    const int gw = min(pl.GW, CP - g0), n_units = 7 * (gw / 32);
+    auto ring = front_ring(rg, pl.stage / sizeof(float), pl.ws, pl.nk,
+        [=](int kt, float* st) {
+          stage_f32_chunk(st, hl, wv, C8, gw, [=](int n) { return g0 + n < C ? g0 + n : -1; },
+                          kt);
+        });
+    ring.prefetch();
+    float acc[kFrontUnits][4][4];
+    halo_1x1_f32(acc, ring, n_units, pl.nk, [&](float* st, int kt) {
+      if (lnw != nullptr) {
+        ln_f32_chunk(st, hsrc, mu, rs, lnw, lnb, C, kt);
         __syncthreads();
       }
-      const bool first = !kStream || c0 == 0, last = !kStream || c0 + nc >= C;
-      gemm<T>(kHaloPix, nvc, nc,
-          [&](int i, int k) { return xc[i * ldc + k]; },
-          [&](int k, int j) { return to_f(wqkv[(size_t)(c0 + k) * C3 + 2 * C + v0 + j]); },
-          [&](int i, int j, float acc) {
-            chunk_acc(vt[i * ldv + j], acc, first, last, [](float v) { return rnd<T>(v); });
-          });
-      __syncthreads();
-    }
-    dwconv3_tile(vt, ldv, nvc,
-        [&](int tap, int j) { return to_f(wdw[tap * C3 + 2 * C + v0 + j]); },
-        [&](int p, int j, float acc) { vs[p * ldx + v0 + j] = rnd<T>(acc); });
+    });
+    cp_async_wait<0>();
+    __syncthreads();  // every warp is done with the ring: the 1x1 output takes its space
+    front_out(acc, n_units, 7, [&](int r, int c, float v0, float v1) {
+      if (r < kHaloPix) *reinterpret_cast<float2*>(rg + r * pl.ldt + c) = make_float2(v0, v1);
+    });
     __syncthreads();
+    dw3_f32(rg, pl.ldt, tp + g0, CP, vs + g0, ldv, gw / 2);
+    __syncthreads();  // v's columns are complete; the ring's space is free
   }
 
-  const float* cb = comb + (size_t)b * C * C;
-  gemm<T>(kPix, C, C,
-      [&](int i, int k) { return vs[i * ldx + k]; },
-      [&](int k, int j) { return rnd<T>(cb[(size_t)k * C + j]); },
-      [&](int i, int j, float acc) {
-        const int r = ty * kTile + (i >> 3), c = tx * kTile + (i & 7);
-        float v = rnd<T>(acc);
-        if (gate != nullptr || residual || dp != nullptr) {
-          // the input pixel in the unrolled frame (raw, before any LN)
-          const int sr = (r - shift + H) % H, sc = (c - shift + W) % W;
-          const size_t pix = ((size_t)b * H + sr) * W + sc;
-          const float u = j < C1 ? to_f(x1[pix * C1 + j]) : to_f(x2[pix * C2 + (j - C1)]);
-          const float g = gate == nullptr ? 0.f
-              : to_f(gate[(((size_t)b * (H / kTile) + sr / kTile) * (W / kTile) + sc / kTile) * C + j]);
-          if (dp != nullptr) {
-            // drop-path scale on the float32 branch sum, rounded once (as
-            // _sp1_kernel with has_dp; the backward scales dy the same way)
-            v = rnd<T>((acc + u * g) * dp[b]);
-          } else if (gate != nullptr) {
-            v = rnd<T>(rnd<T>(u * g) + v);
-          }
-          if (residual) v = rnd<T>(u + v);
+  // comb's product and the epilogue, one pass of output channels at a time
+  const bool tail = w1 != nullptr, one = round_up64(C) <= kTailMaxC;
+  const int ldy = round_up64(C) + 4;
+  const bool epi = gate != nullptr || residual || dp != nullptr;
+  const float dpb = dp != nullptr ? dp[b] : 1.f;
+  const float* cb = combt + (size_t)b * C * C8;
+  for (int n0 = 0; n0 < CP; n0 += pl.NP) {
+    const int np = min(pl.NP, CP - n0), n_units = 4 * (np / 32);
+    auto cr = front_ring(rg, pl.cstage / sizeof(float), pl.cs, pl.nk,
+        [=](int kt, float* st) {
+          stage_w_f32_chunk(st, cb, C8, np, [=](int n) { return n0 + n < C ? n0 + n : -1; }, kt);
+        });
+    cr.prefetch();
+    float acc[kFrontUnits][4][4];
+    comb_f32(acc, vs, ldv, cr, n_units, pl.nk);
+    cp_async_wait<0>();
+    __syncthreads();  // every warp is done with v and the ring: y may take their space
+    front_out(acc, n_units, 4, [&](int i, int cc, float v0, float v1) {
+      const int c = n0 + cc;
+      if (c >= C) return;
+      if (epi) {
+        const float2 u = load_pair(x1, x2, C1, C2, esrc[i], c, pairs);
+        const float2 g = gate != nullptr ? load_pair(gate, nullptr, C, 0, egate[i], c, pairs)
+                                         : make_float2(0.f, 0.f);
+        if (dp != nullptr) {
+          v0 = __fmul_rn(__fadd_rn(v0, __fmul_rn(u.x, g.x)), dpb);
+          v1 = __fmul_rn(__fadd_rn(v1, __fmul_rn(u.y, g.y)), dpb);
+        } else if (gate != nullptr) {
+          v0 = __fadd_rn(__fmul_rn(u.x, g.x), v0);
+          v1 = __fadd_rn(__fmul_rn(u.y, g.y), v1);
         }
-        if (shortcut != nullptr) v = rnd<T>(to_f(shortcut[(((size_t)b * H + r) * W + c) * C + j]) + v);
-        y[i * ldy + j] = v;
-      });
-  __syncthreads();
-  auto dst = [&](int i) { return out + tile_pix(b, ty, tx, i, H, W) * C; };
-  if (!tail) {
-    for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
-      const int i = idx / C, k = idx - i * C;
-      dst(i)[k] = from_f<T>(y[i * ldy + k]);
-    }
-    return;
+        if (residual) {
+          v0 = u.x + v0;
+          v1 = u.y + v1;
+        }
+      }
+      if (shortcut != nullptr) {
+        const float2 s = load_pair(shortcut, nullptr, C, 0, tile_pix(b, ty, tx, i, H, W), c,
+                                   pairs);
+        v0 = s.x + v0;
+        v1 = s.y + v1;
+      }
+      if (tail && one) {
+        *reinterpret_cast<float2*>(y + i * ldy + c) = make_float2(v0, v1);
+      } else if (pairs) {
+        *reinterpret_cast<float2*>(dst(i) + c) = make_float2(v0, v1);
+      } else {
+        dst(i)[c] = v0;
+        if (c + 1 < C) dst(i)[c + 1] = v1;
+      }
+    });
   }
+  if (!tail) return;
+  __syncthreads();  // y is complete (in shared memory, or in `out` past C = 384)
+
   // the PGSSTB tail on the tensor cores (3xTF32, mlp_tail_f32) over the dead
   // front: LN2(y) in y's place, the gated chunk, the ring. Up to C = 384
-  // fc2's sums start from y + b2 and hold the whole output; wider, y goes to
-  // `out` first and each output group of 384 channels adds its sums there.
+  // fc2's sums start from y + b2 and hold the whole output; wider, each
+  // output group of 384 channels adds its sums to y in `out`.
   const int CK = round_up64(C);
-  const bool one = CK <= kTailMaxC;
   float* gs = y + kPix * ldy;            // [64][kTailLdF] gated chunk
   float* ring = gs + kPix * kTailLdF;    // [tail_stages][kTailN][kTailLdF]
   float acc[2 * kTailGroups][4];
   for (int n0 = 0; n0 < CK; n0 += kTailMaxC) {
     if (n0 > 0) __syncthreads();  // the last group's tiles read before their stages refill
-    TailRingF rg(w1, w2, ring, tail_stages, C, hid, n0);
-    rg.prefetch();
+    TailRingF rg2(w1, w2, ring, tail_stages, C, hid, n0);
+    rg2.prefetch();
     if (n0 == 0) {
       if (one) {
         tail_init(acc, C, [&](int i, int k) { return y[i * ldy + k] + b2[k]; });
+        __syncthreads();  // y read before LN2 overwrites it
+        tail_ln([&](int i, int k) { return y[i * ldy + k]; }, y, ldy, C, ln2w, ln2b, eps);
       } else {
-        for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
-          const int i = idx / C, k = idx - i * C;
-          dst(i)[k] = y[i * ldy + k];
-        }
+        tail_ln([&](int i, int k) { return dst(i)[k]; }, y, ldy, C, ln2w, ln2b, eps);
       }
-      __syncthreads();
-      tail_ln([&](int i, int k) { return y[i * ldy + k]; }, y, ldy, C, ln2w, ln2b, eps);
     }
     if (!one) tail_init(acc, C - n0, [&](int, int k) { return b2[n0 + k]; });
-    mlp_tail_f32(acc, y, ldy, gs, rg, b1, hid);
+    mlp_tail_f32(acc, y, ldy, gs, rg2, b1, hid);
     tail_out(acc, C - n0, [&](int i, int k, float v) {
       float* o = dst(i) + n0 + k;
       *o = one ? v : *o + v;
@@ -481,33 +537,11 @@ spectral_apply_tc_kernel(const __nv_bfloat16* __restrict__ x1, const __nv_bfloat
   tail_store(xn, ldn, C, vec_out, dst, same);
 }
 
-// The float32 apply plan: the front's layout and, with the tail, the tail
-// tile's scratch over it (tail_f32_stages(C) ring stages), whichever is larger.
-inline size_t apply_smem(int C, bool tail, int kc) {
-  const ApplyPlan plan = kc >= C ? apply_plan<false>(kc, C) : apply_plan<true>(kc, C);
-  const size_t front = sizeof(float) * plan.floats(C, tail);
-  const size_t t = tail ? tail_f32_bytes(C, tail_f32_stages(C)) : 0;
-  return front > t ? front : t;
-}
-
-// The plan in the compute type: bf16 takes the front tile's plan (always
-// resident: no chunk), float32 the chunked layout above.
-inline size_t apply_smem(int C, bool tail, int kc, bool bf16) {
-  return bf16 ? FrontPlan(C).bytes(tail) : apply_smem(C, tail, kc);
-}
-
-// The float32 apply kernel instance of a chunk: resident where kc covers C.
-inline auto apply_kernel(int kc, int C) {
-  return kc >= C ? spectral_apply_kernel<float, false> : spectral_apply_kernel<float, true>;
-}
-
-inline long long apply_plan_bytes(int C, bool tail, int kc, bool bf16) {
-  const size_t smem = apply_smem(C, tail, kc, bf16);
-  return bf16 ? plan_bytes(spectral_apply_tc_kernel, smem) : plan_bytes(apply_kernel(kc, C), smem);
-}
-
-inline int apply_chunk(int C, bool tail, bool bf16) {
-  return bf16 ? C : pick_chunk(C, [&](int kc) { return apply_plan_bytes(C, tail, kc, false); });
+// The apply plan in the compute type (bytes, static included): the bf16
+// tile's FrontPlan or the float32 tile's ApplyF32Plan (neither has a chunk).
+inline long long apply_plan_bytes(int C, bool tail, bool bf16) {
+  return bf16 ? plan_bytes(spectral_apply_tc_kernel, FrontPlan(C).bytes(tail))
+              : plan_bytes(spectral_apply_f32_kernel, ApplyF32Plan(C).bytes(tail));
 }
 
 // The parts per image of a stats launch: the blocks the card holds at once
@@ -579,22 +613,30 @@ cudaError_t launch_stats_tc(const __nv_bfloat16* x1, const __nv_bfloat16* x2, in
   return launch_sum_stats(part, gram, nq, nk, B, n_parts, C, C / nH, stream);
 }
 
-cudaError_t launch_apply(const float* x1, const float* x2, int C1, int C2, const float* lnw,
-                         const float* lnb, const float* wqkv, const float* wdw, const float* comb,
-                         const float* gate, const float* shortcut, int residual,
-                         const float* ln2w, const float* ln2b, const float* w1, const float* b1,
-                         const float* w2, const float* b2, int hid, const float* dp, float* out,
-                         int B, int H, int W, int shift, int kc, float eps, cudaStream_t stream) {
+// The float32 tile: wv [C][C8], taps [C][9], combt [B][C][C8] float32 (wv
+// and combt 16-byte aligned), the tail's packs 16-byte aligned.
+cudaError_t launch_apply_f32(const float* x1, const float* x2, int C1, int C2, const float* lnw,
+                             const float* lnb, const float* wv, const float* taps,
+                             const float* combt, const float* gate, const float* shortcut,
+                             int residual, const float* ln2w, const float* ln2b, const float* w1,
+                             const float* b1, const float* w2, const float* b2, int hid,
+                             const float* dp, float* out, int B, int H, int W, int shift,
+                             float eps, cudaStream_t stream) {
   const int C = C1 + C2;
   const bool tail = w1 != nullptr;
-  if (tail && (!aligned(w1, 16) || !aligned(w2, 16))) return cudaErrorInvalidValue;
-  const size_t smem = apply_smem(C, tail, kc);
-  const auto kernel = apply_kernel(kc, C);
-  cudaError_t err = set_smem(kernel, smem);
+  if (!aligned(wv, 16) || !aligned(combt, 16) || (tail && (!aligned(w1, 16) || !aligned(w2, 16))))
+    return cudaErrorInvalidValue;
+  const size_t smem = ApplyF32Plan(C).bytes(tail);
+  int flags = 0;
+  if (C1 % 4 == 0 && C2 % 4 == 0 && aligned(x1, 16) && aligned(x2, 16)) flags |= kVecX;
+  if (C1 % 2 == 0 && C2 % 2 == 0 && aligned(x1, 8) && aligned(x2, 8) && aligned(gate, 8) &&
+      aligned(shortcut, 8) && aligned(out, 8))
+    flags |= kPairs;
+  cudaError_t err = set_smem(spectral_apply_f32_kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
-      x1, x2, C1, C2, lnw, lnb, wqkv, wdw, comb, gate, shortcut, residual, ln2w, ln2b, w1, b1, w2,
-      b2, hid, dp, out, H, W, shift, eps, kc, tail ? tail_f32_stages(C) : 0);
+  spectral_apply_f32_kernel<<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
+      x1, x2, C1, C2, lnw, lnb, wv, taps, combt, gate, shortcut, residual, ln2w, ln2b, w1, b1,
+      w2, b2, hid, dp, out, H, W, shift, eps, flags, tail ? tail_f32_stages(C) : 0);
   return cudaGetLastError();
 }
 
@@ -849,7 +891,8 @@ inline size_t stats_bwd_smem(int C, int nH) {
 
 // The halo stage (or dys) and v; kc < C adds the LN statistics.
 inline size_t apply_bwd_smem(int C, int kc) {
-  return apply_smem(C, false, kc) + (kc >= C ? 0 : sizeof(float) * 2 * kHaloPix);
+  const ApplyPlan plan = kc >= C ? apply_plan<false>(kc, C) : apply_plan<true>(kc, C);
+  return sizeof(float) * plan.floats(C) + (kc >= C ? 0 : sizeof(float) * 2 * kHaloPix);
 }
 
 // The apply backward instance of a chunk: resident where kc covers C.
@@ -1017,31 +1060,28 @@ extern "C" int mp_spectral_stats_parts(int dtype, int B, int H, int W, int C, in
 // residual adds the raw input; dp (B,) float32 per-sample drop-path scales of
 // the branch (NULL = none); w1 / w2 the PGSSTB tail (NULL = none). Output (B,
 // H, W, C) in the unrolled frame.
-// float32 (dtype 0): wqkv [C][3C], wdw [9][3C] ([in][out] copies), comb
-// float32, tail pack_mlp_weights' w1p [hidP/64][128][CK], w2p [CK][hidP] in
-// float32 (16-byte aligned); kc the channel chunk (mp_spectral_apply_chunk;
-// kc = C is the resident instance).
-// bf16 (dtype 1, C <= 384): wqkv the v rows of the torch weight ([C][C8], C8 =
-// C rounded up to 8, zero past C; 16-byte aligned), wdw their depthwise taps
-// ([C][9]), comb bf16 [B][C][C8] (16-byte aligned), tail pack_mlp_weights' w1p
-// [hidP/64][128][CK], w2p [CK][hidP]; kc is C.
+// wqkv the v rows of the torch weight ([C][C8], C8 = C rounded up to 8,
+// zero past C; 16-byte aligned), wdw their depthwise taps ([C][9]); the tail
+// pack_mlp_weights' w1p [hidP/64][128][CK], w2p [CK][hidP] (16-byte
+// aligned), all in the compute type.
+// float32 (dtype 0): comb transposed, [B][C out][C8 in] float32 (16-byte
+// aligned; pack_front_f32).
+// bf16 (dtype 1, C <= 384): comb bf16 [B][C][C8] (16-byte aligned).
 extern "C" int mp_spectral_apply(const void* x1, const void* x2, const void* lnw,
                                  const void* lnb, const void* wqkv, const void* wdw,
                                  const void* comb, const void* gate, const void* shortcut,
                                  const void* ln2w, const void* ln2b, const void* w1,
                                  const void* b1, const void* w2, const void* b2, const void* dp,
                                  void* out, int dtype, int B, int H, int W, int C1, int C2,
-                                 int residual, int hid, int shift, int kc, float eps,
-                                 void* stream) {
-  if (H % mp::kTile != 0 || W % mp::kTile != 0 || kc <= 0 || kc > C1 + C2)
-    return (int)cudaErrorInvalidValue;
+                                 int residual, int hid, int shift, float eps, void* stream) {
+  if (H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   auto f = [](const void* p) { return (const float*)p; };
   if (dtype == 0)
-    return (int)mp::launch_apply(f(x1), f(x2), C1, C2, f(lnw), f(lnb), f(wqkv), f(wdw), f(comb),
-                                 f(gate), f(shortcut), residual, f(ln2w), f(ln2b), f(w1), f(b1),
-                                 f(w2), f(b2), hid, f(dp), (float*)out, B, H, W, shift, kc, eps,
-                                 st);
+    return (int)mp::launch_apply_f32(f(x1), f(x2), C1, C2, f(lnw), f(lnb), f(wqkv), f(wdw),
+                                     f(comb), f(gate), f(shortcut), residual, f(ln2w), f(ln2b),
+                                     f(w1), f(b1), f(w2), f(b2), hid, f(dp), (float*)out, B, H,
+                                     W, shift, eps, st);
   using bf = const __nv_bfloat16*;
   return (int)mp::launch_apply_tc((bf)x1, (bf)x2, C1, C2, f(lnw), f(lnb), (bf)wqkv, (bf)wdw,
                                   (bf)comb, (bf)gate, (bf)shortcut, residual, f(ln2w), f(ln2b),
@@ -1051,11 +1091,6 @@ extern "C" int mp_spectral_apply(const void* x1, const void* x2, const void* lnw
 
 // The device's opt-in shared-memory limit per block, in bytes.
 extern "C" int mp_smem_optin() { return mp::smem_optin(); }
-
-// The channel chunk the float32 apply kernel launches with at a shape.
-extern "C" int mp_spectral_apply_chunk(int C, int tail, int dtype) {
-  return mp::apply_chunk(C, tail != 0, dtype != 0);
-}
 
 // Shared-memory plans per block (bytes, static included) at a shape. The
 // float32 stats tile's (StatsF32Plan; no chunk): -1 past heads 96 wide.
@@ -1069,9 +1104,10 @@ extern "C" long long mp_spectral_stats_tc_smem(int C, int nH) {
   return mp::plan_bytes(mp::spectral_stats_tc_kernel, mp::StatsPlan(C, nH).bytes);
 }
 
-// The apply plan takes the compute type (dtype 0 float32, 1 bf16).
-extern "C" long long mp_spectral_apply_smem(int C, int tail, int dtype, int kc) {
-  return mp::apply_plan_bytes(C, tail != 0, kc, dtype != 0);
+// The apply plan takes the compute type (dtype 0 float32: ApplyF32Plan, 1
+// bf16: FrontPlan); neither has a chunk.
+extern "C" long long mp_spectral_apply_smem(int C, int tail, int dtype) {
+  return mp::apply_plan_bytes(C, tail != 0, dtype != 0);
 }
 
 extern "C" long long mp_spectral_stats_bwd_smem(int C, int nH) {

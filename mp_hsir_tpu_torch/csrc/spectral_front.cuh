@@ -8,9 +8,10 @@
 // (mp_hsir_tpu/ops/pallas_attention.py:1597-1633) and of _sp1_kernel (:1962),
 // out = v @ comb [+ x * gate] [+ x] [+ shortcut] with v = dw3x3(1x1([LN]
 // cat(x1, x2))), on the tensor cores, one 8x8 pixel tile per 512-thread
-// block, then (optionally) the PGSSTB tail tile of mlp_tail.cuh. The float32
-// instances keep spectral_apply_kernel (spectral.cu): a SIMT FMA front, then
-// mlp_tail.cuh's float32 tail tile (3xTF32 on the tensor cores).
+// block, then (optionally) the PGSSTB tail tile of mlp_tail.cuh. Its
+// float32 twin is spectral_apply_f32_kernel (spectral.cu): the same tile in
+// 3xTF32 from the pieces of spectral_front_f32.cuh, then mlp_tail.cuh's
+// float32 tail tile.
 //
 // Rounding points as spectral_apply_plain: the 1x1 output rounded to bf16,
 // the depthwise output rounded to bf16, the comb sum in float32 rounded once,

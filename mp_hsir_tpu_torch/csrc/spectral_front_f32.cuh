@@ -2,8 +2,9 @@
 // halo staged in K chunks beside the same chunk of the weight rows, its
 // LayerNorm, the 1x1 over the halo and the depthwise conv in float32. The
 // float32 spectral stats tile (spectral_stats_f32.cuh) is built from them;
-// the float32 apply front's 1x1 and depthwise conv are the same pieces with
-// the v rows in the place of the q|k rows.
+// so is the float32 apply front (spectral_apply_f32_kernel, spectral.cu),
+// with the v rows in the place of the q|k rows, and its comb product, plan
+// and epilogue loads below.
 //
 // Design:
 // - The halo (100 pixels, 112 rows with the padding to 7 row tiles of 16) is
@@ -54,6 +55,20 @@ struct HaloF32 {
   }
 };
 
+// Stages K chunk kt (columns 32 kt ..) of N weight rows into sw ([N][kF32Ld])
+// by 16-byte cp.async: row n from w + row(n) * ldw (-1: a zero row; ldw a
+// multiple of 4, rows 16-byte aligned), zero past ldw. The caller commits.
+template <typename Row>
+__device__ __forceinline__ void stage_w_f32_chunk(float* sw, const float* __restrict__ w, int ldw,
+                                                  int N, Row row, int kt) {
+  const int k0 = kt * kF32K;
+  for (int u = threadIdx.x; u < N * (kF32K / 4); u += blockDim.x) {
+    const int n = u >> 3, c = (u & 7) * 4, k = k0 + c, r = row(n);
+    const bool ok = r >= 0 && k < ldw;
+    cp_async16(smem_u32(sw + n * kF32Ld + c), ok ? w + (size_t)r * ldw + k : w, ok ? 16 : 0);
+  }
+}
+
 // Stages K chunk kt (channels 32 kt ..) of the halo and of N weight rows
 // into one ring stage st, all by cp.async: the halo [112][kF32Ld] (zero past
 // C and in zero rows), then the weights [N][kF32Ld], row n from w + row(n) * ldw (-1: a
@@ -81,12 +96,7 @@ __device__ __forceinline__ void stage_f32_chunk(float* st, const HaloF32& h,
       cp_async4(smem_u32(st + p * kF32Ld + c), s, ok ? 4 : 0);
     }
   }
-  float* sw = st + kFrontRows * kF32Ld;
-  for (int u = threadIdx.x; u < N * (kF32K / 4); u += blockDim.x) {
-    const int n = u >> 3, c = (u & 7) * 4, k = k0 + c, r = row(n);
-    const bool ok = r >= 0 && k < ldw;
-    cp_async16(smem_u32(sw + n * kF32Ld + c), ok ? w + (size_t)r * ldw + k : w, ok ? 16 : 0);
-  }
+  stage_w_f32_chunk(st + kFrontRows * kF32Ld, w, ldw, N, row, kt);
 }
 
 // The LayerNorm of a staged halo chunk kt in place (in-image rows, channels
@@ -175,6 +185,105 @@ __device__ __forceinline__ void dw3_f32(const float* t, int ldt, const float* tp
     for (int o = 0; o < 4; ++o)
       *reinterpret_cast<float2*>(out + ((pr + o) * kTile + pc) * ldo + 2 * j) = s[o];
   }
+}
+
+// ---------------------------------------------------------------------------
+// The float32 apply front (spectral_apply_f32_kernel in spectral.cu)
+// ---------------------------------------------------------------------------
+
+constexpr int kApplyF32MaxGW = 192;  // a v column group: 7 row tiles x 6 blocks of 32 <= 48 units
+constexpr int kCombMaxN = 384;       // a comb pass: 4 row tiles x 12 blocks of 32 = 48 units
+// the dynamic shared memory the plan may take (the H100's opt-in limit less
+// the static)
+constexpr size_t kApplyF32Budget = 232448 - 1024;
+
+// The float32 apply tile's plan at width C (every piece a multiple of 16
+// bytes): taps [9][CP] | LN mean, rstd [2][112] | v [64][CP + 4] | ring.
+// The ring's space takes, in turn, each v column group's halo and weight
+// chunks (ws stages of [112 + GW][36]) and its 1x1 output [100][GW + 8],
+// then each comb pass's chunks of comb^T (cs stages of [NP][36]); stages: as
+// many as the space left holds, 2 to 3. CP = C rounded up to 32: the v
+// columns in `groups` groups of GW, the comb product's output columns in
+// `passes` passes of NP. With the tail, its scratch (tail_f32_bytes) lies
+// over the dead front from offset 0, and the plan is the larger of the two.
+struct ApplyF32Plan {
+  int C, CP, ldv, nk, groups, GW, ldt, passes, NP, ws, cs;
+  size_t taps, lnst, v, stage, cstage, ring, front;
+  __host__ __device__ ApplyF32Plan(int c) : C(c) {
+    CP = round_up32(c);
+    ldv = CP + 4;
+    nk = CP / kF32K;
+    const int nb = CP / 32;
+    groups = (nb + kApplyF32MaxGW / 32 - 1) / (kApplyF32MaxGW / 32);
+    GW = 32 * ((nb + groups - 1) / groups);
+    ldt = GW + 8;
+    passes = (nb + kCombMaxN / 32 - 1) / (kCombMaxN / 32);
+    NP = 32 * ((nb + passes - 1) / passes);
+    const size_t f = sizeof(float);
+    taps = f * 9 * CP;
+    lnst = f * 2 * kFrontRows;
+    v = f * kPix * ldv;
+    stage = f32_stage_bytes(GW);
+    cstage = f * NP * kF32Ld;
+    const size_t fixed = taps + lnst + v;
+    const size_t room = fixed < kApplyF32Budget ? kApplyF32Budget - fixed : 0;
+    ws = room / stage >= 3 ? 3 : 2;
+    cs = room / cstage >= 3 ? 3 : 2;
+    const size_t t = f * kHaloPix * ldt;
+    ring = ws * stage > t ? ws * stage : t;
+    ring = cs * cstage > ring ? cs * cstage : ring;
+    front = taps + lnst + v + ring;
+  }
+  __host__ __device__ size_t bytes(bool tail) const {
+    const size_t t = tail ? tail_f32_bytes(C, tail_f32_stages(C)) : 0;
+    return t > front ? t : front;
+  }
+};
+
+// The comb product of one pass in 3xTF32: acc (the warp's units of the 64 x
+// np output: unit q = warp + 16 j is row tile q % 4 = warp % 4, column block
+// q / 4, front_out's layout with 4 row tiles; n_units = 4 np / 32 <= 16 U) =
+// v ([64][ldv]) x comb over the ring's nk chunks of comb^T ([np][kF32Ld]
+// stages, row n = output channel). A warp's units share their row tile, so
+// each k8 step loads and splits its A fragment once.
+template <int U, typename Ring>
+__device__ __forceinline__ void comb_f32(float (&acc)[U][4][4], const float* vs, int ldv,
+                                         Ring& rg, int n_units, int nk) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const uint32_t a = smem_u32(vs + (16 * (warp & 3) + (lane & 15)) * ldv + 4 * (lane >> 4));
+  const uint32_t bo = 4 * ((32 * (warp >> 2) + (lane & 7) + 8 * (lane >> 4)) * kF32Ld +
+                           4 * ((lane >> 3) & 1));
+  front_zero(acc);
+  for (int kt = 0; kt < nk; ++kt) {
+    const uint32_t s = smem_u32(rg.consume()) + bo;
+#pragma unroll
+    for (int kk = 0; kk < kF32K / 8; ++kk) {
+      uint32_t av[4], ab[4], as[4];
+      ldmatrix_x4(av, a + 4 * (kF32K * kt + 8 * kk));
+      split_tf32(av, ab, as);
+#pragma unroll
+      for (int j = 0; j < U; ++j) {
+        if (warp + 16 * j >= n_units) break;  // warp-uniform
+        const uint32_t b = s + 4 * (4 * 32 * j * kF32Ld + 8 * kk);
+        mma_pair_f32(acc[j][0], acc[j][1], ab, as, b);
+        mma_pair_f32(acc[j][2], acc[j][3], ab, as, b + 4 * 16 * kF32Ld);
+      }
+    }
+  }
+}
+
+// Elements k and k + 1 (zero past C) of pixel p of cat(x1, x2), or of one
+// map (x2 = nullptr, C2 = 0); pair: one 8-byte load (C1 and C2 even, 8-byte
+// aligned maps), else two.
+__device__ __forceinline__ float2 load_pair(const float* __restrict__ x1,
+                                            const float* __restrict__ x2, int C1, int C2,
+                                            size_t p, int k, bool pair) {
+  if (pair)
+    return *reinterpret_cast<const float2*>(k < C1 ? x1 + p * C1 + k : x2 + p * C2 + (k - C1));
+  auto at = [&](int i) {
+    return i >= C1 + C2 ? 0.f : i < C1 ? x1[p * C1 + i] : x2[p * C2 + (i - C1)];
+  };
+  return make_float2(at(k), at(k + 1));
 }
 
 }  // namespace mp

@@ -42,14 +42,19 @@ tile of ``csrc/spectral_stats_f32.cuh`` (heads up to 96 wide; its launches
 counted in :data:`F32_TILE` too). Both stream the q|k rows of the torch
 weights as they are (:func:`pack_stats`), in the head groups that
 :func:`stats_plan` and :func:`stats_f32_plan` describe, and sum their per-part
-partials in one more launch. The bf16 apply launch runs the tensor-core tile of
-``csrc/spectral_front.cuh`` (C up to :data:`FRONT_MAX_C`): it streams the v
-rows of the torch weights and a bf16 copy of ``comb`` as they are
-(:func:`pack_front`), in the tiles that :func:`front_plan` describes. The
-float32 apply launch keeps its SIMT front; its PGSSTB tail runs the float32
-tail tile of ``csrc/mlp_tail.cuh`` (3xTF32 on the tensor cores, any C whose
-plan fits) on :func:`~mp_hsir_tpu_torch.ops.kernels.mlp.pack_mlp_weights`'
-float32 packs, counted in ``mlp.TAIL_F32`` too.
+partials in one more launch. The apply launch runs a tensor-core tile in
+both types too: bf16 the tile of ``csrc/spectral_front.cuh`` (C up to
+:data:`FRONT_MAX_C`), which streams the v rows of the torch weights and a
+bf16 copy of ``comb`` as they are (:func:`pack_front`), in the tiles that
+:func:`front_plan` describes; float32 the 3xTF32 tile
+``spectral_apply_f32_kernel`` (``csrc/spectral.cu``, built from
+``csrc/spectral_front_f32.cuh``; any C whose plan fits), which streams the
+same v rows and ``comb`` transposed (:func:`pack_front_f32`) in the chunks
+that :func:`apply_f32_plan` describes, its launches counted in
+:data:`APPLY_F32` too. Their PGSSTB tail runs the tail tile of
+``csrc/mlp_tail.cuh`` in the same type on
+:func:`~mp_hsir_tpu_torch.ops.kernels.mlp.pack_mlp_weights`' packs (the
+float32 one counted in ``mlp.TAIL_F32`` too).
 """
 
 from __future__ import annotations
@@ -68,12 +73,13 @@ from mp_hsir_tpu_torch.ops.kernels._grad import (
 from mp_hsir_tpu_torch.ops.kernels._route import (
     ROUTE, counter, dtype_code, f32, kernel_weight, stream_ptr,
 )
-from mp_hsir_tpu_torch.ops.kernels.mlp import TAIL_F32, pack_mlp_weights
+from mp_hsir_tpu_torch.ops.kernels.mlp import TAIL_F32, pack_mlp_weights, tail_f32_plan
 from mp_hsir_tpu_torch.ops.window import roll_hw
 
 STATS = counter("spectral_stats")
 F32_TILE = counter("spectral_stats_f32")
 APPLY = counter("spectral_apply")
+APPLY_F32 = counter("spectral_apply_f32")
 STATS_BWD = counter("spectral_stats_bwd")
 APPLY_BWD = counter("spectral_apply_bwd")
 # the bf16 apply tile (csrc/spectral_front.cuh): its widest C (kFrontMaxC),
@@ -95,6 +101,14 @@ STATS_F32_MAX_N = 192
 F32_K = 32
 F32_LD = 36
 STATS_F32_STATIC = 448
+# the float32 apply tile (spectral_apply_f32_kernel, csrc/spectral.cu): a v
+# column group's widest count (kApplyF32MaxGW), a comb pass's (kCombMaxN),
+# the dynamic shared memory its plan may take (kApplyF32Budget) and the
+# kernel's static shared memory (the halo rows' and tile pixels' sources)
+APPLY_F32_MAX_GW = 192
+COMB_MAX_N = 384
+APPLY_F32_BUDGET = 232448 - 1024
+APPLY_F32_STATIC = 960
 # the bf16 backward's second tile (csrc/dwconv_dx.cuh): the row strides of
 # its dout (float32) and t / dt (bf16) chunks (kDxLdd, kDxLdt)
 DX_LDD = 68
@@ -605,6 +619,43 @@ def pack_front(wqkv, wdw, comb, dt):
     return wv.contiguous(), wdw[2 * c:].reshape(c, 9).to(dt).contiguous(), cb.contiguous()
 
 
+def apply_f32_plan(c: int, tail: bool = False) -> dict:
+    """The float32 apply tile's tiling at width ``c`` (``ApplyF32Plan`` in
+    csrc/spectral_front_f32.cuh): ``cp`` = c rounded up to 32; the v
+    channels' 1x1 in ``groups`` column groups of ``gw`` (at most 192), each
+    streaming the halo's and the group's v rows' ``nk`` chunks of
+    :data:`F32_K` channels through ``ws`` ring stages; comb's product in
+    ``passes`` passes of ``np`` output channels (at most 384), each
+    streaming comb^T's ``nk`` chunks through ``cs`` stages; ``ldv`` the v
+    tile's row. ``front`` the front's dynamic bytes, ``dyn`` the launch's
+    (with the tail, the larger of the front and the tail's scratch,
+    :func:`~mp_hsir_tpu_torch.ops.kernels.mlp.tail_f32_plan`), ``bytes``
+    with the static (what ``mp_spectral_apply_smem(c, tail, 0)`` returns)."""
+    cp = -(-c // 32) * 32
+    nb = cp // 32
+    groups = -(-nb // (APPLY_F32_MAX_GW // 32))
+    gw = 32 * -(-nb // groups)
+    passes = -(-nb // (COMB_MAX_N // 32))
+    np_ = 32 * -(-nb // passes)
+    ldv = cp + 4
+    fixed = 4 * (9 * cp + 2 * FRONT_ROWS + 64 * ldv)
+    stage, cstage = 4 * (FRONT_ROWS + gw) * F32_LD, 4 * np_ * F32_LD
+    room = max(APPLY_F32_BUDGET - fixed, 0)
+    ws, cs = (3 if room // n >= 3 else 2 for n in (stage, cstage))
+    front = fixed + max(ws * stage, 4 * 100 * (gw + 8), cs * cstage)
+    dyn = max(front, tail_f32_plan(c)["bytes"]) if tail else front
+    return dict(cp=cp, nk=cp // F32_K, groups=groups, gw=gw, passes=passes, np=np_, ldv=ldv,
+                ws=ws, cs=cs, front=front, dyn=dyn, bytes=dyn + APPLY_F32_STATIC)
+
+
+def pack_front_f32(wqkv, wdw, comb):
+    """The operands the float32 apply tile streams: :func:`pack_front`'s v
+    rows [C out][C8 in] and taps [C][9] in float32, and ``comb``
+    transposed, (B, C out, C8 in) with C8 = C rounded up to 8 (the rows of
+    the comb product's B operand, 16-byte rows as the v rows')."""
+    return pack_front(wqkv, wdw, comb.transpose(1, 2), torch.float32)
+
+
 def apply_bwd_tc_plan(c: int) -> dict:
     """The bf16 apply backward's plans at width ``c``: the first tile's
     (``ApplyBwdPlan`` in csrc/spectral_apply_bwd.cuh: :func:`front_plan`'s
@@ -637,14 +688,14 @@ def _apply_entry(kind: str = "fwd"):
         return _build.entry("mp_spectral_apply_dx_tc", 10, [ctypes.c_int] * 6 + [ctypes.c_float])
     if kind == "gate":
         return _build.entry("mp_spectral_gate_grad", 3, [ctypes.c_int] * 5)
-    return _build.entry("mp_spectral_apply", 17, [ctypes.c_int] * 10 + [ctypes.c_float])
+    return _build.entry("mp_spectral_apply", 17, [ctypes.c_int] * 9 + [ctypes.c_float])
 
 
 def _apply_prepare(x, comb, wqkv, wdw, shift=0, x2=None, ln_w=None, ln_b=None, residual=False,
                    gate=None, shortcut=None, mlp=None, eps=1e-5, dp_scale=None):
     """Everything a launch needs: (the C entry's arguments, out, the tensors
-    the arguments point into, to be held until the launch). Weights: float32
-    [in][out] copies, bf16 :func:`pack_front`; the tail's
+    the arguments point into, to be held until the launch). Weights: bf16
+    :func:`pack_front`, float32 :func:`pack_front_f32`; the tail's
     :func:`pack_mlp_weights` in the compute type."""
     b, h, w, c1 = x.shape
     c2 = 0 if x2 is None else x2.shape[-1]
@@ -657,17 +708,13 @@ def _apply_prepare(x, comb, wqkv, wdw, shift=0, x2=None, ln_w=None, ln_b=None, r
     tail = int(mlp is not None)
     if code and c > FRONT_MAX_C:  # the front's and the tail tile's widest C
         raise ValueError(f"the bf16 spectral apply kernel takes C up to {FRONT_MAX_C}, got {c}")
-    kc = _build.chunk("mp_spectral_apply_chunk", c, tail, code)
     _build.check_plan("spectral_apply", "mp_spectral_apply_smem",
-                      f"C={c}, {'with' if tail else 'no'} MLP tail", c, tail, code, kc)
+                      f"C={c}, {'with' if tail else 'no'} MLP tail", c, tail, code)
     x = x.contiguous()
     x2 = None if x2 is None else x2.to(dt).contiguous()
     gate = None if gate is None else gate.to(dt).contiguous()
     shortcut = None if shortcut is None else shortcut.to(dt).contiguous()
-    if code:
-        wq, wd, cb = pack_front(wqkv, wdw, comb, dt)
-    else:
-        wq, wd, cb = kernel_weight(wqkv, dt), kernel_weight(wdw, dt), f32(comb)
+    wq, wd, cb = pack_front(wqkv, wdw, comb, dt) if code else pack_front_f32(wqkv, wdw, comb)
     lnw, lnb, dp = f32(ln_w), f32(ln_b), f32(dp_scale)
     hid = 0
     ln2w = ln2b = w1 = b1 = w2 = b2 = None
@@ -679,8 +726,7 @@ def _apply_prepare(x, comb, wqkv, wdw, shift=0, x2=None, ln_w=None, ln_b=None, r
     p = _build.ptr
     args = (x.data_ptr(), p(x2), p(lnw), p(lnb), wq.data_ptr(), wd.data_ptr(), cb.data_ptr(),
             p(gate), p(shortcut), p(ln2w), p(ln2b), p(w1), p(b1), p(w2), p(b2), p(dp),
-            out.data_ptr(), code, b, h, w, c1, c2, int(residual), hid, shift, kc, eps,
-            stream_ptr())
+            out.data_ptr(), code, b, h, w, c1, c2, int(residual), hid, shift, eps, stream_ptr())
     return args, out, (x, x2, gate, shortcut, wq, wd, lnw, lnb, cb, dp, ln2w, ln2b, w1, b1, w2, b2)
 
 
@@ -695,9 +741,12 @@ def _apply_launch(x, comb, wqkv, wdw, shift, x2, ln_w, ln_b, residual, gate, sho
     dt = x.dtype
     spec = ("spectral_apply", b, h, w, c1, c2, shift, ln_w is not None, bool(residual),
             gate is not None, shortcut is not None, hid, str(dt))
-    APPLY.record(spec if dp_scale is None else spec[:-1] + ("dp", str(dt)))
-    if hid and dt == torch.float32:
-        TAIL_F32.record(("mlp_tail_f32", b, h, w, c1 + c2, hid))
+    spec = spec if dp_scale is None else spec[:-1] + ("dp", str(dt))
+    APPLY.record(spec)
+    if dt == torch.float32:
+        APPLY_F32.record(("spectral_apply_f32",) + spec[1:-1])
+        if hid:
+            TAIL_F32.record(("mlp_tail_f32", b, h, w, c1 + c2, hid))
     return out
 
 

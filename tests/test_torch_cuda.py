@@ -479,11 +479,11 @@ def test_cuda_remote_sensing_widths_match_plain(dtype, tol):
     # chunks; every plan within the limit
     code = int(dtype == "bfloat16")
     assert 0 < _build.plan_bytes("mp_window_attention_smem", 384, 8, code) <= _build.smem_limit()
-    # the bf16 apply tile has one resident plan (its chunk is C)
+    # the apply tiles (bf16 and float32): one plan each, no chunk
+    assert 0 < _build.plan_bytes("mp_spectral_apply_smem", 384, 1, code) <= _build.smem_limit()
     for c, heads in ((192, 2), (384, 8)):  # the float32 stats tile: one plan, no chunk
         assert 0 < _build.plan_bytes("mp_spectral_stats_smem", c, heads) <= _build.smem_limit()
     for kernel, shape, want in (("window", (384, 8, code), 384 if code else 64),
-                                ("spectral_apply", (384, 1, code), 384 if code else 64),
                                 ("gdfn", (384,), 64)):
         kc = _build.chunk(f"mp_{kernel}_chunk", *shape)
         entry = "mp_window_msa_smem" if kernel == "window" else f"mp_{kernel}_smem"
@@ -656,7 +656,7 @@ def test_cuda_mlp_tail_widths_match_plain(c, b, h):
     spectral apply kernel's PGSSTB tail after the gate epilogue of a shifted
     block and after the x2 + LN entry; bf16 within 3e-2 and float32 within
     1e-4 of each output's max-abs. Each plan lies within the device's limit,
-    and the bf16 apply plan is no larger than the float32 layout's."""
+    and the bf16 apply plan is no larger than the float32 tile's."""
     from mp_hsir_tpu_torch.ops.kernels import _build
     from mp_hsir_tpu_torch.ops.kernels.mlp import mlp
 
@@ -686,10 +686,9 @@ def test_cuda_mlp_tail_widths_match_plain(c, b, h):
         assert _route.COUNTERS["spectral_apply"].launches == 2
         assert _route.ROUTE.plain_cuda_calls == 6
         assert 0 < _build.plan_bytes("mp_mlp_smem", c, code) <= _build.smem_limit()
-        kc = _build.chunk("mp_spectral_apply_chunk", c, 1, code)
-        n = _build.plan_bytes("mp_spectral_apply_smem", c, 1, code, kc)
+        n = _build.plan_bytes("mp_spectral_apply_smem", c, 1, code)
         assert 0 < n <= _build.smem_limit()
-        assert n <= _build.plan_bytes("mp_spectral_apply_smem", c, 1, 0, kc)
+        assert n <= _build.plan_bytes("mp_spectral_apply_smem", c, 1, 0)
 
 
 # The float32 tail tile (mlp_tail_f32, 3xTF32) at every PGSSTB width of the
@@ -708,10 +707,11 @@ def test_cuda_mlp_tail_f32_matches_plain(c, b, h):
     drop-path scale, and the spectral apply kernel's tail after a shifted
     block's gate epilogue and after the x2 + LN entry; every launch counted
     in mlp_tail_f32 too; two calls bitwise equal (no float atomics); the mlp
-    plan equal to the mirror's, the apply plan holding the tail's scratch,
-    both within the device's limit."""
+    plan equal to the mirror's, the apply tile's plan holding the tail's
+    scratch and equal to its mirror's, both within the device's limit."""
     from mp_hsir_tpu_torch.ops.kernels import _build
     from mp_hsir_tpu_torch.ops.kernels.mlp import mlp, tail_f32_plan
+    from mp_hsir_tpu_torch.ops.kernels.spectral import apply_f32_plan
 
     dev = _cuda()
     hid = int(c * 2.66)
@@ -741,9 +741,8 @@ def test_cuda_mlp_tail_f32_matches_plain(c, b, h):
                        spectral_apply(x, comb, wq, wd, **apply_kw))
     pl = tail_f32_plan(c, hid)
     assert _build.plan_bytes("mp_mlp_smem", c, 0) == pl["bytes"] <= _build.smem_limit()
-    kc = _build.chunk("mp_spectral_apply_chunk", c, 1, 0)
-    n = _build.plan_bytes("mp_spectral_apply_smem", c, 1, 0, kc)
-    assert pl["bytes"] < n <= _build.smem_limit()
+    n = _build.plan_bytes("mp_spectral_apply_smem", c, 1, 0)
+    assert pl["bytes"] < n == apply_f32_plan(c, True)["bytes"] <= _build.smem_limit()
 
 
 # The bf16 spectral apply tile (csrc/spectral_front.cuh) at every width of the
@@ -794,10 +793,11 @@ def _as(dt, args, kw):
 @pytest.mark.parametrize("variant,c,b,h", FRONT_CASES)
 def test_cuda_spectral_front_matches_plain(variant, c, b, h):
     """The bf16 apply tile against the plain version, bf16 within 3e-2 and the
-    float32 kernel within 1e-4 of the output's max-abs; one launch each, the
-    plain version only inside the check; the bf16 plan within the device's
-    limit and, with the tail, no larger than the float32 layout's at the
-    same chunk; the apply backward's plans as they were."""
+    float32 tile within 1e-4 of the output's max-abs; one launch each (the
+    float32 one counted in spectral_apply_f32 too), the plain version only
+    inside the check; the bf16 plan within the device's limit and, with the
+    tail, no larger than the float32 tile's; the apply backward's plans as
+    they were."""
     from mp_hsir_tpu_torch.ops.kernels import _build
 
     dev = _cuda()
@@ -807,12 +807,12 @@ def test_cuda_spectral_front_matches_plain(variant, c, b, h):
         _route.reset_counters()
         _check_fwd(spectral_apply, *_as(dt, args, kw), tol)
         assert _route.COUNTERS["spectral_apply"].launches == 1
+        assert _route.COUNTERS["spectral_apply_f32"].launches == int(dt == torch.float32)
         assert _route.ROUTE.plain_cuda_calls == 1
-    kc = _build.chunk("mp_spectral_apply_chunk", c, tail, 1)
-    n = _build.plan_bytes("mp_spectral_apply_smem", c, tail, 1, kc)
-    assert kc == c and 0 < n <= _build.smem_limit()
-    if tail:  # the float32 layout holds the tail's scratch too
-        assert n <= _build.plan_bytes("mp_spectral_apply_smem", c, tail, 0, kc)
+    n = _build.plan_bytes("mp_spectral_apply_smem", c, tail, 1)
+    assert 0 < n <= _build.smem_limit()
+    if tail:  # the float32 tile's plan holds the tail's scratch too
+        assert n <= _build.plan_bytes("mp_spectral_apply_smem", c, tail, 0)
     if c in APPLY_BWD_PLANS:
         kc = _build.chunk("mp_spectral_apply_bwd_chunk", c)
         assert _build.plan_bytes("mp_spectral_apply_bwd_smem", c, kc) == APPLY_BWD_PLANS[c]
@@ -831,6 +831,66 @@ def test_cuda_spectral_front_check_sees_the_roll(c):
         ref = spectral_apply(*args, **kw)
     err = (got.float() - ref.float()).abs().max().item()
     assert err > 3e-2 * ref.float().abs().max().item(), err
+
+
+# The float32 apply tile (spectral_apply_f32_kernel, csrc/spectral.cu) at
+# every width of the presets' float32 apply calls, C = 36, 27 and 54 (rows
+# not 16-byte multiples: the halo by 4-byte cp.async; 27 odd: no float
+# pairs in the epilogue) and C = 400 (three v column groups, two comb
+# passes, the tail in two output groups), in every variant the path
+# launches (FRONT_VARIANTS), on 12 tiles (2x16x24: two images, each with its
+# own comb)
+APPLY_F32_CASES = [(v, c) for v in FRONT_VARIANTS
+                   for c in (64, 128, 256, 96, 192, 384, 36, 27, 54, 400)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,c", APPLY_F32_CASES)
+def test_cuda_spectral_apply_f32_tile_matches_plain(variant, c):
+    """The float32 apply tile against the plain version within 1e-4 of the
+    output's max-abs: one spectral_apply_f32 launch (and one mlp_tail_f32
+    launch with the tail), the plain version only inside the check; two
+    calls bitwise equal (no float atomics); its plan the mirror's
+    (apply_f32_plan) and within the device's limit."""
+    from mp_hsir_tpu_torch.ops.kernels import _build
+    from mp_hsir_tpu_torch.ops.kernels.spectral import apply_f32_plan
+
+    dev = _cuda()
+    args, kw = _front_inputs(variant, c, 2, 16, dev)
+    tail = "mlp" in kw
+    _route.reset_counters()
+    _check_fwd(spectral_apply, args, kw, 1e-4)
+    assert _route.COUNTERS["spectral_apply_f32"].launches == 1
+    assert _route.COUNTERS["mlp_tail_f32"].launches == int(tail)
+    assert _route.ROUTE.plain_cuda_calls == 1
+    assert torch.equal(spectral_apply(*args, **kw), spectral_apply(*args, **kw))
+    n = _build.plan_bytes("mp_spectral_apply_smem", c, int(tail), 0)
+    assert n == apply_f32_plan(c, tail)["bytes"] <= _build.smem_limit()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [64, 384])
+def test_cuda_spectral_apply_f32_check_sees_the_roll(c):
+    """The float32 per-call check is not blind to the roll-back: a shifted
+    block's input through the float32 tile with shift = 0 (its gate read in
+    the unrolled frame) fails the 1e-4 bound against the plain version with
+    shift = 4."""
+    dev = _cuda()
+    args, kw = _front_inputs("pgsstb4", c, 2, 16, dev)
+    got = spectral_apply(*args, **dict(kw, shift=0))
+    with _route.plain_reference():
+        ref = spectral_apply(*args, **kw)
+    assert (got - ref).abs().max().item() > 1e-4 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_spectral_apply_f32_tile_registers():
+    """The float32 apply tile (front, comb product and tail in one kernel)
+    within 128 registers (512 threads a block) and without spills."""
+    _cuda()
+    rep = _ptxas("spectral_apply_f32_kernel")
+    assert rep["registers"] <= 128, rep
+    assert rep.get("spill_stores", 0) == 0 and rep.get("spill_loads", 0) == 0, rep
 
 
 # The bf16 spectral stats tile (csrc/spectral_stats.cuh) at every (C, heads)
