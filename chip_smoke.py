@@ -10,9 +10,11 @@ Phases (any failure exits non-zero; no phase's error is caught):
    of mp_hsir_tpu_torch/csrc/*.cu with nvcc (one process per source), each
    kernel's registers and spills, the bf16 spectral apply tile's plan bytes
    at every preset width, and the bf16 spectral stats tile's at every (C,
-   heads) of the presets beside the float32 kernel's, and the bf16 GDFN
-   tile's at every width of the presets' GDFN calls beside the float32
-   kernel's at its chunk, and the bf16 MLP backward tile's at every width of
+   heads) of the presets beside the float32 kernel's, and the GDFN tiles'
+   registers and spills (the float32 tile beside the bf16 tile) and plans at
+   every width of the presets' GDFN calls and at 27, 54 and 400 (the bf16
+   tile's beside the float32 tile's, each float32 plan checked against its
+   mirror, gdfn_f32_plan), and the bf16 MLP backward tile's at every width of
    the presets' train steps beside the float32 backward's, and the bf16
    spectral stats and window-attention backwards' two tiles each (their
    registers and spills, their plan bytes at every (C, heads) of the
@@ -59,13 +61,14 @@ Phases (any failure exits non-zero; no phase's error is caught):
    alone, with the front's own bound and TFLOP/s): the sums split the apply
    time into the front and the tail; the calls without the tail
    (PromptFusion, the training route's drop-path call) are fronts alone.
-   The float32 GDFN kernel keeps its input resident where that fits (an
-   older checkout's float32 stats kernel too: there each spectral_stats
+   An older checkout's float32 GDFN kernel keeps its input resident where
+   that fits (its float32 stats kernel too: there each spectral_stats
    call at C > 64 is checked and timed once more on its float32 instance,
    resident and with its input streamed in 64-channel chunks, summed per
    forward). The window kernel and the spectral stats, apply and GDFN tiles
    stage their whole input in bf16 and have no chunk to stream; the float32
-   stats tile streams its input in 32-channel chunks at every width. Each call's
+   stats, apply and GDFN tiles stream it in 32-channel chunks at every
+   width. Each call's
    float32 instance is timed too (wrapper, alone, plain, F.conv2d with TF32
    off for conv3) beside its float32 bound max(bytes / 3.35 TB/s, 3 flops /
    495 TFLOP/s: 3xTF32), each float32 apply call with the tail once more
@@ -73,13 +76,15 @@ Phases (any failure exits non-zero; no phase's error is caught):
    / tail split (the tail: the float32 tail tile, 3xTF32) and the apply
    fronts (the float32 apply tile: the PGSSTB calls' fronts and the
    PromptFusion calls apart) beside their bounds; each float32 call of the
-   tail, conv3, window, stats and apply tiles is first run twice: bitwise
-   equal. Then a float32 spectral apply with the tail and a float32 mlp
-   call at C = 400 (the tail tile in two output groups, the apply tile in
-   two comb passes), float32 stats calls at 400/8, 36/2, 27/3 and the
-   PromptFusion entry at 18 + 18, and float32 apply calls at 36 and 54
-   (shifted, with the tail), 27 and the PromptFusion entry at 27 + 27 (each
-   one stats or apply tile launch, no plain call), against plain (1e-4).
+   tail, conv3, window, stats, apply and GDFN tiles is first run twice:
+   bitwise equal. Then a float32 spectral apply with the tail and a float32
+   mlp call at C = 400 (the tail tile in two output groups, the apply tile
+   in two comb passes), float32 stats calls at 400/8, 36/2, 27/3 and the
+   PromptFusion entry at 18 + 18, float32 apply calls at 36 and 54
+   (shifted, with the tail), 27 and the PromptFusion entry at 27 + 27, and
+   float32 gdfn calls at 54 and 27 (residual, exit 1x1) and 400 (residual,
+   two output groups) (each one stats, apply or GDFN tile launch, no plain
+   call), against plain (1e-4).
 3. Main path: the flagship preset on the committed trained weights, bf16 at
    1x31x512x512, answering 4 requests (mode-0 cubes) after a warm-up. The
    launch counters are zeroed just before the requests and read just after;
@@ -191,9 +196,9 @@ Phases (any failure exits non-zero; no phase's error is caught):
     every mode 0-12 on the trained flagship weights, one loaded model: each
     run launches every kernel (1 warm-up + 2 cubes) x the float32 forward's
     enumerated signatures (and the float32 tail tile once per apply call with
-    the tail, the float32 conv3, window, stats and apply tiles once per
-    conv3, window, stats and apply call, each counted apart), no plain
-    version on the card; per mode the first
+    the tail, the float32 conv3, window, stats, apply and GDFN tiles once
+    per conv3, window, stats, apply and gdfn call, each counted apart), no
+    plain version on the card; per mode the first
     cube through the kernel and the plain float32 forward under the mode's
     task id (max abs <= 1e-4: prompts 0-5); mode 0 restores >= 3 dB above
     the degraded input, the other modes print PSNR, SSIM, SAM and the
@@ -212,8 +217,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
     remote-sensing train-step numbers and the train and eval CLIs' launches
     beside them; the float32 tail tile's row: phase 14's launches, phase 2's
     tail ms per flagship float32 forward beside its bound and plain, the
-    largest float32 error of its calls; the float32 conv3, window, stats
-    and apply tiles' rows: phase 14's launches (one per call of their
+    largest float32 error of its calls; the float32 conv3, window, stats,
+    apply and GDFN tiles' rows: phase 14's launches (one per call of their
     kernel), phase 2's float32 ms per flagship forward (the apply tile's:
     its fronts), alone, plain, bound and library, phase 7's remote-sensing
     float32 sums), then the result line.
@@ -226,14 +231,15 @@ checkout of the package (this file copied to its root and run there);
 --mlp-bwd-split is --bwd-split mlp_bwd. --wgrad runs phase 1 and only the
 wgrad phase, at both presets' train-step signatures. --train-cli runs phase
 1 and only phase 13, --eval-cli phase 1 and only phase 14. --f32-eval runs
-phases 1, 2, K6's float32 calls of phases 5 and 11 (checked and timed) and
-14: the float32 path's kernels and the eval CLI, also for an
-older checkout (this file copied to its root: where its package has no
-float32 tail tile, the tile's launches are not expected and its C = 400 mlp
-call is left out; where it has no float32 conv3 and window tiles, no
-float32 stats tile or no float32 apply tile, their launches are not
-expected and only their SIMT kernels' registers are logged; its float32
-apply calls are timed and counted with its own chunked plan).
+phases 1, 2, K6's float32 calls of phases 5 and 11 (checked and timed),
+phase 7's two gdfn calls (the remote-sensing forward's, checked and timed
+in both types) and 14: the float32 path's kernels and the eval CLI, also
+for an older checkout (this file copied to its root: where its package has
+no float32 tail tile, the tile's launches are not expected and its C = 400
+mlp call is left out; where it has no float32 conv3 and window tiles, no
+float32 stats, apply or GDFN tile, their launches are not expected and only
+their SIMT kernels' registers are logged; its float32 apply and GDFN calls
+are timed and counted with its own chunked plans).
 """
 
 from __future__ import annotations
@@ -307,11 +313,11 @@ STAGED = ("spectral_stats", "spectral_apply", "gdfn")
 TAIL_F32_KERNEL = {"mlp_tail_f32": dict(source="mp_hsir_tpu_torch/csrc/mlp_tail.cuh",
                                         tpu=["K2", "K6"],
                                         replaces="mp_hsir_tpu/ops/pallas_attention.py:965")}
-# the float32 conv3, window, spectral stats and spectral apply tiles
-# (3xTF32): K4's, K1's, K2 phase 0's and K2 phase 1's (with K7b's) float32
-# instances, the eval CLI's route; their launches count in their own
-# counters beside conv3's, window_attention's, spectral_stats's and
-# spectral_apply's
+# the float32 conv3, window, spectral stats, spectral apply and GDFN tiles
+# (3xTF32): K4's, K1's, K2 phase 0's, K2 phase 1's (with K7b's) and K5's
+# float32 instances, the eval CLI's route; their launches count in their
+# own counters beside conv3's, window_attention's, spectral_stats's,
+# spectral_apply's and gdfn's
 F32_TILE_KERNELS = {
     "conv3_f32": dict(source="mp_hsir_tpu_torch/csrc/conv3.cu", tpu=["K4"], of="conv3",
                       replaces="mp_hsir_tpu/ops/pallas_attention.py:1182"),
@@ -324,6 +330,8 @@ F32_TILE_KERNELS = {
     "spectral_apply_f32": dict(source="mp_hsir_tpu_torch/csrc/spectral.cu", tpu=["K2", "K7b"],
                                of="spectral_apply", sums="spectral_apply_front",
                                replaces="mp_hsir_tpu/ops/pallas_attention.py:1842"),
+    "gdfn_f32": dict(source="mp_hsir_tpu_torch/csrc/gdfn.cu", tpu=["K5"], of="gdfn",
+                     replaces="mp_hsir_tpu/ops/pallas_attention.py:1412"),
 }
 # a width past fc2's 384-channel register slice (two output groups), float32
 WIDE_C = 400
@@ -512,9 +520,9 @@ def make_call(spec, dev, dt):
         _, b, h, w, c, hid, co, residual, _ = spec
         args = (g.n((b, h, w, c)), 1 + f32((c,), 0.1), f32((c,), 0.1), g.u((2 * hid, c, 1, 1), c),
                 g.u((2 * hid, 1, 3, 3), 9), g.u((c, hid, 1, 1), hid))
-        kw = dict(residual=residual, proj_w=g.u((co, c, 1, 1), c))
+        kw = dict(residual=residual, proj_w=g.u((co, c, 1, 1), c) if co else None)
         p = b * h * w
-        byts = p * (c + co) * e + (3 * c * hid + 18 * hid + c * co) * e
+        byts = p * (c + (co or c)) * e + (3 * c * hid + 18 * hid + c * co) * e
         flops = p * (6 * c * hid + 36 * hid + 2 * c * co)
         return gdfn.gdfn, args, kw, None, byts, flops
     raise KeyError(name)
@@ -587,6 +595,9 @@ def plan_of(spec) -> dict:
     if name == "gdfn" and _code(spec):  # the bf16 tile: one resident plan
         n = _build.plan_bytes("mp_gdfn_tc_smem", c)
         return dict(smem=n, smem_whole=n, kc=c, c=c)
+    if name == "gdfn" and has_gdfn_f32_tile():  # the float32 tile: one plan, no chunk
+        n = _build.plan_bytes("mp_gdfn_f32_smem", c)
+        return dict(smem=n, smem_whole=n, kc=c, c=c)
     if name == "mlp_bwd" and _code(spec):  # the bf16 tile: one resident plan
         n = _build.plan_bytes("mp_mlp_bwd_tc_smem", c)
         return dict(smem=n, smem_whole=n, kc=c, c=c)
@@ -651,6 +662,8 @@ def streamed_ms(spec, fn, args, kw):
         return None  # (the bf16 apply and GDFN tiles have one resident plan)
     if spec[0] == "spectral_stats" and has_stats_f32_tile():
         return None  # (both stats tiles have one plan)
+    if spec[0] == "gdfn" and has_gdfn_f32_tile():
+        return None  # (both GDFN tiles have one plan)
     f32spec = spec[:-1] + ("torch.float32",)
     plan = plan_of(f32spec)  # the chunked layout
     if plan["kc"] < plan["c"] or plan["c"] <= 64:
@@ -859,19 +872,30 @@ def has_apply_f32_tile() -> bool:
     return hasattr(spectral, "APPLY_F32")
 
 
+def has_gdfn_f32_tile() -> bool:
+    """Whether this checkout's package has the float32 GDFN tile (an older
+    checkout measured with this file has not: its float32 GDFN is SIMT,
+    with a channel chunk)."""
+    from mp_hsir_tpu_torch.ops.kernels import gdfn
+
+    return hasattr(gdfn, "F32_TILE")
+
+
 def f32_tile_specs(specs: Counter) -> Counter:
-    """The float32 conv3, window, stats and apply tiles' launches of a
+    """The float32 conv3, window, stats, apply and GDFN tiles' launches of a
     multiset of calls: one per float32 conv3 call, as ("conv3_f32", B, H, W,
     Cin, Cout, mode), per float32 window_attention call, as
     ("window_attention_f32", B, H, W, C, heads, shift), per float32
     spectral_stats call, as ("spectral_stats_f32", B, H, W, C1, C2, heads,
-    shift, ln), and per float32 spectral_apply call, as
-    ("spectral_apply_f32", B, H, W, C1, C2, shift, ln, residual, gate,
-    shortcut, hid); none for the tiles the package does not have."""
+    shift, ln), per float32 spectral_apply call, as ("spectral_apply_f32",
+    B, H, W, C1, C2, shift, ln, residual, gate, shortcut, hid), and per
+    float32 gdfn call, as ("gdfn_f32", B, H, W, C, hid, Co, residual); none
+    for the tiles the package does not have."""
     out: Counter = Counter()
     kinds = (("conv3", "window_attention") if has_f32_tiles() else ()) + (
         ("spectral_stats",) if has_stats_f32_tile() else ()) + (
-        ("spectral_apply",) if has_apply_f32_tile() else ())
+        ("spectral_apply",) if has_apply_f32_tile() else ()) + (
+        ("gdfn",) if has_gdfn_f32_tile() else ())
     for spec, n in specs.items():
         if spec[-1] == "torch.float32" and spec[0] in kinds:
             out[(spec[0] + "_f32", *spec[1:-1])] += n
@@ -901,9 +925,10 @@ def f32_times(spec, fn, args, kw, byts, flops) -> dict:
     if (spec[0] == "mlp" or spec[0] == "spectral_apply" and kw.get("mlp")
             or spec[0] in ("conv3", "window_attention") and has_f32_tiles()
             or spec[0] == "spectral_stats" and has_stats_f32_tile()
-            or spec[0] == "spectral_apply" and has_apply_f32_tile()):
-        # the float32 tail, conv3, window, stats and apply tiles sum in a
-        # fixed order, with no float atomics
+            or spec[0] == "spectral_apply" and has_apply_f32_tile()
+            or spec[0] == "gdfn" and has_gdfn_f32_tile()):
+        # the float32 tail, conv3, window, stats, apply and GDFN tiles sum in
+        # a fixed order, with no float atomics
         if not all(torch.equal(a, b) for a, b in zip(_flat(fn(*args, **kw)),
                                                      _flat(fn(*args, **kw)))):
             raise AssertionError(f"{spec[0]} {spec[1:-1]}: two float32 calls differ")
@@ -2660,22 +2685,52 @@ def log_stats_plans(_build, cfgs) -> dict:
     return plans
 
 
+# the float32 GDFN tile's widths beside the presets': rows not 16-byte
+# multiples (27 odd, 54) and WIDE_C (two output groups, no exit 1x1)
+GDFN_ODD = (27, 54, WIDE_C)
+
+
 def log_gdfn_plans(_build, cfgs) -> dict:
-    """The bf16 GDFN tile's shared-memory plan (bytes, static included) at
-    every width of the presets' GDFN calls, beside the float32 kernel's at
-    its own chunk."""
+    """The GDFN tiles' registers and spills (the float32 tile beside the
+    bf16 tile, or an older checkout's SIMT kernel), and their shared-memory
+    plans (bytes, static included) at every width of the presets' GDFN calls
+    (eval and train) and GDFN_ODD: the bf16 tile's beside the float32
+    tile's, each float32 plan the mirror's (gdfn_f32_plan, with the exit
+    1x1 at Co = C / 2 where C <= 384) and within the limit; an older
+    checkout's float32 plan at its own chunk."""
+    names = (("gdfn_f32_kernel", "gdfn_f32_kernel"), ("gdfn_tc_kernel (bf16)", "gdfn_tc_kernel"),
+             ("gdfn_kernel<float> (SIMT)", "gdfn_kernelIfE"))
+    regs = {k: r for k, m in names if (r := ptxas_report(m))}
+    log("  GDFN tiles (ptxas): " + ", ".join(
+        f"{k} {v.get('registers', '?')} regs, spills {v.get('spill_stores', '?')}/"
+        f"{v.get('spill_loads', '?')} B" for k, v in regs.items()))
     widths = set()
     for cfg in cfgs:
         for specs in (path_specs(cfg, SIZE, "bf16"), train_path_specs(cfg, 1, 64, "bf16")):
             widths |= {s[4] for s in specs if s[0] == "gdfn"}
-    plans = {}
-    for c in sorted(widths):
-        kc = _build.chunk("mp_gdfn_chunk", c)
-        plans[f"C={c}"] = dict(bf16=_build.plan_bytes("mp_gdfn_tc_smem", c),
-                               f32=_build.plan_bytes("mp_gdfn_smem", c, kc), f32_kc=kc)
-    log("  bf16 gdfn plans (B; float32's at its chunk in brackets): " + ", ".join(
-        f"{k} {v['bf16']} ({v['f32']} kc {v['f32_kc']})" for k, v in plans.items()))
-    return plans
+    tile = has_gdfn_f32_tile()
+    limit, plans = _build.smem_limit(), {}
+    for c in sorted(widths | (set(GDFN_ODD) if tile else set())):
+        bf16 = _build.plan_bytes("mp_gdfn_tc_smem", c) if c <= 384 else None
+        if not tile:
+            kc = _build.chunk("mp_gdfn_chunk", c)
+            plans[f"C={c}"] = dict(bf16=bf16, f32=_build.plan_bytes("mp_gdfn_smem", c, kc),
+                                   f32_kc=kc)
+            continue
+        from mp_hsir_tpu_torch.ops.kernels.gdfn import gdfn_f32_plan
+
+        n = _build.plan_bytes("mp_gdfn_f32_smem", c)
+        mirror = gdfn_f32_plan(c, c // 2 if c <= 384 else 0)
+        plans[f"C={c}"] = dict(bf16=bf16, f32=n, f32_kc=c, stages=mirror["ws"],
+                               exit_stages=mirror["cs"])
+        if n != mirror["smem"]:
+            fail(f"float32 gdfn plan at C={c}: {n} B, gdfn_f32_plan's {mirror}")
+        if not 0 < n <= limit:
+            fail(f"float32 gdfn plan at C={c}: {n} B over the limit {limit}")
+    log(f"  gdfn plans (B; bf16, then float32's{' at its chunk' if not tile else ''} in "
+        f"brackets; limit {limit}): " + ", ".join(
+            f"{k} {v['bf16']} ({v['f32']} kc {v['f32_kc']})" for k, v in plans.items()))
+    return dict(ptxas=regs, plans=plans)
 
 
 def simt_f32_plans(c: int, limit: int) -> tuple:
@@ -2948,7 +3003,11 @@ def wide_f32_checks(dev) -> list:
     Where it has the float32 apply tile, its APPLY_ODD widths too (C = 36
     shifted with the tail, 27 unshifted without it, 54 shifted with the
     tail, the PromptFusion entry at 27 + 27 with LN and residual), and the
-    WIDE_C call: one spectral_apply_f32 launch each, no plain call."""
+    WIDE_C call: one spectral_apply_f32 launch each, no plain call. Where it
+    has the float32 GDFN tile, its GDFN_ODD widths too (C = 54 and 27 with
+    the residual and the exit 1x1 at Co = 27 and 13, WIDE_C with the
+    residual and without the exit, in two output groups): one gdfn_f32
+    launch each, no plain call."""
     from mp_hsir_tpu_torch.ops.kernels import _route
 
     hid = int(WIDE_C * 2.66)
@@ -2970,14 +3029,20 @@ def wide_f32_checks(dev) -> list:
                   ("spectral_stats", 1, 64, 64, 36, 0, 2, 4, False, "torch.float32"),
                   ("spectral_stats", 1, 64, 64, 27, 0, 3, 0, False, "torch.float32"),
                   ("spectral_stats", 1, 64, 64, 18, 18, 2, 0, True, "torch.float32")]
+    if has_gdfn_f32_tile():
+        specs += [("gdfn", 1, 64, 64, 54, 143, 27, True, "torch.float32"),
+                  ("gdfn", 1, 64, 64, 27, 71, 13, True, "torch.float32"),
+                  ("gdfn", 1, 64, 64, WIDE_C, int(WIDE_C * 2.66), 0, True, "torch.float32")]
     for spec in specs:
         if spec[0] == "mlp" and not has_tail_f32():
             log(f"  {spec[0]} {spec[1:-1]}: no float32 tail tile in this package (skipped)")
             continue
         fn, args, kw, _, byts, flops = make_train_fwd_call(spec, dev, torch.float32)
         err, rel = compare(fn, args, kw, F32_TOL)
-        tile = dict(spectral_stats="spectral_stats_f32", spectral_apply="spectral_apply_f32")
-        if spec[0] == "spectral_stats" or spec[0] == "spectral_apply" and has_apply_f32_tile():
+        tile = dict(spectral_stats="spectral_stats_f32", spectral_apply="spectral_apply_f32",
+                    gdfn="gdfn_f32")
+        if spec[0] in ("spectral_stats", "gdfn") or spec[0] == "spectral_apply" and \
+                has_apply_f32_tile():
             _route.reset_counters()
             fn(*args, **kw)
             n, plain = _route.COUNTERS[tile[spec[0]]].launches, _route.ROUTE.plain_cuda_calls
@@ -3284,6 +3349,7 @@ def main() -> None:
     f32_tile_plans = log_f32_tile_plans(_build, preset_cfgs)
     f32_tile_plans["stats"] = log_stats_f32_plans(_build, preset_cfgs)
     f32_tile_plans["apply"] = log_apply_f32_plans(_build, preset_cfgs)
+    f32_tile_plans["gdfn"] = gdfn_plans
 
     specs = path_specs(cfg, SIZE, "torch.bfloat16")
 
@@ -3294,7 +3360,7 @@ def main() -> None:
     f32_eval = log_f32_sums("per flagship forward", rows, "per_forward")
     log(card)
     log(f"== phase 2 (C = {WIDE_C} and odd widths): float32 calls past the tail tile's register "
-        f"slice, the float32 stats and apply tiles' odd widths")
+        f"slice, the float32 stats, apply and GDFN tiles' odd widths")
     wide = wide_f32_checks(dev)
     if args.f32_eval:
         k6 = {}
@@ -3304,6 +3370,14 @@ def main() -> None:
                                                      "torch.bfloat16"), dev)
             k6[what] = log_f32_sums(f"per {what} train step (K6's float32 calls)", k6_rows,
                                     "per_step")
+        log("== phase 7 (GDFN only): the remote-sensing forward's gdfn calls "
+            f"({RS_SIZE}x{RS_SIZE} path shapes)")
+        rs_specs = path_specs(remote_sensing_config(compute_dtype="bfloat16"), RS_SIZE,
+                              "torch.bfloat16")
+        rs_gdfn = kernel_checks(Counter({s_: n for s_, n in rs_specs.items() if s_[0] == "gdfn"}),
+                                dev)
+        f32_rs = log_f32_sums("per remote-sensing forward (the gdfn calls)", rs_gdfn,
+                              "per_forward")
         log(card)
         log("== phase 14: the eval entry point (float32)")
         ev = eval_cli_path(dev, card)
@@ -3311,6 +3385,7 @@ def main() -> None:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
             with open(args.out, "w") as fh:
                 json.dump(dict(card=card, rows=rows, f32_eval=f32_eval, wide=wide, k6_f32=k6,
+                               rs_gdfn=rs_gdfn, f32_rs=f32_rs,
                                f32_tail_plans=f32_tail_plans, f32_tile_plans=f32_tile_plans,
                                eval_cli=ev), fh, indent=1, default=str)
         log(f"== done in {time.perf_counter() - t_start:.1f} s")

@@ -36,150 +36,21 @@
 //     then stored in 16-byte runs, or used as the A operand of the exit 1x1
 //     against proj_w's torch layout [Co][C8] (the output staged in t's
 //     space, then stored).
-// - float32: gdfn_kernel, the first design: the 8x8 tile's working set in
-//   float32 shared memory, the hidden width in chunks of 32 units, products
-//   as SIMT FMA (common.cuh gemm) on [in][out] weight copies.
+// - float32: gdfn_f32_kernel, the bf16 tile's design in 3xTF32 on m16n8k8
+//   with no rounding points, built from the float32 halo tiles' pieces
+//   (spectral_front_f32.cuh) and the float32 tail's fc2 (mlp_tail.cuh); the
+//   design is above the kernel.
 //
 // The backward (K11) likewise: bf16 runs gdfn_bwd_tc_kernel, built from the
 // forward tile's pieces, then dwconv_dx.cuh's tile with float32 t (the
 // design is above gdfn_bwd_tc_kernel); float32 runs gdfn_bwd_kernel and
 // grad.cu's stages.
 #include "dwconv_dx.cuh"  // and spectral_front.cuh
+#include "spectral_front_f32.cuh"
 
 namespace mp {
 
-constexpr int kGC = 32;  // hidden chunk of the float32 kernel and the backward
-
-// Shared memory: the LN'd halo is staged in channel chunks of kc (all C at
-// once where that fits: every natural-scene width; 64 at C = 384, where the
-// whole halo makes the plan 280 KB).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gdfn_kernel(const T* __restrict__ x, const float* __restrict__ lnw, const float* __restrict__ lnb,
-            const T* __restrict__ win, const T* __restrict__ wdw, const T* __restrict__ wout,
-            const T* __restrict__ wproj, int Co, int residual, T* __restrict__ out, int H, int W,
-            int C, int hid, float eps, int kc) {
-  extern __shared__ float sm[];
-  __shared__ float mu[kHaloPix], rs[kHaloPix];
-  const int ldc = kc + 1, ldx = C + 1, ldt = 2 * kGC + 1, ldg = kGC + 1;
-  float* xc = sm;                    // [100][ldc] LN(x) halo chunk
-  float* ts = xc + kHaloPix * ldc;   // [100][ldt] project_in chunk: x1 | x2
-  float* gs = ts + kHaloPix * ldt;   // [64][ldg] gelu(x1) * x2
-  float* acc = gs + kPix * ldg;      // [64][ldx] project_out accumulator
-  const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
-  const int H2 = 2 * hid;
-  const bool resident = kc >= C;
-
-  auto inside = [&](int p) {
-    const int r = ty * kTile + p / kHalo - 1, c = tx * kTile + p % kHalo - 1;
-    return r >= 0 && r < H && c >= 0 && c < W;
-  };
-  auto at = [&](int p, int k) {
-    const int r = ty * kTile + p / kHalo - 1, c = tx * kTile + p % kHalo - 1;
-    return to_f(x[(((size_t)b * H + r) * W + c) * C + k]);
-  };
-  for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
-    const int p = idx / C, k = idx - p * C;
-    acc[p * ldx + k] = 0.f;
-  }
-  ln_stats_rows(mu, rs, kHaloPix, C, eps, at, inside);
-  __syncthreads();
-  if (resident) {
-    load_chunk<T>(xc, ldc, kHaloPix, 0, C, at, inside, mu, rs, lnw, lnb);
-    __syncthreads();
-  }
-
-  for (int j0 = 0; j0 < hid; j0 += kGC) {
-    const int hc = min(kGC, hid - j0);
-    // column j < hc: x1 unit j0 + j; j >= hc: x2 unit hid + j0 + j - hc
-    auto col = [&](int j) { return j < hc ? j0 + j : hid + j0 + (j - hc); };
-    for (int c0 = 0; c0 < C; c0 += kc) {
-      const int nc = min(kc, C - c0);
-      if (!resident) {
-        load_chunk<T>(xc, ldc, kHaloPix, c0, nc, at, inside, mu, rs, lnw, lnb);
-        __syncthreads();
-      }
-      const bool first = c0 == 0, last = c0 + nc >= C;
-      gemm<T>(kHaloPix, 2 * hc, nc,
-          [&](int i, int k) { return xc[i * ldc + k]; },
-          [&](int k, int j) { return to_f(win[(size_t)(c0 + k) * H2 + col(j)]); },
-          [&](int i, int j, float a) {
-            chunk_acc(ts[i * ldt + (j < hc ? j : kGC + j - hc)], a, first, last,
-                      [](float v) { return v; });
-          });
-      __syncthreads();
-    }
-    for (int idx = threadIdx.x; idx < kPix * hc; idx += blockDim.x) {
-      const int p = idx / hc, j = idx - p * hc;
-      const int pr = p >> 3, pc = p & 7;
-      float a1 = 0.f, a2 = 0.f;
-#pragma unroll
-      for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx) {
-          const float* t = ts + ((pr + dy) * kHalo + pc + dx) * ldt;
-          const int tap = dy * 3 + dx;
-          a1 = fmaf(t[j], to_f(wdw[tap * H2 + j0 + j]), a1);
-          a2 = fmaf(t[kGC + j], to_f(wdw[tap * H2 + hid + j0 + j]), a2);
-        }
-      gs[p * ldg + j] = rnd<T>(gelu_erf(a1) * a2);
-    }
-    __syncthreads();
-    gemm<T>(kPix, C, hc,
-        [&](int i, int k) { return gs[i * ldg + k]; },
-        [&](int k, int j) { return to_f(wout[(size_t)(j0 + k) * C + j]); },
-        [&](int i, int j, float a) { acc[i * ldx + j] += a; });
-    __syncthreads();
-  }
-
-  for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
-    const int p = idx / C, k = idx - p * C;
-    float v = acc[p * ldx + k];
-    if (residual) {
-      const int r = ty * kTile + (p >> 3), c = tx * kTile + (p & 7);
-      v += to_f(x[(((size_t)b * H + r) * W + c) * C + k]);
-    }
-    acc[p * ldx + k] = rnd<T>(v);
-  }
-  __syncthreads();
-  if (wproj != nullptr) {
-    gemm<T>(kPix, Co, C,
-        [&](int i, int k) { return acc[i * ldx + k]; },
-        [&](int k, int j) { return to_f(wproj[(size_t)k * Co + j]); },
-        [&](int i, int j, float a) {
-          const int r = ty * kTile + (i >> 3), c = tx * kTile + (i & 7);
-          out[(((size_t)b * H + r) * W + c) * Co + j] = from_f<T>(a);
-        });
-  } else {
-    for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
-      const int p = idx / C, k = idx - p * C;
-      const int r = ty * kTile + (p >> 3), c = tx * kTile + (p & 7);
-      out[(((size_t)b * H + r) * W + c) * C + k] = from_f<T>(acc[p * ldx + k]);
-    }
-  }
-}
-
-inline size_t gdfn_smem(int C, int kc) {
-  return sizeof(float) * ((size_t)kHaloPix * (kc + 1) + (size_t)kHaloPix * (2 * kGC + 1) +
-                          (size_t)kPix * (kGC + 1) + (size_t)kPix * (C + 1));
-}
-
-inline int gdfn_chunk(int C) {
-  return pick_chunk(C, [&](int kc) { return plan_bytes(gdfn_kernel<float>, gdfn_smem(C, kc)); });
-}
-
-// The float32 kernel (the bf16 compute type runs gdfn_tc_kernel below).
-cudaError_t launch_gdfn(const float* x, const float* lnw, const float* lnb, const float* win,
-                        const float* wdw, const float* wout, const float* wproj, int Co,
-                        int residual, float* out, int B, int H, int W, int C, int hid, int kc,
-                        float eps, cudaStream_t stream) {
-  const size_t smem = gdfn_smem(C, kc);
-  cudaError_t err = set_smem(gdfn_kernel<float>, smem);
-  if (err != cudaSuccess) return err;
-  gdfn_kernel<float><<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
-      x, lnw, lnb, win, wdw, wout, wproj, Co, residual, out, H, W, C, hid, eps, kc);
-  return cudaGetLastError();
-}
+constexpr int kGC = 32;  // hidden chunk of the float32 backward
 
 // ---------------------------------------------------------------------------
 // The bf16 tile (the design is at the top of this file).
@@ -403,6 +274,337 @@ cudaError_t launch_gdfn_tc(const __nv_bfloat16* x, const float* lnw, const float
   cudaError_t err = set_smem(gdfn_tc_kernel, smem);
   if (err != cudaSuccess) return err;
   gdfn_tc_kernel<<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
+      x, lnw, lnb, win, taps, wout, wproj, Co, residual, out, H, W, C, hid, eps, flags);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The float32 tile (K5 in float32; the eval CLI's PromptFusion feed-forward
+// and exit 1x1, the float32 training route's forward): the bf16 tile's
+// design in 3xTF32 on m16n8k8, with no rounding points. One 8x8 tile per
+// 512-thread block:
+// - LayerNorm statistics of the 100 halo pixels once per tile
+//   (ln_stats_rows, from device memory);
+// - the hidden width in chunks of kGdfnF32K units. project_in is a 112 x
+//   2 kGdfnF32K x CP product, run in two passes (the chunk's x1 units, then
+//   its x2 units: one unit of 16 x 32 a warp, so that its sums and the 48
+//   project_out sums fit 128 registers without spills; in one pass, 2 units
+//   a warp, ptxas spilled 40 B), whose A operand, the halo, is not resident
+//   (a float32 halo beside t and the ring does not fit at C = 192-384): each
+//   of its 32-channel chunks is streamed beside the same chunk of the pass's
+//   64 rows of w_in (stage_f32_chunk, [112 + 64][36] stages; 4-byte cp.async
+//   where C % 4 != 0), normalised when it lands (ln_f32_chunk; rows outside
+//   the image stay zero) and multiplied into registers (halo_1x1_f32), so
+//   the halo is read again from L2 twice per hidden chunk; t goes to shared
+//   memory in float32 ([100][136]: float2 stores without bank conflicts);
+// - the depthwise 3x3 in float32 on the chunk's taps (staged as float32
+//   [9][128]), each output's nine taps summed by fmaf in tap order (as
+//   dwconv3_f32), 4 output rows a thread; gelu(x1) * x2 in float32 into the
+//   gated tile ([64][68]: rows 4 words mod 32, ldmatrix without bank
+//   conflicts);
+// - project_out: gated x the chunk's columns of w_out (torch layout
+//   [C][hid4], [128 out][68] tiles through the same ring) as the float32
+//   tail's fc2 (tail_fc2_f32), the 64 x C sums in registers across the whole
+//   hidden loop (up to 1024 deep: every k8 step's three TF32 products are
+//   summed from zero on the tensor cores and added to float32 registers,
+//   mma_3xtf32); C up to 384 in one pass, wider (no exit 1x1) once per
+//   output group of 384 channels with project_in recomputed;
+// - epilogue: y = the sums (+ x) in float32. Without the exit 1x1 y is
+//   stored from the registers (float pairs where C is even). With it, y goes
+//   to shared memory ([64][CP + 4]) over the dead front, and out = y x
+//   proj_w^T runs as the float32 apply's comb product (comb_f32: proj_w's
+//   torch layout [Co][C4] is its [n][k] operand, 32-deep chunks through a
+//   ring after y), staged [64][Co4 + 4] over y and stored in 16-byte runs
+//   where Co % 4 == 0.
+// Bound: as the bf16 tile's, at three TF32 products per float32 product.
+// ---------------------------------------------------------------------------
+
+constexpr int kGdfnF32K = 64;               // hidden chunk: kGdfnF32K x1 units and their x2 units
+constexpr int kGdfnF32N = 2 * kGdfnF32K;    // project_in's columns per chunk
+constexpr int kGdfnF32Ldt = kGdfnF32N + 8;  // t row in floats
+constexpr int kGdfnF32Ldg = kGdfnF32K + 4;  // gated row and w_out tile row in floats
+constexpr int kGdfnF32InUnits = 7 * kGdfnF32K / 32;         // a project_in pass's units of 16 x 32
+constexpr int kGdfnF32Units = (kGdfnF32InUnits + 15) / 16;  // ... a warp
+// project_out is the float32 tail's fc2 on the same [64][68] gated tile
+static_assert(kGdfnF32K == kTailK && kGdfnF32Ldg == kTailLdF, "tail_fc2_f32's tile");
+
+__host__ __device__ constexpr int round_up4(int n) { return (n + 3) / 4 * 4; }
+
+// The float32 tile's plan at width C and exit width Co (0: no exit 1x1):
+// taps [9][kGdfnF32N] | LN mean, rstd [2][112] | gated [64][kGdfnF32Ldg] |
+// t [100][kGdfnF32Ldt] | ring (ws stages, at most 4, as many as the budget
+// holds), every piece a multiple of 16 bytes; a stage holds a project_in
+// pass's chunk ([112 + kGdfnF32K][36]) or a w_out tile ([128][kGdfnF32Ldg]). The
+// exit's y [64][CP + 4] and its ring (cs stages of proj_w's [NP][36] chunks,
+// NP = Co rounded up to 32) lie over the dead front from offset 0, in the
+// front's bytes (cs = 3 where those hold it, else 2; with C and Co up to
+// 384 two always fit), so the plan does not depend on C.
+struct GdfnF32Plan {
+  int CP, nk, ws, NP, ldy, cs;
+  size_t stage, cstage, bytes;
+  __host__ __device__ GdfnF32Plan(int C, int Co) {
+    CP = round_up32(C);
+    nk = CP / kF32K;
+    const size_t f = sizeof(float);
+    const size_t fixed = f * (9 * kGdfnF32N + 2 * kFrontRows + kPix * kGdfnF32Ldg +
+                              kHaloPix * kGdfnF32Ldt);
+    const size_t wtile = f * kTailN * kGdfnF32Ldg;
+    stage = f32_stage_bytes(kGdfnF32K) > wtile ? f32_stage_bytes(kGdfnF32K) : wtile;
+    for (ws = 4; ws > 2 && fixed + ws * stage > kGdfnBudget; --ws) {
+    }
+    bytes = fixed + ws * stage;
+    NP = round_up32(Co);
+    ldy = CP + 4;
+    cstage = f * NP * kF32Ld;
+    cs = f * kPix * ldy + 3 * cstage <= bytes ? 3 : 2;
+  }
+};
+
+// Stages the [kTailN out][kGdfnF32Ldg] tile of w_out ([C][ldw] float32, ldw
+// a multiple of 4, 16-byte aligned rows) at output channels n0.. and hidden
+// units j0.. by 16-byte cp.async, zero past C and ldw. The caller commits.
+__device__ __forceinline__ void stage_wout_f32(float* dst, const float* __restrict__ w, int ldw,
+                                               int C, int n0, int j0) {
+  constexpr int units = kGdfnF32K / 4;  // 16-byte copies a row
+  for (int u = threadIdx.x; u < kTailN * units; u += blockDim.x) {
+    const int r = u / units, c = (u - r * units) * 4, n = n0 + r, k = j0 + c;
+    const bool ok = n < C && k < ldw;
+    cp_async16(smem_u32(dst + r * kGdfnF32Ldg + c), ok ? w + (size_t)n * ldw + k : w,
+               ok ? 16 : 0);
+  }
+}
+
+// Each pair of the thread's fc2 sums (tail_out's layout, channels from 0):
+// f(row, k, v0, v1) for channels k and k + 1, k < n (k is even).
+template <typename F>
+__device__ __forceinline__ void tail_out_pairs(const float (&acc)[2 * kTailGroups][4], int n,
+                                               F f) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = 16 * (warp >> 2) + (lane >> 2);
+#pragma unroll
+  for (int q = 0; q < 2 * kTailGroups; ++q) {
+    const int col = 64 * (q >> 1) + 16 * (warp & 3) + 8 * (q & 1) + 2 * (lane & 3);
+    if (col < n) {
+      f(r0, col, acc[q][0], acc[q][1]);
+      f(r0 + 8, col, acc[q][2], acc[q][3]);
+    }
+  }
+}
+
+// Arguments: x (B, H, W, C) float32, LN float32; win [2 hid][C4], taps
+// [2 hid][9], wout [C][hid4], wproj [Co][C4] or NULL: the torch layouts,
+// rows padded with zeros to C4 / hid4 (rounded up to 4), 16-byte aligned;
+// flags: kVecX (16-byte halo copies) | kPairs (8-byte loads of x and stores
+// of out) | kVecOut (16-byte stores of the exit's output). Output (B, H, W,
+// Co), Co = C without wproj.
+__global__ void __launch_bounds__(kThreads)
+gdfn_f32_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
+                const float* __restrict__ lnb, const float* __restrict__ win,
+                const float* __restrict__ taps, const float* __restrict__ wout,
+                const float* __restrict__ wproj, int Co, int residual, float* __restrict__ out,
+                int H, int W, int C, int hid, float eps, int flags) {
+  extern __shared__ float4 gdfn_f32_dyn[];  // 16-byte aligned: cp.async and ldmatrix
+  __shared__ int hsrc[kFrontRows];          // halo row -> source pixel (-1: zero row)
+  const GdfnF32Plan pl(C, wproj != nullptr ? Co : 0);
+  const int nk = pl.nk, C4 = round_up4(C), hid4 = round_up4(hid), CK = round_up64(C);
+  float* tp = reinterpret_cast<float*>(gdfn_f32_dyn);  // [9][kGdfnF32N] the chunk's taps
+  float* mu = tp + 9 * kGdfnF32N;                       // [112]
+  float* rs = mu + kFrontRows;                          // [112]
+  float* gs = rs + kFrontRows;                          // [64][kGdfnF32Ldg] gated
+  float* ts = gs + kPix * kGdfnF32Ldg;                  // [100][kGdfnF32Ldt] t
+  float* rg = ts + kHaloPix * kGdfnF32Ldt;              // the ring
+  const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool pairs = flags & kPairs;
+  const HaloF32 hl{x, nullptr, C, 0, hsrc, (flags & kVecX) != 0};
+  auto pix = [&](int i) { return tile_pix(b, ty, tx, i, H, W); };
+
+  for (int p = threadIdx.x; p < kFrontRows; p += blockDim.x)
+    hsrc[p] = halo_src(p, b, ty, tx, H, W, 0);
+  __syncthreads();
+  // read after the first chunk's barrier
+  ln_stats_rows(mu, rs, kHaloPix, C, eps, [&](int p, int k) { return hl.at(hsrc[p], k); },
+                [&](int p) { return hsrc[p] >= 0; });
+
+  // project_out's operands as the float32 tail's fc2: A the gated tile at the
+  // warp's 16 rows, B the lane's offset in a w_out tile at the warp's 16
+  // columns of each 64-channel group
+  const int wc = warp & 3;
+  const uint32_t ag =
+      smem_u32(gs + (16 * (warp >> 2) + (lane & 15)) * kGdfnF32Ldg + 4 * (lane >> 4));
+  const uint32_t boff =
+      4 * (((lane & 7) + 8 * (lane >> 4)) * kGdfnF32Ldg + 4 * ((lane >> 3) & 1));
+  float oacc[2 * kTailGroups][4];
+  for (int g0 = 0; g0 < CK; g0 += kTailMaxC) {
+    // the output group's channels g0 .. g0 + gc; per hidden chunk 2 nk
+    // project_in chunks (the x1 pass's, then the x2 pass's), then nk2 w_out
+    // tiles of 128 output channels
+    const int gc = min(kTailMaxC, CK - g0), nk2 = (gc + kTailN - 1) / kTailN;
+    const int per = 2 * nk + nk2;
+    if (g0 > 0) __syncthreads();  // the last group's tiles read before their stages refill
+    auto ring = front_ring(rg, pl.stage / sizeof(float), pl.ws,
+        (hid + kGdfnF32K - 1) / kGdfnF32K * per, [=](int t, float* st) {
+          const int j0 = t / per * kGdfnF32K, pos = t - t / per * per;
+          if (pos < 2 * nk) {  // row n: x1 unit j0 + n in the first pass, x2 in the second
+            const int x2 = pos >= nk;
+            stage_f32_chunk(st, hl, win, C4, kGdfnF32K, [=](int n) {
+              return j0 + n >= hid ? -1 : x2 ? hid + j0 + n : j0 + n;
+            }, pos - x2 * nk);
+          } else {
+            stage_wout_f32(st, wout, hid4, C, g0 + kTailN * (pos - 2 * nk), j0);
+          }
+        });
+    ring.prefetch();
+#pragma unroll
+    for (int q = 0; q < 2 * kTailGroups; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) oacc[q][e] = 0.f;
+    for (int j0 = 0; j0 < hid; j0 += kGdfnF32K) {
+      // the chunk's taps: column u < kGdfnF32K is x1 unit j0 + u, the rest x2
+      // unit j0 + u - kGdfnF32K; zero past hid (every thread is past the last
+      // chunk's depthwise conv: the last w_out tile's barrier)
+      for (int i = threadIdx.x; i < 9 * kGdfnF32N; i += blockDim.x) {
+        const int tap = i / kGdfnF32N, u = i - tap * kGdfnF32N;
+        const int unit = j0 + (u < kGdfnF32K ? u : u - kGdfnF32K);
+        tp[i] = unit < hid ? taps[(size_t)(u < kGdfnF32K ? unit : hid + unit) * 9 + tap] : 0.f;
+      }
+      // project_in over the halo, the x1 units' pass, then the x2 units',
+      // LayerNorm per chunk as it lands; t of its 100 rows in float32
+      for (int pass = 0; pass < 2; ++pass) {
+        float acc[kGdfnF32Units][4][4];
+        // (its k8 steps not unrolled: unrolled, the project_out sums beside
+        // them spilled 16 B at 128 registers)
+        halo_1x1_f32<kGdfnF32Units, 1>(acc, ring, kGdfnF32InUnits, nk, [&](float* st, int kt) {
+          ln_f32_chunk(st, hsrc, mu, rs, lnw, lnb, C, kt);
+          __syncthreads();
+        });
+        float* tq = ts + pass * kGdfnF32K;
+        front_out(acc, kGdfnF32InUnits, 7, [&](int r, int c, float v0, float v1) {
+          if (r < kHaloPix)
+            *reinterpret_cast<float2*>(tq + r * kGdfnF32Ldt + c) = make_float2(v0, v1);
+        });
+      }
+      __syncthreads();
+      // the depthwise 3x3 in float32, then gelu(x1) * x2; one item = (unit
+      // u, tile column pc, 4 output rows from pr)
+      for (int idx = threadIdx.x; idx < kGdfnF32K * 16; idx += blockDim.x) {
+        const int u = idx % kGdfnF32K, h = idx / kGdfnF32K, pc = h & 7, pr = (h >> 3) * 4;
+        float w1[9], w2[9];
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap) {
+          w1[tap] = tp[tap * kGdfnF32N + u];
+          w2[tap] = tp[tap * kGdfnF32N + kGdfnF32K + u];
+        }
+        float s1[4], s2[4];
+#pragma unroll
+        for (int o = 0; o < 4; ++o) s1[o] = s2[o] = 0.f;
+#pragma unroll
+        for (int rr = 0; rr < 6; ++rr)
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx) {
+            const float* tr = ts + ((pr + rr) * kHalo + pc + dx) * kGdfnF32Ldt + u;
+            const float v1 = tr[0], v2 = tr[kGdfnF32K];
+#pragma unroll
+            for (int o = 0; o < 4; ++o) {
+              const int dy = rr - o;
+              if (dy < 0 || dy > 2) continue;
+              s1[o] = fmaf(v1, w1[dy * 3 + dx], s1[o]);
+              s2[o] = fmaf(v2, w2[dy * 3 + dx], s2[o]);
+            }
+          }
+#pragma unroll
+        for (int o = 0; o < 4; ++o)
+          gs[((pr + o) * kTile + pc) * kGdfnF32Ldg + u] = gelu_erf(s1[o]) * s2[o];
+      }
+      // project_out; the first tile's barrier makes the gated tile visible
+      for (int i = 0; i < nk2; ++i)
+        tail_fc2_f32(oacc, ag, smem_u32(ring.consume() + 16 * wc * kGdfnF32Ldg) + boff, 2 * i,
+                     gc / 64);
+    }
+    if (wproj != nullptr) break;  // (one group: C <= kTailMaxC)
+    // y = the sums (+ x), stored from the registers
+    tail_out_pairs(oacc, min(gc, C - g0), [&](int i, int k, float v0, float v1) {
+      const size_t p = pix(i);
+      const int c = g0 + k;
+      if (residual) {
+        const float2 u = load_pair(x, nullptr, C, 0, p, c, pairs);
+        v0 = v0 + u.x;
+        v1 = v1 + u.y;
+      }
+      float* o = out + p * C + c;
+      if (pairs) {
+        *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+      } else {
+        o[0] = v0;
+        if (c + 1 < C) o[1] = v1;
+      }
+    });
+  }
+  if (wproj == nullptr) return;
+
+  // the exit 1x1: y = the sums (+ x) into [64][ldy] over the dead front (zero
+  // from C to CP), then y x proj_w^T as the float32 apply's comb product,
+  // proj_w's 32-deep chunks through a ring after y
+  float* y = reinterpret_cast<float*>(gdfn_f32_dyn);
+  const int ldy = pl.ldy, NP = pl.NP;
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the front: y and the ring take its space
+  auto cr = front_ring(y + kPix * ldy, pl.cstage / sizeof(float), pl.cs, nk,
+      [=](int kt, float* st) {
+        stage_w_f32_chunk(st, wproj, C4, NP, [=](int n) { return n < Co ? n : -1; }, kt);
+      });
+  cr.prefetch();
+  tail_out_pairs(oacc, pl.CP, [&](int i, int k, float v0, float v1) {
+    if (residual && k < C) {
+      const float2 u = load_pair(x, nullptr, C, 0, pix(i), k, pairs);
+      v0 = v0 + u.x;
+      v1 = v1 + u.y;
+    }
+    *reinterpret_cast<float2*>(y + i * ldy + k) =
+        make_float2(k < C ? v0 : 0.f, k + 1 < C ? v1 : 0.f);
+  });
+  float eacc[kFrontUnits][4][4];
+  comb_f32(eacc, y, ldy, cr, 4 * (NP / 32), nk);
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with y and the ring: the output takes their space
+  const int ldo = round_up4(Co) + 4;
+  float* ob = y;
+  front_out(eacc, 4 * (NP / 32), 4, [&](int i, int c, float v0, float v1) {
+    if (c < Co) *reinterpret_cast<float2*>(ob + i * ldo + c) = make_float2(v0, v1);
+  });
+  __syncthreads();
+  if (flags & kVecOut) {
+    const int units = Co / 4;
+    for (int u = threadIdx.x; u < kPix * units; u += blockDim.x) {
+      const int i = u / units, c = (u - i * units) * 4;
+      *reinterpret_cast<float4*>(out + pix(i) * Co + c) =
+          *reinterpret_cast<const float4*>(ob + i * ldo + c);
+    }
+  } else {
+    for (int u = threadIdx.x; u < kPix * Co; u += blockDim.x) {
+      const int i = u / Co, c = u - i * Co;
+      out[pix(i) * Co + c] = ob[i * ldo + c];
+    }
+  }
+}
+
+// The float32 tile: C up to kTailMaxC and Co up to kCombMaxN with the exit
+// 1x1, any C without it; win, wout and wproj 16-byte aligned.
+cudaError_t launch_gdfn_f32(const float* x, const float* lnw, const float* lnb, const float* win,
+                            const float* taps, const float* wout, const float* wproj, int Co,
+                            int residual, float* out, int B, int H, int W, int C, int hid,
+                            float eps, cudaStream_t stream) {
+  if ((wproj != nullptr && (C > kTailMaxC || Co > kCombMaxN)) || !aligned(win, 16) ||
+      !aligned(wout, 16) || !aligned(wproj, 16))
+    return cudaErrorInvalidValue;
+  const size_t smem = GdfnF32Plan(C, wproj != nullptr ? Co : 0).bytes;
+  int flags = 0;
+  if (C % 4 == 0 && aligned(x, 16)) flags |= kVecX;
+  if (C % 2 == 0 && aligned(x, 8) && aligned(out, 8)) flags |= kPairs;
+  if (Co % 4 == 0 && aligned(out, 16)) flags |= kVecOut;
+  cudaError_t err = set_smem(gdfn_f32_kernel, smem);
+  if (err != cudaSuccess) return err;
+  gdfn_f32_kernel<<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
       x, lnw, lnb, win, taps, wout, wproj, Co, residual, out, H, W, C, hid, eps, flags);
   return cudaGetLastError();
 }
@@ -853,36 +1055,32 @@ cudaError_t launch_gdfn_bwd(const void* x, const float* lnw, const float* lnb, c
 }  // namespace mp
 
 // x (B, H, W, C); LN float32. Output (B, H, W, Co), with Co = C when wproj
-// is NULL. float32 (dtype 0): win [C][2*hid], wdw [9][2*hid], wout [hid][C],
-// wproj [C][Co] or NULL ([in][out] copies); kc the channel chunk
-// (mp_gdfn_chunk). bf16 (dtype 1, C and Co up to 384): the torch layouts,
-// win [2*hid][C8], wdw [2*hid][9], wout [C][hid8], wproj [Co][C8] or NULL
-// (rows padded with zeros to C8 / hid8, rounded up to 8; 16-byte aligned);
-// kc is C.
+// is NULL. The torch layouts, win [2*hid][Cp], wdw [2*hid][9], wout
+// [C][hidp], wproj [Co][Cp] or NULL, rows padded with zeros to Cp / hidp (C
+// and hid rounded up to 4 in float32, dtype 0; to 8 in bf16, dtype 1),
+// 16-byte aligned. float32: C up to 384 and Co up to 384 with wproj, any C
+// without it; bf16: C and Co up to 384. kc is C (no chunk: both tiles
+// stream what they do not hold).
 extern "C" int mp_gdfn(const void* x, const void* lnw, const void* lnb, const void* win,
                        const void* wdw, const void* wout, const void* wproj, void* out,
                        int dtype, int B, int H, int W, int C, int hid, int Co, int residual,
                        int kc, float eps, void* stream) {
-  if (H % mp::kTile != 0 || W % mp::kTile != 0 || kc <= 0 || kc > C)
-    return (int)cudaErrorInvalidValue;
+  if (H % mp::kTile != 0 || W % mp::kTile != 0 || kc != C) return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   auto f = [](const void* p) { return (const float*)p; };
   if (dtype == 0)
-    return (int)mp::launch_gdfn(f(x), f(lnw), f(lnb), f(win), f(wdw), f(wout), f(wproj), Co,
-                                residual, (float*)out, B, H, W, C, hid, kc, eps, st);
+    return (int)mp::launch_gdfn_f32(f(x), f(lnw), f(lnb), f(win), f(wdw), f(wout), f(wproj), Co,
+                                    residual, (float*)out, B, H, W, C, hid, eps, st);
   using bf = const __nv_bfloat16*;
   return (int)mp::launch_gdfn_tc((bf)x, f(lnw), f(lnb), (bf)win, (bf)wdw, (bf)wout, (bf)wproj, Co,
                                  residual, (__nv_bfloat16*)out, B, H, W, C, hid, eps, st);
 }
 
-// The channel chunk the float32 forward kernel launches with at C.
-extern "C" int mp_gdfn_chunk(int C) { return mp::gdfn_chunk(C); }
-
-// Shared-memory plans per block (bytes, static included): the float32
-// forward at C and channel chunk kc; the bf16 tile at C (GdfnPlan; its
-// bytes do not depend on hid or Co).
-extern "C" long long mp_gdfn_smem(int C, int kc) {
-  return mp::plan_bytes(mp::gdfn_kernel<float>, mp::gdfn_smem(C, kc));
+// Shared-memory plans per block (bytes, static included): the float32 tile
+// at C (GdfnF32Plan; its bytes depend on neither C, hid nor Co up to 384)
+// and the bf16 tile at C (GdfnPlan; its bytes do not depend on hid or Co).
+extern "C" long long mp_gdfn_f32_smem(int C) {
+  return mp::plan_bytes(mp::gdfn_f32_kernel, mp::GdfnF32Plan(C, 0).bytes);
 }
 
 extern "C" long long mp_gdfn_tc_smem(int C) {

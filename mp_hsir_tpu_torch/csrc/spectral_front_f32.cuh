@@ -117,8 +117,9 @@ __device__ __forceinline__ void ln_f32_chunk(float* st, const int* hsrc, const f
 // output: unit q = warp + 16 j is row tile q % 7, column block q / 7;
 // n_units = 7 N / 32 <= 16 U) = halo [112][CK] x the weight rows [N][CK]^T,
 // over the ring's nk chunks; land(st, kt) runs on each chunk after it landed
-// (the LayerNorm, with its own barrier) and before it is read.
-template <int U, typename Ring, typename Land>
+// (the LayerNorm, with its own barrier) and before it is read. KU: the k8
+// steps of a chunk unrolled (all 4 by default; fewer live registers with 1).
+template <int U, int KU = kF32K / 8, typename Ring, typename Land>
 __device__ __forceinline__ void halo_1x1_f32(float (&acc)[U][4][4], Ring& rg, int n_units,
                                              int nk, Land land) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -135,7 +136,7 @@ __device__ __forceinline__ void halo_1x1_f32(float (&acc)[U][4][4], Ring& rg, in
     float* st = rg.consume();
     land(st, kt);
     const uint32_t s = smem_u32(st);
-#pragma unroll
+#pragma unroll (KU)
     for (int kk = 0; kk < kF32K / 8; ++kk) {
 #pragma unroll
       for (int j = 0; j < U; ++j) {

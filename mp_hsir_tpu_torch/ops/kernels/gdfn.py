@@ -19,8 +19,13 @@ output) and ``mp_gdfn_dx_tc`` (``csrc/dwconv_dx.cuh`` with float32 t at K = 2
 hid: the transposed stencil, dx through project_in and the LayerNorm, plus
 dy with the residual), then the two weight products and the in-order sums
 of the per-tile partials (:func:`gdfn_bwd_tc_plan` mirrors both plans). The
-float32 forward and backward keep the chunked SIMT kernels (``mp_gdfn_bwd``
-+ ``csrc/grad.cu``'s depthwise and LayerNorm stages) on [in][out] weight
+float32 forward runs the 3xTF32 tile ``gdfn_f32_kernel`` (the bf16 tile's
+design on m16n8k8 with no rounding points; C and Co up to 384 with the exit
+1x1, any C without it): it streams the float32 torch layouts
+(:func:`pack_gdfn_f32`) and the halo's 32-channel chunks in the tiles that
+:func:`gdfn_f32_plan` describes, its launches counted in :data:`F32_TILE`
+too. The float32 backward keeps the chunked SIMT kernel (``mp_gdfn_bwd`` +
+``csrc/grad.cu``'s depthwise and LayerNorm stages) on [in][out] weight
 copies.
 """
 
@@ -41,9 +46,12 @@ from mp_hsir_tpu_torch.ops.kernels._route import (
     ROUTE, counter, dtype_code, f32, kernel_weight, stream_ptr,
 )
 from mp_hsir_tpu_torch.ops.kernels.mlp import TAIL_K, TAIL_MAX_C
-from mp_hsir_tpu_torch.ops.kernels.spectral import FRONT_ROWS, STATS_BUDGET, dwconv_dx_plan
+from mp_hsir_tpu_torch.ops.kernels.spectral import (
+    F32_K, F32_LD, FRONT_ROWS, STATS_BUDGET, dwconv_dx_plan,
+)
 
 COUNTER = counter("gdfn")
+F32_TILE = counter("gdfn_f32")
 BWD = counter("gdfn_bwd")
 # the bf16 tile (csrc/gdfn.cu), which takes the tail tile's fc2 and the
 # front's halo: its widest C and Co (kTailMaxC), the hidden chunk and the
@@ -57,6 +65,14 @@ GDFN_STAGE = 2 * GDFN_N * (GDFN_K + 8)
 GDFN_STAGES = 4
 GDFN_LDT = 2 * GDFN_K + 8
 GDFN_LDG = GDFN_K + 8
+# the float32 tile (gdfn_f32_kernel): its hidden chunk (kGdfnF32K), the t
+# row (kGdfnF32Ldt), the gated and w_out tile row (kGdfnF32Ldg) and the
+# kernel's static shared memory (the halo rows' sources); its halo chunks
+# are the float32 stats and apply tiles' (F32_K channels, rows of F32_LD)
+GDFN_F32_K = 64
+GDFN_F32_LDT = 2 * GDFN_F32_K + 8
+GDFN_F32_LDG = GDFN_F32_K + 4
+GDFN_F32_STATIC = 448
 
 
 def gdfn_plain(x, ln_w, ln_b, w_in, w_dw, w_out, residual: bool = False, proj_w=None,
@@ -144,21 +160,55 @@ def gdfn_bwd_tc_plan(c: int, hid: int) -> dict:
                 dx=dwconv_dx_plan(c, 2 * hid, f32_t=True))
 
 
-def pack_gdfn(w_in, w_dw, w_out, proj_w, dt):
+def gdfn_f32_plan(c: int, co: int = 0) -> dict:
+    """The float32 tile's tiling (``GdfnF32Plan`` in csrc/gdfn.cu) at width
+    ``c`` and exit width ``co`` (0: no exit 1x1): ``cp`` = c rounded up to
+    32, ``nk`` halo chunks of ``F32_K`` (32) channels per project_in pass
+    (two a hidden chunk of :data:`GDFN_F32_K` units: its x1 units, then its
+    x2 units); ``stage`` the ring's stage (a halo chunk beside the pass's 64
+    rows of w_in, or a [128][68] w_out tile), ``ws`` stages; ``bytes`` the
+    dynamic shared memory (taps, LN mean and rstd, gated tile, float32 t,
+    ring) and ``smem`` with the static (what ``mp_gdfn_f32_smem(c)``
+    returns); the exit's y [64][``ldy``] and its ``cs`` stages of proj_w's
+    [``np``][36] chunks over the dead front (``exit`` bytes), within
+    ``bytes``."""
+    cp = -(-c // 32) * 32
+    fixed = 4 * (9 * 2 * GDFN_F32_K + 2 * GDFN_ROWS + 64 * GDFN_F32_LDG + 100 * GDFN_F32_LDT)
+    stage = max(4 * (GDFN_ROWS + GDFN_F32_K) * F32_LD, 4 * GDFN_N * GDFN_F32_LDG)
+    ws = 4
+    while ws > 2 and fixed + ws * stage > GDFN_BUDGET:
+        ws -= 1
+    total = fixed + ws * stage
+    np_, ldy = -(-co // 32) * 32, cp + 4
+    cs = 3 if 4 * 64 * ldy + 3 * 4 * np_ * F32_LD <= total else 2
+    return dict(cp=cp, nk=cp // F32_K, stage=stage, ws=ws, np=np_, ldy=ldy, cs=cs,
+                exit=4 * 64 * ldy + cs * 4 * np_ * F32_LD if co else 0, bytes=total,
+                smem=total + GDFN_F32_STATIC)
+
+
+def pack_gdfn(w_in, w_dw, w_out, proj_w, dt, mult: int = 8):
     """The operands the bf16 tile streams, in ``dt``, in their torch layouts:
     w_in as [2 hid][C8], the depthwise taps as [2 hid][9], w_out as [C][hid8]
     and proj_w as [Co][C8] (or None); C8 and hid8 are C and hid rounded up
-    to 8, the rows padded with zeros only where they are not multiples of 8
-    (16-byte rows for the kernel's copies). Views of the weights where they
-    are already in ``dt`` and need no padding."""
+    to ``mult`` (8), the rows padded with zeros only where they are not
+    multiples of it (16-byte rows for the kernel's copies). Views of the
+    weights where they are already in ``dt`` and need no padding."""
     c, hid = w_out.shape[0], w_out.shape[1]
 
     def rows(w, n):
         w = w.reshape(w.shape[0], n).to(dt)
-        return (F.pad(w, (0, -n % 8)) if n % 8 else w).contiguous()
+        return (F.pad(w, (0, -n % mult)) if n % mult else w).contiguous()
 
     wp = None if proj_w is None else rows(proj_w, c)
     return rows(w_in, c), w_dw.reshape(2 * hid, 9).to(dt).contiguous(), rows(w_out, hid), wp
+
+
+def pack_gdfn_f32(w_in, w_dw, w_out, proj_w):
+    """The operands the float32 tile streams: :func:`pack_gdfn`'s layouts in
+    float32 with the rows padded to a multiple of 4 (16-byte rows): w_in
+    [2 hid][C4], taps [2 hid][9], w_out [C][hid4], proj_w [Co][C4] (or
+    None)."""
+    return pack_gdfn(w_in, w_dw, w_out, proj_w, torch.float32, 4)
 
 
 @lru_cache(maxsize=None)
@@ -176,8 +226,8 @@ def _entry(kind: str = "fwd"):
 
 def _prepare(x, ln_w, ln_b, w_in, w_dw, w_out, residual=False, proj_w=None, eps=1e-5):
     """Everything a launch needs: (the C entry's arguments, out, the tensors
-    the arguments point into, to be held until the launch). Weights: float32
-    [in][out] copies; bf16 :func:`pack_gdfn`."""
+    the arguments point into, to be held until the launch). Weights: bf16
+    :func:`pack_gdfn`, float32 :func:`pack_gdfn_f32`."""
     b, h, w, c = x.shape
     if h % 8 or w % 8:
         raise ValueError(f"gdfn needs H, W % 8 == 0, got {x.shape}")
@@ -188,20 +238,20 @@ def _prepare(x, ln_w, ln_b, w_in, w_dw, w_out, residual=False, proj_w=None, eps=
         if max(c, co) > GDFN_MAX_C:  # the widest C (and Co) of the tile's plan
             raise ValueError(f"the bf16 gdfn kernel takes C and Co up to {GDFN_MAX_C}, got "
                              f"C={c}, Co={co}")
-        kc = c
         _build.check_plan("gdfn", "mp_gdfn_tc_smem", f"C={c}", c)
         wi, wd, wo, wp = pack_gdfn(w_in, w_dw, w_out, proj_w, dt)
     else:
-        kc = _build.chunk("mp_gdfn_chunk", c)
-        _build.check_plan("gdfn", "mp_gdfn_smem", f"C={c}", c, kc)
-        wi, wd, wo = kernel_weight(w_in, dt), kernel_weight(w_dw, dt), kernel_weight(w_out, dt)
-        wp = None if proj_w is None else kernel_weight(proj_w, dt)
+        if proj_w is not None and max(c, co) > GDFN_MAX_C:  # y and the exit's one pass
+            raise ValueError(f"the float32 gdfn kernel takes C and Co up to {GDFN_MAX_C} "
+                             f"with proj_w, got C={c}, Co={co}")
+        _build.check_plan("gdfn", "mp_gdfn_f32_smem", f"C={c}", c)
+        wi, wd, wo, wp = pack_gdfn_f32(w_in, w_dw, w_out, proj_w)
     x = x.contiguous()
     lnw, lnb = f32(ln_w), f32(ln_b)
     out = torch.empty((b, h, w, co), dtype=dt, device=x.device)
     args = (x.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), wi.data_ptr(), wd.data_ptr(),
             wo.data_ptr(), _build.ptr(wp), out.data_ptr(), code, b, h, w, c, hid, co,
-            int(residual), kc, eps, stream_ptr())
+            int(residual), c, eps, stream_ptr())
     return args, out, (x, lnw, lnb, wi, wd, wo, wp)
 
 
@@ -209,8 +259,10 @@ def _launch(x, ln_w, ln_b, w_in, w_dw, w_out, residual, proj_w, eps):
     args, out, _held = _prepare(x, ln_w, ln_b, w_in, w_dw, w_out, residual, proj_w, eps)
     _build.check("mp_gdfn", _entry()(*args))
     b, h, w, c = x.shape
-    COUNTER.record(("gdfn", b, h, w, c, w_out.shape[1], out.shape[-1], bool(residual),
-                    str(x.dtype)))
+    spec = ("gdfn", b, h, w, c, w_out.shape[1], out.shape[-1], bool(residual))
+    COUNTER.record(spec + (str(x.dtype),))
+    if x.dtype == torch.float32:
+        F32_TILE.record(("gdfn_f32",) + spec[1:])
     return out
 
 

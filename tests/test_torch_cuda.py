@@ -483,12 +483,12 @@ def test_cuda_remote_sensing_widths_match_plain(dtype, tol):
     assert 0 < _build.plan_bytes("mp_spectral_apply_smem", 384, 1, code) <= _build.smem_limit()
     for c, heads in ((192, 2), (384, 8)):  # the float32 stats tile: one plan, no chunk
         assert 0 < _build.plan_bytes("mp_spectral_stats_smem", c, heads) <= _build.smem_limit()
-    for kernel, shape, want in (("window", (384, 8, code), 384 if code else 64),
-                                ("gdfn", (384,), 64)):
-        kc = _build.chunk(f"mp_{kernel}_chunk", *shape)
-        entry = "mp_window_msa_smem" if kernel == "window" else f"mp_{kernel}_smem"
-        assert kc == want, kernel
-        assert 0 < _build.plan_bytes(entry, *shape, kc) <= _build.smem_limit(), entry
+    # the GDFN tiles (bf16 and float32): one plan each, no chunk
+    entry = "mp_gdfn_tc_smem" if code else "mp_gdfn_f32_smem"
+    assert 0 < _build.plan_bytes(entry, 384) <= _build.smem_limit()
+    kc = _build.chunk("mp_window_chunk", 384, 8, code)
+    assert kc == (384 if code else 64)
+    assert 0 < _build.plan_bytes("mp_window_msa_smem", 384, 8, code, kc) <= _build.smem_limit()
 
 
 # (C, heads): dh 32, 64, 96 and 48 (an even head count: the bf16 kernel
@@ -1062,10 +1062,13 @@ GDFN_CASES = [(c, hid, co, residual, proj, b, h, w) for c, hid, co in GDFN_WIDTH
               for residual, proj in ((False, False), (True, False), (True, True), (False, True))
               for b, h, w in ((1, 8, 24), (2, 16, 48))]
 # mp_gdfn_tc_smem(C) (GdfnPlan, static included: 4 ring stages at every
-# width), and the plans the tile leaves as they were: mp_gdfn_smem(C, kc) and
-# mp_gdfn_bwd_smem(C, kc) at each width's chunk (64 at C = 384, else C)
+# width), mp_gdfn_f32_smem(C) (GdfnF32Plan, static included: 4 ring stages,
+# the same bytes at every width: the halo streams), and the plan the tiles
+# leave as it was: mp_gdfn_bwd_smem(C, kc) at each width's chunk (64 at C =
+# 384, else C)
 GDFN_TC_PLANS = {128: 172864, 256: 201536, 192: 187200, 384: 230208, 36: 158528, 27: 151360}
-GDFN_F32_PLANS = {128: 119872, 256: 203840, 192: 161856, 384: 159808, 36: 59520, 27: 53616}
+GDFN_F32_PLANS = {128: 217024, 256: 217024, 192: 217024, 384: 217024, 36: 217024, 27: 217024,
+                  54: 217024, 400: 217024}
 GDFN_BWD_PLANS = {128: 127264, 256: 211232, 192: 169248, 384: 168000, 36: 66912, 27: 61008}
 
 
@@ -1082,11 +1085,12 @@ def _gdfn_inputs(c, hid, co, proj, b, h, w, dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("c,hid,co,residual,proj,b,h,w", GDFN_CASES)
 def test_cuda_gdfn_tile_matches_plain(c, hid, co, residual, proj, b, h, w):
-    """The bf16 tile and the float32 kernel against the plain version, bf16
+    """The bf16 tile and the float32 tile against the plain version, bf16
     within 3e-2 and float32 within 1e-4 of the output's max-abs; one launch
-    each, the plain version only inside the check; two calls bitwise equal
-    (no cross-block sums); the bf16 plan pinned and within the device's
-    limit, the float32 forward and backward plans as they were."""
+    each (the float32 one counted in gdfn_f32 too), the plain version only
+    inside the check; two calls bitwise equal (no cross-block sums); both
+    plans pinned and within the device's limit, the float32 backward's plan
+    as it was."""
     from mp_hsir_tpu_torch.ops.kernels import _build
 
     dev = _cuda()
@@ -1097,12 +1101,13 @@ def test_cuda_gdfn_tile_matches_plain(c, hid, co, residual, proj, b, h, w):
         _route.reset_counters()
         _check_fwd(gdfn, call, kw, tol)
         assert _route.COUNTERS["gdfn"].launches == 1
+        assert _route.COUNTERS["gdfn_f32"].launches == int(dt == torch.float32)
         assert _route.ROUTE.plain_cuda_calls == 1
         assert torch.equal(gdfn(*call, **kw), gdfn(*call, **kw)), dt
     n = _build.plan_bytes("mp_gdfn_tc_smem", c)
     assert n == GDFN_TC_PLANS[c] and n <= _build.smem_limit()
-    kc = _build.chunk("mp_gdfn_chunk", c)
-    assert _build.plan_bytes("mp_gdfn_smem", c, kc) == GDFN_F32_PLANS[c]
+    n = _build.plan_bytes("mp_gdfn_f32_smem", c)
+    assert n == GDFN_F32_PLANS[c] and n <= _build.smem_limit()
     kc = _build.chunk("mp_gdfn_bwd_chunk", c)
     assert _build.plan_bytes("mp_gdfn_bwd_smem", c, kc) == GDFN_BWD_PLANS[c]
 
@@ -1127,7 +1132,8 @@ def test_cuda_gdfn_check_sees_the_gate(c, hid, co):
 @pytest.mark.cuda
 def test_cuda_gdfn_bf16_past_384_raises():
     """The bf16 tile takes C and Co up to 384 and raises above them (no
-    fallback); float32 streams its input in chunks and runs."""
+    fallback); the float32 tile runs C = 400 without the exit 1x1 (two output
+    groups) and raises past 384 with it."""
     dev = _cuda()
     args, kw = _gdfn_inputs(400, 1064, 0, False, 1, 8, 8, dev)
     _route.reset_counters()
@@ -1135,9 +1141,53 @@ def test_cuda_gdfn_bf16_past_384_raises():
         gdfn(args[0].to(torch.bfloat16), *args[1:], **kw)
     _check_fwd(gdfn, args, kw, 1e-4)
     assert _route.COUNTERS["gdfn"].launches == 1
+    assert _route.COUNTERS["gdfn_f32"].launches == 1
     args, kw = _gdfn_inputs(128, 340, 400, True, 1, 8, 8, dev)
-    with pytest.raises(ValueError, match="C and Co up to 384"):
-        gdfn(args[0].to(torch.bfloat16), *args[1:], **kw)
+    for dt in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError, match="C and Co up to 384"):
+            gdfn(args[0].to(dt), *args[1:], **kw)
+
+
+# The float32 GDFN tile (gdfn_f32_kernel, csrc/gdfn.cu) at every (C, hid,
+# Co) of the presets' calls and C = 36, 54 and 27 (rows not 16-byte
+# multiples at 54 and 27: the halo by 4-byte copies; 27 odd: no float pairs)
+# and C = 400 without the exit 1x1 (two output groups), with and without the
+# residual, at B = 2 on a non-square map (2x16x24: 12 tiles)
+GDFN_F32_CASES = [(c, hid, co, residual, proj) for c, hid, co in GDFN_WIDTHS + ((54, 143, 27),)
+                  for residual, proj in ((True, True), (False, True), (True, False))] + [
+    (400, 1064, 0, True, False), (400, 1064, 0, False, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,hid,co,residual,proj", GDFN_F32_CASES)
+def test_cuda_gdfn_f32_tile_matches_plain(c, hid, co, residual, proj):
+    """The float32 tile against the plain version within 1e-4 of the
+    output's max-abs: one gdfn_f32 launch, the plain version only inside the
+    check; two calls bitwise equal (no float atomics); its plan the mirror's
+    (gdfn_f32_plan) and pinned, within the device's limit."""
+    from mp_hsir_tpu_torch.ops.kernels import _build
+    from mp_hsir_tpu_torch.ops.kernels.gdfn import gdfn_f32_plan
+
+    dev = _cuda()
+    args, kw = _gdfn_inputs(c, hid, co, proj, 2, 16, 24, dev)
+    kw["residual"] = residual
+    _route.reset_counters()
+    _check_fwd(gdfn, args, kw, 1e-4)
+    assert _route.COUNTERS["gdfn_f32"].launches == 1
+    assert _route.ROUTE.plain_cuda_calls == 1
+    assert torch.equal(gdfn(*args, **kw), gdfn(*args, **kw))
+    n = _build.plan_bytes("mp_gdfn_f32_smem", c)
+    assert n == gdfn_f32_plan(c, co)["smem"] == GDFN_F32_PLANS[c] <= _build.smem_limit()
+
+
+@pytest.mark.cuda
+def test_cuda_gdfn_f32_tile_registers():
+    """The float32 GDFN tile within 128 registers (512 threads a block) and
+    without spills."""
+    _cuda()
+    rep = _ptxas("gdfn_f32_kernel")
+    assert rep["registers"] <= 128, rep
+    assert rep.get("spill_stores", 0) == 0 and rep.get("spill_loads", 0) == 0, rep
 
 
 # The bf16 MLP backward tile (mlp_bwd_tc_kernel, csrc/mlp.cu) at every preset
