@@ -2,7 +2,8 @@
 """Drive the PyTorch port of MP-HSIR on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--out results.json] [--bwd-split KERNEL] [--mlp-bwd-split] [--wgrad]
-                          [--train-cli] [--eval-cli] [--f32-eval]
+                          [--train-cli] [--eval-cli] [--f32-eval] [--mesh-eval]
+                          [--mesh-cards]
 
 Phases (any failure exits non-zero; no phase's error is caught):
 
@@ -213,7 +214,33 @@ Phases (any failure exits non-zero; no phase's error is caught):
     with the same launch and kernel-vs-plain checks; s/cube per mode; each
     preset's float32 kernels per forward (each call alone through its
     wrapper x its calls).
-15. The kernel summary line (each kernel's main-path numbers, its
+15. The row-sharded eval forward (--mesh_spatial N). (a) The float32 stats
+    and apply tiles with halo rows, in this process: every distinct float32
+    stats and apply call of the flagship forward (phase 2's shapes, read in
+    the unrolled frame) cut into 2 and 4 row shards, each shard with its
+    neighbours' rows as halos and its edge flags: against its plain version
+    (phase 2's float32 tolerance), the shards composed (the stats summed in
+    rank order, the apply outputs stacked) against the unsharded kernel call
+    (1e-4 of max-abs), two planted faults (the halo rows swapped top for
+    bottom; a top edge flag inverted) that must break that bound; each halo
+    call of one shard of 2 timed beside the unsharded call, its plain
+    version and its bound, summed per sharded forward. (b) The eval CLI with
+    --mesh_spatial 2, two ranks sharing this card over gloo: the flagship
+    (trained weights, mode 0, the two 512^2 x 31 quality cubes) and the
+    remote-sensing preset (seeded weights, 256^2 x 100, mode 0), each
+    against --mesh_spatial 1 (PSNR within 1e-3 dB, SSIM within 1e-4), the
+    gathered cubes against the unsharded kernel forward (max abs 1e-4),
+    each rank's launches per forward (24 float32 stats and apply launches
+    with halo rows, 22 window launches of which 11 with region labels, 8
+    conv3, 2 GDFN) and no plain call on the card; each rank's s per cube
+    (ranks sharing one card: not a multi-card figure). --mesh-eval adds a probe
+    of which gloo collectives take CUDA tensors here (each op in two ranks
+    of its own; reported, not checked: the port never hands gloo one).
+    --mesh-cards (a machine with several cards) runs phase 1 and the same
+    CLI check with one rank a card over NCCL (2 ranks, then one per card;
+    rank r on card r), then the CLI under torchrun (2 processes) against the
+    one-card stdout.
+16. The kernel summary line (each kernel's main-path numbers, its
     remote-sensing train-step numbers and the train and eval CLIs' launches
     beside them; the float32 tail tile's row: phase 14's launches, phase 2's
     tail ms per flagship float32 forward beside its bound and plain, the
@@ -2462,6 +2489,339 @@ def eval_cli_path(dev, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the row-sharded eval forward (--mesh_spatial N): the float32
+# spectral tiles with halo rows, the sharded CLI on ranks sharing the card
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = (2, 4)
+# the sharded CLI against --mesh_spatial 1: PSNR dB, SSIM (tests/test_eval_cli.py:44-45)
+MESH_CLI_TOL = (1e-3, 1e-4)
+MESH_RANKS = 2
+
+
+def shard_call(args, kw, n: int, i: int, fault: str = ""):
+    """Shard i of n of one call: (args, kw) with its rows, its gate rows and
+    its halo (the neighbours' rows of cat(x, x2); the ring's wrapped rows at
+    the image's edges). fault: "swapped" passes the halo rows top for
+    bottom, "edge" inverts the top edge flag."""
+    from mp_hsir_tpu_torch.ops.kernels.spectral import Halo
+
+    x = args[0]
+    h = x.shape[1]
+    r0, r1 = i * h // n, (i + 1) * h // n
+    u = x if "x2" not in kw else torch.cat([x, kw["x2"]], dim=-1)
+    top, bot = u[:, (r0 - 1) % h][:, None], u[:, r1 % h][:, None]
+    if fault == "swapped":
+        top, bot = bot, top
+    halo = Halo(top, bot, (i == 0) != (fault == "edge"), i == n - 1)
+    a = (x[:, r0:r1].contiguous(),) + tuple(args[1:])
+    k = dict(kw, halo=halo)
+    for key in ("x2", "shortcut"):
+        if key in kw:
+            k[key] = kw[key][:, r0:r1].contiguous()
+    if "gate" in kw:
+        k["gate"] = kw["gate"][:, r0 // 8:r1 // 8].contiguous()
+    return a, k
+
+
+def composed(name, outs):
+    """The shards' outputs as the whole call's: the stats summed in rank
+    order, the apply outputs stacked."""
+    if name != "spectral_stats":
+        return torch.cat(outs, dim=1)
+    acc = [t.clone() for t in outs[0]]
+    for o in outs[1:]:
+        for a, t in zip(acc, o):
+            a += t
+    return tuple(acc)
+
+
+def errs(got, ref) -> tuple:
+    """(max abs error, max abs error over the max abs of its output), the
+    worst output of a call."""
+    pairs = [((a.float() - r.float()).abs().max().item(), max(r.float().abs().max().item(), 1e-6))
+             for a, r in zip(_flat(got), _flat(ref))]
+    return max(e for e, _ in pairs), max(e / s for e, s in pairs)
+
+
+def halo_tile_checks(dev, card: str) -> dict:
+    """Phase 15 (a): every distinct float32 stats and apply call of the
+    flagship forward (phase 2's shapes, read in the unrolled frame) cut into
+    2 and 4 row shards, each shard launched with its halo rows: against its
+    plain version (phase 2's float32 tolerance), the shards composed (stats
+    summed in rank order, apply stacked) against the unsharded kernel call
+    (1e-4 of max-abs), a planted fault on shard 1 of 4 (the halo rows
+    swapped) and on shard 0 (its top edge flag inverted) that must break the
+    bound; each halo call of 2 timed beside its unsharded call."""
+    from mp_hsir_tpu_torch.config import natural_scene_config
+    from mp_hsir_tpu_torch.ops.kernels._route import plain_reference
+
+    specs = path_specs(natural_scene_config(), SIZE, "torch.float32")
+    calls = Counter()
+    for spec, mult in specs.items():
+        if spec[0] in ("spectral_stats", "spectral_apply"):
+            key = spec[:7] + spec[8:] if spec[0] == "spectral_stats" else spec[:6] + spec[7:]
+            calls[key] += mult
+    rows = []
+    for key, mult in sorted(calls.items(), key=repr):
+        full = key[:7] + (0,) + key[7:] if key[0] == "spectral_stats" else key[:6] + (0,) + key[6:]
+        name = key[0]
+        fn, args, kw, _, byts, flops = make_call(full, dev, torch.float32)
+        kw.pop("shift")
+        whole = fn(*args, **kw)
+        row = dict(spec=full, calls=mult, shards={})
+        for n in MESH_SHARDS:
+            outs, worst, worst_abs = [], 0.0, 0.0
+            for i in range(n):
+                a, k = shard_call(args, kw, n, i)
+                got = fn(*a, **k)
+                with plain_reference():
+                    ref = fn(*a, **k)
+                e_abs, e = errs(got, ref)
+                if not e <= F32_TOL:
+                    fail(f"{name} {full[1:]} shard {i} of {n} with halo rows: {e:.3e} of max-abs "
+                         f"off its plain version (bound {F32_TOL})")
+                worst, worst_abs = max(worst, e), max(worst_abs, e_abs)
+                outs.append(got)
+            ce = errs(composed(name, outs), whole)[1]
+            if not ce <= F32_TOL:
+                fail(f"{name} {full[1:]}: {n} shards composed differ from the unsharded kernel "
+                     f"call by {ce:.3e} of max-abs (bound {F32_TOL})")
+            row["shards"][n] = dict(max_rel_err=worst, max_abs_err=worst_abs, composed_rel_err=ce)
+        faults = {}
+        for fault, (n, i) in (("swapped", (4, 1)), ("edge", (4, 0))):
+            a, k = shard_call(args, kw, n, i, fault)
+            got = fn(*a, **k)
+            with plain_reference():
+                ref = fn(*a, **shard_call(args, kw, n, i)[1])
+            faults[fault] = errs(got, ref)[1]
+            if not faults[fault] > F32_TOL:
+                fail(f"{name} {full[1:]}: the planted fault ({fault} halo) went unseen: "
+                     f"{faults[fault]:.3e} of max-abs")
+        row["faults"] = faults
+        a, k = shard_call(args, kw, 2, 0)
+        row["halo_ms"] = time_ms(lambda: fn(*a, **k), 10)
+        row["whole_ms"] = time_ms(lambda: fn(*args, **kw), 10)
+        with plain_reference():
+            row["plain_ms"] = time_ms(lambda: fn(*a, **k), 3)
+        # one shard of 2: half the pixels, two halo rows more read
+        x = args[0]
+        halo_bytes = 2 * x.shape[0] * x.shape[2] * (x.shape[3] + (kw["x2"].shape[3]
+                                                                   if "x2" in kw else 0)) * 4
+        row.update(bytes=byts / 2 + halo_bytes, flops=flops / 2,
+                   bound_ms=f32_bound_ms(byts / 2 + halo_bytes, flops / 2))
+        rows.append(row)
+        log(f"  {name} {full[1:]} x{mult}: halo shards of 2 {row['shards'][2]['max_rel_err']:.2e}"
+            f", of 4 {row['shards'][4]['max_rel_err']:.2e} of max-abs off plain; composed "
+            f"{row['shards'][2]['composed_rel_err']:.2e} / {row['shards'][4]['composed_rel_err']:.2e}"
+            f"; faults swapped {faults['swapped']:.2e}, edge {faults['edge']:.2e}; one shard of 2 "
+            f"{row['halo_ms']:.3f} ms (unsharded {row['whole_ms']:.3f}, plain {row['plain_ms']:.3f}"
+            f", bound {row['bound_ms']:.4f})")
+        del fn, args, kw, whole
+        torch.cuda.empty_cache()
+    log(card)
+    per = {}
+    for name in ("spectral_stats", "spectral_apply"):
+        rs = [r for r in rows if r["spec"][0] == name]
+        per[name] = {k: sum(r[k] * r["calls"] for r in rs)
+                     for k in ("halo_ms", "whole_ms", "plain_ms", "bound_ms", "bytes", "flops")}
+        per[name]["bound_by"] = ("bytes" if per[name]["bytes"] / HBM_BYTES_PER_S
+                                 >= 3 * per[name]["flops"] / TF32_FLOPS else "operations")
+        per[name].update(calls=sum(r["calls"] for r in rs),
+                         max_abs_err=max(r["shards"][n]["max_abs_err"] for r in rs
+                                         for n in MESH_SHARDS),
+                         rel_err=max(r["shards"][n]["max_rel_err"] for r in rs
+                                     for n in MESH_SHARDS))
+        log(f"  {name} per sharded forward (one shard of 2, its {per[name]['calls']} calls): "
+            f"halo tile {per[name]['halo_ms']:.2f} ms, the unsharded calls "
+            f"{per[name]['whole_ms']:.2f}, plain {per[name]['plain_ms']:.2f}, bound "
+            f"{per[name]['bound_ms']:.4f}")
+    return dict(rows=rows, per_forward=per)
+
+
+def _mesh_cli_rank(info, cfg, model_cfg, n: int):
+    """One rank of the sharded CLI under phase 15: the parent's float32
+    settings (TF32 off in cuDNN and matmuls, as phase 14 sets them), then the
+    CLI's own rank."""
+    from mp_hsir_tpu_torch.cli import test_cli
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return test_cli._mesh_rank(info, cfg, model_cfg, n, False, "", "natural_scene",
+                               keep_outputs=True)
+
+
+def _gloo_probe_rank(info, op: str):
+    """One gloo collective on CUDA tensors between two ranks (a probe of the
+    library, not a path of the port: the port stages gloo's tensors through
+    the host)."""
+    import torch.distributed as dist
+
+    t = torch.full((4,), float(info.rank + 1), device=info.device)
+    if op == "all_reduce":
+        dist.all_reduce(t)
+    elif op == "broadcast":
+        dist.broadcast(t, 0)
+    elif op == "all_gather":
+        dist.all_gather([torch.empty_like(t) for _ in range(2)], t)
+    elif info.rank == 0:
+        dist.send(t, 1)
+    else:
+        dist.recv(t, 0)
+    torch.cuda.synchronize()
+    return t.cpu().tolist()
+
+
+def gloo_cuda_probe() -> dict:
+    """Which gloo collectives take CUDA tensors on this machine: each op in
+    two ranks of its own (one that fails can abort its process, as a CUDA
+    tensor's send does). The finding is reported, not checked: the port
+    never hands gloo a CUDA tensor."""
+    from mp_hsir_tpu_torch.parallel import distributed
+
+    got = {}
+    for op in ("all_reduce", "broadcast", "all_gather", "send_recv"):
+        try:
+            out = distributed.spawn(_gloo_probe_rank, 2, op, timeout_s=60)
+            got[op] = f"takes CUDA tensors (rank 0 holds {out})"
+        except Exception as e:  # noqa: BLE001 - the probe's finding, reported
+            got[op] = f"fails: {type(e).__name__}: {str(e).splitlines()[0][:160]}"
+        log(f"    {op}: {got[op]}")
+    return got
+
+
+def mesh_cli_run(dev, tmp: str, preset: str, n: int, backend: str, own_cards: bool) -> dict:
+    """The eval CLI's mode 0 with --mesh_spatial n (n ranks it spawns on this
+    machine) on the preset's two quality cubes (the flagship on its trained
+    weights at 512^2 x 31, remote sensing on seeded weights at 256^2 x 100)
+    against --mesh_spatial 1 in this process (PSNR within 1e-3 dB, SSIM
+    within 1e-4) and the gathered cubes against the unsharded kernel
+    forward (max abs 1e-4); each rank: the backend, its card (rank r on
+    card r where ``own_cards``, else all on card 0), its launches per
+    forward (24 float32 stats and apply launches with halo rows, 22 window
+    launches of which 11 with region labels, 8 conv3, 2 GDFN) and no plain
+    call on the card; each rank's s per cube."""
+    import io
+
+    from mp_hsir_tpu_torch.cli import test_cli
+    from mp_hsir_tpu_torch.config import EvalConfig, natural_scene_config, remote_sensing_config
+    from mp_hsir_tpu_torch.data.eval_datasets import MODE_DATASETS
+    from mp_hsir_tpu_torch.parallel import distributed
+
+    size, bands, ckpt = (SIZE, 31, ART) if preset == "natural_scene" else (RS_SIZE, 100, "")
+    d = os.path.join(tmp, preset)
+    clean_dir = os.path.join(d, "clean") if os.path.isdir(d) else write_eval_cubes(d, size,
+                                                                                    bands)[0]
+    model_cfg = (natural_scene_config if preset == "natural_scene" else remote_sensing_config)()
+    cfg = EvalConfig(mode=0, test_dir=clean_dir, ckpt_path=ckpt, save_images=False,
+                     output_path=os.path.join(tmp, "out"))
+    model = test_cli.load_model(ckpt, model_cfg, dev)
+    with contextlib.redirect_stdout(io.StringIO()):
+        single = test_cli.run_mode(cfg, model_cfg, model=model, device=dev)
+        items = list(MODE_DATASETS[0](cfg))
+    with torch.inference_mode():
+        whole = [model(torch.from_numpy(it["degraded"])[None].to(dev),
+                       torch.tensor([0], device=dev)).cpu().numpy() for it in items]
+    del model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        sharded = distributed.spawn(_mesh_cli_rank, n, cfg, model_cfg, n)
+    secs = time.perf_counter() - t0
+    for line in out.getvalue().strip().splitlines():
+        log("    " + line)
+    dpsnr, dssim = abs(sharded["psnr"] - single["psnr"]), abs(sharded["ssim"] - single["ssim"])
+    err = max(float(np.abs(a - b).max()) for a, b in zip(sharded.pop("outputs"), whole))
+    log(f"  {preset} {bands} x {size}^2 mode 0, --mesh_spatial {n} ({secs:.1f} s with the ranks' "
+        f"start): PSNR {sharded['psnr']:.4f} dB (one card {single['psnr']:.4f}, |diff| "
+        f"{dpsnr:.2e}), SSIM {sharded['ssim']:.5f} (|diff| {dssim:.2e}); gathered cubes vs the "
+        f"unsharded kernel forward max abs {err:.3e}")
+    if not (dpsnr <= MESH_CLI_TOL[0] and dssim <= MESH_CLI_TOL[1]):
+        fail(f"{preset}: the sharded CLI's metrics differ from the one-card run")
+    if not err <= MODEL_F32_TOL:
+        fail(f"{preset}: the sharded forward differs from the unsharded one by {err:.3e}")
+    nb = (*model_cfg.num_blocks, *model_cfg.num_blocks[:2], model_cfg.num_refinement_blocks)
+    n_pg, n_shift = sum(nb), sum(k // 2 for k in nb)
+    want = {"spectral_stats_halo": n_pg + 2, "spectral_apply_halo": n_pg + 2,
+            "spectral_stats_f32": n_pg + 2, "spectral_apply_f32": n_pg + 2,
+            "window_attention_f32": n_pg, "window_attention_shard": n_shift,
+            "conv3_f32": 8, "gdfn_f32": 2}
+    shared = "" if own_cards else f" ({n} ranks sharing one card, not a multi-card figure)"
+    for r, rk in enumerate(sharded["ranks"]):
+        if rk["plain_cuda_calls"]:
+            fail(f"{preset}: rank {r} ran {rk['plain_cuda_calls']} plain calls on the card")
+        card_r = f"cuda:{r if own_cards else 0}"
+        if rk["device"] != card_r or rk["backend"] != backend:
+            fail(f"{preset}: rank {r} ran on {rk['device']} over {rk['backend']}, expected "
+                 f"{card_r} over {backend}")
+        per = {k: rk["launches"].get(k, 0) / rk["forwards"] for k in want}
+        if per != {k: float(v) for k, v in want.items()}:
+            fail(f"{preset}: rank {r}'s launches per forward {per}, expected {want}")
+        log(f"    rank {r} ({rk['device']}, {rk['backend']}): {rk['sec_per_cube']:.4f} s per cube"
+            f"{shared}; one card alone {single['sec_per_cube']:.4f}; per forward "
+            + ", ".join(f"{k} {int(v)}" for k, v in per.items()))
+    return dict(single={k: single[k] for k in ("psnr", "ssim", "sam", "sec_per_cube")},
+                sharded=sharded, max_abs_err=err, seconds=secs)
+
+
+def mesh_cli_checks(dev, card: str) -> dict:
+    """Phase 15 (b): the eval CLI with --mesh_spatial 2 on this one card (two
+    ranks over gloo), the flagship and the remote-sensing preset
+    (mesh_cli_run)."""
+    import shutil
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tmp = tempfile.mkdtemp(prefix="mp_hsir_mesh_cli_")
+    try:
+        res = {p: mesh_cli_run(dev, tmp, p, MESH_RANKS, "gloo", False)
+               for p in ("natural_scene", "remote_sensing")}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(card)
+    return res
+
+
+def mesh_cards_checks(dev, card: str) -> dict:
+    """--mesh-cards: the sharded CLI on a machine with several cards, one
+    rank a card over NCCL (2 ranks, then one per card), the flagship
+    (mesh_cli_run); then the same command under torchrun (2 processes) held
+    to the stdout lines and to the one-card metrics."""
+    import shutil
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        fail(f"--mesh-cards needs two cards or more, this machine has {n_cards}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tmp = tempfile.mkdtemp(prefix="mp_hsir_mesh_cards_")
+    res = {}
+    try:
+        for n in sorted({2, n_cards}):
+            res[f"natural_scene/{n}"] = mesh_cli_run(dev, tmp, "natural_scene", n, "nccl", True)
+        clean_dir = os.path.join(tmp, "natural_scene", "clean")
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+               "2", "-m", "mp_hsir_tpu_torch.cli.test_cli", "--mode", "0", "--test_dir",
+               clean_dir, "--ckpt_path", ART, "--no_save_images", "--mesh_spatial", "2"]
+        t0 = time.perf_counter()
+        p = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        lines = p.stdout.strip().splitlines()
+        log("  torchrun --nproc_per_node 2 ... --mesh_spatial 2:\n    " + "\n    ".join(lines)
+            + f"\n    ({time.perf_counter() - t0:.1f} s)")
+        single = res["natural_scene/2"]["single"]
+        want = f"Denoise sigma=70: psnr: {single['psnr']:.2f}, ssim: {single['ssim']:.4f}"
+        if p.returncode != 0 or len(lines) != 4 or lines[2] != want:
+            fail(f"torchrun CLI: exit {p.returncode}, stdout {lines}, expected {want!r} "
+                 f"{p.stderr[-3000:]}")
+        res["torchrun_stdout"] = lines
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(card)
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 10: the window MSA kernel (K14) through SpatialAttention
 # ---------------------------------------------------------------------------
 
@@ -3266,6 +3626,10 @@ def main() -> None:
     ap.add_argument("--f32-eval", action="store_true", help="only phase 1, phase 2 (its "
                     "float32 times and the C = 400 calls), K6's float32 calls of phases 5 and "
                     "11, and phase 14: the float32 path, for this checkout or an older one")
+    ap.add_argument("--mesh-eval", action="store_true", help="only phase 15, the row-sharded "
+                    "eval forward (after the build)")
+    ap.add_argument("--mesh-cards", action="store_true", help="only the row-sharded eval CLI "
+                    "with one rank a card over NCCL (a machine with several cards)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs an NVIDIA GPU")
@@ -3326,6 +3690,26 @@ def main() -> None:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
             with open(args.out, "w") as fh:
                 json.dump(dict(card=card, train_cli=cli), fh, indent=1)
+        log(f"== done in {time.perf_counter() - t_start:.1f} s")
+        return
+    if args.mesh_cards:
+        log("== the row-sharded eval CLI on this machine's cards, one rank a card")
+        cards = mesh_cards_checks(dev, card)
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "w") as fh:
+                json.dump(dict(card=card, mesh_cards=cards), fh, indent=1, default=str)
+        log(f"== done in {time.perf_counter() - t_start:.1f} s")
+        return
+    if args.mesh_eval:
+        log("== phase 15 only: the row-sharded eval forward")
+        mesh = dict(halo=halo_tile_checks(dev, card), cli=mesh_cli_checks(dev, card))
+        log("  gloo with CUDA tensors (two ranks on this card, each op apart):")
+        mesh["gloo_cuda"] = gloo_cuda_probe()
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "w") as fh:
+                json.dump(dict(card=card, mesh=mesh), fh, indent=1, default=str)
         log(f"== done in {time.perf_counter() - t_start:.1f} s")
         return
     if args.eval_cli:
@@ -3503,6 +3887,11 @@ def main() -> None:
     log(card)
     ev = eval_cli_path(dev, card)
 
+    log("== phase 15: the row-sharded eval forward: the float32 spectral tiles with halo rows, "
+        f"the CLI with --mesh_spatial {MESH_RANKS} on ranks sharing this card")
+    log(card)
+    mesh = dict(halo=halo_tile_checks(dev, card), cli=mesh_cli_checks(dev, card))
+
     summary = summarize(rows, main_res["launches"], KERNELS, "per_forward")
     summary += summarize([r for r in train_rows if r["spec"][0] in TRAIN_KERNELS],
                          train_res["launches"], TRAIN_KERNELS, "per_step")
@@ -3559,6 +3948,28 @@ def main() -> None:
             library_ms=f.get("library_ms"), kernel_alone_ms=f.get("kernel_alone_ms"),
             remote_sensing_f32=f32_rs.get(sums),
             eval_cli=dict(launches=n, launches_per_forward=n // (len(EVAL_MODES) * EVAL_FORWARDS))))
+    # the halo tiles: their path is the sharded CLI (phase 15's launches over
+    # the ranks of the flagship run); ms, plain and bound per sharded forward
+    # (one shard of 2: each halo call of the forward timed alone), the
+    # largest error of a shard against its plain version
+    ranks = mesh["cli"]["natural_scene"]["sharded"]["ranks"]
+    for name, of, source, replaces, tpu in (
+            ("spectral_stats_f32_halo", "spectral_stats",
+             "mp_hsir_tpu_torch/csrc/spectral_stats_f32.cuh",
+             "mp_hsir_tpu/ops/pallas_attention.py:2053", ["K7a"]),
+            ("spectral_apply_f32_halo", "spectral_apply", "mp_hsir_tpu_torch/csrc/spectral.cu",
+             "mp_hsir_tpu/ops/pallas_attention.py:2114", ["K7b"])):
+        p = mesh["halo"]["per_forward"][of]
+        n = sum(rk["launches"].get(of + "_halo", 0) for rk in ranks)
+        if n == 0:
+            fail(f"the halo tile {name} was not launched by the sharded CLI")
+        summary.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces, tpu=tpu, launches=n,
+            launches_per_forward=p["calls"], max_abs_err=p["max_abs_err"], rel_err=p["rel_err"],
+            ms=p["halo_ms"], plain_ms=p["plain_ms"], bound_ms=p["bound_ms"],
+            bound_by=p["bound_by"], library_ms=None, unsharded_ms=p["whole_ms"],
+            mesh_cli=dict(ranks=len(ranks), launches=n,
+                          launches_per_forward=n // sum(rk["forwards"] for rk in ranks))))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
@@ -3575,7 +3986,7 @@ def main() -> None:
                            f32_tail_plans=f32_tail_plans, f32_tile_plans=f32_tile_plans,
                            f32_eval=f32_eval, f32_rs=f32_rs,
                            f32_train=f32_train, f32_rs_train=f32_rs_train, wide=wide,
-                           train_cli=cli, eval_cli=ev,
+                           train_cli=cli, eval_cli=ev, mesh=mesh,
                            seconds=time.perf_counter() - t_start), fh, indent=1, default=str)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -17,12 +17,22 @@ cube. ``--auto_task`` routes each cube's task id through the FFC
 classifier (``--classifier_ckpt``, a flat npz of ``checkpoint.
 save_classifier_npz``; empty means seeded random weights).
 
+``--mesh_spatial N`` (N > 1) restores each cube with its rows split over N
+ranks (JAX's multi-chip eval, ``make_eval_step(mc, mesh)``): rank 0 reads
+and degrades each cube, scatters its row blocks, every rank runs the
+row-sharded forward on its own card (``LOCAL_RANK % cards``; ranks that
+outnumber the cards share them, over gloo), and rank 0 gathers the output,
+scores it and prints the same lines. Started as a plain command it spawns
+its N ranks on this machine itself; under ``torchrun --nproc_per_node N``
+each process is one rank. Each cube's H must be a multiple of 32 N (8 N
+rows at the deepest level). With ``--pipeline`` rank 0 reads the cubes
+ahead on a producer thread, as the JAX CLI pipelines its sharded step.
+
 Run: ``python -m mp_hsir_tpu_torch.cli.test_cli --mode K --test_dir DIR
 --ckpt_path assets/trained/natural_12k_f16.npz``; ``--data_type
 remote_sensing`` selects the 100-band preset. It runs on the card unless
-``--device cpu`` is given. ``--mesh_spatial`` (one cube over several
-cards) waits for the mesh slice; the port always runs its kernels on the
-card, so JAX's ``--use_pallas`` has no counterpart.
+``--device cpu`` is given; the port always runs its kernels on the card,
+so JAX's ``--use_pallas`` has no counterpart.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ from collections import deque
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mp_hsir_tpu_torch import resolve_device, upload
 from mp_hsir_tpu_torch.checkpoint import load_classifier_npz, load_params_npz
@@ -46,8 +57,13 @@ from mp_hsir_tpu_torch.config import (
 )
 from mp_hsir_tpu_torch.data.eval_datasets import MODE_DATASETS
 from mp_hsir_tpu_torch.models.mp_hsir import build_model
+from mp_hsir_tpu_torch.ops.kernels._route import COUNTERS, ROUTE, reset_counters
 from mp_hsir_tpu_torch.ops.metrics import (
     AverageMeter, compute_psnr_ssim, compute_psnr_ssim_missing_bands, compute_sam, eval_metrics,
+)
+from mp_hsir_tpu_torch.parallel import distributed
+from mp_hsir_tpu_torch.parallel.mesh import (
+    SPATIAL_AXIS, broadcast, gather_rows, make_mesh, scatter_rows,
 )
 from mp_hsir_tpu_torch.utils.image import save_false_color
 
@@ -103,8 +119,11 @@ UPLOAD_DTYPES = {"float32": torch.float32, "float16": torch.float16, "bfloat16":
 
 def load_model(ckpt_path: str, model_cfg: ModelConfig, device="cuda"):
     """Eval model on ``device``; weights from a flat-npz params artifact, or
-    random ones when ``ckpt_path`` is empty."""
-    model = build_model(model_cfg, device)
+    seeded random ones (seed 0, the same in every process and every rank)
+    when ``ckpt_path`` is empty."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = build_model(model_cfg, device)
     if ckpt_path:
         load_params_npz(ckpt_path, model)
     return model
@@ -169,15 +188,7 @@ def run_mode(cfg: EvalConfig, model_cfg: ModelConfig, model=None, device="cuda",
     the degraded host cube (1, C, H, W) that returns the task id, in place
     of the mode's fixed prompt."""
     mode = cfg.mode
-    if mode not in MODE_DATASETS:
-        raise SystemExit(f"unknown mode {mode}")
-    task_id = MODE_TASK_ID[mode]
-    if mode == BANDMIS_MODE and model_cfg.task_classes == 7:
-        task_id = REMOTE_SENSING_BANDMIS_TASK
-    if task_id >= model_cfg.task_classes:
-        raise SystemExit(f"task id {task_id} out of range for {model_cfg.task_classes} classes")
-    if cfg.upload_dtype not in UPLOAD_DTYPES:
-        raise SystemExit(f"upload dtype {cfg.upload_dtype} is not one of {sorted(UPLOAD_DTYPES)}")
+    task_id = _mode_task_id(cfg, model_cfg)
     device = resolve_device(device)
     dataset = MODE_DATASETS[mode](cfg)
     if model is None:
@@ -204,17 +215,175 @@ def run_mode(cfg: EvalConfig, model_cfg: ModelConfig, model=None, device="cuda",
         restored = model(degraded, tid)
         _sync(device)
         wall += time.perf_counter() - t0
-        if mode == BANDMIS_MODE:
-            p, s, n = compute_psnr_ssim_missing_bands(restored, clean, degraded)
-        else:
-            p, s, n = compute_psnr_ssim(restored, clean.clamp(0, 1))
-        psnr.update(p, n)
-        ssim.update(s, n)
-        sam.update(compute_sam(restored, clean), n)
+        _score(mode, restored, clean, degraded, psnr, ssim, sam)
         if cfg.save_images:
             _save_images(cfg, out_dir, item["name"], item["clean"], item["degraded"],
                          restored.float().cpu().numpy())
     return _report(cfg, psnr, ssim, sam, wall / max(len(dataset), 1))
+
+
+def _score(mode: int, restored, clean, degraded, psnr, ssim, sam) -> None:
+    """One cube's PSNR, SSIM and SAM into the meters (mode 10: the zeroed
+    bands only)."""
+    if mode == BANDMIS_MODE:
+        p, s, n = compute_psnr_ssim_missing_bands(restored, clean, degraded)
+    else:
+        p, s, n = compute_psnr_ssim(restored, clean.clamp(0, 1))
+    psnr.update(p, n)
+    ssim.update(s, n)
+    sam.update(compute_sam(restored, clean), n)
+
+
+def _mode_task_id(cfg: EvalConfig, model_cfg: ModelConfig) -> int:
+    """The task prompt of ``cfg.mode``; exits on a bad mode or option."""
+    if cfg.mode not in MODE_DATASETS:
+        raise SystemExit(f"unknown mode {cfg.mode}")
+    task_id = MODE_TASK_ID[cfg.mode]
+    if cfg.mode == BANDMIS_MODE and model_cfg.task_classes == 7:
+        task_id = REMOTE_SENSING_BANDMIS_TASK
+    if task_id >= model_cfg.task_classes:
+        raise SystemExit(f"task id {task_id} out of range for {model_cfg.task_classes} classes")
+    if cfg.upload_dtype not in UPLOAD_DTYPES:
+        raise SystemExit(f"upload dtype {cfg.upload_dtype} is not one of {sorted(UPLOAD_DTYPES)}")
+    return task_id
+
+
+def _prefetched(dataset, depth: int):
+    """The dataset's items, read ahead by a producer thread up to ``depth``
+    items (the file IO and the degradation overlap the forwards); the
+    producer's exception is raised again here."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+
+    def producer():
+        try:
+            for item in dataset:
+                q.put(item)
+            q.put(None)
+        except BaseException as e:  # noqa: BLE001 - raised again below
+            q.put(_StageError(e))
+
+    threading.Thread(target=producer, daemon=True, name="eval-producer").start()
+    while True:
+        item = q.get()
+        if item is None:
+            return
+        if isinstance(item, _StageError):
+            raise item.exc
+        yield item
+
+
+@torch.inference_mode()
+def run_mode_sharded(cfg: EvalConfig, model_cfg: ModelConfig, model, axis, device,
+                     task_router=None, keep_outputs: bool = False) -> dict:
+    """One mode with each cube's rows split over ``axis`` (this rank's view of
+    the spatial mesh axis); every rank of the axis calls it. Rank 0 reads and
+    degrades each cube (ahead on a producer thread when ``cfg.pipeline`` >
+    1), routes its task id, sends a header and scatters the row blocks;
+    every rank runs ``model(block, tid, axis=axis)`` (timed: the forward to
+    its end on the card); rank 0 gathers the output, scores it, prints the
+    synchronous loop's lines and returns its dict, with ``ranks``: each
+    rank's s per cube, forwards, device, backend, kernel launches and plain
+    calls on the card (and, ``keep_outputs``, the restored cubes). The other
+    ranks return None."""
+    mode = cfg.mode
+    task_id = _mode_task_id(cfg, model_cfg)
+    n, rank0 = axis.size, axis.index == 0
+    items = None
+    if rank0:
+        dataset = MODE_DATASETS[mode](cfg)
+        items = iter(_prefetched(dataset, cfg.pipeline) if cfg.pipeline > 1 else dataset)
+    out_dir = os.path.join(cfg.output_path, MODE_SUBDIR[mode])
+    psnr, ssim, sam = AverageMeter(), AverageMeter(), AverageMeter()
+    wall, n_items, forwards, outputs = 0.0, 0, 0, []
+    warmed = set()
+    reset_counters()
+    while True:
+        item = next(items, None) if rank0 else None
+        head = torch.zeros(5, dtype=torch.int64, device=device)
+        if item is not None:
+            c, h, w = item["degraded"].shape
+            tid = task_router(item["degraded"][None]) if task_router is not None else task_id
+            head = torch.tensor([1, c, h, w, tid], dtype=torch.int64, device=device)
+        more, c, h, w, tid = broadcast(head, axis).tolist()
+        if not more:
+            break
+        if h % (32 * n):
+            raise SystemExit(f"--mesh_spatial {n} needs H divisible by 8*{n} at the deepest level "
+                             f"(a multiple of {32 * n}); got H={h}")
+        degraded = (torch.from_numpy(item["degraded"][None]).to(device) if rank0 else None)
+        block = torch.empty((1, c, h // n, w), dtype=torch.float32, device=device)
+        block = scatter_rows(degraded, axis, block)
+        tids = torch.tensor([tid], device=device)
+        if block.shape not in warmed:
+            # the first call per shape pays the one-time set-up, untimed
+            model(block, tids, axis=axis)
+            _sync(device)
+            forwards += 1
+            warmed.add(block.shape)
+        t0 = time.perf_counter()
+        out = model(block, tids, axis=axis)
+        _sync(device)
+        wall += time.perf_counter() - t0
+        forwards += 1
+        n_items += 1
+        restored = gather_rows(out, axis, dim=2)
+        if not rank0:
+            continue
+        _score(mode, restored, torch.from_numpy(item["clean"][None]).to(device), degraded,
+               psnr, ssim, sam)
+        if keep_outputs:
+            outputs.append(restored.cpu().numpy())
+        if cfg.save_images:
+            _save_images(cfg, out_dir, item["name"], item["clean"], item["degraded"],
+                         restored.float().cpu().numpy())
+    mine = dict(sec_per_cube=wall / max(n_items, 1), forwards=forwards,
+                device=str(torch.device(device.type, torch.cuda.current_device())
+                           if device.type == "cuda" else device),
+                backend=dist.get_backend(axis.group), plain_cuda_calls=ROUTE.plain_cuda_calls,
+                launches={k: v.launches for k, v in COUNTERS.items() if v.launches})
+    ranks = [None] * n
+    dist.all_gather_object(ranks, mine, group=axis.group)
+    if not rank0:
+        return None
+    suffix = f" (pipelined x{cfg.pipeline})" if cfg.pipeline > 1 else ""
+    res = _report(cfg, psnr, ssim, sam, wall / max(n_items, 1), suffix)
+    res["ranks"] = ranks
+    if keep_outputs:
+        res["outputs"] = outputs
+    return res
+
+
+def _mesh_rank(info, cfg: EvalConfig, model_cfg: ModelConfig, n: int, auto_task: bool,
+               classifier_ckpt: str, data_type: str, keep_outputs: bool = False):
+    """One rank of ``--mesh_spatial n``: its model on its card, the mesh,
+    then :func:`run_mode_sharded`."""
+    mesh = make_mesh(data=1, spatial=n)
+    model = load_model(cfg.ckpt_path, model_cfg, info.device)
+    router = None
+    if auto_task and info.rank == 0:
+        router = make_classifier_router(classifier_ckpt, data_type, info.device)
+    return run_mode_sharded(cfg, model_cfg, model, mesh.axis(SPATIAL_AXIS), info.device,
+                            router, keep_outputs)
+
+
+def run_mesh(cfg: EvalConfig, model_cfg: ModelConfig, n: int, device="cuda",
+             auto_task: bool = False, classifier_ckpt: str = "",
+             data_type: str = "natural_scene", keep_outputs: bool = False):
+    """``--mesh_spatial n``: under torchrun (``WORLD_SIZE`` set) this process
+    is one of the n ranks; else it spawns the n ranks on this machine and
+    waits for them. Returns rank 0's dict (None on the other ranks)."""
+    args = (cfg, model_cfg, n, auto_task, classifier_ckpt, data_type, keep_outputs)
+    if os.environ.get("WORLD_SIZE"):
+        info = distributed.initialize_distributed(device)
+        if info.world_size != n:
+            raise SystemExit(f"--mesh_spatial {n} under torchrun needs {n} processes, "
+                             f"got {info.world_size}")
+        try:
+            return _mesh_rank(info, *args)
+        finally:
+            distributed.shutdown()
+    resolve_device(device)
+    return distributed.spawn(_mesh_rank, n, *args, device=str(device))
 
 
 def _save_images(cfg: EvalConfig, out_dir: str, name: str, clean, degraded, restored) -> None:
@@ -253,8 +422,9 @@ def _host_to_device(a: np.ndarray, dtype: torch.dtype, device: torch.device) -> 
 
 def _run_mode_pipelined(cfg: EvalConfig, model, dataset, task_id: int, out_dir: str,
                         device: torch.device, task_router=None) -> dict:
-    """The streaming loop: stage 1, a producer thread, runs the dataset (file
-    IO and the numpy degradation); stage 2, an uploader thread, consults the
+    """The streaming loop: stage 1, a producer thread (:func:`_prefetched`),
+    runs the dataset (file IO and the numpy degradation); stage 2, an
+    uploader thread, consults the
     router and copies each cube pair to the device on a side stream; the
     main thread makes its stream wait on the copy, widens the pair to
     float32, issues the forward and :func:`eval_metrics`, and keeps up to
@@ -263,26 +433,13 @@ def _run_mode_pipelined(cfg: EvalConfig, model, dataset, task_id: int, out_dir: 
     on_card = device.type == "cuda"
     up_dtype = UPLOAD_DTYPES[cfg.upload_dtype]
     band_missing = cfg.mode == BANDMIS_MODE
-    q: queue.Queue = queue.Queue(maxsize=max(2, cfg.pipeline))
     qd: queue.Queue = queue.Queue(maxsize=max(2, cfg.pipeline))
     side = torch.cuda.Stream(device) if on_card else None
-
-    def producer():
-        try:
-            for item in dataset:
-                q.put(item)
-            q.put(None)
-        except BaseException as e:  # noqa: BLE001 - raised again in the main thread
-            q.put(_StageError(e))
 
     def uploader():
         try:
             with torch.cuda.stream(side) if on_card else contextlib.nullcontext():
-                while True:
-                    item = q.get()
-                    if item is None or isinstance(item, _StageError):
-                        qd.put(item)
-                        return
+                for item in _prefetched(dataset, max(2, cfg.pipeline)):
                     degraded = item["degraded"][None]
                     clean = item["clean"][None]
                     tid = task_router(degraded) if task_router is not None else task_id
@@ -295,6 +452,7 @@ def _run_mode_pipelined(cfg: EvalConfig, model, dataset, task_id: int, out_dir: 
                         copied.record(side)
                     host = (clean, degraded) if cfg.save_images else (None, None)
                     qd.put((item["name"], *host, dd, cd, td, copied))
+            qd.put(None)
         except BaseException as e:  # noqa: BLE001 - raised again in the main thread
             qd.put(_StageError(e))
 
@@ -328,7 +486,6 @@ def _run_mode_pipelined(cfg: EvalConfig, model, dataset, task_id: int, out_dir: 
             _save_images(cfg, out_dir, name, clean_np, degraded_np, host[1].float().numpy())
             save_secs += time.perf_counter() - t_sv
 
-    threading.Thread(target=producer, daemon=True, name="eval-producer").start()
     threading.Thread(target=uploader, daemon=True, name="eval-uploader").start()
     cur = torch.cuda.current_stream(device) if on_card else None
     while True:
@@ -403,6 +560,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--upload_dtype", type=str, default="float16", choices=sorted(UPLOAD_DTYPES),
                    help="host -> device dtype of the pipelined loop's cubes (widened to float32 "
                         "on the device); the synchronous loop uploads float32")
+    p.add_argument("--mesh_spatial", type=int, default=1,
+                   help="shard each cube's rows over N ranks (one card each where there are "
+                        "enough); H must be divisible by 8*N at the deepest level")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     return p
 
@@ -434,7 +594,11 @@ def main(argv=None) -> dict:
         overrides["num_blocks"] = tuple(args.num_blocks)
     if overrides:
         model_cfg = dataclasses.replace(model_cfg, **overrides)
-    print(MODE_BANNER[cfg.mode](cfg))
+    if int(os.environ.get("RANK", "0")) == 0:
+        print(MODE_BANNER[cfg.mode](cfg), flush=True)
+    if args.mesh_spatial > 1:
+        return run_mesh(cfg, model_cfg, args.mesh_spatial, args.device, args.auto_task,
+                        args.classifier_ckpt, args.data_type)
     router = (make_classifier_router(args.classifier_ckpt, args.data_type, args.device)
               if args.auto_task else None)
     return run_mode(cfg, model_cfg, device=args.device, task_router=router)

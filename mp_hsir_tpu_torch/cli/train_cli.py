@@ -92,8 +92,9 @@ def main(argv=None) -> dict:
     checkpoints written, the final npz and peak device memory."""
     args = build_parser().parse_args(argv)
     if (args.mesh_data or 1) != 1 or args.mesh_spatial != 1:
-        raise SystemExit("--mesh_data / --mesh_spatial other than 1: mesh parallelism is not "
-                         "ported yet (ROADMAP.md, module queue: mesh parallelism)")
+        raise SystemExit("--mesh_data / --mesh_spatial other than 1: the sharded train step "
+                         "is not ported yet (the eval CLI's --mesh_spatial is; ROADMAP.md, "
+                         "module queue: mesh parallelism)")
 
     device = resolve_device(args.device)
     natural = args.data_type == "natural_scene"

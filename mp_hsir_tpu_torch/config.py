@@ -1,7 +1,10 @@
 """Typed configuration (mirrors ``mp_hsir_tpu/config.py``: ModelConfig, the two
 published presets, and every field of EvalConfig and TrainConfig with JAX's
-defaults). The mesh fields exist but this package
-runs one card: the train CLI raises on any mesh size other than 1."""
+defaults). JAX's ``ModelConfig.spatial_axis`` has no field here: the port's
+model takes the spatial mesh axis, a process group's handle, as the
+``axis`` argument of its forward (``parallel/mesh.py``); the eval CLI's
+``--mesh_spatial`` passes it. The train CLI raises on any mesh size other
+than 1 (the sharded train step is later work)."""
 
 from __future__ import annotations
 

@@ -203,8 +203,10 @@ __host__ __device__ inline ApplyPlan apply_plan(int kc, int C) {
 // Arguments: x1, x2, lnw, lnb, gate, shortcut, residual, dp and the tail as
 // mp_spectral_apply (float32); wv the v rows of wqkv ([C][C8], torch
 // layout, zero past C; 16-byte aligned), taps their depthwise taps ([C][9]),
-// combt comb transposed ([B][C out][C8 in], 16-byte aligned); flags: kVecX
-// (16-byte halo copies) | kPairs (8-byte epilogue loads and stores).
+// combt comb transposed ([B][C out][C8 in], 16-byte aligned); hal, halo a
+// row shard's halo rows and which are real, as spectral_stats_f32_kernel's
+// (they feed only v's depthwise at the shard's first and last rows); flags:
+// kVecX (16-byte halo copies) | kPairs (8-byte epilogue loads and stores).
 __global__ void __launch_bounds__(kThreads)
 spectral_apply_f32_kernel(const float* __restrict__ x1, const float* __restrict__ x2, int C1,
                           int C2, const float* __restrict__ lnw, const float* __restrict__ lnb,
@@ -215,7 +217,8 @@ spectral_apply_f32_kernel(const float* __restrict__ x1, const float* __restrict_
                           const float* __restrict__ w1, const float* __restrict__ b1,
                           const float* __restrict__ w2, const float* __restrict__ b2, int hid,
                           const float* __restrict__ dp, float* __restrict__ out, int H, int W,
-                          int shift, float eps, int flags, int tail_stages) {
+                          int shift, float eps, int flags, int tail_stages,
+                          const float* __restrict__ hal, int halo) {
   extern __shared__ float4 apply_f32_dyn[];  // 16-byte aligned: cp.async and ldmatrix
   __shared__ int hsrc[kFrontRows];            // halo row -> raw source pixel (-1: zero row)
   __shared__ int esrc[kPix], egate[kPix];     // tile pixel -> raw source pixel, gate row
@@ -230,14 +233,14 @@ spectral_apply_f32_kernel(const float* __restrict__ x1, const float* __restrict_
   float* y = reinterpret_cast<float*>(apply_f32_dyn);   // [64][CK + 4] (after comb, tail)
   const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
   const bool pairs = flags & kPairs;
-  const HaloF32 hl{x1, x2, C1, C2, hsrc, (flags & kVecX) != 0};
+  const HaloF32 hl{x1, x2, C1, C2, hsrc, (flags & kVecX) != 0, hal};
   auto dst = [&](int i) { return out + tile_pix(b, ty, tx, i, H, W) * C; };
 
   // the raw source pixel of each halo pixel (unrolled frame, read through
-  // the roll-back) and of each tile pixel, each tile pixel's gate window,
-  // and the taps of v, zero past C
+  // the roll-back; a shard's halo rows) and of each tile pixel, each tile
+  // pixel's gate window, and the taps of v, zero past C
   for (int p = threadIdx.x; p < kFrontRows; p += blockDim.x) {
-    hsrc[p] = halo_src(p, b, ty, tx, H, W, shift);
+    hsrc[p] = halo_src_f32(p, b, ty, tx, gridDim.z, H, W, shift, halo);
     if (p < kPix) {
       const int sr = (ty * kTile + (p >> 3) - shift + H) % H;
       const int sc = (tx * kTile + (p & 7) - shift + W) % W;
@@ -252,7 +255,7 @@ spectral_apply_f32_kernel(const float* __restrict__ x1, const float* __restrict_
   __syncthreads();
   if (lnw != nullptr)  // read after the first chunk's barrier
     ln_stats_rows(mu, rs, kHaloPix, C, eps, [&](int p, int k) { return hl.at(hsrc[p], k); },
-                  [&](int p) { return hsrc[p] >= 0; });
+                  [&](int p) { return hsrc[p] != -1; });
 
   // v, one column group at a time
   for (int g0 = 0; g0 < CP; g0 += pl.GW) {
@@ -580,15 +583,18 @@ cudaError_t launch_sum_stats(const float* part, float* gram, float* nq, float* n
 cudaError_t launch_stats(const float* x1, const float* x2, int C1, int C2, const float* lnw,
                          const float* lnb, const float* wqk, const float* taps, float* part,
                          float* gram, float* nq, float* nk, int B, int H, int W, int nH,
-                         int shift, float eps, int n_parts, cudaStream_t stream) {
+                         int shift, float eps, int n_parts, const float* hal, int halo,
+                         cudaStream_t stream) {
   const int C = C1 + C2;
   const StatsF32Plan pl(C, nH);
-  if (!pl.ok() || !aligned(wqk, 16)) return cudaErrorInvalidValue;
-  const int vec_x = C1 % 4 == 0 && C2 % 4 == 0 && aligned(x1, 16) && aligned(x2, 16);
+  if (!pl.ok() || !aligned(wqk, 16) || (halo != 0 && (hal == nullptr || shift != 0)))
+    return cudaErrorInvalidValue;
+  const int vec_x = C1 % 4 == 0 && C2 % 4 == 0 && aligned(x1, 16) && aligned(x2, 16) &&
+                    aligned(hal, 16);
   cudaError_t err = set_smem(spectral_stats_f32_kernel, pl.bytes);
   if (err != cudaSuccess) return err;
   spectral_stats_f32_kernel<<<dim3(n_parts, B), kThreads, pl.bytes, stream>>>(
-      x1, x2, C1, C2, lnw, lnb, wqk, taps, H, W, nH, shift, eps, vec_x, part);
+      x1, x2, C1, C2, lnw, lnb, wqk, taps, H, W, nH, shift, eps, vec_x, hal, halo, part);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   return launch_sum_stats(part, gram, nq, nk, B, n_parts, C, C / nH, stream);
 }
@@ -621,14 +627,16 @@ cudaError_t launch_apply_f32(const float* x1, const float* x2, int C1, int C2, c
                              int residual, const float* ln2w, const float* ln2b, const float* w1,
                              const float* b1, const float* w2, const float* b2, int hid,
                              const float* dp, float* out, int B, int H, int W, int shift,
-                             float eps, cudaStream_t stream) {
+                             float eps, const float* hal, int halo, cudaStream_t stream) {
   const int C = C1 + C2;
   const bool tail = w1 != nullptr;
-  if (!aligned(wv, 16) || !aligned(combt, 16) || (tail && (!aligned(w1, 16) || !aligned(w2, 16))))
+  if (!aligned(wv, 16) || !aligned(combt, 16) || (tail && (!aligned(w1, 16) || !aligned(w2, 16))) ||
+      (halo != 0 && (hal == nullptr || shift != 0)))
     return cudaErrorInvalidValue;
   const size_t smem = ApplyF32Plan(C).bytes(tail);
   int flags = 0;
-  if (C1 % 4 == 0 && C2 % 4 == 0 && aligned(x1, 16) && aligned(x2, 16)) flags |= kVecX;
+  if (C1 % 4 == 0 && C2 % 4 == 0 && aligned(x1, 16) && aligned(x2, 16) && aligned(hal, 16))
+    flags |= kVecX;
   if (C1 % 2 == 0 && C2 % 2 == 0 && aligned(x1, 8) && aligned(x2, 8) && aligned(gate, 8) &&
       aligned(shortcut, 8) && aligned(out, 8))
     flags |= kPairs;
@@ -636,7 +644,7 @@ cudaError_t launch_apply_f32(const float* x1, const float* x2, int C1, int C2, c
   if (err != cudaSuccess) return err;
   spectral_apply_f32_kernel<<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
       x1, x2, C1, C2, lnw, lnb, wv, taps, combt, gate, shortcut, residual, ln2w, ln2b, w1, b1,
-      w2, b2, hid, dp, out, H, W, shift, eps, flags, tail ? tail_f32_stages(C) : 0);
+      w2, b2, hid, dp, out, H, W, shift, eps, flags, tail ? tail_f32_stages(C) : 0, hal, halo);
   return cudaGetLastError();
 }
 
@@ -1030,20 +1038,25 @@ cudaError_t launch_apply_bwd(const void* x, const float* lnw, const float* lnb, 
 // rounded up to 8, zero past C; 16-byte aligned), wdw their depthwise taps
 // ([2C][9]); float32 takes heads up to 96 wide, bf16 C up to 384. Partial buffer part [B][n_parts][C*dh + 2C] (n_parts from
 // mp_spectral_stats_parts). Outputs (float32): gram [B][C][dh] (row h*dh + d,
-// col e), nq and nk [B][nH][dh].
+// col e), nq and nk [B][nH][dh]. A row shard of a larger map (float32 only,
+// shift 0): halo [2][B][W][C1 + C2] float32 holds the row above the shard
+// and the row below it, of cat(x1, x2); halo_flags bit 0 says the row above
+// is real data (else the shard's top is the image edge), bit 1 the row
+// below. halo_flags 0: the shard is the whole map (halo may be NULL).
 extern "C" int mp_spectral_stats(const void* x1, const void* x2, const void* lnw,
                                  const void* lnb, const void* wqkv, const void* wdw, void* part,
-                                 void* gram, void* nq, void* nk, int dtype, int B, int H, int W,
-                                 int C1, int C2, int nH, int shift, float eps, int n_parts,
-                                 void* stream) {
-  if ((C1 + C2) % nH != 0 || H % mp::kTile != 0 || W % mp::kTile != 0 || n_parts <= 0)
+                                 void* gram, void* nq, void* nk, const void* halo, int dtype,
+                                 int B, int H, int W, int C1, int C2, int nH, int shift,
+                                 float eps, int n_parts, int halo_flags, void* stream) {
+  if ((C1 + C2) % nH != 0 || H % mp::kTile != 0 || W % mp::kTile != 0 || n_parts <= 0 ||
+      (halo_flags != 0 && dtype != 0))
     return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   auto f = [](const void* p) { return (const float*)p; };
   float *pt = (float*)part, *g = (float*)gram, *q = (float*)nq, *k = (float*)nk;
   if (dtype == 0)
     return (int)mp::launch_stats(f(x1), f(x2), C1, C2, f(lnw), f(lnb), f(wqkv), f(wdw), pt, g, q,
-                                 k, B, H, W, nH, shift, eps, n_parts, st);
+                                 k, B, H, W, nH, shift, eps, n_parts, f(halo), halo_flags, st);
   using bf = const __nv_bfloat16*;
   return (int)mp::launch_stats_tc((bf)x1, (bf)x2, C1, C2, f(lnw), f(lnb), (bf)wqkv, (bf)wdw, pt, g,
                                   q, k, B, H, W, nH, shift, eps, n_parts, st);
@@ -1067,21 +1080,25 @@ extern "C" int mp_spectral_stats_parts(int dtype, int B, int H, int W, int C, in
 // float32 (dtype 0): comb transposed, [B][C out][C8 in] float32 (16-byte
 // aligned; pack_front_f32).
 // bf16 (dtype 1, C <= 384): comb bf16 [B][C][C8] (16-byte aligned).
+// halo, halo_flags: a row shard's halo rows, as mp_spectral_stats' (float32
+// only, shift 0).
 extern "C" int mp_spectral_apply(const void* x1, const void* x2, const void* lnw,
                                  const void* lnb, const void* wqkv, const void* wdw,
                                  const void* comb, const void* gate, const void* shortcut,
                                  const void* ln2w, const void* ln2b, const void* w1,
                                  const void* b1, const void* w2, const void* b2, const void* dp,
-                                 void* out, int dtype, int B, int H, int W, int C1, int C2,
-                                 int residual, int hid, int shift, float eps, void* stream) {
-  if (H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
+                                 void* out, const void* halo, int dtype, int B, int H, int W,
+                                 int C1, int C2, int residual, int hid, int shift, float eps,
+                                 int halo_flags, void* stream) {
+  if (H % mp::kTile != 0 || W % mp::kTile != 0 || (halo_flags != 0 && dtype != 0))
+    return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   auto f = [](const void* p) { return (const float*)p; };
   if (dtype == 0)
     return (int)mp::launch_apply_f32(f(x1), f(x2), C1, C2, f(lnw), f(lnb), f(wqkv), f(wdw),
                                      f(comb), f(gate), f(shortcut), residual, f(ln2w), f(ln2b),
                                      f(w1), f(b1), f(w2), f(b2), hid, f(dp), (float*)out, B, H,
-                                     W, shift, eps, st);
+                                     W, shift, eps, f(halo), halo_flags, st);
   using bf = const __nv_bfloat16*;
   return (int)mp::launch_apply_tc((bf)x1, (bf)x2, C1, C2, f(lnw), f(lnb), (bf)wqkv, (bf)wdw,
                                   (bf)comb, (bf)gate, (bf)shortcut, residual, f(ln2w), f(ln2b),
@@ -1091,6 +1108,12 @@ extern "C" int mp_spectral_apply(const void* x1, const void* x2, const void* lnw
 
 // The device's opt-in shared-memory limit per block, in bytes.
 extern "C" int mp_smem_optin() { return mp::smem_optin(); }
+
+// Makes card `dev` this library's current device on the calling thread. The
+// library links its own CUDA runtime, whose current device torch's
+// torch.cuda.set_device does not move: the wrappers call this before they
+// launch on a tensor of another card than the last one (_route.py).
+extern "C" int mp_set_device(int dev) { return (int)cudaSetDevice(dev); }
 
 // Shared-memory plans per block (bytes, static included) at a shape. The
 // float32 stats tile's (StatsF32Plan; no chunk): -1 past heads 96 wide.

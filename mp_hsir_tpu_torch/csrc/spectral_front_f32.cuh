@@ -43,17 +43,40 @@ __host__ __device__ constexpr size_t f32_stage_bytes(int N) {
 }
 
 // The halo of one tile: row p is raw pixel hsrc[p] of cat(x1, x2) (-1: a
-// zero row); vec: C1, C2 multiples of 4 and x1, x2 16-byte aligned.
+// zero row; -2 - q: pixel q of the shard's halo rows, hal [2][B][W][C1 +
+// C2], see halo_src_f32); vec: C1, C2 multiples of 4 and x1, x2, hal 16-byte
+// aligned.
 struct HaloF32 {
   const float* x1;
   const float* x2;
   int C1, C2;
   const int* hsrc;
   bool vec;
-  __device__ __forceinline__ float at(int pix, int k) const {
-    return k < C1 ? x1[(size_t)pix * C1 + k] : x2[(size_t)pix * C2 + (k - C1)];
+  const float* hal = nullptr;
+  // channel k of source pixel pix (not -1)
+  __device__ __forceinline__ const float* src(int pix, int k) const {
+    if (pix < 0) return hal + (size_t)(-2 - pix) * (C1 + C2) + k;
+    return k < C1 ? x1 + (size_t)pix * C1 + k : x2 + (size_t)pix * C2 + (k - C1);
   }
+  __device__ __forceinline__ float at(int pix, int k) const { return *src(pix, k); }
 };
+
+// The source of halo row p of tile (ty, tx) of image b in a row shard of B
+// images: halo_src's, except on the rows just above and below the shard
+// (-1 and H) where `halo` has bit 0 (above) or bit 1 (below) set. There the
+// row is a neighbour shard's, -2 - q with q = (side B + b) W + column its
+// pixel in the halo rows [2][B][W] (side 0 above, 1 below); the caller keeps
+// shift at 0 then. Without the bit the row is an image edge: zero after the
+// LayerNorm, as at halo 0.
+__device__ __forceinline__ int halo_src_f32(int p, int b, int ty, int tx, int B, int H, int W,
+                                            int shift, int halo) {
+  const int ur = ty * kTile + p / kHalo - 1, uc = tx * kTile + p % kHalo - 1;
+  if (p < kHaloPix && uc >= 0 && uc < W) {
+    if (ur == -1 && (halo & 1)) return -2 - (b * W + uc);
+    if (ur == H && (halo & 2)) return -2 - ((B + b) * W + uc);
+  }
+  return halo_src(p, b, ty, tx, H, W, shift);
+}
 
 // Stages K chunk kt (columns 32 kt ..) of N weight rows into sw ([N][kF32Ld])
 // by 16-byte cp.async: row n from w + row(n) * ldw (-1: a zero row; ldw a
@@ -71,7 +94,7 @@ __device__ __forceinline__ void stage_w_f32_chunk(float* sw, const float* __rest
 
 // Stages K chunk kt (channels 32 kt ..) of the halo and of N weight rows
 // into one ring stage st, all by cp.async: the halo [112][kF32Ld] (zero past
-// C and in zero rows), then the weights [N][kF32Ld], row n from w + row(n) * ldw (-1: a
+// C and in zero rows; a shard's halo rows from h.hal), then the weights [N][kF32Ld], row n from w + row(n) * ldw (-1: a
 // zero row; ldw a multiple of 4, rows 16-byte aligned), zero past ldw. The
 // caller commits.
 template <typename Row>
@@ -82,31 +105,27 @@ __device__ __forceinline__ void stage_f32_chunk(float* st, const HaloF32& h,
   if (h.vec) {
     for (int u = threadIdx.x; u < kFrontRows * (kF32K / 4); u += blockDim.x) {
       const int p = u >> 3, c = (u & 7) * 4, k = k0 + c, pix = h.hsrc[p];
-      const bool ok = pix >= 0 && k < C;
-      const float* s = !ok ? h.x1 : k < h.C1 ? h.x1 + (size_t)pix * h.C1 + k
-                                             : h.x2 + (size_t)pix * h.C2 + (k - h.C1);
-      cp_async16(smem_u32(st + p * kF32Ld + c), s, ok ? 16 : 0);
+      const bool ok = pix != -1 && k < C;
+      cp_async16(smem_u32(st + p * kF32Ld + c), ok ? h.src(pix, k) : h.x1, ok ? 16 : 0);
     }
   } else {
     for (int u = threadIdx.x; u < kFrontRows * kF32K; u += blockDim.x) {
       const int p = u / kF32K, c = u - p * kF32K, k = k0 + c, pix = h.hsrc[p];
-      const bool ok = pix >= 0 && k < C;
-      const float* s = !ok ? h.x1 : k < h.C1 ? h.x1 + (size_t)pix * h.C1 + k
-                                             : h.x2 + (size_t)pix * h.C2 + (k - h.C1);
-      cp_async4(smem_u32(st + p * kF32Ld + c), s, ok ? 4 : 0);
+      const bool ok = pix != -1 && k < C;
+      cp_async4(smem_u32(st + p * kF32Ld + c), ok ? h.src(pix, k) : h.x1, ok ? 4 : 0);
     }
   }
   stage_w_f32_chunk(st + kFrontRows * kF32Ld, w, ldw, N, row, kt);
 }
 
-// The LayerNorm of a staged halo chunk kt in place (in-image rows, channels
-// below C); the caller passes a barrier before anyone reads it.
+// The LayerNorm of a staged halo chunk kt in place (rows with a source,
+// channels below C); the caller passes a barrier before anyone reads it.
 __device__ __forceinline__ void ln_f32_chunk(float* st, const int* hsrc, const float* mu,
                                              const float* rs, const float* __restrict__ lnw,
                                              const float* __restrict__ lnb, int C, int kt) {
   for (int u = threadIdx.x; u < kHaloPix * kF32K; u += blockDim.x) {
     const int p = u / kF32K, c = u - p * kF32K, k = kt * kF32K + c;
-    if (hsrc[p] >= 0 && k < C) {
+    if (hsrc[p] != -1 && k < C) {
       float* v = st + p * kF32Ld + c;
       *v = (*v - mu[p]) * rs[p] * lnw[k] + lnb[k];
     }

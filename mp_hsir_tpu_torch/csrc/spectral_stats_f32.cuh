@@ -85,15 +85,18 @@ struct StatsF32Plan {
 
 // Arguments: x1, x2, lnw, lnb as mp_spectral_stats (float32); wqk the q|k
 // rows of wqkv ([2C][C8], torch layout, C8 = C rounded up to 8, zero past C;
-// 16-byte aligned), taps their depthwise taps ([2C][9]); vec_x: C1, C2
-// multiples of 4 and x1, x2 16-byte aligned; part [B][n_parts][C dh + 2C]:
-// this block's Gram (row h dh + d, col e), |q|^2, |k|^2 over its tiles.
+// 16-byte aligned), taps their depthwise taps ([2C][9]); hal, halo a row
+// shard's halo rows [2][B][W][C] and which of them are real (halo_src_f32;
+// they feed only the depthwise of the shard's first and last rows, and
+// nothing is summed over them); vec_x: C1, C2 multiples of 4 and x1, x2,
+// hal 16-byte aligned; part [B][n_parts][C dh + 2C]: this block's Gram (row
+// h dh + d, col e), |q|^2, |k|^2 over its tiles.
 __global__ void __launch_bounds__(kThreads)
 spectral_stats_f32_kernel(const float* __restrict__ x1, const float* __restrict__ x2, int C1,
                           int C2, const float* __restrict__ lnw, const float* __restrict__ lnb,
                           const float* __restrict__ wqk, const float* __restrict__ taps, int H,
                           int W, int nH, int shift, float eps, int vec_x,
-                          float* __restrict__ part) {
+                          const float* __restrict__ hal, int halo, float* __restrict__ part) {
   extern __shared__ float4 stats_f32_dyn[];
   __shared__ int hsrc[kFrontRows];  // halo row -> raw source pixel (-1: zero row)
   const int C = C1 + C2;
@@ -111,7 +114,7 @@ spectral_stats_f32_kernel(const float* __restrict__ x1, const float* __restrict_
   const int tiles_w = W / kTile, n_tiles = (H / kTile) * tiles_w;
   const int t0 = (int)((long long)ipart * n_tiles / n_parts);
   const int t1 = (int)((long long)(ipart + 1) * n_tiles / n_parts);
-  const HaloF32 hl{x1, x2, C1, C2, hsrc, vec_x != 0};
+  const HaloF32 hl{x1, x2, C1, C2, hsrc, vec_x != 0, hal};
   const int n = C * dh;
   float* out = part + ((size_t)b * n_parts + ipart) * (n + 2 * C);
 
@@ -130,11 +133,11 @@ spectral_stats_f32_kernel(const float* __restrict__ x1, const float* __restrict_
       const int ty = t / tiles_w, tx = t % tiles_w;
       __syncthreads();  // the last tile's readers of hsrc, the q|k tile and the ring are done
       for (int p = threadIdx.x; p < kFrontRows; p += blockDim.x)
-        hsrc[p] = halo_src(p, b, ty, tx, H, W, shift);
+        hsrc[p] = halo_src_f32(p, b, ty, tx, gridDim.y, H, W, shift, halo);
       __syncthreads();
       if (lnw != nullptr)  // read after the first chunk's barrier
         ln_stats_rows(mu, rs, kHaloPix, C, eps, [&](int p, int k) { return hl.at(hsrc[p], k); },
-                      [&](int p) { return hsrc[p] >= 0; });
+                      [&](int p) { return hsrc[p] != -1; });
       auto ring = front_ring(rg, f32_stage_bytes(GW) / sizeof(float), pl.S, pl.nk,
           [=](int kt, float* dst) {
             stage_f32_chunk(dst, hl, wqk, C8, gw,

@@ -13,6 +13,16 @@ versions on the CPU, so both devices take the same route through this code.
 The wrappers are ``torch.autograd.Function``s with backward kernels; the
 eval route's fused extras (the apply kernel's MLP tail, PromptFusion's
 in-kernel concat and exit conv) have no backward, as in JAX.
+
+Row shards: the ``axis`` argument of the eval route (a
+:class:`~mp_hsir_tpu_torch.parallel.mesh.Axis`, None on one device) says
+that the map's H is split over the spatial mesh axis, as JAX's
+``axis_name`` does. The same kernels run on each shard: the spectral tiles
+with the neighbours' halo rows and the summed statistics, the window tile
+on rows rolled across the shards with the global map's region labels, and
+the 3x3 convs and GDFN over the shard extended by a neighbour row on each
+inner side (:func:`~mp_hsir_tpu_torch.ops.conv.extend_rows`), cropped
+after.
 """
 
 from __future__ import annotations
@@ -25,16 +35,22 @@ import torch
 from torch import nn
 
 from mp_hsir_tpu_torch.ops.basic import gelu_exact, layer_norm
-from mp_hsir_tpu_torch.ops.conv import conv2d, depthwise_conv2d
+from mp_hsir_tpu_torch.ops.conv import conv2d, depthwise_conv2d, extend_rows
 from mp_hsir_tpu_torch.ops.kernels.conv3 import conv3
 from mp_hsir_tpu_torch.ops.kernels.gdfn import gdfn
 from mp_hsir_tpu_torch.ops.kernels.mlp import mlp
-from mp_hsir_tpu_torch.ops.kernels.spectral import spectral_apply, spectral_fold, spectral_stats
+from mp_hsir_tpu_torch.ops.kernels.spectral import (
+    spectral_apply, spectral_attention_sharded, spectral_fold, spectral_stats,
+)
 from mp_hsir_tpu_torch.ops.kernels.window_attention import (
-    relative_position_index, window_attention,
+    region_labels, relative_position_index, window_attention,
 )
 from mp_hsir_tpu_torch.ops.kernels.window_msa import window_msa
-from mp_hsir_tpu_torch.ops.resize import resize_bilinear, resize_nearest
+from mp_hsir_tpu_torch.ops.resize import (
+    resize_bilinear, resize_bilinear_row_block, resize_nearest,
+)
+from mp_hsir_tpu_torch.ops.window import roll_hw
+from mp_hsir_tpu_torch.parallel.mesh import axis_index, axis_size, psum
 
 # Route counters (counterpart of FUSED_PATH_STATS): how many blocks of each
 # kind took the kernel route in the forwards since the last reset.
@@ -47,6 +63,28 @@ def reset_path_stats() -> None:
 
 def _count_path(name: str) -> None:
     PATH_STATS[name] = PATH_STATS.get(name, 0) + 1
+
+
+def _sharded(axis) -> bool:
+    return axis_size(axis) > 1
+
+
+def _no_sharded_training(module: nn.Module, axis) -> None:
+    if module.training and _sharded(axis):
+        raise RuntimeError("the row-sharded route is the eval forward; the sharded train step "
+                           "comes later")
+
+
+def _on_extended_rows(fn, x, axis, scale: float = 1, res=None):
+    """fn over a row shard extended by a neighbour row on each inner side
+    (:func:`~mp_hsir_tpu_torch.ops.conv.extend_rows`), its output cropped
+    back to the shard; ``scale``: output rows per input row. ``res`` (the
+    conv's residual) is extended by zero rows, which the crop drops."""
+    xe, top, bot = extend_rows(x, axis)
+    if res is not None:
+        res = torch.nn.functional.pad(res, (0, 0, 0, 0, top, bot))
+    y = fn(xe) if res is None else fn(xe, res)
+    return y[:, int(top * scale):y.shape[1] - int(bot * scale)].contiguous()
 
 
 def _uniform_(t: torch.Tensor, fan_in: int) -> torch.Tensor:
@@ -78,8 +116,9 @@ class Conv2d(nn.Module):
         self.weight = nn.Parameter(_uniform_(torch.empty(cout, cin // groups, kernel, kernel), fan_in))
         self.bias = nn.Parameter(_uniform_(torch.empty(cout), fan_in)) if bias else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d(x, self.weight, self.bias, padding=self.padding, groups=self.groups)
+    def forward(self, x: torch.Tensor, axis=None) -> torch.Tensor:
+        return conv2d(x, self.weight, self.bias, padding=self.padding, groups=self.groups,
+                      axis=axis)
 
 
 class LayerNorm(nn.Module):
@@ -135,8 +174,8 @@ class GDFN(nn.Module):
         self.dwconv = Conv2d(hidden * 2, hidden * 2, 3, groups=hidden * 2)
         self.project_out = Conv2d(hidden, dim, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.dwconv(self.project_in(x))
+    def forward(self, x: torch.Tensor, axis=None) -> torch.Tensor:
+        x = self.dwconv(self.project_in(x), axis)
         x1, x2 = x.chunk(2, dim=-1)
         return self.project_out(gelu_exact(x1) * x2)
 
@@ -159,6 +198,18 @@ class SpectralAttention(nn.Module):
         gram, nq, nk = spectral_stats(x, self.qkv.weight, self.qkv_dwconv.weight,
                                       self.num_heads, shift=shift, x2=x2, ln_w=lnw, ln_b=lnb)
         return spectral_fold(gram, nq, nk, self.temperature, self.project_out.weight)
+
+    def sharded(self, x, axis, x2=None, ln=None, **epilogue):
+        """The whole attention on a row shard over ``axis`` (JAX's sharded
+        route, ``models/layers.py:425-435``): halo rows, the stats summed
+        over the axis, the fold, the apply with ``epilogue``
+        (:func:`~mp_hsir_tpu_torch.ops.kernels.spectral.spectral_apply`'s
+        options)."""
+        lnw, lnb = (None, None) if ln is None else (ln.weight, ln.bias)
+        return spectral_attention_sharded(x, self.qkv.weight, self.qkv_dwconv.weight,
+                                          self.temperature, self.project_out.weight,
+                                          self.num_heads, axis, x2=x2, ln_w=lnw, ln_b=lnb,
+                                          **epilogue)
 
 
 class PGSpectralAttention(nn.Module):
@@ -239,17 +290,20 @@ class CrossAttention(nn.Module):
         self.temperature = nn.Parameter(torch.ones(num_heads, 1, 1))
         self.project_out = Conv2d(dim, dim, 1)
 
-    def forward(self, x_q: torch.Tensor, x_kv: torch.Tensor) -> torch.Tensor:
+    def forward(self, x_q: torch.Tensor, x_kv: torch.Tensor, axis=None) -> torch.Tensor:
+        """``axis``: the maps' rows are split over it; the depthwise convs
+        exchange halo rows and the pixel sums add over the axis (JAX
+        ``models/layers.py:745-770``)."""
         b, h, w, c = x_q.shape
         nh = self.num_heads
         dh = c // nh
-        q = depthwise_conv2d(conv2d(x_q, self.q.weight), self.q_dwconv.weight)
-        kv = depthwise_conv2d(conv2d(x_kv, self.kv.weight), self.kv_dwconv.weight)
+        q = depthwise_conv2d(conv2d(x_q, self.q.weight), self.q_dwconv.weight, axis=axis)
+        kv = depthwise_conv2d(conv2d(x_kv, self.kv.weight), self.kv_dwconv.weight, axis=axis)
         k, v = kv.chunk(2, dim=-1)
         q, k, v = (t.reshape(b, h * w, nh, dh) for t in (q, k, v))
-        gram = torch.einsum("bphd,bphe->bhde", q.float(), k.float())
-        nq = q.float().square().sum(dim=1).sqrt().clamp_min(1e-12)
-        nk = k.float().square().sum(dim=1).sqrt().clamp_min(1e-12)
+        gram = psum(torch.einsum("bphd,bphe->bhde", q.float(), k.float()), axis)
+        nq = psum(q.float().square().sum(dim=1), axis).sqrt().clamp_min(1e-12)
+        nk = psum(k.float().square().sum(dim=1), axis).sqrt().clamp_min(1e-12)
         attn = gram / (nq[..., :, None] * nk[..., None, :])
         attn = torch.softmax(attn * self.temperature.float().reshape(1, nh, 1, 1), dim=-1).to(v.dtype)
         out = torch.einsum("bhde,bphe->bphd", attn, v).reshape(b, h, w, c)
@@ -285,14 +339,25 @@ class TransformerBlock(nn.Module):
         self.norm2 = LayerNorm(dim)
         self.ffn = GDFN(dim, expansion)
 
-    def forward(self, x, x2=None, proj_w=None):
-        sa = self.attn
+    def forward(self, x, x2=None, proj_w=None, axis=None):
+        """``axis``: x (and x2) are row shards (JAX ``models/layers.py:
+        842-848``); the port keeps its fusions there too: the spectral
+        tiles take the halo rows of cat(x, x2) with the LayerNorm in-kernel,
+        and the GDFN tile runs over the shard's extended rows."""
+        sa, f = self.attn, self.ffn
+
+        def ffn(y):
+            return gdfn(y, self.norm2.weight, self.norm2.bias, f.project_in.weight,
+                        f.dwconv.weight, f.project_out.weight, residual=True, proj_w=proj_w)
+
+        if _sharded(axis):
+            _no_sharded_training(self, axis)
+            y = sa.sharded(x, axis, x2=x2, ln=self.norm1, residual=True)
+            return _on_extended_rows(ffn, y, axis)
         comb = sa.comb(x, x2=x2, ln=self.norm1)
         y = spectral_apply(x, comb, sa.qkv.weight, sa.qkv_dwconv.weight, x2=x2,
                            ln_w=self.norm1.weight, ln_b=self.norm1.bias, residual=True)
-        f = self.ffn
-        return gdfn(y, self.norm2.weight, self.norm2.bias, f.project_in.weight, f.dwconv.weight,
-                    f.project_out.weight, residual=True, proj_w=proj_w)
+        return ffn(y)
 
 
 class Conv3x3(nn.Module):
@@ -302,8 +367,14 @@ class Conv3x3(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(_uniform_(torch.empty(cout, cin, 3, 3), cin * 9))
 
-    def forward(self, x, mode: str = "plain", res=None):
-        return conv3(x, self.weight, mode, res)
+    def forward(self, x, mode: str = "plain", res=None, axis=None):
+        """``axis``: x is a row shard; the conv runs over it extended by a
+        neighbour row on each inner side (eight rows, so that ``down``'s row
+        pairs keep their parity), cropped by the mode's output scale."""
+        if not _sharded(axis):
+            return conv3(x, self.weight, mode, res)
+        return _on_extended_rows(lambda t, r=None: conv3(t, self.weight, mode, r), x, axis,
+                                 {"down": 0.5, "up": 2}.get(mode, 1), res)
 
 
 class Downsample(nn.Module):
@@ -313,8 +384,8 @@ class Downsample(nn.Module):
         super().__init__()
         self.conv = Conv3x3(n_feat, n_feat // 2)
 
-    def forward(self, x):
-        return self.conv(x, "down")
+    def forward(self, x, axis=None):
+        return self.conv(x, "down", axis=axis)
 
 
 class Upsample(nn.Module):
@@ -324,8 +395,8 @@ class Upsample(nn.Module):
         super().__init__()
         self.conv = Conv3x3(n_feat, n_feat * 2)
 
-    def forward(self, x):
-        return self.conv(x, "up")
+    def forward(self, x, axis=None):
+        return self.conv(x, "up", axis=axis)
 
 
 class OverlapPatchEmbed(nn.Module):
@@ -333,8 +404,8 @@ class OverlapPatchEmbed(nn.Module):
         super().__init__()
         self.proj = Conv3x3(cin, embed_dim)
 
-    def forward(self, x):
-        return self.proj(x)
+    def forward(self, x, axis=None):
+        return self.proj(x, axis=axis)
 
 
 class TVSP(nn.Module):
@@ -356,14 +427,22 @@ class TVSP(nn.Module):
         self.cross_transformer = CrossTransformer(d, num_heads=2, expansion=2.66)
         self.conv_last = Conv3x3(d, out_dim)
 
-    def forward(self, x, clip_prompt, prompt_weights):
+    def forward(self, x, clip_prompt, prompt_weights, axis=None):
+        """``axis``: x is a row shard; the prompt maps do not depend on the
+        feature grid, so every shard computes them whole and takes its row
+        block of the global resize (JAX ``models/layers.py:975-982``)."""
         b, h, w, _ = x.shape
         t = (prompt_weights.float() @ self.text_prompt_learnable.float()) / self.task_classes
         tp = t[:, None, None, :] * clip_prompt.float()[:, None, :, None]
         tp = resize_nearest(tp, self.prompt_size, self.prompt_size).to(x.dtype)
         vis = self.visual_prompt[None].expand(b, -1, -1, -1).to(x.dtype)
         prompts = self.cross_transformer(tp, vis)
-        return self.conv_last(resize_bilinear(prompts, h, w, align_corners=False))
+        if _sharded(axis):
+            n = axis_size(axis)
+            out = resize_bilinear_row_block(prompts, h * n, w, axis_index(axis) * h, h)
+        else:
+            out = resize_bilinear(prompts, h, w, align_corners=False)
+        return self.conv_last(out, axis=axis)
 
 
 class PromptFusion(nn.Module):
@@ -376,14 +455,15 @@ class PromptFusion(nn.Module):
         self.transformer = TransformerBlock(dim, num_heads, expansion)
         self.conv = Conv2d(dim, out_dim, 1)
 
-    def forward(self, x, prompt):
+    def forward(self, x, prompt, axis=None):
         if self.training:
+            _no_sharded_training(self, axis)
             # the explicit composition, as JAX's training route does
             # (mp_hsir_tpu/models/layers.py:1027-1029)
             _count_path("prompt_fusion_train")
             return self.conv(self.transformer(torch.cat([x, prompt], dim=-1)))
         _count_path("prompt_fusion_kernels")
-        return self.transformer(x, x2=prompt, proj_w=self.conv.weight)
+        return self.transformer(x, x2=prompt, proj_w=self.conv.weight, axis=axis)
 
 
 class PGSSTB(nn.Module):
@@ -428,11 +508,14 @@ class PGSSTB(nn.Module):
         return (self.drop_path.scales(b, generator, device),
                 self.drop_path.scales(b, generator, device))
 
-    def forward(self, x: torch.Tensor, dp=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dp=None, axis=None) -> torch.Tensor:
         b, h, w, c = x.shape
         if min(self.ws, h, w) != 8 or h % 8 or w % 8:
             raise ValueError(f"the window kernel takes 8x8 windows on H, W % 8 == 0; got "
                              f"ws={self.ws} map {(h, w)}")
+        if _sharded(axis):
+            _no_sharded_training(self, axis)
+            return self._forward_sharded(x, axis)
         _count_path("pgsstb_kernels")
         shift = self.shift
         at = self.attn
@@ -455,6 +538,42 @@ class PGSSTB(nn.Module):
                                    m.fc1.bias, m.fc2.weight, m.fc2.bias))
 
 
+    def _forward_sharded(self, x: torch.Tensor, axis) -> torch.Tensor:
+        """The eval route on a row shard over ``axis`` (JAX's sharded
+        epilogue, ``models/layers.py:1095-1234``): the (-shift, -shift) roll
+        across the shards, the window tile with no roll of its own and the
+        global map's region labels of this shard's rows, the PG gate, the
+        roll back, then the sharded spectral attention with the gate,
+        shortcut and the tail MLP in its apply tile. A shifted block's gates
+        ride back with it as a per-pixel map, folded into the shortcut:
+        out = (x + sa * gate_map) + attn(sa), with no change to a kernel."""
+        _count_path("pgsstb_kernels_sharded")
+        b, h, w, c = x.shape
+        shift = self.shift
+        region = None
+        xr = x
+        if shift:
+            row0 = axis_index(axis) * h
+            region = region_labels(h * axis_size(axis), w, shift, x.device)[row0:row0 + h]
+            xr = roll_hw(x, -shift, -shift, axis)
+        at = self.attn
+        sa, pooled = window_attention(xr, self.norm1.weight, self.norm1.bias, at.qkv.weight,
+                                      at.qkv.bias, at.rel_bias(), at.proj.weight, at.proj.bias,
+                                      self.num_heads, region=region)
+        gate = self.local_spectral_attn(pooled.reshape(b, -1, c)).reshape(b, h // 8, w // 8, c)
+        m = self.mlp
+        epilogue = dict(mlp=(self.norm2.weight, self.norm2.bias, m.fc1.weight, m.fc1.bias,
+                             m.fc2.weight, m.fc2.bias))
+        if shift:
+            sa = roll_hw(sa, shift, shift, axis)
+            gmap = roll_hw(gate.repeat_interleave(8, dim=1).repeat_interleave(8, dim=2),
+                           shift, shift, axis)
+            epilogue["shortcut"] = (x.float() + sa.float() * gmap.float()).to(x.dtype)
+        else:
+            epilogue.update(gate=gate, shortcut=x)
+        return self.gobal_spectral_attn.sharded(sa, axis, **epilogue)
+
+
 class BaseBlock(nn.Module):
     """``depth`` PGSSTBs with alternating shift and an outer residual
     (reference net/MP_HSIR.py:727-761)."""
@@ -470,10 +589,11 @@ class BaseBlock(nn.Module):
                 mlp_ratio, compress_ratio, prompt_len, input_resolution,
                 float(drop_path[i]) if len(drop_path) else 0.0))
 
-    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
+                axis=None) -> torch.Tensor:
         y = x
         for i in range(self.depth):
             blk = getattr(self, f"blocks_{i}")
             dp = blk.drop_path_scales(x.shape[0], generator, x.device) if self.training else None
-            y = blk(y, dp)
+            y = blk(y, dp, axis)
         return y + x

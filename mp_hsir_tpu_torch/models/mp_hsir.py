@@ -7,6 +7,10 @@ the model runs NHWC in ``cfg.compute_dtype`` and adds the global input
 residual in float32. H and W must be multiples of 32. ``model.train()`` runs
 the training route (JAX ``deterministic=False``: per-sample drop-path drawn
 from the ``generator`` passed to ``forward``), ``model.eval()`` the eval one.
+``forward(..., axis=...)`` runs the eval route on a row shard of the cube
+(JAX's ``cfg.spatial_axis``, ``models/mp_hsir.py:41``): every layer takes
+the spatial mesh axis, and the global input residual stays local to the
+shard. Each shard's H must then be a multiple of 32.
 """
 
 from __future__ import annotations
@@ -63,10 +67,16 @@ class MPHSIRNet(nn.Module):
         self.output = L.Conv3x3(dim * 2, cfg.out_channels)
 
     def forward(self, inp: torch.Tensor, task_id: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None, axis=None) -> torch.Tensor:
+        """``axis``: inp is this rank's row block of the cube, whose rows are
+        split over the spatial mesh axis (eval only); returns the block's
+        rows of the output."""
         cfg = self.cfg
         if inp.ndim != 4:
             raise ValueError(f"expected (B, C, H, W), got {tuple(inp.shape)}")
+        if axis is not None and self.training:
+            raise RuntimeError("the row-sharded forward is the eval route; the sharded train "
+                               "step comes later")
         dt = DTYPES[cfg.compute_dtype]
         inp_nhwc = inp.float().permute(0, 2, 3, 1).contiguous()
         x = inp_nhwc.to(dt)
@@ -74,27 +84,27 @@ class MPHSIRNet(nn.Module):
         clip_prompt = clip_prompt_embedding(prompt_weights, cfg.task_classes)
         dim = cfg.dim
 
-        g = generator
-        enc1 = self.encoder_level1(self.patch_embed(x), g)
-        enc2 = self.encoder_level2(self.down1_2(enc1), g)
-        latent = self.latent(self.down2_3(enc2), g)
+        g, ax = generator, axis
+        enc1 = self.encoder_level1(self.patch_embed(x, ax), g, ax)
+        enc2 = self.encoder_level2(self.down1_2(enc1, ax), g, ax)
+        latent = self.latent(self.down2_3(enc2, ax), g, ax)
 
-        d2 = self.up3_2(latent)
-        p2 = self.prompt2(enc2, clip_prompt, prompt_weights)
-        enc2f = self.fusion2(enc2, p2)
+        d2 = self.up3_2(latent, ax)
+        p2 = self.prompt2(enc2, clip_prompt, prompt_weights, ax)
+        enc2f = self.fusion2(enc2, p2, ax)
         # concat + 1x1 reduce as split-weight products: cat([a, b]) @ W ==
         # a @ W_top + b @ W_bot (the concatenation is never built)
         w2d = self.reduce_chan_level2.weight.reshape(dim * 2, dim * 4).t().to(dt)
         d2 = d2 @ w2d[: dim * 2] + enc2f @ w2d[dim * 2:]
-        dec2 = self.decoder_level2(d2, g)
+        dec2 = self.decoder_level2(d2, g, ax)
 
-        d1 = self.up2_1(dec2)
-        p1 = self.prompt1(enc1, clip_prompt, prompt_weights)
-        enc1f = self.fusion1(enc1, p1)
-        dec1 = self.decoder_level1(torch.cat([d1, enc1f], dim=-1), g)
-        ref = self.refinement(dec1, g)
+        d1 = self.up2_1(dec2, ax)
+        p1 = self.prompt1(enc1, clip_prompt, prompt_weights, ax)
+        enc1f = self.fusion1(enc1, p1, ax)
+        dec1 = self.decoder_level1(torch.cat([d1, enc1f], dim=-1), g, ax)
+        ref = self.refinement(dec1, g, ax)
         # output conv + the global float32 input residual in one writeback
-        out = self.output(ref, "res", inp_nhwc)
+        out = self.output(ref, "res", inp_nhwc, ax)
         return out.permute(0, 3, 1, 2)
 
 

@@ -1,7 +1,10 @@
 """Device routing and launch accounting shared by the kernel wrappers.
 
 A wrapper takes its plain PyTorch version only for a CPU tensor. A CUDA
-tensor launches the kernel. The one exception is :func:`plain_reference`, a
+tensor launches the kernel on the current device (``torch.cuda.
+set_device``), which must be the tensor's: rank r of a mesh runs on its own
+card, and :func:`select_card` moves the kernel library to that card. The
+one exception is :func:`plain_reference`, a
 context manager that makes the wrappers run their plain versions on the card
 so that a check can hold the kernel path against them; every such call is
 counted in ``ROUTE.plain_cuda_calls``.
@@ -10,9 +13,12 @@ counted in ``ROUTE.plain_cuda_calls``.
 from __future__ import annotations
 
 import contextlib
+import threading
 from collections import Counter
 
 import torch
+
+from mp_hsir_tpu_torch.ops.kernels import _build
 
 
 class KernelCounter:
@@ -45,13 +51,15 @@ class Route:
             return False
         if x.device.type != "cuda":
             raise RuntimeError(f"no kernel for device {x.device}")
-        if (x.device.index or 0) != 0:
-            # the kernel library carries its own CUDA runtime, whose current
-            # device is 0; one card is all this slice drives
-            raise RuntimeError(f"the kernels run on cuda:0 only, got {x.device}")
+        card = torch.cuda.current_device()
+        if x.device.index is not None and x.device.index != card:
+            # the wrappers launch on the current device's stream
+            raise RuntimeError(f"a kernel launch on {x.device} while the current device is "
+                               f"cuda:{card}; call torch.cuda.set_device({x.device.index}) first")
         if self.plain_on_cuda:
             self.plain_cuda_calls += 1
             return False
+        select_card(card)
         return True
 
     def count_plain_backward(self, x: torch.Tensor) -> None:
@@ -59,6 +67,19 @@ class Route:
         version: counted like the forward when it is on the card."""
         if x.device.type == "cuda":
             self.plain_cuda_calls += 1
+
+
+_CARD = threading.local()
+
+
+def select_card(card: int) -> None:
+    """Make ``card`` the kernel library's current device on this thread
+    (``mp_set_device``), where it is not already: the library's own CUDA
+    runtime keeps a current device of its own, which
+    ``torch.cuda.set_device`` does not move."""
+    if getattr(_CARD, "index", None) != card:
+        _build.check("mp_set_device", _build.lib().mp_set_device(card))
+        _CARD.index = card
 
 
 ROUTE = Route()

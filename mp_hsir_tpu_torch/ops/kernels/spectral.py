@@ -60,6 +60,7 @@ float32 one counted in ``mlp.TAIL_F32`` too).
 from __future__ import annotations
 
 from functools import lru_cache
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -75,11 +76,17 @@ from mp_hsir_tpu_torch.ops.kernels._route import (
 )
 from mp_hsir_tpu_torch.ops.kernels.mlp import TAIL_F32, pack_mlp_weights, tail_f32_plan
 from mp_hsir_tpu_torch.ops.window import roll_hw
+from mp_hsir_tpu_torch.parallel.mesh import Axis, edge_rows, psum
 
 STATS = counter("spectral_stats")
 F32_TILE = counter("spectral_stats_f32")
 APPLY = counter("spectral_apply")
 APPLY_F32 = counter("spectral_apply_f32")
+# the launches of a row shard with real halo rows (float32):
+# ("spectral_stats_halo", B, H, W, C1, C2, heads, LN, halo bits) and
+# ("spectral_apply_halo", B, H, W, C1, C2, halo bits)
+STATS_HALO = counter("spectral_stats_halo")
+APPLY_HALO = counter("spectral_apply_halo")
 STATS_BWD = counter("spectral_stats_bwd")
 APPLY_BWD = counter("spectral_apply_bwd")
 # the bf16 apply tile (csrc/spectral_front.cuh): its widest C (kFrontMaxC),
@@ -114,23 +121,68 @@ APPLY_F32_STATIC = 960
 DX_LDD = 68
 DX_LDT = 72
 
-__all__ = ["dwconv3_f32", "spectral_stats", "spectral_apply", "spectral_fold"]
+__all__ = ["Halo", "dwconv3_f32", "shard_halo", "spectral_apply", "spectral_attention_sharded",
+           "spectral_fold", "spectral_stats"]
 
 
-def _input(x, x2, shift, ln_w, ln_b, eps):
-    """(raw, normalised) logical input in the unrolled frame."""
+class Halo(NamedTuple):
+    """The neighbour rows of one row shard of a map (the counterpart of the
+    ``halo_top`` / ``halo_bot`` / ``edge`` arguments of ``_sp0_call`` and
+    ``_sp1_call``, ``mp_hsir_tpu/ops/pallas_attention.py:2027``, ``:2072``):
+    ``top`` and ``bot`` (B, 1, W, C) are the raw rows just above and just
+    below the shard, of the logical input ``cat(x, x2)``; ``edge_top`` /
+    ``edge_bot`` say that the shard's top / bottom row is the image's, and
+    the row beyond it is then zero after the LayerNorm, whatever ``top`` /
+    ``bot`` hold. A halo row that is not at an edge is real data: it goes
+    through the LayerNorm and the 1x1, and feeds the depthwise 3x3 of the
+    shard's first or last row only."""
+
+    top: torch.Tensor
+    bot: torch.Tensor
+    edge_top: bool
+    edge_bot: bool
+
+    @property
+    def flags(self) -> int:
+        """The kernels' halo bits: 1 the row above is real, 2 the row below."""
+        return (0 if self.edge_top else 1) | (0 if self.edge_bot else 2)
+
+
+def _input(x, x2, shift, ln_w, ln_b, eps, halo=None):
+    """(raw, normalised) logical input in the unrolled frame, and the
+    normalised (top, bottom) halo rows, zero at an image edge (None without
+    a halo)."""
     u = roll_hw(x, shift, shift) if shift else x
     if x2 is not None:
         u = torch.cat([u, x2], dim=-1)
-    return u, (layer_norm(u, ln_w, ln_b, eps) if ln_w is not None else u)
+    norm = (lambda t: layer_norm(t, ln_w, ln_b, eps)) if ln_w is not None else (lambda t: t)
+    rows = None
+    if halo is not None:
+        if shift:
+            raise ValueError("a row shard is read in its own frame: halo rows take shift 0")
+        rows = tuple(torch.zeros_like(u[:, :1]) if edge else norm(r.to(u.dtype))
+                     for r, edge in ((halo.top, halo.edge_top), (halo.bot, halo.edge_bot)))
+    return u, norm(u), rows
 
 
-def _qkv_part(u, wqkv, wdw, lo, hi, dt):
+def _qkv_part(u, wqkv, wdw, lo, hi, dt, rows=None):
     """(t, dw3x3(t)) with t = 1x1(u)[..., lo:hi], rounded to dt where the
-    kernels round (float32 tensors of dt values)."""
+    kernels round (float32 tensors of dt values). ``rows``: the normalised
+    (top, bottom) halo rows, which the depthwise reads above and below u."""
     c = u.shape[-1]
+    if rows is not None:
+        u = torch.cat([rows[0], u, rows[1]], dim=1)
     t = (u.float() @ wqkv[lo:hi].reshape(hi - lo, c).to(dt).float().t()).to(dt).float()
-    return t, dwconv3_f32(t, wdw[lo:hi].to(dt)).to(dt).float()
+    v = dwconv3_f32(t, wdw[lo:hi].to(dt)).to(dt).float()
+    if rows is not None:
+        t, v = t[:, 1:-1], v[:, 1:-1]
+    return t, v
+
+
+def _no_halo_grad(name, halo: bool):
+    if halo:
+        raise RuntimeError(f"{name}: no backward through halo rows yet (the sharded train step "
+                           "and its halo cotangents come later)")
 
 
 def _no_eval_only_grad(name, **opts):
@@ -145,12 +197,13 @@ def _no_eval_only_grad(name, **opts):
 # ---------------------------------------------------------------------------
 
 def spectral_stats_plain(x, wqkv, wdw, num_heads: int, shift: int = 0, x2=None,
-                         ln_w=None, ln_b=None, eps: float = 1e-5):
-    """Returns (gram (B, C, dh), nq (B, nH, dh), nk (B, nH, dh)), float32."""
-    _, u = _input(x, x2, shift, ln_w, ln_b, eps)
+                         ln_w=None, ln_b=None, eps: float = 1e-5, halo: Halo | None = None):
+    """Returns (gram (B, C, dh), nq (B, nH, dh), nk (B, nH, dh)), float32.
+    ``halo``: x is a row shard (:class:`Halo`); the sums cover its rows."""
+    _, u, rows = _input(x, x2, shift, ln_w, ln_b, eps, halo)
     b, h, w, c = u.shape
     dh = c // num_heads
-    qk = _qkv_part(u, wqkv, wdw, 0, 2 * c, x.dtype)[1].reshape(b, h * w, 2, num_heads, dh)
+    qk = _qkv_part(u, wqkv, wdw, 0, 2 * c, x.dtype, rows)[1].reshape(b, h * w, 2, num_heads, dh)
     q, k = qk[:, :, 0], qk[:, :, 1]
     gram = torch.einsum("bphd,bphe->bhde", q, k).reshape(b, c, dh)
     return gram, q.square().sum(dim=1), k.square().sum(dim=1)
@@ -161,7 +214,7 @@ def spectral_stats_bwd_plain(x, wqkv, wdw, num_heads, shift, ln_w, ln_b, eps, dg
     (dx, d wqkv, d wdw, d ln_w, d ln_b); the v sections of the weight
     cotangents are zero."""
     dt = x.dtype
-    raw, u = _input(x, None, shift, ln_w, ln_b, eps)
+    raw, u, _ = _input(x, None, shift, ln_w, ln_b, eps)
     b, h, w, c = u.shape
     dh = c // num_heads
     wqk = wqkv[:2 * c].reshape(2 * c, c).to(dt).float()
@@ -307,8 +360,8 @@ def _stats_entry(kind: str = "fwd"):
         return _build.entry("mp_spectral_stats_bwd_tc", 11, [ctypes.c_int] * 6 + [ctypes.c_float])
     if kind == "dx_tc":
         return _build.entry("mp_dwconv_dx_tc", 9, [ctypes.c_int] * 6 + [ctypes.c_float])
-    return _build.entry("mp_spectral_stats", 10,
-                        [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int])
+    return _build.entry("mp_spectral_stats", 11,
+                        [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, ctypes.c_int])
 
 
 @lru_cache(maxsize=None)
@@ -325,10 +378,31 @@ def _stats_parts(*shape: int) -> int:
     return n
 
 
-def _stats_prepare(x, wqkv, wdw, num_heads, shift=0, x2=None, ln_w=None, ln_b=None, eps=1e-5):
+def _halo_operand(halo, x, x2, shift):
+    """(the halo rows [2][B][W][C] in x's type, or None; the kernels' halo
+    bits). Only the float32 tiles take real halo rows (shift 0)."""
+    if halo is None or not halo.flags:
+        return None, 0
+    b, h, w, c1 = x.shape
+    c = c1 + (0 if x2 is None else x2.shape[-1])
+    if x.dtype != torch.float32:
+        raise ValueError("the bf16 spectral tiles take no halo rows (only the image edges); "
+                         "a row shard runs in float32")
+    if shift:
+        raise ValueError("a row shard is read in its own frame: halo rows take shift 0")
+    if halo.top.shape != (b, 1, w, c) or halo.bot.shape != (b, 1, w, c):
+        raise ValueError(f"halo rows must be {(b, 1, w, c)}, got {tuple(halo.top.shape)} and "
+                         f"{tuple(halo.bot.shape)}")
+    rows = torch.stack([halo.top[:, 0], halo.bot[:, 0]]).to(torch.float32).contiguous()
+    return rows, halo.flags
+
+
+def _stats_prepare(x, wqkv, wdw, num_heads, shift=0, x2=None, ln_w=None, ln_b=None, eps=1e-5,
+                   halo=None):
     """Everything a launch needs: (the C entry's arguments, the outputs, the
     tensors the arguments point into, to be held until the launch). Weights:
-    :func:`pack_stats` in the compute type."""
+    :func:`pack_stats` in the compute type; ``halo``: the rows of
+    :func:`_halo_operand`."""
     b, h, w, c1 = x.shape
     c2 = 0 if x2 is None else x2.shape[-1]
     c = c1 + c2
@@ -346,6 +420,7 @@ def _stats_prepare(x, wqkv, wdw, num_heads, shift=0, x2=None, ln_w=None, ln_b=No
             raise ValueError(f"the float32 spectral stats kernel takes heads up to 96 wide, "
                              f"got {dh}")
         _build.check_plan("spectral_stats", "mp_spectral_stats_smem", what, c, num_heads)
+    rows, flags = _halo_operand(halo, x, x2, shift)
     wq, wd = pack_stats(wqkv, wdw, dt)
     x = x.contiguous()
     x2 = None if x2 is None else x2.to(dt).contiguous()
@@ -358,13 +433,13 @@ def _stats_prepare(x, wqkv, wdw, num_heads, shift=0, x2=None, ln_w=None, ln_b=No
     nk = torch.empty_like(nq)
     p = _build.ptr
     args = (x.data_ptr(), p(x2), p(lnw), p(lnb), wq.data_ptr(), wd.data_ptr(), part.data_ptr(),
-            gram.data_ptr(), nq.data_ptr(), nk.data_ptr(), code, b, h, w, c1, c2, num_heads,
-            shift, eps, n_parts, stream_ptr())
-    return args, (gram, nq, nk), (x, x2, lnw, lnb, wq, wd, part)
+            gram.data_ptr(), nq.data_ptr(), nk.data_ptr(), p(rows), code, b, h, w, c1, c2,
+            num_heads, shift, eps, n_parts, flags, stream_ptr())
+    return args, (gram, nq, nk), (x, x2, lnw, lnb, wq, wd, part, rows)
 
 
-def _stats_launch(x, wqkv, wdw, num_heads, shift, x2, ln_w, ln_b, eps):
-    args, out, _held = _stats_prepare(x, wqkv, wdw, num_heads, shift, x2, ln_w, ln_b, eps)
+def _stats_launch(x, wqkv, wdw, num_heads, shift, x2, ln_w, ln_b, eps, halo=None):
+    args, out, _held = _stats_prepare(x, wqkv, wdw, num_heads, shift, x2, ln_w, ln_b, eps, halo)
     _build.check("mp_spectral_stats", _stats_entry()(*args))
     b, h, w, c1 = x.shape
     c2 = 0 if x2 is None else x2.shape[-1]
@@ -372,6 +447,8 @@ def _stats_launch(x, wqkv, wdw, num_heads, shift, x2, ln_w, ln_b, eps):
     STATS.record(("spectral_stats", b, h, w, c1, c2, num_heads, shift, ln, str(x.dtype)))
     if x.dtype == torch.float32:
         F32_TILE.record(("spectral_stats_f32", b, h, w, c1, c2, num_heads, shift, ln))
+    if halo is not None and halo.flags:
+        STATS_HALO.record(("spectral_stats_halo", b, h, w, c1, c2, num_heads, ln, halo.flags))
     return out
 
 
@@ -451,13 +528,14 @@ def _stats_bwd_launch(x, wqkv, wdw, num_heads, shift, ln_w, ln_b, eps, dgram, dn
 
 class _SpectralStats(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, wqkv, wdw, x2, ln_w, ln_b, cfg):
+    def forward(ctx, x, wqkv, wdw, x2, ln_w, ln_b, cfg, halo):
         num_heads, shift, eps = cfg
         ctx.kernel = ROUTE.use_kernel(x)
         fn = _stats_launch if ctx.kernel else spectral_stats_plain
-        out = fn(x, wqkv, wdw, num_heads, shift, x2, ln_w, ln_b, eps)
+        out = fn(x, wqkv, wdw, num_heads, shift, x2, ln_w, ln_b, eps, halo)
         ctx.cfg = cfg
         ctx.has_x2 = x2 is not None
+        ctx.halo = halo is not None and bool(halo.flags)
         ctx.save_for_backward(x, wqkv, wdw, ln_w, ln_b)
         return out
 
@@ -466,6 +544,7 @@ class _SpectralStats(torch.autograd.Function):
         x, wqkv, wdw, ln_w, ln_b = ctx.saved_tensors
         num_heads, shift, eps = ctx.cfg
         _no_eval_only_grad("spectral_stats", x2=True if ctx.has_x2 else None)
+        _no_halo_grad("spectral_stats", ctx.halo)
         b, c = x.shape[0], x.shape[-1]
         dh = c // num_heads
         z = x.new_zeros((b, c, dh), dtype=torch.float32)
@@ -478,16 +557,17 @@ class _SpectralStats(torch.autograd.Function):
             ROUTE.count_plain_backward(x)
             fn = spectral_stats_bwd_plain
         dx, dw, dwdw, dlnw, dlnb = fn(x, wqkv, wdw, num_heads, shift, ln_w, ln_b, eps, dgram, dnq, dnk)
-        return dx, dw, dwdw, None, dlnw, dlnb, None
+        return dx, dw, dwdw, None, dlnw, dlnb, None, None
 
 
 def spectral_stats(x, wqkv, wdw, num_heads: int, shift: int = 0, x2=None, ln_w=None,
-                   ln_b=None, eps: float = 1e-5):
-    """Same contract as :func:`spectral_stats_plain`, differentiable; launches
-    the CUDA kernels (forward: a per-part pass, bf16 on the tensor-core tile,
-    then an in-order sum of the parts; backward: bf16 the two tiles, float32
-    ``mp_spectral_stats_bwd`` and grad.cu's stages) on a CUDA tensor."""
-    return _SpectralStats.apply(x, wqkv, wdw, x2, ln_w, ln_b, (num_heads, shift, eps))
+                   ln_b=None, eps: float = 1e-5, halo: Halo | None = None):
+    """Same contract as :func:`spectral_stats_plain`, differentiable without
+    halo rows; launches the CUDA kernels (forward: a per-part pass, bf16 on
+    the tensor-core tile, then an in-order sum of the parts; backward: bf16
+    the two tiles, float32 ``mp_spectral_stats_bwd`` and grad.cu's stages) on
+    a CUDA tensor. Real halo rows take the float32 tile."""
+    return _SpectralStats.apply(x, wqkv, wdw, x2, ln_w, ln_b, (num_heads, shift, eps), halo)
 
 
 def spectral_fold(gram, nq, nk, temperature, wout) -> torch.Tensor:
@@ -516,18 +596,19 @@ def _gate_map(gate, shift):
 
 def spectral_apply_plain(x, comb, wqkv, wdw, shift: int = 0, x2=None, ln_w=None, ln_b=None,
                          residual: bool = False, gate=None, shortcut=None, mlp=None,
-                         eps: float = 1e-5, dp_scale=None):
+                         eps: float = 1e-5, dp_scale=None, halo: Halo | None = None):
     """out = v @ comb [+ x * gate] [+ x] [+ shortcut], then optionally the
     PGSSTB tail ``out + fc2(a * gelu(g))``, ``[a|g] = fc1(LN2(out))``;
     ``mlp = (ln2_w, ln2_b, fc1_w (2h, C), fc1_b, fc2_w (C, h), fc2_b)``.
     ``gate`` (B, H/8, W/8, C) holds the per-window gates of the rolled frame.
     ``dp_scale`` (B,): per-sample drop-path scale of the branch
     ``v @ comb [+ x * gate]``, summed in float32 and rounded once.
-    Output (B, H, W, C) in the unrolled frame."""
+    ``halo``: x is a row shard (:class:`Halo`). Output (B, H, W, C) in the
+    unrolled frame."""
     dt = x.dtype
-    raw, u = _input(x, x2, shift, ln_w, ln_b, eps)
+    raw, u, rows = _input(x, x2, shift, ln_w, ln_b, eps, halo)
     b, h, w, c = u.shape
-    v = _qkv_part(u, wqkv, wdw, 2 * c, 3 * c, dt)[1]
+    v = _qkv_part(u, wqkv, wdw, 2 * c, 3 * c, dt, rows)[1]
     y = torch.einsum("bhwc,bco->bhwo", v, comb.to(dt).float())
     gu = None if gate is None else raw.float() * _gate_map(gate, shift).float()
     if dp_scale is not None:
@@ -555,7 +636,7 @@ def spectral_apply_bwd_plain(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, ga
     (dx, d comb, d wqkv, d wdw, d ln_w, d ln_b, d gate, d shortcut, d dp);
     the q/k sections of the weight cotangents are zero."""
     dt = x.dtype
-    raw, u = _input(x, None, shift, ln_w, ln_b, eps)
+    raw, u, _ = _input(x, None, shift, ln_w, ln_b, eps)
     b, h, w, c = u.shape
     wv = wqkv[2 * c:].reshape(c, c).to(dt).float()
     t, v = _qkv_part(u, wqkv, wdw, 2 * c, 3 * c, dt)
@@ -688,15 +769,17 @@ def _apply_entry(kind: str = "fwd"):
         return _build.entry("mp_spectral_apply_dx_tc", 10, [ctypes.c_int] * 6 + [ctypes.c_float])
     if kind == "gate":
         return _build.entry("mp_spectral_gate_grad", 3, [ctypes.c_int] * 5)
-    return _build.entry("mp_spectral_apply", 17, [ctypes.c_int] * 9 + [ctypes.c_float])
+    return _build.entry("mp_spectral_apply", 18,
+                        [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int])
 
 
 def _apply_prepare(x, comb, wqkv, wdw, shift=0, x2=None, ln_w=None, ln_b=None, residual=False,
-                   gate=None, shortcut=None, mlp=None, eps=1e-5, dp_scale=None):
+                   gate=None, shortcut=None, mlp=None, eps=1e-5, dp_scale=None, halo=None):
     """Everything a launch needs: (the C entry's arguments, out, the tensors
     the arguments point into, to be held until the launch). Weights: bf16
     :func:`pack_front`, float32 :func:`pack_front_f32`; the tail's
-    :func:`pack_mlp_weights` in the compute type."""
+    :func:`pack_mlp_weights` in the compute type; ``halo``: the rows of
+    :func:`_halo_operand`."""
     b, h, w, c1 = x.shape
     c2 = 0 if x2 is None else x2.shape[-1]
     c = c1 + c2
@@ -710,6 +793,7 @@ def _apply_prepare(x, comb, wqkv, wdw, shift=0, x2=None, ln_w=None, ln_b=None, r
         raise ValueError(f"the bf16 spectral apply kernel takes C up to {FRONT_MAX_C}, got {c}")
     _build.check_plan("spectral_apply", "mp_spectral_apply_smem",
                       f"C={c}, {'with' if tail else 'no'} MLP tail", c, tail, code)
+    rows, flags = _halo_operand(halo, x, x2, shift)
     x = x.contiguous()
     x2 = None if x2 is None else x2.to(dt).contiguous()
     gate = None if gate is None else gate.to(dt).contiguous()
@@ -726,14 +810,16 @@ def _apply_prepare(x, comb, wqkv, wdw, shift=0, x2=None, ln_w=None, ln_b=None, r
     p = _build.ptr
     args = (x.data_ptr(), p(x2), p(lnw), p(lnb), wq.data_ptr(), wd.data_ptr(), cb.data_ptr(),
             p(gate), p(shortcut), p(ln2w), p(ln2b), p(w1), p(b1), p(w2), p(b2), p(dp),
-            out.data_ptr(), code, b, h, w, c1, c2, int(residual), hid, shift, eps, stream_ptr())
-    return args, out, (x, x2, gate, shortcut, wq, wd, lnw, lnb, cb, dp, ln2w, ln2b, w1, b1, w2, b2)
+            out.data_ptr(), p(rows), code, b, h, w, c1, c2, int(residual), hid, shift, eps, flags,
+            stream_ptr())
+    return args, out, (x, x2, gate, shortcut, wq, wd, lnw, lnb, cb, dp, ln2w, ln2b, w1, b1, w2, b2,
+                       rows)
 
 
 def _apply_launch(x, comb, wqkv, wdw, shift, x2, ln_w, ln_b, residual, gate, shortcut, mlp, eps,
-                  dp_scale):
+                  dp_scale, halo=None):
     args, out, _held = _apply_prepare(x, comb, wqkv, wdw, shift, x2, ln_w, ln_b, residual, gate,
-                                      shortcut, mlp, eps, dp_scale)
+                                      shortcut, mlp, eps, dp_scale, halo)
     _build.check("mp_spectral_apply", _apply_entry()(*args))
     b, h, w, c1 = x.shape
     c2 = 0 if x2 is None else x2.shape[-1]
@@ -747,6 +833,8 @@ def _apply_launch(x, comb, wqkv, wdw, shift, x2, ln_w, ln_b, residual, gate, sho
         APPLY_F32.record(("spectral_apply_f32",) + spec[1:-1])
         if hid:
             TAIL_F32.record(("mlp_tail_f32", b, h, w, c1 + c2, hid))
+    if halo is not None and halo.flags:
+        APPLY_HALO.record(("spectral_apply_halo", b, h, w, c1, c2, halo.flags))
     return out
 
 
@@ -858,17 +946,18 @@ def _apply_bwd_launch(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate, dp_
 class _SpectralApply(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, comb, wqkv, wdw, x2, ln_w, ln_b, gate, shortcut, dp_scale, ln2_w, ln2_b,
-                w1, b1, w2, b2, cfg):
+                w1, b1, w2, b2, cfg, halo):
         shift, residual, eps = cfg
         mlp = None if w1 is None else (ln2_w, ln2_b, w1, b1, w2, b2)
         ctx.kernel = ROUTE.use_kernel(x)
         if ctx.kernel:
             out = _apply_launch(x, comb, wqkv, wdw, shift, x2, ln_w, ln_b, residual, gate,
-                                shortcut, mlp, eps, dp_scale)
+                                shortcut, mlp, eps, dp_scale, halo)
         else:
             out = spectral_apply_plain(x, comb, wqkv, wdw, shift, x2, ln_w, ln_b, residual, gate,
-                                       shortcut, mlp, eps, dp_scale)
+                                       shortcut, mlp, eps, dp_scale, halo)
         ctx.cfg = cfg
+        ctx.halo = halo is not None and bool(halo.flags)
         ctx.eval_only = dict(x2=x2, mlp=w1)
         ctx.has_shortcut = shortcut is not None
         ctx.save_for_backward(x, comb, wqkv, wdw, ln_w, ln_b, gate, dp_scale)
@@ -879,6 +968,7 @@ class _SpectralApply(torch.autograd.Function):
         x, comb, wqkv, wdw, ln_w, ln_b, gate, dp_scale = ctx.saved_tensors
         shift, residual, eps = ctx.cfg
         _no_eval_only_grad("spectral_apply", **ctx.eval_only)
+        _no_halo_grad("spectral_apply", ctx.halo)
         dy = dy.contiguous()
         if ctx.kernel:
             fn = _apply_bwd_launch
@@ -890,14 +980,52 @@ class _SpectralApply(torch.autograd.Function):
         if not ctx.has_shortcut:
             dshort = None
         return (dx, dcomb, dw, dwdw, None, dlnw, dlnb, dgate, dshort, ddp,
-                None, None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None)
 
 
 def spectral_apply(x, comb, wqkv, wdw, shift: int = 0, x2=None, ln_w=None, ln_b=None,
                    residual: bool = False, gate=None, shortcut=None, mlp=None,
-                   eps: float = 1e-5, dp_scale=None):
+                   eps: float = 1e-5, dp_scale=None, halo: Halo | None = None):
     """Same contract as :func:`spectral_apply_plain`, differentiable without
-    ``x2`` / ``mlp``; launches the CUDA kernels on a CUDA tensor."""
+    ``x2`` / ``mlp`` / halo rows; launches the CUDA kernels on a CUDA tensor.
+    Real halo rows take the float32 tile."""
     m = (None,) * 6 if mlp is None else tuple(mlp)
     return _SpectralApply.apply(x, comb, wqkv, wdw, x2, ln_w, ln_b, gate, shortcut, dp_scale,
-                                *m, (shift, bool(residual), eps))
+                                *m, (shift, bool(residual), eps), halo)
+
+
+# ---------------------------------------------------------------------------
+# a row shard of a map split over the spatial mesh axis
+# ---------------------------------------------------------------------------
+
+def shard_halo(x, axis: Axis, x2=None) -> Halo:
+    """The :class:`Halo` of this row shard of x (and x2, the logical input
+    being ``cat([x, x2], -1)``): the neighbour shards' adjacent rows, one
+    exchange of each shard's first and last rows (the ``ppermute`` pair of
+    ``fused_spectral_attention_sharded``); at the image's top and bottom
+    the ring's wrapped rows stand in, marked as edges."""
+    rows = torch.cat([x[:, :1], x[:, -1:]], dim=1)
+    if x2 is not None:
+        rows = torch.cat([rows, torch.cat([x2[:, :1], x2[:, -1:]], dim=1).to(x.dtype)], dim=-1)
+    return Halo(*edge_rows(rows, axis, 1))
+
+
+def spectral_attention_sharded(x, wqkv, wdw, temperature, wout, num_heads: int, axis: Axis,
+                               x2=None, ln_w=None, ln_b=None, residual: bool = False, gate=None,
+                               shortcut=None, mlp=None, eps: float = 1e-5):
+    """The spectral attention of a map whose rows are split over ``axis``
+    (counterpart of ``fused_spectral_attention_sharded``,
+    ``mp_hsir_tpu/ops/pallas_attention.py:2148``): this shard's halo rows,
+    its stats launch with them, the Gram and norm sums added over the axis,
+    the fold, then its apply launch with the same halo rows and the
+    epilogue. x is this shard's rows in the unrolled frame (shift 0); the
+    options are :func:`spectral_apply`'s. Returns this shard's rows."""
+    halo = shard_halo(x, axis, x2)
+    gram, nq, nk = spectral_stats(x, wqkv, wdw, num_heads, x2=x2, ln_w=ln_w, ln_b=ln_b, eps=eps,
+                                  halo=halo)
+    b, n_g = gram.shape[0], gram[0].numel()
+    sums = psum(torch.cat([gram.reshape(b, -1), nq.reshape(b, -1), nk.reshape(b, -1)], 1), axis)
+    nq, nk = (t.reshape(b, num_heads, -1) for t in sums[:, n_g:].chunk(2, dim=1))
+    comb = spectral_fold(sums[:, :n_g].reshape(gram.shape), nq, nk, temperature, wout)
+    return spectral_apply(x, comb, wqkv, wdw, x2=x2, ln_w=ln_w, ln_b=ln_b, residual=residual,
+                          gate=gate, shortcut=shortcut, mlp=mlp, eps=eps, halo=halo)

@@ -65,6 +65,9 @@ COUNTER = counter("window_attention")
 # the float32 forward (the 3xTF32 tile): ("window_attention_f32", B, H, W, C, heads, shift)
 F32_TILE = counter("window_attention_f32")
 BWD = counter("window_attention_bwd")
+# the launches on a row shard with its region labels:
+# ("window_attention_shard", B, H, W, C, heads, dtype)
+SHARD = counter("window_attention_shard")
 
 
 @lru_cache(maxsize=32)
@@ -74,10 +77,13 @@ def region_labels(h: int, w: int, shift: int, device: torch.device) -> torch.Ten
 
 
 def window_attention_plain(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads: int,
-                           shift: int = 0, eps: float = 1e-5):
+                           shift: int = 0, eps: float = 1e-5, region=None):
     """x (B, H, W, C) unrolled; wqkv (3C, C), bqkv (3C,), rel_bias (nH, 64, 64),
     wp (C, C), bp (C,). Returns (out (B, H, W, C) in the rolled frame,
-    pooled (B, H/8, W/8, C) window means)."""
+    pooled (B, H/8, W/8, C) window means). ``region`` (H, W) int32: x is a
+    row shard already in the rolled frame (shift 0), whose windows mask by
+    these labels, the global map's rows of the shard (JAX
+    ``models/layers.py:1098-1101``)."""
     b, h, w, c = x.shape
     dt = x.dtype
     dh = c // num_heads
@@ -87,8 +93,9 @@ def window_attention_plain(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_head
     bw, n = qkv.shape[:2]
     qkv = qkv.reshape(bw, n, 3, num_heads, dh).permute(2, 0, 3, 1, 4)  # (3, Bw, nH, N, dh)
     s = (qkv[0] @ qkv[1].transpose(-1, -2)) * dh ** -0.5 + rel_bias.float()[None]
-    if shift:
-        mask = _window_mask(h, w, shift, x.device)
+    labels = _labels(h, w, shift, x.device, region)
+    if labels is not None:
+        mask = _window_mask(labels)
         s = (s.reshape(b, -1, num_heads, n, n) + mask[None, :, None]).reshape(bw, num_heads, n, n)
     p = torch.softmax(s, dim=-1).to(dt).float()
     o = (p @ qkv[2]).to(dt).float()  # (Bw, nH, N, dh)
@@ -98,9 +105,21 @@ def window_attention_plain(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_head
     return window_reverse(y, WS, h, w), pooled
 
 
-def _window_mask(h, w, shift, device):
-    """(nW, 64, 64) additive {0, -100} mask of the rolled frame."""
-    lab = window_partition(region_labels(h, w, shift, device)[None, :, :, None], WS)[..., 0]
+def _labels(h, w, shift, device, region=None):
+    """The (H, W) region labels the windows mask by, or None: a shard's
+    ``region`` (shift 0), else the map's own at ``shift``."""
+    if region is not None:
+        if shift:
+            raise ValueError("a shard with its region labels is already rolled: shift 0")
+        if tuple(region.shape) != (h, w):
+            raise ValueError(f"region labels must be {(h, w)}, got {tuple(region.shape)}")
+        return region.to(device=device, dtype=torch.int32).contiguous()
+    return region_labels(h, w, shift, device) if shift else None
+
+
+def _window_mask(labels):
+    """(nW, 64, 64) additive {0, -100} mask of the rolled frame's labels."""
+    lab = window_partition(labels[None, :, :, None], WS)[..., 0]
     return torch.where(lab[:, :, None] != lab[:, None, :], -100.0, 0.0)
 
 
@@ -122,7 +141,7 @@ def window_attention_bwd_plain(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_
     q, k, v = qkv.reshape(bw, n, 3, num_heads, dh).permute(2, 0, 3, 1, 4)  # (Bw, nH, N, dh)
     s = (q @ k.transpose(-1, -2)) * scale + rel_bias.float()[None]
     if shift:
-        mask = _window_mask(h, w, shift, x.device)
+        mask = _window_mask(region_labels(h, w, shift, x.device))
         s = (s.reshape(b, -1, num_heads, n, n) + mask[None, :, None]).reshape(bw, num_heads, n, n)
     a = torch.softmax(s, dim=-1)
     ar = a.to(dt).float()
@@ -269,9 +288,11 @@ def window_f32_plan(c: int, heads: int, limit: int = 232448) -> dict:
                 bytes=one if blocks != 2 else two)
 
 
-def _prepare(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, eps):
+def _prepare(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, eps, region=None):
     """Everything a launch needs: (the C entry's arguments, (out, pooled),
-    the tensors the arguments point into, to be held until the launch)."""
+    the tensors the arguments point into, to be held until the launch). The
+    kernel masks wherever it is given labels, and rolls by ``shift``: a
+    shard's ``region`` goes in with shift 0."""
     b, h, w, c = x.shape
     if h % WS or w % WS or c % num_heads:
         raise ValueError(f"window attention needs H, W % 8 == 0 and C % heads == 0, got {x.shape}")
@@ -282,7 +303,7 @@ def _prepare(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, eps)
     x = x.contiguous()
     wq, wpk = pack_qkv_weight(wqkv, num_heads, dt), pack_proj_weight(wp, num_heads, dt)
     lnw, lnb, bq, bpf, bias = f32(ln_w), f32(ln_b), f32(bqkv), f32(bp), f32(rel_bias)
-    labels = region_labels(h, w, shift, x.device) if shift else None
+    labels = _labels(h, w, shift, x.device, region)
     out = torch.empty_like(x)
     pooled = torch.empty((b, h // WS, w // WS, c), dtype=dt, device=x.device)
     args = (x.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), wq.data_ptr(), bq.data_ptr(),
@@ -291,13 +312,16 @@ def _prepare(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, eps)
     return args, (out, pooled), (x, wq, wpk, lnw, lnb, bq, bpf, bias, labels)
 
 
-def _launch(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, eps):
-    args, out, _held = _prepare(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, eps)
+def _launch(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, eps, region=None):
+    args, out, _held = _prepare(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, eps,
+                                region)
     _build.check("mp_window_attention", _entry()(*args))
     b, h, w, c = x.shape
     COUNTER.record(("window_attention", b, h, w, c, num_heads, shift, str(x.dtype)))
     if x.dtype == torch.float32:
         F32_TILE.record(("window_attention_f32", b, h, w, c, num_heads, shift))
+    if region is not None:
+        SHARD.record(("window_attention_shard", b, h, w, c, num_heads, str(x.dtype)))
     return out
 
 
@@ -388,16 +412,20 @@ def _bwd_launch(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, e
 
 class _WindowAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, cfg):
+    def forward(ctx, x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, cfg, region):
         ctx.kernel = ROUTE.use_kernel(x)
         out = (_launch if ctx.kernel else window_attention_plain)(
-            x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, *cfg)
+            x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, *cfg, region)
         ctx.cfg = cfg
+        ctx.shard = region is not None
         ctx.save_for_backward(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp)
         return out
 
     @staticmethod
     def backward(ctx, dout, dpool):
+        if ctx.shard:
+            raise RuntimeError("window_attention: no backward for a row shard's region labels yet "
+                               "(the sharded train step comes later)")
         saved = ctx.saved_tensors
         x = saved[0]
         b, h, w, c = x.shape
@@ -408,15 +436,15 @@ class _WindowAttention(torch.autograd.Function):
         else:
             ROUTE.count_plain_backward(x)
             fn = window_attention_bwd_plain
-        return (*fn(*saved, *ctx.cfg, dout, dpool), None)
+        return (*fn(*saved, *ctx.cfg, dout, dpool), None, None)
 
 
 def window_attention(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads: int,
-                     shift: int = 0, eps: float = 1e-5):
-    """Same contract as :func:`window_attention_plain`, differentiable;
-    launches the CUDA kernels on a CUDA tensor."""
+                     shift: int = 0, eps: float = 1e-5, region=None):
+    """Same contract as :func:`window_attention_plain`, differentiable
+    without ``region``; launches the CUDA kernels on a CUDA tensor."""
     return _WindowAttention.apply(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp,
-                                  (num_heads, shift, eps))
+                                  (num_heads, shift, eps), region)
 
 
 def relative_position_index(ws: int = WS) -> np.ndarray:

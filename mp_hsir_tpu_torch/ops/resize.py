@@ -63,8 +63,11 @@ def _separable(x: torch.Tensor, out_h: int, out_w: int, mode: str,
     """x: (..., H, W, C) -> (..., out_h, out_w, C), two float32 products, cast
     back to x's dtype."""
     h, w = x.shape[-3], x.shape[-2]
-    mh = _device_matrix(h, out_h, mode, align_corners, x.device)
-    mw = _device_matrix(w, out_w, mode, align_corners, x.device)
+    return _apply(x, _device_matrix(h, out_h, mode, align_corners, x.device),
+                  _device_matrix(w, out_w, mode, align_corners, x.device))
+
+
+def _apply(x: torch.Tensor, mh: torch.Tensor, mw: torch.Tensor) -> torch.Tensor:
     y = torch.einsum("oh,...hwc->...owc", mh, x.float())
     y = torch.einsum("pw,...owc->...opc", mw, y)
     return y.to(x.dtype)
@@ -80,6 +83,17 @@ def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int,
                     align_corners: bool = False) -> torch.Tensor:
     """NHWC bilinear resize (antialias off)."""
     return _separable(x, out_h, out_w, "bilinear", align_corners)
+
+
+def resize_bilinear_row_block(x: torch.Tensor, global_out_h: int, out_w: int, row_start: int,
+                              rows: int, align_corners: bool = False) -> torch.Tensor:
+    """Rows ``row_start .. row_start + rows`` of the bilinear resize of x to
+    (global_out_h, out_w): a shard's row block of the global resize of a
+    source every shard holds whole."""
+    h, w = x.shape[-3], x.shape[-2]
+    mh = _device_matrix(h, global_out_h, "bilinear", align_corners, x.device)
+    return _apply(x, mh[row_start:row_start + rows],
+                  _device_matrix(w, out_w, "bilinear", align_corners, x.device))
 
 
 @lru_cache(maxsize=256)

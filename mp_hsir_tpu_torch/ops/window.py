@@ -1,12 +1,15 @@
-"""Swin window bookkeeping for one device (counterparts of
-``mp_hsir_tpu/ops/window.py`` without the mesh arguments)."""
+"""Swin window bookkeeping (counterparts of ``mp_hsir_tpu/ops/window.py``);
+:func:`roll_hw` takes the spatial mesh axis of a row-sharded map."""
 
 from __future__ import annotations
 
 from functools import lru_cache
+from typing import Optional
 
 import numpy as np
 import torch
+
+from mp_hsir_tpu_torch.parallel.mesh import Axis, axis_size, ring_next, ring_prev
 
 
 def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
@@ -54,6 +57,23 @@ def shifted_window_mask(h: int, w: int, ws: int, shift: int) -> np.ndarray:
     return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
 
 
-def roll_hw(x: torch.Tensor, shift_h: int, shift_w: int) -> torch.Tensor:
-    """Cyclic shift of (B, H, W, C), ``torch.roll(x, (sh, sw), dims=(1, 2))``."""
-    return torch.roll(x, shifts=(shift_h, shift_w), dims=(1, 2))
+def roll_hw(x: torch.Tensor, shift_h: int, shift_w: int,
+            axis: Optional[Axis] = None) -> torch.Tensor:
+    """Cyclic shift of (B, H, W, C), ``torch.roll(x, (sh, sw), dims=(1, 2))``.
+    With ``axis`` H is sharded over the ring and the roll is global: each
+    shard keeps its interior rows and takes |shift_h| boundary rows from its
+    neighbour (the ring wraps as the roll does); |shift_h| <= the local H."""
+    if shift_w:
+        x = torch.roll(x, shifts=shift_w, dims=2)
+    if not shift_h:
+        return x
+    if axis_size(axis) == 1:
+        return torch.roll(x, shifts=shift_h, dims=1)
+    h = x.shape[1]
+    if abs(shift_h) > h:
+        raise ValueError(f"a roll of {shift_h} rows across shards of {h} rows")
+    if shift_h < 0:  # rows move up: the first |s| rows go to the shard above's tail
+        s = -shift_h
+        return torch.cat([x[:, s:], ring_prev(x[:, :s], axis)], dim=1)
+    # rows move down: the last s rows go to the head of the shard below
+    return torch.cat([ring_next(x[:, h - shift_h:], axis), x[:, :h - shift_h]], dim=1)

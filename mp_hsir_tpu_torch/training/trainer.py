@@ -8,7 +8,9 @@ backward through the kernels' backward launches, then AdamW (0.9, 0.999,
 eps 1e-8, decoupled weight decay) at the linear-warmup cosine learning rate.
 With ``grad_accum`` = k the gradients of k micro-steps are averaged and the
 optimizer updates on every k-th, as ``optax.MultiSteps`` does; the schedule
-runs in optimizer updates (``trainer.py:55``). The mesh routes are later work.
+runs in optimizer updates (``trainer.py:55``). :func:`make_eval_step` is the
+inference step, on one device or over a (data, spatial) mesh; the sharded
+train step is later work.
 """
 
 from __future__ import annotations
@@ -20,6 +22,9 @@ import torch
 from mp_hsir_tpu_torch import resolve_device
 from mp_hsir_tpu_torch.config import ModelConfig, TrainConfig
 from mp_hsir_tpu_torch.models.mp_hsir import MPHSIRNet, build_model
+from mp_hsir_tpu_torch.parallel.mesh import (
+    DATA_AXIS, SPATIAL_AXIS, Mesh, axis_index, axis_size, gather_rows,
+)
 from mp_hsir_tpu_torch.training import losses
 from mp_hsir_tpu_torch.training.schedules import linear_warmup_cosine_annealing
 
@@ -97,3 +102,30 @@ def train_step(state: TrainState, batch: dict, generator: torch.Generator | None
         state.optimizer.zero_grad(set_to_none=True)
         state.updates += 1
     return loss.detach()
+
+
+def make_eval_step(mc: ModelConfig, mesh: Mesh | None = None):
+    """The inference step ``infer(model, degraded (B, C, H, W), task_id (B,))
+    -> restored`` (counterpart of ``make_eval_step``,
+    ``mp_hsir_tpu/training/trainer.py:141-169``). With a mesh every rank
+    calls it with the whole batch: the batch is split over ``data`` and each
+    cube's rows over ``spatial``, each rank restores its block with the
+    spatial axis, and every rank gets the whole output back. ``mc`` is the
+    model's configuration (the model given must carry it), in eval mode."""
+    sp, dp = (None, None) if mesh is None else (mesh.axis(SPATIAL_AXIS), mesh.axis(DATA_AXIS))
+
+    def infer(model: MPHSIRNet, degraded, task_id):
+        if model.cfg != mc:
+            raise ValueError("the model's configuration is not the step's")
+        b, h = degraded.shape[0], degraded.shape[2]
+        nb, nh = b // axis_size(dp), h // axis_size(sp)
+        if nb * axis_size(dp) != b or nh * axis_size(sp) != h:
+            raise ValueError(f"a batch of {b} x {h} rows does not split over the "
+                             f"{axis_size(dp)} x {axis_size(sp)} mesh")
+        b0, r0 = axis_index(dp) * nb, axis_index(sp) * nh
+        with torch.inference_mode():
+            out = model(degraded[b0:b0 + nb, :, r0:r0 + nh].contiguous(),
+                        task_id[b0:b0 + nb], axis=sp)
+            return gather_rows(gather_rows(out, sp, dim=2), dp, dim=0)
+
+    return infer

@@ -11,8 +11,11 @@ epilogues in float32) against ``spectral_apply_plain`` in float32 at the
 presets' widths and the odd ones: the PGSSTB call unshifted and shifted
 with its gate and shortcut, the PromptFusion entry (x2 + LN + residual) and
 the training route's drop-path call (K7b); four planted faults the check
-must catch; two cases against the JAX package's
-``fused_spectral_attention_nhwc`` phase 1 in interpret mode. The kernel
+must catch; a row shard's halo rows at every edge-flag combination (the
+rows above and below the map, LN'd like the map, zero at an image edge),
+with rows swapped top for bottom as a planted fault; two cases against the
+JAX package's ``fused_spectral_attention_nhwc`` phase 1 in interpret
+mode. The kernel
 itself is held against the plain version on the card by
 tests/test_torch_cuda.py and chip_smoke.py. Imports JAX only in the test
 that compares with it."""
@@ -22,7 +25,7 @@ import pytest
 import torch
 
 from mp_hsir_tpu_torch.ops.kernels.spectral import (
-    APPLY_F32_BUDGET, APPLY_F32_STATIC, F32_K, apply_f32_plan, pack_front_f32,
+    APPLY_F32_BUDGET, APPLY_F32_STATIC, F32_K, Halo, apply_f32_plan, pack_front_f32,
     spectral_apply_plain,
 )
 from tf32_emulation import mma
@@ -51,6 +54,7 @@ LIMIT = 232448  # the H100's shared memory per block (opt-in)
 EPS = 1e-5
 TOL = 2e-6  # of the output's max-abs: float32 both sides, sums in other orders
 VARIANTS = ("pgsstb0", "pgsstb4", "fusion", "train")
+HALO_EDGES = [(True, True), (True, False), (False, True), (False, False)]
 
 
 def _fma(acc, a, b):
@@ -58,39 +62,52 @@ def _fma(acc, a, b):
     return (acc.astype(np.float64) + a.astype(np.float64) * b.astype(np.float64)).astype(np.float32)
 
 
-def _tiles(u, n=10, pad=1):
+def _tiles(u, n=10, pad=1, rows=None):
     """(B, H, W, C) -> the n x n windows of the 8x8 tiles (the 10x10 halos
     with pad 1, the tiles themselves with n = 8, pad 0), (B, T, n * n, C),
-    tiles in row-major order, zero outside the image."""
+    tiles in row-major order, zero outside the image; ``rows`` (pad 1): the
+    (top, bottom) rows (B, 1, W, C) beyond the map's first and last rows."""
     b, h, w, c = u.shape
     up = np.zeros((b, h + 2 * pad, w + 2 * pad, c), np.float32)
     up[:, pad:pad + h, pad:pad + w] = u
+    if rows is not None:
+        up[:, :1, 1:-1], up[:, -1:, 1:-1] = rows
     return np.stack([up[:, 8 * ty:8 * ty + n, 8 * tx:8 * tx + n].reshape(b, n * n, c)
                      for ty in range(h // 8) for tx in range(w // 8)], axis=1)
 
 
 def _emulate(x, comb, wqkv, wdw, shift=0, x2=None, ln_w=None, ln_b=None, residual=False,
-             gate=None, shortcut=None, dp_scale=None, three=True, chained=False,
-             untransposed=False, unrolled_gate=False):
+             gate=None, shortcut=None, dp_scale=None, halo=None, three=True, chained=False,
+             untransposed=False, unrolled_gate=False, swapped=False):
     """The tile on float32 inputs (spectral_apply_plain's arguments without
     the tail): the output (B, H, W, C) in the unrolled frame. three=False:
     one TF32 product; chained: the products summed on the tensor cores
     across all of K; untransposed: comb's pack read as [v][out]; unrolled_gate:
-    the gate read at the unrolled pixel's window (the planted faults)."""
+    the gate read at the unrolled pixel's window; swapped: the halo rows
+    staged top for bottom (the planted faults)."""
     raw = np.roll(x.numpy(), (shift, shift), axis=(1, 2)) if shift else x.numpy()
     if x2 is not None:
         raw = np.concatenate([raw, x2.numpy()], axis=-1)
-    u = raw
+
+    def norm(t):
+        if ln_w is None:
+            return t
+        mu = t.mean(-1, keepdims=True)
+        rs = np.float32(1) / np.sqrt(((t - mu) ** 2).mean(-1, keepdims=True) + np.float32(EPS))
+        return (t - mu) * rs * ln_w.numpy() + ln_b.numpy()
+
+    u = norm(raw)
     b, h, w, c = u.shape
-    if ln_w is not None:
-        mu = u.mean(-1, keepdims=True)
-        rs = np.float32(1) / np.sqrt(((u - mu) ** 2).mean(-1, keepdims=True) + np.float32(EPS))
-        u = (u - mu) * rs * ln_w.numpy() + ln_b.numpy()
+    rows = None
+    if halo is not None:  # the rows beyond the shard: LN'd as the map, zero at an image edge
+        rows = [np.zeros((b, 1, w, c), np.float32) if edge else norm(r.numpy())
+                for r, edge in ((halo.top, halo.edge_top), (halo.bot, halo.edge_bot))]
+        rows = rows[::-1] if swapped else rows
     pl = apply_f32_plan(c)
     cp, ck = pl["cp"], F32_K * pl["nk"]
     wv, taps, cbt = (t.numpy() for t in pack_front_f32(wqkv, wdw, comb))
     halo = np.zeros((b, (h // 8) * (w // 8), 112, ck), np.float32)
-    halo[:, :, :100, :c] = _tiles(u)
+    halo[:, :, :100, :c] = _tiles(u, rows=rows)
     n_tiles = halo.shape[1]
     # v's 1x1 and depthwise 3x3, one column group at a time, into [64][cp]
     v = np.zeros((b, n_tiles, 64, cp), np.float32)
@@ -153,8 +170,15 @@ def _inputs(variant, c, seed, h=16, w=16):
     return [x, comb, wq, wd], kw
 
 
-def _case(variant, c, **faults):
+def _case(variant, c, edges=None, **faults):
+    """(emulated, plain) of one call; ``edges``: with halo rows drawn from
+    the seed, these edge flags (the call read in its own frame, shift 0)."""
     args, kw = _inputs(variant, c, 500 + c)
+    if edges is not None:
+        r = _rng(600 + c)
+        w, cc = args[0].shape[2], args[1].shape[1]
+        kw = dict(kw, shift=0, halo=Halo(_t(_n(r, (1, 1, w, cc))), _t(_n(r, (1, 1, w, cc))),
+                                         *edges))
     got = _emulate(*args, **kw, **faults)
     ref = spectral_apply_plain(*args, **kw).numpy()
     return got, ref
@@ -232,6 +256,24 @@ def test_apply_f32_emulation_sees_the_faults(fault):
     transpose, and a shifted block's gate read at the unrolled pixel's window
     each break the bound at C = 400, shift 4."""
     got, ref = _case("pgsstb4", 400, **fault)
+    assert _rel(got, ref) > TOL, _rel(got, ref)
+
+
+@pytest.mark.parametrize("edges", HALO_EDGES, ids=lambda e: f"edge{int(e[0])}{int(e[1])}")
+@pytest.mark.parametrize("variant,c", [("pgsstb0", 64), ("fusion", 64), ("pgsstb0", 27)])
+def test_apply_f32_emulation_with_halo_rows_matches_plain(variant, c, edges):
+    """A row shard (K7b): the emulated tile with the rows above and below the
+    map as its halo's first and last rows (LN'd like the map; zero where the
+    flag says image edge) against spectral_apply_plain with the same
+    Halo, within 2e-6 of the output's max-abs."""
+    got, ref = _case(variant, c, edges)
+    assert _rel(got, ref) <= TOL, _rel(got, ref)
+
+
+def test_apply_f32_emulation_sees_swapped_halo_rows():
+    """The halo check is not blind: the rows staged top for bottom break the
+    bound (both rows real)."""
+    got, ref = _case("fusion", 64, (False, False), swapped=True)
     assert _rel(got, ref) > TOL, _rel(got, ref)
 
 

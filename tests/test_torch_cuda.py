@@ -1007,6 +1007,115 @@ def test_cuda_spectral_stats_f32_past_96_wide_heads_raises():
     assert _route.COUNTERS["spectral_stats_f32"].launches == 0
 
 
+# The float32 stats and apply tiles on row shards with halo rows (K7a / K7b
+# in float32): a 32 x 24 map (2 images) cut into 2 and 4 shards, each shard
+# with its neighbours' rows (the ring's wrapped rows at the image's edges)
+# and every combination of the two edge flags; C = 64 (16-byte halo copies)
+# and 36 (4-byte copies); the stats with and without the PromptFusion entry
+# (x2 + LN), the apply with the PGSSTB epilogue and tail and as the
+# PromptFusion entry.
+HALO_EDGES = [(True, True), (True, False), (False, True), (False, False)]
+HALO_CASES = [(kind, c, n) for kind in ("stats", "stats_fusion", "apply_tail", "apply_fusion")
+              for c in (64, 36) for n in (2, 4)]
+
+
+def _halo_call(kind, c, dev):
+    """(wrapper, args, kwargs) of one whole-map call of the kind, float32."""
+    if kind.startswith("stats"):
+        args, kw = _stats_inputs("fusion" if kind == "stats_fusion" else "shift0", c, 2, 2, 32,
+                                 24, dev)
+        kw.pop("shift", None)
+        return spectral_stats, args, kw
+    args, kw = _front_inputs("fusion" if kind == "apply_fusion" else "pgsstb0+tail", c, 2, 32,
+                             dev)
+    kw.pop("shift", None)
+    return spectral_apply, args, kw
+
+
+def _halo_shard(args, kw, n, i, edges):
+    """Shard i of n of a call: its rows, gate rows and halo rows with the
+    given edge flags."""
+    from mp_hsir_tpu_torch.ops.kernels.spectral import Halo
+
+    x = args[0]
+    h = x.shape[1]
+    r0, r1 = i * h // n, (i + 1) * h // n
+    u = x if "x2" not in kw else torch.cat([x, kw["x2"]], dim=-1)
+    halo = Halo(u[:, (r0 - 1) % h][:, None], u[:, r1 % h][:, None], *edges)
+    k = dict(kw, halo=halo)
+    for key in ("x2", "shortcut"):
+        if key in kw:
+            k[key] = kw[key][:, r0:r1].contiguous()
+    if "gate" in kw:
+        k["gate"] = kw["gate"][:, r0 // 8:r1 // 8].contiguous()
+    return [x[:, r0:r1].contiguous()] + list(args[1:]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,c,n", HALO_CASES)
+def test_cuda_spectral_f32_halo_tiles_match_plain(kind, c, n):
+    """Each shard's float32 halo tile against the plain version (halo rows
+    from cat(halo_top, x, halo_bot), zero at an edge) within 1e-4 of each
+    output's max-abs, at every edge-flag combination: one launch each,
+    counted with the halo where a row is real; the shards at their true
+    edge flags composed (the stats summed in order, the apply stacked)
+    within 1e-4 of the unsharded kernel call."""
+    dev = _cuda()
+    fn, args, kw = _halo_call(kind, c, dev)
+    name = "spectral_stats" if kind.startswith("stats") else "spectral_apply"
+    outs = []
+    for i in range(n):
+        for edges in HALO_EDGES:
+            a, k = _halo_shard(args, kw, n, i, edges)
+            _route.reset_counters()
+            _check_fwd(fn, a, k, 1e-4)
+            assert _route.COUNTERS[name + "_f32"].launches == 1
+            assert _route.COUNTERS[name + "_halo"].launches == int(edges != (True, True))
+        a, k = _halo_shard(args, kw, n, i, (i == 0, i == n - 1))
+        outs.append(fn(*a, **k))
+    whole = fn(*args, **kw)
+    if name == "spectral_stats":
+        got = list(outs[0])
+        for o in outs[1:]:
+            got = [g + t for g, t in zip(got, o)]
+    else:
+        got, whole = [torch.cat(outs, dim=1)], [whole]
+    for g, w in zip(got, whole):
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_spectral_halo_check_sees_swapped_rows():
+    """The per-shard check is not blind to the halo: shard 1 of 4 with its
+    halo rows swapped top for bottom fails the 1e-4 bound against the plain
+    version with them in place, in both tiles."""
+    from mp_hsir_tpu_torch.ops.kernels.spectral import Halo
+
+    dev = _cuda()
+    for kind in ("stats", "apply_tail"):
+        fn, args, kw = _halo_call(kind, 64, dev)
+        a, k = _halo_shard(args, kw, 4, 1, (False, False))
+        hl = k["halo"]
+        got = fn(*a, **dict(k, halo=Halo(hl.bot, hl.top, False, False)))
+        with _route.plain_reference():
+            ref = fn(*a, **k)
+        got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+        assert (got[0] - ref[0]).abs().max().item() > 1e-4 * ref[0].abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_spectral_bf16_halo_raises():
+    """The bf16 tiles take no real halo rows yet: a clear ValueError before
+    any launch (rows at both image edges are the unsharded call)."""
+    dev = _cuda()
+    fn, args, kw = _halo_call("stats", 64, dev)
+    a, k = _halo_shard(args, kw, 2, 0, (True, False))
+    _route.reset_counters()
+    with pytest.raises(ValueError, match="bf16"):
+        fn(a[0].to(torch.bfloat16), *a[1:], **k)
+    assert _route.COUNTERS["spectral_stats"].launches == 0
+
+
 def _ptxas(kernel: str) -> dict:
     """Registers and spill bytes of one kernel from nvcc's -Xptxas -v report
     of the library's build (this process's, or the build log beside it)."""

@@ -11,8 +11,10 @@ pixel steps; the norms by 8 lanes a column and a butterfly; the per-tile
 sums added per block range, then over the parts in order) against
 ``spectral_stats_plain`` in float32 at every (C, heads) of the presets and
 the odd widths, unshifted, shifted and as the PromptFusion entry (x2 + LN);
-three planted faults the check must catch; one case against the JAX
-package's merged window + stats kernel in interpret mode. The kernel itself
+three planted faults the check must catch; a row shard's halo rows at
+every edge-flag combination (LN'd like the map, zero at an image edge),
+with rows swapped top for bottom as a planted fault; one case against the
+JAX package's merged window + stats kernel in interpret mode. The kernel itself
 is held against the plain version on the card by tests/test_torch_cuda.py
 and chip_smoke.py. Imports JAX only in the test that compares with it."""
 
@@ -21,7 +23,7 @@ import pytest
 import torch
 
 from mp_hsir_tpu_torch.ops.kernels.spectral import (
-    F32_K, STATS_BUDGET, STATS_F32_STATIC, pack_stats, qk_row, spectral_stats_plain,
+    F32_K, STATS_BUDGET, STATS_F32_STATIC, Halo, pack_stats, qk_row, spectral_stats_plain,
     stats_f32_plan,
 )
 from tf32_emulation import mma
@@ -43,6 +45,7 @@ LIMIT = 232448  # the H100's shared memory per block (opt-in)
 EPS = 1e-5
 TOL = 2e-6  # of each output's max-abs: float32 both sides, sums in other orders
 PARTS = 4   # blocks per image over the 6 tiles of a 16x24 map: ranges 1, 2, 1, 2
+HALO_EDGES = [(True, True), (True, False), (False, True), (False, False)]
 
 
 def _fma(acc, a, b):
@@ -50,35 +53,49 @@ def _fma(acc, a, b):
     return (acc.astype(np.float64) + a.astype(np.float64) * b.astype(np.float64)).astype(np.float32)
 
 
-def _tiles(u):
+def _tiles(u, rows=None):
     """(B, H, W, C) -> the 10x10 halos of the 8x8 tiles, (B, T, 100, C),
-    tiles in row-major order, zero outside the image."""
+    tiles in row-major order, zero outside the image; ``rows``: the (top,
+    bottom) rows (B, 1, W, C) beyond the map's first and last rows."""
     b, h, w, c = u.shape
     up = np.zeros((b, h + 2, w + 2, c), np.float32)
     up[:, 1:-1, 1:-1] = u
+    if rows is not None:
+        up[:, :1, 1:-1], up[:, -1:, 1:-1] = rows
     return np.stack([up[:, 8 * ty:8 * ty + 10, 8 * tx:8 * tx + 10].reshape(b, 100, c)
                      for ty in range(h // 8) for tx in range(w // 8)], axis=1)
 
 
-def _emulate(x, wqkv, wdw, heads, shift=0, x2=None, ln_w=None, ln_b=None, three=True,
-             chained=False, swapped=False):
+def _emulate(x, wqkv, wdw, heads, shift=0, x2=None, ln_w=None, ln_b=None, halo=None,
+             three=True, chained=False, swapped=False, halo_swapped=False):
     """The tile on x (B, H, W, C1) [and x2] float32: (gram (B, C, dh), nq, nk
     (B, heads, dh)). three=False: one TF32 product; chained: the products
     summed on the tensor cores across all of K; swapped: q and k trade
-    places within each head (the planted faults)."""
+    places within each head; halo_swapped: the halo rows staged top for
+    bottom (the planted faults)."""
     u = np.roll(x.numpy(), (shift, shift), axis=(1, 2)) if shift else x.numpy()
     if x2 is not None:
         u = np.concatenate([u, x2.numpy()], axis=-1)
+
+    def norm(t):
+        if ln_w is None:
+            return t
+        mu = t.mean(-1, keepdims=True)
+        rs = np.float32(1) / np.sqrt(((t - mu) ** 2).mean(-1, keepdims=True) + np.float32(EPS))
+        return (t - mu) * rs * ln_w.numpy() + ln_b.numpy()
+
+    u = norm(u)
     b, h, w, c = u.shape
-    if ln_w is not None:
-        mu = u.mean(-1, keepdims=True)
-        rs = np.float32(1) / np.sqrt(((u - mu) ** 2).mean(-1, keepdims=True) + np.float32(EPS))
-        u = (u - mu) * rs * ln_w.numpy() + ln_b.numpy()
+    rows = None
+    if halo is not None:  # the rows beyond the shard: LN'd as the map, zero at an image edge
+        rows = [np.zeros((b, 1, w, c), np.float32) if edge else norm(r.numpy())
+                for r, edge in ((halo.top, halo.edge_top), (halo.bot, halo.edge_bot))]
+        rows = rows[::-1] if halo_swapped else rows
     pl = stats_f32_plan(c, heads)
     dh, dhp, hw, gw_max = pl["dh"], pl["dhp"], pl["hw"], pl["gw"]
     ck = F32_K * pl["nk"]
     halo = np.zeros((b, (h // 8) * (w // 8), 112, ck), np.float32)
-    halo[:, :, :100, :c] = _tiles(u)
+    halo[:, :, :100, :c] = _tiles(u, rows)
     wq, taps = (t.numpy() for t in pack_stats(wqkv, wdw, torch.float32))
     n_tiles = halo.shape[1]
     gram = np.zeros((b, n_tiles, heads, dhp, dhp), np.float32)
@@ -148,8 +165,14 @@ def _rel(got, ref):
     return max(float(np.abs(g - r).max()) / float(np.abs(r).max()) for g, r in zip(got, ref))
 
 
-def _case(variant, c, heads, **faults):
+def _case(variant, c, heads, edges=None, **faults):
+    """(emulated, plain) of one call; ``edges``: with halo rows drawn from
+    the seed, these edge flags (the call read in its own frame, shift 0)."""
     args, kw = _inputs(variant, c, heads, 300 + c + heads)
+    if edges is not None:
+        r = _rng(400 + c)
+        w = args[0].shape[2]
+        kw = dict(kw, shift=0, halo=Halo(_t(_n(r, (1, 1, w, c))), _t(_n(r, (1, 1, w, c))), *edges))
     got = _emulate(*args, **kw, **faults)
     ref = tuple(t.numpy() for t in spectral_stats_plain(*args, **kw))
     return got, ref
@@ -186,6 +209,26 @@ def test_stats_f32_emulation_matches_plain(variant, c, heads):
     got, ref = _case(variant, c, heads)
     assert all(g.shape == r.shape for g, r in zip(got, ref))
     assert _rel(got, ref) <= TOL, _rel(got, ref)
+
+
+@pytest.mark.parametrize("edges", HALO_EDGES, ids=lambda e: f"edge{int(e[0])}{int(e[1])}")
+@pytest.mark.parametrize("variant,c,heads", [("shift0", 64, 2), ("fusion", 64, 2),
+                                             ("shift0", 27, 3)])
+def test_stats_f32_emulation_with_halo_rows_matches_plain(variant, c, heads, edges):
+    """A row shard (K7a): the emulated tile with the rows above and below
+    the map as its halo's first and last rows (LN'd like the map; zero where
+    the flag says image edge) against spectral_stats_plain with the same
+    Halo, within 2e-6 of each output's max-abs; nothing is summed over the
+    halo rows."""
+    got, ref = _case(variant, c, heads, edges)
+    assert _rel(got, ref) <= TOL, _rel(got, ref)
+
+
+def test_stats_f32_emulation_sees_swapped_halo_rows():
+    """The halo check is not blind: the rows staged top for bottom break the
+    bound (both rows real)."""
+    got, ref = _case("fusion", 64, 2, (False, False), halo_swapped=True)
+    assert _rel(got, ref) > TOL, _rel(got, ref)
 
 
 @pytest.mark.parametrize("fault", [dict(three=False), dict(chained=True), dict(swapped=True)],
