@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out results.json] [--bwd-split KERNEL] [--mlp-bwd-split] [--wgrad]
                           [--train-cli] [--eval-cli] [--f32-eval] [--mesh-eval]
-                          [--mesh-cards]
+                          [--mesh-cards] [--mesh-train]
 
 Phases (any failure exits non-zero; no phase's error is caught):
 
@@ -239,8 +239,34 @@ Phases (any failure exits non-zero; no phase's error is caught):
     --mesh-cards (a machine with several cards) runs phase 1 and the same
     CLI check with one rank a card over NCCL (2 ranks, then one per card;
     rank r on card r), then the CLI under torchrun (2 processes) against the
-    one-card stdout.
-16. The kernel summary line (each kernel's main-path numbers, its
+    one-card stdout, then phase 16's 1 x 2 step with one rank a card.
+16. The row- and data-sharded float32 train step (--mesh_data N
+    --mesh_spatial M). (a) Every distinct float32 K10a / K10b call of the
+    flagship step (one card's whole-map backward at batch 8 x 31 x 64^2 on
+    the trained weights, each call's inputs recorded in the sharded frame)
+    cut into 2 and 4 row shards: each shard's kernel backward with its halo
+    rows (dx, the halo cotangents, the weight gradients) against its plain
+    backward (1e-4 of each output's max-abs), the shards composed (halo
+    cotangents folded into the neighbours' rows, weight gradients summed)
+    against the unsharded kernel backward (1e-4), three planted faults that
+    must break the bound (top and bottom cotangents folded into each
+    other's rows, a cotangent sent through the ring's wrap at an edge, an
+    inverted edge flag); shard 0 of 2 timed beside its plain version, the
+    unsharded call and its bound, summed per step. (b) The 1 x 2 float32
+    step, two ranks sharing this card over gloo, batch 8, trained weights,
+    drop-path on: gradients (the one-rank plain step's loss cotangent)
+    against the one-rank kernel step (1e-5 norm-wise per tensor) and the
+    plain float32 step (1e-3); per rank per step 24 + 24 halo backward
+    launches and 11 window backwards with region labels, no plain call;
+    the parameters bitwise equal across the ranks after 3 AdamW steps; ms
+    per step per rank (ranks sharing one card: not a multi-card figure).
+    (c) The 2 x 1 data mesh (drop-path off): float32 gradients against one
+    rank (1e-5), then 3 bf16 steps at batch 32 with finite losses and their
+    ms. (d) The remote-sensing train CLI, float32, --mesh_spatial 2 on
+    phase 13's store (batch 8, 4 steps): losses within 1e-4 of the one-rank
+    CLI's, the parameters equal across the ranks. --mesh-train runs phase 1
+    and only phase 16.
+17. The kernel summary line (each kernel's main-path numbers, its
     remote-sensing train-step numbers and the train and eval CLIs' launches
     beside them; the float32 tail tile's row: phase 14's launches, phase 2's
     tail ms per flagship float32 forward beside its bound and plain, the
@@ -2817,6 +2843,8 @@ def mesh_cards_checks(dev, card: str) -> dict:
         res["torchrun_stdout"] = lines
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    log("  phase 16's 1 x 2 float32 train step, one rank a card over NCCL:")
+    res["train_1x2"] = mesh_step_checks(dev, card, (("1x2 nccl", 1, 2, True),))
     log(card)
     return res
 
@@ -2827,6 +2855,526 @@ def mesh_cards_checks(dev, card: str) -> dict:
 
 # (map side, C, heads): flagship level 1 and latent, remote-sensing latent
 K14_SIGS = ((SIZE, 64, 2), (SIZE // 4, 256, 8), (RS_SIZE // 4, 384, 8))
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the row- and data-sharded float32 train step (--mesh_data N
+# --mesh_spatial M): the float32 spectral backwards with halo cotangents
+# (K10a / K10b), the 1 x 2 and 2 x 1 steps on ranks sharing the card, the
+# train CLI on a 1 x 2 mesh
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN_BATCH, MESH_TRAIN_STEPS, MESH_BF16_BATCH = 8, 3, 32
+MESH_GRAD_TOL = 1e-5  # mesh vs one rank: float32 gradients, norm-wise per tensor
+MESH_CLI_STEPS = 4
+HALO_BWD_KERNELS = {
+    "spectral_stats_bwd_halo": dict(
+        source="mp_hsir_tpu_torch/csrc/spectral.cu", tpu=["K10a"],
+        replaces="mp_hsir_tpu/ops/pallas_vjp.py:1671", of="spectral_stats_bwd"),
+    "spectral_apply_bwd_halo": dict(
+        source="mp_hsir_tpu_torch/csrc/spectral.cu", tpu=["K10b"],
+        replaces="mp_hsir_tpu/ops/pallas_vjp.py:1758", of="spectral_apply_bwd"),
+}
+
+
+def capture_spectral_bwd(dev, batch) -> list:
+    """One float32 kernel backward of the flagship train step on this card
+    (one rank, the whole map, trained weights), the inputs of each spectral
+    stats and apply backward launch (K10a, K10b) recorded in the sharded
+    route's frame: a shifted block's input rolled back (the unrolled frame,
+    shift 0), its per-window gate left out (the sharded route folds the gate
+    map into the shortcut)."""
+    from mp_hsir_tpu_torch.checkpoint import load_params_npz
+    from mp_hsir_tpu_torch.config import natural_scene_config
+    from mp_hsir_tpu_torch.models.mp_hsir import build_model
+    from mp_hsir_tpu_torch.ops.kernels import spectral as sp
+    from mp_hsir_tpu_torch.ops.window import roll_hw
+    from mp_hsir_tpu_torch.training.losses import l1_clamped
+
+    model = build_model(natural_scene_config(compute_dtype="float32"), dev, train=True)
+    load_params_npz(ART, model)
+    calls = []
+    orig = sp._stats_bwd_launch, sp._apply_bwd_launch
+
+    def recorder(kind, fn):
+        def rec(*a):
+            r = [t.detach().clone() if torch.is_tensor(t) else t for t in a[:-1]]
+            shift = r[4]
+            if shift:
+                r[0], r[4] = roll_hw(r[0], shift, shift), 0
+                if kind == "apply":
+                    r[8] = None
+            calls.append((kind, r))
+            return fn(*a)
+        return rec
+
+    sp._stats_bwd_launch, sp._apply_bwd_launch = recorder("stats", orig[0]), recorder("apply",
+                                                                                       orig[1])
+    try:
+        gen = torch.Generator(device=dev).manual_seed(5)
+        pred = model(batch["degraded"], batch["task_id"], gen)
+        l1_clamped(pred, batch["clean"]).backward()
+    finally:
+        sp._stats_bwd_launch, sp._apply_bwd_launch = orig
+    del model, pred
+    return calls
+
+
+def bwd_shard(args, n: int, i: int, edges=None):
+    """Shard i of n of a recorded backward call: its rows of x (and of the
+    apply's gate and dy), its halo rows with the given edge flags (the true
+    ones by default; the ring's wrapped rows at an image edge), its rows."""
+    from mp_hsir_tpu_torch.ops.kernels.spectral import Halo
+
+    x = args[0]
+    h = x.shape[1]
+    r0, r1 = i * h // n, (i + 1) * h // n
+    a = list(args)
+    a[0] = x[:, r0:r1].contiguous()
+    if len(args) == 12:
+        a[8] = None if args[8] is None else args[8][:, r0 // 8:r1 // 8].contiguous()
+        a[11] = args[11][:, r0:r1].contiguous()
+    edges = (i == 0, i == n - 1) if edges is None else edges
+    return a + [Halo(x[:, (r0 - 1) % h][:, None], x[:, r1 % h][:, None], *edges)], (r0, r1)
+
+
+def bwd_compose(outs, rows, fault: str = ""):
+    """The shards' backward outputs as the whole call's: dx stacked, each
+    shard's halo cotangents added to the neighbours' rows (fault "swapped":
+    shard 1's top and bottom cotangents trade rows), the weight gradients,
+    d comb and d dp summed, d gate and d shortcut stacked."""
+    dx = torch.cat([o[0] for o in outs], dim=1)
+    h = dx.shape[1]
+    for j, (o, (r0, r1)) in enumerate(zip(outs, rows)):
+        top, bot = o[-2], o[-1]
+        if fault == "swapped" and j == 1:
+            top, bot = bot, top
+        if top is not None:
+            dx[:, (r0 - 1) % h] += top[:, 0]
+        if bot is not None:
+            dx[:, r1 % h] += bot[:, 0]
+    res = [dx]
+    stacked = (6, 7) if len(outs[0]) == 11 else ()
+    for k in range(1, len(outs[0]) - 2):
+        parts = [o[k] for o in outs]
+        res.append(None if parts[0] is None else torch.cat(parts, dim=1) if k in stacked
+                   else torch.stack(parts).sum(dim=0))
+    return tuple(res)
+
+
+def bwd_errs(got, ref) -> tuple:
+    """errs over the outputs both sides have."""
+    pairs = [(a, r) for a, r in zip(got, ref) if r is not None]
+    return errs(tuple(a for a, _ in pairs), tuple(r for _, r in pairs))
+
+
+def bwd_cost(args, rows: int) -> tuple:
+    """(bytes, flops) of one K10a / K10b backward on ``rows`` rows of x plus
+    its halo rows: each input and output read or written once, the products
+    of the forward it recomputes and of its cotangents (make_bwd_call's
+    count, per pixel of the rows and the halo rows)."""
+    x = args[0]
+    b, _, w, c = x.shape
+    p, ph = b * rows * w, b * 2 * w
+    if len(args) == 11:
+        dh = args[8].shape[-1]
+        return (2 * (p + ph) * c * 4 + (2 * c * c + 18 * c) * 8 + 3 * b * c * dh * 4,
+                2 * (p + ph) * (4 * c * c + 36 * c) + 2 * p * (2 * c * dh + 4 * c))
+    gate = args[8] is not None
+    return (3 * (p + ph) * c * 4 + 2 * b * c * c * 4 + (c * c + 9 * c) * 8
+            + (2 * p // 64 * c * 4 if gate else 0), 2 * (p + ph) * (4 * c * c + 18 * c))
+
+
+def halo_bwd_checks(dev, card: str) -> dict:
+    """Phase 16 (a): every distinct float32 K10a / K10b call of the flagship
+    step (one card's whole-map backward, recorded in the sharded frame) cut
+    into 2 and 4 row shards: each shard's kernel backward with its halo rows
+    against its plain backward (F32_TOL of each output's max-abs: dx, the
+    halo cotangents, the weight gradients), the shards composed against the
+    unsharded kernel backward (F32_TOL), and three planted faults that must
+    break the bound: shard 1 of 4's top and bottom cotangents folded into
+    each other's rows, shard 0's top cotangent computed through the ring's
+    wrap and sent there, shard 0 with its top edge flag inverted. Each call's
+    shard 0 of 2 is timed beside its plain backward, its unsharded call and
+    its bound."""
+    from mp_hsir_tpu_torch.ops.kernels import spectral as sp
+
+    batch = train_batch(dev, MESH_TRAIN_BATCH, TRAIN_SIZE)
+    calls = capture_spectral_bwd(dev, batch)
+    distinct = {}
+    for kind, a in calls:
+        key = (kind, tuple(a[0].shape)) + ((a[3], a[5] is not None) if kind == "stats" else
+                                          (a[5] is not None, a[7], a[8] is not None,
+                                           a[9] is not None))
+        distinct.setdefault(key, [a, 0])[1] += 1
+    log(f"  {len(calls)} K10a / K10b calls per flagship float32 step (batch {MESH_TRAIN_BATCH} x "
+        f"31 x {TRAIN_SIZE}^2), {len(distinct)} distinct")
+    rows = []
+    for key, (args, mult) in sorted(distinct.items(), key=repr):
+        kern, plain = ((sp._stats_bwd_launch, sp.spectral_stats_bwd_plain) if key[0] == "stats"
+                       else (sp._apply_bwd_launch, sp.spectral_apply_bwd_plain))
+        whole = kern(*args, None)
+        row = dict(key=list(key), calls=mult, shards={})
+        # shards of whole 8-row tiles (the latent's 16 rows take 2, not 4)
+        counts = [n for n in MESH_SHARDS if args[0].shape[1] % (8 * n) == 0]
+        for n in counts:
+            outs, rr, worst, worst_abs = [], [], 0.0, 0.0
+            for i in range(n):
+                a, r = bwd_shard(args, n, i)
+                got = kern(*a)
+                e_abs, e = bwd_errs(got, plain(*a))
+                if not e <= F32_TOL:
+                    fail(f"{key}: shard {i} of {n}'s halo backward is {e:.3e} of max-abs off its "
+                         f"plain version (bound {F32_TOL})")
+                if (got[-2] is None) != (i == 0) or (got[-1] is None) != (i == n - 1):
+                    fail(f"{key}: shard {i} of {n} returned halo cotangents at the wrong sides")
+                worst, worst_abs = max(worst, e), max(worst_abs, e_abs)
+                outs.append(got)
+                rr.append(r)
+            ce = bwd_errs(bwd_compose(outs, rr), whole)[1]
+            if not ce <= F32_TOL:
+                fail(f"{key}: {n} shards composed are {ce:.3e} of max-abs off the unsharded kernel "
+                     f"backward (bound {F32_TOL})")
+            row["shards"][n] = dict(max_rel_err=worst, max_abs_err=worst_abs, composed_rel_err=ce)
+            if n == counts[-1]:
+                faults = {"swapped": bwd_errs(bwd_compose(outs, rr, "swapped"), whole)[1]}
+                a, _ = bwd_shard(args, n, 0, (False, n == 1))  # the wrapped row taken as real
+                faults["wrap"] = bwd_errs(bwd_compose([kern(*a)] + outs[1:], rr), whole)[1]
+                faults["edge"] = bwd_errs(kern(*a), plain(*bwd_shard(args, n, 0)[0]))[1]
+                for f_, v in faults.items():
+                    if not v > F32_TOL:
+                        fail(f"{key}: the planted fault ({f_}) went unseen: {v:.3e} of max-abs")
+                row["faults"] = faults
+        a, _ = bwd_shard(args, 2, 0)
+        row["halo_ms"] = time_ms(lambda: kern(*a), 10)
+        row["whole_ms"] = time_ms(lambda: kern(*args, None), 10)
+        row["plain_ms"] = time_ms(lambda: plain(*a), 3)
+        byts, flops = bwd_cost(args, args[0].shape[1] // 2)
+        row.update(bytes=byts, flops=flops, bound_ms=f32_bound_ms(byts, flops))
+        rows.append(row)
+        log(f"  {key} x{mult}: " + "; ".join(
+            f"shards of {n} {v['max_rel_err']:.2e} of max-abs off plain, composed "
+            f"{v['composed_rel_err']:.2e}" for n, v in row["shards"].items())
+            + "; faults " + ", ".join(f"{k} {v:.2e}" for k, v in row["faults"].items())
+            + f"; shard 0 of 2 {row['halo_ms']:.3f} ms (unsharded {row['whole_ms']:.3f}, plain "
+            f"{row['plain_ms']:.3f}, bound {row['bound_ms']:.4f})")
+        torch.cuda.empty_cache()
+    del calls, distinct
+    torch.cuda.empty_cache()
+    log(card)
+    per = {}
+    for kind, name in (("stats", "spectral_stats_bwd_halo"), ("apply", "spectral_apply_bwd_halo")):
+        rs = [r for r in rows if r["key"][0] == kind]
+        per[name] = {k: sum(r[k] * r["calls"] for r in rs)
+                     for k in ("halo_ms", "whole_ms", "plain_ms", "bound_ms", "bytes", "flops")}
+        per[name]["bound_by"] = ("bytes" if per[name]["bytes"] / HBM_BYTES_PER_S
+                                 >= 3 * per[name]["flops"] / TF32_FLOPS else "operations")
+        per[name].update(calls=sum(r["calls"] for r in rs),
+                         max_abs_err=max(v["max_abs_err"] for r in rs
+                                         for v in r["shards"].values()),
+                         rel_err=max(v["max_rel_err"] for r in rs for v in r["shards"].values()))
+        log(f"  {name} per sharded step (shard 0 of 2, its {per[name]['calls']} calls): "
+            f"{per[name]['halo_ms']:.2f} ms, the unsharded calls {per[name]['whole_ms']:.2f}, "
+            f"plain {per[name]['plain_ms']:.2f}, bound {per[name]['bound_ms']:.4f}")
+    return dict(rows=rows, per_step=per)
+
+
+def _psum_grads(model, ax) -> dict:
+    """Each parameter's gradient summed over the axis's members in order
+    (the whole batch's from the blocks'), on the host."""
+    from mp_hsir_tpu_torch.parallel.mesh import all_gather
+
+    out = {}
+    for k, p in model.named_parameters():
+        parts = all_gather(p.grad, ax)
+        acc = parts[0].clone()
+        for q in parts[1:]:
+            acc += q
+        out[k] = acc.cpu()
+    return out
+
+
+def _mesh_train_rank(info, data: int, spatial: int, batch: dict, cot, seed: int, steps: int,
+                     drop_path: bool, bf16_batch):
+    """One rank of phase 16 (b) / (c): the flagship float32 model on the
+    trained weights; (1) the gradients of its block with the given loss
+    cotangent (grad_check's method: the one-rank step's sign cotangent),
+    summed over the ranks, with the backward's launches and plain calls; (2)
+    ``steps`` float32 AdamW steps of make_train_step on the global batch
+    (launches, ms per step, losses); (3) with ``bf16_batch``, 3 bf16 steps
+    on it. Returns rank 0's view: every rank's counts and times, whether
+    their parameters end bitwise equal."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from mp_hsir_tpu_torch.checkpoint import load_params_npz
+    from mp_hsir_tpu_torch.config import TrainConfig, natural_scene_config
+    from mp_hsir_tpu_torch.models.mp_hsir import build_model
+    from mp_hsir_tpu_torch.ops.kernels import _route
+    from mp_hsir_tpu_torch.parallel.mesh import (
+        DATA_AXIS, MESH_AXES, SPATIAL_AXIS, all_gather, axis_index, make_mesh,
+    )
+    from mp_hsir_tpu_torch.training.trainer import (
+        batch_block, create_train_state, fold_seed, make_train_step, sync_parameters,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = info.device
+    cfg = natural_scene_config(compute_dtype="float32")
+    if not drop_path:
+        cfg = dataclasses.replace(cfg, drop_path_max=0.0)
+    model = build_model(cfg, dev, train=True)
+    load_params_npz(ART, model)
+    mesh = make_mesh(data, spatial)
+    sp_ax, dp_ax, every = (mesh.axis(a) for a in (SPATIAL_AXIS, DATA_AXIS, MESH_AXES))
+    gb = {k: v.to(dev) for k, v in batch.items()}
+    block = batch_block(gb, mesh)
+    b0 = axis_index(dp_ax) * block["degraded"].shape[0]
+    r0 = axis_index(sp_ax) * block["degraded"].shape[2]
+    cb = cot.to(dev)[b0:b0 + block["degraded"].shape[0], :, r0:r0 + block["degraded"].shape[2]]
+    mine = {}
+    gen = torch.Generator(device=dev).manual_seed(fold_seed(seed, axis_index(dp_ax)))
+    pred = model(block["degraded"], block["task_id"], gen, axis=sp_ax)
+    torch.cuda.synchronize()
+    _route.reset_counters()
+    pred.backward(cb.contiguous())
+    torch.cuda.synchronize()
+    mine["bwd_launches"] = {k: c.launches for k, c in _route.COUNTERS.items() if c.launches}
+    mine["bwd_plain_calls"] = _route.ROUTE.plain_cuda_calls
+    grads = _psum_grads(model, every)
+    model.zero_grad(set_to_none=True)
+    del pred
+
+    tc = TrainConfig(warmup_frac=0.0, batch_size=gb["degraded"].shape[0],
+                     patch_size=gb["degraded"].shape[2])
+    st = create_train_state(cfg, tc, device=dev, model=model)
+    sync_parameters(st, mesh)
+    step = make_train_step(cfg, tc, mesh)
+
+    def run(n, batch_):
+        losses, times = [], []
+        _route.reset_counters()
+        for s in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step(st, batch_, seed + s)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss.item())
+        return dict(losses=losses, ms=times,
+                    launches={k: c.launches for k, c in _route.COUNTERS.items() if c.launches},
+                    plain_calls=_route.ROUTE.plain_cuda_calls)
+
+    mine["f32"] = run(steps, gb)
+    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    mine["same_params"] = all(torch.equal(p, flat) for p in all_gather(flat, every))
+    if bf16_batch is not None:
+        cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+        model.cfg = cfg16
+        tc16 = dataclasses.replace(tc, batch_size=bf16_batch["degraded"].shape[0])
+        step = make_train_step(cfg16, tc16, mesh)
+        mine["bf16"] = run(3, {k: v.to(dev) for k, v in bf16_batch.items()})
+        flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+        mine["same_params_bf16"] = all(torch.equal(p, flat) for p in all_gather(flat, every))
+    mine.update(device=str(dev), backend=info.backend)
+    ranks = [None] * info.world_size
+    dist.all_gather_object(ranks, mine)
+    return dict(grads=grads, ranks=ranks) if info.rank == 0 else None
+
+
+def one_rank_grads(dev, batch, drop_path: bool) -> tuple:
+    """The flagship float32 step's gradients on one card: the loss
+    cotangent of the plain step (grad_check's method), then the kernel
+    path's and the plain path's gradients with it."""
+    import dataclasses
+
+    from mp_hsir_tpu_torch.checkpoint import load_params_npz
+    from mp_hsir_tpu_torch.config import natural_scene_config
+    from mp_hsir_tpu_torch.models.mp_hsir import build_model
+    from mp_hsir_tpu_torch.ops.kernels import _route
+    from mp_hsir_tpu_torch.training.losses import l1_clamped
+
+    cfg = natural_scene_config(compute_dtype="float32")
+    if not drop_path:
+        cfg = dataclasses.replace(cfg, drop_path_max=0.0)
+    model = build_model(cfg, dev, train=True)
+    load_params_npz(ART, model)
+
+    def grads(cot=None):
+        model.zero_grad(set_to_none=True)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        pred = model(batch["degraded"], batch["task_id"], gen)
+        if cot is None:
+            p = pred.detach().requires_grad_(True)
+            l1_clamped(p, batch["clean"]).backward()
+            cot = p.grad
+        pred.backward(cot)
+        return {k: q.grad.detach().cpu().clone() for k, q in model.named_parameters()}, cot
+
+    with _route.plain_reference():
+        g_plain, cot = grads()
+    g_kern, _ = grads(cot)
+    del model
+    torch.cuda.empty_cache()
+    return g_kern, g_plain, cot
+
+
+def grad_rel(got: dict, want: dict) -> list:
+    """(norm-wise relative difference, name) per tensor, worst first."""
+    return sorted((((got[k] - w).norm() / w.norm().clamp_min(1e-30)).item(), k)
+                  for k, w in want.items())[::-1]
+
+
+def mesh_step_checks(dev, card: str, meshes=(("1x2", 1, 2, True), ("2x1", 2, 1, False))) -> dict:
+    """Phase 16 (b) and (c): the 1 x 2 float32 step (two ranks sharing this
+    card over gloo, batch 8 x 31 x 64^2, trained weights, drop-path on):
+    its gradients (summed over the ranks' blocks) against the one-rank
+    kernel step (MESH_GRAD_TOL) and the plain float32 step (GRAD_TOL); per
+    rank per step the halo backward launches (24 K10a + 24 K10b), the 11
+    window backwards with region labels, no plain call; the parameters
+    bitwise equal across the ranks after MESH_TRAIN_STEPS AdamW steps; ms
+    per step. Then the 2 x 1 data mesh (drop-path off, so that both data
+    groups draw what one rank draws): float32 gradients against one rank
+    (MESH_GRAD_TOL), then 3 bf16 steps at batch 32 with finite losses."""
+    from mp_hsir_tpu_torch.parallel import distributed
+
+    res = {}
+    batch = train_batch(dev, MESH_TRAIN_BATCH, TRAIN_SIZE)
+    host = {k: v.cpu() for k, v in batch.items()}
+    for what, data, spatial, drop_path in meshes:
+        g_kern, g_plain, cot = one_rank_grads(dev, batch, drop_path)
+        bf16_batch = None
+        if data > 1:
+            bf16_batch = {k: v.cpu() for k, v in train_batch(dev, MESH_BF16_BATCH,
+                                                              TRAIN_SIZE).items()}
+        torch.cuda.empty_cache()
+        out = distributed.spawn(_mesh_train_rank, data * spatial, data, spatial, host, cot.cpu(),
+                                5, MESH_TRAIN_STEPS, drop_path, bf16_batch, device="cuda",
+                                timeout_s=600)
+        vs_one, vs_plain = grad_rel(out["grads"], g_kern), grad_rel(out["grads"], g_plain)
+        log(f"  {what} ({'drop-path on' if drop_path else 'drop-path off'}): gradients vs one rank"
+            f" worst {vs_one[0][0]:.2e} ({vs_one[0][1]}; bound {MESH_GRAD_TOL}), vs the plain "
+            f"step worst {vs_plain[0][0]:.2e} ({vs_plain[0][1]}; bound {GRAD_TOL})")
+        if vs_one[0][0] > MESH_GRAD_TOL:
+            fail(f"{what}: gradient of {vs_one[0][1]} differs from one rank's by {vs_one[0][0]:.2e}")
+        if vs_plain[0][0] > GRAD_TOL:
+            fail(f"{what}: gradient of {vs_plain[0][1]} differs from the plain step by "
+                 f"{vs_plain[0][0]:.2e}")
+        row = dict(grad_vs_one_rank=vs_one[:5], grad_vs_plain=vs_plain[:5], ranks=[])
+        for r, rk in enumerate(out["ranks"]):
+            f = rk["f32"]
+            per = {k: v // MESH_TRAIN_STEPS for k, v in f["launches"].items()}
+            bl = rk["bwd_launches"]
+            if rk["bwd_plain_calls"] or f["plain_calls"]:
+                fail(f"{what} rank {r}: plain-version calls on CUDA tensors")
+            if spatial > 1:
+                want = {"spectral_stats_bwd_halo": 24, "spectral_apply_bwd_halo": 24,
+                        "window_attention_bwd_shard": 11}
+                if any(bl.get(k, 0) != v or per.get(k, 0) != v for k, v in want.items()):
+                    fail(f"{what} rank {r}: halo / label backward launches per step "
+                         f"{ {k: (bl.get(k, 0), per.get(k, 0)) for k in want} }, expected {want}")
+            if not rk["same_params"] or not rk.get("same_params_bf16", True):
+                fail(f"{what}: rank {r}'s parameters differ from rank 0's after the steps")
+            if not all(np.isfinite(f["losses"])):
+                fail(f"{what} rank {r}: losses {f['losses']}")
+            med = statistics.median(f["ms"][1:])
+            shared = ("ranks sharing one card: not a multi-card figure" if rk["backend"] == "gloo"
+                      else "one card a rank")
+            line = (f"  {what} rank {r} ({rk['device']}, {rk['backend']}): float32 ms per step "
+                    f"{med:.1f} (steps {', '.join(f'{t:.1f}' for t in f['ms'])}; {shared}), "
+                    f"losses "
+                    + " ".join(f"{v:.5f}" for v in f["losses"])
+                    + f"; backward launches {json.dumps(bl)}")
+            rrow = dict(rank=r, f32_ms=f["ms"], f32_median_ms=med, losses=f["losses"],
+                        launches_per_step=per, bwd_launches=bl)
+            if "bf16" in rk:
+                b16 = rk["bf16"]
+                if not all(np.isfinite(b16["losses"])) or b16["plain_calls"]:
+                    fail(f"{what} rank {r}: bf16 steps {b16['losses']}, plain calls "
+                         f"{b16['plain_calls']}")
+                rrow.update(bf16_ms=b16["ms"], bf16_losses=b16["losses"])
+                line += (f"; bf16 batch {MESH_BF16_BATCH} ms per step "
+                         + ", ".join(f"{t:.1f}" for t in b16["ms"]) + " losses "
+                         + " ".join(f"{v:.5f}" for v in b16["losses"]))
+            log(line)
+            row["ranks"].append(rrow)
+        res[what] = row
+        del g_kern, g_plain, out
+        torch.cuda.empty_cache()
+    log(card)
+    return res
+
+
+def mesh_train_cli_checks(dev) -> dict:
+    """Phase 16 (d): the remote-sensing train CLI on phase 13's store,
+    float32, batch 8, MESH_CLI_STEPS steps, on one rank and with
+    --mesh_spatial 2 (two ranks it spawns on this card, gloo): the logged
+    losses within 1e-4 of one rank's, the parameters bitwise equal across
+    the ranks, rank 0's checkpoint."""
+    import tempfile
+
+    from mp_hsir_tpu_torch.cli import train_cli
+
+    # float32 on both sides: this process has TF32 off (main); the spawned
+    # ranks start with torch's defaults, which leave cuDNN's convolutions in
+    # TF32, so the CUDA libraries' own switch turns it off there
+    tf32 = os.environ.get("NVIDIA_TF32_OVERRIDE")
+    os.environ["NVIDIA_TF32_OVERRIDE"] = "0"
+    with tempfile.TemporaryDirectory() as tmp:
+        store = os.path.join(tmp, "store")
+        write_store(store, 16, 100)
+        base = ["--db_path", store, "--compute_dtype", "float32", "--batch_size", "8",
+                "--patch_size", str(TRAIN_SIZE), "--epochs", "1", "--steps_per_epoch",
+                str(MESH_CLI_STEPS), "--log_every", "1", "--ckpt_every_epochs", "1"]
+        one = train_cli.main(base + ["--ckpt_dir", os.path.join(tmp, "one")])
+        torch.cuda.empty_cache()
+        two = train_cli.main(base + ["--ckpt_dir", os.path.join(tmp, "two"),
+                                     "--mesh_spatial", "2"])
+    if tf32 is None:
+        del os.environ["NVIDIA_TF32_OVERRIDE"]
+    else:
+        os.environ["NVIDIA_TF32_OVERRIDE"] = tf32
+    l1, l2 = ([r["train_loss"] for r in res["losses"]] for res in (one, two))
+    err = max(abs(a - b) for a, b in zip(l1, l2))
+    log(f"  train CLI --mesh_spatial 2 (float32, batch 8, {MESH_CLI_STEPS} steps): losses "
+        + " ".join(f"{v:.6f}" for v in l2) + f"; one rank " + " ".join(f"{v:.6f}" for v in l1)
+        + f"; max diff {err:.2e}; ms per step {statistics.median(two['step_ms'][1:]):.1f} "
+        f"(one rank {statistics.median(one['step_ms'][1:]):.1f}; ranks sharing one card)")
+    if len(l1) != MESH_CLI_STEPS or len(l2) != MESH_CLI_STEPS or not err <= 1e-4:
+        fail(f"train CLI --mesh_spatial 2: losses {l2} vs one rank's {l1}")
+    if not two["same_params"] or not two["checkpoints"]:
+        fail("train CLI --mesh_spatial 2: parameters differ across ranks, or no checkpoint")
+    return dict(losses_one=l1, losses_mesh=l2, max_diff=err, step_ms_one=one["step_ms"],
+                step_ms_mesh=two["step_ms"])
+
+
+def mesh_train_phase(dev, card: str) -> dict:
+    """Phase 16: (a), (b) + (c), (d); the summary rows of the halo backward
+    kernels (launches from the 1 x 2 step, times from (a))."""
+    log("== phase 16: the row- and data-sharded float32 train step: the float32 spectral "
+        "backwards with halo cotangents, the 1 x 2 and 2 x 1 steps on ranks sharing this "
+        "card, the train CLI with --mesh_spatial 2")
+    log(card)
+    t0 = time.perf_counter()
+    res = dict(halo_bwd=halo_bwd_checks(dev, card))
+    res["steps"] = mesh_step_checks(dev, card)
+    res["cli"] = mesh_train_cli_checks(dev)
+    ranks = res["steps"]["1x2"]["ranks"]
+    res["kernels"] = []
+    for name, meta in HALO_BWD_KERNELS.items():
+        p = res["halo_bwd"]["per_step"][name]
+        n = ranks[0]["launches_per_step"].get(name, 0) * MESH_TRAIN_STEPS
+        res["kernels"].append(dict(
+            name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
+            tpu=meta["tpu"], launches=n, launches_per_step=p["calls"],
+            max_abs_err=p["max_abs_err"], rel_err=p["rel_err"], ms=p["halo_ms"],
+            plain_ms=p["plain_ms"], bound_ms=p["bound_ms"], bound_by=p["bound_by"],
+            library_ms=None, unsharded_ms=p["whole_ms"],
+            mesh_step=dict(ranks=len(ranks), launches=n, steps=MESH_TRAIN_STEPS)))
+    log(f"  phase 16 in {time.perf_counter() - t0:.1f} s")
+    return res
 
 
 def k14_library(layer, x, lab):
@@ -3629,7 +4177,10 @@ def main() -> None:
     ap.add_argument("--mesh-eval", action="store_true", help="only phase 15, the row-sharded "
                     "eval forward (after the build)")
     ap.add_argument("--mesh-cards", action="store_true", help="only the row-sharded eval CLI "
-                    "with one rank a card over NCCL (a machine with several cards)")
+                    "and the 1 x 2 train step with one rank a card over NCCL (a machine with "
+                    "several cards)")
+    ap.add_argument("--mesh-train", action="store_true", help="only phase 16, the row- and "
+                    "data-sharded train step (after the build)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs an NVIDIA GPU")
@@ -3700,6 +4251,16 @@ def main() -> None:
             with open(args.out, "w") as fh:
                 json.dump(dict(card=card, mesh_cards=cards), fh, indent=1, default=str)
         log(f"== done in {time.perf_counter() - t_start:.1f} s")
+        return
+    if args.mesh_train:
+        mesh_train = mesh_train_phase(dev, card)
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "w") as fh:
+                json.dump(dict(card=card, mesh_train=mesh_train), fh, indent=1, default=str)
+        log(f"== done in {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"kernels": mesh_train["kernels"]}))
         return
     if args.mesh_eval:
         log("== phase 15 only: the row-sharded eval forward")
@@ -3891,6 +4452,7 @@ def main() -> None:
         f"the CLI with --mesh_spatial {MESH_RANKS} on ranks sharing this card")
     log(card)
     mesh = dict(halo=halo_tile_checks(dev, card), cli=mesh_cli_checks(dev, card))
+    mesh_train = mesh_train_phase(dev, card)
 
     summary = summarize(rows, main_res["launches"], KERNELS, "per_forward")
     summary += summarize([r for r in train_rows if r["spec"][0] in TRAIN_KERNELS],
@@ -3970,6 +4532,8 @@ def main() -> None:
             bound_by=p["bound_by"], library_ms=None, unsharded_ms=p["whole_ms"],
             mesh_cli=dict(ranks=len(ranks), launches=n,
                           launches_per_forward=n // sum(rk["forwards"] for rk in ranks))))
+    # the halo backwards: their path is phase 16's 1 x 2 step
+    summary += mesh_train["kernels"]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
@@ -3986,7 +4550,7 @@ def main() -> None:
                            f32_tail_plans=f32_tail_plans, f32_tile_plans=f32_tile_plans,
                            f32_eval=f32_eval, f32_rs=f32_rs,
                            f32_train=f32_train, f32_rs_train=f32_rs_train, wide=wide,
-                           train_cli=cli, eval_cli=ev, mesh=mesh,
+                           train_cli=cli, eval_cli=ev, mesh=mesh, mesh_train=mesh_train,
                            seconds=time.perf_counter() - t_start), fh, indent=1, default=str)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card)

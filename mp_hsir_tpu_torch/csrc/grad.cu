@@ -242,15 +242,26 @@ constexpr int kDC = 32;  // channel chunk of the depthwise backward
 // One 8x8 tile: dt[p][c] = sum_tap w[tap][c] dout[p - off(tap)][c] and
 // part[tile][tap][c] = sum_p t[p + off(tap)][c] dout[p][c], with zeros
 // outside the image on both maps (the forward's zero padding of t).
+//
+// A row shard of a larger map (K10a / K10b's halo cotangents, replacing the
+// dtop / dbot rows of _sp0_bwd_kernel / _sp1_bwd_kernel,
+// mp_hsir_tpu/ops/pallas_vjp.py:1443, :1501): `halo` bit 0 / bit 1 says that
+// the row above / below the shard is a neighbour's, whose t the forward's
+// depthwise read; t_halo [2][B][W][Cn] holds it (side 0 above, 1 below). The
+// tap partials then read t there, and the first / last tile row writes the
+// cotangent of that t row, dt_halo [2][B][W][Cn] (dout beyond the shard is
+// zero: those outputs are the neighbour's).
 template <typename T>
 __global__ void __launch_bounds__(256)
 dwconv_bwd_kernel(const float* __restrict__ dout, const float* __restrict__ t,
                   const T* __restrict__ w, int ldw, T* __restrict__ dt, float* __restrict__ part,
-                  int H, int W, int Cn) {
+                  int H, int W, int Cn, const float* __restrict__ t_halo,
+                  float* __restrict__ dt_halo, int halo) {
   __shared__ float ds[kHaloPix][kDC + 1];
   __shared__ float ts[kHaloPix][kDC + 1];
-  const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
+  const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z, B = gridDim.z;
   const int tile = (b * (H / kTile) + ty) * (W / kTile) + tx;
+  const bool top = ty == 0 && (halo & 1), bot = ty == H / kTile - 1 && (halo & 2);
   for (int c0 = 0; c0 < Cn; c0 += kDC) {
     const int nc = min(kDC, Cn - c0);
     __syncthreads();
@@ -258,15 +269,33 @@ dwconv_bwd_kernel(const float* __restrict__ dout, const float* __restrict__ t,
       const int p = idx / kDC, j = idx - p * kDC;
       const int r = ty * kTile + p / kHalo - 1, c = tx * kTile + p % kHalo - 1;
       float dv = 0.f, tv = 0.f;
-      if (j < nc && r >= 0 && r < H && c >= 0 && c < W) {
-        const size_t o = (((size_t)b * H + r) * W + c) * Cn + c0 + j;
-        dv = dout[o];
-        tv = t[o];
+      if (j < nc && c >= 0 && c < W) {
+        if (r >= 0 && r < H) {
+          const size_t o = (((size_t)b * H + r) * W + c) * Cn + c0 + j;
+          dv = dout[o];
+          tv = t[o];
+        } else if ((r == -1 && top) || (r == H && bot)) {
+          tv = t_halo[(((size_t)(r < 0 ? 0 : B) + b) * W + c) * Cn + c0 + j];
+        }
       }
       ds[p][j] = dv;
       ts[p][j] = tv;
     }
     __syncthreads();
+    // the halo rows' cotangents: t row -1 reaches output row 0 through the
+    // taps' first row, t row H output row H - 1 through their last
+    for (int side = 0; side < 2; ++side) {
+      if (!(side == 0 ? top : bot)) continue;
+      const int dy = side == 0 ? 0 : 2, rr = side == 0 ? 1 : kTile;  // ds row of the output row
+      for (int idx = threadIdx.x; idx < kTile * nc; idx += blockDim.x) {
+        const int pc = idx / nc, j = idx - pc * nc;
+        float acc = 0.f;
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx)
+          acc = fmaf(ds[rr * kHalo + pc + 2 - dx][j], to_f(w[(dy * 3 + dx) * ldw + c0 + j]), acc);
+        dt_halo[(((size_t)side * B + b) * W + tx * kTile + pc) * Cn + c0 + j] = acc;
+      }
+    }
     for (int idx = threadIdx.x; idx < kPix * nc; idx += blockDim.x) {
       const int p = idx / nc, j = idx - p * nc;
       const int pr = p >> 3, pc = p & 7;
@@ -461,9 +490,10 @@ cudaError_t launch_wgrad_tc(const void* A, const void* Bm, float* part, float* o
 template <typename T>
 cudaError_t launch_dwconv_bwd(const float* dout, const float* t, const void* w, int ldw, void* dt,
                               float* part, float* dw, int B, int H, int W, int Cn,
+                              const float* t_halo, float* dt_halo, int halo,
                               cudaStream_t stream) {
   dwconv_bwd_kernel<T><<<dim3(W / kTile, H / kTile, B), 256, 0, stream>>>(
-      dout, t, (const T*)w, ldw, (T*)dt, part, H, W, Cn);
+      dout, t, (const T*)w, ldw, (T*)dt, part, H, W, Cn, t_halo, dt_halo, halo);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_sum_parts(part, dw, 1, B * (H / kTile) * (W / kTile), 9 * Cn, stream);
@@ -506,17 +536,28 @@ extern "C" long long mp_wgrad_tc_smem() { return (long long)mp::kWgradTcSmem; }
 
 // dout, t (B, H, W, Cn) float32; w the forward's [9][ldw] taps (pointer at the
 // first column), compute type. Outputs: dt (B, H, W, Cn) compute type, part
-// (tiles, 9, Cn) scratch, dw (9, Cn) float32.
+// (tiles, 9, Cn) scratch, dw (9, Cn) float32. A row shard (halo_flags bit 0:
+// the row above is a neighbour's, bit 1 the row below): t_halo [2][B][W][Cn]
+// float32 the t of those rows (read where the bit is set), dt_halo
+// [2][B][W][Cn] float32 their cotangents (written where it is set);
+// halo_flags 0: both may be NULL.
 extern "C" int mp_dwconv_bwd(const void* dout, const void* t, const void* w, void* dt,
-                             void* part, void* dw, int dtype, int B, int H, int W, int Cn,
-                             int ldw, void* stream) {
+                             void* part, void* dw, const void* t_halo, void* dt_halo, int dtype,
+                             int B, int H, int W, int Cn, int ldw, int halo_flags,
+                             void* stream) {
   if (H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
+  if (halo_flags != 0 && (t_halo == nullptr || dt_halo == nullptr))
+    return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
+  auto th = (const float*)t_halo;
+  auto dth = (float*)dt_halo;
   if (dtype == 0)
     return (int)mp::launch_dwconv_bwd<float>((const float*)dout, (const float*)t, w, ldw, dt,
-                                             (float*)part, (float*)dw, B, H, W, Cn, st);
+                                             (float*)part, (float*)dw, B, H, W, Cn, th, dth,
+                                             halo_flags, st);
   return (int)mp::launch_dwconv_bwd<__nv_bfloat16>((const float*)dout, (const float*)t, w, ldw,
-                                                   dt, (float*)part, (float*)dw, B, H, W, Cn, st);
+                                                   dt, (float*)part, (float*)dw, B, H, W, Cn, th,
+                                                   dth, halo_flags, st);
 }
 
 // d (B, H, W, K) in the kernel frame; w [C][ldw] (pointer at the first of K

@@ -47,53 +47,74 @@
 
 namespace mp {
 
+// The source of halo pixel p of tile (ty, tx) in the unrolled frame: a pixel
+// of the map (its offset in B H W), -1 outside the image (zero after the
+// optional LayerNorm), or -2 - q for pixel q of a row shard's halo rows hal
+// [2][B][W][C] (q = (side B + b) W + column; side 0 above the shard, 1
+// below), on the rows just above (-1) and below (H) the shard where `halo`
+// has bit 0 / bit 1 set (shift 0 there). The float32 backward's counterpart
+// of the forward tiles' halo_src_f32.
+__device__ __forceinline__ long long bwd_halo_src(int p, int b, int B, int ty, int tx, int H,
+                                                  int W, int shift, int halo) {
+  const int ur = ty * kTile + p / kHalo - 1, uc = tx * kTile + p % kHalo - 1;
+  if (uc < 0 || uc >= W) return -1;
+  if (ur == -1) return (halo & 1) ? -2 - ((long long)b * W + uc) : -1;
+  if (ur == H) return (halo & 2) ? -2 - ((long long)(B + b) * W + uc) : -1;
+  if (ur < 0 || ur >= H) return -1;
+  const int sr = (ur - shift + H) % H, sc = (uc - shift + W) % W;
+  return ((long long)b * H + sr) * W + sc;
+}
+
 // Loads the 10x10 halo of tile (ty, tx) of the logical input cat(x1, x2) in the
 // unrolled frame into s ([kHaloPix][ld]), zero outside the image, then applies
 // the optional LayerNorm (zero rows stay zero, as in the JAX kernels, which
-// mask after normalising).
+// mask after normalising). hal / halo: a row shard's halo rows (bwd_halo_src),
+// which are real data and go through the LayerNorm.
 template <typename T>
 __device__ __forceinline__ void load_halo(float* s, int ld, const T* __restrict__ x1,
                                           const T* __restrict__ x2, int C1, int C2, int b,
                                           int ty, int tx, int H, int W, int shift,
-                                          const float* lnw, const float* lnb, float eps) {
-  const int C = C1 + C2;
+                                          const float* lnw, const float* lnb, float eps,
+                                          const float* __restrict__ hal = nullptr,
+                                          int halo = 0) {
+  const int C = C1 + C2, B = gridDim.z;
   for (int idx = threadIdx.x; idx < kHaloPix * C; idx += blockDim.x) {
     const int p = idx / C, k = idx - p * C;
-    const int ur = ty * kTile + p / kHalo - 1, uc = tx * kTile + p % kHalo - 1;
+    const long long src = bwd_halo_src(p, b, B, ty, tx, H, W, shift, halo);
     float v = 0.f;
-    if (ur >= 0 && ur < H && uc >= 0 && uc < W) {
-      const int sr = (ur - shift + H) % H, sc = (uc - shift + W) % W;
-      const size_t pix = ((size_t)b * H + sr) * W + sc;
-      v = k < C1 ? to_f(x1[pix * C1 + k]) : to_f(x2[pix * C2 + (k - C1)]);
-    }
+    if (src <= -2)
+      v = hal[(-2 - src) * C + k];
+    else if (src >= 0)
+      v = k < C1 ? to_f(x1[src * C1 + k]) : to_f(x2[src * C2 + (k - C1)]);
     s[p * ld + k] = v;
   }
   if (lnw != nullptr) {
     __syncthreads();
     ln_rows_inplace<T>(s, ld, kHaloPix, C, lnw, lnb, eps, [&](int p) {
-      const int ur = ty * kTile + p / kHalo - 1, uc = tx * kTile + p % kHalo - 1;
-      return ur >= 0 && ur < H && uc >= 0 && uc < W;
+      return bwd_halo_src(p, b, B, ty, tx, H, W, shift, halo) != -1;
     });
   }
 }
 
 // The logical input cat(x1, x2) of tile (ty, tx)'s 10x10 halo in the unrolled
-// frame: at(p, k) is channel k of halo pixel p, inside(p) whether it lies in
-// the image (outside, the halo is zero after the optional LayerNorm).
+// frame: at(p, k) is channel k of halo pixel p, inside(p) whether it holds
+// data (outside, the halo is zero after the optional LayerNorm); hal / halo a
+// row shard's halo rows, as in load_halo.
 template <typename T>
 struct Halo {
   const T* x1;
   const T* x2;
   int C1, C2, b, ty, tx, H, W, shift;
-  __device__ __forceinline__ bool inside(int p) const {
-    const int ur = ty * kTile + p / kHalo - 1, uc = tx * kTile + p % kHalo - 1;
-    return ur >= 0 && ur < H && uc >= 0 && uc < W;
+  const float* hal = nullptr;
+  int halo = 0;
+  __device__ __forceinline__ long long src(int p) const {
+    return bwd_halo_src(p, b, gridDim.z, ty, tx, H, W, shift, halo);
   }
+  __device__ __forceinline__ bool inside(int p) const { return src(p) != -1; }
   __device__ __forceinline__ float at(int p, int k) const {
-    const int ur = ty * kTile + p / kHalo - 1, uc = tx * kTile + p % kHalo - 1;
-    const int sr = (ur - shift + H) % H, sc = (uc - shift + W) % W;
-    const size_t pix = ((size_t)b * H + sr) * W + sc;
-    return k < C1 ? to_f(x1[pix * C1 + k]) : to_f(x2[pix * C2 + (k - C1)]);
+    const long long s = src(p);
+    if (s <= -2) return hal[(-2 - s) * (C1 + C2) + k];
+    return k < C1 ? to_f(x1[s * C1 + k]) : to_f(x2[s * C2 + (k - C1)]);
   }
 };
 
@@ -688,6 +709,30 @@ cudaError_t launch_apply_tc(const __nv_bfloat16* x1, const __nv_bfloat16* x2, in
 // dx back into the input's frame) and the weight products.
 // ---------------------------------------------------------------------------
 
+// Whether tile row ty of the backward reads a row shard's halo row `side`: 0
+// the row above the shard (the first tile row, halo bit 0), 1 the row below
+// (the last tile row, bit 1).
+__device__ __forceinline__ bool shard_row(int side, int ty, int H, int halo) {
+  return side == 0 ? ty == 0 && (halo & 1) : ty == H / kTile - 1 && (halo & 2);
+}
+
+// Writes this tile's 8 columns of its halo row `side` (halo row 0 or 9 of s,
+// [kHaloPix][ld], its first n columns) to out [2][B][W][ldo], column j of s
+// to column col(j) of out: the halo row's (LN'd) input or 1x1 output, which
+// the rest of the backward reads for the halo rows' cotangents and their
+// share of the weight gradients.
+template <typename Col>
+__device__ __forceinline__ void halo_row_out(float* __restrict__ out, const float* s, int ld,
+                                             int n, int side, int b, int tx, int W, int ldo,
+                                             Col col) {
+  const int row = side == 0 ? 0 : kHalo - 1;
+  for (int idx = threadIdx.x; idx < kTile * n; idx += blockDim.x) {
+    const int c = idx / n, j = idx - c * n;
+    out[(((size_t)side * gridDim.z + b) * W + tx * kTile + c) * ldo + col(j)] =
+        s[(row * kHalo + c + 1) * ld + j];
+  }
+}
+
 // VJP of the stats launch (K10a), float32 (bf16 runs the tiles of
 // spectral_stats.cuh and dwconv_dx.cuh): dq = k dG^T + 2 q dnq, dk = q dG +
 // 2 k dnk per head.
@@ -699,7 +744,8 @@ spectral_stats_bwd_kernel(const T* __restrict__ x, const float* __restrict__ lnw
                           const float* __restrict__ dnq, const float* __restrict__ dnk,
                           T* __restrict__ un_out, float* __restrict__ t_out,
                           float* __restrict__ dqk_out, int H, int W, int C, int nH, int shift,
-                          float eps) {
+                          float eps, const float* __restrict__ hal, int halo,
+                          float* __restrict__ un_halo, float* __restrict__ t_halo) {
   extern __shared__ float sm[];
   const int C3 = 3 * C, dh = C / nH;
   const int ldx = C + 1, ldt = 2 * dh + 1;
@@ -709,12 +755,16 @@ spectral_stats_bwd_kernel(const T* __restrict__ x, const float* __restrict__ lnw
   const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
   auto hp = [](int i) { return ((i >> 3) + 1) * kHalo + (i & 7) + 1; };  // halo index of pixel i
 
-  load_halo<T>(xs, ldx, x, (const T*)nullptr, C, 0, b, ty, tx, H, W, shift, lnw, lnb, eps);
+  load_halo<T>(xs, ldx, x, (const T*)nullptr, C, 0, b, ty, tx, H, W, shift, lnw, lnb, eps, hal,
+               halo);
   __syncthreads();
   for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
     const int i = idx / C, k = idx - i * C;
     un_out[tile_pix(b, ty, tx, i, H, W) * C + k] = from_f<T>(xs[hp(i) * ldx + k]);
   }
+  for (int side = 0; side < 2; ++side)
+    if (shard_row(side, ty, H, halo))
+      halo_row_out(un_halo, xs, ldx, C, side, b, tx, W, C, [](int j) { return j; });
   const float* dg = dgram + (size_t)b * C * dh;
   for (int h = 0; h < nH; ++h) {
     auto col = [&](int j) { return j < dh ? h * dh + j : C + h * dh + (j - dh); };
@@ -727,6 +777,9 @@ spectral_stats_bwd_kernel(const T* __restrict__ x, const float* __restrict__ lnw
       const int i = idx / (2 * dh), j = idx - i * 2 * dh;
       t_out[tile_pix(b, ty, tx, i, H, W) * 2 * C + col(j)] = ts[hp(i) * ldt + j];
     }
+    for (int side = 0; side < 2; ++side)
+      if (shard_row(side, ty, H, halo))
+        halo_row_out(t_halo, ts, ldt, 2 * dh, side, b, tx, W, 2 * C, col);
     dwconv3_tile(ts, ldt, 2 * dh,
         [&](int tap, int j) { return to_f(wdw[tap * C3 + col(j)]); },
         [&](int p, int j, float acc) { qk[p * ldt + j] = rnd<T>(acc); });
@@ -771,7 +824,8 @@ spectral_apply_bwd_kernel(const T* __restrict__ x, const float* __restrict__ lnw
                           float* __restrict__ t_out, T* __restrict__ v_out,
                           T* __restrict__ dys_out, float* __restrict__ dv_out,
                           float* __restrict__ extra_out, float* __restrict__ pdp, int H, int W,
-                          int C, int shift, float eps, int kc) {
+                          int C, int shift, float eps, int kc, const float* __restrict__ hal,
+                          int halo, float* __restrict__ un_halo, float* __restrict__ t_halo) {
   extern __shared__ float sm[];
   __shared__ float red[kThreads / 32];
   const int C3 = 3 * C;
@@ -785,7 +839,7 @@ spectral_apply_bwd_kernel(const T* __restrict__ x, const float* __restrict__ lnw
   float* rs = mu + kHaloPix;
   const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
   const int tile = (b * (H / kTile) + ty) * (W / kTile) + tx;
-  const Halo<T> hl{x, (const T*)nullptr, C, 0, b, ty, tx, H, W, shift};
+  const Halo<T> hl{x, (const T*)nullptr, C, 0, b, ty, tx, H, W, shift, hal, halo};
   auto hp = [](int i) { return ((i >> 3) + 1) * kHalo + (i & 7) + 1; };
   // raw input pixel behind unrolled-frame pixel i (the roll-back)
   auto src = [&](int i) {
@@ -797,15 +851,20 @@ spectral_apply_bwd_kernel(const T* __restrict__ x, const float* __restrict__ lnw
     return to_f(gate[(((size_t)b * (H / kTile) + r / kTile) * (W / kTile) + c / kTile) * C + j]);
   };
   // the (LN'd) input of this tile's pixels, channels [c0, c0 + nc) of xs
+  // (and of a row shard's halo rows that this tile reads)
   auto write_un = [&](int c0, int nc) {
     for (int idx = threadIdx.x; idx < kPix * nc; idx += blockDim.x) {
       const int i = idx / nc, k = idx - i * nc;
       un_out[tile_pix(b, ty, tx, i, H, W) * C + c0 + k] = from_f<T>(xs[hp(i) * ldc + k]);
     }
+    for (int side = 0; side < 2; ++side)
+      if (shard_row(side, ty, H, halo))
+        halo_row_out(un_halo, xs, ldc, nc, side, b, tx, W, C, [&](int j) { return c0 + j; });
   };
 
   if (resident) {
-    load_halo<T>(xs, ldc, x, (const T*)nullptr, C, 0, b, ty, tx, H, W, shift, lnw, lnb, eps);
+    load_halo<T>(xs, ldc, x, (const T*)nullptr, C, 0, b, ty, tx, H, W, shift, lnw, lnb, eps,
+                 hal, halo);
     __syncthreads();
     write_un(0, C);
   } else if (lnw != nullptr) {
@@ -834,6 +893,9 @@ spectral_apply_bwd_kernel(const T* __restrict__ x, const float* __restrict__ lnw
       const int i = idx / nvc, j = idx - i * nvc;
       t_out[tile_pix(b, ty, tx, i, H, W) * C + v0 + j] = vt[hp(i) * ldv + j];
     }
+    for (int side = 0; side < 2; ++side)
+      if (shard_row(side, ty, H, halo))
+        halo_row_out(t_halo, vt, ldv, nvc, side, b, tx, W, C, [&](int j) { return v0 + j; });
     dwconv3_tile(vt, ldv, nvc,
         [&](int tap, int j) { return to_f(wdw[tap * C3 + 2 * C + v0 + j]); },
         [&](int p, int j, float acc) { vs[p * ldx + v0 + j] = rnd<T>(acc); });
@@ -919,13 +981,14 @@ template <typename T>
 cudaError_t launch_stats_bwd(const void* x, const float* lnw, const float* lnb, const void* wqkv,
                              const void* wdw, const float* dgram, const float* dnq,
                              const float* dnk, void* un, float* t, float* dqk, int B, int H,
-                             int W, int C, int nH, int shift, float eps, cudaStream_t stream) {
+                             int W, int C, int nH, int shift, float eps, const float* hal,
+                             int halo, float* un_halo, float* t_halo, cudaStream_t stream) {
   const size_t smem = stats_bwd_smem(C, nH);
   cudaError_t err = set_smem(spectral_stats_bwd_kernel<T>, smem);
   if (err != cudaSuccess) return err;
   spectral_stats_bwd_kernel<T><<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
       (const T*)x, lnw, lnb, (const T*)wqkv, (const T*)wdw, dgram, dnq, dnk, (T*)un, t, dqk, H,
-      W, C, nH, shift, eps);
+      W, C, nH, shift, eps, hal, halo, un_halo, t_halo);
   return cudaGetLastError();
 }
 
@@ -1014,7 +1077,8 @@ cudaError_t launch_apply_bwd(const void* x, const float* lnw, const float* lnb, 
                              const float* dp, int residual, const void* dy, void* un, float* t,
                              void* v, void* dys, float* dv, float* extra, float* pdp,
                              float* dgate, int B, int H, int W, int C, int shift, int kc,
-                             float eps, cudaStream_t stream) {
+                             float eps, const float* hal, int halo, float* un_halo,
+                             float* t_halo, cudaStream_t stream) {
   const size_t smem = apply_bwd_smem(C, kc);
   const auto kernel = apply_bwd_kernel<T>(kc, C);
   cudaError_t err = set_smem(kernel, smem);
@@ -1022,7 +1086,8 @@ cudaError_t launch_apply_bwd(const void* x, const float* lnw, const float* lnb, 
   const dim3 grid(W / kTile, H / kTile, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       (const T*)x, lnw, lnb, (const T*)wqkv, (const T*)wdw, comb, (const T*)gate, dp, residual,
-      (const T*)dy, (T*)un, t, (T*)v, (T*)dys, dv, extra, pdp, H, W, C, shift, eps, kc);
+      (const T*)dy, (T*)un, t, (T*)v, (T*)dys, dv, extra, pdp, H, W, C, shift, eps, kc, hal, halo,
+      un_halo, t_halo);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (gate != nullptr)
     spectral_gate_grad_kernel<T><<<grid, 256, 0, stream>>>((const T*)dys, (const T*)x, dgate, H,
@@ -1163,16 +1228,24 @@ extern "C" int mp_spectral_apply_bwd_chunk(int C) { return mp::apply_bwd_chunk(C
 // [C][3C], wdw [9][3C] as in the forward; dgram (B, C, dh), dnq / dnk (B,
 // nH, dh). Outputs, unrolled frame: un (B, H, W, C) the (LN'd) input, t (B,
 // H, W, 2C) the q|k 1x1 output, dqk (B, H, W, 2C) the cotangent after the
-// depthwise conv.
+// depthwise conv. A row shard (shift 0): hal [2][B][W][C] and halo_flags as
+// mp_spectral_stats's; then un_halo [2][B][W][C] and t_halo [2][B][W][2C]
+// receive the (LN'd) input and the q|k 1x1 output of each real halo row (the
+// other side's rows are not written). halo_flags 0: hal, un_halo and t_halo
+// may be NULL.
 extern "C" int mp_spectral_stats_bwd(const void* x, const void* lnw, const void* lnb,
                                      const void* wqkv, const void* wdw, const void* dgram,
                                      const void* dnq, const void* dnk, void* un, void* t,
-                                     void* dqk, int B, int H, int W, int C, int nH, int shift,
-                                     float eps, void* stream) {
+                                     void* dqk, const void* hal, void* un_halo, void* t_halo,
+                                     int B, int H, int W, int C, int nH, int shift, float eps,
+                                     int halo_flags, void* stream) {
   if (C % nH != 0 || H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
+  if (halo_flags != 0 && (hal == nullptr || un_halo == nullptr || t_halo == nullptr || shift != 0))
+    return (int)cudaErrorInvalidValue;
   auto f = [](const void* p) { return (const float*)p; };
   return (int)mp::launch_stats_bwd<float>(x, f(lnw), f(lnb), wqkv, wdw, f(dgram), f(dnq), f(dnk),
                                           un, (float*)t, (float*)dqk, B, H, W, C, nH, shift, eps,
+                                          f(hal), halo_flags, (float*)un_halo, (float*)t_halo,
                                           (cudaStream_t)stream);
 }
 
@@ -1282,19 +1355,26 @@ extern "C" long long mp_spectral_apply_bwd_tc_smem(int C, int tile) {
 // dp), dv (float32), extra (float32 input cotangent of the gate / residual
 // epilogue; NULL when neither), pdp (per-tile d dp partials; NULL without
 // dp), dgate (B, H/8, W/8, C) float32. kc: the channel chunk
-// (mp_spectral_apply_bwd_chunk).
+// (mp_spectral_apply_bwd_chunk). A row shard (shift 0): hal [2][B][W][C]
+// and halo_flags as mp_spectral_apply's; then un_halo [2][B][W][C] and
+// t_halo [2][B][W][C] receive the (LN'd) input and the v 1x1 output of each
+// real halo row. halo_flags 0: hal, un_halo and t_halo may be NULL.
 extern "C" int mp_spectral_apply_bwd(const void* x, const void* lnw, const void* lnb,
                                      const void* wqkv, const void* wdw, const void* comb,
                                      const void* gate, const void* dp, const void* dy, void* un,
                                      void* t, void* v, void* dys, void* dv, void* extra,
-                                     void* pdp, void* dgate, int dtype, int B, int H, int W,
-                                     int C, int residual, int shift, int kc, float eps,
+                                     void* pdp, void* dgate, const void* hal, void* un_halo,
+                                     void* t_halo, int dtype, int B, int H, int W, int C,
+                                     int residual, int shift, int kc, float eps, int halo_flags,
                                      void* stream) {
   if (H % mp::kTile != 0 || W % mp::kTile != 0 || kc <= 0 || kc > C || dtype != 0)
+    return (int)cudaErrorInvalidValue;
+  if (halo_flags != 0 && (hal == nullptr || un_halo == nullptr || t_halo == nullptr || shift != 0))
     return (int)cudaErrorInvalidValue;
   auto f = [](const void* p) { return (const float*)p; };
   return (int)mp::launch_apply_bwd<float>(x, f(lnw), f(lnb), wqkv, wdw, f(comb), gate, f(dp),
                                           residual, dy, un, (float*)t, v, dys, (float*)dv,
                                           (float*)extra, (float*)pdp, (float*)dgate, B, H, W, C,
-                                          shift, kc, eps, (cudaStream_t)stream);
+                                          shift, kc, eps, f(hal), halo_flags, (float*)un_halo,
+                                          (float*)t_halo, (cudaStream_t)stream);
 }

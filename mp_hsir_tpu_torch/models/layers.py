@@ -14,15 +14,17 @@ The wrappers are ``torch.autograd.Function``s with backward kernels; the
 eval route's fused extras (the apply kernel's MLP tail, PromptFusion's
 in-kernel concat and exit conv) have no backward, as in JAX.
 
-Row shards: the ``axis`` argument of the eval route (a
+Row shards: the ``axis`` argument (a
 :class:`~mp_hsir_tpu_torch.parallel.mesh.Axis`, None on one device) says
 that the map's H is split over the spatial mesh axis, as JAX's
-``axis_name`` does. The same kernels run on each shard: the spectral tiles
-with the neighbours' halo rows and the summed statistics, the window tile
-on rows rolled across the shards with the global map's region labels, and
-the 3x3 convs and GDFN over the shard extended by a neighbour row on each
-inner side (:func:`~mp_hsir_tpu_torch.ops.conv.extend_rows`), cropped
-after.
+``axis_name`` does. The same kernels run on each shard, on both routes:
+the spectral tiles with the neighbours' halo rows and the summed
+statistics, the window tile on rows rolled across the shards with the
+global map's region labels, and the 3x3 convs and GDFN over the shard
+extended by a neighbour row on each inner side
+(:func:`~mp_hsir_tpu_torch.ops.conv.extend_rows`), cropped after. The
+collectives are differentiable, so the training route's backward sends
+each halo row's cotangent back to the shard that owns the row.
 """
 
 from __future__ import annotations
@@ -67,12 +69,6 @@ def _count_path(name: str) -> None:
 
 def _sharded(axis) -> bool:
     return axis_size(axis) > 1
-
-
-def _no_sharded_training(module: nn.Module, axis) -> None:
-    if module.training and _sharded(axis):
-        raise RuntimeError("the row-sharded route is the eval forward; the sharded train step "
-                           "comes later")
 
 
 def _on_extended_rows(fn, x, axis, scale: float = 1, res=None):
@@ -204,7 +200,7 @@ class SpectralAttention(nn.Module):
         route, ``models/layers.py:425-435``): halo rows, the stats summed
         over the axis, the fold, the apply with ``epilogue``
         (:func:`~mp_hsir_tpu_torch.ops.kernels.spectral.spectral_apply`'s
-        options)."""
+        options); differentiable without x2 and the tail MLP."""
         lnw, lnb = (None, None) if ln is None else (ln.weight, ln.bias)
         return spectral_attention_sharded(x, self.qkv.weight, self.qkv_dwconv.weight,
                                           self.temperature, self.project_out.weight,
@@ -351,7 +347,6 @@ class TransformerBlock(nn.Module):
                         f.dwconv.weight, f.project_out.weight, residual=True, proj_w=proj_w)
 
         if _sharded(axis):
-            _no_sharded_training(self, axis)
             y = sa.sharded(x, axis, x2=x2, ln=self.norm1, residual=True)
             return _on_extended_rows(ffn, y, axis)
         comb = sa.comb(x, x2=x2, ln=self.norm1)
@@ -457,11 +452,12 @@ class PromptFusion(nn.Module):
 
     def forward(self, x, prompt, axis=None):
         if self.training:
-            _no_sharded_training(self, axis)
             # the explicit composition, as JAX's training route does
-            # (mp_hsir_tpu/models/layers.py:1027-1029)
+            # (mp_hsir_tpu/models/layers.py:1027-1029); on a row shard the
+            # transformer's spectral tiles take halo rows and its GDFN runs
+            # over the extended rows (the 1x1 conv is per pixel)
             _count_path("prompt_fusion_train")
-            return self.conv(self.transformer(torch.cat([x, prompt], dim=-1)))
+            return self.conv(self.transformer(torch.cat([x, prompt], dim=-1), axis=axis))
         _count_path("prompt_fusion_kernels")
         return self.transformer(x, x2=prompt, proj_w=self.conv.weight, axis=axis)
 
@@ -514,8 +510,7 @@ class PGSSTB(nn.Module):
             raise ValueError(f"the window kernel takes 8x8 windows on H, W % 8 == 0; got "
                              f"ws={self.ws} map {(h, w)}")
         if _sharded(axis):
-            _no_sharded_training(self, axis)
-            return self._forward_sharded(x, axis)
+            return self._forward_sharded(x, axis, dp)
         _count_path("pgsstb_kernels")
         shift = self.shift
         at = self.attn
@@ -538,15 +533,18 @@ class PGSSTB(nn.Module):
                                    m.fc1.bias, m.fc2.weight, m.fc2.bias))
 
 
-    def _forward_sharded(self, x: torch.Tensor, axis) -> torch.Tensor:
-        """The eval route on a row shard over ``axis`` (JAX's sharded
-        epilogue, ``models/layers.py:1095-1234``): the (-shift, -shift) roll
-        across the shards, the window tile with no roll of its own and the
-        global map's region labels of this shard's rows, the PG gate, the
-        roll back, then the sharded spectral attention with the gate,
-        shortcut and the tail MLP in its apply tile. A shifted block's gates
-        ride back with it as a per-pixel map, folded into the shortcut:
-        out = (x + sa * gate_map) + attn(sa), with no change to a kernel."""
+    def _forward_sharded(self, x: torch.Tensor, axis, dp=None) -> torch.Tensor:
+        """Both routes on a row shard over ``axis`` (JAX's sharded epilogue,
+        ``models/layers.py:1095-1250``): the (-shift, -shift) roll across the
+        shards, the window tile with no roll of its own and the global map's
+        region labels of this shard's rows, the PG gate, the roll back, then
+        the sharded spectral attention with the gate and shortcut. A shifted
+        block's gates ride back with it as a per-pixel map, folded into the
+        shortcut: out = (x + dp1 * sa * gate_map) + dp1 * attn(sa), with no
+        change to a kernel (JAX passes the map to the kernel as
+        ``gate_map``). Eval: the tail MLP in the apply tile; training: the
+        branch scaled by the drop-path scale ``dp1`` and the MLP kernel
+        after it with ``dp2``, as on one device."""
         _count_path("pgsstb_kernels_sharded")
         b, h, w, c = x.shape
         shift = self.shift
@@ -562,16 +560,27 @@ class PGSSTB(nn.Module):
                                       self.num_heads, region=region)
         gate = self.local_spectral_attn(pooled.reshape(b, -1, c)).reshape(b, h // 8, w // 8, c)
         m = self.mlp
-        epilogue = dict(mlp=(self.norm2.weight, self.norm2.bias, m.fc1.weight, m.fc1.bias,
-                             m.fc2.weight, m.fc2.bias))
+        dp1, dp2 = (None, None) if dp is None else dp
+        if self.training:
+            epilogue = dict(dp_scale=dp1)
+        else:
+            epilogue = dict(mlp=(self.norm2.weight, self.norm2.bias, m.fc1.weight, m.fc1.bias,
+                                 m.fc2.weight, m.fc2.bias))
         if shift:
             sa = roll_hw(sa, shift, shift, axis)
             gmap = roll_hw(gate.repeat_interleave(8, dim=1).repeat_interleave(8, dim=2),
                            shift, shift, axis)
-            epilogue["shortcut"] = (x.float() + sa.float() * gmap.float()).to(x.dtype)
+            branch = sa.float() * gmap.float()
+            if dp1 is not None:
+                branch = branch * dp1.float().reshape(b, 1, 1, 1)
+            epilogue["shortcut"] = (x.float() + branch).to(x.dtype)
         else:
             epilogue.update(gate=gate, shortcut=x)
-        return self.gobal_spectral_attn.sharded(sa, axis, **epilogue)
+        y = self.gobal_spectral_attn.sharded(sa, axis, **epilogue)
+        if not self.training:
+            return y
+        return mlp(y, self.norm2.weight, self.norm2.bias, m.fc1.weight, m.fc1.bias, m.fc2.weight,
+                   m.fc2.bias, residual=True, dp_scale=dp2)
 
 
 class BaseBlock(nn.Module):

@@ -7,10 +7,12 @@ the model runs NHWC in ``cfg.compute_dtype`` and adds the global input
 residual in float32. H and W must be multiples of 32. ``model.train()`` runs
 the training route (JAX ``deterministic=False``: per-sample drop-path drawn
 from the ``generator`` passed to ``forward``), ``model.eval()`` the eval one.
-``forward(..., axis=...)`` runs the eval route on a row shard of the cube
+``forward(..., axis=...)`` runs either route on a row shard of the cube
 (JAX's ``cfg.spatial_axis``, ``models/mp_hsir.py:41``): every layer takes
 the spatial mesh axis, and the global input residual stays local to the
-shard. Each shard's H must then be a multiple of 32.
+shard. Each shard's H must then be a multiple of 32. On the training route
+every shard of one cube passes a generator in the same state, so that the
+drop-path draws agree across its shards.
 """
 
 from __future__ import annotations
@@ -69,14 +71,11 @@ class MPHSIRNet(nn.Module):
     def forward(self, inp: torch.Tensor, task_id: torch.Tensor,
                 generator: torch.Generator | None = None, axis=None) -> torch.Tensor:
         """``axis``: inp is this rank's row block of the cube, whose rows are
-        split over the spatial mesh axis (eval only); returns the block's
-        rows of the output."""
+        split over the spatial mesh axis; returns the block's rows of the
+        output."""
         cfg = self.cfg
         if inp.ndim != 4:
             raise ValueError(f"expected (B, C, H, W), got {tuple(inp.shape)}")
-        if axis is not None and self.training:
-            raise RuntimeError("the row-sharded forward is the eval route; the sharded train "
-                               "step comes later")
         dt = DTYPES[cfg.compute_dtype]
         inp_nhwc = inp.float().permute(0, 2, 3, 1).contiguous()
         x = inp_nhwc.to(dt)

@@ -13,7 +13,16 @@ differentiates it.
 Backward (training): ``mp_spectral_stats_bwd`` and ``mp_spectral_apply_bwd``
 plus the shared stages of ``csrc/grad.cu`` replace ``_sp0_bwd_kernel`` /
 ``_sp1_bwd_kernel`` (``mp_hsir_tpu/ops/pallas_vjp.py:1443``, ``:1501``) and
-the two phases of ``_spectral_bwd_kernel`` (``:953``). The bf16 stats
+the two phases of ``_spectral_bwd_kernel`` (``:953``). On a row shard the
+float32 launches take the halo rows as the forward's do and return their
+cotangents (``dtop`` / ``dbot`` of ``_sp0_bwd_kernel`` / ``_sp1_bwd_kernel``,
+which ``_halo_grads``, ``:1783``, sends back to the neighbour shards):
+``mp_spectral_stats_bwd`` / ``mp_spectral_apply_bwd`` also write the halo
+rows' LN'd input and 1x1 output, grad.cu's depthwise backward reads that t
+row in the taps' gradient and writes its cotangent, and grad.cu's 1x1 +
+LayerNorm backward carries it to the raw rows (:func:`_halo_rows_bwd`). The
+halo rows are tensor inputs of the autograd Functions, so their cotangents
+travel back through the exchange that brought them. The bf16 stats
 backward runs two tensor-core tiles instead of ``mp_spectral_stats_bwd`` and
 grad.cu's depthwise and LayerNorm stages: ``mp_spectral_stats_bwd_tc`` (the
 forward tile's front and dq | dk, ``csrc/spectral_stats.cuh``) and
@@ -89,6 +98,12 @@ STATS_HALO = counter("spectral_stats_halo")
 APPLY_HALO = counter("spectral_apply_halo")
 STATS_BWD = counter("spectral_stats_bwd")
 APPLY_BWD = counter("spectral_apply_bwd")
+# the float32 backward launches of a row shard with real halo rows, which
+# return the halo rows' cotangents: ("spectral_stats_bwd_halo", B, H, W, C,
+# heads, LN, halo bits) and ("spectral_apply_bwd_halo", B, H, W, C, LN,
+# residual, gate, dp, halo bits)
+STATS_BWD_HALO = counter("spectral_stats_bwd_halo")
+APPLY_BWD_HALO = counter("spectral_apply_bwd_halo")
 # the bf16 apply tile (csrc/spectral_front.cuh): its widest C (kFrontMaxC),
 # the 16 x 32 output units a warp holds (kFrontUnits), the halo rows padded to
 # 7 row tiles (kFrontRows) and the weight tiles' depth
@@ -179,10 +194,40 @@ def _qkv_part(u, wqkv, wdw, lo, hi, dt, rows=None):
     return t, v
 
 
-def _no_halo_grad(name, halo: bool):
-    if halo:
-        raise RuntimeError(f"{name}: no backward through halo rows yet (the sharded train step "
-                           "and its halo cotangents come later)")
+def _qkv_bwd(raw, u, rows, halo, wqkv, wdw, lo, hi, dt, dout, ln_w, eps):
+    """Explicit VJP of :func:`_qkv_part`'s depthwise output (channels
+    ``lo:hi``) at cotangent ``dout`` (B, H, W, K) float32, through the 1x1
+    and the optional LayerNorm: returns (d raw (B, H, W, C) float32, in the
+    unrolled frame, d 1x1 weight (K, C), d taps (K, 1, 3, 3), d ln_w, d
+    ln_b, d halo.top, d halo.bot). ``rows``: the normalised halo rows of
+    :func:`_input`; their t feeds the taps' gradient, and the cotangent of
+    their t goes back through the 1x1 and their LayerNorm to the raw halo
+    rows (None at an image edge, whose row the forward zeroed after the
+    LayerNorm). The weight gradients count the halo rows' share: they are
+    this shard's forward."""
+    c, k = u.shape[-1], hi - lo
+    w1 = wqkv[lo:hi].reshape(k, c).to(dt).float()
+    ue = u if rows is None else torch.cat([rows[0], u, rows[1]], dim=1)
+    t = (ue.float() @ w1.t()).to(dt).float()
+    de = dout if rows is None else F.pad(dout, (0, 0, 0, 0, 1, 1))
+    dtt, dwdw = dwconv3_bwd_plain(de, t, wdw[lo:hi].to(dt))
+    dtt = dtt.to(dt).float()
+    dw = dtt.reshape(-1, k).t() @ ue.float().reshape(-1, c)
+    du = dtt @ w1
+    xe = raw
+    if rows is not None:
+        keep = [0.0 if halo.edge_top else 1.0, 0.0 if halo.edge_bot else 1.0]
+        du = torch.cat([du[:, :1] * keep[0], du[:, 1:-1], du[:, -1:] * keep[1]], dim=1)
+        xe = torch.cat([halo.top.to(raw.dtype), raw, halo.bot.to(raw.dtype)], dim=1)
+    dlnw = dlnb = None
+    if ln_w is not None:
+        du, dlnw, dlnb = ln_bwd_plain(du, *ln_stats(xe, eps), ln_w)
+    dtop = dbot = None
+    if rows is not None:
+        dtop = None if halo.edge_top else du[:, :1].to(dt)
+        dbot = None if halo.edge_bot else du[:, -1:].to(dt)
+        du = du[:, 1:-1]
+    return du, dw, dwdw, dlnw, dlnb, dtop, dbot
 
 
 def _no_eval_only_grad(name, **opts):
@@ -209,34 +254,31 @@ def spectral_stats_plain(x, wqkv, wdw, num_heads: int, shift: int = 0, x2=None,
     return gram, q.square().sum(dim=1), k.square().sum(dim=1)
 
 
-def spectral_stats_bwd_plain(x, wqkv, wdw, num_heads, shift, ln_w, ln_b, eps, dgram, dnq, dnk):
+def spectral_stats_bwd_plain(x, wqkv, wdw, num_heads, shift, ln_w, ln_b, eps, dgram, dnq, dnk,
+                             halo: Halo | None = None):
     """Explicit VJP of :func:`spectral_stats_plain` (one input): returns
-    (dx, d wqkv, d wdw, d ln_w, d ln_b); the v sections of the weight
-    cotangents are zero."""
+    (dx, d wqkv, d wdw, d ln_w, d ln_b, d halo.top, d halo.bot); the v
+    sections of the weight cotangents are zero, a halo row's cotangent None
+    at an image edge (and without ``halo``)."""
     dt = x.dtype
-    raw, u, _ = _input(x, None, shift, ln_w, ln_b, eps)
+    raw, u, rows = _input(x, None, shift, ln_w, ln_b, eps, halo)
     b, h, w, c = u.shape
     dh = c // num_heads
-    wqk = wqkv[:2 * c].reshape(2 * c, c).to(dt).float()
-    t, qk = _qkv_part(u, wqkv, wdw, 0, 2 * c, dt)
+    qk = _qkv_part(u, wqkv, wdw, 0, 2 * c, dt, rows)[1]
     q = qk[..., :c].reshape(b, h, w, num_heads, dh)
     k = qk[..., c:].reshape(b, h, w, num_heads, dh)
     dg = dgram.to(dt).float().reshape(b, num_heads, dh, dh)
     dq = torch.einsum("byxne,bnde->byxnd", k, dg) + 2 * q * dnq.reshape(b, 1, 1, num_heads, dh)
     dk = torch.einsum("byxnd,bnde->byxne", q, dg) + 2 * k * dnk.reshape(b, 1, 1, num_heads, dh)
     dqk = torch.cat([dq.reshape(b, h, w, c), dk.reshape(b, h, w, c)], dim=-1)
-    dtt, dwdw_qk = dwconv3_bwd_plain(dqk, t, wdw[:2 * c].to(dt))
-    dtt = dtt.to(dt).float()
+    du, dw_qk, dwdw_qk, dlnw, dlnb, dtop, dbot = _qkv_bwd(raw, u, rows, halo, wqkv, wdw, 0, 2 * c,
+                                                          dt, dqk, ln_w, eps)
     dw = torch.zeros((3 * c, c), dtype=torch.float32, device=x.device)
-    dw[:2 * c] = dtt.reshape(-1, 2 * c).t() @ u.float().reshape(-1, c)
+    dw[:2 * c] = dw_qk
     dwdw = torch.zeros((3 * c, 1, 3, 3), dtype=torch.float32, device=x.device)
     dwdw[:2 * c] = dwdw_qk
-    du = dtt @ wqk
-    dlnw = dlnb = None
-    if ln_w is not None:
-        du, dlnw, dlnb = ln_bwd_plain(du, *ln_stats(raw, eps), ln_w)
     dx = roll_hw(du, -shift, -shift) if shift else du
-    return dx.to(dt), dw.reshape(3 * c, c, 1, 1), dwdw, dlnw, dlnb
+    return dx.to(dt), dw.reshape(3 * c, c, 1, 1), dwdw, dlnw, dlnb, dtop, dbot
 
 
 def stats_plan(c: int, heads: int) -> dict:
@@ -355,7 +397,8 @@ def _stats_entry(kind: str = "fwd"):
     import ctypes
 
     if kind == "bwd":
-        return _build.entry("mp_spectral_stats_bwd", 11, [ctypes.c_int] * 6 + [ctypes.c_float])
+        return _build.entry("mp_spectral_stats_bwd", 14,
+                            [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int])
     if kind == "bwd_tc":
         return _build.entry("mp_spectral_stats_bwd_tc", 11, [ctypes.c_int] * 6 + [ctypes.c_float])
     if kind == "dx_tc":
@@ -380,14 +423,16 @@ def _stats_parts(*shape: int) -> int:
 
 def _halo_operand(halo, x, x2, shift):
     """(the halo rows [2][B][W][C] in x's type, or None; the kernels' halo
-    bits). Only the float32 tiles take real halo rows (shift 0)."""
+    bits). Only the float32 tiles and backward launches take real halo rows
+    (shift 0)."""
     if halo is None or not halo.flags:
         return None, 0
     b, h, w, c1 = x.shape
     c = c1 + (0 if x2 is None else x2.shape[-1])
     if x.dtype != torch.float32:
-        raise ValueError("the bf16 spectral tiles take no halo rows (only the image edges); "
-                         "a row shard runs in float32")
+        raise ValueError("the bf16 spectral tiles take no halo rows yet (only the image edges; "
+                         "their halo rows are the next slice of the port): a row shard runs in "
+                         "float32")
     if shift:
         raise ValueError("a row shard is read in its own frame: halo rows take shift 0")
     if halo.top.shape != (b, 1, w, c) or halo.bot.shape != (b, 1, w, c):
@@ -494,10 +539,43 @@ def _stats_bwd_tc_launch(x, wqkv, wdw, num_heads, shift, ln_w, ln_b, eps, dgram,
             *((sums[18 * c:19 * c], sums[19 * c:]) if ln else (None, None)))
 
 
-def _stats_bwd_launch(x, wqkv, wdw, num_heads, shift, ln_w, ln_b, eps, dgram, dnq, dnk):
+def _halo_rows_bwd(dt_halo, wk, col0, rows, ln_w, eps, halo, un_halo, dw):
+    """The halo rows' share of a float32 backward on the card: their input
+    cotangents, from the cotangents ``dt_halo`` [2][B][W][K] of their 1x1
+    output (:func:`~mp_hsir_tpu_torch.ops.kernels._grad.dwconv_bwd`) through
+    grad.cu's 1x1 + LayerNorm backward on the raw rows ``rows``
+    [2][B][W][C]; the 2B rows are packed as whole 8-row tiles of zeros
+    beyond them, which add nothing. Adds their 1x1 weight gradient
+    (``un_halo`` [2][B][W][C] their LN'd input) into ``dw`` [K][C]; returns
+    (d top, d bot (None at an image edge), (d ln_w, d ln_b) or None)."""
+    _, b, w, k = dt_halo.shape
+    c = rows.shape[-1]
+    n = 2 * b
+    g = -(-n // 8)
+    d = dt_halo.new_zeros((g * 8, w, k))
+    d[:n] = dt_halo.reshape(n, w, k)
+    xr = rows.new_zeros((g * 8, w, c))
+    xr[:n] = rows.reshape(n, w, c)
+    dx, dln, _ = ln_linear_bwd(d.reshape(g, 8, w, k), wk, col0, xr.reshape(g, 8, w, c), ln_w,
+                               eps=eps)
+    dx = dx.reshape(g * 8, w, c)[:n].reshape(2, b, 1, w, c)
+    dw += wgrad(un_halo.reshape(-1, c), dt_halo.reshape(-1, k)).t()
+    return None if halo.edge_top else dx[0], None if halo.edge_bot else dx[1], dln
+
+
+def _add_ln(dln, extra):
+    """(d ln_w, d ln_b) of the shard's pixels plus its halo rows' share."""
+    if dln is None:
+        return None, None
+    return tuple(a + e for a, e in zip(dln, extra)) if extra is not None else dln
+
+
+def _stats_bwd_launch(x, wqkv, wdw, num_heads, shift, ln_w, ln_b, eps, dgram, dnq, dnk,
+                      halo=None):
+    rows, flags = _halo_operand(halo, x, None, shift)
     if x.dtype == torch.bfloat16:
-        return _stats_bwd_tc_launch(x, wqkv, wdw, num_heads, shift, ln_w, ln_b, eps, dgram, dnq,
-                                    dnk)
+        return (*_stats_bwd_tc_launch(x, wqkv, wdw, num_heads, shift, ln_w, ln_b, eps, dgram,
+                                      dnq, dnk), None, None)
     b, h, w, c = x.shape
     dt = x.dtype
     _build.check_plan("spectral_stats_bwd", "mp_spectral_stats_bwd_smem",
@@ -510,41 +588,64 @@ def _stats_bwd_launch(x, wqkv, wdw, num_heads, shift, ln_w, ln_b, eps, dgram, dn
     un = torch.empty((b, h, w, c), dtype=dt, device=dev)
     t = torch.empty((b, h, w, 2 * c), dtype=torch.float32, device=dev)
     dqk = torch.empty_like(t)
-    err = _stats_entry("bwd")(x.data_ptr(), _build.ptr(lnw), _build.ptr(lnb), wq.data_ptr(),
-                             wd.data_ptr(), dgram.data_ptr(), dnq.data_ptr(),
-                             dnk.data_ptr(), un.data_ptr(), t.data_ptr(), dqk.data_ptr(), b, h,
-                             w, c, num_heads, shift, eps, stream_ptr())
+    # the halo rows' LN'd input and 1x1 output (a side without its bit stays zero)
+    un_h = torch.zeros((2, b, w, c), dtype=torch.float32, device=dev) if flags else None
+    t_h = torch.zeros((2, b, w, 2 * c), dtype=torch.float32, device=dev) if flags else None
+    p = _build.ptr
+    err = _stats_entry("bwd")(x.data_ptr(), p(lnw), p(lnb), wq.data_ptr(), wd.data_ptr(),
+                             dgram.data_ptr(), dnq.data_ptr(), dnk.data_ptr(), un.data_ptr(),
+                             t.data_ptr(), dqk.data_ptr(), p(rows), p(un_h), p(t_h), b, h, w, c,
+                             num_heads, shift, eps, flags, stream_ptr())
     _build.check("mp_spectral_stats_bwd", err)
-    dtt, dwdw_qk = dwconv_bwd(dqk, t, wd, 0, dt)
+    dtt, dwdw_qk, *dt_h = dwconv_bwd(dqk, t, wd, 0, dt, t_h, flags)
     dx, dln, _ = ln_linear_bwd(dtt, wq, 0, x, ln_w, shift=-shift, eps=eps)
     dw = torch.zeros((3 * c, c), dtype=torch.float32, device=dev)
     dw[:2 * c] = wgrad(un.reshape(-1, c), dtt.reshape(-1, 2 * c)).t()
+    dtop = dbot = None
+    if flags:
+        dtop, dbot, dln_h = _halo_rows_bwd(dt_h[0], wq, 0, rows, ln_w, eps, halo, un_h,
+                                           dw[:2 * c])
+        dln = _add_ln(dln, dln_h)
+        STATS_BWD_HALO.record(("spectral_stats_bwd_halo", b, h, w, c, num_heads,
+                               ln_w is not None, flags))
     dwdw = torch.zeros((3 * c, 9), dtype=torch.float32, device=dev)
     dwdw[:2 * c] = dwdw_qk.t()
     STATS_BWD.record(("spectral_stats_bwd", b, h, w, c, num_heads, shift, ln_w is not None, str(dt)))
     return (dx, dw.reshape(3 * c, c, 1, 1), dwdw.reshape(3 * c, 1, 3, 3),
-            *(dln if dln is not None else (None, None)))
+            *(dln if dln is not None else (None, None)), dtop, dbot)
+
+
+def _halo_in(htop, hbot, edges):
+    """The :class:`Halo` an autograd Function was given as tensors and flags."""
+    return None if htop is None else Halo(htop, hbot, *edges)
+
+
+def _halo_args(halo):
+    """A :class:`Halo` as the Functions take it: its two rows as tensor
+    inputs (autograd routes their cotangents back through the collective
+    that brought them) and the edge flags."""
+    return (None, None, None) if halo is None else (halo.top, halo.bot,
+                                                    (halo.edge_top, halo.edge_bot))
 
 
 class _SpectralStats(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, wqkv, wdw, x2, ln_w, ln_b, cfg, halo):
-        num_heads, shift, eps = cfg
+    def forward(ctx, x, wqkv, wdw, x2, ln_w, ln_b, htop, hbot, cfg):
+        num_heads, shift, eps, edges = cfg
+        halo = _halo_in(htop, hbot, edges)
         ctx.kernel = ROUTE.use_kernel(x)
         fn = _stats_launch if ctx.kernel else spectral_stats_plain
         out = fn(x, wqkv, wdw, num_heads, shift, x2, ln_w, ln_b, eps, halo)
         ctx.cfg = cfg
         ctx.has_x2 = x2 is not None
-        ctx.halo = halo is not None and bool(halo.flags)
-        ctx.save_for_backward(x, wqkv, wdw, ln_w, ln_b)
+        ctx.save_for_backward(x, wqkv, wdw, ln_w, ln_b, htop, hbot)
         return out
 
     @staticmethod
     def backward(ctx, dgram, dnq, dnk):
-        x, wqkv, wdw, ln_w, ln_b = ctx.saved_tensors
-        num_heads, shift, eps = ctx.cfg
+        x, wqkv, wdw, ln_w, ln_b, htop, hbot = ctx.saved_tensors
+        num_heads, shift, eps, edges = ctx.cfg
         _no_eval_only_grad("spectral_stats", x2=True if ctx.has_x2 else None)
-        _no_halo_grad("spectral_stats", ctx.halo)
         b, c = x.shape[0], x.shape[-1]
         dh = c // num_heads
         z = x.new_zeros((b, c, dh), dtype=torch.float32)
@@ -556,18 +657,22 @@ class _SpectralStats(torch.autograd.Function):
         else:
             ROUTE.count_plain_backward(x)
             fn = spectral_stats_bwd_plain
-        dx, dw, dwdw, dlnw, dlnb = fn(x, wqkv, wdw, num_heads, shift, ln_w, ln_b, eps, dgram, dnq, dnk)
-        return dx, dw, dwdw, None, dlnw, dlnb, None, None
+        dx, dw, dwdw, dlnw, dlnb, dtop, dbot = fn(x, wqkv, wdw, num_heads, shift, ln_w, ln_b, eps,
+                                                  dgram, dnq, dnk, _halo_in(htop, hbot, edges))
+        return dx, dw, dwdw, None, dlnw, dlnb, dtop, dbot, None
 
 
 def spectral_stats(x, wqkv, wdw, num_heads: int, shift: int = 0, x2=None, ln_w=None,
                    ln_b=None, eps: float = 1e-5, halo: Halo | None = None):
     """Same contract as :func:`spectral_stats_plain`, differentiable without
-    halo rows; launches the CUDA kernels (forward: a per-part pass, bf16 on
-    the tensor-core tile, then an in-order sum of the parts; backward: bf16
+    x2 (the halo rows too: their cotangents go back to ``halo.top`` /
+    ``halo.bot``); launches the CUDA kernels (forward: a per-part pass, bf16
+    on the tensor-core tile, then an in-order sum of the parts; backward: bf16
     the two tiles, float32 ``mp_spectral_stats_bwd`` and grad.cu's stages) on
-    a CUDA tensor. Real halo rows take the float32 tile."""
-    return _SpectralStats.apply(x, wqkv, wdw, x2, ln_w, ln_b, (num_heads, shift, eps), halo)
+    a CUDA tensor. Real halo rows take the float32 kernels."""
+    htop, hbot, edges = _halo_args(halo)
+    return _SpectralStats.apply(x, wqkv, wdw, x2, ln_w, ln_b, htop, hbot,
+                                (num_heads, shift, eps, edges))
 
 
 def spectral_fold(gram, nq, nk, temperature, wout) -> torch.Tensor:
@@ -631,15 +736,16 @@ def spectral_apply_plain(x, comb, wqkv, wdw, shift: int = 0, x2=None, ln_w=None,
 
 
 def spectral_apply_bwd_plain(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate, dp_scale,
-                             eps, dy):
+                             eps, dy, halo: Halo | None = None):
     """Explicit VJP of :func:`spectral_apply_plain` without x2 / mlp: returns
-    (dx, d comb, d wqkv, d wdw, d ln_w, d ln_b, d gate, d shortcut, d dp);
-    the q/k sections of the weight cotangents are zero."""
+    (dx, d comb, d wqkv, d wdw, d ln_w, d ln_b, d gate, d shortcut, d dp,
+    d halo.top, d halo.bot); the q/k sections of the weight cotangents are
+    zero, a halo row's cotangent None at an image edge (and without
+    ``halo``)."""
     dt = x.dtype
-    raw, u, _ = _input(x, None, shift, ln_w, ln_b, eps)
+    raw, u, rows = _input(x, None, shift, ln_w, ln_b, eps, halo)
     b, h, w, c = u.shape
-    wv = wqkv[2 * c:].reshape(c, c).to(dt).float()
-    t, v = _qkv_part(u, wqkv, wdw, 2 * c, 3 * c, dt)
+    v = _qkv_part(u, wqkv, wdw, 2 * c, 3 * c, dt, rows)[1]
     dyf = dy.float()
     dys = dyf if dp_scale is None else (dyf * dp_scale.float().reshape(b, 1, 1, 1)).to(dt).float()
     cr = comb.to(dt).float()
@@ -660,19 +766,16 @@ def spectral_apply_bwd_plain(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, ga
         br = torch.einsum("byxk,bko->byxo", v, cr)
         br = br if gu is None else br + gu
         ddp = (dyf * br).sum(dim=(1, 2, 3)).to(dp_scale.dtype)
-    dtt, dwdw_v = dwconv3_bwd_plain(dv, t, wdw[2 * c:].to(dt))
-    dtt = dtt.to(dt).float()
+    du, dw_v, dwdw_v, dlnw, dlnb, dtop, dbot = _qkv_bwd(raw, u, rows, halo, wqkv, wdw, 2 * c,
+                                                        3 * c, dt, dv, ln_w, eps)
     dw = torch.zeros((3 * c, c), dtype=torch.float32, device=x.device)
-    dw[2 * c:] = dtt.reshape(-1, c).t() @ u.float().reshape(-1, c)
+    dw[2 * c:] = dw_v
     dwdw = torch.zeros((3 * c, 1, 3, 3), dtype=torch.float32, device=x.device)
     dwdw[2 * c:] = dwdw_v
-    du = dtt @ wv
-    dlnw = dlnb = None
-    if ln_w is not None:
-        du, dlnw, dlnb = ln_bwd_plain(du, *ln_stats(raw, eps), ln_w)
     du = du + extra
     dx = roll_hw(du, -shift, -shift) if shift else du
-    return (dx.to(dt), dcomb, dw.reshape(3 * c, c, 1, 1), dwdw, dlnw, dlnb, dgate, dy, ddp)
+    return (dx.to(dt), dcomb, dw.reshape(3 * c, c, 1, 1), dwdw, dlnw, dlnb, dgate, dy, ddp,
+            dtop, dbot)
 
 
 def front_plan(c: int) -> dict:
@@ -762,7 +865,8 @@ def _apply_entry(kind: str = "fwd"):
     import ctypes
 
     if kind == "bwd":
-        return _build.entry("mp_spectral_apply_bwd", 17, [ctypes.c_int] * 8 + [ctypes.c_float])
+        return _build.entry("mp_spectral_apply_bwd", 20,
+                            [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int])
     if kind == "bwd_tc":
         return _build.entry("mp_spectral_apply_bwd_tc", 16, [ctypes.c_int] * 7 + [ctypes.c_float])
     if kind == "dx_tc":
@@ -898,10 +1002,12 @@ def _apply_bwd_tc_launch(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate, 
             None if dp is None else per_image[:, o_dp].to(dp_scale.dtype))
 
 
-def _apply_bwd_launch(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate, dp_scale, eps, dy):
+def _apply_bwd_launch(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate, dp_scale, eps, dy,
+                      halo=None):
+    rows, flags = _halo_operand(halo, x, None, shift)
     if x.dtype == torch.bfloat16:
-        return _apply_bwd_tc_launch(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate,
-                                    dp_scale, eps, dy)
+        return (*_apply_bwd_tc_launch(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate,
+                                      dp_scale, eps, dy), None, None)
     b, h, w, c = x.shape
     dt = x.dtype
     kc = _build.chunk("mp_spectral_apply_bwd_chunk", c)
@@ -920,17 +1026,27 @@ def _apply_bwd_launch(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate, dp_
     pdp = torch.empty((b, tiles), dtype=torch.float32, device=dev) if dp is not None else None
     dgate = (torch.empty((b, h // 8, w // 8, c), dtype=torch.float32, device=dev)
              if gate is not None else None)
+    # the halo rows' LN'd input and v 1x1 output (a side without its bit stays zero)
+    un_h, t_h = ((torch.zeros((2, b, w, c), dtype=torch.float32, device=dev) for _ in range(2))
+                 if flags else (None, None))
     p = _build.ptr
     err = _apply_entry("bwd")(x.data_ptr(), p(lnw), p(lnb), wq.data_ptr(), wd.data_ptr(),
                               cb.data_ptr(), p(gate_t), p(dp), dy.data_ptr(), un.data_ptr(),
                               t.data_ptr(), v.data_ptr(), dys.data_ptr(), dv.data_ptr(), p(extra),
-                              p(pdp), p(dgate), dtype_code(x), b, h, w, c, int(residual), shift,
-                              kc, eps, stream_ptr())
+                              p(pdp), p(dgate), p(rows), p(un_h), p(t_h), dtype_code(x), b, h, w,
+                              c, int(residual), shift, kc, eps, flags, stream_ptr())
     _build.check("mp_spectral_apply_bwd", err)
-    dtt, dwdw_v = dwconv_bwd(dv, t, wd, 2 * c, dt)
+    dtt, dwdw_v, *dt_h = dwconv_bwd(dv, t, wd, 2 * c, dt, t_h, flags)
     dx, dln, _ = ln_linear_bwd(dtt, wq, 2 * c, x, ln_w, extra_f=extra, shift=-shift, eps=eps)
     dw = torch.zeros((3 * c, c), dtype=torch.float32, device=dev)
     dw[2 * c:] = wgrad(un.reshape(-1, c), dtt.reshape(-1, c)).t()
+    dtop = dbot = None
+    if flags:
+        dtop, dbot, dln_h = _halo_rows_bwd(dt_h[0], wq, 2 * c, rows, ln_w, eps, halo, un_h,
+                                           dw[2 * c:])
+        dln = _add_ln(dln, dln_h)
+        APPLY_BWD_HALO.record(("spectral_apply_bwd_halo", b, h, w, c, ln_w is not None,
+                               bool(residual), gate is not None, dp is not None, flags))
     dwdw = torch.zeros((3 * c, 9), dtype=torch.float32, device=dev)
     dwdw[2 * c:] = dwdw_v.t()
     dcomb = wgrad(v.reshape(b, h * w, c), dys.reshape(b, h * w, c))
@@ -940,14 +1056,15 @@ def _apply_bwd_launch(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate, dp_
     dlnw, dlnb = dln if dln is not None else (None, None)
     return (dx, dcomb, dw.reshape(3 * c, c, 1, 1), dwdw.reshape(3 * c, 1, 3, 3), dlnw, dlnb,
             None if dgate is None else dgate.to(gate.dtype), dy,
-            None if ddp is None else ddp.to(dp_scale.dtype))
+            None if ddp is None else ddp.to(dp_scale.dtype), dtop, dbot)
 
 
 class _SpectralApply(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, comb, wqkv, wdw, x2, ln_w, ln_b, gate, shortcut, dp_scale, ln2_w, ln2_b,
-                w1, b1, w2, b2, cfg, halo):
-        shift, residual, eps = cfg
+                w1, b1, w2, b2, htop, hbot, cfg):
+        shift, residual, eps, edges = cfg
+        halo = _halo_in(htop, hbot, edges)
         mlp = None if w1 is None else (ln2_w, ln2_b, w1, b1, w2, b2)
         ctx.kernel = ROUTE.use_kernel(x)
         if ctx.kernel:
@@ -957,41 +1074,42 @@ class _SpectralApply(torch.autograd.Function):
             out = spectral_apply_plain(x, comb, wqkv, wdw, shift, x2, ln_w, ln_b, residual, gate,
                                        shortcut, mlp, eps, dp_scale, halo)
         ctx.cfg = cfg
-        ctx.halo = halo is not None and bool(halo.flags)
         ctx.eval_only = dict(x2=x2, mlp=w1)
         ctx.has_shortcut = shortcut is not None
-        ctx.save_for_backward(x, comb, wqkv, wdw, ln_w, ln_b, gate, dp_scale)
+        ctx.save_for_backward(x, comb, wqkv, wdw, ln_w, ln_b, gate, dp_scale, htop, hbot)
         return out
 
     @staticmethod
     def backward(ctx, dy):
-        x, comb, wqkv, wdw, ln_w, ln_b, gate, dp_scale = ctx.saved_tensors
-        shift, residual, eps = ctx.cfg
+        x, comb, wqkv, wdw, ln_w, ln_b, gate, dp_scale, htop, hbot = ctx.saved_tensors
+        shift, residual, eps, edges = ctx.cfg
         _no_eval_only_grad("spectral_apply", **ctx.eval_only)
-        _no_halo_grad("spectral_apply", ctx.halo)
         dy = dy.contiguous()
         if ctx.kernel:
             fn = _apply_bwd_launch
         else:
             ROUTE.count_plain_backward(x)
             fn = spectral_apply_bwd_plain
-        dx, dcomb, dw, dwdw, dlnw, dlnb, dgate, dshort, ddp = fn(
-            x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate, dp_scale, eps, dy)
+        dx, dcomb, dw, dwdw, dlnw, dlnb, dgate, dshort, ddp, dtop, dbot = fn(
+            x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate, dp_scale, eps, dy,
+            _halo_in(htop, hbot, edges))
         if not ctx.has_shortcut:
             dshort = None
         return (dx, dcomb, dw, dwdw, None, dlnw, dlnb, dgate, dshort, ddp,
-                None, None, None, None, None, None, None, None)
+                None, None, None, None, None, None, dtop, dbot, None)
 
 
 def spectral_apply(x, comb, wqkv, wdw, shift: int = 0, x2=None, ln_w=None, ln_b=None,
                    residual: bool = False, gate=None, shortcut=None, mlp=None,
                    eps: float = 1e-5, dp_scale=None, halo: Halo | None = None):
     """Same contract as :func:`spectral_apply_plain`, differentiable without
-    ``x2`` / ``mlp`` / halo rows; launches the CUDA kernels on a CUDA tensor.
-    Real halo rows take the float32 tile."""
+    ``x2`` / ``mlp`` (the halo rows too: their cotangents go back to
+    ``halo.top`` / ``halo.bot``); launches the CUDA kernels on a CUDA
+    tensor. Real halo rows take the float32 kernels."""
     m = (None,) * 6 if mlp is None else tuple(mlp)
+    htop, hbot, edges = _halo_args(halo)
     return _SpectralApply.apply(x, comb, wqkv, wdw, x2, ln_w, ln_b, gate, shortcut, dp_scale,
-                                *m, (shift, bool(residual), eps), halo)
+                                *m, htop, hbot, (shift, bool(residual), eps, edges))
 
 
 # ---------------------------------------------------------------------------
@@ -1012,14 +1130,17 @@ def shard_halo(x, axis: Axis, x2=None) -> Halo:
 
 def spectral_attention_sharded(x, wqkv, wdw, temperature, wout, num_heads: int, axis: Axis,
                                x2=None, ln_w=None, ln_b=None, residual: bool = False, gate=None,
-                               shortcut=None, mlp=None, eps: float = 1e-5):
+                               shortcut=None, mlp=None, eps: float = 1e-5, dp_scale=None):
     """The spectral attention of a map whose rows are split over ``axis``
     (counterpart of ``fused_spectral_attention_sharded``,
     ``mp_hsir_tpu/ops/pallas_attention.py:2148``): this shard's halo rows,
     its stats launch with them, the Gram and norm sums added over the axis,
     the fold, then its apply launch with the same halo rows and the
     epilogue. x is this shard's rows in the unrolled frame (shift 0); the
-    options are :func:`spectral_apply`'s. Returns this shard's rows."""
+    options are :func:`spectral_apply`'s. Returns this shard's rows.
+    Differentiable (the training route, without x2 / mlp): the halo rows'
+    cotangents go back to the neighbour shards through the exchange that
+    brought them, the sums' through their psum."""
     halo = shard_halo(x, axis, x2)
     gram, nq, nk = spectral_stats(x, wqkv, wdw, num_heads, x2=x2, ln_w=ln_w, ln_b=ln_b, eps=eps,
                                   halo=halo)
@@ -1028,4 +1149,5 @@ def spectral_attention_sharded(x, wqkv, wdw, temperature, wout, num_heads: int, 
     nq, nk = (t.reshape(b, num_heads, -1) for t in sums[:, n_g:].chunk(2, dim=1))
     comb = spectral_fold(sums[:, :n_g].reshape(gram.shape), nq, nk, temperature, wout)
     return spectral_apply(x, comb, wqkv, wdw, x2=x2, ln_w=ln_w, ln_b=ln_b, residual=residual,
-                          gate=gate, shortcut=shortcut, mlp=mlp, eps=eps, halo=halo)
+                          gate=gate, shortcut=shortcut, mlp=mlp, eps=eps, dp_scale=dp_scale,
+                          halo=halo)

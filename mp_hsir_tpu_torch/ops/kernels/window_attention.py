@@ -68,6 +68,8 @@ BWD = counter("window_attention_bwd")
 # the launches on a row shard with its region labels:
 # ("window_attention_shard", B, H, W, C, heads, dtype)
 SHARD = counter("window_attention_shard")
+# the backward launches on a row shard, masked by its region labels
+SHARD_BWD = counter("window_attention_bwd_shard")
 
 
 @lru_cache(maxsize=32)
@@ -124,10 +126,11 @@ def _window_mask(labels):
 
 
 def window_attention_bwd_plain(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift,
-                               eps, dout, dpool):
+                               eps, dout, dpool, region=None):
     """Explicit VJP of :func:`window_attention_plain` at cotangents (dout in
     the rolled frame, dpool): returns (dx, d ln_w, d ln_b, d wqkv, d bqkv,
-    d rel_bias, d wp, d bp), weight cotangents float32."""
+    d rel_bias, d wp, d bp), weight cotangents float32. ``region``: the
+    labels the forward masked by (a row shard's, at shift 0)."""
     b, h, w, c = x.shape
     dt = x.dtype
     dh = c // num_heads
@@ -140,8 +143,9 @@ def window_attention_bwd_plain(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_
     bw, n = qkv.shape[:2]
     q, k, v = qkv.reshape(bw, n, 3, num_heads, dh).permute(2, 0, 3, 1, 4)  # (Bw, nH, N, dh)
     s = (q @ k.transpose(-1, -2)) * scale + rel_bias.float()[None]
-    if shift:
-        mask = _window_mask(region_labels(h, w, shift, x.device))
+    labels = _labels(h, w, shift, x.device, region)
+    if labels is not None:
+        mask = _window_mask(labels)
         s = (s.reshape(b, -1, num_heads, n, n) + mask[None, :, None]).reshape(bw, num_heads, n, n)
     a = torch.softmax(s, dim=-1)
     ar = a.to(dt).float()
@@ -326,7 +330,7 @@ def _launch(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, eps, 
 
 
 def _bwd_tc_launch(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, eps, dout,
-                   dpool):
+                   dpool, region=None):
     """The bf16 backward: the two tiles, the two weight products and one
     in-order sum of the per-window partial rows (dS [nH][64][64] | bp [C] from
     tile 1, dbqkv [3C] | d ln_w | d ln_b from tile 2)."""
@@ -347,7 +351,7 @@ def _bwd_tc_launch(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift
         wrows = F.pad(wrows, (0, -c % 8))
     wrows = wrows.contiguous()
     lnw, lnb, bq, bias = f32(ln_w), f32(ln_b), f32(bqkv), f32(rel_bias)
-    labels = region_labels(h, w, shift, x.device) if shift else None
+    labels = _labels(h, w, shift, x.device, region)
     dev = x.device
     n_win = b * (h // WS) * (w // WS)
     nb = num_heads * 64 * 64
@@ -370,14 +374,21 @@ def _bwd_tc_launch(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift
     dwp = wgrad(o.reshape(-1, c), dyt.reshape(-1, c)).t()
     sums = sum_parts(part)[0]
     dbias, dbp, dbqkv, dlnw, dlnb = sums.split([nb, c, 3 * c, c, c])
-    BWD.record(("window_attention_bwd", b, h, w, c, num_heads, shift, str(dt)))
+    _record_bwd(b, h, w, c, num_heads, shift, dt, region)
     return dx, dlnw, dlnb, dwqkv, dbqkv, dbias.reshape(num_heads, 64, 64), dwp, dbp
 
 
-def _bwd_launch(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, eps, dout, dpool):
+def _record_bwd(b, h, w, c, num_heads, shift, dt, region):
+    BWD.record(("window_attention_bwd", b, h, w, c, num_heads, shift, str(dt)))
+    if region is not None:
+        SHARD_BWD.record(("window_attention_bwd_shard", b, h, w, c, num_heads, str(dt)))
+
+
+def _bwd_launch(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, eps, dout, dpool,
+                region=None):
     if x.dtype == torch.bfloat16:
         return _bwd_tc_launch(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, eps,
-                              dout, dpool)
+                              dout, dpool, region)
     b, h, w, c = x.shape
     dt = x.dtype
     kc = _build.chunk("mp_window_attention_bwd_chunk", c, num_heads)
@@ -387,7 +398,7 @@ def _bwd_launch(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, e
     dout, dpool = dout.to(dt).contiguous(), dpool.to(dt).contiguous()
     wq, wpk = kernel_weight(wqkv, dt), kernel_weight(wp, dt)
     lnw, lnb, bq, bias = f32(ln_w), f32(ln_b), f32(bqkv), f32(rel_bias)
-    labels = region_labels(h, w, shift, x.device) if shift else None
+    labels = _labels(h, w, shift, x.device, region)
     dev = x.device
     n_win = b * (h // WS) * (w // WS)
     xn, o, dyt = (torch.empty_like(x) for _ in range(3))
@@ -406,7 +417,7 @@ def _bwd_launch(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads, shift, e
     dwp = wgrad(o.reshape(-1, c), dyt.reshape(-1, c)).t()
     dbias = sum_parts(pbias.unsqueeze(0))[0].reshape(num_heads, 64, 64)
     dbp = sum_parts(pbp.unsqueeze(0))[0]
-    BWD.record(("window_attention_bwd", b, h, w, c, num_heads, shift, str(dt)))
+    _record_bwd(b, h, w, c, num_heads, shift, dt, region)
     return dx, dlnw, dlnb, dwqkv, dbqkv, dbias, dwp, dbp
 
 
@@ -417,16 +428,12 @@ class _WindowAttention(torch.autograd.Function):
         out = (_launch if ctx.kernel else window_attention_plain)(
             x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, *cfg, region)
         ctx.cfg = cfg
-        ctx.shard = region is not None
-        ctx.save_for_backward(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp)
+        ctx.save_for_backward(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, region)
         return out
 
     @staticmethod
     def backward(ctx, dout, dpool):
-        if ctx.shard:
-            raise RuntimeError("window_attention: no backward for a row shard's region labels yet "
-                               "(the sharded train step comes later)")
-        saved = ctx.saved_tensors
+        *saved, region = ctx.saved_tensors
         x = saved[0]
         b, h, w, c = x.shape
         dout = grad_or_zeros(dout, x)
@@ -436,13 +443,14 @@ class _WindowAttention(torch.autograd.Function):
         else:
             ROUTE.count_plain_backward(x)
             fn = window_attention_bwd_plain
-        return (*fn(*saved, *ctx.cfg, dout, dpool), None, None)
+        return (*fn(*saved, *ctx.cfg, dout, dpool, region), None, None)
 
 
 def window_attention(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp, num_heads: int,
                      shift: int = 0, eps: float = 1e-5, region=None):
-    """Same contract as :func:`window_attention_plain`, differentiable
-    without ``region``; launches the CUDA kernels on a CUDA tensor."""
+    """Same contract as :func:`window_attention_plain`, differentiable (a
+    row shard's backward masks by the ``region`` labels its forward took);
+    launches the CUDA kernels on a CUDA tensor."""
     return _WindowAttention.apply(x, ln_w, ln_b, wqkv, bqkv, rel_bias, wp, bp,
                                   (num_heads, shift, eps), region)
 

@@ -14,8 +14,30 @@ Collectives (:func:`psum`, :func:`ring_next`, :func:`ring_prev`,
 :func:`edge_rows`, :func:`gather_rows`) move small tensors: a few rows, the
 spectral sums. Under NCCL they stay on the card; under gloo (ranks sharing
 a card, or the CPU) they run on host copies, which gloo takes for every
-collective. Each is one ``all_gather``, summed or picked in rank order, so
-every rank holds the same bits.
+collective (:func:`all_gather` makes them, the one place that does). Each
+is one ``all_gather``, summed or picked in rank order, so every rank holds
+the same bits; no collective uses ``send`` / ``recv`` (a CUDA tensor's
+``send`` aborts under gloo).
+
+They are differentiable, each an ``autograd.Function`` whose backward is
+the transpose JAX takes of ``psum`` / ``ppermute``, again one
+``all_gather``: psum's is the psum of the cotangent, ring_next's is
+ring_prev and back, edge_rows' adds the cotangent of ``above`` to member
+i-1's last rows and that of ``below`` to member i+1's first rows (never
+through the ring's wrap at an image edge, whose rows the forward's callers
+replace or ignore), gather_rows' is this member's block of the summed
+cotangent.
+
+A backward collective must run on every member whenever it runs on one,
+or the members whose run skips it wait for ever. That holds by
+construction: every member runs the same code on blocks of the same shape,
+so its graph holds the same collective nodes, created in the same order;
+every output of a collective feeds the member's loss on every member (the
+only outputs a caller drops are edge_rows' wrapped rows at an image edge,
+and with two or more members no member is at both edges, so the other
+output is used); and the autograd engine runs the nodes of one device in
+sequence-number order, the same on every member. Nothing collective
+happens in a hook or in data-dependent control flow.
 """
 
 from __future__ import annotations
@@ -28,6 +50,8 @@ import torch.distributed as dist
 
 DATA_AXIS = "data"
 SPATIAL_AXIS = "spatial"
+# every rank of the mesh, data x spatial (JAX's pmean over both axes)
+MESH_AXES = "data_spatial"
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -81,7 +105,9 @@ def make_mesh(data: int = 1, spatial: int = 1) -> Mesh:
     sp = group([[i * spatial + j for j in range(spatial)] for i in range(data)])
     dp = group([[i * spatial + j for i in range(data)] for j in range(spatial)])
     return Mesh(data, spatial, {SPATIAL_AXIS: Axis(SPATIAL_AXIS, s, spatial, sp, host),
-                                DATA_AXIS: Axis(DATA_AXIS, d, data, dp, host)})
+                                DATA_AXIS: Axis(DATA_AXIS, d, data, dp, host),
+                                MESH_AXES: Axis(MESH_AXES, rank, world,
+                                                dist.group.WORLD if world > 1 else None, host)})
 
 
 def axis_index(ax: Optional[Axis]) -> int:
@@ -103,27 +129,89 @@ def all_gather(t: torch.Tensor, ax: Axis) -> list:
     return [p.to(t.device) for p in parts] if ax.host else parts
 
 
-def psum(t: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:
-    """The sum of ``t`` over the axis, added in axis order (the same bits on
-    every member)."""
-    if axis_size(ax) == 1:
-        return t
-    parts = all_gather(t, ax)
+def _sum(parts: list) -> torch.Tensor:
+    """parts[0] + parts[1] + ..., added in axis order."""
     out = parts[0].clone()
     for p in parts[1:]:
         out += p
     return out
 
 
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, ax):
+        ctx.ax = ax
+        return _sum(all_gather(t, ax))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(all_gather(g, ctx.ax)), None
+
+
+class _Ring(torch.autograd.Function):
+    """Member i receives member i - step's t (around the ring)."""
+
+    @staticmethod
+    def forward(ctx, t, ax, step):
+        ctx.ax, ctx.step = ax, step
+        return all_gather(t, ax)[(ax.index - step) % ax.size]
+
+    @staticmethod
+    def backward(ctx, g):
+        ax = ctx.ax
+        return all_gather(g, ax)[(ax.index + ctx.step) % ax.size], None, None
+
+
+class _EdgeRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, rows):
+        ctx.ax, ctx.rows, ctx.shape = ax, rows, x.shape
+        parts = all_gather(torch.cat([x[:, :rows], x[:, -rows:]], dim=1), ax)
+        i, n = ax.index, ax.size
+        return parts[(i - 1) % n][:, rows:], parts[(i + 1) % n][:, :rows]
+
+    @staticmethod
+    def backward(ctx, d_above, d_below):
+        ax, rows = ctx.ax, ctx.rows
+        i, n = ax.index, ax.size
+        parts = all_gather(torch.cat([d_above, d_below], dim=1), ax)
+        dx = d_above.new_zeros(ctx.shape)
+        if i > 0:  # member i-1's below was this member's first rows
+            dx[:, :rows] += parts[i - 1][:, rows:]
+        if i < n - 1:  # member i+1's above was this member's last rows
+            dx[:, -rows:] += parts[i + 1][:, :rows]
+        return dx, None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.dim = ax, dim
+        return torch.cat(all_gather(x, ax), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        ax = ctx.ax
+        return _sum(all_gather(g, ax)).chunk(ax.size, dim=ctx.dim)[ax.index].contiguous(), None, None
+
+
+def psum(t: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:
+    """The sum of ``t`` over the axis, added in axis order (the same bits on
+    every member)."""
+    if axis_size(ax) == 1:
+        return t
+    return _Psum.apply(t, ax)
+
+
 def ring_next(t: torch.Tensor, ax: Axis) -> torch.Tensor:
     """``ppermute`` one step down the ring: member i receives member i-1's
     ``t`` (member 0 the last one's)."""
-    return all_gather(t, ax)[(ax.index - 1) % ax.size]
+    return _Ring.apply(t, ax, 1)
 
 
 def ring_prev(t: torch.Tensor, ax: Axis) -> torch.Tensor:
     """``ppermute`` one step up the ring: member i receives member i+1's."""
-    return all_gather(t, ax)[(ax.index + 1) % ax.size]
+    return _Ring.apply(t, ax, -1)
 
 
 def edge_rows(x: torch.Tensor, ax: Optional[Axis], rows: int = 1):
@@ -131,14 +219,12 @@ def edge_rows(x: torch.Tensor, ax: Optional[Axis], rows: int = 1):
     shard of x: (above: member i-1's last rows, below: member i+1's first
     rows, top edge, bottom edge), the edge flags true where this shard
     holds the image's first / last row. At an edge the ring's wrapped rows
-    stand in (the flag says they are not the image's). One all_gather."""
+    stand in (the flag says they are not the image's; the backward sends
+    nothing through the wrap). One all_gather."""
     if axis_size(ax) == 1:
         return x[:, -rows:], x[:, :rows], True, True
-    parts = all_gather(torch.cat([x[:, :rows], x[:, -rows:]], dim=1), ax)
-    i, n = ax.index, ax.size
-    above = parts[(i - 1) % n][:, rows:]
-    below = parts[(i + 1) % n][:, :rows]
-    return above, below, i == 0, i == n - 1
+    above, below = _EdgeRows.apply(x, ax, rows)
+    return above, below, ax.index == 0, ax.index == ax.size - 1
 
 
 def gather_rows(x: torch.Tensor, ax: Optional[Axis], dim: int = 1) -> torch.Tensor:
@@ -146,7 +232,24 @@ def gather_rows(x: torch.Tensor, ax: Optional[Axis], dim: int = 1) -> torch.Tens
     in axis order."""
     if axis_size(ax) == 1:
         return x
-    return torch.cat(all_gather(x, ax), dim=dim)
+    return _GatherRows.apply(x, ax, dim)
+
+
+def pmean_(tensors: list, ax: Optional[Axis]) -> None:
+    """JAX's ``pmean`` of each tensor over the axis, in place, as one
+    flattened float32 bucket: one all_gather, the members' buckets added in
+    axis order and divided by the size, so every member holds the same
+    bits. Outside autograd (the train step's gradients and loss)."""
+    n = axis_size(ax)
+    if n == 1 or not tensors:
+        return
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    flat = _sum(all_gather(flat, ax)) / n
+    o = 0
+    for t in tensors:
+        k = t.numel()
+        t.copy_(flat[o:o + k].view_as(t))
+        o += k
 
 
 def _src(ax: Axis) -> int:

@@ -8,9 +8,13 @@ backward through the kernels' backward launches, then AdamW (0.9, 0.999,
 eps 1e-8, decoupled weight decay) at the linear-warmup cosine learning rate.
 With ``grad_accum`` = k the gradients of k micro-steps are averaged and the
 optimizer updates on every k-th, as ``optax.MultiSteps`` does; the schedule
-runs in optimizer updates (``trainer.py:55``). :func:`make_eval_step` is the
-inference step, on one device or over a (data, spatial) mesh; the sharded
-train step is later work.
+runs in optimizer updates (``trainer.py:55``). :func:`make_train_step` is
+the same step over a (data, spatial) mesh of ranks (JAX's SPMD step):
+each rank takes its block of the global batch, the model runs on its rows
+with the spatial axis, and the gradients and the loss are averaged over
+every rank before the update, so the parameters stay bitwise equal across
+ranks. :func:`make_eval_step` is the inference step, on one device or over
+a mesh.
 """
 
 from __future__ import annotations
@@ -23,7 +27,8 @@ from mp_hsir_tpu_torch import resolve_device
 from mp_hsir_tpu_torch.config import ModelConfig, TrainConfig
 from mp_hsir_tpu_torch.models.mp_hsir import MPHSIRNet, build_model
 from mp_hsir_tpu_torch.parallel.mesh import (
-    DATA_AXIS, SPATIAL_AXIS, Mesh, axis_index, axis_size, gather_rows,
+    DATA_AXIS, MESH_AXES, SPATIAL_AXIS, Mesh, axis_index, axis_size, broadcast, gather_rows,
+    pmean_,
 )
 from mp_hsir_tpu_torch.training import losses
 from mp_hsir_tpu_torch.training.schedules import linear_warmup_cosine_annealing
@@ -79,29 +84,114 @@ def create_train_state(cfg: ModelConfig, tc: TrainConfig, seed: int | None = Non
     return TrainState(model, opt, make_schedule(tc), max(tc.grad_accum, 1))
 
 
-def train_step(state: TrainState, batch: dict, generator: torch.Generator | None = None
-               ) -> torch.Tensor:
+def train_step(state: TrainState, batch: dict, generator: torch.Generator | None = None,
+               axis=None, mean_axis=None) -> torch.Tensor:
     """One micro-step on ``batch`` (``degraded``, ``clean`` (B, C, H, W)
     float32, ``task_id`` (B,)); returns the loss (a 0-dim tensor on the
     model's device, not synchronised). Updates on every ``grad_accum``-th
-    call."""
+    call. ``axis``: the batch is a row shard over the spatial mesh axis;
+    ``mean_axis``: the gradients (before each update) and the returned loss
+    are averaged over it (JAX's ``pmean``; the loss then synchronises)."""
     model = state.model
-    pred = model(batch["degraded"], batch["task_id"], generator)
+    pred = model(batch["degraded"], batch["task_id"], generator, axis=axis)
     loss = losses.l1_clamped(pred, batch["clean"])
     loss.backward()
     state.step += 1
     if state.step % state.grad_accum == 0:
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        pmean_(grads, mean_axis)
         if state.grad_accum > 1:
-            for p in model.parameters():
-                if p.grad is not None:
-                    p.grad.div_(state.grad_accum)
+            for g in grads:
+                g.div_(state.grad_accum)
         state.last_lr = float(state.schedule(state.updates))
         for group in state.optimizer.param_groups:
             group["lr"] = state.last_lr
         state.optimizer.step()
         state.optimizer.zero_grad(set_to_none=True)
         state.updates += 1
-    return loss.detach()
+    loss = loss.detach()
+    if axis_size(mean_axis) > 1:
+        loss = loss.clone()
+        pmean_([loss], mean_axis)
+    return loss
+
+
+def fold_seed(seed: int, data_index: int) -> int:
+    """The drop-path seed of data group ``data_index`` (JAX's ``fold_in`` of
+    the data index, ``trainer.py:108``): the seed itself for group 0, so
+    that a 1 x N mesh draws what one rank draws."""
+    return seed if data_index == 0 else hash((seed, data_index)) & 0x7FFFFFFF
+
+
+def batch_block(batch: dict, mesh: Mesh | None) -> dict:
+    """This rank's block of a global batch: its data group's samples and
+    its spatial member's rows (B % data and H % spatial checked)."""
+    if mesh is None:
+        return batch
+    sp, dp = mesh.axis(SPATIAL_AXIS), mesh.axis(DATA_AXIS)
+    b, h = batch["degraded"].shape[0], batch["degraded"].shape[2]
+    nb, nh = b // axis_size(dp), h // axis_size(sp)
+    if nb * axis_size(dp) != b or nh * axis_size(sp) != h:
+        raise ValueError(f"a batch of {b} x {h} rows does not split over the "
+                         f"{axis_size(dp)} x {axis_size(sp)} mesh")
+    b0, r0 = axis_index(dp) * nb, axis_index(sp) * nh
+    return {"degraded": batch["degraded"][b0:b0 + nb, :, r0:r0 + nh].contiguous(),
+            "clean": batch["clean"][b0:b0 + nb, :, r0:r0 + nh].contiguous(),
+            "task_id": batch["task_id"][b0:b0 + nb]}
+
+
+def sync_parameters(state: TrainState, mesh: Mesh | None) -> None:
+    """Rank 0's parameters on every rank of the mesh (a seeded init or a
+    checkpoint read by each rank then starts bitwise equal everywhere)."""
+    ax = None if mesh is None else mesh.axis(MESH_AXES)
+    if axis_size(ax) == 1:
+        return
+    with torch.no_grad():
+        for p in state.model.parameters():
+            p.copy_(broadcast(p, ax))
+
+
+def make_train_step(mc: ModelConfig, tc: TrainConfig, mesh: Mesh | None = None):
+    """The train step ``step(state, batch, seed) -> loss`` over ``mesh``
+    (counterpart of ``make_train_step(mc, mesh)``,
+    ``mp_hsir_tpu/training/trainer.py:75-138``). Every rank calls it with
+    the same global batch and seed: it keeps its (data, spatial) block
+    (:func:`batch_block`), runs the model on its rows with the spatial axis,
+    the local L1 on its block, then averages the gradients and the loss over
+    data x spatial (:func:`~mp_hsir_tpu_torch.parallel.mesh.pmean_`: one
+    flattened bucket, the same bits on every rank) before AdamW. The
+    drop-path generator is seeded with :func:`fold_seed` of the data index:
+    the same on the spatial members of a data group. Each shard must hold
+    whole 8 x 8 windows at the deepest level (its rows a multiple of 32).
+    ``mc`` is the model's configuration; float32 where the spatial axis has
+    more than one member (the bf16 tiles take no halo rows yet). ``tc``'s
+    batch and patch size are checked against the mesh here."""
+    sp = None if mesh is None else mesh.axis(SPATIAL_AXIS)
+    dp = None if mesh is None else mesh.axis(DATA_AXIS)
+    every = None if mesh is None else mesh.axis(MESH_AXES)
+    if axis_size(sp) > 1 and mc.compute_dtype != "float32":
+        raise ValueError(f"a spatial mesh of {axis_size(sp)} trains in float32: the bf16 halo "
+                         "rows of the spectral tiles and their backward are the next slice of "
+                         "the port")
+    if tc.batch_size % axis_size(dp) or tc.patch_size % (32 * axis_size(sp)):
+        raise ValueError(f"batch {tc.batch_size} x {tc.patch_size} rows does not split over the "
+                         f"{axis_size(dp)} x {axis_size(sp)} mesh into whole 8 x 8 windows at "
+                         "the deepest level (the batch a multiple of data, the patch of 32 x "
+                         "spatial)")
+
+    def step(state: TrainState, batch: dict, seed: int) -> torch.Tensor:
+        if state.model.cfg != mc:
+            raise ValueError("the model's configuration is not the step's")
+        block = batch_block(batch, mesh)
+        h = block["degraded"].shape[2]
+        if h % 32:
+            raise ValueError(f"a shard of {h} rows does not hold whole 8 x 8 windows at the "
+                             f"deepest level (rows / 4 = {h / 4}); use fewer spatial ranks")
+        dev = block["degraded"].device
+        gen = torch.Generator(device=dev).manual_seed(fold_seed(seed, axis_index(dp)))
+        return train_step(state, block, gen, axis=sp, mean_axis=every)
+
+    return step
 
 
 def make_eval_step(mc: ModelConfig, mesh: Mesh | None = None):

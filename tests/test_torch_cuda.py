@@ -1103,6 +1103,113 @@ def test_cuda_spectral_halo_check_sees_swapped_rows():
         assert (got[0] - ref[0]).abs().max().item() > 1e-4 * ref[0].abs().max().item()
 
 
+# The float32 spectral backwards (K10a / K10b) on row shards with their halo
+# rows: each shard's halo cotangents and weight gradients against the plain
+# backward, the shards composed against the unsharded kernel backward.
+HALO_BWD_CASES = [(kind, c, n) for kind in ("stats", "stats_ln", "apply_ln_residual",
+                                            "apply_gate_dp", "apply_dp")
+                  for c in (64, 36) for n in (2, 4)]
+# the flagship step's latent calls: batch 8 of 16 x 16 at C = 256, two shards
+# of one tile row each (a shifted block's apply takes drop-path alone)
+HALO_BWD_LATENT = [("stats", 256, 2), ("apply_gate_dp", 256, 2), ("apply_dp", 256, 2)]
+
+
+def _halo_bwd_call(kind, c, dev, b=2, h=32, w=24, heads=2):
+    """(backward launch, plain backward, args before the halo) of one
+    float32 whole-map backward call of the kind, numpy-seeded."""
+    from mp_hsir_tpu_torch.ops.kernels import spectral as sp
+
+    r = _rng(70 + c + len(kind))
+    f = lambda *shape, s=1.0: _t(_n(r, shape, s)).to(dev)  # noqa: E731
+    wq = _t(_u(r, (3 * c, c, 1, 1), c)).to(dev)
+    wd = _t(_u(r, (3 * c, 1, 3, 3), 9)).to(dev)
+    ln = "ln" in kind
+    lnw, lnb = (1 + f(c, s=0.1), f(c, s=0.1)) if ln else (None, None)
+    x = f(b, h, w, c)
+    if kind.startswith("stats"):
+        dh = c // heads
+        args = (x, wq, wd, heads, 0, lnw, lnb, 1e-5, f(b, c, dh, s=1e-3), f(b, heads, dh, s=1e-3),
+                f(b, heads, dh, s=1e-3))
+        return sp._stats_bwd_launch, sp.spectral_stats_bwd_plain, args
+    gate, dp = kind.endswith("gate_dp"), kind.endswith("dp")
+    args = (x, f(b, c, c, s=c ** -0.5), wq, wd, 0, lnw, lnb, not dp,
+            f(b, h // 8, w // 8, c, s=0.5) if gate else None,
+            torch.tensor([1.25, 0.0] * (b // 2), device=dev) if dp else None, 1e-5,
+            f(b, h, w, c))
+    return sp._apply_bwd_launch, sp.spectral_apply_bwd_plain, args
+
+
+def _halo_bwd_shard(args, n, i, edges):
+    """Shard i of n of a backward call: its rows of x, the gate and dy, the
+    halo rows with the given edge flags; the rows (r0, r1)."""
+    from mp_hsir_tpu_torch.ops.kernels.spectral import Halo
+
+    x = args[0]
+    h = x.shape[1]
+    r0, r1 = i * h // n, (i + 1) * h // n
+    a = list(args)
+    a[0] = x[:, r0:r1].contiguous()
+    if len(args) == 12:  # the apply's gate and dy
+        a[8] = None if args[8] is None else args[8][:, r0 // 8:r1 // 8].contiguous()
+        a[11] = args[11][:, r0:r1].contiguous()
+    halo = Halo(x[:, (r0 - 1) % h][:, None], x[:, r1 % h][:, None], *edges)
+    return a + [halo], (r0, r1)
+
+
+def _halo_bwd_compose(outs, rows, h):
+    """The shards' backward outputs as the whole call's: dx stacked with each
+    shard's halo cotangents added to the neighbours' rows, the weight
+    gradients (and the apply's d comb and d dp) summed, the apply's d gate
+    and d shortcut stacked."""
+    dx = torch.cat([o[0] for o in outs], dim=1)
+    for o, (r0, r1) in zip(outs, rows):
+        if o[-2] is not None:
+            dx[:, r0 - 1] += o[-2][:, 0]
+        if o[-1] is not None:
+            dx[:, r1] += o[-1][:, 0]
+    res = [dx]
+    stacked = (6, 7) if len(outs[0]) == 11 else ()
+    for k in range(1, len(outs[0]) - 2):
+        parts = [o[k] for o in outs]
+        if parts[0] is None:
+            res.append(None)
+        elif k in stacked:
+            res.append(torch.cat(parts, dim=1))
+        else:
+            res.append(torch.stack(parts).sum(dim=0))
+    return res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,c,n,shape", [k + ((2, 32, 24, 2),) for k in HALO_BWD_CASES]
+                         + [k + ((8, 16, 16, 8),) for k in HALO_BWD_LATENT])
+def test_cuda_spectral_f32_halo_backward_matches_plain(kind, c, n, shape):
+    """Each shard's float32 backward with its halo rows (the kernel's dx, d
+    top, d bottom and weight gradients) against the plain backward within
+    1e-4 of each output's max-abs, at every edge-flag combination, one
+    halo-counted launch where a row is real; the shards at their true edge
+    flags composed (halo cotangents folded into the neighbours' rows,
+    weight gradients summed) within 1e-4 of the unsharded kernel backward."""
+    dev = _cuda()
+    b, h, w, heads = shape
+    kern, plain, args = _halo_bwd_call(kind, c, dev, b, h, w, heads)
+    name = "spectral_stats_bwd" if kind.startswith("stats") else "spectral_apply_bwd"
+    outs, rows = [], []
+    for i in range(n):
+        for edges in HALO_EDGES:
+            a, _ = _halo_bwd_shard(args, n, i, edges)
+            _route.reset_counters()
+            got = kern(*a)
+            assert _route.COUNTERS[name + "_halo"].launches == int(edges != (True, True))
+            _outputs_close(got, plain(*a), 1e-4, f"{kind} shard {i}/{n} {edges}")
+        a, rr = _halo_bwd_shard(args, n, i, (i == 0, i == n - 1))
+        outs.append(kern(*a))
+        rows.append(rr)
+    whole = kern(*args)
+    _outputs_close(_halo_bwd_compose(outs, rows, args[0].shape[1]), whole[:len(whole) - 2],
+                   1e-4, f"{kind} composed")
+
+
 @pytest.mark.cuda
 def test_cuda_spectral_bf16_halo_raises():
     """The bf16 tiles take no real halo rows yet: a clear ValueError before

@@ -7,7 +7,8 @@ shortcut, the PromptFusion entry); the sharded ops, the tiny model and the
 eval CLI over gloo ranks spawned on this machine (three spawned runs)
 against the unsharded port and the JAX package; the rank -> card mapping.
 The halo tiles themselves are held to these plain versions on the card
-(tests/test_torch_cuda.py, chip_smoke.py phase 15)."""
+(tests/test_torch_cuda.py, chip_smoke.py phase 15). The sharded train
+step's backward is tests/test_torch_mesh_train.py's."""
 
 import numpy as np
 import pytest
@@ -127,16 +128,23 @@ def test_spectral_fold_matches_jax_sharded_fold():
 
 def test_halo_options_the_wrappers_refuse():
     """Halo rows take shift 0 (a shard is read in its own frame); on the CPU
-    the wrappers run the plain versions, which hold to that; no backward
-    runs through halo rows yet."""
+    the wrappers run the plain versions, which hold to that. The backward
+    through halo rows: the wrapper's explicit backward (the halo
+    cotangents of K10b's plain version) == autograd through the plain
+    forward, for x and both halo rows."""
     d = _shard(13, 16, 2)
     halo = _halo(d, (False, False))
     with pytest.raises(ValueError, match="shift 0"):
         spectral_stats(tensor(d["x"]), d["wqkv_t"], d["wdw_t"], 2, shift=4, halo=halo)
-    x = tensor(d["x"]).requires_grad_()
-    y = spectral_apply(x, tensor(d["comb"]), d["wqkv_t"], d["wdw_t"], halo=halo)
-    with pytest.raises(RuntimeError, match="halo rows"):
-        y.sum().backward()
+    cot = tensor(rng(16).standard_normal(d["x"].shape))
+    grads = []
+    for fn in (spectral_apply, spectral_apply_plain):
+        x, top, bot = (tensor(d[k]).requires_grad_() for k in ("x", "top", "bot"))
+        y = fn(x, tensor(d["comb"]), d["wqkv_t"], d["wdw_t"], halo=Halo(top, bot, False, False))
+        (y * cot).sum().backward()
+        grads.append([t.grad for t in (x, top, bot)])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
 
 def test_edge_rows_are_zero_after_the_layernorm():

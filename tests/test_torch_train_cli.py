@@ -274,13 +274,58 @@ def test_cli_end_to_end_and_resume(rs_store, tmp_path):
 
 
 def test_cli_refuses_mesh_and_missing_card(rs_store, tmp_path):
-    with pytest.raises(SystemExit, match="mesh"):
-        train_cli.main(["--db_path", rs_store, "--mesh_data", "2"])
-    with pytest.raises(SystemExit, match="mesh"):
+    """bf16 (the default) with --mesh_spatial 2 raises, naming the next
+    slice (its halo tiles); without a card the default device raises, on
+    one rank and before a mesh spawns its ranks."""
+    with pytest.raises(SystemExit, match="mesh_spatial 2 trains in float32.*next slice"):
         train_cli.main(["--db_path", rs_store, "--mesh_spatial", "2"])
+    with pytest.raises(SystemExit, match="at least 1"):
+        train_cli.main(["--db_path", rs_store, "--mesh_data", "0"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             train_cli.main(["--db_path", rs_store, "--ckpt_dir", str(tmp_path)])
+        with pytest.raises(RuntimeError, match="cuda"):
+            train_cli.main(["--db_path", rs_store, "--mesh_data", "2", "--ckpt_dir",
+                            str(tmp_path)])
+
+
+@pytest.fixture(scope="module")
+def rs_store64(tmp_path_factory):
+    """4 seeded 100-band 64x64 patches (two row shards of 32 rows each)."""
+    path = tmp_path_factory.mktemp("rs_store64")
+    rng = np.random.default_rng(2)
+    with PatchStoreWriter(str(path)) as w:
+        for i in range(4):
+            w.add(rng.random((100, 64, 64)).astype(np.float32), f"WDC_{i}.mat")
+    return str(path)
+
+
+@pytest.mark.parametrize("mesh", [("--mesh_data", "2"), ("--mesh_spatial", "2")],
+                         ids=["data2", "spatial2"])
+def test_cli_mesh_matches_one_rank(mesh, rs_store, rs_store64, tmp_path, monkeypatch):
+    """The CLI on a 2 x 1 or 1 x 2 mesh (two gloo ranks it spawns on the
+    CPU, float32, 2 steps) against one rank on the same store and seed: the
+    same logged steps, the parameters bitwise equal on both ranks at the
+    end, rank 0's checkpoint and npz. 1 x 2: the losses within 1e-4 of one
+    rank's (the same samples and drop-path draws, rows split). 2 x 1: each
+    data group draws its own drop-path scales (the seed folded by its
+    index, as JAX folds its key), so the losses are those of other masks:
+    within 1e-2 of one rank's."""
+    for k, v in torch_threads.SUBPROCESS_ENV.items():  # the spawned ranks: one thread each
+        if k.endswith("_NUM_THREADS"):
+            monkeypatch.setenv(k, v)
+    spatial = mesh[0] == "--mesh_spatial"
+    store = rs_store64 if spatial else rs_store
+    extra = ["--epochs", "1"] + (["--patch_size", "64"] if spatial else [])
+    one = train_cli.main(_cli(store, tmp_path / "one", *extra))
+    two = train_cli.main(_cli(store, tmp_path / "two", *extra, *mesh))
+    assert [r["step"] for r in two["losses"]] == [r["step"] for r in one["losses"]] == [1, 2]
+    np.testing.assert_allclose([r["train_loss"] for r in two["losses"]],
+                               [r["train_loss"] for r in one["losses"]],
+                               atol=1e-4 if spatial else 1e-2, rtol=0)
+    assert two["same_params"] and two["mesh"] == ((1, 2) if spatial else (2, 1))
+    assert [p.rsplit("/", 1)[-1] for p in two["checkpoints"]] == ["step_00000002"]
+    assert (tmp_path / "two" / "params_final.npz").exists()
 
 
 def test_cli_flags_are_train_py_s():

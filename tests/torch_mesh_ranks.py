@@ -61,3 +61,133 @@ def model_rank(info, cfg, state, x, tid):
     step = make_eval_step(cfg, make_mesh(1, info.world_size))
     out = step(model, torch.as_tensor(x), torch.as_tensor(np.asarray(tid)))
     return out.numpy() if info.rank == 0 else None
+
+
+def _sum_over(t, ax):
+    """The sum of a tensor over the axis's members, in axis order."""
+    from mp_hsir_tpu_torch.parallel.mesh import all_gather
+
+    return torch.stack(all_gather(t, ax)).sum(dim=0)
+
+
+def collective_grads_rank(info, x, w_conv, ca, sp, cots):
+    """Each differentiable collective's backward on this rank's rows: the
+    loss is the sum over ranks of each rank's sum(out * cot) over its rows
+    (gather_rows: over the whole gathered map on every rank). Returns rank
+    0's view: the input's gradient gathered over the rows and the weight
+    gradients summed over the ranks."""
+    from mp_hsir_tpu_torch.models.layers import CrossAttention, _on_extended_rows
+    from mp_hsir_tpu_torch.ops.conv import conv2d
+    from mp_hsir_tpu_torch.ops.kernels.spectral import spectral_attention_sharded
+    from mp_hsir_tpu_torch.ops.window import roll_hw
+
+    ax = make_mesh(1, info.world_size).axis(SPATIAL_AXIS)
+
+    def rows(a, dim=1):
+        a = torch.as_tensor(a)
+        n = a.shape[dim] // ax.size
+        return a.narrow(dim, ax.index * n, n).contiguous()
+
+    out = {}
+
+    def grad_of(name, fn, *inputs, whole=False):
+        leaves = [rows(a).requires_grad_() for a in inputs]
+        y = fn(*leaves)
+        c = torch.as_tensor(cots[name]) if whole else rows(cots[name])
+        (y * c).sum().backward()
+        for i, leaf in enumerate(leaves):
+            out[f"{name}.dx{i}"] = gather_rows(leaf.grad, ax)
+
+    for sh in (-4, 4):
+        grad_of(f"roll{sh}", lambda t, sh=sh: roll_hw(t, sh, sh, ax), x)
+    w = torch.as_tensor(w_conv)
+    grad_of("conv", lambda t: conv2d(t, w, padding=1, axis=ax), x)
+    grad_of("extend", lambda t: _on_extended_rows(lambda u: conv2d(u, w, padding=1), t, ax), x)
+    grad_of("gather", lambda t: gather_rows(t, ax), x, whole=True)
+    layer = CrossAttention(ca["c"], 2)
+    layer.load_state_dict({k: torch.as_tensor(v) for k, v in ca["state"].items()})
+    grad_of("cross", lambda q, kv: layer(q, kv, axis=ax), ca["q"], ca["kv"])
+    for k, p in layer.named_parameters():
+        out[f"cross.{k}"] = _sum_over(p.grad, ax)
+    g = {k: torch.as_tensor(v).requires_grad_() for k, v in sp.items() if k != "x"}
+    grad_of("spectral", lambda t: spectral_attention_sharded(
+        t, g["wqkv"], g["wdw"], g["temp"], g["wout"], 2, ax, ln_w=g["ln_w"], ln_b=g["ln_b"],
+        residual=True), sp["x"])
+    for k, v in g.items():
+        out[f"spectral.{k}"] = _sum_over(v.grad, ax)
+    return {k: v.numpy() for k, v in out.items()} if info.rank == 0 else None
+
+
+def pgsstb_grads_rank(info, blocks, x, cot, dps):
+    """Each PGSSTB of ``blocks`` ((constructor kwargs, state) pairs) on the
+    training route on this rank's rows with drop-path scales ``dps``: loss
+    sum(y * cot) over its rows; returns rank 0's view: the parameter
+    gradients summed over the ranks, the input gradient gathered."""
+    from mp_hsir_tpu_torch.models.layers import PGSSTB
+
+    ax = make_mesh(1, info.world_size).axis(SPATIAL_AXIS)
+    n = x.shape[1] // ax.size
+    xs = torch.as_tensor(x)[:, ax.index * n:(ax.index + 1) * n].contiguous()
+    cs = torch.as_tensor(cot)[:, ax.index * n:(ax.index + 1) * n]
+    res = []
+    for kw, state in blocks:
+        blk = PGSSTB(**kw).train()
+        blk.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()})
+        xl = xs.clone().requires_grad_()
+        y = blk(xl, tuple(torch.as_tensor(d) for d in dps), ax)
+        (y * cs).sum().backward()
+        grads = {k: _sum_over(p.grad, ax).numpy() for k, p in blk.named_parameters()}
+        res.append((grads, gather_rows(xl.grad, ax).numpy()))
+    return res if info.rank == 0 else None
+
+
+def train_step_rank(info, cfg, tc, state, batches, seeds, keep_grads=False):
+    """``make_train_step(cfg, tc, mesh)`` on a data x spatial mesh (the
+    mesh's shape in ``tc``'s ``mesh`` entry: (data, spatial)), one step per
+    batch from the same parameters on every rank: rank 0's losses and
+    parameters, and whether every rank's parameters are bitwise rank 0's;
+    ``keep_grads``: the first step's averaged gradients too (the update's
+    learning rate is then irrelevant)."""
+    from mp_hsir_tpu_torch.models.mp_hsir import build_model
+    from mp_hsir_tpu_torch.parallel.mesh import MESH_AXES
+    from mp_hsir_tpu_torch.training.trainer import (
+        create_train_state, make_train_step, sync_parameters,
+    )
+
+    data, spatial = tc.pop("mesh")
+    mesh = make_mesh(data, spatial)
+    from mp_hsir_tpu_torch.config import TrainConfig
+
+    tcfg = TrainConfig(**tc)
+    model = build_model(cfg, "cpu", train=True)
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()})
+    st = create_train_state(cfg, tcfg, device="cpu", model=model)
+    sync_parameters(st, mesh)
+    step = make_train_step(cfg, tcfg, mesh)
+    grads = None
+    if keep_grads:  # capture the averaged gradients before the optimizer consumes them
+        opt_step = st.optimizer.step
+
+        def capture():
+            nonlocal grads
+            if grads is None:
+                grads = {k: p.grad.clone() for k, p in model.named_parameters()
+                         if p.grad is not None}
+            opt_step()
+
+        st.optimizer.step = capture
+    losses = []
+    for b, s in zip(batches, seeds):
+        batch = {k: torch.as_tensor(v) for k, v in b.items()}
+        batch["task_id"] = batch["task_id"].long()
+        losses.append(float(step(st, batch, s)))
+    params = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    flat = torch.cat([v.reshape(-1) for v in params.values()])
+    every = mesh.axis(MESH_AXES)
+    from mp_hsir_tpu_torch.parallel.mesh import all_gather
+
+    same = all(torch.equal(p, flat) for p in all_gather(flat, every)) if every else True
+    if info.rank:
+        return None
+    return dict(losses=losses, same=same, params={k: v.numpy() for k, v in params.items()},
+                grads=None if grads is None else {k: v.numpy() for k, v in grads.items()})
