@@ -224,7 +224,11 @@ Phases (any failure exits non-zero; no phase's error is caught):
     (1e-4 of max-abs), two planted faults (the halo rows swapped top for
     bottom; a top edge flag inverted) that must break that bound; each halo
     call of one shard of 2 timed beside the unsharded call, its plain
-    version and its bound, summed per sharded forward. (b) The eval CLI with
+    version and its bound, summed per sharded forward. The same in bf16
+    (the bf16 tiles with halo rows): each shard against its plain bf16
+    version (3e-2 of max-abs), the stats summed within 1e-4 of the
+    unsharded bf16 call, the apply shards stacked bitwise equal to it, the
+    two faults composed in breaking that bound. (b) The eval CLI with
     --mesh_spatial 2, two ranks sharing this card over gloo: the flagship
     (trained weights, mode 0, the two 512^2 x 31 quality cubes) and the
     remote-sensing preset (seeded weights, 256^2 x 100, mode 0), each
@@ -240,8 +244,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
     CLI check with one rank a card over NCCL (2 ranks, then one per card;
     rank r on card r), then the CLI under torchrun (2 processes) against the
     one-card stdout, then phase 16's 1 x 2 step with one rank a card.
-16. The row- and data-sharded float32 train step (--mesh_data N
-    --mesh_spatial M). (a) Every distinct float32 K10a / K10b call of the
+16. The row- and data-sharded train step (--mesh_data N --mesh_spatial
+    M). (a) Every distinct float32 K10a / K10b call of the
     flagship step (one card's whole-map backward at batch 8 x 31 x 64^2 on
     the trained weights, each call's inputs recorded in the sharded frame)
     cut into 2 and 4 row shards: each shard's kernel backward with its halo
@@ -252,7 +256,13 @@ Phases (any failure exits non-zero; no phase's error is caught):
     must break the bound (top and bottom cotangents folded into each
     other's rows, a cotangent sent through the ring's wrap at an edge, an
     inverted edge flag); shard 0 of 2 timed beside its plain version, the
-    unsharded call and its bound, summed per step. (b) The 1 x 2 float32
+    unsharded call and its bound, summed per step; then every distinct
+    bf16 call of the flagship bf16 step at batch 32 the same way (per shard
+    3e-2 of max-abs off plain bf16; composed within 1e-2 of the unsharded
+    bf16 kernel backward with dx held row by row; the three faults composed
+    in, each 3 times the call's own composition error and above 1e-3;
+    every call is checked and logged before a failure).
+    (b) The 1 x 2 float32
     step, two ranks sharing this card over gloo, batch 8, trained weights,
     drop-path on: gradients (the one-rank plain step's loss cotangent)
     against the one-rank kernel step (1e-5 norm-wise per tensor) and the
@@ -262,10 +272,20 @@ Phases (any failure exits non-zero; no phase's error is caught):
     per step per rank (ranks sharing one card: not a multi-card figure).
     (c) The 2 x 1 data mesh (drop-path off): float32 gradients against one
     rank (1e-5), then 3 bf16 steps at batch 32 with finite losses and their
-    ms. (d) The remote-sensing train CLI, float32, --mesh_spatial 2 on
-    phase 13's store (batch 8, 4 steps): losses within 1e-4 of the one-rank
-    CLI's, the parameters equal across the ranks. --mesh-train runs phase 1
-    and only phase 16.
+    ms. (d) The remote-sensing train CLI, --mesh_spatial 2 on phase 13's
+    store (batch 8, 4 steps), float32 and then bf16 (its default): losses
+    within 1e-4 (float32) / 1e-3 (bf16) of the one-rank CLI's, the
+    parameters equal across the ranks. (e) The bf16 1 x 2 step, two ranks
+    sharing this card over gloo, batch 32, trained weights, drop-path on:
+    gradients against the one-rank bf16 kernel step (every tensor
+    concatenated 2e-2 norm-wise; per tensor 3e-2 or ten times the tensor's
+    one-rank bf16 distance from float32, the larger); per rank per step
+    24 + 24 bf16 halo forward launches, 24 + 24 halo backward launches and
+    11 window backwards with region labels, no plain call; the parameters bitwise
+    equal across the ranks after 3 AdamW steps and after 20; the loss over
+    the 20 steps falls; ms per step per rank (not a multi-card figure).
+    --mesh-cards runs (e) with one rank a card over NCCL too. --mesh-train
+    runs phase 1 and only phase 16.
 17. The kernel summary line (each kernel's main-path numbers, its
     remote-sensing train-step numbers and the train and eval CLIs' launches
     beside them; the float32 tail tile's row: phase 14's launches, phase 2's
@@ -274,7 +294,9 @@ Phases (any failure exits non-zero; no phase's error is caught):
     apply and GDFN tiles' rows: phase 14's launches (one per call of their
     kernel), phase 2's float32 ms per flagship forward (the apply tile's:
     its fronts), alone, plain, bound and library, phase 7's remote-sensing
-    float32 sums), then the result line.
+    float32 sums; the four bf16 halo instances: phase 16 (e)'s launches,
+    phase 15 (a)'s bf16 ms per sharded forward and phase 16 (a)'s bf16 ms
+    per sharded step), then the result line.
 
 --bwd-split KERNEL (mlp_bwd, spectral_stats_bwd, window_attention_bwd,
 spectral_apply_bwd or gdfn_bwd; repeatable) runs phase 1's build and only
@@ -2570,19 +2592,34 @@ def errs(got, ref) -> tuple:
     return max(e for e, _ in pairs), max(e / s for e, s in pairs)
 
 
-def halo_tile_checks(dev, card: str) -> dict:
-    """Phase 15 (a): every distinct float32 stats and apply call of the
-    flagship forward (phase 2's shapes, read in the unrolled frame) cut into
-    2 and 4 row shards, each shard launched with its halo rows: against its
-    plain version (phase 2's float32 tolerance), the shards composed (stats
-    summed in rank order, apply stacked) against the unsharded kernel call
-    (1e-4 of max-abs), a planted fault on shard 1 of 4 (the halo rows
-    swapped) and on shard 0 (its top edge flag inverted) that must break the
-    bound; each halo call of 2 timed beside its unsharded call."""
+def bf16_bound_ms(byts, flops) -> float:
+    """A bf16 call's bound: its bytes at the HBM rate or its products at the
+    bf16 tensor-core rate, the larger."""
+    return max(byts / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+
+
+def halo_tile_checks(dev, card: str, dt=torch.float32) -> dict:
+    """Phase 15 (a): every distinct stats and apply call of the flagship
+    forward in ``dt`` (phase 2's shapes, read in the unrolled frame) cut
+    into 2 and 4 row shards, each shard launched with its halo rows: against
+    its plain version (phase 2's tolerance of the type), the shards composed
+    (stats summed in rank order, apply stacked) against the unsharded kernel
+    call (1e-4 of max-abs; bf16's apply stacked bitwise: each pixel's
+    arithmetic is the unsharded tile's), an apply shard with its gates
+    expanded to a per-pixel gate map (a shifted block's operand on the mesh)
+    bitwise the shard with per-window gates, a planted fault on shard 1 of 4
+    (the halo rows swapped) and on shard 0 (its top edge flag inverted) that
+    must break the bound (the faulty shard composed with the others against
+    the unsharded call, above 1e-4); each halo call of 2 timed beside its
+    unsharded call."""
     from mp_hsir_tpu_torch.config import natural_scene_config
     from mp_hsir_tpu_torch.ops.kernels._route import plain_reference
+    from mp_hsir_tpu_torch.ops.kernels.spectral import _gate_map
 
-    specs = path_specs(natural_scene_config(), SIZE, "torch.float32")
+    bf16 = dt == torch.bfloat16
+    tol, bound = (BF16_TOL, bf16_bound_ms) if bf16 else (F32_TOL, f32_bound_ms)
+    specs = path_specs(natural_scene_config(compute_dtype="bfloat16" if bf16 else "float32"),
+                       SIZE, str(dt))
     calls = Counter()
     for spec, mult in specs.items():
         if spec[0] in ("spectral_stats", "spectral_apply"):
@@ -2592,7 +2629,7 @@ def halo_tile_checks(dev, card: str) -> dict:
     for key, mult in sorted(calls.items(), key=repr):
         full = key[:7] + (0,) + key[7:] if key[0] == "spectral_stats" else key[:6] + (0,) + key[6:]
         name = key[0]
-        fn, args, kw, _, byts, flops = make_call(full, dev, torch.float32)
+        fn, args, kw, _, byts, flops = make_call(full, dev, dt)
         kw.pop("shift")
         whole = fn(*args, **kw)
         row = dict(spec=full, calls=mult, shards={})
@@ -2604,23 +2641,29 @@ def halo_tile_checks(dev, card: str) -> dict:
                 with plain_reference():
                     ref = fn(*a, **k)
                 e_abs, e = errs(got, ref)
-                if not e <= F32_TOL:
+                if not e <= tol:
                     fail(f"{name} {full[1:]} shard {i} of {n} with halo rows: {e:.3e} of max-abs "
-                         f"off its plain version (bound {F32_TOL})")
+                         f"off its plain version (bound {tol})")
                 worst, worst_abs = max(worst, e), max(worst_abs, e_abs)
+                if "gate" in k and not torch.equal(
+                        fn(*a, **dict(k, gate=_gate_map(k["gate"], 0, a[0].shape[1]))), got):
+                    fail(f"{name} {full[1:]} shard {i} of {n}: a gate map's output differs from "
+                         "its per-window gates'")
                 outs.append(got)
             ce = errs(composed(name, outs), whole)[1]
-            if not ce <= F32_TOL:
+            cbound = 0.0 if bf16 and name == "spectral_apply" else F32_TOL  # bf16 apply: bitwise
+            if not ce <= cbound:
                 fail(f"{name} {full[1:]}: {n} shards composed differ from the unsharded kernel "
-                     f"call by {ce:.3e} of max-abs (bound {F32_TOL})")
+                     f"call by {ce:.3e} of max-abs (bound {cbound})")
             row["shards"][n] = dict(max_rel_err=worst, max_abs_err=worst_abs, composed_rel_err=ce)
         faults = {}
         for fault, (n, i) in (("swapped", (4, 1)), ("edge", (4, 0))):
             a, k = shard_call(args, kw, n, i, fault)
             got = fn(*a, **k)
-            with plain_reference():
-                ref = fn(*a, **shard_call(args, kw, n, i)[1])
-            faults[fault] = errs(got, ref)[1]
+            # composed with the other shards, against the unsharded call
+            outs = [got if j == i else fn(*shard_call(args, kw, n, j)[0],
+                                          **shard_call(args, kw, n, j)[1]) for j in range(n)]
+            faults[fault] = errs(composed(name, outs), whole)[1]
             if not faults[fault] > F32_TOL:
                 fail(f"{name} {full[1:]}: the planted fault ({fault} halo) went unseen: "
                      f"{faults[fault]:.3e} of max-abs")
@@ -2632,10 +2675,10 @@ def halo_tile_checks(dev, card: str) -> dict:
             row["plain_ms"] = time_ms(lambda: fn(*a, **k), 3)
         # one shard of 2: half the pixels, two halo rows more read
         x = args[0]
-        halo_bytes = 2 * x.shape[0] * x.shape[2] * (x.shape[3] + (kw["x2"].shape[3]
-                                                                   if "x2" in kw else 0)) * 4
+        cx = x.shape[3] + (kw["x2"].shape[3] if "x2" in kw else 0)
+        halo_bytes = 2 * x.shape[0] * x.shape[2] * cx * x.element_size()
         row.update(bytes=byts / 2 + halo_bytes, flops=flops / 2,
-                   bound_ms=f32_bound_ms(byts / 2 + halo_bytes, flops / 2))
+                   bound_ms=bound(byts / 2 + halo_bytes, flops / 2))
         rows.append(row)
         log(f"  {name} {full[1:]} x{mult}: halo shards of 2 {row['shards'][2]['max_rel_err']:.2e}"
             f", of 4 {row['shards'][4]['max_rel_err']:.2e} of max-abs off plain; composed "
@@ -2652,7 +2695,8 @@ def halo_tile_checks(dev, card: str) -> dict:
         per[name] = {k: sum(r[k] * r["calls"] for r in rs)
                      for k in ("halo_ms", "whole_ms", "plain_ms", "bound_ms", "bytes", "flops")}
         per[name]["bound_by"] = ("bytes" if per[name]["bytes"] / HBM_BYTES_PER_S
-                                 >= 3 * per[name]["flops"] / TF32_FLOPS else "operations")
+                                 >= (1 if bf16 else 3) * per[name]["flops"]
+                                 / (BF16_FLOPS if bf16 else TF32_FLOPS) else "operations")
         per[name].update(calls=sum(r["calls"] for r in rs),
                          max_abs_err=max(r["shards"][n]["max_abs_err"] for r in rs
                                          for n in MESH_SHARDS),
@@ -2845,6 +2889,8 @@ def mesh_cards_checks(dev, card: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     log("  phase 16's 1 x 2 float32 train step, one rank a card over NCCL:")
     res["train_1x2"] = mesh_step_checks(dev, card, (("1x2 nccl", 1, 2, True),))
+    log("  phase 16 (e)'s 1 x 2 bf16 train step, one rank a card over NCCL:")
+    res["train_1x2_bf16"] = mesh_bf16_step_checks(dev, card, True)
     log(card)
     return res
 
@@ -2866,6 +2912,15 @@ K14_SIGS = ((SIZE, 64, 2), (SIZE // 4, 256, 8), (RS_SIZE // 4, 384, 8))
 
 MESH_TRAIN_BATCH, MESH_TRAIN_STEPS, MESH_BF16_BATCH = 8, 3, 32
 MESH_GRAD_TOL = 1e-5  # mesh vs one rank: float32 gradients, norm-wise per tensor
+# bf16 halo backwards: the shards composed against the unsharded bf16 kernel
+# backward, dx row by row (bwd_row_errs): within BF16_COMPOSED_TOL, between
+# the sound compositions' largest reading on the card (3.73e-3: one bf16
+# rounding of a row's largest value where a halo cotangent lands) and the
+# planted faults' smallest (a top / bottom swap of the stats backward,
+# 6.29e-3), both from the flagship step's calls at batch 32 on an NVIDIA
+# H100 80GB HBM3 at 700 W. A planted fault must read above that bound and
+# FAULT_FACTOR times the call's own composition error (both types)
+BF16_COMPOSED_TOL, FAULT_FACTOR = 5e-3, 3.0
 MESH_CLI_STEPS = 4
 HALO_BWD_KERNELS = {
     "spectral_stats_bwd_halo": dict(
@@ -2877,13 +2932,13 @@ HALO_BWD_KERNELS = {
 }
 
 
-def capture_spectral_bwd(dev, batch) -> list:
-    """One float32 kernel backward of the flagship train step on this card
-    (one rank, the whole map, trained weights), the inputs of each spectral
-    stats and apply backward launch (K10a, K10b) recorded in the sharded
-    route's frame: a shifted block's input rolled back (the unrolled frame,
-    shift 0), its per-window gate left out (the sharded route folds the gate
-    map into the shortcut)."""
+def capture_spectral_bwd(dev, batch, dtype: str = "float32") -> list:
+    """One kernel backward of the flagship train step in ``dtype`` on this
+    card (one rank, the whole map, trained weights), the inputs of each
+    spectral stats and apply backward launch (K10a, K10b) recorded in the
+    sharded route's frame: a shifted block's input rolled back (the unrolled
+    frame, shift 0), its per-window gates as the per-pixel gate map of that
+    frame (the sharded route's gate operand)."""
     from mp_hsir_tpu_torch.checkpoint import load_params_npz
     from mp_hsir_tpu_torch.config import natural_scene_config
     from mp_hsir_tpu_torch.models.mp_hsir import build_model
@@ -2891,7 +2946,7 @@ def capture_spectral_bwd(dev, batch) -> list:
     from mp_hsir_tpu_torch.ops.window import roll_hw
     from mp_hsir_tpu_torch.training.losses import l1_clamped
 
-    model = build_model(natural_scene_config(compute_dtype="float32"), dev, train=True)
+    model = build_model(natural_scene_config(compute_dtype=dtype), dev, train=True)
     load_params_npz(ART, model)
     calls = []
     orig = sp._stats_bwd_launch, sp._apply_bwd_launch
@@ -2901,9 +2956,9 @@ def capture_spectral_bwd(dev, batch) -> list:
             r = [t.detach().clone() if torch.is_tensor(t) else t for t in a[:-1]]
             shift = r[4]
             if shift:
+                if kind == "apply" and r[8] is not None:
+                    r[8] = sp._gate_map(r[8], shift, r[0].shape[1])
                 r[0], r[4] = roll_hw(r[0], shift, shift), 0
-                if kind == "apply":
-                    r[8] = None
             calls.append((kind, r))
             return fn(*a)
         return rec
@@ -2932,7 +2987,9 @@ def bwd_shard(args, n: int, i: int, edges=None):
     a = list(args)
     a[0] = x[:, r0:r1].contiguous()
     if len(args) == 12:
-        a[8] = None if args[8] is None else args[8][:, r0 // 8:r1 // 8].contiguous()
+        if args[8] is not None:  # per-window gates (8 rows a gate row) or a gate map
+            g = 1 if args[8].shape[1] == h else 8
+            a[8] = args[8][:, r0 // g:r1 // g].contiguous()
         a[11] = args[11][:, r0:r1].contiguous()
     edges = (i == 0, i == n - 1) if edges is None else edges
     return a + [Halo(x[:, (r0 - 1) % h][:, None], x[:, r1 % h][:, None], *edges)], (r0, r1)
@@ -2941,14 +2998,17 @@ def bwd_shard(args, n: int, i: int, edges=None):
 def bwd_compose(outs, rows, fault: str = ""):
     """The shards' backward outputs as the whole call's: dx stacked, each
     shard's halo cotangents added to the neighbours' rows (fault "swapped":
-    shard 1's top and bottom cotangents trade rows), the weight gradients,
-    d comb and d dp summed, d gate and d shortcut stacked."""
+    shard 1's top and bottom cotangents trade rows; "edge": shard 0's top
+    cotangent dropped), the weight gradients, d comb and d dp summed, d gate
+    and d shortcut stacked."""
     dx = torch.cat([o[0] for o in outs], dim=1)
     h = dx.shape[1]
     for j, (o, (r0, r1)) in enumerate(zip(outs, rows)):
         top, bot = o[-2], o[-1]
         if fault == "swapped" and j == 1:
             top, bot = bot, top
+        if fault == "edge" and j == 0:
+            top = None
         if top is not None:
             dx[:, (r0 - 1) % h] += top[:, 0]
         if bot is not None:
@@ -2968,48 +3028,71 @@ def bwd_errs(got, ref) -> tuple:
     return errs(tuple(a for a, _ in pairs), tuple(r for _, r in pairs))
 
 
+def bwd_row_errs(got, ref) -> tuple:
+    """bwd_errs with dx (the first output) held row by row: each row's error
+    over that row's max-abs (a halo cotangent lands on one row)."""
+    g0, r0 = got[0].float(), ref[0].float()
+    dims = tuple(d for d in range(r0.dim()) if d != 1)
+    row = ((g0 - r0).abs().amax(dim=dims) / r0.abs().amax(dim=dims).clamp_min(1e-6)).max().item()
+    e_abs, e = bwd_errs(got[1:], ref[1:])
+    return max(e_abs, (g0 - r0).abs().max().item()), max(e, row)
+
+
 def bwd_cost(args, rows: int) -> tuple:
     """(bytes, flops) of one K10a / K10b backward on ``rows`` rows of x plus
-    its halo rows: each input and output read or written once, the products
-    of the forward it recomputes and of its cotangents (make_bwd_call's
-    count, per pixel of the rows and the halo rows)."""
+    its halo rows: each input and output read or written once (activations
+    in x's type, the float32 cotangents of the stats and comb in float32),
+    the products of the forward it recomputes and of its cotangents
+    (make_bwd_call's count, per pixel of the rows and the halo rows)."""
     x = args[0]
     b, _, w, c = x.shape
+    e = x.element_size()
     p, ph = b * rows * w, b * 2 * w
     if len(args) == 11:
         dh = args[8].shape[-1]
-        return (2 * (p + ph) * c * 4 + (2 * c * c + 18 * c) * 8 + 3 * b * c * dh * 4,
+        return (2 * (p + ph) * c * e + (2 * c * c + 18 * c) * 2 * e + 3 * b * c * dh * 4,
                 2 * (p + ph) * (4 * c * c + 36 * c) + 2 * p * (2 * c * dh + 4 * c))
-    gate = args[8] is not None
-    return (3 * (p + ph) * c * 4 + 2 * b * c * c * 4 + (c * c + 9 * c) * 8
-            + (2 * p // 64 * c * 4 if gate else 0), 2 * (p + ph) * (4 * c * c + 18 * c))
+    gate = args[8]  # per-window gates or a gate map: read once, its cotangent written once
+    gate_px = 0 if gate is None else 64 if gate.shape[1] < args[0].shape[1] else 1
+    return (3 * (p + ph) * c * e + 2 * b * c * c * 4 + (c * c + 9 * c) * 2 * e
+            + (2 * p // gate_px * c * e if gate_px else 0), 2 * (p + ph) * (4 * c * c + 18 * c))
 
 
-def halo_bwd_checks(dev, card: str) -> dict:
-    """Phase 16 (a): every distinct float32 K10a / K10b call of the flagship
-    step (one card's whole-map backward, recorded in the sharded frame) cut
-    into 2 and 4 row shards: each shard's kernel backward with its halo rows
-    against its plain backward (F32_TOL of each output's max-abs: dx, the
-    halo cotangents, the weight gradients), the shards composed against the
-    unsharded kernel backward (F32_TOL), and three planted faults that must
-    break the bound: shard 1 of 4's top and bottom cotangents folded into
-    each other's rows, shard 0's top cotangent computed through the ring's
-    wrap and sent there, shard 0 with its top edge flag inverted. Each call's
-    shard 0 of 2 is timed beside its plain backward, its unsharded call and
-    its bound."""
+def halo_bwd_checks(dev, card: str, dtype: str = "float32") -> dict:
+    """Phase 16 (a): every distinct K10a / K10b call of the flagship step in
+    ``dtype`` (one card's whole-map backward, recorded in the sharded frame;
+    float32 at batch MESH_TRAIN_BATCH, bf16 at MESH_BF16_BATCH) cut into 2
+    and 4 row shards: each shard's kernel backward with its halo rows
+    against its plain backward (F32_TOL / BF16_TOL of each output's max-abs:
+    dx, the halo cotangents, the weight gradients), the shards composed
+    against the unsharded kernel backward (F32_TOL / BF16_COMPOSED_TOL), and
+    three planted faults, composed, that must break the bound and stand
+    FAULT_FACTOR times above the call's own composition error: shard 1 of
+    4's top and bottom cotangents folded into each other's rows, shard 0's
+    top cotangent computed through the ring's wrap and sent there, shard 0
+    with its top edge flag inverted (its top cotangent dropped). bf16 holds
+    dx in the compositions and the faults row by row (bwd_row_errs). An
+    apply shard with per-window gates gives the same dx, halo cotangents and
+    weight gradients, bitwise, with its gates expanded to a per-pixel gate
+    map. Each call's shard 0 of 2 is timed beside its plain backward, its
+    unsharded call and its bound."""
     from mp_hsir_tpu_torch.ops.kernels import spectral as sp
 
-    batch = train_batch(dev, MESH_TRAIN_BATCH, TRAIN_SIZE)
-    calls = capture_spectral_bwd(dev, batch)
+    bf16 = dtype == "bfloat16"
+    tol, ctol = (BF16_TOL, BF16_COMPOSED_TOL) if bf16 else (F32_TOL, F32_TOL)
+    bound = bf16_bound_ms if bf16 else f32_bound_ms
+    nb = MESH_BF16_BATCH if bf16 else MESH_TRAIN_BATCH
+    batch = train_batch(dev, nb, TRAIN_SIZE)
+    calls = capture_spectral_bwd(dev, batch, dtype)
     distinct = {}
     for kind, a in calls:
         key = (kind, tuple(a[0].shape)) + ((a[3], a[5] is not None) if kind == "stats" else
-                                          (a[5] is not None, a[7], a[8] is not None,
-                                           a[9] is not None))
+                                          (a[5] is not None, a[7],
+                                           sp._gate_kind(a[8], a[0].shape[1]), a[9] is not None))
         distinct.setdefault(key, [a, 0])[1] += 1
-    log(f"  {len(calls)} K10a / K10b calls per flagship float32 step (batch {MESH_TRAIN_BATCH} x "
-        f"31 x {TRAIN_SIZE}^2), {len(distinct)} distinct")
-    rows = []
+    log(f"  {len(calls)} K10a / K10b calls per flagship {dtype} step (batch {nb} x 31 x "
+        f"{TRAIN_SIZE}^2), {len(distinct)} distinct")
+    rows, problems = [], []  # every call checked and logged before the phase fails
     for key, (args, mult) in sorted(distinct.items(), key=repr):
         kern, plain = ((sp._stats_bwd_launch, sp.spectral_stats_bwd_plain) if key[0] == "stats"
                        else (sp._apply_bwd_launch, sp.spectral_apply_bwd_plain))
@@ -3023,34 +3106,54 @@ def halo_bwd_checks(dev, card: str) -> dict:
                 a, r = bwd_shard(args, n, i)
                 got = kern(*a)
                 e_abs, e = bwd_errs(got, plain(*a))
-                if not e <= F32_TOL:
-                    fail(f"{key}: shard {i} of {n}'s halo backward is {e:.3e} of max-abs off its "
-                         f"plain version (bound {F32_TOL})")
+                if not e <= tol:
+                    problems.append(f"{key}: shard {i} of {n}'s halo backward is {e:.3e} of "
+                                    f"max-abs off its plain version (bound {tol})")
                 if (got[-2] is None) != (i == 0) or (got[-1] is None) != (i == n - 1):
                     fail(f"{key}: shard {i} of {n} returned halo cotangents at the wrong sides")
                 worst, worst_abs = max(worst, e), max(worst_abs, e_abs)
+                if key[0] == "apply" and key[4] is True:
+                    am = list(a)
+                    am[8] = sp._gate_map(a[8], 0, a[0].shape[1])
+                    gm = kern(*am)
+                    if not all(torch.equal(x, y) for j, (x, y) in enumerate(zip(got, gm))
+                               if j != 6 and x is not None):
+                        problems.append(f"{key}: shard {i} of {n} with a gate map differs from "
+                                        "its per-window gates'")
                 outs.append(got)
                 rr.append(r)
-            ce = bwd_errs(bwd_compose(outs, rr), whole)[1]
-            if not ce <= F32_TOL:
-                fail(f"{key}: {n} shards composed are {ce:.3e} of max-abs off the unsharded kernel "
-                     f"backward (bound {F32_TOL})")
+            def cerr(parts, fault=""):
+                """A composition's error against the unsharded call (bf16: dx row by row)."""
+                return (bwd_row_errs if bf16 else bwd_errs)(bwd_compose(parts, rr, fault), whole)[1]
+
+            ce = cerr(outs)
+            if not ce <= ctol:
+                problems.append(f"{key}: {n} shards composed are {ce:.3e} off the unsharded "
+                                f"kernel backward (bound {ctol})")
             row["shards"][n] = dict(max_rel_err=worst, max_abs_err=worst_abs, composed_rel_err=ce)
             if n == counts[-1]:
-                faults = {"swapped": bwd_errs(bwd_compose(outs, rr, "swapped"), whole)[1]}
+                faults = {"swapped": cerr(outs, "swapped")}
                 a, _ = bwd_shard(args, n, 0, (False, n == 1))  # the wrapped row taken as real
-                faults["wrap"] = bwd_errs(bwd_compose([kern(*a)] + outs[1:], rr), whole)[1]
-                faults["edge"] = bwd_errs(kern(*a), plain(*bwd_shard(args, n, 0)[0]))[1]
-                for f_, v in faults.items():
-                    if not v > F32_TOL:
-                        fail(f"{key}: the planted fault ({f_}) went unseen: {v:.3e} of max-abs")
+                faulty = kern(*a)
+                faults["wrap"] = cerr([faulty] + outs[1:])
+                faults["edge"] = cerr([faulty] + outs[1:], "edge")
+                seen = max(FAULT_FACTOR * ce, ctol)
+                problems += [f"{key}: the planted fault ({f_}) went unseen: {v:.3e} of max-abs "
+                             f"(needs {seen:.3e})" for f_, v in faults.items() if not v > seen]
                 row["faults"] = faults
         a, _ = bwd_shard(args, 2, 0)
         row["halo_ms"] = time_ms(lambda: kern(*a), 10)
         row["whole_ms"] = time_ms(lambda: kern(*args, None), 10)
         row["plain_ms"] = time_ms(lambda: plain(*a), 3)
         byts, flops = bwd_cost(args, args[0].shape[1] // 2)
-        row.update(bytes=byts, flops=flops, bound_ms=f32_bound_ms(byts, flops))
+        row.update(bytes=byts, flops=flops, bound_ms=bound(byts, flops))
+        if bf16:  # where shard 0 of 2's time goes, beside the whole map's
+            split = f"spectral_{key[0]}_bwd"
+            row["split"] = {side: bwd_split(split, fn, flops, row[ms])["split"]
+                            for side, fn, ms in (("shard", lambda: kern(*a), "halo_ms"),
+                                                 ("whole", lambda: kern(*args, None),
+                                                  "whole_ms"))}
+            row["profile"] = profile_call(lambda: kern(*a))
         rows.append(row)
         log(f"  {key} x{mult}: " + "; ".join(
             f"shards of {n} {v['max_rel_err']:.2e} of max-abs off plain, composed "
@@ -3061,6 +3164,8 @@ def halo_bwd_checks(dev, card: str) -> dict:
         torch.cuda.empty_cache()
     del calls, distinct
     torch.cuda.empty_cache()
+    if problems:
+        fail("; ".join(problems))
     log(card)
     per = {}
     for kind, name in (("stats", "spectral_stats_bwd_halo"), ("apply", "spectral_apply_bwd_halo")):
@@ -3068,7 +3173,8 @@ def halo_bwd_checks(dev, card: str) -> dict:
         per[name] = {k: sum(r[k] * r["calls"] for r in rs)
                      for k in ("halo_ms", "whole_ms", "plain_ms", "bound_ms", "bytes", "flops")}
         per[name]["bound_by"] = ("bytes" if per[name]["bytes"] / HBM_BYTES_PER_S
-                                 >= 3 * per[name]["flops"] / TF32_FLOPS else "operations")
+                                 >= (1 if bf16 else 3) * per[name]["flops"]
+                                 / (BF16_FLOPS if bf16 else TF32_FLOPS) else "operations")
         per[name].update(calls=sum(r["calls"] for r in rs),
                          max_abs_err=max(v["max_abs_err"] for r in rs
                                          for v in r["shards"].values()),
@@ -3076,7 +3182,50 @@ def halo_bwd_checks(dev, card: str) -> dict:
         log(f"  {name} per sharded step (shard 0 of 2, its {per[name]['calls']} calls): "
             f"{per[name]['halo_ms']:.2f} ms, the unsharded calls {per[name]['whole_ms']:.2f}, "
             f"plain {per[name]['plain_ms']:.2f}, bound {per[name]['bound_ms']:.4f}")
+        if bf16:
+            per[name]["split"] = {side: _weighted(rs, lambda r: r["split"][side])
+                                  for side in ("shard", "whole")}
+            per[name]["profile"] = _weighted(rs, lambda r: r["profile"])
+            for side, sp_ in per[name]["split"].items():
+                log(f"    {side} by C entry (CUDA events, device ms a step): "
+                    + ", ".join(f"{k} {v:.2f}" for k, v in sorted(sp_.items(),
+                                                                  key=lambda kv: -kv[1])))
+            log("    shard 0 of 2 by device kernel (torch.profiler, ms a step): "
+                + (", ".join(f"{k} {v:.2f}" for k, v in sorted(per[name]["profile"].items(),
+                                                               key=lambda kv: -kv[1])[:10])
+                   or "the profiler saw no device time"))
     return dict(rows=rows, per_step=per)
+
+
+def _weighted(rows, get) -> dict:
+    """sum over the rows of calls x get(row)'s values, key by key."""
+    out: dict = {}
+    for r in rows:
+        for k, v in get(r).items():
+            out[k] = out.get(k, 0.0) + v * r["calls"]
+    return out
+
+
+def profile_call(fn, reps: int = 3) -> dict:
+    """Device ms per call of each kernel ``fn`` launches (torch.profiler's
+    CUDA activity, its key averages; the card's own kernels and PyTorch's
+    fills, copies and casts alike): {kernel name: ms}, empty where the
+    profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        us = getattr(e, "cuda_time_total", 0.0) if us is None else us
+        if us > 0:
+            out[e.key[:60]] = out.get(e.key[:60], 0.0) + us / 1e3 / reps
+    return out
 
 
 def _psum_grads(model, ax) -> dict:
@@ -3307,12 +3456,219 @@ def mesh_step_checks(dev, card: str, meshes=(("1x2", 1, 2, True), ("2x1", 2, 1, 
     return res
 
 
-def mesh_train_cli_checks(dev) -> dict:
-    """Phase 16 (d): the remote-sensing train CLI on phase 13's store,
-    float32, batch 8, MESH_CLI_STEPS steps, on one rank and with
-    --mesh_spatial 2 (two ranks it spawns on this card, gloo): the logged
-    losses within 1e-4 of one rank's, the parameters bitwise equal across
-    the ranks, rank 0's checkpoint."""
+# phase 16 (e): the bf16 1 x 2 step at batch MESH_BF16_BATCH on trained
+# weights against the one-rank bf16 kernel step: every parameter's gradient
+# concatenated, norm-wise (the tiny model's plain 1 x 2 step read 1.02e-2 on
+# the CPU, tests/test_torch_mesh_bf16.py; bf16's own noise against float32
+# 1.88e-2), and per tensor within MESH_BF16_TENSOR_TOL (the bf16 tiles'
+# bound) where bf16 resolves the tensor's gradient: where the one-rank bf16
+# kernel step's gradient lies within MESH_BF16_NOISE_TOL of the one-rank
+# float32 kernel step's (elsewhere the gradient cancels and bf16 resolves it
+# only to 0.04 to 0.83 on the CPU); its loss over MESH_BF16_STEPS steps
+MESH_BF16_GRAD_TOL, MESH_BF16_TENSOR_TOL, MESH_BF16_NOISE_TOL = 2e-2, BF16_TOL, 1e-2
+MESH_BF16_STEPS = 20
+# per rank per bf16 step: the halo launches of the forward and the backward
+# (K7a, K7b, K10a, K10b: 24 each) and the window backwards with region labels
+MESH_BF16_LAUNCHES = {"spectral_stats_halo": 24, "spectral_apply_halo": 24,
+                      "spectral_stats_bwd_halo": 24, "spectral_apply_bwd_halo": 24,
+                      "window_attention_bwd_shard": 11}
+
+
+def _bf16_launches(counters) -> dict:
+    """The halo counters' bf16 launches (their specs end with the type) and
+    the labelled window backwards."""
+    out = {}
+    for name in MESH_BF16_LAUNCHES:
+        c = counters.get(name)
+        out[name] = 0 if c is None else sum(n for spec, n in c.specs.items()
+                                            if spec[-1] == "torch.bfloat16")
+    return out
+
+
+def _mesh_bf16_rank(info, batch: dict, cot, seed: int, steps: int):
+    """One rank of phase 16 (e): the flagship bf16 model on the trained
+    weights on a 1 x n mesh; (1) the gradients of its rows with the given
+    loss cotangent, summed over the ranks, with the launches of that forward
+    and backward; (2) ``steps`` bf16 AdamW steps of make_train_step on the
+    global batch: the launches and plain calls of the first
+    MESH_TRAIN_STEPS, the parameters' bits across the ranks after them and
+    at the end, the losses, ms per step. Returns rank 0's view: every rank's
+    counts and times."""
+    import torch.distributed as dist
+
+    from mp_hsir_tpu_torch.checkpoint import load_params_npz
+    from mp_hsir_tpu_torch.config import TrainConfig, natural_scene_config
+    from mp_hsir_tpu_torch.models.mp_hsir import build_model
+    from mp_hsir_tpu_torch.ops.kernels import _route
+    from mp_hsir_tpu_torch.parallel.mesh import (
+        MESH_AXES, SPATIAL_AXIS, all_gather, axis_index, make_mesh,
+    )
+    from mp_hsir_tpu_torch.training.trainer import (
+        batch_block, create_train_state, make_train_step, sync_parameters,
+    )
+
+    dev = info.device
+    cfg = natural_scene_config(compute_dtype="bfloat16")
+    model = build_model(cfg, dev, train=True)
+    load_params_npz(ART, model)
+    mesh = make_mesh(1, info.world_size)
+    sp_ax, every = mesh.axis(SPATIAL_AXIS), mesh.axis(MESH_AXES)
+    gb = {k: v.to(dev) for k, v in batch.items()}
+    block = batch_block(gb, mesh)
+    h = block["degraded"].shape[2]
+    r0 = axis_index(sp_ax) * h
+    mine = {}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    _route.reset_counters()
+    pred = model(block["degraded"], block["task_id"], gen, axis=sp_ax)
+    pred.backward(cot.to(dev)[:, :, r0:r0 + h].to(pred.dtype).contiguous())
+    torch.cuda.synchronize()
+    mine["grad_launches"] = _bf16_launches(_route.COUNTERS)
+    mine["grad_plain_calls"] = _route.ROUTE.plain_cuda_calls
+    grads = _psum_grads(model, every)
+    model.zero_grad(set_to_none=True)
+    del pred
+
+    tc = TrainConfig(warmup_frac=0.0, batch_size=gb["degraded"].shape[0],
+                     patch_size=gb["degraded"].shape[2])
+    st = create_train_state(cfg, tc, device=dev, model=model)
+    sync_parameters(st, mesh)
+    step = make_train_step(cfg, tc, mesh)
+
+    def same() -> bool:
+        flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+        return all(torch.equal(p, flat) for p in all_gather(flat, every))
+
+    losses, times = [], []
+    _route.reset_counters()
+    for s in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(st, gb, seed + s)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+        if s == MESH_TRAIN_STEPS - 1:
+            mine["launches"] = _bf16_launches(_route.COUNTERS)
+            mine["plain_calls"] = _route.ROUTE.plain_cuda_calls
+            mine["same_params_3"] = same()
+    mine.update(losses=losses, ms=times, same_params=same(), device=str(dev),
+                backend=info.backend)
+    ranks = [None] * info.world_size
+    dist.all_gather_object(ranks, mine)
+    return dict(grads=grads, ranks=ranks) if info.rank == 0 else None
+
+
+def one_rank_bf16_grads(dev, batch, seed: int) -> tuple:
+    """The flagship bf16 kernel step's gradients on one card (trained
+    weights, drop-path from ``seed``) with the loss cotangent of its own
+    forward, and the float32 kernel step's with the same cotangent (how far
+    bf16 resolves each gradient)."""
+    from mp_hsir_tpu_torch.checkpoint import load_params_npz
+    from mp_hsir_tpu_torch.config import natural_scene_config
+    from mp_hsir_tpu_torch.models.mp_hsir import build_model
+    from mp_hsir_tpu_torch.training.losses import l1_clamped
+
+    out, cot = [], None
+    for dtype in ("bfloat16", "float32"):
+        model = build_model(natural_scene_config(compute_dtype=dtype), dev, train=True)
+        load_params_npz(ART, model)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        pred = model(batch["degraded"], batch["task_id"], gen)
+        if cot is None:
+            p = pred.detach().float().requires_grad_(True)
+            l1_clamped(p, batch["clean"]).backward()
+            cot = p.grad
+        pred.backward(cot.to(pred.dtype))
+        out.append({k: q.grad.detach().float().cpu().clone() for k, q in model.named_parameters()})
+        del model, pred
+        torch.cuda.empty_cache()
+    return out[0], out[1], cot
+
+
+def mesh_bf16_step_checks(dev, card: str, backend_cards: bool = False) -> dict:
+    """Phase 16 (e): the bf16 1 x 2 step at batch MESH_BF16_BATCH x 31 x 64^2
+    on the trained weights, drop-path on, two ranks sharing this card over
+    gloo (``backend_cards``: one rank a card over NCCL): its gradients (the
+    one-rank bf16 step's own loss cotangent) against the one-rank bf16 kernel
+    step, every tensor concatenated (MESH_BF16_GRAD_TOL) and per tensor
+    (MESH_BF16_TENSOR_TOL where the tensor's one-rank bf16 gradient lies
+    within MESH_BF16_NOISE_TOL of its float32 one); per rank the forward's
+    and backward's bf16 halo launches (MESH_BF16_LAUNCHES), no
+    plain call; the parameters bitwise equal across the ranks after
+    MESH_TRAIN_STEPS AdamW steps and at the end; the loss over
+    MESH_BF16_STEPS steps falls; ms per step a rank."""
+    from mp_hsir_tpu_torch.parallel import distributed
+
+    what = "1x2 bf16" + (" nccl" if backend_cards else "")
+    batch = train_batch(dev, MESH_BF16_BATCH, TRAIN_SIZE)
+    g16, g32, cot = one_rank_bf16_grads(dev, batch, 5)
+    host = {k: v.cpu() for k, v in batch.items()}
+    torch.cuda.empty_cache()
+    out = distributed.spawn(_mesh_bf16_rank, 2, host, cot.cpu(), 5, MESH_BF16_STEPS,
+                            device="cuda", timeout_s=900)
+    keys = sorted(g16)
+    mesh_flat = torch.cat([out["grads"][k].float().reshape(-1) for k in keys])
+    one_flat = torch.cat([g16[k].reshape(-1) for k in keys])
+    flat_err = ((mesh_flat - one_flat).norm() / one_flat.norm()).item()
+    noise = {k: e for e, k in grad_rel(g16, g32)}
+    per = grad_rel({k: out["grads"][k].float() for k in keys}, g16)
+    # the bounded tensors' readings over the bound, worst first
+    over = sorted(((e / MESH_BF16_TENSOR_TOL, e, k) for e, k in per
+                   if noise[k] <= MESH_BF16_NOISE_TOL), reverse=True)
+    log(f"  {what}: gradients vs one rank, every tensor concatenated {flat_err:.2e} (bound "
+        f"{MESH_BF16_GRAD_TOL}); per tensor worst {per[0][0]:.2e} ({per[0][1]}; its bf16 noise "
+        f"{noise[per[0][1]]:.2e}); of the {len(over)} of {len(per)} tensors whose bf16 noise is "
+        f"within {MESH_BF16_NOISE_TOL}, worst {over[0][1]:.2e} ({over[0][2]}; bound "
+        f"{MESH_BF16_TENSOR_TOL})")
+    if not flat_err <= MESH_BF16_GRAD_TOL:
+        fail(f"{what}: gradients {flat_err:.2e} off one rank's, concatenated")
+    if over[0][0] > 1:
+        fail(f"{what}: gradient of {over[0][2]} {over[0][1]:.2e} off one rank's")
+    want3 = {k: v * MESH_TRAIN_STEPS for k, v in MESH_BF16_LAUNCHES.items()}
+    row = dict(grad_vs_one_rank=flat_err, grad_per_tensor=per[:5], nearest_bound=over[:5],
+               bf16_noise={k: noise[k] for _, _, k in over[:5]}, ranks=[])
+    for ratio, e, k in over[:5]:
+        log(f"    {k}: {e:.2e} off one rank, its bf16 noise {noise[k]:.2e} ({ratio:.2f} of the "
+            "bound)")
+    for e, k in per[:5]:
+        log(f"    {k}: {e:.2e} off one rank, its bf16 noise {noise[k]:.2e}")
+    for r, rk in enumerate(out["ranks"]):
+        if rk["grad_launches"] != MESH_BF16_LAUNCHES or rk["launches"] != want3:
+            fail(f"{what} rank {r}: bf16 halo / label launches {rk['grad_launches']} a step, "
+                 f"{rk['launches']} in {MESH_TRAIN_STEPS} steps; expected {MESH_BF16_LAUNCHES}")
+        if rk["grad_plain_calls"] or rk["plain_calls"]:
+            fail(f"{what} rank {r}: plain-version calls on CUDA tensors")
+        if not rk["same_params_3"] or not rk["same_params"]:
+            fail(f"{what}: rank {r}'s parameters differ from rank 0's")
+        losses = rk["losses"]
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            fail(f"{what} rank {r}: losses {losses[0]} -> {losses[-1]} over {len(losses)} steps")
+        med = statistics.median(rk["ms"][3:])
+        shared = ("ranks sharing one card: not a multi-card figure" if rk["backend"] == "gloo"
+                  else "one card a rank")
+        log(f"  {what} rank {r} ({rk['device']}, {rk['backend']}): bf16 ms per step {med:.1f} "
+            f"(first 3 {', '.join(f'{t:.1f}' for t in rk['ms'][:3])}; {shared}), losses "
+            f"{losses[0]:.5f} -> {losses[-1]:.5f} over {len(losses)} steps; launches a step "
+            f"{json.dumps(rk['grad_launches'])}")
+        row["ranks"].append(dict(rank=r, ms=rk["ms"], median_ms=med, losses=losses,
+                                 launches_per_step=rk["grad_launches"],
+                                 launches=rk["launches"]))
+    log(card)
+    return row
+
+
+# phase 16 (d): the sharded CLI's losses against one rank's, float32 and
+# bf16 (the tiny bf16 CLI on the CPU read 9.9e-5 over 4 steps)
+MESH_CLI_LOSS_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
+
+
+def mesh_train_cli_checks(dev, dtype: str = "float32") -> dict:
+    """Phase 16 (d): the remote-sensing train CLI on phase 13's store, in
+    ``dtype`` (bf16 is its default), batch 8, MESH_CLI_STEPS steps, on one
+    rank and with --mesh_spatial 2 (two ranks it spawns on this card, gloo):
+    the logged losses within MESH_CLI_LOSS_TOL of one rank's, the parameters
+    bitwise equal across the ranks, rank 0's checkpoint."""
     import tempfile
 
     from mp_hsir_tpu_torch.cli import train_cli
@@ -3325,7 +3681,7 @@ def mesh_train_cli_checks(dev) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         store = os.path.join(tmp, "store")
         write_store(store, 16, 100)
-        base = ["--db_path", store, "--compute_dtype", "float32", "--batch_size", "8",
+        base = ["--db_path", store, "--compute_dtype", dtype, "--batch_size", "8",
                 "--patch_size", str(TRAIN_SIZE), "--epochs", "1", "--steps_per_epoch",
                 str(MESH_CLI_STEPS), "--log_every", "1", "--ckpt_every_epochs", "1"]
         one = train_cli.main(base + ["--ckpt_dir", os.path.join(tmp, "one")])
@@ -3338,14 +3694,16 @@ def mesh_train_cli_checks(dev) -> dict:
         os.environ["NVIDIA_TF32_OVERRIDE"] = tf32
     l1, l2 = ([r["train_loss"] for r in res["losses"]] for res in (one, two))
     err = max(abs(a - b) for a, b in zip(l1, l2))
-    log(f"  train CLI --mesh_spatial 2 (float32, batch 8, {MESH_CLI_STEPS} steps): losses "
+    tol = MESH_CLI_LOSS_TOL[dtype]
+    log(f"  train CLI --mesh_spatial 2 ({dtype}, batch 8, {MESH_CLI_STEPS} steps): losses "
         + " ".join(f"{v:.6f}" for v in l2) + f"; one rank " + " ".join(f"{v:.6f}" for v in l1)
         + f"; max diff {err:.2e}; ms per step {statistics.median(two['step_ms'][1:]):.1f} "
         f"(one rank {statistics.median(one['step_ms'][1:]):.1f}; ranks sharing one card)")
-    if len(l1) != MESH_CLI_STEPS or len(l2) != MESH_CLI_STEPS or not err <= 1e-4:
-        fail(f"train CLI --mesh_spatial 2: losses {l2} vs one rank's {l1}")
+    if len(l1) != MESH_CLI_STEPS or len(l2) != MESH_CLI_STEPS or not err <= tol:
+        fail(f"train CLI --mesh_spatial 2 ({dtype}): losses {l2} vs one rank's {l1}")
     if not two["same_params"] or not two["checkpoints"]:
-        fail("train CLI --mesh_spatial 2: parameters differ across ranks, or no checkpoint")
+        fail(f"train CLI --mesh_spatial 2 ({dtype}): parameters differ across ranks, or no "
+             "checkpoint")
     return dict(losses_one=l1, losses_mesh=l2, max_diff=err, step_ms_one=one["step_ms"],
                 step_ms_mesh=two["step_ms"])
 
@@ -3353,14 +3711,19 @@ def mesh_train_cli_checks(dev) -> dict:
 def mesh_train_phase(dev, card: str) -> dict:
     """Phase 16: (a), (b) + (c), (d); the summary rows of the halo backward
     kernels (launches from the 1 x 2 step, times from (a))."""
-    log("== phase 16: the row- and data-sharded float32 train step: the float32 spectral "
-        "backwards with halo cotangents, the 1 x 2 and 2 x 1 steps on ranks sharing this "
-        "card, the train CLI with --mesh_spatial 2")
+    log("== phase 16: the row- and data-sharded train step: the spectral backwards with halo "
+        "cotangents (float32, bf16), the float32 1 x 2 and 2 x 1 steps and the bf16 1 x 2 step "
+        "on ranks sharing this card, the train CLI with --mesh_spatial 2 (float32, bf16)")
     log(card)
     t0 = time.perf_counter()
     res = dict(halo_bwd=halo_bwd_checks(dev, card))
+    log("  (a) in bf16:")
+    res["halo_bwd_bf16"] = halo_bwd_checks(dev, card, "bfloat16")
     res["steps"] = mesh_step_checks(dev, card)
+    log("  (e) the bf16 1 x 2 step:")
+    res["bf16_step"] = mesh_bf16_step_checks(dev, card)
     res["cli"] = mesh_train_cli_checks(dev)
+    res["cli_bf16"] = mesh_train_cli_checks(dev, "bfloat16")
     ranks = res["steps"]["1x2"]["ranks"]
     res["kernels"] = []
     for name, meta in HALO_BWD_KERNELS.items():
@@ -3373,8 +3736,58 @@ def mesh_train_phase(dev, card: str) -> dict:
             plain_ms=p["plain_ms"], bound_ms=p["bound_ms"], bound_by=p["bound_by"],
             library_ms=None, unsharded_ms=p["whole_ms"],
             mesh_step=dict(ranks=len(ranks), launches=n, steps=MESH_TRAIN_STEPS)))
+    res["bf16_halo_rows"] = bf16_halo_kernels(res)
     log(f"  phase 16 in {time.perf_counter() - t0:.1f} s")
     return res
+
+
+# the four bf16 halo instances of the summary line: their path is phase 16
+# (e)'s bf16 1 x 2 step (rank 0's launches in its first MESH_TRAIN_STEPS
+# steps); times per sharded flagship forward (phase 15 (a) in bf16, one shard
+# of 2, batch 1 x 512^2) or step (phase 16 (a) in bf16, shard 0 of 2, batch 32)
+BF16_HALO_KERNELS = {
+    "spectral_stats_bf16_halo": dict(
+        source="mp_hsir_tpu_torch/csrc/spectral_stats.cuh", tpu=["K7a"], of="spectral_stats",
+        replaces="mp_hsir_tpu/ops/pallas_attention.py:2053", counter="spectral_stats_halo"),
+    "spectral_apply_bf16_halo": dict(
+        source="mp_hsir_tpu_torch/csrc/spectral.cu", tpu=["K7b"], of="spectral_apply",
+        replaces="mp_hsir_tpu/ops/pallas_attention.py:2114", counter="spectral_apply_halo"),
+    "spectral_stats_bwd_bf16_halo": dict(
+        source="mp_hsir_tpu_torch/csrc/spectral_stats.cuh", tpu=["K10a"],
+        of="spectral_stats_bwd_halo", replaces="mp_hsir_tpu/ops/pallas_vjp.py:1671",
+        counter="spectral_stats_bwd_halo"),
+    "spectral_apply_bwd_bf16_halo": dict(
+        source="mp_hsir_tpu_torch/csrc/spectral_apply_bwd.cuh", tpu=["K10b"],
+        of="spectral_apply_bwd_halo", replaces="mp_hsir_tpu/ops/pallas_vjp.py:1758",
+        counter="spectral_apply_bwd_halo"),
+}
+
+
+def bf16_halo_kernels(res: dict, fwd: dict | None = None) -> list:
+    """The summary rows of the four bf16 halo instances: launches from
+    phase 16 (e), the backward's times from phase 16 (a) in bf16, the
+    forward's from ``fwd`` (phase 15 (a) in bf16's per_forward; None: the
+    forward rows are left out)."""
+    rank0 = res["bf16_step"]["ranks"][0]
+    rows = []
+    for name, meta in BF16_HALO_KERNELS.items():
+        if meta["of"].endswith("_halo"):
+            p, per = res["halo_bwd_bf16"]["per_step"][meta["of"]], "launches_per_step"
+        elif fwd is not None:
+            p, per = fwd[meta["of"]], "launches_per_forward"
+        else:
+            continue
+        n = rank0["launches"][meta["counter"]]
+        if n == 0:
+            fail(f"the bf16 halo instance {name} was not launched by the bf16 1 x 2 step")
+        rows.append(dict(
+            name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
+            tpu=meta["tpu"], launches=n, max_abs_err=p["max_abs_err"], rel_err=p["rel_err"],
+            ms=p["halo_ms"], plain_ms=p["plain_ms"], bound_ms=p["bound_ms"],
+            bound_by=p["bound_by"], library_ms=None, unsharded_ms=p["whole_ms"],
+            mesh_step=dict(ranks=len(res["bf16_step"]["ranks"]), launches=n,
+                           steps=MESH_TRAIN_STEPS), **{per: p["calls"]}))
+    return rows
 
 
 def k14_library(layer, x, lab):
@@ -4260,11 +4673,14 @@ def main() -> None:
                 json.dump(dict(card=card, mesh_train=mesh_train), fh, indent=1, default=str)
         log(f"== done in {time.perf_counter() - t_start:.1f} s")
         print(card)
-        print(json.dumps({"kernels": mesh_train["kernels"]}))
+        print(json.dumps({"kernels": mesh_train["kernels"] + mesh_train["bf16_halo_rows"]}))
         return
     if args.mesh_eval:
         log("== phase 15 only: the row-sharded eval forward")
-        mesh = dict(halo=halo_tile_checks(dev, card), cli=mesh_cli_checks(dev, card))
+        mesh = dict(halo=halo_tile_checks(dev, card))
+        log("  (a) in bf16:")
+        mesh["halo_bf16"] = halo_tile_checks(dev, card, torch.bfloat16)
+        mesh["cli"] = mesh_cli_checks(dev, card)
         log("  gloo with CUDA tensors (two ranks on this card, each op apart):")
         mesh["gloo_cuda"] = gloo_cuda_probe()
         if args.out:
@@ -4451,7 +4867,10 @@ def main() -> None:
     log("== phase 15: the row-sharded eval forward: the float32 spectral tiles with halo rows, "
         f"the CLI with --mesh_spatial {MESH_RANKS} on ranks sharing this card")
     log(card)
-    mesh = dict(halo=halo_tile_checks(dev, card), cli=mesh_cli_checks(dev, card))
+    mesh = dict(halo=halo_tile_checks(dev, card))
+    log("  (a) in bf16:")
+    mesh["halo_bf16"] = halo_tile_checks(dev, card, torch.bfloat16)
+    mesh["cli"] = mesh_cli_checks(dev, card)
     mesh_train = mesh_train_phase(dev, card)
 
     summary = summarize(rows, main_res["launches"], KERNELS, "per_forward")
@@ -4532,8 +4951,10 @@ def main() -> None:
             bound_by=p["bound_by"], library_ms=None, unsharded_ms=p["whole_ms"],
             mesh_cli=dict(ranks=len(ranks), launches=n,
                           launches_per_forward=n // sum(rk["forwards"] for rk in ranks))))
-    # the halo backwards: their path is phase 16's 1 x 2 step
+    # the halo backwards: their path is phase 16's 1 x 2 step; the four bf16
+    # halo instances': phase 16 (e)'s bf16 1 x 2 step
     summary += mesh_train["kernels"]
+    summary += bf16_halo_kernels(mesh_train, mesh["halo_bf16"]["per_forward"])
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:

@@ -18,8 +18,8 @@ them. Started as a plain command it spawns the ranks on this machine (rank
 r on card r % cards; gloo where ranks share a card or run on the CPU, NCCL
 with a card each); under ``torchrun --nproc_per_node N*M`` each process is
 a rank. Rank 0 writes the log, TensorBoard and the checkpoints; every rank
-resumes from the same checkpoint. ``--mesh_spatial`` > 1 trains in float32
-(``--compute_dtype float32``): the bf16 halo tiles are the next slice.
+resumes from the same checkpoint. Both compute types shard (bf16, the
+default, and ``--compute_dtype float32``).
 
 Per epoch: batches from the patch store through ``TrainPipeline`` (clean
 patches uploaded, degraded and augmented on the device), one
@@ -81,7 +81,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh_data", type=int, default=None,
                    help="data-parallel mesh size (ranks, each a block of the batch)")
     p.add_argument("--mesh_spatial", type=int, default=1,
-                   help="spatial mesh size (ranks, each a block of the rows; float32)")
+                   help="spatial mesh size (ranks, each a block of the rows)")
     p.add_argument("--grad_accum", type=int, default=1)
     p.add_argument("--log_every", type=int, default=50)
     p.add_argument("--upload_dtype", type=str, default="float32",
@@ -115,10 +115,6 @@ def main(argv=None) -> dict:
     spatial = args.mesh_spatial
     if data < 1 or spatial < 1:
         raise SystemExit("--mesh_data / --mesh_spatial must be at least 1")
-    if spatial > 1 and args.compute_dtype != "float32":
-        raise SystemExit(f"--mesh_spatial {spatial} trains in float32 (--compute_dtype "
-                         "float32): the bf16 halo rows of the spectral tiles and their backward "
-                         "are the next slice of the port (ROADMAP.md 2b)")
     world = data * spatial
     if world == 1:
         return train(args, None)

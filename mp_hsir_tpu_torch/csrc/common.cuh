@@ -385,6 +385,12 @@ __device__ __forceinline__ size_t tile_pix(int b, int ty, int tx, int i, int H, 
   return ((size_t)b * H + ty * kTile + (i >> 3)) * W + tx * kTile + (i & 7);
 }
 
+// The spectral apply's gate row of raw pixel (sr, sc) of image b: gwin 8 for
+// per-window gates (B, H/8, W/8, C), 1 for a per-pixel gate map (B, H, W, C).
+__device__ __forceinline__ int gate_row(int b, int sr, int sc, int H, int W, int gwin) {
+  return (b * (H / gwin) + sr / gwin) * (W / gwin) + sc / gwin;
+}
+
 // ---------------------------------------------------------------------------
 // 3xTF32 on the tensor cores: the float32 tiles (mlp_tail.cuh's mlp_tail_f32,
 // conv3.cu's float32 instance, window_attention.cu's window_f32_kernel,

@@ -11,6 +11,10 @@
 //                     float atomics).
 //   mp_dwconv_bwd     3x3 depthwise conv backward: dt = the transposed stencil
 //                     of dout (zero padding), per-tile tap-weight partials.
+//   mp_dwconv_halo_bwd  the halo-row terms of a row shard's depthwise
+//                     backward, which the stencil kernels (mp_dwconv_bwd;
+//                     bf16: dwconv_dx.cuh's tile) leave out: the halo rows'
+//                     dt and their tap partials.
 //   mp_ln_linear_bwd  dxn = d W^T through a 1x1 (Linear) layer, then the
 //                     LayerNorm backward, plus optional extra cotangents;
 //                     per-tile LN and bias partials. Reads the input and
@@ -241,27 +245,17 @@ constexpr int kDC = 32;  // channel chunk of the depthwise backward
 
 // One 8x8 tile: dt[p][c] = sum_tap w[tap][c] dout[p - off(tap)][c] and
 // part[tile][tap][c] = sum_p t[p + off(tap)][c] dout[p][c], with zeros
-// outside the image on both maps (the forward's zero padding of t).
-//
-// A row shard of a larger map (K10a / K10b's halo cotangents, replacing the
-// dtop / dbot rows of _sp0_bwd_kernel / _sp1_bwd_kernel,
-// mp_hsir_tpu/ops/pallas_vjp.py:1443, :1501): `halo` bit 0 / bit 1 says that
-// the row above / below the shard is a neighbour's, whose t the forward's
-// depthwise read; t_halo [2][B][W][Cn] holds it (side 0 above, 1 below). The
-// tap partials then read t there, and the first / last tile row writes the
-// cotangent of that t row, dt_halo [2][B][W][Cn] (dout beyond the shard is
-// zero: those outputs are the neighbour's).
+// outside the image on both maps (the forward's zero padding of t; a row
+// shard's halo rows add their terms in dwconv_halo_bwd_kernel).
 template <typename T>
 __global__ void __launch_bounds__(256)
 dwconv_bwd_kernel(const float* __restrict__ dout, const float* __restrict__ t,
                   const T* __restrict__ w, int ldw, T* __restrict__ dt, float* __restrict__ part,
-                  int H, int W, int Cn, const float* __restrict__ t_halo,
-                  float* __restrict__ dt_halo, int halo) {
+                  int H, int W, int Cn) {
   __shared__ float ds[kHaloPix][kDC + 1];
   __shared__ float ts[kHaloPix][kDC + 1];
-  const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z, B = gridDim.z;
+  const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
   const int tile = (b * (H / kTile) + ty) * (W / kTile) + tx;
-  const bool top = ty == 0 && (halo & 1), bot = ty == H / kTile - 1 && (halo & 2);
   for (int c0 = 0; c0 < Cn; c0 += kDC) {
     const int nc = min(kDC, Cn - c0);
     __syncthreads();
@@ -269,33 +263,15 @@ dwconv_bwd_kernel(const float* __restrict__ dout, const float* __restrict__ t,
       const int p = idx / kDC, j = idx - p * kDC;
       const int r = ty * kTile + p / kHalo - 1, c = tx * kTile + p % kHalo - 1;
       float dv = 0.f, tv = 0.f;
-      if (j < nc && c >= 0 && c < W) {
-        if (r >= 0 && r < H) {
-          const size_t o = (((size_t)b * H + r) * W + c) * Cn + c0 + j;
-          dv = dout[o];
-          tv = t[o];
-        } else if ((r == -1 && top) || (r == H && bot)) {
-          tv = t_halo[(((size_t)(r < 0 ? 0 : B) + b) * W + c) * Cn + c0 + j];
-        }
+      if (j < nc && r >= 0 && r < H && c >= 0 && c < W) {
+        const size_t o = (((size_t)b * H + r) * W + c) * Cn + c0 + j;
+        dv = dout[o];
+        tv = t[o];
       }
       ds[p][j] = dv;
       ts[p][j] = tv;
     }
     __syncthreads();
-    // the halo rows' cotangents: t row -1 reaches output row 0 through the
-    // taps' first row, t row H output row H - 1 through their last
-    for (int side = 0; side < 2; ++side) {
-      if (!(side == 0 ? top : bot)) continue;
-      const int dy = side == 0 ? 0 : 2, rr = side == 0 ? 1 : kTile;  // ds row of the output row
-      for (int idx = threadIdx.x; idx < kTile * nc; idx += blockDim.x) {
-        const int pc = idx / nc, j = idx - pc * nc;
-        float acc = 0.f;
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx)
-          acc = fmaf(ds[rr * kHalo + pc + 2 - dx][j], to_f(w[(dy * 3 + dx) * ldw + c0 + j]), acc);
-        dt_halo[(((size_t)side * B + b) * W + tx * kTile + pc) * Cn + c0 + j] = acc;
-      }
-    }
     for (int idx = threadIdx.x; idx < kPix * nc; idx += blockDim.x) {
       const int p = idx / nc, j = idx - p * nc;
       const int pr = p >> 3, pc = p & 7;
@@ -487,16 +463,80 @@ cudaError_t launch_wgrad_tc(const void* A, const void* Bm, float* part, float* o
   return launch_sum_parts(part, out, nb, n_parts, M * N, stream);
 }
 
+// The halo-row terms of a row shard's depthwise backward (K10a / K10b: the
+// dtop / dbot rows of _sp0_bwd_kernel / _sp1_bwd_kernel's stencil,
+// mp_hsir_tpu/ops/pallas_vjp.py:1443, :1501), which dwconv_bwd_kernel and
+// bf16's dwconv_dx_tc_kernel leave out: they read t as zero beyond the
+// shard and their dt covers the shard's rows only. Side 0 is the row above the shard (read by the taps'
+// first row dy = 0 at output row 0), side 1 the row below (dy = 2 at output
+// row H - 1). One block per (8 columns, image, side):
+//   dt_halo[side][b][c] = sum over dx of dout[row][c + 1 - dx] w[dy][dx]
+// in the order of dwconv3_bwd_plain (each product rounded, then added; the
+// other taps add zeros), rounded to T; and the tap partials
+//   part[side][b W/8 + tx][dx][k] = sum over the block's 8 columns c of
+//   t_halo[side][b][c + dx - 1][k] dout[row][c][k],
+// zero outside the image's columns. A side without its halo bit writes zeros
+// (its row is an image edge, zero after the LayerNorm). The wrapper adds
+// part's rows in order (launch_dwconv_halo_bwd) after the tile's partials.
+template <typename T>
+__global__ void __launch_bounds__(256)
+dwconv_halo_bwd_kernel(const float* __restrict__ dout, const T* __restrict__ t_halo,
+                       const T* __restrict__ taps, T* __restrict__ dt_halo,
+                       float* __restrict__ part, int H, int W, int K, int halo) {
+  const int tx = blockIdx.x, b = blockIdx.y, side = blockIdx.z, B = gridDim.y;
+  const bool real = halo & (1 << side);
+  const int row = side == 0 ? 0 : H - 1, dy = side == 0 ? 0 : 2;
+  const float* d = dout + ((size_t)b * H + row) * W * K;  // the output row it reaches
+  const T* th = t_halo + ((size_t)side * B + b) * W * K;
+  for (int idx = threadIdx.x; idx < kTile * K; idx += blockDim.x) {
+    const int pc = idx / K, k = idx - pc * K, c = tx * kTile + pc;
+    float acc = 0.f;
+    if (real) {
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        const int cc = c + dx - 1;  // dout's column: the flipped tap 2 - dx
+        const float v = cc >= 0 && cc < W ? d[(size_t)cc * K + k] : 0.f;
+        acc = __fadd_rn(acc, __fmul_rn(v, to_f(taps[(size_t)k * 9 + dy * 3 + 2 - dx])));
+      }
+    }
+    dt_halo[(((size_t)side * B + b) * W + c) * K + k] = from_f<T>(acc);
+  }
+  float* prow = part + (((size_t)side * B + b) * (W / kTile) + tx) * 3 * K;
+  for (int idx = threadIdx.x; idx < 3 * K; idx += blockDim.x) {
+    const int dx = idx / K, k = idx - dx * K;
+    float s = 0.f;
+    if (real) {
+      for (int pc = 0; pc < kTile; ++pc) {
+        const int c = tx * kTile + pc, cc = c + dx - 1;
+        if (cc >= 0 && cc < W) s = fmaf(to_f(th[(size_t)cc * K + k]), d[(size_t)c * K + k], s);
+      }
+    }
+    prow[idx] = s;
+  }
+}
+
 template <typename T>
 cudaError_t launch_dwconv_bwd(const float* dout, const float* t, const void* w, int ldw, void* dt,
                               float* part, float* dw, int B, int H, int W, int Cn,
-                              const float* t_halo, float* dt_halo, int halo,
                               cudaStream_t stream) {
   dwconv_bwd_kernel<T><<<dim3(W / kTile, H / kTile, B), 256, 0, stream>>>(
-      dout, t, (const T*)w, ldw, (T*)dt, part, H, W, Cn, t_halo, dt_halo, halo);
+      dout, t, (const T*)w, ldw, (T*)dt, part, H, W, Cn);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_sum_parts(part, dw, 1, B * (H / kTile) * (W / kTile), 9 * Cn, stream);
+}
+
+// The halo-row terms, then their tap partials summed in order per side into
+// dw_halo [2][3][K].
+template <typename T>
+cudaError_t launch_dwconv_halo_bwd(const float* dout, const void* t_halo, const void* taps,
+                                   void* dt_halo, float* part, float* dw_halo, int B, int H,
+                                   int W, int K, int halo, cudaStream_t stream) {
+  dwconv_halo_bwd_kernel<T><<<dim3(W / kTile, B, 2), 256, 0, stream>>>(
+      dout, (const T*)t_halo, (const T*)taps, (T*)dt_halo, part, H, W, K, halo);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_sum_parts(part, dw_halo, 2, B * (W / kTile), 3 * K, stream);
 }
 
 template <typename T>
@@ -536,28 +576,40 @@ extern "C" long long mp_wgrad_tc_smem() { return (long long)mp::kWgradTcSmem; }
 
 // dout, t (B, H, W, Cn) float32; w the forward's [9][ldw] taps (pointer at the
 // first column), compute type. Outputs: dt (B, H, W, Cn) compute type, part
-// (tiles, 9, Cn) scratch, dw (9, Cn) float32. A row shard (halo_flags bit 0:
-// the row above is a neighbour's, bit 1 the row below): t_halo [2][B][W][Cn]
-// float32 the t of those rows (read where the bit is set), dt_halo
-// [2][B][W][Cn] float32 their cotangents (written where it is set);
-// halo_flags 0: both may be NULL.
+// (tiles, 9, Cn) scratch, dw (9, Cn) float32. A row shard's halo rows are
+// mp_dwconv_halo_bwd's.
 extern "C" int mp_dwconv_bwd(const void* dout, const void* t, const void* w, void* dt,
-                             void* part, void* dw, const void* t_halo, void* dt_halo, int dtype,
-                             int B, int H, int W, int Cn, int ldw, int halo_flags,
-                             void* stream) {
+                             void* part, void* dw, int dtype, int B, int H, int W, int Cn,
+                             int ldw, void* stream) {
   if (H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
-  if (halo_flags != 0 && (t_halo == nullptr || dt_halo == nullptr))
-    return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
-  auto th = (const float*)t_halo;
-  auto dth = (float*)dt_halo;
   if (dtype == 0)
     return (int)mp::launch_dwconv_bwd<float>((const float*)dout, (const float*)t, w, ldw, dt,
-                                             (float*)part, (float*)dw, B, H, W, Cn, th, dth,
-                                             halo_flags, st);
+                                             (float*)part, (float*)dw, B, H, W, Cn, st);
   return (int)mp::launch_dwconv_bwd<__nv_bfloat16>((const float*)dout, (const float*)t, w, ldw,
-                                                   dt, (float*)part, (float*)dw, B, H, W, Cn, th,
-                                                   dth, halo_flags, st);
+                                                   dt, (float*)part, (float*)dw, B, H, W, Cn, st);
+}
+
+// A row shard's halo-row terms of the depthwise backward: dout (B, H, W, K)
+// float32 the cotangent at the depthwise output, t_halo [2][B][W][K] the
+// halo rows' depthwise input (row above, row below), taps [K][9], both in
+// the compute type (dtype 0 float32, 1 bf16); halo_flags bit 0 / 1: the row
+// above / below is real. Outputs: dt_halo [2][B][W][K] compute type the halo
+// rows' cotangents (zero on a side without its bit), part [2][B W/8][3][K]
+// scratch, dw_halo [2][3][K] float32 the taps' gradient share of rows dy =
+// 0 (side 0) and dy = 2 (side 1).
+extern "C" int mp_dwconv_halo_bwd(const void* dout, const void* t_halo, const void* taps,
+                                  void* dt_halo, void* part, void* dw_halo, int dtype, int B,
+                                  int H, int W, int K, int halo_flags, void* stream) {
+  if (H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
+  auto st = (cudaStream_t)stream;
+  auto d = (const float*)dout;
+  if (dtype == 0)
+    return (int)mp::launch_dwconv_halo_bwd<float>(d, t_halo, taps, dt_halo, (float*)part,
+                                                  (float*)dw_halo, B, H, W, K, halo_flags, st);
+  return (int)mp::launch_dwconv_halo_bwd<__nv_bfloat16>(d, t_halo, taps, dt_halo, (float*)part,
+                                                        (float*)dw_halo, B, H, W, K, halo_flags,
+                                                        st);
 }
 
 // d (B, H, W, K) in the kernel frame; w [C][ldw] (pointer at the first of K

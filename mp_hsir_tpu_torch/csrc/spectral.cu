@@ -53,7 +53,7 @@ namespace mp {
 // [2][B][W][C] (q = (side B + b) W + column; side 0 above the shard, 1
 // below), on the rows just above (-1) and below (H) the shard where `halo`
 // has bit 0 / bit 1 set (shift 0 there). The float32 backward's counterpart
-// of the forward tiles' halo_src_f32.
+// of the forward tiles' halo_src.
 __device__ __forceinline__ long long bwd_halo_src(int p, int b, int B, int ty, int tx, int H,
                                                   int W, int shift, int halo) {
   const int ur = ty * kTile + p / kHalo - 1, uc = tx * kTile + p % kHalo - 1;
@@ -227,7 +227,8 @@ __host__ __device__ inline ApplyPlan apply_plan(int kc, int C) {
 // combt comb transposed ([B][C out][C8 in], 16-byte aligned); hal, halo a
 // row shard's halo rows and which are real, as spectral_stats_f32_kernel's
 // (they feed only v's depthwise at the shard's first and last rows); flags:
-// kVecX (16-byte halo copies) | kPairs (8-byte epilogue loads and stores).
+// kVecX (16-byte halo copies) | kPairs (8-byte epilogue loads and stores);
+// gwin the gate's window, 8 or 1 for a per-pixel gate map (gate_row).
 __global__ void __launch_bounds__(kThreads)
 spectral_apply_f32_kernel(const float* __restrict__ x1, const float* __restrict__ x2, int C1,
                           int C2, const float* __restrict__ lnw, const float* __restrict__ lnb,
@@ -239,7 +240,7 @@ spectral_apply_f32_kernel(const float* __restrict__ x1, const float* __restrict_
                           const float* __restrict__ w2, const float* __restrict__ b2, int hid,
                           const float* __restrict__ dp, float* __restrict__ out, int H, int W,
                           int shift, float eps, int flags, int tail_stages,
-                          const float* __restrict__ hal, int halo) {
+                          const float* __restrict__ hal, int halo, int gwin) {
   extern __shared__ float4 apply_f32_dyn[];  // 16-byte aligned: cp.async and ldmatrix
   __shared__ int hsrc[kFrontRows];            // halo row -> raw source pixel (-1: zero row)
   __shared__ int esrc[kPix], egate[kPix];     // tile pixel -> raw source pixel, gate row
@@ -261,12 +262,12 @@ spectral_apply_f32_kernel(const float* __restrict__ x1, const float* __restrict_
   // the roll-back; a shard's halo rows) and of each tile pixel, each tile
   // pixel's gate window, and the taps of v, zero past C
   for (int p = threadIdx.x; p < kFrontRows; p += blockDim.x) {
-    hsrc[p] = halo_src_f32(p, b, ty, tx, gridDim.z, H, W, shift, halo);
+    hsrc[p] = halo_src(p, b, ty, tx, gridDim.z, H, W, shift, halo);
     if (p < kPix) {
       const int sr = (ty * kTile + (p >> 3) - shift + H) % H;
       const int sc = (tx * kTile + (p & 7) - shift + W) % W;
       esrc[p] = (b * H + sr) * W + sc;
-      egate[p] = (b * (H / kTile) + sr / kTile) * (W / kTile) + sc / kTile;
+      egate[p] = gate_row(b, sr, sc, H, W, gwin);
     }
   }
   for (int i = threadIdx.x; i < 9 * CP; i += blockDim.x) {
@@ -391,7 +392,10 @@ spectral_apply_f32_kernel(const float* __restrict__ x1, const float* __restrict_
 
 // Arguments: as mp_spectral_apply in bf16, with wv the v rows of wqkv ([C][C8],
 // torch layout), taps the v rows of the depthwise weight ([C][9]) and comb in
-// bf16 ([B][C][C8]); flags: kVecX | kPairs | kVecOut (launch_apply_tc).
+// bf16 ([B][C][C8]); flags: kVecX | kPairs | kVecOut (launch_apply_tc); hal,
+// halo a row shard's halo rows [2][B][W][C] bf16 and which are real
+// (halo_src; the source map is static, so the plan does not change); gwin
+// the gate's window, 8 or 1 for a per-pixel gate map (gate_row).
 __global__ void __launch_bounds__(kThreads)
 spectral_apply_tc_kernel(const __nv_bfloat16* __restrict__ x1, const __nv_bfloat16* __restrict__ x2,
                          int C1, int C2, const float* __restrict__ lnw,
@@ -404,9 +408,10 @@ spectral_apply_tc_kernel(const __nv_bfloat16* __restrict__ x1, const __nv_bfloat
                          const __nv_bfloat16* __restrict__ w1, const float* __restrict__ b1,
                          const __nv_bfloat16* __restrict__ w2, const float* __restrict__ b2,
                          int hid, const float* __restrict__ dp, __nv_bfloat16* __restrict__ out,
-                         int H, int W, int shift, float eps, int flags, int tail_stages) {
+                         int H, int W, int shift, float eps, int flags, int tail_stages,
+                         const __nv_bfloat16* __restrict__ hal, int halo, int gwin) {
   extern __shared__ float4 front_dyn[];
-  __shared__ int hsrc[kFrontRows];            // halo row -> raw source pixel (-1: zero row)
+  __shared__ int hsrc[kFrontRows];            // halo row -> source pixel (halo_src)
   __shared__ int esrc[kPix], egate[kPix];     // tile pixel -> raw source pixel, gate row
   const int C = C1 + C2;
   const FrontPlan pl(C);
@@ -424,12 +429,12 @@ spectral_apply_tc_kernel(const __nv_bfloat16* __restrict__ x1, const __nv_bfloat
   // the raw source pixel of each halo pixel (unrolled frame, read through the
   // roll-back) and of each tile pixel, and each tile pixel's gate window
   for (int p = threadIdx.x; p < kFrontRows; p += blockDim.x) {
-    hsrc[p] = halo_src(p, b, ty, tx, H, W, shift);
+    hsrc[p] = halo_src(p, b, ty, tx, gridDim.z, H, W, shift, halo);
     if (p < kPix) {
       const int sr = (ty * kTile + (p >> 3) - shift + H) % H;
       const int sc = (tx * kTile + (p & 7) - shift + W) % W;
       esrc[p] = (b * H + sr) * W + sc;
-      egate[p] = (b * (H / kTile) + sr / kTile) * (W / kTile) + sc / kTile;
+      egate[p] = gate_row(b, sr, sc, H, W, gwin);
     }
   }
   // the depthwise taps of v as bf16 pairs [9][CP / 2], zero past C
@@ -441,7 +446,7 @@ spectral_apply_tc_kernel(const __nv_bfloat16* __restrict__ x1, const __nv_bfloat
   __syncthreads();
 
   // the halo as bf16, one commit group
-  stage_halo(xh, ld, hsrc, x1, x2, C1, C2, CP, vec_x);
+  stage_halo(xh, ld, hsrc, x1, x2, C1, C2, CP, vec_x, hal);
 
   // the 1x1 weights of pass p: [NP out][64 in] tiles of wv, zero past C
   float acc[kFrontUnits][4][4];
@@ -621,21 +626,24 @@ cudaError_t launch_stats(const float* x1, const float* x2, int C1, int C2, const
 }
 
 // The bf16 tile (spectral_stats.cuh): wqk [2C][C8] (16-byte aligned), taps
-// [2C][9]; C up to kFrontMaxC.
+// [2C][9]; C up to kFrontMaxC; hal, halo a row shard's bf16 halo rows.
 cudaError_t launch_stats_tc(const __nv_bfloat16* x1, const __nv_bfloat16* x2, int C1, int C2,
                             const float* lnw, const float* lnb, const __nv_bfloat16* wqk,
                             const __nv_bfloat16* taps, float* part, float* gram, float* nq,
                             float* nk, int B, int H, int W, int nH, int shift, float eps,
-                            int n_parts, cudaStream_t stream) {
+                            int n_parts, const __nv_bfloat16* hal, int halo,
+                            cudaStream_t stream) {
   const int C = C1 + C2;
-  if (C > kFrontMaxC || !aligned(wqk, 16)) return cudaErrorInvalidValue;
+  if (C > kFrontMaxC || !aligned(wqk, 16) || (halo != 0 && (hal == nullptr || shift != 0)))
+    return cudaErrorInvalidValue;
   const size_t smem = StatsPlan(C, nH).bytes;
   int flags = 0;
-  if (C1 % 8 == 0 && C2 % 8 == 0 && aligned(x1, 16) && aligned(x2, 16)) flags |= kVecX;
+  if (C1 % 8 == 0 && C2 % 8 == 0 && aligned(x1, 16) && aligned(x2, 16) && aligned(hal, 16))
+    flags |= kVecX;
   cudaError_t err = set_smem(spectral_stats_tc_kernel, smem);
   if (err != cudaSuccess) return err;
   spectral_stats_tc_kernel<<<dim3(n_parts, B), kThreads, smem, stream>>>(
-      x1, x2, C1, C2, lnw, lnb, wqk, taps, H, W, nH, shift, eps, flags, part);
+      x1, x2, C1, C2, lnw, lnb, wqk, taps, H, W, nH, shift, eps, flags, hal, halo, part);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   return launch_sum_stats(part, gram, nq, nk, B, n_parts, C, C / nH, stream);
 }
@@ -648,7 +656,8 @@ cudaError_t launch_apply_f32(const float* x1, const float* x2, int C1, int C2, c
                              int residual, const float* ln2w, const float* ln2b, const float* w1,
                              const float* b1, const float* w2, const float* b2, int hid,
                              const float* dp, float* out, int B, int H, int W, int shift,
-                             float eps, const float* hal, int halo, cudaStream_t stream) {
+                             float eps, const float* hal, int halo, int gwin,
+                             cudaStream_t stream) {
   const int C = C1 + C2;
   const bool tail = w1 != nullptr;
   if (!aligned(wv, 16) || !aligned(combt, 16) || (tail && (!aligned(w1, 16) || !aligned(w2, 16))) ||
@@ -665,13 +674,14 @@ cudaError_t launch_apply_f32(const float* x1, const float* x2, int C1, int C2, c
   if (err != cudaSuccess) return err;
   spectral_apply_f32_kernel<<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
       x1, x2, C1, C2, lnw, lnb, wv, taps, combt, gate, shortcut, residual, ln2w, ln2b, w1, b1,
-      w2, b2, hid, dp, out, H, W, shift, eps, flags, tail ? tail_f32_stages(C) : 0, hal, halo);
+      w2, b2, hid, dp, out, H, W, shift, eps, flags, tail ? tail_f32_stages(C) : 0, hal, halo,
+      gwin);
   return cudaGetLastError();
 }
 
 // The bf16 tile (spectral_front.cuh): wv [C][C8], taps [C][9], comb
 // [B][C][C8] bf16 (C8 = C rounded up to 8; wv and comb 16-byte aligned); C up
-// to kFrontMaxC.
+// to kFrontMaxC; hal, halo a row shard's bf16 halo rows.
 cudaError_t launch_apply_tc(const __nv_bfloat16* x1, const __nv_bfloat16* x2, int C1, int C2,
                             const float* lnw, const float* lnb, const __nv_bfloat16* wv,
                             const __nv_bfloat16* taps, const __nv_bfloat16* comb,
@@ -679,14 +689,18 @@ cudaError_t launch_apply_tc(const __nv_bfloat16* x1, const __nv_bfloat16* x2, in
                             int residual, const float* ln2w, const float* ln2b,
                             const __nv_bfloat16* w1, const float* b1, const __nv_bfloat16* w2,
                             const float* b2, int hid, const float* dp, __nv_bfloat16* out, int B,
-                            int H, int W, int shift, float eps, cudaStream_t stream) {
+                            int H, int W, int shift, float eps, const __nv_bfloat16* hal,
+                            int halo, int gwin, cudaStream_t stream) {
   const int C = C1 + C2;
-  if (C > kFrontMaxC || !aligned(wv, 16) || !aligned(comb, 16)) return cudaErrorInvalidValue;
+  if (C > kFrontMaxC || !aligned(wv, 16) || !aligned(comb, 16) ||
+      (halo != 0 && (hal == nullptr || shift != 0)))
+    return cudaErrorInvalidValue;
   const bool tail = w1 != nullptr;
   const FrontPlan pl(C);
   const size_t smem = pl.bytes(tail);
   int flags = 0;
-  if (C1 % 8 == 0 && C2 % 8 == 0 && aligned(x1, 16) && aligned(x2, 16)) flags |= kVecX;
+  if (C1 % 8 == 0 && C2 % 8 == 0 && aligned(x1, 16) && aligned(x2, 16) && aligned(hal, 16))
+    flags |= kVecX;
   if (C1 % 2 == 0 && C2 % 2 == 0 && aligned(x1, 4) && aligned(x2, 4) && aligned(gate, 4) &&
       aligned(shortcut, 4))
     flags |= kPairs;
@@ -695,7 +709,8 @@ cudaError_t launch_apply_tc(const __nv_bfloat16* x1, const __nv_bfloat16* x2, in
   if (err != cudaSuccess) return err;
   spectral_apply_tc_kernel<<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
       x1, x2, C1, C2, lnw, lnb, wv, taps, comb, gate, shortcut, residual, ln2w, ln2b, w1, b1, w2,
-      b2, hid, dp, out, H, W, shift, eps, flags, tail ? tail_stages(C, smem - pl.y) : 0);
+      b2, hid, dp, out, H, W, shift, eps, flags, tail ? tail_stages(C, smem - pl.y) : 0, hal,
+      halo, gwin);
   return cudaGetLastError();
 }
 
@@ -708,30 +723,6 @@ cudaError_t launch_apply_tc(const __nv_bfloat16* x1, const __nv_bfloat16* x2, in
 // runs the depthwise-conv backward, the 1x1 + LayerNorm backward (which rolls
 // dx back into the input's frame) and the weight products.
 // ---------------------------------------------------------------------------
-
-// Whether tile row ty of the backward reads a row shard's halo row `side`: 0
-// the row above the shard (the first tile row, halo bit 0), 1 the row below
-// (the last tile row, bit 1).
-__device__ __forceinline__ bool shard_row(int side, int ty, int H, int halo) {
-  return side == 0 ? ty == 0 && (halo & 1) : ty == H / kTile - 1 && (halo & 2);
-}
-
-// Writes this tile's 8 columns of its halo row `side` (halo row 0 or 9 of s,
-// [kHaloPix][ld], its first n columns) to out [2][B][W][ldo], column j of s
-// to column col(j) of out: the halo row's (LN'd) input or 1x1 output, which
-// the rest of the backward reads for the halo rows' cotangents and their
-// share of the weight gradients.
-template <typename Col>
-__device__ __forceinline__ void halo_row_out(float* __restrict__ out, const float* s, int ld,
-                                             int n, int side, int b, int tx, int W, int ldo,
-                                             Col col) {
-  const int row = side == 0 ? 0 : kHalo - 1;
-  for (int idx = threadIdx.x; idx < kTile * n; idx += blockDim.x) {
-    const int c = idx / n, j = idx - c * n;
-    out[(((size_t)side * gridDim.z + b) * W + tx * kTile + c) * ldo + col(j)] =
-        s[(row * kHalo + c + 1) * ld + j];
-  }
-}
 
 // VJP of the stats launch (K10a), float32 (bf16 runs the tiles of
 // spectral_stats.cuh and dwconv_dx.cuh): dq = k dG^T + 2 q dnq, dk = q dG +
@@ -825,7 +816,8 @@ spectral_apply_bwd_kernel(const T* __restrict__ x, const float* __restrict__ lnw
                           T* __restrict__ dys_out, float* __restrict__ dv_out,
                           float* __restrict__ extra_out, float* __restrict__ pdp, int H, int W,
                           int C, int shift, float eps, int kc, const float* __restrict__ hal,
-                          int halo, float* __restrict__ un_halo, float* __restrict__ t_halo) {
+                          int halo, float* __restrict__ un_halo, float* __restrict__ t_halo,
+                          int gwin) {
   extern __shared__ float sm[];
   __shared__ float red[kThreads / 32];
   const int C3 = 3 * C;
@@ -848,7 +840,7 @@ spectral_apply_bwd_kernel(const T* __restrict__ x, const float* __restrict__ lnw
   };
   auto gate_at = [&](int i, int j) {
     const int r = (ty * kTile + (i >> 3) - shift + H) % H, c = (tx * kTile + (i & 7) - shift + W) % W;
-    return to_f(gate[(((size_t)b * (H / kTile) + r / kTile) * (W / kTile) + c / kTile) * C + j]);
+    return to_f(gate[(size_t)gate_row(b, r, c, H, W, gwin) * C + j]);
   };
   // the (LN'd) input of this tile's pixels, channels [c0, c0 + nc) of xs
   // (and of a row shard's halo rows that this tile reads)
@@ -936,20 +928,21 @@ spectral_apply_bwd_kernel(const T* __restrict__ x, const float* __restrict__ lnw
 }
 
 // d gate[b][window][k] = sum over the window's pixels (rolled frame) of
-// dys * x: the per-window gate multiplies the raw input (K10b's dgate).
+// dys * x: the per-window gate multiplies the raw input (K10b's dgate); one
+// block a window of gwin x gwin pixels (gwin 1: a per-pixel gate map).
 template <typename T>
 __global__ void spectral_gate_grad_kernel(const T* __restrict__ dys, const T* __restrict__ x,
                                           float* __restrict__ dgate, int H, int W, int C,
-                                          int shift) {
+                                          int shift, int gwin) {
   const int wx = blockIdx.x, wy = blockIdx.y, b = blockIdx.z;
   for (int k = threadIdx.x; k < C; k += blockDim.x) {
     float s = 0.f;
-    for (int i = 0; i < kPix; ++i) {
-      const int r = wy * kTile + (i >> 3), c = wx * kTile + (i & 7);
+    for (int i = 0; i < gwin * gwin; ++i) {
+      const int r = wy * gwin + i / gwin, c = wx * gwin + i % gwin;
       const size_t u = ((size_t)b * H + (r + shift) % H) * W + (c + shift) % W;
       s = fmaf(to_f(dys[u * C + k]), to_f(x[(((size_t)b * H + r) * W + c) * C + k]), s);
     }
-    dgate[(((size_t)b * (H / kTile) + wy) * (W / kTile) + wx) * C + k] = s;
+    dgate[(size_t)gate_row(b, wy * gwin, wx * gwin, H, W, gwin) * C + k] = s;
   }
 }
 
@@ -995,19 +988,24 @@ cudaError_t launch_stats_bwd(const void* x, const float* lnw, const float* lnb, 
 // The bf16 stats backward's two tiles: launch 1 (spectral_stats.cuh) writes
 // un, t and dqk; launch 2 (dwconv_dx.cuh, K = 2C) dtt, dx and the per-tile
 // partials. wqk [2C][C8] and taps [2C][9] as the forward tile's; C up to
-// kFrontMaxC.
+// kFrontMaxC; hal, halo, un_halo, t_halo a row shard's (shift 0).
 cudaError_t launch_stats_bwd_tc(const __nv_bfloat16* x, const float* lnw, const float* lnb,
                                 const __nv_bfloat16* wqk, const __nv_bfloat16* taps,
                                 const float* dgram, const float* dnq, const float* dnk,
                                 __nv_bfloat16* un, __nv_bfloat16* t, float* dqk, int B, int H,
-                                int W, int C, int nH, int shift, float eps, cudaStream_t stream) {
-  if (C > kFrontMaxC || !aligned(wqk, 16)) return cudaErrorInvalidValue;
+                                int W, int C, int nH, int shift, float eps,
+                                const __nv_bfloat16* hal, int halo, __nv_bfloat16* un_halo,
+                                __nv_bfloat16* t_halo, cudaStream_t stream) {
+  if (C > kFrontMaxC || !aligned(wqk, 16) ||
+      (halo != 0 && (hal == nullptr || un_halo == nullptr || t_halo == nullptr || shift != 0)))
+    return cudaErrorInvalidValue;
   const size_t smem = StatsBwdPlan(C, nH).bytes;
-  const int flags = C % 8 == 0 && aligned(x, 16) && aligned(un, 16) ? kVecX : 0;
+  const int flags = C % 8 == 0 && aligned(x, 16) && aligned(un, 16) && aligned(hal, 16) ? kVecX : 0;
   cudaError_t err = set_smem(spectral_stats_bwd_tc_kernel, smem);
   if (err != cudaSuccess) return err;
   spectral_stats_bwd_tc_kernel<<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
-      x, lnw, lnb, wqk, taps, dgram, dnq, dnk, C, H, W, nH, shift, eps, flags, un, t, dqk);
+      x, lnw, lnb, wqk, taps, dgram, dnq, dnk, C, H, W, nH, shift, eps, flags, un, t, dqk, hal,
+      halo, un_halo, t_halo);
   return cudaGetLastError();
 }
 
@@ -1028,7 +1026,8 @@ cudaError_t launch_dwconv_dx_tc(const float* dout, const __nv_bfloat16* t,
 }
 
 // The bf16 apply backward's first tile (spectral_apply_bwd.cuh): wv [C][C8],
-// taps [C][9] and comb [B][C][C8] as the forward tile's; C up to kFrontMaxC.
+// taps [C][9] and comb [B][C][C8] as the forward tile's; C up to kFrontMaxC;
+// hal, halo, un_halo, t_halo a row shard's (shift 0).
 cudaError_t launch_apply_bwd_tc(const __nv_bfloat16* x, const float* lnw, const float* lnb,
                                 const __nv_bfloat16* wv, const __nv_bfloat16* taps,
                                 const __nv_bfloat16* comb, const __nv_bfloat16* gate,
@@ -1036,11 +1035,14 @@ cudaError_t launch_apply_bwd_tc(const __nv_bfloat16* x, const float* lnw, const 
                                 __nv_bfloat16* un, __nv_bfloat16* t, __nv_bfloat16* v,
                                 __nv_bfloat16* dys, float* dv, float* extra, float* pdp, int ldp,
                                 int B, int H, int W, int C, int shift, float eps,
-                                cudaStream_t stream) {
-  if (C > kFrontMaxC || !aligned(wv, 16) || !aligned(comb, 16)) return cudaErrorInvalidValue;
+                                const __nv_bfloat16* hal, int halo, __nv_bfloat16* un_halo,
+                                __nv_bfloat16* t_halo, int gwin, cudaStream_t stream) {
+  if (C > kFrontMaxC || !aligned(wv, 16) || !aligned(comb, 16) ||
+      (halo != 0 && (hal == nullptr || un_halo == nullptr || t_halo == nullptr || shift != 0)))
+    return cudaErrorInvalidValue;
   const size_t smem = ApplyBwdPlan(C).bytes;
   int flags = 0;
-  if (C % 8 == 0 && aligned(x, 16)) flags |= kVecX;
+  if (C % 8 == 0 && aligned(x, 16) && aligned(hal, 16)) flags |= kVecX;
   if (C % 2 == 0 && aligned(x, 4) && aligned(gate, 4) && aligned(dy, 4) && aligned(dys, 4) &&
       aligned(dv, 8) && aligned(extra, 8))
     flags |= kPairs;
@@ -1049,7 +1051,7 @@ cudaError_t launch_apply_bwd_tc(const __nv_bfloat16* x, const float* lnw, const 
   if (err != cudaSuccess) return err;
   spectral_apply_bwd_tc_kernel<<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
       x, lnw, lnb, wv, taps, comb, gate, dp, residual, dy, H, W, C, shift, eps, flags, un, t, v,
-      dys, dv, extra, pdp, ldp);
+      dys, dv, extra, pdp, ldp, hal, halo, un_halo, t_halo, gwin);
   return cudaGetLastError();
 }
 
@@ -1078,7 +1080,7 @@ cudaError_t launch_apply_bwd(const void* x, const float* lnw, const float* lnb, 
                              void* v, void* dys, float* dv, float* extra, float* pdp,
                              float* dgate, int B, int H, int W, int C, int shift, int kc,
                              float eps, const float* hal, int halo, float* un_halo,
-                             float* t_halo, cudaStream_t stream) {
+                             float* t_halo, int gwin, cudaStream_t stream) {
   const size_t smem = apply_bwd_smem(C, kc);
   const auto kernel = apply_bwd_kernel<T>(kc, C);
   cudaError_t err = set_smem(kernel, smem);
@@ -1087,11 +1089,11 @@ cudaError_t launch_apply_bwd(const void* x, const float* lnw, const float* lnb, 
   kernel<<<grid, kThreads, smem, stream>>>(
       (const T*)x, lnw, lnb, (const T*)wqkv, (const T*)wdw, comb, (const T*)gate, dp, residual,
       (const T*)dy, (T*)un, t, (T*)v, (T*)dys, dv, extra, pdp, H, W, C, shift, eps, kc, hal, halo,
-      un_halo, t_halo);
+      un_halo, t_halo, gwin);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (gate != nullptr)
-    spectral_gate_grad_kernel<T><<<grid, 256, 0, stream>>>((const T*)dys, (const T*)x, dgate, H,
-                                                           W, C, shift);
+    spectral_gate_grad_kernel<T><<<dim3(W / gwin, H / gwin, B), 256, 0, stream>>>(
+        (const T*)dys, (const T*)x, dgate, H, W, C, shift, gwin);
   return cudaGetLastError();
 }
 
@@ -1103,9 +1105,9 @@ cudaError_t launch_apply_bwd(const void* x, const float* lnw, const float* lnb, 
 // rounded up to 8, zero past C; 16-byte aligned), wdw their depthwise taps
 // ([2C][9]); float32 takes heads up to 96 wide, bf16 C up to 384. Partial buffer part [B][n_parts][C*dh + 2C] (n_parts from
 // mp_spectral_stats_parts). Outputs (float32): gram [B][C][dh] (row h*dh + d,
-// col e), nq and nk [B][nH][dh]. A row shard of a larger map (float32 only,
-// shift 0): halo [2][B][W][C1 + C2] float32 holds the row above the shard
-// and the row below it, of cat(x1, x2); halo_flags bit 0 says the row above
+// col e), nq and nk [B][nH][dh]. A row shard of a larger map (shift 0): halo
+// [2][B][W][C1 + C2] in the compute type holds the row above the shard and
+// the row below it, of cat(x1, x2); halo_flags bit 0 says the row above
 // is real data (else the shard's top is the image edge), bit 1 the row
 // below. halo_flags 0: the shard is the whole map (halo may be NULL).
 extern "C" int mp_spectral_stats(const void* x1, const void* x2, const void* lnw,
@@ -1113,8 +1115,7 @@ extern "C" int mp_spectral_stats(const void* x1, const void* x2, const void* lnw
                                  void* gram, void* nq, void* nk, const void* halo, int dtype,
                                  int B, int H, int W, int C1, int C2, int nH, int shift,
                                  float eps, int n_parts, int halo_flags, void* stream) {
-  if ((C1 + C2) % nH != 0 || H % mp::kTile != 0 || W % mp::kTile != 0 || n_parts <= 0 ||
-      (halo_flags != 0 && dtype != 0))
+  if ((C1 + C2) % nH != 0 || H % mp::kTile != 0 || W % mp::kTile != 0 || n_parts <= 0)
     return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   auto f = [](const void* p) { return (const float*)p; };
@@ -1124,7 +1125,8 @@ extern "C" int mp_spectral_stats(const void* x1, const void* x2, const void* lnw
                                  k, B, H, W, nH, shift, eps, n_parts, f(halo), halo_flags, st);
   using bf = const __nv_bfloat16*;
   return (int)mp::launch_stats_tc((bf)x1, (bf)x2, C1, C2, f(lnw), f(lnb), (bf)wqkv, (bf)wdw, pt, g,
-                                  q, k, B, H, W, nH, shift, eps, n_parts, st);
+                                  q, k, B, H, W, nH, shift, eps, n_parts, (bf)halo, halo_flags,
+                                  st);
 }
 
 // The parts per image a stats launch takes (0 on a device error): the
@@ -1134,7 +1136,9 @@ extern "C" int mp_spectral_stats_parts(int dtype, int B, int H, int W, int C, in
 }
 
 // comb [B][C][C] (row: v channel h*dh + e, col: output channel). gate (B,
-// H/8, W/8, C) per-window gates of the rolled frame, shortcut (B, H, W, C),
+// H/8, W/8, C) per-window gates of the rolled frame (gate_win 8), or (B, H,
+// W, C) a per-pixel gate map (gate_win 1; a row shard's, as JAX's
+// gate_map), shortcut (B, H, W, C),
 // residual adds the raw input; dp (B,) float32 per-sample drop-path scales of
 // the branch (NULL = none); w1 / w2 the PGSSTB tail (NULL = none). Output (B,
 // H, W, C) in the unrolled frame.
@@ -1145,8 +1149,8 @@ extern "C" int mp_spectral_stats_parts(int dtype, int B, int H, int W, int C, in
 // float32 (dtype 0): comb transposed, [B][C out][C8 in] float32 (16-byte
 // aligned; pack_front_f32).
 // bf16 (dtype 1, C <= 384): comb bf16 [B][C][C8] (16-byte aligned).
-// halo, halo_flags: a row shard's halo rows, as mp_spectral_stats' (float32
-// only, shift 0).
+// halo, halo_flags: a row shard's halo rows, as mp_spectral_stats' (shift
+// 0).
 extern "C" int mp_spectral_apply(const void* x1, const void* x2, const void* lnw,
                                  const void* lnb, const void* wqkv, const void* wdw,
                                  const void* comb, const void* gate, const void* shortcut,
@@ -1154,8 +1158,8 @@ extern "C" int mp_spectral_apply(const void* x1, const void* x2, const void* lnw
                                  const void* b1, const void* w2, const void* b2, const void* dp,
                                  void* out, const void* halo, int dtype, int B, int H, int W,
                                  int C1, int C2, int residual, int hid, int shift, float eps,
-                                 int halo_flags, void* stream) {
-  if (H % mp::kTile != 0 || W % mp::kTile != 0 || (halo_flags != 0 && dtype != 0))
+                                 int halo_flags, int gate_win, void* stream) {
+  if (H % mp::kTile != 0 || W % mp::kTile != 0 || (gate_win != 1 && gate_win != mp::kTile))
     return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   auto f = [](const void* p) { return (const float*)p; };
@@ -1163,12 +1167,12 @@ extern "C" int mp_spectral_apply(const void* x1, const void* x2, const void* lnw
     return (int)mp::launch_apply_f32(f(x1), f(x2), C1, C2, f(lnw), f(lnb), f(wqkv), f(wdw),
                                      f(comb), f(gate), f(shortcut), residual, f(ln2w), f(ln2b),
                                      f(w1), f(b1), f(w2), f(b2), hid, f(dp), (float*)out, B, H,
-                                     W, shift, eps, f(halo), halo_flags, st);
+                                     W, shift, eps, f(halo), halo_flags, gate_win, st);
   using bf = const __nv_bfloat16*;
   return (int)mp::launch_apply_tc((bf)x1, (bf)x2, C1, C2, f(lnw), f(lnb), (bf)wqkv, (bf)wdw,
                                   (bf)comb, (bf)gate, (bf)shortcut, residual, f(ln2w), f(ln2b),
                                   (bf)w1, f(b1), (bf)w2, f(b2), hid, f(dp), (__nv_bfloat16*)out,
-                                  B, H, W, shift, eps, st);
+                                  B, H, W, shift, eps, (bf)halo, halo_flags, gate_win, st);
 }
 
 // The device's opt-in shared-memory limit per block, in bytes.
@@ -1254,17 +1258,25 @@ extern "C" int mp_spectral_stats_bwd(const void* x, const void* lnw, const void*
 // aligned) and taps [2C][9] bf16 (the forward tile's operands); dgram (B, C,
 // dh), dnq / dnk (B, nH, dh) float32. Outputs, unrolled frame, torch channel
 // order: un (B, H, W, C) bf16, t (B, H, W, 2C) bf16, dqk (B, H, W, 2C) float32.
+// A row shard (shift 0): hal [2][B][W][C] bf16 and halo_flags as
+// mp_spectral_stats's; then un_halo [2][B][W][C] and t_halo [2][B][W][2C]
+// (bf16) receive the LN'd input and the q|k 1x1 output of each real halo row
+// (the other side's rows are not written). halo_flags 0: all three may be
+// NULL.
 extern "C" int mp_spectral_stats_bwd_tc(const void* x, const void* lnw, const void* lnb,
                                         const void* wqk, const void* taps, const void* dgram,
                                         const void* dnq, const void* dnk, void* un, void* t,
-                                        void* dqk, int B, int H, int W, int C, int nH, int shift,
-                                        float eps, void* stream) {
+                                        void* dqk, const void* hal, void* un_halo, void* t_halo,
+                                        int B, int H, int W, int C, int nH, int shift, float eps,
+                                        int halo_flags, void* stream) {
   if (C % nH != 0 || H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
   using bf = const __nv_bfloat16*;
+  using bo = __nv_bfloat16*;
   auto f = [](const void* p) { return (const float*)p; };
   return (int)mp::launch_stats_bwd_tc((bf)x, f(lnw), f(lnb), (bf)wqk, (bf)taps, f(dgram), f(dnq),
-                                      f(dnk), (__nv_bfloat16*)un, (__nv_bfloat16*)t, (float*)dqk,
-                                      B, H, W, C, nH, shift, eps, (cudaStream_t)stream);
+                                      f(dnk), (bo)un, (bo)t, (float*)dqk, B, H, W, C, nH, shift,
+                                      eps, (bf)hal, halo_flags, (bo)un_halo, (bo)t_halo,
+                                      (cudaStream_t)stream);
 }
 
 // The second tile (C <= 384): the backward of [LN ->] 1x1 -> depthwise 3x3
@@ -1288,18 +1300,25 @@ extern "C" int mp_dwconv_dx_tc(const void* dout, const void* t, const void* taps
 // The bf16 backward of mp_spectral_apply (C <= 384), first tile: x (B, H,
 // W, C) bf16, LN float32 or NULL; wv [C][C8], taps [C][9], comb [B][C][C8]
 // bf16 (pack_front's operands, wv and comb 16-byte aligned); gate (B, H/8,
-// W/8, C) bf16, dp (B,) float32, each NULL = none; dy (B, H, W, C) bf16,
+// W/8, C) bf16 (gate_win 8; a gate map (B, H, W, C) at gate_win 1), dp (B,)
+// float32, each NULL = none; dy (B, H, W, C) bf16,
 // unrolled frame. Outputs, unrolled frame: un, t, v (B, H, W, C) bf16, dys
 // (dy * dp rounded; with dp only), dv (B, H, W, C) float32, extra (float32;
 // NULL without gate and residual), pdp (with dp: the d dp column of every
-// tile's part row, row stride ldp).
+// tile's part row, row stride ldp). A row shard (shift 0): hal [2][B][W][C]
+// bf16 and halo_flags as mp_spectral_apply's; then un_halo and t_halo
+// ([2][B][W][C] bf16) receive the LN'd input and the v 1x1 output of each
+// real halo row. halo_flags 0: all three may be NULL.
 extern "C" int mp_spectral_apply_bwd_tc(const void* x, const void* lnw, const void* lnb,
                                         const void* wv, const void* taps, const void* comb,
                                         const void* gate, const void* dp, const void* dy, void* un,
                                         void* t, void* v, void* dys, void* dv, void* extra,
-                                        void* pdp, int B, int H, int W, int C, int residual,
-                                        int shift, int ldp, float eps, void* stream) {
-  if (H % mp::kTile != 0 || W % mp::kTile != 0 || (dp != nullptr) != (dys != nullptr))
+                                        void* pdp, const void* hal, void* un_halo, void* t_halo,
+                                        int B, int H, int W, int C, int residual, int shift,
+                                        int ldp, float eps, int halo_flags, int gate_win,
+                                        void* stream) {
+  if (H % mp::kTile != 0 || W % mp::kTile != 0 || (dp != nullptr) != (dys != nullptr) ||
+      (gate_win != 1 && gate_win != mp::kTile))
     return (int)cudaErrorInvalidValue;
   using bf = const __nv_bfloat16*;
   using bo = __nv_bfloat16*;
@@ -1307,7 +1326,8 @@ extern "C" int mp_spectral_apply_bwd_tc(const void* x, const void* lnw, const vo
   return (int)mp::launch_apply_bwd_tc((bf)x, f(lnw), f(lnb), (bf)wv, (bf)taps, (bf)comb, (bf)gate,
                                       f(dp), residual, (bf)dy, (bo)un, (bo)t, (bo)v, (bo)dys,
                                       (float*)dv, (float*)extra, (float*)pdp, ldp, B, H, W, C,
-                                      shift, eps, (cudaStream_t)stream);
+                                      shift, eps, (bf)hal, halo_flags, (bo)un_halo, (bo)t_halo,
+                                      gate_win, (cudaStream_t)stream);
 }
 
 // Its second tile (C <= 384): dv (B, H, W, C) float32 and t bf16 (unrolled
@@ -1329,13 +1349,16 @@ extern "C" int mp_spectral_apply_dx_tc(const void* dv, const void* t, const void
 }
 
 // d gate (B, H/8, W/8, C) float32 of the bf16 backward: per window of the
-// rolled frame the sum of dys * x (dys (B, H, W, C) unrolled frame, x rolled).
+// rolled frame the sum of dys * x (dys (B, H, W, C) unrolled frame, x
+// rolled); gate_win 1: d gate map (B, H, W, C), dys * x per pixel.
 extern "C" int mp_spectral_gate_grad(const void* dys, const void* x, void* dgate, int B, int H,
-                                     int W, int C, int shift, void* stream) {
-  if (H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
+                                     int W, int C, int shift, int gate_win, void* stream) {
+  if (H % mp::kTile != 0 || W % mp::kTile != 0 || (gate_win != 1 && gate_win != mp::kTile))
+    return (int)cudaErrorInvalidValue;
   mp::spectral_gate_grad_kernel<__nv_bfloat16>
-      <<<dim3(W / mp::kTile, H / mp::kTile, B), 256, 0, (cudaStream_t)stream>>>(
-          (const __nv_bfloat16*)dys, (const __nv_bfloat16*)x, (float*)dgate, H, W, C, shift);
+      <<<dim3(W / gate_win, H / gate_win, B), 256, 0, (cudaStream_t)stream>>>(
+          (const __nv_bfloat16*)dys, (const __nv_bfloat16*)x, (float*)dgate, H, W, C, shift,
+          gate_win);
   return (int)cudaGetLastError();
 }
 
@@ -1354,7 +1377,8 @@ extern "C" long long mp_spectral_apply_bwd_tc_smem(int C, int tile) {
 // unrolled frame: un (LN'd input), t (float32 v 1x1 output), v, dys (dy *
 // dp), dv (float32), extra (float32 input cotangent of the gate / residual
 // epilogue; NULL when neither), pdp (per-tile d dp partials; NULL without
-// dp), dgate (B, H/8, W/8, C) float32. kc: the channel chunk
+// dp), dgate (B, H/8, W/8, C) float32 (gate_win 8; at gate_win 1 gate and
+// dgate are per-pixel maps (B, H, W, C)). kc: the channel chunk
 // (mp_spectral_apply_bwd_chunk). A row shard (shift 0): hal [2][B][W][C]
 // and halo_flags as mp_spectral_apply's; then un_halo [2][B][W][C] and
 // t_halo [2][B][W][C] receive the (LN'd) input and the v 1x1 output of each
@@ -1366,8 +1390,9 @@ extern "C" int mp_spectral_apply_bwd(const void* x, const void* lnw, const void*
                                      void* pdp, void* dgate, const void* hal, void* un_halo,
                                      void* t_halo, int dtype, int B, int H, int W, int C,
                                      int residual, int shift, int kc, float eps, int halo_flags,
-                                     void* stream) {
-  if (H % mp::kTile != 0 || W % mp::kTile != 0 || kc <= 0 || kc > C || dtype != 0)
+                                     int gate_win, void* stream) {
+  if (H % mp::kTile != 0 || W % mp::kTile != 0 || kc <= 0 || kc > C || dtype != 0 ||
+      (gate_win != 1 && gate_win != mp::kTile))
     return (int)cudaErrorInvalidValue;
   if (halo_flags != 0 && (hal == nullptr || un_halo == nullptr || t_halo == nullptr || shift != 0))
     return (int)cudaErrorInvalidValue;
@@ -1376,5 +1401,5 @@ extern "C" int mp_spectral_apply_bwd(const void* x, const void* lnw, const void*
                                           residual, dy, un, (float*)t, v, dys, (float*)dv,
                                           (float*)extra, (float*)pdp, (float*)dgate, B, H, W, C,
                                           shift, kc, eps, f(hal), halo_flags, (float*)un_halo,
-                                          (float*)t_halo, (cudaStream_t)stream);
+                                          (float*)t_halo, gate_win, (cudaStream_t)stream);
 }

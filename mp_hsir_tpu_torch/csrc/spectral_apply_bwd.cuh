@@ -83,12 +83,17 @@ struct ApplyBwdPlan {
 // Arguments: x (B, H, W, C) bf16 (the raw input, read through the roll-back);
 // lnw / lnb float32 or NULL; wv [C][C8], taps [C][9] and comb [B][C][C8] bf16
 // (pack_front's operands; wv and comb 16-byte aligned); gate (B, H/8, W/8,
-// C) bf16 or NULL; dp (B,) float32 or NULL; dy (B, H, W, C) bf16 unrolled
+// C) bf16 or NULL (gwin 8; gwin 1: a per-pixel map (B, H, W, C), gate_row);
+// dp (B,) float32 or NULL; dy (B, H, W, C) bf16 unrolled
 // frame. flags: kVecX (x 16-byte rows), kPairs (bf16 pairs and float pairs),
 // kVecOut (16-byte output rows). Outputs, unrolled frame: un, t, v (B, H, W,
 // C) bf16; dys (with dp); dv (B, H, W, C) float32; extra float32 or NULL
 // (neither gate nor residual); pdp: the d dp column of the part rows (row
-// stride ldp), NULL without dp.
+// stride ldp), NULL without dp. A row shard (shift 0): hal [2][B][W][C] bf16
+// and halo as the forward tile's (kVecX: hal 16-byte aligned too); the first
+// and last tile rows then also write their real halo rows' LN'd input
+// un_halo and v 1x1 output t_halo ([2][B][W][C] bf16), which the halo rows'
+// cotangents and weight-gradient share read.
 __global__ void __launch_bounds__(kThreads)
 spectral_apply_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ lnw,
                              const float* __restrict__ lnb, const __nv_bfloat16* __restrict__ wv,
@@ -100,10 +105,13 @@ spectral_apply_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* _
                              __nv_bfloat16* __restrict__ un_out, __nv_bfloat16* __restrict__ t_out,
                              __nv_bfloat16* __restrict__ v_out, __nv_bfloat16* __restrict__ dys_out,
                              float* __restrict__ dv_out, float* __restrict__ extra_out,
-                             float* __restrict__ pdp, int ldp) {
+                             float* __restrict__ pdp, int ldp,
+                             const __nv_bfloat16* __restrict__ hal, int halo,
+                             __nv_bfloat16* __restrict__ un_halo,
+                             __nv_bfloat16* __restrict__ t_halo, int gwin) {
   using bf16 = __nv_bfloat16;
   extern __shared__ float4 apply_bwd_dyn[];
-  __shared__ int hsrc[kFrontRows];         // halo row -> raw source pixel (-1: zero row)
+  __shared__ int hsrc[kFrontRows];         // halo row -> source pixel (-1: zero row; halo_src)
   __shared__ int esrc[kPix], egate[kPix];  // tile pixel -> raw source pixel, gate row
   __shared__ float red[kThreads / 32];
   const ApplyBwdPlan pl(C);
@@ -123,12 +131,12 @@ spectral_apply_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* _
   auto hp = [](int i) { return ((i >> 3) + 1) * kHalo + (i & 7) + 1; };  // halo row of pixel i
 
   for (int p = threadIdx.x; p < kFrontRows; p += blockDim.x) {
-    hsrc[p] = halo_src(p, b, ty, tx, H, W, shift);
+    hsrc[p] = halo_src(p, b, ty, tx, gridDim.z, H, W, shift, halo);
     if (p < kPix) {
       const int sr = (ty * kTile + (p >> 3) - shift + H) % H;
       const int sc = (tx * kTile + (p & 7) - shift + W) % W;
       esrc[p] = (b * H + sr) * W + sc;
-      egate[p] = (b * (H / kTile) + sr / kTile) * (W / kTile) + sc / kTile;
+      egate[p] = gate_row(b, sr, sc, H, W, gwin);
     }
   }
   for (int i = threadIdx.x; i < 9 * (CP / 2); i += blockDim.x) {
@@ -137,7 +145,7 @@ spectral_apply_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* _
     tp[i] = __halves2bfloat162(c < C ? taps[c * 9 + tap] : z, c + 1 < C ? taps[(c + 1) * 9 + tap] : z);
   }
   __syncthreads();
-  stage_halo(xh, ld, hsrc, x, nullptr, C, 0, CP, vec_x);
+  stage_halo(xh, ld, hsrc, x, nullptr, C, 0, CP, vec_x, hal);
 
   // v: the forward front's passes; t and un on the way
   float acc[kFrontUnits][4][4];
@@ -169,6 +177,9 @@ spectral_apply_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* _
           un_out[pix(i) * C + c] = xh[hp(i) * ld + c];
         }
       }
+      for (int side = 0; side < 2; ++side)
+        if (shard_row(side, ty, H, halo))
+          halo_row_out(un_halo, xh, ld, C, side, b, tx, W, C, [](int j) { return j; });
     }
     halo_1x1(acc, xh, ld, wr, n_units, CP, pl.nk);
     cp_async_wait<0>();
@@ -191,6 +202,9 @@ spectral_apply_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* _
         t_out[pix(i) * C + n0 + c] = rg[hp(i) * ldt + c];
       }
     }
+    for (int side = 0; side < 2; ++side)
+      if (shard_row(side, ty, H, halo))
+        halo_row_out(t_halo, rg, ldt, nt, side, b, tx, W, C, [&](int j) { return n0 + j; });
     dw3_pairs(rg, ldt, tp + n0 / 2, CP / 2, vs + n0, ld, np / 2);
     __syncthreads();
   }

@@ -236,29 +236,75 @@ __device__ __forceinline__ int halo_src(int p, int b, int ty, int tx, int H, int
   return in ? (b * H + (ur - shift + H) % H) * W + (uc - shift + W) % W : -1;
 }
 
+// The source of halo row p of tile (ty, tx) of image b in a row shard of B
+// images: the source above, except on the rows just above and below the
+// shard (-1 and H) where `halo` has bit 0 (above) or bit 1 (below) set. There
+// the row is a neighbour shard's, -2 - q with q = (side B + b) W + column its
+// pixel in the halo rows [2][B][W] (side 0 above, 1 below); the caller keeps
+// shift at 0 then. Without the bit the row is an image edge: zero after the
+// LayerNorm, as at halo 0. The bf16 and float32 tiles share it.
+__device__ __forceinline__ int halo_src(int p, int b, int ty, int tx, int B, int H, int W,
+                                        int shift, int halo) {
+  const int ur = ty * kTile + p / kHalo - 1, uc = tx * kTile + p % kHalo - 1;
+  if (p < kHaloPix && uc >= 0 && uc < W) {
+    if (ur == -1 && (halo & 1)) return -2 - (b * W + uc);
+    if (ur == H && (halo & 2)) return -2 - ((B + b) * W + uc);
+  }
+  return halo_src(p, b, ty, tx, H, W, shift);
+}
+
+// Whether tile row ty of the backward reads a row shard's halo row `side`: 0
+// the row above the shard (the first tile row, halo bit 0), 1 the row below
+// (the last tile row, bit 1).
+__device__ __forceinline__ bool shard_row(int side, int ty, int H, int halo) {
+  return side == 0 ? ty == 0 && (halo & 1) : ty == H / kTile - 1 && (halo & 2);
+}
+
+// Writes this tile's 8 columns of its halo row `side` (halo row 0 or 9 of s,
+// [kHaloPix][ld] float32 or bf16, its first n columns) to out [2][B][W][ldo]
+// of the same type (B = gridDim.z), column j of s to column col(j) of out
+// (none where col(j) < 0, a padding column): the halo row's (LN'd) input or
+// 1x1 output, which the rest of the backward reads for the halo rows'
+// cotangents and their share of the weight gradients.
+template <typename E, typename Col>
+__device__ __forceinline__ void halo_row_out(E* __restrict__ out, const E* s, int ld, int n,
+                                             int side, int b, int tx, int W, int ldo, Col col) {
+  const int row = side == 0 ? 0 : kHalo - 1;
+  for (int idx = threadIdx.x; idx < kTile * n; idx += blockDim.x) {
+    const int c = idx / n, j = idx - c * n, k = col(j);
+    if (k >= 0)
+      out[(((size_t)side * gridDim.z + b) * W + tx * kTile + c) * ldo + k] =
+          s[(row * kHalo + c + 1) * ld + j];
+  }
+}
+
 // Stages the halo of cat(x1, x2) as bf16 [112][ld] (row p from pixel hsrc[p],
-// zero where it is -1 and past C, CP / 8 units of 8 channels a row) by 16-byte
+// a shard's halo row from hal [2][B][W][C1 + C2] where hsrc[p] <= -2, zero
+// where it is -1 and past C, CP / 8 units of 8 channels a row) by 16-byte
 // cp.async copies where vec_x (C1, C2 multiples of 8, 16-byte aligned rows),
 // else element by element; one commit group.
 __device__ __forceinline__ void stage_halo(__nv_bfloat16* xh, int ld, const int* hsrc,
                                            const __nv_bfloat16* __restrict__ x1,
                                            const __nv_bfloat16* __restrict__ x2, int C1, int C2,
-                                           int CP, bool vec_x) {
+                                           int CP, bool vec_x,
+                                           const __nv_bfloat16* __restrict__ hal = nullptr) {
   const int C = C1 + C2, units = CP / 8;
   for (int u = threadIdx.x; u < kFrontRows * units; u += blockDim.x) {
     const int p = u / units, c = (u - p * units) * 8;
     const int pix = hsrc[p];
     __nv_bfloat16* d = xh + p * ld + c;
     if (vec_x) {
-      const bool ok = pix >= 0 && c < C;
-      const __nv_bfloat16* s = !ok ? x1 : c < C1 ? x1 + (size_t)pix * C1 + c
-                                                 : x2 + (size_t)pix * C2 + (c - C1);
+      const bool ok = pix != -1 && c < C;
+      const __nv_bfloat16* s = !ok ? x1 : pix < 0 ? hal + (size_t)(-2 - pix) * C + c
+                                 : c < C1 ? x1 + (size_t)pix * C1 + c
+                                          : x2 + (size_t)pix * C2 + (c - C1);
       cp_async16(smem_u32(d), s, ok ? 16 : 0);
     } else {
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
         const int k = c + e;
-        d[e] = pix < 0 || k >= C ? __float2bfloat16(0.f)
+        d[e] = pix == -1 || k >= C ? __float2bfloat16(0.f)
+             : pix < 0 ? hal[(size_t)(-2 - pix) * C + k]
              : k < C1 ? x1[(size_t)pix * C1 + k] : x2[(size_t)pix * C2 + (k - C1)];
       }
     }
@@ -266,14 +312,15 @@ __device__ __forceinline__ void stage_halo(__nv_bfloat16* xh, int ld, const int*
   cp_async_commit();
 }
 
-// The LayerNorm of the staged halo in place, one warp per in-image row, as
-// ln_rows_inplace computes it (zero rows stay zero).
+// The LayerNorm of the staged halo in place, one warp per row with data (in
+// the image or a shard's halo row), as ln_rows_inplace computes it (zero rows
+// stay zero).
 __device__ __forceinline__ void halo_ln(__nv_bfloat16* xh, int ld, const int* hsrc, int C,
                                         const float* __restrict__ lnw,
                                         const float* __restrict__ lnb, float eps) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int p = warp; p < kHaloPix; p += blockDim.x >> 5) {
-    if (hsrc[p] < 0) continue;
+    if (hsrc[p] == -1) continue;
     __nv_bfloat16* row = xh + p * ld;
     float sum = 0.f;
     for (int k = lane; k < C; k += 32) sum += __bfloat162float(row[k]);

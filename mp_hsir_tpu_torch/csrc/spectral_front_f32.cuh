@@ -44,7 +44,7 @@ __host__ __device__ constexpr size_t f32_stage_bytes(int N) {
 
 // The halo of one tile: row p is raw pixel hsrc[p] of cat(x1, x2) (-1: a
 // zero row; -2 - q: pixel q of the shard's halo rows, hal [2][B][W][C1 +
-// C2], see halo_src_f32); vec: C1, C2 multiples of 4 and x1, x2, hal 16-byte
+// C2], see halo_src); vec: C1, C2 multiples of 4 and x1, x2, hal 16-byte
 // aligned.
 struct HaloF32 {
   const float* x1;
@@ -60,23 +60,6 @@ struct HaloF32 {
   }
   __device__ __forceinline__ float at(int pix, int k) const { return *src(pix, k); }
 };
-
-// The source of halo row p of tile (ty, tx) of image b in a row shard of B
-// images: halo_src's, except on the rows just above and below the shard
-// (-1 and H) where `halo` has bit 0 (above) or bit 1 (below) set. There the
-// row is a neighbour shard's, -2 - q with q = (side B + b) W + column its
-// pixel in the halo rows [2][B][W] (side 0 above, 1 below); the caller keeps
-// shift at 0 then. Without the bit the row is an image edge: zero after the
-// LayerNorm, as at halo 0.
-__device__ __forceinline__ int halo_src_f32(int p, int b, int ty, int tx, int B, int H, int W,
-                                            int shift, int halo) {
-  const int ur = ty * kTile + p / kHalo - 1, uc = tx * kTile + p % kHalo - 1;
-  if (p < kHaloPix && uc >= 0 && uc < W) {
-    if (ur == -1 && (halo & 1)) return -2 - (b * W + uc);
-    if (ur == H && (halo & 2)) return -2 - ((B + b) * W + uc);
-  }
-  return halo_src(p, b, ty, tx, H, W, shift);
-}
 
 // Stages K chunk kt (columns 32 kt ..) of N weight rows into sw ([N][kF32Ld])
 // by 16-byte cp.async: row n from w + row(n) * ldw (-1: a zero row; ldw a

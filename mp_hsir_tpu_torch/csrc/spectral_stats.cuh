@@ -106,16 +106,19 @@ struct StatsPlan {
 
 // Arguments: x1, x2, lnw, lnb as mp_spectral_stats; wqk the q|k rows of wqkv
 // ([2C][C8], torch layout, 16-byte aligned), taps their depthwise taps
-// ([2C][9]); flags: kVecX; part [B][n_parts][C dh + 2C] float32: this block's
-// Gram (row h dh + d, col e), |q|^2, |k|^2 over its tiles.
+// ([2C][9]); flags: kVecX; hal, halo a row shard's halo rows [2][B][W][C]
+// bf16 and which of them are real (halo_src; hal 16-byte aligned with kVecX);
+// part [B][n_parts][C dh + 2C] float32: this block's Gram (row h dh + d, col
+// e), |q|^2, |k|^2 over its tiles.
 __global__ void __launch_bounds__(kThreads)
 spectral_stats_tc_kernel(const __nv_bfloat16* __restrict__ x1, const __nv_bfloat16* __restrict__ x2,
                          int C1, int C2, const float* __restrict__ lnw,
                          const float* __restrict__ lnb, const __nv_bfloat16* __restrict__ wqk,
                          const __nv_bfloat16* __restrict__ taps, int H, int W, int nH, int shift,
-                         float eps, int flags, float* __restrict__ part) {
+                         float eps, int flags, const __nv_bfloat16* __restrict__ hal, int halo,
+                         float* __restrict__ part) {
   extern __shared__ float4 stats_dyn[];
-  __shared__ int hsrc[kFrontRows];  // halo row -> raw source pixel (-1: zero row)
+  __shared__ int hsrc[kFrontRows];  // halo row -> source pixel (-1: zero row; halo_src)
   const int C = C1 + C2;
   const StatsPlan pl(C, nH);
   const int ld = pl.ld, C8 = round_up8(C), dhp = pl.dhp, ldq = pl.GW + 8, ldt = pl.NP + 8;
@@ -148,9 +151,9 @@ spectral_stats_tc_kernel(const __nv_bfloat16* __restrict__ x1, const __nv_bfloat
     const int ty = t / tiles_w, tx = t % tiles_w;
     __syncthreads();  // the last tile's readers of hsrc and the halo are done
     for (int p = threadIdx.x; p < kFrontRows; p += blockDim.x)
-      hsrc[p] = halo_src(p, b, ty, tx, H, W, shift);
+      hsrc[p] = halo_src(p, b, ty, tx, gridDim.y, H, W, shift, halo);
     __syncthreads();
-    stage_halo(xh, ld, hsrc, x1, x2, C1, C2, pl.CP, vec_x);
+    stage_halo(xh, ld, hsrc, x1, x2, C1, C2, pl.CP, vec_x, hal);
     for (int g = 0; g < pl.groups; ++g) {
       const int g0 = g * pl.GW, gw = min(pl.GW, pl.nqk - g0);
       for (int n0 = 0; n0 < gw; n0 += pl.NP) {
@@ -290,8 +293,12 @@ struct StatsBwdPlan {
 // Arguments: x (B, H, W, C) bf16, the raw input, read through the roll-back;
 // lnw, lnb float32 or NULL (no LN); wqk, taps as spectral_stats_tc_kernel;
 // dgram (B, C, dh), dnq, dnk (B, nH, dh) float32; flags: kVecX (C % 8 == 0,
-// x and un 16-byte aligned). Outputs in the unrolled frame: un (B, H, W, C)
-// and t (B, H, W, 2C) bf16, dqk (B, H, W, 2C) float32.
+// x, un and hal 16-byte aligned). Outputs in the unrolled frame: un (B, H, W,
+// C) and t (B, H, W, 2C) bf16, dqk (B, H, W, 2C) float32. A row shard (shift
+// 0): hal [2][B][W][C] bf16 and halo as the forward tile's; the first and
+// last tile rows then also write their real halo rows' LN'd input un_halo
+// [2][B][W][C] and 1x1 output t_halo [2][B][W][2C] (bf16, torch order), which
+// the halo rows' cotangents and weight-gradient share read.
 __global__ void __launch_bounds__(kThreads)
 spectral_stats_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ lnw,
                              const float* __restrict__ lnb, const __nv_bfloat16* __restrict__ wqk,
@@ -299,10 +306,13 @@ spectral_stats_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* _
                              const float* __restrict__ dgram, const float* __restrict__ dnq,
                              const float* __restrict__ dnk, int C, int H, int W, int nH,
                              int shift, float eps, int flags, __nv_bfloat16* __restrict__ un_out,
-                             __nv_bfloat16* __restrict__ t_out, float* __restrict__ dqk_out) {
+                             __nv_bfloat16* __restrict__ t_out, float* __restrict__ dqk_out,
+                             const __nv_bfloat16* __restrict__ hal, int halo,
+                             __nv_bfloat16* __restrict__ un_halo,
+                             __nv_bfloat16* __restrict__ t_halo) {
   using bf16 = __nv_bfloat16;
   extern __shared__ float4 stats_bwd_dyn[];
-  __shared__ int hsrc[kFrontRows];  // halo row -> raw source pixel (-1: zero row)
+  __shared__ int hsrc[kFrontRows];  // halo row -> source pixel (-1: zero row; halo_src)
   const StatsBwdPlan bp(C, nH);
   const StatsPlan& pl = bp.f;
   const int ld = pl.ld, C8 = round_up8(C), dh = pl.dh, dhp = pl.dhp, hw = pl.hw;
@@ -321,7 +331,7 @@ spectral_stats_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* _
   auto hp = [](int i) { return ((i >> 3) + 1) * kHalo + (i & 7) + 1; };  // halo row of pixel i
 
   for (int p = threadIdx.x; p < kFrontRows; p += blockDim.x)
-    hsrc[p] = halo_src(p, b, ty, tx, H, W, shift);
+    hsrc[p] = halo_src(p, b, ty, tx, gridDim.z, H, W, shift, halo);
   // the taps (as the forward), rnd(dG) and dn in the head-grouped order
   for (int i = threadIdx.x; i < 9 * (pl.nqk / 2); i += blockDim.x) {
     const int tap = i / (pl.nqk / 2), n = 2 * (i - tap * (pl.nqk / 2));
@@ -340,7 +350,7 @@ spectral_stats_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* _
     dn[n] = d < dh ? (side ? dnk : dnq)[((size_t)b * nH + h) * dh + d] : 0.f;
   }
   __syncthreads();
-  stage_halo(xh, ld, hsrc, x, nullptr, C, 0, pl.CP, vec_x);
+  stage_halo(xh, ld, hsrc, x, nullptr, C, 0, pl.CP, vec_x, hal);
 
   float acc[kFrontUnits][4][4];
   for (int g = 0; g < pl.groups; ++g) {
@@ -379,6 +389,9 @@ spectral_stats_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* _
             un_out[pix(i) * C + c] = xh[hp(i) * ld + c];
           }
         }
+        for (int side = 0; side < 2; ++side)
+          if (shard_row(side, ty, H, halo))
+            halo_row_out(un_halo, xh, ld, C, side, b, tx, W, C, [](int j) { return j; });
       }
       halo_1x1(acc, xh, ld, wr, n_units, pl.CP, pl.nk);
       cp_async_wait<0>();
@@ -401,6 +414,11 @@ spectral_stats_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* _
           if (r1 >= 0) o[r1] = v.y;
         }
       }
+      // and at the real halo rows of a shard's first / last tile row
+      for (int side = 0; side < 2; ++side)
+        if (shard_row(side, ty, H, halo))
+          halo_row_out(t_halo, rg, ldt, np, side, b, tx, W, C2,
+                       [&](int j) { return qk_row(c0 + j, hw, dhp, dh, C); });
       dw3_pairs(rg, ldt, tp + c0 / 2, pl.nqk / 2, qk + n0, ldq, np / 2);
       __syncthreads();
     }

@@ -86,7 +86,7 @@ struct StatsF32Plan {
 // Arguments: x1, x2, lnw, lnb as mp_spectral_stats (float32); wqk the q|k
 // rows of wqkv ([2C][C8], torch layout, C8 = C rounded up to 8, zero past C;
 // 16-byte aligned), taps their depthwise taps ([2C][9]); hal, halo a row
-// shard's halo rows [2][B][W][C] and which of them are real (halo_src_f32;
+// shard's halo rows [2][B][W][C] and which of them are real (halo_src;
 // they feed only the depthwise of the shard's first and last rows, and
 // nothing is summed over them); vec_x: C1, C2 multiples of 4 and x1, x2,
 // hal 16-byte aligned; part [B][n_parts][C dh + 2C]: this block's Gram (row
@@ -133,7 +133,7 @@ spectral_stats_f32_kernel(const float* __restrict__ x1, const float* __restrict_
       const int ty = t / tiles_w, tx = t % tiles_w;
       __syncthreads();  // the last tile's readers of hsrc, the q|k tile and the ring are done
       for (int p = threadIdx.x; p < kFrontRows; p += blockDim.x)
-        hsrc[p] = halo_src_f32(p, b, ty, tx, gridDim.y, H, W, shift, halo);
+        hsrc[p] = halo_src(p, b, ty, tx, gridDim.y, H, W, shift, halo);
       __syncthreads();
       if (lnw != nullptr)  // read after the first chunk's barrier
         ln_stats_rows(mu, rs, kHaloPix, C, eps, [&](int p, int k) { return hl.at(hsrc[p], k); },

@@ -539,10 +539,10 @@ class PGSSTB(nn.Module):
         shards, the window tile with no roll of its own and the global map's
         region labels of this shard's rows, the PG gate, the roll back, then
         the sharded spectral attention with the gate and shortcut. A shifted
-        block's gates ride back with it as a per-pixel map, folded into the
-        shortcut: out = (x + dp1 * sa * gate_map) + dp1 * attn(sa), with no
-        change to a kernel (JAX passes the map to the kernel as
-        ``gate_map``). Eval: the tail MLP in the apply tile; training: the
+        block's gates ride back with it as a per-pixel map, the apply tile's
+        gate operand as JAX's ``gate_map``: out = x + dp1 * (attn(sa) + sa *
+        gate_map), rounded as on one device. Eval: the tail MLP in the apply
+        tile; training: the
         branch scaled by the drop-path scale ``dp1`` and the MLP kernel
         after it with ``dp2``, as on one device."""
         _count_path("pgsstb_kernels_sharded")
@@ -568,15 +568,9 @@ class PGSSTB(nn.Module):
                                  m.fc2.weight, m.fc2.bias))
         if shift:
             sa = roll_hw(sa, shift, shift, axis)
-            gmap = roll_hw(gate.repeat_interleave(8, dim=1).repeat_interleave(8, dim=2),
+            gate = roll_hw(gate.repeat_interleave(8, dim=1).repeat_interleave(8, dim=2),
                            shift, shift, axis)
-            branch = sa.float() * gmap.float()
-            if dp1 is not None:
-                branch = branch * dp1.float().reshape(b, 1, 1, 1)
-            epilogue["shortcut"] = (x.float() + branch).to(x.dtype)
-        else:
-            epilogue.update(gate=gate, shortcut=x)
-        y = self.gobal_spectral_attn.sharded(sa, axis, **epilogue)
+        y = self.gobal_spectral_attn.sharded(sa, axis, gate=gate, shortcut=x, **epilogue)
         if not self.training:
             return y
         return mlp(y, self.norm2.weight, self.norm2.bias, m.fc1.weight, m.fc1.bias, m.fc2.weight,

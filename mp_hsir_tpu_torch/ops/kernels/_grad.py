@@ -85,7 +85,9 @@ def _entry(name: str):
     if name == "mp_wgrad":
         return _build.entry(name, 4, [ctypes.c_int] * 6)
     if name == "mp_dwconv_bwd":
-        return _build.entry(name, 8, [ctypes.c_int] * 7)
+        return _build.entry(name, 6, [ctypes.c_int] * 6)
+    if name == "mp_dwconv_halo_bwd":
+        return _build.entry(name, 6, [ctypes.c_int] * 6)
     if name == "mp_ln_linear_bwd":
         return _build.entry(name, 11, [ctypes.c_int] * 8 + [ctypes.c_float])
     if name == "mp_sum_parts":
@@ -147,28 +149,42 @@ def wgrad(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out[0] if squeeze else out
 
 
-def dwconv_bwd(dout: torch.Tensor, t: torch.Tensor, wk: torch.Tensor, col0: int, dt: torch.dtype,
-               t_halo=None, halo: int = 0):
+def dwconv_bwd(dout: torch.Tensor, t: torch.Tensor, wk: torch.Tensor, col0: int, dt: torch.dtype):
     """Depthwise backward on the card: dout, t (B, H, W, Cn) float32; wk the
     forward's [9][ldw] taps in ``dt`` with this conv's channels from ``col0``.
-    Returns (d input (B, H, W, Cn) in ``dt``, d taps (9, Cn) float32). A row
-    shard: ``halo`` bit 0 / 1 says the row above / below the shard is a
-    neighbour's, whose t ``t_halo`` [2][B][W][Cn] float32 holds; then it also
-    returns their cotangents [2][B][W][Cn] float32 (zero on a side without
-    its bit)."""
+    Returns (d input (B, H, W, Cn) in ``dt``, d taps (9, Cn) float32), t read
+    as zero beyond the map (a row shard's halo rows: :func:`dwconv_halo_bwd`)."""
     b, h, w, cn = dout.shape
     tiles = b * (h // 8) * (w // 8)
     dx = torch.empty((b, h, w, cn), dtype=dt, device=dout.device)
     part = torch.empty((tiles, 9, cn), dtype=torch.float32, device=dout.device)
     dw = torch.empty((9, cn), dtype=torch.float32, device=dout.device)
-    dt_halo = None if not halo else torch.zeros((2, b, w, cn), dtype=torch.float32,
-                                                device=dout.device)
-    p = _build.ptr
     err = _entry("mp_dwconv_bwd")(dout.data_ptr(), t.data_ptr(), col_ptr(wk, col0), dx.data_ptr(),
-                                  part.data_ptr(), dw.data_ptr(), p(t_halo), p(dt_halo),
-                                  dtype_code(dx), b, h, w, cn, wk.shape[1], halo, stream_ptr())
+                                  part.data_ptr(), dw.data_ptr(), dtype_code(dx), b, h, w, cn,
+                                  wk.shape[1], stream_ptr())
     _build.check("mp_dwconv_bwd", err)
-    return (dx, dw) if not halo else (dx, dw, dt_halo)
+    return dx, dw
+
+
+def dwconv_halo_bwd(dout: torch.Tensor, t_halo: torch.Tensor, taps: torch.Tensor, halo: int):
+    """The halo-row terms of a row shard's depthwise backward on the card
+    (grad.cu's ``mp_dwconv_halo_bwd``), which the stencil kernels leave
+    out: dout (B, H, W, K) float32 at the depthwise output, t_halo
+    [2][B][W][K] the halo rows' depthwise input (above, below), taps [K][9],
+    both in the compute type; ``halo`` bit 0 / 1: the row above / below is
+    real. Returns (the halo rows' cotangents [2][B][W][K] in the compute
+    type, zero on a side without its bit; the taps' gradient share [2][3][K]
+    float32 of the taps' first row (side 0) and last row (side 1))."""
+    b, h, w, k = dout.shape
+    dev = dout.device
+    dt_halo = torch.empty((2, b, w, k), dtype=t_halo.dtype, device=dev)
+    part = torch.empty((2, b * (w // 8), 3, k), dtype=torch.float32, device=dev)
+    dw = torch.empty((2, 3, k), dtype=torch.float32, device=dev)
+    err = _entry("mp_dwconv_halo_bwd")(dout.data_ptr(), t_halo.data_ptr(), taps.data_ptr(),
+                                       dt_halo.data_ptr(), part.data_ptr(), dw.data_ptr(),
+                                       dtype_code(t_halo), b, h, w, k, halo, stream_ptr())
+    _build.check("mp_dwconv_halo_bwd", err)
+    return dt_halo, dw
 
 
 def ln_linear_bwd(d: torch.Tensor, wk: torch.Tensor, col0: int, x: torch.Tensor, ln_w=None,

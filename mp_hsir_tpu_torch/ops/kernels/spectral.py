@@ -14,15 +14,17 @@ Backward (training): ``mp_spectral_stats_bwd`` and ``mp_spectral_apply_bwd``
 plus the shared stages of ``csrc/grad.cu`` replace ``_sp0_bwd_kernel`` /
 ``_sp1_bwd_kernel`` (``mp_hsir_tpu/ops/pallas_vjp.py:1443``, ``:1501``) and
 the two phases of ``_spectral_bwd_kernel`` (``:953``). On a row shard the
-float32 launches take the halo rows as the forward's do and return their
-cotangents (``dtop`` / ``dbot`` of ``_sp0_bwd_kernel`` / ``_sp1_bwd_kernel``,
-which ``_halo_grads``, ``:1783``, sends back to the neighbour shards):
-``mp_spectral_stats_bwd`` / ``mp_spectral_apply_bwd`` also write the halo
-rows' LN'd input and 1x1 output, grad.cu's depthwise backward reads that t
-row in the taps' gradient and writes its cotangent, and grad.cu's 1x1 +
-LayerNorm backward carries it to the raw rows (:func:`_halo_rows_bwd`). The
-halo rows are tensor inputs of the autograd Functions, so their cotangents
-travel back through the exchange that brought them. The bf16 stats
+launches of both types take the halo rows as the forward's do and return
+their cotangents (``dtop`` / ``dbot`` of ``_sp0_bwd_kernel`` /
+``_sp1_bwd_kernel``, which ``_halo_grads``, ``:1783``, sends back to the
+neighbour shards): the first launch also writes the halo rows' LN'd input
+and 1x1 output; the depthwise backward (grad.cu's in float32, the
+tensor-core tile in bf16) reads t as zero beyond the shard, and grad.cu's
+``mp_dwconv_halo_bwd`` adds the halo rows' tap partials and cotangents in
+both types; then grad.cu's 1x1 + LayerNorm backward carries the cotangent to
+the raw rows (:func:`_halo_rows_bwd`). The halo rows are tensor inputs of
+the autograd Functions, so their cotangents travel back through the
+exchange that brought them. The bf16 stats
 backward runs two tensor-core tiles instead of ``mp_spectral_stats_bwd`` and
 grad.cu's depthwise and LayerNorm stages: ``mp_spectral_stats_bwd_tc`` (the
 forward tile's front and dq | dk, ``csrc/spectral_stats.cuh``) and
@@ -35,7 +37,8 @@ apply backward runs two tensor-core tiles too, instead of
 then dv and the drop-path product from one staged comb tile,
 ``csrc/spectral_apply_bwd.cuh``) and ``mp_spectral_apply_dx_tc`` (the same
 second tile at K = C with the extra input cotangent in its epilogue), then
-``mp_spectral_gate_grad``, the two weight products and the in-order sums of
+``mp_spectral_gate_grad`` (per-window gates, or per pixel for a row
+shard's gate map), the two weight products and the in-order sums of
 the per-tile partials (:func:`apply_bwd_tc_plan` mirrors both plans). The
 eval-only options (``x2``, the ``mlp`` tail) have no backward, as in the JAX
 package; a backward through them raises.
@@ -77,8 +80,8 @@ import torch.nn.functional as F
 from mp_hsir_tpu_torch.ops.basic import gelu_exact, layer_norm
 from mp_hsir_tpu_torch.ops.kernels import _build
 from mp_hsir_tpu_torch.ops.kernels._grad import (
-    dwconv3_bwd_plain, dwconv3_f32, dwconv_bwd, grad_or_zeros, ln_bwd_plain, ln_linear_bwd,
-    ln_stats, sum_parts, wgrad,
+    dwconv3_bwd_plain, dwconv3_f32, dwconv_bwd, dwconv_halo_bwd, grad_or_zeros, ln_bwd_plain,
+    ln_linear_bwd, ln_stats, sum_parts, wgrad,
 )
 from mp_hsir_tpu_torch.ops.kernels._route import (
     ROUTE, counter, dtype_code, f32, kernel_weight, stream_ptr,
@@ -91,17 +94,17 @@ STATS = counter("spectral_stats")
 F32_TILE = counter("spectral_stats_f32")
 APPLY = counter("spectral_apply")
 APPLY_F32 = counter("spectral_apply_f32")
-# the launches of a row shard with real halo rows (float32):
-# ("spectral_stats_halo", B, H, W, C1, C2, heads, LN, halo bits) and
-# ("spectral_apply_halo", B, H, W, C1, C2, halo bits)
+# the launches of a row shard with real halo rows, keyed by the compute type:
+# ("spectral_stats_halo", B, H, W, C1, C2, heads, LN, halo bits, dtype) and
+# ("spectral_apply_halo", B, H, W, C1, C2, halo bits, dtype)
 STATS_HALO = counter("spectral_stats_halo")
 APPLY_HALO = counter("spectral_apply_halo")
 STATS_BWD = counter("spectral_stats_bwd")
 APPLY_BWD = counter("spectral_apply_bwd")
-# the float32 backward launches of a row shard with real halo rows, which
-# return the halo rows' cotangents: ("spectral_stats_bwd_halo", B, H, W, C,
-# heads, LN, halo bits) and ("spectral_apply_bwd_halo", B, H, W, C, LN,
-# residual, gate, dp, halo bits)
+# the backward launches of a row shard with real halo rows, which return the
+# halo rows' cotangents: ("spectral_stats_bwd_halo", B, H, W, C, heads, LN,
+# halo bits, dtype) and ("spectral_apply_bwd_halo", B, H, W, C, LN, residual,
+# gate, dp, halo bits, dtype)
 STATS_BWD_HALO = counter("spectral_stats_bwd_halo")
 APPLY_BWD_HALO = counter("spectral_apply_bwd_halo")
 # the bf16 apply tile (csrc/spectral_front.cuh): its widest C (kFrontMaxC),
@@ -400,7 +403,8 @@ def _stats_entry(kind: str = "fwd"):
         return _build.entry("mp_spectral_stats_bwd", 14,
                             [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int])
     if kind == "bwd_tc":
-        return _build.entry("mp_spectral_stats_bwd_tc", 11, [ctypes.c_int] * 6 + [ctypes.c_float])
+        return _build.entry("mp_spectral_stats_bwd_tc", 14,
+                            [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int])
     if kind == "dx_tc":
         return _build.entry("mp_dwconv_dx_tc", 9, [ctypes.c_int] * 6 + [ctypes.c_float])
     return _build.entry("mp_spectral_stats", 11,
@@ -423,22 +427,18 @@ def _stats_parts(*shape: int) -> int:
 
 def _halo_operand(halo, x, x2, shift):
     """(the halo rows [2][B][W][C] in x's type, or None; the kernels' halo
-    bits). Only the float32 tiles and backward launches take real halo rows
+    bits). The tiles and backward launches of both types take real halo rows
     (shift 0)."""
     if halo is None or not halo.flags:
         return None, 0
     b, h, w, c1 = x.shape
     c = c1 + (0 if x2 is None else x2.shape[-1])
-    if x.dtype != torch.float32:
-        raise ValueError("the bf16 spectral tiles take no halo rows yet (only the image edges; "
-                         "their halo rows are the next slice of the port): a row shard runs in "
-                         "float32")
     if shift:
         raise ValueError("a row shard is read in its own frame: halo rows take shift 0")
     if halo.top.shape != (b, 1, w, c) or halo.bot.shape != (b, 1, w, c):
         raise ValueError(f"halo rows must be {(b, 1, w, c)}, got {tuple(halo.top.shape)} and "
                          f"{tuple(halo.bot.shape)}")
-    rows = torch.stack([halo.top[:, 0], halo.bot[:, 0]]).to(torch.float32).contiguous()
+    rows = torch.stack([halo.top[:, 0], halo.bot[:, 0]]).to(x.dtype).contiguous()
     return rows, halo.flags
 
 
@@ -493,13 +493,19 @@ def _stats_launch(x, wqkv, wdw, num_heads, shift, x2, ln_w, ln_b, eps, halo=None
     if x.dtype == torch.float32:
         F32_TILE.record(("spectral_stats_f32", b, h, w, c1, c2, num_heads, shift, ln))
     if halo is not None and halo.flags:
-        STATS_HALO.record(("spectral_stats_halo", b, h, w, c1, c2, num_heads, ln, halo.flags))
+        STATS_HALO.record(("spectral_stats_halo", b, h, w, c1, c2, num_heads, ln, halo.flags,
+                           str(x.dtype)))
     return out
 
 
-def _stats_bwd_tc_launch(x, wqkv, wdw, num_heads, shift, ln_w, ln_b, eps, dgram, dnq, dnk):
+def _stats_bwd_tc_launch(x, wqkv, wdw, num_heads, shift, ln_w, ln_b, eps, dgram, dnq, dnk,
+                         halo=None, rows=None, flags=0):
     """The bf16 backward: the two tiles, the weight product and one in-order
-    sum of the per-tile partials (the taps' [9][2C], then d ln_w, d ln_b)."""
+    sum of the per-tile partials (the taps' [9][2C], then d ln_w, d ln_b).
+    A row shard (``rows``, ``flags`` of :func:`_halo_operand`): tile 1 also
+    writes the halo rows' LN'd input and 1x1 output, ``mp_dwconv_halo_bwd``
+    their cotangents and tap partials, and :func:`_halo_rows_bwd` carries
+    them to d halo.top / d halo.bot (None at an image edge)."""
     b, h, w, c = x.shape
     dt = x.dtype
     if c > FRONT_MAX_C:  # the widest C of both tiles' plans
@@ -519,11 +525,14 @@ def _stats_bwd_tc_launch(x, wqkv, wdw, num_heads, shift, ln_w, ln_b, eps, dgram,
     dtt, dx = torch.empty_like(t), torch.empty_like(x)
     ln = lnw is not None
     part = torch.empty((1, tiles, 18 * c + (2 * c if ln else 0)), dtype=torch.float32, device=dev)
+    # the halo rows' LN'd input and 1x1 output (a side without its bit stays zero)
+    un_h = torch.zeros((2, b, w, c), dtype=dt, device=dev) if flags else None
+    t_h = torch.zeros((2, b, w, 2 * c), dtype=dt, device=dev) if flags else None
     p = _build.ptr
     err = _stats_entry("bwd_tc")(x.data_ptr(), p(lnw), p(lnb), wq.data_ptr(), wd.data_ptr(),
                                  dgram.data_ptr(), dnq.data_ptr(), dnk.data_ptr(), un.data_ptr(),
-                                 t.data_ptr(), dqk.data_ptr(), b, h, w, c, num_heads, shift, eps,
-                                 stream_ptr())
+                                 t.data_ptr(), dqk.data_ptr(), p(rows), p(un_h), p(t_h), b, h, w, c,
+                                 num_heads, shift, eps, flags, stream_ptr())
     _build.check("mp_spectral_stats_bwd_tc", err)
     err = _stats_entry("dx_tc")(dqk.data_ptr(), t.data_ptr(), wd.data_ptr(), wq.data_ptr(),
                                 x.data_ptr(), p(lnw), dtt.data_ptr(), dx.data_ptr(),
@@ -534,33 +543,66 @@ def _stats_bwd_tc_launch(x, wqkv, wdw, num_heads, shift, ln_w, ln_b, eps, dgram,
     sums = sum_parts(part)[0]
     dwdw = torch.zeros((3 * c, 9), dtype=torch.float32, device=dev)
     dwdw[:2 * c] = sums[:18 * c].reshape(9, 2 * c).t()
+    dln = (sums[18 * c:19 * c], sums[19 * c:]) if ln else None
+    dtop = dbot = None
+    if flags:
+        dtop, dbot, dln = _halo_taps_bwd(dqk, t_h, wd, wqkv, 0, rows, ln_w, eps, halo, un_h,
+                                         dw[:2 * c], dwdw[:2 * c], dln)
+        STATS_BWD_HALO.record(("spectral_stats_bwd_halo", b, h, w, c, num_heads, ln, flags,
+                               str(dt)))
     STATS_BWD.record(("spectral_stats_bwd", b, h, w, c, num_heads, shift, ln, str(dt)))
     return (dx, dw.reshape(3 * c, c, 1, 1), dwdw.reshape(3 * c, 1, 3, 3),
-            *((sums[18 * c:19 * c], sums[19 * c:]) if ln else (None, None)))
+            *(dln if ln else (None, None)), dtop, dbot)
 
 
 def _halo_rows_bwd(dt_halo, wk, col0, rows, ln_w, eps, halo, un_halo, dw):
-    """The halo rows' share of a float32 backward on the card: their input
+    """The halo rows' share of a backward on the card: their input
     cotangents, from the cotangents ``dt_halo`` [2][B][W][K] of their 1x1
-    output (:func:`~mp_hsir_tpu_torch.ops.kernels._grad.dwconv_bwd`) through
-    grad.cu's 1x1 + LayerNorm backward on the raw rows ``rows``
-    [2][B][W][C]; the 2B rows are packed as whole 8-row tiles of zeros
-    beyond them, which add nothing. Adds their 1x1 weight gradient
-    (``un_halo`` [2][B][W][C] their LN'd input) into ``dw`` [K][C]; returns
-    (d top, d bot (None at an image edge), (d ln_w, d ln_b) or None)."""
+    output (:func:`~mp_hsir_tpu_torch.ops.kernels._grad.dwconv_halo_bwd`, in
+    the compute type)
+    through grad.cu's float32 1x1 + LayerNorm backward (``wk`` the float32
+    [C][ldw] operand: bf16 weights widen exactly) on the raw rows ``rows``
+    [2][B][W][C], rounded to the rows' type as the plain version rounds;
+    the 2B rows are packed as whole 8-row tiles of zeros beyond them, which
+    add nothing. Adds their 1x1 weight gradient (``un_halo`` [2][B][W][C]
+    their LN'd input, ``dt_halo``'s type) into ``dw`` [K][C]; returns (d top,
+    d bot (None at an image edge), (d ln_w, d ln_b) or None)."""
     _, b, w, k = dt_halo.shape
     c = rows.shape[-1]
     n = 2 * b
     g = -(-n // 8)
-    d = dt_halo.new_zeros((g * 8, w, k))
+    f32 = dict(dtype=torch.float32, device=rows.device)
+    d = torch.zeros((g * 8, w, k), **f32)
     d[:n] = dt_halo.reshape(n, w, k)
-    xr = rows.new_zeros((g * 8, w, c))
+    xr = torch.zeros((g * 8, w, c), **f32)
     xr[:n] = rows.reshape(n, w, c)
     dx, dln, _ = ln_linear_bwd(d.reshape(g, 8, w, k), wk, col0, xr.reshape(g, 8, w, c), ln_w,
                                eps=eps)
-    dx = dx.reshape(g * 8, w, c)[:n].reshape(2, b, 1, w, c)
+    dx = dx.reshape(g * 8, w, c)[:n].reshape(2, b, 1, w, c).to(rows.dtype)
     dw += wgrad(un_halo.reshape(-1, c), dt_halo.reshape(-1, k)).t()
     return None if halo.edge_top else dx[0], None if halo.edge_bot else dx[1], dln
+
+
+def _taps(wdw, col0: int, k: int) -> torch.Tensor:
+    """The float32 depthwise taps [K][9] of channels [col0, col0 + k)."""
+    return wdw.reshape(-1, 9)[col0:col0 + k].float().contiguous()
+
+
+def _halo_taps_bwd(dout, t_h, taps, wqkv, col0, rows, ln_w, eps, halo, un_h, dw, dwdw, dln):
+    """The halo rows' share of a backward on the card, after its stencil:
+    ``mp_dwconv_halo_bwd`` on the cotangent ``dout`` at the depthwise output
+    and the halo rows' 1x1 output ``t_h`` (taps [K][9], both in the compute
+    type) adds their tap partials into ``dwdw`` [K][9] (the taps' first row
+    from the row above, the last from the row below), then
+    :func:`_halo_rows_bwd` their input cotangents, their 1x1 weight gradient
+    into ``dw`` [K][C] and their LayerNorm share into ``dln``. Returns (d
+    top, d bot, dln)."""
+    dt_h, dw_h = dwconv_halo_bwd(dout, t_h, taps, halo.flags)
+    dwdw[:, :3] += dw_h[0].t()
+    dwdw[:, 6:] += dw_h[1].t()
+    wk = kernel_weight(wqkv.to(t_h.dtype), torch.float32)
+    dtop, dbot, dln_h = _halo_rows_bwd(dt_h, wk, col0, rows, ln_w, eps, halo, un_h, dw)
+    return dtop, dbot, _add_ln(dln, dln_h)
 
 
 def _add_ln(dln, extra):
@@ -574,8 +616,8 @@ def _stats_bwd_launch(x, wqkv, wdw, num_heads, shift, ln_w, ln_b, eps, dgram, dn
                       halo=None):
     rows, flags = _halo_operand(halo, x, None, shift)
     if x.dtype == torch.bfloat16:
-        return (*_stats_bwd_tc_launch(x, wqkv, wdw, num_heads, shift, ln_w, ln_b, eps, dgram,
-                                      dnq, dnk), None, None)
+        return _stats_bwd_tc_launch(x, wqkv, wdw, num_heads, shift, ln_w, ln_b, eps, dgram, dnq,
+                                    dnk, halo, rows, flags)
     b, h, w, c = x.shape
     dt = x.dtype
     _build.check_plan("spectral_stats_bwd", "mp_spectral_stats_bwd_smem",
@@ -597,19 +639,18 @@ def _stats_bwd_launch(x, wqkv, wdw, num_heads, shift, ln_w, ln_b, eps, dgram, dn
                              t.data_ptr(), dqk.data_ptr(), p(rows), p(un_h), p(t_h), b, h, w, c,
                              num_heads, shift, eps, flags, stream_ptr())
     _build.check("mp_spectral_stats_bwd", err)
-    dtt, dwdw_qk, *dt_h = dwconv_bwd(dqk, t, wd, 0, dt, t_h, flags)
+    dtt, dwdw_qk = dwconv_bwd(dqk, t, wd, 0, dt)
     dx, dln, _ = ln_linear_bwd(dtt, wq, 0, x, ln_w, shift=-shift, eps=eps)
     dw = torch.zeros((3 * c, c), dtype=torch.float32, device=dev)
     dw[:2 * c] = wgrad(un.reshape(-1, c), dtt.reshape(-1, 2 * c)).t()
-    dtop = dbot = None
-    if flags:
-        dtop, dbot, dln_h = _halo_rows_bwd(dt_h[0], wq, 0, rows, ln_w, eps, halo, un_h,
-                                           dw[:2 * c])
-        dln = _add_ln(dln, dln_h)
-        STATS_BWD_HALO.record(("spectral_stats_bwd_halo", b, h, w, c, num_heads,
-                               ln_w is not None, flags))
     dwdw = torch.zeros((3 * c, 9), dtype=torch.float32, device=dev)
     dwdw[:2 * c] = dwdw_qk.t()
+    dtop = dbot = None
+    if flags:
+        dtop, dbot, dln = _halo_taps_bwd(dqk, t_h, _taps(wdw, 0, 2 * c), wqkv, 0, rows, ln_w, eps,
+                                         halo, un_h, dw[:2 * c], dwdw[:2 * c], dln)
+        STATS_BWD_HALO.record(("spectral_stats_bwd_halo", b, h, w, c, num_heads,
+                               ln_w is not None, flags, str(dt)))
     STATS_BWD.record(("spectral_stats_bwd", b, h, w, c, num_heads, shift, ln_w is not None, str(dt)))
     return (dx, dw.reshape(3 * c, c, 1, 1), dwdw.reshape(3 * c, 1, 3, 3),
             *(dln if dln is not None else (None, None)), dtop, dbot)
@@ -669,7 +710,7 @@ def spectral_stats(x, wqkv, wdw, num_heads: int, shift: int = 0, x2=None, ln_w=N
     ``halo.bot``); launches the CUDA kernels (forward: a per-part pass, bf16
     on the tensor-core tile, then an in-order sum of the parts; backward: bf16
     the two tiles, float32 ``mp_spectral_stats_bwd`` and grad.cu's stages) on
-    a CUDA tensor. Real halo rows take the float32 kernels."""
+    a CUDA tensor, with real halo rows in both types."""
     htop, hbot, edges = _halo_args(halo)
     return _SpectralStats.apply(x, wqkv, wdw, x2, ln_w, ln_b, htop, hbot,
                                 (num_heads, shift, eps, edges))
@@ -692,10 +733,29 @@ def spectral_fold(gram, nq, nk, temperature, wout) -> torch.Tensor:
 # apply
 # ---------------------------------------------------------------------------
 
-def _gate_map(gate, shift):
-    """Per-window gates of the rolled frame as a per-pixel map of the
-    unrolled frame."""
-    gmap = gate.repeat_interleave(8, dim=1).repeat_interleave(8, dim=2)
+def _gate_win(gate, h: int):
+    """The gate's window over a map of h rows: 8 for per-window gates (B,
+    H/8, W/8, C), 1 for a per-pixel gate map (B, H, W, C); 0 without."""
+    if gate is None:
+        return 0
+    if gate.shape[1] not in (h, h // 8):
+        raise ValueError(f"a gate has H/8 or H rows, got {tuple(gate.shape)} over {h}")
+    return 1 if gate.shape[1] == h else 8
+
+
+def _gate_kind(gate, h: int):
+    """The gate's field of a launch record: True (per-window gates), "map"
+    (a per-pixel gate map) or False."""
+    return {0: False, 8: True, 1: "map"}[_gate_win(gate, h)]
+
+
+def _gate_map(gate, shift, h: int):
+    """The gates over a map of h rows (per-window, of the rolled frame; or
+    already a per-pixel map of it) as a per-pixel map of the unrolled
+    frame."""
+    gmap = gate
+    if _gate_win(gate, h) == 8:
+        gmap = gate.repeat_interleave(8, dim=1).repeat_interleave(8, dim=2)
     return roll_hw(gmap, shift, shift) if shift else gmap
 
 
@@ -705,7 +765,8 @@ def spectral_apply_plain(x, comb, wqkv, wdw, shift: int = 0, x2=None, ln_w=None,
     """out = v @ comb [+ x * gate] [+ x] [+ shortcut], then optionally the
     PGSSTB tail ``out + fc2(a * gelu(g))``, ``[a|g] = fc1(LN2(out))``;
     ``mlp = (ln2_w, ln2_b, fc1_w (2h, C), fc1_b, fc2_w (C, h), fc2_b)``.
-    ``gate`` (B, H/8, W/8, C) holds the per-window gates of the rolled frame.
+    ``gate`` (B, H/8, W/8, C) holds the per-window gates of the rolled frame,
+    or (B, H, W, C) a per-pixel gate map (a row shard's, JAX's ``gate_map``).
     ``dp_scale`` (B,): per-sample drop-path scale of the branch
     ``v @ comb [+ x * gate]``, summed in float32 and rounded once.
     ``halo``: x is a row shard (:class:`Halo`). Output (B, H, W, C) in the
@@ -715,7 +776,7 @@ def spectral_apply_plain(x, comb, wqkv, wdw, shift: int = 0, x2=None, ln_w=None,
     b, h, w, c = u.shape
     v = _qkv_part(u, wqkv, wdw, 2 * c, 3 * c, dt, rows)[1]
     y = torch.einsum("bhwc,bco->bhwo", v, comb.to(dt).float())
-    gu = None if gate is None else raw.float() * _gate_map(gate, shift).float()
+    gu = None if gate is None else raw.float() * _gate_map(gate, shift, h).float()
     if dp_scale is not None:
         y = ((y if gu is None else y + gu) * dp_scale.float().reshape(b, 1, 1, 1)).to(dt)
     else:
@@ -754,12 +815,14 @@ def spectral_apply_bwd_plain(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, ga
     extra = torch.zeros_like(dyf)
     dgate = ddp = gu = None
     if gate is not None:
-        gmap = _gate_map(gate, shift).float()
+        gmap = _gate_map(gate, shift, h).float()
         gu = raw.float() * gmap
         extra = extra + dys * gmap
         prod = dys * raw.float()
         prod = roll_hw(prod, -shift, -shift) if shift else prod
-        dgate = prod.reshape(b, h // 8, 8, w // 8, 8, c).sum(dim=(2, 4)).to(gate.dtype)
+        if _gate_win(gate, h) == 8:
+            prod = prod.reshape(b, h // 8, 8, w // 8, 8, c).sum(dim=(2, 4))
+        dgate = prod.to(gate.dtype)
     if residual:
         extra = extra + dyf
     if dp_scale is not None:
@@ -866,15 +929,16 @@ def _apply_entry(kind: str = "fwd"):
 
     if kind == "bwd":
         return _build.entry("mp_spectral_apply_bwd", 20,
-                            [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int])
+                            [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, ctypes.c_int])
     if kind == "bwd_tc":
-        return _build.entry("mp_spectral_apply_bwd_tc", 16, [ctypes.c_int] * 7 + [ctypes.c_float])
+        return _build.entry("mp_spectral_apply_bwd_tc", 19,
+                            [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_int])
     if kind == "dx_tc":
         return _build.entry("mp_spectral_apply_dx_tc", 10, [ctypes.c_int] * 6 + [ctypes.c_float])
     if kind == "gate":
-        return _build.entry("mp_spectral_gate_grad", 3, [ctypes.c_int] * 5)
+        return _build.entry("mp_spectral_gate_grad", 3, [ctypes.c_int] * 6)
     return _build.entry("mp_spectral_apply", 18,
-                        [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int])
+                        [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int, ctypes.c_int])
 
 
 def _apply_prepare(x, comb, wqkv, wdw, shift=0, x2=None, ln_w=None, ln_b=None, residual=False,
@@ -898,6 +962,7 @@ def _apply_prepare(x, comb, wqkv, wdw, shift=0, x2=None, ln_w=None, ln_b=None, r
     _build.check_plan("spectral_apply", "mp_spectral_apply_smem",
                       f"C={c}, {'with' if tail else 'no'} MLP tail", c, tail, code)
     rows, flags = _halo_operand(halo, x, x2, shift)
+    gwin = _gate_win(gate, h) or 8
     x = x.contiguous()
     x2 = None if x2 is None else x2.to(dt).contiguous()
     gate = None if gate is None else gate.to(dt).contiguous()
@@ -915,7 +980,7 @@ def _apply_prepare(x, comb, wqkv, wdw, shift=0, x2=None, ln_w=None, ln_b=None, r
     args = (x.data_ptr(), p(x2), p(lnw), p(lnb), wq.data_ptr(), wd.data_ptr(), cb.data_ptr(),
             p(gate), p(shortcut), p(ln2w), p(ln2b), p(w1), p(b1), p(w2), p(b2), p(dp),
             out.data_ptr(), p(rows), code, b, h, w, c1, c2, int(residual), hid, shift, eps, flags,
-            stream_ptr())
+            gwin, stream_ptr())
     return args, out, (x, x2, gate, shortcut, wq, wd, lnw, lnb, cb, dp, ln2w, ln2b, w1, b1, w2, b2,
                        rows)
 
@@ -930,7 +995,7 @@ def _apply_launch(x, comb, wqkv, wdw, shift, x2, ln_w, ln_b, residual, gate, sho
     hid = 0 if mlp is None else mlp[4].shape[1]
     dt = x.dtype
     spec = ("spectral_apply", b, h, w, c1, c2, shift, ln_w is not None, bool(residual),
-            gate is not None, shortcut is not None, hid, str(dt))
+            _gate_kind(gate, h), shortcut is not None, hid, str(dt))
     spec = spec if dp_scale is None else spec[:-1] + ("dp", str(dt))
     APPLY.record(spec)
     if dt == torch.float32:
@@ -938,16 +1003,17 @@ def _apply_launch(x, comb, wqkv, wdw, shift, x2, ln_w, ln_b, residual, gate, sho
         if hid:
             TAIL_F32.record(("mlp_tail_f32", b, h, w, c1 + c2, hid))
     if halo is not None and halo.flags:
-        APPLY_HALO.record(("spectral_apply_halo", b, h, w, c1, c2, halo.flags))
+        APPLY_HALO.record(("spectral_apply_halo", b, h, w, c1, c2, halo.flags, str(dt)))
     return out
 
 
 def _apply_bwd_tc_launch(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate, dp_scale, eps,
-                         dy):
+                         dy, halo=None, rows=None, flags=0):
     """The bf16 backward: the two tiles, d gate, the two weight products and
     the in-order sums of the per-tile partial rows (the taps' [9][C], then d
     ln_w, d ln_b, then d dp): per image over its tiles, then over the images
-    (d dp per image from the first)."""
+    (d dp per image from the first). A row shard: the halo rows' share as
+    :func:`_stats_bwd_tc_launch` adds it."""
     b, h, w, c = x.shape
     dt = x.dtype
     if c > FRONT_MAX_C:  # the widest C of both tiles' plans
@@ -955,6 +1021,7 @@ def _apply_bwd_tc_launch(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate, 
     _build.check_plan("spectral_apply_bwd", "mp_spectral_apply_bwd_tc_smem", f"C={c}, tile 1", c, 1)
     _build.check_plan("spectral_apply_bwd", "mp_spectral_apply_bwd_tc_smem", f"C={c}, tile 2", c, 2)
     x, dy = x.contiguous(), dy.to(dt).contiguous()
+    gwin = _gate_win(gate, h)
     gate_t = None if gate is None else gate.to(dt).contiguous()
     wv, wd, cb = pack_front(wqkv, wdw, comb, dt)
     lnw, lnb, dp = f32(ln_w), f32(ln_b), f32(dp_scale)
@@ -970,18 +1037,21 @@ def _apply_bwd_tc_launch(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate, 
     ldp = o_dp + int(dp is not None)
     part = torch.empty((b, tiles // b, ldp), dtype=torch.float32, device=dev)
     pdp = None if dp is None else part.data_ptr() + 4 * o_dp  # column o_dp of row 0
+    # the halo rows' LN'd input and v 1x1 output (a side without its bit stays zero)
+    un_h, t_h = ((torch.zeros((2, b, w, c), **like) for _ in range(2)) if flags else (None, None))
     p = _build.ptr
     err = _apply_entry("bwd_tc")(x.data_ptr(), p(lnw), p(lnb), wv.data_ptr(), wd.data_ptr(),
                                  cb.data_ptr(), p(gate_t), p(dp), dy.data_ptr(), un.data_ptr(),
                                  t.data_ptr(), v.data_ptr(), None if dp is None else dys.data_ptr(),
-                                 dv.data_ptr(), p(extra), pdp, b, h, w, c, int(residual), shift,
-                                 ldp, eps, stream_ptr())
+                                 dv.data_ptr(), p(extra), pdp, p(rows), p(un_h), p(t_h), b, h, w,
+                                 c, int(residual), shift, ldp, eps, flags, gwin or 8,
+                                 stream_ptr())
     _build.check("mp_spectral_apply_bwd_tc", err)
     dgate = None
     if gate is not None:
-        dgate = torch.empty((b, h // 8, w // 8, c), dtype=torch.float32, device=dev)
+        dgate = torch.empty((b, h // gwin, w // gwin, c), dtype=torch.float32, device=dev)
         err = _apply_entry("gate")(dys.data_ptr(), x.data_ptr(), dgate.data_ptr(), b, h, w, c,
-                                   shift, stream_ptr())
+                                   shift, gwin, stream_ptr())
         _build.check("mp_spectral_gate_grad", err)
     err = _apply_entry("dx_tc")(dv.data_ptr(), t.data_ptr(), wd.data_ptr(), wv.data_ptr(),
                                 x.data_ptr(), p(lnw), p(extra), dtt.data_ptr(), dx.data_ptr(),
@@ -994,25 +1064,32 @@ def _apply_bwd_tc_launch(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate, 
     sums = sum_parts(per_image.unsqueeze(0))[0]
     dwdw = torch.zeros((3 * c, 9), dtype=torch.float32, device=dev)
     dwdw[2 * c:] = sums[:9 * c].reshape(9, c).t()
+    dln = (sums[9 * c:10 * c], sums[10 * c:11 * c]) if ln else None
+    dtop = dbot = None
+    if flags:
+        dtop, dbot, dln = _halo_taps_bwd(dv, t_h, wd, wqkv, 2 * c, rows, ln_w, eps, halo, un_h,
+                                         dw[2 * c:], dwdw[2 * c:], dln)
+        APPLY_BWD_HALO.record(("spectral_apply_bwd_halo", b, h, w, c, ln, bool(residual),
+                               _gate_kind(gate, h), dp is not None, flags, str(dt)))
     APPLY_BWD.record(("spectral_apply_bwd", b, h, w, c, shift, ln, bool(residual),
-                      gate is not None, dp is not None, str(dt)))
+                      _gate_kind(gate, h), dp is not None, str(dt)))
     return (dx, dcomb, dw.reshape(3 * c, c, 1, 1), dwdw.reshape(3 * c, 1, 3, 3),
-            *((sums[9 * c:10 * c], sums[10 * c:11 * c]) if ln else (None, None)),
-            None if dgate is None else dgate.to(gate.dtype), dy,
-            None if dp is None else per_image[:, o_dp].to(dp_scale.dtype))
+            *(dln if ln else (None, None)), None if dgate is None else dgate.to(gate.dtype), dy,
+            None if dp is None else per_image[:, o_dp].to(dp_scale.dtype), dtop, dbot)
 
 
 def _apply_bwd_launch(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate, dp_scale, eps, dy,
                       halo=None):
     rows, flags = _halo_operand(halo, x, None, shift)
     if x.dtype == torch.bfloat16:
-        return (*_apply_bwd_tc_launch(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate,
-                                      dp_scale, eps, dy), None, None)
+        return _apply_bwd_tc_launch(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate,
+                                    dp_scale, eps, dy, halo, rows, flags)
     b, h, w, c = x.shape
     dt = x.dtype
     kc = _build.chunk("mp_spectral_apply_bwd_chunk", c)
     _build.check_plan("spectral_apply_bwd", "mp_spectral_apply_bwd_smem", f"C={c}", c, kc)
     x, dy = x.contiguous(), dy.to(dt).contiguous()
+    gwin = _gate_win(gate, h)
     gate_t = None if gate is None else gate.to(dt).contiguous()
     wq, wd = kernel_weight(wqkv, dt), kernel_weight(wdw, dt)
     lnw, lnb, cb, dp = f32(ln_w), f32(ln_b), f32(comb), f32(dp_scale)
@@ -1024,7 +1101,7 @@ def _apply_bwd_launch(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate, dp_
     dv = torch.empty_like(t)
     extra = torch.empty_like(t) if (gate is not None or residual) else None
     pdp = torch.empty((b, tiles), dtype=torch.float32, device=dev) if dp is not None else None
-    dgate = (torch.empty((b, h // 8, w // 8, c), dtype=torch.float32, device=dev)
+    dgate = (torch.empty((b, h // gwin, w // gwin, c), dtype=torch.float32, device=dev)
              if gate is not None else None)
     # the halo rows' LN'd input and v 1x1 output (a side without its bit stays zero)
     un_h, t_h = ((torch.zeros((2, b, w, c), dtype=torch.float32, device=dev) for _ in range(2))
@@ -1034,25 +1111,25 @@ def _apply_bwd_launch(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate, dp_
                               cb.data_ptr(), p(gate_t), p(dp), dy.data_ptr(), un.data_ptr(),
                               t.data_ptr(), v.data_ptr(), dys.data_ptr(), dv.data_ptr(), p(extra),
                               p(pdp), p(dgate), p(rows), p(un_h), p(t_h), dtype_code(x), b, h, w,
-                              c, int(residual), shift, kc, eps, flags, stream_ptr())
+                              c, int(residual), shift, kc, eps, flags, gwin or 8, stream_ptr())
     _build.check("mp_spectral_apply_bwd", err)
-    dtt, dwdw_v, *dt_h = dwconv_bwd(dv, t, wd, 2 * c, dt, t_h, flags)
+    dtt, dwdw_v = dwconv_bwd(dv, t, wd, 2 * c, dt)
     dx, dln, _ = ln_linear_bwd(dtt, wq, 2 * c, x, ln_w, extra_f=extra, shift=-shift, eps=eps)
     dw = torch.zeros((3 * c, c), dtype=torch.float32, device=dev)
     dw[2 * c:] = wgrad(un.reshape(-1, c), dtt.reshape(-1, c)).t()
-    dtop = dbot = None
-    if flags:
-        dtop, dbot, dln_h = _halo_rows_bwd(dt_h[0], wq, 2 * c, rows, ln_w, eps, halo, un_h,
-                                           dw[2 * c:])
-        dln = _add_ln(dln, dln_h)
-        APPLY_BWD_HALO.record(("spectral_apply_bwd_halo", b, h, w, c, ln_w is not None,
-                               bool(residual), gate is not None, dp is not None, flags))
     dwdw = torch.zeros((3 * c, 9), dtype=torch.float32, device=dev)
     dwdw[2 * c:] = dwdw_v.t()
+    dtop = dbot = None
+    if flags:
+        dtop, dbot, dln = _halo_taps_bwd(dv, t_h, _taps(wdw, 2 * c, c), wqkv, 2 * c, rows, ln_w,
+                                         eps, halo, un_h, dw[2 * c:], dwdw[2 * c:], dln)
+        APPLY_BWD_HALO.record(("spectral_apply_bwd_halo", b, h, w, c, ln_w is not None,
+                               bool(residual), _gate_kind(gate, h), dp is not None, flags,
+                               str(dt)))
     dcomb = wgrad(v.reshape(b, h * w, c), dys.reshape(b, h * w, c))
     ddp = None if pdp is None else sum_parts(pdp.unsqueeze(-1))[:, 0]
     APPLY_BWD.record(("spectral_apply_bwd", b, h, w, c, shift, ln_w is not None, bool(residual),
-                      gate is not None, dp is not None, str(dt)))
+                      _gate_kind(gate, h), dp is not None, str(dt)))
     dlnw, dlnb = dln if dln is not None else (None, None)
     return (dx, dcomb, dw.reshape(3 * c, c, 1, 1), dwdw.reshape(3 * c, 1, 3, 3), dlnw, dlnb,
             None if dgate is None else dgate.to(gate.dtype), dy,
@@ -1105,7 +1182,7 @@ def spectral_apply(x, comb, wqkv, wdw, shift: int = 0, x2=None, ln_w=None, ln_b=
     """Same contract as :func:`spectral_apply_plain`, differentiable without
     ``x2`` / ``mlp`` (the halo rows too: their cotangents go back to
     ``halo.top`` / ``halo.bot``); launches the CUDA kernels on a CUDA
-    tensor. Real halo rows take the float32 kernels."""
+    tensor, with real halo rows in both types."""
     m = (None,) * 6 if mlp is None else tuple(mlp)
     htop, hbot, edges = _halo_args(halo)
     return _SpectralApply.apply(x, comb, wqkv, wdw, x2, ln_w, ln_b, gate, shortcut, dp_scale,

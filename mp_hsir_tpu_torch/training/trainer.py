@@ -163,16 +163,11 @@ def make_train_step(mc: ModelConfig, tc: TrainConfig, mesh: Mesh | None = None):
     drop-path generator is seeded with :func:`fold_seed` of the data index:
     the same on the spatial members of a data group. Each shard must hold
     whole 8 x 8 windows at the deepest level (its rows a multiple of 32).
-    ``mc`` is the model's configuration; float32 where the spatial axis has
-    more than one member (the bf16 tiles take no halo rows yet). ``tc``'s
+    ``mc`` is the model's configuration, in either compute type. ``tc``'s
     batch and patch size are checked against the mesh here."""
     sp = None if mesh is None else mesh.axis(SPATIAL_AXIS)
     dp = None if mesh is None else mesh.axis(DATA_AXIS)
     every = None if mesh is None else mesh.axis(MESH_AXES)
-    if axis_size(sp) > 1 and mc.compute_dtype != "float32":
-        raise ValueError(f"a spatial mesh of {axis_size(sp)} trains in float32: the bf16 halo "
-                         "rows of the spectral tiles and their backward are the next slice of "
-                         "the port")
     if tc.batch_size % axis_size(dp) or tc.patch_size % (32 * axis_size(sp)):
         raise ValueError(f"batch {tc.batch_size} x {tc.patch_size} rows does not split over the "
                          f"{axis_size(dp)} x {axis_size(sp)} mesh into whole 8 x 8 windows at "

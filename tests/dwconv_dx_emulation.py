@@ -1,6 +1,9 @@
 """Numpy emulation of the bf16 backward's second tile, ``dwconv_dx_tc_kernel``
-with its stencil (csrc/dwconv_dx.cuh), from its own tile map, and the tile
-helpers the emulations of the first tiles share: the spectral stats backward
+with its stencil (csrc/dwconv_dx.cuh), from its own tile map; on a row
+shard, of grad.cu's ``dwconv_halo_bwd_kernel`` (the halo rows' cotangents and
+tap partials, which the tile leaves out) and of the wrapper's halo-row
+backward (``spectral._halo_rows_bwd``); and the tile helpers the emulations
+of the first tiles share: the spectral stats backward
 (K = 2C, tests/test_torch_stats_bwd.py), the spectral apply backward (K =
 C, with the extra input cotangent in the epilogue, tests/test_torch_apply_bwd.py)
 and the GDFN backward (K = 2 hid, t in float32, the residual's dy as the
@@ -24,10 +27,16 @@ def ln(a, w, b, eps):
     return (a - mu) * rs, rs, None if w is None else (a - mu) * rs * w + b
 
 
-def tiles(a):
-    """(B, H, W, n) -> (B, H/8, W/8, 10 x 10 halo, n), zero outside the image."""
+def tiles(a, top=None, bot=None):
+    """(B, H, W, n) -> (B, H/8, W/8, 10 x 10 halo, n), zero outside the image;
+    a row shard's halo rows ``top`` / ``bot`` (B, W, n) stand in the padding
+    rows above / below it (None: zero, an image edge)."""
     b, h, w, n = a.shape
     p = np.pad(a, ((0, 0), (1, 1), (1, 1), (0, 0)))
+    if top is not None:
+        p[:, 0, 1:-1] = top
+    if bot is not None:
+        p[:, -1, 1:-1] = bot
     out = np.zeros((b, h // 8, w // 8, 100, n), np.float32)
     for ty in range(h // 8):
         for tx in range(w // 8):
@@ -101,3 +110,68 @@ def launch2(x, dout, t, taps, wk, lnw, shift, dt, eps, extra=None):
     assert nt == (h // 8) * (w // 8)
     return (untile(dtt.reshape(-1, 64, k), b, h, w), dx,
             np.concatenate(parts, -1).reshape(b * nt, -1))
+
+
+def halo_row_out(t, side, b, h, w):
+    """The halo row ``side`` (0: above the shard, read by the first tile row;
+    1: below, the last) of a tile-map array (B, H/8, W/8, 100, n), as a first
+    tile's halo_row_out writes it: (B, W, n)."""
+    ty = 0 if side == 0 else h // 8 - 1
+    r = 0 if side == 0 else 9
+    rows = t[:, ty].reshape(b, w // 8, 10, 10, t.shape[-1])[:, :, r, 1:9]
+    return rows.reshape(b, w, t.shape[-1])
+
+
+def halo_taps(dout, t_halo, taps, flags, dt, fault=""):
+    """grad.cu's dwconv_halo_bwd_kernel from its block map, one block per (8
+    columns, image, side), then the in-order sum of its part rows per side:
+    (dt_halo [2][B][W][K] rounded to dt, zero on a side without its bit;
+    dw_halo [2][3][K], the taps' first row's share from the row above and
+    the last row's from the row below). dout (B, H, W, K) float32, t_halo
+    [2][B][W][K], taps [K][9]. fault "no_taps": the tap partials left out."""
+    b, h, w, k = dout.shape
+    dth = np.zeros((2, b, w, k), np.float32)
+    part = np.zeros((2, b, w // 8, 3, k), np.float32)
+    for side in range(2):
+        if not flags & (1 << side):
+            continue
+        d = np.pad(dout[:, 0 if side == 0 else h - 1], ((0, 0), (1, 1), (0, 0)))  # columns
+        tp = np.pad(t_halo[side], ((0, 0), (1, 1), (0, 0)))
+        dy = 0 if side == 0 else 2
+        acc = np.zeros((b, w, k), np.float32)
+        for dx in range(3):  # products rounded, added in the flipped taps' order
+            acc = acc + (d[:, dx:dx + w] * taps[:, dy * 3 + 2 - dx]).astype(np.float32)
+        dth[side] = rnd(acc, dt)
+        own = d[:, 1:w + 1]
+        for dx in range(3):
+            prod = (tp[:, dx:dx + w] * own).reshape(b, w // 8, 8, k)
+            part[side, :, :, dx] = prod.sum(2)
+    if fault == "no_taps":
+        part[:] = 0
+    dw = np.zeros((2, 3, k), np.float32)
+    for side in range(2):
+        for row in part[side].reshape(-1, 3, k):  # sum_parts: the blocks in order
+            dw[side] += row
+    return dth, dw
+
+
+def halo_rows_bwd(dt_halo, wk, rows, lnw, eps, flags, un_halo, dt):
+    """spectral._halo_rows_bwd: the halo rows' input cotangents from their 1x1
+    output's (dt_halo [2][B][W][K]) through the 1x1 (wk [K][>= C], the rows'
+    weights) and the LayerNorm backward on the raw rows ([2][B][W][C]) in
+    float32, rounded to dt: (d top, d bot (None at an image edge), their 1x1
+    weight gradient [K][C], (d ln_w, d ln_b) or None)."""
+    c = rows.shape[-1]
+    dxn = dt_halo @ wk[:, :c]
+    dln = None
+    if lnw is not None:
+        xh, rs, _ = ln(rows, None, None, eps)
+        g = dxn * lnw
+        dxr = (g - g.mean(-1, keepdims=True) - xh * (g * xh).mean(-1, keepdims=True)) * rs
+        dln = ((dxn * xh).sum((0, 1, 2)), dxn.sum((0, 1, 2)))
+    else:
+        dxr = dxn
+    dxr = rnd(dxr, dt)
+    dw = dt_halo.reshape(-1, dt_halo.shape[-1]).T @ un_halo.reshape(-1, c)
+    return (dxr[0][:, None] if flags & 1 else None, dxr[1][:, None] if flags & 2 else None, dw,
+            dln)

@@ -16,9 +16,11 @@ import numpy as np
 import pytest
 import torch
 
-from dwconv_dx_emulation import interior, launch2, ln, rnd, tile_rows, tiles, untile
+from dwconv_dx_emulation import (
+    halo_row_out, halo_rows_bwd, halo_taps, interior, launch2, ln, rnd, tile_rows, tiles, untile,
+)
 from mp_hsir_tpu_torch.ops.kernels.spectral import (
-    DX_LDD, DX_LDT, FRONT_K, STATS_BUDGET, apply_bwd_tc_plan, front_plan, pack_front,
+    DX_LDD, DX_LDT, FRONT_K, STATS_BUDGET, Halo, apply_bwd_tc_plan, front_plan, pack_front,
     spectral_apply, spectral_apply_bwd_plain,
 )
 from torch_port_inputs import normal as _n, rng as _rng, uniform as _u
@@ -34,32 +36,43 @@ PLANS = {64: (54144, 3, 46080, 3, 161664), 128: (105472, 3, 87040, 3, 186240),
          192: (156800, 3, 128000, 3, 210816), 384: (200192, 2, 200704, 2, 192768),
          36: (54144, 3, 46080, 3, 161664), 27: (28480, 3, 25600, 3, 161664)}
 # the call shapes of the train steps: the PGSSTB call (gate, shortcut,
-# drop-path, shift 0 and 4; the blocks at rate 0 without drop-path) and the
+# drop-path, shift 0 and 4; the blocks at rate 0 without drop-path; a
+# shifted block's per-pixel gate map on a row shard) and the
 # TransformerBlock call (LN, residual)
 VARIANTS = {"gate_dp0": dict(gate=True, dp=True, shift=0),
             "gate_dp4": dict(gate=True, dp=True, shift=4),
             "gate0": dict(gate=True, dp=False, shift=0),
+            "gmap_dp0": dict(gate="map", dp=True, shift=0),
             "ln_res0": dict(ln=True, residual=True, shift=0)}
 
 
-def _gmap(gate, shift):
-    """The per-window gates of the rolled frame as a per-pixel map of the
-    unrolled frame (each tile pixel's egate row)."""
-    g = np.repeat(np.repeat(gate, 8, axis=1), 8, axis=2)
+def _gmap(gate, shift, h):
+    """The gates of the rolled frame (per-window, or a per-pixel map) as a
+    per-pixel map of the unrolled frame (each tile pixel's egate row,
+    gate_row)."""
+    g = gate if gate.shape[1] == h else np.repeat(np.repeat(gate, 8, axis=1), 8, axis=2)
     return np.roll(g, (shift, shift), axis=(1, 2))
 
 
-def _launch1(x, wv, wd, cb, gate, dp, residual, dy, lnw, lnb, shift, dt, eps, flipped=True):
+def _launch1(x, wv, wd, cb, gate, dp, residual, dy, lnw, lnb, shift, dt, eps, flipped=True,
+             hrows=(None, None)):
     """The first tile on every 8x8 tile: (un, t, v, dys, dv, extra, the d dp
-    partial per tile) in the unrolled frame. flipped=False reads comb
-    unflipped in the dv product (dys comb in place of dys comb^T, a planted
-    fault)."""
+    partial per tile) in the unrolled frame, then un_halo and t_halo
+    ([2][B][W][C]): the LN'd input and v 1x1 output of a row shard's staged
+    halo rows ``hrows`` (test_torch_stats_bwd's _halo_in), which the first
+    and last tile rows write (zero on a side without a row).
+    flipped=False reads comb unflipped in the dv product (dys comb in place
+    of dys comb^T, a planted fault)."""
     b, h, w, c = x.shape
     pl = apply_bwd_tc_plan(c)
     cp, npass = pl["cp"], pl["np"]
     raw = np.roll(x, (shift, shift), axis=(1, 2))
     un = raw if lnw is None else rnd(ln(raw, lnw, lnb, eps)[2], dt)
-    halo = tiles(un)  # the halo staged as bf16, LN in place, zero outside
+    halo = tiles(un, *hrows)  # the halo staged as bf16, LN in place, zero outside
+    sides = [s for s in range(2) if hrows[s] is not None]
+    un_h, t_h = np.zeros((2, b, w, c), np.float32), np.zeros((2, b, w, c), np.float32)
+    for side in sides:
+        un_h[side] = halo_row_out(halo, side, b, h, w)
     t_out = np.zeros(halo.shape[:3] + (64, c), np.float32)
     v = np.zeros(halo.shape[:3] + (64, cp), np.float32)
     for n0 in range(0, cp, npass):  # the passes of the v rows
@@ -68,6 +81,8 @@ def _launch1(x, wv, wd, cb, gate, dp, residual, dy, lnw, lnb, shift, dt, eps, fl
             continue
         t = rnd(halo @ wv[cols, :c].T, dt)  # [..., 100, np]
         t_out[..., cols] = interior(t)
+        for side in sides:
+            t_h[side][..., cols] = halo_row_out(t, side, b, h, w)
         t10 = t.reshape(*t.shape[:-2], 10, 10, len(cols))
         acc = np.zeros(t.shape[:-2] + (8, 8, len(cols)), np.float32)
         for tap in range(9):
@@ -77,7 +92,7 @@ def _launch1(x, wv, wd, cb, gate, dp, residual, dy, lnw, lnb, shift, dt, eps, fl
     d0 = tile_rows(dy)
     ds = d0 if dp is None else rnd(d0 * dp[:, None, None, None, None], dt)
     extra = None
-    g = None if gate is None else tile_rows(_gmap(gate, shift))
+    g = None if gate is None else tile_rows(_gmap(gate, shift, x.shape[1]))
     if gate is not None or residual:
         extra = (ds * g if gate is not None else 0) + (d0 if residual else 0)
     dv = np.zeros_like(ds)
@@ -96,13 +111,20 @@ def _launch1(x, wv, wd, cb, gate, dp, residual, dy, lnw, lnb, shift, dt, eps, fl
         part = (d0 * (br + ug)).sum((-2, -1))  # [B][ty][tx]
     unt = lambda a: untile(a.reshape(-1, 64, a.shape[-1]), b, h, w)  # noqa: E731
     return (un, unt(t_out), unt(v[..., :c]), unt(ds), unt(dv),
-            None if extra is None else unt(extra), part)
+            None if extra is None else unt(extra), part, un_h, t_h)
 
 
 def _emulate(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate, dp_scale, eps, dy,
-             flipped=True):
+             flipped=True, halo=None, fault=""):
     """Both tiles, d gate, the weight products and the in-order partial sums:
-    the outputs of spectral_apply_bwd_plain as numpy arrays."""
+    the outputs of spectral_apply_bwd_plain as numpy arrays. ``halo``: a row
+    shard's :class:`Halo` (shift 0); then also grad.cu's halo-row kernel and
+    the wrapper's halo-row backward, and the outputs end with d top, d bot.
+    Planted faults on a shard: "swapped" (the halo rows top for bottom),
+    "edge" (the top edge flag inverted), "no_taps" (the halo rows' tap
+    partials left out)."""
+    from test_torch_stats_bwd import _halo_in
+
     dt = x.dtype
     b, h, w, c = x.shape
     wv, wd, cb = (a.float().numpy() for a in pack_front(wqkv, wdw, comb, dt))
@@ -110,9 +132,16 @@ def _emulate(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate, dp_scale, ep
     xf, lnw, lnb, g, dp = f(x), f(ln_w), f(ln_b), f(gate), f(dp_scale)
     if g is not None:
         g = rnd(g, dt)
-    un, t, v, dys, dv, extra, pdp = _launch1(xf, wv, wd, cb[..., :c], g, dp, residual,
-                                             dy.float().numpy(), lnw, lnb, shift, dt, eps,
-                                             flipped)
+    flags, rows, hrows = 0, None, (None, None)
+    if halo is not None:
+        rows = np.stack([halo.top[:, 0].float().numpy(), halo.bot[:, 0].float().numpy()])
+        if fault == "swapped":
+            rows = rows[::-1].copy()
+        flags = halo.flags ^ (1 if fault == "edge" else 0)
+        hrows = _halo_in(rows, flags, lnw, lnb, dt, eps)
+    un, t, v, dys, dv, extra, pdp, un_h, t_h = _launch1(
+        xf, wv, wd, cb[..., :c], g, dp, residual, dy.float().numpy(), lnw, lnb, shift, dt, eps,
+        flipped, hrows)
     dtt, dx, part = launch2(xf, dv, t, wd, wv, lnw, shift, dt, eps, extra)
     if dp is not None:  # tile 1's d dp column
         part = np.concatenate([part, pdp.reshape(-1, 1)], -1)
@@ -124,18 +153,31 @@ def _emulate(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate, dp_scale, ep
     for row in per_image:  # then the images in order
         tot += row
     dgate = None
-    if g is not None:  # per window of the rolled frame: sum of dys x
+    if g is not None:  # per window of the rolled frame (or per pixel): sum of dys x
         prod = np.roll(dys, (-shift, -shift), axis=(1, 2)) * xf
-        dgate = rnd(prod.reshape(b, h // 8, 8, w // 8, 8, c).sum((2, 4)), gate.dtype)
+        if g.shape[1] < h:
+            prod = prod.reshape(b, h // 8, 8, w // 8, 8, c).sum((2, 4))
+        dgate = rnd(prod, gate.dtype)
     dw = np.zeros((3 * c, c), np.float32)
     dw[2 * c:] = dtt.reshape(-1, c).T @ un.reshape(-1, c)
     dcomb = np.einsum("bpk,bpo->bko", v.reshape(b, -1, c), dys.reshape(b, -1, c))
-    dwdw = np.zeros((3 * c, 9), np.float32)
-    dwdw[2 * c:] = tot[:9 * c].reshape(9, c).T
+    taps = tot[:9 * c].reshape(9, c).copy()
     o = 9 * c + (2 * c if lnw is not None else 0)
     dln = (tot[9 * c:10 * c], tot[10 * c:11 * c]) if lnw is not None else (None, None)
-    return (dx, dcomb, dw.reshape(3 * c, c, 1, 1), dwdw.reshape(3 * c, 1, 3, 3), *dln, dgate,
-            dy.float().numpy(), None if dp is None else per_image[:, o])
+    dtop = dbot = None
+    if halo is not None:
+        dth, dwh = halo_taps(dv, t_h, wd, flags, dt, fault)
+        taps[:3] += dwh[0]
+        taps[6:] += dwh[1]
+        dtop, dbot, dw_h, dln_h = halo_rows_bwd(dth, wv, rows, lnw, eps, flags, un_h, dt)
+        dw[2 * c:] += dw_h
+        if dln_h is not None:
+            dln = tuple(a + e for a, e in zip(dln, dln_h))
+    dwdw = np.zeros((3 * c, 9), np.float32)
+    dwdw[2 * c:] = taps.T
+    out = (dx, dcomb, dw.reshape(3 * c, c, 1, 1), dwdw.reshape(3 * c, 1, 3, 3), *dln, dgate,
+           dy.float().numpy(), None if dp is None else per_image[:, o])
+    return out if halo is None else out + (dtop, dbot)
 
 
 def _inputs(c, dt, seed, gate=False, dp=False, ln=False, residual=False, shift=0, b=2, h=8,
@@ -147,7 +189,8 @@ def _inputs(c, dt, seed, gate=False, dp=False, ln=False, residual=False, shift=0
     wqkv, wdw = torch.from_numpy(_u(r, (3 * c, c, 1, 1), c)), torch.from_numpy(
         _u(r, (3 * c, 1, 3, 3), 9))
     lnw, lnb = (1 + f(c, scale=0.1), f(c, scale=0.1)) if ln else (None, None)
-    g = f(b, h // 8, w // 8, c, scale=0.5).to(dt) if gate else None
+    gh, gw = (h, w) if gate == "map" else (h // 8, w // 8)
+    g = f(b, gh, gw, c, scale=0.5).to(dt) if gate else None
     dps = torch.tensor([1.25, 0.0][:b]) if dp else None
     return (x, comb, wqkv, wdw, shift, lnw, lnb, residual, g, dps, 1e-5, f(b, h, w, c).to(dt))
 
@@ -209,6 +252,55 @@ def test_apply_bwd_tiles_emulation_matches_plain(c, variant, dt):
     tol = 3e-2 if dt == torch.bfloat16 else 1e-4
     for i, err, mx in _case(c, variant, dt):
         assert mx > 0 and err <= tol * mx, f"output {i}: {err:.3e} > {tol} * {mx:.3e}"
+
+
+EDGES = [(True, True), (True, False), (False, True), (False, False)]
+
+
+def _halo_case(c, variant, edges, fault=""):
+    """A row shard of one tile row (2 images of 8 x 16, shift 0) with its
+    bf16 halo rows: (emulation errors against spectral_apply_bwd_plain,
+    every output both have; whether both give the halo cotangents at the
+    same sides)."""
+    args = list(_inputs(c, torch.bfloat16, 95 + c, **VARIANTS[variant]))
+    r = _rng(9)
+    top, bot = (torch.from_numpy(_n(r, (2, 1, 16, c))).to(torch.bfloat16) for _ in range(2))
+    halo = Halo(top, bot, *edges)
+    got = _emulate(*args, halo=halo, fault=fault)
+    ref = spectral_apply_bwd_plain(*args, halo=halo)
+    same = all((g is None) == (r_ is None) for g, r_ in zip(got[-2:], ref[-2:]))
+    keep = [i for i, (g, r_) in enumerate(zip(got, ref)) if g is not None and r_ is not None]
+    return _errs([got[i] for i in keep], [ref[i] for i in keep]), same
+
+
+@pytest.mark.parametrize("c", [64, 27])
+@pytest.mark.parametrize("variant", ["gate_dp0", "gmap_dp0", "ln_res0"])
+@pytest.mark.parametrize("edges", EDGES, ids=lambda e: f"edge{int(e[0])}{int(e[1])}")
+def test_apply_bwd_halo_emulation_matches_plain(c, variant, edges):
+    """On a bf16 row shard with its halo rows (the first tile staging them
+    through the halo source map, writing their LN'd input and v 1x1 output;
+    grad.cu's halo-row kernel adding their cotangents and tap partials; the
+    wrapper's halo-row backward through the v rows and the LayerNorm)
+    against spectral_apply_bwd_plain with the same Halo, the PGSSTB call
+    (gate or a shifted block's gate map, shortcut, drop-path) and the
+    PromptFusion call (LN, residual):
+    every output, d top and d bottom included, within the bf16 bound 3e-2
+    of its max-abs, and the halo cotangents at the same sides."""
+    errs, same = _halo_case(c, variant, edges)
+    assert same
+    for i, err, mx in errs:
+        assert err <= 3e-2 * mx, f"output {i}: {err:.3e} > 3e-2 * {mx:.3e}"
+
+
+@pytest.mark.parametrize("fault", ["swapped", "edge", "no_taps"])
+def test_apply_bwd_halo_emulation_sees_planted_faults(fault):
+    """The halo check is not blind: the halo rows swapped top for bottom,
+    the top edge flag inverted (the image edge's wrapped row taken as real)
+    and the halo rows' tap partials left out each move an output past the
+    bf16 bound (or put a halo cotangent at the wrong side)."""
+    edges = (True, False) if fault == "edge" else (False, False)
+    errs, same = _halo_case(64, "ln_res0", edges, fault)
+    assert not same or any(err > 3e-2 * mx for _, err, mx in errs), errs
 
 
 @pytest.mark.parametrize("c", [64, 27])

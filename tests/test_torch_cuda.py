@@ -1212,15 +1212,179 @@ def test_cuda_spectral_f32_halo_backward_matches_plain(kind, c, n, shape):
 
 @pytest.mark.cuda
 def test_cuda_spectral_bf16_halo_raises():
-    """The bf16 tiles take no real halo rows yet: a clear ValueError before
-    any launch (rows at both image edges are the unsharded call)."""
+    """The bf16 stats and apply tiles with real halo rows (K7a / K7b in bf16;
+    no longer refused): each shard of 2 and 4 of the float32 halo cases' calls
+    in bf16, at every edge-flag combination, against its plain bf16 version
+    within 3e-2 of each output's max-abs, one launch counted with the halo
+    (keyed bf16) where a row is real and no plain call outside the check;
+    the shards at their true edge flags composed: the stats summed within
+    1e-4 of the unsharded bf16 call's max-abs, the apply outputs stacked
+    bitwise equal to it (each pixel's arithmetic is the unsharded tile's)."""
     dev = _cuda()
-    fn, args, kw = _halo_call("stats", 64, dev)
-    a, k = _halo_shard(args, kw, 2, 0, (True, False))
-    _route.reset_counters()
-    with pytest.raises(ValueError, match="bf16"):
-        fn(a[0].to(torch.bfloat16), *a[1:], **k)
-    assert _route.COUNTERS["spectral_stats"].launches == 0
+    for kind, c, n in HALO_CASES:
+        fn, args, kw = _halo_call(kind, c, dev)
+        args, kw = _as(torch.bfloat16, list(args), kw)
+        name = "spectral_stats" if kind.startswith("stats") else "spectral_apply"
+        outs = []
+        for i in range(n):
+            for edges in HALO_EDGES:
+                a, k = _halo_shard(args, kw, n, i, edges)
+                _route.reset_counters()
+                _check_fwd(fn, a, k, 3e-2)
+                halo = _route.COUNTERS[name + "_halo"]
+                assert _route.COUNTERS[name].launches == 1
+                assert halo.launches == int(edges != (True, True)), (kind, c, n, i, edges)
+                assert all(s[-1] == "torch.bfloat16" for s in halo.specs)
+                assert _route.ROUTE.plain_cuda_calls == 1
+            a, k = _halo_shard(args, kw, n, i, (i == 0, i == n - 1))
+            outs.append(fn(*a, **k))
+        whole = fn(*args, **kw)
+        if name == "spectral_stats":
+            got = list(outs[0])
+            for o in outs[1:]:
+                got = [g + t for g, t in zip(got, o)]
+            for g, w in zip(got, whole):
+                assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item(), (kind, c, n)
+        else:
+            assert torch.equal(torch.cat(outs, dim=1), whole), (kind, c, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_cuda_spectral_gate_map_matches_window_gates(dt):
+    """The apply tile and its backward with a per-pixel gate map (a shifted
+    block's gate operand on a row shard, read at gate window 1): on the
+    whole map and on shard 0 of 2 with its halo rows, against the plain
+    versions (1e-4 of each output's max-abs in float32, 3e-2 in bf16), and
+    with the map the per-window gates expanded, the same output, dx, halo
+    cotangents and weight gradients, bit for bit, as with those gates; one
+    counted launch a backward."""
+    from mp_hsir_tpu_torch.ops.kernels import spectral as sp
+
+    dev = _cuda()
+    tol = 1e-4 if dt == torch.float32 else 3e-2
+    g = torch.Generator(device="cpu").manual_seed(7)
+    n = lambda *s, scale=1.0: (torch.randn(*s, generator=g) * scale).to(dev)  # noqa: E731
+    b, h, w, c = 2, 16, 16, 64
+    x, short, dy = (n(b, h, w, c).to(dt) for _ in range(3))
+    comb, dp = n(b, c, c, scale=c ** -0.5), torch.tensor([1.25, 0.5], device=dev)
+    wqkv, wdw = n(3 * c, c, 1, 1, scale=c ** -0.5), n(3 * c, 1, 3, 3, scale=1 / 3)
+    gate = n(b, h // 8, w // 8, c, scale=0.5).to(dt)
+    gmap = sp._gate_map(gate, 0, h)
+    halo = sp.Halo(x[:, -1:], x[:, h // 2:h // 2 + 1], True, False)
+    for rows, hl in ((slice(0, h), None), (slice(0, h // 2), halo)):
+        xs, ss, ds = x[:, rows], short[:, rows], dy[:, rows]
+        win = gate[:, rows.start // 8:rows.stop // 8]
+        per_px = gmap[:, rows]
+        fwd = [sp.spectral_apply(xs, comb, wqkv, wdw, gate=gg, shortcut=ss, dp_scale=dp, halo=hl)
+               for gg in (win, per_px)]
+        assert torch.equal(fwd[0], fwd[1])
+        ref = sp.spectral_apply_plain(xs, comb, wqkv, wdw, gate=per_px, shortcut=ss, dp_scale=dp,
+                                      halo=hl)
+        _outputs_close((fwd[1],), (ref,), tol, f"gate map forward {rows}")
+        bwd = []
+        for gg in (win, per_px):
+            _route.reset_counters()
+            bwd.append(sp._apply_bwd_launch(xs, comb, wqkv, wdw, 0, None, None, False, gg, dp,
+                                            1e-5, ds, hl))
+            assert _route.COUNTERS["spectral_apply_bwd"].launches == 1
+        assert all(torch.equal(a, r) for j, (a, r) in enumerate(zip(*bwd))
+                   if j != 6 and a is not None)
+        _outputs_close(bwd[1], sp.spectral_apply_bwd_plain(xs, comb, wqkv, wdw, 0, None, None,
+                                                           False, per_px, dp, 1e-5, ds, hl),
+                       tol, f"gate map backward {rows}")
+
+
+@pytest.mark.cuda
+def test_cuda_spectral_bf16_halo_check_sees_faults():
+    """The bf16 composition checks are not blind: shard 1 of 4 with its halo
+    rows swapped top for bottom, and shard 0 with its top edge flag inverted
+    (the ring's wrapped row taken as real), composed with the other shards,
+    break the composed bound (the stats' 1e-4, the apply's bitwise)."""
+    from mp_hsir_tpu_torch.ops.kernels.spectral import Halo
+
+    dev = _cuda()
+    for kind in ("stats", "apply_tail"):
+        fn, args, kw = _halo_call(kind, 64, dev)
+        args, kw = _as(torch.bfloat16, list(args), kw)
+        whole = fn(*args, **kw)
+        for j, fault in ((1, "swapped"), (0, "edge")):
+            outs = []
+            for i in range(4):
+                a, k = _halo_shard(args, kw, 4, i, (i == 0, i == 3))
+                if i == j:
+                    hl = k["halo"]
+                    k = dict(k, halo=Halo(hl.bot, hl.top, False, False) if fault == "swapped"
+                             else Halo(hl.top, hl.bot, False, i == 3))
+                outs.append(fn(*a, **k))
+            if kind == "stats":
+                got = [sum(o[m] for o in outs) for m in range(3)]
+                assert any((g - w).abs().max().item() > 1e-4 * w.abs().max().item()
+                           for g, w in zip(got, whole)), fault
+            else:
+                assert not torch.equal(torch.cat(outs, dim=1), whole), fault
+
+
+# The bf16 spectral backwards (K10a / K10b) on row shards with their halo
+# rows: the float32 cases' calls in bf16; each shard against the plain bf16
+# backward at the bf16 bound, the shards composed against the unsharded bf16
+# kernel backward within BF16_HALO_COMPOSED_TOL (the plain bf16 versions
+# composed the same way read 2.6e-3 to 7.8e-3 of max-abs off the unsharded
+# plain bf16 backward on the CPU at these shapes).
+BF16_HALO_COMPOSED_TOL = 2e-2
+
+
+def _bf16_bwd(args):
+    """A backward call's activations (x, the apply's gate and dy) in bf16."""
+    a = list(args)
+    a[0] = a[0].to(torch.bfloat16)
+    if len(a) == 12:
+        a[8] = None if a[8] is None else a[8].to(torch.bfloat16)
+        a[11] = a[11].to(torch.bfloat16)
+    return a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,c,n,shape", [k + ((2, 32, 24, 2),) for k in HALO_BWD_CASES]
+                         + [k + ((8, 16, 16, 8),) for k in HALO_BWD_LATENT])
+def test_cuda_spectral_bf16_halo_backward_matches_plain(kind, c, n, shape, monkeypatch):
+    """Each shard's bf16 backward with its halo rows (the two tiles, grad.cu's
+    halo-row kernel, the halo rows' 1x1 + LayerNorm backward: dx, d top, d
+    bottom and the weight gradients) against the plain bf16 backward within
+    3e-2 of each output's max-abs, at every edge-flag combination: one
+    halo-counted launch keyed bf16 and one mp_dwconv_halo_bwd where a row is
+    real, none at two image edges; the shards at their true edge flags
+    composed (halo cotangents folded into the neighbours' rows, weight
+    gradients summed) within BF16_HALO_COMPOSED_TOL of the unsharded bf16
+    kernel backward."""
+    from mp_hsir_tpu_torch.ops.kernels import spectral as sp
+
+    dev = _cuda()
+    b, h, w, heads = shape
+    kern, plain, args = _halo_bwd_call(kind, c, dev, b, h, w, heads)
+    args = _bf16_bwd(args)
+    name = "spectral_stats_bwd" if kind.startswith("stats") else "spectral_apply_bwd"
+    calls = []
+    fn = sp.dwconv_halo_bwd
+    monkeypatch.setattr(sp, "dwconv_halo_bwd", lambda *a: calls.append(1) or fn(*a))
+    outs, rows = [], []
+    for i in range(n):
+        for edges in HALO_EDGES:
+            a, _ = _halo_bwd_shard(args, n, i, edges)
+            _route.reset_counters()
+            calls.clear()
+            got = kern(*a)
+            real = int(edges != (True, True))
+            halo = _route.COUNTERS[name + "_halo"]
+            assert halo.launches == real and len(calls) == real, (kind, i, edges)
+            assert all(s[-1] == "torch.bfloat16" for s in halo.specs)
+            _outputs_close(got, plain(*a), 3e-2, f"{kind} shard {i}/{n} {edges}")
+        a, rr = _halo_bwd_shard(args, n, i, (i == 0, i == n - 1))
+        outs.append(kern(*a))
+        rows.append(rr)
+    whole = kern(*args)
+    _outputs_close(_halo_bwd_compose(outs, rows, args[0].shape[1]), whole[:len(whole) - 2],
+                   BF16_HALO_COMPOSED_TOL, f"{kind} composed")
 
 
 def _ptxas(kernel: str) -> dict:

@@ -2,8 +2,8 @@
 on the CPU: the spectral stats and apply plain versions with a shard's halo
 rows against the JAX package's shard kernels ``_sp0_call`` / ``_sp1_call``
 in interpret mode (every edge-flag combination, with and without the
-LayerNorm, the gate, the per-pixel gate map as the port folds it into the
-shortcut, the PromptFusion entry); the sharded ops, the tiny model and the
+LayerNorm, the gate, the per-pixel gate map, the PromptFusion entry); the
+sharded ops, the tiny model and the
 eval CLI over gloo ranks spawned on this machine (three spawned runs)
 against the unsharded port and the JAX package; the rank -> card mapping.
 The halo tiles themselves are held to these plain versions on the card
@@ -81,8 +81,8 @@ def test_stats_halo_plain_matches_jax_sp0(edges, ln):
 def test_apply_halo_plain_matches_jax_sp1(edges, variant):
     """spectral_apply_plain on a shard with its halo rows == _sp1_call
     (interpret mode): the PGSSTB epilogue with per-window gates and a
-    shortcut; a shifted block's per-pixel gate map, which the port folds
-    into the shortcut (x * gate_map + shortcut); the PromptFusion entry
+    shortcut; a shifted block's per-pixel gate map with a shortcut; the
+    PromptFusion entry
     cat(x, x2) with the LayerNorm and the residual."""
     d = _shard(12, 16, 2, c2=16 if variant == "fusion" else 0)
     x = tensor(d["x"])
@@ -96,8 +96,8 @@ def test_apply_halo_plain_matches_jax_sp1(edges, variant):
         want = _sp1_call(*jargs, None, None, jnp.asarray(d["gate"]), None, jnp.asarray(d["short"]),
                          None, num_heads=2, eps=1e-5, residual=False, interpret=True)
     elif variant == "gate_map":
-        folded = tensor(d["short"]) + x * tensor(d["gmap"])
-        got = spectral_apply_plain(x, comb, wq, wd, shortcut=folded, halo=halo)
+        got = spectral_apply_plain(x, comb, wq, wd, gate=tensor(d["gmap"]),
+                                   shortcut=tensor(d["short"]), halo=halo)
         want = _sp1_call(*jargs, None, None, None, jnp.asarray(d["gmap"]), jnp.asarray(d["short"]),
                          None, num_heads=2, eps=1e-5, residual=False, interpret=True)
     else:

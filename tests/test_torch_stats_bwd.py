@@ -17,12 +17,13 @@ import pytest
 import torch
 
 from dwconv_dx_emulation import (
+    halo_row_out as _halo_row_out, halo_rows_bwd as _halo_rows_bwd, halo_taps as _halo_taps,
     interior as _interior, launch2 as _launch2, ln as _ln, rnd as _rnd, tiles as _tiles,
     untile as _untile,
 )
 from mp_hsir_tpu_torch.ops.kernels.spectral import (
-    DX_LDD, DX_LDT, STATS_BUDGET, pack_stats, qk_row, spectral_stats, spectral_stats_bwd_plain,
-    stats_bwd_tc_plan, stats_plan,
+    DX_LDD, DX_LDT, STATS_BUDGET, Halo, pack_stats, qk_row, spectral_stats,
+    spectral_stats_bwd_plain, stats_bwd_tc_plan, stats_plan,
 )
 from torch_port_inputs import normal as _n, rng as _rng, uniform as _u
 import torch_threads  # noqa: E402,F401  (one compute thread per process)
@@ -42,16 +43,33 @@ PLANS = {(64, 2): (96768, 3, 161664), (128, 4): (119040, 3, 186240),
          (27, 3): (68160, 3, 161664)}
 
 
-def _launch1(x, wq, wd, heads, shift, lnw, lnb, dgram, dnq, dnk, dt, eps, transposed=True):
+def _halo_in(rows, flags, lnw, lnb, dt, eps):
+    """A row shard's halo rows as the first tile stages them (the LayerNorm
+    in place, rounded): (top, bot) (B, W, C), None at an image edge (a side
+    without its bit). rows [2][B][W][C] the raw rows."""
+    norm = (lambda a: a) if lnw is None else (lambda a: _rnd(_ln(a, lnw, lnb, eps)[2], dt))
+    return tuple(norm(rows[i]) if flags & (1 << i) else None for i in range(2))
+
+
+def _launch1(x, wq, wd, heads, shift, lnw, lnb, dgram, dnq, dnk, dt, eps, transposed=True,
+             hrows=(None, None)):
     """The first tile on every 8x8 tile: (un, t, dqk) in the unrolled frame,
-    t and dqk in the torch channel order. transposed=False computes dq with
-    dG instead of dG^T (a planted fault)."""
+    t and dqk in the torch channel order, then un_halo [2][B][W][C] and
+    t_halo [2][B][W][2C]: the LN'd input and 1x1 output of a row shard's
+    staged halo rows ``hrows`` (_halo_in), which the first and last tile
+    rows write (zero on a side without a row). transposed=False computes dq
+    with dG instead of dG^T (a planted fault)."""
     b, h, w, c = x.shape
     pl = stats_bwd_tc_plan(c, heads)
     dh, dhp, hw, nqk = pl["dh"], pl["dhp"], pl["hw"], pl["nqk"]
     raw = np.roll(x, (shift, shift), axis=(1, 2))
     un = raw if lnw is None else _rnd(_ln(raw, lnw, lnb, eps)[2], dt)
-    halo = _tiles(un)  # the halo staged as bf16, LN in place, zero outside
+    halo = _tiles(un, *hrows)  # the halo staged as bf16, LN in place, zero outside
+    sides = [s for s in range(2) if hrows[s] is not None]
+    un_h = np.zeros((2, b, w, c), np.float32)
+    t_h = np.zeros((2, b, w, 2 * c), np.float32)
+    for side in sides:
+        un_h[side] = _halo_row_out(halo, side, b, h, w)
     rows = np.array([qk_row(n, pl, c) for n in range(nqk)])
     ok = rows >= 0
     wg = np.where(ok[:, None], wq[np.maximum(rows, 0), :c], 0)  # [nqk][C]
@@ -70,6 +88,9 @@ def _launch1(x, wq, wd, heads, shift, lnw, lnb, dgram, dnq, dnk, dt, eps, transp
             cols = np.arange(g0 + n0, g0 + min(n0 + pl["np"], gw))
             t = _rnd(halo @ wg[cols].T, dt)  # [..., 100, np]
             t_out[..., rows[cols[ok[cols]]]] = _interior(t)[..., ok[cols]]
+            for side in sides:
+                t_h[side][..., rows[cols[ok[cols]]]] = _halo_row_out(t, side, b, h, w)[
+                    ..., ok[cols]]
             t10 = t.reshape(*t.shape[:-2], 10, 10, len(cols))
             acc = np.zeros(t.shape[:-2] + (8, 8, len(cols)), np.float32)
             for tap in range(9):
@@ -86,31 +107,55 @@ def _launch1(x, wq, wd, heads, shift, lnw, lnb, dgram, dnq, dnk, dt, eps, transp
             for side, v in ((0, dq), (1, dk)):
                 n = g0 + hh * hw + side * dhp + np.arange(dh)
                 dqk[..., rows[n]] = v[..., :dh]
-    return un, _untile(t_out.reshape(-1, 64, 2 * c), b, h, w), _untile(
-        dqk.reshape(-1, 64, 2 * c), b, h, w)
+    return (un, _untile(t_out.reshape(-1, 64, 2 * c), b, h, w),
+            _untile(dqk.reshape(-1, 64, 2 * c), b, h, w), un_h, t_h)
 
 
-def _emulate(x, wqkv, wdw, heads, shift, ln_w, ln_b, eps, dgram, dnq, dnk, transposed=True):
+def _emulate(x, wqkv, wdw, heads, shift, ln_w, ln_b, eps, dgram, dnq, dnk, transposed=True,
+             halo=None, fault=""):
     """Both tiles, the weight product and the in-order partial sums: the
-    outputs of spectral_stats_bwd_plain as numpy arrays."""
+    outputs of spectral_stats_bwd_plain as numpy arrays. ``halo``: a row
+    shard's :class:`Halo` (shift 0); then also grad.cu's halo-row kernel and
+    the wrapper's halo-row backward, and the outputs end with d top, d bot.
+    Planted faults on a shard: "swapped" (the halo rows top for bottom),
+    "edge" (the top edge flag inverted), "no_taps" (the halo rows' tap
+    partials left out)."""
     dt = x.dtype
     c = x.shape[-1]
     wq, wd = (a.float().numpy() for a in pack_stats(wqkv, wdw, dt))
     lnw = None if ln_w is None else ln_w.float().numpy()
     lnb = None if ln_b is None else ln_b.float().numpy()
     xf = x.float().numpy()
-    un, t, dqk = _launch1(xf, wq, wd, heads, shift, lnw, lnb, dgram.numpy(), dnq.numpy(),
-                          dnk.numpy(), dt, eps, transposed)
+    flags, rows, hrows = 0, None, (None, None)
+    if halo is not None:
+        rows = np.stack([halo.top[:, 0].float().numpy(), halo.bot[:, 0].float().numpy()])
+        if fault == "swapped":
+            rows = rows[::-1].copy()
+        flags = halo.flags ^ (1 if fault == "edge" else 0)
+        hrows = _halo_in(rows, flags, lnw, lnb, dt, eps)
+    un, t, dqk, un_h, t_h = _launch1(xf, wq, wd, heads, shift, lnw, lnb, dgram.numpy(),
+                                     dnq.numpy(), dnk.numpy(), dt, eps, transposed, hrows)
     dtt, dx, part = _launch2(xf, dqk, t, wd, wq, lnw, shift, dt, eps)
     tot = np.zeros(part.shape[1], np.float32)
     for row in part:  # sum_parts: the tiles in order
         tot += row
     dw = np.zeros((3 * c, c), np.float32)
     dw[:2 * c] = dtt.reshape(-1, 2 * c).T @ un.reshape(-1, c)
-    dwdw = np.zeros((3 * c, 9), np.float32)
-    dwdw[:2 * c] = tot[:18 * c].reshape(9, 2 * c).T
+    taps = tot[:18 * c].reshape(9, 2 * c)
     dln = (tot[18 * c:19 * c], tot[19 * c:]) if ln_w is not None else (None, None)
-    return (dx, dw.reshape(3 * c, c, 1, 1), dwdw.reshape(3 * c, 1, 3, 3), *dln)
+    dtop = dbot = None
+    if halo is not None:
+        dth, dwh = _halo_taps(dqk, t_h, wd, flags, dt, fault)
+        taps[:3] += dwh[0]
+        taps[6:] += dwh[1]
+        dtop, dbot, dw_h, dln_h = _halo_rows_bwd(dth, wq, rows, lnw, eps, flags, un_h, dt)
+        dw[:2 * c] += dw_h
+        if dln_h is not None:
+            dln = tuple(a + e for a, e in zip(dln, dln_h))
+    dwdw = np.zeros((3 * c, 9), np.float32)
+    dwdw[:2 * c] = taps.T
+    out = (dx, dw.reshape(3 * c, c, 1, 1), dwdw.reshape(3 * c, 1, 3, 3), *dln)
+    return out if halo is None else out + (dtop, dbot)
 
 
 def _inputs(c, heads, dt, seed, ln, b=2, h=8, w=16):
@@ -176,6 +221,52 @@ def test_stats_bwd_tiles_emulation_matches_plain(c, heads, shift, ln, dt):
     tol = 3e-2 if dt == torch.bfloat16 else 1e-4
     for i, (err, mx) in enumerate(_case(c, heads, shift, ln, dt)):
         assert mx > 0 and err <= tol * mx, f"output {i}: {err:.3e} > {tol} * {mx:.3e}"
+
+
+EDGES = [(True, True), (True, False), (False, True), (False, False)]
+
+
+def _halo_case(c, heads, ln, edges, fault="", seed=0):
+    """A row shard of one tile row (2 images of 8 x 16) with its bf16 halo
+    rows: (emulation errors against spectral_stats_bwd_plain, every output
+    both have; whether both give the halo cotangents at the same sides)."""
+    x, wqkv, wdw, nh, lnw, lnb, dg, dq, dk = _inputs(c, heads, torch.bfloat16, 90 + c + seed, ln)
+    r = _rng(7 + seed)
+    top, bot = (torch.from_numpy(_n(r, (2, 1, 16, c))).to(torch.bfloat16) for _ in range(2))
+    halo = Halo(top, bot, *edges)
+    got = _emulate(x, wqkv, wdw, nh, 0, lnw, lnb, 1e-5, dg, dq, dk, halo=halo, fault=fault)
+    ref = spectral_stats_bwd_plain(x, wqkv, wdw, nh, 0, lnw, lnb, 1e-5, dg, dq, dk, halo=halo)
+    same = all((g is None) == (r is None) for g, r in zip(got[-2:], ref[-2:]))
+    pairs = [(g, r) for g, r in zip(got, ref) if g is not None and r is not None]
+    return _errs(*zip(*pairs)), same
+
+
+@pytest.mark.parametrize("c,heads", [(64, 2), (27, 3)])
+@pytest.mark.parametrize("ln", [False, True])
+@pytest.mark.parametrize("edges", EDGES, ids=lambda e: f"edge{int(e[0])}{int(e[1])}")
+def test_stats_bwd_halo_emulation_matches_plain(c, heads, ln, edges):
+    """On a bf16 row shard with its halo rows (the first tile staging them
+    through the halo source map, writing their LN'd input and 1x1 output;
+    grad.cu's halo-row kernel adding their cotangents and tap partials; the
+    wrapper's halo-row backward through the 1x1 and the LayerNorm) against
+    spectral_stats_bwd_plain with the same Halo: every output, d top and d
+    bottom included, within the bf16 bound 3e-2 of its max-abs, and the
+    halo cotangents at the same sides."""
+    errs, same = _halo_case(c, heads, ln, edges)
+    assert same
+    for i, (err, mx) in enumerate(errs):
+        assert err <= 3e-2 * mx, f"output {i}: {err:.3e} > 3e-2 * {mx:.3e}"
+
+
+@pytest.mark.parametrize("fault", ["swapped", "edge", "no_taps"])
+def test_stats_bwd_halo_emulation_sees_planted_faults(fault):
+    """The halo check is not blind: the halo rows swapped top for bottom,
+    the top edge flag inverted (the image edge's wrapped row taken as real)
+    and the halo rows' tap partials left out each move an output past the
+    bf16 bound (or put a halo cotangent at the wrong side)."""
+    edges = (True, False) if fault == "edge" else (False, False)
+    errs, same = _halo_case(64, 2, True, edges, fault)
+    assert not same or any(err > 3e-2 * mx for err, mx in errs), errs
 
 
 @pytest.mark.parametrize("c,heads", [(64, 2), (27, 3)])

@@ -274,19 +274,18 @@ def test_cli_end_to_end_and_resume(rs_store, tmp_path):
 
 
 def test_cli_refuses_mesh_and_missing_card(rs_store, tmp_path):
-    """bf16 (the default) with --mesh_spatial 2 raises, naming the next
-    slice (its halo tiles); without a card the default device raises, on
-    one rank and before a mesh spawns its ranks."""
-    with pytest.raises(SystemExit, match="mesh_spatial 2 trains in float32.*next slice"):
-        train_cli.main(["--db_path", rs_store, "--mesh_spatial", "2"])
+    """A mesh size below 1 raises; without a card the default device raises,
+    on one rank and before a mesh spawns its ranks: --mesh_data 2, and
+    --mesh_spatial 2 at the default bf16, which gets past the compute type
+    (the bf16 halo tiles shard the rows) to the missing card."""
     with pytest.raises(SystemExit, match="at least 1"):
         train_cli.main(["--db_path", rs_store, "--mesh_data", "0"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             train_cli.main(["--db_path", rs_store, "--ckpt_dir", str(tmp_path)])
-        with pytest.raises(RuntimeError, match="cuda"):
-            train_cli.main(["--db_path", rs_store, "--mesh_data", "2", "--ckpt_dir",
-                            str(tmp_path)])
+        for mesh in (["--mesh_data", "2"], ["--mesh_spatial", "2"]):
+            with pytest.raises(RuntimeError, match="cuda"):
+                train_cli.main(["--db_path", rs_store, *mesh, "--ckpt_dir", str(tmp_path)])
 
 
 @pytest.fixture(scope="module")
