@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out results.json] [--bwd-split KERNEL] [--mlp-bwd-split] [--wgrad]
                           [--train-cli] [--eval-cli] [--f32-eval] [--mesh-eval]
-                          [--mesh-cards] [--mesh-train]
+                          [--mesh-cards] [--mesh-train] [--mesh-tp]
 
 Phases (any failure exits non-zero; no phase's error is caught):
 
@@ -286,7 +286,38 @@ Phases (any failure exits non-zero; no phase's error is caught):
     the 20 steps falls; ms per step per rank (not a multi-card figure).
     --mesh-cards runs (e) with one rank a card over NCCL too. --mesh-train
     runs phase 1 and only phase 16.
-17. The kernel summary line (each kernel's main-path numbers, its
+17. The head-parallel spectral mesh axis in float32 (make_mesh(data,
+    spatial, spectral)). (a) Every distinct float32 stats and apply call of
+    the flagship forward on the head-parallel route (512^2: no LayerNorm,
+    the gate over n, no tail) as two members' head blocks: each member's
+    kernels against their plain versions (1e-4 of max-abs), the members
+    composed against the whole attention's kernel calls (the stats stacked
+    bitwise, the applies summed within 1e-4), the same
+    at 2 row shards x 2 members with halo rows, two planted faults that
+    must break the bound (member 1 on member 0's weights with its own
+    temperature, the gate not scaled by 1/n); member 0 timed beside plain,
+    the whole call and the bound. (b) Every float32 K10a / K10b call of the
+    flagship step at batch 8 (recorded as in phase 16, LayerNorm and
+    residual left out) as two members: each against its plain backward
+    (1e-4), dx summed and the weight cotangents scattered into full-size
+    tensors against the whole backward (1e-4); member 0 timed. (c) The
+    flagship 1 x 1 x 2 eval step on the trained weights, one 512^2 cube,
+    two ranks sharing this card over gloo: within 1e-4 of max-abs of the
+    one-rank float32 forward, PSNR and SSIM within 1e-3 dB / 1e-4 of one
+    rank's; per rank 24 + 24 head-block launches, no plain call. (d) The
+    float32 1 x 1 x 2 and 1 x 2 x 2 train steps, batch 8, trained weights,
+    drop-path on: gradients against the one-rank kernel step (1e-4
+    norm-wise per tensor), 24 + 24 head-block backwards per rank per step,
+    no plain call, each of the route's own head-block backward launches
+    (shift 0, gate maps over n) against its plain backward (1e-4), the
+    parameters bitwise equal across the ranks after 3 and after 10 AdamW
+    steps, the loss falling over the 10; ms per step per rank (ranks
+    sharing one card: not a multi-card figure). (e) The
+    remote-sensing 1 x 1 x 2 eval step (seeded weights, 256^2) against one
+    rank. (f) A bf16 head block on the card raises, naming the missing
+    tiles. --mesh-cards runs (d)'s 1 x 1 x 2 step with one rank a card over
+    NCCL too; --mesh-tp runs phase 1 and only phase 17.
+18. The kernel summary line (each kernel's main-path numbers, its
     remote-sensing train-step numbers and the train and eval CLIs' launches
     beside them; the float32 tail tile's row: phase 14's launches, phase 2's
     tail ms per flagship float32 forward beside its bound and plain, the
@@ -296,7 +327,9 @@ Phases (any failure exits non-zero; no phase's error is caught):
     its fronts), alone, plain, bound and library, phase 7's remote-sensing
     float32 sums; the four bf16 halo instances: phase 16 (e)'s launches,
     phase 15 (a)'s bf16 ms per sharded forward and phase 16 (a)'s bf16 ms
-    per sharded step), then the result line.
+    per sharded step; the four float32 head-block instances: phase 17 (c)'s
+    and (d)'s launches, phase 17 (a)'s ms per flagship forward and (b)'s per
+    step for member 0 of 2), then the result line.
 
 --bwd-split KERNEL (mlp_bwd, spectral_stats_bwd, window_attention_bwd,
 spectral_apply_bwd or gdfn_bwd; repeatable) runs phase 1's build and only
@@ -444,7 +477,14 @@ INSIDE = ("wgrad",)
 WGRAD_TOL = F32_TOL
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print a line; a phase's header ("== ...") with the seconds since the
+    script started."""
+    if msg.startswith("== "):
+        msg += f"  [{time.perf_counter() - _T0:.0f} s]"
     print(msg, flush=True)
 
 
@@ -625,7 +665,7 @@ PLAN_ENTRIES = {
                              lambda s: s[4:6]),
     "spectral_stats_bwd": ("mp_spectral_stats_bwd_smem", None, lambda s: s[4:6]),
     "spectral_apply_bwd": ("mp_spectral_apply_bwd_smem", "mp_spectral_apply_bwd_chunk",
-                           lambda s: s[4:5]),
+                           lambda s: (s[4], s[4])),
     "gdfn_bwd": ("mp_gdfn_bwd_smem", "mp_gdfn_bwd_chunk", lambda s: s[4:5]),
 }
 
@@ -662,10 +702,10 @@ def plan_of(spec) -> dict:
         n = _build.plan_bytes("mp_spectral_stats_tc_smem", *shape)
         return dict(smem=n, smem_whole=n, kc=c, c=c)
     if name == "spectral_stats" and has_stats_f32_tile():  # the float32 tile: one plan
-        n = _build.plan_bytes("mp_spectral_stats_smem", *shape)
+        n = _build.plan_bytes("mp_spectral_stats_smem", c, *shape)
         return dict(smem=n, smem_whole=n, kc=c, c=c)
     if name == "spectral_apply" and has_apply_f32_tile():  # both tiles: one plan each
-        n = _build.plan_bytes(smem_entry, *shape)
+        n = _build.plan_bytes(smem_entry, c, *shape)
         return dict(smem=n, smem_whole=n, kc=c, c=c)
     if name == "gdfn" and _code(spec):  # the bf16 tile: one resident plan
         n = _build.plan_bytes("mp_gdfn_tc_smem", c)
@@ -679,6 +719,9 @@ def plan_of(spec) -> dict:
     if name == "spectral_stats_bwd" and _code(spec):  # the bf16 tiles: the larger plan
         n = max(_build.plan_bytes("mp_spectral_stats_bwd_tc_smem", *shape),
                 _build.plan_bytes("mp_dwconv_dx_tc_smem", c, 2 * c))
+        return dict(smem=n, smem_whole=n, kc=c, c=c)
+    if name == "spectral_stats_bwd":  # the float32 kernel: one whole-input plan
+        n = _build.plan_bytes(smem_entry, c, *shape)
         return dict(smem=n, smem_whole=n, kc=c, c=c)
     if name == "spectral_apply_bwd" and _code(spec):  # the bf16 tiles: the larger plan
         n = max(_build.plan_bytes("mp_spectral_apply_bwd_tc_smem", c, tile) for tile in (1, 2))
@@ -2857,7 +2900,8 @@ def mesh_cards_checks(dev, card: str) -> dict:
     """--mesh-cards: the sharded CLI on a machine with several cards, one
     rank a card over NCCL (2 ranks, then one per card), the flagship
     (mesh_cli_run); then the same command under torchrun (2 processes) held
-    to the stdout lines and to the one-card metrics."""
+    to the stdout lines and to the one-card metrics; then phase 16's 1 x 2
+    steps and phase 17's 1 x 1 x 2 step with one rank a card."""
     import shutil
 
     n_cards = torch.cuda.device_count()
@@ -2891,6 +2935,8 @@ def mesh_cards_checks(dev, card: str) -> dict:
     res["train_1x2"] = mesh_step_checks(dev, card, (("1x2 nccl", 1, 2, True),))
     log("  phase 16 (e)'s 1 x 2 bf16 train step, one rank a card over NCCL:")
     res["train_1x2_bf16"] = mesh_bf16_step_checks(dev, card, True)
+    log("  phase 17 (d)'s 1 x 1 x 2 float32 train step, one rank a card over NCCL:")
+    res["train_1x1x2"] = tp_mesh_checks(dev, card, True)
     log(card)
     return res
 
@@ -3966,8 +4012,8 @@ def log_front_plans(_build) -> dict:
     for c in (64, 96, 128, 192, 256, 384):
         for tail in (1, 0):
             if has_apply_f32_tile():
-                f32 = _build.plan_bytes("mp_spectral_apply_smem", c, tail, 0)
-                bf16 = _build.plan_bytes("mp_spectral_apply_smem", c, tail, 1)
+                f32 = _build.plan_bytes("mp_spectral_apply_smem", c, c, tail, 0)
+                bf16 = _build.plan_bytes("mp_spectral_apply_smem", c, c, tail, 1)
             else:
                 f32 = _build.plan_bytes("mp_spectral_apply_smem", c, tail, 0,
                                         _build.chunk("mp_spectral_apply_chunk", c, tail, 0))
@@ -3995,7 +4041,7 @@ def log_stats_plans(_build, cfgs) -> dict:
     plans = {}
     for c, nh in stats_shapes(cfgs):
         if has_stats_f32_tile():
-            kc, f32 = c, _build.plan_bytes("mp_spectral_stats_smem", c, nh)
+            kc, f32 = c, _build.plan_bytes("mp_spectral_stats_smem", c, c, nh)
         else:
             kc = _build.chunk("mp_spectral_stats_chunk", c, nh)
             f32 = _build.plan_bytes("mp_spectral_stats_smem", c, nh, kc)
@@ -4086,7 +4132,7 @@ def log_f32_tail_plans(_build) -> dict:
     limit, plans = _build.smem_limit(), {}
     for c in (64, 96, 128, 192, 256, 384, WIDE_C):
         if has_apply_f32_tile():
-            kc, apply = c, _build.plan_bytes("mp_spectral_apply_smem", c, 1, 0)
+            kc, apply = c, _build.plan_bytes("mp_spectral_apply_smem", c, c, 1, 0)
         else:
             kc = _build.chunk("mp_spectral_apply_chunk", c, 1, 0)
             apply = _build.plan_bytes("mp_spectral_apply_smem", c, 1, 0, kc)
@@ -4215,7 +4261,7 @@ def log_stats_f32_plans(_build, cfgs) -> dict:
     limit, plans = _build.smem_limit(), {}
     for c, heads in stats_shapes(cfgs) + list(STATS_ODD):
         mirror = stats_f32_plan(c, heads)
-        n = _build.plan_bytes("mp_spectral_stats_smem", c, heads)
+        n = _build.plan_bytes("mp_spectral_stats_smem", c, c, heads)
         plans[f"C={c}/{heads}"] = dict(f32=n, simt=simt_stats_f32_plan(c, heads, limit),
                                        groups=mirror["groups"], heads_a_group=mirror["hg"],
                                        stages=mirror["ws"])
@@ -4279,7 +4325,7 @@ def log_apply_f32_plans(_build, cfgs) -> dict:
     limit, plans = _build.smem_limit(), {}
     for c, tail in sorted(shapes):
         mirror = apply_f32_plan(c, bool(tail))
-        n = _build.plan_bytes("mp_spectral_apply_smem", c, tail, 0)
+        n = _build.plan_bytes("mp_spectral_apply_smem", c, c, tail, 0)
         key = f"C={c}{'+tail' if tail else ''}"
         plans[key] = dict(f32=n, simt=simt_apply_f32_plan(c, tail, limit),
                           groups=mirror["groups"], passes=mirror["passes"], stages=mirror["ws"],
@@ -4431,7 +4477,7 @@ def log_stats_bwd_plans(_build, cfgs) -> dict:
         plans[f"C={c}/{nh}"] = dict(
             tile1=_build.plan_bytes("mp_spectral_stats_bwd_tc_smem", c, nh),
             tile2=_build.plan_bytes("mp_dwconv_dx_tc_smem", c, 2 * c),
-            f32=_build.plan_bytes("mp_spectral_stats_bwd_smem", c, nh))
+            f32=_build.plan_bytes("mp_spectral_stats_bwd_smem", c, c, nh))
     log("  bf16 spectral_stats_bwd plans (B: tile 1, tile 2; float32's in brackets): "
         + ", ".join(f"{k} {v['tile1']}, {v['tile2']} ({v['f32']})" for k, v in plans.items()))
     return dict(ptxas=regs, plans=plans)
@@ -4479,11 +4525,11 @@ def log_apply_bwd_plans(_build, cfgs) -> dict:
                      if s[0] == "spectral_apply_bwd"})
     plans = {}
     for c in widths:
-        kc = _build.chunk("mp_spectral_apply_bwd_chunk", c)
+        kc = _build.chunk("mp_spectral_apply_bwd_chunk", c, c)
         plans[f"C={c}"] = dict(
             tile1=_build.plan_bytes("mp_spectral_apply_bwd_tc_smem", c, 1),
             tile2=_build.plan_bytes("mp_spectral_apply_bwd_tc_smem", c, 2),
-            f32=_build.plan_bytes("mp_spectral_apply_bwd_smem", c, kc), f32_kc=kc)
+            f32=_build.plan_bytes("mp_spectral_apply_bwd_smem", c, c, kc), f32_kc=kc)
     log("  bf16 spectral_apply_bwd plans (B: tile 1, tile 2; float32's at its chunk in "
         "brackets): " + ", ".join(f"{k} {v['tile1']}, {v['tile2']} ({v['f32']} kc {v['f32_kc']})"
                                   for k, v in plans.items()))
@@ -4571,6 +4617,777 @@ def log_wgrad_ptxas() -> dict:
                 dwconv_dx_extra=k10b, dwconv_dx_f32t=k11)
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the head-parallel spectral mesh axis in float32 (make_mesh(data,
+# spatial, spectral)): the four float32 spectral kernels on a member's head
+# block (K7a / K7b / K10a / K10b with CL = C / 2), the eval and train steps
+# on ranks sharing the card
+# ---------------------------------------------------------------------------
+
+TP_N = 2  # members of the spectral axis
+TP_BATCH, TP_BITWISE_STEPS, TP_STEPS = 8, 3, 10
+# the steps' rate: a tenth of the preset's 2e-4. From the trained weights
+# the first AdamW steps at 2e-4 raise the loss (phase 16 (b)'s float32
+# steps, batch 8: 0.05308, 0.16398, 0.36353); at 2e-5 it falls over the 10
+TP_LR = 2e-5
+# the mesh steps' float32 gradients against one rank's, norm-wise per tensor:
+# the plain 1 x 1 x 2 and 1 x 2 x 2 flagship steps read 3.17e-5 and 2.02e-5
+# against the plain one-rank step on the CPU (batch 2, trained weights;
+# chip_smoke's derivation in PERF.md section 2), so 1e-4 (within GRAD_TOL)
+TP_GRAD_TOL = 1e-4
+# per rank: each spectral attention of the flagship once per forward (22
+# PGSSTBs and 2 PromptFusions), forward and backward
+TP_LAUNCHES = {"spectral_stats_tp": 24, "spectral_apply_tp": 24}
+TP_BWD_LAUNCHES = {"spectral_stats_bwd_tp": 24, "spectral_apply_bwd_tp": 24}
+TP_KERNELS = {
+    "spectral_stats_f32_tp": dict(
+        source="mp_hsir_tpu_torch/csrc/spectral_stats_f32.cuh", tpu=["K7a"], of="stats",
+        replaces="mp_hsir_tpu/ops/pallas_attention.py:2053", counter="spectral_stats_tp"),
+    "spectral_apply_f32_tp": dict(
+        source="mp_hsir_tpu_torch/csrc/spectral.cu", tpu=["K7b"], of="apply",
+        replaces="mp_hsir_tpu/ops/pallas_attention.py:2114", counter="spectral_apply_tp"),
+    "spectral_stats_bwd_f32_tp": dict(
+        source="mp_hsir_tpu_torch/csrc/spectral.cu", tpu=["K10a"], of="stats_bwd",
+        replaces="mp_hsir_tpu/ops/pallas_vjp.py:1671", counter="spectral_stats_bwd_tp"),
+    "spectral_apply_bwd_f32_tp": dict(
+        source="mp_hsir_tpu_torch/csrc/spectral.cu", tpu=["K10b"], of="apply_bwd",
+        replaces="mp_hsir_tpu/ops/pallas_vjp.py:1758", counter="spectral_apply_bwd_tp"),
+}
+
+
+def tp_member(t: int):
+    """Member t of the spectral axis of TP_N, as the head-block slicing sees
+    it (no process group: phase 17 (a) and (b) compose the members in one
+    process)."""
+    from mp_hsir_tpu_torch.parallel.mesh import SPECTRAL_AXIS, Axis
+
+    return Axis(SPECTRAL_AXIS, t, TP_N, None, False)
+
+
+def tp_eval_calls(cfg, size: int) -> Counter:
+    """The flagship eval forward's spectral attentions as the head-parallel
+    route runs them, with their counts: (B, side, C, heads, gate), gate
+    "window" (an unshifted PGSSTB's per-window gates), "map" (a shifted one's
+    per-pixel gate map) or "" (a PromptFusion: no gate, its LayerNorm
+    outside)."""
+    calls = Counter()
+    for spec, mult in path_specs(cfg, size, "torch.float32").items():
+        if spec[0] == "spectral_stats":
+            _, b, h, _, c1, c2, nh, shift = spec[:8]
+            calls[(b, h, c1 + c2, nh, "" if c2 else "map" if shift else "window")] += mult
+    return calls
+
+
+def tp_inputs(key, dev) -> dict:
+    """Seeded float32 operands of one whole attention: the map, the full-size
+    weights, the temperature, the projection and the gate of ``key``."""
+    b, h, c, nh, gate = key
+    g = Inputs(zlib.crc32(repr(key).encode()), dev, torch.float32)
+    d = dict(x=g.n((b, h, h, c)), wq=g.u((3 * c, c, 1, 1), c), wd=g.u((3 * c, 1, 3, 3), 9),
+             temp=1 + g.n((nh, 1, 1), 0.2), wout=g.u((c, c, 1, 1), c), gate=None)
+    if gate:
+        d["gate"] = g.n((b, h // 8 if gate == "window" else h, h // 8 if gate == "window" else h,
+                         c), 0.5)
+    return d
+
+
+def tp_fwd_cost(x, cl: int, heads: int, gate) -> tuple:
+    """(bytes, flops) of one member's stats and apply calls on x: each input
+    read once and each output written once (float32), the q|k and v 1x1s
+    (C deep, 2CL and CL wide), the depthwise taps, the Gram and norms, the
+    comb product (CL deep, C wide)."""
+    b, h, w, c = x.shape
+    p = b * h * w
+    dh = cl // heads
+    stats = (p * c * 4 + (2 * cl * c + 18 * cl) * 4 + b * (cl * dh + 2 * cl) * 4,
+             p * (4 * c * cl + 36 * cl + 2 * cl * dh + 4 * cl))
+    gb = 0 if gate is None else gate.numel() * 4
+    apply = (2 * p * c * 4 + b * cl * c * 4 + (cl * c + 9 * cl) * 4 + gb,
+             p * (2 * c * cl + 18 * cl + 2 * cl * c))
+    return stats, apply
+
+
+def tp_forward_checks(dev, card: str) -> dict:
+    """Phase 17 (a): every distinct float32 stats and apply call of the
+    flagship forward on the head-parallel route (tp_eval_calls; phase 2's
+    512^2 shapes) as TP_N members' head blocks: each member's stats and
+    apply kernels against their plain versions (F32_TOL of max-abs); the
+    members composed against the whole attention's kernel calls: their
+    stats stacked bitwise equal to the whole call's, their applies (each
+    folded with its temperature and projection columns, the gate over n)
+    summed within F32_TOL; the same at 2 row shards x TP_N
+    members with halo rows (each member's stats summed over the shards,
+    each shard's apply summed over the members); planted faults that must
+    break the bound: member 1 on member 0's weights with its own
+    temperature, the gate not scaled by 1/n. Member 0's calls timed beside
+    their plain versions, the whole calls and their bounds."""
+    from mp_hsir_tpu_torch.config import natural_scene_config
+    from mp_hsir_tpu_torch.ops.kernels._route import plain_reference
+    from mp_hsir_tpu_torch.ops.kernels.spectral import (
+        spectral_apply, spectral_fold, spectral_stats,
+    )
+    from mp_hsir_tpu_torch.parallel.tp import head_block
+
+    def member_y(x, hb, gate, stats=None, halo=None, scale=1.0 / TP_N):
+        st = spectral_stats(x, hb.wqkv, hb.wdw, hb.heads, halo=halo) if stats is None else stats
+        comb = spectral_fold(*st, hb.temperature, hb.wout)
+        return spectral_apply(x, comb, hb.wqkv, hb.wdw, halo=halo,
+                              gate=None if gate is None else gate * scale)
+
+    calls = tp_eval_calls(natural_scene_config(compute_dtype="float32"), SIZE)
+    rows = []
+    for key, mult in sorted(calls.items(), key=repr):
+        d = tp_inputs(key, dev)
+        x, gate = d["x"], d["gate"]
+        hbs = [head_block(d["wq"], d["wd"], d["temp"], d["wout"], key[3], tp_member(t))
+               for t in range(TP_N)]
+        row = dict(key=list(key), calls=mult)
+        worst = 0.0
+        kind_err = dict(stats=[0.0, 0.0], apply=[0.0, 0.0])  # (max abs, max rel) off plain
+        stats, ys = [], []
+        for hb in hbs:
+            got = spectral_stats(x, hb.wqkv, hb.wdw, hb.heads)
+            with plain_reference():
+                ref = spectral_stats(x, hb.wqkv, hb.wdw, hb.heads)
+            comb = spectral_fold(*got, hb.temperature, hb.wout)
+            g = None if gate is None else gate / TP_N
+            y = spectral_apply(x, comb, hb.wqkv, hb.wdw, gate=g)
+            with plain_reference():
+                yref = spectral_apply(x, comb, hb.wqkv, hb.wdw, gate=g)
+            for kind, a, r in (("stats", got, ref), ("apply", y, yref)):
+                e_abs, e = errs(a, r)
+                worst = max(worst, e)
+                kind_err[kind] = [max(kind_err[kind][0], e_abs), max(kind_err[kind][1], e)]
+            stats.append(got)
+            ys.append(y)
+        if not worst <= F32_TOL:
+            fail(f"head block {key}: {worst:.3e} of max-abs off its plain version")
+        whole_st = spectral_stats(x, d["wq"], d["wd"], key[3])
+        stacked = tuple(torch.cat([s[i] for s in stats], dim=1) for i in range(3))
+        bitwise = all(torch.equal(a, b) for a, b in zip(stacked, whole_st))
+        whole = spectral_apply(x, spectral_fold(*whole_st, d["temp"], d["wout"]), d["wq"],
+                               d["wd"], gate=gate)
+        summed = ys[0].clone()
+        for y in ys[1:]:
+            summed += y
+        if not bitwise:
+            fail(f"head block {key}: the members' stats stacked are not bitwise the whole "
+                 f"call's ({errs(stacked, whole_st)[1]:.3e} of max-abs)")
+        comp = errs(summed, whole)[1]
+        if not comp <= F32_TOL:
+            fail(f"head block {key}: the members' applies summed differ from the whole "
+                 f"attention by {comp:.3e} of max-abs")
+        # 2 row shards x TP_N members, with halo rows
+        shard = []
+        for i in range(2):
+            a, k = shard_call((x,), {} if gate is None else dict(gate=gate), 2, i)
+            if gate is not None and key[4] == "map":
+                r0, r1 = i * x.shape[1] // 2, (i + 1) * x.shape[1] // 2
+                k["gate"] = gate[:, r0:r1].contiguous()
+            shard.append((a[0], k))
+        part = []
+        for hb in hbs:
+            st = [spectral_stats(xs, hb.wqkv, hb.wdw, hb.heads, halo=k["halo"]) for xs, k in shard]
+            for xs, k in shard:
+                got = spectral_stats(xs, hb.wqkv, hb.wdw, hb.heads, halo=k["halo"])
+                with plain_reference():
+                    ref = spectral_stats(xs, hb.wqkv, hb.wdw, hb.heads, halo=k["halo"])
+                e_abs, e = errs(got, ref)
+                worst = max(worst, e)
+                kind_err["stats"] = [max(kind_err["stats"][0], e_abs),
+                                     max(kind_err["stats"][1], e)]
+            tot = tuple(st[0][j] + st[1][j] for j in range(3))
+            part.append([member_y(xs, hb, k.get("gate"), tot, k["halo"]) for xs, k in shard])
+        rows_y = torch.cat([part[0][i] + part[1][i] for i in range(2)], dim=1)
+        comp_halo = errs(rows_y, whole)[1]
+        if not (worst <= F32_TOL and comp_halo <= F32_TOL):
+            fail(f"head block {key} on 2 row shards: {worst:.3e} off plain, composed "
+                 f"{comp_halo:.3e} off the whole attention")
+        faults = {"swapped_weights": errs(
+            ys[0] + member_y(x, hbs[1]._replace(wqkv=hbs[0].wqkv, wdw=hbs[0].wdw), gate),
+            whole)[1]}
+        if gate is not None:
+            faults["gate_not_over_n"] = errs(
+                ys[0] + member_y(x, hbs[1], gate, scale=1.0), whole)[1]
+        for f, e in faults.items():
+            if not e > F32_TOL:
+                fail(f"head block {key}: the planted fault {f} went unseen ({e:.3e} of max-abs)")
+        hb = hbs[0]
+        comb0 = spectral_fold(*stats[0], hb.temperature, hb.wout)
+        g0 = None if gate is None else gate / TP_N
+        (sb, sf), (ab, af) = tp_fwd_cost(x, hb.wqkv.shape[0] // 3, hb.heads, gate)
+        t = dict(stats_ms=time_ms(lambda: spectral_stats(x, hb.wqkv, hb.wdw, hb.heads), 5),
+                 apply_ms=time_ms(lambda: spectral_apply(x, comb0, hb.wqkv, hb.wdw, gate=g0), 5),
+                 stats_whole_ms=time_ms(lambda: spectral_stats(x, d["wq"], d["wd"], key[3]), 5))
+        wcomb = spectral_fold(*whole_st, d["temp"], d["wout"])
+        t["apply_whole_ms"] = time_ms(lambda: spectral_apply(x, wcomb, d["wq"], d["wd"],
+                                                             gate=gate), 5)
+        with plain_reference():
+            t["stats_plain_ms"] = time_ms(lambda: spectral_stats(x, hb.wqkv, hb.wdw, hb.heads), 1)
+            t["apply_plain_ms"] = time_ms(lambda: spectral_apply(x, comb0, hb.wqkv, hb.wdw,
+                                                                 gate=g0), 1)
+        t.update(stats_bound_ms=f32_bound_ms(sb, sf), apply_bound_ms=f32_bound_ms(ab, af),
+                 stats_bytes=sb, stats_flops=sf, apply_bytes=ab, apply_flops=af)
+        row.update(max_rel_err=worst, composed_rel_err=comp, stats_bitwise=bitwise,
+                   shards_rel_err=comp_halo, faults=faults, **t,
+                   **{f"{k}_{n}": v for k, (a, r) in kind_err.items()
+                      for n, v in (("max_abs_err", a), ("rel_err", r))})
+        rows.append(row)
+        log(f"  {key} x{mult}: members {worst:.2e} of max-abs off plain; applies summed "
+            f"{comp:.2e}, stats stacked bitwise, 2 shards x {TP_N} {comp_halo:.2e}; faults "
+            + ", ".join(f"{f} {e:.2e}" for f, e in faults.items())
+            + f"; member 0 stats {t['stats_ms']:.3f} ms (whole {t['stats_whole_ms']:.3f}, plain "
+            f"{t['stats_plain_ms']:.3f}, bound {t['stats_bound_ms']:.4f}), apply "
+            f"{t['apply_ms']:.3f} (whole {t['apply_whole_ms']:.3f}, plain "
+            f"{t['apply_plain_ms']:.3f}, bound {t['apply_bound_ms']:.4f})")
+        del d, x, gate, hbs, stats, ys, whole, whole_st, shard, part, rows_y
+        torch.cuda.empty_cache()
+    per = {}
+    for of in ("stats", "apply"):
+        s = {k: sum(r[f"{of}_{k}"] * r["calls"] for r in rows)
+             for k in ("ms", "whole_ms", "plain_ms", "bound_ms", "bytes", "flops")}
+        s["bound_by"] = ("bytes" if s["bytes"] / HBM_BYTES_PER_S >= 3 * s["flops"] / TF32_FLOPS
+                         else "operations")
+        s.update(calls=sum(r["calls"] for r in rows),
+                 max_abs_err=max(r[f"{of}_max_abs_err"] for r in rows),
+                 rel_err=max(r[f"{of}_rel_err"] for r in rows))
+        per[of] = s
+        log(f"  {of} per flagship forward (member 0 of {TP_N}, its {s['calls']} calls): "
+            f"{s['ms']:.2f} ms (the whole calls {s['whole_ms']:.2f}, plain {s['plain_ms']:.2f}, "
+            f"bound {s['bound_ms']:.4f}, by {s['bound_by']}); members {s['rel_err']:.2e} of "
+            "max-abs off plain")
+    log(card)
+    return dict(rows=rows, per_forward=per)
+
+
+def tp_member_bwd(kind: str, args, t: int):
+    """Member t's head block of one recorded whole-attention backward call
+    (capture_spectral_bwd's arguments, LayerNorm and residual left out, as
+    the head-parallel route runs them): its weight rows, its heads' Gram
+    and norm cotangents (stats), its comb rows and the gate over n (apply)."""
+    from mp_hsir_tpu_torch.parallel.tp import qkv_rows
+
+    a = list(args)
+    c = a[0].shape[-1]
+    cl = c // TP_N
+    if kind == "stats":
+        hh = a[3] // TP_N
+        a[1], a[2], a[3] = qkv_rows(a[1], c, cl, t), qkv_rows(a[2], c, cl, t), hh
+        a[8] = a[8][:, t * cl:(t + 1) * cl].contiguous()
+        a[9], a[10] = (v[:, t * hh:(t + 1) * hh].contiguous() for v in (a[9], a[10]))
+    else:
+        a[1] = a[1][:, t * cl:(t + 1) * cl].contiguous()
+        a[2], a[3] = qkv_rows(a[2], c, cl, t), qkv_rows(a[3], c, cl, t)
+        a[8] = None if a[8] is None else a[8] / TP_N
+    return a
+
+
+def tp_bwd_cost(kind: str, args) -> tuple:
+    """(bytes, flops) of one member's K10a / K10b backward: each input and
+    output read or written once in float32 (x and dx, the weights and their
+    cotangents, the stats' or comb's cotangents, the gate and its
+    cotangent, dy), the products of the forward it recomputes and of its
+    cotangents (bwd_cost's count at q/k/v width CL)."""
+    x = args[0]
+    b, h, w, c = x.shape
+    cl = args[1 if kind == "stats" else 2].shape[0] // 3
+    p = b * h * w
+    if kind == "stats":
+        dh = args[8].shape[-1]
+        return (2 * p * c * 4 + (2 * cl * c + 18 * cl) * 2 * 4 + 3 * b * cl * dh * 4,
+                2 * p * (2 * c * 2 * cl + 36 * cl) + 2 * p * (2 * cl * dh + 4 * cl))
+    gate = args[8]
+    gb = 0 if gate is None else 2 * gate.numel() * 4
+    return (3 * p * c * 4 + 2 * b * cl * c * 4 + (cl * c + 9 * cl) * 2 * 4 + gb,
+            2 * p * (2 * c * cl + 2 * cl * c + 18 * cl))
+
+
+def tp_backward_checks(dev, card: str) -> dict:
+    """Phase 17 (b): every float32 K10a / K10b call of the flagship step at
+    batch TP_BATCH (one card's whole-map backward on the trained weights,
+    capture_spectral_bwd, as the head-parallel route runs it: no LayerNorm,
+    no residual) as TP_N members: each member's kernel backward against its
+    plain backward (F32_TOL of each output's max-abs: dx, the weight
+    cotangents, d comb, d gate, d dp); the members' dx summed and their
+    weight cotangents scattered into full-size tensors, their d comb
+    stacked, d dp summed, against the whole attention's kernel backward
+    (F32_TOL); member 0 timed beside its plain backward, the whole call and
+    its bound, summed per step."""
+    from mp_hsir_tpu_torch.ops.kernels import spectral as sp
+    from mp_hsir_tpu_torch.parallel.tp import qkv_rows
+
+    batch = train_batch(dev, TP_BATCH, TRAIN_SIZE)
+    calls = capture_spectral_bwd(dev, batch)
+    del batch
+    torch.cuda.empty_cache()
+    kern = dict(stats=sp._stats_bwd_launch, apply=sp._apply_bwd_launch)
+    plain = dict(stats=sp.spectral_stats_bwd_plain, apply=sp.spectral_apply_bwd_plain)
+    rows = []
+    for kind, args in calls:
+        args = list(args)
+        args[5] = args[6] = None  # the head-parallel route's LayerNorm is outside
+        if kind == "apply":
+            args[7] = False
+        c = args[0].shape[-1]
+        whole = kern[kind](*args, None)
+        outs, worst, worst_abs = [], 0.0, 0.0
+        for t in range(TP_N):
+            a = tp_member_bwd(kind, args, t) + [None]
+            got = kern[kind](*a)
+            e_abs, e = bwd_errs(got, plain[kind](*a))
+            worst, worst_abs = max(worst, e), max(worst_abs, e_abs)
+            outs.append(got)
+        if not worst <= F32_TOL:
+            fail(f"head-block {kind} backward at {tuple(args[0].shape)}: {worst:.3e} of max-abs "
+                 "off its plain backward")
+        dx = outs[0][0] + outs[1][0]
+        iw = (1, 2) if kind == "stats" else (2, 3)
+        got, want = [dx], [whole[0]]
+        for i in iw:
+            full = torch.zeros_like(whole[i])
+            for t in range(TP_N):
+                full.index_add_(0, qkv_rows(torch.arange(3 * c, device=dev), c, c // TP_N, t),
+                                outs[t][i])
+            got.append(full)
+            want.append(whole[i])
+        if kind == "apply":
+            got.append(torch.cat([o[1] for o in outs], dim=1))
+            want.append(whole[1])
+            if whole[8] is not None:
+                got.append(outs[0][8] + outs[1][8])
+                want.append(whole[8])
+        comp = bwd_errs(got, want)[1]
+        if not comp <= F32_TOL:
+            fail(f"head-block {kind} backward at {tuple(args[0].shape)}: the members composed "
+                 f"differ from the whole backward by {comp:.3e} of max-abs")
+        a0 = tp_member_bwd(kind, args, 0) + [None]
+        byts, flops = tp_bwd_cost(kind, a0)
+        row = dict(kind=kind, shape=list(args[0].shape), calls=1, max_rel_err=worst,
+                   max_abs_err=worst_abs, composed_rel_err=comp,
+                   ms=time_ms(lambda: kern[kind](*a0), 5),
+                   whole_ms=time_ms(lambda: kern[kind](*args, None), 5),
+                   plain_ms=time_ms(lambda: plain[kind](*a0), 1), bytes=byts, flops=flops,
+                   bound_ms=f32_bound_ms(byts, flops))
+        rows.append(row)
+        del whole, outs, got, want
+    torch.cuda.empty_cache()
+    per = {}
+    for kind in ("stats", "apply"):
+        rs = [r for r in rows if r["kind"] == kind]
+        s = {k: sum(r[k] for r in rs) for k in ("ms", "whole_ms", "plain_ms", "bound_ms", "bytes",
+                                                "flops")}
+        s["bound_by"] = ("bytes" if s["bytes"] / HBM_BYTES_PER_S >= 3 * s["flops"] / TF32_FLOPS
+                         else "operations")
+        s.update(calls=len(rs), max_abs_err=max(r["max_abs_err"] for r in rs),
+                 rel_err=max(r["max_rel_err"] for r in rs),
+                 composed_rel_err=max(r["composed_rel_err"] for r in rs))
+        per[kind + "_bwd"] = s
+        log(f"  {kind} backward per flagship step (batch {TP_BATCH}, member 0 of {TP_N}, its "
+            f"{s['calls']} calls): members {s['rel_err']:.2e} of max-abs off plain, composed "
+            f"{s['composed_rel_err']:.2e}; {s['ms']:.2f} ms (the whole calls {s['whole_ms']:.2f}"
+            f", plain {s['plain_ms']:.2f}, bound {s['bound_ms']:.4f}, by {s['bound_by']})")
+    log(card)
+    return dict(rows=rows, per_step=per)
+
+
+def _tp_counts() -> dict:
+    from mp_hsir_tpu_torch.ops.kernels import _route
+
+    return {k: c.launches for k, c in _route.COUNTERS.items() if c.launches}
+
+
+def _tp_eval_rank(info, preset: str, degraded, tid, mesh) -> dict:
+    """Phase 17 (c) / (e) on this rank: make_eval_step on ``mesh``, float32,
+    the flagship's trained weights or the remote-sensing preset's seeded
+    ones, one counted and timed call (the first: every kernel is built).
+    Returns the output (rank 0) and every rank's launches, plain calls and
+    ms."""
+    import torch.distributed as dist
+
+    from mp_hsir_tpu_torch.checkpoint import load_params_npz
+    from mp_hsir_tpu_torch.config import natural_scene_config, remote_sensing_config
+    from mp_hsir_tpu_torch.models.mp_hsir import build_model
+    from mp_hsir_tpu_torch.ops.kernels import _route
+    from mp_hsir_tpu_torch.training.trainer import make_eval_step
+
+    dev = info.device
+    if preset == "natural_scene":
+        cfg = natural_scene_config(compute_dtype="float32")
+        model = build_model(cfg, dev)
+        load_params_npz(ART, model)
+    else:
+        cfg = remote_sensing_config(compute_dtype="float32")
+        torch.manual_seed(RS_SEED)
+        model = build_model(cfg, dev)
+    step = make_eval_step(cfg, mesh)
+    x, t = degraded.to(dev), tid.to(dev)
+    torch.cuda.synchronize()
+    _route.reset_counters()
+    t0 = time.perf_counter()
+    out = step(model, x, t)
+    torch.cuda.synchronize()
+    mine = dict(ms=(time.perf_counter() - t0) * 1e3, launches=_tp_counts(),
+                plain_calls=_route.ROUTE.plain_cuda_calls, device=str(dev), backend=info.backend)
+    ranks = [None] * info.world_size
+    dist.all_gather_object(ranks, mine)
+    del model
+    torch.cuda.empty_cache()
+    return dict(out=out.cpu(), ranks=ranks)
+
+
+def tp_eval_inputs(dev, preset: str) -> dict:
+    """One cube of ``preset`` (the flagship: phase 3's 512^2 quality cube on
+    the trained weights; the remote-sensing preset: a 256^2 100-band cube
+    on its seeded weights) and the one-rank float32 forward on it."""
+    from mp_hsir_tpu_torch.checkpoint import load_params_npz
+    from mp_hsir_tpu_torch.config import natural_scene_config, remote_sensing_config
+    from mp_hsir_tpu_torch.models.mp_hsir import build_model
+
+    if preset == "natural_scene":
+        clean, degraded = quality_cube(990, SIZE)
+        model = build_model(natural_scene_config(compute_dtype="float32"), dev)
+        load_params_npz(ART, model)
+        tid = 0
+    else:
+        clean, degraded = quality_cube(990, RS_SIZE, 100)
+        torch.manual_seed(RS_SEED)
+        model = build_model(remote_sensing_config(compute_dtype="float32"), dev)
+        tid = 6
+    x, t = torch.from_numpy(degraded)[None], torch.tensor([tid])
+    with torch.inference_mode():
+        one = model(x.to(dev), t.to(dev)).cpu()
+    del model
+    torch.cuda.empty_cache()
+    return dict(preset=preset, x=x, t=t, one=one, clean=torch.from_numpy(clean)[None])
+
+
+def tp_eval_verdict(dev, job: dict, res: dict, shape) -> dict:
+    """Phase 17 (c) / (e)'s checks: the mesh's output against the one-rank
+    float32 forward (MODEL_F32_TOL of max-abs), PSNR and SSIM against the
+    clean cube within MESH_CLI_TOL of one rank's; per rank the head-block
+    launches of one forward (the flagship: TP_LAUNCHES) and no plain call;
+    ms per forward per rank (ranks sharing one card: not a multi-card
+    figure)."""
+    from mp_hsir_tpu_torch.ops.metrics import compute_psnr_ssim
+
+    preset, out, one = job["preset"], res["out"], job["one"]
+    err = ((out - one).abs().max() / one.abs().max()).item()
+    c = job["clean"].to(dev)
+    p1, s1, _ = compute_psnr_ssim(one.to(dev), c)
+    p2, s2, _ = compute_psnr_ssim(out.to(dev), c)
+    log(f"  {preset} {'x'.join(map(str, shape))} eval step: {err:.2e} of max-abs off one rank "
+        f"(bound {MODEL_F32_TOL}); PSNR {p2:.4f} / one rank {p1:.4f}, SSIM {s2:.5f} / {s1:.5f}")
+    if not (err <= MODEL_F32_TOL and abs(p2 - p1) <= MESH_CLI_TOL[0]
+            and abs(s2 - s1) <= MESH_CLI_TOL[1]):
+        fail(f"{preset} spectral-axis eval step: {err:.3e} off one rank, PSNR {p2} vs {p1}, SSIM "
+             f"{s2} vs {s1}")
+    for r, rk in enumerate(res["ranks"]):
+        got = {k: rk["launches"].get(k, 0) for k in TP_LAUNCHES}
+        if rk["plain_calls"] or min(got.values()) == 0 or (
+                preset == "natural_scene" and got != TP_LAUNCHES):
+            fail(f"{preset} rank {r}: head-block launches {got} (expected "
+                 f"{TP_LAUNCHES if preset == 'natural_scene' else 'some of each'}), plain calls "
+                 f"{rk['plain_calls']}")
+        log(f"  {preset} rank {r} ({rk['device']}, {rk['backend']}): {rk['ms']:.1f} ms for its "
+            f"first forward (ranks sharing one card: not a multi-card figure); launches {got}")
+    return dict(rel_err=err, psnr=(p2, p1), ssim=(s2, s1), ranks=res["ranks"])
+
+
+def _tp_check_route_bwd(sp, out: dict):
+    """Wrap the float32 spectral backward launches of ``sp`` so that each
+    call the head-parallel route makes is held against its plain backward
+    on the same arguments (the route's own shift, gate operand, drop-path
+    scale and halo rows): per kind ("stats", "apply") the calls, the worst
+    max-abs error, the shifts seen and, for the apply, the gate operands
+    ("window", "map" or "none"). Returns the function that restores the
+    launches."""
+    orig = sp._stats_bwd_launch, sp._apply_bwd_launch
+    plain = dict(stats=sp.spectral_stats_bwd_plain, apply=sp.spectral_apply_bwd_plain)
+
+    def checked(kind, fn):
+        def run(*a):
+            got = fn(*a)
+            rec = out.setdefault(kind, dict(calls=0, worst=0.0, worst_abs=0.0, shifts=[],
+                                            head_blocks=0, gates=Counter()))
+            e_abs, e = bwd_errs(got, plain[kind](*a))
+            rec["calls"] += 1
+            rec["worst"], rec["worst_abs"] = max(rec["worst"], e), max(rec["worst_abs"], e_abs)
+            rec["shifts"] = sorted(set(rec["shifts"]) | {a[4]})
+            wq = a[1] if kind == "stats" else a[2]
+            rec["head_blocks"] += int(wq.shape[0] // 3 < a[0].shape[-1])
+            if kind == "apply":
+                g = a[8]
+                rec["gates"]["none" if g is None else
+                             "map" if g.shape[1] == a[0].shape[1] else "window"] += 1
+            return got
+        return run
+
+    sp._stats_bwd_launch = checked("stats", orig[0])
+    sp._apply_bwd_launch = checked("apply", orig[1])
+
+    def restore():
+        sp._stats_bwd_launch, sp._apply_bwd_launch = orig
+    return restore
+
+
+def _tp_train_rank(info, mesh, batch: dict, cot, seed: int, steps: int) -> dict:
+    """Phase 17 (d) on this rank: the flagship float32 model on the trained
+    weights on ``mesh``: (1) its block's gradients with the given loss
+    cotangent, summed over every rank and divided by the spectral axis's
+    size (each member holds the whole batch's replicated gradients and n
+    times its head block's: the sum over the members is n times the whole
+    batch's), with the backward's launches and plain calls; then the same
+    backward again with every head-block backward launch held against its
+    plain backward (_tp_check_route_bwd); (2) ``steps``
+    AdamW steps at TP_LR of make_train_step on the global batch: losses,
+    ms, launches, whether the parameters are bitwise equal across the ranks
+    after TP_BITWISE_STEPS and after all."""
+    import torch.distributed as dist
+
+    from mp_hsir_tpu_torch.checkpoint import load_params_npz
+    from mp_hsir_tpu_torch.config import TrainConfig, natural_scene_config
+    from mp_hsir_tpu_torch.models.mp_hsir import build_model
+    from mp_hsir_tpu_torch.ops.kernels import _route
+    from mp_hsir_tpu_torch.ops.kernels import spectral as sp
+    from mp_hsir_tpu_torch.parallel.mesh import (
+        DATA_AXIS, MESH_AXES, SPATIAL_AXIS, SPECTRAL_AXIS, all_gather, axis_index,
+    )
+    from mp_hsir_tpu_torch.training.trainer import (
+        batch_block, create_train_state, fold_seed, make_train_step, sync_parameters,
+    )
+
+    dev = info.device
+    cfg = natural_scene_config(compute_dtype="float32")
+    model = build_model(cfg, dev, train=True)
+    load_params_npz(ART, model)
+    sp_ax, dp_ax, tp_ax, every = (mesh.axis(a) for a in (SPATIAL_AXIS, DATA_AXIS, SPECTRAL_AXIS,
+                                                         MESH_AXES))
+    gb = {k: v.to(dev) for k, v in batch.items()}
+    block = batch_block(gb, mesh)
+    b0 = axis_index(dp_ax) * block["degraded"].shape[0]
+    r0 = axis_index(sp_ax) * block["degraded"].shape[2]
+    cb = cot.to(dev)[b0:b0 + block["degraded"].shape[0], :, r0:r0 + block["degraded"].shape[2]]
+    mine = {}
+    gen = torch.Generator(device=dev).manual_seed(fold_seed(seed, axis_index(dp_ax)))
+    pred = model(block["degraded"], block["task_id"], gen, axis=sp_ax, spectral=tp_ax)
+    torch.cuda.synchronize()
+    _route.reset_counters()
+    pred.backward(cb.contiguous())
+    torch.cuda.synchronize()
+    mine["bwd_launches"] = _tp_counts()
+    mine["bwd_plain_calls"] = _route.ROUTE.plain_cuda_calls
+    grads = {k: v / mesh.spectral for k, v in _psum_grads(model, every).items()}
+    model.zero_grad(set_to_none=True)
+    del pred
+    # the same forward and backward again, each head-block backward launch
+    # held against its plain backward on the route's own arguments
+    gen = torch.Generator(device=dev).manual_seed(fold_seed(seed, axis_index(dp_ax)))
+    pred = model(block["degraded"], block["task_id"], gen, axis=sp_ax, spectral=tp_ax)
+    mine["route_bwd"] = {}
+    restore = _tp_check_route_bwd(sp, mine["route_bwd"])
+    try:
+        pred.backward(cb.contiguous())
+    finally:
+        restore()
+    model.zero_grad(set_to_none=True)
+    del pred
+    tc = TrainConfig(warmup_frac=0.0, lr=TP_LR, batch_size=gb["degraded"].shape[0],
+                     patch_size=gb["degraded"].shape[2])
+    st = create_train_state(cfg, tc, device=dev, model=model)
+    sync_parameters(st, mesh)
+    step = make_train_step(cfg, tc, mesh)
+    losses, times, same = [], [], []
+    _route.reset_counters()
+    for s in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(st, gb, seed + s)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+        if s + 1 in (TP_BITWISE_STEPS, steps):
+            flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+            same.append(all(torch.equal(p, flat) for p in all_gather(flat, every)))
+    mine.update(losses=losses, ms=times, same_params=same, launches=_tp_counts(),
+                plain_calls=_route.ROUTE.plain_cuda_calls, device=str(dev), backend=info.backend)
+    ranks = [None] * info.world_size
+    dist.all_gather_object(ranks, mine)
+    return dict(grads=grads, ranks=ranks)
+
+
+def _tp_rank(info, shape, evals, train):
+    """One rank of phase 17 (c) - (e): on the (data, spatial, spectral) mesh
+    ``shape``, each eval job of ``evals`` (preset, cube, task id), then
+    ``train`` ((batch, cot, seed, steps) or None). Every rank runs the same
+    collectives in the same order; rank 0 returns the results."""
+    from mp_hsir_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(*shape)
+    res = dict(evals=[_tp_eval_rank(info, *job, mesh) for job in evals])
+    if train is not None:
+        res["train"] = _tp_train_rank(info, mesh, *train)
+    return res if info.rank == 0 else None
+
+
+def tp_step_verdict(what: str, out: dict, g_kern: dict, steps: int) -> dict:
+    """Phase 17 (d)'s checks on one mesh's step: the gradients (the
+    one-rank plain step's loss cotangent) against the one-rank kernel step
+    (TP_GRAD_TOL, norm-wise per tensor); per rank per step the head-block
+    backward launches (TP_BWD_LAUNCHES) and no plain call; each of the
+    route's head-block backward launches within F32_TOL of its plain
+    backward, at shift 0 and with the shifted blocks' gate maps; the parameters
+    bitwise equal across the ranks after TP_BITWISE_STEPS and after
+    ``steps``; where ``steps`` is TP_STEPS, the loss falls over them; ms per
+    step per rank (ranks sharing one card: not a multi-card figure)."""
+    vs_one = grad_rel(out["grads"], g_kern)
+    log(f"  {what}: gradients vs one rank worst {vs_one[0][0]:.2e} ({vs_one[0][1]}; bound "
+        f"{TP_GRAD_TOL})")
+    if vs_one[0][0] > TP_GRAD_TOL:
+        fail(f"{what}: gradient of {vs_one[0][1]} differs from one rank's by {vs_one[0][0]:.2e}")
+    row = dict(grad_vs_one_rank=vs_one[:5], ranks=[])
+    for r, rk in enumerate(out["ranks"]):
+        bl = {k: rk["bwd_launches"].get(k, 0) for k in TP_BWD_LAUNCHES}
+        per = {k: rk["launches"].get(k, 0) / steps for k in TP_BWD_LAUNCHES}
+        if rk["bwd_plain_calls"] or rk["plain_calls"]:
+            fail(f"{what} rank {r}: plain-version calls on CUDA tensors")
+        if bl != TP_BWD_LAUNCHES or per != TP_BWD_LAUNCHES:
+            fail(f"{what} rank {r}: head-block backward launches {bl}, per step {per}, "
+                 f"expected {TP_BWD_LAUNCHES}")
+        for kind, rec in sorted(rk["route_bwd"].items()):
+            n = TP_BWD_LAUNCHES[f"spectral_{kind}_bwd_tp"]
+            if rec["worst"] > F32_TOL or rec["calls"] != n or rec["head_blocks"] != n:
+                fail(f"{what} rank {r}: the route's head-block {kind} backwards: {rec['calls']} "
+                     f"calls ({rec['head_blocks']} head blocks), {rec['worst']:.3e} of max-abs "
+                     "off their plain backwards")
+            if rec["shifts"] != [0] or (kind == "apply" and not rec["gates"]["map"]):
+                fail(f"{what} rank {r}: the route's {kind} backwards ran with shifts "
+                     f"{rec['shifts']}, gates {dict(rec['gates'])} (expected shift 0, gate maps)")
+        if set(rk["route_bwd"]) != {"stats", "apply"}:
+            fail(f"{what} rank {r}: the route's head-block backwards were not checked")
+        log(f"  {what} rank {r}: the route's own head-block backwards against plain: "
+            + "; ".join(f"{k} {v['calls']} calls, worst {v['worst']:.2e} of max-abs"
+                        + (f", gates {dict(v['gates'])}" if k == "apply" else "")
+                        for k, v in sorted(rk["route_bwd"].items())))
+        if not all(rk["same_params"]):
+            fail(f"{what}: rank {r}'s parameters differ from rank 0's after the steps")
+        losses = rk["losses"]
+        if not all(np.isfinite(losses)) or (steps == TP_STEPS and not losses[-1] < losses[0]):
+            fail(f"{what} rank {r}: the loss did not fall over {steps} steps: {losses}")
+        med = statistics.median(rk["ms"][1:])
+        shared = ("ranks sharing one card: not a multi-card figure" if rk["backend"] == "gloo"
+                  else "one card a rank")
+        log(f"  {what} rank {r} ({rk['device']}, {rk['backend']}): float32 ms per step "
+            f"{med:.1f} ({shared}), losses " + " ".join(f"{v:.5f}" for v in losses))
+        row["ranks"].append(dict(rank=r, ms=rk["ms"], median_ms=med, losses=losses,
+                                 launches=rk["launches"], bwd_launches=bl))
+    return row
+
+
+def tp_mesh_checks(dev, card: str, backend_cards: bool = False) -> dict:
+    """Phase 17 (c) - (e) on ranks sharing this card over gloo (one card a
+    rank over NCCL with ``backend_cards``: the 1 x 1 x 2 step alone): one
+    spawn of TP_N ranks on a 1 x 1 x TP_N mesh runs (c) the flagship eval
+    step, (e) the remote-sensing eval step and (d) TP_STEPS float32 train
+    steps (batch TP_BATCH x 31 x 64^2, trained weights, drop-path on); then
+    (d) on a 1 x 2 x TP_N mesh, TP_BITWISE_STEPS steps."""
+    from mp_hsir_tpu_torch.parallel import distributed
+
+    evals = [] if backend_cards else [tp_eval_inputs(dev, p) for p in ("natural_scene",
+                                                                       "remote_sensing")]
+    batch = train_batch(dev, TP_BATCH, TRAIN_SIZE)
+    host = {k: v.cpu() for k, v in batch.items()}
+    g_kern, _, cot = one_rank_grads(dev, batch, True)
+    del batch
+    torch.cuda.empty_cache()
+    shape = (1, 1, TP_N)
+    out = distributed.spawn(_tp_rank, TP_N, shape, [(j["preset"], j["x"], j["t"]) for j in evals],
+                            (host, cot.cpu(), 5, TP_STEPS), device="cuda", timeout_s=600)
+    res = {}
+    for job, r in zip(evals, out["evals"]):
+        res["eval" if job["preset"] == "natural_scene" else "eval_rs"] = tp_eval_verdict(
+            dev, job, r, shape)
+    what = f"1x1x{TP_N}" + (" nccl" if backend_cards else "")
+    res["steps"] = {what: tp_step_verdict(what, out["train"], g_kern, TP_STEPS)}
+    if not backend_cards:
+        shape = (1, 2, TP_N)
+        out = distributed.spawn(_tp_rank, 2 * TP_N, shape, [],
+                                (host, cot.cpu(), 5, TP_BITWISE_STEPS), device="cuda",
+                                timeout_s=600)
+        res["steps"][f"1x2x{TP_N}"] = tp_step_verdict(f"1x2x{TP_N}", out["train"], g_kern,
+                                                       TP_BITWISE_STEPS)
+    log(card)
+    return res
+
+
+def tp_bf16_refusal(dev) -> dict:
+    """Phase 17 (f): bf16 has no head-block tiles yet: a bf16 head-block
+    call on the card raises in the wrappers, and the steps' guard raises for
+    a bf16 model on a spectral axis on the card, each naming the missing
+    tiles."""
+    from mp_hsir_tpu_torch.config import natural_scene_config
+    from mp_hsir_tpu_torch.ops.kernels.spectral import spectral_apply, spectral_stats
+    from mp_hsir_tpu_torch.parallel.tp import head_block
+    from mp_hsir_tpu_torch.training.trainer import _no_bf16_head_blocks
+
+    d = tp_inputs((1, 64, 128, 4, ""), dev)
+    hb = head_block(d["wq"], d["wd"], d["temp"], d["wout"], 4, tp_member(0))
+    xb = d["x"].to(torch.bfloat16)
+    msgs = {}
+    for what, fn in (
+            ("stats", lambda: spectral_stats(xb, hb.wqkv, hb.wdw, hb.heads)),
+            ("apply", lambda: spectral_apply(xb, d["x"].new_zeros((1, 64, 128)), hb.wqkv,
+                                             hb.wdw)),
+            ("steps", lambda: _no_bf16_head_blocks(natural_scene_config(
+                compute_dtype="bfloat16"), tp_member(0), dev))):
+        try:
+            fn()
+        except NotImplementedError as e:
+            msgs[what] = str(e)
+        if "bf16 head-block tiles" not in msgs.get(what, ""):
+            fail(f"a bf16 head-block {what} call on the card did not raise with its message")
+    log("  a bf16 head block on the card raises: " + msgs.get("stats", "")[:120] + " ...")
+    return msgs
+
+
+def tp_phase(dev, card: str) -> dict:
+    """Phase 17: (a) the head-block forward tiles, (b) the head-block
+    backwards, (c) the flagship 1 x 1 x 2 eval step, (d) the 1 x 1 x 2 and
+    1 x 2 x 2 train steps, (e) the remote-sensing 1 x 1 x 2 eval step, (f)
+    the bf16 refusal; the summary rows of the four float32 head-block
+    instances (launches from (c) and (d)'s 1 x 1 x 2 runs, rank 0; times
+    per flagship forward from (a), per step from (b))."""
+    log("== phase 17: the head-parallel spectral mesh axis (float32): the head-block tiles and "
+        "backwards, the eval and train steps on ranks sharing this card")
+    log(card)
+    t0 = time.perf_counter()
+    res = dict(fwd=tp_forward_checks(dev, card))
+    res["bwd"] = tp_backward_checks(dev, card)
+    log("  (c) - (e) the eval and train steps:")
+    res.update(tp_mesh_checks(dev, card))
+    res["bf16"] = tp_bf16_refusal(dev)
+    rank0_eval = res["eval"]["ranks"][0]["launches"]
+    rank0_step = res["steps"][f"1x1x{TP_N}"]["ranks"][0]["launches"]
+    res["kernels"] = []
+    for name, meta in TP_KERNELS.items():
+        fwd = meta["of"] in ("stats", "apply")
+        p = res["fwd"]["per_forward"][meta["of"]] if fwd else res["bwd"]["per_step"][meta["of"]]
+        n = (rank0_eval if fwd else rank0_step).get(meta["counter"], 0)
+        if n == 0:
+            fail(f"the head-block instance {name} was not launched on phase 17's path")
+        res["kernels"].append(dict(
+            name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
+            tpu=meta["tpu"], launches=n, max_abs_err=p["max_abs_err"], rel_err=p["rel_err"],
+            ms=p["ms"], plain_ms=p["plain_ms"], bound_ms=p["bound_ms"], bound_by=p["bound_by"],
+            library_ms=None, unsharded_ms=p["whole_ms"],
+            **{"launches_per_forward" if fwd else "launches_per_step": p["calls"]},
+            mesh=dict(shape=f"1x1x{TP_N}", what="eval step" if fwd else
+                      f"{TP_STEPS} train steps")))
+    log(f"  phase 17 in {time.perf_counter() - t0:.1f} s")
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="", help="write the detailed results here (JSON)")
@@ -4589,11 +5406,13 @@ def main() -> None:
                     "11, and phase 14: the float32 path, for this checkout or an older one")
     ap.add_argument("--mesh-eval", action="store_true", help="only phase 15, the row-sharded "
                     "eval forward (after the build)")
-    ap.add_argument("--mesh-cards", action="store_true", help="only the row-sharded eval CLI "
-                    "and the 1 x 2 train step with one rank a card over NCCL (a machine with "
-                    "several cards)")
+    ap.add_argument("--mesh-cards", action="store_true", help="only the row-sharded eval CLI, "
+                    "the 1 x 2 and the 1 x 1 x 2 train steps with one rank a card over NCCL (a "
+                    "machine with several cards)")
     ap.add_argument("--mesh-train", action="store_true", help="only phase 16, the row- and "
                     "data-sharded train step (after the build)")
+    ap.add_argument("--mesh-tp", action="store_true", help="only phase 17, the head-parallel "
+                    "spectral mesh axis in float32 (after the build)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs an NVIDIA GPU")
@@ -4674,6 +5493,16 @@ def main() -> None:
         log(f"== done in {time.perf_counter() - t_start:.1f} s")
         print(card)
         print(json.dumps({"kernels": mesh_train["kernels"] + mesh_train["bf16_halo_rows"]}))
+        return
+    if args.mesh_tp:
+        tp = tp_phase(dev, card)
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "w") as fh:
+                json.dump(dict(card=card, mesh_tp=tp), fh, indent=1, default=str)
+        log(f"== done in {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"kernels": tp["kernels"]}))
         return
     if args.mesh_eval:
         log("== phase 15 only: the row-sharded eval forward")
@@ -4872,6 +5701,7 @@ def main() -> None:
     mesh["halo_bf16"] = halo_tile_checks(dev, card, torch.bfloat16)
     mesh["cli"] = mesh_cli_checks(dev, card)
     mesh_train = mesh_train_phase(dev, card)
+    tp = tp_phase(dev, card)
 
     summary = summarize(rows, main_res["launches"], KERNELS, "per_forward")
     summary += summarize([r for r in train_rows if r["spec"][0] in TRAIN_KERNELS],
@@ -4955,6 +5785,8 @@ def main() -> None:
     # halo instances': phase 16 (e)'s bf16 1 x 2 step
     summary += mesh_train["kernels"]
     summary += bf16_halo_kernels(mesh_train, mesh["halo_bf16"]["per_forward"])
+    # the four float32 head-block instances: phase 17's eval and train steps
+    summary += tp["kernels"]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
@@ -4972,6 +5804,7 @@ def main() -> None:
                            f32_eval=f32_eval, f32_rs=f32_rs,
                            f32_train=f32_train, f32_rs_train=f32_rs_train, wide=wide,
                            train_cli=cli, eval_cli=ev, mesh=mesh, mesh_train=mesh_train,
+                           mesh_tp=tp,
                            seconds=time.perf_counter() - t_start), fh, indent=1, default=str)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -179,9 +179,9 @@ constexpr int kVCw = 128; // v channel chunk when it is streamed (fewer re-reads
 
 // The float32 apply backward's plan: the halo input chunk xc [100][kc+1] and
 // the v 1x1 chunk vt [100][nv+1] share one region with dys [64][C+1] (dys
-// is staged after the v stage); vs [64][C+1] holds v. Resident (kc = C): the
-// natural-scene layout, a kernel instance of its own whose chunks are
-// compile-time constants.
+// is staged after the v stage); vs [64][CL+1] holds v (CL the v width: C, or
+// a head block). Resident (kc = C): the natural-scene layout, a kernel
+// instance of its own whose chunks are compile-time constants.
 struct ApplyPlan {
   int kc, nv;
   __host__ __device__ size_t front(int C) const {
@@ -189,7 +189,9 @@ struct ApplyPlan {
     const size_t y = (size_t)kPix * (C + 1);
     return stage > y ? stage : y;
   }
-  __host__ __device__ size_t floats(int C) const { return front(C) + (size_t)kPix * (C + 1); }
+  __host__ __device__ size_t floats(int C, int CL) const {
+    return front(C) + (size_t)kPix * (CL + 1);
+  }
 };
 
 template <bool kStream>
@@ -221,10 +223,16 @@ __host__ __device__ inline ApplyPlan apply_plan(int kc, int C) {
 //   with the tail up to C = 384 into y [64][CK + 4] over the dead front,
 //   which tail_ln normalises in place; else to `out`, where the tail (past
 //   C = 384) reads y back and adds each output group of 384 channels.
+// - A member's head block under the spectral mesh axis (parallel/tp.py): v
+//   is CL < C channels wide (its 1x1 still C deep), comb (CL, C) and the
+//   product's depth CL; the gate, residual, drop-path and shortcut epilogue
+//   reads and writes the C-wide maps as for the whole attention (the caller
+//   scales the gate by 1/n and sums the members' outputs). No tail then.
 // Arguments: x1, x2, lnw, lnb, gate, shortcut, residual, dp and the tail as
-// mp_spectral_apply (float32); wv the v rows of wqkv ([C][C8], torch
-// layout, zero past C; 16-byte aligned), taps their depthwise taps ([C][9]),
-// combt comb transposed ([B][C out][C8 in], 16-byte aligned); hal, halo a
+// mp_spectral_apply (float32); CL the v width; wv the v rows of wqkv
+// ([CL][C8], torch layout, zero past C; 16-byte aligned), taps their
+// depthwise taps ([CL][9]), combt comb transposed ([B][C out][CL8 in], CL8
+// = CL rounded up to 8, 16-byte aligned); hal, halo a
 // row shard's halo rows and which are real, as spectral_stats_f32_kernel's
 // (they feed only v's depthwise at the shard's first and last rows); flags:
 // kVecX (16-byte halo copies) | kPairs (8-byte epilogue loads and stores);
@@ -240,15 +248,15 @@ spectral_apply_f32_kernel(const float* __restrict__ x1, const float* __restrict_
                           const float* __restrict__ w2, const float* __restrict__ b2, int hid,
                           const float* __restrict__ dp, float* __restrict__ out, int H, int W,
                           int shift, float eps, int flags, int tail_stages,
-                          const float* __restrict__ hal, int halo, int gwin) {
+                          const float* __restrict__ hal, int halo, int gwin, int CL) {
   extern __shared__ float4 apply_f32_dyn[];  // 16-byte aligned: cp.async and ldmatrix
   __shared__ int hsrc[kFrontRows];            // halo row -> raw source pixel (-1: zero row)
   __shared__ int esrc[kPix], egate[kPix];     // tile pixel -> raw source pixel, gate row
-  const int C = C1 + C2, C8 = round_up8(C);
-  const ApplyF32Plan pl(C);
-  const int CP = pl.CP, ldv = pl.ldv;
-  float* tp = reinterpret_cast<float*>(apply_f32_dyn);  // [9][CP] v taps
-  float* mu = tp + 9 * CP;                              // [112]
+  const int C = C1 + C2, C8 = round_up8(C), CL8 = round_up8(CL);
+  const ApplyF32Plan pl(C, CL);
+  const int CP = pl.CP, CPL = pl.CPL, ldv = pl.ldv;
+  float* tp = reinterpret_cast<float*>(apply_f32_dyn);  // [9][CPL] v taps
+  float* mu = tp + 9 * CPL;                             // [112]
   float* rs = mu + kFrontRows;                          // [112]
   float* vs = rs + kFrontRows;                          // [64][ldv] v
   float* rg = vs + kPix * ldv;                          // ring / 1x1 output [100][ldt]
@@ -260,7 +268,7 @@ spectral_apply_f32_kernel(const float* __restrict__ x1, const float* __restrict_
 
   // the raw source pixel of each halo pixel (unrolled frame, read through
   // the roll-back; a shard's halo rows) and of each tile pixel, each tile
-  // pixel's gate window, and the taps of v, zero past C
+  // pixel's gate window, and the taps of v, zero past CL
   for (int p = threadIdx.x; p < kFrontRows; p += blockDim.x) {
     hsrc[p] = halo_src(p, b, ty, tx, gridDim.z, H, W, shift, halo);
     if (p < kPix) {
@@ -270,9 +278,9 @@ spectral_apply_f32_kernel(const float* __restrict__ x1, const float* __restrict_
       egate[p] = gate_row(b, sr, sc, H, W, gwin);
     }
   }
-  for (int i = threadIdx.x; i < 9 * CP; i += blockDim.x) {
-    const int tap = i / CP, c = i - tap * CP;
-    tp[i] = c < C ? taps[c * 9 + tap] : 0.f;
+  for (int i = threadIdx.x; i < 9 * CPL; i += blockDim.x) {
+    const int tap = i / CPL, c = i - tap * CPL;
+    tp[i] = c < CL ? taps[c * 9 + tap] : 0.f;
   }
   __syncthreads();
   if (lnw != nullptr)  // read after the first chunk's barrier
@@ -280,11 +288,11 @@ spectral_apply_f32_kernel(const float* __restrict__ x1, const float* __restrict_
                   [&](int p) { return hsrc[p] != -1; });
 
   // v, one column group at a time
-  for (int g0 = 0; g0 < CP; g0 += pl.GW) {
-    const int gw = min(pl.GW, CP - g0), n_units = 7 * (gw / 32);
+  for (int g0 = 0; g0 < CPL; g0 += pl.GW) {
+    const int gw = min(pl.GW, CPL - g0), n_units = 7 * (gw / 32);
     auto ring = front_ring(rg, pl.stage / sizeof(float), pl.ws, pl.nk,
         [=](int kt, float* st) {
-          stage_f32_chunk(st, hl, wv, C8, gw, [=](int n) { return g0 + n < C ? g0 + n : -1; },
+          stage_f32_chunk(st, hl, wv, C8, gw, [=](int n) { return g0 + n < CL ? g0 + n : -1; },
                           kt);
         });
     ring.prefetch();
@@ -301,7 +309,7 @@ spectral_apply_f32_kernel(const float* __restrict__ x1, const float* __restrict_
       if (r < kHaloPix) *reinterpret_cast<float2*>(rg + r * pl.ldt + c) = make_float2(v0, v1);
     });
     __syncthreads();
-    dw3_f32(rg, pl.ldt, tp + g0, CP, vs + g0, ldv, gw / 2);
+    dw3_f32(rg, pl.ldt, tp + g0, CPL, vs + g0, ldv, gw / 2);
     __syncthreads();  // v's columns are complete; the ring's space is free
   }
 
@@ -310,16 +318,16 @@ spectral_apply_f32_kernel(const float* __restrict__ x1, const float* __restrict_
   const int ldy = round_up64(C) + 4;
   const bool epi = gate != nullptr || residual || dp != nullptr;
   const float dpb = dp != nullptr ? dp[b] : 1.f;
-  const float* cb = combt + (size_t)b * C * C8;
+  const float* cb = combt + (size_t)b * C * CL8;
   for (int n0 = 0; n0 < CP; n0 += pl.NP) {
     const int np = min(pl.NP, CP - n0), n_units = 4 * (np / 32);
-    auto cr = front_ring(rg, pl.cstage / sizeof(float), pl.cs, pl.nk,
+    auto cr = front_ring(rg, pl.cstage / sizeof(float), pl.cs, pl.nkv,
         [=](int kt, float* st) {
-          stage_w_f32_chunk(st, cb, C8, np, [=](int n) { return n0 + n < C ? n0 + n : -1; }, kt);
+          stage_w_f32_chunk(st, cb, CL8, np, [=](int n) { return n0 + n < C ? n0 + n : -1; }, kt);
         });
     cr.prefetch();
     float acc[kFrontUnits][4][4];
-    comb_f32(acc, vs, ldv, cr, n_units, pl.nk);
+    comb_f32(acc, vs, ldv, cr, n_units, pl.nkv);
     cp_async_wait<0>();
     __syncthreads();  // every warp is done with v and the ring: y may take their space
     front_out(acc, n_units, 4, [&](int i, int cc, float v0, float v1) {
@@ -567,10 +575,11 @@ spectral_apply_tc_kernel(const __nv_bfloat16* __restrict__ x1, const __nv_bfloat
 }
 
 // The apply plan in the compute type (bytes, static included): the bf16
-// tile's FrontPlan or the float32 tile's ApplyF32Plan (neither has a chunk).
-inline long long apply_plan_bytes(int C, bool tail, bool bf16) {
+// tile's FrontPlan or the float32 tile's ApplyF32Plan (neither has a chunk);
+// CL the v width (float32 only below C).
+inline long long apply_plan_bytes(int C, bool tail, bool bf16, int CL) {
   return bf16 ? plan_bytes(spectral_apply_tc_kernel, FrontPlan(C).bytes(tail))
-              : plan_bytes(spectral_apply_f32_kernel, ApplyF32Plan(C).bytes(tail));
+              : plan_bytes(spectral_apply_f32_kernel, ApplyF32Plan(C, CL).bytes(tail));
 }
 
 // The parts per image of a stats launch: the blocks the card holds at once
@@ -587,12 +596,13 @@ int stats_parts(K kernel, int threads, size_t smem, int B, int n_tiles) {
   return parts < 1 ? 1 : parts > n_tiles ? n_tiles : parts;
 }
 
-// The parts per image of a launch (dtype 0: the float32 tile; 1: the bf16
-// tile).
-inline int stats_launch_parts(int dtype, int B, int H, int W, int C, int nH) {
+// The parts per image of a launch (dtype 0: the float32 tile, q|k width CL;
+// 1: the bf16 tile).
+inline int stats_launch_parts(int dtype, int B, int H, int W, int C, int CL, int nH) {
   const int n_tiles = (H / kTile) * (W / kTile);
   if (dtype == 0)
-    return stats_parts(spectral_stats_f32_kernel, kThreads, StatsF32Plan(C, nH).bytes, B, n_tiles);
+    return stats_parts(spectral_stats_f32_kernel, kThreads, StatsF32Plan(C, CL, nH).bytes, B,
+                       n_tiles);
   return stats_parts(spectral_stats_tc_kernel, kThreads, StatsPlan(C, nH).bytes, B, n_tiles);
 }
 
@@ -604,25 +614,27 @@ cudaError_t launch_sum_stats(const float* part, float* gram, float* nq, float* n
   return cudaGetLastError();
 }
 
-// The float32 tile (spectral_stats_f32.cuh): wqk [2C][C8] (16-byte
-// aligned), taps [2C][9]; heads up to 96 wide.
+// The float32 tile (spectral_stats_f32.cuh): wqk [2CL][C8] (16-byte
+// aligned), taps [2CL][9]; heads up to 96 wide; CL the q|k width (C, or a
+// head block of nH heads).
 cudaError_t launch_stats(const float* x1, const float* x2, int C1, int C2, const float* lnw,
                          const float* lnb, const float* wqk, const float* taps, float* part,
                          float* gram, float* nq, float* nk, int B, int H, int W, int nH,
-                         int shift, float eps, int n_parts, const float* hal, int halo,
+                         int shift, float eps, int n_parts, const float* hal, int halo, int CL,
                          cudaStream_t stream) {
   const int C = C1 + C2;
-  const StatsF32Plan pl(C, nH);
-  if (!pl.ok() || !aligned(wqk, 16) || (halo != 0 && (hal == nullptr || shift != 0)))
+  const StatsF32Plan pl(C, CL, nH);
+  if (!pl.ok() || !aligned(wqk, 16) || (halo != 0 && (hal == nullptr || shift != 0)) ||
+      CL <= 0 || CL > C)
     return cudaErrorInvalidValue;
   const int vec_x = C1 % 4 == 0 && C2 % 4 == 0 && aligned(x1, 16) && aligned(x2, 16) &&
                     aligned(hal, 16);
   cudaError_t err = set_smem(spectral_stats_f32_kernel, pl.bytes);
   if (err != cudaSuccess) return err;
   spectral_stats_f32_kernel<<<dim3(n_parts, B), kThreads, pl.bytes, stream>>>(
-      x1, x2, C1, C2, lnw, lnb, wqk, taps, H, W, nH, shift, eps, vec_x, hal, halo, part);
+      x1, x2, C1, C2, lnw, lnb, wqk, taps, H, W, nH, shift, eps, vec_x, hal, halo, part, CL);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  return launch_sum_stats(part, gram, nq, nk, B, n_parts, C, C / nH, stream);
+  return launch_sum_stats(part, gram, nq, nk, B, n_parts, CL, CL / nH, stream);
 }
 
 // The bf16 tile (spectral_stats.cuh): wqk [2C][C8] (16-byte aligned), taps
@@ -648,22 +660,23 @@ cudaError_t launch_stats_tc(const __nv_bfloat16* x1, const __nv_bfloat16* x2, in
   return launch_sum_stats(part, gram, nq, nk, B, n_parts, C, C / nH, stream);
 }
 
-// The float32 tile: wv [C][C8], taps [C][9], combt [B][C][C8] float32 (wv
-// and combt 16-byte aligned), the tail's packs 16-byte aligned.
+// The float32 tile: wv [CL][C8], taps [CL][9], combt [B][C][CL8] float32 (wv
+// and combt 16-byte aligned), the tail's packs 16-byte aligned; CL the v
+// width (C, or a head block, which takes no tail).
 cudaError_t launch_apply_f32(const float* x1, const float* x2, int C1, int C2, const float* lnw,
                              const float* lnb, const float* wv, const float* taps,
                              const float* combt, const float* gate, const float* shortcut,
                              int residual, const float* ln2w, const float* ln2b, const float* w1,
                              const float* b1, const float* w2, const float* b2, int hid,
                              const float* dp, float* out, int B, int H, int W, int shift,
-                             float eps, const float* hal, int halo, int gwin,
+                             float eps, const float* hal, int halo, int gwin, int CL,
                              cudaStream_t stream) {
   const int C = C1 + C2;
   const bool tail = w1 != nullptr;
   if (!aligned(wv, 16) || !aligned(combt, 16) || (tail && (!aligned(w1, 16) || !aligned(w2, 16))) ||
-      (halo != 0 && (hal == nullptr || shift != 0)))
+      (halo != 0 && (hal == nullptr || shift != 0)) || CL <= 0 || CL > C || (tail && CL != C))
     return cudaErrorInvalidValue;
-  const size_t smem = ApplyF32Plan(C).bytes(tail);
+  const size_t smem = ApplyF32Plan(C, CL).bytes(tail);
   int flags = 0;
   if (C1 % 4 == 0 && C2 % 4 == 0 && aligned(x1, 16) && aligned(x2, 16) && aligned(hal, 16))
     flags |= kVecX;
@@ -675,7 +688,7 @@ cudaError_t launch_apply_f32(const float* x1, const float* x2, int C1, int C2, c
   spectral_apply_f32_kernel<<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
       x1, x2, C1, C2, lnw, lnb, wv, taps, combt, gate, shortcut, residual, ln2w, ln2b, w1, b1,
       w2, b2, hid, dp, out, H, W, shift, eps, flags, tail ? tail_f32_stages(C) : 0, hal, halo,
-      gwin);
+      gwin, CL);
   return cudaGetLastError();
 }
 
@@ -726,7 +739,9 @@ cudaError_t launch_apply_tc(const __nv_bfloat16* x1, const __nv_bfloat16* x2, in
 
 // VJP of the stats launch (K10a), float32 (bf16 runs the tiles of
 // spectral_stats.cuh and dwconv_dx.cuh): dq = k dG^T + 2 q dnq, dk = q dG +
-// 2 k dnk per head.
+// 2 k dnk per head. CL the q|k width (C, or a member's head block under the
+// spectral mesh axis: wqkv [C][3CL], wdw [9][3CL], dgram (B, CL, dh), t and
+// dqk 2CL wide; the input, un and its halo rows stay C wide).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 spectral_stats_bwd_kernel(const T* __restrict__ x, const float* __restrict__ lnw,
@@ -736,9 +751,9 @@ spectral_stats_bwd_kernel(const T* __restrict__ x, const float* __restrict__ lnw
                           T* __restrict__ un_out, float* __restrict__ t_out,
                           float* __restrict__ dqk_out, int H, int W, int C, int nH, int shift,
                           float eps, const float* __restrict__ hal, int halo,
-                          float* __restrict__ un_halo, float* __restrict__ t_halo) {
+                          float* __restrict__ un_halo, float* __restrict__ t_halo, int CL) {
   extern __shared__ float sm[];
-  const int C3 = 3 * C, dh = C / nH;
+  const int C3 = 3 * CL, dh = CL / nH;
   const int ldx = C + 1, ldt = 2 * dh + 1;
   float* xs = sm;                   // [100][ldx] (LN'd) halo input
   float* ts = xs + kHaloPix * ldx;  // [100][ldt] 1x1 output, q|k of one head
@@ -756,9 +771,9 @@ spectral_stats_bwd_kernel(const T* __restrict__ x, const float* __restrict__ lnw
   for (int side = 0; side < 2; ++side)
     if (shard_row(side, ty, H, halo))
       halo_row_out(un_halo, xs, ldx, C, side, b, tx, W, C, [](int j) { return j; });
-  const float* dg = dgram + (size_t)b * C * dh;
+  const float* dg = dgram + (size_t)b * CL * dh;
   for (int h = 0; h < nH; ++h) {
-    auto col = [&](int j) { return j < dh ? h * dh + j : C + h * dh + (j - dh); };
+    auto col = [&](int j) { return j < dh ? h * dh + j : CL + h * dh + (j - dh); };
     gemm<T>(kHaloPix, 2 * dh, C,
         [&](int i, int k) { return xs[i * ldx + k]; },
         [&](int k, int j) { return to_f(wqkv[(size_t)k * C3 + col(j)]); },
@@ -766,11 +781,11 @@ spectral_stats_bwd_kernel(const T* __restrict__ x, const float* __restrict__ lnw
     __syncthreads();
     for (int idx = threadIdx.x; idx < kPix * 2 * dh; idx += blockDim.x) {
       const int i = idx / (2 * dh), j = idx - i * 2 * dh;
-      t_out[tile_pix(b, ty, tx, i, H, W) * 2 * C + col(j)] = ts[hp(i) * ldt + j];
+      t_out[tile_pix(b, ty, tx, i, H, W) * 2 * CL + col(j)] = ts[hp(i) * ldt + j];
     }
     for (int side = 0; side < 2; ++side)
       if (shard_row(side, ty, H, halo))
-        halo_row_out(t_halo, ts, ldt, 2 * dh, side, b, tx, W, 2 * C, col);
+        halo_row_out(t_halo, ts, ldt, 2 * dh, side, b, tx, W, 2 * CL, col);
     dwconv3_tile(ts, ldt, 2 * dh,
         [&](int tap, int j) { return to_f(wdw[tap * C3 + col(j)]); },
         [&](int p, int j, float acc) { qk[p * ldt + j] = rnd<T>(acc); });
@@ -780,14 +795,14 @@ spectral_stats_bwd_kernel(const T* __restrict__ x, const float* __restrict__ lnw
       const float* row = qk + p * ldt;
       float acc;
       if (j < dh) {  // dq[d = j] = sum_e k[e] dG[d][e] + 2 q[d] dnq[d]
-        acc = 2.f * row[j] * dnq[(size_t)b * C + h * dh + j];
+        acc = 2.f * row[j] * dnq[(size_t)b * CL + h * dh + j];
         for (int e = 0; e < dh; ++e) acc = fmaf(row[dh + e], rnd<T>(dg[(h * dh + j) * dh + e]), acc);
       } else {       // dk[e = j - dh] = sum_d q[d] dG[d][e] + 2 k[e] dnk[e]
         const int e = j - dh;
-        acc = 2.f * row[j] * dnk[(size_t)b * C + h * dh + e];
+        acc = 2.f * row[j] * dnk[(size_t)b * CL + h * dh + e];
         for (int d = 0; d < dh; ++d) acc = fmaf(row[d], rnd<T>(dg[(h * dh + d) * dh + e]), acc);
       }
-      dqk_out[tile_pix(b, ty, tx, p, H, W) * 2 * C + col(j)] = acc;
+      dqk_out[tile_pix(b, ty, tx, p, H, W) * 2 * CL + col(j)] = acc;
     }
     __syncthreads();
   }
@@ -797,7 +812,10 @@ spectral_stats_bwd_kernel(const T* __restrict__ x, const float* __restrict__ lnw
 // the tiles of spectral_apply_bwd.cuh and dwconv_dx.cuh): v recomputed; dys =
 // dy * dp (rounded) feeds dv = dys comb^T and the dcomb product; the gate and
 // residual epilogues give the extra input cotangent dys * g + dy; with dp the
-// per-tile partial of d dp = sum dy * (v comb + u g).
+// per-tile partial of d dp = sum dy * (v comb + u g). A member's head block
+// under the spectral mesh axis: v is CL wide (wqkv [C][3CL], wdw [9][3CL],
+// comb (B, CL, C), t / v / dv CL wide), dv = dys comb^T at width CL; the
+// input, dy, dys, the gate and the extra cotangent stay C wide.
 //
 // Shared memory: the halo input is staged whole where that fits (every
 // natural-scene width; v in kVC-wide chunks); at C = 384 (266 KB whole) each
@@ -817,17 +835,17 @@ spectral_apply_bwd_kernel(const T* __restrict__ x, const float* __restrict__ lnw
                           float* __restrict__ extra_out, float* __restrict__ pdp, int H, int W,
                           int C, int shift, float eps, int kc, const float* __restrict__ hal,
                           int halo, float* __restrict__ un_halo, float* __restrict__ t_halo,
-                          int gwin) {
+                          int gwin, int CL) {
   extern __shared__ float sm[];
   __shared__ float red[kThreads / 32];
-  const int C3 = 3 * C;
+  const int C3 = 3 * CL;
   constexpr bool resident = !kStream;  // kc = C
   const ApplyPlan plan = apply_plan<kStream>(kc, C);
-  const int ldc = plan.kc + 1, ldx = C + 1, ldv = plan.nv + 1;
+  const int ldc = plan.kc + 1, ldx = C + 1, ldv = plan.nv + 1, lds = CL + 1;
   float* xs = sm;                       // [100][ldc] halo input: whole or a chunk
   float* vt = xs + kHaloPix * ldc;      // [100][ldv] 1x1 output chunk
-  float* vs = sm + plan.front(C);       // [64][ldx] v
-  float* mu = vs + kPix * ldx;          // streamed: [100] LN mean, then [100] rstd
+  float* vs = sm + plan.front(C);       // [64][lds] v
+  float* mu = vs + kPix * lds;          // streamed: [100] LN mean, then [100] rstd
   float* rs = mu + kHaloPix;
   const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
   const int tile = (b * (H / kTile) + ty) * (W / kTile) + tx;
@@ -863,8 +881,8 @@ spectral_apply_bwd_kernel(const T* __restrict__ x, const float* __restrict__ lnw
     halo_stats(mu, rs, hl, eps);
     __syncthreads();
   }
-  for (int v0 = 0; v0 < C; v0 += plan.nv) {
-    const int nvc = min(plan.nv, C - v0);
+  for (int v0 = 0; v0 < CL; v0 += plan.nv) {
+    const int nvc = min(plan.nv, CL - v0);
     for (int c0 = 0; c0 < C; c0 += plan.kc) {
       const int nc = min(plan.kc, C - c0);
       if (!resident) {
@@ -875,7 +893,7 @@ spectral_apply_bwd_kernel(const T* __restrict__ x, const float* __restrict__ lnw
       const bool first = c0 == 0, last = c0 + nc >= C;
       gemm<T>(kHaloPix, nvc, nc,
           [&](int i, int k) { return xs[i * ldc + k]; },
-          [&](int k, int j) { return to_f(wqkv[(size_t)(c0 + k) * C3 + 2 * C + v0 + j]); },
+          [&](int k, int j) { return to_f(wqkv[(size_t)(c0 + k) * C3 + 2 * CL + v0 + j]); },
           [&](int i, int j, float acc) {
             chunk_acc(vt[i * ldv + j], acc, first, last, [](float v) { return rnd<T>(v); });
           });
@@ -883,22 +901,25 @@ spectral_apply_bwd_kernel(const T* __restrict__ x, const float* __restrict__ lnw
     }
     for (int idx = threadIdx.x; idx < kPix * nvc; idx += blockDim.x) {
       const int i = idx / nvc, j = idx - i * nvc;
-      t_out[tile_pix(b, ty, tx, i, H, W) * C + v0 + j] = vt[hp(i) * ldv + j];
+      t_out[tile_pix(b, ty, tx, i, H, W) * CL + v0 + j] = vt[hp(i) * ldv + j];
     }
     for (int side = 0; side < 2; ++side)
       if (shard_row(side, ty, H, halo))
-        halo_row_out(t_halo, vt, ldv, nvc, side, b, tx, W, C, [&](int j) { return v0 + j; });
+        halo_row_out(t_halo, vt, ldv, nvc, side, b, tx, W, CL, [&](int j) { return v0 + j; });
     dwconv3_tile(vt, ldv, nvc,
-        [&](int tap, int j) { return to_f(wdw[tap * C3 + 2 * C + v0 + j]); },
-        [&](int p, int j, float acc) { vs[p * ldx + v0 + j] = rnd<T>(acc); });
+        [&](int tap, int j) { return to_f(wdw[tap * C3 + 2 * CL + v0 + j]); },
+        [&](int p, int j, float acc) { vs[p * lds + v0 + j] = rnd<T>(acc); });
     __syncthreads();
   }
   const float dpb = dp == nullptr ? 1.f : dp[b];
   float* ds = xs;
+  for (int idx = threadIdx.x; idx < kPix * CL; idx += blockDim.x) {
+    const int i = idx / CL, k = idx - i * CL;
+    v_out[tile_pix(b, ty, tx, i, H, W) * CL + k] = from_f<T>(vs[i * lds + k]);
+  }
   for (int idx = threadIdx.x; idx < kPix * C; idx += blockDim.x) {
     const int i = idx / C, k = idx - i * C;
     const size_t o = tile_pix(b, ty, tx, i, H, W) * C + k;
-    v_out[o] = from_f<T>(vs[i * ldx + k]);
     const float d0 = to_f(dy[o]);
     const float d = dp == nullptr ? d0 : rnd<T>(d0 * dpb);
     ds[i * ldx + k] = d;
@@ -907,16 +928,16 @@ spectral_apply_bwd_kernel(const T* __restrict__ x, const float* __restrict__ lnw
       extra_out[o] = (gate != nullptr ? d * gate_at(i, k) : 0.f) + (residual ? d0 : 0.f);
   }
   __syncthreads();
-  const float* cb = comb + (size_t)b * C * C;
+  const float* cb = comb + (size_t)b * CL * C;
   // dv[p][k] = sum_o dys[p][o] comb[k][o]
-  gemm<T>(kPix, C, C,
+  gemm<T>(kPix, CL, C,
       [&](int i, int o) { return ds[i * ldx + o]; },
       [&](int o, int k) { return rnd<T>(cb[(size_t)k * C + o]); },
-      [&](int i, int k, float acc) { dv_out[tile_pix(b, ty, tx, i, H, W) * C + k] = acc; });
+      [&](int i, int k, float acc) { dv_out[tile_pix(b, ty, tx, i, H, W) * CL + k] = acc; });
   if (dp != nullptr) {
     float part = 0.f;
-    gemm<T>(kPix, C, C,
-        [&](int i, int k) { return vs[i * ldx + k]; },
+    gemm<T>(kPix, C, CL,
+        [&](int i, int k) { return vs[i * lds + k]; },
         [&](int k, int j) { return rnd<T>(cb[(size_t)k * C + j]); },
         [&](int i, int j, float acc) {
           const float u = gate != nullptr ? to_f(x[src(i) * C + j]) * gate_at(i, j) : 0.f;
@@ -946,16 +967,16 @@ __global__ void spectral_gate_grad_kernel(const T* __restrict__ dys, const T* __
   }
 }
 
-inline size_t stats_bwd_smem(int C, int nH) {
-  const int dh = C / nH;
+inline size_t stats_bwd_smem(int C, int CL, int nH) {
+  const int dh = CL / nH;
   return sizeof(float) * ((size_t)kHaloPix * (C + 1) + (size_t)kHaloPix * (2 * dh + 1) +
                           (size_t)kPix * (2 * dh + 1));
 }
 
-// The halo stage (or dys) and v; kc < C adds the LN statistics.
-inline size_t apply_bwd_smem(int C, int kc) {
+// The halo stage (or dys) and v (CL wide); kc < C adds the LN statistics.
+inline size_t apply_bwd_smem(int C, int CL, int kc) {
   const ApplyPlan plan = kc >= C ? apply_plan<false>(kc, C) : apply_plan<true>(kc, C);
-  return sizeof(float) * plan.floats(C) + (kc >= C ? 0 : sizeof(float) * 2 * kHaloPix);
+  return sizeof(float) * plan.floats(C, CL) + (kc >= C ? 0 : sizeof(float) * 2 * kHaloPix);
 }
 
 // The apply backward instance of a chunk: resident where kc covers C.
@@ -964,9 +985,9 @@ inline auto apply_bwd_kernel(int kc, int C) {
   return kc >= C ? spectral_apply_bwd_kernel<T, false> : spectral_apply_bwd_kernel<T, true>;
 }
 
-inline int apply_bwd_chunk(int C) {
+inline int apply_bwd_chunk(int C, int CL) {
   return pick_chunk(C, [&](int kc) {
-    return plan_bytes(apply_bwd_kernel<float>(kc, C), apply_bwd_smem(C, kc));
+    return plan_bytes(apply_bwd_kernel<float>(kc, C), apply_bwd_smem(C, CL, kc));
   });
 }
 
@@ -975,13 +996,14 @@ cudaError_t launch_stats_bwd(const void* x, const float* lnw, const float* lnb, 
                              const void* wdw, const float* dgram, const float* dnq,
                              const float* dnk, void* un, float* t, float* dqk, int B, int H,
                              int W, int C, int nH, int shift, float eps, const float* hal,
-                             int halo, float* un_halo, float* t_halo, cudaStream_t stream) {
-  const size_t smem = stats_bwd_smem(C, nH);
+                             int halo, float* un_halo, float* t_halo, int CL,
+                             cudaStream_t stream) {
+  const size_t smem = stats_bwd_smem(C, CL, nH);
   cudaError_t err = set_smem(spectral_stats_bwd_kernel<T>, smem);
   if (err != cudaSuccess) return err;
   spectral_stats_bwd_kernel<T><<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
       (const T*)x, lnw, lnb, (const T*)wqkv, (const T*)wdw, dgram, dnq, dnk, (T*)un, t, dqk, H,
-      W, C, nH, shift, eps, hal, halo, un_halo, t_halo);
+      W, C, nH, shift, eps, hal, halo, un_halo, t_halo, CL);
   return cudaGetLastError();
 }
 
@@ -1080,8 +1102,8 @@ cudaError_t launch_apply_bwd(const void* x, const float* lnw, const float* lnb, 
                              void* v, void* dys, float* dv, float* extra, float* pdp,
                              float* dgate, int B, int H, int W, int C, int shift, int kc,
                              float eps, const float* hal, int halo, float* un_halo,
-                             float* t_halo, int gwin, cudaStream_t stream) {
-  const size_t smem = apply_bwd_smem(C, kc);
+                             float* t_halo, int gwin, int CL, cudaStream_t stream) {
+  const size_t smem = apply_bwd_smem(C, CL, kc);
   const auto kernel = apply_bwd_kernel<T>(kc, C);
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -1089,7 +1111,7 @@ cudaError_t launch_apply_bwd(const void* x, const float* lnw, const float* lnb, 
   kernel<<<grid, kThreads, smem, stream>>>(
       (const T*)x, lnw, lnb, (const T*)wqkv, (const T*)wdw, comb, (const T*)gate, dp, residual,
       (const T*)dy, (T*)un, t, (T*)v, (T*)dys, dv, extra, pdp, H, W, C, shift, eps, kc, hal, halo,
-      un_halo, t_halo, gwin);
+      un_halo, t_halo, gwin, CL);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (gate != nullptr)
     spectral_gate_grad_kernel<T><<<dim3(W / gwin, H / gwin, B), 256, 0, stream>>>(
@@ -1100,12 +1122,16 @@ cudaError_t launch_apply_bwd(const void* x, const float* lnw, const float* lnb, 
 }  // namespace mp
 
 // Inputs: x1 (B, H, W, C1) and optional x2 (B, H, W, C2), logical input
-// cat(x1, x2); optional LN (float32, over C1 + C2). float32 (dtype 0) or
-// bf16 (dtype 1): wqkv the q|k rows of the torch weight ([2C][C8], C8 = C
-// rounded up to 8, zero past C; 16-byte aligned), wdw their depthwise taps
-// ([2C][9]); float32 takes heads up to 96 wide, bf16 C up to 384. Partial buffer part [B][n_parts][C*dh + 2C] (n_parts from
-// mp_spectral_stats_parts). Outputs (float32): gram [B][C][dh] (row h*dh + d,
-// col e), nq and nk [B][nH][dh]. A row shard of a larger map (shift 0): halo
+// cat(x1, x2); optional LN (float32, over C1 + C2). CL: the q|k width, C =
+// C1 + C2 for the whole attention; a member's head block of nH heads under
+// the spectral mesh axis has CL < C (float32 only: bf16 returns
+// cudaErrorInvalidValue for it, its head-block tiles are not written yet).
+// float32 (dtype 0) or bf16 (dtype 1): wqkv the q|k rows of the torch weight
+// ([2CL][C8], C8 = C rounded up to 8, zero past C; 16-byte aligned), wdw
+// their depthwise taps ([2CL][9]); float32 takes heads up to 96 wide, bf16 C
+// up to 384. Partial buffer part [B][n_parts][CL*dh + 2CL] (n_parts from
+// mp_spectral_stats_parts). Outputs (float32): gram [B][CL][dh] (row h*dh +
+// d, col e), nq and nk [B][nH][dh]. A row shard of a larger map (shift 0): halo
 // [2][B][W][C1 + C2] in the compute type holds the row above the shard and
 // the row below it, of cat(x1, x2); halo_flags bit 0 says the row above
 // is real data (else the shard's top is the image edge), bit 1 the row
@@ -1113,16 +1139,17 @@ cudaError_t launch_apply_bwd(const void* x, const float* lnw, const float* lnb, 
 extern "C" int mp_spectral_stats(const void* x1, const void* x2, const void* lnw,
                                  const void* lnb, const void* wqkv, const void* wdw, void* part,
                                  void* gram, void* nq, void* nk, const void* halo, int dtype,
-                                 int B, int H, int W, int C1, int C2, int nH, int shift,
+                                 int B, int H, int W, int C1, int C2, int CL, int nH, int shift,
                                  float eps, int n_parts, int halo_flags, void* stream) {
-  if ((C1 + C2) % nH != 0 || H % mp::kTile != 0 || W % mp::kTile != 0 || n_parts <= 0)
+  if (CL % nH != 0 || H % mp::kTile != 0 || W % mp::kTile != 0 || n_parts <= 0 ||
+      (dtype != 0 && CL != C1 + C2))
     return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   auto f = [](const void* p) { return (const float*)p; };
   float *pt = (float*)part, *g = (float*)gram, *q = (float*)nq, *k = (float*)nk;
   if (dtype == 0)
     return (int)mp::launch_stats(f(x1), f(x2), C1, C2, f(lnw), f(lnb), f(wqkv), f(wdw), pt, g, q,
-                                 k, B, H, W, nH, shift, eps, n_parts, f(halo), halo_flags, st);
+                                 k, B, H, W, nH, shift, eps, n_parts, f(halo), halo_flags, CL, st);
   using bf = const __nv_bfloat16*;
   return (int)mp::launch_stats_tc((bf)x1, (bf)x2, C1, C2, f(lnw), f(lnb), (bf)wqkv, (bf)wdw, pt, g,
                                   q, k, B, H, W, nH, shift, eps, n_parts, (bf)halo, halo_flags,
@@ -1130,24 +1157,28 @@ extern "C" int mp_spectral_stats(const void* x1, const void* x2, const void* lnw
 }
 
 // The parts per image a stats launch takes (0 on a device error): the
-// blocks the card holds at once over B images, at most one per tile.
-extern "C" int mp_spectral_stats_parts(int dtype, int B, int H, int W, int C, int nH) {
-  return mp::stats_launch_parts(dtype, B, H, W, C, nH);
+// blocks the card holds at once over B images, at most one per tile; CL the
+// q|k width as mp_spectral_stats'.
+extern "C" int mp_spectral_stats_parts(int dtype, int B, int H, int W, int C, int CL, int nH) {
+  return mp::stats_launch_parts(dtype, B, H, W, C, CL, nH);
 }
 
-// comb [B][C][C] (row: v channel h*dh + e, col: output channel). gate (B,
+// comb [B][CL][C] (row: v channel h*dh + e, col: output channel; CL the v
+// width: C, or a member's head block under the spectral mesh axis, whose
+// output is its partial projection plus the epilogue; float32 only, and
+// without the tail: bf16 returns cudaErrorInvalidValue for it). gate (B,
 // H/8, W/8, C) per-window gates of the rolled frame (gate_win 8), or (B, H,
 // W, C) a per-pixel gate map (gate_win 1; a row shard's, as JAX's
 // gate_map), shortcut (B, H, W, C),
 // residual adds the raw input; dp (B,) float32 per-sample drop-path scales of
 // the branch (NULL = none); w1 / w2 the PGSSTB tail (NULL = none). Output (B,
 // H, W, C) in the unrolled frame.
-// wqkv the v rows of the torch weight ([C][C8], C8 = C rounded up to 8,
-// zero past C; 16-byte aligned), wdw their depthwise taps ([C][9]); the tail
-// pack_mlp_weights' w1p [hidP/64][128][CK], w2p [CK][hidP] (16-byte
+// wqkv the v rows of the torch weight ([CL][C8], C8 = C rounded up to 8,
+// zero past C; 16-byte aligned), wdw their depthwise taps ([CL][9]); the
+// tail pack_mlp_weights' w1p [hidP/64][128][CK], w2p [CK][hidP] (16-byte
 // aligned), all in the compute type.
-// float32 (dtype 0): comb transposed, [B][C out][C8 in] float32 (16-byte
-// aligned; pack_front_f32).
+// float32 (dtype 0): comb transposed, [B][C out][CL8 in] float32 (CL8 = CL
+// rounded up to 8; 16-byte aligned; pack_front_f32).
 // bf16 (dtype 1, C <= 384): comb bf16 [B][C][C8] (16-byte aligned).
 // halo, halo_flags: a row shard's halo rows, as mp_spectral_stats' (shift
 // 0).
@@ -1157,9 +1188,10 @@ extern "C" int mp_spectral_apply(const void* x1, const void* x2, const void* lnw
                                  const void* ln2w, const void* ln2b, const void* w1,
                                  const void* b1, const void* w2, const void* b2, const void* dp,
                                  void* out, const void* halo, int dtype, int B, int H, int W,
-                                 int C1, int C2, int residual, int hid, int shift, float eps,
-                                 int halo_flags, int gate_win, void* stream) {
-  if (H % mp::kTile != 0 || W % mp::kTile != 0 || (gate_win != 1 && gate_win != mp::kTile))
+                                 int C1, int C2, int CL, int residual, int hid, int shift,
+                                 float eps, int halo_flags, int gate_win, void* stream) {
+  if (H % mp::kTile != 0 || W % mp::kTile != 0 || (gate_win != 1 && gate_win != mp::kTile) ||
+      (dtype != 0 && CL != C1 + C2))
     return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   auto f = [](const void* p) { return (const float*)p; };
@@ -1167,7 +1199,7 @@ extern "C" int mp_spectral_apply(const void* x1, const void* x2, const void* lnw
     return (int)mp::launch_apply_f32(f(x1), f(x2), C1, C2, f(lnw), f(lnb), f(wqkv), f(wdw),
                                      f(comb), f(gate), f(shortcut), residual, f(ln2w), f(ln2b),
                                      f(w1), f(b1), f(w2), f(b2), hid, f(dp), (float*)out, B, H,
-                                     W, shift, eps, f(halo), halo_flags, gate_win, st);
+                                     W, shift, eps, f(halo), halo_flags, gate_win, CL, st);
   using bf = const __nv_bfloat16*;
   return (int)mp::launch_apply_tc((bf)x1, (bf)x2, C1, C2, f(lnw), f(lnb), (bf)wqkv, (bf)wdw,
                                   (bf)comb, (bf)gate, (bf)shortcut, residual, f(ln2w), f(ln2b),
@@ -1184,10 +1216,11 @@ extern "C" int mp_smem_optin() { return mp::smem_optin(); }
 // launch on a tensor of another card than the last one (_route.py).
 extern "C" int mp_set_device(int dev) { return (int)cudaSetDevice(dev); }
 
-// Shared-memory plans per block (bytes, static included) at a shape. The
-// float32 stats tile's (StatsF32Plan; no chunk): -1 past heads 96 wide.
-extern "C" long long mp_spectral_stats_smem(int C, int nH) {
-  const mp::StatsF32Plan pl(C, nH);
+// Shared-memory plans per block (bytes, static included) at a shape. CL is
+// the q/k/v width of the call: C, or a member's head block (float32 only).
+// The float32 stats tile's (StatsF32Plan; no chunk): -1 past heads 96 wide.
+extern "C" long long mp_spectral_stats_smem(int C, int CL, int nH) {
+  const mp::StatsF32Plan pl(C, CL, nH);
   return pl.ok() ? mp::plan_bytes(mp::spectral_stats_f32_kernel, pl.bytes) : -1;
 }
 
@@ -1197,13 +1230,13 @@ extern "C" long long mp_spectral_stats_tc_smem(int C, int nH) {
 }
 
 // The apply plan takes the compute type (dtype 0 float32: ApplyF32Plan, 1
-// bf16: FrontPlan); neither has a chunk.
-extern "C" long long mp_spectral_apply_smem(int C, int tail, int dtype) {
-  return mp::apply_plan_bytes(C, tail != 0, dtype != 0);
+// bf16: FrontPlan, -1 at CL != C); neither has a chunk.
+extern "C" long long mp_spectral_apply_smem(int C, int CL, int tail, int dtype) {
+  return dtype != 0 && CL != C ? -1 : mp::apply_plan_bytes(C, tail != 0, dtype != 0, CL);
 }
 
-extern "C" long long mp_spectral_stats_bwd_smem(int C, int nH) {
-  return mp::plan_bytes(mp::spectral_stats_bwd_kernel<float>, mp::stats_bwd_smem(C, nH));
+extern "C" long long mp_spectral_stats_bwd_smem(int C, int CL, int nH) {
+  return mp::plan_bytes(mp::spectral_stats_bwd_kernel<float>, mp::stats_bwd_smem(C, CL, nH));
 }
 
 // The bf16 stats backward's tiles (StatsBwdPlan; DwDxPlan at C and K = 2C
@@ -1220,36 +1253,37 @@ extern "C" long long mp_dwconv_dx_tc_smem(int C, int K) {
                                             mp::DwDxPlan(C, K, true).bytes);
 }
 
-extern "C" long long mp_spectral_apply_bwd_smem(int C, int kc) {
-  return mp::plan_bytes(mp::apply_bwd_kernel<float>(kc, C), mp::apply_bwd_smem(C, kc));
+extern "C" long long mp_spectral_apply_bwd_smem(int C, int CL, int kc) {
+  return mp::plan_bytes(mp::apply_bwd_kernel<float>(kc, C), mp::apply_bwd_smem(C, CL, kc));
 }
 
-// The channel chunk the apply backward kernel launches with at C.
-extern "C" int mp_spectral_apply_bwd_chunk(int C) { return mp::apply_bwd_chunk(C); }
+// The channel chunk the apply backward kernel launches with at (C, CL).
+extern "C" int mp_spectral_apply_bwd_chunk(int C, int CL) { return mp::apply_bwd_chunk(C, CL); }
 
 // The float32 backward of mp_spectral_stats for one raw input (no x2; bf16
 // runs mp_spectral_stats_bwd_tc and mp_dwconv_dx_tc). Inputs: x, LN, wqkv
-// [C][3C], wdw [9][3C] as in the forward; dgram (B, C, dh), dnq / dnk (B,
-// nH, dh). Outputs, unrolled frame: un (B, H, W, C) the (LN'd) input, t (B,
-// H, W, 2C) the q|k 1x1 output, dqk (B, H, W, 2C) the cotangent after the
-// depthwise conv. A row shard (shift 0): hal [2][B][W][C] and halo_flags as
-// mp_spectral_stats's; then un_halo [2][B][W][C] and t_halo [2][B][W][2C]
-// receive the (LN'd) input and the q|k 1x1 output of each real halo row (the
+// [C][3CL], wdw [9][3CL] as in the forward (CL: C, or a member's head
+// block); dgram (B, CL, dh), dnq / dnk (B, nH, dh). Outputs, unrolled frame:
+// un (B, H, W, C) the (LN'd) input, t (B, H, W, 2CL) the q|k 1x1 output, dqk
+// (B, H, W, 2CL) the cotangent after the depthwise conv. A row shard (shift
+// 0): hal [2][B][W][C] and halo_flags as mp_spectral_stats's; then un_halo
+// [2][B][W][C] and t_halo [2][B][W][2CL] receive the (LN'd) input and the q|k 1x1 output of each real halo row (the
 // other side's rows are not written). halo_flags 0: hal, un_halo and t_halo
 // may be NULL.
 extern "C" int mp_spectral_stats_bwd(const void* x, const void* lnw, const void* lnb,
                                      const void* wqkv, const void* wdw, const void* dgram,
                                      const void* dnq, const void* dnk, void* un, void* t,
                                      void* dqk, const void* hal, void* un_halo, void* t_halo,
-                                     int B, int H, int W, int C, int nH, int shift, float eps,
-                                     int halo_flags, void* stream) {
-  if (C % nH != 0 || H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
+                                     int B, int H, int W, int C, int CL, int nH, int shift,
+                                     float eps, int halo_flags, void* stream) {
+  if (CL % nH != 0 || CL <= 0 || CL > C || H % mp::kTile != 0 || W % mp::kTile != 0)
+    return (int)cudaErrorInvalidValue;
   if (halo_flags != 0 && (hal == nullptr || un_halo == nullptr || t_halo == nullptr || shift != 0))
     return (int)cudaErrorInvalidValue;
   auto f = [](const void* p) { return (const float*)p; };
   return (int)mp::launch_stats_bwd<float>(x, f(lnw), f(lnb), wqkv, wdw, f(dgram), f(dnq), f(dnk),
                                           un, (float*)t, (float*)dqk, B, H, W, C, nH, shift, eps,
-                                          f(hal), halo_flags, (float*)un_halo, (float*)t_halo,
+                                          f(hal), halo_flags, (float*)un_halo, (float*)t_halo, CL,
                                           (cudaStream_t)stream);
 }
 
@@ -1373,26 +1407,28 @@ extern "C" long long mp_spectral_apply_bwd_tc_smem(int C, int tile) {
 
 // The float32 backward of mp_spectral_apply without the MLP tail or x2 (bf16
 // runs mp_spectral_apply_bwd_tc, mp_spectral_gate_grad and
-// mp_spectral_apply_dx_tc). dy (B, H, W, C) unrolled frame. Outputs,
-// unrolled frame: un (LN'd input), t (float32 v 1x1 output), v, dys (dy *
+// mp_spectral_apply_dx_tc). CL the v width (C, or a member's head block:
+// wqkv [C][3CL], wdw [9][3CL], comb (B, CL, C); t, v and dv CL wide). dy (B,
+// H, W, C) unrolled frame. Outputs, unrolled frame: un (LN'd input), t
+// (float32 v 1x1 output), v, dys (dy *
 // dp), dv (float32), extra (float32 input cotangent of the gate / residual
 // epilogue; NULL when neither), pdp (per-tile d dp partials; NULL without
 // dp), dgate (B, H/8, W/8, C) float32 (gate_win 8; at gate_win 1 gate and
 // dgate are per-pixel maps (B, H, W, C)). kc: the channel chunk
 // (mp_spectral_apply_bwd_chunk). A row shard (shift 0): hal [2][B][W][C]
 // and halo_flags as mp_spectral_apply's; then un_halo [2][B][W][C] and
-// t_halo [2][B][W][C] receive the (LN'd) input and the v 1x1 output of each
+// t_halo [2][B][W][CL] receive the (LN'd) input and the v 1x1 output of each
 // real halo row. halo_flags 0: hal, un_halo and t_halo may be NULL.
 extern "C" int mp_spectral_apply_bwd(const void* x, const void* lnw, const void* lnb,
                                      const void* wqkv, const void* wdw, const void* comb,
                                      const void* gate, const void* dp, const void* dy, void* un,
                                      void* t, void* v, void* dys, void* dv, void* extra,
                                      void* pdp, void* dgate, const void* hal, void* un_halo,
-                                     void* t_halo, int dtype, int B, int H, int W, int C,
+                                     void* t_halo, int dtype, int B, int H, int W, int C, int CL,
                                      int residual, int shift, int kc, float eps, int halo_flags,
                                      int gate_win, void* stream) {
   if (H % mp::kTile != 0 || W % mp::kTile != 0 || kc <= 0 || kc > C || dtype != 0 ||
-      (gate_win != 1 && gate_win != mp::kTile))
+      (gate_win != 1 && gate_win != mp::kTile) || CL <= 0 || CL > C)
     return (int)cudaErrorInvalidValue;
   if (halo_flags != 0 && (hal == nullptr || un_halo == nullptr || t_halo == nullptr || shift != 0))
     return (int)cudaErrorInvalidValue;
@@ -1401,5 +1437,5 @@ extern "C" int mp_spectral_apply_bwd(const void* x, const void* lnw, const void*
                                           residual, dy, un, (float*)t, v, dys, (float*)dv,
                                           (float*)extra, (float*)pdp, (float*)dgate, B, H, W, C,
                                           shift, kc, eps, f(hal), halo_flags, (float*)un_halo,
-                                          (float*)t_halo, gate_win, (cudaStream_t)stream);
+                                          (float*)t_halo, gate_win, CL, (cudaStream_t)stream);
 }

@@ -200,30 +200,37 @@ constexpr int kCombMaxN = 384;       // a comb pass: 4 row tiles x 12 blocks of 
 // the static)
 constexpr size_t kApplyF32Budget = 232448 - 1024;
 
-// The float32 apply tile's plan at width C (every piece a multiple of 16
-// bytes): taps [9][CP] | LN mean, rstd [2][112] | v [64][CP + 4] | ring.
+// The float32 apply tile's plan at input width C and v width CL (C, or a
+// member's head block under the spectral mesh axis; every piece a multiple
+// of 16 bytes): taps [9][CPL] | LN mean, rstd [2][112] | v [64][CPL + 4] |
+// ring.
 // The ring's space takes, in turn, each v column group's halo and weight
 // chunks (ws stages of [112 + GW][36]) and its 1x1 output [100][GW + 8],
 // then each comb pass's chunks of comb^T (cs stages of [NP][36]); stages: as
-// many as the space left holds, 2 to 3. CP = C rounded up to 32: the v
-// columns in `groups` groups of GW, the comb product's output columns in
+// many as the space left holds, 2 to 3. CP = C and CPL = CL rounded up to
+// 32: the 1x1's nk input chunks of C, the v columns in `groups` groups of
+// GW, the comb product's nkv chunks of CL deep and its output columns in
 // `passes` passes of NP. With the tail, its scratch (tail_f32_bytes) lies
 // over the dead front from offset 0, and the plan is the larger of the two.
+// A head block (CL < C) only narrows v, its taps and comb's depth, so its
+// plan is never larger than the whole attention's.
 struct ApplyF32Plan {
-  int C, CP, ldv, nk, groups, GW, ldt, passes, NP, ws, cs;
+  int C, CL, CP, CPL, ldv, nk, nkv, groups, GW, ldt, passes, NP, ws, cs;
   size_t taps, lnst, v, stage, cstage, ring, front;
-  __host__ __device__ ApplyF32Plan(int c) : C(c) {
+  __host__ __device__ ApplyF32Plan(int c, int cl) : C(c), CL(cl) {
     CP = round_up32(c);
-    ldv = CP + 4;
+    CPL = round_up32(cl);
+    ldv = CPL + 4;
     nk = CP / kF32K;
-    const int nb = CP / 32;
-    groups = (nb + kApplyF32MaxGW / 32 - 1) / (kApplyF32MaxGW / 32);
-    GW = 32 * ((nb + groups - 1) / groups);
+    nkv = CPL / kF32K;
+    const int nb = CP / 32, nbl = CPL / 32;
+    groups = (nbl + kApplyF32MaxGW / 32 - 1) / (kApplyF32MaxGW / 32);
+    GW = 32 * ((nbl + groups - 1) / groups);
     ldt = GW + 8;
     passes = (nb + kCombMaxN / 32 - 1) / (kCombMaxN / 32);
     NP = 32 * ((nb + passes - 1) / passes);
     const size_t f = sizeof(float);
-    taps = f * 9 * CP;
+    taps = f * 9 * CPL;
     lnst = f * 2 * kFrontRows;
     v = f * kPix * ldv;
     stage = f32_stage_bytes(GW);

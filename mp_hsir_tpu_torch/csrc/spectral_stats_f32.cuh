@@ -21,6 +21,12 @@
 //   group, so only that group's float32 Gram partial [hg][dhp][dhp] and norm
 //   partial are live in shared memory; they go to the part buffer when the
 //   walk ends. The taps of the group are staged once per walk.
+// - A member's head block under the spectral mesh axis (parallel/tp.py):
+//   the q|k width, 2 CL columns of whole heads, comes from the weight, not
+//   from the input width C, which stays the 1x1's depth (the halo chunks,
+//   the LayerNorm). The plan depends on the heads and their width only, so
+//   a head block's plan is never larger than the whole attention's; CL == C
+//   is the whole attention.
 // - Per tile and group: the halo's and the group's weight rows' 32-channel
 //   chunks through a 3-stage cp.async ring (the q|k rows of the torch
 //   weight, wqk [2C][C8], rows padded to 16 bytes), LayerNorm per chunk; the
@@ -45,17 +51,18 @@ constexpr int kStatsF32MaxN = 192;  // a group's columns: 7 row tiles x 6 blocks
 // the static)
 constexpr size_t kStatsF32Budget = 232448 - 1024;
 
-// The float32 stats tile's plan at width C with nH heads (every piece a
-// multiple of 16 bytes): taps [9][GW] | Gram partial [hg][dhp][dhp] | norm
+// The float32 stats tile's plan at input width C, q|k width CL (C, or a
+// member's head block) and nH heads of CL / nH (every piece a multiple of
+// 16 bytes): taps [9][GW] | Gram partial [hg][dhp][dhp] | norm
 // partial [GW] | LN mean, rstd [2][112] | q|k tile [64][GW + 8] | ring
 // (S stages of the halo and weight chunks [112 + GW][36], then the 1x1
 // output [100][GW + 8]). Heads of up to dhp = 96 (a head's 2 dhp columns in
 // one group); 3 ring stages where they fit, else 2.
 struct StatsF32Plan {
-  int C, nH, dh, dhp, hw, nqk, nk, hg, groups, GW, ldq, S;
+  int C, CL, nH, dh, dhp, hw, nqk, nk, hg, groups, GW, ldq, S;
   size_t taps, gacc, nacc, lnst, qk, ring, bytes;
-  __host__ __device__ StatsF32Plan(int c, int nh) : C(c), nH(nh) {
-    dh = c / nh;
+  __host__ __device__ StatsF32Plan(int c, int cl, int nh) : C(c), CL(cl), nH(nh) {
+    dh = cl / nh;
     dhp = round_up16(dh);
     hw = 2 * dhp;
     nqk = nH * hw;
@@ -84,23 +91,25 @@ struct StatsF32Plan {
 };
 
 // Arguments: x1, x2, lnw, lnb as mp_spectral_stats (float32); wqk the q|k
-// rows of wqkv ([2C][C8], torch layout, C8 = C rounded up to 8, zero past C;
-// 16-byte aligned), taps their depthwise taps ([2C][9]); hal, halo a row
+// rows of wqkv ([2CL][C8], torch layout, C8 = C rounded up to 8, zero past
+// C; 16-byte aligned), taps their depthwise taps ([2CL][9]); CL the q|k
+// width (C, or a member's head block of nH heads); hal, halo a row
 // shard's halo rows [2][B][W][C] and which of them are real (halo_src;
 // they feed only the depthwise of the shard's first and last rows, and
 // nothing is summed over them); vec_x: C1, C2 multiples of 4 and x1, x2,
-// hal 16-byte aligned; part [B][n_parts][C dh + 2C]: this block's Gram (row
-// h dh + d, col e), |q|^2, |k|^2 over its tiles.
+// hal 16-byte aligned; part [B][n_parts][CL dh + 2CL]: this block's Gram
+// (row h dh + d, col e), |q|^2, |k|^2 over its tiles.
 __global__ void __launch_bounds__(kThreads)
 spectral_stats_f32_kernel(const float* __restrict__ x1, const float* __restrict__ x2, int C1,
                           int C2, const float* __restrict__ lnw, const float* __restrict__ lnb,
                           const float* __restrict__ wqk, const float* __restrict__ taps, int H,
                           int W, int nH, int shift, float eps, int vec_x,
-                          const float* __restrict__ hal, int halo, float* __restrict__ part) {
+                          const float* __restrict__ hal, int halo, float* __restrict__ part,
+                          int CL) {
   extern __shared__ float4 stats_f32_dyn[];
   __shared__ int hsrc[kFrontRows];  // halo row -> raw source pixel (-1: zero row)
   const int C = C1 + C2;
-  const StatsF32Plan pl(C, nH);
+  const StatsF32Plan pl(C, CL, nH);
   const int GW = pl.GW, ldq = pl.ldq, dh = pl.dh, dhp = pl.dhp, hw = pl.hw, C8 = round_up8(C);
   float* tp = reinterpret_cast<float*>(stats_f32_dyn);  // [9][GW] the group's taps
   float* gacc = tp + 9 * GW;                             // [hg][dhp][dhp]
@@ -115,8 +124,8 @@ spectral_stats_f32_kernel(const float* __restrict__ x1, const float* __restrict_
   const int t0 = (int)((long long)ipart * n_tiles / n_parts);
   const int t1 = (int)((long long)(ipart + 1) * n_tiles / n_parts);
   const HaloF32 hl{x1, x2, C1, C2, hsrc, vec_x != 0, hal};
-  const int n = C * dh;
-  float* out = part + ((size_t)b * n_parts + ipart) * (n + 2 * C);
+  const int n = CL * dh;
+  float* out = part + ((size_t)b * n_parts + ipart) * (n + 2 * CL);
 
   for (int g = 0; g < pl.groups; ++g) {
     const int g0 = g * GW, gw = min(GW, pl.nqk - g0), n_units = 7 * (gw / 32);
@@ -124,7 +133,7 @@ spectral_stats_f32_kernel(const float* __restrict__ x1, const float* __restrict_
     // the group's taps in the head-grouped column order, zero for the
     // padding columns; its partial sums zeroed
     for (int i = threadIdx.x; i < 9 * GW; i += blockDim.x) {
-      const int tap = i / GW, c = i - tap * GW, r = c < gw ? qk_row(g0 + c, hw, dhp, dh, C) : -1;
+      const int tap = i / GW, c = i - tap * GW, r = c < gw ? qk_row(g0 + c, hw, dhp, dh, CL) : -1;
       tp[i] = r < 0 ? 0.f : taps[r * 9 + tap];
     }
     for (int i = threadIdx.x; i < pl.hg * dhp * dhp + GW; i += blockDim.x) gacc[i] = 0.f;
@@ -141,7 +150,7 @@ spectral_stats_f32_kernel(const float* __restrict__ x1, const float* __restrict_
       auto ring = front_ring(rg, f32_stage_bytes(GW) / sizeof(float), pl.S, pl.nk,
           [=](int kt, float* dst) {
             stage_f32_chunk(dst, hl, wqk, C8, gw,
-                            [=](int c) { return qk_row(g0 + c, hw, dhp, dh, C); }, kt);
+                            [=](int c) { return qk_row(g0 + c, hw, dhp, dh, CL); }, kt);
           });
       ring.prefetch();
       float acc[kFrontUnits][4][4];
@@ -210,7 +219,7 @@ spectral_stats_f32_kernel(const float* __restrict__ x1, const float* __restrict_
       }
     }
     __syncthreads();
-    // the group's sums in the outputs' layout: Gram [C][dh], |q|^2 [C], |k|^2 [C]
+    // the group's sums in the outputs' layout: Gram [CL][dh], |q|^2 [CL], |k|^2 [CL]
     const int per = dh * (dh + 2);
     for (int i = threadIdx.x; i < pl.hg * per; i += blockDim.x) {
       const int hh = i / per, r = i - hh * per, h = g * pl.hg + hh;
@@ -219,7 +228,7 @@ spectral_stats_f32_kernel(const float* __restrict__ x1, const float* __restrict_
         out[(h * dh + r / dh) * dh + r % dh] = gacc[(hh * dhp + r / dh) * dhp + r % dh];
       } else {
         const int side = r - dh * dh >= dh, d = r - dh * dh - side * dh;
-        out[n + side * C + h * dh + d] = nacc[hh * hw + side * dhp + d];
+        out[n + side * CL + h * dh + d] = nacc[hh * hw + side * dhp + d];
       }
     }
   }

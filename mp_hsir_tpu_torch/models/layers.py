@@ -25,6 +25,20 @@ extended by a neighbour row on each inner side
 (:func:`~mp_hsir_tpu_torch.ops.conv.extend_rows`), cropped after. The
 collectives are differentiable, so the training route's backward sends
 each halo row's cotangent back to the shard that owns the row.
+
+Head-parallel spectral attention: the ``spectral`` argument (the spectral
+mesh axis, None on one device) runs every spectral attention whose heads
+the axis divides as its members' head blocks (JAX's ``spectral_axis``,
+``models/layers.py:436-470``): each member slices its heads' weights
+(``parallel/tp.py``), runs the stats and apply kernels on them, and the
+partial outputs are summed over the axis; everything else runs whole on
+every member. A PGSSTB then runs JAX's TP epilogue (the apply with the gate
+over n and the drop-path scale, the shortcut after the sum, then the MLP
+kernel with its residual), a TransformerBlock JAX's unfused route (a plain
+LayerNorm, the TP attention, the residual, then the GDFN kernel) and
+PromptFusion its explicit concat and exit conv. A block whose heads the
+axis does not divide runs its whole attention on every member (JAX's
+replicated route).
 """
 
 from __future__ import annotations
@@ -42,7 +56,8 @@ from mp_hsir_tpu_torch.ops.kernels.conv3 import conv3
 from mp_hsir_tpu_torch.ops.kernels.gdfn import gdfn
 from mp_hsir_tpu_torch.ops.kernels.mlp import mlp
 from mp_hsir_tpu_torch.ops.kernels.spectral import (
-    spectral_apply, spectral_attention_sharded, spectral_fold, spectral_stats,
+    spectral_apply, spectral_attention_sharded, spectral_attention_tp, spectral_fold,
+    spectral_stats,
 )
 from mp_hsir_tpu_torch.ops.kernels.window_attention import (
     region_labels, relative_position_index, window_attention,
@@ -53,6 +68,7 @@ from mp_hsir_tpu_torch.ops.resize import (
 )
 from mp_hsir_tpu_torch.ops.window import roll_hw
 from mp_hsir_tpu_torch.parallel.mesh import axis_index, axis_size, psum
+from mp_hsir_tpu_torch.parallel.tp import divides, head_block
 
 # Route counters (counterpart of FUSED_PATH_STATS): how many blocks of each
 # kind took the kernel route in the forwards since the last reset.
@@ -207,6 +223,19 @@ class SpectralAttention(nn.Module):
                                           self.num_heads, axis, x2=x2, ln_w=lnw, ln_b=lnb,
                                           **epilogue)
 
+    def tp(self, x, spectral, axis=None, **epilogue):
+        """The attention head-parallel over the ``spectral`` mesh axis (JAX's
+        TP route, ``models/layers.py:436-470``): this member's head block of
+        the weights, the stats and apply kernels on it (with the halo rows
+        and summed statistics of ``axis`` when x is a row shard), the
+        partial outputs summed over the axis; ``epilogue``: gate, shortcut,
+        dp_scale (:func:`~mp_hsir_tpu_torch.ops.kernels.spectral.spectral_attention_tp`).
+        Differentiable."""
+        hb = head_block(self.qkv.weight, self.qkv_dwconv.weight, self.temperature,
+                        self.project_out.weight, self.num_heads, spectral)
+        return spectral_attention_tp(x, hb.wqkv, hb.wdw, hb.temperature, hb.wout, hb.heads,
+                                     spectral, axis, **epilogue)
+
 
 class PGSpectralAttention(nn.Module):
     """Prompt-guided local spectral attention on per-window means (reference
@@ -335,17 +364,27 @@ class TransformerBlock(nn.Module):
         self.norm2 = LayerNorm(dim)
         self.ffn = GDFN(dim, expansion)
 
-    def forward(self, x, x2=None, proj_w=None, axis=None):
+    def forward(self, x, x2=None, proj_w=None, axis=None, spectral=None):
         """``axis``: x (and x2) are row shards (JAX ``models/layers.py:
         842-848``); the port keeps its fusions there too: the spectral
         tiles take the halo rows of cat(x, x2) with the LayerNorm in-kernel,
-        and the GDFN tile runs over the shard's extended rows."""
+        and the GDFN tile runs over the shard's extended rows. ``spectral``:
+        the heads run head-parallel over that mesh axis where it divides
+        them, on JAX's unfused route (x + attn(LN1(x)), then the GDFN kernel
+        with its residual; no x2 / proj_w there)."""
         sa, f = self.attn, self.ffn
 
         def ffn(y):
             return gdfn(y, self.norm2.weight, self.norm2.bias, f.project_in.weight,
                         f.dwconv.weight, f.project_out.weight, residual=True, proj_w=proj_w)
 
+        if divides(self.attn.num_heads, spectral):
+            if x2 is not None or proj_w is not None:
+                raise ValueError("the head-parallel TransformerBlock takes the concatenated "
+                                 "input and no exit conv (PromptFusion's explicit route)")
+            _count_path("transformer_tp")
+            y = sa.tp(self.norm1(x), spectral, axis, shortcut=x)
+            return _on_extended_rows(ffn, y, axis) if _sharded(axis) else ffn(y)
         if _sharded(axis):
             y = sa.sharded(x, axis, x2=x2, ln=self.norm1, residual=True)
             return _on_extended_rows(ffn, y, axis)
@@ -450,14 +489,18 @@ class PromptFusion(nn.Module):
         self.transformer = TransformerBlock(dim, num_heads, expansion)
         self.conv = Conv2d(dim, out_dim, 1)
 
-    def forward(self, x, prompt, axis=None):
-        if self.training:
+    def forward(self, x, prompt, axis=None, spectral=None):
+        """``spectral``: under the spectral mesh axis, where it divides the
+        heads, the explicit composition on both routes (JAX fuses only
+        without the axis, ``models/layers.py:1013-1029``)."""
+        if self.training or divides(self.transformer.attn.num_heads, spectral):
             # the explicit composition, as JAX's training route does
             # (mp_hsir_tpu/models/layers.py:1027-1029); on a row shard the
             # transformer's spectral tiles take halo rows and its GDFN runs
             # over the extended rows (the 1x1 conv is per pixel)
-            _count_path("prompt_fusion_train")
-            return self.conv(self.transformer(torch.cat([x, prompt], dim=-1), axis=axis))
+            _count_path("prompt_fusion_train" if self.training else "prompt_fusion_tp")
+            return self.conv(self.transformer(torch.cat([x, prompt], dim=-1), axis=axis,
+                                              spectral=spectral))
         _count_path("prompt_fusion_kernels")
         return self.transformer(x, x2=prompt, proj_w=self.conv.weight, axis=axis)
 
@@ -504,11 +547,16 @@ class PGSSTB(nn.Module):
         return (self.drop_path.scales(b, generator, device),
                 self.drop_path.scales(b, generator, device))
 
-    def forward(self, x: torch.Tensor, dp=None, axis=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dp=None, axis=None, spectral=None) -> torch.Tensor:
+        """``axis``: x is a row shard over the spatial mesh axis;
+        ``spectral``: the spectral attention runs head-parallel over that
+        mesh axis where it divides the heads."""
         b, h, w, c = x.shape
         if min(self.ws, h, w) != 8 or h % 8 or w % 8:
             raise ValueError(f"the window kernel takes 8x8 windows on H, W % 8 == 0; got "
                              f"ws={self.ws} map {(h, w)}")
+        if divides(self.num_heads, spectral):
+            return self._forward_sharded(x, axis, dp, spectral)
         if _sharded(axis):
             return self._forward_sharded(x, axis, dp)
         _count_path("pgsstb_kernels")
@@ -533,7 +581,7 @@ class PGSSTB(nn.Module):
                                    m.fc1.bias, m.fc2.weight, m.fc2.bias))
 
 
-    def _forward_sharded(self, x: torch.Tensor, axis, dp=None) -> torch.Tensor:
+    def _forward_sharded(self, x: torch.Tensor, axis, dp=None, spectral=None) -> torch.Tensor:
         """Both routes on a row shard over ``axis`` (JAX's sharded epilogue,
         ``models/layers.py:1095-1250``): the (-shift, -shift) roll across the
         shards, the window tile with no roll of its own and the global map's
@@ -544,8 +592,12 @@ class PGSSTB(nn.Module):
         gate_map), rounded as on one device. Eval: the tail MLP in the apply
         tile; training: the
         branch scaled by the drop-path scale ``dp1`` and the MLP kernel
-        after it with ``dp2``, as on one device."""
-        _count_path("pgsstb_kernels_sharded")
+        after it with ``dp2``, as on one device. ``spectral``: JAX's TP
+        epilogue (``models/layers.py:1122-1237``, on the whole map or a row
+        shard): the attention head-parallel over that axis with the gate and
+        drop-path in its apply and the shortcut after the sum, then the MLP
+        kernel with its residual on both routes."""
+        _count_path("pgsstb_kernels_sharded" if spectral is None else "pgsstb_kernels_tp")
         b, h, w, c = x.shape
         shift = self.shift
         region = None
@@ -561,7 +613,7 @@ class PGSSTB(nn.Module):
         gate = self.local_spectral_attn(pooled.reshape(b, -1, c)).reshape(b, h // 8, w // 8, c)
         m = self.mlp
         dp1, dp2 = (None, None) if dp is None else dp
-        if self.training:
+        if self.training or spectral is not None:
             epilogue = dict(dp_scale=dp1)
         else:
             epilogue = dict(mlp=(self.norm2.weight, self.norm2.bias, m.fc1.weight, m.fc1.bias,
@@ -570,8 +622,12 @@ class PGSSTB(nn.Module):
             sa = roll_hw(sa, shift, shift, axis)
             gate = roll_hw(gate.repeat_interleave(8, dim=1).repeat_interleave(8, dim=2),
                            shift, shift, axis)
-        y = self.gobal_spectral_attn.sharded(sa, axis, gate=gate, shortcut=x, **epilogue)
-        if not self.training:
+        sp = self.gobal_spectral_attn
+        if spectral is not None:
+            y = sp.tp(sa, spectral, axis, gate=gate, shortcut=x, **epilogue)
+        else:
+            y = sp.sharded(sa, axis, gate=gate, shortcut=x, **epilogue)
+        if not self.training and spectral is None:
             return y
         return mlp(y, self.norm2.weight, self.norm2.bias, m.fc1.weight, m.fc1.bias, m.fc2.weight,
                    m.fc2.bias, residual=True, dp_scale=dp2)
@@ -593,10 +649,10 @@ class BaseBlock(nn.Module):
                 float(drop_path[i]) if len(drop_path) else 0.0))
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
-                axis=None) -> torch.Tensor:
+                axis=None, spectral=None) -> torch.Tensor:
         y = x
         for i in range(self.depth):
             blk = getattr(self, f"blocks_{i}")
             dp = blk.drop_path_scales(x.shape[0], generator, x.device) if self.training else None
-            y = blk(y, dp, axis)
+            y = blk(y, dp, axis, spectral)
         return y + x

@@ -12,7 +12,10 @@ from the ``generator`` passed to ``forward``), ``model.eval()`` the eval one.
 the spatial mesh axis, and the global input residual stays local to the
 shard. Each shard's H must then be a multiple of 32. On the training route
 every shard of one cube passes a generator in the same state, so that the
-drop-path draws agree across its shards.
+drop-path draws agree across its shards. ``forward(..., spectral=...)``
+runs every spectral attention whose heads the spectral mesh axis divides
+head-parallel over it (JAX's ``cfg.spectral_axis``): each member of the axis
+passes the same input (or the same row shard) and gets the same output.
 """
 
 from __future__ import annotations
@@ -69,10 +72,12 @@ class MPHSIRNet(nn.Module):
         self.output = L.Conv3x3(dim * 2, cfg.out_channels)
 
     def forward(self, inp: torch.Tensor, task_id: torch.Tensor,
-                generator: torch.Generator | None = None, axis=None) -> torch.Tensor:
+                generator: torch.Generator | None = None, axis=None,
+                spectral=None) -> torch.Tensor:
         """``axis``: inp is this rank's row block of the cube, whose rows are
         split over the spatial mesh axis; returns the block's rows of the
-        output."""
+        output. ``spectral``: the spectral mesh axis (head-parallel spectral
+        attention; every member of it holds the same input and output)."""
         cfg = self.cfg
         if inp.ndim != 4:
             raise ValueError(f"expected (B, C, H, W), got {tuple(inp.shape)}")
@@ -83,25 +88,25 @@ class MPHSIRNet(nn.Module):
         clip_prompt = clip_prompt_embedding(prompt_weights, cfg.task_classes)
         dim = cfg.dim
 
-        g, ax = generator, axis
-        enc1 = self.encoder_level1(self.patch_embed(x, ax), g, ax)
-        enc2 = self.encoder_level2(self.down1_2(enc1, ax), g, ax)
-        latent = self.latent(self.down2_3(enc2, ax), g, ax)
+        g, ax, tp = generator, axis, spectral
+        enc1 = self.encoder_level1(self.patch_embed(x, ax), g, ax, tp)
+        enc2 = self.encoder_level2(self.down1_2(enc1, ax), g, ax, tp)
+        latent = self.latent(self.down2_3(enc2, ax), g, ax, tp)
 
         d2 = self.up3_2(latent, ax)
         p2 = self.prompt2(enc2, clip_prompt, prompt_weights, ax)
-        enc2f = self.fusion2(enc2, p2, ax)
+        enc2f = self.fusion2(enc2, p2, ax, tp)
         # concat + 1x1 reduce as split-weight products: cat([a, b]) @ W ==
         # a @ W_top + b @ W_bot (the concatenation is never built)
         w2d = self.reduce_chan_level2.weight.reshape(dim * 2, dim * 4).t().to(dt)
         d2 = d2 @ w2d[: dim * 2] + enc2f @ w2d[dim * 2:]
-        dec2 = self.decoder_level2(d2, g, ax)
+        dec2 = self.decoder_level2(d2, g, ax, tp)
 
         d1 = self.up2_1(dec2, ax)
         p1 = self.prompt1(enc1, clip_prompt, prompt_weights, ax)
-        enc1f = self.fusion1(enc1, p1, ax)
-        dec1 = self.decoder_level1(torch.cat([d1, enc1f], dim=-1), g, ax)
-        ref = self.refinement(dec1, g, ax)
+        enc1f = self.fusion1(enc1, p1, ax, tp)
+        dec1 = self.decoder_level1(torch.cat([d1, enc1f], dim=-1), g, ax, tp)
+        ref = self.refinement(dec1, g, ax, tp)
         # output conv + the global float32 input residual in one writeback
         out = self.output(ref, "res", inp_nhwc, ax)
         return out.permute(0, 3, 1, 2)

@@ -48,6 +48,18 @@ Layouts at these functions: NHWC maps; wqkv (3C, C, 1, 1) and wdw
 logical input ``cat([x, x2], -1)``; ``shift`` > 0 means ``x`` is in the
 rolled frame of a shifted block and is read through the roll-back.
 
+A member's head block under the spectral mesh axis (``parallel/tp.py``,
+:func:`spectral_attention_tp`): wqkv (3CL, C, 1, 1) and wdw (3CL, 1, 3,
+3) hold its heads' q, k and v rows, CL = wqkv.shape[0] / 3 < C (the q/k/v
+width comes from the weight, as in ``_sp0_kernel`` / ``_sp1_kernel``), the
+stats are (B, CL, dh), comb is (B, CL, C) and the apply's output the
+member's partial projection; the weight cotangents are (3CL, C). The
+float32 launches of all four kernels take it (one ``CL`` argument in each C
+entry, the head-block plans beside the whole attention's, launches counted
+in :data:`STATS_TP`, :data:`APPLY_TP` and their backward twins too); the
+bf16 head-block tiles are not written yet, and a bf16 launch with CL != C
+raises.
+
 The stats launch runs a tensor-core tile in both types: bf16 the tile of
 ``csrc/spectral_stats.cuh`` (C up to :data:`FRONT_MAX_C`), float32 the 3xTF32
 tile of ``csrc/spectral_stats_f32.cuh`` (heads up to 96 wide; its launches
@@ -88,7 +100,7 @@ from mp_hsir_tpu_torch.ops.kernels._route import (
 )
 from mp_hsir_tpu_torch.ops.kernels.mlp import TAIL_F32, pack_mlp_weights, tail_f32_plan
 from mp_hsir_tpu_torch.ops.window import roll_hw
-from mp_hsir_tpu_torch.parallel.mesh import Axis, edge_rows, psum
+from mp_hsir_tpu_torch.parallel.mesh import Axis, axis_size, edge_rows, psum
 
 STATS = counter("spectral_stats")
 F32_TILE = counter("spectral_stats_f32")
@@ -107,6 +119,14 @@ APPLY_BWD = counter("spectral_apply_bwd")
 # gate, dp, halo bits, dtype)
 STATS_BWD_HALO = counter("spectral_stats_bwd_halo")
 APPLY_BWD_HALO = counter("spectral_apply_bwd_halo")
+# the launches of a member's head block under the spectral mesh axis (q/k/v
+# width CL < C): ("spectral_stats_tp", B, H, W, C, CL, heads, halo bits,
+# dtype), ("spectral_apply_tp", B, H, W, C, CL, gate, dp, halo bits, dtype)
+# and their backward twins
+STATS_TP = counter("spectral_stats_tp")
+APPLY_TP = counter("spectral_apply_tp")
+STATS_BWD_TP = counter("spectral_stats_bwd_tp")
+APPLY_BWD_TP = counter("spectral_apply_bwd_tp")
 # the bf16 apply tile (csrc/spectral_front.cuh): its widest C (kFrontMaxC),
 # the 16 x 32 output units a warp holds (kFrontUnits), the halo rows padded to
 # 7 row tiles (kFrontRows) and the weight tiles' depth
@@ -140,7 +160,7 @@ DX_LDD = 68
 DX_LDT = 72
 
 __all__ = ["Halo", "dwconv3_f32", "shard_halo", "spectral_apply", "spectral_attention_sharded",
-           "spectral_fold", "spectral_stats"]
+           "spectral_attention_tp", "spectral_fold", "spectral_stats"]
 
 
 class Halo(NamedTuple):
@@ -246,14 +266,18 @@ def _no_eval_only_grad(name, **opts):
 
 def spectral_stats_plain(x, wqkv, wdw, num_heads: int, shift: int = 0, x2=None,
                          ln_w=None, ln_b=None, eps: float = 1e-5, halo: Halo | None = None):
-    """Returns (gram (B, C, dh), nq (B, nH, dh), nk (B, nH, dh)), float32.
-    ``halo``: x is a row shard (:class:`Halo`); the sums cover its rows."""
+    """Returns (gram (B, CL, dh), nq (B, nH, dh), nk (B, nH, dh)), float32,
+    CL = wqkv.shape[0] / 3 the q/k/v width (C, or a member's head block of
+    ``num_heads`` heads under the spectral mesh axis, its q/k/v rows in
+    wqkv: ``parallel/tp.py``). ``halo``: x is a row shard (:class:`Halo`);
+    the sums cover its rows."""
     _, u, rows = _input(x, x2, shift, ln_w, ln_b, eps, halo)
-    b, h, w, c = u.shape
-    dh = c // num_heads
-    qk = _qkv_part(u, wqkv, wdw, 0, 2 * c, x.dtype, rows)[1].reshape(b, h * w, 2, num_heads, dh)
+    b, h, w, _ = u.shape
+    cl = wqkv.shape[0] // 3
+    dh = cl // num_heads
+    qk = _qkv_part(u, wqkv, wdw, 0, 2 * cl, x.dtype, rows)[1].reshape(b, h * w, 2, num_heads, dh)
     q, k = qk[:, :, 0], qk[:, :, 1]
-    gram = torch.einsum("bphd,bphe->bhde", q, k).reshape(b, c, dh)
+    gram = torch.einsum("bphd,bphe->bhde", q, k).reshape(b, cl, dh)
     return gram, q.square().sum(dim=1), k.square().sum(dim=1)
 
 
@@ -266,22 +290,23 @@ def spectral_stats_bwd_plain(x, wqkv, wdw, num_heads, shift, ln_w, ln_b, eps, dg
     dt = x.dtype
     raw, u, rows = _input(x, None, shift, ln_w, ln_b, eps, halo)
     b, h, w, c = u.shape
-    dh = c // num_heads
-    qk = _qkv_part(u, wqkv, wdw, 0, 2 * c, dt, rows)[1]
-    q = qk[..., :c].reshape(b, h, w, num_heads, dh)
-    k = qk[..., c:].reshape(b, h, w, num_heads, dh)
+    cl = wqkv.shape[0] // 3
+    dh = cl // num_heads
+    qk = _qkv_part(u, wqkv, wdw, 0, 2 * cl, dt, rows)[1]
+    q = qk[..., :cl].reshape(b, h, w, num_heads, dh)
+    k = qk[..., cl:].reshape(b, h, w, num_heads, dh)
     dg = dgram.to(dt).float().reshape(b, num_heads, dh, dh)
     dq = torch.einsum("byxne,bnde->byxnd", k, dg) + 2 * q * dnq.reshape(b, 1, 1, num_heads, dh)
     dk = torch.einsum("byxnd,bnde->byxne", q, dg) + 2 * k * dnk.reshape(b, 1, 1, num_heads, dh)
-    dqk = torch.cat([dq.reshape(b, h, w, c), dk.reshape(b, h, w, c)], dim=-1)
-    du, dw_qk, dwdw_qk, dlnw, dlnb, dtop, dbot = _qkv_bwd(raw, u, rows, halo, wqkv, wdw, 0, 2 * c,
-                                                          dt, dqk, ln_w, eps)
-    dw = torch.zeros((3 * c, c), dtype=torch.float32, device=x.device)
-    dw[:2 * c] = dw_qk
-    dwdw = torch.zeros((3 * c, 1, 3, 3), dtype=torch.float32, device=x.device)
-    dwdw[:2 * c] = dwdw_qk
+    dqk = torch.cat([dq.reshape(b, h, w, cl), dk.reshape(b, h, w, cl)], dim=-1)
+    du, dw_qk, dwdw_qk, dlnw, dlnb, dtop, dbot = _qkv_bwd(raw, u, rows, halo, wqkv, wdw, 0,
+                                                          2 * cl, dt, dqk, ln_w, eps)
+    dw = torch.zeros((3 * cl, c), dtype=torch.float32, device=x.device)
+    dw[:2 * cl] = dw_qk
+    dwdw = torch.zeros((3 * cl, 1, 3, 3), dtype=torch.float32, device=x.device)
+    dwdw[:2 * cl] = dwdw_qk
     dx = roll_hw(du, -shift, -shift) if shift else du
-    return dx.to(dt), dw.reshape(3 * c, c, 1, 1), dwdw, dlnw, dlnb, dtop, dbot
+    return dx.to(dt), dw.reshape(3 * cl, c, 1, 1), dwdw, dlnw, dlnb, dtop, dbot
 
 
 def stats_plan(c: int, heads: int) -> dict:
@@ -315,15 +340,17 @@ def stats_plan(c: int, heads: int) -> dict:
                 groups=groups, gw=gw, np=np_, ws=ws, bytes=nbytes)
 
 
-def stats_f32_plan(c: int, heads: int) -> dict:
-    """The float32 stats tile's tiling at width ``c`` (``StatsF32Plan`` in
-    csrc/spectral_stats_f32.cuh): the head-grouped columns of
-    :func:`stats_plan` (``dhp``, ``hw``, ``nqk``) in ``groups`` groups of
-    ``hg`` heads (``gw`` columns), the K chunks ``nk`` of :data:`F32_K`
-    channels, ``ws`` ring stages; ``dyn`` the dynamic shared memory and
-    ``bytes`` the plan with the static (what ``mp_spectral_stats_smem``
-    returns). ``ok``: a head's columns fit one group (dh up to 96)."""
-    dh = c // heads
+def stats_f32_plan(c: int, heads: int, cl: int | None = None) -> dict:
+    """The float32 stats tile's tiling at input width ``c`` and q|k width
+    ``cl`` (default ``c``; a member's head block of ``heads`` heads under the
+    spectral mesh axis) (``StatsF32Plan`` in csrc/spectral_stats_f32.cuh):
+    the head-grouped columns of :func:`stats_plan` (``dhp``, ``hw``,
+    ``nqk``) in ``groups`` groups of ``hg`` heads (``gw`` columns), the K
+    chunks ``nk`` of :data:`F32_K` input channels, ``ws`` ring stages;
+    ``dyn`` the dynamic shared memory and ``bytes`` the plan with the static
+    (what ``mp_spectral_stats_smem(c, cl, heads)`` returns). ``ok``: a
+    head's columns fit one group (dh up to 96)."""
+    dh = (c if cl is None else cl) // heads
     dhp = -(-dh // 16) * 16
     hw = 2 * dhp
     hmax = max(1, STATS_F32_MAX_N // hw)
@@ -383,16 +410,16 @@ def qk_row(n: int, plan: dict, c: int) -> int:
 
 def pack_stats(wqkv, wdw, dt):
     """The operands the stats tiles stream, in ``dt``: the q|k rows of the
-    1x1 weight as [2C out][C8 in] (torch layout) and their depthwise taps
-    as [2C][9]; C8 is C rounded up to 8, the rows padded with zeros only
-    where C is not a multiple of 8 (rows of whole 16-byte vectors for the
-    kernels' copies in both types). Views of the weights where they are
-    already in ``dt``."""
-    c = wqkv.shape[1]
-    wqk = wqkv[:2 * c].reshape(2 * c, c).to(dt)
+    1x1 weight as [2CL out][C8 in] (torch layout) and their depthwise taps
+    as [2CL][9] (CL = wqkv.shape[0] / 3: C, or a member's head block); C8 is
+    C rounded up to 8, the rows padded with zeros only where C is not a
+    multiple of 8 (rows of whole 16-byte vectors for the kernels' copies in
+    both types). Views of the weights where they are already in ``dt``."""
+    c, cl = wqkv.shape[1], wqkv.shape[0] // 3
+    wqk = wqkv[:2 * cl].reshape(2 * cl, c).to(dt)
     if c % 8:
         wqk = F.pad(wqk, (0, -c % 8))
-    return wqk.contiguous(), wdw[:2 * c].reshape(2 * c, 9).to(dt).contiguous()
+    return wqk.contiguous(), wdw[:2 * cl].reshape(2 * cl, 9).to(dt).contiguous()
 
 
 @lru_cache(maxsize=None)
@@ -401,20 +428,20 @@ def _stats_entry(kind: str = "fwd"):
 
     if kind == "bwd":
         return _build.entry("mp_spectral_stats_bwd", 14,
-                            [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int])
+                            [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int])
     if kind == "bwd_tc":
         return _build.entry("mp_spectral_stats_bwd_tc", 14,
                             [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int])
     if kind == "dx_tc":
         return _build.entry("mp_dwconv_dx_tc", 9, [ctypes.c_int] * 6 + [ctypes.c_float])
     return _build.entry("mp_spectral_stats", 11,
-                        [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, ctypes.c_int])
+                        [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int, ctypes.c_int])
 
 
 @lru_cache(maxsize=None)
 def _stats_parts(*shape: int) -> int:
     """The parts per image of a stats launch (``mp_spectral_stats_parts``:
-    dtype, B, H, W, C, heads), asked once per shape."""
+    dtype, B, H, W, C, CL, heads), asked once per shape."""
     import ctypes
 
     fn = _build.lib().mp_spectral_stats_parts
@@ -442,43 +469,56 @@ def _halo_operand(halo, x, x2, shift):
     return rows, halo.flags
 
 
+def _no_bf16_head_block(x, c, cl, what):
+    """bf16 has no head-block tiles yet: a bf16 launch with a q/k/v width
+    CL other than C raises (float32 runs the head block)."""
+    if cl != c and x.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            f"{what}: a head block (q/k/v width {cl} of C = {c}, the spectral mesh axis) has no "
+            "bf16 kernel: the bf16 head-block tiles of the stats, apply and their backwards are "
+            "not written yet; run the spectral mesh axis in float32")
+
+
 def _stats_prepare(x, wqkv, wdw, num_heads, shift=0, x2=None, ln_w=None, ln_b=None, eps=1e-5,
                    halo=None):
     """Everything a launch needs: (the C entry's arguments, the outputs, the
     tensors the arguments point into, to be held until the launch). Weights:
-    :func:`pack_stats` in the compute type; ``halo``: the rows of
-    :func:`_halo_operand`."""
+    :func:`pack_stats` in the compute type (CL = wqkv.shape[0] / 3 q|k
+    rows); ``halo``: the rows of :func:`_halo_operand`."""
     b, h, w, c1 = x.shape
     c2 = 0 if x2 is None else x2.shape[-1]
     c = c1 + c2
-    if h % 8 or w % 8 or c % num_heads:
-        raise ValueError(f"spectral stats needs H, W % 8 == 0 and C % heads == 0, got {x.shape}")
+    cl = wqkv.shape[0] // 3
+    if h % 8 or w % 8 or cl % num_heads or wqkv.shape[1] != c or cl > c:
+        raise ValueError(f"spectral stats needs H, W % 8 == 0, a (3CL, C) weight with CL <= C "
+                         f"and CL % heads == 0, got {tuple(x.shape)} and {tuple(wqkv.shape)}")
+    _no_bf16_head_block(x, c, cl, "spectral stats")
     dt, code = x.dtype, dtype_code(x)
-    dh = c // num_heads
-    what = f"C={c}, heads={num_heads}"
+    dh = cl // num_heads
+    what = f"C={c}, heads={num_heads}" + ("" if cl == c else f", CL={cl}")
     if code:
         if c > FRONT_MAX_C:  # the widest C of the tile's plan
             raise ValueError(f"the bf16 spectral stats kernel takes C up to {FRONT_MAX_C}, got {c}")
         _build.check_plan("spectral_stats", "mp_spectral_stats_tc_smem", what, c, num_heads)
     else:
-        if not stats_f32_plan(c, num_heads)["ok"]:  # a head's columns in one group
+        if not stats_f32_plan(c, num_heads, cl)["ok"]:  # a head's columns in one group
             raise ValueError(f"the float32 spectral stats kernel takes heads up to 96 wide, "
                              f"got {dh}")
-        _build.check_plan("spectral_stats", "mp_spectral_stats_smem", what, c, num_heads)
+        _build.check_plan("spectral_stats", "mp_spectral_stats_smem", what, c, cl, num_heads)
     rows, flags = _halo_operand(halo, x, x2, shift)
     wq, wd = pack_stats(wqkv, wdw, dt)
     x = x.contiguous()
     x2 = None if x2 is None else x2.to(dt).contiguous()
     lnw, lnb = f32(ln_w), f32(ln_b)
-    n_parts = _stats_parts(code, b, h, w, c, num_heads)
+    n_parts = _stats_parts(code, b, h, w, c, cl, num_heads)
     dev = x.device
-    part = torch.empty((b, n_parts, c * dh + 2 * c), dtype=torch.float32, device=dev)
-    gram = torch.empty((b, c, dh), dtype=torch.float32, device=dev)
+    part = torch.empty((b, n_parts, cl * dh + 2 * cl), dtype=torch.float32, device=dev)
+    gram = torch.empty((b, cl, dh), dtype=torch.float32, device=dev)
     nq = torch.empty((b, num_heads, dh), dtype=torch.float32, device=dev)
     nk = torch.empty_like(nq)
     p = _build.ptr
     args = (x.data_ptr(), p(x2), p(lnw), p(lnb), wq.data_ptr(), wd.data_ptr(), part.data_ptr(),
-            gram.data_ptr(), nq.data_ptr(), nk.data_ptr(), p(rows), code, b, h, w, c1, c2,
+            gram.data_ptr(), nq.data_ptr(), nk.data_ptr(), p(rows), code, b, h, w, c1, c2, cl,
             num_heads, shift, eps, n_parts, flags, stream_ptr())
     return args, (gram, nq, nk), (x, x2, lnw, lnb, wq, wd, part, rows)
 
@@ -488,13 +528,18 @@ def _stats_launch(x, wqkv, wdw, num_heads, shift, x2, ln_w, ln_b, eps, halo=None
     _build.check("mp_spectral_stats", _stats_entry()(*args))
     b, h, w, c1 = x.shape
     c2 = 0 if x2 is None else x2.shape[-1]
+    cl = wqkv.shape[0] // 3
     ln = ln_w is not None
+    flags = 0 if halo is None else halo.flags
     STATS.record(("spectral_stats", b, h, w, c1, c2, num_heads, shift, ln, str(x.dtype)))
     if x.dtype == torch.float32:
         F32_TILE.record(("spectral_stats_f32", b, h, w, c1, c2, num_heads, shift, ln))
-    if halo is not None and halo.flags:
-        STATS_HALO.record(("spectral_stats_halo", b, h, w, c1, c2, num_heads, ln, halo.flags,
+    if flags:
+        STATS_HALO.record(("spectral_stats_halo", b, h, w, c1, c2, num_heads, ln, flags,
                            str(x.dtype)))
+    if cl != c1 + c2:
+        STATS_TP.record(("spectral_stats_tp", b, h, w, c1 + c2, cl, num_heads, flags,
+                         str(x.dtype)))
     return out
 
 
@@ -614,45 +659,52 @@ def _add_ln(dln, extra):
 
 def _stats_bwd_launch(x, wqkv, wdw, num_heads, shift, ln_w, ln_b, eps, dgram, dnq, dnk,
                       halo=None):
+    """The backward on the card. float32 takes a member's head block (CL =
+    wqkv.shape[0] / 3 < C): t and dqk are 2CL wide, the weight cotangents
+    (3CL, C) and (3CL, 9), dx and the halo rows' cotangents C wide."""
     rows, flags = _halo_operand(halo, x, None, shift)
+    b, h, w, c = x.shape
+    cl = wqkv.shape[0] // 3
+    _no_bf16_head_block(x, c, cl, "spectral stats backward")
     if x.dtype == torch.bfloat16:
         return _stats_bwd_tc_launch(x, wqkv, wdw, num_heads, shift, ln_w, ln_b, eps, dgram, dnq,
                                     dnk, halo, rows, flags)
-    b, h, w, c = x.shape
     dt = x.dtype
     _build.check_plan("spectral_stats_bwd", "mp_spectral_stats_bwd_smem",
-                      f"C={c}, heads={num_heads}", c, num_heads)
+                      f"C={c}, CL={cl}, heads={num_heads}", c, cl, num_heads)
     x = x.contiguous()
     wq, wd = kernel_weight(wqkv, dt), kernel_weight(wdw, dt)
     lnw, lnb = f32(ln_w), f32(ln_b)
     dgram, dnq, dnk = f32(dgram), f32(dnq), f32(dnk)
     dev = x.device
     un = torch.empty((b, h, w, c), dtype=dt, device=dev)
-    t = torch.empty((b, h, w, 2 * c), dtype=torch.float32, device=dev)
+    t = torch.empty((b, h, w, 2 * cl), dtype=torch.float32, device=dev)
     dqk = torch.empty_like(t)
     # the halo rows' LN'd input and 1x1 output (a side without its bit stays zero)
     un_h = torch.zeros((2, b, w, c), dtype=torch.float32, device=dev) if flags else None
-    t_h = torch.zeros((2, b, w, 2 * c), dtype=torch.float32, device=dev) if flags else None
+    t_h = torch.zeros((2, b, w, 2 * cl), dtype=torch.float32, device=dev) if flags else None
     p = _build.ptr
     err = _stats_entry("bwd")(x.data_ptr(), p(lnw), p(lnb), wq.data_ptr(), wd.data_ptr(),
                              dgram.data_ptr(), dnq.data_ptr(), dnk.data_ptr(), un.data_ptr(),
                              t.data_ptr(), dqk.data_ptr(), p(rows), p(un_h), p(t_h), b, h, w, c,
-                             num_heads, shift, eps, flags, stream_ptr())
+                             cl, num_heads, shift, eps, flags, stream_ptr())
     _build.check("mp_spectral_stats_bwd", err)
     dtt, dwdw_qk = dwconv_bwd(dqk, t, wd, 0, dt)
     dx, dln, _ = ln_linear_bwd(dtt, wq, 0, x, ln_w, shift=-shift, eps=eps)
-    dw = torch.zeros((3 * c, c), dtype=torch.float32, device=dev)
-    dw[:2 * c] = wgrad(un.reshape(-1, c), dtt.reshape(-1, 2 * c)).t()
-    dwdw = torch.zeros((3 * c, 9), dtype=torch.float32, device=dev)
-    dwdw[:2 * c] = dwdw_qk.t()
+    dw = torch.zeros((3 * cl, c), dtype=torch.float32, device=dev)
+    dw[:2 * cl] = wgrad(un.reshape(-1, c), dtt.reshape(-1, 2 * cl)).t()
+    dwdw = torch.zeros((3 * cl, 9), dtype=torch.float32, device=dev)
+    dwdw[:2 * cl] = dwdw_qk.t()
     dtop = dbot = None
     if flags:
-        dtop, dbot, dln = _halo_taps_bwd(dqk, t_h, _taps(wdw, 0, 2 * c), wqkv, 0, rows, ln_w, eps,
-                                         halo, un_h, dw[:2 * c], dwdw[:2 * c], dln)
+        dtop, dbot, dln = _halo_taps_bwd(dqk, t_h, _taps(wdw, 0, 2 * cl), wqkv, 0, rows, ln_w,
+                                         eps, halo, un_h, dw[:2 * cl], dwdw[:2 * cl], dln)
         STATS_BWD_HALO.record(("spectral_stats_bwd_halo", b, h, w, c, num_heads,
                                ln_w is not None, flags, str(dt)))
     STATS_BWD.record(("spectral_stats_bwd", b, h, w, c, num_heads, shift, ln_w is not None, str(dt)))
-    return (dx, dw.reshape(3 * c, c, 1, 1), dwdw.reshape(3 * c, 1, 3, 3),
+    if cl != c:
+        STATS_BWD_TP.record(("spectral_stats_bwd_tp", b, h, w, c, cl, num_heads, flags, str(dt)))
+    return (dx, dw.reshape(3 * cl, c, 1, 1), dwdw.reshape(3 * cl, 1, 3, 3),
             *(dln if dln is not None else (None, None)), dtop, dbot)
 
 
@@ -687,9 +739,8 @@ class _SpectralStats(torch.autograd.Function):
         x, wqkv, wdw, ln_w, ln_b, htop, hbot = ctx.saved_tensors
         num_heads, shift, eps, edges = ctx.cfg
         _no_eval_only_grad("spectral_stats", x2=True if ctx.has_x2 else None)
-        b, c = x.shape[0], x.shape[-1]
-        dh = c // num_heads
-        z = x.new_zeros((b, c, dh), dtype=torch.float32)
+        b, cl = x.shape[0], wqkv.shape[0] // 3
+        z = x.new_zeros((b, cl, cl // num_heads), dtype=torch.float32)
         dgram = grad_or_zeros(dgram, z)
         dnq = grad_or_zeros(dnq, z[:, :num_heads])
         dnk = grad_or_zeros(dnk, z[:, :num_heads])
@@ -717,16 +768,20 @@ def spectral_stats(x, wqkv, wdw, num_heads: int, shift: int = 0, x2=None, ln_w=N
 
 
 def spectral_fold(gram, nq, nk, temperature, wout) -> torch.Tensor:
-    """comb (B, C, C) float32, row = v channel (h, e), col = output channel:
-    comb[h*dh+e, o] = sum_d softmax_e(G[d, e] / (|q_d| |k_e|) * t_h) W[(h, d), o]."""
-    b, c, dh = gram.shape
-    nh = c // dh
+    """comb (B, CL, C) float32, row = v channel (h, e), col = output channel:
+    comb[h*dh+e, o] = sum_d softmax_e(G[d, e] / (|q_d| |k_e|) * t_h) W[(h, d), o].
+    gram (B, CL, dh); wout (C, CL, 1, 1): the projection's input columns of
+    these heads (CL = C, or a member's head block under the spectral mesh
+    axis)."""
+    b, cl, dh = gram.shape
+    nh = cl // dh
     nqs = nq.sqrt().clamp_min(1e-12)
     nks = nk.sqrt().clamp_min(1e-12)
     attn = gram.reshape(b, nh, dh, dh) / (nqs[..., :, None] * nks[..., None, :])
     attn = torch.softmax(attn * temperature.float().reshape(1, nh, 1, 1), dim=-1)
-    wr = wout.float().reshape(c, c).t().reshape(nh, dh, c)  # [(h, d)][o]
-    return torch.einsum("bhde,hdo->bheo", attn, wr).reshape(b, c, c).contiguous()
+    co = wout.shape[0]
+    wr = wout.float().reshape(co, cl).t().reshape(nh, dh, co)  # [(h, d)][o]
+    return torch.einsum("bhde,hdo->bheo", attn, wr).reshape(b, cl, co).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -769,12 +824,15 @@ def spectral_apply_plain(x, comb, wqkv, wdw, shift: int = 0, x2=None, ln_w=None,
     or (B, H, W, C) a per-pixel gate map (a row shard's, JAX's ``gate_map``).
     ``dp_scale`` (B,): per-sample drop-path scale of the branch
     ``v @ comb [+ x * gate]``, summed in float32 and rounded once.
-    ``halo``: x is a row shard (:class:`Halo`). Output (B, H, W, C) in the
-    unrolled frame."""
+    ``halo``: x is a row shard (:class:`Halo`). Under the spectral mesh axis
+    wqkv holds a member's head block (CL = wqkv.shape[0] / 3 q/k/v rows,
+    ``parallel/tp.py``), comb is (B, CL, C) and out its partial projection
+    plus the epilogue. Output (B, H, W, C) in the unrolled frame."""
     dt = x.dtype
     raw, u, rows = _input(x, x2, shift, ln_w, ln_b, eps, halo)
     b, h, w, c = u.shape
-    v = _qkv_part(u, wqkv, wdw, 2 * c, 3 * c, dt, rows)[1]
+    cl = wqkv.shape[0] // 3
+    v = _qkv_part(u, wqkv, wdw, 2 * cl, 3 * cl, dt, rows)[1]
     y = torch.einsum("bhwc,bco->bhwo", v, comb.to(dt).float())
     gu = None if gate is None else raw.float() * _gate_map(gate, shift, h).float()
     if dp_scale is not None:
@@ -806,7 +864,8 @@ def spectral_apply_bwd_plain(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, ga
     dt = x.dtype
     raw, u, rows = _input(x, None, shift, ln_w, ln_b, eps, halo)
     b, h, w, c = u.shape
-    v = _qkv_part(u, wqkv, wdw, 2 * c, 3 * c, dt, rows)[1]
+    cl = wqkv.shape[0] // 3
+    v = _qkv_part(u, wqkv, wdw, 2 * cl, 3 * cl, dt, rows)[1]
     dyf = dy.float()
     dys = dyf if dp_scale is None else (dyf * dp_scale.float().reshape(b, 1, 1, 1)).to(dt).float()
     cr = comb.to(dt).float()
@@ -829,15 +888,15 @@ def spectral_apply_bwd_plain(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, ga
         br = torch.einsum("byxk,bko->byxo", v, cr)
         br = br if gu is None else br + gu
         ddp = (dyf * br).sum(dim=(1, 2, 3)).to(dp_scale.dtype)
-    du, dw_v, dwdw_v, dlnw, dlnb, dtop, dbot = _qkv_bwd(raw, u, rows, halo, wqkv, wdw, 2 * c,
-                                                        3 * c, dt, dv, ln_w, eps)
-    dw = torch.zeros((3 * c, c), dtype=torch.float32, device=x.device)
-    dw[2 * c:] = dw_v
-    dwdw = torch.zeros((3 * c, 1, 3, 3), dtype=torch.float32, device=x.device)
-    dwdw[2 * c:] = dwdw_v
+    du, dw_v, dwdw_v, dlnw, dlnb, dtop, dbot = _qkv_bwd(raw, u, rows, halo, wqkv, wdw, 2 * cl,
+                                                        3 * cl, dt, dv, ln_w, eps)
+    dw = torch.zeros((3 * cl, c), dtype=torch.float32, device=x.device)
+    dw[2 * cl:] = dw_v
+    dwdw = torch.zeros((3 * cl, 1, 3, 3), dtype=torch.float32, device=x.device)
+    dwdw[2 * cl:] = dwdw_v
     du = du + extra
     dx = roll_hw(du, -shift, -shift) if shift else du
-    return (dx.to(dt), dcomb, dw.reshape(3 * c, c, 1, 1), dwdw, dlnw, dlnb, dgate, dy, ddp,
+    return (dx.to(dt), dcomb, dw.reshape(3 * cl, c, 1, 1), dwdw, dlnw, dlnb, dgate, dy, ddp,
             dtop, dbot)
 
 
@@ -866,41 +925,56 @@ def pack_front(wqkv, wdw, comb, dt):
     return wv.contiguous(), wdw[2 * c:].reshape(c, 9).to(dt).contiguous(), cb.contiguous()
 
 
-def apply_f32_plan(c: int, tail: bool = False) -> dict:
-    """The float32 apply tile's tiling at width ``c`` (``ApplyF32Plan`` in
-    csrc/spectral_front_f32.cuh): ``cp`` = c rounded up to 32; the v
-    channels' 1x1 in ``groups`` column groups of ``gw`` (at most 192), each
-    streaming the halo's and the group's v rows' ``nk`` chunks of
-    :data:`F32_K` channels through ``ws`` ring stages; comb's product in
-    ``passes`` passes of ``np`` output channels (at most 384), each
-    streaming comb^T's ``nk`` chunks through ``cs`` stages; ``ldv`` the v
-    tile's row. ``front`` the front's dynamic bytes, ``dyn`` the launch's
-    (with the tail, the larger of the front and the tail's scratch,
-    :func:`~mp_hsir_tpu_torch.ops.kernels.mlp.tail_f32_plan`), ``bytes``
-    with the static (what ``mp_spectral_apply_smem(c, tail, 0)`` returns)."""
-    cp = -(-c // 32) * 32
-    nb = cp // 32
-    groups = -(-nb // (APPLY_F32_MAX_GW // 32))
-    gw = 32 * -(-nb // groups)
+def apply_f32_plan(c: int, tail: bool = False, cl: int | None = None) -> dict:
+    """The float32 apply tile's tiling at input width ``c`` and v width
+    ``cl`` (default ``c``; a member's head block under the spectral mesh
+    axis, which takes no tail) (``ApplyF32Plan`` in
+    csrc/spectral_front_f32.cuh): ``cp`` / ``cpl`` = c / cl rounded up to
+    32; the v channels' 1x1 in ``groups`` column groups of ``gw`` (at most
+    192), each streaming the halo's and the group's v rows' ``nk`` chunks of
+    :data:`F32_K` input channels through ``ws`` ring stages; comb's product
+    in ``passes`` passes of ``np`` output channels (at most 384), each
+    streaming comb^T's ``nkv`` chunks (cl deep) through ``cs`` stages;
+    ``ldv`` the v tile's row. ``front`` the front's dynamic bytes, ``dyn``
+    the launch's (with the tail, the larger of the front and the tail's
+    scratch, :func:`~mp_hsir_tpu_torch.ops.kernels.mlp.tail_f32_plan`),
+    ``bytes`` with the static (what ``mp_spectral_apply_smem(c, cl, tail,
+    0)`` returns)."""
+    cl = c if cl is None else cl
+    cp, cpl = -(-c // 32) * 32, -(-cl // 32) * 32
+    nb, nbl = cp // 32, cpl // 32
+    groups = -(-nbl // (APPLY_F32_MAX_GW // 32))
+    gw = 32 * -(-nbl // groups)
     passes = -(-nb // (COMB_MAX_N // 32))
     np_ = 32 * -(-nb // passes)
-    ldv = cp + 4
-    fixed = 4 * (9 * cp + 2 * FRONT_ROWS + 64 * ldv)
+    ldv = cpl + 4
+    fixed = 4 * (9 * cpl + 2 * FRONT_ROWS + 64 * ldv)
     stage, cstage = 4 * (FRONT_ROWS + gw) * F32_LD, 4 * np_ * F32_LD
     room = max(APPLY_F32_BUDGET - fixed, 0)
     ws, cs = (3 if room // n >= 3 else 2 for n in (stage, cstage))
     front = fixed + max(ws * stage, 4 * 100 * (gw + 8), cs * cstage)
     dyn = max(front, tail_f32_plan(c)["bytes"]) if tail else front
-    return dict(cp=cp, nk=cp // F32_K, groups=groups, gw=gw, passes=passes, np=np_, ldv=ldv,
-                ws=ws, cs=cs, front=front, dyn=dyn, bytes=dyn + APPLY_F32_STATIC)
+    return dict(cp=cp, cpl=cpl, nk=cp // F32_K, nkv=cpl // F32_K, groups=groups, gw=gw,
+                passes=passes, np=np_, ldv=ldv, ws=ws, cs=cs, front=front, dyn=dyn,
+                bytes=dyn + APPLY_F32_STATIC)
 
 
 def pack_front_f32(wqkv, wdw, comb):
-    """The operands the float32 apply tile streams: :func:`pack_front`'s v
-    rows [C out][C8 in] and taps [C][9] in float32, and ``comb``
-    transposed, (B, C out, C8 in) with C8 = C rounded up to 8 (the rows of
-    the comb product's B operand, 16-byte rows as the v rows')."""
-    return pack_front(wqkv, wdw, comb.transpose(1, 2), torch.float32)
+    """The operands the float32 apply tile streams: the v rows of the 1x1
+    weight as [CL out][C8 in] (CL = wqkv.shape[0] / 3: C, or a member's head
+    block) and their taps [CL][9] in float32, and ``comb`` (B, CL, C)
+    transposed, (B, C out, CL8 in) (the rows of the comb product's B
+    operand); C8 / CL8 are C / CL rounded up to 8 (16-byte rows, padded with
+    zeros only where needed). Views of the weights where they are float32
+    already; at CL = C :func:`pack_front`'s operands."""
+    c, cl = wqkv.shape[1], wqkv.shape[0] // 3
+    wv = wqkv[2 * cl:].reshape(cl, c).float()
+    cb = comb.float().transpose(1, 2)
+    if c % 8:
+        wv = F.pad(wv, (0, -c % 8))
+    if cl % 8:
+        cb = F.pad(cb, (0, -cl % 8))
+    return wv.contiguous(), wdw[2 * cl:].reshape(cl, 9).float().contiguous(), cb.contiguous()
 
 
 def apply_bwd_tc_plan(c: int) -> dict:
@@ -929,7 +1003,7 @@ def _apply_entry(kind: str = "fwd"):
 
     if kind == "bwd":
         return _build.entry("mp_spectral_apply_bwd", 20,
-                            [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, ctypes.c_int])
+                            [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int, ctypes.c_int])
     if kind == "bwd_tc":
         return _build.entry("mp_spectral_apply_bwd_tc", 19,
                             [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_int])
@@ -938,29 +1012,38 @@ def _apply_entry(kind: str = "fwd"):
     if kind == "gate":
         return _build.entry("mp_spectral_gate_grad", 3, [ctypes.c_int] * 6)
     return _build.entry("mp_spectral_apply", 18,
-                        [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int, ctypes.c_int])
+                        [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_int, ctypes.c_int])
 
 
 def _apply_prepare(x, comb, wqkv, wdw, shift=0, x2=None, ln_w=None, ln_b=None, residual=False,
                    gate=None, shortcut=None, mlp=None, eps=1e-5, dp_scale=None, halo=None):
     """Everything a launch needs: (the C entry's arguments, out, the tensors
     the arguments point into, to be held until the launch). Weights: bf16
-    :func:`pack_front`, float32 :func:`pack_front_f32`; the tail's
-    :func:`pack_mlp_weights` in the compute type; ``halo``: the rows of
-    :func:`_halo_operand`."""
+    :func:`pack_front`, float32 :func:`pack_front_f32` (a member's head
+    block: CL = wqkv.shape[0] / 3 < C v rows, comb (B, CL, C), no tail); the
+    tail's :func:`pack_mlp_weights` in the compute type; ``halo``: the rows
+    of :func:`_halo_operand`."""
     b, h, w, c1 = x.shape
     c2 = 0 if x2 is None else x2.shape[-1]
     c = c1 + c2
+    cl = wqkv.shape[0] // 3
     if h % 8 or w % 8:
         raise ValueError(f"spectral apply needs H, W % 8 == 0, got {x.shape}")
     if (gate is not None or dp_scale is not None) and (x2 is not None or ln_w is not None):
         raise ValueError("the gate and drop-path epilogues take one raw input")
+    if wqkv.shape[1] != c or cl > c or comb.shape[1:] != (cl, c):
+        raise ValueError(f"spectral apply takes a (3CL, C) weight with CL <= C and comb (B, CL, "
+                         f"C), got {tuple(wqkv.shape)} and {tuple(comb.shape)} at C = {c}")
+    _no_bf16_head_block(x, c, cl, "spectral apply")
+    if cl != c and mlp is not None:
+        raise ValueError("a head block's apply takes no MLP tail (the tail follows the sum "
+                         "over the spectral mesh axis)")
     dt, code = x.dtype, dtype_code(x)
     tail = int(mlp is not None)
     if code and c > FRONT_MAX_C:  # the front's and the tail tile's widest C
         raise ValueError(f"the bf16 spectral apply kernel takes C up to {FRONT_MAX_C}, got {c}")
     _build.check_plan("spectral_apply", "mp_spectral_apply_smem",
-                      f"C={c}, {'with' if tail else 'no'} MLP tail", c, tail, code)
+                      f"C={c}, CL={cl}, {'with' if tail else 'no'} MLP tail", c, cl, tail, code)
     rows, flags = _halo_operand(halo, x, x2, shift)
     gwin = _gate_win(gate, h) or 8
     x = x.contiguous()
@@ -979,8 +1062,8 @@ def _apply_prepare(x, comb, wqkv, wdw, shift=0, x2=None, ln_w=None, ln_b=None, r
     p = _build.ptr
     args = (x.data_ptr(), p(x2), p(lnw), p(lnb), wq.data_ptr(), wd.data_ptr(), cb.data_ptr(),
             p(gate), p(shortcut), p(ln2w), p(ln2b), p(w1), p(b1), p(w2), p(b2), p(dp),
-            out.data_ptr(), p(rows), code, b, h, w, c1, c2, int(residual), hid, shift, eps, flags,
-            gwin, stream_ptr())
+            out.data_ptr(), p(rows), code, b, h, w, c1, c2, cl, int(residual), hid, shift, eps,
+            flags, gwin, stream_ptr())
     return args, out, (x, x2, gate, shortcut, wq, wd, lnw, lnb, cb, dp, ln2w, ln2b, w1, b1, w2, b2,
                        rows)
 
@@ -1002,8 +1085,13 @@ def _apply_launch(x, comb, wqkv, wdw, shift, x2, ln_w, ln_b, residual, gate, sho
         APPLY_F32.record(("spectral_apply_f32",) + spec[1:-1])
         if hid:
             TAIL_F32.record(("mlp_tail_f32", b, h, w, c1 + c2, hid))
-    if halo is not None and halo.flags:
-        APPLY_HALO.record(("spectral_apply_halo", b, h, w, c1, c2, halo.flags, str(dt)))
+    flags = 0 if halo is None else halo.flags
+    if flags:
+        APPLY_HALO.record(("spectral_apply_halo", b, h, w, c1, c2, flags, str(dt)))
+    cl = wqkv.shape[0] // 3
+    if cl != c1 + c2:
+        APPLY_TP.record(("spectral_apply_tp", b, h, w, c1 + c2, cl, _gate_kind(gate, h),
+                         dp_scale is not None, flags, str(dt)))
     return out
 
 
@@ -1080,14 +1168,21 @@ def _apply_bwd_tc_launch(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate, 
 
 def _apply_bwd_launch(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate, dp_scale, eps, dy,
                       halo=None):
+    """The backward on the card. float32 takes a member's head block (CL =
+    wqkv.shape[0] / 3 < C): t, v and dv are CL wide, d comb (B, CL, C), the
+    weight cotangents (3CL, C) and (3CL, 9); dx, d gate and the halo rows'
+    cotangents C wide."""
     rows, flags = _halo_operand(halo, x, None, shift)
+    b, h, w, c = x.shape
+    cl = wqkv.shape[0] // 3
+    _no_bf16_head_block(x, c, cl, "spectral apply backward")
     if x.dtype == torch.bfloat16:
         return _apply_bwd_tc_launch(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate,
                                     dp_scale, eps, dy, halo, rows, flags)
-    b, h, w, c = x.shape
     dt = x.dtype
-    kc = _build.chunk("mp_spectral_apply_bwd_chunk", c)
-    _build.check_plan("spectral_apply_bwd", "mp_spectral_apply_bwd_smem", f"C={c}", c, kc)
+    kc = _build.chunk("mp_spectral_apply_bwd_chunk", c, cl)
+    _build.check_plan("spectral_apply_bwd", "mp_spectral_apply_bwd_smem", f"C={c}, CL={cl}",
+                      c, cl, kc)
     x, dy = x.contiguous(), dy.to(dt).contiguous()
     gwin = _gate_win(gate, h)
     gate_t = None if gate is None else gate.to(dt).contiguous()
@@ -1096,42 +1191,47 @@ def _apply_bwd_launch(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate, dp_
     dev = x.device
     tiles = (h // 8) * (w // 8)
     like = dict(dtype=dt, device=dev)
-    un, v, dys = (torch.empty((b, h, w, c), **like) for _ in range(3))
-    t = torch.empty((b, h, w, c), dtype=torch.float32, device=dev)
+    un, dys = (torch.empty((b, h, w, c), **like) for _ in range(2))
+    v = torch.empty((b, h, w, cl), **like)
+    t = torch.empty((b, h, w, cl), dtype=torch.float32, device=dev)
     dv = torch.empty_like(t)
-    extra = torch.empty_like(t) if (gate is not None or residual) else None
+    extra = (torch.empty((b, h, w, c), dtype=torch.float32, device=dev)
+             if (gate is not None or residual) else None)
     pdp = torch.empty((b, tiles), dtype=torch.float32, device=dev) if dp is not None else None
     dgate = (torch.empty((b, h // gwin, w // gwin, c), dtype=torch.float32, device=dev)
              if gate is not None else None)
     # the halo rows' LN'd input and v 1x1 output (a side without its bit stays zero)
-    un_h, t_h = ((torch.zeros((2, b, w, c), dtype=torch.float32, device=dev) for _ in range(2))
-                 if flags else (None, None))
+    un_h = torch.zeros((2, b, w, c), dtype=torch.float32, device=dev) if flags else None
+    t_h = torch.zeros((2, b, w, cl), dtype=torch.float32, device=dev) if flags else None
     p = _build.ptr
     err = _apply_entry("bwd")(x.data_ptr(), p(lnw), p(lnb), wq.data_ptr(), wd.data_ptr(),
                               cb.data_ptr(), p(gate_t), p(dp), dy.data_ptr(), un.data_ptr(),
                               t.data_ptr(), v.data_ptr(), dys.data_ptr(), dv.data_ptr(), p(extra),
                               p(pdp), p(dgate), p(rows), p(un_h), p(t_h), dtype_code(x), b, h, w,
-                              c, int(residual), shift, kc, eps, flags, gwin or 8, stream_ptr())
+                              c, cl, int(residual), shift, kc, eps, flags, gwin or 8, stream_ptr())
     _build.check("mp_spectral_apply_bwd", err)
-    dtt, dwdw_v = dwconv_bwd(dv, t, wd, 2 * c, dt)
-    dx, dln, _ = ln_linear_bwd(dtt, wq, 2 * c, x, ln_w, extra_f=extra, shift=-shift, eps=eps)
-    dw = torch.zeros((3 * c, c), dtype=torch.float32, device=dev)
-    dw[2 * c:] = wgrad(un.reshape(-1, c), dtt.reshape(-1, c)).t()
-    dwdw = torch.zeros((3 * c, 9), dtype=torch.float32, device=dev)
-    dwdw[2 * c:] = dwdw_v.t()
+    dtt, dwdw_v = dwconv_bwd(dv, t, wd, 2 * cl, dt)
+    dx, dln, _ = ln_linear_bwd(dtt, wq, 2 * cl, x, ln_w, extra_f=extra, shift=-shift, eps=eps)
+    dw = torch.zeros((3 * cl, c), dtype=torch.float32, device=dev)
+    dw[2 * cl:] = wgrad(un.reshape(-1, c), dtt.reshape(-1, cl)).t()
+    dwdw = torch.zeros((3 * cl, 9), dtype=torch.float32, device=dev)
+    dwdw[2 * cl:] = dwdw_v.t()
     dtop = dbot = None
     if flags:
-        dtop, dbot, dln = _halo_taps_bwd(dv, t_h, _taps(wdw, 2 * c, c), wqkv, 2 * c, rows, ln_w,
-                                         eps, halo, un_h, dw[2 * c:], dwdw[2 * c:], dln)
+        dtop, dbot, dln = _halo_taps_bwd(dv, t_h, _taps(wdw, 2 * cl, cl), wqkv, 2 * cl, rows,
+                                         ln_w, eps, halo, un_h, dw[2 * cl:], dwdw[2 * cl:], dln)
         APPLY_BWD_HALO.record(("spectral_apply_bwd_halo", b, h, w, c, ln_w is not None,
                                bool(residual), _gate_kind(gate, h), dp is not None, flags,
                                str(dt)))
-    dcomb = wgrad(v.reshape(b, h * w, c), dys.reshape(b, h * w, c))
+    dcomb = wgrad(v.reshape(b, h * w, cl), dys.reshape(b, h * w, c))
     ddp = None if pdp is None else sum_parts(pdp.unsqueeze(-1))[:, 0]
     APPLY_BWD.record(("spectral_apply_bwd", b, h, w, c, shift, ln_w is not None, bool(residual),
                       _gate_kind(gate, h), dp is not None, str(dt)))
+    if cl != c:
+        APPLY_BWD_TP.record(("spectral_apply_bwd_tp", b, h, w, c, cl, _gate_kind(gate, h),
+                             dp is not None, flags, str(dt)))
     dlnw, dlnb = dln if dln is not None else (None, None)
-    return (dx, dcomb, dw.reshape(3 * c, c, 1, 1), dwdw.reshape(3 * c, 1, 3, 3), dlnw, dlnb,
+    return (dx, dcomb, dw.reshape(3 * cl, c, 1, 1), dwdw.reshape(3 * cl, 1, 3, 3), dlnw, dlnb,
             None if dgate is None else dgate.to(gate.dtype), dy,
             None if ddp is None else ddp.to(dp_scale.dtype), dtop, dbot)
 
@@ -1205,20 +1305,22 @@ def shard_halo(x, axis: Axis, x2=None) -> Halo:
     return Halo(*edge_rows(rows, axis, 1))
 
 
-def spectral_attention_sharded(x, wqkv, wdw, temperature, wout, num_heads: int, axis: Axis,
-                               x2=None, ln_w=None, ln_b=None, residual: bool = False, gate=None,
-                               shortcut=None, mlp=None, eps: float = 1e-5, dp_scale=None):
+def spectral_attention_sharded(x, wqkv, wdw, temperature, wout, num_heads: int,
+                               axis: Axis | None, x2=None, ln_w=None, ln_b=None,
+                               residual: bool = False, gate=None, shortcut=None, mlp=None,
+                               eps: float = 1e-5, dp_scale=None):
     """The spectral attention of a map whose rows are split over ``axis``
     (counterpart of ``fused_spectral_attention_sharded``,
     ``mp_hsir_tpu/ops/pallas_attention.py:2148``): this shard's halo rows,
     its stats launch with them, the Gram and norm sums added over the axis,
     the fold, then its apply launch with the same halo rows and the
     epilogue. x is this shard's rows in the unrolled frame (shift 0); the
-    options are :func:`spectral_apply`'s. Returns this shard's rows.
-    Differentiable (the training route, without x2 / mlp): the halo rows'
-    cotangents go back to the neighbour shards through the exchange that
-    brought them, the sums' through their psum."""
-    halo = shard_halo(x, axis, x2)
+    options are :func:`spectral_apply`'s. Returns this shard's rows. An
+    axis of size 1 (or None) shards nothing: no halo rows, the sums are the
+    stats themselves. Differentiable (the training route, without x2 /
+    mlp): the halo rows' cotangents go back to the neighbour shards through
+    the exchange that brought them, the sums' through their psum."""
+    halo = shard_halo(x, axis, x2) if axis_size(axis) > 1 else None
     gram, nq, nk = spectral_stats(x, wqkv, wdw, num_heads, x2=x2, ln_w=ln_w, ln_b=ln_b, eps=eps,
                                   halo=halo)
     b, n_g = gram.shape[0], gram[0].numel()
@@ -1228,3 +1330,25 @@ def spectral_attention_sharded(x, wqkv, wdw, temperature, wout, num_heads: int, 
     return spectral_apply(x, comb, wqkv, wdw, x2=x2, ln_w=ln_w, ln_b=ln_b, residual=residual,
                           gate=gate, shortcut=shortcut, mlp=mlp, eps=eps, dp_scale=dp_scale,
                           halo=halo)
+
+
+def spectral_attention_tp(x, wqkv, wdw, temperature, wout, num_heads: int, spectral: Axis,
+                          spatial: Axis | None = None, gate=None, shortcut=None,
+                          eps: float = 1e-5, dp_scale=None):
+    """A member's head block of the spectral attention, summed over the
+    ``spectral`` mesh axis (counterpart of ``fused_spectral_attention_tp``,
+    ``mp_hsir_tpu/ops/pallas_attention.py:2261``). wqkv (3CL, C, 1, 1), wdw
+    (3CL, 1, 3, 3), temperature (``num_heads``, 1, 1) and wout (C, CL, 1, 1)
+    are the member's slices (``parallel/tp.py``); x (B, H, W, C) is the whole
+    input on every member, or this rank's rows of it when ``spatial`` is
+    sharded. :func:`spectral_attention_sharded` runs the head block (the
+    fold into comb (B, CL, C), the apply with no LayerNorm and no residual,
+    the gate, per-window or a per-pixel map, scaled by 1/n, the drop-path
+    scale in-kernel); then the members' partial outputs are summed over the
+    axis, and ``shortcut`` added once after the sum. Differentiable."""
+    inv = 1.0 / spectral.size  # a power of two on the presets' meshes: exact
+    y = spectral_attention_sharded(x, wqkv, wdw, temperature, wout, num_heads, spatial,
+                                   gate=None if gate is None else gate * inv, eps=eps,
+                                   dp_scale=dp_scale)
+    y = psum(y, spectral)
+    return y if shortcut is None else (shortcut.float() + y.float()).to(y.dtype)

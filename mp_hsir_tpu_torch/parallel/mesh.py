@@ -2,17 +2,21 @@
 model uses on it (counterpart of ``mp_hsir_tpu/parallel/mesh.py`` and of the
 ``jax.lax`` collectives its modules call).
 
-The mesh is (data, spatial), rank = d * spatial + s, as JAX reshapes its
-devices. ``spatial`` block-shards the H axis of every feature map: convs
-read one halo row from each neighbour, shifted windows move boundary rows
-around the ring, and the spectral attention sums its pixel statistics over
-the axis. ``data`` shards the batch. An :class:`Axis` is one rank's view of
-one mesh axis (its process group, its index and the axis size); ``None``
-stands for an unsharded axis everywhere.
+The mesh is (data, spatial, spectral), rank = (d * spatial + s) * spectral +
+t, as JAX reshapes its devices. ``spatial`` block-shards the H axis of every
+feature map: convs read one halo row from each neighbour, shifted windows
+move boundary rows around the ring, and the spectral attention sums its
+pixel statistics over the axis. ``data`` shards the batch. ``spectral``
+runs the C x C spectral attentions head-parallel: each member computes its
+block of heads and the partial outputs are summed over the axis
+(``parallel/tp.py``); everything else is replicated over it. An
+:class:`Axis` is one rank's view of one mesh axis (its process group, its
+index and the axis size); ``None`` stands for an unsharded axis everywhere.
 
 Collectives (:func:`psum`, :func:`ring_next`, :func:`ring_prev`,
 :func:`edge_rows`, :func:`gather_rows`) move small tensors: a few rows, the
-spectral sums. Under NCCL they stay on the card; under gloo (ranks sharing
+spectral sums; only the spectral axis's psum moves whole maps (a member's
+partial attention output). Under NCCL they stay on the card; under gloo (ranks sharing
 a card, or the CPU) they run on host copies, which gloo takes for every
 collective (:func:`all_gather` makes them, the one place that does). Each
 is one ``all_gather``, summed or picked in rank order, so every rank holds
@@ -50,8 +54,10 @@ import torch.distributed as dist
 
 DATA_AXIS = "data"
 SPATIAL_AXIS = "spatial"
-# every rank of the mesh, data x spatial (JAX's pmean over both axes)
-MESH_AXES = "data_spatial"
+SPECTRAL_AXIS = "spectral"
+# every rank of the mesh, data x spatial x spectral (JAX's pmean over every
+# axis)
+MESH_AXES = "every"
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -71,6 +77,7 @@ class Mesh:
     data: int
     spatial: int
     axes: dict
+    spectral: int = 1
 
     def axis(self, name: str) -> Optional[Axis]:
         """The axis, or None where it has one member (nothing to shard)."""
@@ -78,16 +85,21 @@ class Mesh:
         return ax if ax.size > 1 else None
 
 
-def make_mesh(data: int = 1, spatial: int = 1) -> Mesh:
-    """The (data, spatial) mesh of the process group's ranks (rank = d *
-    spatial + s). Every rank calls it, in the same order as every other
-    collective set-up."""
+def make_mesh(data: int = 1, spatial: int = 1, spectral: int = 1) -> Mesh:
+    """The (data, spatial, spectral) mesh of the process group's ranks (rank
+    = (d * spatial + s) * spectral + t). Every rank calls it, in the same
+    order as every other collective set-up."""
     world = dist.get_world_size() if dist.is_initialized() else 1
-    if data * spatial != world:
-        raise ValueError(f"a {data} x {spatial} mesh needs {data * spatial} ranks, have {world}")
+    if data * spatial * spectral != world:
+        raise ValueError(f"a {data} x {spatial} x {spectral} mesh needs "
+                         f"{data * spatial * spectral} ranks, have {world}")
     rank = dist.get_rank() if dist.is_initialized() else 0
     host = dist.is_initialized() and dist.get_backend() == "gloo"
-    d, s = divmod(rank, spatial)
+    d, rest = divmod(rank, spatial * spectral)
+    s, t = divmod(rest, spectral)
+
+    def at(i, j, k):
+        return (i * spatial + j) * spectral + k
 
     def group(lists):
         """This rank's group of the axis whose members are ``lists``."""
@@ -102,12 +114,18 @@ def make_mesh(data: int = 1, spatial: int = 1) -> Mesh:
                 mine = g
         return mine
 
-    sp = group([[i * spatial + j for j in range(spatial)] for i in range(data)])
-    dp = group([[i * spatial + j for i in range(data)] for j in range(spatial)])
+    sp = group([[at(i, j, k) for j in range(spatial)] for i in range(data)
+                for k in range(spectral)])
+    dp = group([[at(i, j, k) for i in range(data)] for j in range(spatial)
+                for k in range(spectral)])
+    tp = group([[at(i, j, k) for k in range(spectral)] for i in range(data)
+                for j in range(spatial)])
     return Mesh(data, spatial, {SPATIAL_AXIS: Axis(SPATIAL_AXIS, s, spatial, sp, host),
                                 DATA_AXIS: Axis(DATA_AXIS, d, data, dp, host),
+                                SPECTRAL_AXIS: Axis(SPECTRAL_AXIS, t, spectral, tp, host),
                                 MESH_AXES: Axis(MESH_AXES, rank, world,
-                                                dist.group.WORLD if world > 1 else None, host)})
+                                                dist.group.WORLD if world > 1 else None, host)},
+                spectral)
 
 
 def axis_index(ax: Optional[Axis]) -> int:

@@ -9,12 +9,14 @@ eps 1e-8, decoupled weight decay) at the linear-warmup cosine learning rate.
 With ``grad_accum`` = k the gradients of k micro-steps are averaged and the
 optimizer updates on every k-th, as ``optax.MultiSteps`` does; the schedule
 runs in optimizer updates (``trainer.py:55``). :func:`make_train_step` is
-the same step over a (data, spatial) mesh of ranks (JAX's SPMD step):
-each rank takes its block of the global batch, the model runs on its rows
-with the spatial axis, and the gradients and the loss are averaged over
-every rank before the update, so the parameters stay bitwise equal across
-ranks. :func:`make_eval_step` is the inference step, on one device or over
-a mesh.
+the same step over a (data, spatial, spectral) mesh of ranks (JAX's SPMD
+step): each rank takes its block of the global batch, the model runs on its
+rows with the spatial axis and its spectral attentions head-parallel over
+the spectral axis, and the gradients and the loss are averaged over every
+rank before the update, so the parameters stay bitwise equal across ranks
+(``parallel/tp.py`` says why the plain mean is right for the head blocks'
+weights). :func:`make_eval_step` is the inference step, on one device or
+over a mesh.
 """
 
 from __future__ import annotations
@@ -27,8 +29,8 @@ from mp_hsir_tpu_torch import resolve_device
 from mp_hsir_tpu_torch.config import ModelConfig, TrainConfig
 from mp_hsir_tpu_torch.models.mp_hsir import MPHSIRNet, build_model
 from mp_hsir_tpu_torch.parallel.mesh import (
-    DATA_AXIS, MESH_AXES, SPATIAL_AXIS, Mesh, axis_index, axis_size, broadcast, gather_rows,
-    pmean_,
+    DATA_AXIS, MESH_AXES, SPATIAL_AXIS, SPECTRAL_AXIS, Mesh, axis_index, axis_size, broadcast,
+    gather_rows, pmean_,
 )
 from mp_hsir_tpu_torch.training import losses
 from mp_hsir_tpu_torch.training.schedules import linear_warmup_cosine_annealing
@@ -85,15 +87,17 @@ def create_train_state(cfg: ModelConfig, tc: TrainConfig, seed: int | None = Non
 
 
 def train_step(state: TrainState, batch: dict, generator: torch.Generator | None = None,
-               axis=None, mean_axis=None) -> torch.Tensor:
+               axis=None, mean_axis=None, spectral=None) -> torch.Tensor:
     """One micro-step on ``batch`` (``degraded``, ``clean`` (B, C, H, W)
     float32, ``task_id`` (B,)); returns the loss (a 0-dim tensor on the
     model's device, not synchronised). Updates on every ``grad_accum``-th
     call. ``axis``: the batch is a row shard over the spatial mesh axis;
-    ``mean_axis``: the gradients (before each update) and the returned loss
-    are averaged over it (JAX's ``pmean``; the loss then synchronises)."""
+    ``spectral``: the spectral attentions run head-parallel over that mesh
+    axis; ``mean_axis``: the gradients (before each update) and the returned
+    loss are averaged over it (JAX's ``pmean``; the loss then
+    synchronises)."""
     model = state.model
-    pred = model(batch["degraded"], batch["task_id"], generator, axis=axis)
+    pred = model(batch["degraded"], batch["task_id"], generator, axis=axis, spectral=spectral)
     loss = losses.l1_clamped(pred, batch["clean"])
     loss.backward()
     state.step += 1
@@ -125,7 +129,8 @@ def fold_seed(seed: int, data_index: int) -> int:
 
 def batch_block(batch: dict, mesh: Mesh | None) -> dict:
     """This rank's block of a global batch: its data group's samples and
-    its spatial member's rows (B % data and H % spatial checked)."""
+    its spatial member's rows (B % data and H % spatial checked); the same
+    block on every member of the spectral axis."""
     if mesh is None:
         return batch
     sp, dp = mesh.axis(SPATIAL_AXIS), mesh.axis(DATA_AXIS)
@@ -151,22 +156,36 @@ def sync_parameters(state: TrainState, mesh: Mesh | None) -> None:
             p.copy_(broadcast(p, ax))
 
 
+def _no_bf16_head_blocks(mc: ModelConfig, tp, device) -> None:
+    """The bf16 head-block kernels are not written yet: a bf16 model on a
+    spectral axis raises on the card (the plain bf16 versions run on the
+    CPU)."""
+    if axis_size(tp) > 1 and mc.compute_dtype == "bfloat16" and torch.device(device).type == "cuda":
+        raise NotImplementedError(
+            "the spectral mesh axis runs in float32 on the card: the bf16 head-block tiles of "
+            "the spectral stats and apply kernels are not written yet (compute_dtype float32)")
+
+
 def make_train_step(mc: ModelConfig, tc: TrainConfig, mesh: Mesh | None = None):
     """The train step ``step(state, batch, seed) -> loss`` over ``mesh``
     (counterpart of ``make_train_step(mc, mesh)``,
     ``mp_hsir_tpu/training/trainer.py:75-138``). Every rank calls it with
     the same global batch and seed: it keeps its (data, spatial) block
-    (:func:`batch_block`), runs the model on its rows with the spatial axis,
-    the local L1 on its block, then averages the gradients and the loss over
-    data x spatial (:func:`~mp_hsir_tpu_torch.parallel.mesh.pmean_`: one
-    flattened bucket, the same bits on every rank) before AdamW. The
-    drop-path generator is seeded with :func:`fold_seed` of the data index:
-    the same on the spatial members of a data group. Each shard must hold
+    (:func:`batch_block`; the same on every member of the spectral axis),
+    runs the model on its rows with the spatial axis and its spectral
+    attentions head-parallel over the spectral axis, the local L1 on its
+    block, then averages the gradients and the loss over every rank
+    (:func:`~mp_hsir_tpu_torch.parallel.mesh.pmean_`: one flattened bucket,
+    the same bits on every rank) before AdamW. The drop-path generator is
+    seeded with :func:`fold_seed` of the data index: the same on the
+    spatial and spectral members of a data group. Each shard must hold
     whole 8 x 8 windows at the deepest level (its rows a multiple of 32).
-    ``mc`` is the model's configuration, in either compute type. ``tc``'s
-    batch and patch size are checked against the mesh here."""
+    ``mc`` is the model's configuration, in either compute type (float32 on
+    the card with a spectral axis). ``tc``'s batch and patch size are
+    checked against the mesh here."""
     sp = None if mesh is None else mesh.axis(SPATIAL_AXIS)
     dp = None if mesh is None else mesh.axis(DATA_AXIS)
+    tp = None if mesh is None else mesh.axis(SPECTRAL_AXIS)
     every = None if mesh is None else mesh.axis(MESH_AXES)
     if tc.batch_size % axis_size(dp) or tc.patch_size % (32 * axis_size(sp)):
         raise ValueError(f"batch {tc.batch_size} x {tc.patch_size} rows does not split over the "
@@ -183,8 +202,9 @@ def make_train_step(mc: ModelConfig, tc: TrainConfig, mesh: Mesh | None = None):
             raise ValueError(f"a shard of {h} rows does not hold whole 8 x 8 windows at the "
                              f"deepest level (rows / 4 = {h / 4}); use fewer spatial ranks")
         dev = block["degraded"].device
+        _no_bf16_head_blocks(mc, tp, dev)
         gen = torch.Generator(device=dev).manual_seed(fold_seed(seed, axis_index(dp)))
-        return train_step(state, block, gen, axis=sp, mean_axis=every)
+        return train_step(state, block, gen, axis=sp, mean_axis=every, spectral=tp)
 
     return step
 
@@ -195,9 +215,13 @@ def make_eval_step(mc: ModelConfig, mesh: Mesh | None = None):
     ``mp_hsir_tpu/training/trainer.py:141-169``). With a mesh every rank
     calls it with the whole batch: the batch is split over ``data`` and each
     cube's rows over ``spatial``, each rank restores its block with the
-    spatial axis, and every rank gets the whole output back. ``mc`` is the
-    model's configuration (the model given must carry it), in eval mode."""
-    sp, dp = (None, None) if mesh is None else (mesh.axis(SPATIAL_AXIS), mesh.axis(DATA_AXIS))
+    spatial axis and its spectral attentions head-parallel over
+    ``spectral``, and every rank gets the whole output back (gathered over
+    spatial and data; every spectral member holds it already). ``mc`` is
+    the model's configuration (the model given must carry it), in eval
+    mode."""
+    sp, dp, tp = ((None, None, None) if mesh is None else
+                  (mesh.axis(SPATIAL_AXIS), mesh.axis(DATA_AXIS), mesh.axis(SPECTRAL_AXIS)))
 
     def infer(model: MPHSIRNet, degraded, task_id):
         if model.cfg != mc:
@@ -208,9 +232,10 @@ def make_eval_step(mc: ModelConfig, mesh: Mesh | None = None):
             raise ValueError(f"a batch of {b} x {h} rows does not split over the "
                              f"{axis_size(dp)} x {axis_size(sp)} mesh")
         b0, r0 = axis_index(dp) * nb, axis_index(sp) * nh
+        _no_bf16_head_blocks(mc, tp, degraded.device)
         with torch.inference_mode():
             out = model(degraded[b0:b0 + nb, :, r0:r0 + nh].contiguous(),
-                        task_id[b0:b0 + nb], axis=sp)
+                        task_id[b0:b0 + nb], axis=sp, spectral=tp)
             return gather_rows(gather_rows(out, sp, dim=2), dp, dim=0)
 
     return infer

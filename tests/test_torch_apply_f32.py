@@ -13,7 +13,11 @@ with its gate and shortcut, the PromptFusion entry (x2 + LN + residual) and
 the training route's drop-path call (K7b); four planted faults the check
 must catch; a row shard's halo rows at every edge-flag combination (the
 rows above and below the map, LN'd like the map, zero at an image edge),
-with rows swapped top for bottom as a planted fault; two cases against the
+with rows swapped top for bottom as a planted fault; a member's head block
+under the spectral mesh axis (v width CL = C / 2, comb (B, CL, C), 2
+members at every preset width, the gate over n and the drop-path scale,
+with and without halo rows), with comb's pack read as a (C, C) one and the
+v rows read at the q rows' offset as planted faults; two cases against the
 JAX package's ``fused_spectral_attention_nhwc`` phase 1 in interpret
 mode. The kernel
 itself is held against the plain version on the card by
@@ -78,13 +82,16 @@ def _tiles(u, n=10, pad=1, rows=None):
 
 def _emulate(x, comb, wqkv, wdw, shift=0, x2=None, ln_w=None, ln_b=None, residual=False,
              gate=None, shortcut=None, dp_scale=None, halo=None, three=True, chained=False,
-             untransposed=False, unrolled_gate=False, swapped=False):
+             untransposed=False, unrolled_gate=False, swapped=False, comb_cc=False,
+             v_at_q=False):
     """The tile on float32 inputs (spectral_apply_plain's arguments without
-    the tail): the output (B, H, W, C) in the unrolled frame. three=False:
-    one TF32 product; chained: the products summed on the tensor cores
-    across all of K; untransposed: comb's pack read as [v][out]; unrolled_gate:
-    the gate read at the unrolled pixel's window; swapped: the halo rows
-    staged top for bottom (the planted faults)."""
+    the tail; v CL = wqkv.shape[0] / 3 wide): the output (B, H, W, C) in the
+    unrolled frame. three=False: one TF32 product; chained: the products
+    summed on the tensor cores across all of K; untransposed: comb's pack
+    read as [v][out]; unrolled_gate: the gate read at the unrolled pixel's
+    window; swapped: the halo rows staged top for bottom; comb_cc: a head
+    block's comb pack read with a (C, C) pack's row stride; v_at_q: its v
+    rows read at the q rows' offset (the planted faults)."""
     raw = np.roll(x.numpy(), (shift, shift), axis=(1, 2)) if shift else x.numpy()
     if x2 is not None:
         raw = np.concatenate([raw, x2.numpy()], axis=-1)
@@ -103,19 +110,28 @@ def _emulate(x, comb, wqkv, wdw, shift=0, x2=None, ln_w=None, ln_b=None, residua
         rows = [np.zeros((b, 1, w, c), np.float32) if edge else norm(r.numpy())
                 for r, edge in ((halo.top, halo.edge_top), (halo.bot, halo.edge_bot))]
         rows = rows[::-1] if swapped else rows
-    pl = apply_f32_plan(c)
-    cp, ck = pl["cp"], F32_K * pl["nk"]
+    cl = wqkv.shape[0] // 3
+    pl = apply_f32_plan(c, cl=cl)
+    cp, cpl, ck = pl["cp"], pl["cpl"], F32_K * pl["nk"]
     wv, taps, cbt = (t.numpy() for t in pack_front_f32(wqkv, wdw, comb))
+    if v_at_q:  # (the pack may be a view of the weights: a copy)
+        wv = wv.copy()
+        wv[:, :c] = wqkv[:cl].reshape(cl, c).numpy()
+    if comb_cc:  # the (B, C, CL8) pack read as rows of C8
+        c8 = -(-c // 8) * 8
+        flat = np.zeros((b, c * c8), np.float32)
+        flat[:, :cbt[0].size] = cbt.reshape(b, -1)
+        cbt = flat.reshape(b, c, c8)
     halo = np.zeros((b, (h // 8) * (w // 8), 112, ck), np.float32)
     halo[:, :, :100, :c] = _tiles(u, rows=rows)
     n_tiles = halo.shape[1]
-    # v's 1x1 and depthwise 3x3, one column group at a time, into [64][cp]
-    v = np.zeros((b, n_tiles, 64, cp), np.float32)
-    for g0 in range(0, cp, pl["gw"]):
-        gw = min(pl["gw"], cp - g0)
+    # v's 1x1 and depthwise 3x3, one column group at a time, into [64][cpl]
+    v = np.zeros((b, n_tiles, 64, cpl), np.float32)
+    for g0 in range(0, cpl, pl["gw"]):
+        gw = min(pl["gw"], cpl - g0)
         wg = np.zeros((gw, ck), np.float32)
         tg = np.zeros((9, gw), np.float32)
-        n = min(gw, c - g0)
+        n = min(gw, cl - g0)
         wg[:n, :wv.shape[1]] = wv[g0:g0 + n]
         tg[:, :n] = taps[g0:g0 + n].T
         t = mma(np.zeros((b, n_tiles, 112, gw), np.float32), halo, wg.T, three, chained)
@@ -125,9 +141,9 @@ def _emulate(x, comb, wqkv, wdw, shift=0, x2=None, ln_w=None, ln_b=None, residua
             dy, dx = divmod(tap, 3)
             s = _fma(s, t[:, :, dy:dy + 8, dx:dx + 8], tg[tap])
         v[..., g0:g0 + gw] = s.reshape(b, n_tiles, 64, gw)
-    # comb's product: B[k][n] = comb^T's row n, column k
-    bm = np.zeros((b, 1, cp, cp), np.float32)
-    bm[:, 0, :c, :c] = cbt[:, :c, :c] if untransposed else cbt[:, :c, :c].transpose(0, 2, 1)
+    # comb's product: B[k][n] = comb^T's row n, column k (k < CL)
+    bm = np.zeros((b, 1, cpl, cp), np.float32)
+    bm[:, 0, :cl, :c] = cbt[:, :cl, :c] if untransposed else cbt[:, :c, :cl].transpose(0, 2, 1)
     acc = mma(np.zeros((b, n_tiles, 64, cp), np.float32), v, bm, three, chained)[..., :c]
     # the epilogue per tile pixel, in float32 as the kernel rounds
     o = acc
@@ -170,13 +186,22 @@ def _inputs(variant, c, seed, h=16, w=16):
     return [x, comb, wq, wd], kw
 
 
-def _case(variant, c, edges=None, **faults):
+def _case(variant, c, edges=None, member=None, **faults):
     """(emulated, plain) of one call; ``edges``: with halo rows drawn from
-    the seed, these edge flags (the call read in its own frame, shift 0)."""
+    the seed, these edge flags (the call read in its own frame, shift 0);
+    ``member``: that member's head block of 2 (its q|k|v rows of the
+    weights, comb's first CL rows, the gate over 2)."""
     args, kw = _inputs(variant, c, 500 + c)
+    if member is not None:
+        from mp_hsir_tpu_torch.parallel.tp import qkv_rows
+
+        cl = c // 2
+        args = [args[0], args[1][:, :cl].contiguous(), qkv_rows(args[2], c, cl, member),
+                qkv_rows(args[3], c, cl, member)]
+        kw = dict(kw, shift=0, gate=kw["gate"] / 2, shortcut=None)
     if edges is not None:
         r = _rng(600 + c)
-        w, cc = args[0].shape[2], args[1].shape[1]
+        w, cc = args[0].shape[2], args[1].shape[2]
         kw = dict(kw, shift=0, halo=Halo(_t(_n(r, (1, 1, w, cc))), _t(_n(r, (1, 1, w, cc))),
                                          *edges))
     got = _emulate(*args, **kw, **faults)
@@ -274,6 +299,37 @@ def test_apply_f32_emulation_sees_swapped_halo_rows():
     """The halo check is not blind: the rows staged top for bottom break the
     bound (both rows real)."""
     got, ref = _case("fusion", 64, (False, False), swapped=True)
+    assert _rel(got, ref) > TOL, _rel(got, ref)
+
+
+# the presets' apply widths whose heads a spectral axis of 2 divides: each
+# member's v block is C / 2 wide
+TP_WIDTHS = [64, 128, 256, 96, 192, 384]
+
+
+@pytest.mark.parametrize("member", [0, 1])
+@pytest.mark.parametrize("c", TP_WIDTHS)
+def test_apply_f32_head_block_plan_and_emulation(c, member):
+    """A member's head block (v CL = C / 2 wide, comb (B, CL, C), the gate
+    over 2 and the drop-path scale, shift 0: the training call of the TP
+    route): its plan no larger than the whole attention's (no tail), the
+    1x1 still C deep; the emulated tile against spectral_apply_plain within
+    2e-6 of the output's max-abs, with interior halo rows for member 1."""
+    pl, whole = apply_f32_plan(c, cl=c // 2), apply_f32_plan(c)
+    assert pl["nk"] == whole["nk"] and pl["nkv"] * F32_K == pl["cpl"] >= c // 2
+    assert pl["bytes"] <= whole["bytes"] and pl["np"] == whole["np"]
+    got, ref = _case("train", c, (False, False) if member else None, member=member)
+    assert got.shape == ref.shape
+    assert _rel(got, ref) <= TOL, _rel(got, ref)
+
+
+@pytest.mark.parametrize("fault", [dict(comb_cc=True), dict(v_at_q=True)],
+                         ids=["comb-as-CxC", "v-at-q-offset"])
+def test_apply_f32_head_block_emulation_sees_the_faults(fault):
+    """The head-block check is not blind: comb's (C, CL) pack read with a
+    (C, C) pack's row stride, and the v rows read at the q rows' offset,
+    each break the bound (C = 128, member 1)."""
+    got, ref = _case("train", 128, (False, False), member=1, **fault)
     assert _rel(got, ref) > TOL, _rel(got, ref)
 
 

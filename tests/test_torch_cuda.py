@@ -333,7 +333,7 @@ def test_cuda_remote_sensing_backward_matches_plain(dtype, tol):
         kc = _build.chunk(f"mp_{kernel}_chunk", *shape)
         assert kc == want, (kernel, shape, kc)
         assert 0 < _build.plan_bytes(f"mp_{kernel}_smem", *shape, kc) <= _build.smem_limit(), kernel
-    assert 0 < _build.plan_bytes("mp_spectral_stats_bwd_smem", 384, 8) <= _build.smem_limit()
+    assert 0 < _build.plan_bytes("mp_spectral_stats_bwd_smem", 384, 384, 8) <= _build.smem_limit()
     assert 0 < _build.plan_bytes("mp_mlp_smem", 384, int(dtype == "bfloat16")) <= _build.smem_limit()
     for c, heads in ((384, 8), (192, 2)):  # the bf16 window backward's two tiles
         assert 0 < _build.plan_bytes("mp_window_attention_bwd_tc_smem", c, heads) <= \
@@ -480,9 +480,9 @@ def test_cuda_remote_sensing_widths_match_plain(dtype, tol):
     code = int(dtype == "bfloat16")
     assert 0 < _build.plan_bytes("mp_window_attention_smem", 384, 8, code) <= _build.smem_limit()
     # the apply tiles (bf16 and float32): one plan each, no chunk
-    assert 0 < _build.plan_bytes("mp_spectral_apply_smem", 384, 1, code) <= _build.smem_limit()
+    assert 0 < _build.plan_bytes("mp_spectral_apply_smem", 384, 384, 1, code) <= _build.smem_limit()
     for c, heads in ((192, 2), (384, 8)):  # the float32 stats tile: one plan, no chunk
-        assert 0 < _build.plan_bytes("mp_spectral_stats_smem", c, heads) <= _build.smem_limit()
+        assert 0 < _build.plan_bytes("mp_spectral_stats_smem", c, c, heads) <= _build.smem_limit()
     # the GDFN tiles (bf16 and float32): one plan each, no chunk
     entry = "mp_gdfn_tc_smem" if code else "mp_gdfn_f32_smem"
     assert 0 < _build.plan_bytes(entry, 384) <= _build.smem_limit()
@@ -686,9 +686,9 @@ def test_cuda_mlp_tail_widths_match_plain(c, b, h):
         assert _route.COUNTERS["spectral_apply"].launches == 2
         assert _route.ROUTE.plain_cuda_calls == 6
         assert 0 < _build.plan_bytes("mp_mlp_smem", c, code) <= _build.smem_limit()
-        n = _build.plan_bytes("mp_spectral_apply_smem", c, 1, code)
+        n = _build.plan_bytes("mp_spectral_apply_smem", c, c, 1, code)
         assert 0 < n <= _build.smem_limit()
-        assert n <= _build.plan_bytes("mp_spectral_apply_smem", c, 1, 0)
+        assert n <= _build.plan_bytes("mp_spectral_apply_smem", c, c, 1, 0)
 
 
 # The float32 tail tile (mlp_tail_f32, 3xTF32) at every PGSSTB width of the
@@ -741,7 +741,7 @@ def test_cuda_mlp_tail_f32_matches_plain(c, b, h):
                        spectral_apply(x, comb, wq, wd, **apply_kw))
     pl = tail_f32_plan(c, hid)
     assert _build.plan_bytes("mp_mlp_smem", c, 0) == pl["bytes"] <= _build.smem_limit()
-    n = _build.plan_bytes("mp_spectral_apply_smem", c, 1, 0)
+    n = _build.plan_bytes("mp_spectral_apply_smem", c, c, 1, 0)
     assert pl["bytes"] < n == apply_f32_plan(c, True)["bytes"] <= _build.smem_limit()
 
 
@@ -756,8 +756,8 @@ def test_cuda_mlp_tail_f32_matches_plain(c, b, h):
 FRONT_VARIANTS = ("pgsstb0", "pgsstb4", "pgsstb0+tail", "pgsstb4+tail", "fusion", "train")
 FRONT_CASES = [(v, c, b, h) for v in FRONT_VARIANTS for c in (64, 128, 256, 96, 192, 384, 36, 27)
                for b, h in ((1, 8), (2, 16))]
-# mp_spectral_apply_bwd_smem(C, kc) at each width's chunk (kc = C, and 64 at
-# C = 384): the apply backward's plans, which the bf16 front leaves as they were
+# mp_spectral_apply_bwd_smem(C, C, kc) at each width's chunk (kc = C, and 64
+# at C = 384): the apply backward's plans, which the bf16 front leaves as they were
 APPLY_BWD_PLANS = {64: 55904, 128: 97888, 256: 181856, 96: 76896, 192: 139872, 384: 197984}
 
 
@@ -809,13 +809,13 @@ def test_cuda_spectral_front_matches_plain(variant, c, b, h):
         assert _route.COUNTERS["spectral_apply"].launches == 1
         assert _route.COUNTERS["spectral_apply_f32"].launches == int(dt == torch.float32)
         assert _route.ROUTE.plain_cuda_calls == 1
-    n = _build.plan_bytes("mp_spectral_apply_smem", c, tail, 1)
+    n = _build.plan_bytes("mp_spectral_apply_smem", c, c, tail, 1)
     assert 0 < n <= _build.smem_limit()
     if tail:  # the float32 tile's plan holds the tail's scratch too
-        assert n <= _build.plan_bytes("mp_spectral_apply_smem", c, tail, 0)
+        assert n <= _build.plan_bytes("mp_spectral_apply_smem", c, c, tail, 0)
     if c in APPLY_BWD_PLANS:
-        kc = _build.chunk("mp_spectral_apply_bwd_chunk", c)
-        assert _build.plan_bytes("mp_spectral_apply_bwd_smem", c, kc) == APPLY_BWD_PLANS[c]
+        kc = _build.chunk("mp_spectral_apply_bwd_chunk", c, c)
+        assert _build.plan_bytes("mp_spectral_apply_bwd_smem", c, c, kc) == APPLY_BWD_PLANS[c]
 
 
 @pytest.mark.cuda
@@ -864,7 +864,7 @@ def test_cuda_spectral_apply_f32_tile_matches_plain(variant, c):
     assert _route.COUNTERS["mlp_tail_f32"].launches == int(tail)
     assert _route.ROUTE.plain_cuda_calls == 1
     assert torch.equal(spectral_apply(*args, **kw), spectral_apply(*args, **kw))
-    n = _build.plan_bytes("mp_spectral_apply_smem", c, int(tail), 0)
+    n = _build.plan_bytes("mp_spectral_apply_smem", c, c, int(tail), 0)
     assert n == apply_f32_plan(c, tail)["bytes"] <= _build.smem_limit()
 
 
@@ -907,9 +907,9 @@ STATS_WIDTHS = ((64, 2), (128, 4), (128, 2), (256, 8), (96, 2), (192, 2), (384, 
 STATS_CASES = ([(v, c, heads, b, h, 24) for v in STATS_VARIANTS for c, heads in STATS_WIDTHS
                 for b, h in ((1, 8), (2, 16))]
                + [("shift4", c, heads, 4, 64, 64) for c, heads in STATS_WIDTHS])
-# mp_spectral_stats_smem(C, heads): the float32 tile's plans (static
+# mp_spectral_stats_smem(C, C, heads): the float32 tile's plans (static
 # included, as stats_f32_plan mirrors them), and mp_spectral_stats_bwd_smem(C,
-# heads), which the bf16 tile leaves as they were
+# C, heads), which the bf16 tile leaves as they were
 STATS_F32_PLANS = {(64, 2): 153152, (128, 4): 153152, (128, 2): 161344, (256, 8): 203840,
                    (96, 2): 209984, (192, 2): 228416, (384, 8): 209984, (36, 2): 153152,
                    (27, 3): 124736, (400, 8): 161344}
@@ -956,10 +956,10 @@ def test_cuda_spectral_stats_matches_plain(variant, c, heads, b, h, w):
         assert all(torch.equal(u, v) for u, v in zip(once, again)), dt
     n = _build.plan_bytes("mp_spectral_stats_tc_smem", c, heads)
     assert 0 < n <= _build.smem_limit()
-    n32 = _build.plan_bytes("mp_spectral_stats_smem", c, heads)
+    n32 = _build.plan_bytes("mp_spectral_stats_smem", c, c, heads)
     assert n32 == STATS_F32_PLANS[c, heads] == stats_f32_plan(c, heads)["bytes"]
     assert n32 <= _build.smem_limit()
-    assert _build.plan_bytes("mp_spectral_stats_bwd_smem", c, heads) == STATS_BWD_PLANS[c, heads]
+    assert _build.plan_bytes("mp_spectral_stats_bwd_smem", c, c, heads) == STATS_BWD_PLANS[c, heads]
 
 
 @pytest.mark.cuda
@@ -992,7 +992,7 @@ def test_cuda_spectral_stats_bf16_past_384_raises():
     _check_fwd(spectral_stats, args, kw, 1e-4)
     assert _route.COUNTERS["spectral_stats"].launches == 1
     assert _route.COUNTERS["spectral_stats_f32"].launches == 1
-    assert _build.plan_bytes("mp_spectral_stats_smem", 400, 8) == STATS_F32_PLANS[400, 8]
+    assert _build.plan_bytes("mp_spectral_stats_smem", 400, 400, 8) == STATS_F32_PLANS[400, 8]
 
 
 @pytest.mark.cuda
@@ -1750,7 +1750,7 @@ def test_cuda_spectral_stats_bwd_tiles_match_plain(c, heads, b, h, monkeypatch):
     n2 = _build.plan_bytes("mp_dwconv_dx_tc_smem", c, 2 * c)
     assert pl["bytes"] < n1 <= min(pl["bytes"] + 1024, limit), n1
     assert pl["dx"]["bytes"] < n2 <= min(pl["dx"]["bytes"] + 1024, limit), n2
-    assert _build.plan_bytes("mp_spectral_stats_bwd_smem", c, heads) == STATS_BWD_PLANS[c, heads]
+    assert _build.plan_bytes("mp_spectral_stats_bwd_smem", c, c, heads) == STATS_BWD_PLANS[c, heads]
 
 
 @pytest.mark.cuda
@@ -1844,8 +1844,8 @@ def test_cuda_spectral_apply_bwd_tiles_match_plain(c, b, h, monkeypatch):
     assert pl["bytes"] < n1 <= min(pl["bytes"] + 1024, limit), n1
     assert pl["dx"]["bytes"] < n2 <= min(pl["dx"]["bytes"] + 1024, limit), n2
     if c in APPLY_BWD_PLANS:
-        kc = _build.chunk("mp_spectral_apply_bwd_chunk", c)
-        assert _build.plan_bytes("mp_spectral_apply_bwd_smem", c, kc) == APPLY_BWD_PLANS[c]
+        kc = _build.chunk("mp_spectral_apply_bwd_chunk", c, c)
+        assert _build.plan_bytes("mp_spectral_apply_bwd_smem", c, c, kc) == APPLY_BWD_PLANS[c]
 
 
 @pytest.mark.cuda
@@ -2102,3 +2102,200 @@ def test_cuda_wgrad_plain_reference_runs_plain():
         out = wgrad(a, b)
     assert _route.COUNTERS["wgrad"].launches == 0 and _route.ROUTE.plain_cuda_calls == 1
     assert torch.equal(out, wgrad_plain(a, b))
+
+
+# A member's head block under the spectral mesh axis (float32 K7a / K7b /
+# K10a / K10b with CL = C / 2): (C, heads of the whole attention) of the
+# flagship's and the remote-sensing preset's calls, and an odd width.
+TP_CASES = [(64, 2), (128, 4), (256, 8), (96, 2), (192, 4), (36, 2)]
+
+
+def _tp_call(c, heads, dev, b=2, h=32, w=24, seed=0):
+    """One whole-map float32 call's operands: x, the whole attention's
+    weights, a comb, the gate, drop-path scales and a cotangent."""
+    r = _rng(90 + c + heads + seed)
+    f = lambda *s, scale=1.0: _t(_n(r, s, scale)).to(dev)  # noqa: E731
+    return dict(x=f(b, h, w, c), wq=_t(_u(r, (3 * c, c, 1, 1), c)).to(dev),
+                wd=_t(_u(r, (3 * c, 1, 3, 3), 9)).to(dev), comb=f(b, c, c, scale=c ** -0.5),
+                gate=f(b, h // 8, w // 8, c, scale=0.5),
+                dp=torch.tensor([1.25, 0.0] * (b // 2), device=dev), dy=f(b, h, w, c),
+                dgram=f(b, c, c // heads, scale=1e-3), dn=f(b, heads, c // heads, scale=1e-3))
+
+
+def _tp_member(d, c, heads, t, n=2):
+    """Member t of n's head block: its weight rows, comb rows and heads."""
+    from mp_hsir_tpu_torch.parallel.tp import qkv_rows
+
+    cl = c // n
+    return (qkv_rows(d["wq"], c, cl, t), qkv_rows(d["wd"], c, cl, t),
+            d["comb"][:, t * cl:(t + 1) * cl].contiguous(), heads // n, cl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("halo", [False, True], ids=["whole", "interior-rows"])
+@pytest.mark.parametrize("c,heads", TP_CASES)
+def test_cuda_spectral_f32_head_block_tiles_match_plain(c, heads, halo):
+    """Each member's float32 stats and apply tile on its head block (CL = C
+    / 2, the 1x1 still C deep; the apply with the gate over 2 and the
+    drop-path scale) against the plain versions within 1e-4 (1e-3 for the
+    Gram sums) of each output's max-abs, one head-block launch of each
+    counted; the members composed (their stats stacked, their applies
+    summed) within 1e-4 of the whole attention's kernel calls."""
+    from mp_hsir_tpu_torch.ops.kernels.spectral import Halo
+
+    dev = _cuda()
+    d = _tp_call(c, heads, dev)
+    x = d["x"]
+    kw = {}
+    if halo:  # a shard's interior halo rows: the map's own last and first rows
+        kw["halo"] = Halo(x[:, -1:].contiguous(), x[:, :1].contiguous(), False, False)
+    stats, ys = [], []
+    for t in range(2):
+        wq, wd, comb, hh, cl = _tp_member(d, c, heads, t)
+        _route.reset_counters()
+        _check_fwd(spectral_stats, [x, wq, wd, hh], kw, 1e-3)
+        _check_fwd(spectral_apply, [x, comb, wq, wd],
+                   dict(kw, gate=d["gate"] / 2, dp_scale=d["dp"]), 1e-4)
+        assert _route.COUNTERS["spectral_stats_tp"].launches == 1
+        assert _route.COUNTERS["spectral_apply_tp"].launches == 1
+        stats.append(spectral_stats(x, wq, wd, hh, **kw))
+        ys.append(spectral_apply(x, comb, wq, wd, gate=d["gate"] / 2, dp_scale=d["dp"], **kw))
+    whole = spectral_stats(x, d["wq"], d["wd"], heads, **kw)
+    for i in range(3):
+        got = torch.cat([s[i] for s in stats], dim=1)
+        assert (got - whole[i]).abs().max().item() <= 1e-4 * whole[i].abs().max().item()
+    want = spectral_apply(x, d["comb"], d["wq"], d["wd"], gate=d["gate"], dp_scale=d["dp"], **kw)
+    assert (ys[0] + ys[1] - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_spectral_head_block_check_sees_faults():
+    """The head-block check is not blind: member 1's stats on member 0's
+    weights, and its apply on the whole attention's comb rows 0..CL, each
+    break the bound against the plain version on member 1's operands."""
+    dev = _cuda()
+    c, heads = 128, 4
+    d = _tp_call(c, heads, dev)
+    wq0, wd0, comb0, hh, _ = _tp_member(d, c, heads, 0)
+    wq1, wd1, comb1, _, _ = _tp_member(d, c, heads, 1)
+    got = spectral_stats(d["x"], wq0, wd0, hh)[0]
+    with _route.plain_reference():
+        ref = spectral_stats(d["x"], wq1, wd1, hh)[0]
+    assert (got - ref).abs().max().item() > 1e-3 * ref.abs().max().item()
+    got = spectral_apply(d["x"], comb0, wq1, wd1)
+    with _route.plain_reference():
+        ref = spectral_apply(d["x"], comb1, wq1, wd1)
+    assert (got - ref).abs().max().item() > 1e-4 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["stats", "apply_gate_dp", "apply_gate_map"])
+@pytest.mark.parametrize("c,heads", [(64, 2), (256, 8), (36, 2)])
+def test_cuda_spectral_f32_head_block_backward_matches_plain(c, heads, kind):
+    """Each member's float32 K10a / K10b on its head block with interior
+    halo rows (dx and the halo cotangents C wide; the weight cotangents of
+    the (3CL, C) slice, d comb (CL, C), d gate, d dp) against the plain
+    backward within 1e-4 of each output's max-abs, one head-block backward
+    counted; the members' dx summed and their weight cotangents scattered
+    into full-size tensors within 1e-4 of the whole attention's backward
+    (the apply's with the members' gate cotangents summed)."""
+    from mp_hsir_tpu_torch.ops.kernels import spectral as sp
+    from mp_hsir_tpu_torch.ops.kernels.spectral import Halo
+    from mp_hsir_tpu_torch.parallel.tp import qkv_rows
+
+    dev = _cuda()
+    d = _tp_call(c, heads, dev, seed=1)
+    x = d["x"]
+    halo = Halo(x[:, -1:].contiguous(), x[:, :1].contiguous(), False, False)
+    gate = d["gate"] if kind == "apply_gate_dp" else d["gate"].repeat_interleave(
+        8, dim=1).repeat_interleave(8, dim=2)
+    outs = []
+    for t in range(2):
+        wq, wd, comb, hh, cl = _tp_member(d, c, heads, t)
+        if kind == "stats":
+            dg = d["dgram"][:, t * cl:(t + 1) * cl].contiguous()
+            dn = d["dn"][:, t * hh:(t + 1) * hh].contiguous()
+            args = (x, wq, wd, hh, 0, None, None, 1e-5, dg, dn, 0.5 * dn, halo)
+            kern, plain, name = sp._stats_bwd_launch, sp.spectral_stats_bwd_plain, "stats"
+        else:
+            args = (x, comb, wq, wd, 0, None, None, False, gate / 2, d["dp"], 1e-5, d["dy"], halo)
+            kern, plain, name = sp._apply_bwd_launch, sp.spectral_apply_bwd_plain, "apply"
+        _route.reset_counters()
+        got = kern(*args)
+        assert _route.COUNTERS[f"spectral_{name}_bwd_tp"].launches == 1
+        _outputs_close(got, plain(*args), 1e-4, f"{kind} member {t}")
+        outs.append(got)
+    cl = c // 2
+    if kind == "stats":
+        args = (x, d["wq"], d["wd"], heads, 0, None, None, 1e-5, d["dgram"], d["dn"],
+                0.5 * d["dn"], halo)
+        whole = sp._stats_bwd_launch(*args)
+        iw = (1, 2)
+    else:
+        args = (x, d["comb"], d["wq"], d["wd"], 0, None, None, False, gate, d["dp"], 1e-5,
+                d["dy"], halo)
+        whole = sp._apply_bwd_launch(*args)
+        iw = (2, 3)
+    got = [outs[0][0] + outs[1][0]]
+    for i in iw:  # the members' weight cotangents scattered into the full size
+        full = torch.zeros_like(whole[i])
+        for t in range(2):
+            full += torch.zeros_like(whole[i]).index_copy(
+                0, qkv_rows(torch.arange(3 * c, device=dev), c, cl, t), outs[t][i])
+        got.append(full)
+    want = [whole[0]] + [whole[i] for i in iw]
+    if kind != "stats":  # d comb stacked; d gate, the same on each member, averaged
+        got += [torch.cat([o[1] for o in outs], dim=1), (outs[0][6] + outs[1][6]) / 2]
+        want += [whole[1], whole[6]]
+    _outputs_close(got, want, 1e-4, f"{kind} composed")
+
+
+@pytest.mark.cuda
+def test_cuda_spectral_head_block_plans():
+    """The plans keyed on (C, CL): at CL = C the pinned plans (checked
+    above), a head block's plan never larger than the whole attention's,
+    the mirrors agreeing, and no bf16 apply plan for a head block."""
+    from mp_hsir_tpu_torch.ops.kernels import _build
+    from mp_hsir_tpu_torch.ops.kernels.spectral import apply_f32_plan, stats_f32_plan
+
+    _cuda()
+    pb = _build.plan_bytes
+    for c, heads in TP_CASES + [(384, 8)]:
+        cl, hh = c // 2, heads // 2
+        kc = _build.chunk("mp_spectral_apply_bwd_chunk", c, c)
+        n = pb("mp_spectral_stats_smem", c, cl, hh)
+        assert n == stats_f32_plan(c, hh, cl)["bytes"] <= pb("mp_spectral_stats_smem", c, c, heads)
+        n = pb("mp_spectral_apply_smem", c, cl, 0, 0)
+        assert n == apply_f32_plan(c, cl=cl)["bytes"] <= pb("mp_spectral_apply_smem", c, c, 0, 0)
+        assert pb("mp_spectral_apply_smem", c, cl, 0, 1) == -1
+        assert pb("mp_spectral_stats_bwd_smem", c, cl, hh) <= pb("mp_spectral_stats_bwd_smem",
+                                                                 c, c, heads)
+        kct = _build.chunk("mp_spectral_apply_bwd_chunk", c, cl)
+        assert kct >= kc and pb("mp_spectral_apply_bwd_smem", c, cl, kct) <= _build.smem_limit()
+
+
+@pytest.mark.cuda
+def test_cuda_spectral_bf16_head_block_raises():
+    """bf16 has no head-block tiles yet: the wrappers raise for a bf16 head
+    block on the card, naming them, and the C entries refuse it
+    (cudaErrorInvalidValue, 1) for a bf16 call whose CL is not C."""
+    from mp_hsir_tpu_torch.ops.kernels import spectral as sp
+
+    dev = _cuda()
+    c, heads = 64, 2
+    d = _tp_call(c, heads, dev)
+    wq, wd, comb, hh, cl = _tp_member(d, c, heads, 0)
+    xb = d["x"].to(torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="bf16 head-block tiles"):
+        spectral_stats(xb, wq, wd, hh)
+    with pytest.raises(NotImplementedError, match="bf16 head-block tiles"):
+        spectral_apply(xb, comb, wq, wd)
+    args, _, held = sp._stats_prepare(d["x"], wq, wd, hh)
+    args = list(args)
+    args[11] = 1  # the dtype code: bf16
+    assert sp._stats_entry()(*args) == 1
+    args, _, held = sp._apply_prepare(d["x"], comb, wq, wd)
+    args = list(args)
+    args[18] = 1
+    assert sp._apply_entry()(*args) == 1
+    torch.cuda.synchronize()

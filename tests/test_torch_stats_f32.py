@@ -13,8 +13,11 @@ sums added per block range, then over the parts in order) against
 the odd widths, unshifted, shifted and as the PromptFusion entry (x2 + LN);
 three planted faults the check must catch; a row shard's halo rows at
 every edge-flag combination (LN'd like the map, zero at an image edge),
-with rows swapped top for bottom as a planted fault; one case against the
-JAX package's merged window + stats kernel in interpret mode. The kernel itself
+with rows swapped top for bottom as a planted fault; a member's head block
+under the spectral mesh axis (q|k width CL = C / 2 from the weight, 2 of
+the members at every preset width, with and without halo rows), with its k
+rows read at the whole attention's offset C as a planted fault; one case
+against the JAX package's merged window + stats kernel in interpret mode. The kernel itself
 is held against the plain version on the card by tests/test_torch_cuda.py
 and chip_smoke.py. Imports JAX only in the test that compares with it."""
 
@@ -67,12 +70,13 @@ def _tiles(u, rows=None):
 
 
 def _emulate(x, wqkv, wdw, heads, shift=0, x2=None, ln_w=None, ln_b=None, halo=None,
-             three=True, chained=False, swapped=False, halo_swapped=False):
-    """The tile on x (B, H, W, C1) [and x2] float32: (gram (B, C, dh), nq, nk
-    (B, heads, dh)). three=False: one TF32 product; chained: the products
-    summed on the tensor cores across all of K; swapped: q and k trade
-    places within each head; halo_swapped: the halo rows staged top for
-    bottom (the planted faults)."""
+             three=True, chained=False, swapped=False, halo_swapped=False, k_at_c=False):
+    """The tile on x (B, H, W, C1) [and x2] float32: (gram (B, CL, dh), nq,
+    nk (B, heads, dh)), CL = wqkv.shape[0] / 3. three=False: one TF32
+    product; chained: the products summed on the tensor cores across all of
+    K; swapped: q and k trade places within each head; halo_swapped: the
+    halo rows staged top for bottom; k_at_c: a head block's k rows read at
+    the offset C (the planted faults)."""
     u = np.roll(x.numpy(), (shift, shift), axis=(1, 2)) if shift else x.numpy()
     if x2 is not None:
         u = np.concatenate([u, x2.numpy()], axis=-1)
@@ -91,7 +95,8 @@ def _emulate(x, wqkv, wdw, heads, shift=0, x2=None, ln_w=None, ln_b=None, halo=N
         rows = [np.zeros((b, 1, w, c), np.float32) if edge else norm(r.numpy())
                 for r, edge in ((halo.top, halo.edge_top), (halo.bot, halo.edge_bot))]
         rows = rows[::-1] if halo_swapped else rows
-    pl = stats_f32_plan(c, heads)
+    cl = wqkv.shape[0] // 3
+    pl = stats_f32_plan(c, heads, cl)
     dh, dhp, hw, gw_max = pl["dh"], pl["dhp"], pl["hw"], pl["gw"]
     ck = F32_K * pl["nk"]
     halo = np.zeros((b, (h // 8) * (w // 8), 112, ck), np.float32)
@@ -102,11 +107,11 @@ def _emulate(x, wqkv, wdw, heads, shift=0, x2=None, ln_w=None, ln_b=None, halo=N
     norm = np.zeros((b, n_tiles, pl["nqk"]), np.float32)
     for g0 in range(0, pl["nqk"], gw_max):
         gw = min(gw_max, pl["nqk"] - g0)
-        rows = [qk_row(g0 + n, pl, c) for n in range(gw)]
+        rows = [qk_row(g0 + n, pl, c if k_at_c else cl) for n in range(gw)]
         wg = np.zeros((gw, ck), np.float32)
         tg = np.zeros((9, gw), np.float32)
         for n, r in enumerate(rows):
-            if r >= 0:
+            if 0 <= r < wq.shape[0]:
                 wg[n, :wq.shape[1]] = wq[r]
                 tg[:, n] = taps[r]
         t = mma(np.zeros((b, n_tiles, 112, gw), np.float32), halo, wg.T, three, chained)
@@ -143,7 +148,7 @@ def _emulate(x, wqkv, wdw, heads, shift=0, x2=None, ln_w=None, ln_b=None, halo=N
         out_g = out_g + pg
         out_n = out_n + pn
     out_n = out_n.reshape(b, heads, 2, dhp)
-    return (out_g[:, :, :dh, :dh].reshape(b, c, dh), out_n[:, :, 0, :dh], out_n[:, :, 1, :dh])
+    return (out_g[:, :, :dh, :dh].reshape(b, cl, dh), out_n[:, :, 0, :dh], out_n[:, :, 1, :dh])
 
 
 def _inputs(variant, c, heads, seed, h=16, w=24):
@@ -165,10 +170,18 @@ def _rel(got, ref):
     return max(float(np.abs(g - r).max()) / float(np.abs(r).max()) for g, r in zip(got, ref))
 
 
-def _case(variant, c, heads, edges=None, **faults):
+def _case(variant, c, heads, edges=None, member=None, **faults):
     """(emulated, plain) of one call; ``edges``: with halo rows drawn from
-    the seed, these edge flags (the call read in its own frame, shift 0)."""
+    the seed, these edge flags (the call read in its own frame, shift 0);
+    ``member``: that member's head block of 2 (half the heads, their q|k|v
+    rows of the weights)."""
     args, kw = _inputs(variant, c, heads, 300 + c + heads)
+    if member is not None:
+        from mp_hsir_tpu_torch.parallel.tp import qkv_rows
+
+        cl = c // 2
+        args = [args[0], qkv_rows(args[1], c, cl, member), qkv_rows(args[2], c, cl, member),
+                heads // 2]
     if edges is not None:
         r = _rng(400 + c)
         w = args[0].shape[2]
@@ -239,6 +252,34 @@ def test_stats_f32_emulation_sees_the_faults(fault):
     truncated) instead of flushed into float32, and q and k swapped within
     each head (the transposed Gram) each break the bound at C = 400."""
     got, ref = _case("shift4", 400, 8, **fault)
+    assert _rel(got, ref) > TOL, _rel(got, ref)
+
+
+# (C, heads) of the presets' spectral attentions whose heads a spectral axis of
+# 2 divides (the flagship's PGSSTB and PromptFusion widths, the remote-sensing
+# preset's): each member's block is C / 2 wide
+TP_WIDTHS = [(64, 2), (128, 4), (256, 8), (96, 2), (192, 4), (384, 8)]
+
+
+@pytest.mark.parametrize("member", [0, 1])
+@pytest.mark.parametrize("c,heads", TP_WIDTHS)
+def test_stats_f32_head_block_plan_and_emulation(c, heads, member):
+    """A member's head block (q|k width CL = C / 2, heads / 2 heads; the
+    1x1 still C deep): its plan no larger than the whole attention's, and the
+    emulated tile against spectral_stats_plain on the member's weight rows
+    within 2e-6 of each output's max-abs, with interior halo rows for member
+    1."""
+    pl, whole = stats_f32_plan(c, heads // 2, c // 2), stats_f32_plan(c, heads)
+    assert pl["ok"] and pl["nk"] == whole["nk"] and pl["bytes"] <= whole["bytes"]
+    got, ref = _case("shift0", c, heads, (False, False) if member else None, member=member)
+    assert got[0].shape == ref[0].shape == (1, c // 2, c // heads)
+    assert _rel(got, ref) <= TOL, _rel(got, ref)
+
+
+def test_stats_f32_head_block_emulation_sees_the_wrong_offset():
+    """The head-block check is not blind: the k rows read at the whole
+    attention's offset C (the member's v rows) break the bound."""
+    got, ref = _case("shift0", 128, 4, member=1, k_at_c=True)
     assert _rel(got, ref) > TOL, _rel(got, ref)
 
 

@@ -50,15 +50,16 @@ def ops_rank(info, x_roll, x_conv, w_conv, w_dw, prompts, ca, sp):
     return {k: v.numpy() for k, v in out.items()} if info.rank == 0 else None
 
 
-def model_rank(info, cfg, state, x, tid):
-    """The model's row-sharded eval step (``make_eval_step`` on a 1 x n
-    mesh) on this rank: the whole restored cube."""
+def model_rank(info, cfg, state, x, tid, shape=None):
+    """The model's eval step (``make_eval_step``) on this rank, on a 1 x n
+    mesh or the (data, spatial, spectral) mesh ``shape``: the whole
+    restored cube."""
     from mp_hsir_tpu_torch.models.mp_hsir import build_model
     from mp_hsir_tpu_torch.training.trainer import make_eval_step
 
     model = build_model(cfg, "cpu")
     model.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()})
-    step = make_eval_step(cfg, make_mesh(1, info.world_size))
+    step = make_eval_step(cfg, make_mesh(*(shape or (1, info.world_size))))
     out = step(model, torch.as_tensor(x), torch.as_tensor(np.asarray(tid)))
     return out.numpy() if info.rank == 0 else None
 
@@ -142,8 +143,8 @@ def pgsstb_grads_rank(info, blocks, x, cot, dps):
 
 
 def train_step_rank(info, cfg, tc, state, batches, seeds, keep_grads=False):
-    """``make_train_step(cfg, tc, mesh)`` on a data x spatial mesh (the
-    mesh's shape in ``tc``'s ``mesh`` entry: (data, spatial)), one step per
+    """``make_train_step(cfg, tc, mesh)`` on a data x spatial [x spectral]
+    mesh (the mesh's shape in ``tc``'s ``mesh`` entry), one step per
     batch from the same parameters on every rank: rank 0's losses and
     parameters, and whether every rank's parameters are bitwise rank 0's;
     ``keep_grads``: the first step's averaged gradients too (the update's
@@ -154,8 +155,7 @@ def train_step_rank(info, cfg, tc, state, batches, seeds, keep_grads=False):
         create_train_state, make_train_step, sync_parameters,
     )
 
-    data, spatial = tc.pop("mesh")
-    mesh = make_mesh(data, spatial)
+    mesh = make_mesh(*tc.pop("mesh"))
     from mp_hsir_tpu_torch.config import TrainConfig
 
     tcfg = TrainConfig(**tc)
@@ -191,3 +191,49 @@ def train_step_rank(info, cfg, tc, state, batches, seeds, keep_grads=False):
         return None
     return dict(losses=losses, same=same, params={k: v.numpy() for k, v in params.items()},
                 grads=None if grads is None else {k: v.numpy() for k, v in grads.items()})
+
+
+def tp_grads_rank(info, sa, blocks, x, cot=None):
+    """On a 1 x 1 x n mesh: the spectral attention of ``sa`` (its
+    constructor arguments, state and input) head-parallel over the spectral
+    axis, loss sum(y^2), and each PGSSTB of ``blocks`` ((constructor kwargs,
+    state) pairs) on the training route with its spectral attention
+    head-parallel on ``x``, loss sum(y^2) (JAX's test_model.py /
+    test_pallas_vjp.py TP set-ups). Returns rank 0's view: each loss and the
+    gradients averaged over the ranks (the trainer's pmean), whether every
+    rank's forward was the same, and the route counters."""
+    from mp_hsir_tpu_torch.models import layers
+    from mp_hsir_tpu_torch.models.layers import PGSSTB, SpectralAttention
+    from mp_hsir_tpu_torch.parallel.mesh import SPECTRAL_AXIS, all_gather, pmean_
+
+    tp = make_mesh(1, 1, info.world_size).axis(SPECTRAL_AXIS)
+
+    def mean_grads(mod):
+        grads = [p.grad for _, p in mod.named_parameters()]
+        pmean_(grads, tp)
+        return {k: p.grad.numpy() for k, p in mod.named_parameters()}
+
+    out, same = [], True
+    layers.reset_path_stats()
+    layer = SpectralAttention(*sa["args"])
+    layer.load_state_dict({k: torch.as_tensor(v) for k, v in sa["state"].items()})
+    y = layer.tp(torch.as_tensor(sa["x"]), tp)
+    loss = y.square().sum()
+    loss.backward()
+    same &= all(torch.equal(p, y.detach()) for p in all_gather(y, tp))
+    out.append((float(loss), mean_grads(layer)))
+    for kw, state in blocks:
+        blk = PGSSTB(**kw).train()
+        blk.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()})
+        xl = torch.as_tensor(x).clone().requires_grad_()
+        y = blk(xl, None, None, tp)
+        loss = y.square().sum()
+        loss.backward()
+        same &= all(torch.equal(p, y.detach()) for p in all_gather(y, tp))
+        g = mean_grads(blk)
+        gx = xl.grad.clone()
+        pmean_([gx], tp)
+        g["x"] = gx.numpy()
+        out.append((float(loss), g))
+    paths = dict(layers.PATH_STATS)
+    return dict(results=out, same=same, paths=paths) if info.rank == 0 else None
