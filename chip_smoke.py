@@ -286,7 +286,7 @@ Phases (any failure exits non-zero; no phase's error is caught):
     the 20 steps falls; ms per step per rank (not a multi-card figure).
     --mesh-cards runs (e) with one rank a card over NCCL too. --mesh-train
     runs phase 1 and only phase 16.
-17. The head-parallel spectral mesh axis in float32 (make_mesh(data,
+17. The head-parallel spectral mesh axis in float32, then bf16 (make_mesh(data,
     spatial, spectral)). (a) Every distinct float32 stats and apply call of
     the flagship forward on the head-parallel route (512^2: no LayerNorm,
     the gate over n, no tail) as two members' head blocks: each member's
@@ -314,9 +314,20 @@ Phases (any failure exits non-zero; no phase's error is caught):
     steps, the loss falling over the 10; ms per step per rank (ranks
     sharing one card: not a multi-card figure). (e) The
     remote-sensing 1 x 1 x 2 eval step (seeded weights, 256^2) against one
-    rank. (f) A bf16 head block on the card raises, naming the missing
-    tiles. --mesh-cards runs (d)'s 1 x 1 x 2 step with one rank a card over
-    NCCL too; --mesh-tp runs phase 1 and only phase 17.
+    rank. Then (a) - (e) again in bf16, the four bf16 head-block tiles:
+    (a) each member against plain bf16 (3e-2), the stats stacked bitwise
+    (1e-5 where a member's parts per image differ from the whole call's),
+    the applies summed, the halo shards and the faults against 1.2e-2; (b)
+    every bf16 K10a / K10b call of the step at batch 32 (3e-2 per member,
+    composed 1.2e-2); (c) / (e) the bf16 eval steps within 5e-2 of max-abs
+    of one rank's bf16 forward and PSNR within 0.1 dB of the one-rank
+    float32 forward's; (d) the bf16 steps at batch 32 against one rank's
+    bf16 step (every tensor concatenated 2e-2 norm-wise, per tensor 7.5e-2
+    where bf16 resolves it), the route's backwards against plain (3e-2),
+    the same launches, bits and loss as in float32 (bounds derived on the
+    CPU by tests/tp_bounds.py --bf16, PERF.md). --mesh-cards runs (d)'s
+    float32 1 x 1 x 2 step with one rank a card over NCCL too; --mesh-tp
+    runs phase 1 and only phase 17.
 18. The kernel summary line (each kernel's main-path numbers, its
     remote-sensing train-step numbers and the train and eval CLIs' launches
     beside them; the float32 tail tile's row: phase 14's launches, phase 2's
@@ -327,9 +338,9 @@ Phases (any failure exits non-zero; no phase's error is caught):
     its fronts), alone, plain, bound and library, phase 7's remote-sensing
     float32 sums; the four bf16 halo instances: phase 16 (e)'s launches,
     phase 15 (a)'s bf16 ms per sharded forward and phase 16 (a)'s bf16 ms
-    per sharded step; the four float32 head-block instances: phase 17 (c)'s
-    and (d)'s launches, phase 17 (a)'s ms per flagship forward and (b)'s per
-    step for member 0 of 2), then the result line.
+    per sharded step; the eight head-block instances (float32 and bf16):
+    phase 17 (c)'s and (d)'s launches, phase 17 (a)'s ms per flagship
+    forward and (b)'s per step for member 0 of 2), then the result line.
 
 --bwd-split KERNEL (mlp_bwd, spectral_stats_bwd, window_attention_bwd,
 spectral_apply_bwd or gdfn_bwd; repeatable) runs phase 1's build and only
@@ -699,7 +710,7 @@ def plan_of(spec) -> dict:
                     blocks_per_window=int(fn(*shape, spec[1] * (spec[2] // 8) * (spec[3] // 8),
                                              0)))
     if name == "spectral_stats" and _code(spec):  # the bf16 tile: one resident plan
-        n = _build.plan_bytes("mp_spectral_stats_tc_smem", *shape)
+        n = _build.plan_bytes("mp_spectral_stats_tc_smem", c, *shape)
         return dict(smem=n, smem_whole=n, kc=c, c=c)
     if name == "spectral_stats" and has_stats_f32_tile():  # the float32 tile: one plan
         n = _build.plan_bytes("mp_spectral_stats_smem", c, *shape)
@@ -717,14 +728,14 @@ def plan_of(spec) -> dict:
         n = _build.plan_bytes("mp_mlp_bwd_tc_smem", c)
         return dict(smem=n, smem_whole=n, kc=c, c=c)
     if name == "spectral_stats_bwd" and _code(spec):  # the bf16 tiles: the larger plan
-        n = max(_build.plan_bytes("mp_spectral_stats_bwd_tc_smem", *shape),
+        n = max(_build.plan_bytes("mp_spectral_stats_bwd_tc_smem", c, *shape),
                 _build.plan_bytes("mp_dwconv_dx_tc_smem", c, 2 * c))
         return dict(smem=n, smem_whole=n, kc=c, c=c)
     if name == "spectral_stats_bwd":  # the float32 kernel: one whole-input plan
         n = _build.plan_bytes(smem_entry, c, *shape)
         return dict(smem=n, smem_whole=n, kc=c, c=c)
     if name == "spectral_apply_bwd" and _code(spec):  # the bf16 tiles: the larger plan
-        n = max(_build.plan_bytes("mp_spectral_apply_bwd_tc_smem", c, tile) for tile in (1, 2))
+        n = max(_build.plan_bytes("mp_spectral_apply_bwd_tc_smem", c, c, tile) for tile in (1, 2))
         return dict(smem=n, smem_whole=n, kc=c, c=c)
     if name == "gdfn_bwd" and _code(spec):  # the bf16 tiles: the larger plan
         n = max(_build.plan_bytes(f"mp_gdfn_{tile}_tc_smem", c) for tile in ("bwd", "dx"))
@@ -1765,13 +1776,15 @@ def log_wgrad_stages(what: str, splits: dict) -> float:
     return tot
 
 
-def train_kernel_checks(specs: Counter, dev, streamed: bool = True) -> list:
+def train_kernel_checks(specs: Counter, dev, streamed: bool = True, iters: int = 10,
+                        plain_iters: int = 3) -> list:
     """Every kernel of the training route (the new ones, the apply kernel's
     drop-path option and the eval kernels at the step's shapes; conv3's
     backward dx calls are conv3 calls) at every call signature of the train
-    step, bf16 and float32, timed in bf16, with its shared-memory plan;
-    ``streamed``: also time the resident forward calls streamed in
-    64-channel chunks."""
+    step, bf16 and float32, timed in bf16 (``iters`` calls of the kernel,
+    ``plain_iters`` of the plain version, each after one warm-up call),
+    with its shared-memory plan; ``streamed``: also time the resident
+    forward calls streamed in 64-channel chunks."""
     from mp_hsir_tpu_torch.ops.kernels._route import plain_reference
 
     rows = []
@@ -1803,7 +1816,7 @@ def train_kernel_checks(specs: Counter, dev, streamed: bool = True) -> list:
             del f_args, f_kw
             kern = lambda fn=fn, args=args, kw=kw: fn(*args, **kw)  # noqa: E731
             plain = kern
-        ms = time_ms(kern, 10)
+        ms = time_ms(kern, iters)
         st = (None if name.endswith("_bwd") or not streamed
               else streamed_ms(spec, fn, args, kw))
         plan = plan_of(spec)
@@ -1812,8 +1825,8 @@ def train_kernel_checks(specs: Counter, dev, streamed: bool = True) -> list:
             with plain_reference():
                 return plain()
 
-        plain_ms = time_ms(run_plain, 3)
-        lib_ms = time_ms(library, 10) if library is not None else None
+        plain_ms = time_ms(run_plain, plain_iters)
+        lib_ms = time_ms(library, iters) if library is not None else None
         bound_ms = max(byts / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
         rows.append(dict(spec=list(spec), per_step=mult, max_abs_err=err, rel_err=rel,
                          max_abs_err_f32=err32, rel_err_f32=rel32, ms=ms, plain_ms=plain_ms,
@@ -2936,7 +2949,7 @@ def mesh_cards_checks(dev, card: str) -> dict:
     log("  phase 16 (e)'s 1 x 2 bf16 train step, one rank a card over NCCL:")
     res["train_1x2_bf16"] = mesh_bf16_step_checks(dev, card, True)
     log("  phase 17 (d)'s 1 x 1 x 2 float32 train step, one rank a card over NCCL:")
-    res["train_1x1x2"] = tp_mesh_checks(dev, card, True)
+    res["train_1x1x2"] = tp_mesh_checks(dev, card, True, ("float32",))["float32"]
     log(card)
     return res
 
@@ -4045,7 +4058,7 @@ def log_stats_plans(_build, cfgs) -> dict:
         else:
             kc = _build.chunk("mp_spectral_stats_chunk", c, nh)
             f32 = _build.plan_bytes("mp_spectral_stats_smem", c, nh, kc)
-        plans[f"C={c}/{nh}"] = dict(bf16=_build.plan_bytes("mp_spectral_stats_tc_smem", c, nh),
+        plans[f"C={c}/{nh}"] = dict(bf16=_build.plan_bytes("mp_spectral_stats_tc_smem", c, c, nh),
                                     f32=f32, f32_kc=kc)
     log("  bf16 spectral stats plans (B; float32's at its chunk in brackets): " + ", ".join(
         f"{k} {v['bf16']} ({v['f32']} kc {v['f32_kc']})" for k, v in plans.items()))
@@ -4475,7 +4488,7 @@ def log_stats_bwd_plans(_build, cfgs) -> dict:
     plans = {}
     for c, nh in shapes:
         plans[f"C={c}/{nh}"] = dict(
-            tile1=_build.plan_bytes("mp_spectral_stats_bwd_tc_smem", c, nh),
+            tile1=_build.plan_bytes("mp_spectral_stats_bwd_tc_smem", c, c, nh),
             tile2=_build.plan_bytes("mp_dwconv_dx_tc_smem", c, 2 * c),
             f32=_build.plan_bytes("mp_spectral_stats_bwd_smem", c, c, nh))
     log("  bf16 spectral_stats_bwd plans (B: tile 1, tile 2; float32's in brackets): "
@@ -4527,8 +4540,8 @@ def log_apply_bwd_plans(_build, cfgs) -> dict:
     for c in widths:
         kc = _build.chunk("mp_spectral_apply_bwd_chunk", c, c)
         plans[f"C={c}"] = dict(
-            tile1=_build.plan_bytes("mp_spectral_apply_bwd_tc_smem", c, 1),
-            tile2=_build.plan_bytes("mp_spectral_apply_bwd_tc_smem", c, 2),
+            tile1=_build.plan_bytes("mp_spectral_apply_bwd_tc_smem", c, c, 1),
+            tile2=_build.plan_bytes("mp_spectral_apply_bwd_tc_smem", c, c, 2),
             f32=_build.plan_bytes("mp_spectral_apply_bwd_smem", c, c, kc), f32_kc=kc)
     log("  bf16 spectral_apply_bwd plans (B: tile 1, tile 2; float32's at its chunk in "
         "brackets): " + ", ".join(f"{k} {v['tile1']}, {v['tile2']} ({v['f32']} kc {v['f32_kc']})"
@@ -4618,10 +4631,10 @@ def log_wgrad_ptxas() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 17: the head-parallel spectral mesh axis in float32 (make_mesh(data,
-# spatial, spectral)): the four float32 spectral kernels on a member's head
-# block (K7a / K7b / K10a / K10b with CL = C / 2), the eval and train steps
-# on ranks sharing the card
+# phase 17: the head-parallel spectral mesh axis (make_mesh(data, spatial,
+# spectral)) in float32, then in bf16: the four spectral kernels on a
+# member's head block (K7a / K7b / K10a / K10b with CL = C / 2), the eval and
+# train steps on ranks sharing the card
 # ---------------------------------------------------------------------------
 
 TP_N = 2  # members of the spectral axis
@@ -4638,7 +4651,47 @@ TP_GRAD_TOL = 1e-4
 # per rank: each spectral attention of the flagship once per forward (22
 # PGSSTBs and 2 PromptFusions), forward and backward
 TP_LAUNCHES = {"spectral_stats_tp": 24, "spectral_apply_tp": 24}
+# bf16 (derived on the CPU before the first chip run, PERF.md section 2;
+# `python tests/tp_bounds.py 128 2 --bf16`): the members composed against
+# the whole attention's bf16 call, every flagship spectral attention's
+# shape in plain bf16 at 2 x 64^2: applies summed 4.46e-3 of max-abs, the
+# backwards composed 4.87e-3 (K10a) and 4.74e-3 (K10b): about one bf16
+# rounding of the largest value (2^-8); 1.2e-2 is three
+TP_BF16_COMPOSE_TOL = 1.2e-2
+# the stats stacked where a member's parts per image differ from the whole
+# call's (the sums then add in another order)
+TP_BF16_STATS_TOL = 1e-5
+# the bf16 eval step against one rank's bf16 kernel forward: the plain bf16
+# 1 x 1 x 2 and 1 x 2 x 2 forwards read 2.48e-2 and 2.59e-2 of max-abs
+# against one rank on the CPU (trained weights, 128^2): each member's
+# partial projection rounds to bf16 before the sum, one rank's once; twice
+# the readings. The restored cube's PSNR within MODEL_PSNR_TOL of the
+# one-rank float32 forward's
+TP_BF16_EVAL_TOL = 5e-2
+# the bf16 steps' gradients against one rank's bf16 step: every parameter's
+# concatenated within MESH_BF16_GRAD_TOL (phase 16 (e)'s; the plain 1 x 1 x 2
+# and 1 x 2 x 2 steps read 8.92e-3 and 8.85e-3 on the CPU, batch 2), and per
+# tensor, where bf16 resolves it (MESH_BF16_NOISE_TOL), within
+# TP_BF16_TENSOR_TOL: there the CPU read 3.76e-2 (1 x 1 x 2, a PromptFusion
+# temperature) and 1.92e-2 (1 x 2 x 2), past phase 16 (e)'s 3e-2: twice the
+# worst
+TP_BF16_TENSOR_TOL = 7.5e-2
+TP_BF16_BATCH = TRAIN_BATCH
 TP_BWD_LAUNCHES = {"spectral_stats_bwd_tp": 24, "spectral_apply_bwd_tp": 24}
+TP_BF16_KERNELS = {
+    "spectral_stats_bf16_tp": dict(
+        source="mp_hsir_tpu_torch/csrc/spectral_stats.cuh", tpu=["K7a"], of="stats",
+        replaces="mp_hsir_tpu/ops/pallas_attention.py:2053", counter="spectral_stats_tp"),
+    "spectral_apply_bf16_tp": dict(
+        source="mp_hsir_tpu_torch/csrc/spectral.cu", tpu=["K7b"], of="apply",
+        replaces="mp_hsir_tpu/ops/pallas_attention.py:2114", counter="spectral_apply_tp"),
+    "spectral_stats_bwd_bf16_tp": dict(
+        source="mp_hsir_tpu_torch/csrc/spectral_stats.cuh", tpu=["K10a"], of="stats_bwd",
+        replaces="mp_hsir_tpu/ops/pallas_vjp.py:1671", counter="spectral_stats_bwd_tp"),
+    "spectral_apply_bwd_bf16_tp": dict(
+        source="mp_hsir_tpu_torch/csrc/spectral_apply_bwd.cuh", tpu=["K10b"], of="apply_bwd",
+        replaces="mp_hsir_tpu/ops/pallas_vjp.py:1758", counter="spectral_apply_bwd_tp"),
+}
 TP_KERNELS = {
     "spectral_stats_f32_tp": dict(
         source="mp_hsir_tpu_torch/csrc/spectral_stats_f32.cuh", tpu=["K7a"], of="stats",
@@ -4678,66 +4731,88 @@ def tp_eval_calls(cfg, size: int) -> Counter:
     return calls
 
 
-def tp_inputs(key, dev) -> dict:
-    """Seeded float32 operands of one whole attention: the map, the full-size
-    weights, the temperature, the projection and the gate of ``key``."""
+def tp_inputs(key, dev, dt=torch.float32) -> dict:
+    """Seeded operands of one whole attention: the map, the full-size
+    weights, the temperature, the projection and the gate of ``key``; the
+    map and the gate in ``dt`` (the float32 draws rounded), the weights
+    float32 as the model holds them."""
     b, h, c, nh, gate = key
     g = Inputs(zlib.crc32(repr(key).encode()), dev, torch.float32)
-    d = dict(x=g.n((b, h, h, c)), wq=g.u((3 * c, c, 1, 1), c), wd=g.u((3 * c, 1, 3, 3), 9),
-             temp=1 + g.n((nh, 1, 1), 0.2), wout=g.u((c, c, 1, 1), c), gate=None)
+    d = dict(x=g.n((b, h, h, c)).to(dt), wq=g.u((3 * c, c, 1, 1), c),
+             wd=g.u((3 * c, 1, 3, 3), 9), temp=1 + g.n((nh, 1, 1), 0.2),
+             wout=g.u((c, c, 1, 1), c), gate=None)
     if gate:
         d["gate"] = g.n((b, h // 8 if gate == "window" else h, h // 8 if gate == "window" else h,
-                         c), 0.5)
+                         c), 0.5).to(dt)
     return d
+
+
+def tp_bound_ms(dt, byts, flops) -> float:
+    """A head-block call's bound in its type (bf16_bound_ms, f32_bound_ms)."""
+    return (bf16_bound_ms if dt == torch.bfloat16 else f32_bound_ms)(byts, flops)
+
+
+def tp_bound_by(dt, byts, flops) -> str:
+    """Which of bytes and operations bounds a call of type ``dt``."""
+    ops = flops / BF16_FLOPS if dt == torch.bfloat16 else 3 * flops / TF32_FLOPS
+    return "bytes" if byts / HBM_BYTES_PER_S >= ops else "operations"
 
 
 def tp_fwd_cost(x, cl: int, heads: int, gate) -> tuple:
     """(bytes, flops) of one member's stats and apply calls on x: each input
-    read once and each output written once (float32), the q|k and v 1x1s
+    read once and each output written once (the map, the gate, the output
+    and the weight packs in x's type, the stats float32), the q|k and v 1x1s
     (C deep, 2CL and CL wide), the depthwise taps, the Gram and norms, the
     comb product (CL deep, C wide)."""
     b, h, w, c = x.shape
     p = b * h * w
     dh = cl // heads
-    stats = (p * c * 4 + (2 * cl * c + 18 * cl) * 4 + b * (cl * dh + 2 * cl) * 4,
+    es = x.element_size()
+    stats = (p * c * es + (2 * cl * c + 18 * cl) * es + b * (cl * dh + 2 * cl) * 4,
              p * (4 * c * cl + 36 * cl + 2 * cl * dh + 4 * cl))
-    gb = 0 if gate is None else gate.numel() * 4
-    apply = (2 * p * c * 4 + b * cl * c * 4 + (cl * c + 9 * cl) * 4 + gb,
+    gb = 0 if gate is None else gate.numel() * es
+    apply = (2 * p * c * es + b * cl * c * es + (cl * c + 9 * cl) * es + gb,
              p * (2 * c * cl + 18 * cl + 2 * cl * c))
     return stats, apply
 
 
-def tp_forward_checks(dev, card: str) -> dict:
-    """Phase 17 (a): every distinct float32 stats and apply call of the
-    flagship forward on the head-parallel route (tp_eval_calls; phase 2's
-    512^2 shapes) as TP_N members' head blocks: each member's stats and
-    apply kernels against their plain versions (F32_TOL of max-abs); the
-    members composed against the whole attention's kernel calls: their
-    stats stacked bitwise equal to the whole call's, their applies (each
-    folded with its temperature and projection columns, the gate over n)
-    summed within F32_TOL; the same at 2 row shards x TP_N
-    members with halo rows (each member's stats summed over the shards,
-    each shard's apply summed over the members); planted faults that must
-    break the bound: member 1 on member 0's weights with its own
-    temperature, the gate not scaled by 1/n. Member 0's calls timed beside
-    their plain versions, the whole calls and their bounds."""
+def tp_forward_checks(dev, card: str, dt=torch.float32) -> dict:
+    """Phase 17 (a): every distinct stats and apply call of the flagship
+    forward on the head-parallel route (tp_eval_calls; phase 2's 512^2
+    shapes) in ``dt`` as TP_N members' head blocks: each member's stats and
+    apply kernels against their plain versions (F32_TOL of max-abs, BF16_TOL
+    in bf16); the members composed against the whole attention's kernel
+    calls: their stats stacked bitwise equal to the whole call's (in bf16
+    within TP_BF16_STATS_TOL where a member's parts per image differ from
+    the whole call's), their applies (each folded with its temperature and
+    projection columns, the gate over n) summed within F32_TOL
+    (TP_BF16_COMPOSE_TOL); the same at 2 row shards x TP_N members with halo
+    rows (each member's stats summed over the shards, each shard's apply
+    summed over the members); planted faults that must break the bound:
+    member 1 on member 0's weights with its own temperature, the gate not
+    scaled by 1/n. Member 0's calls timed beside their plain versions, the
+    whole calls and their bounds."""
     from mp_hsir_tpu_torch.config import natural_scene_config
+    from mp_hsir_tpu_torch.ops.kernels import spectral as sp
     from mp_hsir_tpu_torch.ops.kernels._route import plain_reference
     from mp_hsir_tpu_torch.ops.kernels.spectral import (
         spectral_apply, spectral_fold, spectral_stats,
     )
     from mp_hsir_tpu_torch.parallel.tp import head_block
 
+    bf16 = dt == torch.bfloat16
+    tol, ctol = (BF16_TOL, TP_BF16_COMPOSE_TOL) if bf16 else (F32_TOL, F32_TOL)
+
     def member_y(x, hb, gate, stats=None, halo=None, scale=1.0 / TP_N):
         st = spectral_stats(x, hb.wqkv, hb.wdw, hb.heads, halo=halo) if stats is None else stats
         comb = spectral_fold(*st, hb.temperature, hb.wout)
         return spectral_apply(x, comb, hb.wqkv, hb.wdw, halo=halo,
-                              gate=None if gate is None else gate * scale)
+                              gate=None if gate is None else gate * scale).float()
 
     calls = tp_eval_calls(natural_scene_config(compute_dtype="float32"), SIZE)
     rows = []
     for key, mult in sorted(calls.items(), key=repr):
-        d = tp_inputs(key, dev)
+        d = tp_inputs(key, dev, dt)
         x, gate = d["x"], d["gate"]
         hbs = [head_block(d["wq"], d["wd"], d["temp"], d["wout"], key[3], tp_member(t))
                for t in range(TP_N)]
@@ -4759,23 +4834,28 @@ def tp_forward_checks(dev, card: str) -> dict:
                 worst = max(worst, e)
                 kind_err[kind] = [max(kind_err[kind][0], e_abs), max(kind_err[kind][1], e)]
             stats.append(got)
-            ys.append(y)
-        if not worst <= F32_TOL:
-            fail(f"head block {key}: {worst:.3e} of max-abs off its plain version")
+            ys.append(y.float())
+        if not worst <= tol:
+            fail(f"head block {key} {dt}: {worst:.3e} of max-abs off its plain version")
         whole_st = spectral_stats(x, d["wq"], d["wd"], key[3])
         stacked = tuple(torch.cat([s[i] for s in stats], dim=1) for i in range(3))
         bitwise = all(torch.equal(a, b) for a, b in zip(stacked, whole_st))
+        st_err = errs(stacked, whole_st)[1]
+        b_, h_, c_, nh_ = key[0], key[1], key[2], key[3]
+        same_parts = sp._stats_parts(int(bf16), b_, h_, h_, c_, c_ // TP_N, nh_ // TP_N) == \
+            sp._stats_parts(int(bf16), b_, h_, h_, c_, c_, nh_)
         whole = spectral_apply(x, spectral_fold(*whole_st, d["temp"], d["wout"]), d["wq"],
                                d["wd"], gate=gate)
         summed = ys[0].clone()
         for y in ys[1:]:
             summed += y
-        if not bitwise:
-            fail(f"head block {key}: the members' stats stacked are not bitwise the whole "
-                 f"call's ({errs(stacked, whole_st)[1]:.3e} of max-abs)")
+        if not (bitwise or (bf16 and not same_parts and st_err <= TP_BF16_STATS_TOL)):
+            fail(f"head block {key} {dt}: the members' stats stacked are not bitwise the whole "
+                 f"call's ({st_err:.3e} of max-abs; parts per image "
+                 f"{'equal' if same_parts else 'differ'})")
         comp = errs(summed, whole)[1]
-        if not comp <= F32_TOL:
-            fail(f"head block {key}: the members' applies summed differ from the whole "
+        if not comp <= ctol:
+            fail(f"head block {key} {dt}: the members' applies summed differ from the whole "
                  f"attention by {comp:.3e} of max-abs")
         # 2 row shards x TP_N members, with halo rows
         shard = []
@@ -4800,8 +4880,8 @@ def tp_forward_checks(dev, card: str) -> dict:
             part.append([member_y(xs, hb, k.get("gate"), tot, k["halo"]) for xs, k in shard])
         rows_y = torch.cat([part[0][i] + part[1][i] for i in range(2)], dim=1)
         comp_halo = errs(rows_y, whole)[1]
-        if not (worst <= F32_TOL and comp_halo <= F32_TOL):
-            fail(f"head block {key} on 2 row shards: {worst:.3e} off plain, composed "
+        if not (worst <= tol and comp_halo <= ctol):
+            fail(f"head block {key} {dt} on 2 row shards: {worst:.3e} off plain, composed "
                  f"{comp_halo:.3e} off the whole attention")
         faults = {"swapped_weights": errs(
             ys[0] + member_y(x, hbs[1]._replace(wqkv=hbs[0].wqkv, wdw=hbs[0].wdw), gate),
@@ -4810,8 +4890,9 @@ def tp_forward_checks(dev, card: str) -> dict:
             faults["gate_not_over_n"] = errs(
                 ys[0] + member_y(x, hbs[1], gate, scale=1.0), whole)[1]
         for f, e in faults.items():
-            if not e > F32_TOL:
-                fail(f"head block {key}: the planted fault {f} went unseen ({e:.3e} of max-abs)")
+            if not e > ctol:
+                fail(f"head block {key} {dt}: the planted fault {f} went unseen ({e:.3e} of "
+                     "max-abs)")
         hb = hbs[0]
         comb0 = spectral_fold(*stats[0], hb.temperature, hb.wout)
         g0 = None if gate is None else gate / TP_N
@@ -4826,15 +4907,18 @@ def tp_forward_checks(dev, card: str) -> dict:
             t["stats_plain_ms"] = time_ms(lambda: spectral_stats(x, hb.wqkv, hb.wdw, hb.heads), 1)
             t["apply_plain_ms"] = time_ms(lambda: spectral_apply(x, comb0, hb.wqkv, hb.wdw,
                                                                  gate=g0), 1)
-        t.update(stats_bound_ms=f32_bound_ms(sb, sf), apply_bound_ms=f32_bound_ms(ab, af),
+        t.update(stats_bound_ms=tp_bound_ms(dt, sb, sf), apply_bound_ms=tp_bound_ms(dt, ab, af),
                  stats_bytes=sb, stats_flops=sf, apply_bytes=ab, apply_flops=af)
         row.update(max_rel_err=worst, composed_rel_err=comp, stats_bitwise=bitwise,
+                   stacked_rel_err=st_err, stacked_same_parts=same_parts,
                    shards_rel_err=comp_halo, faults=faults, **t,
                    **{f"{k}_{n}": v for k, (a, r) in kind_err.items()
                       for n, v in (("max_abs_err", a), ("rel_err", r))})
         rows.append(row)
-        log(f"  {key} x{mult}: members {worst:.2e} of max-abs off plain; applies summed "
-            f"{comp:.2e}, stats stacked bitwise, 2 shards x {TP_N} {comp_halo:.2e}; faults "
+        stacked_how = ("bitwise" if bitwise else
+                       f"{st_err:.1e} (parts {'equal' if same_parts else 'differ'})")
+        log(f"  {key} x{mult} {dt}: members {worst:.2e} of max-abs off plain; applies summed "
+            f"{comp:.2e}, stats stacked {stacked_how}, 2 shards x {TP_N} {comp_halo:.2e}; faults "
             + ", ".join(f"{f} {e:.2e}" for f, e in faults.items())
             + f"; member 0 stats {t['stats_ms']:.3f} ms (whole {t['stats_whole_ms']:.3f}, plain "
             f"{t['stats_plain_ms']:.3f}, bound {t['stats_bound_ms']:.4f}), apply "
@@ -4846,13 +4930,12 @@ def tp_forward_checks(dev, card: str) -> dict:
     for of in ("stats", "apply"):
         s = {k: sum(r[f"{of}_{k}"] * r["calls"] for r in rows)
              for k in ("ms", "whole_ms", "plain_ms", "bound_ms", "bytes", "flops")}
-        s["bound_by"] = ("bytes" if s["bytes"] / HBM_BYTES_PER_S >= 3 * s["flops"] / TF32_FLOPS
-                         else "operations")
+        s["bound_by"] = tp_bound_by(dt, s["bytes"], s["flops"])
         s.update(calls=sum(r["calls"] for r in rows),
                  max_abs_err=max(r[f"{of}_max_abs_err"] for r in rows),
                  rel_err=max(r[f"{of}_rel_err"] for r in rows))
         per[of] = s
-        log(f"  {of} per flagship forward (member 0 of {TP_N}, its {s['calls']} calls): "
+        log(f"  {of} per flagship forward ({dt}, member 0 of {TP_N}, its {s['calls']} calls): "
             f"{s['ms']:.2f} ms (the whole calls {s['whole_ms']:.2f}, plain {s['plain_ms']:.2f}, "
             f"bound {s['bound_ms']:.4f}, by {s['bound_by']}); members {s['rel_err']:.2e} of "
             "max-abs off plain")
@@ -4884,40 +4967,45 @@ def tp_member_bwd(kind: str, args, t: int):
 
 def tp_bwd_cost(kind: str, args) -> tuple:
     """(bytes, flops) of one member's K10a / K10b backward: each input and
-    output read or written once in float32 (x and dx, the weights and their
-    cotangents, the stats' or comb's cotangents, the gate and its
-    cotangent, dy), the products of the forward it recomputes and of its
-    cotangents (bwd_cost's count at q/k/v width CL)."""
+    output read or written once (x, dx, dy and the gate in x's type; the
+    weights and their cotangents, the stats' or comb's cotangents and the
+    gate's cotangent float32), the products of the forward it recomputes
+    and of its cotangents (bwd_cost's count at q/k/v width CL)."""
     x = args[0]
     b, h, w, c = x.shape
+    es = x.element_size()
     cl = args[1 if kind == "stats" else 2].shape[0] // 3
     p = b * h * w
     if kind == "stats":
         dh = args[8].shape[-1]
-        return (2 * p * c * 4 + (2 * cl * c + 18 * cl) * 2 * 4 + 3 * b * cl * dh * 4,
+        return (2 * p * c * es + (2 * cl * c + 18 * cl) * 2 * 4 + 3 * b * cl * dh * 4,
                 2 * p * (2 * c * 2 * cl + 36 * cl) + 2 * p * (2 * cl * dh + 4 * cl))
     gate = args[8]
-    gb = 0 if gate is None else 2 * gate.numel() * 4
-    return (3 * p * c * 4 + 2 * b * cl * c * 4 + (cl * c + 9 * cl) * 2 * 4 + gb,
+    gb = 0 if gate is None else gate.numel() * (es + 4)
+    return (3 * p * c * es + 2 * b * cl * c * 4 + (cl * c + 9 * cl) * 2 * 4 + gb,
             2 * p * (2 * c * cl + 2 * cl * c + 18 * cl))
 
 
-def tp_backward_checks(dev, card: str) -> dict:
-    """Phase 17 (b): every float32 K10a / K10b call of the flagship step at
-    batch TP_BATCH (one card's whole-map backward on the trained weights,
-    capture_spectral_bwd, as the head-parallel route runs it: no LayerNorm,
-    no residual) as TP_N members: each member's kernel backward against its
-    plain backward (F32_TOL of each output's max-abs: dx, the weight
-    cotangents, d comb, d gate, d dp); the members' dx summed and their
-    weight cotangents scattered into full-size tensors, their d comb
-    stacked, d dp summed, against the whole attention's kernel backward
-    (F32_TOL); member 0 timed beside its plain backward, the whole call and
-    its bound, summed per step."""
+def tp_backward_checks(dev, card: str, dt=torch.float32) -> dict:
+    """Phase 17 (b): every K10a / K10b call of the flagship step in ``dt``
+    at batch TP_BATCH (TP_BF16_BATCH in bf16; one card's whole-map backward
+    on the trained weights, capture_spectral_bwd, as the head-parallel route
+    runs it: no LayerNorm, no residual) as TP_N members: each member's
+    kernel backward against its plain backward (F32_TOL of each output's
+    max-abs, BF16_TOL in bf16: dx, the weight cotangents, d comb, d gate, d
+    dp); the members' dx summed and their weight cotangents scattered into
+    full-size tensors, their d comb stacked, d dp summed, against the whole
+    attention's kernel backward (F32_TOL, TP_BF16_COMPOSE_TOL); member 0
+    timed beside its plain backward, the whole call and its bound, summed
+    per step."""
     from mp_hsir_tpu_torch.ops.kernels import spectral as sp
     from mp_hsir_tpu_torch.parallel.tp import qkv_rows
 
-    batch = train_batch(dev, TP_BATCH, TRAIN_SIZE)
-    calls = capture_spectral_bwd(dev, batch)
+    bf16 = dt == torch.bfloat16
+    tol, ctol = (BF16_TOL, TP_BF16_COMPOSE_TOL) if bf16 else (F32_TOL, F32_TOL)
+    nb = TP_BF16_BATCH if bf16 else TP_BATCH
+    batch = train_batch(dev, nb, TRAIN_SIZE)
+    calls = capture_spectral_bwd(dev, batch, "bfloat16" if bf16 else "float32")
     del batch
     torch.cuda.empty_cache()
     kern = dict(stats=sp._stats_bwd_launch, apply=sp._apply_bwd_launch)
@@ -4937,10 +5025,10 @@ def tp_backward_checks(dev, card: str) -> dict:
             e_abs, e = bwd_errs(got, plain[kind](*a))
             worst, worst_abs = max(worst, e), max(worst_abs, e_abs)
             outs.append(got)
-        if not worst <= F32_TOL:
-            fail(f"head-block {kind} backward at {tuple(args[0].shape)}: {worst:.3e} of max-abs "
-                 "off its plain backward")
-        dx = outs[0][0] + outs[1][0]
+        if not worst <= tol:
+            fail(f"head-block {kind} backward at {tuple(args[0].shape)} {dt}: {worst:.3e} of "
+                 "max-abs off its plain backward")
+        dx = outs[0][0].float() + outs[1][0].float()
         iw = (1, 2) if kind == "stats" else (2, 3)
         got, want = [dx], [whole[0]]
         for i in iw:
@@ -4957,9 +5045,9 @@ def tp_backward_checks(dev, card: str) -> dict:
                 got.append(outs[0][8] + outs[1][8])
                 want.append(whole[8])
         comp = bwd_errs(got, want)[1]
-        if not comp <= F32_TOL:
-            fail(f"head-block {kind} backward at {tuple(args[0].shape)}: the members composed "
-                 f"differ from the whole backward by {comp:.3e} of max-abs")
+        if not comp <= ctol:
+            fail(f"head-block {kind} backward at {tuple(args[0].shape)} {dt}: the members "
+                 f"composed differ from the whole backward by {comp:.3e} of max-abs")
         a0 = tp_member_bwd(kind, args, 0) + [None]
         byts, flops = tp_bwd_cost(kind, a0)
         row = dict(kind=kind, shape=list(args[0].shape), calls=1, max_rel_err=worst,
@@ -4967,7 +5055,7 @@ def tp_backward_checks(dev, card: str) -> dict:
                    ms=time_ms(lambda: kern[kind](*a0), 5),
                    whole_ms=time_ms(lambda: kern[kind](*args, None), 5),
                    plain_ms=time_ms(lambda: plain[kind](*a0), 1), bytes=byts, flops=flops,
-                   bound_ms=f32_bound_ms(byts, flops))
+                   bound_ms=tp_bound_ms(dt, byts, flops))
         rows.append(row)
         del whole, outs, got, want
     torch.cuda.empty_cache()
@@ -4976,13 +5064,12 @@ def tp_backward_checks(dev, card: str) -> dict:
         rs = [r for r in rows if r["kind"] == kind]
         s = {k: sum(r[k] for r in rs) for k in ("ms", "whole_ms", "plain_ms", "bound_ms", "bytes",
                                                 "flops")}
-        s["bound_by"] = ("bytes" if s["bytes"] / HBM_BYTES_PER_S >= 3 * s["flops"] / TF32_FLOPS
-                         else "operations")
+        s["bound_by"] = tp_bound_by(dt, s["bytes"], s["flops"])
         s.update(calls=len(rs), max_abs_err=max(r["max_abs_err"] for r in rs),
                  rel_err=max(r["max_rel_err"] for r in rs),
                  composed_rel_err=max(r["composed_rel_err"] for r in rs))
         per[kind + "_bwd"] = s
-        log(f"  {kind} backward per flagship step (batch {TP_BATCH}, member 0 of {TP_N}, its "
+        log(f"  {kind} backward per flagship step ({dt}, batch {nb}, member 0 of {TP_N}, its "
             f"{s['calls']} calls): members {s['rel_err']:.2e} of max-abs off plain, composed "
             f"{s['composed_rel_err']:.2e}; {s['ms']:.2f} ms (the whole calls {s['whole_ms']:.2f}"
             f", plain {s['plain_ms']:.2f}, bound {s['bound_ms']:.4f}, by {s['bound_by']})")
@@ -4996,12 +5083,12 @@ def _tp_counts() -> dict:
     return {k: c.launches for k, c in _route.COUNTERS.items() if c.launches}
 
 
-def _tp_eval_rank(info, preset: str, degraded, tid, mesh) -> dict:
-    """Phase 17 (c) / (e) on this rank: make_eval_step on ``mesh``, float32,
-    the flagship's trained weights or the remote-sensing preset's seeded
-    ones, one counted and timed call (the first: every kernel is built).
-    Returns the output (rank 0) and every rank's launches, plain calls and
-    ms."""
+def _tp_eval_rank(info, preset: str, degraded, tid, mesh, dtype: str = "float32") -> dict:
+    """Phase 17 (c) / (e) on this rank: make_eval_step on ``mesh`` in
+    ``dtype``, the flagship's trained weights or the remote-sensing preset's
+    seeded ones, one counted and timed call (the first: every kernel is
+    built). Returns the output (rank 0) and every rank's launches, plain
+    calls and ms."""
     import torch.distributed as dist
 
     from mp_hsir_tpu_torch.checkpoint import load_params_npz
@@ -5012,11 +5099,11 @@ def _tp_eval_rank(info, preset: str, degraded, tid, mesh) -> dict:
 
     dev = info.device
     if preset == "natural_scene":
-        cfg = natural_scene_config(compute_dtype="float32")
+        cfg = natural_scene_config(compute_dtype=dtype)
         model = build_model(cfg, dev)
         load_params_npz(ART, model)
     else:
-        cfg = remote_sensing_config(compute_dtype="float32")
+        cfg = remote_sensing_config(compute_dtype=dtype)
         torch.manual_seed(RS_SEED)
         model = build_model(cfg, dev)
     step = make_eval_step(cfg, mesh)
@@ -5035,60 +5122,78 @@ def _tp_eval_rank(info, preset: str, degraded, tid, mesh) -> dict:
     return dict(out=out.cpu(), ranks=ranks)
 
 
-def tp_eval_inputs(dev, preset: str) -> dict:
+def tp_eval_inputs(dev, preset: str, dtype: str = "float32") -> dict:
     """One cube of ``preset`` (the flagship: phase 3's 512^2 quality cube on
     the trained weights; the remote-sensing preset: a 256^2 100-band cube
-    on its seeded weights) and the one-rank float32 forward on it."""
+    on its seeded weights), the one-rank float32 forward on it and, for
+    ``dtype`` bfloat16, the one-rank bf16 kernel forward (``one``; else the
+    float32 one)."""
     from mp_hsir_tpu_torch.checkpoint import load_params_npz
     from mp_hsir_tpu_torch.config import natural_scene_config, remote_sensing_config
     from mp_hsir_tpu_torch.models.mp_hsir import build_model
 
-    if preset == "natural_scene":
-        clean, degraded = quality_cube(990, SIZE)
-        model = build_model(natural_scene_config(compute_dtype="float32"), dev)
-        load_params_npz(ART, model)
-        tid = 0
-    else:
-        clean, degraded = quality_cube(990, RS_SIZE, 100)
-        torch.manual_seed(RS_SEED)
-        model = build_model(remote_sensing_config(compute_dtype="float32"), dev)
-        tid = 6
-    x, t = torch.from_numpy(degraded)[None], torch.tensor([tid])
-    with torch.inference_mode():
-        one = model(x.to(dev), t.to(dev)).cpu()
-    del model
-    torch.cuda.empty_cache()
-    return dict(preset=preset, x=x, t=t, one=one, clean=torch.from_numpy(clean)[None])
+    x, outs = None, {}
+    for dt in ["float32"] + (["bfloat16"] if dtype == "bfloat16" else []):
+        if preset == "natural_scene":
+            clean, degraded = quality_cube(990, SIZE)
+            model = build_model(natural_scene_config(compute_dtype=dt), dev)
+            load_params_npz(ART, model)
+            tid = 0
+        else:
+            clean, degraded = quality_cube(990, RS_SIZE, 100)
+            torch.manual_seed(RS_SEED)
+            model = build_model(remote_sensing_config(compute_dtype=dt), dev)
+            tid = 6
+        x, t = torch.from_numpy(degraded)[None], torch.tensor([tid])
+        with torch.inference_mode():
+            outs[dt] = model(x.to(dev), t.to(dev)).float().cpu()
+        del model
+        torch.cuda.empty_cache()
+    return dict(preset=preset, x=x, t=t, one=outs[dtype], one_f32=outs["float32"],
+                clean=torch.from_numpy(clean)[None], dtype=dtype)
 
 
 def tp_eval_verdict(dev, job: dict, res: dict, shape) -> dict:
     """Phase 17 (c) / (e)'s checks: the mesh's output against the one-rank
-    float32 forward (MODEL_F32_TOL of max-abs), PSNR and SSIM against the
-    clean cube within MESH_CLI_TOL of one rank's; per rank the head-block
-    launches of one forward (the flagship: TP_LAUNCHES) and no plain call;
-    ms per forward per rank (ranks sharing one card: not a multi-card
-    figure)."""
+    forward of its type (MODEL_F32_TOL of max-abs in float32; bf16:
+    TP_BF16_EVAL_TOL against the one-rank bf16 kernel forward, and PSNR
+    within MODEL_PSNR_TOL of the one-rank float32 forward's), PSNR and SSIM
+    against the clean cube within MESH_CLI_TOL of one rank's in float32; per
+    rank the head-block launches of one forward (the flagship: TP_LAUNCHES)
+    and no plain call; ms per forward per rank (ranks sharing one card: not
+    a multi-card figure)."""
     from mp_hsir_tpu_torch.ops.metrics import compute_psnr_ssim
 
-    preset, out, one = job["preset"], res["out"], job["one"]
+    preset, out, one = job["preset"], res["out"].float(), job["one"]
+    bf16 = job["dtype"] == "bfloat16"
     err = ((out - one).abs().max() / one.abs().max()).item()
     c = job["clean"].to(dev)
     p1, s1, _ = compute_psnr_ssim(one.to(dev), c)
     p2, s2, _ = compute_psnr_ssim(out.to(dev), c)
-    log(f"  {preset} {'x'.join(map(str, shape))} eval step: {err:.2e} of max-abs off one rank "
-        f"(bound {MODEL_F32_TOL}); PSNR {p2:.4f} / one rank {p1:.4f}, SSIM {s2:.5f} / {s1:.5f}")
-    if not (err <= MODEL_F32_TOL and abs(p2 - p1) <= MESH_CLI_TOL[0]
-            and abs(s2 - s1) <= MESH_CLI_TOL[1]):
-        fail(f"{preset} spectral-axis eval step: {err:.3e} off one rank, PSNR {p2} vs {p1}, SSIM "
-             f"{s2} vs {s1}")
+    what = f"{preset} {job['dtype']} {'x'.join(map(str, shape))}"
+    if bf16:
+        p32, s32, _ = compute_psnr_ssim(job["one_f32"].to(dev), c)
+        log(f"  {what} eval step: {err:.2e} of max-abs off one rank's bf16 forward (bound "
+            f"{TP_BF16_EVAL_TOL}); PSNR {p2:.4f} / one rank bf16 {p1:.4f} / float32 {p32:.4f} "
+            f"(bound {MODEL_PSNR_TOL} dB), SSIM {s2:.5f} / {s1:.5f} / {s32:.5f}")
+        if not (err <= TP_BF16_EVAL_TOL and abs(p2 - p32) <= MODEL_PSNR_TOL):
+            fail(f"{what} spectral-axis eval step: {err:.3e} off one rank, PSNR {p2} vs float32 "
+                 f"{p32}")
+    else:
+        log(f"  {what} eval step: {err:.2e} of max-abs off one rank (bound {MODEL_F32_TOL}); "
+            f"PSNR {p2:.4f} / one rank {p1:.4f}, SSIM {s2:.5f} / {s1:.5f}")
+        if not (err <= MODEL_F32_TOL and abs(p2 - p1) <= MESH_CLI_TOL[0]
+                and abs(s2 - s1) <= MESH_CLI_TOL[1]):
+            fail(f"{preset} spectral-axis eval step: {err:.3e} off one rank, PSNR {p2} vs {p1}, "
+                 f"SSIM {s2} vs {s1}")
     for r, rk in enumerate(res["ranks"]):
         got = {k: rk["launches"].get(k, 0) for k in TP_LAUNCHES}
         if rk["plain_calls"] or min(got.values()) == 0 or (
                 preset == "natural_scene" and got != TP_LAUNCHES):
-            fail(f"{preset} rank {r}: head-block launches {got} (expected "
+            fail(f"{what} rank {r}: head-block launches {got} (expected "
                  f"{TP_LAUNCHES if preset == 'natural_scene' else 'some of each'}), plain calls "
                  f"{rk['plain_calls']}")
-        log(f"  {preset} rank {r} ({rk['device']}, {rk['backend']}): {rk['ms']:.1f} ms for its "
+        log(f"  {what} rank {r} ({rk['device']}, {rk['backend']}): {rk['ms']:.1f} ms for its "
             f"first forward (ranks sharing one card: not a multi-card figure); launches {got}")
     return dict(rel_err=err, psnr=(p2, p1), ssim=(s2, s1), ranks=res["ranks"])
 
@@ -5130,9 +5235,10 @@ def _tp_check_route_bwd(sp, out: dict):
     return restore
 
 
-def _tp_train_rank(info, mesh, batch: dict, cot, seed: int, steps: int) -> dict:
-    """Phase 17 (d) on this rank: the flagship float32 model on the trained
-    weights on ``mesh``: (1) its block's gradients with the given loss
+def _tp_train_rank(info, mesh, batch: dict, cot, seed: int, steps: int,
+                   dtype: str = "float32") -> dict:
+    """Phase 17 (d) on this rank: the flagship model in ``dtype`` on the
+    trained weights on ``mesh``: (1) its block's gradients with the given loss
     cotangent, summed over every rank and divided by the spectral axis's
     size (each member holds the whole batch's replicated gradients and n
     times its head block's: the sum over the members is n times the whole
@@ -5157,7 +5263,7 @@ def _tp_train_rank(info, mesh, batch: dict, cot, seed: int, steps: int) -> dict:
     )
 
     dev = info.device
-    cfg = natural_scene_config(compute_dtype="float32")
+    cfg = natural_scene_config(compute_dtype=dtype)
     model = build_model(cfg, dev, train=True)
     load_params_npz(ART, model)
     sp_ax, dp_ax, tp_ax, every = (mesh.axis(a) for a in (SPATIAL_AXIS, DATA_AXIS, SPECTRAL_AXIS,
@@ -5170,9 +5276,10 @@ def _tp_train_rank(info, mesh, batch: dict, cot, seed: int, steps: int) -> dict:
     mine = {}
     gen = torch.Generator(device=dev).manual_seed(fold_seed(seed, axis_index(dp_ax)))
     pred = model(block["degraded"], block["task_id"], gen, axis=sp_ax, spectral=tp_ax)
+    cb = cb.to(pred.dtype).contiguous()
     torch.cuda.synchronize()
     _route.reset_counters()
-    pred.backward(cb.contiguous())
+    pred.backward(cb)
     torch.cuda.synchronize()
     mine["bwd_launches"] = _tp_counts()
     mine["bwd_plain_calls"] = _route.ROUTE.plain_cuda_calls
@@ -5186,7 +5293,7 @@ def _tp_train_rank(info, mesh, batch: dict, cot, seed: int, steps: int) -> dict:
     mine["route_bwd"] = {}
     restore = _tp_check_route_bwd(sp, mine["route_bwd"])
     try:
-        pred.backward(cb.contiguous())
+        pred.backward(cb)
     finally:
         restore()
     model.zero_grad(set_to_none=True)
@@ -5215,49 +5322,80 @@ def _tp_train_rank(info, mesh, batch: dict, cot, seed: int, steps: int) -> dict:
     return dict(grads=grads, ranks=ranks)
 
 
-def _tp_rank(info, shape, evals, train):
+def _tp_rank(info, shape, runs):
     """One rank of phase 17 (c) - (e): on the (data, spatial, spectral) mesh
-    ``shape``, each eval job of ``evals`` (preset, cube, task id), then
-    ``train`` ((batch, cot, seed, steps) or None). Every rank runs the same
-    collectives in the same order; rank 0 returns the results."""
+    ``shape``, for each (dtype, evals, train) of ``runs`` in order (one
+    process for both compute types), each eval job of ``evals`` (preset,
+    cube, task id), then ``train`` ((batch, cot, seed, steps) or None), in
+    that dtype. Every rank runs the same collectives in the same order; rank
+    0 returns the results by dtype."""
     from mp_hsir_tpu_torch.parallel.mesh import make_mesh
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     mesh = make_mesh(*shape)
-    res = dict(evals=[_tp_eval_rank(info, *job, mesh) for job in evals])
-    if train is not None:
-        res["train"] = _tp_train_rank(info, mesh, *train)
+    res = {}
+    for dtype, evals, train in runs:
+        r = res[dtype] = dict(evals=[_tp_eval_rank(info, *job, mesh, dtype) for job in evals])
+        if train is not None:
+            r["train"] = _tp_train_rank(info, mesh, *train, dtype)
+        torch.cuda.empty_cache()
     return res if info.rank == 0 else None
 
 
-def tp_step_verdict(what: str, out: dict, g_kern: dict, steps: int) -> dict:
+def tp_step_verdict(what: str, out: dict, g_kern: dict, steps: int, noise=None) -> dict:
     """Phase 17 (d)'s checks on one mesh's step: the gradients (the
-    one-rank plain step's loss cotangent) against the one-rank kernel step
-    (TP_GRAD_TOL, norm-wise per tensor); per rank per step the head-block
-    backward launches (TP_BWD_LAUNCHES) and no plain call; each of the
-    route's head-block backward launches within F32_TOL of its plain
-    backward, at shift 0 and with the shifted blocks' gate maps; the parameters
-    bitwise equal across the ranks after TP_BITWISE_STEPS and after
-    ``steps``; where ``steps`` is TP_STEPS, the loss falls over them; ms per
-    step per rank (ranks sharing one card: not a multi-card figure)."""
-    vs_one = grad_rel(out["grads"], g_kern)
-    log(f"  {what}: gradients vs one rank worst {vs_one[0][0]:.2e} ({vs_one[0][1]}; bound "
-        f"{TP_GRAD_TOL})")
-    if vs_one[0][0] > TP_GRAD_TOL:
-        fail(f"{what}: gradient of {vs_one[0][1]} differs from one rank's by {vs_one[0][0]:.2e}")
+    one-rank plain step's loss cotangent; bf16: the one-rank bf16 step's)
+    against the one-rank kernel step in the same type (float32: TP_GRAD_TOL,
+    norm-wise per tensor; bf16, where ``noise`` holds each tensor's one-rank
+    bf16 gradient's distance from its float32 one: every tensor
+    concatenated within MESH_BF16_GRAD_TOL, and per tensor within
+    TP_BF16_TENSOR_TOL where that distance is within MESH_BF16_NOISE_TOL);
+    per rank per step the head-block forward and
+    backward launches (TP_LAUNCHES, TP_BWD_LAUNCHES) and no plain call; each of the route's
+    head-block backward launches within F32_TOL (BF16_TOL) of its plain
+    backward, at shift 0 and with the shifted blocks' gate maps; the
+    parameters bitwise equal across the ranks after TP_BITWISE_STEPS and
+    after ``steps``; where ``steps`` is TP_STEPS, the loss falls over them;
+    ms per step per rank (ranks sharing one card: not a multi-card
+    figure)."""
+    bf16 = noise is not None
+    vs_one = grad_rel({k: v.float() for k, v in out["grads"].items()}, g_kern)
     row = dict(grad_vs_one_rank=vs_one[:5], ranks=[])
+    if bf16:
+        keys = sorted(g_kern)
+        mesh_flat = torch.cat([out["grads"][k].float().reshape(-1) for k in keys])
+        one_flat = torch.cat([g_kern[k].reshape(-1) for k in keys])
+        flat = ((mesh_flat - one_flat).norm() / one_flat.norm()).item()
+        resolved = [(e, k) for e, k in vs_one if noise[k] <= MESH_BF16_NOISE_TOL]
+        log(f"  {what}: gradients vs one rank's bf16 step, concatenated {flat:.2e} (bound "
+            f"{MESH_BF16_GRAD_TOL}); per tensor where bf16 resolves it ({len(resolved)} of "
+            f"{len(vs_one)}) worst {resolved[0][0]:.2e} ({resolved[0][1]}; bound "
+            f"{TP_BF16_TENSOR_TOL}); overall worst {vs_one[0][0]:.2e} ({vs_one[0][1]})")
+        if flat > MESH_BF16_GRAD_TOL or resolved[0][0] > TP_BF16_TENSOR_TOL:
+            fail(f"{what}: gradients {flat:.2e} off one rank's concatenated, {resolved[0][1]} "
+                 f"{resolved[0][0]:.2e}")
+        row.update(grad_concat_vs_one_rank=flat, grad_resolved_vs_one_rank=resolved[:5])
+    else:
+        log(f"  {what}: gradients vs one rank worst {vs_one[0][0]:.2e} ({vs_one[0][1]}; bound "
+            f"{TP_GRAD_TOL})")
+        if vs_one[0][0] > TP_GRAD_TOL:
+            fail(f"{what}: gradient of {vs_one[0][1]} differs from one rank's by "
+                 f"{vs_one[0][0]:.2e}")
+    tol = BF16_TOL if bf16 else F32_TOL
     for r, rk in enumerate(out["ranks"]):
         bl = {k: rk["bwd_launches"].get(k, 0) for k in TP_BWD_LAUNCHES}
         per = {k: rk["launches"].get(k, 0) / steps for k in TP_BWD_LAUNCHES}
+        per_fwd = {k: rk["launches"].get(k, 0) / steps for k in TP_LAUNCHES}
         if rk["bwd_plain_calls"] or rk["plain_calls"]:
             fail(f"{what} rank {r}: plain-version calls on CUDA tensors")
-        if bl != TP_BWD_LAUNCHES or per != TP_BWD_LAUNCHES:
+        if bl != TP_BWD_LAUNCHES or per != TP_BWD_LAUNCHES or per_fwd != TP_LAUNCHES:
             fail(f"{what} rank {r}: head-block backward launches {bl}, per step {per}, "
-                 f"expected {TP_BWD_LAUNCHES}")
+                 f"expected {TP_BWD_LAUNCHES}; forward per step {per_fwd}, expected "
+                 f"{TP_LAUNCHES}")
         for kind, rec in sorted(rk["route_bwd"].items()):
             n = TP_BWD_LAUNCHES[f"spectral_{kind}_bwd_tp"]
-            if rec["worst"] > F32_TOL or rec["calls"] != n or rec["head_blocks"] != n:
+            if rec["worst"] > tol or rec["calls"] != n or rec["head_blocks"] != n:
                 fail(f"{what} rank {r}: the route's head-block {kind} backwards: {rec['calls']} "
                      f"calls ({rec['head_blocks']} head blocks), {rec['worst']:.3e} of max-abs "
                      "off their plain backwards")
@@ -5278,112 +5416,124 @@ def tp_step_verdict(what: str, out: dict, g_kern: dict, steps: int) -> dict:
         med = statistics.median(rk["ms"][1:])
         shared = ("ranks sharing one card: not a multi-card figure" if rk["backend"] == "gloo"
                   else "one card a rank")
-        log(f"  {what} rank {r} ({rk['device']}, {rk['backend']}): float32 ms per step "
-            f"{med:.1f} ({shared}), losses " + " ".join(f"{v:.5f}" for v in losses))
+        log(f"  {what} rank {r} ({rk['device']}, {rk['backend']}): "
+            f"{'bf16' if bf16 else 'float32'} ms per step {med:.1f} ({shared}); head-block "
+            f"launches a step {per_fwd} + {per}; losses " + " ".join(f"{v:.5f}" for v in losses))
         row["ranks"].append(dict(rank=r, ms=rk["ms"], median_ms=med, losses=losses,
                                  launches=rk["launches"], bwd_launches=bl))
     return row
 
 
-def tp_mesh_checks(dev, card: str, backend_cards: bool = False) -> dict:
-    """Phase 17 (c) - (e) on ranks sharing this card over gloo (one card a
-    rank over NCCL with ``backend_cards``: the 1 x 1 x 2 step alone): one
-    spawn of TP_N ranks on a 1 x 1 x TP_N mesh runs (c) the flagship eval
-    step, (e) the remote-sensing eval step and (d) TP_STEPS float32 train
-    steps (batch TP_BATCH x 31 x 64^2, trained weights, drop-path on); then
-    (d) on a 1 x 2 x TP_N mesh, TP_BITWISE_STEPS steps."""
+def tp_mesh_checks(dev, card: str, backend_cards: bool = False,
+                   dtypes=("float32", "bfloat16")) -> dict:
+    """Phase 17 (c) - (e) in each of ``dtypes`` on ranks sharing this card
+    over gloo (one card a rank over NCCL with ``backend_cards``: the 1 x 1 x
+    2 step alone): one spawn of TP_N ranks on a 1 x 1 x TP_N mesh runs, in
+    each type in turn, (c) the flagship eval step, (e) the remote-sensing
+    eval step and (d) TP_STEPS train steps (batch TP_BATCH x 31 x 64^2,
+    TP_BF16_BATCH in bf16, trained weights, drop-path on); then one spawn on
+    a 1 x 2 x TP_N mesh runs (d) in each type, TP_BITWISE_STEPS steps.
+    Returns the verdicts by dtype."""
     from mp_hsir_tpu_torch.parallel import distributed
 
-    evals = [] if backend_cards else [tp_eval_inputs(dev, p) for p in ("natural_scene",
-                                                                       "remote_sensing")]
-    batch = train_batch(dev, TP_BATCH, TRAIN_SIZE)
-    host = {k: v.cpu() for k, v in batch.items()}
-    g_kern, _, cot = one_rank_grads(dev, batch, True)
-    del batch
-    torch.cuda.empty_cache()
+    jobs = {}
+    for dtype in dtypes:
+        bf16 = dtype == "bfloat16"
+        evals = [] if backend_cards else [tp_eval_inputs(dev, p, dtype)
+                                          for p in ("natural_scene", "remote_sensing")]
+        batch = train_batch(dev, TP_BF16_BATCH if bf16 else TP_BATCH, TRAIN_SIZE)
+        host = {k: v.cpu() for k, v in batch.items()}
+        noise = None
+        if bf16:
+            g_kern, g32, cot = one_rank_bf16_grads(dev, batch, 5)
+            noise = {k: e for e, k in grad_rel(g_kern, g32)}
+            del g32
+        else:
+            g_kern, _, cot = one_rank_grads(dev, batch, True)
+        del batch
+        torch.cuda.empty_cache()
+        jobs[dtype] = dict(evals=evals, host=host, cot=cot.cpu(), g_kern=g_kern, noise=noise)
     shape = (1, 1, TP_N)
-    out = distributed.spawn(_tp_rank, TP_N, shape, [(j["preset"], j["x"], j["t"]) for j in evals],
-                            (host, cot.cpu(), 5, TP_STEPS), device="cuda", timeout_s=600)
-    res = {}
-    for job, r in zip(evals, out["evals"]):
-        res["eval" if job["preset"] == "natural_scene" else "eval_rs"] = tp_eval_verdict(
-            dev, job, r, shape)
-    what = f"1x1x{TP_N}" + (" nccl" if backend_cards else "")
-    res["steps"] = {what: tp_step_verdict(what, out["train"], g_kern, TP_STEPS)}
+    out = distributed.spawn(
+        _tp_rank, TP_N, shape,
+        [(dt, [(j["preset"], j["x"], j["t"]) for j in jobs[dt]["evals"]],
+          (jobs[dt]["host"], jobs[dt]["cot"], 5, TP_STEPS)) for dt in dtypes],
+        device="cuda", timeout_s=900)
+    res = {dt: {} for dt in dtypes}
+    for dt in dtypes:
+        j, o = jobs[dt], out[dt]
+        for job, r in zip(j["evals"], o["evals"]):
+            res[dt]["eval" if job["preset"] == "natural_scene" else "eval_rs"] = tp_eval_verdict(
+                dev, job, r, shape)
+        what = f"1x1x{TP_N} {dt}" + (" nccl" if backend_cards else "")
+        res[dt]["steps"] = {f"1x1x{TP_N}": tp_step_verdict(what, o["train"], j["g_kern"],
+                                                           TP_STEPS, j["noise"])}
     if not backend_cards:
         shape = (1, 2, TP_N)
-        out = distributed.spawn(_tp_rank, 2 * TP_N, shape, [],
-                                (host, cot.cpu(), 5, TP_BITWISE_STEPS), device="cuda",
-                                timeout_s=600)
-        res["steps"][f"1x2x{TP_N}"] = tp_step_verdict(f"1x2x{TP_N}", out["train"], g_kern,
-                                                       TP_BITWISE_STEPS)
+        out = distributed.spawn(
+            _tp_rank, 2 * TP_N, shape,
+            [(dt, [], (jobs[dt]["host"], jobs[dt]["cot"], 5, TP_BITWISE_STEPS)) for dt in dtypes],
+            device="cuda", timeout_s=900)
+        for dt in dtypes:
+            res[dt]["steps"][f"1x2x{TP_N}"] = tp_step_verdict(
+                f"1x2x{TP_N} {dt}", out[dt]["train"], jobs[dt]["g_kern"], TP_BITWISE_STEPS,
+                jobs[dt]["noise"])
     log(card)
     return res
 
 
-def tp_bf16_refusal(dev) -> dict:
-    """Phase 17 (f): bf16 has no head-block tiles yet: a bf16 head-block
-    call on the card raises in the wrappers, and the steps' guard raises for
-    a bf16 model on a spectral axis on the card, each naming the missing
-    tiles."""
-    from mp_hsir_tpu_torch.config import natural_scene_config
-    from mp_hsir_tpu_torch.ops.kernels.spectral import spectral_apply, spectral_stats
-    from mp_hsir_tpu_torch.parallel.tp import head_block
-    from mp_hsir_tpu_torch.training.trainer import _no_bf16_head_blocks
-
-    d = tp_inputs((1, 64, 128, 4, ""), dev)
-    hb = head_block(d["wq"], d["wd"], d["temp"], d["wout"], 4, tp_member(0))
-    xb = d["x"].to(torch.bfloat16)
-    msgs = {}
-    for what, fn in (
-            ("stats", lambda: spectral_stats(xb, hb.wqkv, hb.wdw, hb.heads)),
-            ("apply", lambda: spectral_apply(xb, d["x"].new_zeros((1, 64, 128)), hb.wqkv,
-                                             hb.wdw)),
-            ("steps", lambda: _no_bf16_head_blocks(natural_scene_config(
-                compute_dtype="bfloat16"), tp_member(0), dev))):
-        try:
-            fn()
-        except NotImplementedError as e:
-            msgs[what] = str(e)
-        if "bf16 head-block tiles" not in msgs.get(what, ""):
-            fail(f"a bf16 head-block {what} call on the card did not raise with its message")
-    log("  a bf16 head block on the card raises: " + msgs.get("stats", "")[:120] + " ...")
-    return msgs
-
-
-def tp_phase(dev, card: str) -> dict:
-    """Phase 17: (a) the head-block forward tiles, (b) the head-block
-    backwards, (c) the flagship 1 x 1 x 2 eval step, (d) the 1 x 1 x 2 and
-    1 x 2 x 2 train steps, (e) the remote-sensing 1 x 1 x 2 eval step, (f)
-    the bf16 refusal; the summary rows of the four float32 head-block
-    instances (launches from (c) and (d)'s 1 x 1 x 2 runs, rank 0; times
-    per flagship forward from (a), per step from (b))."""
-    log("== phase 17: the head-parallel spectral mesh axis (float32): the head-block tiles and "
-        "backwards, the eval and train steps on ranks sharing this card")
-    log(card)
-    t0 = time.perf_counter()
-    res = dict(fwd=tp_forward_checks(dev, card))
-    res["bwd"] = tp_backward_checks(dev, card)
-    log("  (c) - (e) the eval and train steps:")
-    res.update(tp_mesh_checks(dev, card))
-    res["bf16"] = tp_bf16_refusal(dev)
+def tp_kernel_rows(res: dict, kernels: dict, dtype: str) -> list:
+    """The kernels line's rows of the four head-block instances of one type:
+    launches from (c)'s and (d)'s 1 x 1 x 2 runs (rank 0), times per
+    flagship forward from (a), per step from (b), the whole calls' beside
+    them."""
     rank0_eval = res["eval"]["ranks"][0]["launches"]
     rank0_step = res["steps"][f"1x1x{TP_N}"]["ranks"][0]["launches"]
-    res["kernels"] = []
-    for name, meta in TP_KERNELS.items():
+    rows = []
+    for name, meta in kernels.items():
         fwd = meta["of"] in ("stats", "apply")
         p = res["fwd"]["per_forward"][meta["of"]] if fwd else res["bwd"]["per_step"][meta["of"]]
         n = (rank0_eval if fwd else rank0_step).get(meta["counter"], 0)
         if n == 0:
             fail(f"the head-block instance {name} was not launched on phase 17's path")
-        res["kernels"].append(dict(
+        rows.append(dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
             tpu=meta["tpu"], launches=n, max_abs_err=p["max_abs_err"], rel_err=p["rel_err"],
             ms=p["ms"], plain_ms=p["plain_ms"], bound_ms=p["bound_ms"], bound_by=p["bound_by"],
             library_ms=None, unsharded_ms=p["whole_ms"],
             **{"launches_per_forward" if fwd else "launches_per_step": p["calls"]},
-            mesh=dict(shape=f"1x1x{TP_N}", what="eval step" if fwd else
+            mesh=dict(shape=f"1x1x{TP_N}", dtype=dtype, what="eval step" if fwd else
                       f"{TP_STEPS} train steps")))
+    return rows
+
+
+def tp_phase(dev, card: str) -> dict:
+    """Phase 17: in float32, then in bf16: (a) the head-block forward tiles,
+    (b) the head-block backwards, (c) the flagship 1 x 1 x 2 eval step, (d)
+    the 1 x 1 x 2 and 1 x 2 x 2 train steps, (e) the remote-sensing 1 x 1 x
+    2 eval step; the summary rows of the eight head-block instances
+    (tp_kernel_rows)."""
+    log("== phase 17: the head-parallel spectral mesh axis (float32, then bf16): the head-block "
+        "tiles and backwards, the eval and train steps on ranks sharing this card")
+    log(card)
+    t0 = time.perf_counter()
+
+    def since():
+        return f"[{time.perf_counter() - t0:.1f} s into phase 17]"
+
+    res = dict(fwd=tp_forward_checks(dev, card))
+    log(f"  (b) the head-block backwards {since()}:")
+    res["bwd"] = tp_backward_checks(dev, card)
+    log(f"  (a) in bf16 {since()}:")
+    bf = res["bf16"] = dict(fwd=tp_forward_checks(dev, card, torch.bfloat16))
+    log(f"  (b) in bf16 {since()}:")
+    bf["bwd"] = tp_backward_checks(dev, card, torch.bfloat16)
+    log(f"  (c) - (e) the eval and train steps, float32 then bf16, in the same ranks {since()}:")
+    mesh = tp_mesh_checks(dev, card)
+    res.update(mesh["float32"])
+    bf.update(mesh["bfloat16"])
+    res["kernels"] = tp_kernel_rows(res, TP_KERNELS, "float32")
+    res["kernels"] += tp_kernel_rows(bf, TP_BF16_KERNELS, "bfloat16")
     log(f"  phase 17 in {time.perf_counter() - t0:.1f} s")
     return res
 
@@ -5437,7 +5587,8 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.build()
     log(f"  kernels built in {time.perf_counter() - t0:.1f} s ({_build.BUILD_INFO.get('path')}, "
-        f"cached={_build.BUILD_INFO.get('cached')})")
+        f"cached={_build.BUILD_INFO.get('cached')}); each source's nvcc ended at (s): "
+        f"{_build.BUILD_INFO.get('seconds_by_source')}")
     for line in _build.BUILD_INFO.get("log", "").splitlines():
         if "registers" in line or "spill" in line.lower() and "0 bytes spill" not in line:
             log("  ptxas: " + line.strip())
@@ -5654,7 +5805,9 @@ def main() -> None:
     rs_tspecs = train_path_specs(rs_cfg, TRAIN_BATCH, TRAIN_SIZE, "torch.bfloat16")
     log(f"== phase 11: remote-sensing training kernels against their plain versions (bf16 and "
         f"f32, batch {TRAIN_BATCH} x {TRAIN_SIZE}^2 step shapes)")
-    rs_train_rows = train_kernel_checks(rs_tspecs, dev, streamed=False)
+    # phase 11 times with fewer repetitions than phase 5 (5 kernel calls, 1
+    # plain), to keep the script within its limit; its checks are phase 5's
+    rs_train_rows = train_kernel_checks(rs_tspecs, dev, streamed=False, iters=5, plain_iters=1)
     log_alone_sums("per remote-sensing train step", rs_train_rows, "per_step")
     f32_rs_train = log_f32_sums("per remote-sensing train step (K6's float32 calls)",
                                 rs_train_rows, "per_step")

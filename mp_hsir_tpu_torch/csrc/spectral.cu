@@ -398,12 +398,15 @@ spectral_apply_f32_kernel(const float* __restrict__ x1, const float* __restrict_
   }
 }
 
-// Arguments: as mp_spectral_apply in bf16, with wv the v rows of wqkv ([C][C8],
-// torch layout), taps the v rows of the depthwise weight ([C][9]) and comb in
-// bf16 ([B][C][C8]); flags: kVecX | kPairs | kVecOut (launch_apply_tc); hal,
-// halo a row shard's halo rows [2][B][W][C] bf16 and which are real
-// (halo_src; the source map is static, so the plan does not change); gwin
-// the gate's window, 8 or 1 for a per-pixel gate map (gate_row).
+// Arguments: as mp_spectral_apply in bf16, with wv the v rows of wqkv ([CL][C8],
+// torch layout), taps the v rows of the depthwise weight ([CL][9]) and comb in
+// bf16 ([B][CL][C8]); CL the v width (C, or a member's head block under the
+// spectral mesh axis: v, its taps and comb's depth CL, the halo, comb's
+// columns and the output C; no tail); flags: kVecX | kPairs | kVecOut
+// (launch_apply_tc); hal, halo a row shard's halo rows [2][B][W][C] bf16 and
+// which are real (halo_src; the source map is static, so the plan does not
+// change); gwin the gate's window, 8 or 1 for a per-pixel gate map
+// (gate_row).
 __global__ void __launch_bounds__(kThreads)
 spectral_apply_tc_kernel(const __nv_bfloat16* __restrict__ x1, const __nv_bfloat16* __restrict__ x2,
                          int C1, int C2, const float* __restrict__ lnw,
@@ -417,17 +420,17 @@ spectral_apply_tc_kernel(const __nv_bfloat16* __restrict__ x1, const __nv_bfloat
                          const __nv_bfloat16* __restrict__ w2, const float* __restrict__ b2,
                          int hid, const float* __restrict__ dp, __nv_bfloat16* __restrict__ out,
                          int H, int W, int shift, float eps, int flags, int tail_stages,
-                         const __nv_bfloat16* __restrict__ hal, int halo, int gwin) {
+                         const __nv_bfloat16* __restrict__ hal, int halo, int gwin, int CL) {
   extern __shared__ float4 front_dyn[];
   __shared__ int hsrc[kFrontRows];            // halo row -> source pixel (halo_src)
   __shared__ int esrc[kPix], egate[kPix];     // tile pixel -> raw source pixel, gate row
   const int C = C1 + C2;
-  const FrontPlan pl(C);
-  const int ld = pl.ld, CP = pl.CP, C8 = round_up8(C);
+  const FrontPlan pl(C, CL);
+  const int ld = pl.ld, ldv = pl.ldv, CP = pl.CP, CPL = pl.CPL, C8 = round_up8(C);
   char* sm = reinterpret_cast<char*>(front_dyn);
-  __nv_bfloat162* tp = reinterpret_cast<__nv_bfloat162*>(sm);        // [9][CP / 2] tap pairs
-  __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(sm + pl.taps);  // [64][ld] v
-  __nv_bfloat16* xh = vs + kPix * ld;                                  // [112][ld] halo
+  __nv_bfloat162* tp = reinterpret_cast<__nv_bfloat162*>(sm);        // [9][CPL / 2] tap pairs
+  __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(sm + pl.taps);  // [64][ldv] v
+  __nv_bfloat16* xh = vs + kPix * ldv;                                 // [112][ld] halo
   __nv_bfloat16* rg = xh + kFrontRows * ld;                            // ring / 1x1 output
   __nv_bfloat16* y = reinterpret_cast<__nv_bfloat16*>(sm);             // [64][ld] (after comb)
   const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
@@ -445,24 +448,26 @@ spectral_apply_tc_kernel(const __nv_bfloat16* __restrict__ x1, const __nv_bfloat
       egate[p] = gate_row(b, sr, sc, H, W, gwin);
     }
   }
-  // the depthwise taps of v as bf16 pairs [9][CP / 2], zero past C
-  for (int i = threadIdx.x; i < 9 * (CP / 2); i += blockDim.x) {
-    const int tap = i / (CP / 2), c = 2 * (i - tap * (CP / 2));
+  // the depthwise taps of v as bf16 pairs [9][CPL / 2], zero past CL
+  for (int i = threadIdx.x; i < 9 * (CPL / 2); i += blockDim.x) {
+    const int tap = i / (CPL / 2), c = 2 * (i - tap * (CPL / 2));
     const __nv_bfloat16 z = __float2bfloat16(0.f);
-    tp[i] = __halves2bfloat162(c < C ? taps[c * 9 + tap] : z, c + 1 < C ? taps[(c + 1) * 9 + tap] : z);
+    tp[i] = __halves2bfloat162(c < CL ? taps[c * 9 + tap] : z,
+                               c + 1 < CL ? taps[(c + 1) * 9 + tap] : z);
   }
   __syncthreads();
 
   // the halo as bf16, one commit group
   stage_halo(xh, ld, hsrc, x1, x2, C1, C2, CP, vec_x, hal);
 
-  // the 1x1 weights of pass p: [NP out][64 in] tiles of wv, zero past C
+  // the 1x1 weights of pass p: [NP out][64 in] tiles of wv, zero past CL
+  // rows and C columns
   float acc[kFrontUnits][4][4];
-  for (int n0 = 0; n0 < CP; n0 += pl.NP) {
-    const int np = min(pl.NP, CP - n0), n_units = 7 * (np / 32);
+  for (int n0 = 0; n0 < CPL; n0 += pl.NP) {
+    const int np = min(pl.NP, CPL - n0), n_units = 7 * (np / 32);
     auto wr = front_ring(rg, (size_t)pl.NP * kFrontLdw, pl.ws, pl.nk,
         [=](int t, __nv_bfloat16* dst) {
-          stage_tile(dst, kFrontLdw, wv + (size_t)n0 * C8 + 64 * t, C8, np, 64, C - n0, C8 - 64 * t);
+          stage_tile(dst, kFrontLdw, wv + (size_t)n0 * C8 + 64 * t, C8, np, 64, CL - n0, C8 - 64 * t);
         });
     wr.prefetch();
     if (n0 == 0) {
@@ -483,17 +488,17 @@ spectral_apply_tc_kernel(const __nv_bfloat16* __restrict__ x1, const __nv_bfloat
     });
     __syncthreads();
     // depthwise 3x3 on bf16 pairs into v
-    dw3_pairs(rg, ldt, tp + n0 / 2, CP / 2, vs + n0, ld, np / 2);
+    dw3_pairs(rg, ldt, tp + n0 / 2, CPL / 2, vs + n0, ldv, np / 2);
     __syncthreads();
   }
 
-  // comb's product: [64 k][CP n] tiles of this image's comb through the halo
-  // and ring space, v by ldmatrix, comb by ldmatrix.trans
+  // comb's product: [64 k][CP n] tiles of this image's comb (CL rows deep)
+  // through the halo and ring space, v by ldmatrix, comb by ldmatrix.trans
   {
-    const __nv_bfloat16* cb = comb + (size_t)b * C * C8;
-    auto cr = front_ring(xh, pl.cstage / sizeof(__nv_bfloat16), pl.cs, pl.nk,
+    const __nv_bfloat16* cb = comb + (size_t)b * CL * C8;
+    auto cr = front_ring(xh, pl.cstage / sizeof(__nv_bfloat16), pl.cs, pl.nkc,
         [=](int t, __nv_bfloat16* dst) {
-          stage_tile(dst, ld, cb + (size_t)64 * t * C8, C8, 64, CP, C - 64 * t, C8);
+          stage_tile(dst, ld, cb + (size_t)64 * t * C8, C8, 64, CP, CL - 64 * t, C8);
         });
     cr.prefetch();
     const int n_units = 4 * (CP / 32);
@@ -501,11 +506,11 @@ spectral_apply_tc_kernel(const __nv_bfloat16* __restrict__ x1, const __nv_bfloat
 #pragma unroll
     for (int j = 0; j < kFrontUnits; ++j) {
       const int q = warp + 16 * j, mt = q & 3, nb = q >> 2;
-      a[j] = smem_u32(vs + (16 * mt + (lane & 15)) * ld + 8 * (lane >> 4));
+      a[j] = smem_u32(vs + (16 * mt + (lane & 15)) * ldv + 8 * (lane >> 4));
       bo[j] = 2 * (((lane & 7) + 8 * ((lane >> 3) & 1)) * ld + 32 * nb + 8 * (lane >> 4));
     }
     front_zero(acc);
-    for (int t = 0; t < pl.nk; ++t) {
+    for (int t = 0; t < pl.nkc; ++t) {
       const uint32_t tile = smem_u32(cr.consume());
       uint32_t at[kFrontUnits], bt[kFrontUnits];
 #pragma unroll
@@ -513,7 +518,7 @@ spectral_apply_tc_kernel(const __nv_bfloat16* __restrict__ x1, const __nv_bfloat
         at[j] = a[j] + 2 * 64 * t;
         bt[j] = tile + bo[j];
       }
-      front_mma<true>(acc, at, bt, n_units, min(4, (CP - 64 * t) / 16), ld);
+      front_mma<true>(acc, at, bt, n_units, min(4, (CPL - 64 * t) / 16), ld);
     }
     cp_async_wait<0>();
     __syncthreads();
@@ -576,9 +581,9 @@ spectral_apply_tc_kernel(const __nv_bfloat16* __restrict__ x1, const __nv_bfloat
 
 // The apply plan in the compute type (bytes, static included): the bf16
 // tile's FrontPlan or the float32 tile's ApplyF32Plan (neither has a chunk);
-// CL the v width (float32 only below C).
+// CL the v width (C, or a member's head block).
 inline long long apply_plan_bytes(int C, bool tail, bool bf16, int CL) {
-  return bf16 ? plan_bytes(spectral_apply_tc_kernel, FrontPlan(C).bytes(tail))
+  return bf16 ? plan_bytes(spectral_apply_tc_kernel, FrontPlan(C, CL).bytes(tail))
               : plan_bytes(spectral_apply_f32_kernel, ApplyF32Plan(C, CL).bytes(tail));
 }
 
@@ -596,14 +601,14 @@ int stats_parts(K kernel, int threads, size_t smem, int B, int n_tiles) {
   return parts < 1 ? 1 : parts > n_tiles ? n_tiles : parts;
 }
 
-// The parts per image of a launch (dtype 0: the float32 tile, q|k width CL;
-// 1: the bf16 tile).
+// The parts per image of a launch (dtype 0: the float32 tile, 1: the bf16
+// tile; q|k width CL).
 inline int stats_launch_parts(int dtype, int B, int H, int W, int C, int CL, int nH) {
   const int n_tiles = (H / kTile) * (W / kTile);
   if (dtype == 0)
     return stats_parts(spectral_stats_f32_kernel, kThreads, StatsF32Plan(C, CL, nH).bytes, B,
                        n_tiles);
-  return stats_parts(spectral_stats_tc_kernel, kThreads, StatsPlan(C, nH).bytes, B, n_tiles);
+  return stats_parts(spectral_stats_tc_kernel, kThreads, StatsPlan(C, CL, nH).bytes, B, n_tiles);
 }
 
 cudaError_t launch_sum_stats(const float* part, float* gram, float* nq, float* nk, int B,
@@ -637,27 +642,29 @@ cudaError_t launch_stats(const float* x1, const float* x2, int C1, int C2, const
   return launch_sum_stats(part, gram, nq, nk, B, n_parts, CL, CL / nH, stream);
 }
 
-// The bf16 tile (spectral_stats.cuh): wqk [2C][C8] (16-byte aligned), taps
-// [2C][9]; C up to kFrontMaxC; hal, halo a row shard's bf16 halo rows.
+// The bf16 tile (spectral_stats.cuh): wqk [2CL][C8] (16-byte aligned), taps
+// [2CL][9]; C up to kFrontMaxC; CL the q|k width (C, or a head block of nH
+// heads); hal, halo a row shard's bf16 halo rows.
 cudaError_t launch_stats_tc(const __nv_bfloat16* x1, const __nv_bfloat16* x2, int C1, int C2,
                             const float* lnw, const float* lnb, const __nv_bfloat16* wqk,
                             const __nv_bfloat16* taps, float* part, float* gram, float* nq,
                             float* nk, int B, int H, int W, int nH, int shift, float eps,
-                            int n_parts, const __nv_bfloat16* hal, int halo,
+                            int n_parts, const __nv_bfloat16* hal, int halo, int CL,
                             cudaStream_t stream) {
   const int C = C1 + C2;
-  if (C > kFrontMaxC || !aligned(wqk, 16) || (halo != 0 && (hal == nullptr || shift != 0)))
+  if (C > kFrontMaxC || !aligned(wqk, 16) || (halo != 0 && (hal == nullptr || shift != 0)) ||
+      CL <= 0 || CL > C)
     return cudaErrorInvalidValue;
-  const size_t smem = StatsPlan(C, nH).bytes;
+  const size_t smem = StatsPlan(C, CL, nH).bytes;
   int flags = 0;
   if (C1 % 8 == 0 && C2 % 8 == 0 && aligned(x1, 16) && aligned(x2, 16) && aligned(hal, 16))
     flags |= kVecX;
   cudaError_t err = set_smem(spectral_stats_tc_kernel, smem);
   if (err != cudaSuccess) return err;
   spectral_stats_tc_kernel<<<dim3(n_parts, B), kThreads, smem, stream>>>(
-      x1, x2, C1, C2, lnw, lnb, wqk, taps, H, W, nH, shift, eps, flags, hal, halo, part);
+      x1, x2, C1, C2, lnw, lnb, wqk, taps, H, W, nH, shift, eps, flags, hal, halo, part, CL);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  return launch_sum_stats(part, gram, nq, nk, B, n_parts, C, C / nH, stream);
+  return launch_sum_stats(part, gram, nq, nk, B, n_parts, CL, CL / nH, stream);
 }
 
 // The float32 tile: wv [CL][C8], taps [CL][9], combt [B][C][CL8] float32 (wv
@@ -692,9 +699,10 @@ cudaError_t launch_apply_f32(const float* x1, const float* x2, int C1, int C2, c
   return cudaGetLastError();
 }
 
-// The bf16 tile (spectral_front.cuh): wv [C][C8], taps [C][9], comb
-// [B][C][C8] bf16 (C8 = C rounded up to 8; wv and comb 16-byte aligned); C up
-// to kFrontMaxC; hal, halo a row shard's bf16 halo rows.
+// The bf16 tile (spectral_front.cuh): wv [CL][C8], taps [CL][9], comb
+// [B][CL][C8] bf16 (C8 = C rounded up to 8; wv and comb 16-byte aligned); C up
+// to kFrontMaxC; CL the v width (C, or a head block, which takes no tail);
+// hal, halo a row shard's bf16 halo rows.
 cudaError_t launch_apply_tc(const __nv_bfloat16* x1, const __nv_bfloat16* x2, int C1, int C2,
                             const float* lnw, const float* lnb, const __nv_bfloat16* wv,
                             const __nv_bfloat16* taps, const __nv_bfloat16* comb,
@@ -703,13 +711,13 @@ cudaError_t launch_apply_tc(const __nv_bfloat16* x1, const __nv_bfloat16* x2, in
                             const __nv_bfloat16* w1, const float* b1, const __nv_bfloat16* w2,
                             const float* b2, int hid, const float* dp, __nv_bfloat16* out, int B,
                             int H, int W, int shift, float eps, const __nv_bfloat16* hal,
-                            int halo, int gwin, cudaStream_t stream) {
+                            int halo, int gwin, int CL, cudaStream_t stream) {
   const int C = C1 + C2;
-  if (C > kFrontMaxC || !aligned(wv, 16) || !aligned(comb, 16) ||
-      (halo != 0 && (hal == nullptr || shift != 0)))
-    return cudaErrorInvalidValue;
   const bool tail = w1 != nullptr;
-  const FrontPlan pl(C);
+  if (C > kFrontMaxC || !aligned(wv, 16) || !aligned(comb, 16) ||
+      (halo != 0 && (hal == nullptr || shift != 0)) || CL <= 0 || CL > C || (tail && CL != C))
+    return cudaErrorInvalidValue;
+  const FrontPlan pl(C, CL);
   const size_t smem = pl.bytes(tail);
   int flags = 0;
   if (C1 % 8 == 0 && C2 % 8 == 0 && aligned(x1, 16) && aligned(x2, 16) && aligned(hal, 16))
@@ -723,7 +731,7 @@ cudaError_t launch_apply_tc(const __nv_bfloat16* x1, const __nv_bfloat16* x2, in
   spectral_apply_tc_kernel<<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
       x1, x2, C1, C2, lnw, lnb, wv, taps, comb, gate, shortcut, residual, ln2w, ln2b, w1, b1, w2,
       b2, hid, dp, out, H, W, shift, eps, flags, tail ? tail_stages(C, smem - pl.y) : 0, hal,
-      halo, gwin);
+      halo, gwin, CL);
   return cudaGetLastError();
 }
 
@@ -1008,26 +1016,27 @@ cudaError_t launch_stats_bwd(const void* x, const float* lnw, const float* lnb, 
 }
 
 // The bf16 stats backward's two tiles: launch 1 (spectral_stats.cuh) writes
-// un, t and dqk; launch 2 (dwconv_dx.cuh, K = 2C) dtt, dx and the per-tile
-// partials. wqk [2C][C8] and taps [2C][9] as the forward tile's; C up to
-// kFrontMaxC; hal, halo, un_halo, t_halo a row shard's (shift 0).
+// un, t and dqk; launch 2 (dwconv_dx.cuh, K = 2CL) dtt, dx and the per-tile
+// partials. wqk [2CL][C8] and taps [2CL][9] as the forward tile's (CL the
+// q|k width: C, or a head block); C up to kFrontMaxC; hal, halo, un_halo,
+// t_halo a row shard's (shift 0).
 cudaError_t launch_stats_bwd_tc(const __nv_bfloat16* x, const float* lnw, const float* lnb,
                                 const __nv_bfloat16* wqk, const __nv_bfloat16* taps,
                                 const float* dgram, const float* dnq, const float* dnk,
                                 __nv_bfloat16* un, __nv_bfloat16* t, float* dqk, int B, int H,
                                 int W, int C, int nH, int shift, float eps,
                                 const __nv_bfloat16* hal, int halo, __nv_bfloat16* un_halo,
-                                __nv_bfloat16* t_halo, cudaStream_t stream) {
-  if (C > kFrontMaxC || !aligned(wqk, 16) ||
+                                __nv_bfloat16* t_halo, int CL, cudaStream_t stream) {
+  if (C > kFrontMaxC || !aligned(wqk, 16) || CL <= 0 || CL > C ||
       (halo != 0 && (hal == nullptr || un_halo == nullptr || t_halo == nullptr || shift != 0)))
     return cudaErrorInvalidValue;
-  const size_t smem = StatsBwdPlan(C, nH).bytes;
+  const size_t smem = StatsBwdPlan(C, CL, nH).bytes;
   const int flags = C % 8 == 0 && aligned(x, 16) && aligned(un, 16) && aligned(hal, 16) ? kVecX : 0;
   cudaError_t err = set_smem(spectral_stats_bwd_tc_kernel, smem);
   if (err != cudaSuccess) return err;
   spectral_stats_bwd_tc_kernel<<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
       x, lnw, lnb, wqk, taps, dgram, dnq, dnk, C, H, W, nH, shift, eps, flags, un, t, dqk, hal,
-      halo, un_halo, t_halo);
+      halo, un_halo, t_halo, CL);
   return cudaGetLastError();
 }
 
@@ -1047,9 +1056,10 @@ cudaError_t launch_dwconv_dx_tc(const float* dout, const __nv_bfloat16* t,
   return cudaGetLastError();
 }
 
-// The bf16 apply backward's first tile (spectral_apply_bwd.cuh): wv [C][C8],
-// taps [C][9] and comb [B][C][C8] as the forward tile's; C up to kFrontMaxC;
-// hal, halo, un_halo, t_halo a row shard's (shift 0).
+// The bf16 apply backward's first tile (spectral_apply_bwd.cuh): wv [CL][C8],
+// taps [CL][9] and comb [B][CL][C8] as the forward tile's (CL the v width: C,
+// or a head block); C up to kFrontMaxC; hal, halo, un_halo, t_halo a row
+// shard's (shift 0).
 cudaError_t launch_apply_bwd_tc(const __nv_bfloat16* x, const float* lnw, const float* lnb,
                                 const __nv_bfloat16* wv, const __nv_bfloat16* taps,
                                 const __nv_bfloat16* comb, const __nv_bfloat16* gate,
@@ -1058,40 +1068,43 @@ cudaError_t launch_apply_bwd_tc(const __nv_bfloat16* x, const float* lnw, const 
                                 __nv_bfloat16* dys, float* dv, float* extra, float* pdp, int ldp,
                                 int B, int H, int W, int C, int shift, float eps,
                                 const __nv_bfloat16* hal, int halo, __nv_bfloat16* un_halo,
-                                __nv_bfloat16* t_halo, int gwin, cudaStream_t stream) {
-  if (C > kFrontMaxC || !aligned(wv, 16) || !aligned(comb, 16) ||
+                                __nv_bfloat16* t_halo, int gwin, int CL, cudaStream_t stream) {
+  if (C > kFrontMaxC || !aligned(wv, 16) || !aligned(comb, 16) || CL <= 0 || CL > C ||
       (halo != 0 && (hal == nullptr || un_halo == nullptr || t_halo == nullptr || shift != 0)))
     return cudaErrorInvalidValue;
-  const size_t smem = ApplyBwdPlan(C).bytes;
+  const size_t smem = ApplyBwdPlan(C, CL).bytes;
   int flags = 0;
   if (C % 8 == 0 && aligned(x, 16) && aligned(hal, 16)) flags |= kVecX;
-  if (C % 2 == 0 && aligned(x, 4) && aligned(gate, 4) && aligned(dy, 4) && aligned(dys, 4) &&
-      aligned(dv, 8) && aligned(extra, 8))
+  if (C % 2 == 0 && CL % 2 == 0 && aligned(x, 4) && aligned(gate, 4) && aligned(dy, 4) &&
+      aligned(dys, 4) && aligned(dv, 8) && aligned(extra, 8))
     flags |= kPairs;
-  if (C % 8 == 0 && aligned(un, 16) && aligned(t, 16) && aligned(v, 16)) flags |= kVecOut;
+  if (C % 8 == 0 && CL % 8 == 0 && aligned(un, 16) && aligned(t, 16) && aligned(v, 16))
+    flags |= kVecOut;
   cudaError_t err = set_smem(spectral_apply_bwd_tc_kernel, smem);
   if (err != cudaSuccess) return err;
   spectral_apply_bwd_tc_kernel<<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
       x, lnw, lnb, wv, taps, comb, gate, dp, residual, dy, H, W, C, shift, eps, flags, un, t, v,
-      dys, dv, extra, pdp, ldp, hal, halo, un_halo, t_halo, gwin);
+      dys, dv, extra, pdp, ldp, hal, halo, un_halo, t_halo, gwin, CL);
   return cudaGetLastError();
 }
 
-// Its second tile: dwconv_dx_tc_kernel<true, true> at K = C with the extra
-// cotangent; the part rows at stride ldp.
+// Its second tile: dwconv_dx_tc_kernel<true, true> at K = CL with the extra
+// cotangent (C wide); the part rows at stride ldp.
 cudaError_t launch_apply_dx_tc(const float* dv, const __nv_bfloat16* t, const __nv_bfloat16* taps,
                                const __nv_bfloat16* wv, const __nv_bfloat16* x, const float* lnw,
                                const float* extra, __nv_bfloat16* dt, __nv_bfloat16* dx,
-                               float* part, int ldp, int B, int H, int W, int C, int shift,
-                               float eps, cudaStream_t stream) {
-  if (C > kTailMaxC || !aligned(wv, 16)) return cudaErrorInvalidValue;
-  const size_t smem = DwDxPlan(C, C, true).bytes;
-  const int vec_in = C % 8 == 0 && aligned(dv, 16) && aligned(t, 16) && aligned(extra, 16);
+                               float* part, int ldp, int B, int H, int W, int C, int CL,
+                               int shift, float eps, cudaStream_t stream) {
+  if (C > kTailMaxC || !aligned(wv, 16) || CL <= 0 || CL > C) return cudaErrorInvalidValue;
+  const size_t smem = DwDxPlan(C, CL, true).bytes;
+  // vec_in also gates the extra cotangent's 16-byte copies (C wide)
+  const int vec_in = C % 8 == 0 && CL % 8 == 0 && aligned(dv, 16) && aligned(t, 16) &&
+                     aligned(extra, 16);
   const int vec_x = C % 8 == 0 && aligned(x, 16) && aligned(dx, 16);
   cudaError_t err = set_smem(dwconv_dx_tc_kernel<true, true>, smem);
   if (err != cudaSuccess) return err;
   dwconv_dx_tc_kernel<true, true><<<dim3(W / kTile, H / kTile, B), kThreads, smem, stream>>>(
-      dv, t, taps, wv, x, lnw, H, W, C, C, shift, eps, vec_in, vec_x, dt, dx, part, ldp, extra);
+      dv, t, taps, wv, x, lnw, H, W, C, CL, shift, eps, vec_in, vec_x, dt, dx, part, ldp, extra);
   return cudaGetLastError();
 }
 
@@ -1124,8 +1137,7 @@ cudaError_t launch_apply_bwd(const void* x, const float* lnw, const float* lnb, 
 // Inputs: x1 (B, H, W, C1) and optional x2 (B, H, W, C2), logical input
 // cat(x1, x2); optional LN (float32, over C1 + C2). CL: the q|k width, C =
 // C1 + C2 for the whole attention; a member's head block of nH heads under
-// the spectral mesh axis has CL < C (float32 only: bf16 returns
-// cudaErrorInvalidValue for it, its head-block tiles are not written yet).
+// the spectral mesh axis has CL < C (both types).
 // float32 (dtype 0) or bf16 (dtype 1): wqkv the q|k rows of the torch weight
 // ([2CL][C8], C8 = C rounded up to 8, zero past C; 16-byte aligned), wdw
 // their depthwise taps ([2CL][9]); float32 takes heads up to 96 wide, bf16 C
@@ -1141,8 +1153,7 @@ extern "C" int mp_spectral_stats(const void* x1, const void* x2, const void* lnw
                                  void* gram, void* nq, void* nk, const void* halo, int dtype,
                                  int B, int H, int W, int C1, int C2, int CL, int nH, int shift,
                                  float eps, int n_parts, int halo_flags, void* stream) {
-  if (CL % nH != 0 || H % mp::kTile != 0 || W % mp::kTile != 0 || n_parts <= 0 ||
-      (dtype != 0 && CL != C1 + C2))
+  if (CL % nH != 0 || H % mp::kTile != 0 || W % mp::kTile != 0 || n_parts <= 0)
     return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   auto f = [](const void* p) { return (const float*)p; };
@@ -1153,7 +1164,7 @@ extern "C" int mp_spectral_stats(const void* x1, const void* x2, const void* lnw
   using bf = const __nv_bfloat16*;
   return (int)mp::launch_stats_tc((bf)x1, (bf)x2, C1, C2, f(lnw), f(lnb), (bf)wqkv, (bf)wdw, pt, g,
                                   q, k, B, H, W, nH, shift, eps, n_parts, (bf)halo, halo_flags,
-                                  st);
+                                  CL, st);
 }
 
 // The parts per image a stats launch takes (0 on a device error): the
@@ -1165,8 +1176,8 @@ extern "C" int mp_spectral_stats_parts(int dtype, int B, int H, int W, int C, in
 
 // comb [B][CL][C] (row: v channel h*dh + e, col: output channel; CL the v
 // width: C, or a member's head block under the spectral mesh axis, whose
-// output is its partial projection plus the epilogue; float32 only, and
-// without the tail: bf16 returns cudaErrorInvalidValue for it). gate (B,
+// output is its partial projection plus the epilogue, in both types and
+// without the tail). gate (B,
 // H/8, W/8, C) per-window gates of the rolled frame (gate_win 8), or (B, H,
 // W, C) a per-pixel gate map (gate_win 1; a row shard's, as JAX's
 // gate_map), shortcut (B, H, W, C),
@@ -1179,7 +1190,7 @@ extern "C" int mp_spectral_stats_parts(int dtype, int B, int H, int W, int C, in
 // aligned), all in the compute type.
 // float32 (dtype 0): comb transposed, [B][C out][CL8 in] float32 (CL8 = CL
 // rounded up to 8; 16-byte aligned; pack_front_f32).
-// bf16 (dtype 1, C <= 384): comb bf16 [B][C][C8] (16-byte aligned).
+// bf16 (dtype 1, C <= 384): comb bf16 [B][CL][C8] (16-byte aligned).
 // halo, halo_flags: a row shard's halo rows, as mp_spectral_stats' (shift
 // 0).
 extern "C" int mp_spectral_apply(const void* x1, const void* x2, const void* lnw,
@@ -1190,8 +1201,7 @@ extern "C" int mp_spectral_apply(const void* x1, const void* x2, const void* lnw
                                  void* out, const void* halo, int dtype, int B, int H, int W,
                                  int C1, int C2, int CL, int residual, int hid, int shift,
                                  float eps, int halo_flags, int gate_win, void* stream) {
-  if (H % mp::kTile != 0 || W % mp::kTile != 0 || (gate_win != 1 && gate_win != mp::kTile) ||
-      (dtype != 0 && CL != C1 + C2))
+  if (H % mp::kTile != 0 || W % mp::kTile != 0 || (gate_win != 1 && gate_win != mp::kTile))
     return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   auto f = [](const void* p) { return (const float*)p; };
@@ -1204,7 +1214,7 @@ extern "C" int mp_spectral_apply(const void* x1, const void* x2, const void* lnw
   return (int)mp::launch_apply_tc((bf)x1, (bf)x2, C1, C2, f(lnw), f(lnb), (bf)wqkv, (bf)wdw,
                                   (bf)comb, (bf)gate, (bf)shortcut, residual, f(ln2w), f(ln2b),
                                   (bf)w1, f(b1), (bf)w2, f(b2), hid, f(dp), (__nv_bfloat16*)out,
-                                  B, H, W, shift, eps, (bf)halo, halo_flags, gate_win, st);
+                                  B, H, W, shift, eps, (bf)halo, halo_flags, gate_win, CL, st);
 }
 
 // The device's opt-in shared-memory limit per block, in bytes.
@@ -1217,7 +1227,7 @@ extern "C" int mp_smem_optin() { return mp::smem_optin(); }
 extern "C" int mp_set_device(int dev) { return (int)cudaSetDevice(dev); }
 
 // Shared-memory plans per block (bytes, static included) at a shape. CL is
-// the q/k/v width of the call: C, or a member's head block (float32 only).
+// the q/k/v width of the call: C, or a member's head block.
 // The float32 stats tile's (StatsF32Plan; no chunk): -1 past heads 96 wide.
 extern "C" long long mp_spectral_stats_smem(int C, int CL, int nH) {
   const mp::StatsF32Plan pl(C, CL, nH);
@@ -1225,26 +1235,26 @@ extern "C" long long mp_spectral_stats_smem(int C, int CL, int nH) {
 }
 
 // The bf16 stats tile's plan (StatsPlan; no chunk).
-extern "C" long long mp_spectral_stats_tc_smem(int C, int nH) {
-  return mp::plan_bytes(mp::spectral_stats_tc_kernel, mp::StatsPlan(C, nH).bytes);
+extern "C" long long mp_spectral_stats_tc_smem(int C, int CL, int nH) {
+  return mp::plan_bytes(mp::spectral_stats_tc_kernel, mp::StatsPlan(C, CL, nH).bytes);
 }
 
 // The apply plan takes the compute type (dtype 0 float32: ApplyF32Plan, 1
-// bf16: FrontPlan, -1 at CL != C); neither has a chunk.
+// bf16: FrontPlan); neither has a chunk.
 extern "C" long long mp_spectral_apply_smem(int C, int CL, int tail, int dtype) {
-  return dtype != 0 && CL != C ? -1 : mp::apply_plan_bytes(C, tail != 0, dtype != 0, CL);
+  return mp::apply_plan_bytes(C, tail != 0, dtype != 0, CL);
 }
 
 extern "C" long long mp_spectral_stats_bwd_smem(int C, int CL, int nH) {
   return mp::plan_bytes(mp::spectral_stats_bwd_kernel<float>, mp::stats_bwd_smem(C, CL, nH));
 }
 
-// The bf16 stats backward's tiles (StatsBwdPlan; DwDxPlan at C and K = 2C
-// for this route); -1 past C = 384.
-extern "C" long long mp_spectral_stats_bwd_tc_smem(int C, int nH) {
+// The bf16 stats backward's tiles (StatsBwdPlan at q|k width CL; DwDxPlan
+// at C and K = 2CL for this route); -1 past C = 384.
+extern "C" long long mp_spectral_stats_bwd_tc_smem(int C, int CL, int nH) {
   return C > mp::kFrontMaxC ? -1
                             : mp::plan_bytes(mp::spectral_stats_bwd_tc_kernel,
-                                             mp::StatsBwdPlan(C, nH).bytes);
+                                             mp::StatsBwdPlan(C, CL, nH).bytes);
 }
 
 extern "C" long long mp_dwconv_dx_tc_smem(int C, int K) {
@@ -1288,28 +1298,29 @@ extern "C" int mp_spectral_stats_bwd(const void* x, const void* lnw, const void*
 }
 
 // The bf16 stats backward's first tile (C <= 384): x (B, H, W, C) bf16, LN
-// float32 or NULL; wqk the q|k rows of the torch weight ([2C][C8], 16-byte
-// aligned) and taps [2C][9] bf16 (the forward tile's operands); dgram (B, C,
-// dh), dnq / dnk (B, nH, dh) float32. Outputs, unrolled frame, torch channel
-// order: un (B, H, W, C) bf16, t (B, H, W, 2C) bf16, dqk (B, H, W, 2C) float32.
-// A row shard (shift 0): hal [2][B][W][C] bf16 and halo_flags as
-// mp_spectral_stats's; then un_halo [2][B][W][C] and t_halo [2][B][W][2C]
-// (bf16) receive the LN'd input and the q|k 1x1 output of each real halo row
-// (the other side's rows are not written). halo_flags 0: all three may be
-// NULL.
+// float32 or NULL; wqk the q|k rows of the torch weight ([2CL][C8], 16-byte
+// aligned) and taps [2CL][9] bf16 (the forward tile's operands; CL the q|k
+// width: C, or a member's head block); dgram (B, CL, dh), dnq / dnk (B, nH,
+// dh) float32. Outputs, unrolled frame, torch channel order: un (B, H, W, C)
+// bf16, t (B, H, W, 2CL) bf16, dqk (B, H, W, 2CL) float32. A row shard
+// (shift 0): hal [2][B][W][C] bf16 and halo_flags as mp_spectral_stats's;
+// then un_halo [2][B][W][C] and t_halo [2][B][W][2CL] (bf16) receive the
+// LN'd input and the q|k 1x1 output of each real halo row (the other side's
+// rows are not written). halo_flags 0: all three may be NULL.
 extern "C" int mp_spectral_stats_bwd_tc(const void* x, const void* lnw, const void* lnb,
                                         const void* wqk, const void* taps, const void* dgram,
                                         const void* dnq, const void* dnk, void* un, void* t,
                                         void* dqk, const void* hal, void* un_halo, void* t_halo,
-                                        int B, int H, int W, int C, int nH, int shift, float eps,
-                                        int halo_flags, void* stream) {
-  if (C % nH != 0 || H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
+                                        int B, int H, int W, int C, int CL, int nH, int shift,
+                                        float eps, int halo_flags, void* stream) {
+  if (CL % nH != 0 || H % mp::kTile != 0 || W % mp::kTile != 0)
+    return (int)cudaErrorInvalidValue;
   using bf = const __nv_bfloat16*;
   using bo = __nv_bfloat16*;
   auto f = [](const void* p) { return (const float*)p; };
   return (int)mp::launch_stats_bwd_tc((bf)x, f(lnw), f(lnb), (bf)wqk, (bf)taps, f(dgram), f(dnq),
                                       f(dnk), (bo)un, (bo)t, (float*)dqk, B, H, W, C, nH, shift,
-                                      eps, (bf)hal, halo_flags, (bo)un_halo, (bo)t_halo,
+                                      eps, (bf)hal, halo_flags, (bo)un_halo, (bo)t_halo, CL,
                                       (cudaStream_t)stream);
 }
 
@@ -1332,25 +1343,26 @@ extern "C" int mp_dwconv_dx_tc(const void* dout, const void* t, const void* taps
 }
 
 // The bf16 backward of mp_spectral_apply (C <= 384), first tile: x (B, H,
-// W, C) bf16, LN float32 or NULL; wv [C][C8], taps [C][9], comb [B][C][C8]
-// bf16 (pack_front's operands, wv and comb 16-byte aligned); gate (B, H/8,
-// W/8, C) bf16 (gate_win 8; a gate map (B, H, W, C) at gate_win 1), dp (B,)
-// float32, each NULL = none; dy (B, H, W, C) bf16,
-// unrolled frame. Outputs, unrolled frame: un, t, v (B, H, W, C) bf16, dys
-// (dy * dp rounded; with dp only), dv (B, H, W, C) float32, extra (float32;
-// NULL without gate and residual), pdp (with dp: the d dp column of every
+// W, C) bf16, LN float32 or NULL; wv [CL][C8], taps [CL][9], comb
+// [B][CL][C8] bf16 (pack_front's operands, wv and comb 16-byte aligned; CL
+// the v width: C, or a member's head block); gate (B, H/8, W/8, C) bf16
+// (gate_win 8; a gate map (B, H, W, C) at gate_win 1), dp (B,) float32, each
+// NULL = none; dy (B, H, W, C) bf16, unrolled frame. Outputs, unrolled
+// frame: un (B, H, W, C), t, v (B, H, W, CL) bf16, dys (dy * dp rounded, C
+// wide; with dp only), dv (B, H, W, CL) float32, extra (B, H, W, C) float32
+// (NULL without gate and residual), pdp (with dp: the d dp column of every
 // tile's part row, row stride ldp). A row shard (shift 0): hal [2][B][W][C]
-// bf16 and halo_flags as mp_spectral_apply's; then un_halo and t_halo
-// ([2][B][W][C] bf16) receive the LN'd input and the v 1x1 output of each
-// real halo row. halo_flags 0: all three may be NULL.
+// bf16 and halo_flags as mp_spectral_apply's; then un_halo ([2][B][W][C])
+// and t_halo ([2][B][W][CL], bf16) receive the LN'd input and the v 1x1
+// output of each real halo row. halo_flags 0: all three may be NULL.
 extern "C" int mp_spectral_apply_bwd_tc(const void* x, const void* lnw, const void* lnb,
                                         const void* wv, const void* taps, const void* comb,
                                         const void* gate, const void* dp, const void* dy, void* un,
                                         void* t, void* v, void* dys, void* dv, void* extra,
                                         void* pdp, const void* hal, void* un_halo, void* t_halo,
-                                        int B, int H, int W, int C, int residual, int shift,
-                                        int ldp, float eps, int halo_flags, int gate_win,
-                                        void* stream) {
+                                        int B, int H, int W, int C, int CL, int residual,
+                                        int shift, int ldp, float eps, int halo_flags,
+                                        int gate_win, void* stream) {
   if (H % mp::kTile != 0 || W % mp::kTile != 0 || (dp != nullptr) != (dys != nullptr) ||
       (gate_win != 1 && gate_win != mp::kTile))
     return (int)cudaErrorInvalidValue;
@@ -1361,25 +1373,25 @@ extern "C" int mp_spectral_apply_bwd_tc(const void* x, const void* lnw, const vo
                                       f(dp), residual, (bf)dy, (bo)un, (bo)t, (bo)v, (bo)dys,
                                       (float*)dv, (float*)extra, (float*)pdp, ldp, B, H, W, C,
                                       shift, eps, (bf)hal, halo_flags, (bo)un_halo, (bo)t_halo,
-                                      gate_win, (cudaStream_t)stream);
+                                      gate_win, CL, (cudaStream_t)stream);
 }
 
-// Its second tile (C <= 384): dv (B, H, W, C) float32 and t bf16 (unrolled
-// frame), taps and wv as the first tile's, x and lnw as its, extra float32
-// or NULL (added to dx before it rounds). Outputs: dt (B, H, W, C) bf16
-// unrolled frame, dx (B, H, W, C) bf16 x's frame, part rows (stride ldp):
-// the tap partials [9][C], then with LN d ln_w and d ln_b.
+// Its second tile (C <= 384): dv (B, H, W, CL) float32 and t bf16 (unrolled
+// frame), taps and wv as the first tile's, x and lnw as its, extra (B, H, W,
+// C) float32 or NULL (added to dx before it rounds). Outputs: dt (B, H, W,
+// CL) bf16 unrolled frame, dx (B, H, W, C) bf16 x's frame, part rows (stride
+// ldp): the tap partials [9][CL], then with LN d ln_w and d ln_b.
 extern "C" int mp_spectral_apply_dx_tc(const void* dv, const void* t, const void* taps,
                                        const void* wv, const void* x, const void* lnw,
                                        const void* extra, void* dt, void* dx, void* part, int B,
-                                       int H, int W, int C, int shift, int ldp, float eps,
+                                       int H, int W, int C, int CL, int shift, int ldp, float eps,
                                        void* stream) {
   if (H % mp::kTile != 0 || W % mp::kTile != 0) return (int)cudaErrorInvalidValue;
   using bf = const __nv_bfloat16*;
   return (int)mp::launch_apply_dx_tc((const float*)dv, (bf)t, (bf)taps, (bf)wv, (bf)x,
                                      (const float*)lnw, (const float*)extra, (__nv_bfloat16*)dt,
-                                     (__nv_bfloat16*)dx, (float*)part, ldp, B, H, W, C, shift,
-                                     eps, (cudaStream_t)stream);
+                                     (__nv_bfloat16*)dx, (float*)part, ldp, B, H, W, C, CL,
+                                     shift, eps, (cudaStream_t)stream);
 }
 
 // d gate (B, H/8, W/8, C) float32 of the bf16 backward: per window of the
@@ -1396,13 +1408,15 @@ extern "C" int mp_spectral_gate_grad(const void* dys, const void* x, void* dgate
   return (int)cudaGetLastError();
 }
 
-// The bf16 apply backward's plans (bytes, static included): tile 1
-// (ApplyBwdPlan) or 2 (DwDxPlan at K = C, its own instance); -1 past C = 384.
-extern "C" long long mp_spectral_apply_bwd_tc_smem(int C, int tile) {
+// The bf16 apply backward's plans (bytes, static included) at v width CL:
+// tile 1 (ApplyBwdPlan) or 2 (DwDxPlan at K = CL, its own instance); -1 past
+// C = 384.
+extern "C" long long mp_spectral_apply_bwd_tc_smem(int C, int CL, int tile) {
   if (C > mp::kFrontMaxC) return -1;
-  return tile == 1 ? mp::plan_bytes(mp::spectral_apply_bwd_tc_kernel, mp::ApplyBwdPlan(C).bytes)
+  return tile == 1 ? mp::plan_bytes(mp::spectral_apply_bwd_tc_kernel,
+                                    mp::ApplyBwdPlan(C, CL).bytes)
                    : mp::plan_bytes(mp::dwconv_dx_tc_kernel<true, true>,
-                                    mp::DwDxPlan(C, C, true).bytes);
+                                    mp::DwDxPlan(C, CL, true).bytes);
 }
 
 // The float32 backward of mp_spectral_apply without the MLP tail or x2 (bf16

@@ -29,6 +29,11 @@
 //   a fixed order, into one column of this tile's part row (the wrapper sums
 //   the rows per image in tile order, then the images in order).
 // No float atomics: two calls give bitwise the same outputs.
+// A member's head block under the spectral mesh axis (K10b's CL < C): v, t,
+// dv and the taps CL wide, comb (B, CL, C) streamed as CL / 64 tiles of
+// [64][CP] (dv = dys comb^T CL wide over C; br CL deep); dys, the extra
+// cotangent, un and the epilogue C wide (ApplyBwdPlan(C, CL)); the second
+// tile runs at K = CL.
 //
 // Rounding points as spectral_apply_bwd_plain: t and v rounded to bf16, comb
 // rounded once (the wrapper's bf16 copy), dys rounded before both dv and
@@ -51,49 +56,57 @@ namespace mp {
 // the dynamic bytes a plan may take: the H100's opt-in limit less the static
 constexpr size_t kApplyBwdBudget = 232448 - 1024;
 
-// The plan at width C: the forward front's tiling (FrontPlan: CP, ld, NP, nk,
-// ws); front = v | taps | halo | ring (the weight tiles, then a pass's 1x1
-// output [100][NP + 8]); after the front, dys takes the taps' and the halo's
-// place and the comb ring (cs stages of [64][ld], 3 where they fit) follows
-// it.
+// The plan at input width C and v width CL (C, or a member's head block):
+// the forward front's tiling (FrontPlan: CP, CPL, ld, ldv, NP, nk, nkc, ws);
+// front = v [64][ldv] | taps | halo | ring (the weight tiles, then a pass's
+// 1x1 output [100][NP + 8]); after the front, dys ([64][ld], C wide) takes
+// the taps' and the halo's place and the comb ring (cs stages of [64][ld], 3
+// where they fit at CL = C) follows it.
 struct ApplyBwdPlan {
-  int C, CP, ld, NP, nk, ws, cs;
-  size_t v, taps, halo, ring, front, cstage, post, bytes;
-  __host__ __device__ ApplyBwdPlan(int c) : C(c) {
-    const FrontPlan f(c);
+  int C, CL, CP, CPL, ld, ldv, NP, nk, nkc, ws, cs;
+  size_t v, ds, taps, halo, ring, front, cstage, post, bytes;
+  __host__ __device__ ApplyBwdPlan(int c, int cl) : C(c), CL(cl) {
+    const FrontPlan f(c, cl);
     CP = f.CP;
+    CPL = f.CPL;
     ld = f.ld;
+    ldv = f.ldv;
     NP = f.NP;
     nk = f.nk;
+    nkc = f.nkc;
     ws = f.ws;
     const size_t b = sizeof(__nv_bfloat16);
     v = f.v;
+    ds = b * kPix * ld;
     taps = f.taps;
     halo = f.halo;
     const size_t wring = ws * b * NP * kFrontLdw, t = b * kHaloPix * (NP + 8);
     ring = wring > t ? wring : t;
     front = v + taps + halo + ring;
     cstage = f.cstage;
-    cs = 2 * v + 3 * cstage <= kApplyBwdBudget ? 3 : 2;
-    post = 2 * v + cs * cstage;
+    // three comb stages where they fit beside the whole attention's v and
+    // dys (a head block's plan never outgrows the whole attention's)
+    cs = 2 * ds + 3 * cstage <= kApplyBwdBudget ? 3 : 2;
+    post = v + ds + cs * cstage;
     bytes = front > post ? front : post;
   }
 };
 
 // Arguments: x (B, H, W, C) bf16 (the raw input, read through the roll-back);
-// lnw / lnb float32 or NULL; wv [C][C8], taps [C][9] and comb [B][C][C8] bf16
-// (pack_front's operands; wv and comb 16-byte aligned); gate (B, H/8, W/8,
-// C) bf16 or NULL (gwin 8; gwin 1: a per-pixel map (B, H, W, C), gate_row);
-// dp (B,) float32 or NULL; dy (B, H, W, C) bf16 unrolled
-// frame. flags: kVecX (x 16-byte rows), kPairs (bf16 pairs and float pairs),
-// kVecOut (16-byte output rows). Outputs, unrolled frame: un, t, v (B, H, W,
-// C) bf16; dys (with dp); dv (B, H, W, C) float32; extra float32 or NULL
-// (neither gate nor residual); pdp: the d dp column of the part rows (row
-// stride ldp), NULL without dp. A row shard (shift 0): hal [2][B][W][C] bf16
-// and halo as the forward tile's (kVecX: hal 16-byte aligned too); the first
-// and last tile rows then also write their real halo rows' LN'd input
-// un_halo and v 1x1 output t_halo ([2][B][W][C] bf16), which the halo rows'
-// cotangents and weight-gradient share read.
+// lnw / lnb float32 or NULL; wv [CL][C8], taps [CL][9] and comb [B][CL][C8]
+// bf16 (pack_front's operands; wv and comb 16-byte aligned; CL the v width:
+// C, or a member's head block); gate (B, H/8, W/8, C) bf16 or NULL (gwin 8;
+// gwin 1: a per-pixel map (B, H, W, C), gate_row); dp (B,) float32 or NULL;
+// dy (B, H, W, C) bf16 unrolled frame. flags: kVecX (x 16-byte rows), kPairs
+// (bf16 pairs and float pairs), kVecOut (16-byte output rows). Outputs,
+// unrolled frame: un (B, H, W, C), t, v (B, H, W, CL) bf16; dys (with dp);
+// dv (B, H, W, CL) float32; extra (B, H, W, C) float32 or NULL (neither gate
+// nor residual); pdp: the d dp column of the part rows (row stride ldp),
+// NULL without dp. A row shard (shift 0): hal [2][B][W][C] bf16 and halo as
+// the forward tile's (kVecX: hal 16-byte aligned too); the first and last
+// tile rows then also write their real halo rows' LN'd input un_halo
+// ([2][B][W][C]) and v 1x1 output t_halo ([2][B][W][CL], bf16), which the
+// halo rows' cotangents and weight-gradient share read.
 __global__ void __launch_bounds__(kThreads)
 spectral_apply_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ lnw,
                              const float* __restrict__ lnb, const __nv_bfloat16* __restrict__ wv,
@@ -108,21 +121,21 @@ spectral_apply_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* _
                              float* __restrict__ pdp, int ldp,
                              const __nv_bfloat16* __restrict__ hal, int halo,
                              __nv_bfloat16* __restrict__ un_halo,
-                             __nv_bfloat16* __restrict__ t_halo, int gwin) {
+                             __nv_bfloat16* __restrict__ t_halo, int gwin, int CL) {
   using bf16 = __nv_bfloat16;
   extern __shared__ float4 apply_bwd_dyn[];
   __shared__ int hsrc[kFrontRows];         // halo row -> source pixel (-1: zero row; halo_src)
   __shared__ int esrc[kPix], egate[kPix];  // tile pixel -> raw source pixel, gate row
   __shared__ float red[kThreads / 32];
-  const ApplyBwdPlan pl(C);
-  const int ld = pl.ld, CP = pl.CP, C8 = round_up8(C);
+  const ApplyBwdPlan pl(C, CL);
+  const int ld = pl.ld, ldv = pl.ldv, CP = pl.CP, CPL = pl.CPL, C8 = round_up8(C);
   char* sm = reinterpret_cast<char*>(apply_bwd_dyn);
-  bf16* vs = reinterpret_cast<bf16*>(sm);                                   // [64][ld] v
-  __nv_bfloat162* tp = reinterpret_cast<__nv_bfloat162*>(sm + pl.v);        // [9][CP / 2] taps
+  bf16* vs = reinterpret_cast<bf16*>(sm);                                   // [64][ldv] v
+  __nv_bfloat162* tp = reinterpret_cast<__nv_bfloat162*>(sm + pl.v);        // [9][CPL / 2] taps
   bf16* xh = reinterpret_cast<bf16*>(sm + pl.v + pl.taps);                  // [112][ld] halo
   bf16* rg = xh + kFrontRows * ld;                                          // ring / 1x1 output
   bf16* ds = reinterpret_cast<bf16*>(sm + pl.v);                            // [64][ld] dys (after)
-  bf16* cring = reinterpret_cast<bf16*>(sm + 2 * pl.v);                     // comb stages (after)
+  bf16* cring = reinterpret_cast<bf16*>(sm + pl.v + pl.ds);                 // comb stages (after)
   const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
   const int tile = (b * (H / kTile) + ty) * (W / kTile) + tx;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -139,10 +152,11 @@ spectral_apply_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* _
       egate[p] = gate_row(b, sr, sc, H, W, gwin);
     }
   }
-  for (int i = threadIdx.x; i < 9 * (CP / 2); i += blockDim.x) {
-    const int tap = i / (CP / 2), c = 2 * (i - tap * (CP / 2));
+  for (int i = threadIdx.x; i < 9 * (CPL / 2); i += blockDim.x) {
+    const int tap = i / (CPL / 2), c = 2 * (i - tap * (CPL / 2));
     const bf16 z = __float2bfloat16(0.f);
-    tp[i] = __halves2bfloat162(c < C ? taps[c * 9 + tap] : z, c + 1 < C ? taps[(c + 1) * 9 + tap] : z);
+    tp[i] = __halves2bfloat162(c < CL ? taps[c * 9 + tap] : z,
+                               c + 1 < CL ? taps[(c + 1) * 9 + tap] : z);
   }
   __syncthreads();
   stage_halo(xh, ld, hsrc, x, nullptr, C, 0, CP, vec_x, hal);
@@ -150,11 +164,11 @@ spectral_apply_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* _
   // v: the forward front's passes; t and un on the way
   float acc[kFrontUnits][4][4];
   const int ldt = pl.NP + 8;
-  for (int n0 = 0; n0 < CP; n0 += pl.NP) {
-    const int np = min(pl.NP, CP - n0), n_units = 7 * (np / 32);
+  for (int n0 = 0; n0 < CPL; n0 += pl.NP) {
+    const int np = min(pl.NP, CPL - n0), n_units = 7 * (np / 32);
     auto wr = front_ring(rg, (size_t)pl.NP * kFrontLdw, pl.ws, pl.nk,
         [=](int t, bf16* dst) {
-          stage_tile(dst, kFrontLdw, wv + (size_t)n0 * C8 + 64 * t, C8, np, 64, C - n0, C8 - 64 * t);
+          stage_tile(dst, kFrontLdw, wv + (size_t)n0 * C8 + 64 * t, C8, np, 64, CL - n0, C8 - 64 * t);
         });
     wr.prefetch();
     if (n0 == 0) {
@@ -188,34 +202,35 @@ spectral_apply_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* _
       if (r < kHaloPix) *reinterpret_cast<uint32_t*>(rg + r * ldt + c) = pack_bf16x2(v0, v1);
     });
     __syncthreads();
-    // t at the tile's pixels, channels [n0, n0 + np) below C
-    const int nt = min(np, C - n0);
+    // t at the tile's pixels, channels [n0, n0 + np) below CL
+    const int nt = min(np, CL - n0);
     if (vec_out) {
       for (int u = threadIdx.x; u < kPix * (nt / 8); u += blockDim.x) {
         const int i = u / (nt / 8), c = (u - i * (nt / 8)) * 8;
-        *reinterpret_cast<uint4*>(t_out + pix(i) * C + n0 + c) =
+        *reinterpret_cast<uint4*>(t_out + pix(i) * CL + n0 + c) =
             *reinterpret_cast<const uint4*>(rg + hp(i) * ldt + c);
       }
     } else {
       for (int u = threadIdx.x; u < kPix * nt; u += blockDim.x) {
         const int i = u / nt, c = u - i * nt;
-        t_out[pix(i) * C + n0 + c] = rg[hp(i) * ldt + c];
+        t_out[pix(i) * CL + n0 + c] = rg[hp(i) * ldt + c];
       }
     }
     for (int side = 0; side < 2; ++side)
       if (shard_row(side, ty, H, halo))
-        halo_row_out(t_halo, rg, ldt, nt, side, b, tx, W, C, [&](int j) { return n0 + j; });
-    dw3_pairs(rg, ldt, tp + n0 / 2, CP / 2, vs + n0, ld, np / 2);
+        halo_row_out(t_halo, rg, ldt, nt, side, b, tx, W, CL, [&](int j) { return n0 + j; });
+    dw3_pairs(rg, ldt, tp + n0 / 2, CPL / 2, vs + n0, ldv, np / 2);
     __syncthreads();
   }
   auto same = [](int, int, float v) { return v; };
-  tail_store(vs, ld, C, vec_out, [&](int i) { return v_out + pix(i) * C; }, same);
+  tail_store(vs, ldv, CL, vec_out, [&](int i) { return v_out + pix(i) * CL; }, same);
 
-  // the comb ring behind dys (the halo and the weight ring are dead)
-  const bf16* cb = comb + (size_t)b * C * C8;
-  auto cr = front_ring(cring, pl.cstage / sizeof(bf16), pl.cs, pl.nk,
+  // the comb ring behind dys (the halo and the weight ring are dead): comb's
+  // [64 v rows][CP] tiles, CL rows in all
+  const bf16* cb = comb + (size_t)b * CL * C8;
+  auto cr = front_ring(cring, pl.cstage / sizeof(bf16), pl.cs, pl.nkc,
       [=](int t, bf16* dst) {
-        stage_tile(dst, ld, cb + (size_t)64 * t * C8, C8, 64, CP, C - 64 * t, C8);
+        stage_tile(dst, ld, cb + (size_t)64 * t * C8, C8, 64, CP, CL - 64 * t, C8);
       });
   cr.prefetch();
   // dys = rnd(dy dp) (zero past C) and the extra cotangent dys g + dy
@@ -252,14 +267,14 @@ spectral_apply_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* _
     *reinterpret_cast<uint32_t*>(ds + i * ld + c) = pack_bf16x2(d.x, d.y);
   }
 
-  // per comb tile t: dv[:, 64 t ..] from the tile read plain; br from it read
-  // .trans (with dp)
+  // per comb tile t: dv[:, 64 t ..] (v channels) from the tile read plain;
+  // br from it read .trans (with dp)
   const int n_units = 4 * (CP / 32);
   uint32_t a[kFrontUnits], bo[kFrontUnits];
 #pragma unroll
   for (int j = 0; j < kFrontUnits; ++j) {
     const int q = warp + 16 * j, mt = q & 3, nb = q >> 2;
-    a[j] = smem_u32(vs + (16 * mt + (lane & 15)) * ld + 8 * (lane >> 4));
+    a[j] = smem_u32(vs + (16 * mt + (lane & 15)) * ldv + 8 * (lane >> 4));
     bo[j] = 2 * (((lane & 7) + 8 * ((lane >> 3) & 1)) * ld + 32 * nb + 8 * (lane >> 4));
   }
   // dv: this warp's 16 x 16 block (row tile dmt, column block dnb) of a slab
@@ -267,10 +282,10 @@ spectral_apply_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* _
   const uint32_t da = smem_u32(ds + (16 * dmt + (lane & 15)) * ld + 8 * (lane >> 4));
   const uint32_t dbo = 2 * ((16 * dnb + (lane & 7) + 8 * (lane >> 4)) * ld + 8 * ((lane >> 3) & 1));
   front_zero(acc);
-  for (int t = 0; t < pl.nk; ++t) {
+  for (int t = 0; t < pl.nkc; ++t) {
     const uint32_t st = smem_u32(cr.consume());
     const int k0 = 64 * t;
-    if (16 * dnb < C - k0) {  // warp-uniform: the block has columns below C
+    if (16 * dnb < CL - k0) {  // warp-uniform: the block has columns below CL
       float dacc[2][4] = {};
       for (int kk = 0; kk < CP / 16; ++kk) {
         uint32_t af[4], bf[4];
@@ -285,12 +300,12 @@ spectral_apply_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* _
         for (int rr = 0; rr < 2; ++rr) {
           const int r = 16 * dmt + (lane >> 2) + 8 * rr;
           const int k = k0 + 16 * dnb + 8 * n8 + 2 * (lane & 3);
-          float* o = dv_out + pix(r) * C + k;
-          if (pairs && k < C) {
+          float* o = dv_out + pix(r) * CL + k;
+          if (pairs && k < CL) {
             *reinterpret_cast<float2*>(o) = make_float2(dacc[n8][2 * rr], dacc[n8][2 * rr + 1]);
           } else {
-            if (k < C) o[0] = dacc[n8][2 * rr];
-            if (k + 1 < C) o[1] = dacc[n8][2 * rr + 1];
+            if (k < CL) o[0] = dacc[n8][2 * rr];
+            if (k + 1 < CL) o[1] = dacc[n8][2 * rr + 1];
           }
         }
     }
@@ -301,7 +316,7 @@ spectral_apply_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* _
         at[j] = a[j] + 2 * k0;
         bt[j] = st + bo[j];
       }
-      front_mma<true>(acc, at, bt, n_units, min(4, (CP - k0) / 16), ld);
+      front_mma<true>(acc, at, bt, n_units, min(4, (CPL - k0) / 16), ld);
     }
   }
   cp_async_wait<0>();

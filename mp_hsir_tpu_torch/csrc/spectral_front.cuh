@@ -42,6 +42,12 @@
 //   straight from the accumulators (raw input pixel, gate window and output
 //   pixel precomputed per tile pixel; bf16 pair loads), into y ([64][CP + 8]
 //   bf16), which the tail tile reads or which is stored in 16-byte runs.
+// - A member's head block under the spectral mesh axis (K7b's CL < C,
+//   _sp1_kernel's q/k/v width from its weight): the same tile with v, its
+//   taps and the 1x1's passes CL wide ([64][CPL + 8], CPL = CL rounded up to
+//   32) and comb (B, CL, C) streamed as CL / 64 tiles of [64][CP]: the comb
+//   product CL deep and C wide; the halo, the LN, the epilogue and y stay C
+//   wide, and there is no tail (FrontPlan(C, CL)).
 #pragma once
 
 #include "mlp_tail.cuh"
@@ -58,25 +64,36 @@ constexpr int kVecX = 1, kPairs = 2, kVecOut = 4;
 __host__ __device__ constexpr int round_up32(int n) { return (n + 31) / 32 * 32; }
 __host__ __device__ constexpr int round_up8(int n) { return (n + 7) / 8 * 8; }
 
-// The bf16 front's shared-memory plan at width C (every piece a multiple of
-// 16 bytes). Front: taps [9][CP] | v [64][ld] | halo [112][ld] | ring (the
-// weight tiles, then the pass's 1x1 output [100][NP + 8]); comb's stages take
-// the halo and the ring. After the comb product: y [64][ld], then the tail's
-// scratch (tail_scratch_bytes).
+// The bf16 front's shared-memory plan at input width C and v width CL (C,
+// or a member's head block under the spectral mesh axis, which takes no
+// tail; every piece a multiple of 16 bytes). Front: taps [9][CPL] | v
+// [64][ldv] | halo [112][ld] | ring (the weight tiles, then the pass's 1x1
+// output [100][NP + 8]); comb's stages ([64][ld]: CL deep, C wide) take the
+// halo and the ring. After the comb product: y [64][ld], then the tail's
+// scratch (tail_scratch_bytes). The halo, comb's stages and y follow C (CP,
+// ld); v, its taps and the 1x1's passes follow CL (CPL, ldv, NP); the 1x1
+// is nk tiles deep (C), comb's product nkc (CL). At CL = C the plan is the
+// whole attention's.
 struct FrontPlan {
-  int C, CP, ld, NP, nk, ws, cs;
+  int C, CL, CP, CPL, ld, ldv, NP, nk, nkc, ws, cs;
   size_t taps, v, halo, ring, cstage, front, y;
-  __host__ __device__ FrontPlan(int c) : C(c) {
+  __host__ __device__ FrontPlan(int c, int cl) : C(c), CL(cl) {
     CP = round_up32(C);
+    CPL = round_up32(CL);
     ld = CP + 8;
-    const int nb = CP / 32;
+    ldv = CPL + 8;
+    const int nb = CPL / 32;
     const int passes = (7 * nb + 16 * kFrontUnits - 1) / (16 * kFrontUnits);
     NP = 32 * ((nb + passes - 1) / passes);
     nk = (CP + 63) / 64;
-    ws = passes > 1 ? 2 : 3;
+    nkc = (CPL + 63) / 64;
+    // two ring stages where the 1x1 takes two passes, or where the whole
+    // attention's at this C would (CP > 192): a head block's ring never
+    // outgrows the whole attention's
+    ws = passes > 1 || CP > 192 ? 2 : 3;
     const size_t b = sizeof(__nv_bfloat16);
-    taps = b * 9 * CP;
-    v = b * kPix * ld;
+    taps = b * 9 * CPL;
+    v = b * kPix * ldv;
     halo = b * kFrontRows * ld;
     const size_t wring = ws * b * NP * kFrontLdw, t = b * kHaloPix * (NP + 8);
     ring = wring > t ? wring : t;

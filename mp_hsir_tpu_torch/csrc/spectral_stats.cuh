@@ -34,6 +34,11 @@
 //   ldmatrix.trans + mma.sync, every 16 x 16 unit owned by one warp, added to
 //   the float32 partial [nH][dhp][dhp]; the norms from the same tile, every
 //   column's 64 pixels summed by 4 lanes in a fixed order.
+// - A member's head block under the spectral mesh axis (K7a's CL < C: nH
+//   local heads of dh = CL / nH): the halo, the LN and the 1x1's depth stay
+//   C wide; the columns, groups, taps and the partial (Gram [CL][dh], norms
+//   [CL]) follow CL (StatsPlan(C, CL, nH)). The backward's first tile below
+//   takes the same CL (t, dqk 2CL wide), its second tile runs at K = 2CL.
 //
 // spectral_stats_bwd_tc_kernel (below) is the first of the two launches of
 // the bf16 backward (K10a, _sp0_bwd_kernel, mp_hsir_tpu/ops/pallas_vjp.py:1443;
@@ -52,38 +57,27 @@ constexpr size_t kStatsBudget = 232448 - 1024;
 
 __host__ __device__ constexpr int round_up16(int n) { return (n + 15) / 16 * 16; }
 
-// The row of the q|k weights ([2C][C8]: q rows, then k rows) behind column n
-// of the head-grouped order (head h: columns [h hw, h hw + dhp) q, then dhp
-// of k; hw = 2 dhp), or -1 for a padding column.
-__host__ __device__ inline int qk_row(int n, int hw, int dhp, int dh, int C) {
+// The row of the q|k weights ([2CL][C8]: q rows, then k rows; CL the q|k
+// width) behind column n of the head-grouped order (head h: columns [h hw, h
+// hw + dhp) q, then dhp of k; hw = 2 dhp), or -1 for a padding column.
+__host__ __device__ inline int qk_row(int n, int hw, int dhp, int dh, int CL) {
   const int h = n / hw, j = n - h * hw;
   const int d = j < dhp ? j : j - dhp;
-  return d < dh ? (j < dhp ? 0 : C) + h * dh + d : -1;
+  return d < dh ? (j < dhp ? 0 : CL) + h * dh + d : -1;
 }
 
-// The bf16 stats tile's plan at width C with nH heads (every piece a
-// multiple of 16 bytes): taps [9][nqk] | gram partial
-// [nH][dhp][dhp] f32 | norm partial [nqk] f32 | halo [112][ld] | q|k tile
-// [64][GW + 8] | ring (the weight tiles, then the pass's 1x1 output [100][NP +
-// 8]). Head groups as large as the budget allows, with 3 ring stages where
-// they fit, else 2.
-struct StatsPlan {
-  int C, nH, dh, dhp, hw, nqk, CP, ld, nk, hg, groups, GW, pp, NP, ws;
-  size_t taps, gacc, nacc, halo, qk, ring, bytes;
-  __host__ __device__ StatsPlan(int c, int nh) : C(c), nH(nh) {
-    dh = c / nh;
-    dhp = round_up16(dh);
-    hw = 2 * dhp;
-    nqk = nH * hw;
-    CP = round_up32(C);
-    ld = CP + 8;
-    nk = (CP + 63) / 64;
+// The head groups and ring stages of a bf16 stats tile with nH heads of hw
+// columns whose plan outside the q|k tile and the ring takes `fixed` bytes:
+// groups of at most hcap heads, as large as the budget allows, with at most
+// wcap ring stages (3 where they fit, else 2).
+struct StatsGroups {
+  int hg, groups, GW, pp, NP, ws;
+  size_t qk, ring, bytes;
+  __host__ __device__ StatsGroups(int nH, int hw, size_t fixed, int hcap, int wcap) {
     const size_t b = sizeof(__nv_bfloat16);
-    taps = b * 9 * nqk;
-    gacc = sizeof(float) * nH * dhp * dhp;
-    nacc = sizeof(float) * nqk;
-    halo = b * kFrontRows * ld;
-    for (int hmax = kStatsMaxN / hw > 1 ? kStatsMaxN / hw : 1;; --hmax) {
+    int hmax = kStatsMaxN / hw > 1 ? kStatsMaxN / hw : 1;
+    if (hmax > hcap) hmax = hcap;
+    for (;; --hmax) {
       groups = (nH + hmax - 1) / hmax;
       hg = (nH + groups - 1) / groups;
       GW = hg * hw;
@@ -91,36 +85,84 @@ struct StatsPlan {
       NP = 32 * ((GW / 32 + pp - 1) / pp);
       qk = b * kPix * (GW + 8);
       const size_t t = b * kHaloPix * (NP + 8);
-      for (ws = 3; ws >= 2; --ws) {
+      for (ws = wcap; ws >= 2; --ws) {
         const size_t w = ws * b * NP * kFrontLdw;
         ring = w > t ? w : t;
-        bytes = taps + gacc + nacc + halo + qk + ring;
+        bytes = fixed + qk + ring;
         if (bytes <= kStatsBudget) return;
       }
       ws = 2;
       if (hmax == 1) return;
     }
   }
-  __host__ __device__ int row(int n) const { return qk_row(n, hw, dhp, dh, C); }
+};
+
+// The bf16 stats tile's plan at input width C and q|k width CL (C, or a
+// member's head block of nH heads under the spectral mesh axis; dh = CL /
+// nH) (every piece a multiple of 16 bytes): taps [9][nqk] | gram partial
+// [nH][dhp][dhp] f32 | norm partial [nqk] f32 | halo [112][ld] | q|k tile
+// [64][GW + 8] | ring (the weight tiles, then the pass's 1x1 output [100][NP +
+// 8]). The halo and the 1x1's depth follow C, the heads and columns CL. Head
+// groups as large as the budget allows, with 3 ring stages where they fit,
+// else 2 (StatsGroups); a head block takes at most the groups and stages of
+// the whole attention's plan at this C (its C / dh heads), so that its plan
+// never outgrows that one.
+struct StatsPlan {
+  int C, CL, nH, dh, dhp, hw, nqk, CP, ld, nk, hg, groups, GW, pp, NP, ws;
+  size_t taps, gacc, nacc, halo, qk, ring, bytes;
+  __host__ __device__ StatsPlan(int c, int cl, int nh) : C(c), CL(cl), nH(nh) {
+    dh = cl / nh;
+    dhp = round_up16(dh);
+    hw = 2 * dhp;
+    nqk = nH * hw;
+    CP = round_up32(C);
+    ld = CP + 8;
+    nk = (CP + 63) / 64;
+    const size_t b = sizeof(__nv_bfloat16), f = sizeof(float);
+    taps = b * 9 * nqk;
+    gacc = f * nH * dhp * dhp;
+    nacc = f * nqk;
+    halo = b * kFrontRows * ld;
+    int hcap = kStatsMaxN, wcap = 3;
+    if (CL < C) {
+      const int nw = C / dh;
+      const StatsGroups whole(nw, hw, b * 9 * nw * hw + f * nw * dhp * dhp + f * nw * hw + halo,
+                              kStatsMaxN, 3);
+      hcap = whole.hg;
+      wcap = whole.ws;
+    }
+    const StatsGroups g(nH, hw, taps + gacc + nacc + halo, hcap, wcap);
+    hg = g.hg;
+    groups = g.groups;
+    GW = g.GW;
+    pp = g.pp;
+    NP = g.NP;
+    ws = g.ws;
+    qk = g.qk;
+    ring = g.ring;
+    bytes = g.bytes;
+  }
+  __host__ __device__ int row(int n) const { return qk_row(n, hw, dhp, dh, CL); }
 };
 
 // Arguments: x1, x2, lnw, lnb as mp_spectral_stats; wqk the q|k rows of wqkv
-// ([2C][C8], torch layout, 16-byte aligned), taps their depthwise taps
-// ([2C][9]); flags: kVecX; hal, halo a row shard's halo rows [2][B][W][C]
-// bf16 and which of them are real (halo_src; hal 16-byte aligned with kVecX);
-// part [B][n_parts][C dh + 2C] float32: this block's Gram (row h dh + d, col
-// e), |q|^2, |k|^2 over its tiles.
+// ([2CL][C8], torch layout, 16-byte aligned), taps their depthwise taps
+// ([2CL][9]); CL the q|k width (C, or a member's head block); flags: kVecX;
+// hal, halo a row shard's halo rows [2][B][W][C] bf16 and which of them are
+// real (halo_src; hal 16-byte aligned with kVecX); part [B][n_parts][CL dh +
+// 2CL] float32: this block's Gram (row h dh + d, col e), |q|^2, |k|^2 over
+// its tiles.
 __global__ void __launch_bounds__(kThreads)
 spectral_stats_tc_kernel(const __nv_bfloat16* __restrict__ x1, const __nv_bfloat16* __restrict__ x2,
                          int C1, int C2, const float* __restrict__ lnw,
                          const float* __restrict__ lnb, const __nv_bfloat16* __restrict__ wqk,
                          const __nv_bfloat16* __restrict__ taps, int H, int W, int nH, int shift,
                          float eps, int flags, const __nv_bfloat16* __restrict__ hal, int halo,
-                         float* __restrict__ part) {
+                         float* __restrict__ part, int CL) {
   extern __shared__ float4 stats_dyn[];
   __shared__ int hsrc[kFrontRows];  // halo row -> source pixel (-1: zero row; halo_src)
   const int C = C1 + C2;
-  const StatsPlan pl(C, nH);
+  const StatsPlan pl(C, CL, nH);
   const int ld = pl.ld, C8 = round_up8(C), dhp = pl.dhp, ldq = pl.GW + 8, ldt = pl.NP + 8;
   char* sm = reinterpret_cast<char*>(stats_dyn);
   __nv_bfloat162* tp = reinterpret_cast<__nv_bfloat162*>(sm);    // [9][nqk / 2] tap pairs
@@ -165,7 +207,7 @@ spectral_stats_tc_kernel(const __nv_bfloat16* __restrict__ x1, const __nv_bfloat
             [=](int kt, __nv_bfloat16* dst) {
               for (int u = threadIdx.x; u < np * 8; u += blockDim.x) {
                 const int r = u >> 3, c = 64 * kt + (u & 7) * 8;
-                const int row = qk_row(c0 + r, hw, dhp, dh, C);
+                const int row = qk_row(c0 + r, hw, dhp, dh, CL);
                 const bool ok = row >= 0 && c < C8;
                 cp_async16(smem_u32(dst + r * kFrontLdw + (u & 7) * 8),
                            ok ? wqk + (size_t)row * C8 + c : wqk, ok ? 16 : 0);
@@ -238,16 +280,16 @@ spectral_stats_tc_kernel(const __nv_bfloat16* __restrict__ x1, const __nv_bfloat
     }
   }
   __syncthreads();
-  // this part's sums in the outputs' layout: Gram [C][dh], |q|^2 [C], |k|^2 [C]
-  const int dh = pl.dh, n = C * dh;
-  float* out = part + ((size_t)b * n_parts + ipart) * (n + 2 * C);
-  for (int i = threadIdx.x; i < n + 2 * C; i += blockDim.x) {
+  // this part's sums in the outputs' layout: Gram [CL][dh], |q|^2 [CL], |k|^2 [CL]
+  const int dh = pl.dh, n = CL * dh;
+  float* out = part + ((size_t)b * n_parts + ipart) * (n + 2 * CL);
+  for (int i = threadIdx.x; i < n + 2 * CL; i += blockDim.x) {
     float v;
     if (i < n) {
       const int h = i / (dh * dh), d = (i / dh) % dh, e = i % dh;
       v = gacc[(h * dhp + d) * dhp + e];
     } else {
-      const int k = i - n, side = k >= C, h = (k - side * C) / dh, d = (k - side * C) % dh;
+      const int k = i - n, side = k >= CL, h = (k - side * CL) / dh, d = (k - side * CL) % dh;
       v = nacc[h * pl.hw + side * dhp + d];
     }
     out[i] = v;
@@ -283,7 +325,7 @@ struct StatsBwdPlan {
   StatsPlan f;
   int ldg;
   size_t dg, bytes;
-  __host__ __device__ StatsBwdPlan(int c, int nh) : f(c, nh) {
+  __host__ __device__ StatsBwdPlan(int c, int cl, int nh) : f(c, cl, nh) {
     ldg = f.dhp + 8;
     dg = sizeof(__nv_bfloat16) * f.nH * f.dhp * ldg;
     bytes = f.bytes - f.gacc + dg;
@@ -291,14 +333,15 @@ struct StatsBwdPlan {
 };
 
 // Arguments: x (B, H, W, C) bf16, the raw input, read through the roll-back;
-// lnw, lnb float32 or NULL (no LN); wqk, taps as spectral_stats_tc_kernel;
-// dgram (B, C, dh), dnq, dnk (B, nH, dh) float32; flags: kVecX (C % 8 == 0,
-// x, un and hal 16-byte aligned). Outputs in the unrolled frame: un (B, H, W,
-// C) and t (B, H, W, 2C) bf16, dqk (B, H, W, 2C) float32. A row shard (shift
-// 0): hal [2][B][W][C] bf16 and halo as the forward tile's; the first and
-// last tile rows then also write their real halo rows' LN'd input un_halo
-// [2][B][W][C] and 1x1 output t_halo [2][B][W][2C] (bf16, torch order), which
-// the halo rows' cotangents and weight-gradient share read.
+// lnw, lnb float32 or NULL (no LN); wqk, taps as spectral_stats_tc_kernel
+// (CL the q|k width: C, or a member's head block); dgram (B, CL, dh), dnq,
+// dnk (B, nH, dh) float32; flags: kVecX (C % 8 == 0, x, un and hal 16-byte
+// aligned). Outputs in the unrolled frame: un (B, H, W, C) and t (B, H, W,
+// 2CL) bf16, dqk (B, H, W, 2CL) float32. A row shard (shift 0): hal
+// [2][B][W][C] bf16 and halo as the forward tile's; the first and last tile
+// rows then also write their real halo rows' LN'd input un_halo [2][B][W][C]
+// and 1x1 output t_halo [2][B][W][2CL] (bf16, torch order), which the halo
+// rows' cotangents and weight-gradient share read.
 __global__ void __launch_bounds__(kThreads)
 spectral_stats_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ lnw,
                              const float* __restrict__ lnb, const __nv_bfloat16* __restrict__ wqk,
@@ -309,14 +352,14 @@ spectral_stats_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* _
                              __nv_bfloat16* __restrict__ t_out, float* __restrict__ dqk_out,
                              const __nv_bfloat16* __restrict__ hal, int halo,
                              __nv_bfloat16* __restrict__ un_halo,
-                             __nv_bfloat16* __restrict__ t_halo) {
+                             __nv_bfloat16* __restrict__ t_halo, int CL) {
   using bf16 = __nv_bfloat16;
   extern __shared__ float4 stats_bwd_dyn[];
   __shared__ int hsrc[kFrontRows];  // halo row -> source pixel (-1: zero row; halo_src)
-  const StatsBwdPlan bp(C, nH);
+  const StatsBwdPlan bp(C, CL, nH);
   const StatsPlan& pl = bp.f;
   const int ld = pl.ld, C8 = round_up8(C), dh = pl.dh, dhp = pl.dhp, hw = pl.hw;
-  const int ldq = pl.GW + 8, ldt = pl.NP + 8, ldg = bp.ldg, C2 = 2 * C;
+  const int ldq = pl.GW + 8, ldt = pl.NP + 8, ldg = bp.ldg, C2 = 2 * CL;
   char* sm = reinterpret_cast<char*>(stats_bwd_dyn);
   __nv_bfloat162* tp = reinterpret_cast<__nv_bfloat162*>(sm);  // [9][nqk / 2] tap pairs
   bf16* dg = reinterpret_cast<bf16*>(sm + pl.taps);             // [nH][dhp][ldg] rnd(dG)
@@ -339,7 +382,7 @@ spectral_stats_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* _
     const bf16 z = __float2bfloat16(0.f);
     tp[i] = __halves2bfloat162(r0 < 0 ? z : taps[r0 * 9 + tap], r1 < 0 ? z : taps[r1 * 9 + tap]);
   }
-  const float* dgb = dgram + (size_t)b * C * dh;
+  const float* dgb = dgram + (size_t)b * CL * dh;
   for (int i = threadIdx.x; i < nH * dhp * dhp; i += blockDim.x) {
     const int h = i / (dhp * dhp), d = (i / dhp) % dhp, e = i % dhp;
     dg[(h * dhp + d) * ldg + e] =
@@ -362,7 +405,7 @@ spectral_stats_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* _
           [=](int kt, bf16* dst) {
             for (int u = threadIdx.x; u < np * 8; u += blockDim.x) {
               const int r = u >> 3, c = 64 * kt + (u & 7) * 8;
-              const int row = qk_row(c0 + r, hw, dhp, dh, C);
+              const int row = qk_row(c0 + r, hw, dhp, dh, CL);
               const bool ok = row >= 0 && c < C8;
               cp_async16(smem_u32(dst + r * kFrontLdw + (u & 7) * 8),
                          ok ? wqk + (size_t)row * C8 + c : wqk, ok ? 16 : 0);
@@ -405,7 +448,7 @@ spectral_stats_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* _
       for (int u = threadIdx.x; u < kPix * (np / 2); u += blockDim.x) {
         const int i = u / (np / 2), j = 2 * (u - i * (np / 2));
         const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(rg + hp(i) * ldt + j);
-        const int r0 = qk_row(c0 + j, hw, dhp, dh, C), r1 = qk_row(c0 + j + 1, hw, dhp, dh, C);
+        const int r0 = qk_row(c0 + j, hw, dhp, dh, CL), r1 = qk_row(c0 + j + 1, hw, dhp, dh, CL);
         bf16* o = t_out + pix(i) * C2;
         if (r1 == r0 + 1 && (r0 & 1) == 0) {
           *reinterpret_cast<__nv_bfloat162*>(o + r0) = v;
@@ -418,7 +461,7 @@ spectral_stats_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* _
       for (int side = 0; side < 2; ++side)
         if (shard_row(side, ty, H, halo))
           halo_row_out(t_halo, rg, ldt, np, side, b, tx, W, C2,
-                       [&](int j) { return qk_row(c0 + j, hw, dhp, dh, C); });
+                       [&](int j) { return qk_row(c0 + j, hw, dhp, dh, CL); });
       dw3_pairs(rg, ldt, tp + c0 / 2, pl.nqk / 2, qk + n0, ldq, np / 2);
       __syncthreads();
     }
@@ -460,7 +503,7 @@ spectral_stats_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* _
               *reinterpret_cast<const __nv_bfloat162*>(qk + r * ldq + oc + d));
           const float v0 = c[nt][2 * rr] + 2.f * own.x * dn[n];
           const float v1 = c[nt][2 * rr + 1] + 2.f * own.y * dn[n + 1];
-          const int q0 = qk_row(n, hw, dhp, dh, C), q1 = qk_row(n + 1, hw, dhp, dh, C);
+          const int q0 = qk_row(n, hw, dhp, dh, CL), q1 = qk_row(n + 1, hw, dhp, dh, CL);
           float* o = dqk_out + pix(r) * C2;
           if (q1 == q0 + 1 && (q0 & 1) == 0) {
             *reinterpret_cast<float2*>(o + q0) = make_float2(v0, v1);

@@ -66,8 +66,8 @@ def _digest(files) -> str:
 
 def build() -> str:
     """Compile and link the kernels if the library for this tree is absent;
-    returns its path. Records seconds and the compiler's resource report in
-    ``BUILD_INFO``."""
+    returns its path. Records seconds (in all, and when each source's nvcc
+    ended) and the compiler's resource report in ``BUILD_INFO``."""
     srcs, hdrs = _sources()
     so = os.path.join(BUILD_DIR, f"mp_hsir_kernels_{_digest(srcs + hdrs)}.so")
     if os.path.exists(so):
@@ -83,10 +83,20 @@ def build() -> str:
         cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", src, "-o", obj]
         procs.append((src, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                  stderr=subprocess.STDOUT, text=True)))
+    outs = {}
+
+    def wait(src, p):  # one waiter a source: each records when its own nvcc ended
+        out, _ = p.communicate()
+        outs[src] = (out, time.perf_counter() - t0)
+
+    waiters = [threading.Thread(target=wait, args=(src, p)) for src, _, p in procs]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     logs, failed = [], []
     for src, obj, p in procs:
-        out, _ = p.communicate()
-        logs.append(f"== {os.path.basename(src)}\n{out}")
+        logs.append(f"== {os.path.basename(src)}\n{outs[src][0]}")
         if p.returncode != 0:
             failed.append(src)
     log = "\n".join(logs)
@@ -102,7 +112,9 @@ def build() -> str:
     os.replace(tmp, so)
     for _, obj, _ in procs:
         os.remove(obj)
-    BUILD_INFO.update(path=so, seconds=time.perf_counter() - t0, cached=False, log=log)
+    BUILD_INFO.update(path=so, seconds=time.perf_counter() - t0, cached=False, log=log,
+                      seconds_by_source={os.path.basename(src): round(outs[src][1], 1)
+                                         for src, _, _ in procs})
     return so
 
 

@@ -54,11 +54,11 @@ A member's head block under the spectral mesh axis (``parallel/tp.py``,
 width comes from the weight, as in ``_sp0_kernel`` / ``_sp1_kernel``), the
 stats are (B, CL, dh), comb is (B, CL, C) and the apply's output the
 member's partial projection; the weight cotangents are (3CL, C). The
-float32 launches of all four kernels take it (one ``CL`` argument in each C
-entry, the head-block plans beside the whole attention's, launches counted
-in :data:`STATS_TP`, :data:`APPLY_TP` and their backward twins too); the
-bf16 head-block tiles are not written yet, and a bf16 launch with CL != C
-raises.
+launches of all four kernels take it in both types (one ``CL`` argument in
+each C entry, the head-block plans keyed on (C, CL) beside the whole
+attention's, launches counted in :data:`STATS_TP`, :data:`APPLY_TP` and
+their backward twins too): the bf16 tiles stream the member's q/k/v rows
+and comb (B, CL, C) as the whole attention's tiles stream theirs.
 
 The stats launch runs a tensor-core tile in both types: bf16 the tile of
 ``csrc/spectral_stats.cuh`` (C up to :data:`FRONT_MAX_C`), float32 the 3xTF32
@@ -309,35 +309,51 @@ def spectral_stats_bwd_plain(x, wqkv, wdw, num_heads, shift, ln_w, ln_b, eps, dg
     return dx.to(dt), dw.reshape(3 * cl, c, 1, 1), dwdw, dlnw, dlnb, dtop, dbot
 
 
-def stats_plan(c: int, heads: int) -> dict:
-    """The bf16 stats tile's tiling at width ``c`` (``StatsPlan`` in
-    csrc/spectral_stats.cuh): the output columns ordered by head, each head
-    ``hw`` = 2 ``dhp`` wide (q, then k, dh padded to ``dhp``, a multiple of
-    16), in ``groups`` groups of ``hg`` heads (``gw`` columns), each group's
-    1x1 in passes of ``np`` columns over ``nk`` 64-deep weight tiles and ``ws``
-    ring stages; ``cp`` = c rounded up to 32; ``bytes`` the dynamic shared
-    memory."""
-    dh = c // heads
-    dhp = -(-dh // 16) * 16
-    hw, cp = 2 * dhp, -(-c // 32) * 32
-    nqk = heads * hw
-    fixed = 2 * 9 * nqk + 4 * heads * dhp * dhp + 4 * nqk + 2 * FRONT_ROWS * (cp + 8)
-    hmax = max(1, STATS_MAX_N // hw)
+def _stats_groups(heads: int, hw: int, fixed: int, hcap: int, wcap: int) -> dict:
+    """``StatsGroups`` (csrc/spectral_stats.cuh): groups of at most ``hcap``
+    of ``heads`` heads of ``hw`` columns as large as the budget allows, at
+    most ``wcap`` ring stages, beside ``fixed`` bytes."""
+    hmax = min(max(1, STATS_MAX_N // hw), hcap)
     while True:
         groups = -(-heads // hmax)
         hg = -(-heads // groups)
         gw = hg * hw
         pp = -(-gw // STATS_MAX_N)
         np_ = 32 * -(-(gw // 32) // pp)
-        for ws in (3, 2):
+        for ws in range(wcap, 1, -1):
             nbytes = fixed + 2 * 64 * (gw + 8) + max(2 * ws * np_ * 72, 2 * 100 * (np_ + 8))
             if nbytes <= STATS_BUDGET:
                 break
         if nbytes <= STATS_BUDGET or hmax == 1:
-            break
+            return dict(hg=hg, groups=groups, gw=gw, np=np_, ws=ws, bytes=nbytes)
         hmax -= 1
-    return dict(dh=dh, dhp=dhp, hw=hw, nqk=nqk, cp=cp, nk=-(-cp // FRONT_K), hg=hg,
-                groups=groups, gw=gw, np=np_, ws=ws, bytes=nbytes)
+
+
+def stats_plan(c: int, heads: int, cl: int | None = None) -> dict:
+    """The bf16 stats tile's tiling at input width ``c`` and q|k width
+    ``cl`` (default ``c``; a member's head block of ``heads`` heads under
+    the spectral mesh axis) (``StatsPlan`` in csrc/spectral_stats.cuh): the
+    output columns ordered by head, each head ``hw`` = 2 ``dhp`` wide (q,
+    then k, dh = cl / heads padded to ``dhp``, a multiple of 16), in
+    ``groups`` groups of ``hg`` heads (``gw`` columns), each group's 1x1 in
+    passes of ``np`` columns over ``nk`` 64-deep weight tiles (c deep) and
+    ``ws`` ring stages; ``cp`` = c rounded up to 32; ``bytes`` the dynamic
+    shared memory. A head block takes at most the groups and stages of the
+    whole attention's plan at ``c`` (its c / dh heads)."""
+    cl = c if cl is None else cl
+    dh = cl // heads
+    dhp = -(-dh // 16) * 16
+    hw, cp = 2 * dhp, -(-c // 32) * 32
+    nqk = heads * hw
+    halo = 2 * FRONT_ROWS * (cp + 8)
+    hcap, wcap = STATS_MAX_N, 3
+    if cl < c:
+        nw = c // dh
+        whole = _stats_groups(nw, hw, 2 * 9 * nw * hw + 4 * nw * dhp * dhp + 4 * nw * hw + halo,
+                              STATS_MAX_N, 3)
+        hcap, wcap = whole["hg"], whole["ws"]
+    g = _stats_groups(heads, hw, 2 * 9 * nqk + 4 * heads * dhp * dhp + 4 * nqk + halo, hcap, wcap)
+    return dict(g, dh=dh, dhp=dhp, hw=hw, nqk=nqk, cp=cp, nk=-(-cp // FRONT_K))
 
 
 def stats_f32_plan(c: int, heads: int, cl: int | None = None) -> dict:
@@ -387,25 +403,28 @@ def dwconv_dx_plan(c: int, k: int, stencil: bool = True, f32_t: bool = False) ->
     return dict(ck=ck, nck=-(-k // 64), stages=stages, stage=stage, bytes=da + stages * stage)
 
 
-def stats_bwd_tc_plan(c: int, heads: int) -> dict:
-    """The bf16 stats backward's plans: the first tile's (``StatsBwdPlan``
-    in csrc/spectral_stats.cuh: :func:`stats_plan`'s tiling with dG, bf16
+def stats_bwd_tc_plan(c: int, heads: int, cl: int | None = None) -> dict:
+    """The bf16 stats backward's plans at input width ``c`` and q|k width
+    ``cl`` (default ``c``): the first tile's (``StatsBwdPlan`` in
+    csrc/spectral_stats.cuh: :func:`stats_plan`'s tiling with dG, bf16
     [heads][dhp][``ldg`` = dhp + 8], in the place of the Gram partial;
-    ``bytes``) and the second tile's at K = 2C (``dx``: :func:`dwconv_dx_plan`)."""
-    pl = stats_plan(c, heads)
+    ``bytes``) and the second tile's at K = 2CL (``dx``: :func:`dwconv_dx_plan`)."""
+    cl = c if cl is None else cl
+    pl = stats_plan(c, heads, cl)
     ldg = pl["dhp"] + 8
     dg = 2 * heads * pl["dhp"] * ldg
     return dict(pl, ldg=ldg, bytes=pl["bytes"] - 4 * heads * pl["dhp"] ** 2 + dg,
-                dx=dwconv_dx_plan(c, 2 * c))
+                dx=dwconv_dx_plan(c, 2 * cl))
 
 
-def qk_row(n: int, plan: dict, c: int) -> int:
-    """The row of :func:`pack_stats`' q|k weights behind column ``n`` of the
-    tile's head-grouped order (``qk_row`` in csrc/spectral_stats.cuh), or -1
-    for a padding column."""
+def qk_row(n: int, plan: dict, cl: int) -> int:
+    """The row of :func:`pack_stats`' q|k weights ([2CL][C8], q rows then k
+    rows; ``cl`` the q|k width) behind column ``n`` of the tile's
+    head-grouped order (``qk_row`` in csrc/spectral_stats.cuh), or -1 for a
+    padding column."""
     h, j = divmod(n, plan["hw"])
     d = j if j < plan["dhp"] else j - plan["dhp"]
-    return (0 if j < plan["dhp"] else c) + h * plan["dh"] + d if d < plan["dh"] else -1
+    return (0 if j < plan["dhp"] else cl) + h * plan["dh"] + d if d < plan["dh"] else -1
 
 
 def pack_stats(wqkv, wdw, dt):
@@ -431,7 +450,7 @@ def _stats_entry(kind: str = "fwd"):
                             [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int])
     if kind == "bwd_tc":
         return _build.entry("mp_spectral_stats_bwd_tc", 14,
-                            [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int])
+                            [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int])
     if kind == "dx_tc":
         return _build.entry("mp_dwconv_dx_tc", 9, [ctypes.c_int] * 6 + [ctypes.c_float])
     return _build.entry("mp_spectral_stats", 11,
@@ -469,16 +488,6 @@ def _halo_operand(halo, x, x2, shift):
     return rows, halo.flags
 
 
-def _no_bf16_head_block(x, c, cl, what):
-    """bf16 has no head-block tiles yet: a bf16 launch with a q/k/v width
-    CL other than C raises (float32 runs the head block)."""
-    if cl != c and x.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            f"{what}: a head block (q/k/v width {cl} of C = {c}, the spectral mesh axis) has no "
-            "bf16 kernel: the bf16 head-block tiles of the stats, apply and their backwards are "
-            "not written yet; run the spectral mesh axis in float32")
-
-
 def _stats_prepare(x, wqkv, wdw, num_heads, shift=0, x2=None, ln_w=None, ln_b=None, eps=1e-5,
                    halo=None):
     """Everything a launch needs: (the C entry's arguments, the outputs, the
@@ -492,14 +501,13 @@ def _stats_prepare(x, wqkv, wdw, num_heads, shift=0, x2=None, ln_w=None, ln_b=No
     if h % 8 or w % 8 or cl % num_heads or wqkv.shape[1] != c or cl > c:
         raise ValueError(f"spectral stats needs H, W % 8 == 0, a (3CL, C) weight with CL <= C "
                          f"and CL % heads == 0, got {tuple(x.shape)} and {tuple(wqkv.shape)}")
-    _no_bf16_head_block(x, c, cl, "spectral stats")
     dt, code = x.dtype, dtype_code(x)
     dh = cl // num_heads
     what = f"C={c}, heads={num_heads}" + ("" if cl == c else f", CL={cl}")
     if code:
         if c > FRONT_MAX_C:  # the widest C of the tile's plan
             raise ValueError(f"the bf16 spectral stats kernel takes C up to {FRONT_MAX_C}, got {c}")
-        _build.check_plan("spectral_stats", "mp_spectral_stats_tc_smem", what, c, num_heads)
+        _build.check_plan("spectral_stats", "mp_spectral_stats_tc_smem", what, c, cl, num_heads)
     else:
         if not stats_f32_plan(c, num_heads, cl)["ok"]:  # a head's columns in one group
             raise ValueError(f"the float32 spectral stats kernel takes heads up to 96 wide, "
@@ -546,57 +554,64 @@ def _stats_launch(x, wqkv, wdw, num_heads, shift, x2, ln_w, ln_b, eps, halo=None
 def _stats_bwd_tc_launch(x, wqkv, wdw, num_heads, shift, ln_w, ln_b, eps, dgram, dnq, dnk,
                          halo=None, rows=None, flags=0):
     """The bf16 backward: the two tiles, the weight product and one in-order
-    sum of the per-tile partials (the taps' [9][2C], then d ln_w, d ln_b).
+    sum of the per-tile partials (the taps' [9][2CL], then d ln_w, d ln_b;
+    CL = wqkv.shape[0] / 3, C or a member's head block: t, dqk and dtt 2CL
+    wide, the weight cotangents (3CL, C) and (3CL, 9), un and dx C wide).
     A row shard (``rows``, ``flags`` of :func:`_halo_operand`): tile 1 also
     writes the halo rows' LN'd input and 1x1 output, ``mp_dwconv_halo_bwd``
     their cotangents and tap partials, and :func:`_halo_rows_bwd` carries
     them to d halo.top / d halo.bot (None at an image edge)."""
     b, h, w, c = x.shape
+    cl = wqkv.shape[0] // 3
     dt = x.dtype
     if c > FRONT_MAX_C:  # the widest C of both tiles' plans
         raise ValueError(f"the bf16 spectral stats backward takes C up to {FRONT_MAX_C}, got {c}")
-    what = f"C={c}, heads={num_heads}"
-    _build.check_plan("spectral_stats_bwd", "mp_spectral_stats_bwd_tc_smem", what, c, num_heads)
-    _build.check_plan("spectral_stats_bwd", "mp_dwconv_dx_tc_smem", what, c, 2 * c)
+    what = f"C={c}, heads={num_heads}" + ("" if cl == c else f", CL={cl}")
+    _build.check_plan("spectral_stats_bwd", "mp_spectral_stats_bwd_tc_smem", what, c, cl,
+                      num_heads)
+    _build.check_plan("spectral_stats_bwd", "mp_dwconv_dx_tc_smem", what, c, 2 * cl)
     x = x.contiguous()
     wq, wd = pack_stats(wqkv, wdw, dt)
     lnw, lnb = f32(ln_w), f32(ln_b)
     dgram, dnq, dnk = f32(dgram), f32(dnq), f32(dnk)
     dev = x.device
     tiles = b * (h // 8) * (w // 8)
+    k = 2 * cl
     un = torch.empty((b, h, w, c), dtype=dt, device=dev)
-    t = torch.empty((b, h, w, 2 * c), dtype=dt, device=dev)
-    dqk = torch.empty((b, h, w, 2 * c), dtype=torch.float32, device=dev)
+    t = torch.empty((b, h, w, k), dtype=dt, device=dev)
+    dqk = torch.empty((b, h, w, k), dtype=torch.float32, device=dev)
     dtt, dx = torch.empty_like(t), torch.empty_like(x)
     ln = lnw is not None
-    part = torch.empty((1, tiles, 18 * c + (2 * c if ln else 0)), dtype=torch.float32, device=dev)
+    part = torch.empty((1, tiles, 9 * k + (2 * c if ln else 0)), dtype=torch.float32, device=dev)
     # the halo rows' LN'd input and 1x1 output (a side without its bit stays zero)
     un_h = torch.zeros((2, b, w, c), dtype=dt, device=dev) if flags else None
-    t_h = torch.zeros((2, b, w, 2 * c), dtype=dt, device=dev) if flags else None
+    t_h = torch.zeros((2, b, w, k), dtype=dt, device=dev) if flags else None
     p = _build.ptr
     err = _stats_entry("bwd_tc")(x.data_ptr(), p(lnw), p(lnb), wq.data_ptr(), wd.data_ptr(),
                                  dgram.data_ptr(), dnq.data_ptr(), dnk.data_ptr(), un.data_ptr(),
                                  t.data_ptr(), dqk.data_ptr(), p(rows), p(un_h), p(t_h), b, h, w, c,
-                                 num_heads, shift, eps, flags, stream_ptr())
+                                 cl, num_heads, shift, eps, flags, stream_ptr())
     _build.check("mp_spectral_stats_bwd_tc", err)
     err = _stats_entry("dx_tc")(dqk.data_ptr(), t.data_ptr(), wd.data_ptr(), wq.data_ptr(),
                                 x.data_ptr(), p(lnw), dtt.data_ptr(), dx.data_ptr(),
-                                part.data_ptr(), b, h, w, c, 2 * c, shift, eps, stream_ptr())
+                                part.data_ptr(), b, h, w, c, k, shift, eps, stream_ptr())
     _build.check("mp_dwconv_dx_tc", err)
-    dw = torch.zeros((3 * c, c), dtype=torch.float32, device=dev)
-    dw[:2 * c] = wgrad(un.reshape(-1, c), dtt.reshape(-1, 2 * c)).t()
+    dw = torch.zeros((3 * cl, c), dtype=torch.float32, device=dev)
+    dw[:k] = wgrad(un.reshape(-1, c), dtt.reshape(-1, k)).t()
     sums = sum_parts(part)[0]
-    dwdw = torch.zeros((3 * c, 9), dtype=torch.float32, device=dev)
-    dwdw[:2 * c] = sums[:18 * c].reshape(9, 2 * c).t()
-    dln = (sums[18 * c:19 * c], sums[19 * c:]) if ln else None
+    dwdw = torch.zeros((3 * cl, 9), dtype=torch.float32, device=dev)
+    dwdw[:k] = sums[:9 * k].reshape(9, k).t()
+    dln = (sums[9 * k:9 * k + c], sums[9 * k + c:]) if ln else None
     dtop = dbot = None
     if flags:
         dtop, dbot, dln = _halo_taps_bwd(dqk, t_h, wd, wqkv, 0, rows, ln_w, eps, halo, un_h,
-                                         dw[:2 * c], dwdw[:2 * c], dln)
+                                         dw[:k], dwdw[:k], dln)
         STATS_BWD_HALO.record(("spectral_stats_bwd_halo", b, h, w, c, num_heads, ln, flags,
                                str(dt)))
     STATS_BWD.record(("spectral_stats_bwd", b, h, w, c, num_heads, shift, ln, str(dt)))
-    return (dx, dw.reshape(3 * c, c, 1, 1), dwdw.reshape(3 * c, 1, 3, 3),
+    if cl != c:
+        STATS_BWD_TP.record(("spectral_stats_bwd_tp", b, h, w, c, cl, num_heads, flags, str(dt)))
+    return (dx, dw.reshape(3 * cl, c, 1, 1), dwdw.reshape(3 * cl, 1, 3, 3),
             *(dln if ln else (None, None)), dtop, dbot)
 
 
@@ -659,13 +674,12 @@ def _add_ln(dln, extra):
 
 def _stats_bwd_launch(x, wqkv, wdw, num_heads, shift, ln_w, ln_b, eps, dgram, dnq, dnk,
                       halo=None):
-    """The backward on the card. float32 takes a member's head block (CL =
-    wqkv.shape[0] / 3 < C): t and dqk are 2CL wide, the weight cotangents
+    """The backward on the card. Both types take a member's head block (CL
+    = wqkv.shape[0] / 3 < C): t and dqk are 2CL wide, the weight cotangents
     (3CL, C) and (3CL, 9), dx and the halo rows' cotangents C wide."""
     rows, flags = _halo_operand(halo, x, None, shift)
     b, h, w, c = x.shape
     cl = wqkv.shape[0] // 3
-    _no_bf16_head_block(x, c, cl, "spectral stats backward")
     if x.dtype == torch.bfloat16:
         return _stats_bwd_tc_launch(x, wqkv, wdw, num_heads, shift, ln_w, ln_b, eps, dgram, dnq,
                                     dnk, halo, rows, flags)
@@ -900,29 +914,42 @@ def spectral_apply_bwd_plain(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, ga
             dtop, dbot)
 
 
-def front_plan(c: int) -> dict:
-    """The bf16 apply tile's tiling at width ``c`` (``FrontPlan`` in
-    csrc/spectral_front.cuh): ``cp`` = c rounded up to 32, the 1x1 product's
-    output passes of ``np`` columns, ``nk`` 64-deep weight tiles per pass."""
-    cp = -(-c // 32) * 32
-    nb = cp // 32
+def front_plan(c: int, cl: int | None = None) -> dict:
+    """The bf16 apply tile's tiling at input width ``c`` and v width ``cl``
+    (default ``c``; a member's head block under the spectral mesh axis)
+    (``FrontPlan`` in csrc/spectral_front.cuh): ``cp`` / ``cpl`` = c / cl
+    rounded up to 32, the 1x1 product's output passes of ``np`` columns
+    (over cpl), ``nk`` 64-deep weight tiles per pass (over cp), ``nkc``
+    64-deep comb tiles (over cpl), ``ws`` weight ring stages; ``ldv`` the v
+    tile's row; ``front_bytes`` the front's dynamic bytes (taps | v | halo
+    | ring, without the tail)."""
+    cl = c if cl is None else cl
+    cp, cpl = -(-c // 32) * 32, -(-cl // 32) * 32
+    nb = cpl // 32
     passes = -(-7 * nb // (16 * FRONT_UNITS))
-    return dict(cp=cp, passes=passes, np=32 * -(-nb // passes), nk=-(-cp // FRONT_K))
+    np_ = 32 * -(-nb // passes)
+    ws = 2 if passes > 1 or cp > 192 else 3
+    ld, ldv = cp + 8, cpl + 8
+    ring = max(ws * 2 * np_ * FRONT_LDW, 2 * 100 * (np_ + 8), 2 * 2 * 64 * ld - 2 * FRONT_ROWS * ld)
+    front = 2 * 9 * cpl + 2 * 64 * ldv + 2 * FRONT_ROWS * ld + ring
+    return dict(cp=cp, cpl=cpl, passes=passes, np=np_, nk=-(-cp // FRONT_K),
+                nkc=-(-cpl // FRONT_K), ws=ws, ldv=ldv, front_bytes=front)
 
 
 def pack_front(wqkv, wdw, comb, dt):
     """The operands the bf16 apply tile streams, in ``dt``: the v rows of
-    the 1x1 weight as [C out][C8 in] (torch layout), their depthwise taps as
-    [C][9], and ``comb`` as (B, C, C8); C8 is C rounded up to 8, the rows
+    the 1x1 weight as [CL out][C8 in] (torch layout; CL = wqkv.shape[0] / 3,
+    C or a member's head block), their depthwise taps as [CL][9], and
+    ``comb`` (B, CL, C) as (B, CL, C8); C8 is C rounded up to 8, the rows
     padded with zeros only where C is not a multiple of 8 (16-byte rows for
     the kernel's copies). Views of the weights where they are already in
     ``dt``; the kernel stages [np][64] tiles of the first and [64][cp] tiles
-    of the last (:func:`front_plan`), zero past C."""
-    c = wqkv.shape[1]
-    wv, cb = wqkv[2 * c:].reshape(c, c).to(dt), comb.to(dt)
+    of the last (:func:`front_plan`), zero past CL rows and C columns."""
+    c, cl = wqkv.shape[1], wqkv.shape[0] // 3
+    wv, cb = wqkv[2 * cl:].reshape(cl, c).to(dt), comb.to(dt)
     if c % 8:
         wv, cb = F.pad(wv, (0, -c % 8)), F.pad(cb, (0, -c % 8))
-    return wv.contiguous(), wdw[2 * c:].reshape(c, 9).to(dt).contiguous(), cb.contiguous()
+    return wv.contiguous(), wdw[2 * cl:].reshape(cl, 9).to(dt).contiguous(), cb.contiguous()
 
 
 def apply_f32_plan(c: int, tail: bool = False, cl: int | None = None) -> dict:
@@ -977,24 +1004,25 @@ def pack_front_f32(wqkv, wdw, comb):
     return wv.contiguous(), wdw[2 * cl:].reshape(cl, 9).float().contiguous(), cb.contiguous()
 
 
-def apply_bwd_tc_plan(c: int) -> dict:
-    """The bf16 apply backward's plans at width ``c``: the first tile's
-    (``ApplyBwdPlan`` in csrc/spectral_apply_bwd.cuh: :func:`front_plan`'s
-    tiling; ``front`` = v [64][ld] | taps [9][cp] | halo [112][ld] | the
-    weight ring of ``ws`` stages or a pass's 1x1 output, whichever is larger;
-    after the front ``post`` = v | dys | ``cs`` comb stages of [64][ld], 3
-    where they fit; ``bytes`` the larger) and the second tile's at K = C
-    (``dx``: :func:`dwconv_dx_plan`)."""
-    pl = front_plan(c)
+def apply_bwd_tc_plan(c: int, cl: int | None = None) -> dict:
+    """The bf16 apply backward's plans at input width ``c`` and v width
+    ``cl`` (default ``c``): the first tile's (``ApplyBwdPlan`` in
+    csrc/spectral_apply_bwd.cuh: :func:`front_plan`'s tiling; ``front`` = v
+    [64][ldv] | taps [9][cpl] | halo [112][ld] | the weight ring of ``ws``
+    stages or a pass's 1x1 output, whichever is larger; after the front
+    ``post`` = v | dys [64][ld] | ``cs`` comb stages of [64][ld], 3 where
+    they fit at CL = C; ``bytes`` the larger) and the second tile's at K = CL (``dx``:
+    :func:`dwconv_dx_plan`)."""
+    cl = c if cl is None else cl
+    pl = front_plan(c, cl)
     ld = pl["cp"] + 8
-    v = 2 * 64 * ld
-    ws = 2 if pl["passes"] > 1 else 3
-    ring = max(ws * 2 * pl["np"] * FRONT_LDW, 2 * 100 * (pl["np"] + 8))
-    front = v + 2 * 9 * pl["cp"] + 2 * FRONT_ROWS * ld + ring
-    cs = 3 if 5 * v <= STATS_BUDGET else 2
-    post = (2 + cs) * v
-    return dict(pl, ld=ld, ws=ws, cs=cs, front=front, post=post, bytes=max(front, post),
-                dx=dwconv_dx_plan(c, c))
+    v, ds = 2 * 64 * pl["ldv"], 2 * 64 * ld
+    ring = max(pl["ws"] * 2 * pl["np"] * FRONT_LDW, 2 * 100 * (pl["np"] + 8))
+    front = v + 2 * 9 * pl["cpl"] + 2 * FRONT_ROWS * ld + ring
+    cs = 3 if 5 * ds <= STATS_BUDGET else 2  # as at CL = C: the plan never outgrows it
+    post = v + ds + cs * ds
+    return dict(pl, ld=ld, cs=cs, front=front, post=post, bytes=max(front, post),
+                dx=dwconv_dx_plan(c, cl))
 
 
 @lru_cache(maxsize=None)
@@ -1006,9 +1034,9 @@ def _apply_entry(kind: str = "fwd"):
                             [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int, ctypes.c_int])
     if kind == "bwd_tc":
         return _build.entry("mp_spectral_apply_bwd_tc", 19,
-                            [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_int])
+                            [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, ctypes.c_int])
     if kind == "dx_tc":
-        return _build.entry("mp_spectral_apply_dx_tc", 10, [ctypes.c_int] * 6 + [ctypes.c_float])
+        return _build.entry("mp_spectral_apply_dx_tc", 10, [ctypes.c_int] * 7 + [ctypes.c_float])
     if kind == "gate":
         return _build.entry("mp_spectral_gate_grad", 3, [ctypes.c_int] * 6)
     return _build.entry("mp_spectral_apply", 18,
@@ -1020,7 +1048,7 @@ def _apply_prepare(x, comb, wqkv, wdw, shift=0, x2=None, ln_w=None, ln_b=None, r
     """Everything a launch needs: (the C entry's arguments, out, the tensors
     the arguments point into, to be held until the launch). Weights: bf16
     :func:`pack_front`, float32 :func:`pack_front_f32` (a member's head
-    block: CL = wqkv.shape[0] / 3 < C v rows, comb (B, CL, C), no tail); the
+    block in both: CL = wqkv.shape[0] / 3 < C v rows, comb (B, CL, C), no tail); the
     tail's :func:`pack_mlp_weights` in the compute type; ``halo``: the rows
     of :func:`_halo_operand`."""
     b, h, w, c1 = x.shape
@@ -1034,7 +1062,6 @@ def _apply_prepare(x, comb, wqkv, wdw, shift=0, x2=None, ln_w=None, ln_b=None, r
     if wqkv.shape[1] != c or cl > c or comb.shape[1:] != (cl, c):
         raise ValueError(f"spectral apply takes a (3CL, C) weight with CL <= C and comb (B, CL, "
                          f"C), got {tuple(wqkv.shape)} and {tuple(comb.shape)} at C = {c}")
-    _no_bf16_head_block(x, c, cl, "spectral apply")
     if cl != c and mlp is not None:
         raise ValueError("a head block's apply takes no MLP tail (the tail follows the sum "
                          "over the spectral mesh axis)")
@@ -1098,16 +1125,22 @@ def _apply_launch(x, comb, wqkv, wdw, shift, x2, ln_w, ln_b, residual, gate, sho
 def _apply_bwd_tc_launch(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate, dp_scale, eps,
                          dy, halo=None, rows=None, flags=0):
     """The bf16 backward: the two tiles, d gate, the two weight products and
-    the in-order sums of the per-tile partial rows (the taps' [9][C], then d
-    ln_w, d ln_b, then d dp): per image over its tiles, then over the images
-    (d dp per image from the first). A row shard: the halo rows' share as
+    the in-order sums of the per-tile partial rows (the taps' [9][CL], then
+    d ln_w, d ln_b, then d dp): per image over its tiles, then over the
+    images (d dp per image from the first). CL = wqkv.shape[0] / 3 (C, or a
+    member's head block): t, v, dv and dtt CL wide, d comb (B, CL, C), the
+    weight cotangents (3CL, C) and (3CL, 9); dx, d gate and the halo rows'
+    cotangents C wide. A row shard: the halo rows' share as
     :func:`_stats_bwd_tc_launch` adds it."""
     b, h, w, c = x.shape
+    cl = wqkv.shape[0] // 3
     dt = x.dtype
     if c > FRONT_MAX_C:  # the widest C of both tiles' plans
         raise ValueError(f"the bf16 spectral apply backward takes C up to {FRONT_MAX_C}, got {c}")
-    _build.check_plan("spectral_apply_bwd", "mp_spectral_apply_bwd_tc_smem", f"C={c}, tile 1", c, 1)
-    _build.check_plan("spectral_apply_bwd", "mp_spectral_apply_bwd_tc_smem", f"C={c}, tile 2", c, 2)
+    what = f"C={c}" + ("" if cl == c else f", CL={cl}")
+    for tile in (1, 2):
+        _build.check_plan("spectral_apply_bwd", "mp_spectral_apply_bwd_tc_smem",
+                          f"{what}, tile {tile}", c, cl, tile)
     x, dy = x.contiguous(), dy.to(dt).contiguous()
     gwin = _gate_win(gate, h)
     gate_t = None if gate is None else gate.to(dt).contiguous()
@@ -1116,23 +1149,26 @@ def _apply_bwd_tc_launch(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate, 
     dev = x.device
     tiles = b * (h // 8) * (w // 8)
     like = dict(dtype=dt, device=dev)
-    un, t, v, dtt, dx = (torch.empty((b, h, w, c), **like) for _ in range(5))
+    un, dx = (torch.empty((b, h, w, c), **like) for _ in range(2))
+    t, v, dtt = (torch.empty((b, h, w, cl), **like) for _ in range(3))
     dys = dy if dp is None else torch.empty_like(un)
-    dv = torch.empty((b, h, w, c), dtype=torch.float32, device=dev)
-    extra = torch.empty_like(dv) if (gate is not None or residual) else None
+    dv = torch.empty((b, h, w, cl), dtype=torch.float32, device=dev)
+    extra = (torch.empty((b, h, w, c), dtype=torch.float32, device=dev)
+             if (gate is not None or residual) else None)
     ln = lnw is not None
-    o_dp = 9 * c + (2 * c if ln else 0)  # the part row: taps, [LN], [d dp]
+    o_dp = 9 * cl + (2 * c if ln else 0)  # the part row: taps, [LN], [d dp]
     ldp = o_dp + int(dp is not None)
     part = torch.empty((b, tiles // b, ldp), dtype=torch.float32, device=dev)
     pdp = None if dp is None else part.data_ptr() + 4 * o_dp  # column o_dp of row 0
     # the halo rows' LN'd input and v 1x1 output (a side without its bit stays zero)
-    un_h, t_h = ((torch.zeros((2, b, w, c), **like) for _ in range(2)) if flags else (None, None))
+    un_h = torch.zeros((2, b, w, c), **like) if flags else None
+    t_h = torch.zeros((2, b, w, cl), **like) if flags else None
     p = _build.ptr
     err = _apply_entry("bwd_tc")(x.data_ptr(), p(lnw), p(lnb), wv.data_ptr(), wd.data_ptr(),
                                  cb.data_ptr(), p(gate_t), p(dp), dy.data_ptr(), un.data_ptr(),
                                  t.data_ptr(), v.data_ptr(), None if dp is None else dys.data_ptr(),
                                  dv.data_ptr(), p(extra), pdp, p(rows), p(un_h), p(t_h), b, h, w,
-                                 c, int(residual), shift, ldp, eps, flags, gwin or 8,
+                                 c, cl, int(residual), shift, ldp, eps, flags, gwin or 8,
                                  stream_ptr())
     _build.check("mp_spectral_apply_bwd_tc", err)
     dgate = None
@@ -1143,39 +1179,41 @@ def _apply_bwd_tc_launch(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate, 
         _build.check("mp_spectral_gate_grad", err)
     err = _apply_entry("dx_tc")(dv.data_ptr(), t.data_ptr(), wd.data_ptr(), wv.data_ptr(),
                                 x.data_ptr(), p(lnw), p(extra), dtt.data_ptr(), dx.data_ptr(),
-                                part.data_ptr(), b, h, w, c, shift, ldp, eps, stream_ptr())
+                                part.data_ptr(), b, h, w, c, cl, shift, ldp, eps, stream_ptr())
     _build.check("mp_spectral_apply_dx_tc", err)
-    dw = torch.zeros((3 * c, c), dtype=torch.float32, device=dev)
-    dw[2 * c:] = wgrad(un.reshape(-1, c), dtt.reshape(-1, c)).t()
-    dcomb = wgrad(v.reshape(b, h * w, c), dys.reshape(b, h * w, c))
+    dw = torch.zeros((3 * cl, c), dtype=torch.float32, device=dev)
+    dw[2 * cl:] = wgrad(un.reshape(-1, c), dtt.reshape(-1, cl)).t()
+    dcomb = wgrad(v.reshape(b, h * w, cl), dys.reshape(b, h * w, c))
     per_image = sum_parts(part)
     sums = sum_parts(per_image.unsqueeze(0))[0]
-    dwdw = torch.zeros((3 * c, 9), dtype=torch.float32, device=dev)
-    dwdw[2 * c:] = sums[:9 * c].reshape(9, c).t()
-    dln = (sums[9 * c:10 * c], sums[10 * c:11 * c]) if ln else None
+    dwdw = torch.zeros((3 * cl, 9), dtype=torch.float32, device=dev)
+    dwdw[2 * cl:] = sums[:9 * cl].reshape(9, cl).t()
+    dln = (sums[9 * cl:9 * cl + c], sums[9 * cl + c:9 * cl + 2 * c]) if ln else None
     dtop = dbot = None
     if flags:
-        dtop, dbot, dln = _halo_taps_bwd(dv, t_h, wd, wqkv, 2 * c, rows, ln_w, eps, halo, un_h,
-                                         dw[2 * c:], dwdw[2 * c:], dln)
+        dtop, dbot, dln = _halo_taps_bwd(dv, t_h, wd, wqkv, 2 * cl, rows, ln_w, eps, halo, un_h,
+                                         dw[2 * cl:], dwdw[2 * cl:], dln)
         APPLY_BWD_HALO.record(("spectral_apply_bwd_halo", b, h, w, c, ln, bool(residual),
                                _gate_kind(gate, h), dp is not None, flags, str(dt)))
     APPLY_BWD.record(("spectral_apply_bwd", b, h, w, c, shift, ln, bool(residual),
                       _gate_kind(gate, h), dp is not None, str(dt)))
-    return (dx, dcomb, dw.reshape(3 * c, c, 1, 1), dwdw.reshape(3 * c, 1, 3, 3),
+    if cl != c:
+        APPLY_BWD_TP.record(("spectral_apply_bwd_tp", b, h, w, c, cl, _gate_kind(gate, h),
+                             dp is not None, flags, str(dt)))
+    return (dx, dcomb, dw.reshape(3 * cl, c, 1, 1), dwdw.reshape(3 * cl, 1, 3, 3),
             *(dln if ln else (None, None)), None if dgate is None else dgate.to(gate.dtype), dy,
             None if dp is None else per_image[:, o_dp].to(dp_scale.dtype), dtop, dbot)
 
 
 def _apply_bwd_launch(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate, dp_scale, eps, dy,
                       halo=None):
-    """The backward on the card. float32 takes a member's head block (CL =
+    """The backward on the card. Both types take a member's head block (CL =
     wqkv.shape[0] / 3 < C): t, v and dv are CL wide, d comb (B, CL, C), the
     weight cotangents (3CL, C) and (3CL, 9); dx, d gate and the halo rows'
     cotangents C wide."""
     rows, flags = _halo_operand(halo, x, None, shift)
     b, h, w, c = x.shape
     cl = wqkv.shape[0] // 3
-    _no_bf16_head_block(x, c, cl, "spectral apply backward")
     if x.dtype == torch.bfloat16:
         return _apply_bwd_tc_launch(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate,
                                     dp_scale, eps, dy, halo, rows, flags)

@@ -156,16 +156,6 @@ def sync_parameters(state: TrainState, mesh: Mesh | None) -> None:
             p.copy_(broadcast(p, ax))
 
 
-def _no_bf16_head_blocks(mc: ModelConfig, tp, device) -> None:
-    """The bf16 head-block kernels are not written yet: a bf16 model on a
-    spectral axis raises on the card (the plain bf16 versions run on the
-    CPU)."""
-    if axis_size(tp) > 1 and mc.compute_dtype == "bfloat16" and torch.device(device).type == "cuda":
-        raise NotImplementedError(
-            "the spectral mesh axis runs in float32 on the card: the bf16 head-block tiles of "
-            "the spectral stats and apply kernels are not written yet (compute_dtype float32)")
-
-
 def make_train_step(mc: ModelConfig, tc: TrainConfig, mesh: Mesh | None = None):
     """The train step ``step(state, batch, seed) -> loss`` over ``mesh``
     (counterpart of ``make_train_step(mc, mesh)``,
@@ -180,9 +170,8 @@ def make_train_step(mc: ModelConfig, tc: TrainConfig, mesh: Mesh | None = None):
     seeded with :func:`fold_seed` of the data index: the same on the
     spatial and spectral members of a data group. Each shard must hold
     whole 8 x 8 windows at the deepest level (its rows a multiple of 32).
-    ``mc`` is the model's configuration, in either compute type (float32 on
-    the card with a spectral axis). ``tc``'s batch and patch size are
-    checked against the mesh here."""
+    ``mc`` is the model's configuration, in either compute type. ``tc``'s
+    batch and patch size are checked against the mesh here."""
     sp = None if mesh is None else mesh.axis(SPATIAL_AXIS)
     dp = None if mesh is None else mesh.axis(DATA_AXIS)
     tp = None if mesh is None else mesh.axis(SPECTRAL_AXIS)
@@ -202,7 +191,6 @@ def make_train_step(mc: ModelConfig, tc: TrainConfig, mesh: Mesh | None = None):
             raise ValueError(f"a shard of {h} rows does not hold whole 8 x 8 windows at the "
                              f"deepest level (rows / 4 = {h / 4}); use fewer spatial ranks")
         dev = block["degraded"].device
-        _no_bf16_head_blocks(mc, tp, dev)
         gen = torch.Generator(device=dev).manual_seed(fold_seed(seed, axis_index(dp)))
         return train_step(state, block, gen, axis=sp, mean_axis=every, spectral=tp)
 
@@ -232,7 +220,6 @@ def make_eval_step(mc: ModelConfig, mesh: Mesh | None = None):
             raise ValueError(f"a batch of {b} x {h} rows does not split over the "
                              f"{axis_size(dp)} x {axis_size(sp)} mesh")
         b0, r0 = axis_index(dp) * nb, axis_index(sp) * nh
-        _no_bf16_head_blocks(mc, tp, degraded.device)
         with torch.inference_mode():
             out = model(degraded[b0:b0 + nb, :, r0:r0 + nh].contiguous(),
                         task_id[b0:b0 + nb], axis=sp, spectral=tp)

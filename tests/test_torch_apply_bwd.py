@@ -8,7 +8,8 @@ drop-path product br, the per-tile d dp partial; launch 2,
 rounds, tests/dwconv_dx_emulation.py) and the wrapper's d gate, weight
 products and the in-order sums (per image, then over the images), at the
 rounding points of
-``spectral_apply_bwd_plain``, against it. The kernels themselves are held
+``spectral_apply_bwd_plain``, against it, on the whole attention and on a
+member's head block (v width CL < C, comb (B, CL, C)). The kernels themselves are held
 against the plain version on the card by tests/test_torch_cuda.py and
 chip_smoke.py. Imports no JAX."""
 
@@ -57,26 +58,28 @@ def _gmap(gate, shift, h):
 def _launch1(x, wv, wd, cb, gate, dp, residual, dy, lnw, lnb, shift, dt, eps, flipped=True,
              hrows=(None, None)):
     """The first tile on every 8x8 tile: (un, t, v, dys, dv, extra, the d dp
-    partial per tile) in the unrolled frame, then un_halo and t_halo
-    ([2][B][W][C]): the LN'd input and v 1x1 output of a row shard's staged
-    halo rows ``hrows`` (test_torch_stats_bwd's _halo_in), which the first
-    and last tile rows write (zero on a side without a row).
+    partial per tile) in the unrolled frame, then un_halo ([2][B][W][C]) and
+    t_halo ([2][B][W][CL]): the LN'd input and v 1x1 output of a row
+    shard's staged halo rows ``hrows`` (test_torch_stats_bwd's _halo_in),
+    which the first and last tile rows write (zero on a side without a
+    row). CL = wv's rows: C, or a member's head block (comb (B, CL, C)).
     flipped=False reads comb unflipped in the dv product (dys comb in place
-    of dys comb^T, a planted fault)."""
+    of dys comb^T, a planted fault at CL = C)."""
     b, h, w, c = x.shape
-    pl = apply_bwd_tc_plan(c)
-    cp, npass = pl["cp"], pl["np"]
+    cl = wv.shape[0]
+    pl = apply_bwd_tc_plan(c, cl)
+    cpl, npass = pl["cpl"], pl["np"]
     raw = np.roll(x, (shift, shift), axis=(1, 2))
     un = raw if lnw is None else rnd(ln(raw, lnw, lnb, eps)[2], dt)
     halo = tiles(un, *hrows)  # the halo staged as bf16, LN in place, zero outside
     sides = [s for s in range(2) if hrows[s] is not None]
-    un_h, t_h = np.zeros((2, b, w, c), np.float32), np.zeros((2, b, w, c), np.float32)
+    un_h, t_h = np.zeros((2, b, w, c), np.float32), np.zeros((2, b, w, cl), np.float32)
     for side in sides:
         un_h[side] = halo_row_out(halo, side, b, h, w)
-    t_out = np.zeros(halo.shape[:3] + (64, c), np.float32)
-    v = np.zeros(halo.shape[:3] + (64, cp), np.float32)
-    for n0 in range(0, cp, npass):  # the passes of the v rows
-        cols = np.arange(n0, min(n0 + npass, c))
+    t_out = np.zeros(halo.shape[:3] + (64, cl), np.float32)
+    v = np.zeros(halo.shape[:3] + (64, cpl), np.float32)
+    for n0 in range(0, cpl, npass):  # the passes of the v rows
+        cols = np.arange(n0, min(n0 + npass, cl))
         if not len(cols):
             continue
         t = rnd(halo @ wv[cols, :c].T, dt)  # [..., 100, np]
@@ -95,11 +98,11 @@ def _launch1(x, wv, wd, cb, gate, dp, residual, dy, lnw, lnb, shift, dt, eps, fl
     g = None if gate is None else tile_rows(_gmap(gate, shift, x.shape[1]))
     if gate is not None or residual:
         extra = (ds * g if gate is not None else 0) + (d0 if residual else 0)
-    dv = np.zeros_like(ds)
+    dv = np.zeros(ds.shape[:-1] + (cl,), np.float32)
     br = np.zeros_like(ds)
-    cbt = cb[:, None, None]  # [B][1][1][C][C]: each image's comb
-    for k0 in range(0, cp, FRONT_K):  # the comb tiles: 64 rows (v channels)
-        rows = np.arange(k0, min(k0 + FRONT_K, c))
+    cbt = cb[:, None, None]  # [B][1][1][CL][C]: each image's comb
+    for k0 in range(0, cpl, FRONT_K):  # the comb tiles: 64 rows (v channels)
+        rows = np.arange(k0, min(k0 + FRONT_K, cl))
         if not len(rows):
             continue
         tile = cbt[..., rows, :]  # [64 k][C o]
@@ -110,7 +113,7 @@ def _launch1(x, wv, wd, cb, gate, dp, residual, dy, lnw, lnb, shift, dt, eps, fl
         ug = 0 if gate is None else tile_rows(raw) * g
         part = (d0 * (br + ug)).sum((-2, -1))  # [B][ty][tx]
     unt = lambda a: untile(a.reshape(-1, 64, a.shape[-1]), b, h, w)  # noqa: E731
-    return (un, unt(t_out), unt(v[..., :c]), unt(ds), unt(dv),
+    return (un, unt(t_out), unt(v[..., :cl]), unt(ds), unt(dv),
             None if extra is None else unt(extra), part, un_h, t_h)
 
 
@@ -122,12 +125,16 @@ def _emulate(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate, dp_scale, ep
     the wrapper's halo-row backward, and the outputs end with d top, d bot.
     Planted faults on a shard: "swapped" (the halo rows top for bottom),
     "edge" (the top edge flag inverted), "no_taps" (the halo rows' tap
-    partials left out)."""
+    partials left out); on a head block (CL = wqkv.shape[0] / 3 < C):
+    "v_at_q" (the v rows of the 1x1 read at the q rows' offset), "dcomb_t"
+    (d comb written transposed: [C][CL] in the (CL, C) buffer)."""
     from test_torch_stats_bwd import _halo_in
 
     dt = x.dtype
     b, h, w, c = x.shape
-    wv, wd, cb = (a.float().numpy() for a in pack_front(wqkv, wdw, comb, dt))
+    cl = wqkv.shape[0] // 3
+    wsrc = torch.cat([wqkv[:cl]] * 3) if fault == "v_at_q" else wqkv
+    wv, wd, cb = (a.float().numpy() for a in pack_front(wsrc, wdw, comb, dt))
     f = lambda a: None if a is None else a.float().numpy()  # noqa: E731
     xf, lnw, lnb, g, dp = f(x), f(ln_w), f(ln_b), f(gate), f(dp_scale)
     if g is not None:
@@ -158,36 +165,41 @@ def _emulate(x, comb, wqkv, wdw, shift, ln_w, ln_b, residual, gate, dp_scale, ep
         if g.shape[1] < h:
             prod = prod.reshape(b, h // 8, 8, w // 8, 8, c).sum((2, 4))
         dgate = rnd(prod, gate.dtype)
-    dw = np.zeros((3 * c, c), np.float32)
-    dw[2 * c:] = dtt.reshape(-1, c).T @ un.reshape(-1, c)
-    dcomb = np.einsum("bpk,bpo->bko", v.reshape(b, -1, c), dys.reshape(b, -1, c))
-    taps = tot[:9 * c].reshape(9, c).copy()
-    o = 9 * c + (2 * c if lnw is not None else 0)
-    dln = (tot[9 * c:10 * c], tot[10 * c:11 * c]) if lnw is not None else (None, None)
+    dw = np.zeros((3 * cl, c), np.float32)
+    dw[2 * cl:] = dtt.reshape(-1, cl).T @ un.reshape(-1, c)
+    dcomb = np.einsum("bpk,bpo->bko", v.reshape(b, -1, cl), dys.reshape(b, -1, c))
+    if fault == "dcomb_t":
+        dcomb = np.ascontiguousarray(dcomb.transpose(0, 2, 1)).reshape(b, cl, c)
+    taps = tot[:9 * cl].reshape(9, cl).copy()
+    o = 9 * cl + (2 * c if lnw is not None else 0)
+    dln = (tot[9 * cl:9 * cl + c], tot[9 * cl + c:9 * cl + 2 * c]) if lnw is not None else (None, None)
     dtop = dbot = None
     if halo is not None:
         dth, dwh = halo_taps(dv, t_h, wd, flags, dt, fault)
         taps[:3] += dwh[0]
         taps[6:] += dwh[1]
         dtop, dbot, dw_h, dln_h = halo_rows_bwd(dth, wv, rows, lnw, eps, flags, un_h, dt)
-        dw[2 * c:] += dw_h
+        dw[2 * cl:] += dw_h
         if dln_h is not None:
             dln = tuple(a + e for a, e in zip(dln, dln_h))
-    dwdw = np.zeros((3 * c, 9), np.float32)
-    dwdw[2 * c:] = taps.T
-    out = (dx, dcomb, dw.reshape(3 * c, c, 1, 1), dwdw.reshape(3 * c, 1, 3, 3), *dln, dgate,
+    dwdw = np.zeros((3 * cl, 9), np.float32)
+    dwdw[2 * cl:] = taps.T
+    out = (dx, dcomb, dw.reshape(3 * cl, c, 1, 1), dwdw.reshape(3 * cl, 1, 3, 3), *dln, dgate,
            dy.float().numpy(), None if dp is None else per_image[:, o])
     return out if halo is None else out + (dtop, dbot)
 
 
 def _inputs(c, dt, seed, gate=False, dp=False, ln=False, residual=False, shift=0, b=2, h=8,
-            w=16):
+            w=16, cl=None):
+    """One call's operands; ``cl``: a member's head block (wqkv (3CL, C),
+    comb (B, CL, C)) instead of the whole attention."""
     r = _rng(seed)
     f = lambda *s, scale=1.0: torch.from_numpy(_n(r, s, scale))  # noqa: E731
+    cl = c if cl is None else cl
     x = f(b, h, w, c).to(dt)
-    comb = f(b, c, c, scale=c ** -0.5)
-    wqkv, wdw = torch.from_numpy(_u(r, (3 * c, c, 1, 1), c)), torch.from_numpy(
-        _u(r, (3 * c, 1, 3, 3), 9))
+    comb = f(b, cl, c, scale=cl ** -0.5)
+    wqkv, wdw = torch.from_numpy(_u(r, (3 * cl, c, 1, 1), c)), torch.from_numpy(
+        _u(r, (3 * cl, 1, 3, 3), 9))
     lnw, lnb = (1 + f(c, scale=0.1), f(c, scale=0.1)) if ln else (None, None)
     gh, gw = (h, w) if gate == "map" else (h // 8, w // 8)
     g = f(b, gh, gw, c, scale=0.5).to(dt) if gate else None
@@ -310,6 +322,53 @@ def test_apply_bwd_emulation_sees_the_flip(c):
     bf16 bound."""
     errs = {i: (err, mx) for i, err, mx in _case(c, "gate_dp4", torch.bfloat16, flipped=False)}
     assert all(errs[i][0] > 3e-2 * errs[i][1] for i in (0, 2)), errs
+
+
+# a member's head block under the spectral mesh axis, bf16: (C, CL) at CL =
+# C / 2 and C / 4 of the presets' widths, CL = 48 (the remote-sensing
+# preset's C = 96 on two members) and an odd one (C = 36, CL = 18)
+HEAD_BLOCKS = [(64, 32), (128, 64), (128, 32), (96, 48), (192, 96), (192, 48), (36, 18)]
+# the head block's calls: the PGSSTB's TP route (gate over n, drop-path, no
+# LN, no residual), per-window gates at shift 0 or a row shard's gate map
+TP_VARIANTS = {"gate_dp0": dict(gate=True, dp=True), "gmap_dp0": dict(gate="map", dp=True)}
+
+
+def _head_block_case(c, cl, variant, halo=False, fault=""):
+    """A member's bf16 head block: the emulation's errors against
+    spectral_apply_bwd_plain, every output (with ``halo``: interior halo
+    rows of a row shard, d top and d bot too)."""
+    args = list(_inputs(c, torch.bfloat16, 85 + c + cl, cl=cl, **TP_VARIANTS[variant]))
+    kw = {}
+    if halo:
+        r = _rng(10 + cl)
+        top, bot = (torch.from_numpy(_n(r, (2, 1, 16, c))).to(torch.bfloat16) for _ in range(2))
+        kw["halo"] = Halo(top, bot, False, False)
+    got = _emulate(*args, fault=fault, **kw)
+    ref = spectral_apply_bwd_plain(*args, **kw)
+    keep = [i for i, (g, r_) in enumerate(zip(got, ref)) if g is not None and r_ is not None]
+    return _errs([got[i] for i in keep], [ref[i] for i in keep])
+
+
+@pytest.mark.parametrize("c,cl", HEAD_BLOCKS)
+@pytest.mark.parametrize("variant", sorted(TP_VARIANTS))
+def test_apply_bwd_head_block_emulation_matches_plain(c, cl, variant):
+    """Both bf16 tiles on a member's head block (the first with v, t and dv
+    CL wide, comb (B, CL, C) streamed in CL / 64 tiles; the second at K =
+    CL; d comb (B, CL, C), the weight cotangents (3CL, C)), with interior
+    halo rows, against spectral_apply_bwd_plain: every output within the
+    bf16 bound 3e-2 of its max-abs."""
+    for i, err, mx in _head_block_case(c, cl, variant, halo=True):
+        assert mx > 0 and err <= 3e-2 * mx, f"output {i}: {err:.3e} > 3e-2 * {mx:.3e}"
+
+
+@pytest.mark.parametrize("fault", ["v_at_q", "dcomb_t"])
+def test_apply_bwd_head_block_emulation_sees_planted_faults(fault):
+    """The head-block check is not blind: the v rows of the 1x1 read at the
+    q rows' offset (moving dx and d comb, through v), and d comb written
+    transposed (moving d comb), each pass the bf16 bound."""
+    errs = {i: (err, mx) for i, err, mx in _head_block_case(96, 48, "gate_dp0", fault=fault)}
+    for i in ((0, 1) if fault == "v_at_q" else (1,)):
+        assert errs[i][0] > 3e-2 * errs[i][1], (fault, i, errs)
 
 
 def test_apply_wrapper_backward_runs_plain_on_cpu():

@@ -954,7 +954,7 @@ def test_cuda_spectral_stats_matches_plain(variant, c, heads, b, h, w):
         assert _route.ROUTE.plain_cuda_calls == 1
         once, again = spectral_stats(*call, **ckw), spectral_stats(*call, **ckw)
         assert all(torch.equal(u, v) for u, v in zip(once, again)), dt
-    n = _build.plan_bytes("mp_spectral_stats_tc_smem", c, heads)
+    n = _build.plan_bytes("mp_spectral_stats_tc_smem", c, c, heads)
     assert 0 < n <= _build.smem_limit()
     n32 = _build.plan_bytes("mp_spectral_stats_smem", c, c, heads)
     assert n32 == STATS_F32_PLANS[c, heads] == stats_f32_plan(c, heads)["bytes"]
@@ -1746,7 +1746,7 @@ def test_cuda_spectral_stats_bwd_tiles_match_plain(c, heads, b, h, monkeypatch):
                     again = sp._stats_bwd_launch(*call)
                     assert all(a is None or torch.equal(a, r) for a, r in zip(got, again)), what
     pl, limit = sp.stats_bwd_tc_plan(c, heads), _build.smem_limit()
-    n1 = _build.plan_bytes("mp_spectral_stats_bwd_tc_smem", c, heads)
+    n1 = _build.plan_bytes("mp_spectral_stats_bwd_tc_smem", c, c, heads)
     n2 = _build.plan_bytes("mp_dwconv_dx_tc_smem", c, 2 * c)
     assert pl["bytes"] < n1 <= min(pl["bytes"] + 1024, limit), n1
     assert pl["dx"]["bytes"] < n2 <= min(pl["dx"]["bytes"] + 1024, limit), n2
@@ -1839,8 +1839,8 @@ def test_cuda_spectral_apply_bwd_tiles_match_plain(c, b, h, monkeypatch):
                 again = sp._apply_bwd_launch(*call)
                 assert all(a is None or torch.equal(a, r) for a, r in zip(got, again)), what
     pl, limit = sp.apply_bwd_tc_plan(c), _build.smem_limit()
-    n1 = _build.plan_bytes("mp_spectral_apply_bwd_tc_smem", c, 1)
-    n2 = _build.plan_bytes("mp_spectral_apply_bwd_tc_smem", c, 2)
+    n1 = _build.plan_bytes("mp_spectral_apply_bwd_tc_smem", c, c, 1)
+    n2 = _build.plan_bytes("mp_spectral_apply_bwd_tc_smem", c, c, 2)
     assert pl["bytes"] < n1 <= min(pl["bytes"] + 1024, limit), n1
     assert pl["dx"]["bytes"] < n2 <= min(pl["dx"]["bytes"] + 1024, limit), n2
     if c in APPLY_BWD_PLANS:
@@ -2253,32 +2253,56 @@ def test_cuda_spectral_f32_head_block_backward_matches_plain(c, heads, kind):
 @pytest.mark.cuda
 def test_cuda_spectral_head_block_plans():
     """The plans keyed on (C, CL): at CL = C the pinned plans (checked
-    above), a head block's plan never larger than the whole attention's,
-    the mirrors agreeing, and no bf16 apply plan for a head block."""
+    above), a head block's plan never larger than the whole attention's in
+    both types (members of 2 and of 4), the mirrors agreeing: the float32
+    stats and apply plans to the byte, each bf16 tile's dynamic bytes within
+    its plan entry's (the static on top)."""
     from mp_hsir_tpu_torch.ops.kernels import _build
-    from mp_hsir_tpu_torch.ops.kernels.spectral import apply_f32_plan, stats_f32_plan
+    from mp_hsir_tpu_torch.ops.kernels.spectral import (
+        apply_bwd_tc_plan, apply_f32_plan, front_plan, stats_bwd_tc_plan, stats_f32_plan,
+        stats_plan,
+    )
 
     _cuda()
     pb = _build.plan_bytes
     for c, heads in TP_CASES + [(384, 8)]:
-        cl, hh = c // 2, heads // 2
-        kc = _build.chunk("mp_spectral_apply_bwd_chunk", c, c)
-        n = pb("mp_spectral_stats_smem", c, cl, hh)
-        assert n == stats_f32_plan(c, hh, cl)["bytes"] <= pb("mp_spectral_stats_smem", c, c, heads)
-        n = pb("mp_spectral_apply_smem", c, cl, 0, 0)
-        assert n == apply_f32_plan(c, cl=cl)["bytes"] <= pb("mp_spectral_apply_smem", c, c, 0, 0)
-        assert pb("mp_spectral_apply_smem", c, cl, 0, 1) == -1
-        assert pb("mp_spectral_stats_bwd_smem", c, cl, hh) <= pb("mp_spectral_stats_bwd_smem",
-                                                                 c, c, heads)
-        kct = _build.chunk("mp_spectral_apply_bwd_chunk", c, cl)
-        assert kct >= kc and pb("mp_spectral_apply_bwd_smem", c, cl, kct) <= _build.smem_limit()
+        for n in (2, 4):
+            if heads % n:
+                continue
+            cl, hh = c // n, heads // n
+            kc = _build.chunk("mp_spectral_apply_bwd_chunk", c, c)
+            got = pb("mp_spectral_stats_smem", c, cl, hh)
+            assert got == stats_f32_plan(c, hh, cl)["bytes"] <= pb("mp_spectral_stats_smem", c, c,
+                                                                   heads)
+            got = pb("mp_spectral_apply_smem", c, cl, 0, 0)
+            assert got == apply_f32_plan(c, cl=cl)["bytes"] <= pb("mp_spectral_apply_smem", c, c,
+                                                                  0, 0)
+            assert pb("mp_spectral_stats_bwd_smem", c, cl, hh) <= pb("mp_spectral_stats_bwd_smem",
+                                                                     c, c, heads)
+            kct = _build.chunk("mp_spectral_apply_bwd_chunk", c, cl)
+            assert kct >= kc and pb("mp_spectral_apply_bwd_smem", c, cl, kct) <= \
+                _build.smem_limit()
+            # bf16: (entry, its shape at CL and at C, the mirror's dynamic bytes at CL)
+            sb, ab = stats_bwd_tc_plan(c, hh, cl), apply_bwd_tc_plan(c, cl)
+            for entry, at_cl, at_c, mirror in (
+                    ("mp_spectral_stats_tc_smem", (c, cl, hh), (c, c, heads),
+                     stats_plan(c, hh, cl)["bytes"]),
+                    ("mp_spectral_apply_smem", (c, cl, 0, 1), (c, c, 0, 1),
+                     front_plan(c, cl)["front_bytes"]),
+                    ("mp_spectral_stats_bwd_tc_smem", (c, cl, hh), (c, c, heads), sb["bytes"]),
+                    ("mp_dwconv_dx_tc_smem", (c, 2 * cl), (c, 2 * c), sb["dx"]["bytes"]),
+                    ("mp_spectral_apply_bwd_tc_smem", (c, cl, 1), (c, c, 1), ab["bytes"]),
+                    ("mp_spectral_apply_bwd_tc_smem", (c, cl, 2), (c, c, 2), ab["dx"]["bytes"])):
+                got = pb(entry, *at_cl)
+                assert mirror < got <= min(mirror + 1024, pb(entry, *at_c)), (entry, c, cl, got)
 
 
 @pytest.mark.cuda
-def test_cuda_spectral_bf16_head_block_raises():
-    """bf16 has no head-block tiles yet: the wrappers raise for a bf16 head
-    block on the card, naming them, and the C entries refuse it
-    (cudaErrorInvalidValue, 1) for a bf16 call whose CL is not C."""
+def test_cuda_spectral_bf16_head_block_launches():
+    """The bf16 refusal is gone: a bf16 CUDA tensor with CL < C launches
+    the head-block tiles (stats, apply and both backwards, counted as
+    head-block launches) and raises nothing; a CL wider than C is still
+    refused by the C entries (cudaErrorInvalidValue, 1), as in float32."""
     from mp_hsir_tpu_torch.ops.kernels import spectral as sp
 
     dev = _cuda()
@@ -2286,16 +2310,124 @@ def test_cuda_spectral_bf16_head_block_raises():
     d = _tp_call(c, heads, dev)
     wq, wd, comb, hh, cl = _tp_member(d, c, heads, 0)
     xb = d["x"].to(torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="bf16 head-block tiles"):
-        spectral_stats(xb, wq, wd, hh)
-    with pytest.raises(NotImplementedError, match="bf16 head-block tiles"):
-        spectral_apply(xb, comb, wq, wd)
-    args, _, held = sp._stats_prepare(d["x"], wq, wd, hh)
+    _route.reset_counters()
+    xs = xb.clone().requires_grad_()
+    gram, nq, nk = spectral_stats(xs, wq, wd, hh)
+    y = spectral_apply(xs, comb, wq, wd, gate=d["gate"].to(torch.bfloat16) / 2)
+    (gram.sum() + nq.sum() + nk.sum() + y.float().square().sum()).backward()
+    torch.cuda.synchronize()
+    assert all(_route.COUNTERS[k].launches == 1 for k in (
+        "spectral_stats_tp", "spectral_apply_tp", "spectral_stats_bwd_tp",
+        "spectral_apply_bwd_tp")), {k: v.launches for k, v in _route.COUNTERS.items()}
+    assert _route.ROUTE.plain_cuda_calls == 0
+    assert torch.isfinite(xs.grad.float()).all()
+    args, _, held = sp._stats_prepare(xb, wq, wd, hh)
     args = list(args)
-    args[11] = 1  # the dtype code: bf16
+    args[17] = 3 * c // 2  # CL past C
     assert sp._stats_entry()(*args) == 1
-    args, _, held = sp._apply_prepare(d["x"], comb, wq, wd)
+    args, _, held = sp._apply_prepare(xb, comb, wq, wd)
     args = list(args)
-    args[18] = 1
+    args[24] = 3 * c // 2
     assert sp._apply_entry()(*args) == 1
     torch.cuda.synchronize()
+
+
+# The bf16 head blocks (K7a / K7b / K10a / K10b with CL = C / 2 and C / 4):
+# (C, heads of the whole attention) of the flagship's and the
+# remote-sensing preset's calls (CL = 48 among them) and an odd width
+TP_BF16_CASES = [(64, 2), (128, 4), (256, 8), (96, 2), (192, 4), (384, 8), (36, 2)]
+
+
+def _tp_members(c, heads):
+    return [n for n in (2, 4) if heads % n == 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", ["whole-shift0", "whole-shift4", "interior-rows"])
+@pytest.mark.parametrize("c,heads", TP_BF16_CASES)
+def test_cuda_spectral_bf16_head_block_tiles_match_plain(c, heads, rows):
+    """Each member's bf16 stats and apply tile on its head block (CL = C / 2
+    and C / 4; the apply with the gate over n and the drop-path scale, with
+    per-window gates and with a per-pixel gate map) against the plain bf16
+    versions within 3e-2 of each output's max-abs, one head-block launch of
+    each counted; the members composed (their stats stacked, their applies
+    summed) against the whole attention's bf16 kernel calls: the stats
+    within 1e-5 (bitwise where the parts match), the applies within 3e-2."""
+    from mp_hsir_tpu_torch.ops.kernels.spectral import Halo
+
+    dev = _cuda()
+    d = _tp_call(c, heads, dev)
+    x = d["x"].to(torch.bfloat16)
+    kw = {}
+    if rows == "interior-rows":  # a shard's interior halo rows: the map's last and first rows
+        kw["halo"] = Halo(x[:, -1:].contiguous(), x[:, :1].contiguous(), False, False)
+    elif rows == "whole-shift4":
+        kw["shift"] = 4
+    gates = dict(window=d["gate"].to(torch.bfloat16))
+    if "shift" not in kw:  # the route's gate maps are a row shard's, at shift 0
+        gates["map"] = d["gate"].repeat_interleave(8, dim=1).repeat_interleave(8, dim=2).to(
+            torch.bfloat16)
+    whole_st = spectral_stats(x, d["wq"], d["wd"], heads, **kw)
+    for n in _tp_members(c, heads):
+        cl = c // n
+        stats, ys = [], {g: [] for g in gates}
+        for t in range(n):
+            wq, wd, comb, hh, _ = _tp_member(d, c, heads, t, n)
+            _route.reset_counters()
+            _check_fwd(spectral_stats, [x, wq, wd, hh], kw, 3e-2)
+            assert _route.COUNTERS["spectral_stats_tp"].launches == 1
+            stats.append(spectral_stats(x, wq, wd, hh, **kw))
+            for g, gate in gates.items():
+                akw = dict(kw, gate=gate / n, dp_scale=d["dp"])
+                _route.reset_counters()
+                _check_fwd(spectral_apply, [x, comb, wq, wd], akw, 3e-2)
+                assert _route.COUNTERS["spectral_apply_tp"].launches == 1
+                ys[g].append(spectral_apply(x, comb, wq, wd, **akw))
+        for i in range(3):
+            got = torch.cat([s[i] for s in stats], dim=1)
+            assert (got - whole_st[i]).abs().max().item() <= \
+                1e-5 * whole_st[i].abs().max().item(), (n, cl, i)
+        for g, gate in gates.items():
+            want = spectral_apply(x, d["comb"], d["wq"], d["wd"], gate=gate, dp_scale=d["dp"],
+                                  **kw).float()
+            got = sum(y.float() for y in ys[g])
+            assert (got - want).abs().max().item() <= 3e-2 * want.abs().max().item(), (n, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["stats", "apply_gate_dp", "apply_gate_map"])
+@pytest.mark.parametrize("c,heads", TP_BF16_CASES)
+def test_cuda_spectral_bf16_head_block_backward_matches_plain(c, heads, kind):
+    """Each member's bf16 K10a / K10b on its head block (CL = C / 2 and C /
+    4) with interior halo rows against the plain bf16 backward within 3e-2
+    of each output's max-abs, one head-block backward counted, the first
+    tiles and the second at K = 2CL / CL launched and no grad.cu depthwise
+    or LayerNorm stage; two calls bitwise the same."""
+    from mp_hsir_tpu_torch.ops.kernels import spectral as sp
+    from mp_hsir_tpu_torch.ops.kernels.spectral import Halo
+
+    dev = _cuda()
+    d = _tp_call(c, heads, dev, seed=1)
+    x = d["x"].to(torch.bfloat16)
+    halo = Halo(x[:, -1:].contiguous(), x[:, :1].contiguous(), False, False)
+    gate = d["gate"] if kind != "apply_gate_map" else d["gate"].repeat_interleave(
+        8, dim=1).repeat_interleave(8, dim=2)
+    gate = gate.to(torch.bfloat16)
+    for n in _tp_members(c, heads):
+        for t in range(n):
+            wq, wd, comb, hh, cl = _tp_member(d, c, heads, t, n)
+            if kind == "stats":
+                dg = d["dgram"][:, t * cl:(t + 1) * cl].contiguous()
+                dn = d["dn"][:, t * hh:(t + 1) * hh].contiguous()
+                args = (x, wq, wd, hh, 0, None, None, 1e-5, dg, dn, 0.5 * dn, halo)
+                kern, plain, name = sp._stats_bwd_launch, sp.spectral_stats_bwd_plain, "stats"
+            else:
+                args = (x, comb, wq, wd, 0, None, None, False, gate / n, d["dp"], 1e-5,
+                        d["dy"].to(torch.bfloat16), halo)
+                kern, plain, name = sp._apply_bwd_launch, sp.spectral_apply_bwd_plain, "apply"
+            _route.reset_counters()
+            got = kern(*args)
+            assert _route.COUNTERS[f"spectral_{name}_bwd_tp"].launches == 1
+            _outputs_close(got, plain(*args), 3e-2, f"{kind} {n} members, member {t}")
+            again = kern(*args)
+            assert all(a is None or torch.equal(a, r) for a, r in zip(got, again)), (kind, n, t)

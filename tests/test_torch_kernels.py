@@ -285,57 +285,95 @@ def test_spectral_front_pack_layout(c, dt):
     (the rows padded to c8, a multiple of 8, only where C is not one);
     the tile's three products through those tiles (float32 sums) are the
     plain version's 1x1, depthwise 3x3 and comb product."""
+    _front_pack_case(c, dt)
+
+
+def _front_pack_case(c, dt, cl=None, fault=""):
+    """test_spectral_front_pack_layout's checks at input width ``c`` and v
+    width ``cl`` (a member's head block: wqkv (3CL, C), comb (B, CL, C);
+    the v tile, its taps and the 1x1's passes CL wide, comb's tiles CL deep
+    and C wide). fault "comb_cc": comb read as (B, C, C8), the whole
+    attention's layout (a planted fault for a head block)."""
+    cl = c if cl is None else cl
     r = _rng(14)
-    wqkv, wdw = _t(_u(r, (3 * c, c, 1, 1), c)), _t(_u(r, (3 * c, 1, 3, 3), 9))
-    comb = _t(_n(r, (2, c, c), c ** -0.5))
+    wqkv, wdw = _t(_u(r, (3 * cl, c, 1, 1), c)), _t(_u(r, (3 * cl, 1, 3, 3), 9))
+    comb = _t(_n(r, (2, cl, c), cl ** -0.5))
     wv, taps, cb = pack_front(wqkv, wdw, comb, dt)
     c8 = -(-c // 8) * 8
-    assert wv.shape == (c, c8) and taps.shape == (c, 9) and cb.shape == (2, c, c8)
+    assert wv.shape == (cl, c8) and taps.shape == (cl, 9) and cb.shape == (2, cl, c8)
     assert all(t.dtype == dt and t.is_contiguous() for t in (wv, taps, cb))
-    pl = front_plan(c)
-    cp, npass = pl["cp"], pl["np"]
+    pl = front_plan(c, cl)
+    cp, cpl, npass = pl["cp"], pl["cpl"], pl["np"]
     assert cp % 32 == 0 and c <= cp < c + 32 and pl["nk"] * FRONT_K >= cp
-    assert pl["passes"] * npass >= cp and 7 * npass // 32 <= 48  # 3 units of 16 x 32 per warp
+    assert cpl % 32 == 0 and cl <= cpl < cl + 32 and pl["nkc"] * FRONT_K >= cpl
+    assert pl["passes"] * npass >= cpl and 7 * npass // 32 <= 48  # 3 units of 16 x 32 per warp
     flat_w = wv.float().numpy().ravel()
-    got = np.zeros((cp, pl["nk"] * FRONT_K), np.float32)
-    for n0 in range(0, cp, npass):
-        n = min(npass, cp - n0)
+    got = np.zeros((cpl, pl["nk"] * FRONT_K), np.float32)
+    for n0 in range(0, cpl, npass):
+        n = min(npass, cpl - n0)
         for t in range(pl["nk"]):
             got[n0:n0 + n, FRONT_K * t:FRONT_K * (t + 1)] = _stage(
-                flat_w, c8, n0, FRONT_K * t, n, FRONT_K, c - n0, c8 - FRONT_K * t)
-    want_w = wqkv[2 * c:].reshape(c, c).to(dt).float().numpy()
-    np.testing.assert_array_equal(got[:c, :c], want_w)
-    assert not got[c:].any() and not got[:, c:].any()
+                flat_w, c8, n0, FRONT_K * t, n, FRONT_K, cl - n0, c8 - FRONT_K * t)
+    want_w = wqkv[2 * cl:].reshape(cl, c).to(dt).float().numpy()
+    np.testing.assert_array_equal(got[:cl, :c], want_w)
+    assert not got[cl:].any() and not got[:, c:].any()
     flat_t = taps.float().numpy().ravel()
-    tp = np.array([[flat_t[k * 9 + tap] if k < c else 0 for k in range(cp)] for tap in range(9)])
-    np.testing.assert_array_equal(tp[:, :c], wdw[2 * c:].reshape(c, 9).t().to(dt).float().numpy())
-    assert not tp[:, c:].any()
+    tp = np.array([[flat_t[k * 9 + tap] if k < cl else 0 for k in range(cpl)]
+                   for tap in range(9)])
+    np.testing.assert_array_equal(tp[:, :cl],
+                                  wdw[2 * cl:].reshape(cl, 9).t().to(dt).float().numpy())
+    assert not tp[:, cl:].any()
     flat_c = cb.float().numpy().ravel()
+    rows_c, nkc = (c, pl["nk"]) if fault == "comb_cc" else (cl, pl["nkc"])
+    flat_c = np.pad(flat_c, (0, 2 * rows_c * c8 - flat_c.size))  # beyond the buffer: zeros
     for b in range(2):
-        ct = np.concatenate([_stage(flat_c, c8, b * c + FRONT_K * t, 0, FRONT_K, cp,
-                                    c - FRONT_K * t, c8) for t in range(pl["nk"])])
-        np.testing.assert_array_equal(ct[:c, :c], comb[b].to(dt).float().numpy())
-        assert not ct[c:].any() and not ct[:, c:].any()
+        ct = np.concatenate([_stage(flat_c, c8, b * rows_c + FRONT_K * t, 0, FRONT_K, cp,
+                                    rows_c - FRONT_K * t, c8) for t in range(nkc)])
+        np.testing.assert_array_equal(ct[:cl, :c], comb[b].to(dt).float().numpy())
+        assert not ct[cl:].any() and not ct[:, c:].any()
     # the three products on one image's 10x10 halo (112 rows: 12 zero rows of
     # padding) through the staged tiles, against the plain version's
     x = _t(_n(r, (1, 10, 10, c))).to(dt).float()
     halo = np.zeros((FRONT_ROWS, got.shape[1]), np.float32)
     halo[:100, :c] = x.reshape(100, c).numpy()
-    t1 = halo @ got.T[:, :cp]
-    np.testing.assert_allclose(t1[:100, :c], (x @ torch.from_numpy(want_w).t()).reshape(100, c),
+    t1 = halo @ got.T[:, :cpl]
+    np.testing.assert_allclose(t1[:100, :cl], (x @ torch.from_numpy(want_w).t()).reshape(100, cl),
                                atol=1e-5, rtol=1e-5)
-    assert not t1[:, c:].any()
+    assert not t1[:, cl:].any()
     t1 = torch.from_numpy(t1[:100]).to(dt).float()
-    v = dwconv3_f32(t1[:, :c].reshape(1, 10, 10, c), wdw[2 * c:].to(dt))[:, 1:9, 1:9]
-    vt = np.zeros((64, cp), np.float32)
+    v = dwconv3_f32(t1[:, :cl].reshape(1, 10, 10, cl), wdw[2 * cl:].to(dt))[:, 1:9, 1:9]
+    vt = np.zeros((64, cpl), np.float32)
     for p in range(64):
         pr, pc = divmod(p, 8)
         for tap in range(9):
             vt[p] += t1.numpy()[(pr + tap // 3) * 10 + pc + tap % 3] * tp[tap]
-    np.testing.assert_allclose(vt[:, :c], v.reshape(64, c).numpy(), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(vt[:, :cl], v.reshape(64, cl).numpy(), atol=1e-5, rtol=1e-5)
     vt = torch.from_numpy(vt).to(dt).float().numpy()
-    np.testing.assert_allclose((vt @ ct[:cp])[:, :c], vt[:, :c] @ comb[1].to(dt).float().numpy(),
+    np.testing.assert_allclose((vt @ ct[:cpl])[:, :c], vt[:, :cl] @ comb[1].to(dt).float().numpy(),
                                atol=1e-4, rtol=1e-4)
+
+
+# a member's head block of the presets' apply calls under the spectral mesh
+# axis (CL = C / 2 and C / 4; CL = 48 of the remote-sensing C = 96, not a
+# multiple of 32) and C = 36 (CL = 18)
+FRONT_HEAD_BLOCKS = [(64, 32), (128, 64), (256, 128), (256, 64), (96, 48), (192, 96), (384, 192),
+                     (384, 96), (36, 18)]
+
+
+@pytest.mark.parametrize("c,cl", FRONT_HEAD_BLOCKS)
+def test_spectral_front_pack_layout_head_block(c, cl):
+    """test_spectral_front_pack_layout on a member's bf16 head block: the v
+    rows, taps and comb (B, CL, C) read back exactly through the kernel's
+    CL-wide passes and CL-deep comb tiles, and the three products the plain
+    version's."""
+    _front_pack_case(c, torch.bfloat16, cl)
+
+
+def test_spectral_front_pack_layout_sees_planted_fault():
+    """The head-block layout check is not blind: comb read as the whole
+    attention's (B, C, C8) fails it."""
+    with pytest.raises(AssertionError):
+        _front_pack_case(96, torch.bfloat16, 48, fault="comb_cc")
 
 
 def _dyadic(r, shape, scale, p):
@@ -363,39 +401,51 @@ def test_spectral_stats_pack_layout(c, heads, dt):
     each group's 1x1 passes rounded to dt, the depthwise 3x3 rounded to dt,
     each head's Gram and the norms per part, the parts summed in order;
     against spectral_stats_plain at 1e-5 relative."""
+    _stats_pack_case(c, heads, dt)
+
+
+def _stats_pack_case(c, heads, dt, cl=None, fault=""):
+    """test_spectral_stats_pack_layout's checks at input width ``c`` and q|k
+    width ``cl`` (a member's head block of ``heads`` heads: wqkv (3CL, C),
+    the Gram (B, CL, dh)). fault "k_at_c": the k rows read at offset C
+    instead of CL (a planted fault for a head block)."""
+    full = cl is None
+    cl = c if full else cl
     r = _rng(15)
-    wqkv = _t(_dyadic(r, (3 * c, c, 1, 1), 1 / 8, 0.25))
-    wdw = _t(_dyadic(r, (3 * c, 1, 3, 3), 1 / 2, 0.5))
+    wqkv = _t(_dyadic(r, (3 * cl, c, 1, 1), 1 / 8, 0.25))
+    wdw = _t(_dyadic(r, (3 * cl, 1, 3, 3), 1 / 2, 0.5))
     wqk, taps = pack_stats(wqkv, wdw, dt)
     c8 = -(-c // 8) * 8
-    assert wqk.shape == (2 * c, c8) and taps.shape == (2 * c, 9)
+    assert wqk.shape == (2 * cl, c8) and taps.shape == (2 * cl, 9)
     assert all(t.dtype == dt and t.is_contiguous() for t in (wqk, taps))
-    pl = stats_plan(c, heads)
+    pl = stats_plan(c, heads) if full else stats_plan(c, heads, cl)
+    k_at = c if fault == "k_at_c" else cl
     dh, dhp, hw, nqk, cp, gw, npass = (pl[k] for k in ("dh", "dhp", "hw", "nqk", "cp", "gw", "np"))
     assert dhp % 16 == 0 and dh <= dhp < dh + 16 and hw == 2 * dhp and nqk == heads * hw
     assert gw == pl["hg"] * hw and pl["groups"] * pl["hg"] >= heads and npass % 32 == 0
     assert 7 * npass // 32 <= 48 and pl["nk"] * FRONT_K >= cp  # 3 units of 16 x 32 per warp
     assert pl["bytes"] <= STATS_BUDGET
-    # the weight tiles of every pass, as the kernel stages them
-    flat = wqk.float().numpy().ravel()
+    # the weight tiles of every pass, as the kernel stages them (zeros past
+    # the buffer)
+    flat = np.pad(wqk.float().numpy().ravel(), (0, 2 * (c - cl) * c8))
     wt = np.zeros((nqk, pl["nk"] * FRONT_K), np.float32)
     for g0 in range(0, nqk, gw):
         for n0 in range(g0, min(g0 + gw, nqk), npass):
             n = min(npass, min(g0 + gw, nqk) - n0)
-            rows = np.array([qk_row(n0 + i, pl, c) for i in range(n)])
+            rows = np.array([qk_row(n0 + i, pl, k_at) for i in range(n)])
             for kt in range(pl["nk"]):
                 cols = FRONT_K * kt + np.arange(FRONT_K)
                 ok = (rows >= 0)[:, None] & (cols < c8)[None, :]
                 wt[n0:n0 + n, cols] = np.where(ok, flat[np.where(ok, rows[:, None] * c8 + cols, 0)], 0)
-    want = wqkv[:2 * c].reshape(2 * c, c).to(dt).float().numpy()
-    col_rows = np.array([qk_row(n, pl, c) for n in range(nqk)])
-    assert sorted(col_rows[col_rows >= 0]) == list(range(2 * c))
+    want = wqkv[:2 * cl].reshape(2 * cl, c).to(dt).float().numpy()
+    col_rows = np.array([qk_row(n, pl, cl) for n in range(nqk)])
+    assert sorted(col_rows[col_rows >= 0]) == list(range(2 * cl))
     np.testing.assert_array_equal(wt[col_rows >= 0, :c], want[col_rows[col_rows >= 0]])
     assert not wt[col_rows < 0].any() and not wt[:, c:].any()
     flat_t = taps.float().numpy().ravel()
     tp = np.array([[flat_t[k * 9 + tap] if k >= 0 else 0 for k in col_rows] for tap in range(9)])
     np.testing.assert_array_equal(tp[:, col_rows >= 0],
-                                  wdw[:2 * c].reshape(2 * c, 9).t().to(dt).float().numpy()[
+                                  wdw[:2 * cl].reshape(2 * cl, 9).t().to(dt).float().numpy()[
                                       :, col_rows[col_rows >= 0]])
     assert not tp[:, col_rows < 0].any()
     # the tile on a shifted 16x24 image in 4 parts
@@ -403,7 +453,7 @@ def test_spectral_stats_pack_layout(c, heads, dt):
     x = _t(_dyadic(r, (1, h, w, c), 1 / 4, 0.25)).to(dt)
     xf = x.float().numpy()[0]
     tiles = (h // 8) * (w // 8)
-    parts = np.zeros((n_parts, c * dh + 2 * c), np.float32)
+    parts = np.zeros((n_parts, cl * dh + 2 * cl), np.float32)
     for ip in range(n_parts):
         gacc = np.zeros((heads, dhp, dhp), np.float32)
         nacc = np.zeros(nqk, np.float32)
@@ -433,8 +483,60 @@ def test_spectral_stats_pack_layout(c, heads, dt):
         tot = tot + parts[ip]
     gram, nq, nk = spectral_stats_plain(x, wqkv, wdw, heads, shift=shift)
     assert np.abs(gram.numpy()).max() > 0
-    for got, ref in ((tot[:c * dh], gram), (tot[c * dh:c * dh + c], nq), (tot[c * dh + c:], nk)):
+    n = cl * dh
+    for got, ref in ((tot[:n], gram), (tot[n:n + cl], nq), (tot[n + cl:], nk)):
         np.testing.assert_allclose(got, ref.numpy().ravel(), rtol=1e-5, atol=0)
+
+
+# a member's head block of the presets' stats calls under the spectral mesh
+# axis: (C, the member's heads, CL) at CL = C / 2 and C / 4 (dh 32, 64, 48,
+# 96), CL = 48 of the remote-sensing C = 96, and C = 36 (CL 18)
+STATS_HEAD_BLOCKS = [(64, 1, 32), (128, 2, 64), (128, 1, 32), (256, 4, 128), (256, 2, 64),
+                     (96, 1, 48), (192, 1, 96), (384, 4, 192), (384, 2, 96), (36, 1, 18)]
+
+
+@pytest.mark.parametrize("c,heads,cl", STATS_HEAD_BLOCKS)
+def test_spectral_stats_pack_layout_head_block(c, heads, cl):
+    """test_spectral_stats_pack_layout on a member's bf16 head block: its
+    q|k rows (the k rows at offset CL) back exactly through the head groups
+    of stats_plan(c, heads, cl), and the emulated tile's Gram (CL, dh) and
+    norms the plain version's at 1e-5 relative."""
+    _stats_pack_case(c, heads, torch.bfloat16, cl)
+
+
+def test_spectral_stats_pack_layout_sees_planted_fault():
+    """The head-block layout check is not blind: the k rows read at offset
+    C instead of CL fail it."""
+    with pytest.raises(AssertionError):
+        _stats_pack_case(96, 1, torch.bfloat16, 48, fault="k_at_c")
+
+
+@pytest.mark.parametrize("c,heads", [(64, 2), (128, 4), (128, 2), (256, 8), (96, 2), (192, 2),
+                                     (192, 4), (384, 8), (36, 2)])
+def test_head_block_plan_mirrors(c, heads):
+    """The bf16 plan mirrors keyed on (C, CL): at CL = C they are the whole
+    attention's (the default); a member's head block on 2 and 4 members
+    (where the heads divide) takes a plan within the budget and never larger
+    than the whole attention's at the same C, in all four tiles (the stats
+    tile, the apply front, the stats backward's two tiles, the apply
+    backward's two tiles)."""
+    from mp_hsir_tpu_torch.ops.kernels.spectral import apply_bwd_tc_plan, stats_bwd_tc_plan
+
+    assert front_plan(c, c) == front_plan(c) and stats_plan(c, heads, c) == stats_plan(c, heads)
+    assert stats_bwd_tc_plan(c, heads, c) == stats_bwd_tc_plan(c, heads)
+    assert apply_bwd_tc_plan(c, c) == apply_bwd_tc_plan(c)
+
+    def sizes(cl, hh):
+        sb, ab = stats_bwd_tc_plan(c, hh, cl), apply_bwd_tc_plan(c, cl)
+        return (front_plan(c, cl)["front_bytes"], stats_plan(c, hh, cl)["bytes"], sb["bytes"],
+                sb["dx"]["bytes"], ab["bytes"], ab["dx"]["bytes"])
+
+    whole = sizes(c, heads)
+    for n in (2, 4):
+        if heads % n:
+            continue
+        got = sizes(c // n, heads // n)
+        assert all(g <= w <= STATS_BUDGET for g, w in zip(got, whole)), (n, got, whole)
 
 
 def test_gdfn_with_exit_projection_matches_pallas():

@@ -7,7 +7,8 @@ q|k columns with dh padded to dhp in groups and passes, dG staged
 epilogue and the roll-back, the per-tile partials, emulated in
 tests/dwconv_dx_emulation.py) and the wrapper's weight
 product and in-order sums, at the rounding points of
-``spectral_stats_bwd_plain``, against it; one tiny case against JAX's
+``spectral_stats_bwd_plain``, against it, on the whole attention and on a
+member's head block (q|k width CL < C, K = 2CL); one tiny case against JAX's
 ``_sp0_bwd_call`` in interpret mode. The kernels themselves are held against
 the plain version on the card by tests/test_torch_cuda.py and chip_smoke.py.
 Imports JAX only in the test that compares with it."""
@@ -52,33 +53,41 @@ def _halo_in(rows, flags, lnw, lnb, dt, eps):
 
 
 def _launch1(x, wq, wd, heads, shift, lnw, lnb, dgram, dnq, dnk, dt, eps, transposed=True,
-             hrows=(None, None)):
+             hrows=(None, None), k_at=None):
     """The first tile on every 8x8 tile: (un, t, dqk) in the unrolled frame,
     t and dqk in the torch channel order, then un_halo [2][B][W][C] and
-    t_halo [2][B][W][2C]: the LN'd input and 1x1 output of a row shard's
+    t_halo [2][B][W][2CL]: the LN'd input and 1x1 output of a row shard's
     staged halo rows ``hrows`` (_halo_in), which the first and last tile
-    rows write (zero on a side without a row). transposed=False computes dq
-    with dG instead of dG^T (a planted fault)."""
+    rows write (zero on a side without a row). CL = wq's rows / 2: C, or a
+    member's head block of ``heads`` heads. transposed=False computes dq
+    with dG instead of dG^T (a planted fault); ``k_at``: the k rows read at
+    that offset instead of CL (a planted fault for a head block)."""
     b, h, w, c = x.shape
-    pl = stats_bwd_tc_plan(c, heads)
+    cl = wq.shape[0] // 2
+    pl = stats_bwd_tc_plan(c, heads, cl)
     dh, dhp, hw, nqk = pl["dh"], pl["dhp"], pl["hw"], pl["nqk"]
     raw = np.roll(x, (shift, shift), axis=(1, 2))
     un = raw if lnw is None else _rnd(_ln(raw, lnw, lnb, eps)[2], dt)
     halo = _tiles(un, *hrows)  # the halo staged as bf16, LN in place, zero outside
     sides = [s for s in range(2) if hrows[s] is not None]
     un_h = np.zeros((2, b, w, c), np.float32)
-    t_h = np.zeros((2, b, w, 2 * c), np.float32)
+    t_h = np.zeros((2, b, w, 2 * cl), np.float32)
     for side in sides:
         un_h[side] = _halo_row_out(halo, side, b, h, w)
-    rows = np.array([qk_row(n, pl, c) for n in range(nqk)])
+    rows = np.array([qk_row(n, pl, cl) for n in range(nqk)])
     ok = rows >= 0
-    wg = np.where(ok[:, None], wq[np.maximum(rows, 0), :c], 0)  # [nqk][C]
-    tg = np.where(ok[:, None], wd[np.maximum(rows, 0)], 0)      # [nqk][9]
+    if k_at is not None:  # the weight rows read with k at the wrong offset (clipped)
+        read = np.array([min(qk_row(n, pl, k_at), 2 * cl - 1) if r >= 0 else 0
+                         for n, r in enumerate(rows)])
+    else:
+        read = np.maximum(rows, 0)
+    wg = np.where(ok[:, None], wq[read, :c], 0)  # [nqk][C]
+    tg = np.where(ok[:, None], wd[read], 0)      # [nqk][9]
     dg = np.zeros((b, heads, dhp, dhp), np.float32)
     dg[:, :, :dh, :dh] = _rnd(dgram.reshape(b, heads, dh, dh), dt)
     dn = np.zeros((b, heads, 2, dhp), np.float32)
     dn[:, :, 0, :dh], dn[:, :, 1, :dh] = dnq, dnk
-    t_out = np.zeros(halo.shape[:3] + (64, 2 * c), np.float32)
+    t_out = np.zeros(halo.shape[:3] + (64, 2 * cl), np.float32)
     dqk = np.zeros_like(t_out)
     for g in range(pl["groups"]):
         g0 = g * pl["gw"]
@@ -107,8 +116,8 @@ def _launch1(x, wq, wd, heads, shift, lnw, lnb, dgram, dnq, dnk, dt, eps, transp
             for side, v in ((0, dq), (1, dk)):
                 n = g0 + hh * hw + side * dhp + np.arange(dh)
                 dqk[..., rows[n]] = v[..., :dh]
-    return (un, _untile(t_out.reshape(-1, 64, 2 * c), b, h, w),
-            _untile(dqk.reshape(-1, 64, 2 * c), b, h, w), un_h, t_h)
+    return (un, _untile(t_out.reshape(-1, 64, 2 * cl), b, h, w),
+            _untile(dqk.reshape(-1, 64, 2 * cl), b, h, w), un_h, t_h)
 
 
 def _emulate(x, wqkv, wdw, heads, shift, ln_w, ln_b, eps, dgram, dnq, dnk, transposed=True,
@@ -119,9 +128,11 @@ def _emulate(x, wqkv, wdw, heads, shift, ln_w, ln_b, eps, dgram, dnq, dnk, trans
     the wrapper's halo-row backward, and the outputs end with d top, d bot.
     Planted faults on a shard: "swapped" (the halo rows top for bottom),
     "edge" (the top edge flag inverted), "no_taps" (the halo rows' tap
-    partials left out)."""
+    partials left out); on a head block (CL = wqkv.shape[0] / 3 < C):
+    "k_at_c" (the k rows read at offset C instead of CL)."""
     dt = x.dtype
     c = x.shape[-1]
+    cl = wqkv.shape[0] // 3
     wq, wd = (a.float().numpy() for a in pack_stats(wqkv, wdw, dt))
     lnw = None if ln_w is None else ln_w.float().numpy()
     lnb = None if ln_b is None else ln_b.float().numpy()
@@ -134,39 +145,45 @@ def _emulate(x, wqkv, wdw, heads, shift, ln_w, ln_b, eps, dgram, dnq, dnk, trans
         flags = halo.flags ^ (1 if fault == "edge" else 0)
         hrows = _halo_in(rows, flags, lnw, lnb, dt, eps)
     un, t, dqk, un_h, t_h = _launch1(xf, wq, wd, heads, shift, lnw, lnb, dgram.numpy(),
-                                     dnq.numpy(), dnk.numpy(), dt, eps, transposed, hrows)
+                                     dnq.numpy(), dnk.numpy(), dt, eps, transposed, hrows,
+                                     c if fault == "k_at_c" else None)
     dtt, dx, part = _launch2(xf, dqk, t, wd, wq, lnw, shift, dt, eps)
     tot = np.zeros(part.shape[1], np.float32)
     for row in part:  # sum_parts: the tiles in order
         tot += row
-    dw = np.zeros((3 * c, c), np.float32)
-    dw[:2 * c] = dtt.reshape(-1, 2 * c).T @ un.reshape(-1, c)
-    taps = tot[:18 * c].reshape(9, 2 * c)
-    dln = (tot[18 * c:19 * c], tot[19 * c:]) if ln_w is not None else (None, None)
+    k = 2 * cl
+    dw = np.zeros((3 * cl, c), np.float32)
+    dw[:k] = dtt.reshape(-1, k).T @ un.reshape(-1, c)
+    taps = tot[:9 * k].reshape(9, k)
+    dln = (tot[9 * k:9 * k + c], tot[9 * k + c:]) if ln_w is not None else (None, None)
     dtop = dbot = None
     if halo is not None:
         dth, dwh = _halo_taps(dqk, t_h, wd, flags, dt, fault)
         taps[:3] += dwh[0]
         taps[6:] += dwh[1]
         dtop, dbot, dw_h, dln_h = _halo_rows_bwd(dth, wq, rows, lnw, eps, flags, un_h, dt)
-        dw[:2 * c] += dw_h
+        dw[:k] += dw_h
         if dln_h is not None:
             dln = tuple(a + e for a, e in zip(dln, dln_h))
-    dwdw = np.zeros((3 * c, 9), np.float32)
-    dwdw[:2 * c] = taps.T
-    out = (dx, dw.reshape(3 * c, c, 1, 1), dwdw.reshape(3 * c, 1, 3, 3), *dln)
+    dwdw = np.zeros((3 * cl, 9), np.float32)
+    dwdw[:k] = taps.T
+    out = (dx, dw.reshape(3 * cl, c, 1, 1), dwdw.reshape(3 * cl, 1, 3, 3), *dln)
     return out if halo is None else out + (dtop, dbot)
 
 
-def _inputs(c, heads, dt, seed, ln, b=2, h=8, w=16):
+def _inputs(c, heads, dt, seed, ln, b=2, h=8, w=16, cl=None):
+    """One call's operands; ``cl``: a member's head block of ``heads``
+    heads (wqkv (3CL, C), dgram (B, CL, dh)) instead of the whole
+    attention."""
     r = _rng(seed)
     f = lambda *s, scale=1.0: torch.from_numpy(_n(r, s, scale))  # noqa: E731
-    dh = c // heads
+    cl = c if cl is None else cl
+    dh = cl // heads
     x = f(b, h, w, c).to(dt)
-    wqkv, wdw = torch.from_numpy(_u(r, (3 * c, c, 1, 1), c)), torch.from_numpy(
-        _u(r, (3 * c, 1, 3, 3), 9))
+    wqkv, wdw = torch.from_numpy(_u(r, (3 * cl, c, 1, 1), c)), torch.from_numpy(
+        _u(r, (3 * cl, 1, 3, 3), 9))
     lnw, lnb = (1 + f(c, scale=0.1), f(c, scale=0.1)) if ln else (None, None)
-    return (x, wqkv, wdw, heads, lnw, lnb, f(b, c, dh, scale=0.05), f(b, heads, dh, scale=0.05),
+    return (x, wqkv, wdw, heads, lnw, lnb, f(b, cl, dh, scale=0.05), f(b, heads, dh, scale=0.05),
             f(b, heads, dh, scale=0.05))
 
 
@@ -274,6 +291,54 @@ def test_stats_bwd_emulation_sees_the_transpose(c, heads):
     """The check is not blind to dG's orientation: dq computed with dG
     instead of dG^T moves dx and d wqkv past the bf16 bound."""
     errs = _case(c, heads, 4, True, torch.bfloat16, transposed=False)
+    assert all(errs[i][0] > 3e-2 * errs[i][1] for i in (0, 1)), errs
+
+
+# a member's head block under the spectral mesh axis, bf16: (C, heads of the
+# member, CL) at CL = C / 2 and C / 4 of the presets' widths, CL = 48 (the
+# remote-sensing preset's C = 96 on two members: not a multiple of 32) and
+# an odd one (C = 36, CL = 18)
+HEAD_BLOCKS = [(64, 1, 32), (128, 2, 64), (128, 1, 32), (96, 1, 48), (192, 1, 96), (192, 1, 48),
+               (36, 1, 18)]
+
+
+def _head_block_case(c, heads, cl, shift=0, edges=None, fault=""):
+    """A member's bf16 head block (the q|k rows of its heads, dgram (B, CL,
+    dh)): the emulation's errors against spectral_stats_bwd_plain, every
+    output (with ``edges``: a row shard's halo rows, d top and d bot too)."""
+    x, wqkv, wdw, nh, lnw, lnb, dg, dq, dk = _inputs(c, heads, torch.bfloat16, 70 + c + cl, False,
+                                                     cl=cl)
+    halo = None
+    if edges is not None:
+        r = _rng(8 + cl)
+        top, bot = (torch.from_numpy(_n(r, (2, 1, 16, c))).to(torch.bfloat16) for _ in range(2))
+        halo = Halo(top, bot, *edges)
+    got = _emulate(x, wqkv, wdw, nh, shift, lnw, lnb, 1e-5, dg, dq, dk, halo=halo, fault=fault)
+    ref = spectral_stats_bwd_plain(x, wqkv, wdw, nh, shift, lnw, lnb, 1e-5, dg, dq, dk, halo=halo)
+    pairs = [(g, r) for g, r in zip(got, ref) if g is not None and r is not None]
+    return _errs(*zip(*pairs))
+
+
+@pytest.mark.parametrize("c,heads,cl", HEAD_BLOCKS)
+@pytest.mark.parametrize("rows", ["whole", "interior"])
+def test_stats_bwd_head_block_emulation_matches_plain(c, heads, cl, rows):
+    """Both bf16 tiles on a member's head block (the first at q|k width CL:
+    its head groups, t and dqk 2CL wide; the second at K = 2CL; the weight
+    cotangents (3CL, C)), on the whole map at shift 4 and on a row shard
+    with interior halo rows, against spectral_stats_bwd_plain: every output
+    within the bf16 bound 3e-2 of its max-abs."""
+    errs = (_head_block_case(c, heads, cl, shift=4) if rows == "whole" else
+            _head_block_case(c, heads, cl, edges=(False, False)))
+    for i, (err, mx) in enumerate(errs):
+        assert mx > 0 and err <= 3e-2 * mx, f"output {i}: {err:.3e} > 3e-2 * {mx:.3e}"
+
+
+@pytest.mark.parametrize("c,heads,cl", [(64, 1, 32), (96, 1, 48)])
+def test_stats_bwd_head_block_emulation_sees_planted_fault(c, heads, cl):
+    """The head-block check is not blind: the k rows of the member's q|k
+    weights read at offset C instead of CL moves dx and d wqkv past the bf16
+    bound."""
+    errs = _head_block_case(c, heads, cl, shift=4, fault="k_at_c")
     assert all(errs[i][0] > 3e-2 * errs[i][1] for i in (0, 1)), errs
 
 
